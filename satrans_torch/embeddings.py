@@ -1,4 +1,5 @@
-"""Fused embedding bank (twin of ``satrans_tpu/embeddings.py``, forward).
+"""Fused embedding bank (twin of ``satrans_tpu/embeddings.py``: the forward
+and the full-table L2).
 
 All large tables are concatenated row-wise into one ``[R, d]`` bank, and a
 whole batch embeds with one gather ``bank[ids + field_offsets]``.  Tables
@@ -139,3 +140,15 @@ def embed_fields(emb: Bank, layout: FeatureLayout, batch) -> torch.Tensor:
     if not parts:
         raise ValueError("no sparse features")
     return torch.cat(parts, dim=1) if len(parts) > 1 else parts[0]
+
+
+def l2_loss(emb: Bank, l2: float):
+    """Full-table L2 over the bank and the side bank, matching reference
+    basemodel.py:519-535 (the JAX twin's ``l2_loss``; its packed layout
+    holds the same values plus zero pad rows, so the sums agree)."""
+    if l2 <= 0.0:
+        return torch.zeros((), dtype=emb.bank.dtype, device=emb.bank.device)
+    loss = torch.sum(torch.square(emb.bank))
+    if emb.small is not None:
+        loss = loss + torch.sum(torch.square(emb.small))
+    return l2 * loss

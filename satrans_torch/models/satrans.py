@@ -1,5 +1,5 @@
 """SATrans: Scenario-Adaptive Transformer for multi-domain CTR (twin of
-``satrans_tpu/models/satrans.py``, single scenario column, inference).
+``satrans_tpu/models/satrans.py``, single scenario column).
 
 Forward:
 
@@ -9,16 +9,19 @@ Forward:
    MetaNet params shared by Q, K and every layer;
 3. ``dom = clip(scenario id, 0, D)``;
 4. the meta-transformer layers, each through
-   :func:`satrans_torch.ops.meta_block.fused_meta_layer` (the CUDA kernel
-   on the card, its plain version on the CPU), or through the plain
+   :func:`satrans_torch.ops.meta_block.fused_meta_layer` (the CUDA kernels
+   on the card, forward and, in training, backward; the plain version on
+   the CPU), or through the plain
    :func:`satrans_torch.nn.attention.meta_transformer_apply` when
    ``use_kernel=False``;
 5. flatten, the dense columns, one linear and a sigmoid.
 
 This slice supports one scenario column, the metanet variant with shared
 (non-``pos``) 2-matrix MetaNets, any ``meta_mode`` (a projection is
-transformed iff its letter appears), ``relu_out`` and float32.  The rest
-raises ``NotImplementedError`` naming its ROADMAP item.
+transformed iff its letter appears), ``relu_out`` and float32, in
+inference and in training at ``dropout_rate=0`` (:meth:`reg_loss` is the
+full-table embedding L2).  The rest raises ``NotImplementedError`` naming
+its ROADMAP item.
 """
 
 from __future__ import annotations
@@ -43,7 +46,7 @@ class SATrans(nn.Module):
                  domain_att_layer_num: int = 3, att_head_num: int = 4,
                  meta_mode: str = "QK",
                  meta_dnn_hidden_units: Sequence[int] = (64, 32),
-                 init_std: float = 1e-4,
+                 l2_reg_embedding: float = 1e-5, init_std: float = 1e-4,
                  task: str = "binary", dropout_rate: float = 0.1,
                  seed: int = 1024, use_pos: bool = False,
                  variant: str = "metanet", only_emb: bool = False,
@@ -85,6 +88,7 @@ class SATrans(nn.Module):
         self.meta_mode = meta_mode
         self.task = task
         self.dropout_rate = dropout_rate
+        self.l2_reg_embedding = float(l2_reg_embedding)
         self.relu_out = relu_out
         self.use_kernel = use_kernel
         self.domain_index = layout.sparse_index(self.domain_cols[0])
@@ -116,8 +120,10 @@ class SATrans(nn.Module):
         ``[B, S]``, optional ``dense`` and ``varlen``).  Returns ``[B]``."""
         if self.training and self.dropout_rate > 0.0:
             raise NotImplementedError(
-                "training (dropout) is the training slice, ROADMAP queue 1 "
-                "item 'train/'; call .eval() to serve")
+                f"training with dropout_rate={self.dropout_rate}: the "
+                "in-kernel dropout at the layer's four sites is ROADMAP "
+                "queue 2 item 'K1-stash and K1-bwd-stash with dropout'; "
+                "train with dropout_rate=0.0 or call .eval() to serve")
         x = embeddings.embed_fields(self.emb, self.layout, batch)
         dom = batch["sparse"][:, self.domain_index].long().clamp(
             0, self.num_domains)
@@ -134,3 +140,8 @@ class SATrans(nn.Module):
         if self.layout.dense_dim > 0 and "dense" in batch:
             flat = torch.cat([flat, batch["dense"]], dim=1)
         return core.prediction(self.head(flat), self.task)[:, 0]
+
+    def reg_loss(self) -> torch.Tensor:
+        """Embedding L2 only (reference satrans.py:120-122 and
+        basemodel.py:180; the JAX twin's ``reg_loss``)."""
+        return embeddings.l2_loss(self.emb, self.l2_reg_embedding)

@@ -10,8 +10,10 @@ the residual from the raw input and the LayerNorm.
 Head split follows torch's ``torch.stack(torch.split(q, dh, dim=2))``:
 ``[B, F, d] -> [B, H, F, d/H]``.
 
-Supported in this slice: the metanet variant with shared (non-``pos``)
-MetaNets, in inference.  The rest raises ``NotImplementedError``.
+Supported so far: the metanet variant with shared (non-``pos``)
+MetaNets, without dropout (inference, and training at dropout 0; autograd
+of this function is the plain version of the backward kernel
+``csrc/meta_block_bwd.cu``).  The rest raises ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -90,7 +92,7 @@ def meta_transformer_apply(layer: MetaTransformerLayer, x, meta_params,
                            meta_units: Sequence[int], *, mode: str = "QK",
                            head_num: int = 4, relu_out: bool = False,
                            domain_ids=None, dense_select: bool = False):
-    """One SATrans block in inference.
+    """One SATrans block without dropout.
 
     ``meta_params``: dict with keys 'Q' and 'K'.  Each value is either
     per-example ``[B, P]`` flat params or, when ``domain_ids`` is given,

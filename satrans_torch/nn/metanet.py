@@ -5,8 +5,8 @@ Given field embeddings ``x: [B, F, d]`` and flat parameters with
 ``P = sum(units[i] * units[i+1])``, slice the flat vector into weight
 matrices ``W_i: [units[i], units[i+1]]`` and apply a bias-free MLP (ReLU
 between layers, not after the last), then the residual add and the
-LayerNorm.  Inference only: the dropout site comes with the
-training slice.
+LayerNorm.  No dropout: the MetaNet's dropout site comes with the
+in-kernel dropout (ROADMAP queue 2, K1-stash and K1-bwd-stash).
 """
 
 from __future__ import annotations

@@ -1,0 +1,262 @@
+"""The training engine (twin of ``satrans_tpu/train/trainer.py``): the
+single-task ``Trainer`` with the dense bank update.
+
+One step is autograd of the model in train mode, the pad-weighted BCE sum
+(:class:`SingleTask`), the model's full-table embedding L2
+(``model.reg_loss()``) and Adam over every parameter, the bank included
+(``bank_update='dense'``, what ``'auto'`` resolves to on one device).  On
+the card each meta-transformer layer runs K1-fwd forward and K1-bwd
+backward (``ops/meta_block.py``).  Adam is ``torch.optim.Adam`` with
+``eps`` outside the square root, the same update as ``optax.adam``, in its
+fused form: one pass over each parameter, its gradient and its moments
+(the 841 MB AliCCP bank makes the update a memory-bound pass).
+
+As in the JAX package, the last partial batch is padded to the batch size
+with zero rows of weight 0: with sum-reduced losses that is the
+reference's smaller tail batch.  Step statistics stay on the device and
+reach the host once per epoch (and at a verbose print).
+
+What the JAX Trainer also offers raises ``NotImplementedError`` naming its
+ROADMAP item: a mesh, the sparse bank modes, checkpoints, streaming
+``fit_from_iterator``, ``evaluate_domains`` and optimizers other than
+Adam.  ``scan_steps > 1`` (the JAX package's multi-step XLA program) runs
+the same single steps one after another.
+"""
+
+from __future__ import annotations
+
+import time
+from typing import Sequence
+
+import numpy as np
+import torch
+
+from . import callbacks as cb, losses, metrics as metrics_lib
+from ..utils import resolve_device
+
+_MODES = ("auto", "dense", "fused", "fused_eq", "lazy", "lazy_stale")
+
+_ELEMENTWISE = {
+    "binary_crossentropy": losses.bce_elementwise,
+    "mse": lambda p, y: torch.square(p - y),
+    "mae": lambda p, y: torch.abs(p - y),
+}
+
+
+class SingleTask:
+    """Loss and routing for one-head models."""
+
+    def __init__(self, loss="binary_crossentropy"):
+        name = loss[0] if isinstance(loss, (list, tuple)) else loss
+        self.elem = _ELEMENTWISE[name] if isinstance(name, str) else name
+
+    def loss(self, pred, y, weight):
+        # weight is the 0/1 pad mask: a sum over the real samples only
+        return torch.sum(weight * self.elem(pred, y))
+
+
+class Trainer:
+    def __init__(self, model, *, mesh=None, seed: int = 1024,
+                 device="cuda"):
+        if mesh is not None:
+            raise NotImplementedError(
+                "a mesh is ROADMAP queue 1 item 'parallel/ → "
+                "torch.distributed'")
+        self.device = resolve_device(device)
+        self.model = model.to(self.device)
+        self.layout = model.layout
+        self.seed = int(seed)
+        self.stop_training = False
+        self.history = cb.History()
+        self.optimizer = None
+        self._strategy = None
+
+    # ------------------------------------------------------------------
+    def compile(self, optimizer="adam", loss="binary_crossentropy",
+                metrics: Sequence[str] = ("binary_crossentropy", "auc"),
+                learning_rate: float = 0.001, bank_update: str = "auto"):
+        """Keras-style compile (reference basemodel.py:540-552).  Only
+        Adam and the dense bank update are ported."""
+        if bank_update not in _MODES:
+            raise ValueError(f"unknown bank_update {bank_update!r}")
+        if bank_update not in ("auto", "dense"):
+            raise NotImplementedError(
+                f"bank_update={bank_update!r} is ROADMAP queue 1 item "
+                "'train/bank_optimizer.py sparse modes'")
+        if optimizer != "adam":
+            raise NotImplementedError(
+                f"optimizer {optimizer!r}: only 'adam' is ported; the "
+                "others are ROADMAP queue 1 item 'remaining Trainer "
+                "surface'")
+        self.optimizer = torch.optim.Adam(self.model.parameters(),
+                                          lr=float(learning_rate),
+                                          betas=(0.9, 0.999), eps=1e-8,
+                                          fused=True)
+        self.metric_fns = {m: metrics_lib.get_metric(m) for m in metrics}
+        self._strategy = SingleTask(loss)
+        return self
+
+    # ------------------------------------------------------------------
+    def _device_batch(self, batch_np: dict) -> dict:
+        """numpy arrays -> tensors on the device.  For the card they go
+        through pinned memory, so that the copy is queued behind the
+        previous step's kernels and the host goes on to the next batch (a
+        copy from pageable memory would wait for them)."""
+        out = {}
+        for k, v in batch_np.items():
+            t = torch.from_numpy(np.ascontiguousarray(v))
+            if self.device.type == "cuda":
+                t = t.pin_memory()
+            out[k] = t.to(self.device, non_blocking=True)
+        return out
+
+    @staticmethod
+    def _pad(arr, target):
+        n = len(arr)
+        if n == target:
+            return arr
+        return np.pad(arr, [(0, target - n)] + [(0, 0)] * (arr.ndim - 1))
+
+    def loss_terms(self, batch, y, weight):
+        """``(total, data loss, reg loss, aux loss)`` of one batch in train
+        mode: the function one step differentiates."""
+        pred = self.model(batch)
+        data_loss = self._strategy.loss(pred, y, weight)
+        reg = self.model.reg_loss()
+        aux = torch.zeros((), dtype=data_loss.dtype, device=data_loss.device)
+        return data_loss + reg + aux, data_loss, reg, aux
+
+    def train_step(self, batch, y, weight) -> dict:
+        """One optimizer step; returns its statistics as device scalars."""
+        self.model.train()
+        self.optimizer.zero_grad(set_to_none=True)
+        total, data_loss, reg, aux = self.loss_terms(batch, y, weight)
+        total.backward()
+        self.optimizer.step()
+        return {"loss": data_loss.detach(), "reg_loss": reg.detach(),
+                "aux_loss": aux, "count": torch.sum(weight)}
+
+    # ------------------------------------------------------------------
+    def fit(self, x: dict, y, *, batch_size: int = 256, epochs: int = 1,
+            validation_data=None, valid_cnt_per_epoch: int = 1,
+            shuffle: bool = True, verbose: int = 1, callbacks=None,
+            steps_per_epoch: int | None = None, scan_steps: int = 1,
+            checkpoint_path: str | None = None,
+            checkpoint_every: int | None = None, resume: bool = False):
+        """Train; mirrors the reference fit (meta_basemodel.py:200-385).
+        ``x``: {feature name: numpy column}; ``y``: numpy labels."""
+        if checkpoint_path is not None or checkpoint_every or resume:
+            raise NotImplementedError(
+                "checkpoints are ROADMAP queue 1 item 'train/checkpoint.py'")
+        if self.optimizer is None:
+            raise RuntimeError("call compile() before fit()")
+        data = self.layout.batch_from_dict(x)
+        labels = np.asarray(y, dtype=np.float32).reshape(-1)
+        n = len(labels)
+        steps = (n - 1) // batch_size + 1
+        if steps_per_epoch is not None:
+            steps = min(steps, steps_per_epoch)
+        steps_to_valid = steps // max(valid_cnt_per_epoch, 1) + 1
+        every = max(int(scan_steps), 1)  # steps between verbose prints
+
+        callback_list = cb.CallbackList((callbacks or []) + [self.history])
+        callback_list.set_trainer(self)
+        self.stop_training = False
+        callback_list.on_train_begin()
+        if verbose:
+            n_val = len(validation_data[1]) if validation_data else 0
+            print(f"Train on {n} samples, validate on {n_val} samples, "
+                  f"{steps} steps per epoch")
+
+        rng_np = np.random.default_rng(self.seed)
+        for epoch in range(epochs):
+            callback_list.on_epoch_begin(epoch)
+            t0 = time.time()
+            perm = rng_np.permutation(n) if shuffle else np.arange(n)
+            acc = None
+            seen = 0
+            for step in range(1, steps + 1):
+                idx = perm[(step - 1) * batch_size:step * batch_size]
+                bsz = len(idx)
+                batch = self._device_batch(
+                    {k: self._pad(v[idx], batch_size)
+                     for k, v in data.items()})
+                wb = np.zeros(batch_size, np.float32)
+                wb[:bsz] = 1.0
+                yb, wb = self._device_batch(
+                    {"y": self._pad(labels[idx], batch_size),
+                     "w": wb}).values()
+                stats = self.train_step(batch, yb, wb)
+                seen += bsz
+                acc = stats if acc is None else {
+                    k: acc[k] + v for k, v in stats.items()}
+                if verbose and (step % 50 < every or step >= steps):
+                    denom = max(float(stats["count"]), 1.0)
+                    print(f"\rstep {step}/{steps} "
+                          f"loss {float(stats['loss']) / denom:.6f} "
+                          f"reg {float(stats['reg_loss']) / denom:.6f}",
+                          end="", flush=True)
+                callback_list.on_batch_end(step, {"loss": stats["loss"]})
+                if (validation_data is not None and valid_cnt_per_epoch > 1
+                        and step % steps_to_valid < every):
+                    r = self.evaluate(*validation_data,
+                                      batch_size=batch_size * 4)
+                    print(f"\nStep {step}/{steps} " + " - ".join(
+                        f"val_{k}: {v:.4f}" for k, v in r.items()))
+                if self.stop_training:
+                    break
+
+            a = {k: float(v) for k, v in acc.items()} if acc is not None \
+                else {"loss": 0.0, "reg_loss": 0.0, "aux_loss": 0.0}
+            total = a["loss"] + a["reg_loss"] + a["aux_loss"]
+            epoch_logs = {"loss": total / max(seen, 1)}
+            if validation_data is not None:
+                val = self.evaluate(*validation_data,
+                                    batch_size=batch_size * 4)
+                epoch_logs.update({f"val_{k}": v for k, v in val.items()})
+            if verbose:
+                dur = int(time.time() - t0)
+                print(f"\nEpoch {epoch + 1}/{epochs} - {dur}s - " +
+                      " - ".join(f"{k}: {v:.4f}"
+                                 for k, v in epoch_logs.items()))
+            callback_list.on_epoch_end(epoch, epoch_logs)
+            if self.stop_training:
+                break
+
+        callback_list.on_train_end()
+        return self.history
+
+    def fit_from_iterator(self, *args, **kwargs):
+        raise NotImplementedError(
+            "fit_from_iterator is ROADMAP queue 1 item 'data/ and native/' "
+            "(the sharded iterators)")
+
+    # ------------------------------------------------------------------
+    def predict(self, x: dict, batch_size: int = 256) -> np.ndarray:
+        """Inference over a feature dict -> float64 scores ``[N]``; each
+        batch is padded to ``batch_size`` (reference predict,
+        meta_basemodel.py:401-517)."""
+        data = self.layout.batch_from_dict(x)
+        n = len(next(iter(data.values())))
+        self.model.eval()
+        outs = []
+        with torch.no_grad():
+            for start in range(0, n, batch_size):
+                stop = min(start + batch_size, n)
+                batch = self._device_batch(
+                    {k: self._pad(v[start:stop], batch_size)
+                     for k, v in data.items()})
+                outs.append(self.model(batch)[:stop - start])
+            scores = torch.cat(outs).cpu() if outs else torch.zeros(0)
+        return scores.numpy().astype("float64")
+
+    def evaluate(self, x: dict, y, batch_size: int = 256) -> dict:
+        pred = self.predict(x, batch_size)
+        yy = np.asarray(y).reshape(-1)
+        return {name: fn(yy, pred) for name, fn in self.metric_fns.items()}
+
+    def evaluate_domains(self, *args, **kwargs):
+        raise NotImplementedError(
+            "evaluate_domains (on-device per-domain AUC) is ROADMAP queue 1 "
+            "item 'parallel/ → torch.distributed' (distributed rank AUC); "
+            "use metrics.per_domain_auc on predict()'s scores")
