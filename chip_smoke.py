@@ -24,7 +24,21 @@ Phases, each of which exits non-zero on failure:
    tail): one step's gradients on the kernel path against the plain
    path, exactly 3 forward and 3 backward launches per step, a finite
    loss at every step, trained examples/s, a torch.profiler breakdown of
-   one step, and predict/evaluate on 20,000 examples.
+   one step, and predict/evaluate on 20,000 examples;
+6. hold each row kernel of the sparse bank updates against its plain
+   PyTorch version at the AliCCP sota shapes (bank, mu and nu of
+   1,642,953 x 128 float32, 841 MB each; N = 81,920 ids of a training
+   batch's gather plan and a ragged N; the equality combine at ids
+   [10, 8192], also on a padded tail batch): K2 scatter and K4 gather
+   exactly, K3 within 1e-5 of its largest total with byte-identical
+   duplicate positions, K5 within 2 float32 ulp; and time each kernel, its
+   plain version and the one PyTorch call that computes the same function
+   where there is one;
+7. train the phase-5 model in the sparse bank modes fused, fused_eq, lazy
+   and lazy with SATRANS_LAZY_TAIL=fused (24 steps and a tail each, after
+   fused against dense from one start after 3 steps): the exact launches of
+   every kernel per step, a finite loss at every step, trained
+   examples/s, the staged step and a torch.profiler breakdown of one step.
 
 It prints the card's name and power limit, one JSON line naming each
 kernel with its launches, error and times, and as its last line
@@ -34,7 +48,9 @@ prints no result.
 
 from __future__ import annotations
 
+import gc
 import json
+import os
 import subprocess
 import sys
 import time
@@ -59,6 +75,24 @@ SERVING_TOL = 1e-5
 GRAD_RTOL, GRAD_ATOL = 1e-4, 1e-5
 TRAIN_STEPS, TRAIN_LR = 24, 0.005
 TRAIN_ROWS = (TRAIN_STEPS - 1) * BATCH + 5000  # the last batch is a tail
+TAIL = TRAIN_ROWS - (TRAIN_STEPS - 1) * BATCH
+# one instruction per lane and cycle over the card: half the float32 FLOP
+# rate, which counts a multiply-add as two operations
+PEAK_INSTRUCTIONS = PEAK_F32_FLOPS / 2
+# K5 rounds each operation as PyTorch's kernels do: within 2 float32 ulp;
+# K3 sums in another order than the plain GEMM: 1e-5 of the largest total
+LAZY_TAIL_TOL = dict(rtol=2.4e-7, atol=1e-12)
+EQGEMM_RTOL = 1e-5
+# fused against dense after 3 steps: the tolerance of the CPU parity tests
+# (Adam's sign-like first step amplifies float32 round-off)
+PARAM_TOL = dict(atol=5e-5, rtol=1e-3)
+# the sparse training arms: (name, bank_update, SATRANS_LAZY_TAIL) and the
+# launches a step of K4 gather, K2 scatter, K3 eqgemm, K5 lazy tail
+SPARSE_ARMS = (("fused", "fused", None, (2, 1, 0, 0)),
+               ("fused_eq", "fused_eq", None, (2, 1, 1, 0)),
+               ("lazy", "lazy", None, (2, 1, 1, 0)),
+               ("lazy_fused_tail", "lazy", "fused", (1, 0, 1, 1)))
+ROW_KERNELS = ("gather", "scatter", "eqgemm", "lazy_tail")
 
 
 def check(ok: bool, what: str) -> None:
@@ -77,6 +111,20 @@ def time_ms(fn, iters: int, warmup: int = 3) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def host_ms(fn, iters: int = 10) -> float:
+    """Host time per call of ``fn`` without waiting for the device: the
+    time to queue its work.  Where it is close to the call's time with the
+    device (``time_ms``), the host, not the card, sets the pace."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    wall = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return 1e3 * wall / iters
 
 
 def meta_layer_bound_ms(B, F, d, h, heads, meta_rows, apply_q, apply_k):
@@ -368,27 +416,70 @@ def serving_phase(dev, card):
     return launches
 
 
-def training_phase(dev, card):
-    """Train SATrans at the AliCCP sota width through the kernels.
-    Returns the launch counts of the timed fit."""
+def training_model(dev, bank_update):
+    """The AliCCP sota SATrans of phases 5 and 7 (dropout 0, the default
+    N(0, 1e-4) embeddings) and its compiled Trainer (Adam, lr 0.005)."""
     from satrans_torch.data import aliccp
     from satrans_torch.features import FeatureLayout
     from satrans_torch.models import SATrans
-    from satrans_torch.ops import meta_block
-    from satrans_torch.train import Trainer, callbacks
-
-    layout = FeatureLayout(aliccp.sota_columns(32))
-    model = SATrans(layout, ["301"], [3], domain_att_layer_num=LAYERS,
-                    att_head_num=4, meta_mode="QK",
-                    meta_dnn_hidden_units=(64, 32), dropout_rate=0.0,
-                    seed=SEED, device=dev)
+    from satrans_torch.train import Trainer
+    model = SATrans(FeatureLayout(aliccp.sota_columns(32)), ["301"], [3],
+                    domain_att_layer_num=LAYERS, att_head_num=4,
+                    meta_mode="QK", meta_dnn_hidden_units=(64, 32),
+                    dropout_rate=0.0, seed=SEED, device=dev)
     trainer = Trainer(model, seed=SEED, device=dev)
-    trainer.compile(learning_rate=TRAIN_LR, bank_update="dense")
-    # bench.py's synthetic batch: ids uniform in [1, DATA_MAX], labels 0/1
+    trainer.compile(learning_rate=TRAIN_LR, bank_update=bank_update)
+    return model, trainer
+
+
+def training_data():
+    """bench.py's synthetic batch: ids uniform in [1, DATA_MAX], labels
+    0/1.  Returns (the generator, ids, labels)."""
+    from satrans_torch.data import aliccp
     rng = np.random.default_rng(SEED)
     x = {name: rng.integers(1, aliccp.DATA_MAX[name] + 1, TRAIN_ROWS)
          for name in aliccp.SPARSE_FEATURES}
     y = rng.integers(0, 2, TRAIN_ROWS).astype(np.float32)
+    return rng, x, y
+
+
+def timed_fit(trainer, x, y):
+    """One epoch of ``fit`` after the launch counts are set to 0: returns
+    (seconds, per-step data losses, the epoch loss)."""
+    from satrans_torch.ops import eqgemm, gather, lazy_tail, meta_block, \
+        scatter
+    from satrans_torch.train import callbacks
+    losses = []
+
+    class Record(callbacks.Callback):
+        def on_batch_end(self, step, logs=None):
+            losses.append(logs["loss"])
+
+    torch.cuda.synchronize()
+    meta_block.launches = meta_block.bwd_launches = 0
+    for mod in (gather, scatter, eqgemm, lazy_tail):
+        mod.launches = 0
+    t0 = time.perf_counter()
+    hist = trainer.fit(x, y, batch_size=BATCH, epochs=1, verbose=0,
+                       callbacks=[Record()])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    step_loss = torch.stack(losses).cpu().numpy()
+    check(len(step_loss) == TRAIN_STEPS and bool(np.isfinite(
+        step_loss).all()) and np.isfinite(hist.history["loss"][0]),
+          "training loss not finite at every step")
+    return wall, step_loss, hist.history["loss"][0]
+
+
+def training_phase(dev, card):
+    """Train SATrans at the AliCCP sota width through the kernels.
+    Returns the launch counts of the timed fit."""
+    from satrans_torch.data import aliccp
+    from satrans_torch.ops import meta_block
+
+    model, trainer = training_model(dev, "dense")
+    layout = model.layout
+    rng, x, y = training_data()
 
     # one step's gradients, kernel path against plain path
     data = layout.batch_from_dict(x)
@@ -422,41 +513,27 @@ def training_phase(dev, card):
 
     trainer.fit({k: v[:2 * BATCH] for k, v in x.items()}, y[:2 * BATCH],
                 batch_size=BATCH, verbose=0)  # warmup: two steps
-    losses = []
-
-    class Record(callbacks.Callback):
-        def on_batch_end(self, step, logs=None):
-            losses.append(logs["loss"])
-
-    torch.cuda.synchronize()
-    meta_block.launches = meta_block.bwd_launches = 0
-    t0 = time.perf_counter()
-    hist = trainer.fit(x, y, batch_size=BATCH, epochs=1, verbose=0,
-                       callbacks=[Record()])
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
+    wall, step_loss, epoch_loss = timed_fit(trainer, x, y)
     launched = (meta_block.launches, meta_block.bwd_launches)
     check(launched == (LAYERS * TRAIN_STEPS, LAYERS * TRAIN_STEPS),
           f"{TRAIN_STEPS} steps launched {launched} forward/backward "
           f"kernels, want {LAYERS} of each per step")
-    step_loss = torch.stack(losses).cpu().numpy()
-    check(len(step_loss) == TRAIN_STEPS and bool(np.isfinite(
-        step_loss).all()) and np.isfinite(hist.history["loss"][0]),
-          "training loss not finite at every step")
     per_ex = step_loss[:-1] / BATCH
     print(f"train [{card}]: {TRAIN_ROWS} examples in {TRAIN_STEPS} steps of "
-          f"{BATCH} (last a tail of {TRAIN_ROWS - (TRAIN_STEPS - 1) * BATCH})"
+          f"{BATCH} (last a tail of {TAIL})"
           f": {wall:.4f}s, {TRAIN_ROWS / wall:.1f} trained examples/s, "
           f"{1e3 * wall / TRAIN_STEPS:.3f} ms/step (host batch assembly "
           f"included); launches fwd {launched[0]} bwd {launched[1]}; loss "
           f"per example step 1 {per_ex[0]:.6f} step {TRAIN_STEPS - 1} "
-          f"{per_ex[-1]:.6f}; epoch loss {hist.history['loss'][0]:.6f}",
+          f"{per_ex[-1]:.6f}; epoch loss {epoch_loss:.6f}",
           flush=True)
 
     # the step alone on a staged batch: device time without host assembly
     step_ms = time_ms(lambda: trainer.train_step(batch, yb, wb), iters=10)
+    queue_ms = host_ms(lambda: trainer.train_step(batch, yb, wb))
     print(f"train [{card}]: train_step on a staged batch {step_ms:.3f} "
-          f"ms/step, {1e3 * BATCH / step_ms:.1f} examples/s", flush=True)
+          f"ms/step, {1e3 * BATCH / step_ms:.1f} examples/s; the host "
+          f"queues a step in {queue_ms:.3f} ms", flush=True)
     device_profile(f"one training step of {BATCH} examples",
                    lambda: trainer.train_step(batch, yb, wb), step_ms, card,
                    top=16)
@@ -472,6 +549,273 @@ def training_phase(dev, card):
           f"evaluate gave {res}")
     print(f"train [{card}]: evaluate on {REQUEST_ROWS} random examples: "
           + ", ".join(f"{k} {v:.6f}" for k, v in res.items()), flush=True)
+    return launched
+
+def bytes_bound_ms(nbytes: float) -> float:
+    return 1e3 * nbytes / PEAK_HBM_BYTES
+
+
+def gather_plan(layout, rng, real: int, dev):
+    """The physical row ids one training batch gathers: ids uniform in
+    [1, DATA_MAX] as in phase 5, the rows past ``real`` zero ids as in a
+    padded tail batch."""
+    from satrans_torch import embeddings
+    from satrans_torch.data import aliccp
+    x = {name: rng.integers(1, aliccp.DATA_MAX[name] + 1, BATCH)
+         for name in aliccp.SPARSE_FEATURES}
+    sparse = layout.batch_from_dict(x)["sparse"]
+    sparse[real:] = 0
+    return embeddings.bank_gather_plan(
+        layout, {"sparse": torch.from_numpy(sparse).to(dev)},
+        embeddings.pack_factor(32))
+
+
+def bank_kernel_phase(dev, card):
+    """K2, K3, K4 and K5 against their plain versions at the AliCCP sota
+    shapes, and timed.  Returns the JSON fields measured, by kernel."""
+    from satrans_torch import embeddings
+    from satrans_torch.data import aliccp
+    from satrans_torch.features import FeatureLayout
+    from satrans_torch.nn import initializers as init
+    from satrans_torch.ops import eqgemm, gather, lazy_tail, scatter
+    from satrans_torch.utils import make_generator
+
+    layout = FeatureLayout(aliccp.sota_columns(32))
+    rp = embeddings.pack_factor(32)
+    width = rp * 32
+    rows = -(-layout.small_split(
+        embeddings.SMALL_TABLE_THRESHOLD)["large_rows"] // rp)
+    rng = np.random.default_rng(SEED + 6)
+    ids = gather_plan(layout, rng, BATCH, dev)          # N = 81,920
+    tail_ids = gather_plan(layout, rng, TAIL, dev)      # a padded tail
+    n = ids.numel()
+    fields = n // BATCH
+    gen = make_generator(SEED + 6, dev)
+    bank = init.normal(gen, (rows, width), 1.0)
+    mu = init.normal(gen, (rows, width), 0.01)
+    nu = init.normal(gen, (rows, width), 0.01).abs_()
+    arrays = (bank, mu, nu)
+    print(f"bank kernels: 3 arrays of {rows} x {width} float32 "
+          f"({rows * width * 4 / 1e6:.1f} MB each); N = {n} ids of one "
+          f"batch's gather plan ({fields} large fields)", flush=True)
+    out = {}
+
+    def report(name, err, k_ms, p_ms, lib_ms, b_ms, b_by, what):
+        lib = "none" if lib_ms is None else f"{lib_ms:.4f}"
+        print(f"kernel {name} [{card}]: {what}: max_abs_err={err:.3e} "
+              f"kernel_ms={k_ms:.4f} plain_ms={p_ms:.4f} library_ms={lib} "
+              f"bound_ms={b_ms:.4f} ({b_by})", flush=True)
+        out[name] = dict(max_abs_err=err, ms=k_ms, plain_ms=p_ms,
+                         bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms)
+
+    # K4: out[a][i] = arr[a][ids[i]]
+    for idc in (ids, ids[:-3]):
+        got = gather.gather_rows(arrays, idc)
+        want = gather.gather_rows_reference(arrays, idc)
+        torch.cuda.synchronize()
+        check(all(torch.equal(g, w) for g, w in zip(got, want)),
+              f"gather_rows differs from its plain version (N={idc.numel()})")
+    del got, want
+    distinct = torch.unique(ids).numel()
+    report("gather_rows", 0.0,
+           time_ms(lambda: gather.gather_rows(arrays, ids), 50),
+           time_ms(lambda: gather.gather_rows_reference(arrays, ids), 50),
+           time_ms(lambda: [a.index_select(0, ids) for a in arrays], 50),
+           bytes_bound_ms(8 * n + 3 * 4 * width * (distinct + n)), "bytes",
+           f"3 arrays, N={n} and {n - 3}, {distinct} distinct rows")
+
+    # K2: arr[a][tgt[i]] = vals[a][i]; duplicate ids carry identical values
+    # and every 97th position is the sentinel (dropped)
+    tgt = ids.clone()
+    tgt[::97] = rows
+    cols = torch.arange(width, device=dev, dtype=torch.float32)
+    vals = [torch.sin(tgt[:, None].float() * (a + 1) + cols)
+            for a in range(3)]
+    for m in (n, n - 3):
+        got = [a.clone() for a in arrays]
+        want = [a.clone() for a in arrays]
+        scatter.scatter_rows_set(got, tgt[:m], [v[:m] for v in vals],
+                                 drop_oob=True)
+        scatter.scatter_rows_set_reference(want, tgt[:m],
+                                           [v[:m] for v in vals],
+                                           drop_oob=True)
+        torch.cuda.synchronize()
+        check(all(torch.equal(g, w) for g, w in zip(got, want)),
+              f"scatter_rows_set differs from its plain version (N={m})")
+    # the bound reads one value row and writes one array row per distinct
+    # kept target (duplicates carry the same values), as K4 reads one
+    # array row per distinct id
+    keep = tgt < rows
+    kept, kvals = tgt[keep], [v[keep] for v in vals]
+    kept_n, kept_distinct = kept.numel(), torch.unique(kept).numel()
+    report("scatter_rows_set", 0.0,
+           time_ms(lambda: scatter.scatter_rows_set(got, tgt, vals,
+                                                    drop_oob=True), 50),
+           time_ms(lambda: scatter.scatter_rows_set_reference(
+               want, tgt, vals, drop_oob=True), 50),
+           time_ms(lambda: [a.index_put_((kept,), v)
+                            for a, v in zip(want, kvals)], 50),
+           bytes_bound_ms(8 * n + 3 * 4 * width * 2 * kept_distinct),
+           "bytes", f"3 arrays, N={n} and {n - 3}, {n - kept_n} sentinels")
+    del got, want, vals, kvals
+
+    # K5: each distinct row once (sorted, duplicates to the sentinel), as
+    # the lazy update's equality path gives them
+    srt = torch.sort(ids).values
+    first = torch.ones_like(srt, dtype=torch.bool)
+    first[1:] = srt[1:] != srt[:-1]
+    ids_k = torch.where(first, srt, rows)
+    g = init.normal(gen, (n, width), 0.01)
+    k = torch.randint(0, 9, (n,), device=dev).float()
+    dec = (0.9 ** k, 0.999 ** k, (1.0 - 2.0 * 1e-5 * TRAIN_LR) ** (k + 1))
+    hyper = (1.0 / (1.0 - 0.9 ** 5), 1.0 / (1.0 - 0.999 ** 5))
+    kw = dict(lr=TRAIN_LR, b1=0.9, b2=0.999, eps=1e-8)
+    err = 0.0
+    for m in (n, n - 3):
+        got = [a.clone() for a in arrays]
+        want = [a.clone() for a in arrays]
+        lazy_tail.lazy_adam_rows(*got, ids_k[:m], g[:m],
+                                 *(d[:m] for d in dec), *hyper, **kw)
+        lazy_tail.lazy_adam_rows_reference(*want, ids_k[:m], g[:m],
+                                           *(d[:m] for d in dec), *hyper,
+                                           **kw)
+        torch.cuda.synchronize()
+        for a, b in zip(got, want):
+            err = max(err, (a - b).abs().max().item())
+            check(bool(torch.isfinite(a).all()) and torch.allclose(
+                a, b, **LAZY_TAIL_TOL),
+                  f"lazy_adam_rows differs from its plain version (N={m}, "
+                  f"max_abs_err {err}, tolerance {LAZY_TAIL_TOL})")
+    # the bound reads every id, and the g row, the decays and the three
+    # array rows of each touched row only (sentinels skip), and writes
+    # the three array rows back
+    touched = int(first.sum())
+    report("lazy_adam_rows", err,
+           time_ms(lambda: lazy_tail.lazy_adam_rows(
+               *got, ids_k, g, *dec, *hyper, **kw), 50),
+           time_ms(lambda: lazy_tail.lazy_adam_rows_reference(
+               *want, ids_k, g, *dec, *hyper, **kw), 20),
+           None, bytes_bound_ms(8 * n + (4 * width + 12) * touched
+                                + 2 * 3 * 4 * width * touched), "bytes",
+           f"N={n} and {n - 3}, {touched} rows touched")
+    del got, want, g, arrays, bank, mu, nu
+    torch.cuda.empty_cache()
+
+    # K3: per-field duplicate sums at ids [10, 8192], W = 128
+    gq = init.normal(gen, (fields, BATCH, width), 1.0)
+    err = 0.0
+    for plan, b in ((ids, BATCH), (tail_ids, BATCH), (ids, BATCH - 2)):
+        ids_fb = plan.view(BATCH, fields).t()[:, :b].contiguous()
+        gb = gq[:, :b].contiguous()
+        got = eqgemm.eqgemm_positions(ids_fb, gb)
+        want = eqgemm.eqgemm_positions_reference(ids_fb, gb)
+        torch.cuda.synchronize()
+        e = (got - want).abs().max().item()
+        err = max(err, e)
+        check(e <= EQGEMM_RTOL * want.abs().max().item(),
+              f"eqgemm_positions differs from its plain version by {e} "
+              f"(B={b}, largest total {want.abs().max().item()})")
+        for f in range(fields):
+            order = torch.argsort(ids_fb[f], stable=True)
+            srow, sid = got[f][order], ids_fb[f][order]
+            same = sid[1:] == sid[:-1]
+            check(torch.equal(srow[1:][same], srow[:-1][same]),
+                  f"eqgemm_positions: duplicate positions of field {f} "
+                  f"differ (B={b})")
+        del got, want
+    ids_fb = ids.view(BATCH, fields).t().contiguous()
+    b_bytes = bytes_bound_ms(8 * n + 2 * 4 * width * n)
+    b_ops = 1e3 * fields * BATCH * BATCH / PEAK_INSTRUCTIONS
+    report("eqgemm_positions", err,
+           time_ms(lambda: eqgemm.eqgemm_positions(ids_fb, gq), 50),
+           time_ms(lambda: eqgemm.eqgemm_positions_reference(ids_fb, gq), 5),
+           None, max(b_bytes, b_ops),
+           "bytes" if b_bytes >= b_ops else "operations",
+           f"ids [{fields}, {BATCH}] W={width} (also a padded tail and "
+           f"B={BATCH - 2}); bytes {b_bytes:.4f} ms, "
+           f"{fields * BATCH * BATCH:.3e} id compares {b_ops:.4f} ms")
+    return out
+
+
+def sparse_training_phase(dev, card):
+    """Train the phase-5 model in each sparse bank mode.  Returns the
+    launches of every kernel in each arm's timed fit, by arm."""
+    from satrans_torch.ops import eqgemm, gather, lazy_tail, meta_block, \
+        scatter
+
+    rng, x, y = training_data()
+    # fused against dense from one start: every parameter after 3 steps
+    first3 = {k: v[:3 * BATCH] for k, v in x.items()}
+    params = {}
+    for mode in ("dense", "fused"):
+        model, trainer = training_model(dev, mode)
+        trainer.fit(first3, y[:3 * BATCH], batch_size=BATCH, verbose=0)
+        params[mode] = {k: v.detach().clone()
+                        for k, v in model.state_dict().items()}
+        del model, trainer
+    worst = max(((params["fused"][k] - v).abs().max().item(), k)
+                for k, v in params["dense"].items())
+    for k, v in params["dense"].items():
+        f = params["fused"][k]
+        bad = ~torch.isclose(f, v, **PARAM_TOL)
+        check(not bool(bad.any()),
+              f"fused differs from dense after 3 steps in {k}: "
+              f"{int(bad.sum())} of {v.numel()} entries outside "
+              f"{PARAM_TOL}, max_abs_err {(f - v).abs().max().item():.3e}")
+    same = sum(torch.equal(params["fused"][k], v)
+               for k, v in params["dense"].items())
+    print(f"train fused vs dense [{card}]: every parameter after 3 steps "
+          f"within {PARAM_TOL}, {same} of {len(params['dense'])} "
+          f"bit-identical; max_abs_err {worst[0]:.3e} ({worst[1]})",
+          flush=True)
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    mods = (gather, scatter, eqgemm, lazy_tail)
+    launched = {}
+    for arm, mode, tail, per_step in SPARSE_ARMS:
+        if tail:
+            os.environ["SATRANS_LAZY_TAIL"] = tail
+        model, trainer = training_model(dev, mode)
+        data = model.layout.batch_from_dict(x)
+        batch = trainer._device_batch({k: v[:BATCH] for k, v in data.items()})
+        yb, wb = trainer._device_batch(
+            {"y": y[:BATCH], "w": np.ones(BATCH, np.float32)}).values()
+        trainer.fit({k: v[:2 * BATCH] for k, v in x.items()}, y[:2 * BATCH],
+                    batch_size=BATCH, verbose=0)  # warmup: two steps
+        wall, step_loss, epoch_loss = timed_fit(trainer, x, y)
+        got = (meta_block.launches, meta_block.bwd_launches,
+               *(m.launches for m in mods))
+        want = (LAYERS * TRAIN_STEPS, LAYERS * TRAIN_STEPS,
+                *(c * TRAIN_STEPS for c in per_step))
+        check(got == want, f"{arm}: {TRAIN_STEPS} steps launched {got} "
+                           f"(K1-fwd, K1-bwd, {', '.join(ROW_KERNELS)}), "
+                           f"want {want}")
+        launched[arm] = dict(zip(("meta_block_fwd", "meta_block_bwd",
+                                  "gather_rows", "scatter_rows_set",
+                                  "eqgemm_positions", "lazy_adam_rows"), got))
+        per_ex = step_loss[:-1] / BATCH
+        print(f"train {arm} [{card}]: {TRAIN_ROWS} examples in "
+              f"{TRAIN_STEPS} steps of {BATCH} (last a tail of {TAIL}): "
+              f"{wall:.4f}s, {TRAIN_ROWS / wall:.1f} trained examples/s, "
+              f"{1e3 * wall / TRAIN_STEPS:.3f} ms/step; launches {got}; "
+              f"loss per example step 1 {per_ex[0]:.6f} step "
+              f"{TRAIN_STEPS - 1} {per_ex[-1]:.6f}; epoch loss "
+              f"{epoch_loss:.6f}", flush=True)
+        step_ms = time_ms(lambda: trainer.train_step(batch, yb, wb), iters=10)
+        queue_ms = host_ms(lambda: trainer.train_step(batch, yb, wb))
+        print(f"train {arm} [{card}]: train_step on a staged batch "
+              f"{step_ms:.3f} ms/step, {1e3 * BATCH / step_ms:.1f} "
+              f"examples/s; the host queues a step in {queue_ms:.3f} ms",
+              flush=True)
+        device_profile(f"{arm}: one training step of {BATCH} examples",
+                       lambda: trainer.train_step(batch, yb, wb), step_ms,
+                       card, top=16)
+        os.environ.pop("SATRANS_LAZY_TAIL", None)
+        del model, trainer, batch
+        gc.collect()
+        torch.cuda.empty_cache()
     return launched
 
 
@@ -502,15 +846,21 @@ def main() -> int:
     served = serving_phase(dev, card)
     kb = backward_phase(dev)
     trained = training_phase(dev, card)
+    rows = bank_kernel_phase(dev, card)
+    sparse = sparse_training_phase(dev, card)
 
-    # launches: both main paths run K1-fwd (serving and training, each
-    # counted from 0 just before it); only training runs K1-bwd
+    # launches: every main path runs K1-fwd (serving, dense training and
+    # the sparse arms, each counted from 0 just before it); the training
+    # paths run K1-bwd
     kernels = [dict(name="meta_block_fwd", route="cuda",
                     source="satrans_torch/csrc/meta_block_fwd.cu",
                     replaces="satrans_tpu/ops/pallas/meta_block.py:404",
-                    launches=served + trained[0],
+                    launches=served + trained[0] + sum(
+                        n["meta_block_fwd"] for n in sparse.values()),
                     launches_by_path={"serving": served,
-                                      "training": trained[0]},
+                                      "training": trained[0],
+                                      **{arm: n["meta_block_fwd"]
+                                         for arm, n in sparse.items()}},
                     max_abs_err=k["max_abs_err"],
                     ms=k["ms"], plain_ms=k["plain_ms"],
                     bound_ms=k["bound_ms"], bound_by=k["bound_by"],
@@ -518,12 +868,29 @@ def main() -> int:
                dict(name="meta_block_bwd", route="cuda",
                     source="satrans_torch/csrc/meta_block_bwd.cu",
                     replaces="satrans_tpu/ops/pallas/meta_block.py:685",
-                    launches=trained[1],
-                    launches_by_path={"training": trained[1]},
+                    launches=trained[1] + sum(
+                        n["meta_block_bwd"] for n in sparse.values()),
+                    launches_by_path={"training": trained[1],
+                                      **{arm: n["meta_block_bwd"]
+                                         for arm, n in sparse.items()}},
                     max_abs_err=kb["max_abs_err"],
                     ms=kb["ms"], plain_ms=kb["plain_ms"],
                     bound_ms=kb["bound_ms"], bound_by=kb["bound_by"],
                     library_ms=None)]
+    # the row kernels run on the sparse training paths (phase 7 arms)
+    for name, source, replaces in (
+            ("gather_rows", "bank_rows.cu", "gather.py:86"),
+            ("scatter_rows_set", "bank_rows.cu", "scatter.py:139"),
+            ("eqgemm_positions", "eqgemm.cu", "eqgemm.py:90"),
+            ("lazy_adam_rows", "bank_rows.cu", "lazy_tail.py:174")):
+        by_path = {arm: n[name] for arm, n in sparse.items()}
+        kernels.append(dict(name=name, route="cuda",
+                            source=f"satrans_torch/csrc/{source}",
+                            replaces=f"satrans_tpu/ops/pallas/{replaces}",
+                            launches=sum(by_path.values()),
+                            launches_by_path=by_path, **rows[name]))
+    check(all(k["launches"] > 0 for k in kernels),
+          "a kernel was launched on no path")
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -6,8 +6,8 @@ numpy arrays, and gives a ``state_dict`` for the port's model.  The port's
 modules carry the pytree's own names, so a key is the pytree path joined
 with dots (``layers.0.q_meta.ln.scale``).  The one change of layout is the
 embedding bank: the JAX package packs ``128 // d`` logical rows into one
-128-lane row and pads to a whole row; the port keeps logical ``[R, d]``
-rows, so the bank is reshaped and the pad rows are dropped.
+128-lane row; the port keeps the same rows, pad rows included, as logical
+``[R, d]`` rows, so the bank is reshaped.
 
 The module imports neither JAX nor the JAX package.
 """
@@ -42,7 +42,7 @@ def from_jax_params(params_np: dict, model: torch.nn.Module) -> dict:
     out = {}
     for key, arr in flat.items():
         if key == "emb.bank":
-            arr = arr.reshape(-1, want[key].shape[1])[:want[key].shape[0]]
+            arr = arr.reshape(-1, want[key].shape[1])
         if tuple(arr.shape) != tuple(want[key].shape):
             raise ValueError(f"{key}: JAX shape {arr.shape}, port shape "
                              f"{tuple(want[key].shape)}")

@@ -1,18 +1,21 @@
-"""Fused embedding bank (twin of ``satrans_tpu/embeddings.py``: the forward
-and the full-table L2).
+"""Fused embedding bank (twin of ``satrans_tpu/embeddings.py``: the
+forward, its gradient, the full-table L2 and what the sparse bank updates
+of ``train/bank_optimizer.py`` need).
 
-All large tables are concatenated row-wise into one ``[R, d]`` bank, and a
-whole batch embeds with one gather ``bank[ids + field_offsets]``.  Tables
-whose vocab is at most ``SMALL_TABLE_THRESHOLD`` (and that no varlen field
-uses) live in a compact ``[Rs, d]`` side bank.
+All large tables are concatenated row-wise into one bank, and a whole
+batch embeds with one gather ``bank[ids + field_offsets]``.  Tables whose
+vocab is at most ``SMALL_TABLE_THRESHOLD`` (and that no varlen field uses)
+live in a compact ``[Rs, d]`` side bank.
 
-The port stores logical ``[R, d]`` rows.  The JAX package packs
-``128 // d`` logical rows into one 128-lane physical row, a TPU layout
-that changes no forward result; ``bridge.from_jax_params`` unpacks it.
+The bank holds ``ceil(R / rp) * rp`` logical ``[d]`` rows, the JAX
+package's padded size, with ``rp = pack_factor(d)`` and zero pad rows, so
+``bank.view(-1, rp * d)`` is the JAX package's packed physical row at no
+cost.  Out-of-range ids read as the JAX package reads them
+(:func:`lookup_rows`), and the sparse bank updates touch whole physical
+rows, as the JAX package's do.
 
-Out-of-range ids never fault on the card: large-bank indices are clamped
-into the bank, as XLA's gather clamps them, and side-bank ids outside the
-side bank read zeros, as the JAX package's one-hot read does.
+Side-bank ids outside the side bank read zeros, as the JAX package's
+one-hot read does.
 """
 
 from __future__ import annotations
@@ -26,40 +29,133 @@ from .nn import initializers as init
 SMALL_TABLE_THRESHOLD = 256
 
 
+def pack_factor(d: int) -> int:
+    """Logical rows per 128-float physical row (the JAX package's packing,
+    embeddings.py:38-48)."""
+    return 128 // d if d in (1, 2, 4, 8, 16, 32, 64, 128) else 1
+
+
 class Bank(nn.Module):
-    """``bank`` ``[large_rows, d]`` and, where the layout has small tables,
-    ``small`` ``[small_rows, d]``."""
+    """``bank`` ``[rows, d]`` (``rows`` a multiple of ``pack_factor(d)``)
+    and, where the layout has small tables, ``small`` ``[small_rows, d]``."""
 
     def __init__(self, bank: torch.Tensor, small: torch.Tensor | None):
         super().__init__()
         self.bank = nn.Parameter(bank)
         self.small = nn.Parameter(small) if small is not None else None
 
+    @property
+    def rp(self) -> int:
+        return pack_factor(self.bank.shape[1])
+
+    def physical(self) -> torch.Tensor:
+        """The bank as ``[rows / rp, rp * d]`` physical rows: a view of the
+        parameter's storage, outside autograd."""
+        return self.bank.detach().view(-1, self.rp * self.bank.shape[1])
+
 
 def bank_init(gen: torch.Generator, layout: FeatureLayout, *,
               dim: int | None = None,
               init_std: float | None = 1e-4) -> Bank:
-    """``init_std=None`` is the reference's ``noembinit``: N(0, 1)."""
+    """``init_std=None`` is the reference's ``noembinit``: N(0, 1).  The
+    pad rows past the tables are zero, so they add nothing to the L2."""
     d = layout.embedding_dim if dim is None else dim
     split = layout.small_split(SMALL_TABLE_THRESHOLD)
+    rp = pack_factor(d)
+    rows = -(-max(split["large_rows"], 1) // rp) * rp
 
     def draw(shape):
         if init_std is None:
             return init.torch_embedding_default(gen, shape)
         return init.normal(gen, shape, init_std)
 
-    bank = draw((max(split["large_rows"], 1), d))
+    bank = draw((rows, d))
+    bank[split["large_rows"]:] = 0.0
     small = draw((split["small_rows"], d)) if split["small_rows"] else None
     return Bank(bank, small)
 
 
+class BankRowFeed:
+    """Stand-in for the :class:`Bank` holding pre-gathered physical rows
+    ``[N, rp * d]`` (twin of the JAX ``BankRowFeed``): the sparse bank
+    updates differentiate the loss with respect to these rows, so the bank
+    gradient stays ``[N, rp * d]``.  :func:`lookup_rows` consumes them in
+    the order of :func:`bank_gather_plan`; the side bank is read as
+    usual."""
+
+    def __init__(self, rows: torch.Tensor, emb: Bank):
+        self.rows = rows
+        self.small = emb.small
+        self.d = emb.bank.shape[1]
+        self.rp = emb.rp
+        self._pos = 0
+
+    def take(self, n: int) -> torch.Tensor:
+        if self._pos + n > self.rows.shape[0]:
+            raise ValueError(
+                "BankRowFeed exhausted: the model gathers more bank rows "
+                "than bank_gather_plan planned; use bank_update='dense'")
+        out = self.rows[self._pos:self._pos + n]
+        self._pos += n
+        return out
+
+    def assert_consumed(self) -> None:
+        if self._pos != self.rows.shape[0]:
+            raise ValueError(
+                f"BankRowFeed under-consumed ({self._pos} of "
+                f"{self.rows.shape[0]} rows): the model's lookups do not "
+                "match bank_gather_plan; use bank_update='dense'")
+
+
+_CONSTANTS: dict = {}
+
+
+def device_constant(values, device, dtype=torch.long) -> torch.Tensor:
+    """A tensor of the static ``values`` (numbers, or nested tuples of
+    them) on ``device``, copied there once: a copy from the host each step
+    would make the host wait for the device's queue to drain."""
+    key = (values if isinstance(values, tuple) else
+           tuple(v.item() for v in values), torch.device(device), dtype)
+    t = _CONSTANTS.get(key)
+    if t is None:
+        t = _CONSTANTS[key] = torch.as_tensor(key[0], dtype=dtype,
+                                              device=device)
+    return t
+
+
 def _offsets(values, like: torch.Tensor) -> torch.Tensor:
-    return torch.as_tensor(values, dtype=torch.long, device=like.device)
+    return device_constant(values, like.device)
 
 
-def lookup_rows(emb: Bank, ids: torch.Tensor) -> torch.Tensor:
-    """Large-bank rows ``ids -> [..., d]`` (indices clamped into the bank)."""
-    return emb.bank[ids.clamp(0, emb.bank.shape[0] - 1)]
+def physical_ids(ids: torch.Tensor, rp: int) -> torch.Tensor:
+    """Physical row of each logical id: ``floor(id / rp)``."""
+    return torch.div(ids, rp, rounding_mode="floor")
+
+
+def lookup_rows(emb, ids: torch.Tensor) -> torch.Tensor:
+    """Large-bank rows ``ids -> [..., d]`` through the packed layout, as
+    the JAX package reads them (embeddings.py:330-348): physical row
+    ``p = floor(id / rp)``, wrapped once if negative (``p + R_phys``, as
+    JAX indexing does) and clamped into ``[0, R_phys)``, then lane
+    ``id mod rp``.  The gradient of a position whose wrapped ``p`` lies
+    outside ``[0, R_phys)`` is dropped, as the JAX package's scatter
+    (``mode='drop'``) drops it.  From a :class:`BankRowFeed` the physical
+    rows are the feed's next ones."""
+    rp = emb.rp
+    lane = torch.remainder(ids, rp)
+    if isinstance(emb, BankRowFeed):
+        n = ids.numel()
+        phys = emb.take(n).reshape(n, rp, emb.d)
+        rows = phys[torch.arange(n, device=ids.device), lane.reshape(n)]
+        return rows.reshape(*ids.shape, emb.d)
+    n_phys = emb.bank.shape[0] // rp
+    p = physical_ids(ids, rp)
+    p = torch.where(p < 0, p + n_phys, p)
+    rows = emb.bank[p.clamp(0, n_phys - 1) * rp + lane]
+    if torch.is_grad_enabled() and emb.bank.requires_grad:
+        inside = ((p >= 0) & (p < n_phys)).unsqueeze(-1)
+        rows = torch.where(inside, rows, rows.detach())
+    return rows
 
 
 def _small_lookup(small: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
@@ -69,7 +165,24 @@ def _small_lookup(small: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
     return rows * inside.unsqueeze(-1).to(rows.dtype)
 
 
-def lookup_sparse(emb: Bank, layout: FeatureLayout,
+def _large_sparse_ids(layout: FeatureLayout, sparse_ids: torch.Tensor):
+    """Logical large-bank ids ``[B, F_large]`` of the large sparse fields,
+    or None where every sparse field lives in the side bank."""
+    split = layout.small_split(SMALL_TABLE_THRESHOLD)
+    if not split["large_idx"]:
+        return None
+    ids = sparse_ids.long()
+    return ids[:, split["large_idx"]] + _offsets(split["large_offsets"], ids)
+
+
+def _varlen_ids(layout: FeatureLayout, varlen_ids: torch.Tensor):
+    """Logical large-bank ids ``[B, V, maxlen]`` of the varlen fields."""
+    split = layout.small_split(SMALL_TABLE_THRESHOLD)
+    ids = varlen_ids.long()
+    return ids + _offsets(split["varlen_offsets"], ids)[None, :, None]
+
+
+def lookup_sparse(emb, layout: FeatureLayout,
                   sparse_ids: torch.Tensor) -> torch.Tensor:
     """``[B, S]`` ids -> ``[B, S, d]`` in field order: one gather for the
     large-table fields and one for the side-bank fields."""
@@ -78,8 +191,7 @@ def lookup_sparse(emb: Bank, layout: FeatureLayout,
     ids = sparse_ids.long()
     parts = []
     if large_idx:
-        cols = ids[:, large_idx] + _offsets(split["large_offsets"], ids)
-        parts.append(lookup_rows(emb, cols))
+        parts.append(lookup_rows(emb, _large_sparse_ids(layout, ids)))
     if small_idx:
         cols = ids[:, small_idx] + _offsets(split["small_offsets"], ids)
         parts.append(_small_lookup(emb.small, cols))
@@ -91,7 +203,7 @@ def lookup_sparse(emb: Bank, layout: FeatureLayout,
     return out[:, inv]
 
 
-def lookup_field(emb: Bank, layout: FeatureLayout, name: str,
+def lookup_field(emb, layout: FeatureLayout, name: str,
                  ids: torch.Tensor) -> torch.Tensor:
     """One sparse field's embeddings for arbitrary ``ids``."""
     split = layout.small_split(SMALL_TABLE_THRESHOLD)
@@ -104,15 +216,12 @@ def lookup_field(emb: Bank, layout: FeatureLayout, name: str,
     return lookup_rows(emb, ids + off)
 
 
-def lookup_varlen(emb: Bank, layout: FeatureLayout,
+def lookup_varlen(emb, layout: FeatureLayout,
                   varlen_ids: torch.Tensor) -> torch.Tensor:
     """``[B, V, maxlen]`` -> ``[B, V, d]`` with per-field pooling; id 0 is
     the pad and is masked out."""
-    split = layout.small_split(SMALL_TABLE_THRESHOLD)
-    ids = varlen_ids.long()
-    rows = lookup_rows(
-        emb, ids + _offsets(split["varlen_offsets"], ids)[None, :, None])
-    mask = (ids > 0).unsqueeze(-1)                       # [B, V, L, 1]
+    rows = lookup_rows(emb, _varlen_ids(layout, varlen_ids))
+    mask = (varlen_ids > 0).unsqueeze(-1)                # [B, V, L, 1]
     pooled = []
     for i, feat in enumerate(layout.varlen):
         e, m = rows[:, i], mask[:, i]
@@ -130,8 +239,9 @@ def lookup_varlen(emb: Bank, layout: FeatureLayout,
     return torch.stack(pooled, dim=1)
 
 
-def embed_fields(emb: Bank, layout: FeatureLayout, batch) -> torch.Tensor:
-    """All field embeddings ``[B, F, d]``: sparse, then pooled varlen."""
+def embed_fields(emb, layout: FeatureLayout, batch) -> torch.Tensor:
+    """All field embeddings ``[B, F, d]``: sparse, then pooled varlen.
+    ``emb`` is the :class:`Bank` or a :class:`BankRowFeed`."""
     parts = []
     if layout.sparse:
         parts.append(lookup_sparse(emb, layout, batch["sparse"]))
@@ -142,13 +252,82 @@ def embed_fields(emb: Bank, layout: FeatureLayout, batch) -> torch.Tensor:
     return torch.cat(parts, dim=1) if len(parts) > 1 else parts[0]
 
 
-def l2_loss(emb: Bank, l2: float):
+def bank_gather_plan(layout: FeatureLayout, batch, rp: int) -> torch.Tensor:
+    """Physical row ids ``[N]`` that :func:`embed_fields` gathers from the
+    large bank, in its order of consumption: the large sparse fields
+    ``[B, F_large]`` row-major, then the varlen fields (twin of
+    embeddings.py:351-366).  Raw ids: out-of-range ones are left to the
+    caller's mode."""
+    parts = []
+    if layout.sparse:
+        ids = _large_sparse_ids(layout, batch["sparse"])
+        if ids is not None:
+            parts.append(ids.reshape(-1))
+    if layout.varlen:
+        parts.append(_varlen_ids(layout, batch["varlen"]).reshape(-1))
+    if not parts:
+        return torch.zeros(0, dtype=torch.long)
+    return physical_ids(torch.cat(parts) if len(parts) > 1 else parts[0], rp)
+
+
+def combine_duplicate_rows(ids: torch.Tensor, g: torch.Tensor):
+    """Sort ids and sum the gradients of duplicate rows (twin of
+    embeddings.py:94-118).  Returns ``(row_ids, summed, valid)``:
+    ``row_ids[i]`` is the i-th distinct id in ascending order where
+    ``valid[i]``, ``summed[i]`` the sum of the ``g`` rows carrying it, in
+    their order in ``ids``; entries past the distinct count have
+    ``valid=False`` and meaningless ids.  The sums run in ascending
+    position, the order of the dense step's embedding gradient
+    (``index_put_`` with ``accumulate``), on the card too."""
+    n = ids.shape[0]
+    if n == 0:
+        return ids, g, torch.zeros(0, dtype=torch.bool, device=ids.device)
+    order = torch.argsort(ids, stable=True)
+    si = ids[order]
+    first = torch.ones(n, dtype=torch.bool, device=ids.device)
+    first[1:] = si[1:] != si[:-1]
+    seg = torch.cumsum(first, 0) - 1
+    summed = torch.zeros_like(g).index_put_((seg,), g[order],
+                                            accumulate=True)
+    rep = torch.zeros_like(ids).scatter_(0, seg, si)
+    valid = torch.arange(n, device=ids.device) <= seg[-1]
+    return rep, summed, valid
+
+
+def eqgemm_combine(ids_fb: torch.Tensor, g_fb: torch.Tensor,
+                   shared_rows=()) -> torch.Tensor:
+    """Duplicate-summed gradient of every position (twin of
+    embeddings.py:149-202): ``s[f, i] = sum_j [ids[f, i] == ids[f, j]]
+    g[f, j]`` for ``ids_fb`` ``[F, B]`` and ``g_fb`` ``[F, B, W]``, through
+    ``ops/eqgemm.py`` (K3 on the card).  A physical row shared by several
+    fields (``shared_rows``: ``((row, (field, ...)), ...)``) gets one total
+    over those fields, computed once and broadcast, so every position of
+    a row carries byte-identical values."""
+    from .ops import eqgemm
+    s = eqgemm.eqgemm_positions(ids_fb, g_fb)
+    if not shared_rows:
+        return s
+    rows = device_constant(tuple(r for r, _ in shared_rows), ids_fb.device,
+                           ids_fb.dtype)
+    member = device_constant(
+        tuple(tuple(f in fields for f in range(ids_fb.shape[0]))
+              for _, fields in shared_rows), ids_fb.device, torch.bool)
+    hit = (ids_fb[None] == rows[:, None, None]) & member[:, :, None]
+    per_field = torch.einsum("kfb,fbw->kfw", hit.to(g_fb.dtype), g_fb)
+    total = per_field.sum(dim=1)                          # [K, W]
+    which = hit.to(torch.uint8).argmax(dim=0)             # [F, B]
+    return torch.where(hit.any(dim=0).unsqueeze(-1), total[which], s)
+
+
+def l2_loss(emb, l2: float):
     """Full-table L2 over the bank and the side bank, matching reference
-    basemodel.py:519-535 (the JAX twin's ``l2_loss``; its packed layout
-    holds the same values plus zero pad rows, so the sums agree)."""
-    if l2 <= 0.0:
-        return torch.zeros((), dtype=emb.bank.dtype, device=emb.bank.device)
-    loss = torch.sum(torch.square(emb.bank))
+    basemodel.py:519-535 (the JAX twin's ``l2_loss``: the same values, the
+    same zero pad rows).  Under a :class:`BankRowFeed` the bank's term is
+    left out: the sparse bank updates account for it themselves."""
+    tables = [] if isinstance(emb, BankRowFeed) else [emb.bank]
     if emb.small is not None:
-        loss = loss + torch.sum(torch.square(emb.small))
-    return l2 * loss
+        tables.append(emb.small)
+    if l2 <= 0.0 or not tables:
+        like = emb.rows if isinstance(emb, BankRowFeed) else emb.bank
+        return torch.zeros((), dtype=like.dtype, device=like.device)
+    return l2 * sum(torch.sum(torch.square(t)) for t in tables)

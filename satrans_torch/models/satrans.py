@@ -41,6 +41,10 @@ _VARIANTS = "ROADMAP queue 1 item 'remaining SATrans variants'"
 
 
 class SATrans(nn.Module):
+    # the only large-bank read is one embed_fields call on self.emb, so the
+    # sparse bank updates (train/bank_optimizer.py) apply
+    standard_bank_access = True
+
     def __init__(self, layout: FeatureLayout, domain_cols: Sequence[str],
                  num_domains_list: Sequence[int], *,
                  domain_att_layer_num: int = 3, att_head_num: int = 4,
@@ -115,16 +119,19 @@ class SATrans(nn.Module):
         table = self.encoder(torch.relu(self.domain_emb))
         return {"Q": table, "K": table}
 
-    def forward(self, batch) -> torch.Tensor:
+    def forward(self, batch, feed=None) -> torch.Tensor:
         """``batch``: typed tensors on the model's device (``sparse``
-        ``[B, S]``, optional ``dense`` and ``varlen``).  Returns ``[B]``."""
+        ``[B, S]``, optional ``dense`` and ``varlen``).  With ``feed`` (an
+        ``embeddings.BankRowFeed``) the large-bank rows come from it.
+        Returns ``[B]``."""
         if self.training and self.dropout_rate > 0.0:
             raise NotImplementedError(
                 f"training with dropout_rate={self.dropout_rate}: the "
                 "in-kernel dropout at the layer's four sites is ROADMAP "
                 "queue 2 item 'K1-stash and K1-bwd-stash with dropout'; "
                 "train with dropout_rate=0.0 or call .eval() to serve")
-        x = embeddings.embed_fields(self.emb, self.layout, batch)
+        x = embeddings.embed_fields(self.emb if feed is None else feed,
+                                    self.layout, batch)
         dom = batch["sparse"][:, self.domain_index].long().clamp(
             0, self.num_domains)
         tables = self.meta_tables()
@@ -141,7 +148,9 @@ class SATrans(nn.Module):
             flat = torch.cat([flat, batch["dense"]], dim=1)
         return core.prediction(self.head(flat), self.task)[:, 0]
 
-    def reg_loss(self) -> torch.Tensor:
+    def reg_loss(self, feed=None) -> torch.Tensor:
         """Embedding L2 only (reference satrans.py:120-122 and
-        basemodel.py:180; the JAX twin's ``reg_loss``)."""
-        return embeddings.l2_loss(self.emb, self.l2_reg_embedding)
+        basemodel.py:180; the JAX twin's ``reg_loss``); under a ``feed``
+        without the large bank's term."""
+        return embeddings.l2_loss(self.emb if feed is None else feed,
+                                  self.l2_reg_embedding)

@@ -8,7 +8,8 @@ a changed source is rebuilt at its first use.  Several sources build in
 parallel, one ``nvcc`` each.
 
 Nothing here runs at import time; this machine needs ``nvcc`` only when a
-kernel is first launched or :func:`build` is called.
+kernel is first launched or :func:`build` is called.  Every wrapper in
+``ops/`` reaches its kernel through :func:`kernel_fn`.
 """
 
 from __future__ import annotations
@@ -20,6 +21,9 @@ import shutil
 import subprocess
 import time
 from pathlib import Path
+from typing import Sequence
+
+import torch
 
 PACKAGE = Path(__file__).resolve().parent.parent
 CSRC = PACKAGE / "csrc"
@@ -28,6 +32,7 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 _LIBS: dict[str, ctypes.CDLL] = {}
+_FNS: dict[str, ctypes._CFuncPtr] = {}
 # nvcc's output (including ptxas register and spill counts) per source
 build_log: dict[str, str] = {}
 
@@ -90,3 +95,41 @@ def load(name: str) -> ctypes.CDLL:
             build([name])
         lib = _LIBS[name] = ctypes.CDLL(str(out))
     return lib
+
+
+def kernel_fn(source: str, name: str, argtypes) -> ctypes._CFuncPtr:
+    """The C entry ``name`` of ``csrc/<source>.cu`` (returning an int),
+    built at first use."""
+    fn = _FNS.get(name)
+    if fn is None:
+        fn = getattr(load(source), name)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+        _FNS[name] = fn
+    return fn
+
+
+def stream_of(t: torch.Tensor) -> int:
+    """The current CUDA stream of ``t``'s device, for a kernel's launch."""
+    return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def check_rows(arrays: Sequence[torch.Tensor], ids: torch.Tensor,
+               what: str) -> None:
+    """Raise unless ``arrays`` are contiguous float32 ``[R, W]`` tensors of
+    one shape on ``ids``' CUDA device (at most 3) and ``ids`` is a
+    contiguous int64 vector: the operands of the row kernels."""
+    if ids.device.type != "cuda":
+        raise ValueError(f"no {what} kernel for device {ids.device}")
+    if not 1 <= len(arrays) <= 3:
+        raise ValueError(f"{what} takes 1 to 3 arrays, got {len(arrays)}")
+    shape = arrays[0].shape
+    for a in arrays:
+        if (a.device != ids.device or a.dtype != torch.float32
+                or a.dim() != 2 or a.shape != shape
+                or not a.is_contiguous()):
+            raise ValueError(f"{what}: arrays must be contiguous float32 "
+                             f"[R, W] of one shape on {ids.device}")
+    if ids.dtype != torch.int64 or ids.dim() != 1 or \
+            not ids.is_contiguous():
+        raise ValueError(f"{what}: ids must be a contiguous int64 vector")

@@ -31,6 +31,7 @@ import torch
 
 from ..nn import attention, metanet
 from ..nn.attention import MetaTransformerLayer
+from ._build import kernel_fn, stream_of
 
 # (d, h, heads) instantiated in csrc/meta_block_{fwd,bwd}.cu, and the most
 # fields an example may have
@@ -41,31 +42,7 @@ BWD_BLOCKS_PER_SM = 2
 
 launches = 0
 bwd_launches = 0
-_libs: dict[str, ctypes.CDLL] = {}
 _sm_count: dict[int, int] = {}
-
-
-def _lib(name: str) -> ctypes.CDLL:
-    lib = _libs.get(name)
-    if lib is None:
-        from . import _build
-        lib = _build.load(name)
-        if name == "meta_block_fwd":
-            lib.satrans_meta_block_fwd.argtypes = \
-                [ctypes.c_void_p] * 12 + [ctypes.c_int] * 9 + [ctypes.c_void_p]
-            lib.satrans_meta_block_fwd.restype = ctypes.c_int
-        else:
-            lib.satrans_meta_block_bwd.argtypes = \
-                [ctypes.c_void_p] * 21 + [ctypes.c_int] * 10 \
-                + [ctypes.c_void_p]
-            lib.satrans_meta_block_bwd.restype = ctypes.c_int
-            lib.satrans_meta_block_bwd_grad_floats.argtypes = \
-                [ctypes.c_int] * 3
-            lib.satrans_meta_block_bwd_grad_floats.restype = ctypes.c_int
-            lib.satrans_meta_block_bwd_max_domains.argtypes = []
-            lib.satrans_meta_block_bwd_max_domains.restype = ctypes.c_int
-        _libs[name] = lib
-    return lib
 
 
 def meta_layer_reference(x, layer: MetaTransformerLayer, tables, dom, *,
@@ -113,7 +90,8 @@ def _check(x, meta_units, head_num: int, tables, train: bool) -> None:
                                   f"{x.dtype}")
     if train:
         D = tables["Q"].shape[0]
-        most = _lib("meta_block_bwd").satrans_meta_block_bwd_max_domains()
+        most = kernel_fn("meta_block_bwd",
+                         "satrans_meta_block_bwd_max_domains", [])()
         if D > most:
             raise NotImplementedError(
                 f"meta_block_bwd keeps every meta row's gradient sums per "
@@ -140,10 +118,11 @@ def launch_fwd(x, dom, wqkv, w1q, w2q, lnq, w1k, w2k, lnk, wout, lno,
             raise ValueError("float32 operand not contiguous and 16-byte "
                              "aligned")
     y = torch.empty_like(x)
-    err = _lib("meta_block_fwd").satrans_meta_block_fwd(
-        *(t.data_ptr() for t in ops), y.data_ptr(), B, F, d, h, heads,
-        w1q.shape[0], apply_q, apply_k, relu_out,
-        torch.cuda.current_stream(x.device).cuda_stream)
+    fn = kernel_fn("meta_block_fwd", "satrans_meta_block_fwd",
+                   [ctypes.c_void_p] * 12 + [ctypes.c_int] * 9
+                   + [ctypes.c_void_p])
+    err = fn(*(t.data_ptr() for t in ops), y.data_ptr(), B, F, d, h, heads,
+             w1q.shape[0], apply_q, apply_k, relu_out, stream_of(x))
     if err:
         raise RuntimeError(f"meta_block_fwd launch failed: CUDA error {err}")
     global launches
@@ -158,7 +137,6 @@ def launch_bwd(g, x, dom, wqkv, w1q, w2q, lnq, w1k, w2k, lnk, wout, lno,
     h, heads, apply_q, apply_k, relu_out = cfg
     B, F, d = x.shape
     D = w1q.shape[0]
-    lib = _lib("meta_block_bwd")
     g = g.contiguous()
     if g.dtype != torch.float32 or g.shape != x.shape:
         raise ValueError(f"gradient of type {g.dtype} and shape "
@@ -177,7 +155,8 @@ def launch_bwd(g, x, dom, wqkv, w1q, w2q, lnq, w1k, w2k, lnk, wout, lno,
             dev).multi_processor_count
     # tiles of two examples
     blocks = min(BWD_BLOCKS_PER_SM * _sm_count[dev], (B + 1) // 2)
-    total = lib.satrans_meta_block_bwd_grad_floats(d, h, D)
+    total = kernel_fn("meta_block_bwd", "satrans_meta_block_bwd_grad_floats",
+                      [ctypes.c_int] * 3)(d, h, D)
     dx = torch.empty_like(x)
     partial = torch.empty(blocks * total, dtype=torch.float32,
                           device=x.device)
@@ -191,10 +170,11 @@ def launch_bwd(g, x, dom, wqkv, w1q, w2q, lnq, w1k, w2k, lnk, wout, lno,
             raise ValueError("operands must lie on one device, contiguous, "
                              "dom int32, the rest float32 and 16-byte "
                              "aligned")
-    err = lib.satrans_meta_block_bwd(
-        *(t.data_ptr() for t in ops), B, F, d, h, heads, D, apply_q,
-        apply_k, relu_out, blocks,
-        torch.cuda.current_stream(x.device).cuda_stream)
+    fn = kernel_fn("meta_block_bwd", "satrans_meta_block_bwd",
+                   [ctypes.c_void_p] * 21 + [ctypes.c_int] * 10
+                   + [ctypes.c_void_p])
+    err = fn(*(t.data_ptr() for t in ops), B, F, d, h, heads, D, apply_q,
+             apply_k, relu_out, blocks, stream_of(x))
     if err:
         raise RuntimeError(f"meta_block_bwd launch failed: CUDA error {err}")
     global bwd_launches

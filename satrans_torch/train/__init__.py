@@ -1,5 +1,6 @@
-"""Training (twin of ``satrans_tpu/train``): the dense single-step
-``Trainer``, losses, metrics and callbacks."""
+"""Training (twin of ``satrans_tpu/train``): the single-step ``Trainer``
+with the dense and sparse bank updates (``bank_optimizer``), losses,
+metrics and callbacks."""
 
 from . import callbacks, losses, metrics
 from .trainer import SingleTask, Trainer

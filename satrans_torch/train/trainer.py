@@ -1,15 +1,21 @@
 """The training engine (twin of ``satrans_tpu/train/trainer.py``): the
-single-task ``Trainer`` with the dense bank update.
+single-task ``Trainer`` with the dense and the sparse bank updates.
 
-One step is autograd of the model in train mode, the pad-weighted BCE sum
-(:class:`SingleTask`), the model's full-table embedding L2
-(``model.reg_loss()``) and Adam over every parameter, the bank included
-(``bank_update='dense'``, what ``'auto'`` resolves to on one device).  On
-the card each meta-transformer layer runs K1-fwd forward and K1-bwd
+One dense step (``bank_update='dense'``, what ``'auto'`` resolves to on
+one device) is autograd of the model in train mode, the pad-weighted BCE
+sum (:class:`SingleTask`), the model's full-table embedding L2
+(``model.reg_loss()``) and Adam over every parameter, the bank included.
+On the card each meta-transformer layer runs K1-fwd forward and K1-bwd
 backward (``ops/meta_block.py``).  Adam is ``torch.optim.Adam`` with
 ``eps`` outside the square root, the same update as ``optax.adam``, in its
 fused form: one pass over each parameter, its gradient and its moments
 (the 841 MB AliCCP bank makes the update a memory-bound pass).
+
+``'fused'``, ``'fused_eq'`` and ``'lazy'`` keep the bank's gradient to
+the step's rows (``train/bank_optimizer.py``, with the row kernels K2-K5
+on the card): ``fused`` and ``fused_eq`` give the dense step's results,
+``lazy`` moves only the touched rows (a documented deviation, PARITY.md).
+``fused`` reports the bank's L2 in ``reg_loss``, ``lazy`` does not.
 
 As in the JAX package, the last partial batch is padded to the batch size
 with zero rows of weight 0: with sum-reduced losses that is the
@@ -17,7 +23,7 @@ reference's smaller tail batch.  Step statistics stay on the device and
 reach the host once per epoch (and at a verbose print).
 
 What the JAX Trainer also offers raises ``NotImplementedError`` naming its
-ROADMAP item: a mesh, the sparse bank modes, checkpoints, streaming
+ROADMAP item: a mesh, ``lazy_stale``, checkpoints, streaming
 ``fit_from_iterator``, ``evaluate_domains`` and optimizers other than
 Adam.  ``scan_steps > 1`` (the JAX package's multi-step XLA program) runs
 the same single steps one after another.
@@ -31,7 +37,7 @@ from typing import Sequence
 import numpy as np
 import torch
 
-from . import callbacks as cb, losses, metrics as metrics_lib
+from . import bank_optimizer, callbacks as cb, losses, metrics as metrics_lib
 from ..utils import resolve_device
 
 _MODES = ("auto", "dense", "fused", "fused_eq", "lazy", "lazy_stale")
@@ -70,31 +76,57 @@ class Trainer:
         self.history = cb.History()
         self.optimizer = None
         self._strategy = None
+        self._bank_mode = "dense"
+        self._eq_plan = None
+        self._lazy = None
 
     # ------------------------------------------------------------------
     def compile(self, optimizer="adam", loss="binary_crossentropy",
                 metrics: Sequence[str] = ("binary_crossentropy", "auc"),
                 learning_rate: float = 0.001, bank_update: str = "auto"):
         """Keras-style compile (reference basemodel.py:540-552).  Only
-        Adam and the dense bank update are ported."""
+        Adam is ported; ``bank_update`` is ``auto`` (``dense`` on one
+        device), ``dense``, ``fused``, ``fused_eq`` or ``lazy``."""
         if bank_update not in _MODES:
             raise ValueError(f"unknown bank_update {bank_update!r}")
-        if bank_update not in ("auto", "dense"):
+        if bank_update == "lazy_stale":
             raise NotImplementedError(
-                f"bank_update={bank_update!r} is ROADMAP queue 1 item "
-                "'train/bank_optimizer.py sparse modes'")
+                "bank_update='lazy_stale' is ROADMAP queue 1 item "
+                "'lazy_stale' (the software-pipelined lazy commit)")
         if optimizer != "adam":
             raise NotImplementedError(
                 f"optimizer {optimizer!r}: only 'adam' is ported; the "
                 "others are ROADMAP queue 1 item 'remaining Trainer "
                 "surface'")
-        self.optimizer = torch.optim.Adam(self.model.parameters(),
-                                          lr=float(learning_rate),
-                                          betas=(0.9, 0.999), eps=1e-8,
-                                          fused=True)
+        self._resolve_bank_mode(bank_update)
+        bank = self.model.emb.bank if self._bank_mode == "lazy" else None
+        self.optimizer = torch.optim.Adam(
+            [p for p in self.model.parameters() if p is not bank],
+            lr=float(learning_rate), betas=(bank_optimizer.ADAM_B1,
+                                            bank_optimizer.ADAM_B2),
+            eps=bank_optimizer.ADAM_EPS, fused=True)
+        self._lr = float(learning_rate)
+        self._eq_plan = (bank_optimizer.make_eq_plan(self.model)
+                         if self._bank_mode in ("fused_eq", "lazy")
+                         else None)
+        self._lazy = (bank_optimizer.lazy_init(self.model.emb)
+                      if self._bank_mode == "lazy" else None)
         self.metric_fns = {m: metrics_lib.get_metric(m) for m in metrics}
         self._strategy = SingleTask(loss)
         return self
+
+    def _resolve_bank_mode(self, mode: str) -> None:
+        """Twin of trainer.py:460-503 on one device: ``auto`` resolves to
+        ``dense`` (the exact reference path, for every model); a sparse
+        mode needs a ``standard_bank_access`` model."""
+        if mode == "auto":
+            mode = "dense"
+        elif mode != "dense" and not bank_optimizer.eligible(self.model):
+            raise ValueError(
+                f"bank_update={mode!r} needs the stock 'adam' optimizer and "
+                "a standard_bank_access model "
+                f"({type(self.model).__name__} is not)")
+        self._bank_mode = mode
 
     # ------------------------------------------------------------------
     def _device_batch(self, batch_np: dict) -> dict:
@@ -130,9 +162,30 @@ class Trainer:
         """One optimizer step; returns its statistics as device scalars."""
         self.model.train()
         self.optimizer.zero_grad(set_to_none=True)
-        total, data_loss, reg, aux = self.loss_terms(batch, y, weight)
-        total.backward()
-        self.optimizer.step()
+        mode = self._bank_mode
+        if mode == "dense":
+            total, data_loss, reg, aux = self.loss_terms(batch, y, weight)
+            total.backward()
+            self.optimizer.step()
+        else:
+            flat_ids, g_rows, data_loss, reg, aux = \
+                bank_optimizer.sparse_bank_grads(self.model, self._strategy,
+                                                 batch, y, weight)
+            emb = self.model.emb
+            l2 = float(self.model.l2_reg_embedding)
+            if mode in ("fused", "fused_eq"):
+                # the bank's L2 in the reported reg loss, as 'dense' has it
+                flat = emb.bank.detach().view(-1)
+                reg = reg + l2 * torch.dot(flat, flat)
+                bank_optimizer.fused_update(
+                    self.optimizer, emb, flat_ids, g_rows, lr=self._lr,
+                    l2=l2, eq_plan=self._eq_plan if mode == "fused_eq"
+                    else None)
+            else:
+                self.optimizer.step()
+                bank_optimizer.lazy_update(emb, self._lazy, flat_ids, g_rows,
+                                           lr=self._lr, l2=l2,
+                                           eq_plan=self._eq_plan)
         return {"loss": data_loss.detach(), "reg_loss": reg.detach(),
                 "aux_loss": aux, "count": torch.sum(weight)}
 

@@ -1,6 +1,8 @@
 """The port's CUDA kernels against their plain PyTorch versions on the card:
-the layer forward (K1-fwd) against ``meta_layer_reference`` and the layer
-backward (K1-bwd) against autograd of it.
+the layer forward (K1-fwd) against ``meta_layer_reference``, the layer
+backward (K1-bwd) against autograd of it, and the row kernels of the
+sparse bank updates (K2 scatter, K3 equality combine, K4 gather, K5 lazy
+Adam tail) against theirs.
 
 Every test here needs an NVIDIA GPU and skips itself elsewhere.  The file
 imports neither JAX nor the JAX package, so it also runs on a machine that
@@ -105,3 +107,103 @@ def test_meta_block_bwd_kernel_matches_plain_backward(card, mode, relu_out,
     for name, w in want.items():
         err = (got[name] - w).abs().max().item()
         assert err <= 1e-4 * w.abs().max().item() + 1e-5, (name, err)
+
+
+# --- the row kernels of the sparse bank updates (K2, K3, K4, K5) ---------
+
+def _bank(card, rows, w, seed):
+    gen = make_generator(seed, card)
+    return [init.normal(gen, (rows, w), 1.0) for _ in range(3)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("w", [128, 10])  # 16-byte and 4-byte accesses
+@pytest.mark.parametrize("n", [0, 1, 77])
+def test_gather_rows_kernel_matches_plain_version(card, n, w):
+    from satrans_torch.ops import gather
+    arrays = _bank(card, 50, w, 2)
+    ids = torch.randint(-3, 53, (n,), device=card)  # clamped at both ends
+    before = gather.launches
+    got = gather.gather_rows(arrays, ids)
+    torch.cuda.synchronize()
+    assert gather.launches == before + (n > 0)
+    for g, want in zip(got, gather.gather_rows_reference(arrays, ids)):
+        assert torch.equal(g, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("w", [128, 10])
+@pytest.mark.parametrize("drop_oob", [False, True])
+def test_scatter_rows_kernel_matches_plain_version(card, drop_oob, w):
+    """Duplicate ids carry identical values; with drop_oob the negative and
+    past-the-end ids are skipped."""
+    from satrans_torch.ops import scatter
+    arrays = _bank(card, 50, w, 3)
+    ids = torch.randint(0, 50, (40,), device=card)
+    if drop_oob:
+        ids[:6] = torch.tensor([-1, 50, 77, -50, 50, 3], device=card)
+    cols = torch.arange(w, device=card, dtype=torch.float32)
+    vals = [torch.sin(ids[:, None].float() * (a + 1) + cols)
+            for a in range(3)]
+    got = [a.clone() for a in arrays]
+    want = [a.clone() for a in arrays]
+    before = scatter.launches
+    scatter.scatter_rows_set(got, ids, vals, drop_oob=drop_oob)
+    scatter.scatter_rows_set_reference(want, ids, vals, drop_oob=drop_oob)
+    torch.cuda.synchronize()
+    assert scatter.launches == before + 1
+    for g, wa in zip(got, want):
+        assert torch.equal(g, wa)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("W", [128, 200])
+def test_eqgemm_kernel_matches_plain_version(card, W):
+    """Heavy duplicates (a tail batch's zero ids among them): within 1e-5
+    of the largest total, and every group of duplicate positions
+    byte-identical."""
+    from satrans_torch.ops import eqgemm
+    F, B = 3, 300
+    ids = torch.randint(0, 40, (F, B), device=card)
+    ids[:, 200:] = 7
+    g = init.normal(make_generator(4, card), (F, B, W), 1.0)
+    before = eqgemm.launches
+    got = eqgemm.eqgemm_positions(ids, g)
+    torch.cuda.synchronize()
+    assert eqgemm.launches == before + 1
+    want = eqgemm.eqgemm_positions_reference(ids, g)
+    assert (got - want).abs().max().item() <= 1e-5 * want.abs().max().item()
+    for f in range(F):
+        order = torch.argsort(ids[f], stable=True)
+        s, i = got[f][order], ids[f][order]
+        same = i[1:] == i[:-1]
+        assert torch.equal(s[1:][same], s[:-1][same])
+
+
+@pytest.mark.cuda
+def test_lazy_adam_rows_kernel_matches_plain_version(card):
+    """Unique ids with the sentinel and a negative id; the kernel's
+    operations round one by one as the plain version's do, so they agree
+    within 2 float32 ulp."""
+    from satrans_torch.ops import lazy_tail
+    rows, w, n = 60, 128, 40
+    bank, mu, nu = _bank(card, rows, w, 5)
+    mu.mul_(0.1)
+    nu.abs_().mul_(0.01)
+    ids = torch.randperm(rows, device=card)[:n]
+    ids[[3, 9]] = torch.tensor([rows, -2], device=card)
+    gen = make_generator(6, card)
+    g = init.normal(gen, (n, w), 0.05)
+    k = torch.randint(0, 9, (n,), device=card).float()
+    d1, d2, dw = 0.9 ** k, 0.999 ** k, (1 - 2e-5) ** (k + 1)
+    kw = dict(lr=0.005, b1=0.9, b2=0.999, eps=1e-8)
+    c = (1 / (1 - 0.9 ** 5), 1 / (1 - 0.999 ** 5))
+    got = [t.clone() for t in (bank, mu, nu)]
+    want = [t.clone() for t in (bank, mu, nu)]
+    before = lazy_tail.launches
+    lazy_tail.lazy_adam_rows(*got, ids, g, d1, d2, dw, *c, **kw)
+    lazy_tail.lazy_adam_rows_reference(*want, ids, g, d1, d2, dw, *c, **kw)
+    torch.cuda.synchronize()
+    assert lazy_tail.launches == before + 1
+    for a, b in zip(got, want):
+        torch.testing.assert_close(a, b, rtol=2.4e-7, atol=1e-12)

@@ -124,3 +124,39 @@ def test_bridge_rejects_unported_params():
     with pytest.raises(KeyError):
         bridge.from_jax_params(
             jax.tree.map(np.asarray, params), tm)
+
+
+def test_out_of_range_ids_read_and_differentiate_as_jax():
+    """Large-bank ids outside the tables read through the packed layout as
+    the JAX package reads them, and their gradient lands where the JAX
+    package's lands (or is dropped).  The layout has R = 1100 logical rows
+    in R_phys = 69 physical rows of rp = 16 (four zero pad rows): ids -1
+    (a wrapped negative), R (a pad lane), R_phys * rp + 5 (past the bank,
+    clamped) and 1102 (another pad lane), as f0, f1 and varlen ids."""
+    jm, params, tm = tp.jax_and_port()
+    rp, n_phys = 16, 69
+    assert tm.emb.bank.shape == (n_phys * rp, tp.D_EMB)
+    x = tp.request(6, seed=4)
+    x["f0"][:3] = [-1, n_phys * rp + 5, 7]          # offset 0
+    x["f1"][:3] = [1100 - 300, 1102 - 300, 9]       # offset 300
+    x["hist"][0] = [1100 - 800, n_phys * rp + 5 - 800, 3]  # offset 800
+    batch = jm.layout.batch_from_dict(x)
+    w = np.random.default_rng(5).normal(size=(6, 4, tp.D_EMB)).astype(
+        np.float32)
+
+    def jax_loss(bank):
+        emb = dict(jax.tree.map(jnp.asarray, params["emb"]), bank=bank)
+        out = jemb.embed_fields(emb, jm.layout, {
+            k: jnp.asarray(v) for k, v in batch.items()})
+        return jnp.sum(out * w), out
+
+    (_, want), want_grad = jax.value_and_grad(jax_loss, has_aux=True)(
+        jnp.asarray(params["emb"]["bank"]))
+    out = temb.embed_fields(tm.emb, tm.layout, {
+        k: torch.from_numpy(v) for k, v in batch.items()})
+    (out * torch.from_numpy(w)).sum().backward()
+    np.testing.assert_allclose(out.detach().numpy(), np.asarray(want),
+                               atol=1e-6)
+    np.testing.assert_allclose(
+        tm.emb.bank.grad.numpy(),
+        np.asarray(want_grad).reshape(-1, tp.D_EMB), atol=1e-6)

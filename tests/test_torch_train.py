@@ -37,17 +37,9 @@ BATCH, N = 16, 40
 
 
 def _models(mode="QK"):
-    """JAX model, numpy params and the port's model holding them.  The JAX
-    bank's pad rows (its 128-lane packing) are zeroed: the port has none,
-    and they would add to the full-table L2."""
-    jm, params, tm = tp.jax_and_port(mode)
-    rows = tm.emb.bank.shape[0]
-    bank = params["emb"]["bank"]
-    flat = bank.reshape(-1, tp.D_EMB).copy()
-    flat[rows:] = 0.0
-    params["emb"]["bank"] = flat.reshape(bank.shape)
-    tm.load_state_dict(bridge.from_jax_params(params, tm))
-    return jm, params, tm
+    """JAX model, numpy params and the port's model holding them (the
+    bank's pad rows included)."""
+    return tp.jax_and_port(mode)
 
 
 def _data(n=N, seed=5):
@@ -234,7 +226,7 @@ def test_unported_options_raise(what):
             TorchTrainer(tm, mesh=object(), device="cpu")
         tr = TorchTrainer(tm, device="cpu")
         if what == "bank_update":
-            tr.compile(bank_update="lazy")
+            tr.compile(bank_update="lazy_stale")
         if what == "optimizer":
             tr.compile(optimizer="sgd")
         tr.compile()

@@ -25,11 +25,18 @@ def columns(pkg, combiner="max"):
             f.VarLenSparseFeature("hist", 300, D_EMB, 3, combiner)]
 
 
-def model_kwargs(mode="QK", relu_out=False):
+def columns_no_varlen(pkg, combiner="max"):
+    """Two large fields and the scenario column: the gather plan is one
+    ``[B, 2]`` lookup, and at d=8 (16 logical rows a physical row) the two
+    fields share physical row 18."""
+    return columns(pkg)[:3]
+
+
+def model_kwargs(mode="QK", relu_out=False, **extra):
     return dict(domain_cols=["domain"], num_domains_list=[3],
                 domain_att_layer_num=LAYERS, att_head_num=HEADS,
                 meta_mode=mode, meta_dnn_hidden_units=META_UNITS[1:],
-                relu_out=relu_out, dropout_rate=0.0)
+                relu_out=relu_out, dropout_rate=0.0, **extra)
 
 
 def random_params(params, seed=0, scale=0.3):
@@ -49,21 +56,22 @@ def request(n, seed=0):
             "hist": rng.integers(0, 300, (n, 3))}
 
 
-def jax_and_port(mode="QK", relu_out=False, combiner="max", seed=0):
+def jax_and_port(mode="QK", relu_out=False, combiner="max", seed=0,
+                 cols=columns, **extra):
     """(jax model, numpy params, port model on the CPU holding the same
-    params)."""
+    params).  ``cols`` gives the columns; ``extra`` more model keywords."""
     import satrans_torch
     import satrans_tpu
     from satrans_torch import bridge
     from satrans_torch.models import SATrans as TorchSATrans
     from satrans_tpu.models import SATrans
 
+    kw = model_kwargs(mode, relu_out, **extra)
     jm = SATrans(layout=satrans_tpu.FeatureLayout(
-        columns(satrans_tpu, combiner)), **model_kwargs(mode, relu_out))
+        cols(satrans_tpu, combiner)), **kw)
     params, _ = jm.init(jax.random.PRNGKey(3))
     params = random_params(params, seed)
     tm = TorchSATrans(satrans_torch.FeatureLayout(
-        columns(satrans_torch, combiner)), **model_kwargs(mode, relu_out),
-        device="cpu")
+        cols(satrans_torch, combiner)), **kw, device="cpu")
     tm.load_state_dict(bridge.from_jax_params(params, tm))
     return jm, params, tm
