@@ -6,25 +6,33 @@ Phases, each of which exits non-zero on failure:
 
 1. build every CUDA kernel from satrans_torch/csrc (one nvcc per source,
    all at once);
-2. hold each kernel against its plain PyTorch version on the card at the
-   AliCCP sota widths (B=8192 and a ragged 8190, F=19, d=32, 4 heads, 4
-   meta rows, MetaNet 32->64->32), in meta modes QK and Query with
-   relu_out off and on, and time both with CUDA events;
+2. hold each layer forward kernel against its plain PyTorch version on
+   the card at the AliCCP sota widths (B=8192 and a ragged 8190, F=19,
+   d=32, 4 heads, 4 meta rows, MetaNet 32->64->32), in meta modes QK and
+   Query with relu_out off and on: K1-fwd, and K1-stash's output and every
+   residual, at dropout 0 and (B=8192) at dropout 0.1 with the same masks
+   on both sides; check the keep share of every dropout site (0.9 within
+   0.005) and time the kernels and the plain version with CUDA events;
 3. serve 3 requests of 20,000 examples through satrans_torch.serving's
    Predictor at batch 8192 with SATrans at the AliCCP sota width (19
    fields with the real vocab sizes, an ~841 MB embedding bank on the
-   card), count the kernel's launches, and compare the scores with the
-   same model on its plain path;
-4. hold the backward kernel (K1-bwd) against autograd of the plain layer
-   at the same widths, batches and modes, every gradient, and time both
-   in every case;
+   card), count the kernel's launches (K1-fwd only, never K1-stash), and
+   compare the scores with the same model on its plain path;
+4. hold both backward kernels (K1-bwd after K1-fwd, K1-bwd-stash after
+   K1-stash) against autograd of the plain layer with the same masks at
+   the same widths and modes, every gradient, at B=8192 at dropout 0 and
+   0.1 and at B=8190 at dropout 0 (the examples with a relu input within
+   1e-6 of its kink get no upstream gradient: rounding may flip its
+   side), and time them;
 5. train the same model with satrans_torch.train's Trainer (Adam, lr
-   0.005, dense bank update, dropout 0) for 24 steps at batch 8192 on
-   bench.py-style synthetic ids and labels (the last batch a padded
-   tail): one step's gradients on the kernel path against the plain
-   path, exactly 3 forward and 3 backward launches per step, a finite
-   loss at every step, trained examples/s, a torch.profiler breakdown of
-   one step, and predict/evaluate on 20,000 examples;
+   0.005, dense bank update, dropout 0.1 as bench.py publishes it) for 24
+   steps at batch 8192 on bench.py-style synthetic ids and labels (the
+   last batch a padded tail), once with bwd='stash' and once with
+   bwd='recompute': one step's gradients on the kernel path against the
+   plain path, exactly 3 forward and 3 backward launches of the arm's
+   kernels per step, a finite and falling loss, trained examples/s, the
+   staged step, the host queue time and a torch.profiler breakdown of one
+   step; then predict/evaluate on 20,000 examples, through K1-fwd only;
 6. hold each row kernel of the sparse bank updates against its plain
    PyTorch version at the AliCCP sota shapes (bank, mu and nu of
    1,642,953 x 128 float32, 841 MB each; N = 81,920 ids of a training
@@ -34,11 +42,12 @@ Phases, each of which exits non-zero on failure:
    duplicate positions, K5 within 2 float32 ulp; and time each kernel, its
    plain version and the one PyTorch call that computes the same function
    where there is one;
-7. train the phase-5 model in the sparse bank modes fused, fused_eq, lazy
-   and lazy with SATRANS_LAZY_TAIL=fused (24 steps and a tail each, after
-   fused against dense from one start after 3 steps): the exact launches of
-   every kernel per step, a finite loss at every step, trained
-   examples/s, the staged step and a torch.profiler breakdown of one step.
+7. train the phase-5 model (dropout 0.1, bwd='stash') in the sparse bank
+   modes fused, fused_eq, lazy and lazy with SATRANS_LAZY_TAIL=fused (24
+   steps and a tail each, after fused against dense from one start after
+   3 steps): the exact launches of every kernel per step, a finite and
+   falling loss, trained examples/s, the staged step and a torch.profiler
+   breakdown of one step.
 
 It prints the card's name and power limit, one JSON line naming each
 kernel with its launches, error and times, and as its last line
@@ -60,6 +69,10 @@ import torch
 
 SEED = 1021
 BATCH = 8192
+# the bench.py workload's dropout; the layer checks draw with a seed whose
+# seed + tile wraps past int32 on the last tiles of a batch of 8192
+DROP_RATE, DROP_SEED, DROP_TILE = 0.1, 2 ** 31 - 40, 128
+KEEP_SHARE_TOL = 0.005
 REQUESTS, REQUEST_ROWS = 3, 20_000
 LAYERS = 3
 # H100 SXM data-sheet peaks at 700 W: float32 outside the tensor cores,
@@ -88,6 +101,9 @@ EQGEMM_RTOL = 1e-5
 PARAM_TOL = dict(atol=5e-5, rtol=1e-3)
 # the sparse training arms: (name, bank_update, SATRANS_LAZY_TAIL) and the
 # launches a step of K4 gather, K2 scatter, K3 eqgemm, K5 lazy tail
+# the layer kernels' launch counters in ops/meta_block.py
+K1_COUNTS = ("launches", "stash_launches", "bwd_launches",
+             "stash_bwd_launches")
 SPARSE_ARMS = (("fused", "fused", None, (2, 1, 0, 0)),
                ("fused_eq", "fused_eq", None, (2, 1, 1, 0)),
                ("lazy", "lazy", None, (2, 1, 1, 0)),
@@ -127,37 +143,63 @@ def host_ms(fn, iters: int = 10) -> float:
     return 1e3 * wall / iters
 
 
-def meta_layer_bound_ms(B, F, d, h, heads, meta_rows, apply_q, apply_k):
-    """Least time for one layer: the larger of its float32 FMA work over
-    the card's float32 peak and its bytes (x in, y out, dom and the
-    weights read once) over the HBM rate.  Returns (ms, bound_by)."""
-    per_example = (2 * F * d * 3 * d                       # x @ Wqkv
-                   + (apply_q + apply_k) * 2 * F * 2 * d * h  # MetaNets
-                   + 2 * 2 * F * F * d                     # q k^T and p v
-                   + 2 * F * d * d)                        # o @ Wout
-    flops = B * per_example
-    weights = 4 * d * d + meta_rows * 2 * d * h + 6 * d
-    nbytes = 4 * (2 * B * F * d + B + weights)
+def _bound(flops: float, nbytes: float):
+    """(ms, bound_by): the larger of the float32 work over the card's
+    float32 peak and the bytes over the HBM rate."""
     t_ops, t_bytes = flops / PEAK_F32_FLOPS, nbytes / PEAK_HBM_BYTES
     return 1e3 * max(t_ops, t_bytes), \
         "operations" if t_ops >= t_bytes else "bytes"
 
 
-def meta_layer_bwd_bound_ms(B, F, d, h, heads, meta_rows, apply_q, apply_k):
-    """Least time for the layer's backward with its forward recomputed:
-    the forward's operations, then dWout and do (2 x 2Fd^2), the attention
-    backward (dv, dP, dq, dk: 4 x 2F^2 d), per applied MetaNet dW2, dhid,
-    dW1 and dt0 (4 x 2Fdh), and dWqkv and dx (2 x 6Fd^2); bytes are x, g
-    and dom in, dx out, the weights in and their gradients out."""
-    fwd_ms, _ = meta_layer_bound_ms(B, F, d, h, heads, meta_rows, apply_q,
-                                    apply_k)
-    per_example = (4 * F * d * d + 8 * F * F * d
-                   + (apply_q + apply_k) * 8 * F * d * h + 12 * F * d * d)
-    t_ops = fwd_ms / 1e3 + B * per_example / PEAK_F32_FLOPS
-    weights = 4 * d * d + meta_rows * 2 * d * h + 6 * d
-    t_bytes = 4 * (3 * B * F * d + B + 2 * weights) / PEAK_HBM_BYTES
-    return 1e3 * max(t_ops, t_bytes), \
-        "operations" if t_ops >= t_bytes else "bytes"
+def _layer_flops(F, d, h, apply_q, apply_k):
+    """Float operations of one example's layer forward."""
+    return (2 * F * d * 3 * d                       # x @ Wqkv
+            + (apply_q + apply_k) * 2 * F * 2 * d * h  # MetaNets
+            + 2 * 2 * F * F * d                     # q k^T and p v
+            + 2 * F * d * d)                        # o @ Wout
+
+
+def _weight_floats(d, h, meta_rows):
+    return 4 * d * d + meta_rows * 2 * d * h + 6 * d
+
+
+def _residual_floats(F, d, heads):
+    """K1-stash's residuals of one example: qkv, uq, uk, s, o."""
+    return F * 3 * d + 2 * F * d + heads * F * F + F * d
+
+
+def meta_layer_bound_ms(B, F, d, h, heads, meta_rows, apply_q, apply_k,
+                        stash=False):
+    """Least time for one layer forward: its float32 FMA work, and its
+    bytes (x in, y out, dom and the weights read once; with ``stash``
+    K1-stash's residuals written).  The dropout hash's integer work (about
+    46 k operations an example, 11 us at B=8192 over the card's 33.5 T
+    int32 operations a second) is under a fifth of the float time and left
+    out.  Returns (ms, bound_by)."""
+    nbytes = 4 * (2 * B * F * d + B + _weight_floats(d, h, meta_rows))
+    if stash:
+        nbytes += 4 * B * _residual_floats(F, d, heads)
+    return _bound(B * _layer_flops(F, d, h, apply_q, apply_k), nbytes)
+
+
+def meta_layer_bwd_bound_ms(B, F, d, h, heads, meta_rows, apply_q, apply_k,
+                            stash=False):
+    """Least time for the layer's backward: K1-bwd recomputes the forward
+    (its operations), K1-bwd-stash only the MetaNet hidden layers (2Fdh an
+    applied MetaNet) and zlin = o @ Wout (2Fd^2) and reads the residuals;
+    then dWout and do (2 x 2Fd^2), the attention backward (dv, dP, dq, dk:
+    4 x 2F^2 d), per applied MetaNet dW2, dhid, dW1 and dt0 (4 x 2Fdh), and
+    dWqkv and dx (2 x 6Fd^2).  Bytes are x, g and dom in, dx out, the
+    weights in and their gradients out, and the residuals in."""
+    n_meta = apply_q + apply_k
+    again = (n_meta * 2 * F * d * h + 2 * F * d * d if stash
+             else _layer_flops(F, d, h, apply_q, apply_k))
+    backward = (4 * F * d * d + 8 * F * F * d + n_meta * 8 * F * d * h
+                + 12 * F * d * d)
+    nbytes = 4 * (3 * B * F * d + B + 2 * _weight_floats(d, h, meta_rows))
+    if stash:
+        nbytes += 4 * B * _residual_floats(F, d, heads)
+    return _bound(B * (again + backward), nbytes)
 
 
 def grad_errors(got: dict, want: dict) -> dict:
@@ -175,19 +217,39 @@ def grad_errors(got: dict, want: dict) -> dict:
     return errs
 
 
-def kernel_phase(dev):
-    """Kernel vs plain at full width.  Returns the JSON fields measured."""
+def test_layer(dev, seed):
+    """The layer of phases 2 and 4 (its meta LayerNorm moved off its (1, 0)
+    init), its 4-row table and the generator after them."""
     from satrans_torch.nn import attention, initializers as init, metanet
-    from satrans_torch.ops import meta_block
     from satrans_torch.utils import make_generator
+    gen = make_generator(seed, dev)
+    layer = attention.MetaTransformerLayer(gen, 32)
+    with torch.no_grad():
+        layer.q_meta.ln.scale.add_(init.normal(gen, (32,), 0.1))
+        layer.q_meta.ln.bias.add_(init.normal(gen, (32,), 0.1))
+    table = init.normal(gen, (4, metanet.param_size([32, 64, 32])), 0.1)
+    return gen, layer, table
+
+
+def drop_kw(rate):
+    return dict(train=True, drop_rate=rate, seed=DROP_SEED,
+                block_b=DROP_TILE)
+
+
+def kernel_phase(dev):
+    """K1-fwd and K1-stash against the plain version at full width, and the
+    keep share of every dropout site.  Returns the JSON fields measured,
+    by kernel."""
+    from satrans_torch.nn import initializers as init
+    from satrans_torch.ops import meta_block, prng
 
     F, d, h, heads, rows = 19, 32, 64, 4, 4
     units = [d, h, d]
-    gen = make_generator(SEED, dev)
-    layer = attention.MetaTransformerLayer(gen, d)
-    table = init.normal(gen, (rows, metanet.param_size(units)), 0.1)
+    gen, layer, table = test_layer(dev, SEED)
     tables = {"Q": table, "K": table}
-    worst, main = 0.0, None
+    worst = {"fwd": 0.0, "stash": 0.0}
+    out = {}
+    names = ("y", "qkv", "uq", "uk", "s", "o")
     for B in (BATCH, BATCH - 2):
         x = init.normal(gen, (B, F, d), 1.0)
         dom = torch.randint(0, rows, (B,), generator=gen, device=dev)
@@ -195,36 +257,116 @@ def kernel_phase(dev):
             for relu_out in (False, True):
                 kw = dict(meta_units=units, head_num=heads, mode=mode,
                           relu_out=relu_out)
-                with torch.no_grad():
-                    y = meta_block.fused_meta_layer(x, layer, tables, dom,
-                                                    **kw)
-                    ref = meta_block.meta_layer_reference(x, layer, tables,
-                                                          dom, **kw)
-                torch.cuda.synchronize()
-                err = (y - ref).abs().max().item()
-                worst = max(worst, err)
-                ok = bool(torch.isfinite(y).all()) and torch.allclose(
-                    y, ref, **KERNEL_TOL)
-                line = (f"kernel meta_block_fwd B={B} mode={mode} "
-                        f"relu_out={relu_out}: max_abs_err={err:.3e}")
-                if B == BATCH:
+                for rate in (0.0, DROP_RATE) if B == BATCH else (0.0,):
+                    drop = drop_kw(rate)
+                    masks = meta_block.layer_masks(x, head_num=heads,
+                                                   mode=mode, **drop)
+                    ops, cfg = meta_block.pack_operands(x, layer, tables,
+                                                        dom, **kw)
+                    kargs = prng.kernel_args(True, rate, DROP_SEED,
+                                             DROP_TILE, F)
+                    res = {}
                     with torch.no_grad():
-                        k_ms = time_ms(lambda: meta_block.fused_meta_layer(
-                            x, layer, tables, dom, **kw), iters=50)
-                        p_ms = time_ms(lambda: meta_block.meta_layer_reference(
-                            x, layer, tables, dom, **kw), iters=10)
-                    b_ms, b_by = meta_layer_bound_ms(
-                        B, F, d, h, heads, rows, "Q" in mode, "K" in mode)
-                    line += (f" kernel_ms={k_ms:.4f} plain_ms={p_ms:.4f} "
-                             f"bound_ms={b_ms:.4f} ({b_by})")
-                    if mode == "QK" and not relu_out:  # the serving config
-                        main = dict(ms=k_ms, plain_ms=p_ms, bound_ms=b_ms,
-                                    bound_by=b_by)
-                print(line, flush=True)
-                check(ok, f"kernel disagrees with its plain version "
-                          f"(B={B} mode={mode} relu_out={relu_out}, "
-                          f"max_abs_err={err}, tolerance {KERNEL_TOL})")
-    return dict(max_abs_err=worst, **main)
+                        y = meta_block.fused_meta_layer(x, layer, tables,
+                                                        dom, **kw, **drop)
+                        st = meta_block.launch_fwd(*ops, cfg, kargs,
+                                                   stash=True)
+                        ref = meta_block.meta_layer_reference(
+                            x, layer, tables, dom, **kw, masks=masks,
+                            residuals=res)
+                    torch.cuda.synchronize()
+                    want = (ref, *(res[n] for n in names[1:]))
+                    errs = {n: (g - w).abs().max().item()
+                            for n, g, w in zip(names, st, want)}
+                    err = (y - ref).abs().max().item()
+                    worst["fwd"] = max(worst["fwd"], err)
+                    worst["stash"] = max(worst["stash"], *errs.values())
+                    line = (f"kernel meta_block_fwd B={B} mode={mode} "
+                            f"relu_out={relu_out} dropout={rate}: "
+                            f"max_abs_err={err:.3e}; stash max_abs_err "
+                            + " ".join(f"{n} {e:.3e}"
+                                       for n, e in errs.items()))
+                    if B == BATCH and mode == "QK" and not relu_out:
+                        # the serving (rate 0) and training configurations
+                        with torch.no_grad():
+                            k_ms = time_ms(lambda: meta_block.launch_fwd(
+                                *ops, cfg, kargs), iters=50)
+                            s_ms = time_ms(lambda: meta_block.launch_fwd(
+                                *ops, cfg, kargs, stash=True), iters=50)
+                            p_ms = time_ms(
+                                lambda: meta_block.meta_layer_reference(
+                                    x, layer, tables, dom, **kw,
+                                    masks=masks), iters=10)
+                        a = ("Q" in mode, "K" in mode)
+                        b_ms, b_by = meta_layer_bound_ms(B, F, d, h, heads,
+                                                         rows, *a)
+                        sb_ms, sb_by = meta_layer_bound_ms(
+                            B, F, d, h, heads, rows, *a, stash=True)
+                        line += (f"; K1-fwd kernel_ms={k_ms:.4f} K1-stash "
+                                 f"kernel_ms={s_ms:.4f} plain_ms={p_ms:.4f} "
+                                 f"bound_ms={b_ms:.4f} ({b_by}), stash "
+                                 f"{sb_ms:.4f} ({sb_by})")
+                        out[("fwd", rate)] = dict(ms=k_ms, plain_ms=p_ms,
+                                                  bound_ms=b_ms, bound_by=b_by)
+                        out[("stash", rate)] = dict(ms=s_ms, plain_ms=p_ms,
+                                                    bound_ms=sb_ms,
+                                                    bound_by=sb_by)
+                    print(line, flush=True)
+                    tol = KERNEL_TOL
+                    check(bool(torch.isfinite(y).all()) and torch.allclose(
+                        y, ref, **tol), f"K1-fwd disagrees with its plain "
+                        f"version (B={B} mode={mode} relu_out={relu_out} "
+                        f"dropout={rate}, max_abs_err={err}, tolerance {tol})")
+                    for n, g, w in zip(names, st, want):
+                        check(bool(torch.isfinite(g).all())
+                              and torch.allclose(g, w, **tol),
+                              f"K1-stash's {n} disagrees with the plain "
+                              f"version's (B={B} mode={mode} relu_out="
+                              f"{relu_out} dropout={rate}, max_abs_err "
+                              f"{errs[n]}, tolerance {tol})")
+    # the keep share of every site at the AliCCP shape, on the card
+    masks = prng.dropout_masks(DROP_SEED, BATCH, F, d, heads, DROP_TILE,
+                               DROP_RATE, True, True, dev)
+    shares = {n: (m > 0).double().mean().item()
+              for n, m in zip(("yq", "yk", "s", "z"), masks)}
+    print(f"dropout keep share at rate {DROP_RATE}, B={BATCH}: " + ", ".join(
+        f"{n} {v:.5f}" for n, v in shares.items()), flush=True)
+    check(all(abs(v - (1 - DROP_RATE)) <= KEEP_SHARE_TOL
+              for v in shares.values()),
+          f"a dropout site's keep share is off 0.9 by more than "
+          f"{KEEP_SHARE_TOL}: {shares}")
+    return dict(fwd=dict(max_abs_err=worst["fwd"], **out[("fwd", 0.0)],
+                         dropout_ms=out[("fwd", DROP_RATE)]["ms"]),
+                stash=dict(max_abs_err=worst["stash"],
+                           **out[("stash", DROP_RATE)],
+                           no_dropout_ms=out[("stash", 0.0)]["ms"]))
+
+
+def kink_free(g, x, layer, table, dom, masks, **kw):
+    """``g`` with zero rows for the examples whose relu inputs (the
+    MetaNet hidden layers, and the output projection under relu_out) lie
+    within 1e-6 of 0: float32 rounding may put such an input on either
+    side of the kink, where the gradient jumps, and the kernel and the
+    plain version would then differ by the jump.  Returns (g, the count
+    of examples zeroed)."""
+    from satrans_torch.nn import metanet
+    from satrans_torch.ops import meta_block
+    res = {}
+    with torch.no_grad():
+        meta_block.meta_layer_reference(x, layer, {"Q": table, "K": table},
+                                        dom, **kw, masks=masks,
+                                        residuals=res)
+        d = x.shape[-1]
+        w1 = metanet.slice_weights(table, kw["meta_units"])[0][dom.long()]
+        pre = [torch.einsum("bfi,bio->bfo",
+                            res["qkv"][..., i * d:(i + 1) * d], w1)
+               for i, p in enumerate("QK") if p in kw["mode"]]
+        if kw["relu_out"]:
+            pre.append(res["o"] @ layer.wout)
+        near = torch.zeros(x.shape[0], dtype=torch.bool, device=x.device)
+        for t in pre:
+            near |= (t.abs() < 1e-6).flatten(1).any(1)
+    return g.masked_fill(near[:, None, None], 0.0), int(near.sum())
 
 
 def layer_grads(fn, x, layer, table, dom, g, **kw):
@@ -241,62 +383,85 @@ def layer_grads(fn, x, layer, table, dom, g, **kw):
 
 
 def backward_phase(dev):
-    """K1-bwd against autograd of the plain layer at full width.  Returns
-    the JSON fields measured."""
-    from satrans_torch.nn import attention, initializers as init, metanet
-    from satrans_torch.ops import meta_block
-    from satrans_torch.utils import make_generator
+    """K1-bwd and K1-bwd-stash against autograd of the plain layer at full
+    width with the same masks, the examples at a relu kink given no
+    upstream gradient (:func:`kink_free`).  Returns the JSON fields
+    measured, by kernel."""
+    from satrans_torch.nn import initializers as init
+    from satrans_torch.ops import meta_block, prng
 
     F, d, h, heads, rows = 19, 32, 64, 4, 4
     units = [d, h, d]
-    gen = make_generator(SEED + 1, dev)
-    layer = attention.MetaTransformerLayer(gen, d)
-    with torch.no_grad():  # move the meta LayerNorm off its (1, 0) init
-        layer.q_meta.ln.scale.add_(init.normal(gen, (d,), 0.1))
-        layer.q_meta.ln.bias.add_(init.normal(gen, (d,), 0.1))
-    table = init.normal(gen, (rows, metanet.param_size(units)), 0.1)
-    worst, main = 0.0, None
+    gen, layer, table = test_layer(dev, SEED + 1)
+    worst = {"recompute": 0.0, "stash": 0.0}
+    out = {}
     for B in (BATCH, BATCH - 2):
         x = init.normal(gen, (B, F, d), 1.0)
-        g = init.normal(gen, (B, F, d), 1.0)
+        g_all = init.normal(gen, (B, F, d), 1.0)
         dom = torch.randint(0, rows, (B,), generator=gen, device=dev)
         for mode in ("QK", "Query"):
             for relu_out in (False, True):
                 kw = dict(meta_units=units, head_num=heads, mode=mode,
                           relu_out=relu_out)
-                got = layer_grads(meta_block.fused_meta_layer, x, layer,
-                                  table, dom, g, **kw)
-                want = layer_grads(meta_block.meta_layer_reference, x,
-                                   layer, table, dom, g, **kw)
-                torch.cuda.synchronize()
-                errs = grad_errors(got, want)
-                err = max(errs.values())
-                worst = max(worst, err)
-                ops, cfg = meta_block.pack_operands(
-                    x, layer, {"Q": table, "K": table}, dom, **kw)
-                ops = [t.detach() for t in ops]
-                k_ms = time_ms(lambda: meta_block.launch_bwd(g, *ops, cfg),
-                               iters=20)
-                xr = x.detach().requires_grad_(True)
-                tr = table.detach().requires_grad_(True)
-                inputs = [xr, tr, *layer.parameters()]
-                y = meta_block.meta_layer_reference(
-                    xr, layer, {"Q": tr, "K": tr}, dom, **kw)
-                p_ms = time_ms(lambda: torch.autograd.grad(
-                    y, inputs, g, retain_graph=True), iters=5)
-                del y
-                b_ms, b_by = meta_layer_bwd_bound_ms(
-                    B, F, d, h, heads, rows, "Q" in mode, "K" in mode)
-                print(f"kernel meta_block_bwd B={B} mode={mode} "
-                      f"relu_out={relu_out}: max_abs_err={err:.3e} (worst "
-                      f"{max(errs, key=errs.get)}) kernel_ms={k_ms:.4f} "
-                      f"plain_ms={p_ms:.4f} bound_ms={b_ms:.4f} ({b_by})",
-                      flush=True)
-                if B == BATCH and mode == "QK" and not relu_out:
-                    # the training configuration
-                    main = dict(ms=k_ms, plain_ms=p_ms, bound_ms=b_ms,
-                                bound_by=b_by)
-    return dict(max_abs_err=worst, **main)
+                for rate in (0.0, DROP_RATE) if B == BATCH else (0.0,):
+                    drop = drop_kw(rate)
+                    masks = meta_block.layer_masks(x, head_num=heads,
+                                                   mode=mode, **drop)
+                    g, kinks = kink_free(g_all, x, layer, table, dom, masks,
+                                         **kw)
+                    want = layer_grads(meta_block.meta_layer_reference, x,
+                                       layer, table, dom, g, **kw,
+                                       masks=masks)
+                    main = B == BATCH and mode == "QK" and not relu_out
+                    if main:  # the training configuration
+                        xr = x.detach().requires_grad_(True)
+                        tr = table.detach().requires_grad_(True)
+                        inputs = [xr, tr, *layer.parameters()]
+                        y = meta_block.meta_layer_reference(
+                            xr, layer, {"Q": tr, "K": tr}, dom, **kw,
+                            masks=masks)
+                        p_ms = time_ms(lambda: torch.autograd.grad(
+                            y, inputs, g, retain_graph=True), iters=5)
+                        del y
+                        ops, cfg = meta_block.pack_operands(
+                            x, layer, {"Q": table, "K": table}, dom, **kw)
+                        ops = [t.detach() for t in ops]
+                        kargs = prng.kernel_args(True, rate, DROP_SEED,
+                                                 DROP_TILE, F)
+                        res = meta_block.launch_fwd(*ops, cfg, kargs,
+                                                    stash=True)[1:]
+                    for bwd in ("recompute", "stash"):
+                        got = layer_grads(meta_block.fused_meta_layer, x,
+                                          layer, table, dom, g, **kw,
+                                          **drop, bwd=bwd)
+                        torch.cuda.synchronize()
+                        errs = grad_errors(got, want)
+                        err = max(errs.values())
+                        worst[bwd] = max(worst[bwd], err)
+                        line = (f"kernel meta_block_bwd ({bwd}) B={B} "
+                                f"mode={mode} relu_out={relu_out} dropout="
+                                f"{rate}: max_abs_err={err:.3e} (worst "
+                                f"{max(errs, key=errs.get)}; {kinks} "
+                                f"examples at a kink left out)")
+                        if main:
+                            r = res if bwd == "stash" else None
+                            k_ms = time_ms(lambda: meta_block.launch_bwd(
+                                g, *ops, cfg, kargs, res=r), iters=20)
+                            b_ms, b_by = meta_layer_bwd_bound_ms(
+                                B, F, d, h, heads, rows, "Q" in mode,
+                                "K" in mode, stash=bwd == "stash")
+                            line += (f" kernel_ms={k_ms:.4f} plain_ms="
+                                     f"{p_ms:.4f} bound_ms={b_ms:.4f} "
+                                     f"({b_by})")
+                            out[(bwd, rate)] = dict(ms=k_ms, plain_ms=p_ms,
+                                                    bound_ms=b_ms,
+                                                    bound_by=b_by)
+                        print(line, flush=True)
+                    if main:
+                        del res
+    return {bwd: dict(max_abs_err=worst[bwd], **out[(bwd, DROP_RATE)],
+                      no_dropout_ms=out[(bwd, 0.0)]["ms"])
+            for bwd in ("recompute", "stash")}
 
 
 def device_ops(prof):
@@ -373,14 +538,14 @@ def serving_phase(dev, card):
              for name in aliccp.SPARSE_FEATURES} for _ in range(REQUESTS)]
     batches = REQUESTS * -(-REQUEST_ROWS // BATCH)
 
-    meta_block.launches = 0
+    zero_counts()
     t0 = time.perf_counter()
     scores = [pred(x) for x in reqs]
     wall = time.perf_counter() - t0
     launches = meta_block.launches
-    check(launches == LAYERS * batches,
-          f"meta_block_fwd launched {launches} times, want "
-          f"{LAYERS} layers x {batches} batches")
+    check(k1_counts() == (LAYERS * batches, 0, 0, 0),
+          f"serving launched {k1_counts()} ({', '.join(K1_COUNTS)}), want "
+          f"K1-fwd only, {LAYERS} layers x {batches} batches")
     for s in scores:
         check(s.shape == (REQUEST_ROWS,) and s.dtype == np.float64,
               f"scores of shape {s.shape} and type {s.dtype}")
@@ -417,7 +582,7 @@ def serving_phase(dev, card):
 
 
 def training_model(dev, bank_update):
-    """The AliCCP sota SATrans of phases 5 and 7 (dropout 0, the default
+    """The AliCCP sota SATrans of phases 5 and 7 (dropout 0.1, the default
     N(0, 1e-4) embeddings) and its compiled Trainer (Adam, lr 0.005)."""
     from satrans_torch.data import aliccp
     from satrans_torch.features import FeatureLayout
@@ -426,7 +591,7 @@ def training_model(dev, bank_update):
     model = SATrans(FeatureLayout(aliccp.sota_columns(32)), ["301"], [3],
                     domain_att_layer_num=LAYERS, att_head_num=4,
                     meta_mode="QK", meta_dnn_hidden_units=(64, 32),
-                    dropout_rate=0.0, seed=SEED, device=dev)
+                    dropout_rate=DROP_RATE, seed=SEED, device=dev)
     trainer = Trainer(model, seed=SEED, device=dev)
     trainer.compile(learning_rate=TRAIN_LR, bank_update=bank_update)
     return model, trainer
@@ -434,20 +599,35 @@ def training_model(dev, bank_update):
 
 def training_data():
     """bench.py's synthetic batch: ids uniform in [1, DATA_MAX], labels
-    0/1.  Returns (the generator, ids, labels)."""
+    0/1.  Returns (ids, labels)."""
     from satrans_torch.data import aliccp
     rng = np.random.default_rng(SEED)
     x = {name: rng.integers(1, aliccp.DATA_MAX[name] + 1, TRAIN_ROWS)
          for name in aliccp.SPARSE_FEATURES}
     y = rng.integers(0, 2, TRAIN_ROWS).astype(np.float32)
-    return rng, x, y
+    return x, y
+
+
+def zero_counts():
+    """Every kernel's launch count to 0."""
+    from satrans_torch.ops import eqgemm, gather, lazy_tail, meta_block, \
+        scatter
+    for name in K1_COUNTS:
+        setattr(meta_block, name, 0)
+    for mod in (gather, scatter, eqgemm, lazy_tail):
+        mod.launches = 0
+
+
+def k1_counts():
+    from satrans_torch.ops import meta_block
+    return tuple(getattr(meta_block, name) for name in K1_COUNTS)
 
 
 def timed_fit(trainer, x, y):
     """One epoch of ``fit`` after the launch counts are set to 0: returns
-    (seconds, per-step data losses, the epoch loss)."""
-    from satrans_torch.ops import eqgemm, gather, lazy_tail, meta_block, \
-        scatter
+    (seconds, per-step data losses, the epoch loss).  Fails unless the
+    loss is finite at every step and falls (the mean per-example loss of
+    the last 4 full steps below that of the first 4)."""
     from satrans_torch.train import callbacks
     losses = []
 
@@ -456,9 +636,7 @@ def timed_fit(trainer, x, y):
             losses.append(logs["loss"])
 
     torch.cuda.synchronize()
-    meta_block.launches = meta_block.bwd_launches = 0
-    for mod in (gather, scatter, eqgemm, lazy_tail):
-        mod.launches = 0
+    zero_counts()
     t0 = time.perf_counter()
     hist = trainer.fit(x, y, batch_size=BATCH, epochs=1, verbose=0,
                        callbacks=[Record()])
@@ -468,29 +646,70 @@ def timed_fit(trainer, x, y):
     check(len(step_loss) == TRAIN_STEPS and bool(np.isfinite(
         step_loss).all()) and np.isfinite(hist.history["loss"][0]),
           "training loss not finite at every step")
+    per_ex = step_loss[:-1] / BATCH
+    check(per_ex[-4:].mean() < per_ex[:4].mean(),
+          f"training loss did not fall: {per_ex.tolist()}")
     return wall, step_loss, hist.history["loss"][0]
 
 
 def training_phase(dev, card):
-    """Train SATrans at the AliCCP sota width through the kernels.
-    Returns the launch counts of the timed fit."""
-    from satrans_torch.data import aliccp
-    from satrans_torch.ops import meta_block
-
+    """Train SATrans at the AliCCP sota width through the kernels, at
+    dropout 0.1, once with each backward (SATRANS_BWD).  Returns the
+    layer kernels' launch counts of each arm's timed fit and of the
+    evaluation."""
+    launched = {}
+    for bwd in ("stash", "recompute"):
+        os.environ["SATRANS_BWD"] = bwd
+        trainer, launched[bwd] = training_arm(dev, card, bwd)
+        if bwd == "stash":
+            launched["eval"] = eval_check(trainer, card)
+        del trainer
+        gc.collect()
+        torch.cuda.empty_cache()
+    # the two backwards on one trainer, in turns: the host's clock spreads
+    # from arm to arm, so stash and recompute are compared here
     model, trainer = training_model(dev, "dense")
-    layout = model.layout
-    rng, x, y = training_data()
+    x, y = training_data()
+    batch, yb, wb = staged_batch(trainer, x, y)
+    for bwd in ("stash", "recompute", "recompute", "stash"):
+        os.environ["SATRANS_BWD"] = bwd
+        step_ms = time_ms(lambda: trainer.train_step(batch, yb, wb), iters=10)
+        queue_ms = host_ms(lambda: trainer.train_step(batch, yb, wb))
+        print(f"train in turns, {bwd} [{card}]: train_step on a staged "
+              f"batch {step_ms:.3f} ms/step; the host queues a step in "
+              f"{queue_ms:.3f} ms", flush=True)
+    os.environ.pop("SATRANS_BWD")
+    del model, trainer, batch
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launched
 
-    # one step's gradients, kernel path against plain path
-    data = layout.batch_from_dict(x)
+
+def staged_batch(trainer, x, y):
+    """The first training batch on the card: (batch, labels, weights)."""
+    data = trainer.layout.batch_from_dict(x)
     batch = trainer._device_batch({k: v[:BATCH] for k, v in data.items()})
     yb, wb = trainer._device_batch({"y": y[:BATCH],
                                     "w": np.ones(BATCH, np.float32)}).values()
+    return batch, yb, wb
+
+
+def training_arm(dev, card, bwd):
+    """One dense training arm: one step's gradients kernel vs plain path,
+    24 steps of ``fit``, the staged step and its profile.  Returns the
+    trainer and the timed fit's K1 launch counts."""
+    model, trainer = training_model(dev, "dense")
+    x, y = training_data()
+    per_step = (0, 1, 0, 1) if bwd == "stash" else (1, 0, 1, 0)
+
+    # one step's gradients, kernel path against plain path (the same
+    # masks: the layers' fixed seeds)
+    batch, yb, wb = staged_batch(trainer, x, y)
     model.train()
     grads = {}
     for use_kernel in (True, False):
         model.use_kernel = use_kernel
-        before = (meta_block.launches, meta_block.bwd_launches)
+        zero_counts()
         model.zero_grad(set_to_none=True)
         total = trainer.loss_terms(batch, yb, wb)[0]
         total.backward()
@@ -498,58 +717,74 @@ def training_phase(dev, card):
         check(bool(torch.isfinite(total)), "training loss not finite")
         grads[use_kernel] = {n: p.grad.clone()
                              for n, p in model.named_parameters()}
-        launched = (meta_block.launches - before[0],
-                    meta_block.bwd_launches - before[1])
-        check(launched == ((LAYERS, LAYERS) if use_kernel else (0, 0)),
-              f"one step launched {launched} forward/backward kernels")
+        want = tuple(LAYERS * c for c in per_step) if use_kernel \
+            else (0, 0, 0, 0)
+        check(k1_counts() == want,
+              f"one step ({bwd}) launched {k1_counts()} "
+              f"({', '.join(K1_COUNTS)}), want {want}")
     model.use_kernel = True
     errs = grad_errors(grads[True], grads[False])
     worst = max(errs, key=errs.get)
-    print(f"train [{card}]: one step's gradients, kernel path vs plain "
-          f"path: max_abs_err {errs[worst]:.3e} ({worst}); loss "
-          f"{total.item() / BATCH:.6f} per example", flush=True)
+    print(f"train {bwd} [{card}]: one step's gradients at dropout "
+          f"{DROP_RATE}, kernel path vs plain path: max_abs_err "
+          f"{errs[worst]:.3e} ({worst}); loss {total.item() / BATCH:.6f} "
+          f"per example", flush=True)
     del grads
     model.zero_grad(set_to_none=True)
 
     trainer.fit({k: v[:2 * BATCH] for k, v in x.items()}, y[:2 * BATCH],
                 batch_size=BATCH, verbose=0)  # warmup: two steps
     wall, step_loss, epoch_loss = timed_fit(trainer, x, y)
-    launched = (meta_block.launches, meta_block.bwd_launches)
-    check(launched == (LAYERS * TRAIN_STEPS, LAYERS * TRAIN_STEPS),
-          f"{TRAIN_STEPS} steps launched {launched} forward/backward "
-          f"kernels, want {LAYERS} of each per step")
+    launched = k1_counts()
+    want = tuple(TRAIN_STEPS * LAYERS * c for c in per_step)
+    check(launched == want,
+          f"{TRAIN_STEPS} steps ({bwd}) launched {launched} "
+          f"({', '.join(K1_COUNTS)}), want {want}")
     per_ex = step_loss[:-1] / BATCH
-    print(f"train [{card}]: {TRAIN_ROWS} examples in {TRAIN_STEPS} steps of "
-          f"{BATCH} (last a tail of {TAIL})"
-          f": {wall:.4f}s, {TRAIN_ROWS / wall:.1f} trained examples/s, "
-          f"{1e3 * wall / TRAIN_STEPS:.3f} ms/step (host batch assembly "
-          f"included); launches fwd {launched[0]} bwd {launched[1]}; loss "
-          f"per example step 1 {per_ex[0]:.6f} step {TRAIN_STEPS - 1} "
-          f"{per_ex[-1]:.6f}; epoch loss {epoch_loss:.6f}",
-          flush=True)
+    print(f"train {bwd} [{card}]: {TRAIN_ROWS} examples in {TRAIN_STEPS} "
+          f"steps of {BATCH} (last a tail of {TAIL}) at dropout "
+          f"{DROP_RATE}: {wall:.4f}s, {TRAIN_ROWS / wall:.1f} trained "
+          f"examples/s, {1e3 * wall / TRAIN_STEPS:.3f} ms/step (host batch "
+          f"assembly included); launches {launched}; loss per example step "
+          f"1 {per_ex[0]:.6f} step {TRAIN_STEPS - 1} {per_ex[-1]:.6f}; epoch "
+          f"loss {epoch_loss:.6f}", flush=True)
 
     # the step alone on a staged batch: device time without host assembly
     step_ms = time_ms(lambda: trainer.train_step(batch, yb, wb), iters=10)
     queue_ms = host_ms(lambda: trainer.train_step(batch, yb, wb))
-    print(f"train [{card}]: train_step on a staged batch {step_ms:.3f} "
-          f"ms/step, {1e3 * BATCH / step_ms:.1f} examples/s; the host "
-          f"queues a step in {queue_ms:.3f} ms", flush=True)
-    device_profile(f"one training step of {BATCH} examples",
+    print(f"train {bwd} [{card}]: train_step on a staged batch "
+          f"{step_ms:.3f} ms/step, {1e3 * BATCH / step_ms:.1f} examples/s; "
+          f"the host queues a step in {queue_ms:.3f} ms", flush=True)
+    device_profile(f"{bwd}: one training step of {BATCH} examples",
                    lambda: trainer.train_step(batch, yb, wb), step_ms, card,
                    top=16)
+    return trainer, launched
 
+
+def eval_check(trainer, card):
+    """predict and evaluate on 20,000 random examples: finite, and through
+    K1-fwd only.  Returns the K1 launch counts."""
+    from satrans_torch.data import aliccp
+    rng = np.random.default_rng(SEED + 2)
     ev = {name: rng.integers(1, aliccp.DATA_MAX[name] + 1, REQUEST_ROWS)
           for name in aliccp.SPARSE_FEATURES}
     ev_y = rng.integers(0, 2, REQUEST_ROWS).astype(np.float32)
+    zero_counts()
     scores = trainer.predict(ev, batch_size=BATCH)
     check(scores.shape == (REQUEST_ROWS,) and bool(np.all(
         np.isfinite(scores))), "predict after training not finite")
     res = trainer.evaluate(ev, ev_y, batch_size=BATCH)
     check(all(np.isfinite(v) for v in res.values()),
           f"evaluate gave {res}")
+    launched = k1_counts()
+    want = (2 * LAYERS * -(-REQUEST_ROWS // BATCH), 0, 0, 0)
+    check(launched == want, f"predict and evaluate launched {launched} "
+          f"({', '.join(K1_COUNTS)}), want {want}")
     print(f"train [{card}]: evaluate on {REQUEST_ROWS} random examples: "
-          + ", ".join(f"{k} {v:.6f}" for k, v in res.items()), flush=True)
+          + ", ".join(f"{k} {v:.6f}" for k, v in res.items())
+          + f"; launches {launched}", flush=True)
     return launched
+
 
 def bytes_bound_ms(nbytes: float) -> float:
     return 1e3 * nbytes / PEAK_HBM_BYTES
@@ -738,12 +973,12 @@ def bank_kernel_phase(dev, card):
 
 
 def sparse_training_phase(dev, card):
-    """Train the phase-5 model in each sparse bank mode.  Returns the
-    launches of every kernel in each arm's timed fit, by arm."""
-    from satrans_torch.ops import eqgemm, gather, lazy_tail, meta_block, \
-        scatter
+    """Train the phase-5 model (bwd='stash') in each sparse bank mode.
+    Returns the launches of every kernel in each arm's timed fit, by
+    arm."""
+    from satrans_torch.ops import eqgemm, gather, lazy_tail, scatter
 
-    rng, x, y = training_data()
+    x, y = training_data()
     # fused against dense from one start: every parameter after 3 steps
     first3 = {k: v[:3 * BATCH] for k, v in x.items()}
     params = {}
@@ -778,21 +1013,18 @@ def sparse_training_phase(dev, card):
         if tail:
             os.environ["SATRANS_LAZY_TAIL"] = tail
         model, trainer = training_model(dev, mode)
-        data = model.layout.batch_from_dict(x)
-        batch = trainer._device_batch({k: v[:BATCH] for k, v in data.items()})
-        yb, wb = trainer._device_batch(
-            {"y": y[:BATCH], "w": np.ones(BATCH, np.float32)}).values()
+        batch, yb, wb = staged_batch(trainer, x, y)
         trainer.fit({k: v[:2 * BATCH] for k, v in x.items()}, y[:2 * BATCH],
                     batch_size=BATCH, verbose=0)  # warmup: two steps
         wall, step_loss, epoch_loss = timed_fit(trainer, x, y)
-        got = (meta_block.launches, meta_block.bwd_launches,
-               *(m.launches for m in mods))
-        want = (LAYERS * TRAIN_STEPS, LAYERS * TRAIN_STEPS,
+        got = (*k1_counts(), *(m.launches for m in mods))
+        want = (0, LAYERS * TRAIN_STEPS, 0, LAYERS * TRAIN_STEPS,
                 *(c * TRAIN_STEPS for c in per_step))
         check(got == want, f"{arm}: {TRAIN_STEPS} steps launched {got} "
-                           f"(K1-fwd, K1-bwd, {', '.join(ROW_KERNELS)}), "
-                           f"want {want}")
-        launched[arm] = dict(zip(("meta_block_fwd", "meta_block_bwd",
+                           f"(K1-fwd, K1-stash, K1-bwd, K1-bwd-stash, "
+                           f"{', '.join(ROW_KERNELS)}), want {want}")
+        launched[arm] = dict(zip(("meta_block_fwd", "meta_block_fwd_stash",
+                                  "meta_block_bwd", "meta_block_bwd_stash",
                                   "gather_rows", "scatter_rows_set",
                                   "eqgemm_positions", "lazy_adam_rows"), got))
         per_ex = step_loss[:-1] / BATCH
@@ -849,34 +1081,29 @@ def main() -> int:
     rows = bank_kernel_phase(dev, card)
     sparse = sparse_training_phase(dev, card)
 
-    # launches: every main path runs K1-fwd (serving, dense training and
-    # the sparse arms, each counted from 0 just before it); the training
-    # paths run K1-bwd
-    kernels = [dict(name="meta_block_fwd", route="cuda",
-                    source="satrans_torch/csrc/meta_block_fwd.cu",
-                    replaces="satrans_tpu/ops/pallas/meta_block.py:404",
-                    launches=served + trained[0] + sum(
-                        n["meta_block_fwd"] for n in sparse.values()),
-                    launches_by_path={"serving": served,
-                                      "training": trained[0],
-                                      **{arm: n["meta_block_fwd"]
-                                         for arm, n in sparse.items()}},
-                    max_abs_err=k["max_abs_err"],
-                    ms=k["ms"], plain_ms=k["plain_ms"],
-                    bound_ms=k["bound_ms"], bound_by=k["bound_by"],
-                    library_ms=None),
-               dict(name="meta_block_bwd", route="cuda",
-                    source="satrans_torch/csrc/meta_block_bwd.cu",
-                    replaces="satrans_tpu/ops/pallas/meta_block.py:685",
-                    launches=trained[1] + sum(
-                        n["meta_block_bwd"] for n in sparse.values()),
-                    launches_by_path={"training": trained[1],
-                                      **{arm: n["meta_block_bwd"]
-                                         for arm, n in sparse.items()}},
-                    max_abs_err=kb["max_abs_err"],
-                    ms=kb["ms"], plain_ms=kb["plain_ms"],
-                    bound_ms=kb["bound_ms"], bound_by=kb["bound_by"],
-                    library_ms=None)]
+    # launches, each path counted from 0 just before it: serving and the
+    # evaluation run K1-fwd only; the dense recompute arm K1-fwd and
+    # K1-bwd; the dense stash arm and every sparse arm K1-stash and
+    # K1-bwd-stash
+    paths = {"serving": (served, 0, 0, 0), "train_stash": trained["stash"],
+             "train_recompute": trained["recompute"],
+             "evaluate": trained["eval"],
+             **{arm: tuple(n[c] for c in (
+                 "meta_block_fwd", "meta_block_fwd_stash", "meta_block_bwd",
+                 "meta_block_bwd_stash")) for arm, n in sparse.items()}}
+    kernels = []
+    for i, (name, source, replaces, fields) in enumerate((
+            ("meta_block_fwd", "meta_block_fwd.cu", 404, k["fwd"]),
+            ("meta_block_fwd_stash", "meta_block_fwd.cu", 420, k["stash"]),
+            ("meta_block_bwd", "meta_block_bwd.cu", 685, kb["recompute"]),
+            ("meta_block_bwd_stash", "meta_block_bwd.cu", 902,
+             kb["stash"]))):
+        by_path = {p: n[i] for p, n in paths.items() if n[i]}
+        kernels.append(dict(
+            name=name, route="cuda", source=f"satrans_torch/csrc/{source}",
+            replaces=f"satrans_tpu/ops/pallas/meta_block.py:{replaces}",
+            launches=sum(by_path.values()), launches_by_path=by_path,
+            library_ms=None, **fields))
     # the row kernels run on the sparse training paths (phase 7 arms)
     for name, source, replaces in (
             ("gather_rows", "bank_rows.cu", "gather.py:86"),

@@ -1,31 +1,44 @@
-// Backward of one SATrans meta-transformer layer, training at dropout 0,
-// float32, recomputing the forward on chip.
+// Backward of one SATrans meta-transformer layer, training, float32, with
+// the in-kernel dropout.
 //
-// Replaces the TPU kernel satrans_tpu/ops/pallas/meta_block.py:_bwd_kernel
-// (with _attn_bwd_heads, _meta_bwd, _layer_norm_bwd and _write_param_grads;
-// launched by _bwd_call through pl.pallas_call), the backward of the JAX
-// package's bwd='recompute' mode.  Per example e with domain row
-// dm = dom[e] the forward is recomputed as in csrc/meta_block_fwd.cu:
+// Replaces two TPU kernels of satrans_tpu/ops/pallas/meta_block.py, both
+// launched by _bwd_call through pl.pallas_call (with _attn_bwd_heads,
+// _meta_bwd, _layer_norm_bwd and _write_param_grads): _bwd_kernel (:685;
+// K1-bwd, the template's STASH=false, the JAX package's
+// bwd='recompute'), which recomputes the forward on chip, and
+// _bwd_kernel_stash (:902, full mode; K1-bwd-stash, STASH=true, its
+// default bwd='stash'), which reads the residuals that K1-stash wrote
+// (csrc/meta_block_fwd.cu) and recomputes only the MetaNet hidden layers
+// and zlin = o @ Wout.  Per example e with domain row dm = dom[e] and the
+// dropout masks m of csrc/dropout.cuh (all ones without dropout) the
+// forward is
 //
 //   q0|k0|v0 = x @ [Wq|Wk|Wv]
-//   q = LN_q(relu(q0 @ W1q[dm]) @ W2q[dm] + q0)      if apply_q, else q0
-//   k = LN_k(relu(k0 @ W1k[dm]) @ W2k[dm] + k0)      if apply_k, else k0
-//   P = per head softmax(q k^T / sqrt(dh)),  o = P v
-//   y = LN_o(relu?(o @ Wout) + x)
+//   uq = (relu(q0 @ W1q[dm]) @ W2q[dm]) m_q + q0,  q = LN_q(uq)  if apply_q
+//   uk = (relu(k0 @ W1k[dm]) @ W2k[dm]) m_k + k0,  k = LN_k(uk)  if apply_k
+//   P = per head softmax(q k^T / sqrt(dh)),  o = (P m_s) v
+//   y = LN_o(relu?(o @ Wout) m_z + x)
 //
 // and, given g = dL/dy, the kernel writes dx and the gradients of every
 // operand: dWqkv [d, 3d], dWout [d, d], the LayerNorms' (scale, bias)
 // rows for LN_q, LN_k and LN_o, and per-domain dW1q/dW1k [D, d, h] and
 // dW2q/dW2k [D, h, d], each example adding only into its own domain's
 // rows.  An unapplied projection passes its gradient straight through and
-// its MetaNet gradients are zero.  The softmax subtracts the row maximum
-// (the Pallas kernel's [-60, 60] logit clamp differs only beyond 60).
+// its MetaNet gradients are zero.  The masks are regenerated in the
+// forward's draw order at the mirror sites: the MetaNet output's gradient
+// is du m (its residual keeps du), the probabilities' gradient dP m, dv
+// takes P m, and dz = du m_z relu'.  The softmax subtracts the row
+// maximum (the Pallas kernel's [-60, 60] logit clamp differs only beyond
+// 60).
 //
 // What bounds it.  Per example at the AliCCP sota shapes (F=19, d=32,
 // h=64, 4 heads, both MetaNets on) the recomputed forward is 0.51 MFLOP and
-// the backward another 1.03 MFLOP against 7.3 kB of x, g and dx: bound by
-// float32 FMA throughput.  The design keeps every intermediate of an
-// example on chip and reads x and g once and writes dx once.
+// the backward another 1.03 MFLOP against 7.3 kB of x, g and dx: K1-bwd is
+// bound by float32 FMA throughput.  K1-bwd-stash reads 20.4 kB of
+// residuals an example in place of 0.35 MFLOP of recompute (the QKV GEMM,
+// the second MetaNet matrices, the attention forward), still bound by its
+// arithmetic.  The design keeps every intermediate of an example on chip
+// and reads x, g and each residual once and writes dx once.
 //
 // Design.  A block of 256 threads works on a tile of two examples at a
 // time, 128 threads (four warps) on each, and walks over the batch's tiles
@@ -47,8 +60,9 @@
 // for a given grid size.  Shared memory holds the dense sums and two
 // examples' intermediates (x, q0|k0|v0, the normalised q|k and their
 // xhat, the MetaNet hidden layer, the probabilities, the gradient rows):
-// 95 kB at F=19.  The MetaNet hidden layer is recomputed in the backward
-// instead of stored.
+// 95 kB at F=19, the same for both variants (K1-bwd-stash loads into the
+// buffers K1-bwd computes into).  The MetaNet hidden layer is recomputed
+// in the backward instead of stored.
 //
 // The kernel launches on the caller's stream, allocates nothing and does
 // not synchronise; the C entry returns cudaGetLastError().
@@ -56,6 +70,8 @@
 #include <cuda_runtime.h>
 
 #include <cmath>
+
+#include "dropout.cuh"
 
 namespace {
 
@@ -259,9 +275,13 @@ struct Args {
   const int* dom;
   float *dx, *partial;
   int B, F, D, apply_q, apply_k, relu_out;
+  // K1-stash's residuals (STASH only): qkv [B, F, 3d], uq, uk, o [B, F, d],
+  // the probabilities before dropout s [B, H, F, F]
+  const float *qkv, *uq, *uk, *s, *o;
+  Dropout drop;
 };
 
-template <int DM, int HID, int NH>
+template <int DM, int HID, int NH, bool STASH>
 __global__ void __launch_bounds__(kThreads, 2)
 meta_block_bwd_kernel(const Args a) {
   using S = Strides<DM, HID>;
@@ -304,6 +324,7 @@ meta_block_bwd_kernel(const Args a) {
   const int cgh = gt % TH::LPR, rsh = gt / TH::LPR, colh = 4 * cgh;
   const float scale = 1.f / sqrtf(static_cast<float>(DH));
   const int tiles = (a.B + kTile - 1) / kTile;
+  const DropSalts salt(a.apply_q, a.apply_k, NH);
   __syncthreads();
 
 #pragma unroll 1
@@ -328,6 +349,7 @@ meta_block_bwd_kernel(const Args a) {
     float* P = sP + slot * NH * F * F;
     float* Dg = sD + slot * F * S::QS;
     const size_t base = static_cast<size_t>(ex) * F * DM;
+    const ExampleDraw ed(a.drop, ex);
 
     // F1. x -> shared
     if (live) {
@@ -339,8 +361,14 @@ meta_block_bwd_kernel(const Args a) {
     }
     __syncthreads();
 
-    // F2. q0 | k0 | v0 = x @ [Wq | Wk | Wv]
-    if (live) {
+    // F2. q0 | k0 | v0 = x @ [Wq | Wk | Wv], or their stash
+    if (live && STASH) {
+      for (int i = gt; i < F * (3 * DM / 4); i += kGroup) {
+        const int f = i / (3 * DM / 4), c = 4 * (i % (3 * DM / 4));
+        *reinterpret_cast<float4*>(QKV + f * S::QS + c) =
+            ldg4(a.qkv + 3 * base + f * 3 * DM + c);
+      }
+    } else if (live) {
 #pragma unroll 1
       for (int part = 0; part < 3; ++part) {
         float o[TD::RPL][4];
@@ -354,7 +382,8 @@ meta_block_bwd_kernel(const Args a) {
     }
     __syncthreads();
 
-    // F3. MetaNets on q0 and k0 with their LayerNorms -> N, XH, INV; an
+    // F3. MetaNets on q0 and k0 with their dropout and LayerNorms (or the
+    //     LayerNorms of the stashed pre-LN sums) -> N, XH, INV; an
     //     unapplied projection is copied through.
 #pragma unroll 1
     for (int w = 0; w < 2; ++w) {
@@ -372,28 +401,47 @@ meta_block_bwd_kernel(const Args a) {
         }
         continue;
       }
-      if (live) {
-        float o[TH::RPL][4];
-        group_gemm<DM, HID>(t0, S::QS, w1, HID, F, gt, o);
+      float o[TD::RPL][4];  // the MetaNet output, masked
+      if (live && !STASH) {
+        float hd[TH::RPL][4];
+        group_gemm<DM, HID>(t0, S::QS, w1, HID, F, gt, hd);
 #pragma unroll
         for (int i = 0; i < TH::RPL; ++i) {
           const int f = rsh + TH::RS * i;
-          if (f < F) st4(H + f * S::HS + colh, o[i]);  // before the relu
+          if (f < F) st4(H + f * S::HS + colh, hd[i]);  // before the relu
         }
       }
-      __syncthreads();
-      if (live) {
-        float o[TD::RPL][4];
+      if (!STASH) __syncthreads();
+      if (live && !STASH) {
         group_gemm<HID, DM, true>(H, S::HS, w2, DM, F, gt, o);
+        if (a.drop.on) {
+          const unsigned sl = w ? salt.k : salt.q;
+#pragma unroll
+          for (int i = 0; i < TD::RPL; ++i) {
+#pragma unroll
+            for (int c = 0; c < 4; ++c)
+              o[i][c] *= ed.rows<DM>(a.drop, sl, rsd + TD::RS * i, cold + c);
+          }
+        }
+      }
+      if (live) {
         const float4 sc = ldg4(ln + cold), bi = ldg4(ln + DM + cold);
+        const float* u = w ? a.uk : a.uq;
 #pragma unroll
         for (int i = 0; i < TD::RPL; ++i) {
           const int f = rsd + TD::RS * i;
           const bool ok = f < F;
-          const float4 r = ok ? ld4(t0 + f * S::QS + cold)
-                              : make_float4(0.f, 0.f, 0.f, 0.f);
-          float v[4] = {o[i][0] + r.x, o[i][1] + r.y, o[i][2] + r.z,
-                        o[i][3] + r.w};
+          float v[4] = {0.f, 0.f, 0.f, 0.f};
+          if (STASH) {
+            if (ok) to4(ldg4(u + base + f * DM + cold), v);
+          } else {
+            const float4 r = ok ? ld4(t0 + f * S::QS + cold)
+                                : make_float4(0.f, 0.f, 0.f, 0.f);
+            v[0] = o[i][0] + r.x;
+            v[1] = o[i][1] + r.y;
+            v[2] = o[i][2] + r.z;
+            v[3] = o[i][3] + r.w;
+          }
           const float inv = ln_xhat<DM>(v);
           if (ok) {
             st4(XH + f * S::NS + w * DM + cold, v);
@@ -408,9 +456,17 @@ meta_block_bwd_kernel(const Args a) {
     }
     __syncthreads();  // the copy of an unapplied projection has none
 
-    // F4. Attention: P (normalised) and o = P v into H.  A thread owns
-    //     (head, query row) pairs.
-    if (live) {
+    // F4. Attention: P (normalised, before dropout) and o = (P m_s) v
+    //     into H, or their stash.  A thread owns (head, query row) pairs.
+    if (live && STASH) {
+      const float* se = a.s + static_cast<size_t>(ex) * NH * F * F;
+      for (int i = gt; i < NH * F * F; i += kGroup) P[i] = __ldg(se + i);
+      for (int i = gt; i < F * (DM / 4); i += kGroup) {
+        const int f = i / (DM / 4), c = 4 * (i % (DM / 4));
+        *reinterpret_cast<float4*>(H + f * S::HS + c) =
+            ldg4(a.o + base + f * DM + c);
+      }
+    } else if (live) {
 #pragma unroll 1
       for (int p = gt; p < NH * F; p += kGroup) {
         const int hh = p / F, i = p % F;
@@ -458,8 +514,10 @@ meta_block_bwd_kernel(const Args a) {
 #pragma unroll
         for (int j = 0; j < kMaxFields; ++j) {
           if (j < F) {
-            const float pj = s[j] * inv;
-            prow[j] = pj;
+            prow[j] = s[j] * inv;
+            const float pj =
+                a.drop.on ? prow[j] * ed.attn(a.drop, salt.s + hh, i, j)
+                          : prow[j];
             const float* vj = QKV + j * S::QS + 2 * DM + hh * DH;
 #pragma unroll
             for (int c = 0; c < DH; c += 4) {
@@ -480,9 +538,9 @@ meta_block_bwd_kernel(const Args a) {
     }
     __syncthreads();
 
-    // F5. Output: zlin = o @ Wout, u = relu?(zlin) + x, y = LN_o(u); with g
-    //     the outer LayerNorm's backward: du (kept in registers, the
-    //     residual's share of dx) and dz = du * relu'(zlin) into Dg.
+    // F5. Output: zlin = o @ Wout, u = relu?(zlin) m_z + x, y = LN_o(u);
+    //     with g the outer LayerNorm's backward: du (kept in registers, the
+    //     residual's share of dx) and dz = du m_z relu'(zlin) into Dg.
     float du[TD::RPL][4];
 #pragma unroll
     for (int i = 0; i < TD::RPL; ++i) {
@@ -499,10 +557,16 @@ meta_block_bwd_kernel(const Args a) {
         const bool ok = f < F;
         const float4 xr = ok ? ld4(X + f * S::XS + cold)
                              : make_float4(0.f, 0.f, 0.f, 0.f);
-        float v[4] = {a.relu_out ? fmaxf(z[i][0], 0.f) : z[i][0],
-                      a.relu_out ? fmaxf(z[i][1], 0.f) : z[i][1],
-                      a.relu_out ? fmaxf(z[i][2], 0.f) : z[i][2],
-                      a.relu_out ? fmaxf(z[i][3], 0.f) : z[i][3]};
+        float mz[4] = {1.f, 1.f, 1.f, 1.f};
+        if (a.drop.on) {
+#pragma unroll
+          for (int c = 0; c < 4; ++c)
+            mz[c] = ed.rows<DM>(a.drop, salt.z, f, cold + c);
+        }
+        float v[4];
+#pragma unroll
+        for (int c = 0; c < 4; ++c)
+          v[c] = (a.relu_out ? fmaxf(z[i][c], 0.f) : z[i][c]) * mz[c];
         v[0] += xr.x;
         v[1] += xr.y;
         v[2] += xr.z;
@@ -520,7 +584,8 @@ meta_block_bwd_kernel(const Args a) {
           float dz[4];
 #pragma unroll
           for (int c = 0; c < 4; ++c)
-            dz[c] = (a.relu_out && !(z[i][c] > 0.f)) ? 0.f : du[i][c];
+            dz[c] = (a.relu_out && !(z[i][c] > 0.f)) ? 0.f
+                                                      : du[i][c] * mz[c];
           st4(Dg + f * S::QS + cold, dz);
         }
       }
@@ -541,7 +606,8 @@ meta_block_bwd_kernel(const Args a) {
     }
     __syncthreads();
 
-    // B2. Attention backward.  dv_j = sum_i P_ij do_i, per (head, key row).
+    // B2. Attention backward.  dv_j = sum_i P_ij m_ij do_i, per (head, key
+    //     row).
     if (live) {
 #pragma unroll 1
       for (int p = gt; p < NH * F; p += kGroup) {
@@ -551,7 +617,8 @@ meta_block_bwd_kernel(const Args a) {
         for (int c = 0; c < DH; ++c) dv[c] = 0.f;
 #pragma unroll 4
         for (int i = 0; i < F; ++i) {
-          const float pij = P[(hh * F + i) * F + j];
+          float pij = P[(hh * F + i) * F + j];
+          if (a.drop.on) pij *= ed.attn(a.drop, salt.s + hh, i, j);
           const float* doi = H + i * S::HS + hh * DH;
 #pragma unroll
           for (int c = 0; c < DH; c += 4) {
@@ -570,8 +637,9 @@ meta_block_bwd_kernel(const Args a) {
       }
     }
     __syncthreads();
-    //     dS_ij = P_ij (dP_ij - sum_j P_ij dP_ij) with dP_ij = do_i . v_j,
-    //     written over P; dq_i = scale sum_j dS_ij k_j, per (head, query row).
+    //     dS_ij = P_ij (dP_ij - sum_j P_ij dP_ij) with dP_ij = (do_i . v_j)
+    //     m_ij, written over P; dq_i = scale sum_j dS_ij k_j, per (head,
+    //     query row).
     if (live) {
 #pragma unroll 1
       for (int p = gt; p < NH * F; p += kGroup) {
@@ -601,6 +669,7 @@ meta_block_bwd_kernel(const Args a) {
               s = fmaf(doi[c + 2], v.z, s);
               s = fmaf(doi[c + 3], v.w, s);
             }
+            if (a.drop.on) s *= ed.attn(a.drop, salt.s + hh, i, j);
             dp[j] = s;
             rs = fmaf(prow[j], s, rs);
           }
@@ -665,10 +734,12 @@ meta_block_bwd_kernel(const Args a) {
     __syncthreads();
 
     // B3. MetaNet backward of Q, then of K (JAX _meta_bwd): the LayerNorm
-    //     backward in place over dq (or dk), the hidden layer recomputed
-    //     into H, dW2[dm] += relu(hid)^T du, dhid = (du @ W2^T) relu'(hid)
-    //     in place over H, dW1[dm] += t0^T dhid, dt0 = du + dhid @ W1^T in
-    //     place.  An unapplied projection keeps its gradient as it is.
+    //     backward gives du, kept in the projection's columns of N (free
+    //     since B2), and dy = du m over dq (or dk); the hidden layer
+    //     recomputed into H, dW2[dm] += relu(hid)^T dy, dhid = (dy @ W2^T)
+    //     relu'(hid) in place over H, dW1[dm] += t0^T dhid, dt0 = du +
+    //     dhid @ W1^T over dy.  An unapplied projection keeps its gradient
+    //     as it is.
 #pragma unroll 1
     for (int w = 0; w < 2; ++w) {
       if (!(w ? a.apply_k : a.apply_q)) continue;  // uniform branch
@@ -699,7 +770,15 @@ meta_block_bwd_kernel(const Args a) {
           }
           float d[4];
           ln_bwd<DM>(dy, xh, inv, sc, d);
-          if (ok) st4(dt + f * S::QS + cold, d);
+          if (ok) {
+            st4(Nm + f * S::NS + w * DM + cold, d);
+            if (a.drop.on) {
+#pragma unroll
+              for (int c = 0; c < 4; ++c)
+                d[c] *= ed.rows<DM>(a.drop, w ? salt.k : salt.q, f, cold + c);
+            }
+            st4(dt + f * S::QS + cold, d);
+          }
         }
         float o[TH::RPL][4];
         group_gemm<DM, HID>(t0, S::QS, w1, HID, F, gt, o);
@@ -745,7 +824,7 @@ meta_block_bwd_kernel(const Args a) {
         for (int i = 0; i < TD::RPL; ++i) {
           const int f = rsd + TD::RS * i;
           if (f < F) {
-            const float4 r = ld4(dt + f * S::QS + cold);
+            const float4 r = ld4(Nm + f * S::NS + w * DM + cold);
             const float v[4] = {o[i][0] + r.x, o[i][1] + r.y, o[i][2] + r.z,
                                 o[i][3] + r.w};
             st4(dt + f * S::QS + cold, v);
@@ -809,10 +888,10 @@ __global__ void sum_partials(const float* __restrict__ partial,
   }
 }
 
-template <int DM, int HID, int NH>
+template <int DM, int HID, int NH, bool STASH>
 cudaError_t launch(const Args& a, float* grads, int blocks,
                    cudaStream_t stream) {
-  auto kernel = meta_block_bwd_kernel<DM, HID, NH>;
+  auto kernel = meta_block_bwd_kernel<DM, HID, NH, STASH>;
   const size_t smem = smem_bytes<DM, HID, NH>(a.F);
   if (smem > kMaxSmem || a.D > kMaxDomains) return cudaErrorInvalidValue;
   static size_t configured = 0;
@@ -846,22 +925,38 @@ extern "C" int satrans_meta_block_bwd_grad_floats(int d, int h, int D) {
 
 extern "C" int satrans_meta_block_bwd_max_domains() { return kMaxDomains; }
 
+// With qkv non-null the launch is K1-bwd-stash, reading the residuals
+// qkv, uq, uk, s and o that K1-stash wrote; else K1-bwd, recomputing them.
+// drop_on selects the dropout, with the operands of struct Dropout
+// (csrc/dropout.cuh), the same as the forward's.
 extern "C" int satrans_meta_block_bwd(
     const float* x, const int* dom, const float* g, const float* wqkv,
     const float* wqkvT, const float* w1q, const float* w2q,
     const float* w1qT, const float* w2qT, const float* lnq, const float* w1k,
     const float* w2k, const float* w1kT, const float* w2kT, const float* lnk,
     const float* wout, const float* woutT, const float* lno, float* dx,
-    float* partial, float* grads, int B, int F, int d, int h, int heads,
-    int D, int apply_q, int apply_k, int relu_out, int blocks, void* stream) {
+    float* partial, float* grads, const float* qkv, const float* uq,
+    const float* uk, const float* s, const float* o, int B, int F, int d,
+    int h, int heads, int D, int apply_q, int apply_k, int relu_out,
+    int blocks, int drop_on, unsigned seed, unsigned threshold, float scale,
+    int block_b, int fpad, int group, void* stream) {
   if (B < 1 || F < 1 || F > kMaxFields || D < 1 || blocks < 1)
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (drop_on && (block_b < 1 || fpad < F || group < 1))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const bool stash = qkv != nullptr;
+  if (stash && !(uq && uk && s && o))
     return static_cast<int>(cudaErrorInvalidValue);
   const Args a{x,   g,    wqkv, wqkvT, w1q,  w2q,     w1qT, w2qT,
                lnq, w1k,  w2k,  w1kT,  w2kT, lnk,     wout, woutT,
                lno, dom,  dx,   partial, B,  F,       D,    apply_q,
-               apply_k, relu_out};
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+               apply_k, relu_out, qkv, uq, uk, s, o,
+               Dropout{drop_on, seed, threshold, scale, block_b, fpad,
+                       group}};
+  const cudaStream_t str = static_cast<cudaStream_t>(stream);
   if (d == 32 && h == 64 && heads == 4)
-    return static_cast<int>(launch<32, 64, 4>(a, grads, blocks, s));
+    return static_cast<int>(
+        stash ? launch<32, 64, 4, true>(a, grads, blocks, str)
+              : launch<32, 64, 4, false>(a, grads, blocks, str));
   return static_cast<int>(cudaErrorInvalidValue);
 }

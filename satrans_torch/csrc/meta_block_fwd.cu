@@ -1,14 +1,24 @@
-// Forward of one SATrans meta-transformer layer, inference, float32.
+// Forward of one SATrans meta-transformer layer, float32, with the
+// in-kernel dropout of training.
 //
-// Replaces the TPU kernel satrans_tpu/ops/pallas/meta_block.py:_fwd_kernel
-// (body _fwd_compute; launched by _fwd_call through pl.pallas_call) on the
-// path a no-grad call takes.  Per example e with domain row dm = dom[e]:
+// Replaces two TPU kernels of satrans_tpu/ops/pallas/meta_block.py, both
+// launched by _fwd_call through pl.pallas_call on the body _fwd_compute:
+// _fwd_kernel (:404; K1-fwd, the template's STASH=false) and
+// _fwd_kernel_stash (:420, full mode; K1-stash, STASH=true), which also
+// writes the residuals its backward reads.  Per example e with domain row
+// dm = dom[e] and dropout masks m (all ones without dropout):
 //
 //   q0|k0|v0 = x @ [Wq|Wk|Wv]
-//   q = LN_q(relu(q0 @ W1q[dm]) @ W2q[dm] + q0)      if apply_q, else q0
-//   k = LN_k(relu(k0 @ W1k[dm]) @ W2k[dm] + k0)      if apply_k, else k0
-//   o = per head softmax(q k^T / sqrt(dh)) v
-//   y = LN_o(relu?(o @ Wout) + x)
+//   uq = (relu(q0 @ W1q[dm]) @ W2q[dm]) m_q + q0,  q = LN_q(uq)  if apply_q
+//   uk = (relu(k0 @ W1k[dm]) @ W2k[dm]) m_k + k0,  k = LN_k(uk)  if apply_k
+//   P = per head softmax(q k^T / sqrt(dh)),  o = (P m_s) v
+//   y = LN_o(relu?(o @ Wout) m_z + x)
+//
+// (an unapplied projection is q = uq = q0).  K1-stash writes, float32 in
+// per-example layout (not the TPU's [H, B/g, n, n] packing), qkv [B, F, 3d],
+// uq and uk [B, F, d], the probabilities P [B, H, F, F] BEFORE dropout and
+// o [B, F, d].  The masks come from csrc/dropout.cuh, computed inline per
+// element.
 //
 // The softmax subtracts the row maximum, as jax.nn.softmax does on the JAX
 // package's XLA path and as the plain PyTorch version does.  The Pallas
@@ -18,24 +28,27 @@
 // TPU layout choices that are dropped here, none of which changes the
 // result: masked wide GEMMs over all domains (each example reads its own
 // W1[dm] and W2[dm], the [D, d, h] and [D, h, d] tables), F padded to a
-// multiple of 8 (F is taken as it is), block-diagonal attention packing
-// with masked heads (each example's heads are computed directly), and
-// B % block_b == 0 (the last, ragged tile is guarded).
+// multiple of 8 (F is taken as it is; only the dropout masks count the
+// padded fields, as the JAX kernel's draws do), block-diagonal attention
+// packing with masked heads (each example's heads are computed directly),
+// and B % block_b == 0 (the last, ragged tile is guarded).
 //
 // What bounds it.  Per example and layer at the AliCCP sota shapes
 // (F=19, d=32, h=64, 4 heads, both MetaNets on) the arithmetic is about
 // 0.5 MFLOP (QKV 117k, MetaNets 311k, attention 46k, output 39k) against
-// 4.9 kB of activations in and out, about 100 FLOP per byte: the layer is
+// 4.9 kB of activations in and out, about 100 FLOP per byte: K1-fwd is
 // bound by float32 FMA throughput (no tensor cores in this version), not
-// by device memory.  The design therefore keeps every intermediate of an
-// example on chip, in one warp's slice of shared memory, and feeds the
-// FMA units from registers: one warp owns one example, each small GEMM
-// gives a lane a 4-column x several-row register tile (all rows of one
-// example share one weight matrix, so a weight load feeds every row the
-// lane owns), the LayerNorms reduce across the 8 lanes of a row with
-// shuffles, and the weights (under 150 kB for all four domains) are read
-// through the L1/L2 caches with __ldg.  Device memory sees x once and y
-// once.
+// by device memory.  K1-stash adds 20.4 kB of residual writes an example
+// (the probabilities 5.8 kB of it), which at 3.35 TB/s take about as long
+// as the arithmetic at the float32 peak.  The design therefore keeps every
+// intermediate of an example on chip, in one warp's slice of shared
+// memory, and feeds the FMA units from registers: one warp owns one
+// example, each small GEMM gives a lane a 4-column x several-row register
+// tile (all rows of one example share one weight matrix, so a weight load
+// feeds every row the lane owns), the LayerNorms reduce across the 8 lanes
+// of a row with shuffles, and the weights (under 150 kB for all four
+// domains) are read through the L1/L2 caches with __ldg.  Device memory
+// sees x once and y once, and each residual once.
 //
 // The kernel launches on the caller's stream, allocates nothing and does
 // not synchronise; the C entry returns cudaGetLastError().
@@ -43,6 +56,8 @@
 #include <cuda_runtime.h>
 
 #include <cmath>
+
+#include "dropout.cuh"
 
 namespace {
 
@@ -159,7 +174,12 @@ struct Smem {
   static constexpr int kRowFloats = QS + HS;
 };
 
-template <int DM, int HID, int NH>
+// K1-stash's residuals, per example (unused when STASH is false).
+struct Stash {
+  float *qkv, *uq, *uk, *s, *o;
+};
+
+template <int DM, int HID, int NH, bool STASH>
 __global__ void __launch_bounds__(kWarps * 32, 2)
 meta_block_fwd_kernel(const float* __restrict__ x, const int* __restrict__ dom,
                       const float* __restrict__ wqkv,
@@ -172,7 +192,7 @@ meta_block_fwd_kernel(const float* __restrict__ x, const int* __restrict__ dom,
                       const float* __restrict__ wout,
                       const float* __restrict__ lno, float* __restrict__ y,
                       int B, int F, int D, int apply_q, int apply_k,
-                      int relu_out) {
+                      int relu_out, const Dropout drop, const Stash st) {
   using S = Smem<DM, HID>;
   using TD = Tile<DM>;
   using TH = Tile<HID>;
@@ -189,6 +209,9 @@ meta_block_fwd_kernel(const float* __restrict__ x, const int* __restrict__ dom,
   float* ye = y + static_cast<size_t>(e) * F * DM;
   const int dm = min(max(dom[e], 0), D - 1);
   const int cgd = lane % TD::LPR, rsd = lane / TD::LPR, cold = 4 * cgd;
+  const ExampleDraw ed(drop, e);
+  const DropSalts salt(apply_q, apply_k, NH);
+  const size_t erow = static_cast<size_t>(e) * F;  // the example's first row
 
   // 1. x -> scratch
   for (int t = lane; t < F * (DM / 4); t += 32) {
@@ -205,16 +228,32 @@ meta_block_fwd_kernel(const float* __restrict__ x, const int* __restrict__ dom,
 #pragma unroll
     for (int i = 0; i < TD::RPL; ++i) {
       const int f = rsd + TD::RS * i;
-      if (f < F) st4(sq + f * S::QS + part * DM + cold, acc[i]);
+      if (f < F) {
+        st4(sq + f * S::QS + part * DM + cold, acc[i]);
+        if (STASH)
+          st4(st.qkv + (erow + f) * 3 * DM + part * DM + cold, acc[i]);
+      }
     }
   }
   __syncwarp();
 
   // 3. MetaNet of the example's domain on q0, then on k0, each followed by
-  //    the residual and its LayerNorm, written over q0 / k0 in place.
+  //    the dropout, the residual and its LayerNorm, written over q0 / k0
+  //    in place.  K1-stash keeps the pre-LN sum (q0 itself where the
+  //    projection is not transformed).
 #pragma unroll 1
   for (int which = 0; which < 2; ++which) {
-    if (!(which == 0 ? apply_q : apply_k)) continue;  // uniform branch
+    float* ures = which ? st.uk : st.uq;
+    if (!(which == 0 ? apply_q : apply_k)) {  // uniform branch
+      if (STASH) {
+        for (int t = lane; t < F * (DM / 4); t += 32) {
+          const int f = t / (DM / 4), c = 4 * (t % (DM / 4));
+          *reinterpret_cast<float4*>(ures + (erow + f) * DM + c) =
+              ld4(sq + f * S::QS + which * DM + c);
+        }
+      }
+      continue;
+    }
     const float* w1 =
         (which ? w1k : w1q) + static_cast<size_t>(dm) * DM * HID;
     const float* w2 =
@@ -243,8 +282,15 @@ meta_block_fwd_kernel(const float* __restrict__ x, const int* __restrict__ dom,
         const bool ok = f < F;
         const float4 r = ok ? ld4(t0 + f * S::QS + cold)
                             : make_float4(0.f, 0.f, 0.f, 0.f);
+        if (drop.on) {
+          const unsigned sl = which ? salt.k : salt.q;
+#pragma unroll
+          for (int c = 0; c < 4; ++c)
+            acc[i][c] *= ed.rows<DM>(drop, sl, f, cold + c);
+        }
         float v[4] = {acc[i][0] + r.x, acc[i][1] + r.y, acc[i][2] + r.z,
                       acc[i][3] + r.w};
+        if (STASH && ok) st4(ures + (erow + f) * DM + cold, v);
         row_layer_norm<DM>(v, which ? lnk : lnq, cold);
         if (ok) st4(t0 + f * S::QS + cold, v);
       }
@@ -253,7 +299,8 @@ meta_block_fwd_kernel(const float* __restrict__ x, const int* __restrict__ dom,
   }
 
   // 4. Attention.  A lane owns (head, query row) pairs; the output goes to
-  //    scratch columns [0, DM).
+  //    scratch columns [0, DM).  The row sum is taken before dropout, which
+  //    multiplies each probability on its way to the values.
   const float scale = 1.f / sqrtf(static_cast<float>(DH));
 #pragma unroll 1
   for (int p = lane; p < NH * F; p += 32) {
@@ -293,8 +340,10 @@ meta_block_fwd_kernel(const float* __restrict__ x, const int* __restrict__ dom,
 #pragma unroll
     for (int j = 0; j < kMaxFields; ++j) {
       if (j < F) {
-        const float pj = expf(s[j] - m);
-        sum += pj;
+        s[j] = expf(s[j] - m);
+        sum += s[j];
+        const float pj =
+            drop.on ? s[j] * ed.attn(drop, salt.s + hh, i, j) : s[j];
         const float* vj = sq + j * S::QS + 2 * DM + hh * DH;
 #pragma unroll
         for (int c = 0; c < DH; c += 4) {
@@ -312,11 +361,18 @@ meta_block_fwd_kernel(const float* __restrict__ x, const int* __restrict__ dom,
       const float v[4] = {o[c] * inv, o[c + 1] * inv, o[c + 2] * inv,
                           o[c + 3] * inv};
       st4(sh + i * S::HS + hh * DH + c, v);
+      if (STASH) st4(st.o + (erow + i) * DM + hh * DH + c, v);
+    }
+    if (STASH) {
+      float* prow = st.s + ((static_cast<size_t>(e) * NH + hh) * F + i) * F;
+#pragma unroll
+      for (int j = 0; j < kMaxFields; ++j)
+        if (j < F) prow[j] = s[j] * inv;
     }
   }
   __syncwarp();
 
-  // 5. y = LN_o(relu?(o @ Wout) + x)
+  // 5. y = LN_o(relu?(o @ Wout) m_z + x)
   {
     float acc[TD::RPL][4];
     warp_gemm<DM, DM>(sh, S::HS, wout, DM, F, lane, acc);
@@ -328,8 +384,10 @@ meta_block_fwd_kernel(const float* __restrict__ x, const int* __restrict__ dom,
                           : make_float4(0.f, 0.f, 0.f, 0.f);
       float v[4];
 #pragma unroll
-      for (int c = 0; c < 4; ++c)
+      for (int c = 0; c < 4; ++c) {
         v[c] = relu_out ? fmaxf(acc[i][c], 0.f) : acc[i][c];
+        if (drop.on) v[c] *= ed.rows<DM>(drop, salt.z, f, cold + c);
+      }
       v[0] += r.x;
       v[1] += r.y;
       v[2] += r.z;
@@ -340,15 +398,16 @@ meta_block_fwd_kernel(const float* __restrict__ x, const int* __restrict__ dom,
   }
 }
 
-template <int DM, int HID, int NH>
+template <int DM, int HID, int NH, bool STASH>
 cudaError_t launch(const float* x, const int* dom, const float* wqkv,
                    const float* w1q, const float* w2q, const float* lnq,
                    const float* w1k, const float* w2k, const float* lnk,
                    const float* wout, const float* lno, float* y, int B,
                    int F, int D, int apply_q, int apply_k, int relu_out,
+                   const Dropout& drop, const Stash& st,
                    cudaStream_t stream) {
   using S = Smem<DM, HID>;
-  auto kernel = meta_block_fwd_kernel<DM, HID, NH>;
+  auto kernel = meta_block_fwd_kernel<DM, HID, NH, STASH>;
   static bool configured = false;
   if (!configured) {
     const int most = kWarps * kMaxFields * S::kRowFloats * sizeof(float);
@@ -362,28 +421,45 @@ cudaError_t launch(const float* x, const int* dom, const float* wqkv,
   const int blocks = (B + kWarps - 1) / kWarps;
   kernel<<<blocks, kWarps * 32, smem, stream>>>(
       x, dom, wqkv, w1q, w2q, lnq, w1k, w2k, lnk, wout, lno, y, B, F, D,
-      apply_q, apply_k, relu_out);
+      apply_q, apply_k, relu_out, drop, st);
   return cudaGetLastError();
 }
 
 }  // namespace
 
 // Shapes (d, h, heads) instantiated here; ops/meta_block.py keeps the same
-// list in KERNEL_SHAPES.  Returns a cudaError_t.
+// list in KERNEL_SHAPES.  With qkv non-null the launch is K1-stash and
+// writes the five residuals (each [B, F, *] float32 as described above),
+// else K1-fwd.  drop_on selects the dropout, with the operands of
+// struct Dropout (csrc/dropout.cuh).  Returns a cudaError_t.
 extern "C" int satrans_meta_block_fwd(
     const float* x, const int* dom, const float* wqkv, const float* w1q,
     const float* w2q, const float* lnq, const float* w1k, const float* w2k,
-    const float* lnk, const float* wout, const float* lno, float* y, int B,
-    int F, int d, int h, int heads, int D, int apply_q, int apply_k,
-    int relu_out, void* stream) {
+    const float* lnk, const float* wout, const float* lno, float* y,
+    float* qkv, float* uq, float* uk, float* s, float* o, int B, int F,
+    int d, int h, int heads, int D, int apply_q, int apply_k, int relu_out,
+    int drop_on, unsigned seed, unsigned threshold, float scale, int block_b,
+    int fpad, int group, void* stream) {
   if (B < 0 || F < 1 || F > kMaxFields || D < 1)
     return static_cast<int>(cudaErrorInvalidValue);
+  if (drop_on && (block_b < 1 || fpad < F || group < 1))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const bool stash = qkv != nullptr;
+  if (stash && !(uq && uk && s && o))
+    return static_cast<int>(cudaErrorInvalidValue);
   if (B == 0) return static_cast<int>(cudaSuccess);
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const Dropout drop{drop_on, seed, threshold, scale, block_b, fpad, group};
+  const Stash st{qkv, uq, uk, s, o};
+  const cudaStream_t str = static_cast<cudaStream_t>(stream);
   if (d == 32 && h == 64 && heads == 4)
-    return static_cast<int>(launch<32, 64, 4>(x, dom, wqkv, w1q, w2q, lnq,
-                                              w1k, w2k, lnk, wout, lno, y,
-                                              B, F, D, apply_q, apply_k,
-                                              relu_out, s));
+    return static_cast<int>(
+        stash ? launch<32, 64, 4, true>(x, dom, wqkv, w1q, w2q, lnq, w1k,
+                                        w2k, lnk, wout, lno, y, B, F, D,
+                                        apply_q, apply_k, relu_out, drop, st,
+                                        str)
+              : launch<32, 64, 4, false>(x, dom, wqkv, w1q, w2q, lnq, w1k,
+                                         w2k, lnk, wout, lno, y, B, F, D,
+                                         apply_q, apply_k, relu_out, drop,
+                                         st, str));
   return static_cast<int>(cudaErrorInvalidValue);
 }

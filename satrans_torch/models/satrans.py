@@ -12,20 +12,29 @@ Forward:
    :func:`satrans_torch.ops.meta_block.fused_meta_layer` (the CUDA kernels
    on the card, forward and, in training, backward; the plain version on
    the CPU), or through the plain
-   :func:`satrans_torch.nn.attention.meta_transformer_apply` when
+   :func:`satrans_torch.ops.meta_block.meta_layer_reference` when
    ``use_kernel=False``;
 5. flatten, the dense columns, one linear and a sigmoid.
+
+In training each layer applies dropout at ``dropout_rate`` with its own
+int32 seed (``forward``'s ``seeds``, the counterpart of the JAX package's
+``rng``), on tiles of ``block_b`` examples: the first of
+``(fused_block_b, 256, 128, 64, 32, 16)`` that divides the batch
+(satrans_tpu/models/satrans.py:327-339).  The masks are the JAX package's
+interpret-mode kernel masks (``ops/prng.py``), on both paths: the unfused
+path (``use_kernel=False``) draws the kernels' masks, not ``jax.random``'s
+as the JAX package's XLA path does (a documented deviation).
 
 This slice supports one scenario column, the metanet variant with shared
 (non-``pos``) 2-matrix MetaNets, any ``meta_mode`` (a projection is
 transformed iff its letter appears), ``relu_out`` and float32, in
-inference and in training at ``dropout_rate=0`` (:meth:`reg_loss` is the
-full-table embedding L2).  The rest raises ``NotImplementedError`` naming
-its ROADMAP item.
+inference and in training (:meth:`reg_loss` is the full-table embedding
+L2).  The rest raises ``NotImplementedError`` naming its ROADMAP item.
 """
 
 from __future__ import annotations
 
+import os
 from typing import Sequence
 
 import torch
@@ -56,7 +65,7 @@ class SATrans(nn.Module):
                  variant: str = "metanet", only_emb: bool = False,
                  relu_out: bool = False, no_emb_init: bool = False,
                  compute_dtype: str = "float32", use_kernel: bool = True,
-                 device="cuda"):
+                 fused_block_b: int | None = None, device="cuda"):
         super().__init__()
         dev = resolve_device(device)
         d = layout.embedding_dim
@@ -95,6 +104,9 @@ class SATrans(nn.Module):
         self.l2_reg_embedding = float(l2_reg_embedding)
         self.relu_out = relu_out
         self.use_kernel = use_kernel
+        # the dropout tile; SATRANS_BLOCK_B overrides, as in the JAX package
+        self.fused_block_b = int(os.environ.get("SATRANS_BLOCK_B", "128")) \
+            if fused_block_b is None else int(fused_block_b)
         self.domain_index = layout.sparse_index(self.domain_cols[0])
         p = metanet.param_size(self.meta_units)
 
@@ -119,30 +131,49 @@ class SATrans(nn.Module):
         table = self.encoder(torch.relu(self.domain_emb))
         return {"Q": table, "K": table}
 
-    def forward(self, batch, feed=None) -> torch.Tensor:
+    def block_b(self, batch_size: int) -> int | None:
+        """The dropout tile for a batch: the first candidate that divides
+        it, or ``None``."""
+        for cand in (self.fused_block_b, 256, 128, 64, 32, 16):
+            if batch_size % cand == 0:
+                return cand
+        return None
+
+    def forward(self, batch, feed=None, seeds=None) -> torch.Tensor:
         """``batch``: typed tensors on the model's device (``sparse``
         ``[B, S]``, optional ``dense`` and ``varlen``).  With ``feed`` (an
         ``embeddings.BankRowFeed``) the large-bank rows come from it.
-        Returns ``[B]``."""
-        if self.training and self.dropout_rate > 0.0:
-            raise NotImplementedError(
-                f"training with dropout_rate={self.dropout_rate}: the "
-                "in-kernel dropout at the layer's four sites is ROADMAP "
-                "queue 2 item 'K1-stash and K1-bwd-stash with dropout'; "
-                "train with dropout_rate=0.0 or call .eval() to serve")
+        ``seeds``: one int32 dropout seed per layer (``None``: the fixed
+        seeds 0, 1, ...).  Returns ``[B]``."""
         x = embeddings.embed_fields(self.emb if feed is None else feed,
                                     self.layout, batch)
         dom = batch["sparse"][:, self.domain_index].long().clamp(
             0, self.num_domains)
+        blk = self.block_b(x.shape[0])
+        if self.training and self.dropout_rate > 0.0 and blk is None:
+            raise NotImplementedError(
+                f"dropout at batch {x.shape[0]}, which no dropout tile "
+                f"(fused_block_b={self.fused_block_b}, 256, 128, 64, 32, 16) "
+                "divides: the JAX package's XLA fallback there draws "
+                "jax.random masks; ROADMAP queue 2 item 'dropout at a "
+                "batch no tile divides'")
+        if seeds is None:
+            seeds = range(len(self.layers))
         tables = self.meta_tables()
-        for layer in self.layers:
+        for layer, seed in zip(self.layers, seeds, strict=True):
             kw = dict(meta_units=self.meta_units, head_num=self.att_head_num,
                       mode=self.meta_mode, relu_out=self.relu_out)
+            drop = dict(train=self.training, drop_rate=self.dropout_rate,
+                        seed=int(seed), block_b=blk or self.fused_block_b)
             if self.use_kernel:
-                x = meta_block.fused_meta_layer(x, layer, tables, dom, **kw)
+                x = meta_block.fused_meta_layer(x, layer, tables, dom, **kw,
+                                                **drop)
             else:
-                x = meta_block.meta_layer_reference(x, layer, tables, dom,
-                                                    **kw)
+                x = meta_block.meta_layer_reference(
+                    x, layer, tables, dom, **kw,
+                    masks=meta_block.layer_masks(
+                        x, head_num=self.att_head_num, mode=self.meta_mode,
+                        **drop))
         flat = x.reshape(x.shape[0], -1)
         if self.layout.dense_dim > 0 and "dense" in batch:
             flat = torch.cat([flat, batch["dense"]], dim=1)

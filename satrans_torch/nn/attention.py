@@ -11,9 +11,12 @@ Head split follows torch's ``torch.stack(torch.split(q, dh, dim=2))``:
 ``[B, F, d] -> [B, H, F, d/H]``.
 
 Supported so far: the metanet variant with shared (non-``pos``)
-MetaNets, without dropout (inference, and training at dropout 0; autograd
-of this function is the plain version of the backward kernel
-``csrc/meta_block_bwd.cu``).  The rest raises ``NotImplementedError``.
+MetaNets.  Dropout is given as ``masks``, one per site, drawn by
+``ops/prng.py`` as the fused kernels draw them: on each MetaNet's output
+before its residual, on the attention probabilities after the softmax and
+on the output projection after the optional relu.  Autograd of this
+function is the plain version of the backward kernels
+(``csrc/meta_block_bwd.cu``).  The rest raises ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -39,14 +42,17 @@ def _merge_heads(x):
     return x.permute(0, 2, 1, 3).reshape(b, f, h * dh)
 
 
-def _mha(q, k, v, head_num: int):
+def _mha(q, k, v, head_num: int, mask=None):
     """Multi-head attention over the F field axis, logits scaled by
-    1/sqrt(dh)."""
+    1/sqrt(dh), the probabilities ``[B, H, F, F]`` multiplied by ``mask``
+    before the values.  Returns the output and the probabilities before
+    the mask."""
     dh = q.shape[-1] // head_num
     qh, kh, vh = (_split_heads(t, head_num) for t in (q, k, v))
     scores = torch.einsum("bhik,bhjk->bhij", qh, kh) / math.sqrt(dh)
     probs = torch.softmax(scores, dim=-1)
-    return _merge_heads(torch.einsum("bhij,bhjk->bhik", probs, vh))
+    used = probs if mask is None else probs * mask
+    return _merge_heads(torch.einsum("bhij,bhjk->bhik", used, vh)), probs
 
 
 class MetaTransformerLayer(nn.Module):
@@ -91,27 +97,41 @@ def meta_transformer_init(gen: torch.Generator, dim: int,
 def meta_transformer_apply(layer: MetaTransformerLayer, x, meta_params,
                            meta_units: Sequence[int], *, mode: str = "QK",
                            head_num: int = 4, relu_out: bool = False,
-                           domain_ids=None, dense_select: bool = False):
-    """One SATrans block without dropout.
+                           domain_ids=None, dense_select: bool = False,
+                           masks=None, residuals: dict | None = None):
+    """One SATrans block.
 
     ``meta_params``: dict with keys 'Q' and 'K'.  Each value is either
     per-example ``[B, P]`` flat params or, when ``domain_ids`` is given,
     per-domain ``[D, P]`` tables.  A projection is transformed iff its
     letter appears in ``mode`` (so 'Query' transforms Q only; V is never
-    transformed, as in the reference)."""
-    q, k, v = x @ layer.wq, x @ layer.wk, x @ layer.wv
+    transformed, as in the reference).  ``masks``: ``(m_yq, m_yk, m_s,
+    m_z)`` dropout masks of the four sites (``ops/prng.dropout_masks``;
+    an unapplied projection's is ``None``), or ``None`` for no dropout.
+    A ``residuals`` dict receives what the stash kernel writes: ``qkv``
+    ``[B, F, 3d]``, the pre-LayerNorm sums ``uq``/``uk`` (the raw
+    projection where it is not transformed), the probabilities ``s``
+    before dropout and the attention output ``o``."""
+    m_q, m_k, m_s, m_z = masks if masks is not None else (None,) * 4
+    q0, k0, v = x @ layer.wq, x @ layer.wk, x @ layer.wv
 
-    def transform(t, params):
+    def pre_ln(t, params, mask):
         if domain_ids is None:
-            return metanet.apply_flat(layer.q_meta, t, params, meta_units)
-        return metanet.apply_domainwise(layer.q_meta, t, domain_ids, params,
-                                        meta_units, dense_select=dense_select)
+            return metanet.flat_sum(t, params, meta_units, mask=mask)
+        return metanet.domainwise_sum(t, domain_ids, params, meta_units,
+                                      dense_select=dense_select, mask=mask)
 
-    if "Q" in mode:
-        q = transform(q, meta_params["Q"])
-    if "K" in mode:
-        k = transform(k, meta_params["K"])
-    out = _mha(q, k, v, head_num) @ layer.wout   # bias-free output linear
+    uq = pre_ln(q0, meta_params["Q"], m_q) if "Q" in mode else q0
+    uk = pre_ln(k0, meta_params["K"], m_k) if "K" in mode else k0
+    q = layer.q_meta.ln(uq) if "Q" in mode else q0
+    k = layer.q_meta.ln(uk) if "K" in mode else k0
+    o, probs = _mha(q, k, v, head_num, m_s)
+    out = o @ layer.wout                          # bias-free output linear
     if relu_out:                                  # the 'relu' flag
         out = torch.relu(out)
+    if m_z is not None:
+        out = out * m_z
+    if residuals is not None:
+        residuals.update(qkv=torch.cat([q0, k0, v], dim=-1), uq=uq, uk=uk,
+                         s=probs, o=o)
     return layer.ln(out + x)

@@ -5,8 +5,9 @@ Given field embeddings ``x: [B, F, d]`` and flat parameters with
 ``P = sum(units[i] * units[i+1])``, slice the flat vector into weight
 matrices ``W_i: [units[i], units[i+1]]`` and apply a bias-free MLP (ReLU
 between layers, not after the last), then the residual add and the
-LayerNorm.  No dropout: the MetaNet's dropout site comes with the
-in-kernel dropout (ROADMAP queue 2, K1-stash and K1-bwd-stash).
+LayerNorm.  Dropout is a ``mask`` (0 or the keep scale, one value per
+output element) multiplied into the MLP's output before the residual, as
+the fused kernels do; ``ops/prng.py`` draws it.
 """
 
 from __future__ import annotations
@@ -54,16 +55,23 @@ def _mlp_chain(x, weights):
     return x
 
 
-def apply_flat(meta: MetaNet, x, mlp_params, units: Sequence[int]):
-    """Per-example flat params ``[B, P]``; only the first
-    ``param_size(units)`` entries are read."""
+def _residual(y, x, mask):
+    """The pre-LayerNorm sum ``y * mask + x``."""
+    return (y if mask is None else y * mask) + x
+
+
+def flat_sum(x, mlp_params, units: Sequence[int], *, mask=None):
+    """Per-example flat params ``[B, P]`` (only the first
+    ``param_size(units)`` entries are read): the MLP on ``x``, masked,
+    plus ``x``; the MetaNet's LayerNorm of it is the output."""
     weights = slice_weights(mlp_params[:, :param_size(units)], units)
-    return meta.ln(_mlp_chain(x, weights) + x)
+    return _residual(_mlp_chain(x, weights), x, mask)
 
 
-def apply_domainwise(meta: MetaNet, x, domain_ids, domain_params,
-                     units: Sequence[int], *, dense_select: bool = False):
-    """``domain_params [D, P]`` indexed by ``domain_ids [B]``.
+def domainwise_sum(x, domain_ids, domain_params, units: Sequence[int], *,
+                   dense_select: bool = False, mask=None):
+    """``domain_params [D, P]`` indexed by ``domain_ids [B]``: the MLP of
+    each example's domain on ``x``, masked, plus ``x``.
 
     ``dense_select=False`` gathers each example's own weights (the
     kernel's arithmetic); ``True`` runs every domain's MLP on every row and
@@ -84,4 +92,5 @@ def apply_domainwise(meta: MetaNet, x, domain_ids, domain_params,
         y = torch.einsum("dbfo,bd->bfo", torch.stack(ys), onehot)
     else:
         y = _mlp_chain(x, [w[domain_ids] for w in weights])
-    return meta.ln(y + x)
+    return _residual(y, x, mask)
+

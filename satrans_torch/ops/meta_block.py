@@ -1,18 +1,27 @@
 """The fused meta-transformer layer: Python side of the Hopper kernels
-``csrc/meta_block_fwd.cu`` (K1-fwd) and ``csrc/meta_block_bwd.cu``
-(K1-bwd, the recompute backward), twins of
-``satrans_tpu/ops/pallas/meta_block.py``.
+``csrc/meta_block_fwd.cu`` (K1-fwd, and K1-stash which also writes the
+backward's residuals) and ``csrc/meta_block_bwd.cu`` (K1-bwd, which
+recomputes the forward, and K1-bwd-stash, which reads the residuals),
+twins of ``satrans_tpu/ops/pallas/meta_block.py``.
 
-* :func:`fused_meta_layer` - the wrapper.  On a CUDA tensor it launches the
-  forward kernel (through :class:`_MetaLayerFn` when a gradient is needed,
-  whose backward launches K1-bwd) or raises; on a CPU tensor it runs
-  :func:`meta_layer_reference`, and autograd differentiates that.
+* :func:`fused_meta_layer` - the wrapper.  On a CUDA tensor it launches
+  the kernels or raises: with a gradient needed, ``bwd='stash'`` (the
+  default; ``SATRANS_BWD`` overrides, as in the JAX package) runs
+  :class:`_StashLayerFn` (K1-stash forward, K1-bwd-stash backward) and
+  ``bwd='recompute'`` :class:`_MetaLayerFn` (K1-fwd forward, K1-bwd
+  backward); without, K1-fwd, which never stashes.  On a CPU tensor it
+  runs :func:`meta_layer_reference` with the same dropout masks, and
+  autograd differentiates that.
 * :func:`meta_layer_reference` - the plain PyTorch version on the same
   operands (each example's own MetaNet weights, gathered by domain); its
-  autograd backward is the plain version of K1-bwd.
+  autograd backward is the plain version of both backward kernels, and
+  its ``residuals`` the plain version of K1-stash's.
+* :func:`layer_masks` - the dropout masks the kernels compute inline
+  (``ops/prng.py``): in training at ``drop_rate > 0``, the JAX package's
+  interpret-mode masks for the layer's ``seed`` and tile ``block_b``.
 * :func:`launch_fwd` / :func:`launch_bwd` - the kernel launches on packed
-  operands (:func:`pack_operands`); ``launches`` / ``bwd_launches`` count
-  them.
+  operands (:func:`pack_operands`); ``launches`` / ``stash_launches`` /
+  ``bwd_launches`` / ``stash_bwd_launches`` count them.
 
 The packing of the operands (``wqkv``, the per-domain ``[D, d, h]`` and
 ``[D, h, d]`` MetaNet weights sliced out of the ``[D, P]`` tables, the
@@ -25,12 +34,14 @@ package's custom VJP leaves them to JAX (meta_block.py:1381-1384).
 from __future__ import annotations
 
 import ctypes
+import os
 from typing import Sequence
 
 import torch
 
 from ..nn import attention, metanet
 from ..nn.attention import MetaTransformerLayer
+from . import prng
 from ._build import kernel_fn, stream_of
 
 # (d, h, heads) instantiated in csrc/meta_block_{fwd,bwd}.cu, and the most
@@ -40,20 +51,54 @@ KERNEL_MAX_FIELDS = 20
 # K1-bwd runs two blocks of 256 threads per SM (csrc/meta_block_bwd.cu)
 BWD_BLOCKS_PER_SM = 2
 
-launches = 0
-bwd_launches = 0
+BWD_MODES = ("stash", "recompute")
+
+launches = 0            # K1-fwd
+stash_launches = 0      # K1-stash
+bwd_launches = 0        # K1-bwd
+stash_bwd_launches = 0  # K1-bwd-stash
 _sm_count: dict[int, int] = {}
 
 
 def meta_layer_reference(x, layer: MetaTransformerLayer, tables, dom, *,
                          meta_units: Sequence[int], head_num: int,
-                         mode: str = "QK", relu_out: bool = False):
+                         mode: str = "QK", relu_out: bool = False,
+                         masks=None, residuals: dict | None = None):
     """Plain PyTorch version of the kernels.  ``x`` ``[B, F, d]``;
     ``tables`` ``{'Q': [D, P], 'K': [D, P]}`` per-domain flat MetaNet
-    params; ``dom`` ``[B]`` rows of the tables, in ``[0, D)``."""
+    params; ``dom`` ``[B]`` rows of the tables, in ``[0, D)``; ``masks``
+    from :func:`layer_masks`; ``residuals`` receives K1-stash's
+    (``nn.attention.meta_transformer_apply``)."""
     return attention.meta_transformer_apply(
         layer, x, tables, meta_units, mode=mode, head_num=head_num,
-        relu_out=relu_out, domain_ids=dom.long(), dense_select=False)
+        relu_out=relu_out, domain_ids=dom.long(), dense_select=False,
+        masks=masks, residuals=residuals)
+
+
+def layer_masks(x, *, head_num: int, mode: str, train: bool,
+                drop_rate: float, seed: int, block_b: int):
+    """The dropout masks of one layer on ``x`` ``[B, F, d]``
+    (``prng.dropout_masks``), or ``None`` outside training or at rate 0."""
+    if not (train and drop_rate > 0.0):
+        return None
+    B, F, d = x.shape
+    return prng.dropout_masks(seed, B, F, d, head_num, block_b, drop_rate,
+                              "Q" in mode, "K" in mode, x.device)
+
+
+def bwd_mode(bwd: str | None = None) -> str:
+    """The backward kernel: ``bwd``, else ``SATRANS_BWD``, else 'stash'
+    (the JAX package's rule, meta_block.py:1421-1424)."""
+    if bwd is None:
+        bwd = os.environ.get("SATRANS_BWD", "stash")
+    if bwd == "stash_light":
+        raise NotImplementedError(
+            "bwd='stash_light' (the probabilities recomputed from the "
+            "stashed pre-LN sums) is ROADMAP queue 2 item 'K1-scores, "
+            "stash_light and the bf16 stash'")
+    if bwd not in BWD_MODES:
+        raise ValueError(f"unknown bwd mode {bwd!r}")
+    return bwd
 
 
 def _needs_grad(x, layer, tables) -> bool:
@@ -99,40 +144,55 @@ def _check(x, meta_units, head_num: int, tables, train: bool) -> None:
                 "rows are ROADMAP queue 2 item 'K1-bwd for many meta rows'")
 
 
-def launch_fwd(x, dom, wqkv, w1q, w2q, lnq, w1k, w2k, lnk, wout, lno,
-               cfg) -> torch.Tensor:
-    """K1-fwd: the layer's output for packed operands."""
+def _check_operands(ops, device, ints=()) -> None:
+    """Raise unless every operand lies contiguous on ``device``, those in
+    ``ints`` int32 and the rest float32 and 16-byte aligned (the kernels
+    read them as float4)."""
+    for t in ops:
+        want = torch.int32 if any(t is i for i in ints) else torch.float32
+        if t.device != device or t.dtype != want or not t.is_contiguous() \
+                or (want == torch.float32 and t.data_ptr() % 16):
+            raise ValueError(
+                "operands must lie contiguous on one device, dom int32, "
+                "the rest float32 and 16-byte aligned")
+
+
+def launch_fwd(x, dom, wqkv, w1q, w2q, lnq, w1k, w2k, lnk, wout, lno, cfg,
+               drop, stash: bool = False):
+    """K1-fwd: the layer's output for packed operands; with ``stash``,
+    K1-stash: ``(y, qkv, uq, uk, s, o)``.  ``drop`` is
+    ``prng.kernel_args(...)``."""
     h, heads, apply_q, apply_k, relu_out = cfg
     B, F, d = x.shape
     ops = (x, dom, wqkv, w1q, w2q, lnq, w1k, w2k, lnk, wout, lno)
-    for t in ops:
-        if t.device != x.device:
-            raise ValueError(f"operand on {t.device}, x on {x.device}")
-        if t is dom:
-            if dom.dtype != torch.int32 or not dom.is_contiguous():
-                raise ValueError("dom must be contiguous int32")
-            continue
-        if t.dtype != torch.float32:
-            raise ValueError(f"operand of type {t.dtype}, want float32")
-        if t.data_ptr() % 16 or not t.is_contiguous():  # read as float4
-            raise ValueError("float32 operand not contiguous and 16-byte "
-                             "aligned")
+    _check_operands(ops, x.device, ints=(dom,))
     y = torch.empty_like(x)
+    res = ()
+    if stash:
+        res = (x.new_empty(B, F, 3 * d), torch.empty_like(x),
+               torch.empty_like(x), x.new_empty(B, heads, F, F),
+               torch.empty_like(x))
     fn = kernel_fn("meta_block_fwd", "satrans_meta_block_fwd",
-                   [ctypes.c_void_p] * 12 + [ctypes.c_int] * 9
-                   + [ctypes.c_void_p])
-    err = fn(*(t.data_ptr() for t in ops), y.data_ptr(), B, F, d, h, heads,
-             w1q.shape[0], apply_q, apply_k, relu_out, stream_of(x))
+                   [ctypes.c_void_p] * 17 + [ctypes.c_int] * 10
+                   + [ctypes.c_uint, ctypes.c_uint, ctypes.c_float]
+                   + [ctypes.c_int] * 3 + [ctypes.c_void_p])
+    err = fn(*(t.data_ptr() for t in ops + (y,) + res),
+             *([None] * (5 - len(res))), B, F, d, h, heads, w1q.shape[0],
+             apply_q, apply_k, relu_out, *drop, stream_of(x))
     if err:
         raise RuntimeError(f"meta_block_fwd launch failed: CUDA error {err}")
-    global launches
+    global launches, stash_launches
+    if stash:
+        stash_launches += 1
+        return (y,) + res
     launches += 1
     return y
 
 
 def launch_bwd(g, x, dom, wqkv, w1q, w2q, lnq, w1k, w2k, lnk, wout, lno,
-               cfg):
-    """K1-bwd: ``(dx, dwqkv, dw1q, dw2q, dlnq, dw1k, dw2k, dlnk, dwout,
+               cfg, drop, res=None):
+    """K1-bwd, or with K1-stash's residuals ``res = (qkv, uq, uk, s, o)``
+    K1-bwd-stash: ``(dx, dwqkv, dw1q, dw2q, dlnq, dw1k, dw2k, dlnk, dwout,
     dlno)`` for the upstream gradient ``g`` of the layer's output."""
     h, heads, apply_q, apply_k, relu_out = cfg
     B, F, d = x.shape
@@ -163,28 +223,45 @@ def launch_bwd(g, x, dom, wqkv, w1q, w2q, lnq, w1k, w2k, lnk, wout, lno,
     grads = torch.empty(total, dtype=torch.float32, device=x.device)
     ops = (x, dom, g, wqkv, wqkv_t, w1q, w2q, w1q_t, w2q_t, lnq, w1k, w2k,
            w1k_t, w2k_t, lnk, wout, wout_t, lno, dx, partial, grads)
-    for t in ops:
-        want = torch.int32 if t is dom else torch.float32
-        if t.device != x.device or not t.is_contiguous() or \
-                t.dtype != want or (t is not dom and t.data_ptr() % 16):
-            raise ValueError("operands must lie on one device, contiguous, "
-                             "dom int32, the rest float32 and 16-byte "
-                             "aligned")
+    _check_operands(ops, x.device, ints=(dom,))
+    if res is not None:
+        shapes = [(B, F, 3 * d), (B, F, d), (B, F, d), (B, heads, F, F),
+                  (B, F, d)]
+        if [tuple(r.shape) for r in res] != shapes:
+            raise ValueError(f"residuals of shapes "
+                             f"{[tuple(r.shape) for r in res]}, want {shapes}")
+        _check_operands(res, x.device)
     fn = kernel_fn("meta_block_bwd", "satrans_meta_block_bwd",
-                   [ctypes.c_void_p] * 21 + [ctypes.c_int] * 10
-                   + [ctypes.c_void_p])
-    err = fn(*(t.data_ptr() for t in ops), B, F, d, h, heads, D, apply_q,
-             apply_k, relu_out, blocks, stream_of(x))
+                   [ctypes.c_void_p] * 26 + [ctypes.c_int] * 11
+                   + [ctypes.c_uint, ctypes.c_uint, ctypes.c_float]
+                   + [ctypes.c_int] * 3 + [ctypes.c_void_p])
+    res_ptrs = [None] * 5 if res is None else [r.data_ptr() for r in res]
+    err = fn(*(t.data_ptr() for t in ops), *res_ptrs, B, F, d, h, heads, D,
+             apply_q, apply_k, relu_out, blocks, *drop, stream_of(x))
     if err:
         raise RuntimeError(f"meta_block_bwd launch failed: CUDA error {err}")
-    global bwd_launches
-    bwd_launches += 1
+    global bwd_launches, stash_bwd_launches
+    if res is None:
+        bwd_launches += 1
+    else:
+        stash_bwd_launches += 1
     sizes = [3 * d * d, d * d, 2 * d, 2 * d, 2 * d] + [D * d * h] * 4
     (dwqkv, dwout, dlnq, dlnk, dlno, dw1q, dw2q, dw1k,
      dw2k) = torch.split(grads, sizes)
     return (dx, dwqkv.view(d, 3 * d), dw1q.view(D, d, h), dw2q.view(D, h, d),
             dlnq.view(2, d), dw1k.view(D, d, h), dw2k.view(D, h, d),
             dlnk.view(2, d), dwout.view(d, d), dlno.view(2, d))
+
+
+def _input_grads(grads, cfg):
+    """The kernel's gradients as the autograd functions' input gradients
+    (None for dom, for an unapplied projection's operands, cfg and
+    drop)."""
+    _, _, apply_q, apply_k, _ = cfg
+    (dx, dwqkv, dw1q, dw2q, dlnq, dw1k, dw2k, dlnk, dwout, dlno) = grads
+    q = (dw1q, dw2q, dlnq) if apply_q else (None, None, None)
+    k = (dw1k, dw2k, dlnk) if apply_k else (None, None, None)
+    return (dx, None, dwqkv, *q, *k, dwout, dlno, None, None)
 
 
 class _MetaLayerFn(torch.autograd.Function):
@@ -194,21 +271,40 @@ class _MetaLayerFn(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, x, dom, wqkv, w1q, w2q, lnq, w1k, w2k, lnk, wout, lno,
-                cfg):
-        ctx.cfg = cfg
+                cfg, drop):
+        ctx.cfg, ctx.drop = cfg, drop
         ctx.save_for_backward(x, dom, wqkv, w1q, w2q, lnq, w1k, w2k, lnk,
                               wout, lno)
         return launch_fwd(x, dom, wqkv, w1q, w2q, lnq, w1k, w2k, lnk, wout,
-                           lno, cfg)
+                          lno, cfg, drop)
 
     @staticmethod
     def backward(ctx, g):
-        _, _, apply_q, apply_k, _ = ctx.cfg
-        (dx, dwqkv, dw1q, dw2q, dlnq, dw1k, dw2k, dlnk, dwout,
-         dlno) = launch_bwd(g, *ctx.saved_tensors, ctx.cfg)
-        q = (dw1q, dw2q, dlnq) if apply_q else (None, None, None)
-        k = (dw1k, dw2k, dlnk) if apply_k else (None, None, None)
-        return (dx, None, dwqkv, *q, *k, dwout, dlno, None)
+        return _input_grads(
+            launch_bwd(g, *ctx.saved_tensors, ctx.cfg, ctx.drop), ctx.cfg)
+
+
+class _StashLayerFn(torch.autograd.Function):
+    """The layer with K1-stash as its forward and K1-bwd-stash as its
+    backward (the JAX ``_fused_layer`` custom VJP with ``bwd='stash'``):
+    the forward saves its inputs and the five residuals, 166.9 MB a layer
+    at the AliCCP sota shape (B=8192, F=19, d=32)."""
+
+    @staticmethod
+    def forward(ctx, x, dom, wqkv, w1q, w2q, lnq, w1k, w2k, lnk, wout, lno,
+                cfg, drop):
+        ctx.cfg, ctx.drop = cfg, drop
+        y, *res = launch_fwd(x, dom, wqkv, w1q, w2q, lnq, w1k, w2k, lnk,
+                             wout, lno, cfg, drop, stash=True)
+        ctx.save_for_backward(x, dom, wqkv, w1q, w2q, lnq, w1k, w2k, lnk,
+                              wout, lno, *res)
+        return y
+
+    @staticmethod
+    def backward(ctx, g):
+        saved = ctx.saved_tensors
+        return _input_grads(launch_bwd(g, *saved[:11], ctx.cfg, ctx.drop,
+                                       res=saved[11:]), ctx.cfg)
 
 
 def pack_operands(x, layer: MetaTransformerLayer, tables, dom, *,
@@ -232,21 +328,32 @@ def pack_operands(x, layer: MetaTransformerLayer, tables, dom, *,
 
 def fused_meta_layer(x, layer: MetaTransformerLayer, tables, dom, *,
                      meta_units: Sequence[int], head_num: int,
-                     mode: str = "QK", relu_out: bool = False):
+                     mode: str = "QK", relu_out: bool = False,
+                     train: bool = False, drop_rate: float = 0.0,
+                     seed: int = 0, block_b: int = 128,
+                     bwd: str | None = None):
     """One meta-transformer layer; same operands as
-    :func:`meta_layer_reference`.  Differentiable: with a gradient needed
-    on the card, its backward is K1-bwd."""
+    :func:`meta_layer_reference`.  ``train`` with ``drop_rate > 0``
+    applies the dropout of ``seed`` on tiles of ``block_b`` examples (the
+    JAX ``fused_meta_layer_vjp``'s arguments).  Differentiable: with a
+    gradient needed on the card, ``bwd`` ('stash' or 'recompute', see
+    :func:`bwd_mode`) picks the kernel pair."""
+    bwd = bwd_mode(bwd)
     if x.device.type == "cpu":
+        masks = layer_masks(x, head_num=head_num, mode=mode, train=train,
+                            drop_rate=drop_rate, seed=seed, block_b=block_b)
         return meta_layer_reference(x, layer, tables, dom,
                                     meta_units=meta_units,
                                     head_num=head_num, mode=mode,
-                                    relu_out=relu_out)
+                                    relu_out=relu_out, masks=masks)
     if x.device.type != "cuda":
         raise ValueError(f"no meta_block kernel for device {x.device}")
-    train = _needs_grad(x, layer, tables)
-    _check(x, meta_units, head_num, tables, train)
+    grad = _needs_grad(x, layer, tables)
+    _check(x, meta_units, head_num, tables, grad)
     ops, cfg = pack_operands(x, layer, tables, dom, meta_units=meta_units,
                              head_num=head_num, mode=mode, relu_out=relu_out)
-    if train:
-        return _MetaLayerFn.apply(*ops, cfg)
-    return launch_fwd(*ops, cfg)
+    drop = prng.kernel_args(train, drop_rate, seed, block_b, x.shape[1])
+    if not grad:  # eval, serving: never stash (meta_block.py:1314-1319)
+        return launch_fwd(*ops, cfg, drop)
+    fn = _StashLayerFn if bwd == "stash" else _MetaLayerFn
+    return fn.apply(*ops, cfg, drop)

@@ -177,9 +177,10 @@ def adam_rows(w, m, v, g, steps, lr, b1=ADAM_B1, b2=ADAM_B2,
     return w, m, v
 
 
-def sparse_bank_grads(model, strategy, batch, y, weight):
+def sparse_bank_grads(model, strategy, batch, y, weight, seeds=None):
     """Forward and backward of one step with the bank's gradient kept
-    sparse.  Every parameter but the bank gets its ``.grad``.  Returns
+    sparse, the layers' dropout drawn from ``seeds``.  Every parameter but
+    the bank gets its ``.grad``.  Returns
     ``(flat_ids, g_rows, data_loss, reg, aux)``: the raw gather plan
     ``[N]``, the gradient of its physical rows ``[N, rp * d]``, and the
     step's losses, where ``reg`` leaves out the bank's L2."""
@@ -189,7 +190,7 @@ def sparse_bank_grads(model, strategy, batch, y, weight):
     rows = gather.gather_rows((emb.physical(),), flat_ids)[0]
     rows.requires_grad_(True)
     feed = embeddings.BankRowFeed(rows, emb)
-    pred = model(batch, feed=feed)
+    pred = model(batch, feed=feed, seeds=seeds)
     feed.assert_consumed()
     data_loss = strategy.loss(pred, y, weight)
     reg = model.reg_loss(feed=feed)

@@ -5,11 +5,16 @@ One dense step (``bank_update='dense'``, what ``'auto'`` resolves to on
 one device) is autograd of the model in train mode, the pad-weighted BCE
 sum (:class:`SingleTask`), the model's full-table embedding L2
 (``model.reg_loss()``) and Adam over every parameter, the bank included.
-On the card each meta-transformer layer runs K1-fwd forward and K1-bwd
-backward (``ops/meta_block.py``).  Adam is ``torch.optim.Adam`` with
-``eps`` outside the square root, the same update as ``optax.adam``, in its
-fused form: one pass over each parameter, its gradient and its moments
-(the 841 MB AliCCP bank makes the update a memory-bound pass).
+On the card each meta-transformer layer runs K1-stash forward and
+K1-bwd-stash backward, or K1-fwd and K1-bwd under
+``SATRANS_BWD=recompute`` (``ops/meta_block.py``).  Each step draws one
+dropout seed per layer from the Trainer's own generator, seeded with
+``seed + 1`` at every ``fit`` (the twin of the JAX Trainer's
+``step_rng``; the numbers differ, see :meth:`Trainer.step_seeds`).
+Adam is ``torch.optim.Adam`` with ``eps`` outside the square root, the
+same update as ``optax.adam``, in its fused form: one pass over each
+parameter, its gradient and its moments (the 841 MB AliCCP bank makes
+the update a memory-bound pass).
 
 ``'fused'``, ``'fused_eq'`` and ``'lazy'`` keep the bank's gradient to
 the step's rows (``train/bank_optimizer.py``, with the row kernels K2-K5
@@ -79,6 +84,7 @@ class Trainer:
         self._bank_mode = "dense"
         self._eq_plan = None
         self._lazy = None
+        self._step_gen = torch.Generator().manual_seed(self.seed + 1)
 
     # ------------------------------------------------------------------
     def compile(self, optimizer="adam", loss="binary_crossentropy",
@@ -149,10 +155,19 @@ class Trainer:
             return arr
         return np.pad(arr, [(0, target - n)] + [(0, 0)] * (arr.ndim - 1))
 
-    def loss_terms(self, batch, y, weight):
+    def step_seeds(self) -> list[int]:
+        """The next step's dropout seeds, one per layer, uniform in
+        ``[0, 2**31 - 1)`` (the JAX Trainer draws its own with
+        ``jax.random``; a test replaces this method to feed those)."""
+        n = len(getattr(self.model, "layers", ()))
+        return torch.randint(0, 2 ** 31 - 1, (n,),
+                             generator=self._step_gen).tolist()
+
+    def loss_terms(self, batch, y, weight, seeds=None):
         """``(total, data loss, reg loss, aux loss)`` of one batch in train
-        mode: the function one step differentiates."""
-        pred = self.model(batch)
+        mode with the layers' dropout ``seeds``: the function one step
+        differentiates."""
+        pred = self.model(batch, seeds=seeds)
         data_loss = self._strategy.loss(pred, y, weight)
         reg = self.model.reg_loss()
         aux = torch.zeros((), dtype=data_loss.dtype, device=data_loss.device)
@@ -163,14 +178,16 @@ class Trainer:
         self.model.train()
         self.optimizer.zero_grad(set_to_none=True)
         mode = self._bank_mode
+        seeds = self.step_seeds()
         if mode == "dense":
-            total, data_loss, reg, aux = self.loss_terms(batch, y, weight)
+            total, data_loss, reg, aux = self.loss_terms(batch, y, weight,
+                                                         seeds)
             total.backward()
             self.optimizer.step()
         else:
             flat_ids, g_rows, data_loss, reg, aux = \
                 bank_optimizer.sparse_bank_grads(self.model, self._strategy,
-                                                 batch, y, weight)
+                                                 batch, y, weight, seeds)
             emb = self.model.emb
             l2 = float(self.model.l2_reg_embedding)
             if mode in ("fused", "fused_eq"):
@@ -222,6 +239,7 @@ class Trainer:
                   f"{steps} steps per epoch")
 
         rng_np = np.random.default_rng(self.seed)
+        self._step_gen.manual_seed(self.seed + 1)
         for epoch in range(epochs):
             callback_list.on_epoch_begin(epoch)
             t0 = time.time()

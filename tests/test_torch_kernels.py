@@ -1,8 +1,10 @@
 """The port's CUDA kernels against their plain PyTorch versions on the card:
-the layer forward (K1-fwd) against ``meta_layer_reference``, the layer
-backward (K1-bwd) against autograd of it, and the row kernels of the
-sparse bank updates (K2 scatter, K3 equality combine, K4 gather, K5 lazy
-Adam tail) against theirs.
+the layer forward (K1-fwd) and the stash forward (K1-stash, with its
+residuals) against ``meta_layer_reference``, both layer backwards (K1-bwd
+and K1-bwd-stash) against autograd of it, each without and with dropout
+(the same masks on both sides), and the row kernels of the sparse bank
+updates (K2 scatter, K3 equality combine, K4 gather, K5 lazy Adam tail)
+against theirs.
 
 Every test here needs an NVIDIA GPU and skips itself elsewhere.  The file
 imports neither JAX nor the JAX package, so it also runs on a machine that
@@ -12,14 +14,18 @@ has only PyTorch:
         tests/test_torch_kernels.py
 """
 
+import copy
+
 import pytest
 import torch
 
 from satrans_torch.nn import attention, initializers as init, metanet
-from satrans_torch.ops import meta_block
+from satrans_torch.ops import meta_block, prng
 from satrans_torch.utils import make_generator
 
 MODES = [("QK", False), ("QK", True), ("Query", False), ("Query", True)]
+# dropout on tiles of 16 examples: several tiles and a ragged last one
+DROP = dict(seed=2 ** 31 - 3, block_b=16)
 
 
 @pytest.fixture
@@ -30,34 +36,104 @@ def card():
     return torch.device("cuda", 0)
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("mode,relu_out", MODES)
-@pytest.mark.parametrize("F", [19, 7])
-def test_meta_block_kernel_matches_plain_version(card, mode, relu_out, F):
-    """A ragged batch (33 is not a multiple of the kernel's 8-example
-    tile).  atol 1e-4 / rtol 1e-4: float32 with other summation orders, and
-    expf/rsqrtf against torch's exp/rsqrt, on LayerNormed outputs of order
-    1."""
-    gen = make_generator(0, card)
-    d, h, heads = 32, 64, 4
-    units = [d, h, d]
+def _layer(card, seed):
+    """A layer with its meta LayerNorm moved off its (1, 0) init, and a
+    4-row table."""
+    gen = make_generator(seed, card)
+    d, h = 32, 64
     layer = attention.MetaTransformerLayer(gen, d)
     with torch.no_grad():
         layer.q_meta.ln.scale.add_(init.normal(gen, (d,), 0.1))
         layer.q_meta.ln.bias.add_(init.normal(gen, (d,), 0.1))
-    table = init.normal(gen, (4, metanet.param_size(units)), 0.1)
-    x = init.normal(gen, (33, F, d), 1.0)
+    return gen, layer, init.normal(gen, (4, metanet.param_size([d, h, d])),
+                                   0.1)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+@pytest.mark.parametrize("mode,relu_out", MODES)
+@pytest.mark.parametrize("F", [19, 7])
+def test_meta_block_kernel_matches_plain_version(card, mode, relu_out, F,
+                                                 rate):
+    """A ragged batch (33 is not a multiple of the kernel's 8-example
+    tile); at rate 0.1 in training without a gradient, K1-fwd with its
+    dropout.  atol 1e-4 / rtol 1e-4: float32 with other summation orders,
+    and expf/rsqrtf against torch's exp/rsqrt, on LayerNormed outputs of
+    order 1."""
+    gen, layer, table = _layer(card, 0)
+    x = init.normal(gen, (33, F, 32), 1.0)
     dom = torch.randint(0, 4, (33,), generator=gen, device=card)
-    kw = dict(meta_units=units, head_num=heads, mode=mode, relu_out=relu_out)
-    before = meta_block.launches
+    kw = dict(meta_units=[32, 64, 32], head_num=4, mode=mode,
+              relu_out=relu_out)
+    drop = dict(train=True, drop_rate=rate, **DROP)
+    before = (meta_block.launches, meta_block.stash_launches)
     with torch.no_grad():
         got = meta_block.fused_meta_layer(x, layer, {"Q": table, "K": table},
-                                          dom, **kw)
+                                          dom, **kw, **drop)
         want = meta_block.meta_layer_reference(
-            x, layer, {"Q": table, "K": table}, dom, **kw)
+            x, layer, {"Q": table, "K": table}, dom, **kw,
+            masks=meta_block.layer_masks(x, head_num=4, mode=mode, **drop))
     torch.cuda.synchronize()
-    assert meta_block.launches == before + 1
+    # without a gradient the layer never stashes
+    assert (meta_block.launches, meta_block.stash_launches) == (
+        before[0] + 1, before[1])
     torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+@pytest.mark.parametrize("mode,relu_out", MODES)
+def test_stash_kernel_residuals_match_plain_version(card, mode, relu_out,
+                                                    rate):
+    """K1-stash's output and each residual (qkv, the pre-LN sums, the
+    probabilities before dropout, the attention output) against the plain
+    version's, at the tolerance of the forward test."""
+    gen, layer, table = _layer(card, 2)
+    x = init.normal(gen, (33, 19, 32), 1.0)
+    dom = torch.randint(0, 4, (33,), generator=gen, device=card)
+    kw = dict(meta_units=[32, 64, 32], head_num=4, mode=mode,
+              relu_out=relu_out)
+    drop = dict(train=True, drop_rate=rate, **DROP)
+    tables = {"Q": table, "K": table}
+    ops, cfg = meta_block.pack_operands(x, layer, tables, dom, **kw)
+    before = meta_block.stash_launches
+    with torch.no_grad():
+        got = meta_block.launch_fwd(*ops, cfg, prng.kernel_args(
+            True, rate, DROP["seed"], DROP["block_b"], 19), stash=True)
+        res = {}
+        y = meta_block.meta_layer_reference(
+            x, layer, tables, dom, **kw, residuals=res,
+            masks=meta_block.layer_masks(x, head_num=4, mode=mode, **drop))
+    torch.cuda.synchronize()
+    assert meta_block.stash_launches == before + 1
+    for name, g, w in zip(("y", "qkv", "uq", "uk", "s", "o"), got,
+                          (y, *(res[k] for k in ("qkv", "uq", "uk", "s",
+                                                 "o")))):
+        torch.testing.assert_close(g, w, rtol=1e-4, atol=1e-4, msg=name)
+
+
+def _kink_free(g, x, layer, table, dom, masks, **kw):
+    """``g`` with zero rows for the examples whose relu inputs (the
+    MetaNet hidden layers, and the output projection under relu_out) lie
+    within 1e-6 of 0 in the float64 plain layer: float32 rounding may put
+    such an input on either side of the kink, where the gradient jumps,
+    and the kernel and the plain version would then differ by the jump."""
+    res = {}
+    with torch.no_grad():
+        meta_block.meta_layer_reference(x, layer, {"Q": table, "K": table},
+                                        dom, **kw, masks=masks,
+                                        residuals=res)
+        d = x.shape[-1]
+        w1 = metanet.slice_weights(table, kw["meta_units"])[0][dom.long()]
+        pre = [torch.einsum("bfi,bio->bfo", res["qkv"][..., i * d:
+                                                      (i + 1) * d], w1)
+               for i, p in enumerate("QK") if p in kw["mode"]]
+        if kw["relu_out"]:
+            pre.append(res["o"] @ layer.wout)
+        near = torch.zeros(x.shape[0], dtype=torch.bool, device=x.device)
+        for t in pre:
+            near |= (t.abs() < 1e-6).flatten(1).any(1)
+    return g.masked_fill(near[:, None, None], 0.0)
 
 
 def _grads(fn, x, layer, table, dom, g, **kw):
@@ -75,37 +151,47 @@ def _grads(fn, x, layer, table, dom, g, **kw):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("bwd", ["stash", "recompute"])
+@pytest.mark.parametrize("rate", [0.0, 0.1])
 @pytest.mark.parametrize("mode,relu_out", MODES)
 @pytest.mark.parametrize("B,F", [(33, 7), (33, 19), (8192, 19)])
 def test_meta_block_bwd_kernel_matches_plain_backward(card, mode, relu_out,
-                                                      B, F):
-    """K1-bwd (through the autograd wrapper) against autograd of the plain
-    layer, at a small ragged batch and at the full AliCCP sota shape.
-    Each gradient within 1e-4 of the plain one relative to the largest
-    entry of that gradient (plus 1e-5): the parameter gradients are sums
-    over up to B * F = 155,648 rows taken in another order."""
-    gen = make_generator(1, card)
-    d, h, heads = 32, 64, 4
-    units = [d, h, d]
-    layer = attention.MetaTransformerLayer(gen, d)
-    with torch.no_grad():
-        layer.q_meta.ln.scale.add_(init.normal(gen, (d,), 0.1))
-        layer.q_meta.ln.bias.add_(init.normal(gen, (d,), 0.1))
-    table = init.normal(gen, (4, metanet.param_size(units)), 0.1)
-    x = init.normal(gen, (B, F, d), 1.0)
-    g = init.normal(gen, (B, F, d), 1.0)
+                                                      B, F, rate, bwd):
+    """K1-bwd-stash (with K1-stash) and K1-bwd (with K1-fwd), through the
+    autograd wrapper, against autograd of the plain layer with the same
+    masks, at a small ragged batch and at the full AliCCP sota shape.  The
+    plain layer runs in float64, and examples with a relu input at its
+    kink get no upstream gradient (:func:`_kink_free`), so that the
+    comparison holds the kernel's float32 sums alone.  Each gradient
+    within 1e-4 of the plain one relative to the largest entry of that
+    gradient (plus 1e-5): the parameter gradients are sums over up to
+    B * F = 155,648 rows taken in another order."""
+    gen, layer, table = _layer(card, 1)
+    x = init.normal(gen, (B, F, 32), 1.0)
+    g = init.normal(gen, (B, F, 32), 1.0)
     dom = torch.randint(0, 4, (B,), generator=gen, device=card)
-    kw = dict(meta_units=units, head_num=heads, mode=mode, relu_out=relu_out)
-    before = (meta_block.launches, meta_block.bwd_launches)
-    got = _grads(meta_block.fused_meta_layer, x, layer, table, dom, g, **kw)
+    kw = dict(meta_units=[32, 64, 32], head_num=4, mode=mode,
+              relu_out=relu_out)
+    drop = dict(train=True, drop_rate=rate, **DROP)
+    masks = meta_block.layer_masks(x, head_num=4, mode=mode, **drop)
+    masks64 = masks and tuple(None if m is None else m.double()
+                              for m in masks)
+    layer64 = copy.deepcopy(layer).double()
+    g = _kink_free(g.double(), x.double(), layer64, table.double(), dom,
+                   masks64, **kw)
+    counts = ("launches", "stash_launches", "bwd_launches",
+              "stash_bwd_launches")
+    before = [getattr(meta_block, c) for c in counts]
+    got = _grads(meta_block.fused_meta_layer, x, layer, table, dom,
+                 g.float(), **kw, **drop, bwd=bwd)
     torch.cuda.synchronize()
-    assert (meta_block.launches, meta_block.bwd_launches) == (
-        before[0] + 1, before[1] + 1)
-    want = _grads(meta_block.meta_layer_reference, x, layer, table, dom, g,
-                  **kw)
+    launched = [getattr(meta_block, c) - b for c, b in zip(counts, before)]
+    assert launched == ([0, 1, 0, 1] if bwd == "stash" else [1, 0, 1, 0])
+    want = _grads(meta_block.meta_layer_reference, x.double(), layer64,
+                  table.double(), dom, g, **kw, masks=masks64)
     assert set(got) == set(want)
     for name, w in want.items():
-        err = (got[name] - w).abs().max().item()
+        err = (got[name].double() - w).abs().max().item()
         assert err <= 1e-4 * w.abs().max().item() + 1e-5, (name, err)
 
 

@@ -82,7 +82,7 @@ def test_reference_matches_jax_pallas_interpret(mode, relu_out):
 
 
 def test_per_example_params_match_jax():
-    """meta params given per example ``[B, P]`` (MetaNet ``apply_flat``)."""
+    """meta params given per example ``[B, P]`` (MetaNet ``flat_sum``)."""
     x, lp, table, dom, units, layer = _setup()
     per_ex = table[dom]
     t = jnp.asarray(per_ex)
@@ -98,7 +98,7 @@ def test_per_example_params_match_jax():
 
 
 def test_dense_select_matches_gather():
-    """The two MetaNet branches of apply_domainwise agree."""
+    """The two MetaNet branches of domainwise_sum agree."""
     x, lp, table, dom, units, layer = _setup()
     t = torch.from_numpy(table)
     kw = dict(mode="QK", head_num=2, domain_ids=torch.from_numpy(dom))

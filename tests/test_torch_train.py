@@ -230,9 +230,9 @@ def test_unported_options_raise(what):
         if what == "optimizer":
             tr.compile(optimizer="sgd")
         tr.compile()
-        if what == "dropout":
+        if what == "dropout":  # at a batch that no dropout tile divides
             tm.dropout_rate = 0.1
-            tr.fit(x, y, batch_size=BATCH, verbose=0)
+            tr.fit(x, y, batch_size=12, verbose=0)
         if what == "checkpoint":
             tr.fit(x, y, batch_size=BATCH, verbose=0,
                    checkpoint_path="ckpt")

@@ -33,10 +33,13 @@ def columns_no_varlen(pkg, combiner="max"):
 
 
 def model_kwargs(mode="QK", relu_out=False, **extra):
-    return dict(domain_cols=["domain"], num_domains_list=[3],
-                domain_att_layer_num=LAYERS, att_head_num=HEADS,
-                meta_mode=mode, meta_dnn_hidden_units=META_UNITS[1:],
-                relu_out=relu_out, dropout_rate=0.0, **extra)
+    """SATrans keywords of both packages; ``extra`` adds or overrides."""
+    kw = dict(domain_cols=["domain"], num_domains_list=[3],
+              domain_att_layer_num=LAYERS, att_head_num=HEADS,
+              meta_mode=mode, meta_dnn_hidden_units=META_UNITS[1:],
+              relu_out=relu_out, dropout_rate=0.0)
+    kw.update(extra)
+    return kw
 
 
 def random_params(params, seed=0, scale=0.3):
