@@ -47,7 +47,22 @@ Phases, each of which exits non-zero on failure:
    steps and a tail each, after fused against dense from one start after
    3 steps): the exact launches of every kernel per step, a finite and
    falling loss, trained examples/s, the staged step and a torch.profiler
-   breakdown of one step.
+   breakdown of one step;
+8. hold the gate and bilinear layer kernels (K6-fwd, and K6-bwd against
+   autograd of the plain layer, every gradient) against their plain
+   version at the same widths (B=8192 at dropout 0 and 0.1, the ragged
+   8190 at 0; gate in QK and Query modes and bilinear, relu_out off and
+   on) and time them;
+9. serve one request of 20,000 examples through Predictor with the
+   AliCCP sota model of the gate and of the bilinear variant (exactly 3
+   K6-fwd launches a batch, no K1), and train each in ``lazy`` at
+   dropout 0.1 for 12 steps and a tail (exactly 3 K6-fwd and 3 K6-bwd
+   launches a step, no K1): one step's gradients kernel vs plain path, a
+   finite and falling loss, trained examples/s, the staged step and a
+   torch.profiler breakdown of one step.
+
+Phases 2 and 4 also hold K1 where a share of the attention logits passes
+the kernels' clamp at 60 against the clamped plain layer.
 
 It prints the card's name and power limit, one JSON line naming each
 kernel with its launches, error and times, and as its last line
@@ -89,6 +104,9 @@ GRAD_RTOL, GRAD_ATOL = 1e-4, 1e-5
 TRAIN_STEPS, TRAIN_LR = 24, 0.005
 TRAIN_ROWS = (TRAIN_STEPS - 1) * BATCH + 5000  # the last batch is a tail
 TAIL = TRAIN_ROWS - (TRAIN_STEPS - 1) * BATCH
+# the gate and bilinear arms: 12 full steps and the tail
+GATE_STEPS = 13
+GATE_ROWS = (GATE_STEPS - 1) * BATCH + TAIL
 # one instruction per lane and cycle over the card: half the float32 FLOP
 # rate, which counts a multiply-add as two operations
 PEAK_INSTRUCTIONS = PEAK_F32_FLOPS / 2
@@ -231,6 +249,72 @@ def test_layer(dev, seed):
     return gen, layer, table
 
 
+def hot_layer(dev, seed):
+    """The layer of :func:`test_layer` with its meta LayerNorm scaled 6
+    times, so that a share of the attention logits passes the kernels'
+    clamp at 60; returns (gen, layer, table)."""
+    gen, layer, table = test_layer(dev, seed)
+    with torch.no_grad():
+        layer.q_meta.ln.scale.mul_(6.0)
+    return gen, layer, table
+
+
+def logit_share_past_clamp(x, layer, table, dom, **kw):
+    """The share of the plain layer's attention logits beyond +-60."""
+    from satrans_torch.nn import attention
+    from satrans_torch.ops import meta_block
+    res = {}
+    with torch.no_grad():
+        meta_block.meta_layer_reference(x, layer, {"Q": table, "K": table},
+                                        dom, **kw, residuals=res)
+        heads = kw["head_num"]
+        q, k = (attention._split_heads(layer.q_meta.ln(res[u]), heads)
+                for u in ("uq", "uk"))
+        logits = q @ k.transpose(-1, -2) / (q.shape[-1] ** 0.5)
+        return (logits.abs() > attention.LOGIT_CLAMP).double().mean().item()
+
+
+def clamp_forward_case(dev):
+    """K1-fwd and K1-stash against the clamped plain layer where a share
+    of the logits passes 60 (B=8192, QK, dropout 0.1); the unclamped plain
+    layer must differ.  Returns the worst error."""
+    from satrans_torch.nn import initializers as init
+    from satrans_torch.ops import meta_block, prng
+    F, d, heads, rows = 19, 32, 4, 4
+    gen, layer, table = hot_layer(dev, SEED + 4)
+    tables = {"Q": table, "K": table}
+    x = init.normal(gen, (BATCH, F, d), 1.0)
+    dom = torch.randint(0, rows, (BATCH,), generator=gen, device=dev)
+    kw = dict(meta_units=[d, 64, d], head_num=heads, mode="QK",
+              relu_out=False)
+    drop = drop_kw(DROP_RATE)
+    masks = meta_block.layer_masks(x, head_num=heads, mode="QK", **drop)
+    ops, cfg = meta_block.pack_operands(x, layer, tables, dom, **kw)
+    kargs = prng.kernel_args(True, DROP_RATE, DROP_SEED, DROP_TILE, F)
+    with torch.no_grad():
+        y = meta_block.fused_meta_layer(x, layer, tables, dom, **kw, **drop)
+        st = meta_block.launch_fwd(*ops, cfg, kargs, stash=True)[0]
+        ref = meta_block.meta_layer_reference(x, layer, tables, dom, **kw,
+                                              masks=masks)
+        free = meta_block.meta_layer_reference(x, layer, tables, dom, **kw,
+                                               masks=masks, clamp=False)
+    torch.cuda.synchronize()
+    share = logit_share_past_clamp(x, layer, table, dom, **kw)
+    err = max((y - ref).abs().max().item(), (st - ref).abs().max().item())
+    gap = (ref - free).abs().max().item()
+    print(f"kernel meta_block_fwd, logits past the clamp (share "
+          f"{share:.4f}), B={BATCH} QK dropout={DROP_RATE}: K1-fwd and "
+          f"K1-stash max_abs_err={err:.3e} against the clamped plain "
+          f"layer; clamped - unclamped plain {gap:.3e}", flush=True)
+    check(share > 0.01 and gap > 1e-2, f"the clamp case does not pass 60 "
+          f"(share {share}, clamped - unclamped {gap})")
+    check(bool(torch.isfinite(y).all()) and torch.allclose(
+        y, ref, **KERNEL_TOL) and torch.allclose(st, ref, **KERNEL_TOL),
+          f"K1 forwards disagree with the clamped plain layer past 60 "
+          f"(max_abs_err {err}, tolerance {KERNEL_TOL})")
+    return err
+
+
 def drop_kw(rate):
     return dict(train=True, drop_rate=rate, seed=DROP_SEED,
                 block_b=DROP_TILE)
@@ -324,6 +408,9 @@ def kernel_phase(dev):
                               f"version's (B={B} mode={mode} relu_out="
                               f"{relu_out} dropout={rate}, max_abs_err "
                               f"{errs[n]}, tolerance {tol})")
+    clamp_err = clamp_forward_case(dev)
+    worst["fwd"] = max(worst["fwd"], clamp_err)
+    worst["stash"] = max(worst["stash"], clamp_err)
     # the keep share of every site at the AliCCP shape, on the card
     masks = prng.dropout_masks(DROP_SEED, BATCH, F, d, heads, DROP_TILE,
                                DROP_RATE, True, True, dev)
@@ -380,6 +467,41 @@ def layer_grads(fn, x, layer, table, dom, g, **kw):
                               allow_unused=True)
     return {n: gr for n, gr in zip(["x", "table", *params], got)
             if gr is not None}
+
+
+def clamp_backward_case(dev):
+    """Both K1 backwards against autograd of the clamped plain layer where
+    a share of the logits passes 60 (B=8192, QK, dropout 0.1; the clamp
+    passes the gradient straight through).  Returns the worst error by
+    backward."""
+    from satrans_torch.nn import initializers as init
+    from satrans_torch.ops import meta_block
+    F, d, heads, rows = 19, 32, 4, 4
+    gen, layer, table = hot_layer(dev, SEED + 5)
+    x = init.normal(gen, (BATCH, F, d), 1.0)
+    g = init.normal(gen, (BATCH, F, d), 1.0)
+    dom = torch.randint(0, rows, (BATCH,), generator=gen, device=dev)
+    kw = dict(meta_units=[d, 64, d], head_num=heads, mode="QK",
+              relu_out=False)
+    drop = drop_kw(DROP_RATE)
+    masks = meta_block.layer_masks(x, head_num=heads, mode="QK", **drop)
+    g, kinks = kink_free(g, x, layer, table, dom, masks, **kw)
+    want = layer_grads(meta_block.meta_layer_reference, x, layer, table, dom,
+                       g, **kw, masks=masks)
+    share = logit_share_past_clamp(x, layer, table, dom, **kw)
+    out = {}
+    for bwd in ("recompute", "stash"):
+        got = layer_grads(meta_block.fused_meta_layer, x, layer, table, dom,
+                          g, **kw, **drop, bwd=bwd)
+        torch.cuda.synchronize()
+        errs = grad_errors(got, want)
+        out[bwd] = max(errs.values())
+        print(f"kernel meta_block_bwd ({bwd}), logits past the clamp "
+              f"(share {share:.4f}), B={BATCH} QK dropout={DROP_RATE}: "
+              f"max_abs_err={out[bwd]:.3e} (worst {max(errs, key=errs.get)}"
+              f"; {kinks} examples at a kink left out)", flush=True)
+    check(share > 0.01, f"the clamp case does not pass 60 (share {share})")
+    return out
 
 
 def backward_phase(dev):
@@ -459,6 +581,8 @@ def backward_phase(dev):
                         print(line, flush=True)
                     if main:
                         del res
+    for bwd, err in clamp_backward_case(dev).items():
+        worst[bwd] = max(worst[bwd], err)
     return {bwd: dict(max_abs_err=worst[bwd], **out[(bwd, DROP_RATE)],
                       no_dropout_ms=out[(bwd, 0.0)]["ms"])
             for bwd in ("recompute", "stash")}
@@ -581,9 +705,10 @@ def serving_phase(dev, card):
     return launches
 
 
-def training_model(dev, bank_update):
-    """The AliCCP sota SATrans of phases 5 and 7 (dropout 0.1, the default
-    N(0, 1e-4) embeddings) and its compiled Trainer (Adam, lr 0.005)."""
+def training_model(dev, bank_update, variant="metanet"):
+    """The AliCCP sota SATrans of phases 5, 7 and 9 (dropout 0.1, the
+    default N(0, 1e-4) embeddings; the layers of ``variant``) and its
+    compiled Trainer (Adam, lr 0.005)."""
     from satrans_torch.data import aliccp
     from satrans_torch.features import FeatureLayout
     from satrans_torch.models import SATrans
@@ -591,7 +716,8 @@ def training_model(dev, bank_update):
     model = SATrans(FeatureLayout(aliccp.sota_columns(32)), ["301"], [3],
                     domain_att_layer_num=LAYERS, att_head_num=4,
                     meta_mode="QK", meta_dnn_hidden_units=(64, 32),
-                    dropout_rate=DROP_RATE, seed=SEED, device=dev)
+                    dropout_rate=DROP_RATE, seed=SEED, variant=variant,
+                    device=dev)
     trainer = Trainer(model, seed=SEED, device=dev)
     trainer.compile(learning_rate=TRAIN_LR, bank_update=bank_update)
     return model, trainer
@@ -610,12 +736,18 @@ def training_data():
 
 def zero_counts():
     """Every kernel's launch count to 0."""
-    from satrans_torch.ops import eqgemm, gather, lazy_tail, meta_block, \
-        scatter
+    from satrans_torch.ops import eqgemm, gate_block, gather, lazy_tail, \
+        meta_block, scatter
     for name in K1_COUNTS:
         setattr(meta_block, name, 0)
     for mod in (gather, scatter, eqgemm, lazy_tail):
         mod.launches = 0
+    gate_block.launches = gate_block.bwd_launches = 0
+
+
+def k6_counts():
+    from satrans_torch.ops import gate_block
+    return gate_block.launches, gate_block.bwd_launches
 
 
 def k1_counts():
@@ -623,11 +755,12 @@ def k1_counts():
     return tuple(getattr(meta_block, name) for name in K1_COUNTS)
 
 
-def timed_fit(trainer, x, y):
-    """One epoch of ``fit`` after the launch counts are set to 0: returns
-    (seconds, per-step data losses, the epoch loss).  Fails unless the
-    loss is finite at every step and falls (the mean per-example loss of
-    the last 4 full steps below that of the first 4)."""
+def timed_fit(trainer, x, y, steps=TRAIN_STEPS):
+    """One epoch of ``fit`` (``steps`` steps) after the launch counts are
+    set to 0: returns (seconds, per-step data losses, the epoch loss).
+    Fails unless the loss is finite at every step and falls (the mean
+    per-example loss of the last 4 full steps below that of the first
+    4)."""
     from satrans_torch.train import callbacks
     losses = []
 
@@ -643,7 +776,7 @@ def timed_fit(trainer, x, y):
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     step_loss = torch.stack(losses).cpu().numpy()
-    check(len(step_loss) == TRAIN_STEPS and bool(np.isfinite(
+    check(len(step_loss) == steps and bool(np.isfinite(
         step_loss).all()) and np.isfinite(hist.history["loss"][0]),
           "training loss not finite at every step")
     per_ex = step_loss[:-1] / BATCH
@@ -1051,6 +1184,313 @@ def sparse_training_phase(dev, card):
     return launched
 
 
+def gate_layer_bound_ms(B, F, d, heads, meta_rows, variant, apply_q,
+                        apply_k, bwd=False):
+    """Least time for K6-fwd, or with ``bwd`` K6-bwd: the float32 work
+    over the card's float32 peak against the bytes over the HBM rate.
+    The forward is x @ Wqkv (2F d 3d), the transform (the gate F d a
+    projection, the bilinear map 2F d dh), q k^T and p v (2 x 2F^2 d) and
+    o @ Wout (2F d^2); the backward recomputes it and adds dWout and do
+    (2 x 2F d^2), the attention backward (4 x 2F^2 d), the transform's
+    (the gate 3F d a projection, the bilinear map 2 x 2F d dh) and dWqkv
+    and dx (2 x 6F d^2).  Bytes are x (and g) and dom in, y (dx) out, the
+    weights and tables in (and their gradients out)."""
+    dh = d // heads
+    width = d if variant == "gate" else d * dh
+    if variant == "gate":
+        n = apply_q + apply_k
+        fwd_t, bwd_t = n * F * d, n * 3 * F * d
+    else:
+        fwd_t, bwd_t = 2 * F * d * dh, 4 * F * d * dh
+    fwd = 6 * F * d * d + fwd_t + 4 * F * F * d + 2 * F * d * d
+    weights = 4 * d * d + 2 * d + 2 * meta_rows * width
+    if not bwd:
+        return _bound(B * fwd, 4 * (2 * B * F * d + B + weights))
+    back = 4 * F * d * d + 8 * F * F * d + bwd_t + 12 * F * d * d
+    return _bound(B * (fwd + back), 4 * (3 * B * F * d + B + 2 * weights))
+
+
+def gate_test_layer(dev, seed, variant):
+    """A gate or bilinear layer and its 4-row tables (distinct Q and K
+    gates), and the generator after them."""
+    from satrans_torch.nn import attention, initializers as init
+    from satrans_torch.utils import make_generator
+    gen = make_generator(seed, dev)
+    layer = attention.MetaTransformerLayer(gen, 32, variant=variant)
+    names = ("Q", "K") if variant == "gate" else ("bilinear",)
+    width = 32 if variant == "gate" else 32 * 8
+    return gen, layer, {n: init.normal(gen, (4, width), 0.5)
+                        for n in names}
+
+
+def gate_grads(fn, x, layer, tables, dom, g, **kw):
+    """Gradients of sum(fn(...) * g) by name: x, the tables, the layer's
+    parameters (an unread table has none)."""
+    x = x.detach().requires_grad_(True)
+    tables = {k: t.detach().requires_grad_(True) for k, t in tables.items()}
+    params = dict(layer.named_parameters())
+    y = fn(x, layer, tables, dom, **kw)
+    names = ["x", *(f"table.{k}" for k in tables), *params]
+    got = torch.autograd.grad((y * g).sum(),
+                              [x, *tables.values(), *params.values()],
+                              allow_unused=True)
+    return {n: gr for n, gr in zip(names, got) if gr is not None}
+
+
+def gate_kernel_phase(dev):
+    """K6-fwd and K6-bwd against the plain version and its autograd at the
+    AliCCP sota widths (B=8192 at dropout 0 and 0.1, the ragged 8190 at
+    0): gate in QK and Query modes and bilinear, relu_out off and on,
+    every gradient (the examples whose output projection lies within 1e-6
+    of the relu kink get no upstream gradient), and timed.  Returns the
+    JSON fields measured, by kernel."""
+    from satrans_torch.nn import attention, initializers as init
+    from satrans_torch.ops import gate_block, prng
+
+    F, d, heads, rows = 19, 32, 4, 4
+    worst = {"fwd": 0.0, "bwd": 0.0}
+    out = {}
+    for n, (variant, mode) in enumerate((("gate", "QK"), ("gate", "Query"),
+                                         ("bilinear", "QK"))):
+        gen, layer, tables = gate_test_layer(dev, SEED + 10 + n, variant)
+        for B in (BATCH, BATCH - 2):
+            x = init.normal(gen, (B, F, d), 1.0)
+            g_all = init.normal(gen, (B, F, d), 1.0)
+            dom = torch.randint(0, rows, (B,), generator=gen, device=dev)
+            for relu_out in (False, True):
+                kw = dict(head_num=heads, mode=mode, relu_out=relu_out)
+                for rate in (0.0, DROP_RATE) if B == BATCH else (0.0,):
+                    drop = drop_kw(rate)
+                    masks = gate_block.layer_masks(x, head_num=heads, **drop)
+                    g, kinks = g_all, 0
+                    if relu_out:
+                        res = {}
+                        with torch.no_grad():
+                            attention.meta_transformer_apply(
+                                layer, x, tables, (), **kw, domain_ids=dom,
+                                masks=masks, clamp=True, residuals=res)
+                            near = ((res["o"] @ layer.wout).abs() < 1e-6
+                                    ).flatten(1).any(1)
+                        g = g_all.masked_fill(near[:, None, None], 0.0)
+                        kinks = int(near.sum())
+                    with torch.no_grad():
+                        y = gate_block.fused_simple_layer(
+                            x, layer, tables, dom, **kw, **drop)
+                        ref = gate_block.simple_layer_reference(
+                            x, layer, tables, dom, **kw, masks=masks)
+                    torch.cuda.synchronize()
+                    err = (y - ref).abs().max().item()
+                    worst["fwd"] = max(worst["fwd"], err)
+                    check(bool(torch.isfinite(y).all()) and torch.allclose(
+                        y, ref, **KERNEL_TOL), f"K6-fwd disagrees with its "
+                        f"plain version ({variant} {mode} B={B} relu_out="
+                        f"{relu_out} dropout={rate}, max_abs_err={err})")
+                    got = gate_grads(gate_block.fused_simple_layer, x,
+                                     layer, tables, dom, g, **kw, **drop)
+                    want = gate_grads(gate_block.simple_layer_reference, x,
+                                      layer, tables, dom, g, **kw,
+                                      masks=masks)
+                    torch.cuda.synchronize()
+                    errs = grad_errors(got, want)
+                    berr = max(errs.values())
+                    worst["bwd"] = max(worst["bwd"], berr)
+                    line = (f"kernel gate_block {variant} mode={mode} B={B} "
+                            f"relu_out={relu_out} dropout={rate}: forward "
+                            f"max_abs_err={err:.3e}; backward max_abs_err="
+                            f"{berr:.3e} (worst {max(errs, key=errs.get)}; "
+                            f"{kinks} examples at a kink left out)")
+                    if B == BATCH and mode == "QK" and not relu_out:
+                        # the serving (0) and training (0.1) configurations
+                        ops, cfg = gate_block.pack_operands(
+                            x, layer, tables, dom, **kw)
+                        ops = [t.detach() for t in ops]
+                        kargs = prng.kernel_args(
+                            True, rate, DROP_SEED, DROP_TILE, F,
+                            pad_mult=gate_block.PAD_FIELDS)
+                        with torch.no_grad():
+                            f_ms = time_ms(lambda: gate_block.launch_fwd(
+                                *ops, cfg, kargs), iters=50)
+                            pf_ms = time_ms(
+                                lambda: gate_block.simple_layer_reference(
+                                    x, layer, tables, dom, **kw,
+                                    masks=masks), iters=10)
+                        b_ms = time_ms(lambda: gate_block.launch_bwd(
+                            g, *ops, cfg, kargs), iters=20)
+                        xr = x.detach().requires_grad_(True)
+                        tr = {k: t.detach().requires_grad_(True)
+                              for k, t in tables.items()}
+                        inputs = [xr, *tr.values(), *layer.parameters()]
+                        yr = gate_block.simple_layer_reference(
+                            xr, layer, tr, dom, **kw, masks=masks)
+                        pb_ms = time_ms(lambda: torch.autograd.grad(
+                            yr, inputs, g, retain_graph=True), iters=5)
+                        del yr
+                        a = gate_block.applied(variant, mode)
+                        fb = gate_layer_bound_ms(B, F, d, heads, rows,
+                                                 variant, *a)
+                        bb = gate_layer_bound_ms(B, F, d, heads, rows,
+                                                 variant, *a, bwd=True)
+                        line += (f"; K6-fwd kernel_ms={f_ms:.4f} plain_ms="
+                                 f"{pf_ms:.4f} bound_ms={fb[0]:.4f} ({fb[1]})"
+                                 f"; K6-bwd kernel_ms={b_ms:.4f} plain_ms="
+                                 f"{pb_ms:.4f} bound_ms={bb[0]:.4f} "
+                                 f"({bb[1]})")
+                        out[(variant, "fwd", rate)] = dict(
+                            ms=f_ms, plain_ms=pf_ms, bound_ms=fb[0],
+                            bound_by=fb[1])
+                        out[(variant, "bwd", rate)] = dict(
+                            ms=b_ms, plain_ms=pb_ms, bound_ms=bb[0],
+                            bound_by=bb[1])
+                    print(line, flush=True)
+    # the JSON holds gate QK (serving at 0, training at 0.1), with the
+    # other rate's and bilinear's kernel times beside it
+    return dict(
+        fwd=dict(max_abs_err=worst["fwd"], **out[("gate", "fwd", 0.0)],
+                 dropout_ms=out[("gate", "fwd", DROP_RATE)]["ms"],
+                 bilinear_ms=out[("bilinear", "fwd", 0.0)]["ms"]),
+        bwd=dict(max_abs_err=worst["bwd"], **out[("gate", "bwd", DROP_RATE)],
+                 no_dropout_ms=out[("gate", "bwd", 0.0)]["ms"],
+                 bilinear_ms=out[("bilinear", "bwd", DROP_RATE)]["ms"]))
+
+
+def gate_serving(dev, card, variant):
+    """Serve one request of 20,000 examples through Predictor with the
+    AliCCP sota model of ``variant``: exactly 3 K6-fwd launches a batch
+    and no other layer kernel, scores against the plain path.  Returns the
+    K6-fwd launches."""
+    from satrans_torch.data import aliccp
+    from satrans_torch.features import FeatureLayout
+    from satrans_torch.models import SATrans
+    from satrans_torch.serving import Predictor
+
+    layout = FeatureLayout(aliccp.sota_columns(32))
+    kw = dict(domain_att_layer_num=LAYERS, att_head_num=4, meta_mode="QK",
+              no_emb_init=True, seed=SEED, variant=variant, device=dev)
+    model = SATrans(layout, ["301"], [3], **kw)
+    pred = Predictor(model, batch_size=BATCH, device=dev).warmup()
+    rng = np.random.default_rng(SEED + 3)
+    req = {name: rng.integers(1, aliccp.DATA_MAX[name] + 1, REQUEST_ROWS)
+           for name in aliccp.SPARSE_FEATURES}
+    batches = -(-REQUEST_ROWS // BATCH)
+    torch.cuda.synchronize()
+    zero_counts()
+    t0 = time.perf_counter()
+    scores = pred(req)
+    wall = time.perf_counter() - t0
+    launched = k6_counts()
+    check(launched == (LAYERS * batches, 0) and k1_counts() == (0, 0, 0, 0),
+          f"serving {variant} launched K6 {launched} and K1 {k1_counts()}, "
+          f"want K6-fwd only, {LAYERS} layers x {batches} batches")
+    check(scores.shape == (REQUEST_ROWS,) and bool(
+        np.all(np.isfinite(scores)) and np.all((scores > 0) & (scores < 1))),
+          f"serving {variant}: scores not finite in (0, 1)")
+    t0 = time.perf_counter()
+    for _ in range(5):
+        pred(req)
+    wall2 = (time.perf_counter() - t0) / 5
+    device_profile(f"serve {variant}: one request of {REQUEST_ROWS} "
+                   "examples", lambda: pred(req), 1e3 * wall2, card)
+    plain_model = SATrans(layout, ["301"], [3], use_kernel=False, **kw)
+    plain_model.load_state_dict(model.state_dict())
+    want = Predictor(plain_model, batch_size=BATCH, device=dev)(req)
+    diff = float(np.abs(scores - want).max())
+    print(f"serve {variant} [{card}]: {REQUEST_ROWS} examples in {batches} "
+          f"batches of {BATCH}: first {wall:.4f}s, then {wall2:.4f}s a "
+          f"request, {REQUEST_ROWS / wall2:.1f} examples/s, "
+          f"{1e3 * wall2 / batches:.3f} ms/batch; launches K6 {launched}; "
+          f"score mean {scores.mean():.4f} std {scores.std():.4f}; max "
+          f"|kernel - plain| = {diff:.3e}", flush=True)
+    check(diff <= SERVING_TOL, f"serving {variant}: scores differ from the "
+                               f"plain path by {diff} > {SERVING_TOL}")
+    return launched[0]
+
+
+def gate_training(dev, card, variant):
+    """Train the AliCCP sota model of ``variant`` in ``lazy`` (dropout 0.1)
+    for GATE_STEPS steps and a tail: one step's gradients kernel vs plain
+    path, exactly 3 K6-fwd and 3 K6-bwd launches a step (and the lazy row
+    kernels, no K1), a finite falling loss, trained examples/s, the staged
+    step and a profile of one step.  Returns the launches by kernel."""
+    from satrans_torch.ops import eqgemm, gather, lazy_tail, scatter
+    model, trainer = training_model(dev, "lazy", variant)
+    x, y = training_data()
+    x = {k: v[:GATE_ROWS] for k, v in x.items()}
+    y = y[:GATE_ROWS]
+    batch, yb, wb = staged_batch(trainer, x, y)
+    model.train()
+    grads = {}
+    for use_kernel in (True, False):
+        model.use_kernel = use_kernel
+        zero_counts()
+        model.zero_grad(set_to_none=True)
+        total = trainer.loss_terms(batch, yb, wb)[0]
+        total.backward()
+        torch.cuda.synchronize()
+        check(bool(torch.isfinite(total)), "training loss not finite")
+        grads[use_kernel] = {n: p.grad.clone()
+                             for n, p in model.named_parameters()}
+        want = (LAYERS, LAYERS) if use_kernel else (0, 0)
+        check(k6_counts() == want and k1_counts() == (0, 0, 0, 0),
+              f"one {variant} step launched K6 {k6_counts()} and K1 "
+              f"{k1_counts()}, want K6 {want}")
+    model.use_kernel = True
+    errs = grad_errors(grads[True], grads[False])
+    worst = max(errs, key=errs.get)
+    print(f"train {variant} [{card}]: one step's gradients at dropout "
+          f"{DROP_RATE}, kernel path vs plain path: max_abs_err "
+          f"{errs[worst]:.3e} ({worst})", flush=True)
+    del grads
+    model.zero_grad(set_to_none=True)
+
+    trainer.fit({k: v[:2 * BATCH] for k, v in x.items()}, y[:2 * BATCH],
+                batch_size=BATCH, verbose=0)  # warmup: two steps
+    wall, step_loss, epoch_loss = timed_fit(trainer, x, y, GATE_STEPS)
+    mods = (gather, scatter, eqgemm, lazy_tail)
+    got = (*k6_counts(), *k1_counts(), *(m.launches for m in mods))
+    want = (LAYERS * GATE_STEPS, LAYERS * GATE_STEPS, 0, 0, 0, 0,
+            2 * GATE_STEPS, GATE_STEPS, GATE_STEPS, 0)
+    check(got == want, f"{variant}: {GATE_STEPS} lazy steps launched {got} "
+                       f"(K6-fwd, K6-bwd, {', '.join(K1_COUNTS)}, "
+                       f"{', '.join(ROW_KERNELS)}), want {want}")
+    per_ex = step_loss[:-1] / BATCH
+    print(f"train {variant} lazy [{card}]: {GATE_ROWS} examples in "
+          f"{GATE_STEPS} steps of {BATCH} (last a tail of {TAIL}) at dropout "
+          f"{DROP_RATE}: {wall:.4f}s, {GATE_ROWS / wall:.1f} trained "
+          f"examples/s, {1e3 * wall / GATE_STEPS:.3f} ms/step; launches "
+          f"{got}; loss per example step 1 {per_ex[0]:.6f} step "
+          f"{GATE_STEPS - 1} {per_ex[-1]:.6f}; epoch loss {epoch_loss:.6f}",
+          flush=True)
+    step_ms = time_ms(lambda: trainer.train_step(batch, yb, wb), iters=10)
+    queue_ms = host_ms(lambda: trainer.train_step(batch, yb, wb))
+    print(f"train {variant} lazy [{card}]: train_step on a staged batch "
+          f"{step_ms:.3f} ms/step, {1e3 * BATCH / step_ms:.1f} examples/s; "
+          f"the host queues a step in {queue_ms:.3f} ms", flush=True)
+    device_profile(f"{variant} lazy: one training step of {BATCH} examples",
+                   lambda: trainer.train_step(batch, yb, wb), step_ms, card,
+                   top=16)
+    del model, trainer, batch
+    gc.collect()
+    torch.cuda.empty_cache()
+    return dict(zip(("gate_block_fwd", "gate_block_bwd", "meta_block_fwd",
+                     "meta_block_fwd_stash", "meta_block_bwd",
+                     "meta_block_bwd_stash", "gather_rows",
+                     "scatter_rows_set", "eqgemm_positions",
+                     "lazy_adam_rows"), got))
+
+
+def gate_paths_phase(dev, card):
+    """Serve and train the gate and bilinear variants.  Returns the
+    launches by path and kernel."""
+    paths = {}
+    for variant in ("gate", "bilinear"):
+        paths[f"serve_{variant}"] = {"gate_block_fwd": gate_serving(
+            dev, card, variant)}
+        gc.collect()
+        torch.cuda.empty_cache()
+        paths[f"train_{variant}_lazy"] = gate_training(dev, card, variant)
+    return paths
+
+
 def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -1080,6 +1520,8 @@ def main() -> int:
     trained = training_phase(dev, card)
     rows = bank_kernel_phase(dev, card)
     sparse = sparse_training_phase(dev, card)
+    kg = gate_kernel_phase(dev)
+    gpaths = gate_paths_phase(dev, card)
 
     # launches, each path counted from 0 just before it: serving and the
     # evaluation run K1-fwd only; the dense recompute arm K1-fwd and
@@ -1104,18 +1546,34 @@ def main() -> int:
             replaces=f"satrans_tpu/ops/pallas/meta_block.py:{replaces}",
             launches=sum(by_path.values()), launches_by_path=by_path,
             library_ms=None, **fields))
-    # the row kernels run on the sparse training paths (phase 7 arms)
+    # the row kernels run on the sparse training paths (phase 7 arms and
+    # the phase 9 lazy arms)
     for name, source, replaces in (
             ("gather_rows", "bank_rows.cu", "gather.py:86"),
             ("scatter_rows_set", "bank_rows.cu", "scatter.py:139"),
             ("eqgemm_positions", "eqgemm.cu", "eqgemm.py:90"),
             ("lazy_adam_rows", "bank_rows.cu", "lazy_tail.py:174")):
-        by_path = {arm: n[name] for arm, n in sparse.items()}
+        by_path = {arm: n[name] for arm, n in (*sparse.items(),
+                                                *gpaths.items())
+                   if n.get(name)}
         kernels.append(dict(name=name, route="cuda",
                             source=f"satrans_torch/csrc/{source}",
                             replaces=f"satrans_tpu/ops/pallas/{replaces}",
                             launches=sum(by_path.values()),
                             launches_by_path=by_path, **rows[name]))
+    # K6 runs on the gate and bilinear paths of phase 9
+    for name, replaces, fields in (
+            ("gate_block_fwd", "gate_block.py:287 (_sfwd_kernel :96)",
+             kg["fwd"]),
+            ("gate_block_bwd", "gate_block.py:318 (_sbwd_kernel :131)",
+             kg["bwd"])):
+        by_path = {p: n[name] for p, n in gpaths.items() if n.get(name)}
+        kernels.append(dict(
+            name=name, route="cuda",
+            source=f"satrans_torch/csrc/{name}.cu",
+            replaces=f"satrans_tpu/ops/pallas/{replaces}",
+            launches=sum(by_path.values()), launches_by_path=by_path,
+            library_ms=None, **fields))
     check(all(k["launches"] > 0 for k in kernels),
           "a kernel was launched on no path")
     print(json.dumps({"kernels": kernels}))

@@ -4,7 +4,10 @@
 ``satrans_tpu.models.SATrans.init`` returns, with its leaves converted to
 numpy arrays, and gives a ``state_dict`` for the port's model.  The port's
 modules carry the pytree's own names, so a key is the pytree path joined
-with dots (``layers.0.q_meta.ln.scale``).  The one change of layout is the
+with dots (``layers.0.q_meta.ln.scale``); the gate and bilinear layers
+have no ``q_meta`` and an ``only_emb`` model no ``encoder``, in both
+packages.  The 'pos' trees (``k_meta``, ``v_meta``, the position tables)
+have no place in the port and raise.  The one change of layout is the
 embedding bank: the JAX package packs ``128 // d`` logical rows into one
 128-lane row; the port keeps the same rows, pad rows included, as logical
 ``[R, d]`` rows, so the bank is reshaped.

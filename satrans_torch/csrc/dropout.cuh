@@ -7,9 +7,10 @@
 // stateless counter hash, so the forward and the backward regenerate the
 // same mask from (seed, draw, element) and no mask is kept in device
 // memory.  The JAX kernel's tile is block_b examples of fpad fields (F
-// rounded up to 8); tile t is seeded with seed + t (uint32), and its draws
-// in order are the Q MetaNet output and the K MetaNet output (each only if
-// transformed), the attention probabilities once per head, and the output
+// rounded up to the kernel's field multiple, ops/prng.py:pad_fields); tile
+// t is seeded with seed + t (uint32), and its draws in order are the Q
+// MetaNet output and the K MetaNet output (each only if transformed), the
+// attention probabilities once per head, and the output
 // projection; draw k mixes in salt k.  An element's index is its row-major
 // place in the draw's shape on that tile: [block_b * fpad, d] for the
 // MetaNet outputs and the output projection, [block_b / g, g fpad, g fpad]

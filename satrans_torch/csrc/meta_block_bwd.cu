@@ -27,9 +27,10 @@
 // its MetaNet gradients are zero.  The masks are regenerated in the
 // forward's draw order at the mirror sites: the MetaNet output's gradient
 // is du m (its residual keeps du), the probabilities' gradient dP m, dv
-// takes P m, and dz = du m_z relu'.  The softmax subtracts the row
-// maximum (the Pallas kernel's [-60, 60] logit clamp differs only beyond
-// 60).
+// takes P m, and dz = du m_z relu'.  K1-bwd's recomputed logits are
+// clamped to [-60, 60] before the max-subtracted softmax, as the forward's
+// (K1-bwd-stash reads the clamped forward's P); the gradient passes the
+// clamp as if it were not there, as the Pallas custom VJP's does.
 //
 // What bounds it.  Per example at the AliCCP sota shapes (F=19, d=32,
 // h=64, 4 heads, both MetaNets on) the recomputed forward is 0.51 MFLOP and
@@ -71,169 +72,16 @@
 
 #include <cmath>
 
-#include "dropout.cuh"
+#include "layer_common.cuh"
 
 namespace {
 
 constexpr int kThreads = 256;                // two blocks per SM
 constexpr int kTile = 2;                     // examples per block iteration
 constexpr int kGroup = kThreads / kTile;     // threads per example
-constexpr int kMaxFields = 20;               // most fields an example may have
 constexpr int kLnRows = 6;                   // LN_q, LN_k, LN_o x (scale, bias)
 constexpr int kMaxSmem = 232448;             // bytes a block may use on sm_90
 constexpr int kMaxDomains = 16;              // bounds the scratch buffer
-
-__device__ __forceinline__ float4 ld4(const float* p) {
-  return *reinterpret_cast<const float4*>(p);
-}
-__device__ __forceinline__ float4 ldg4(const float* p) {
-  return __ldg(reinterpret_cast<const float4*>(p));
-}
-__device__ __forceinline__ void st4(float* p, const float (&v)[4]) {
-  *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);
-}
-__device__ __forceinline__ void to4(float4 a, float (&v)[4]) {
-  v[0] = a.x;
-  v[1] = a.y;
-  v[2] = a.z;
-  v[3] = a.w;
-}
-
-// Register tile of a group GEMM with N output columns: a thread of the
-// example's 128 owns 4 adjacent columns of rows rs, rs + RS, ...
-template <int N>
-struct Tile {
-  static_assert(N % 4 == 0 && kGroup % (N / 4) == 0, "unsupported width");
-  static constexpr int LPR = N / 4;                       // threads per row
-  static constexpr int RS = kGroup / LPR;                 // row sets
-  static constexpr int RPL = (kMaxFields + RS - 1) / RS;  // rows per thread
-};
-
-// acc[i][c] = sum_k a(act[f][k]) * w[k][4 cg + c] for f = rs + RS i < F,
-// a = relu if RELU else identity.  act lies in shared memory (row stride
-// as), w in global memory (row stride ws).  The sum runs over k in order.
-template <int K, int N, bool RELU = false>
-__device__ __forceinline__ void group_gemm(const float* act, int as,
-                                           const float* __restrict__ w,
-                                           int ws, int F, int gt,
-                                           float (&acc)[Tile<N>::RPL][4]) {
-  using T = Tile<N>;
-  const int cg = gt % T::LPR, rs = gt / T::LPR;
-#pragma unroll
-  for (int i = 0; i < T::RPL; ++i) {
-#pragma unroll
-    for (int c = 0; c < 4; ++c) acc[i][c] = 0.f;
-  }
-  const float* wc = w + 4 * cg;
-#pragma unroll 2
-  for (int k = 0; k < K; k += 4) {
-    float4 wk[4];
-#pragma unroll
-    for (int u = 0; u < 4; ++u) wk[u] = ldg4(wc + (k + u) * ws);
-#pragma unroll
-    for (int i = 0; i < T::RPL; ++i) {
-      const int f = rs + T::RS * i;
-      if (f < F) {
-        float a[4];
-        to4(ld4(act + f * as + k), a);
-#pragma unroll
-        for (int u = 0; u < 4; ++u) {
-          const float av = RELU ? fmaxf(a[u], 0.f) : a[u];
-          acc[i][0] = fmaf(av, wk[u].x, acc[i][0]);
-          acc[i][1] = fmaf(av, wk[u].y, acc[i][1]);
-          acc[i][2] = fmaf(av, wk[u].z, acc[i][2]);
-          acc[i][3] = fmaf(av, wk[u].w, acc[i][3]);
-        }
-      }
-    }
-  }
-}
-
-// Sum over the LPR consecutive lanes that hold one row.
-template <int N>
-__device__ __forceinline__ float row_sum(float s) {
-#pragma unroll
-  for (int o = Tile<N>::LPR / 2; o > 0; o >>= 1)
-    s += __shfl_xor_sync(0xffffffffu, s, o);
-  return s;
-}
-
-// v -> xhat in place (eps 1e-6, two-pass moments, as the forward kernel);
-// returns 1 / sqrt(var + eps).  Every lane of the warp must call it.
-template <int N>
-__device__ __forceinline__ float ln_xhat(float (&v)[4]) {
-  const float mean = row_sum<N>((v[0] + v[1]) + (v[2] + v[3])) * (1.f / N);
-  float q = 0.f;
-#pragma unroll
-  for (int c = 0; c < 4; ++c) {
-    v[c] -= mean;
-    q = fmaf(v[c], v[c], q);
-  }
-  const float inv = rsqrtf(row_sum<N>(q) * (1.f / N) + 1e-6f);
-#pragma unroll
-  for (int c = 0; c < 4; ++c) v[c] *= inv;
-  return inv;
-}
-
-// du for y = xhat * scale + bias given dy (the JAX _layer_norm_bwd):
-// du = (gg - mean(gg) - xhat mean(gg xhat)) inv, gg = dy * scale.
-template <int N>
-__device__ __forceinline__ void ln_bwd(const float (&dy)[4],
-                                       const float (&xh)[4], float inv,
-                                       float4 scale, float (&du)[4]) {
-  const float gg[4] = {dy[0] * scale.x, dy[1] * scale.y, dy[2] * scale.z,
-                       dy[3] * scale.w};
-  float m = (gg[0] + gg[1]) + (gg[2] + gg[3]);
-  float mx = 0.f;
-#pragma unroll
-  for (int c = 0; c < 4; ++c) mx = fmaf(gg[c], xh[c], mx);
-  m = row_sum<N>(m) * (1.f / N);
-  mx = row_sum<N>(mx) * (1.f / N);
-#pragma unroll
-  for (int c = 0; c < 4; ++c) du[c] = (gg[c] - m - xh[c] * mx) * inv;
-}
-
-// Parameter-gradient accumulation over the whole block:
-// acc[k][n] += sum_{r < R} a(A[r][k]) * G[r][n] (acc in shared or global
-// memory, row stride accs) for the thread's own elements: columns 4 (t % (N/4)) .. +3 of rows
-// t / (N/4) + KS j.  Each element has one owner, so the sums need no
-// atomics and run in a fixed order.
-template <int M, int N, bool RELU = false>
-__device__ __forceinline__ void wgrad(const float* A, int as, const float* G,
-                                      int gs, int R, float* acc, int accs,
-                                      int t) {
-  constexpr int CG = N / 4, KS = kThreads / CG, KPT = M / KS;
-  static_assert(kThreads % CG == 0 && M % KS == 0, "unsupported shape");
-  const int n = 4 * (t % CG), k0 = t / CG;
-  float s[KPT][4];
-#pragma unroll
-  for (int j = 0; j < KPT; ++j) {
-#pragma unroll
-    for (int c = 0; c < 4; ++c) s[j][c] = 0.f;
-  }
-#pragma unroll 2
-  for (int r = 0; r < R; ++r) {
-    const float4 gv = ld4(G + r * gs + n);
-#pragma unroll
-    for (int j = 0; j < KPT; ++j) {
-      float a = A[r * as + k0 + KS * j];
-      if (RELU) a = fmaxf(a, 0.f);
-      s[j][0] = fmaf(a, gv.x, s[j][0]);
-      s[j][1] = fmaf(a, gv.y, s[j][1]);
-      s[j][2] = fmaf(a, gv.z, s[j][2]);
-      s[j][3] = fmaf(a, gv.w, s[j][3]);
-    }
-  }
-#pragma unroll
-  for (int j = 0; j < KPT; ++j) {
-    float* p = acc + (k0 + KS * j) * accs + n;
-    float v[4];
-    to4(ld4(p), v);
-#pragma unroll
-    for (int c = 0; c < 4; ++c) v[c] += s[j][c];
-    st4(p, v);
-  }
-}
 
 // Row strides (floats) of the shared buffers; +4 shifts rows by 4 banks.
 template <int DM, int HID>
@@ -285,8 +133,8 @@ template <int DM, int HID, int NH, bool STASH>
 __global__ void __launch_bounds__(kThreads, 2)
 meta_block_bwd_kernel(const Args a) {
   using S = Strides<DM, HID>;
-  using TD = Tile<DM>;
-  using TH = Tile<HID>;
+  using TD = Tile<DM, kGroup>;
+  using TH = Tile<HID, kGroup>;
   constexpr int DH = DM / NH;
   static_assert(DM % NH == 0 && DH % 4 == 0, "head width must be 4k");
 
@@ -322,7 +170,6 @@ meta_block_bwd_kernel(const Args a) {
   }
   const int cgd = gt % TD::LPR, rsd = gt / TD::LPR, cold = 4 * cgd;
   const int cgh = gt % TH::LPR, rsh = gt / TH::LPR, colh = 4 * cgh;
-  const float scale = 1.f / sqrtf(static_cast<float>(DH));
   const int tiles = (a.B + kTile - 1) / kTile;
   const DropSalts salt(a.apply_q, a.apply_k, NH);
   __syncthreads();
@@ -372,7 +219,8 @@ meta_block_bwd_kernel(const Args a) {
 #pragma unroll 1
       for (int part = 0; part < 3; ++part) {
         float o[TD::RPL][4];
-        group_gemm<DM, DM>(X, S::XS, a.wqkv + part * DM, 3 * DM, F, gt, o);
+        tile_gemm<kGroup, DM, DM>(X, S::XS, a.wqkv + part * DM, 3 * DM, F,
+                                  gt, o);
 #pragma unroll
         for (int i = 0; i < TD::RPL; ++i) {
           const int f = rsd + TD::RS * i;
@@ -404,7 +252,7 @@ meta_block_bwd_kernel(const Args a) {
       float o[TD::RPL][4];  // the MetaNet output, masked
       if (live && !STASH) {
         float hd[TH::RPL][4];
-        group_gemm<DM, HID>(t0, S::QS, w1, HID, F, gt, hd);
+        tile_gemm<kGroup, DM, HID>(t0, S::QS, w1, HID, F, gt, hd);
 #pragma unroll
         for (int i = 0; i < TH::RPL; ++i) {
           const int f = rsh + TH::RS * i;
@@ -413,7 +261,7 @@ meta_block_bwd_kernel(const Args a) {
       }
       if (!STASH) __syncthreads();
       if (live && !STASH) {
-        group_gemm<HID, DM, true>(H, S::HS, w2, DM, F, gt, o);
+        tile_gemm<kGroup, HID, DM, true>(H, S::HS, w2, DM, F, gt, o);
         if (a.drop.on) {
           const unsigned sl = w ? salt.k : salt.q;
 #pragma unroll
@@ -467,74 +315,9 @@ meta_block_bwd_kernel(const Args a) {
             ldg4(a.o + base + f * DM + c);
       }
     } else if (live) {
-#pragma unroll 1
-      for (int p = gt; p < NH * F; p += kGroup) {
-        const int hh = p / F, i = p % F;
-        float q[DH];
-#pragma unroll
-        for (int c = 0; c < DH; c += 4) {
-          const float4 v = ld4(Nm + i * S::NS + hh * DH + c);
-          q[c] = v.x * scale;
-          q[c + 1] = v.y * scale;
-          q[c + 2] = v.z * scale;
-          q[c + 3] = v.w * scale;
-        }
-        float s[kMaxFields];
-        float m = -INFINITY;
-#pragma unroll
-        for (int j = 0; j < kMaxFields; ++j) {
-          if (j < F) {
-            const float* kj = Nm + j * S::NS + DM + hh * DH;
-            float acc_s = 0.f;
-#pragma unroll
-            for (int c = 0; c < DH; c += 4) {
-              const float4 v = ld4(kj + c);
-              acc_s = fmaf(q[c], v.x, acc_s);
-              acc_s = fmaf(q[c + 1], v.y, acc_s);
-              acc_s = fmaf(q[c + 2], v.z, acc_s);
-              acc_s = fmaf(q[c + 3], v.w, acc_s);
-            }
-            s[j] = acc_s;
-            m = fmaxf(m, acc_s);
-          }
-        }
-        float sum = 0.f;
-#pragma unroll
-        for (int j = 0; j < kMaxFields; ++j) {
-          if (j < F) {
-            s[j] = expf(s[j] - m);
-            sum += s[j];
-          }
-        }
-        const float inv = 1.f / sum;
-        float o[DH];
-#pragma unroll
-        for (int c = 0; c < DH; ++c) o[c] = 0.f;
-        float* prow = P + (hh * F + i) * F;
-#pragma unroll
-        for (int j = 0; j < kMaxFields; ++j) {
-          if (j < F) {
-            prow[j] = s[j] * inv;
-            const float pj =
-                a.drop.on ? prow[j] * ed.attn(a.drop, salt.s + hh, i, j)
-                          : prow[j];
-            const float* vj = QKV + j * S::QS + 2 * DM + hh * DH;
-#pragma unroll
-            for (int c = 0; c < DH; c += 4) {
-              const float4 v = ld4(vj + c);
-              o[c] = fmaf(pj, v.x, o[c]);
-              o[c + 1] = fmaf(pj, v.y, o[c + 1]);
-              o[c + 2] = fmaf(pj, v.z, o[c + 2]);
-              o[c + 3] = fmaf(pj, v.w, o[c + 3]);
-            }
-          }
-        }
-#pragma unroll
-        for (int c = 0; c < DH; c += 4) {
-          const float v[4] = {o[c], o[c + 1], o[c + 2], o[c + 3]};
-          st4(H + i * S::HS + hh * DH + c, v);
-        }
-      }
+      attention_recompute<DM, NH, kGroup>(Nm, S::NS, QKV + 2 * DM, S::QS, P,
+                                          H, S::HS, F, gt, a.drop, ed,
+                                          salt.s);
     }
     __syncthreads();
 
@@ -549,7 +332,7 @@ meta_block_bwd_kernel(const Args a) {
     }
     if (live) {
       float z[TD::RPL][4];
-      group_gemm<DM, DM>(H, S::HS, a.wout, DM, F, gt, z);
+      tile_gemm<kGroup, DM, DM>(H, S::HS, a.wout, DM, F, gt, z);
       const float4 so = ldg4(a.lno + cold);
 #pragma unroll
       for (int i = 0; i < TD::RPL; ++i) {
@@ -593,11 +376,12 @@ meta_block_bwd_kernel(const Args a) {
     __syncthreads();
 
     // B1. dWout += o^T dz over the tile's rows, then do = dz @ Wout^T over o.
-    wgrad<DM, DM>(sH, S::HS, sD, S::QS, nvalid * F, acc + 3 * DM * DM, DM, t);
+    wgrad<kThreads, DM, DM>(sH, S::HS, sD, S::QS, nvalid * F,
+                            acc + 3 * DM * DM, DM, t);
     __syncthreads();
     if (live) {
       float o[TD::RPL][4];
-      group_gemm<DM, DM>(Dg, S::QS, a.woutT, DM, F, gt, o);
+      tile_gemm<kGroup, DM, DM>(Dg, S::QS, a.woutT, DM, F, gt, o);
 #pragma unroll
       for (int i = 0; i < TD::RPL; ++i) {
         const int f = rsd + TD::RS * i;
@@ -606,132 +390,10 @@ meta_block_bwd_kernel(const Args a) {
     }
     __syncthreads();
 
-    // B2. Attention backward.  dv_j = sum_i P_ij m_ij do_i, per (head, key
-    //     row).
-    if (live) {
-#pragma unroll 1
-      for (int p = gt; p < NH * F; p += kGroup) {
-        const int hh = p / F, j = p % F;
-        float dv[DH];
-#pragma unroll
-        for (int c = 0; c < DH; ++c) dv[c] = 0.f;
-#pragma unroll 4
-        for (int i = 0; i < F; ++i) {
-          float pij = P[(hh * F + i) * F + j];
-          if (a.drop.on) pij *= ed.attn(a.drop, salt.s + hh, i, j);
-          const float* doi = H + i * S::HS + hh * DH;
-#pragma unroll
-          for (int c = 0; c < DH; c += 4) {
-            const float4 v = ld4(doi + c);
-            dv[c] = fmaf(pij, v.x, dv[c]);
-            dv[c + 1] = fmaf(pij, v.y, dv[c + 1]);
-            dv[c + 2] = fmaf(pij, v.z, dv[c + 2]);
-            dv[c + 3] = fmaf(pij, v.w, dv[c + 3]);
-          }
-        }
-#pragma unroll
-        for (int c = 0; c < DH; c += 4) {
-          const float v[4] = {dv[c], dv[c + 1], dv[c + 2], dv[c + 3]};
-          st4(Dg + j * S::QS + 2 * DM + hh * DH + c, v);
-        }
-      }
-    }
-    __syncthreads();
-    //     dS_ij = P_ij (dP_ij - sum_j P_ij dP_ij) with dP_ij = (do_i . v_j)
-    //     m_ij, written over P; dq_i = scale sum_j dS_ij k_j, per (head,
-    //     query row).
-    if (live) {
-#pragma unroll 1
-      for (int p = gt; p < NH * F; p += kGroup) {
-        const int hh = p / F, i = p % F;
-        float doi[DH];
-#pragma unroll
-        for (int c = 0; c < DH; c += 4) {
-          const float4 v = ld4(H + i * S::HS + hh * DH + c);
-          doi[c] = v.x;
-          doi[c + 1] = v.y;
-          doi[c + 2] = v.z;
-          doi[c + 3] = v.w;
-        }
-        float* prow = P + (hh * F + i) * F;
-        float dp[kMaxFields];
-        float rs = 0.f;
-#pragma unroll
-        for (int j = 0; j < kMaxFields; ++j) {
-          if (j < F) {
-            const float* vj = QKV + j * S::QS + 2 * DM + hh * DH;
-            float s = 0.f;
-#pragma unroll
-            for (int c = 0; c < DH; c += 4) {
-              const float4 v = ld4(vj + c);
-              s = fmaf(doi[c], v.x, s);
-              s = fmaf(doi[c + 1], v.y, s);
-              s = fmaf(doi[c + 2], v.z, s);
-              s = fmaf(doi[c + 3], v.w, s);
-            }
-            if (a.drop.on) s *= ed.attn(a.drop, salt.s + hh, i, j);
-            dp[j] = s;
-            rs = fmaf(prow[j], s, rs);
-          }
-        }
-        float dq[DH];
-#pragma unroll
-        for (int c = 0; c < DH; ++c) dq[c] = 0.f;
-#pragma unroll
-        for (int j = 0; j < kMaxFields; ++j) {
-          if (j < F) {
-            const float ds = prow[j] * (dp[j] - rs);
-            prow[j] = ds;
-            const float* kj = Nm + j * S::NS + DM + hh * DH;
-#pragma unroll
-            for (int c = 0; c < DH; c += 4) {
-              const float4 v = ld4(kj + c);
-              dq[c] = fmaf(ds, v.x, dq[c]);
-              dq[c + 1] = fmaf(ds, v.y, dq[c + 1]);
-              dq[c + 2] = fmaf(ds, v.z, dq[c + 2]);
-              dq[c + 3] = fmaf(ds, v.w, dq[c + 3]);
-            }
-          }
-        }
-#pragma unroll
-        for (int c = 0; c < DH; c += 4) {
-          const float v[4] = {dq[c] * scale, dq[c + 1] * scale,
-                              dq[c + 2] * scale, dq[c + 3] * scale};
-          st4(Dg + i * S::QS + hh * DH + c, v);
-        }
-      }
-    }
-    __syncthreads();
-    //     dk_j = scale sum_i dS_ij q_i, per (head, key row).
-    if (live) {
-#pragma unroll 1
-      for (int p = gt; p < NH * F; p += kGroup) {
-        const int hh = p / F, j = p % F;
-        float dk[DH];
-#pragma unroll
-        for (int c = 0; c < DH; ++c) dk[c] = 0.f;
-#pragma unroll 4
-        for (int i = 0; i < F; ++i) {
-          const float ds = P[(hh * F + i) * F + j];
-          const float* qi = Nm + i * S::NS + hh * DH;
-#pragma unroll
-          for (int c = 0; c < DH; c += 4) {
-            const float4 v = ld4(qi + c);
-            dk[c] = fmaf(ds, v.x, dk[c]);
-            dk[c + 1] = fmaf(ds, v.y, dk[c + 1]);
-            dk[c + 2] = fmaf(ds, v.z, dk[c + 2]);
-            dk[c + 3] = fmaf(ds, v.w, dk[c + 3]);
-          }
-        }
-#pragma unroll
-        for (int c = 0; c < DH; c += 4) {
-          const float v[4] = {dk[c] * scale, dk[c + 1] * scale,
-                              dk[c + 2] * scale, dk[c + 3] * scale};
-          st4(Dg + j * S::QS + DM + hh * DH + c, v);
-        }
-      }
-    }
-    __syncthreads();
+    // B2. Attention backward (csrc/layer_common.cuh): dv, then dS over P
+    //     and dq, then dk, into Dg.
+    attention_bwd<DM, NH, kGroup>(live, P, H, S::HS, QKV + 2 * DM, S::QS, Nm,
+                                  S::NS, Dg, S::QS, F, gt, a.drop, ed, salt.s);
 
     // B3. MetaNet backward of Q, then of K (JAX _meta_bwd): the LayerNorm
     //     backward gives du, kept in the projection's columns of N (free
@@ -781,7 +443,7 @@ meta_block_bwd_kernel(const Args a) {
           }
         }
         float o[TH::RPL][4];
-        group_gemm<DM, HID>(t0, S::QS, w1, HID, F, gt, o);
+        tile_gemm<kGroup, DM, HID>(t0, S::QS, w1, HID, F, gt, o);
 #pragma unroll
         for (int i = 0; i < TH::RPL; ++i) {
           const int f = rsh + TH::RS * i;
@@ -791,13 +453,13 @@ meta_block_bwd_kernel(const Args a) {
       __syncthreads();
 #pragma unroll 1
       for (int e = 0; e < nvalid; ++e)
-        wgrad<HID, DM, true>(sH + e * F * S::HS, S::HS,
+        wgrad<kThreads, HID, DM, true>(sH + e * F * S::HS, S::HS,
                              sD + e * F * S::QS + w * DM, S::QS, F,
                              acc_w2 + doms[e] * dsz, DM, t);
       __syncthreads();
       if (live) {
         float o[TH::RPL][4];
-        group_gemm<DM, HID>(dt, S::QS, w2T, HID, F, gt, o);
+        tile_gemm<kGroup, DM, HID>(dt, S::QS, w2T, HID, F, gt, o);
 #pragma unroll
         for (int i = 0; i < TH::RPL; ++i) {
           const int f = rsh + TH::RS * i;
@@ -814,12 +476,12 @@ meta_block_bwd_kernel(const Args a) {
       __syncthreads();
 #pragma unroll 1
       for (int e = 0; e < nvalid; ++e)
-        wgrad<DM, HID>(sQKV + e * F * S::QS + w * DM, S::QS,
+        wgrad<kThreads, DM, HID>(sQKV + e * F * S::QS + w * DM, S::QS,
                        sH + e * F * S::HS, S::HS, F,
                        acc_w1 + doms[e] * dsz, HID, t);
       if (live) {
         float o[TD::RPL][4];
-        group_gemm<HID, DM>(H, S::HS, w1T, DM, F, gt, o);
+        tile_gemm<kGroup, HID, DM>(H, S::HS, w1T, DM, F, gt, o);
 #pragma unroll
         for (int i = 0; i < TD::RPL; ++i) {
           const int f = rsd + TD::RS * i;
@@ -837,11 +499,11 @@ meta_block_bwd_kernel(const Args a) {
     // B4. dWqkv += x^T [dq0|dk0|dv]; dx = du + [dq0|dk0|dv] @ Wqkv^T.
 #pragma unroll 1
     for (int part = 0; part < 3; ++part)
-      wgrad<DM, DM>(sX, S::XS, sD + part * DM, S::QS, nvalid * F,
+      wgrad<kThreads, DM, DM>(sX, S::XS, sD + part * DM, S::QS, nvalid * F,
                     acc + part * DM, 3 * DM, t);
     if (live) {
       float o[TD::RPL][4];
-      group_gemm<3 * DM, DM>(Dg, S::QS, a.wqkvT, DM, F, gt, o);
+      tile_gemm<kGroup, 3 * DM, DM>(Dg, S::QS, a.wqkvT, DM, F, gt, o);
 #pragma unroll
       for (int i = 0; i < TD::RPL; ++i) {
         const int f = rsd + TD::RS * i;
@@ -874,18 +536,6 @@ meta_block_bwd_kernel(const Args a) {
     out[S::kDense + o] = s;
   }
   for (int i = t; i < S::kDense; i += kThreads) out[i] = acc[i];
-}
-
-// out[i] = sum over blocks b, in order, of partial[b][i].
-__global__ void sum_partials(const float* __restrict__ partial,
-                             float* __restrict__ out, int total, int blocks) {
-  for (int i = blockIdx.x * blockDim.x + threadIdx.x; i < total;
-       i += gridDim.x * blockDim.x) {
-    float s = 0.f;
-    for (int b = 0; b < blocks; ++b)
-      s += partial[static_cast<size_t>(b) * total + i];
-    out[i] = s;
-  }
 }
 
 template <int DM, int HID, int NH, bool STASH>

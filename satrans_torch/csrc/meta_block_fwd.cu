@@ -20,10 +20,10 @@
 // o [B, F, d].  The masks come from csrc/dropout.cuh, computed inline per
 // element.
 //
-// The softmax subtracts the row maximum, as jax.nn.softmax does on the JAX
-// package's XLA path and as the plain PyTorch version does.  The Pallas
-// kernel instead clamps the logits to [-60, 60] and skips the max pass;
-// the two agree unless a logit exceeds 60 in magnitude.
+// The logits are clamped to [-60, 60] before the softmax, as the Pallas
+// kernel's _clip_logits does (meta_block.py:61-69), and the softmax then
+// subtracts the row maximum (the Pallas kernel skips the max pass, which
+// the clamp makes safe; the two agree up to rounding).
 //
 // TPU layout choices that are dropped here, none of which changes the
 // result: masked wide GEMMs over all domains (each example reads its own
@@ -57,110 +57,12 @@
 
 #include <cmath>
 
-#include "dropout.cuh"
+#include "layer_common.cuh"
 
 namespace {
 
-constexpr int kWarps = 8;      // examples per block, one warp each
-constexpr int kMaxFields = 20; // most fields an example may have
-
-__device__ __forceinline__ float4 ld4(const float* p) {
-  return *reinterpret_cast<const float4*>(p);
-}
-__device__ __forceinline__ float4 ldg4(const float* p) {
-  return __ldg(reinterpret_cast<const float4*>(p));
-}
-__device__ __forceinline__ void st4(float* p, const float (&v)[4]) {
-  *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);
-}
-
-// Register tile of a warp GEMM with N output columns: a lane owns 4
-// adjacent columns of rows rs, rs + RS, rs + 2 RS, ...
-template <int N>
-struct Tile {
-  static_assert(N % 4 == 0 && 32 % (N / 4) == 0, "unsupported width");
-  static constexpr int LPR = N / 4;                       // lanes per row
-  static constexpr int RS = 32 / LPR;                     // row sets
-  static constexpr int RPL = (kMaxFields + RS - 1) / RS;  // rows per lane
-};
-
-// acc[i][c] = sum_k act[f][k] * w[k][4 cg + c] for f = rs + RS i < F.
-// act lies in shared memory (row stride astride), w in global memory
-// (row stride wstride).  The sum runs over k in order.
-template <int K, int N>
-__device__ __forceinline__ void warp_gemm(const float* act, int astride,
-                                          const float* __restrict__ w,
-                                          int wstride, int F, int lane,
-                                          float (&acc)[Tile<N>::RPL][4]) {
-  using T = Tile<N>;
-  const int cg = lane % T::LPR, rs = lane / T::LPR;
-#pragma unroll
-  for (int i = 0; i < T::RPL; ++i) {
-#pragma unroll
-    for (int c = 0; c < 4; ++c) acc[i][c] = 0.f;
-  }
-  const float* wc = w + 4 * cg;
-#pragma unroll 2
-  for (int k = 0; k < K; k += 4) {
-    const float4 w0 = ldg4(wc + (k + 0) * wstride);
-    const float4 w1 = ldg4(wc + (k + 1) * wstride);
-    const float4 w2 = ldg4(wc + (k + 2) * wstride);
-    const float4 w3 = ldg4(wc + (k + 3) * wstride);
-#pragma unroll
-    for (int i = 0; i < T::RPL; ++i) {
-      const int f = rs + T::RS * i;
-      if (f < F) {
-        const float4 a = ld4(act + f * astride + k);
-        acc[i][0] = fmaf(a.x, w0.x, acc[i][0]);
-        acc[i][1] = fmaf(a.x, w0.y, acc[i][1]);
-        acc[i][2] = fmaf(a.x, w0.z, acc[i][2]);
-        acc[i][3] = fmaf(a.x, w0.w, acc[i][3]);
-        acc[i][0] = fmaf(a.y, w1.x, acc[i][0]);
-        acc[i][1] = fmaf(a.y, w1.y, acc[i][1]);
-        acc[i][2] = fmaf(a.y, w1.z, acc[i][2]);
-        acc[i][3] = fmaf(a.y, w1.w, acc[i][3]);
-        acc[i][0] = fmaf(a.z, w2.x, acc[i][0]);
-        acc[i][1] = fmaf(a.z, w2.y, acc[i][1]);
-        acc[i][2] = fmaf(a.z, w2.z, acc[i][2]);
-        acc[i][3] = fmaf(a.z, w2.w, acc[i][3]);
-        acc[i][0] = fmaf(a.w, w3.x, acc[i][0]);
-        acc[i][1] = fmaf(a.w, w3.y, acc[i][1]);
-        acc[i][2] = fmaf(a.w, w3.z, acc[i][2]);
-        acc[i][3] = fmaf(a.w, w3.w, acc[i][3]);
-      }
-    }
-  }
-}
-
-// LayerNorm (eps 1e-6, two-pass moments) of a row of N values spread over
-// the LPR lanes of its row set, 4 per lane at columns col..col+3.  ln holds
-// the scale row then the bias row.  Every lane of the warp must call it.
-template <int N>
-__device__ __forceinline__ void row_layer_norm(float (&v)[4],
-                                               const float* __restrict__ ln,
-                                               int col) {
-  float s = (v[0] + v[1]) + (v[2] + v[3]);
-#pragma unroll
-  for (int o = Tile<N>::LPR / 2; o > 0; o >>= 1)
-    s += __shfl_xor_sync(0xffffffffu, s, o);
-  const float mean = s * (1.f / N);
-  float dv[4];
-  float q = 0.f;
-#pragma unroll
-  for (int c = 0; c < 4; ++c) {
-    dv[c] = v[c] - mean;
-    q = fmaf(dv[c], dv[c], q);
-  }
-#pragma unroll
-  for (int o = Tile<N>::LPR / 2; o > 0; o >>= 1)
-    q += __shfl_xor_sync(0xffffffffu, q, o);
-  const float inv = rsqrtf(q * (1.f / N) + 1e-6f);
-  const float4 g = ldg4(ln + col), b = ldg4(ln + N + col);
-  v[0] = dv[0] * inv * g.x + b.x;
-  v[1] = dv[1] * inv * g.y + b.y;
-  v[2] = dv[2] * inv * g.z + b.z;
-  v[3] = dv[3] * inv * g.w + b.w;
-}
+constexpr int kWarps = 8;       // examples per block, one warp each
+constexpr int kGroup = 32;      // threads per example
 
 // Shared memory of one warp: F rows of q|k|v (stride QS), then F rows of
 // scratch (stride HS) that holds x, the MetaNet hidden layer and the
@@ -194,8 +96,8 @@ meta_block_fwd_kernel(const float* __restrict__ x, const int* __restrict__ dom,
                       int B, int F, int D, int apply_q, int apply_k,
                       int relu_out, const Dropout drop, const Stash st) {
   using S = Smem<DM, HID>;
-  using TD = Tile<DM>;
-  using TH = Tile<HID>;
+  using TD = Tile<DM, kGroup>;
+  using TH = Tile<HID, kGroup>;
   constexpr int DH = DM / NH;
   static_assert(DM % NH == 0 && DH % 4 == 0, "head width must be 4k");
 
@@ -224,7 +126,8 @@ meta_block_fwd_kernel(const float* __restrict__ x, const int* __restrict__ dom,
 #pragma unroll 1
   for (int part = 0; part < 3; ++part) {
     float acc[TD::RPL][4];
-    warp_gemm<DM, DM>(sh, S::XS, wqkv + part * DM, 3 * DM, F, lane, acc);
+    tile_gemm<kGroup, DM, DM>(sh, S::XS, wqkv + part * DM, 3 * DM, F, lane,
+                              acc);
 #pragma unroll
     for (int i = 0; i < TD::RPL; ++i) {
       const int f = rsd + TD::RS * i;
@@ -261,7 +164,7 @@ meta_block_fwd_kernel(const float* __restrict__ x, const int* __restrict__ dom,
     float* t0 = sq + which * DM;
     {
       float acc[TH::RPL][4];
-      warp_gemm<DM, HID>(t0, S::QS, w1, HID, F, lane, acc);
+      tile_gemm<kGroup, DM, HID>(t0, S::QS, w1, HID, F, lane, acc);
       const int cgh = lane % TH::LPR, rsh = lane / TH::LPR;
 #pragma unroll
       for (int i = 0; i < TH::RPL; ++i) {
@@ -275,7 +178,7 @@ meta_block_fwd_kernel(const float* __restrict__ x, const int* __restrict__ dom,
     __syncwarp();
     {
       float acc[TD::RPL][4];
-      warp_gemm<HID, DM>(sh, S::HS, w2, DM, F, lane, acc);
+      tile_gemm<kGroup, HID, DM>(sh, S::HS, w2, DM, F, lane, acc);
 #pragma unroll
       for (int i = 0; i < TD::RPL; ++i) {
         const int f = rsd + TD::RS * i;
@@ -298,84 +201,18 @@ meta_block_fwd_kernel(const float* __restrict__ x, const int* __restrict__ dom,
     __syncwarp();
   }
 
-  // 4. Attention.  A lane owns (head, query row) pairs; the output goes to
-  //    scratch columns [0, DM).  The row sum is taken before dropout, which
-  //    multiplies each probability on its way to the values.
-  const float scale = 1.f / sqrtf(static_cast<float>(DH));
-#pragma unroll 1
-  for (int p = lane; p < NH * F; p += 32) {
-    const int hh = p / F, i = p % F;
-    float q[DH];
-#pragma unroll
-    for (int c = 0; c < DH; c += 4) {
-      const float4 t = ld4(sq + i * S::QS + hh * DH + c);
-      q[c] = t.x * scale;
-      q[c + 1] = t.y * scale;
-      q[c + 2] = t.z * scale;
-      q[c + 3] = t.w * scale;
-    }
-    float s[kMaxFields];
-    float m = -INFINITY;
-#pragma unroll
-    for (int j = 0; j < kMaxFields; ++j) {
-      if (j < F) {
-        const float* kj = sq + j * S::QS + DM + hh * DH;
-        float a = 0.f;
-#pragma unroll
-        for (int c = 0; c < DH; c += 4) {
-          const float4 t = ld4(kj + c);
-          a = fmaf(q[c], t.x, a);
-          a = fmaf(q[c + 1], t.y, a);
-          a = fmaf(q[c + 2], t.z, a);
-          a = fmaf(q[c + 3], t.w, a);
-        }
-        s[j] = a;
-        m = fmaxf(m, a);
-      }
-    }
-    float o[DH];
-#pragma unroll
-    for (int c = 0; c < DH; ++c) o[c] = 0.f;
-    float sum = 0.f;
-#pragma unroll
-    for (int j = 0; j < kMaxFields; ++j) {
-      if (j < F) {
-        s[j] = expf(s[j] - m);
-        sum += s[j];
-        const float pj =
-            drop.on ? s[j] * ed.attn(drop, salt.s + hh, i, j) : s[j];
-        const float* vj = sq + j * S::QS + 2 * DM + hh * DH;
-#pragma unroll
-        for (int c = 0; c < DH; c += 4) {
-          const float4 t = ld4(vj + c);
-          o[c] = fmaf(pj, t.x, o[c]);
-          o[c + 1] = fmaf(pj, t.y, o[c + 1]);
-          o[c + 2] = fmaf(pj, t.z, o[c + 2]);
-          o[c + 3] = fmaf(pj, t.w, o[c + 3]);
-        }
-      }
-    }
-    const float inv = 1.f / sum;
-#pragma unroll
-    for (int c = 0; c < DH; c += 4) {
-      const float v[4] = {o[c] * inv, o[c + 1] * inv, o[c + 2] * inv,
-                          o[c + 3] * inv};
-      st4(sh + i * S::HS + hh * DH + c, v);
-      if (STASH) st4(st.o + (erow + i) * DM + hh * DH + c, v);
-    }
-    if (STASH) {
-      float* prow = st.s + ((static_cast<size_t>(e) * NH + hh) * F + i) * F;
-#pragma unroll
-      for (int j = 0; j < kMaxFields; ++j)
-        if (j < F) prow[j] = s[j] * inv;
-    }
-  }
+  // 4. Attention (csrc/layer_common.cuh).  The output goes to scratch
+  //    columns [0, DM); K1-stash also writes it and P before dropout.
+  attention_fwd<DM, NH, kGroup, STASH>(
+      sq, S::QS, sh, S::HS,
+      STASH ? st.s + static_cast<size_t>(e) * NH * F * F : nullptr,
+      STASH ? st.o + erow * DM : nullptr, F, lane, drop, ed, salt.s);
   __syncwarp();
 
   // 5. y = LN_o(relu?(o @ Wout) m_z + x)
   {
     float acc[TD::RPL][4];
-    warp_gemm<DM, DM>(sh, S::HS, wout, DM, F, lane, acc);
+    tile_gemm<kGroup, DM, DM>(sh, S::HS, wout, DM, F, lane, acc);
 #pragma unroll
     for (int i = 0; i < TD::RPL; ++i) {
       const int f = rsd + TD::RS * i;

@@ -4,32 +4,38 @@
 Forward:
 
 1. field embeddings ``[B, F, d]`` from the fused bank;
-2. the scenario encoder (one linear ``d -> P``) evaluated once on the
-   ``D+1`` rows ``relu(domain_emb)``, giving a ``[D+1, P]`` table of flat
-   MetaNet params shared by Q, K and every layer;
+2. the scenario table ``[D+1, P]``: the scenario encoder (one linear
+   ``d -> P``) evaluated once on the ``D+1`` rows ``relu(domain_emb)``, or
+   under ``only_emb`` ``relu(domain_emb)`` itself (``[D+1, P]``, no
+   encoder); one table for Q, K (and the bilinear maps) and every layer.
+   P is the MetaNet's flat size (``variant='metanet'``), d (``'gate'``) or
+   d * d / H (``'bilinear'``);
 3. ``dom = clip(scenario id, 0, D)``;
-4. the meta-transformer layers, each through
-   :func:`satrans_torch.ops.meta_block.fused_meta_layer` (the CUDA kernels
-   on the card, forward and, in training, backward; the plain version on
-   the CPU), or through the plain
-   :func:`satrans_torch.ops.meta_block.meta_layer_reference` when
-   ``use_kernel=False``;
+4. the meta-transformer layers, each through the fused layer of its
+   variant: :func:`satrans_torch.ops.meta_block.fused_meta_layer` (K1) for
+   the metanet variant, :func:`satrans_torch.ops.gate_block.
+   fused_simple_layer` (K6) for gate and bilinear (the CUDA kernels on the
+   card, forward and, in training, backward; the plain version on the
+   CPU), or through the plain version without the logit clamp when
+   ``use_kernel=False`` (the JAX package's XLA path);
 5. flatten, the dense columns, one linear and a sigmoid.
 
 In training each layer applies dropout at ``dropout_rate`` with its own
-int32 seed (``forward``'s ``seeds``, the counterpart of the JAX package's
-``rng``), on tiles of ``block_b`` examples: the first of
-``(fused_block_b, 256, 128, 64, 32, 16)`` that divides the batch
-(satrans_tpu/models/satrans.py:327-339).  The masks are the JAX package's
-interpret-mode kernel masks (``ops/prng.py``), on both paths: the unfused
-path (``use_kernel=False``) draws the kernels' masks, not ``jax.random``'s
-as the JAX package's XLA path does (a documented deviation).
+int32 seed (``forward``'s ``seeds``; by default those the JAX package
+draws from ``PRNGKey(0)``, ``ops/threefry.py``), on tiles of ``block_b``
+examples: the first of ``(fused_block_b, 256, 128, 64, 32, 16)`` that
+divides the batch (satrans_tpu/models/satrans.py:327-339).  The masks are
+the JAX package's interpret-mode kernel masks (``ops/prng.py``), on both
+paths: the unfused path (``use_kernel=False``) draws the kernels' masks,
+not ``jax.random``'s as the JAX package's XLA path does (a documented
+deviation).
 
-This slice supports one scenario column, the metanet variant with shared
-(non-``pos``) 2-matrix MetaNets, any ``meta_mode`` (a projection is
-transformed iff its letter appears), ``relu_out`` and float32, in
-inference and in training (:meth:`reg_loss` is the full-table embedding
-L2).  The rest raises ``NotImplementedError`` naming its ROADMAP item.
+This slice supports one scenario column, the metanet (shared, non-
+``pos``, 2-matrix MetaNets), gate and bilinear variants, ``only_emb``, any
+``meta_mode`` (a projection is transformed iff its letter appears; the
+bilinear map always applies to Q), ``relu_out`` and float32, in inference
+and in training (:meth:`reg_loss` is the full-table embedding L2).  The
+rest raises ``NotImplementedError`` naming its ROADMAP item.
 """
 
 from __future__ import annotations
@@ -43,7 +49,7 @@ from torch import nn
 from .. import embeddings
 from ..features import FeatureLayout
 from ..nn import attention, core, initializers as init, metanet
-from ..ops import meta_block
+from ..ops import gate_block, meta_block, threefry
 from ..utils import make_generator, resolve_device
 
 _VARIANTS = "ROADMAP queue 1 item 'remaining SATrans variants'"
@@ -73,22 +79,25 @@ class SATrans(nn.Module):
             raise NotImplementedError(
                 "several scenario columns (composite tables, kernel K7) "
                 f"are {_VARIANTS}")
+        if only_emb and use_pos:
+            raise ValueError("only_emb and use_pos are mutually exclusive "
+                             "(onlyemb has no scenario encoder to consume "
+                             "the position embeddings)")
         if use_pos:
             raise NotImplementedError(
                 "'pos' is ROADMAP queue 1 item 'Alimama sota-pos slice'")
-        if variant != "metanet" or only_emb:
-            raise NotImplementedError(
-                f"variant {variant!r} / only_emb is {_VARIANTS}")
+        if variant not in attention.VARIANTS:
+            raise ValueError(f"unknown variant {variant!r}")
         if compute_dtype != "float32":
             raise NotImplementedError(
-                f"compute_dtype {compute_dtype!r}: bf16 is K1 build step 5 "
-                "in ROADMAP queue 2")
+                f"compute_dtype {compute_dtype!r}: bf16 is ROADMAP queue 2 "
+                "item 'K1 in bf16'")
         self.meta_units = [d] + [int(u) for u in meta_dnn_hidden_units]
-        if self.meta_units[-1] != d:
+        if variant == "metanet" and self.meta_units[-1] != d:
             raise ValueError(
                 f"meta_dnn_hidden_units must end with embedding_dim={d} for "
                 f"the MetaNet residual, got {meta_dnn_hidden_units}")
-        if len(self.meta_units) != 3:
+        if variant == "metanet" and len(self.meta_units) != 3:
             raise NotImplementedError(
                 f"3-matrix MetaNets are {_VARIANTS}")
         if d % att_head_num:
@@ -103,33 +112,47 @@ class SATrans(nn.Module):
         self.dropout_rate = dropout_rate
         self.l2_reg_embedding = float(l2_reg_embedding)
         self.relu_out = relu_out
+        self.variant = variant
+        self.only_emb = only_emb
         self.use_kernel = use_kernel
         # the dropout tile; SATRANS_BLOCK_B overrides, as in the JAX package
         self.fused_block_b = int(os.environ.get("SATRANS_BLOCK_B", "128")) \
             if fused_block_b is None else int(fused_block_b)
         self.domain_index = layout.sparse_index(self.domain_cols[0])
-        p = metanet.param_size(self.meta_units)
+        # the table's width (satrans_tpu/models/satrans.py:125-130)
+        p = {"gate": d, "bilinear": d * d // att_head_num}.get(
+            variant) or metanet.param_size(self.meta_units)
+        # the JAX package's default seeds: randint(fold_in(PRNGKey(0), i))
+        self.default_seeds = threefry.layer_seeds(threefry.PRNGKey(0),
+                                                  domain_att_layer_num)
 
         gen = make_generator(seed, dev)
         self.emb = embeddings.bank_init(
             gen, layout, init_std=None if no_emb_init else init_std)
-        self.domain_emb = nn.Parameter(
-            init.torch_embedding_default(gen, (self.num_domains + 1, d)))
-        # scenario encoder: DNN_v2(d -> P), no activation on its output
-        self.encoder = core.MLP(gen, d, [p], init_std=init_std,
-                                final_activation=False)
+        # under only_emb the scenario table holds the params directly
+        # (satrans.py:166-170); else the scenario encoder DNN_v2(d -> P),
+        # no activation on its output
+        self.domain_emb = nn.Parameter(init.torch_embedding_default(
+            gen, (self.num_domains + 1, p if only_emb else d)))
+        if not only_emb:
+            self.encoder = core.MLP(gen, d, [p], init_std=init_std,
+                                    final_activation=False)
         self.layers = nn.ModuleList(
-            attention.meta_transformer_init(gen, d, self.meta_units)
+            attention.meta_transformer_init(gen, d, self.meta_units,
+                                            variant=variant)
             for _ in range(domain_att_layer_num))
         self.head = core.Linear(gen, layout.num_fields * d + layout.dense_dim,
                                 1)
         self.eval()
 
     def meta_tables(self):
-        """``{'Q': [D+1, P], 'K': [D+1, P]}``: the encoder over the D+1
-        distinct scenario ids, one table for both (non-``pos``)."""
-        table = self.encoder(torch.relu(self.domain_emb))
-        return {"Q": table, "K": table}
+        """``{'Q', 'K', 'bilinear'}`` -> ``[D+1, P]``: the encoder over the
+        D+1 distinct scenario ids (``only_emb``: the ReLU'd scenario
+        table), one table for all (non-``pos``, satrans.py:212-218)."""
+        table = torch.relu(self.domain_emb)
+        if not self.only_emb:
+            table = self.encoder(table)
+        return {"Q": table, "K": table, "bilinear": table}
 
     def block_b(self, batch_size: int) -> int | None:
         """The dropout tile for a batch: the first candidate that divides
@@ -143,8 +166,8 @@ class SATrans(nn.Module):
         """``batch``: typed tensors on the model's device (``sparse``
         ``[B, S]``, optional ``dense`` and ``varlen``).  With ``feed`` (an
         ``embeddings.BankRowFeed``) the large-bank rows come from it.
-        ``seeds``: one int32 dropout seed per layer (``None``: the fixed
-        seeds 0, 1, ...).  Returns ``[B]``."""
+        ``seeds``: one int32 dropout seed per layer (``None``: the JAX
+        package's default, :attr:`default_seeds`).  Returns ``[B]``."""
         x = embeddings.embed_fields(self.emb if feed is None else feed,
                                     self.layout, batch)
         dom = batch["sparse"][:, self.domain_index].long().clamp(
@@ -158,22 +181,33 @@ class SATrans(nn.Module):
                 "jax.random masks; ROADMAP queue 2 item 'dropout at a "
                 "batch no tile divides'")
         if seeds is None:
-            seeds = range(len(self.layers))
+            seeds = self.default_seeds
         tables = self.meta_tables()
+        simple = self.variant != "metanet"
         for layer, seed in zip(self.layers, seeds, strict=True):
-            kw = dict(meta_units=self.meta_units, head_num=self.att_head_num,
-                      mode=self.meta_mode, relu_out=self.relu_out)
+            kw = dict(head_num=self.att_head_num, mode=self.meta_mode,
+                      relu_out=self.relu_out)
             drop = dict(train=self.training, drop_rate=self.dropout_rate,
                         seed=int(seed), block_b=blk or self.fused_block_b)
-            if self.use_kernel:
-                x = meta_block.fused_meta_layer(x, layer, tables, dom, **kw,
-                                                **drop)
+            if simple and self.use_kernel:
+                x = gate_block.fused_simple_layer(x, layer, tables, dom,
+                                                  **kw, **drop)
+            elif simple:
+                x = gate_block.simple_layer_reference(
+                    x, layer, tables, dom, **kw,
+                    masks=gate_block.layer_masks(
+                        x, head_num=self.att_head_num, **drop),
+                    clamp=False)
+            elif self.use_kernel:
+                x = meta_block.fused_meta_layer(
+                    x, layer, tables, dom, meta_units=self.meta_units, **kw,
+                    **drop)
             else:
                 x = meta_block.meta_layer_reference(
-                    x, layer, tables, dom, **kw,
+                    x, layer, tables, dom, meta_units=self.meta_units, **kw,
                     masks=meta_block.layer_masks(
                         x, head_num=self.att_head_num, mode=self.meta_mode,
-                        **drop))
+                        **drop), clamp=False)
         flat = x.reshape(x.shape[0], -1)
         if self.layout.dense_dim > 0 and "dense" in batch:
             flat = torch.cat([flat, batch["dense"]], dim=1)

@@ -9,7 +9,8 @@ parallel, one ``nvcc`` each.
 
 Nothing here runs at import time; this machine needs ``nvcc`` only when a
 kernel is first launched or :func:`build` is called.  Every wrapper in
-``ops/`` reaches its kernel through :func:`kernel_fn`.
+``ops/`` reaches its kernel through :func:`kernel_fn`, and checks its
+operands with the helpers below.
 """
 
 from __future__ import annotations
@@ -32,6 +33,7 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 _LIBS: dict[str, ctypes.CDLL] = {}
+_SM_COUNT: dict[int, int] = {}
 _FNS: dict[str, ctypes._CFuncPtr] = {}
 # nvcc's output (including ptxas register and spill counts) per source
 build_log: dict[str, str] = {}
@@ -133,3 +135,35 @@ def check_rows(arrays: Sequence[torch.Tensor], ids: torch.Tensor,
     if ids.dtype != torch.int64 or ids.dim() != 1 or \
             not ids.is_contiguous():
         raise ValueError(f"{what}: ids must be a contiguous int64 vector")
+
+
+def sm_count(device: torch.device) -> int:
+    """Streaming multiprocessors of the CUDA ``device``."""
+    dev = device.index if device.index is not None \
+        else torch.cuda.current_device()
+    if dev not in _SM_COUNT:
+        _SM_COUNT[dev] = torch.cuda.get_device_properties(
+            dev).multi_processor_count
+    return _SM_COUNT[dev]
+
+
+def check_operands(ops: Sequence[torch.Tensor], device,
+                   ints: Sequence[torch.Tensor] = ()) -> None:
+    """Raise unless every operand lies contiguous on ``device``, those in
+    ``ints`` int32 and the rest float32 and 16-byte aligned (the layer
+    kernels read them as float4)."""
+    for t in ops:
+        want = torch.int32 if any(t is i for i in ints) else torch.float32
+        if t.device != device or t.dtype != want or not t.is_contiguous() \
+                or (want == torch.float32 and t.data_ptr() % 16):
+            raise ValueError(
+                "operands must lie contiguous on one device, dom int32, "
+                "the rest float32 and 16-byte aligned")
+
+
+def needs_grad(x: torch.Tensor, layer: torch.nn.Module, tables) -> bool:
+    """Whether a layer's call must be differentiable: grad mode is on and
+    ``x``, a parameter of ``layer`` or a table requires a gradient."""
+    return torch.is_grad_enabled() and (
+        x.requires_grad or any(p.requires_grad for p in layer.parameters())
+        or any(t.requires_grad for t in tables.values()))

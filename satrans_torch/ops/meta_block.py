@@ -42,7 +42,8 @@ import torch
 from ..nn import attention, metanet
 from ..nn.attention import MetaTransformerLayer
 from . import prng
-from ._build import kernel_fn, stream_of
+from ._build import (check_operands, kernel_fn, needs_grad, sm_count,
+                     stream_of)
 
 # (d, h, heads) instantiated in csrc/meta_block_{fwd,bwd}.cu, and the most
 # fields an example may have
@@ -57,22 +58,24 @@ launches = 0            # K1-fwd
 stash_launches = 0      # K1-stash
 bwd_launches = 0        # K1-bwd
 stash_bwd_launches = 0  # K1-bwd-stash
-_sm_count: dict[int, int] = {}
 
 
 def meta_layer_reference(x, layer: MetaTransformerLayer, tables, dom, *,
                          meta_units: Sequence[int], head_num: int,
                          mode: str = "QK", relu_out: bool = False,
-                         masks=None, residuals: dict | None = None):
+                         masks=None, residuals: dict | None = None,
+                         clamp: bool = True):
     """Plain PyTorch version of the kernels.  ``x`` ``[B, F, d]``;
     ``tables`` ``{'Q': [D, P], 'K': [D, P]}`` per-domain flat MetaNet
     params; ``dom`` ``[B]`` rows of the tables, in ``[0, D)``; ``masks``
     from :func:`layer_masks`; ``residuals`` receives K1-stash's
-    (``nn.attention.meta_transformer_apply``)."""
+    (``nn.attention.meta_transformer_apply``).  The attention logits are
+    clamped to [-60, 60] as in the kernels; ``clamp=False`` is the JAX
+    package's XLA layer, which does not clamp."""
     return attention.meta_transformer_apply(
         layer, x, tables, meta_units, mode=mode, head_num=head_num,
         relu_out=relu_out, domain_ids=dom.long(), dense_select=False,
-        masks=masks, residuals=residuals)
+        masks=masks, residuals=residuals, clamp=clamp)
 
 
 def layer_masks(x, *, head_num: int, mode: str, train: bool,
@@ -101,10 +104,16 @@ def bwd_mode(bwd: str | None = None) -> str:
     return bwd
 
 
-def _needs_grad(x, layer, tables) -> bool:
-    return torch.is_grad_enabled() and (
-        x.requires_grad or any(p.requires_grad for p in layer.parameters())
-        or any(t.requires_grad for t in tables.values()))
+def check_stash_dtype() -> None:
+    """The JAX package's ``SATRANS_STASH`` rule (meta_block.py:1432-1435):
+    'f32' (the default) is the port's stash; 'bf16' is not ported."""
+    dtype = os.environ.get("SATRANS_STASH", "f32")
+    if dtype == "bf16":
+        raise NotImplementedError(
+            "SATRANS_STASH=bf16 (the bf16 residual stash) is ROADMAP queue 2 "
+            "item 'K1 in bf16'")
+    if dtype != "f32":
+        raise ValueError(f"unknown stash dtype {dtype!r}")
 
 
 def _meta_operands(tables, key: str, meta_units):
@@ -144,19 +153,6 @@ def _check(x, meta_units, head_num: int, tables, train: bool) -> None:
                 "rows are ROADMAP queue 2 item 'K1-bwd for many meta rows'")
 
 
-def _check_operands(ops, device, ints=()) -> None:
-    """Raise unless every operand lies contiguous on ``device``, those in
-    ``ints`` int32 and the rest float32 and 16-byte aligned (the kernels
-    read them as float4)."""
-    for t in ops:
-        want = torch.int32 if any(t is i for i in ints) else torch.float32
-        if t.device != device or t.dtype != want or not t.is_contiguous() \
-                or (want == torch.float32 and t.data_ptr() % 16):
-            raise ValueError(
-                "operands must lie contiguous on one device, dom int32, "
-                "the rest float32 and 16-byte aligned")
-
-
 def launch_fwd(x, dom, wqkv, w1q, w2q, lnq, w1k, w2k, lnk, wout, lno, cfg,
                drop, stash: bool = False):
     """K1-fwd: the layer's output for packed operands; with ``stash``,
@@ -165,7 +161,7 @@ def launch_fwd(x, dom, wqkv, w1q, w2q, lnq, w1k, w2k, lnk, wout, lno, cfg,
     h, heads, apply_q, apply_k, relu_out = cfg
     B, F, d = x.shape
     ops = (x, dom, wqkv, w1q, w2q, lnq, w1k, w2k, lnk, wout, lno)
-    _check_operands(ops, x.device, ints=(dom,))
+    check_operands(ops, x.device, ints=(dom,))
     y = torch.empty_like(x)
     res = ()
     if stash:
@@ -208,13 +204,8 @@ def launch_bwd(g, x, dom, wqkv, w1q, w2q, lnq, w1k, w2k, lnk, wout, lno,
     w1q_t, w2q_t = (w.transpose(1, 2).contiguous() for w in (w1q, w2q))
     w1k_t, w2k_t = ((w1q_t, w2q_t) if w1k is w1q and w2k is w2q else
                     (w.transpose(1, 2).contiguous() for w in (w1k, w2k)))
-    dev = x.device.index if x.device.index is not None \
-        else torch.cuda.current_device()
-    if dev not in _sm_count:
-        _sm_count[dev] = torch.cuda.get_device_properties(
-            dev).multi_processor_count
     # tiles of two examples
-    blocks = min(BWD_BLOCKS_PER_SM * _sm_count[dev], (B + 1) // 2)
+    blocks = min(BWD_BLOCKS_PER_SM * sm_count(x.device), (B + 1) // 2)
     total = kernel_fn("meta_block_bwd", "satrans_meta_block_bwd_grad_floats",
                       [ctypes.c_int] * 3)(d, h, D)
     dx = torch.empty_like(x)
@@ -223,14 +214,14 @@ def launch_bwd(g, x, dom, wqkv, w1q, w2q, lnq, w1k, w2k, lnk, wout, lno,
     grads = torch.empty(total, dtype=torch.float32, device=x.device)
     ops = (x, dom, g, wqkv, wqkv_t, w1q, w2q, w1q_t, w2q_t, lnq, w1k, w2k,
            w1k_t, w2k_t, lnk, wout, wout_t, lno, dx, partial, grads)
-    _check_operands(ops, x.device, ints=(dom,))
+    check_operands(ops, x.device, ints=(dom,))
     if res is not None:
         shapes = [(B, F, 3 * d), (B, F, d), (B, F, d), (B, heads, F, F),
                   (B, F, d)]
         if [tuple(r.shape) for r in res] != shapes:
             raise ValueError(f"residuals of shapes "
                              f"{[tuple(r.shape) for r in res]}, want {shapes}")
-        _check_operands(res, x.device)
+        check_operands(res, x.device)
     fn = kernel_fn("meta_block_bwd", "satrans_meta_block_bwd",
                    [ctypes.c_void_p] * 26 + [ctypes.c_int] * 11
                    + [ctypes.c_uint, ctypes.c_uint, ctypes.c_float]
@@ -339,6 +330,7 @@ def fused_meta_layer(x, layer: MetaTransformerLayer, tables, dom, *,
     gradient needed on the card, ``bwd`` ('stash' or 'recompute', see
     :func:`bwd_mode`) picks the kernel pair."""
     bwd = bwd_mode(bwd)
+    check_stash_dtype()
     if x.device.type == "cpu":
         masks = layer_masks(x, head_num=head_num, mode=mode, train=train,
                             drop_rate=drop_rate, seed=seed, block_b=block_b)
@@ -348,7 +340,7 @@ def fused_meta_layer(x, layer: MetaTransformerLayer, tables, dom, *,
                                     relu_out=relu_out, masks=masks)
     if x.device.type != "cuda":
         raise ValueError(f"no meta_block kernel for device {x.device}")
-    grad = _needs_grad(x, layer, tables)
+    grad = needs_grad(x, layer, tables)
     _check(x, meta_units, head_num, tables, grad)
     ops, cfg = pack_operands(x, layer, tables, dom, meta_units=meta_units,
                              head_num=head_num, mode=mode, relu_out=relu_out)

@@ -16,7 +16,7 @@ in uint32 arithmetic, where ``idx`` is its row-major index in the draw's
 shape on the JAX kernel's tile, and it is kept when the bits are at least
 ``int(rate * 2**32)``; a kept element is scaled by
 ``float32(1) / float32(1 - rate)``.  The tile is ``block_b`` examples of
-``F_pad`` fields (F rounded up to 8); the N-shaped draws are
+``F_pad`` fields (:func:`pad_fields`); the N-shaped draws are
 ``[block_b * F_pad, d]`` and each head's probability draw is
 ``[block_b / g, g * F_pad, g * F_pad]``, ``g`` examples packed
 block-diagonally (:func:`attn_group`).  Padded fields count in ``idx``.
@@ -30,22 +30,30 @@ compute each element's mask inline with the same hash
 
 from __future__ import annotations
 
+import os
+
 import torch
 
-PAD_FIELDS = 8   # the JAX package's SATRANS_PAD_F default (meta_block.py:1417)
-ATTN_CAP = 128   # its SATRANS_ATTN_CAP default (meta_block.py:211-212)
 _M32 = 0xFFFFFFFF
 
 
-def pad_fields(F: int) -> int:
-    """F rounded up to the TPU kernel's field multiple."""
-    return F + (-F) % PAD_FIELDS
+def pad_fields(F: int, mult: int | None = None) -> int:
+    """F rounded up to the JAX kernel's field multiple ``mult``; ``None``
+    reads ``SATRANS_PAD_F`` now (default 8), as the JAX package's
+    ``fused_meta_layer_vjp`` does at trace time (meta_block.py:1417-1418).
+    A multiple of 1 or less means no padding."""
+    if mult is None:
+        mult = int(os.environ.get("SATRANS_PAD_F", "8"))
+    return F + (-F) % mult if mult > 1 else F
 
 
-def attn_group(block_b: int, f_pad: int, cap: int = ATTN_CAP) -> int:
+def attn_group(block_b: int, f_pad: int, cap: int | None = None) -> int:
     """Examples packed per block-diagonal attention draw: the largest
-    divisor ``g`` of ``block_b`` with ``g * f_pad <= cap`` (twin of
-    ``_attn_group``, meta_block.py:198-217)."""
+    divisor ``g`` of ``block_b`` with ``g * f_pad <= cap``; ``None`` reads
+    ``SATRANS_ATTN_CAP`` now (default 128; twin of ``_attn_group``,
+    meta_block.py:198-217)."""
+    if cap is None:
+        cap = int(os.environ.get("SATRANS_ATTN_CAP", "128"))
     best = 1
     for g in range(1, block_b + 1):
         if block_b % g == 0 and g * f_pad <= cap:
@@ -93,13 +101,14 @@ def _bits(idx: torch.Tensor, seed_mix: torch.Tensor, salt: int):
 
 def dropout_masks(seed: int, B: int, F: int, d: int, heads: int,
                   block_b: int, rate: float, apply_q: bool, apply_k: bool,
-                  device="cpu"):
+                  device="cpu", pad_mult: int | None = None):
     """``(m_yq, m_yk, m_s, m_z)``: float32 masks (0 or the keep scale) of
     the real rows, ``[B, F, d]`` for the MetaNet outputs and the output
     projection and ``[B, H, F, F]`` for the probabilities; an unapplied
     projection's mask is ``None``.  Example ``b`` lies in tile
-    ``b // block_b``."""
-    f_pad = pad_fields(F)
+    ``b // block_b``; the tile's fields are padded to ``pad_mult``
+    (:func:`pad_fields`)."""
+    f_pad = pad_fields(F, pad_mult)
     g = attn_group(block_b, f_pad)
     n = g * f_pad
     thr, scale = threshold(rate), keep_scale(rate)
@@ -130,11 +139,13 @@ def dropout_masks(seed: int, B: int, F: int, d: int, heads: int,
     return m_yq, m_yk, m_s, mask(idx_n, sz)
 
 
-def kernel_args(train: bool, rate: float, seed: int, block_b: int, F: int):
+def kernel_args(train: bool, rate: float, seed: int, block_b: int, F: int,
+                pad_mult: int | None = None):
     """The kernels' dropout operands ``(on, seed, threshold, scale,
-    block_b, F_pad, g)``; ``on`` is 0 outside training or at rate 0."""
+    block_b, F_pad, g)``, for the layout of :func:`dropout_masks`; ``on``
+    is 0 outside training or at rate 0."""
     if not (train and rate > 0.0):
         return (0, 0, 0, 1.0, 1, 1, 1)
-    f_pad = pad_fields(F)
+    f_pad = pad_fields(F, pad_mult)
     return (1, int(seed) & _M32, threshold(rate), keep_scale(rate), block_b,
             f_pad, attn_group(block_b, f_pad))

@@ -7,10 +7,12 @@ sum (:class:`SingleTask`), the model's full-table embedding L2
 (``model.reg_loss()``) and Adam over every parameter, the bank included.
 On the card each meta-transformer layer runs K1-stash forward and
 K1-bwd-stash backward, or K1-fwd and K1-bwd under
-``SATRANS_BWD=recompute`` (``ops/meta_block.py``).  Each step draws one
-dropout seed per layer from the Trainer's own generator, seeded with
-``seed + 1`` at every ``fit`` (the twin of the JAX Trainer's
-``step_rng``; the numbers differ, see :meth:`Trainer.step_seeds`).
+``SATRANS_BWD=recompute`` (``ops/meta_block.py``); the gate and bilinear
+variants' layers run K6 (``ops/gate_block.py``).  Each step draws one
+dropout seed per layer as the JAX Trainer does: its key ``PRNGKey(seed +
+1)``, set at every ``fit``, is split each step and layer ``i`` gets
+``randint(fold_in(sub, i))`` (``ops/threefry.py``, the JAX package's
+numbers; :meth:`Trainer.step_seeds`).
 Adam is ``torch.optim.Adam`` with ``eps`` outside the square root, the
 same update as ``optax.adam``, in its fused form: one pass over each
 parameter, its gradient and its moments (the 841 MB AliCCP bank makes
@@ -43,6 +45,7 @@ import numpy as np
 import torch
 
 from . import bank_optimizer, callbacks as cb, losses, metrics as metrics_lib
+from ..ops import threefry
 from ..utils import resolve_device
 
 _MODES = ("auto", "dense", "fused", "fused_eq", "lazy", "lazy_stale")
@@ -84,7 +87,7 @@ class Trainer:
         self._bank_mode = "dense"
         self._eq_plan = None
         self._lazy = None
-        self._step_gen = torch.Generator().manual_seed(self.seed + 1)
+        self._step_key = threefry.PRNGKey(self.seed + 1)
 
     # ------------------------------------------------------------------
     def compile(self, optimizer="adam", loss="binary_crossentropy",
@@ -156,12 +159,13 @@ class Trainer:
         return np.pad(arr, [(0, target - n)] + [(0, 0)] * (arr.ndim - 1))
 
     def step_seeds(self) -> list[int]:
-        """The next step's dropout seeds, one per layer, uniform in
-        ``[0, 2**31 - 1)`` (the JAX Trainer draws its own with
-        ``jax.random``; a test replaces this method to feed those)."""
+        """The next step's dropout seeds, one per layer: the step key is
+        split, ``step_key, sub = split(step_key)``, and layer ``i`` gets
+        ``randint(fold_in(sub, i))`` in ``[0, 2**31 - 1)``, the JAX
+        Trainer's seeds (trainer.py:616, :655)."""
         n = len(getattr(self.model, "layers", ()))
-        return torch.randint(0, 2 ** 31 - 1, (n,),
-                             generator=self._step_gen).tolist()
+        self._step_key, sub = threefry.split(self._step_key)
+        return threefry.layer_seeds(sub, n)
 
     def loss_terms(self, batch, y, weight, seeds=None):
         """``(total, data loss, reg loss, aux loss)`` of one batch in train
@@ -239,7 +243,7 @@ class Trainer:
                   f"{steps} steps per epoch")
 
         rng_np = np.random.default_rng(self.seed)
-        self._step_gen.manual_seed(self.seed + 1)
+        self._step_key = threefry.PRNGKey(self.seed + 1)
         for epoch in range(epochs):
             callback_list.on_epoch_begin(epoch)
             t0 = time.time()

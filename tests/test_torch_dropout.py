@@ -13,7 +13,7 @@ against it:
   against ``fused_meta_layer_vjp(interpret=True, train=True,
   drop_rate=0.1, bwd='stash')``, forward and every gradient, at rtol 2e-4
   / atol 2e-5 (float32 sums in another order, and the Pallas kernel's
-  logit clamp against the port's max subtraction);
+  softmax without the max pass against the port's max subtraction);
 * two ``fit`` steps (the second a padded tail) in ``dense`` and ``lazy``
   against the JAX ``Trainer`` on its interpret-mode kernels, with the JAX
   Trainer's per-layer seeds fed to the port's: losses at rtol 1e-5, every
@@ -25,6 +25,7 @@ against it:
 
 import dataclasses
 import functools
+import os
 
 import numpy as np
 import pytest
@@ -46,10 +47,17 @@ from test_torch_meta_block_grad import (HEADS, TOL, _assert_same,
 RATE = 0.1
 
 
-def _jax_masks(seed, B, F, d, heads, block_b, apply_q, apply_k):
+def _jax_masks(seed, B, F, d, heads, block_b, apply_q, apply_k,
+               pad_mult=None):
     """The masks the interpret-mode kernels draw, tile by tile, cut to the
-    real rows and fields: ``{site: [B, F, d] or [B, H, F, F]}``."""
-    fp = prng.pad_fields(F)
+    real rows and fields: ``{site: [B, F, d] or [B, H, F, F]}``.  The
+    tile's fields are padded to ``pad_mult``, by default as the JAX
+    ``fused_meta_layer_vjp`` reads ``SATRANS_PAD_F`` (meta_block.py:
+    1417-1418); the attention group follows ``SATRANS_ATTN_CAP`` inside
+    ``_attn_group``."""
+    if pad_mult is None:
+        pad_mult = int(os.environ.get("SATRANS_PAD_F", "8"))
+    fp = F + ((-F) % pad_mult if pad_mult > 1 else 0)
     g = jmb._attn_group(block_b, fp)
     n, rows = g * fp, block_b * fp
     out = {"q": [], "k": [], "s": [], "z": []}
@@ -155,30 +163,10 @@ def test_fit_at_dropout_matches_jax_trainer(mode):
     y = np.random.default_rng(5).integers(0, 2, 24).astype(np.float32)
     j_steps, j_params, _ = _jax_fit(jm, params, x, y, mode)
 
-    tr = TorchTrainer(tm, seed=7, device="cpu")  # _jax_fit's seed
-    tr.compile(learning_rate=0.01, bank_update=mode)
-    seeds = iter(_jax_step_seeds(7, 2, len(tm.layers)))
-    tr.step_seeds = lambda: next(seeds)
-    steps = []
-    step = tr.train_step
-
-    def record(*args):
-        stats = step(*args)
-        steps.append({k: float(v) for k, v in stats.items()})
-        return stats
-
-    tr.train_step = record
-    tr.fit(x, y, batch_size=16, epochs=1, verbose=0)
-
-    assert len(j_steps) == len(steps) == 2
-    for js, ts in zip(j_steps, steps):
-        assert js["count"] == ts["count"]
-        for k in ("loss", "reg_loss"):
-            np.testing.assert_allclose(ts[k], js[k], rtol=1e-5, err_msg=k)
-    got = tm.state_dict()
-    for name, w in bridge.from_jax_params(j_params, tm).items():
-        np.testing.assert_allclose(got[name].numpy(), w.numpy(), atol=5e-5,
-                                   rtol=1e-3, err_msg=name)
+    seeds = iter(_jax_step_seeds(7, 2, len(tm.layers)))  # _jax_fit's seed
+    steps = tp.port_fit(tm, x, y, mode, step_seeds=lambda: next(seeds))
+    assert len(steps) == 2
+    tp.assert_fit_matches(j_steps, j_params, steps, tm)
 
 
 def test_keep_share_at_the_aliccp_shape():

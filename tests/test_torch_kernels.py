@@ -2,9 +2,11 @@
 the layer forward (K1-fwd) and the stash forward (K1-stash, with its
 residuals) against ``meta_layer_reference``, both layer backwards (K1-bwd
 and K1-bwd-stash) against autograd of it, each without and with dropout
-(the same masks on both sides), and the row kernels of the sparse bank
-updates (K2 scatter, K3 equality combine, K4 gather, K5 lazy Adam tail)
-against theirs.
+(the same masks on both sides) and with logits past the clamp, the gate
+and bilinear layer (K6-fwd, K6-bwd) against ``simple_layer_reference``
+and its autograd, and the row kernels of the sparse bank updates (K2
+scatter, K3 equality combine, K4 gather, K5 lazy Adam tail) against
+theirs.
 
 Every test here needs an NVIDIA GPU and skips itself elsewhere.  The file
 imports neither JAX nor the JAX package, so it also runs on a machine that
@@ -20,7 +22,7 @@ import pytest
 import torch
 
 from satrans_torch.nn import attention, initializers as init, metanet
-from satrans_torch.ops import meta_block, prng
+from satrans_torch.ops import gate_block, meta_block, prng
 from satrans_torch.utils import make_generator
 
 MODES = [("QK", False), ("QK", True), ("Query", False), ("Query", True)]
@@ -189,6 +191,130 @@ def test_meta_block_bwd_kernel_matches_plain_backward(card, mode, relu_out,
     assert launched == ([0, 1, 0, 1] if bwd == "stash" else [1, 0, 1, 0])
     want = _grads(meta_block.meta_layer_reference, x.double(), layer64,
                   table.double(), dom, g, **kw, masks=masks64)
+    assert set(got) == set(want)
+    for name, w in want.items():
+        err = (got[name].double() - w).abs().max().item()
+        assert err <= 1e-4 * w.abs().max().item() + 1e-5, (name, err)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bwd", ["stash", "recompute"])
+def test_meta_block_kernels_clamp_logits(card, bwd):
+    """With the meta LayerNorm scaled 6 times, a share of the attention
+    logits passes 60: both K1 forwards and both backwards against the
+    clamped plain layer in float64 (the clamp's gradient passes straight
+    through), at the tolerances above; the unclamped plain layer differs."""
+    gen, layer, table = _layer(card, 3)
+    with torch.no_grad():
+        layer.q_meta.ln.scale.mul_(6.0)
+    B, F = 257, 19
+    x = init.normal(gen, (B, F, 32), 1.0)
+    g = init.normal(gen, (B, F, 32), 1.0)
+    dom = torch.randint(0, 4, (B,), generator=gen, device=card)
+    kw = dict(meta_units=[32, 64, 32], head_num=4, mode="QK",
+              relu_out=False)
+    layer64 = copy.deepcopy(layer).double()
+    g = _kink_free(g.double(), x.double(), layer64, table.double(), dom,
+                   None, **kw)
+    with torch.no_grad():
+        y = meta_block.fused_meta_layer(x, layer, {"Q": table, "K": table},
+                                        dom, **kw)
+        args = (x.double(), layer64, {"Q": table.double(),
+                                      "K": table.double()}, dom)
+        want = meta_block.meta_layer_reference(*args, **kw)
+        free = meta_block.meta_layer_reference(*args, **kw, clamp=False)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(y.double(), want, rtol=1e-4, atol=1e-4)
+    assert (want - free).abs().max().item() > 1e-2
+    got = _grads(meta_block.fused_meta_layer, x, layer, table, dom,
+                 g.float(), **kw, train=True, bwd=bwd)
+    want = _grads(meta_block.meta_layer_reference, x.double(), layer64,
+                  table.double(), dom, g, **kw)
+    for name, w in want.items():
+        err = (got[name].double() - w).abs().max().item()
+        assert err <= 1e-4 * w.abs().max().item() + 1e-5, (name, err)
+
+
+# --- K6, the gate and bilinear layer ------------------------------------
+
+GATE_CASES = [("gate", "QK", False), ("gate", "Query", True),
+              ("bilinear", "QK", False), ("bilinear", "QK", True)]
+
+
+def _gate_layer(card, variant, seed):
+    """A gate or bilinear layer and its 4-row tables (distinct Q and K
+    gates)."""
+    gen = make_generator(seed, card)
+    layer = attention.MetaTransformerLayer(gen, 32, variant=variant)
+    names = ("Q", "K") if variant == "gate" else ("bilinear",)
+    width = 32 if variant == "gate" else 32 * 8
+    return gen, layer, {n: init.normal(gen, (4, width), 0.5)
+                        for n in names}
+
+
+def _gate_grads(fn, x, layer, tables, dom, g, **kw):
+    """Gradients of sum(fn(...) * g) by name: x, the tables, the layer's
+    parameters (an unread table has none)."""
+    x = x.detach().requires_grad_(True)
+    tables = {k: t.detach().requires_grad_(True) for k, t in tables.items()}
+    params = dict(layer.named_parameters())
+    y = fn(x, layer, tables, dom, **kw)
+    names = ["x", *(f"table.{k}" for k in tables), *params]
+    got = torch.autograd.grad((y * g).sum(),
+                              [x, *tables.values(), *params.values()],
+                              allow_unused=True)
+    return {n: gr for n, gr in zip(names, got) if gr is not None}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+@pytest.mark.parametrize("variant,mode,relu_out", GATE_CASES)
+@pytest.mark.parametrize("B,F", [(33, 7), (8190, 19)])
+def test_gate_block_kernels_match_plain_version(card, variant, mode,
+                                                relu_out, B, F, rate):
+    """K6-fwd (without a gradient) and K6-fwd + K6-bwd (through the
+    autograd wrapper) against the plain layer in float64 with the same
+    masks, at a small and a ragged full-width batch: the output within
+    1e-4, each gradient within 1e-4 of its largest entry plus 1e-5 (sums
+    over up to B * F rows in another order).  Examples whose output
+    projection lies within 1e-6 of the relu kink get no upstream
+    gradient."""
+    gen, layer, tables = _gate_layer(card, variant, 5)
+    x = init.normal(gen, (B, F, 32), 1.0)
+    g = init.normal(gen, (B, F, 32), 1.0)
+    dom = torch.randint(0, 4, (B,), generator=gen, device=card)
+    kw = dict(head_num=4, mode=mode, relu_out=relu_out)
+    drop = dict(train=True, drop_rate=rate, **DROP)
+    masks = gate_block.layer_masks(x, head_num=4, **drop)
+    masks64 = masks and tuple(None if m is None else m.double()
+                              for m in masks)
+    layer64 = copy.deepcopy(layer).double()
+    tables64 = {k: t.double() for k, t in tables.items()}
+    if relu_out:
+        res = {}
+        with torch.no_grad():
+            attention.meta_transformer_apply(
+                layer64, x.double(), tables64, (), mode=mode, head_num=4,
+                relu_out=True, domain_ids=dom, masks=masks64, clamp=True,
+                residuals=res)
+            near = ((res["o"] @ layer64.wout).abs() < 1e-6).flatten(1).any(1)
+        g = g.masked_fill(near[:, None, None], 0.0)
+    before = (gate_block.launches, gate_block.bwd_launches)
+    with torch.no_grad():
+        y = gate_block.fused_simple_layer(x, layer, tables, dom, **kw,
+                                          **drop)
+        want = gate_block.simple_layer_reference(
+            x.double(), layer64, tables64, dom, **kw, masks=masks64)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(y.double(), want, rtol=1e-4, atol=1e-4)
+    got = _gate_grads(gate_block.fused_simple_layer, x, layer, tables, dom,
+                      g, **kw, **drop)
+    torch.cuda.synchronize()
+    assert (gate_block.launches, gate_block.bwd_launches) == (
+        before[0] + 2, before[1] + 1)
+    want = _gate_grads(gate_block.simple_layer_reference, x.double(),
+                       layer64, tables64, dom, g.double(), **kw,
+                       masks=masks64)
     assert set(got) == set(want)
     for name, w in want.items():
         err = (got[name].double() - w).abs().max().item()

@@ -100,10 +100,12 @@ def test_synthetic_data_is_the_same():
 
 
 @pytest.mark.parametrize("kw", [
-    dict(use_pos=True), dict(variant="gate"), dict(only_emb=True),
+    dict(use_pos=True), dict(variant="gate", use_pos=True),
+    dict(variant="bilinear", use_pos=True),
     dict(meta_dnn_hidden_units=(16, 16, 8)), dict(compute_dtype="bfloat16"),
     dict(domain_cols=["domain", "f0"], num_domains_list=[3, 3]),
-], ids=["pos", "gate", "onlyemb", "3-matrix", "bf16", "multi-column"])
+], ids=["pos", "gate-pos", "bilinear-pos", "3-matrix", "bf16",
+        "multi-column"])
 def test_unported_variants_raise(kw):
     layout = satrans_torch.FeatureLayout(tp.columns(satrans_torch))
     args = tp.model_kwargs()

@@ -78,3 +78,43 @@ def jax_and_port(mode="QK", relu_out=False, combiner="max", seed=0,
         cols(satrans_torch, combiner)), **kw, device="cpu")
     tm.load_state_dict(bridge.from_jax_params(params, tm))
     return jm, params, tm
+
+
+def port_fit(tm, x, y, mode, *, step_seeds=None, lr=0.01, seed=7,
+             batch_size=16):
+    """One epoch of the port's ``Trainer.fit`` on the CPU (``seed`` is the
+    one ``test_torch_bank_train._jax_fit`` gives the JAX Trainer); returns
+    each step's statistics as floats.  ``step_seeds`` replaces the
+    Trainer's per-step dropout seeds."""
+    from satrans_torch.train import Trainer
+    tr = Trainer(tm, seed=seed, device="cpu")
+    tr.compile(learning_rate=lr, bank_update=mode)
+    if step_seeds is not None:
+        tr.step_seeds = step_seeds
+    steps = []
+    step = tr.train_step
+
+    def record(*args):
+        stats = step(*args)
+        steps.append({k: float(v) for k, v in stats.items()})
+        return stats
+
+    tr.train_step = record
+    tr.fit(x, y, batch_size=batch_size, epochs=1, verbose=0)
+    return steps
+
+
+def assert_fit_matches(j_steps, j_params, steps, tm):
+    """The port's steps and parameters against the JAX Trainer's: the data
+    and reg losses at rtol 1e-5, every parameter at atol 5e-5 / rtol 1e-3
+    (tests/test_torch_train.py's tolerances)."""
+    from satrans_torch import bridge
+    assert len(j_steps) == len(steps)
+    for js, ts in zip(j_steps, steps):
+        assert js["count"] == ts["count"]
+        for k in ("loss", "reg_loss"):
+            np.testing.assert_allclose(ts[k], js[k], rtol=1e-5, err_msg=k)
+    got = tm.state_dict()
+    for name, w in bridge.from_jax_params(j_params, tm).items():
+        np.testing.assert_allclose(got[name].numpy(), w.numpy(), atol=5e-5,
+                                   rtol=1e-3, err_msg=name)
