@@ -9,17 +9,19 @@ Phases, each of which exits non-zero on failure:
 2. hold each layer forward kernel against its plain PyTorch version on
    the card at the AliCCP sota widths (B=8192 and a ragged 8190, F=19,
    d=32, 4 heads, 4 meta rows, MetaNet 32->64->32), in meta modes QK and
-   Query with relu_out off and on: K1-fwd, and K1-stash's output and every
-   residual, at dropout 0 and (B=8192) at dropout 0.1 with the same masks
-   on both sides; check the keep share of every dropout site (0.9 within
-   0.005) and time the kernels and the plain version with CUDA events;
+   Query with relu_out off and on: K1-fwd, and the output and every
+   residual of K1-stash and of K1-stash light, at dropout 0 and (B=8192)
+   at dropout 0.1 with the same masks on both sides; check the keep share
+   of every dropout site (0.9 within 0.005) and time the kernels and the
+   plain version with CUDA events;
 3. serve 3 requests of 20,000 examples through satrans_torch.serving's
    Predictor at batch 8192 with SATrans at the AliCCP sota width (19
    fields with the real vocab sizes, an ~841 MB embedding bank on the
    card), count the kernel's launches (K1-fwd only, never K1-stash), and
    compare the scores with the same model on its plain path;
-4. hold both backward kernels (K1-bwd after K1-fwd, K1-bwd-stash after
-   K1-stash) against autograd of the plain layer with the same masks at
+4. hold the three backward kernels (K1-bwd after K1-fwd, K1-bwd-stash
+   after K1-stash, K1-bwd-stash light after K1-stash light) against
+   autograd of the plain layer with the same masks at
    the same widths and modes, every gradient, at B=8192 at dropout 0 and
    0.1 and at B=8190 at dropout 0 (the examples with a relu input within
    1e-6 of its kink get no upstream gradient: rounding may flip its
@@ -59,7 +61,21 @@ Phases, each of which exits non-zero on failure:
    dropout 0.1 for 12 steps and a tail (exactly 3 K6-fwd and 3 K6-bwd
    launches a step, no K1): one step's gradients kernel vs plain path, a
    finite and falling loss, trained examples/s, the staged step and a
-   torch.profiler breakdown of one step.
+   torch.profiler breakdown of one step;
+10. the Alimama sota-pos configuration (``SATrans(use_pos=True)``: 15
+   sparse fields with the public vocab sizes and the dense price column,
+   per-layer Q and K MetaNet tables and a k_meta LayerNorm): (a) every K1
+   body against the plain layer at its widths (B=8192 at dropout 0 and
+   0.1, the ragged 8190 at 0; F=15) with distinct Q and K tables, the
+   light backward against the full one on the same residuals (within
+   1e-6 of each gradient's largest entry), each body timed with its bound
+   at F=15, and K6 with distinct Q and K gates; (b) one request of 20,000
+   examples through Predictor (exactly 3 K1-fwd a batch); (c) ``lazy``
+   training at lr 0.001 and dropout 0.1 for 12 steps and a tail, once with
+   bwd='stash' and once with bwd='stash_light' (exactly 3 + 3 launches of
+   the arm's pair a step and the lazy row kernels', gradients kernel vs
+   plain path, a falling loss, v_meta bit-identical, examples/s, staged
+   step, profile), and the two stashes' staged steps in turns.
 
 Phases 2 and 4 also hold K1 where a share of the attention logits passes
 the kernels' clamp at 60 against the clamped plain layer.
@@ -104,9 +120,17 @@ GRAD_RTOL, GRAD_ATOL = 1e-4, 1e-5
 TRAIN_STEPS, TRAIN_LR = 24, 0.005
 TRAIN_ROWS = (TRAIN_STEPS - 1) * BATCH + 5000  # the last batch is a tail
 TAIL = TRAIN_ROWS - (TRAIN_STEPS - 1) * BATCH
-# the gate and bilinear arms: 12 full steps and the tail
-GATE_STEPS = 13
-GATE_ROWS = (GATE_STEPS - 1) * BATCH + TAIL
+# the lazy arms of phases 9 and 10: 12 full steps and the tail
+ARM_STEPS = 13
+ARM_ROWS = (ARM_STEPS - 1) * BATCH + TAIL
+# the Alimama sota-pos configuration (phase 10): its 15 fields and the
+# bench.py arm's learning rate
+ALIMAMA_F = 15
+POS_LR = 0.001
+# K1-bwd-stash light against K1-bwd-stash on the same residuals, as a share
+# of each gradient's largest entry (the same probabilities: bit for bit is
+# expected)
+STASH_LIGHT_RTOL = 1e-6
 # one instruction per lane and cycle over the card: half the float32 FLOP
 # rate, which counts a multiply-add as two operations
 PEAK_INSTRUCTIONS = PEAK_F32_FLOPS / 2
@@ -117,16 +141,29 @@ EQGEMM_RTOL = 1e-5
 # fused against dense after 3 steps: the tolerance of the CPU parity tests
 # (Adam's sign-like first step amplifies float32 round-off)
 PARAM_TOL = dict(atol=5e-5, rtol=1e-3)
+# the layer kernels' launch counters in ops/meta_block.py, and the names
+# of their kernels in the JSON line
+K1_COUNTS = ("launches", "stash_launches", "bwd_launches",
+             "stash_bwd_launches", "stash_light_launches",
+             "stash_light_bwd_launches")
+K1_NAMES = ("meta_block_fwd", "meta_block_fwd_stash", "meta_block_bwd",
+            "meta_block_bwd_stash", "meta_block_fwd_stash_light",
+            "meta_block_bwd_stash_light")
+# each backward's pair of K1 bodies a layer, in K1_COUNTS order
+K1_PAIR = {"recompute": (1, 0, 1, 0, 0, 0), "stash": (0, 1, 0, 1, 0, 0),
+           "stash_light": (0, 0, 0, 0, 1, 1)}
+NO_K1 = (0,) * len(K1_COUNTS)
 # the sparse training arms: (name, bank_update, SATRANS_LAZY_TAIL) and the
 # launches a step of K4 gather, K2 scatter, K3 eqgemm, K5 lazy tail
-# the layer kernels' launch counters in ops/meta_block.py
-K1_COUNTS = ("launches", "stash_launches", "bwd_launches",
-             "stash_bwd_launches")
 SPARSE_ARMS = (("fused", "fused", None, (2, 1, 0, 0)),
                ("fused_eq", "fused_eq", None, (2, 1, 1, 0)),
                ("lazy", "lazy", None, (2, 1, 1, 0)),
                ("lazy_fused_tail", "lazy", "fused", (1, 0, 1, 1)))
 ROW_KERNELS = ("gather", "scatter", "eqgemm", "lazy_tail")
+ROW_NAMES = ("gather_rows", "scatter_rows_set", "eqgemm_positions",
+             "lazy_adam_rows")
+# the row kernels' launches a step in 'lazy' (the split tail)
+LAZY_ROWS_PER_STEP = SPARSE_ARMS[2][3]
 
 
 def check(ok: bool, what: str) -> None:
@@ -181,42 +218,48 @@ def _weight_floats(d, h, meta_rows):
     return 4 * d * d + meta_rows * 2 * d * h + 6 * d
 
 
-def _residual_floats(F, d, heads):
-    """K1-stash's residuals of one example: qkv, uq, uk, s, o."""
-    return F * 3 * d + 2 * F * d + heads * F * F + F * d
+def _residual_floats(F, d, heads, stash="full"):
+    """The residuals of one example: qkv, uq, uk and o, and in the full
+    stash the probabilities s."""
+    return F * 3 * d + 3 * F * d + (heads * F * F if stash == "full" else 0)
 
 
 def meta_layer_bound_ms(B, F, d, h, heads, meta_rows, apply_q, apply_k,
-                        stash=False):
+                        stash=None):
     """Least time for one layer forward: its float32 FMA work, and its
     bytes (x in, y out, dom and the weights read once; with ``stash``
-    K1-stash's residuals written).  The dropout hash's integer work (about
-    46 k operations an example, 11 us at B=8192 over the card's 33.5 T
-    int32 operations a second) is under a fifth of the float time and left
-    out.  Returns (ms, bound_by)."""
+    'full' or 'light' the residuals of K1-stash or K1-stash light
+    written).  The dropout hash's integer work (about 46 k operations an
+    example, 11 us at B=8192 over the card's 33.5 T int32 operations a
+    second) is under a fifth of the float time and left out.  Returns
+    (ms, bound_by)."""
     nbytes = 4 * (2 * B * F * d + B + _weight_floats(d, h, meta_rows))
     if stash:
-        nbytes += 4 * B * _residual_floats(F, d, heads)
+        nbytes += 4 * B * _residual_floats(F, d, heads, stash)
     return _bound(B * _layer_flops(F, d, h, apply_q, apply_k), nbytes)
 
 
 def meta_layer_bwd_bound_ms(B, F, d, h, heads, meta_rows, apply_q, apply_k,
-                            stash=False):
+                            stash=None):
     """Least time for the layer's backward: K1-bwd recomputes the forward
-    (its operations), K1-bwd-stash only the MetaNet hidden layers (2Fdh an
-    applied MetaNet) and zlin = o @ Wout (2Fd^2) and reads the residuals;
-    then dWout and do (2 x 2Fd^2), the attention backward (dv, dP, dq, dk:
-    4 x 2F^2 d), per applied MetaNet dW2, dhid, dW1 and dt0 (4 x 2Fdh), and
-    dWqkv and dx (2 x 6Fd^2).  Bytes are x, g and dom in, dx out, the
-    weights in and their gradients out, and the residuals in."""
+    (its operations); K1-bwd-stash (``stash='full'``) only the MetaNet
+    hidden layers (2Fdh an applied MetaNet) and zlin = o @ Wout (2Fd^2),
+    and reads the residuals; K1-bwd-stash light (``'light'``) also the
+    logits q k^T (2F^2 d), and reads the residuals but s.  Then dWout and
+    do (2 x 2Fd^2), the attention backward (dv, dP, dq, dk: 4 x 2F^2 d),
+    per applied MetaNet dW2, dhid, dW1 and dt0 (4 x 2Fdh), and dWqkv and dx
+    (2 x 6Fd^2).  Bytes are x, g and dom in, dx out, the weights in and
+    their gradients out, and the residuals in."""
     n_meta = apply_q + apply_k
     again = (n_meta * 2 * F * d * h + 2 * F * d * d if stash
              else _layer_flops(F, d, h, apply_q, apply_k))
+    if stash == "light":
+        again += 2 * F * F * d
     backward = (4 * F * d * d + 8 * F * F * d + n_meta * 8 * F * d * h
                 + 12 * F * d * d)
     nbytes = 4 * (3 * B * F * d + B + 2 * _weight_floats(d, h, meta_rows))
     if stash:
-        nbytes += 4 * B * _residual_floats(F, d, heads)
+        nbytes += 4 * B * _residual_floats(F, d, heads, stash)
     return _bound(B * (again + backward), nbytes)
 
 
@@ -293,7 +336,7 @@ def clamp_forward_case(dev):
     kargs = prng.kernel_args(True, DROP_RATE, DROP_SEED, DROP_TILE, F)
     with torch.no_grad():
         y = meta_block.fused_meta_layer(x, layer, tables, dom, **kw, **drop)
-        st = meta_block.launch_fwd(*ops, cfg, kargs, stash=True)[0]
+        st = meta_block.launch_fwd(*ops, cfg, kargs, stash="full")[0]
         ref = meta_block.meta_layer_reference(x, layer, tables, dom, **kw,
                                               masks=masks)
         free = meta_block.meta_layer_reference(x, layer, tables, dom, **kw,
@@ -321,9 +364,9 @@ def drop_kw(rate):
 
 
 def kernel_phase(dev):
-    """K1-fwd and K1-stash against the plain version at full width, and the
-    keep share of every dropout site.  Returns the JSON fields measured,
-    by kernel."""
+    """K1-fwd, K1-stash and K1-stash light against the plain version at
+    full width, and the keep share of every dropout site.  Returns the
+    JSON fields measured, by kernel."""
     from satrans_torch.nn import initializers as init
     from satrans_torch.ops import meta_block, prng
 
@@ -331,9 +374,10 @@ def kernel_phase(dev):
     units = [d, h, d]
     gen, layer, table = test_layer(dev, SEED)
     tables = {"Q": table, "K": table}
-    worst = {"fwd": 0.0, "stash": 0.0}
+    worst = {"fwd": 0.0, "stash": 0.0, "light": 0.0}
     out = {}
     names = ("y", "qkv", "uq", "uk", "s", "o")
+    light_names = ("y", "qkv", "uq", "uk", "o")
     for B in (BATCH, BATCH - 2):
         x = init.normal(gen, (B, F, d), 1.0)
         dom = torch.randint(0, rows, (B,), generator=gen, device=dev)
@@ -354,7 +398,9 @@ def kernel_phase(dev):
                         y = meta_block.fused_meta_layer(x, layer, tables,
                                                         dom, **kw, **drop)
                         st = meta_block.launch_fwd(*ops, cfg, kargs,
-                                                   stash=True)
+                                                   stash="full")
+                        lt = meta_block.launch_fwd(*ops, cfg, kargs,
+                                                   stash="light")
                         ref = meta_block.meta_layer_reference(
                             x, layer, tables, dom, **kw, masks=masks,
                             residuals=res)
@@ -362,21 +408,31 @@ def kernel_phase(dev):
                     want = (ref, *(res[n] for n in names[1:]))
                     errs = {n: (g - w).abs().max().item()
                             for n, g, w in zip(names, st, want)}
+                    light_want = dict(zip(names, want))
+                    light_errs = {n: (g - light_want[n]).abs().max().item()
+                                  for n, g in zip(light_names, lt)}
                     err = (y - ref).abs().max().item()
                     worst["fwd"] = max(worst["fwd"], err)
                     worst["stash"] = max(worst["stash"], *errs.values())
+                    worst["light"] = max(worst["light"],
+                                         *light_errs.values())
                     line = (f"kernel meta_block_fwd B={B} mode={mode} "
                             f"relu_out={relu_out} dropout={rate}: "
                             f"max_abs_err={err:.3e}; stash max_abs_err "
                             + " ".join(f"{n} {e:.3e}"
-                                       for n, e in errs.items()))
+                                       for n, e in errs.items())
+                            + "; light stash "
+                            + " ".join(f"{n} {e:.3e}"
+                                       for n, e in light_errs.items()))
                     if B == BATCH and mode == "QK" and not relu_out:
                         # the serving (rate 0) and training configurations
                         with torch.no_grad():
                             k_ms = time_ms(lambda: meta_block.launch_fwd(
                                 *ops, cfg, kargs), iters=50)
                             s_ms = time_ms(lambda: meta_block.launch_fwd(
-                                *ops, cfg, kargs, stash=True), iters=50)
+                                *ops, cfg, kargs, stash="full"), iters=50)
+                            l_ms = time_ms(lambda: meta_block.launch_fwd(
+                                *ops, cfg, kargs, stash="light"), iters=50)
                             p_ms = time_ms(
                                 lambda: meta_block.meta_layer_reference(
                                     x, layer, tables, dom, **kw,
@@ -385,9 +441,10 @@ def kernel_phase(dev):
                         b_ms, b_by = meta_layer_bound_ms(B, F, d, h, heads,
                                                          rows, *a)
                         sb_ms, sb_by = meta_layer_bound_ms(
-                            B, F, d, h, heads, rows, *a, stash=True)
+                            B, F, d, h, heads, rows, *a, stash="full")
                         line += (f"; K1-fwd kernel_ms={k_ms:.4f} K1-stash "
-                                 f"kernel_ms={s_ms:.4f} plain_ms={p_ms:.4f} "
+                                 f"kernel_ms={s_ms:.4f} K1-stash light "
+                                 f"kernel_ms={l_ms:.4f} plain_ms={p_ms:.4f} "
                                  f"bound_ms={b_ms:.4f} ({b_by}), stash "
                                  f"{sb_ms:.4f} ({sb_by})")
                         out[("fwd", rate)] = dict(ms=k_ms, plain_ms=p_ms,
@@ -395,6 +452,7 @@ def kernel_phase(dev):
                         out[("stash", rate)] = dict(ms=s_ms, plain_ms=p_ms,
                                                     bound_ms=sb_ms,
                                                     bound_by=sb_by)
+                        out[("light", rate)] = dict(ms=l_ms)
                     print(line, flush=True)
                     tol = KERNEL_TOL
                     check(bool(torch.isfinite(y).all()) and torch.allclose(
@@ -408,6 +466,16 @@ def kernel_phase(dev):
                               f"version's (B={B} mode={mode} relu_out="
                               f"{relu_out} dropout={rate}, max_abs_err "
                               f"{errs[n]}, tolerance {tol})")
+                    check(len(lt) == len(light_names),
+                          f"K1-stash light returned {len(lt)} tensors")
+                    for n, g in zip(light_names, lt):
+                        check(bool(torch.isfinite(g).all())
+                              and torch.allclose(g, light_want[n], **tol),
+                              f"K1-stash light's {n} disagrees with the "
+                              f"plain version's (B={B} mode={mode} "
+                              f"relu_out={relu_out} dropout={rate}, "
+                              f"max_abs_err {light_errs[n]}, tolerance "
+                              f"{tol})")
     clamp_err = clamp_forward_case(dev)
     worst["fwd"] = max(worst["fwd"], clamp_err)
     worst["stash"] = max(worst["stash"], clamp_err)
@@ -426,10 +494,12 @@ def kernel_phase(dev):
                          dropout_ms=out[("fwd", DROP_RATE)]["ms"]),
                 stash=dict(max_abs_err=worst["stash"],
                            **out[("stash", DROP_RATE)],
-                           no_dropout_ms=out[("stash", 0.0)]["ms"]))
+                           no_dropout_ms=out[("stash", 0.0)]["ms"]),
+                light=dict(max_abs_err=worst["light"],
+                           aliccp_ms=out[("light", DROP_RATE)]["ms"]))
 
 
-def kink_free(g, x, layer, table, dom, masks, **kw):
+def kink_free(g, x, layer, tables, dom, masks, **kw):
     """``g`` with zero rows for the examples whose relu inputs (the
     MetaNet hidden layers, and the output projection under relu_out) lie
     within 1e-6 of 0: float32 rounding may put such an input on either
@@ -440,14 +510,14 @@ def kink_free(g, x, layer, table, dom, masks, **kw):
     from satrans_torch.ops import meta_block
     res = {}
     with torch.no_grad():
-        meta_block.meta_layer_reference(x, layer, {"Q": table, "K": table},
-                                        dom, **kw, masks=masks,
-                                        residuals=res)
+        meta_block.meta_layer_reference(x, layer, tables, dom, **kw,
+                                        masks=masks, residuals=res)
         d = x.shape[-1]
-        w1 = metanet.slice_weights(table, kw["meta_units"])[0][dom.long()]
-        pre = [torch.einsum("bfi,bio->bfo",
-                            res["qkv"][..., i * d:(i + 1) * d], w1)
-               for i, p in enumerate("QK") if p in kw["mode"]]
+        pre = [torch.einsum(
+            "bfi,bio->bfo", res["qkv"][..., i * d:(i + 1) * d],
+            metanet.slice_weights(tables[p], kw["meta_units"])[0][
+                dom.long()])
+            for i, p in enumerate("QK") if p in kw["mode"]]
         if kw["relu_out"]:
             pre.append(res["o"] @ layer.wout)
         near = torch.zeros(x.shape[0], dtype=torch.bool, device=x.device)
@@ -456,21 +526,35 @@ def kink_free(g, x, layer, table, dom, masks, **kw):
     return g.masked_fill(near[:, None, None], 0.0), int(near.sum())
 
 
-def layer_grads(fn, x, layer, table, dom, g, **kw):
-    """Gradients of sum(fn(...) * g) by name: x, the table, the layer's
-    parameters."""
+def shared(table):
+    """The Q and K tables of a non-'pos' layer: one tensor."""
+    return {"Q": table, "K": table}
+
+
+def layer_grads(fn, x, layer, tables, dom, g, **kw):
+    """Gradients of sum(fn(...) * g) by name: x, the tables ('table' where
+    Q and K share one, else 'table.Q' and 'table.K'), the layer's
+    parameters (v_meta, never applied, has none)."""
     x = x.detach().requires_grad_(True)
-    table = table.detach().requires_grad_(True)
+    if tables["K"] is tables["Q"]:
+        named = {"table": tables["Q"].detach().requires_grad_(True)}
+        tabs = shared(named["table"])
+    else:
+        named = {f"table.{k}": tables[k].detach().requires_grad_(True)
+                 for k in "QK"}
+        tabs = {k: named[f"table.{k}"] for k in "QK"}
     params = dict(layer.named_parameters())
-    y = fn(x, layer, {"Q": table, "K": table}, dom, **kw)
-    got = torch.autograd.grad((y * g).sum(), [x, table, *params.values()],
+    y = fn(x, layer, tabs, dom, **kw)
+    names = ["x", *named, *params]
+    got = torch.autograd.grad((y * g).sum(),
+                              [x, *named.values(), *params.values()],
                               allow_unused=True)
-    return {n: gr for n, gr in zip(["x", "table", *params], got)
-            if gr is not None}
+    return {n: gr for n, gr in zip(names, got) if gr is not None}
 
 
 def clamp_backward_case(dev):
-    """Both K1 backwards against autograd of the clamped plain layer where
+    """The three K1 backwards against autograd of the clamped plain layer
+    where
     a share of the logits passes 60 (B=8192, QK, dropout 0.1; the clamp
     passes the gradient straight through).  Returns the worst error by
     backward."""
@@ -485,14 +569,14 @@ def clamp_backward_case(dev):
               relu_out=False)
     drop = drop_kw(DROP_RATE)
     masks = meta_block.layer_masks(x, head_num=heads, mode="QK", **drop)
-    g, kinks = kink_free(g, x, layer, table, dom, masks, **kw)
-    want = layer_grads(meta_block.meta_layer_reference, x, layer, table, dom,
-                       g, **kw, masks=masks)
+    g, kinks = kink_free(g, x, layer, shared(table), dom, masks, **kw)
+    want = layer_grads(meta_block.meta_layer_reference, x, layer,
+                       shared(table), dom, g, **kw, masks=masks)
     share = logit_share_past_clamp(x, layer, table, dom, **kw)
     out = {}
-    for bwd in ("recompute", "stash"):
-        got = layer_grads(meta_block.fused_meta_layer, x, layer, table, dom,
-                          g, **kw, **drop, bwd=bwd)
+    for bwd in meta_block.BWD_MODES:
+        got = layer_grads(meta_block.fused_meta_layer, x, layer,
+                          shared(table), dom, g, **kw, **drop, bwd=bwd)
         torch.cuda.synchronize()
         errs = grad_errors(got, want)
         out[bwd] = max(errs.values())
@@ -505,17 +589,20 @@ def clamp_backward_case(dev):
 
 
 def backward_phase(dev):
-    """K1-bwd and K1-bwd-stash against autograd of the plain layer at full
-    width with the same masks, the examples at a relu kink given no
-    upstream gradient (:func:`kink_free`).  Returns the JSON fields
-    measured, by kernel."""
+    """K1-bwd, K1-bwd-stash and K1-bwd-stash light against autograd of the
+    plain layer at full width with the same masks, the examples at a relu
+    kink given no upstream gradient (:func:`kink_free`).  Returns the JSON
+    fields measured, by kernel."""
     from satrans_torch.nn import initializers as init
     from satrans_torch.ops import meta_block, prng
 
     F, d, h, heads, rows = 19, 32, 64, 4, 4
     units = [d, h, d]
     gen, layer, table = test_layer(dev, SEED + 1)
-    worst = {"recompute": 0.0, "stash": 0.0}
+    worst = dict.fromkeys(meta_block.BWD_MODES, 0.0)
+    # the residuals each backward reads, out of K1-stash's
+    pick = {"recompute": None, "stash": (0, 1, 2, 3, 4),
+            "stash_light": (0, 1, 2, 4)}
     out = {}
     for B in (BATCH, BATCH - 2):
         x = init.normal(gen, (B, F, d), 1.0)
@@ -529,10 +616,10 @@ def backward_phase(dev):
                     drop = drop_kw(rate)
                     masks = meta_block.layer_masks(x, head_num=heads,
                                                    mode=mode, **drop)
-                    g, kinks = kink_free(g_all, x, layer, table, dom, masks,
-                                         **kw)
+                    g, kinks = kink_free(g_all, x, layer, shared(table),
+                                         dom, masks, **kw)
                     want = layer_grads(meta_block.meta_layer_reference, x,
-                                       layer, table, dom, g, **kw,
+                                       layer, shared(table), dom, g, **kw,
                                        masks=masks)
                     main = B == BATCH and mode == "QK" and not relu_out
                     if main:  # the training configuration
@@ -551,10 +638,10 @@ def backward_phase(dev):
                         kargs = prng.kernel_args(True, rate, DROP_SEED,
                                                  DROP_TILE, F)
                         res = meta_block.launch_fwd(*ops, cfg, kargs,
-                                                    stash=True)[1:]
-                    for bwd in ("recompute", "stash"):
+                                                    stash="full")[1:]
+                    for bwd in meta_block.BWD_MODES:
                         got = layer_grads(meta_block.fused_meta_layer, x,
-                                          layer, table, dom, g, **kw,
+                                          layer, shared(table), dom, g, **kw,
                                           **drop, bwd=bwd)
                         torch.cuda.synchronize()
                         errs = grad_errors(got, want)
@@ -566,12 +653,15 @@ def backward_phase(dev):
                                 f"{max(errs, key=errs.get)}; {kinks} "
                                 f"examples at a kink left out)")
                         if main:
-                            r = res if bwd == "stash" else None
+                            r = None if pick[bwd] is None else [
+                                res[i] for i in pick[bwd]]
                             k_ms = time_ms(lambda: meta_block.launch_bwd(
                                 g, *ops, cfg, kargs, res=r), iters=20)
                             b_ms, b_by = meta_layer_bwd_bound_ms(
                                 B, F, d, h, heads, rows, "Q" in mode,
-                                "K" in mode, stash=bwd == "stash")
+                                "K" in mode, stash={"stash": "full",
+                                                    "stash_light": "light"}
+                                .get(bwd))
                             line += (f" kernel_ms={k_ms:.4f} plain_ms="
                                      f"{p_ms:.4f} bound_ms={b_ms:.4f} "
                                      f"({b_by})")
@@ -585,7 +675,7 @@ def backward_phase(dev):
         worst[bwd] = max(worst[bwd], err)
     return {bwd: dict(max_abs_err=worst[bwd], **out[(bwd, DROP_RATE)],
                       no_dropout_ms=out[(bwd, 0.0)]["ms"])
-            for bwd in ("recompute", "stash")}
+            for bwd in meta_block.BWD_MODES}
 
 
 def device_ops(prof):
@@ -667,7 +757,7 @@ def serving_phase(dev, card):
     scores = [pred(x) for x in reqs]
     wall = time.perf_counter() - t0
     launches = meta_block.launches
-    check(k1_counts() == (LAYERS * batches, 0, 0, 0),
+    check(k1_counts() == (LAYERS * batches,) + NO_K1[1:],
           f"serving launched {k1_counts()} ({', '.join(K1_COUNTS)}), want "
           f"K1-fwd only, {LAYERS} layers x {batches} batches")
     for s in scores:
@@ -833,7 +923,7 @@ def training_arm(dev, card, bwd):
     trainer and the timed fit's K1 launch counts."""
     model, trainer = training_model(dev, "dense")
     x, y = training_data()
-    per_step = (0, 1, 0, 1) if bwd == "stash" else (1, 0, 1, 0)
+    per_step = K1_PAIR[bwd]
 
     # one step's gradients, kernel path against plain path (the same
     # masks: the layers' fixed seeds)
@@ -851,7 +941,7 @@ def training_arm(dev, card, bwd):
         grads[use_kernel] = {n: p.grad.clone()
                              for n, p in model.named_parameters()}
         want = tuple(LAYERS * c for c in per_step) if use_kernel \
-            else (0, 0, 0, 0)
+            else NO_K1
         check(k1_counts() == want,
               f"one step ({bwd}) launched {k1_counts()} "
               f"({', '.join(K1_COUNTS)}), want {want}")
@@ -910,7 +1000,7 @@ def eval_check(trainer, card):
     check(all(np.isfinite(v) for v in res.values()),
           f"evaluate gave {res}")
     launched = k1_counts()
-    want = (2 * LAYERS * -(-REQUEST_ROWS // BATCH), 0, 0, 0)
+    want = (2 * LAYERS * -(-REQUEST_ROWS // BATCH),) + NO_K1[1:]
     check(launched == want, f"predict and evaluate launched {launched} "
           f"({', '.join(K1_COUNTS)}), want {want}")
     print(f"train [{card}]: evaluate on {REQUEST_ROWS} random examples: "
@@ -1151,15 +1241,12 @@ def sparse_training_phase(dev, card):
                     batch_size=BATCH, verbose=0)  # warmup: two steps
         wall, step_loss, epoch_loss = timed_fit(trainer, x, y)
         got = (*k1_counts(), *(m.launches for m in mods))
-        want = (0, LAYERS * TRAIN_STEPS, 0, LAYERS * TRAIN_STEPS,
+        want = (*(LAYERS * TRAIN_STEPS * c for c in K1_PAIR["stash"]),
                 *(c * TRAIN_STEPS for c in per_step))
         check(got == want, f"{arm}: {TRAIN_STEPS} steps launched {got} "
-                           f"(K1-fwd, K1-stash, K1-bwd, K1-bwd-stash, "
+                           f"({', '.join(K1_COUNTS)}, "
                            f"{', '.join(ROW_KERNELS)}), want {want}")
-        launched[arm] = dict(zip(("meta_block_fwd", "meta_block_fwd_stash",
-                                  "meta_block_bwd", "meta_block_bwd_stash",
-                                  "gather_rows", "scatter_rows_set",
-                                  "eqgemm_positions", "lazy_adam_rows"), got))
+        launched[arm] = dict(zip(K1_NAMES + ROW_NAMES, got))
         per_ex = step_loss[:-1] / BATCH
         print(f"train {arm} [{card}]: {TRAIN_ROWS} examples in "
               f"{TRAIN_STEPS} steps of {BATCH} (last a tail of {TAIL}): "
@@ -1378,7 +1465,7 @@ def gate_serving(dev, card, variant):
     scores = pred(req)
     wall = time.perf_counter() - t0
     launched = k6_counts()
-    check(launched == (LAYERS * batches, 0) and k1_counts() == (0, 0, 0, 0),
+    check(launched == (LAYERS * batches, 0) and k1_counts() == NO_K1,
           f"serving {variant} launched K6 {launched} and K1 {k1_counts()}, "
           f"want K6-fwd only, {LAYERS} layers x {batches} batches")
     check(scores.shape == (REQUEST_ROWS,) and bool(
@@ -1405,17 +1492,24 @@ def gate_serving(dev, card, variant):
     return launched[0]
 
 
-def gate_training(dev, card, variant):
-    """Train the AliCCP sota model of ``variant`` in ``lazy`` (dropout 0.1)
-    for GATE_STEPS steps and a tail: one step's gradients kernel vs plain
-    path, exactly 3 K6-fwd and 3 K6-bwd launches a step (and the lazy row
-    kernels, no K1), a finite falling loss, trained examples/s, the staged
-    step and a profile of one step.  Returns the launches by kernel."""
+# the layer kernels' launch counts: K6-fwd, K6-bwd, then K1's
+LAYER_NAMES = ("gate_block_fwd", "gate_block_bwd") + K1_NAMES
+
+
+def layer_counts():
+    return (*k6_counts(), *k1_counts())
+
+
+def lazy_arm(card, label, model, trainer, x, y, per_step):
+    """Train ``model`` with its ``lazy`` ``trainer`` (dropout 0.1) for one
+    epoch of ``x`` (ARM_STEPS steps, the last a tail): one step's gradients
+    kernel vs plain path, exactly ``per_step`` launches a step of each
+    layer kernel (in LAYER_NAMES order) and the lazy row kernels', a finite
+    falling loss, the parameters that get no gradient bit-identical after
+    the epoch, trained examples/s, the staged step, the host queue time and
+    a profile of one step.  Returns (the staged batch, the launches by
+    kernel, the names of the parameters with no gradient)."""
     from satrans_torch.ops import eqgemm, gather, lazy_tail, scatter
-    model, trainer = training_model(dev, "lazy", variant)
-    x, y = training_data()
-    x = {k: v[:GATE_ROWS] for k, v in x.items()}
-    y = y[:GATE_ROWS]
     batch, yb, wb = staged_batch(trainer, x, y)
     model.train()
     grads = {}
@@ -1428,54 +1522,69 @@ def gate_training(dev, card, variant):
         torch.cuda.synchronize()
         check(bool(torch.isfinite(total)), "training loss not finite")
         grads[use_kernel] = {n: p.grad.clone()
-                             for n, p in model.named_parameters()}
-        want = (LAYERS, LAYERS) if use_kernel else (0, 0)
-        check(k6_counts() == want and k1_counts() == (0, 0, 0, 0),
-              f"one {variant} step launched K6 {k6_counts()} and K1 "
-              f"{k1_counts()}, want K6 {want}")
+                             for n, p in model.named_parameters()
+                             if p.grad is not None}
+        want = tuple(LAYERS * c * use_kernel for c in per_step)
+        check(layer_counts() == want,
+              f"one {label} step launched {layer_counts()} "
+              f"({', '.join(LAYER_NAMES)}), want {want}")
     model.use_kernel = True
     errs = grad_errors(grads[True], grads[False])
     worst = max(errs, key=errs.get)
-    print(f"train {variant} [{card}]: one step's gradients at dropout "
+    print(f"train {label} [{card}]: one step's gradients at dropout "
           f"{DROP_RATE}, kernel path vs plain path: max_abs_err "
           f"{errs[worst]:.3e} ({worst})", flush=True)
+    frozen = {n: p.detach().clone() for n, p in model.named_parameters()
+              if n not in grads[True]}
     del grads
     model.zero_grad(set_to_none=True)
 
     trainer.fit({k: v[:2 * BATCH] for k, v in x.items()}, y[:2 * BATCH],
                 batch_size=BATCH, verbose=0)  # warmup: two steps
-    wall, step_loss, epoch_loss = timed_fit(trainer, x, y, GATE_STEPS)
+    wall, step_loss, epoch_loss = timed_fit(trainer, x, y, ARM_STEPS)
     mods = (gather, scatter, eqgemm, lazy_tail)
-    got = (*k6_counts(), *k1_counts(), *(m.launches for m in mods))
-    want = (LAYERS * GATE_STEPS, LAYERS * GATE_STEPS, 0, 0, 0, 0,
-            2 * GATE_STEPS, GATE_STEPS, GATE_STEPS, 0)
-    check(got == want, f"{variant}: {GATE_STEPS} lazy steps launched {got} "
-                       f"(K6-fwd, K6-bwd, {', '.join(K1_COUNTS)}, "
-                       f"{', '.join(ROW_KERNELS)}), want {want}")
+    got = (*layer_counts(), *(m.launches for m in mods))
+    want = (*(LAYERS * ARM_STEPS * c for c in per_step),
+            *(c * ARM_STEPS for c in LAZY_ROWS_PER_STEP))
+    check(got == want, f"{label}: {ARM_STEPS} steps launched {got} "
+                       f"({', '.join(LAYER_NAMES + ROW_NAMES)}), want {want}")
+    params = dict(model.named_parameters())
+    check(all(torch.equal(params[n], v) for n, v in frozen.items()),
+          f"{label}: a parameter with no gradient moved ({sorted(frozen)})")
     per_ex = step_loss[:-1] / BATCH
-    print(f"train {variant} lazy [{card}]: {GATE_ROWS} examples in "
-          f"{GATE_STEPS} steps of {BATCH} (last a tail of {TAIL}) at dropout "
-          f"{DROP_RATE}: {wall:.4f}s, {GATE_ROWS / wall:.1f} trained "
-          f"examples/s, {1e3 * wall / GATE_STEPS:.3f} ms/step; launches "
+    print(f"train {label} [{card}]: {len(y)} examples in {ARM_STEPS} steps "
+          f"of {BATCH} (last a tail of {TAIL}) at dropout {DROP_RATE}, lr "
+          f"{trainer._lr}: {wall:.4f}s, {len(y) / wall:.1f} trained "
+          f"examples/s, {1e3 * wall / ARM_STEPS:.3f} ms/step; launches "
           f"{got}; loss per example step 1 {per_ex[0]:.6f} step "
-          f"{GATE_STEPS - 1} {per_ex[-1]:.6f}; epoch loss {epoch_loss:.6f}",
+          f"{ARM_STEPS - 1} {per_ex[-1]:.6f}; epoch loss {epoch_loss:.6f}; "
+          f"{len(frozen)} parameters without a gradient bit-identical",
           flush=True)
     step_ms = time_ms(lambda: trainer.train_step(batch, yb, wb), iters=10)
     queue_ms = host_ms(lambda: trainer.train_step(batch, yb, wb))
-    print(f"train {variant} lazy [{card}]: train_step on a staged batch "
+    print(f"train {label} [{card}]: train_step on a staged batch "
           f"{step_ms:.3f} ms/step, {1e3 * BATCH / step_ms:.1f} examples/s; "
           f"the host queues a step in {queue_ms:.3f} ms", flush=True)
-    device_profile(f"{variant} lazy: one training step of {BATCH} examples",
+    device_profile(f"{label}: one training step of {BATCH} examples",
                    lambda: trainer.train_step(batch, yb, wb), step_ms, card,
                    top=16)
-    del model, trainer, batch
+    return (batch, yb, wb), dict(zip(LAYER_NAMES + ROW_NAMES, got)), \
+        sorted(frozen)
+
+
+def gate_training(dev, card, variant):
+    """Train the AliCCP sota model of ``variant`` in ``lazy`` (dropout
+    0.1, :func:`lazy_arm`): exactly 3 K6-fwd and 3 K6-bwd launches a step
+    and no K1.  Returns the launches by kernel."""
+    model, trainer = training_model(dev, "lazy", variant)
+    x, y = training_data()
+    _, launched, _ = lazy_arm(card, f"{variant} lazy", model, trainer,
+                              {k: v[:ARM_ROWS] for k, v in x.items()},
+                              y[:ARM_ROWS], (1, 1) + NO_K1)
+    del model, trainer
     gc.collect()
     torch.cuda.empty_cache()
-    return dict(zip(("gate_block_fwd", "gate_block_bwd", "meta_block_fwd",
-                     "meta_block_fwd_stash", "meta_block_bwd",
-                     "meta_block_bwd_stash", "gather_rows",
-                     "scatter_rows_set", "eqgemm_positions",
-                     "lazy_adam_rows"), got))
+    return launched
 
 
 def gate_paths_phase(dev, card):
@@ -1488,6 +1597,346 @@ def gate_paths_phase(dev, card):
         gc.collect()
         torch.cuda.empty_cache()
         paths[f"train_{variant}_lazy"] = gate_training(dev, card, variant)
+    return paths
+
+
+def pos_test_layer(dev, seed):
+    """A 'pos' layer (its q_meta and k_meta LayerNorms moved off their
+    (1, 0) init, each its own way), its distinct 4-row Q and K tables, and
+    the generator after them."""
+    from satrans_torch.nn import attention, initializers as init, metanet
+    from satrans_torch.utils import make_generator
+    gen = make_generator(seed, dev)
+    layer = attention.MetaTransformerLayer(gen, 32, share_kv_metanet=False)
+    with torch.no_grad():
+        for meta in (layer.q_meta, layer.k_meta):
+            meta.ln.scale.add_(init.normal(gen, (32,), 0.1))
+            meta.ln.bias.add_(init.normal(gen, (32,), 0.1))
+    p = metanet.param_size([32, 64, 32])
+    return gen, layer, {k: init.normal(gen, (4, p), 0.1) for k in "QK"}
+
+
+def pos_kernel_phase(dev):
+    """Phase 10a: every K1 body against its plain version at the Alimama
+    widths (B=8192 at dropout 0 and 0.1, the ragged 8190 at 0; F=15, QK)
+    with distinct Q and K tables and a k_meta LayerNorm of its own: the
+    forward's output and each stash's residuals, the three backwards'
+    gradients against autograd of the plain layer (examples at a relu
+    kink given no upstream gradient), and K1-bwd-stash light against
+    K1-bwd-stash on the same residuals (within STASH_LIGHT_RTOL of each
+    gradient's largest entry); each body timed with its bound at F=15.
+    Then a gate layer with distinct Q and K gates at the same widths.
+    Returns the JSON fields measured, by kernel name."""
+    from satrans_torch.nn import initializers as init
+    from satrans_torch.ops import gate_block, meta_block, prng
+
+    F, d, h, heads, rows = ALIMAMA_F, 32, 64, 4, 4
+    gen, layer, tables = pos_test_layer(dev, SEED + 20)
+    check(not torch.equal(layer.k_meta.ln.scale, layer.q_meta.ln.scale)
+          and not torch.equal(tables["Q"], tables["K"]),
+          "the pos test layer's Q and K operands are not distinct")
+    kw = dict(meta_units=[d, h, d], head_num=heads, mode="QK",
+              relu_out=False)
+    names = dict(zip(("full", "light"), (("qkv", "uq", "uk", "s", "o"),
+                                         ("qkv", "uq", "uk", "o"))))
+    bwd_name = dict(zip(meta_block.BWD_MODES, (
+        "meta_block_bwd_stash", "meta_block_bwd_stash_light",
+        "meta_block_bwd")))
+    worst = dict.fromkeys(K1_NAMES, 0.0)
+    light_gap = 0.0
+    out = {}
+    for B in (BATCH, BATCH - 2):
+        x = init.normal(gen, (B, F, d), 1.0)
+        g_all = init.normal(gen, (B, F, d), 1.0)
+        dom = torch.randint(0, rows, (B,), generator=gen, device=dev)
+        for rate in (0.0, DROP_RATE) if B == BATCH else (0.0,):
+            drop = drop_kw(rate)
+            masks = meta_block.layer_masks(x, head_num=heads, mode="QK",
+                                           **drop)
+            ops, cfg = meta_block.pack_operands(x, layer, tables, dom, **kw)
+            ops = [t.detach() for t in ops]
+            kargs = prng.kernel_args(True, rate, DROP_SEED, DROP_TILE, F)
+            res = {}
+            with torch.no_grad():
+                y = meta_block.fused_meta_layer(x, layer, tables, dom, **kw,
+                                                **drop)
+                st = {s: meta_block.launch_fwd(*ops, cfg, kargs, stash=s)
+                      for s in ("full", "light")}
+                ref = meta_block.meta_layer_reference(
+                    x, layer, tables, dom, **kw, masks=masks, residuals=res)
+            torch.cuda.synchronize()
+            errs = {"meta_block_fwd": (y - ref).abs().max().item()}
+            for s, name in (("full", "meta_block_fwd_stash"),
+                            ("light", "meta_block_fwd_stash_light")):
+                got, want = st[s], (ref, *(res[n] for n in names[s]))
+                check(len(got) == len(want), f"stash {s} returned "
+                      f"{len(got)} tensors, want {len(want)}")
+                errs[name] = max((a - b).abs().max().item()
+                                 for a, b in zip(got, want))
+                for n, a, b in zip(("y", *names[s]), got, want):
+                    check(bool(torch.isfinite(a).all()) and torch.allclose(
+                        a, b, **KERNEL_TOL), f"{name}'s {n} disagrees with "
+                        f"the plain version's at the Alimama widths (B={B} "
+                        f"dropout={rate}, tolerance {KERNEL_TOL})")
+            check(torch.allclose(y, ref, **KERNEL_TOL), f"K1-fwd disagrees "
+                  f"with the plain pos layer (B={B} dropout={rate}, "
+                  f"max_abs_err {errs['meta_block_fwd']})")
+            g, kinks = kink_free(g_all, x, layer, tables, dom, masks, **kw)
+            want = layer_grads(meta_block.meta_layer_reference, x, layer,
+                               tables, dom, g, **kw, masks=masks)
+            for bwd, name in bwd_name.items():
+                got = layer_grads(meta_block.fused_meta_layer, x, layer,
+                                  tables, dom, g, **kw, **drop, bwd=bwd)
+                torch.cuda.synchronize()
+                e = grad_errors(got, want)
+                errs[name] = max(e.values())
+                check(not any(n.startswith("v_meta") for n in got)
+                      and not torch.allclose(got["table.Q"], got["table.K"]),
+                      f"{name}: v_meta got a gradient, or the Q and K "
+                      "tables' gradients agree")
+            # the light backward against the full one on the same
+            # residuals: the probabilities are recomputed with the
+            # forward's device code, so bit for bit is expected
+            full_res = st["full"][1:]
+            light_res = [full_res[i] for i in (0, 1, 2, 4)]
+            gf = meta_block.launch_bwd(g, *ops, cfg, kargs, res=full_res)
+            gl = meta_block.launch_bwd(g, *ops, cfg, kargs, res=light_res)
+            torch.cuda.synchronize()
+            gaps = [(a - b).abs().max().item() / b.abs().max().item()
+                    for a, b in zip(gl, gf)]
+            same = sum(torch.equal(a, b) for a, b in zip(gl, gf))
+            light_gap = max(light_gap, *gaps)
+            check(max(gaps) <= STASH_LIGHT_RTOL, f"K1-bwd-stash light "
+                  f"differs from K1-bwd-stash on the same residuals by "
+                  f"{max(gaps)} of a gradient's largest entry (B={B} "
+                  f"dropout={rate})")
+            for n, e in errs.items():
+                worst[n] = max(worst[n], e)
+            line = (f"kernel pos B={B} F={F} dropout={rate}: " + ", ".join(
+                f"{n} {e:.3e}" for n, e in errs.items())
+                + f" ({kinks} examples at a kink left out); light vs full "
+                f"backward {max(gaps):.3e} of the largest entry, {same} of "
+                f"{len(gf)} gradients bit-identical")
+            if B == BATCH:  # the serving (0) and training (0.1) widths
+                with torch.no_grad():
+                    p_ms = time_ms(lambda: meta_block.meta_layer_reference(
+                        x, layer, tables, dom, **kw, masks=masks), iters=10)
+                    for s, name in ((None, "meta_block_fwd"),
+                                    ("full", "meta_block_fwd_stash"),
+                                    ("light", "meta_block_fwd_stash_light")):
+                        ms = time_ms(lambda: meta_block.launch_fwd(
+                            *ops, cfg, kargs, stash=s), iters=50)
+                        b_ms, b_by = meta_layer_bound_ms(
+                            B, F, d, h, heads, rows, 1, 1, stash=s)
+                        out[(name, rate)] = dict(ms=ms, plain_ms=p_ms,
+                                                 bound_ms=b_ms, bound_by=b_by)
+                xr = x.detach().requires_grad_(True)
+                tr = {k: t.detach().requires_grad_(True)
+                      for k, t in tables.items()}
+                inputs = [xr, *tr.values(), layer.wq, layer.wk, layer.wv,
+                          layer.wout, *layer.ln.parameters(),
+                          *layer.q_meta.parameters(),
+                          *layer.k_meta.parameters()]
+                yr = meta_block.meta_layer_reference(xr, layer, tr, dom,
+                                                     **kw, masks=masks)
+                pb_ms = time_ms(lambda: torch.autograd.grad(
+                    yr, inputs, g, retain_graph=True), iters=5)
+                del yr
+                for bwd, name in bwd_name.items():
+                    r = {"stash": full_res, "stash_light": light_res}.get(bwd)
+                    ms = time_ms(lambda: meta_block.launch_bwd(
+                        g, *ops, cfg, kargs, res=r), iters=20)
+                    b_ms, b_by = meta_layer_bwd_bound_ms(
+                        B, F, d, h, heads, rows, 1, 1, stash={
+                            "stash": "full", "stash_light": "light"}.get(bwd))
+                    out[(name, rate)] = dict(ms=ms, plain_ms=pb_ms,
+                                             bound_ms=b_ms, bound_by=b_by)
+                line += "; " + ", ".join(
+                    f"{n} kernel_ms={out[(n, rate)]['ms']:.4f} bound_ms="
+                    f"{out[(n, rate)]['bound_ms']:.4f}" for n in K1_NAMES) + (
+                    f"; plain forward {p_ms:.4f} ms, backward {pb_ms:.4f} ms")
+            print(line, flush=True)
+            del st, gf, gl, full_res, light_res
+    gate_err = pos_gate_case(dev)
+    # the F=15 times beside the AliCCP fields of the earlier phases;
+    # the light bodies' main numbers are these
+    fields = {}
+    for name in K1_NAMES:
+        t0, t1 = out[(name, 0.0)], out[(name, DROP_RATE)]
+        if name.endswith("stash_light"):
+            fields[name] = dict(max_abs_err=worst[name], **t1,
+                                no_dropout_ms=t0["ms"])
+        else:
+            fields[name] = dict(max_abs_err=worst[name],
+                                alimama_ms=t1["ms"],
+                                alimama_no_dropout_ms=t0["ms"],
+                                alimama_bound_ms=t1["bound_ms"])
+    fields["meta_block_bwd_stash_light"]["max_rel_diff_vs_stash"] = light_gap
+    return fields, gate_err
+
+
+def pos_gate_case(dev):
+    """K6-fwd and K6-bwd with distinct Q and K gates at the Alimama widths
+    (B=8192, F=15, QK, dropout 0.1) against the plain layer.  Returns the
+    worst errors (forward, backward)."""
+    from satrans_torch.nn import initializers as init
+    from satrans_torch.ops import gate_block
+    F, heads, rows = ALIMAMA_F, 4, 4
+    gen, layer, tables = gate_test_layer(dev, SEED + 21, "gate")
+    check(not torch.equal(tables["Q"], tables["K"]),
+          "the gate case's Q and K gates are not distinct")
+    x = init.normal(gen, (BATCH, F, 32), 1.0)
+    g = init.normal(gen, (BATCH, F, 32), 1.0)
+    dom = torch.randint(0, rows, (BATCH,), generator=gen, device=dev)
+    kw = dict(head_num=heads, mode="QK", relu_out=False)
+    drop = drop_kw(DROP_RATE)
+    masks = gate_block.layer_masks(x, head_num=heads, **drop)
+    with torch.no_grad():
+        y = gate_block.fused_simple_layer(x, layer, tables, dom, **kw, **drop)
+        ref = gate_block.simple_layer_reference(x, layer, tables, dom, **kw,
+                                                masks=masks)
+    torch.cuda.synchronize()
+    err = (y - ref).abs().max().item()
+    check(torch.allclose(y, ref, **KERNEL_TOL), f"K6-fwd with distinct Q "
+          f"and K gates disagrees with the plain layer ({err})")
+    got = gate_grads(gate_block.fused_simple_layer, x, layer, tables, dom,
+                     g, **kw, **drop)
+    want = gate_grads(gate_block.simple_layer_reference, x, layer, tables,
+                      dom, g, **kw, masks=masks)
+    torch.cuda.synchronize()
+    errs = grad_errors(got, want)
+    check(not torch.allclose(got["table.Q"], got["table.K"]),
+          "the Q and K gates' gradients agree")
+    print(f"kernel gate_block, distinct Q and K gates, B={BATCH} F={F} QK "
+          f"dropout={DROP_RATE}: forward max_abs_err={err:.3e}; backward "
+          f"max_abs_err={max(errs.values()):.3e} (worst "
+          f"{max(errs, key=errs.get)})", flush=True)
+    return err, max(errs.values())
+
+
+def alimama_model(dev, **kw):
+    """SATrans at the Alimama sota-pos width (the reference's
+    ``--domain_col shopping_level --flag sota-pos``): 15 sparse fields with
+    the public vocab sizes and the dense price column, d = 32, 3 layers, 4
+    heads, QK, MetaNet 32->64->32, use_pos."""
+    from satrans_torch.data import alimama
+    from satrans_torch.features import FeatureLayout
+    from satrans_torch.models import SATrans
+    return SATrans(FeatureLayout(alimama.sota_columns(32)),
+                   [alimama.DOMAIN_COL], [alimama.NUM_DOMAINS],
+                   domain_att_layer_num=LAYERS, att_head_num=4,
+                   meta_mode="QK", meta_dnn_hidden_units=(64, 32),
+                   use_pos=True, seed=SEED, device=dev, **kw)
+
+
+def alimama_data(rows, seed):
+    """bench.py's synthetic Alimama batch: ids uniform in [1, DATA_MAX],
+    price N(0, 1), labels 0/1.  Returns (features, labels)."""
+    from satrans_torch.data import alimama
+    rng = np.random.default_rng(seed)
+    x = {name: rng.integers(1, alimama.DATA_MAX[name] + 1, rows)
+         for name in alimama.SPARSE_FEATURES}
+    x["price"] = rng.normal(size=rows).astype(np.float32)
+    return x, rng.integers(0, 2, rows).astype(np.float32)
+
+
+def pos_serving(dev, card):
+    """Phase 10b: one request of 20,000 examples through Predictor with
+    the Alimama sota-pos model: exactly 3 K1-fwd launches a batch and no
+    other layer kernel, scores against the plain path.  Returns the K1-fwd
+    launches."""
+    from satrans_torch.serving import Predictor
+    model = alimama_model(dev, no_emb_init=True)
+    pred = Predictor(model, batch_size=BATCH, device=dev).warmup()
+    req = alimama_data(REQUEST_ROWS, SEED + 30)[0]
+    batches = -(-REQUEST_ROWS // BATCH)
+    torch.cuda.synchronize()
+    zero_counts()
+    t0 = time.perf_counter()
+    scores = pred(req)
+    wall = time.perf_counter() - t0
+    launched = k1_counts()
+    check(launched == (LAYERS * batches,) + NO_K1[1:]
+          and k6_counts() == (0, 0), f"serving pos launched K1 {launched} "
+          f"({', '.join(K1_COUNTS)}) and K6 {k6_counts()}, want K1-fwd "
+          f"only, {LAYERS} layers x {batches} batches")
+    check(scores.shape == (REQUEST_ROWS,) and bool(
+        np.all(np.isfinite(scores)) and np.all((scores > 0) & (scores < 1))),
+          "serving pos: scores not finite in (0, 1)")
+    t0 = time.perf_counter()
+    for _ in range(5):
+        pred(req)
+    wall2 = (time.perf_counter() - t0) / 5
+    device_profile(f"serve alimama pos: one request of {REQUEST_ROWS} "
+                   "examples", lambda: pred(req), 1e3 * wall2, card)
+    plain_model = alimama_model(dev, no_emb_init=True, use_kernel=False)
+    plain_model.load_state_dict(model.state_dict())
+    want = Predictor(plain_model, batch_size=BATCH, device=dev)(req)
+    diff = float(np.abs(scores - want).max())
+    print(f"serve alimama pos [{card}]: {REQUEST_ROWS} examples in "
+          f"{batches} batches of {BATCH}: first {wall:.4f}s, then "
+          f"{wall2:.4f}s a request, {REQUEST_ROWS / wall2:.1f} examples/s, "
+          f"{1e3 * wall2 / batches:.3f} ms/batch; launches {launched}; "
+          f"score mean {scores.mean():.4f} std {scores.std():.4f}; max "
+          f"|kernel - plain| = {diff:.3e}", flush=True)
+    check(diff <= SERVING_TOL, f"serving pos: scores differ from the plain "
+                               f"path by {diff} > {SERVING_TOL}")
+    del model, plain_model, pred
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launched[0]
+
+
+def pos_training(dev, card, bwd):
+    """Phase 10c, one arm: train the Alimama sota-pos model in ``lazy``
+    (lr 0.001, dropout 0.1, the bench.py arm; :func:`lazy_arm`) under
+    ``SATRANS_BWD=bwd``: exactly 3 + 3 launches a step of the arm's K1
+    pair and no K6, the price column staged, v_meta (and nothing else)
+    without a gradient and bit-identical.  Returns (trainer, staged
+    batch, launches by kernel)."""
+    from satrans_torch.train import Trainer
+    os.environ["SATRANS_BWD"] = bwd
+    model = alimama_model(dev, dropout_rate=DROP_RATE)
+    trainer = Trainer(model, seed=SEED, device=dev)
+    trainer.compile(learning_rate=POS_LR, bank_update="lazy")
+    x, y = alimama_data(ARM_ROWS, SEED)
+    staged, launched, frozen = lazy_arm(
+        card, f"alimama pos {bwd} lazy", model, trainer, x, y,
+        (0, 0) + K1_PAIR[bwd])
+    check("dense" in staged[0] and staged[0]["dense"].shape == (BATCH, 1),
+          "the staged batch has no price column")
+    v_meta = sorted(n for n, _ in model.named_parameters()
+                    if ".v_meta." in n)
+    check(len(v_meta) == 2 * LAYERS and frozen == v_meta,
+          f"the parameters without a gradient are {frozen}, want v_meta's")
+    return trainer, staged, launched
+
+
+def pos_paths_phase(dev, card):
+    """Phases 10b and 10c: serve the Alimama sota-pos model, and train it
+    in ``lazy`` once with each stash; then the two stashes' staged steps in
+    turns on one trainer.  Returns the launches by path and kernel."""
+    paths = {"serve_alimama_pos": {"meta_block_fwd": pos_serving(dev,
+                                                                  card)}}
+    for bwd in ("stash", "stash_light"):
+        trainer, staged, paths[f"train_alimama_pos_{bwd}_lazy"] = \
+            pos_training(dev, card, bwd)
+        if bwd == "stash":
+            del trainer, staged
+            gc.collect()
+            torch.cuda.empty_cache()
+    # the host's clock spreads from arm to arm: the two stashes in turns
+    for bwd in ("stash", "stash_light", "stash_light", "stash"):
+        os.environ["SATRANS_BWD"] = bwd
+        step_ms = time_ms(lambda: trainer.train_step(*staged), iters=10)
+        queue_ms = host_ms(lambda: trainer.train_step(*staged))
+        print(f"train alimama pos in turns, {bwd} [{card}]: train_step on a "
+              f"staged batch {step_ms:.3f} ms/step; the host queues a step "
+              f"in {queue_ms:.3f} ms", flush=True)
+    os.environ.pop("SATRANS_BWD")
+    del trainer, staged
+    gc.collect()
+    torch.cuda.empty_cache()
     return paths
 
 
@@ -1522,51 +1971,67 @@ def main() -> int:
     sparse = sparse_training_phase(dev, card)
     kg = gate_kernel_phase(dev)
     gpaths = gate_paths_phase(dev, card)
+    kp, gate_err = pos_kernel_phase(dev)
+    ppaths = pos_paths_phase(dev, card)
 
     # launches, each path counted from 0 just before it: serving and the
     # evaluation run K1-fwd only; the dense recompute arm K1-fwd and
     # K1-bwd; the dense stash arm and every sparse arm K1-stash and
-    # K1-bwd-stash
-    paths = {"serving": (served, 0, 0, 0), "train_stash": trained["stash"],
-             "train_recompute": trained["recompute"],
-             "evaluate": trained["eval"],
-             **{arm: tuple(n[c] for c in (
-                 "meta_block_fwd", "meta_block_fwd_stash", "meta_block_bwd",
-                 "meta_block_bwd_stash")) for arm, n in sparse.items()}}
+    # K1-bwd-stash; the Alimama pos arms their stash's pair
+    paths = {"serving": {"meta_block_fwd": served},
+             **{p: dict(zip(K1_NAMES, n)) for p, n in (
+                 ("train_stash", trained["stash"]),
+                 ("train_recompute", trained["recompute"]),
+                 ("evaluate", trained["eval"]))},
+             **sparse, **ppaths}
     kernels = []
-    for i, (name, source, replaces, fields) in enumerate((
-            ("meta_block_fwd", "meta_block_fwd.cu", 404, k["fwd"]),
-            ("meta_block_fwd_stash", "meta_block_fwd.cu", 420, k["stash"]),
-            ("meta_block_bwd", "meta_block_bwd.cu", 685, kb["recompute"]),
-            ("meta_block_bwd_stash", "meta_block_bwd.cu", 902,
-             kb["stash"]))):
-        by_path = {p: n[i] for p, n in paths.items() if n[i]}
+    for name, source, replaces, fields in (
+            ("meta_block_fwd", "meta_block_fwd.cu", "404", k["fwd"]),
+            ("meta_block_fwd_stash", "meta_block_fwd.cu", "420 (stash_s="
+             "True)", k["stash"]),
+            ("meta_block_fwd_stash_light", "meta_block_fwd.cu", "420 "
+             "(stash_s=False, :1196-1200)", k["light"]),
+            ("meta_block_bwd", "meta_block_bwd.cu", "685", kb["recompute"]),
+            ("meta_block_bwd_stash", "meta_block_bwd.cu", "902 (stash_s="
+             "True)", kb["stash"]),
+            ("meta_block_bwd_stash_light", "meta_block_bwd.cu", "902 "
+             "(stash_s=False, :1232)", dict(
+                 max_abs_err=kb["stash_light"]["max_abs_err"],
+                 aliccp_ms=kb["stash_light"]["ms"]))):
+        by_path = {p: n[name] for p, n in paths.items() if n.get(name)}
+        # the AliCCP phases' fields and the Alimama phase's, the worst
+        # error of both
+        merged = {**fields, **kp[name], "max_abs_err": max(
+            fields["max_abs_err"], kp[name]["max_abs_err"])}
         kernels.append(dict(
             name=name, route="cuda", source=f"satrans_torch/csrc/{source}",
             replaces=f"satrans_tpu/ops/pallas/meta_block.py:{replaces}",
             launches=sum(by_path.values()), launches_by_path=by_path,
-            library_ms=None, **fields))
+            library_ms=None, **merged))
     # the row kernels run on the sparse training paths (phase 7 arms and
-    # the phase 9 lazy arms)
+    # the phase 9 and 10 lazy arms)
     for name, source, replaces in (
             ("gather_rows", "bank_rows.cu", "gather.py:86"),
             ("scatter_rows_set", "bank_rows.cu", "scatter.py:139"),
             ("eqgemm_positions", "eqgemm.cu", "eqgemm.py:90"),
             ("lazy_adam_rows", "bank_rows.cu", "lazy_tail.py:174")):
         by_path = {arm: n[name] for arm, n in (*sparse.items(),
-                                                *gpaths.items())
+                                                *gpaths.items(),
+                                                *ppaths.items())
                    if n.get(name)}
         kernels.append(dict(name=name, route="cuda",
                             source=f"satrans_torch/csrc/{source}",
                             replaces=f"satrans_tpu/ops/pallas/{replaces}",
                             launches=sum(by_path.values()),
                             launches_by_path=by_path, **rows[name]))
-    # K6 runs on the gate and bilinear paths of phase 9
-    for name, replaces, fields in (
+    # K6 runs on the gate and bilinear paths of phase 9 (and is held with
+    # distinct Q and K gates in phase 10a)
+    for (name, replaces, fields), err in zip((
             ("gate_block_fwd", "gate_block.py:287 (_sfwd_kernel :96)",
              kg["fwd"]),
             ("gate_block_bwd", "gate_block.py:318 (_sbwd_kernel :131)",
-             kg["bwd"])):
+             kg["bwd"])), gate_err):
+        fields = dict(fields, max_abs_err=max(fields["max_abs_err"], err))
         by_path = {p: n[name] for p, n in gpaths.items() if n.get(name)}
         kernels.append(dict(
             name=name, route="cuda",

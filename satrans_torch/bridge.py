@@ -6,8 +6,10 @@ numpy arrays, and gives a ``state_dict`` for the port's model.  The port's
 modules carry the pytree's own names, so a key is the pytree path joined
 with dots (``layers.0.q_meta.ln.scale``); the gate and bilinear layers
 have no ``q_meta`` and an ``only_emb`` model no ``encoder``, in both
-packages.  The 'pos' trees (``k_meta``, ``v_meta``, the position tables)
-have no place in the port and raise.  The one change of layout is the
+packages, and a 'pos' model has ``layerid_emb``, ``qkvid_emb`` and, in
+its metanet layers, ``k_meta`` and ``v_meta`` (``layers.0.k_meta.ln.
+scale``).  A tree of another configuration than the model's (a 'pos' tree
+into a shared model) raises.  The one change of layout is the
 embedding bank: the JAX package packs ``128 // d`` logical rows into one
 128-lane row; the port keeps the same rows, pad rows included, as logical
 ``[R, d]`` rows, so the bank is reshaped.

@@ -163,8 +163,9 @@ gate_block_fwd_kernel(const float* __restrict__ x, const int* __restrict__ dom,
 
   // 4. Attention (csrc/layer_common.cuh); the output goes to scratch
   //    columns [0, DM).
-  attention_fwd<DM, NH, kGroup, false>(sq, S::QS, sh, S::XS, nullptr,
-                                       nullptr, F, lane, drop, ed, salt.s);
+  attention_fwd<DM, NH, kGroup, false, false>(sq, S::QS, sh, S::XS, nullptr,
+                                              nullptr, F, lane, drop, ed,
+                                              salt.s);
   __syncwarp();
 
   // 5. y = LN_o(relu?(o @ Wout) m_z + x)

@@ -26,6 +26,28 @@ namespace {
 constexpr int kMaxFields = 20;       // most fields an example may have
 constexpr float kLogitClamp = 60.f;  // the Pallas kernels' _clip_logits
 
+// K1's residual stash (meta_block_fwd.cu, meta_block_bwd.cu): none (K1-fwd,
+// K1-bwd), the full stash qkv, uq, uk, s and o (K1-stash, K1-bwd-stash),
+// or the light one without the probabilities s (K1-stash light, K1-bwd-
+// stash light).
+enum StashMode : int { kNoStash = 0, kFullStash = 1, kLightStash = 2 };
+
+// Whether the residual pointers fit the stash mode: all null without a
+// stash, all set in the full one, all but s (null) in the light one.
+inline bool stash_pointers_ok(int mode, const void* qkv, const void* uq,
+                              const void* uk, const void* s, const void* o) {
+  const bool rest = qkv && uq && uk && o;
+  switch (mode) {
+    case kNoStash:
+      return !(qkv || uq || uk || s || o);
+    case kFullStash:
+      return rest && s;
+    case kLightStash:
+      return rest && !s;
+  }
+  return false;
+}
+
 __device__ __forceinline__ float4 ld4(const float* p) {
   return *reinterpret_cast<const float4*>(p);
 }
@@ -269,54 +291,94 @@ __device__ __forceinline__ void axpy_head(float p, const float* v,
   }
 }
 
+// The softmax of one (head, query row) pair: the logits of the head's q
+// row (at q, scaled by 1/sqrt(dh)) against the F key rows at k (row
+// stride ks), clamped, exponentiated after the row maximum is subtracted,
+// into s, each passed on to visit(j, s[j]) as it is formed; returns their
+// sum.  Every pass that forms probabilities goes through it, so the
+// probabilities a backward recomputes equal the forward's bit for bit.
+template <int DH, typename Visit>
+__device__ __forceinline__ float head_softmax(const float* q_row,
+                                              const float* k, int ks, int F,
+                                              float (&s)[kMaxFields],
+                                              Visit visit) {
+  float q[DH];
+  scaled_head<DH>(q_row, 1.f / sqrtf(static_cast<float>(DH)), q);
+  const float m = head_logits<DH>(q, k, ks, F, s);
+  float sum = 0.f;
+#pragma unroll
+  for (int j = 0; j < kMaxFields; ++j) {
+    if (j < F) {
+      s[j] = expf(s[j] - m);
+      sum += s[j];
+      visit(j, s[j]);
+    }
+  }
+  return sum;
+}
+
 // The forwards' attention of one example: per (head, query row) pair of
 // thread t (of a group of G), P = softmax(clamp(q k^T / sqrt(dh))) and
-// o = (P m_s) P's row sum taken before the dropout, normalised at the end.
-// q|k|v lie in the rows of qkv (stride qs) at columns 0, DM and 2 DM; o
-// goes to out (stride os).  With STASH also to po (stride DM) and P before
-// dropout to ps ([NH][F][F]).
-template <int DM, int NH, int G, bool STASH>
+// o = (P m_s) v, accumulated from the unnormalised terms as they are
+// formed and normalised at the end.  q|k|v lie in the rows of qkv (stride
+// qs) at columns 0, DM and 2 DM; o goes to out (stride os).  With STASH_O
+// also to po (stride DM), and with STASH_S P before dropout to ps
+// ([NH][F][F]).
+template <int DM, int NH, int G, bool STASH_O, bool STASH_S>
 __device__ __forceinline__ void attention_fwd(
     const float* qkv, int qs, float* out, int os, float* ps, float* po,
     int F, int t, const Dropout& drop, const ExampleDraw& ed,
     unsigned salt_s) {
   constexpr int DH = DM / NH;
-  const float scale = 1.f / sqrtf(static_cast<float>(DH));
 #pragma unroll 1
   for (int p = t; p < NH * F; p += G) {
     const int hh = p / F, i = p % F;
-    float q[DH];
-    scaled_head<DH>(qkv + i * qs + hh * DH, scale, q);
-    float s[kMaxFields];
-    const float m = head_logits<DH>(q, qkv + DM + hh * DH, qs, F, s);
     float o[DH];
 #pragma unroll
     for (int c = 0; c < DH; ++c) o[c] = 0.f;
-    float sum = 0.f;
-#pragma unroll
-    for (int j = 0; j < kMaxFields; ++j) {
-      if (j < F) {
-        s[j] = expf(s[j] - m);
-        sum += s[j];
-        const float pj =
-            drop.on ? s[j] * ed.attn(drop, salt_s + hh, i, j) : s[j];
-        axpy_head<DH>(pj, qkv + j * qs + 2 * DM + hh * DH, o);
-      }
-    }
+    float s[kMaxFields];
+    const float sum = head_softmax<DH>(
+        qkv + i * qs + hh * DH, qkv + DM + hh * DH, qs, F, s,
+        [&](int j, float e) {
+          const float pj =
+              drop.on ? e * ed.attn(drop, salt_s + hh, i, j) : e;
+          axpy_head<DH>(pj, qkv + j * qs + 2 * DM + hh * DH, o);
+        });
     const float inv = 1.f / sum;
 #pragma unroll
     for (int c = 0; c < DH; c += 4) {
       const float v[4] = {o[c] * inv, o[c + 1] * inv, o[c + 2] * inv,
                           o[c + 3] * inv};
       st4(out + i * os + hh * DH + c, v);
-      if (STASH) st4(po + i * DM + hh * DH + c, v);
+      if (STASH_O) st4(po + i * DM + hh * DH + c, v);
     }
-    if (STASH) {
+    if (STASH_S) {
       float* prow = ps + (hh * F + i) * F;
 #pragma unroll
       for (int j = 0; j < kMaxFields; ++j)
         if (j < F) prow[j] = s[j] * inv;
     }
+  }
+}
+
+// The backwards' recomputed probabilities of one example: P (normalised,
+// before dropout) into P ([NH][F][F]), equal to those attention_fwd
+// stashes.  q|k lie in the rows of qk (stride ns) at columns 0 and DM.
+template <int DM, int NH, int G>
+__device__ __forceinline__ void attention_probs(const float* qk, int ns,
+                                                float* P, int F, int t) {
+  constexpr int DH = DM / NH;
+#pragma unroll 1
+  for (int p = t; p < NH * F; p += G) {
+    const int hh = p / F, i = p % F;
+    float s[kMaxFields];
+    const float inv =
+        1.f / head_softmax<DH>(qk + i * ns + hh * DH, qk + DM + hh * DH, ns,
+                               F, s, [](int, float) {});
+    float* prow = P + (hh * F + i) * F;
+#pragma unroll
+    for (int j = 0; j < kMaxFields; ++j)
+      if (j < F) prow[j] = s[j] * inv;
   }
 }
 
@@ -330,23 +392,13 @@ __device__ __forceinline__ void attention_recompute(
     int os, int F, int t, const Dropout& drop, const ExampleDraw& ed,
     unsigned salt_s) {
   constexpr int DH = DM / NH;
-  const float scale = 1.f / sqrtf(static_cast<float>(DH));
 #pragma unroll 1
   for (int p = t; p < NH * F; p += G) {
     const int hh = p / F, i = p % F;
-    float q[DH];
-    scaled_head<DH>(qk + i * ns + hh * DH, scale, q);
     float s[kMaxFields];
-    const float m = head_logits<DH>(q, qk + DM + hh * DH, ns, F, s);
-    float sum = 0.f;
-#pragma unroll
-    for (int j = 0; j < kMaxFields; ++j) {
-      if (j < F) {
-        s[j] = expf(s[j] - m);
-        sum += s[j];
-      }
-    }
-    const float inv = 1.f / sum;
+    const float inv =
+        1.f / head_softmax<DH>(qk + i * ns + hh * DH, qk + DM + hh * DH, ns,
+                               F, s, [](int, float) {});
     float o[DH];
 #pragma unroll
     for (int c = 0; c < DH; ++c) o[c] = 0.f;

@@ -1,17 +1,22 @@
 // Backward of one SATrans meta-transformer layer, training, float32, with
 // the in-kernel dropout.
 //
-// Replaces two TPU kernels of satrans_tpu/ops/pallas/meta_block.py, both
+// Replaces three TPU kernels of satrans_tpu/ops/pallas/meta_block.py, all
 // launched by _bwd_call through pl.pallas_call (with _attn_bwd_heads,
 // _meta_bwd, _layer_norm_bwd and _write_param_grads): _bwd_kernel (:685;
-// K1-bwd, the template's STASH=false, the JAX package's
+// K1-bwd, the template's MODE=kNoStash, the JAX package's
 // bwd='recompute'), which recomputes the forward on chip, and
-// _bwd_kernel_stash (:902, full mode; K1-bwd-stash, STASH=true, its
-// default bwd='stash'), which reads the residuals that K1-stash wrote
-// (csrc/meta_block_fwd.cu) and recomputes only the MetaNet hidden layers
-// and zlin = o @ Wout.  Per example e with domain row dm = dom[e] and the
-// dropout masks m of csrc/dropout.cuh (all ones without dropout) the
-// forward is
+// _bwd_kernel_stash (:902) in its full mode (stash_s=True; K1-bwd-stash,
+// kFullStash, its default bwd='stash'), which reads the residuals that
+// K1-stash wrote (csrc/meta_block_fwd.cu) and recomputes only the MetaNet
+// hidden layers and zlin = o @ Wout, and in its light mode (stash_s=False;
+// K1-bwd-stash light, kLightStash, bwd='stash_light'), which reads the
+// residuals of K1-stash light and also recomputes the probabilities from
+// the stashed pre-LN sums uq and uk, with the forward's device code
+// (head_softmax, csrc/layer_common.cuh), so that they equal the forward's
+// bit for bit and the rest of the backward is K1-bwd-stash's.  Per example
+// e with domain row dm = dom[e] and the dropout masks m of
+// csrc/dropout.cuh (all ones without dropout) the forward is
 //
 //   q0|k0|v0 = x @ [Wq|Wk|Wv]
 //   uq = (relu(q0 @ W1q[dm]) @ W2q[dm]) m_q + q0,  q = LN_q(uq)  if apply_q
@@ -38,8 +43,10 @@
 // bound by float32 FMA throughput.  K1-bwd-stash reads 20.4 kB of
 // residuals an example in place of 0.35 MFLOP of recompute (the QKV GEMM,
 // the second MetaNet matrices, the attention forward), still bound by its
-// arithmetic.  The design keeps every intermediate of an example on chip
-// and reads x, g and each residual once and writes dx once.
+// arithmetic.  K1-bwd-stash light reads 14.6 kB and recomputes the
+// logits and the softmax (another 2F^2 d, 23 kFLOP).  The design keeps
+// every intermediate of an example on chip and reads x, g and each
+// residual once and writes dx once.
 //
 // Design.  A block of 256 threads works on a tile of two examples at a
 // time, 128 threads (four warps) on each, and walks over the batch's tiles
@@ -61,8 +68,8 @@
 // for a given grid size.  Shared memory holds the dense sums and two
 // examples' intermediates (x, q0|k0|v0, the normalised q|k and their
 // xhat, the MetaNet hidden layer, the probabilities, the gradient rows):
-// 95 kB at F=19, the same for both variants (K1-bwd-stash loads into the
-// buffers K1-bwd computes into).  The MetaNet hidden layer is recomputed
+// 95 kB at F=19, the same for all three bodies (K1-bwd-stash loads into
+// the buffers K1-bwd computes into).  The MetaNet hidden layer is recomputed
 // in the backward instead of stored.
 //
 // The kernel launches on the caller's stream, allocates nothing and does
@@ -123,19 +130,21 @@ struct Args {
   const int* dom;
   float *dx, *partial;
   int B, F, D, apply_q, apply_k, relu_out;
-  // K1-stash's residuals (STASH only): qkv [B, F, 3d], uq, uk, o [B, F, d],
-  // the probabilities before dropout s [B, H, F, F]
+  // the residuals (kFullStash and kLightStash): qkv [B, F, 3d], uq, uk, o
+  // [B, F, d], and under kFullStash the probabilities before dropout s
+  // [B, H, F, F]
   const float *qkv, *uq, *uk, *s, *o;
   Dropout drop;
 };
 
-template <int DM, int HID, int NH, bool STASH>
+template <int DM, int HID, int NH, int MODE>
 __global__ void __launch_bounds__(kThreads, 2)
 meta_block_bwd_kernel(const Args a) {
   using S = Strides<DM, HID>;
   using TD = Tile<DM, kGroup>;
   using TH = Tile<HID, kGroup>;
   constexpr int DH = DM / NH;
+  constexpr bool STASH = MODE != kNoStash;
   static_assert(DM % NH == 0 && DH % 4 == 0, "head width must be 4k");
 
   extern __shared__ float4 smem4[];
@@ -305,10 +314,16 @@ meta_block_bwd_kernel(const Args a) {
     __syncthreads();  // the copy of an unapplied projection has none
 
     // F4. Attention: P (normalised, before dropout) and o = (P m_s) v
-    //     into H, or their stash.  A thread owns (head, query row) pairs.
+    //     into H, or their stash; the light stash holds o only, and P is
+    //     recomputed from the normalised q|k of F3.  A thread owns (head,
+    //     query row) pairs.
     if (live && STASH) {
-      const float* se = a.s + static_cast<size_t>(ex) * NH * F * F;
-      for (int i = gt; i < NH * F * F; i += kGroup) P[i] = __ldg(se + i);
+      if (MODE == kFullStash) {
+        const float* se = a.s + static_cast<size_t>(ex) * NH * F * F;
+        for (int i = gt; i < NH * F * F; i += kGroup) P[i] = __ldg(se + i);
+      } else {
+        attention_probs<DM, NH, kGroup>(Nm, S::NS, P, F, gt);
+      }
       for (int i = gt; i < F * (DM / 4); i += kGroup) {
         const int f = i / (DM / 4), c = 4 * (i % (DM / 4));
         *reinterpret_cast<float4*>(H + f * S::HS + c) =
@@ -538,10 +553,10 @@ meta_block_bwd_kernel(const Args a) {
   for (int i = t; i < S::kDense; i += kThreads) out[i] = acc[i];
 }
 
-template <int DM, int HID, int NH, bool STASH>
+template <int DM, int HID, int NH, int MODE>
 cudaError_t launch(const Args& a, float* grads, int blocks,
                    cudaStream_t stream) {
-  auto kernel = meta_block_bwd_kernel<DM, HID, NH, STASH>;
+  auto kernel = meta_block_bwd_kernel<DM, HID, NH, MODE>;
   const size_t smem = smem_bytes<DM, HID, NH>(a.F);
   if (smem > kMaxSmem || a.D > kMaxDomains) return cudaErrorInvalidValue;
   static size_t configured = 0;
@@ -575,9 +590,11 @@ extern "C" int satrans_meta_block_bwd_grad_floats(int d, int h, int D) {
 
 extern "C" int satrans_meta_block_bwd_max_domains() { return kMaxDomains; }
 
-// With qkv non-null the launch is K1-bwd-stash, reading the residuals
-// qkv, uq, uk, s and o that K1-stash wrote; else K1-bwd, recomputing them.
-// drop_on selects the dropout, with the operands of struct Dropout
+// stash selects the body (enum StashMode), as the forward's did: K1-bwd
+// with every residual pointer null, recomputing them; K1-bwd-stash
+// reading the residuals qkv, uq, uk, s and o that K1-stash wrote; or
+// K1-bwd-stash light reading those of K1-stash light, s null.  drop_on
+// selects the dropout, with the operands of struct Dropout
 // (csrc/dropout.cuh), the same as the forward's.
 extern "C" int satrans_meta_block_bwd(
     const float* x, const int* dom, const float* g, const float* wqkv,
@@ -586,16 +603,15 @@ extern "C" int satrans_meta_block_bwd(
     const float* w2k, const float* w1kT, const float* w2kT, const float* lnk,
     const float* wout, const float* woutT, const float* lno, float* dx,
     float* partial, float* grads, const float* qkv, const float* uq,
-    const float* uk, const float* s, const float* o, int B, int F, int d,
-    int h, int heads, int D, int apply_q, int apply_k, int relu_out,
+    const float* uk, const float* s, const float* o, int stash, int B, int F,
+    int d, int h, int heads, int D, int apply_q, int apply_k, int relu_out,
     int blocks, int drop_on, unsigned seed, unsigned threshold, float scale,
     int block_b, int fpad, int group, void* stream) {
   if (B < 1 || F < 1 || F > kMaxFields || D < 1 || blocks < 1)
     return static_cast<int>(cudaErrorInvalidValue);
   if (drop_on && (block_b < 1 || fpad < F || group < 1))
     return static_cast<int>(cudaErrorInvalidValue);
-  const bool stash = qkv != nullptr;
-  if (stash && !(uq && uk && s && o))
+  if (!stash_pointers_ok(stash, qkv, uq, uk, s, o))
     return static_cast<int>(cudaErrorInvalidValue);
   const Args a{x,   g,    wqkv, wqkvT, w1q,  w2q,     w1qT, w2qT,
                lnq, w1k,  w2k,  w1kT,  w2kT, lnk,     wout, woutT,
@@ -606,7 +622,10 @@ extern "C" int satrans_meta_block_bwd(
   const cudaStream_t str = static_cast<cudaStream_t>(stream);
   if (d == 32 && h == 64 && heads == 4)
     return static_cast<int>(
-        stash ? launch<32, 64, 4, true>(a, grads, blocks, str)
-              : launch<32, 64, 4, false>(a, grads, blocks, str));
+        stash == kFullStash
+            ? launch<32, 64, 4, kFullStash>(a, grads, blocks, str)
+        : stash == kLightStash
+            ? launch<32, 64, 4, kLightStash>(a, grads, blocks, str)
+            : launch<32, 64, 4, kNoStash>(a, grads, blocks, str));
   return static_cast<int>(cudaErrorInvalidValue);
 }

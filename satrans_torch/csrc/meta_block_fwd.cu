@@ -1,12 +1,14 @@
 // Forward of one SATrans meta-transformer layer, float32, with the
 // in-kernel dropout of training.
 //
-// Replaces two TPU kernels of satrans_tpu/ops/pallas/meta_block.py, both
+// Replaces three TPU kernels of satrans_tpu/ops/pallas/meta_block.py, all
 // launched by _fwd_call through pl.pallas_call on the body _fwd_compute:
-// _fwd_kernel (:404; K1-fwd, the template's STASH=false) and
-// _fwd_kernel_stash (:420, full mode; K1-stash, STASH=true), which also
-// writes the residuals its backward reads.  Per example e with domain row
-// dm = dom[e] and dropout masks m (all ones without dropout):
+// _fwd_kernel (:404; K1-fwd, the template's MODE=kNoStash) and
+// _fwd_kernel_stash (:420), which also writes the residuals its backward
+// reads, in its full mode (stash_s=True; K1-stash, kFullStash) and its
+// light mode (stash_s=False; K1-stash light, kLightStash, the JAX
+// package's bwd='stash_light').  Per example e with domain row dm =
+// dom[e] and dropout masks m (all ones without dropout):
 //
 //   q0|k0|v0 = x @ [Wq|Wk|Wv]
 //   uq = (relu(q0 @ W1q[dm]) @ W2q[dm]) m_q + q0,  q = LN_q(uq)  if apply_q
@@ -17,8 +19,9 @@
 // (an unapplied projection is q = uq = q0).  K1-stash writes, float32 in
 // per-example layout (not the TPU's [H, B/g, n, n] packing), qkv [B, F, 3d],
 // uq and uk [B, F, d], the probabilities P [B, H, F, F] BEFORE dropout and
-// o [B, F, d].  The masks come from csrc/dropout.cuh, computed inline per
-// element.
+// o [B, F, d]; K1-stash light writes all but P, which its backward
+// recomputes from uq and uk.  The masks come from csrc/dropout.cuh,
+// computed inline per element.
 //
 // The logits are clamped to [-60, 60] before the softmax, as the Pallas
 // kernel's _clip_logits does (meta_block.py:61-69), and the softmax then
@@ -40,14 +43,15 @@
 // bound by float32 FMA throughput (no tensor cores in this version), not
 // by device memory.  K1-stash adds 20.4 kB of residual writes an example
 // (the probabilities 5.8 kB of it), which at 3.35 TB/s take about as long
-// as the arithmetic at the float32 peak.  The design therefore keeps every
-// intermediate of an example on chip, in one warp's slice of shared
-// memory, and feeds the FMA units from registers: one warp owns one
-// example, each small GEMM gives a lane a 4-column x several-row register
-// tile (all rows of one example share one weight matrix, so a weight load
-// feeds every row the lane owns), the LayerNorms reduce across the 8 lanes
-// of a row with shuffles, and the weights (under 150 kB for all four
-// domains) are read through the L1/L2 caches with __ldg.  Device memory
+// as the arithmetic at the float32 peak; K1-stash light 14.6 kB.  The
+// design therefore keeps every intermediate of an example on chip, in one
+// warp's slice of shared memory, and feeds the FMA units from registers:
+// one warp owns one example, each small GEMM gives a lane a 4-column x
+// several-row register tile (all rows of one example share one weight
+// matrix, so a weight load feeds every row the lane owns), the LayerNorms
+// reduce across the 8 lanes of a row with shuffles, and the weights (under
+// 150 kB for all four domains) are read through the L1/L2 caches with
+// __ldg.  Device memory
 // sees x once and y once, and each residual once.
 //
 // The kernel launches on the caller's stream, allocates nothing and does
@@ -56,12 +60,15 @@
 #include <cuda_runtime.h>
 
 #include <cmath>
+#include <type_traits>
 
 #include "layer_common.cuh"
 
 namespace {
 
 constexpr int kWarps = 8;       // examples per block, one warp each
+template <int M>
+using Mode = std::integral_constant<int, M>;  // a StashMode as a type
 constexpr int kGroup = 32;      // threads per example
 
 // Shared memory of one warp: F rows of q|k|v (stride QS), then F rows of
@@ -76,12 +83,13 @@ struct Smem {
   static constexpr int kRowFloats = QS + HS;
 };
 
-// K1-stash's residuals, per example (unused when STASH is false).
+// The residuals, per example (unused under kNoStash; s only under
+// kFullStash).
 struct Stash {
   float *qkv, *uq, *uk, *s, *o;
 };
 
-template <int DM, int HID, int NH, bool STASH>
+template <int DM, int HID, int NH, int MODE>
 __global__ void __launch_bounds__(kWarps * 32, 2)
 meta_block_fwd_kernel(const float* __restrict__ x, const int* __restrict__ dom,
                       const float* __restrict__ wqkv,
@@ -99,6 +107,7 @@ meta_block_fwd_kernel(const float* __restrict__ x, const int* __restrict__ dom,
   using TD = Tile<DM, kGroup>;
   using TH = Tile<HID, kGroup>;
   constexpr int DH = DM / NH;
+  constexpr bool STASH = MODE != kNoStash;
   static_assert(DM % NH == 0 && DH % 4 == 0, "head width must be 4k");
 
   extern __shared__ float4 smem4[];
@@ -202,10 +211,12 @@ meta_block_fwd_kernel(const float* __restrict__ x, const int* __restrict__ dom,
   }
 
   // 4. Attention (csrc/layer_common.cuh).  The output goes to scratch
-  //    columns [0, DM); K1-stash also writes it and P before dropout.
-  attention_fwd<DM, NH, kGroup, STASH>(
+  //    columns [0, DM); both stashes also write it, K1-stash P before
+  //    dropout.
+  attention_fwd<DM, NH, kGroup, STASH, MODE == kFullStash>(
       sq, S::QS, sh, S::HS,
-      STASH ? st.s + static_cast<size_t>(e) * NH * F * F : nullptr,
+      MODE == kFullStash ? st.s + static_cast<size_t>(e) * NH * F * F
+                         : nullptr,
       STASH ? st.o + erow * DM : nullptr, F, lane, drop, ed, salt.s);
   __syncwarp();
 
@@ -235,7 +246,7 @@ meta_block_fwd_kernel(const float* __restrict__ x, const int* __restrict__ dom,
   }
 }
 
-template <int DM, int HID, int NH, bool STASH>
+template <int DM, int HID, int NH, int MODE>
 cudaError_t launch(const float* x, const int* dom, const float* wqkv,
                    const float* w1q, const float* w2q, const float* lnq,
                    const float* w1k, const float* w2k, const float* lnk,
@@ -244,7 +255,7 @@ cudaError_t launch(const float* x, const int* dom, const float* wqkv,
                    const Dropout& drop, const Stash& st,
                    cudaStream_t stream) {
   using S = Smem<DM, HID>;
-  auto kernel = meta_block_fwd_kernel<DM, HID, NH, STASH>;
+  auto kernel = meta_block_fwd_kernel<DM, HID, NH, MODE>;
   static bool configured = false;
   if (!configured) {
     const int most = kWarps * kMaxFields * S::kRowFloats * sizeof(float);
@@ -265,38 +276,38 @@ cudaError_t launch(const float* x, const int* dom, const float* wqkv,
 }  // namespace
 
 // Shapes (d, h, heads) instantiated here; ops/meta_block.py keeps the same
-// list in KERNEL_SHAPES.  With qkv non-null the launch is K1-stash and
-// writes the five residuals (each [B, F, *] float32 as described above),
-// else K1-fwd.  drop_on selects the dropout, with the operands of
+// list in KERNEL_SHAPES.  stash selects the body (enum StashMode): K1-fwd
+// with every residual pointer null, K1-stash writing the five residuals
+// (each float32 as described above), or K1-stash light writing all but s,
+// which must be null.  drop_on selects the dropout, with the operands of
 // struct Dropout (csrc/dropout.cuh).  Returns a cudaError_t.
 extern "C" int satrans_meta_block_fwd(
     const float* x, const int* dom, const float* wqkv, const float* w1q,
     const float* w2q, const float* lnq, const float* w1k, const float* w2k,
     const float* lnk, const float* wout, const float* lno, float* y,
-    float* qkv, float* uq, float* uk, float* s, float* o, int B, int F,
-    int d, int h, int heads, int D, int apply_q, int apply_k, int relu_out,
-    int drop_on, unsigned seed, unsigned threshold, float scale, int block_b,
-    int fpad, int group, void* stream) {
+    float* qkv, float* uq, float* uk, float* s, float* o, int stash, int B,
+    int F, int d, int h, int heads, int D, int apply_q, int apply_k,
+    int relu_out, int drop_on, unsigned seed, unsigned threshold,
+    float scale, int block_b, int fpad, int group, void* stream) {
   if (B < 0 || F < 1 || F > kMaxFields || D < 1)
     return static_cast<int>(cudaErrorInvalidValue);
   if (drop_on && (block_b < 1 || fpad < F || group < 1))
     return static_cast<int>(cudaErrorInvalidValue);
-  const bool stash = qkv != nullptr;
-  if (stash && !(uq && uk && s && o))
+  if (!stash_pointers_ok(stash, qkv, uq, uk, s, o))
     return static_cast<int>(cudaErrorInvalidValue);
   if (B == 0) return static_cast<int>(cudaSuccess);
   const Dropout drop{drop_on, seed, threshold, scale, block_b, fpad, group};
   const Stash st{qkv, uq, uk, s, o};
   const cudaStream_t str = static_cast<cudaStream_t>(stream);
-  if (d == 32 && h == 64 && heads == 4)
-    return static_cast<int>(
-        stash ? launch<32, 64, 4, true>(x, dom, wqkv, w1q, w2q, lnq, w1k,
-                                        w2k, lnk, wout, lno, y, B, F, D,
-                                        apply_q, apply_k, relu_out, drop, st,
-                                        str)
-              : launch<32, 64, 4, false>(x, dom, wqkv, w1q, w2q, lnq, w1k,
-                                         w2k, lnk, wout, lno, y, B, F, D,
-                                         apply_q, apply_k, relu_out, drop,
-                                         st, str));
+  if (d == 32 && h == 64 && heads == 4) {
+    const auto run = [&](auto mode) {
+      return launch<32, 64, 4, decltype(mode)::value>(
+          x, dom, wqkv, w1q, w2q, lnq, w1k, w2k, lnk, wout, lno, y, B, F, D,
+          apply_q, apply_k, relu_out, drop, st, str);
+    };
+    return static_cast<int>(stash == kFullStash    ? run(Mode<kFullStash>{})
+                            : stash == kLightStash ? run(Mode<kLightStash>{})
+                                                   : run(Mode<kNoStash>{}));
+  }
   return static_cast<int>(cudaErrorInvalidValue);
 }

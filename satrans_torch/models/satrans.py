@@ -4,11 +4,15 @@
 Forward:
 
 1. field embeddings ``[B, F, d]`` from the fused bank;
-2. the scenario table ``[D+1, P]``: the scenario encoder (one linear
+2. the scenario tables ``[D+1, P]``: the scenario encoder (one linear
    ``d -> P``) evaluated once on the ``D+1`` rows ``relu(domain_emb)``, or
    under ``only_emb`` ``relu(domain_emb)`` itself (``[D+1, P]``, no
    encoder); one table for Q, K (and the bilinear maps) and every layer.
-   P is the MetaNet's flat size (``variant='metanet'``), d (``'gate'``) or
+   Under ``use_pos`` (the reference's 'pos' flag) each layer l gets its
+   own Q, K (and V) tables: the encoder (``2d -> P``) on ``relu([relu(
+   domain_emb) | layerid_emb[l] + qkvid_emb[qkv]])``, the bilinear maps
+   Q's; and each metanet layer its own ``k_meta`` LayerNorm.  P is the
+   MetaNet's flat size (``variant='metanet'``), d (``'gate'``) or
    d * d / H (``'bilinear'``);
 3. ``dom = clip(scenario id, 0, D)``;
 4. the meta-transformer layers, each through the fused layer of its
@@ -30,12 +34,13 @@ paths: the unfused path (``use_kernel=False``) draws the kernels' masks,
 not ``jax.random``'s as the JAX package's XLA path does (a documented
 deviation).
 
-This slice supports one scenario column, the metanet (shared, non-
-``pos``, 2-matrix MetaNets), gate and bilinear variants, ``only_emb``, any
-``meta_mode`` (a projection is transformed iff its letter appears; the
-bilinear map always applies to Q), ``relu_out`` and float32, in inference
-and in training (:meth:`reg_loss` is the full-table embedding L2).  The
-rest raises ``NotImplementedError`` naming its ROADMAP item.
+This slice supports one scenario column, the metanet (2-matrix
+MetaNets), gate and bilinear variants, each with or without ``use_pos``,
+``only_emb`` (not with ``use_pos``), any ``meta_mode`` (a projection is
+transformed iff its letter appears; the bilinear map always applies to
+Q), ``relu_out`` and float32, in inference and in training
+(:meth:`reg_loss` is the full-table embedding L2).  The rest raises
+``NotImplementedError`` naming its ROADMAP item.
 """
 
 from __future__ import annotations
@@ -83,9 +88,6 @@ class SATrans(nn.Module):
             raise ValueError("only_emb and use_pos are mutually exclusive "
                              "(onlyemb has no scenario encoder to consume "
                              "the position embeddings)")
-        if use_pos:
-            raise NotImplementedError(
-                "'pos' is ROADMAP queue 1 item 'Alimama sota-pos slice'")
         if variant not in attention.VARIANTS:
             raise ValueError(f"unknown variant {variant!r}")
         if compute_dtype != "float32":
@@ -114,6 +116,7 @@ class SATrans(nn.Module):
         self.relu_out = relu_out
         self.variant = variant
         self.only_emb = only_emb
+        self.use_pos = use_pos
         self.use_kernel = use_kernel
         # the dropout tile; SATRANS_BLOCK_B overrides, as in the JAX package
         self.fused_block_b = int(os.environ.get("SATRANS_BLOCK_B", "128")) \
@@ -131,28 +134,50 @@ class SATrans(nn.Module):
             gen, layout, init_std=None if no_emb_init else init_std)
         # under only_emb the scenario table holds the params directly
         # (satrans.py:166-170); else the scenario encoder DNN_v2(d -> P),
-        # no activation on its output
+        # or (2d -> P) under use_pos, no activation on its output
         self.domain_emb = nn.Parameter(init.torch_embedding_default(
             gen, (self.num_domains + 1, p if only_emb else d)))
         if not only_emb:
-            self.encoder = core.MLP(gen, d, [p], init_std=init_std,
+            self.encoder = core.MLP(gen, 2 * d if use_pos else d, [p],
+                                    init_std=init_std,
                                     final_activation=False)
+        if use_pos:
+            self.layerid_emb = nn.Parameter(init.torch_embedding_default(
+                gen, (domain_att_layer_num, d)))
+            self.qkvid_emb = nn.Parameter(init.torch_embedding_default(
+                gen, (3, d)))
         self.layers = nn.ModuleList(
             attention.meta_transformer_init(gen, d, self.meta_units,
-                                            variant=variant)
+                                            variant=variant,
+                                            share_kv_metanet=not use_pos)
             for _ in range(domain_att_layer_num))
         self.head = core.Linear(gen, layout.num_fields * d + layout.dense_dim,
                                 1)
         self.eval()
 
-    def meta_tables(self):
-        """``{'Q', 'K', 'bilinear'}`` -> ``[D+1, P]``: the encoder over the
-        D+1 distinct scenario ids (``only_emb``: the ReLU'd scenario
-        table), one table for all (non-``pos``, satrans.py:212-218)."""
+    def meta_tables(self) -> list[dict]:
+        """One ``{'Q', 'K', 'V', 'bilinear'}`` -> ``[D+1, P]`` dict per
+        layer: the encoder over the D+1 distinct scenario ids
+        (``only_emb``: the ReLU'd scenario table), one table for all
+        without ``use_pos`` (satrans.py:212-218); under ``use_pos`` the
+        encoder over ``relu([table | layerid_emb[l] + qkvid_emb[qkv]])``
+        for each layer and each of Q, K, V in one product, the bilinear
+        maps Q's (satrans.py:222-235)."""
         table = torch.relu(self.domain_emb)
-        if not self.only_emb:
-            table = self.encoder(table)
-        return {"Q": table, "K": table, "bilinear": table}
+        L = len(self.layers)
+        if not self.use_pos:
+            if not self.only_emb:
+                table = self.encoder(table)
+            return [{"Q": table, "K": table, "V": table,
+                     "bilinear": table}] * L
+        pos = self.layerid_emb[:, None, :] + self.qkvid_emb[None]  # [L, 3, d]
+        rows = table.shape[0]
+        enc_in = torch.cat([table.expand(L, 3, rows, -1),
+                            pos[:, :, None, :].expand(-1, -1, rows, -1)],
+                           dim=-1)
+        out = self.encoder(torch.relu(enc_in))            # [L, 3, D+1, P]
+        return [{"Q": out[i, 0], "K": out[i, 1], "V": out[i, 2],
+                 "bilinear": out[i, 0]} for i in range(L)]
 
     def block_b(self, batch_size: int) -> int | None:
         """The dropout tile for a batch: the first candidate that divides
@@ -182,9 +207,9 @@ class SATrans(nn.Module):
                 "batch no tile divides'")
         if seeds is None:
             seeds = self.default_seeds
-        tables = self.meta_tables()
         simple = self.variant != "metanet"
-        for layer, seed in zip(self.layers, seeds, strict=True):
+        for layer, seed, tables in zip(self.layers, seeds,
+                                       self.meta_tables(), strict=True):
             kw = dict(head_num=self.att_head_num, mode=self.meta_mode,
                       relu_out=self.relu_out)
             drop = dict(train=self.training, drop_rate=self.dropout_rate,

@@ -16,8 +16,11 @@ LayerNorm.  The scenario transform is the layer's ``variant``:
 Head split follows torch's ``torch.stack(torch.split(q, dh, dim=2))``:
 ``[B, F, d] -> [B, H, F, d/H]``.
 
-Supported so far: shared (non-``pos``) MetaNets.  Dropout is given as
-``masks``, one per site, drawn by ``ops/prng.py`` as the fused kernels
+The metanet layer's MetaNets are shared (one ``q_meta`` LayerNorm for Q
+and K) or, under the reference's 'pos' flag (``share_kv_metanet=False``),
+separate: K normalised with its own ``k_meta`` LayerNorm, and a
+``v_meta`` that is never applied, as in the reference.  Dropout is given
+as ``masks``, one per site, drawn by ``ops/prng.py`` as the fused kernels
 draw them: on each MetaNet's output before its residual, on the attention
 probabilities after the softmax and on the output projection after the
 optional relu.  ``clamp`` clamps the attention logits to [-60, 60] as the
@@ -75,11 +78,14 @@ VARIANTS = ("metanet", "gate", "bilinear")
 
 class MetaTransformerLayer(nn.Module):
     """Parameters of one layer: ``wq/wk/wv/wout`` ``[d, d]``, the
-    post-residual ``ln`` and, for the metanet variant only, the shared
-    MetaNet's ``q_meta.ln`` (the JAX param tree, attention.py:135-161)."""
+    post-residual ``ln`` and, for the metanet variant only, the MetaNets'
+    LayerNorms: ``q_meta.ln``, and without ``share_kv_metanet`` also
+    ``k_meta.ln`` and the never-applied ``v_meta.ln`` (the JAX param tree,
+    attention.py:135-161)."""
 
     def __init__(self, gen: torch.Generator, dim: int, *,
-                 variant: str = "metanet", std: float = 0.05):
+                 variant: str = "metanet", share_kv_metanet: bool = True,
+                 std: float = 0.05):
         super().__init__()
         if variant not in VARIANTS:
             raise ValueError(f"unknown variant {variant!r}")
@@ -95,6 +101,11 @@ class MetaTransformerLayer(nn.Module):
             bias_init=lambda g, s: init.normal(g, s, std))
         if variant == "metanet":
             self.q_meta = metanet.MetaNet(gen, dim)
+            if not share_kv_metanet:
+                self.k_meta = metanet.MetaNet(gen, dim)
+                # Quirk of the reference, kept: initialised, never applied
+                # (JAX attention.py:153-160)
+                self.v_meta = metanet.MetaNet(gen, dim)
 
 
 def meta_transformer_init(gen: torch.Generator, dim: int,
@@ -102,16 +113,13 @@ def meta_transformer_init(gen: torch.Generator, dim: int,
                           variant: str = "metanet",
                           share_kv_metanet: bool = True,
                           std: float = 0.05) -> MetaTransformerLayer:
-    if not share_kv_metanet:
-        raise NotImplementedError(
-            "separate K/V MetaNets ('pos') are ROADMAP queue 1 item "
-            "'Alimama sota-pos slice'")
     if variant == "metanet" and len(meta_units) != 3:
         raise NotImplementedError(
             f"meta units {list(meta_units)}: only 2-matrix MetaNets are "
             "ported; 3-matrix MetaNets are ROADMAP queue 1 item "
             "'remaining SATrans variants'")
-    return MetaTransformerLayer(gen, dim, variant=variant, std=std)
+    return MetaTransformerLayer(gen, dim, variant=variant,
+                                share_kv_metanet=share_kv_metanet, std=std)
 
 
 def meta_transformer_apply(layer: MetaTransformerLayer, x, meta_params,
@@ -155,7 +163,7 @@ def meta_transformer_apply(layer: MetaTransformerLayer, x, meta_params,
             q = layer.q_meta.ln(uq)
         if "K" in mode:
             uk = pre_ln(k0, meta_params["K"], m_k)
-            k = layer.q_meta.ln(uk)
+            k = getattr(layer, "k_meta", layer.q_meta).ln(uk)
     elif layer.variant == "gate":
         d = x.shape[-1]
         # t * g * 2, the gate broadcast over fields (satrans.py:61-62)

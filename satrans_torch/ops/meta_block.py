@@ -1,34 +1,41 @@
 """The fused meta-transformer layer: Python side of the Hopper kernels
-``csrc/meta_block_fwd.cu`` (K1-fwd, and K1-stash which also writes the
-backward's residuals) and ``csrc/meta_block_bwd.cu`` (K1-bwd, which
-recomputes the forward, and K1-bwd-stash, which reads the residuals),
-twins of ``satrans_tpu/ops/pallas/meta_block.py``.
+``csrc/meta_block_fwd.cu`` (K1-fwd; K1-stash, which also writes the
+backward's residuals; K1-stash light, which writes all of them but the
+attention probabilities) and ``csrc/meta_block_bwd.cu`` (K1-bwd, which
+recomputes the forward; K1-bwd-stash, which reads the residuals;
+K1-bwd-stash light, which reads the light ones and recomputes the
+probabilities), twins of ``satrans_tpu/ops/pallas/meta_block.py``.
 
 * :func:`fused_meta_layer` - the wrapper.  On a CUDA tensor it launches
   the kernels or raises: with a gradient needed, ``bwd='stash'`` (the
   default; ``SATRANS_BWD`` overrides, as in the JAX package) runs
-  :class:`_StashLayerFn` (K1-stash forward, K1-bwd-stash backward) and
-  ``bwd='recompute'`` :class:`_MetaLayerFn` (K1-fwd forward, K1-bwd
-  backward); without, K1-fwd, which never stashes.  On a CPU tensor it
-  runs :func:`meta_layer_reference` with the same dropout masks, and
-  autograd differentiates that.
+  :class:`_StashLayerFn` (K1-stash forward, K1-bwd-stash backward),
+  ``bwd='stash_light'`` :class:`_StashLightLayerFn` (K1-stash light,
+  K1-bwd-stash light) and ``bwd='recompute'`` :class:`_MetaLayerFn`
+  (K1-fwd forward, K1-bwd backward); without, K1-fwd, which never
+  stashes.  On a CPU tensor it runs :func:`meta_layer_reference` with the
+  same dropout masks, and autograd differentiates that.
 * :func:`meta_layer_reference` - the plain PyTorch version on the same
   operands (each example's own MetaNet weights, gathered by domain); its
-  autograd backward is the plain version of both backward kernels, and
-  its ``residuals`` the plain version of K1-stash's.
+  autograd backward is the plain version of the three backward kernels,
+  and its ``residuals`` the plain version of both stashes (the light one
+  without ``s``).
 * :func:`layer_masks` - the dropout masks the kernels compute inline
   (``ops/prng.py``): in training at ``drop_rate > 0``, the JAX package's
   interpret-mode masks for the layer's ``seed`` and tile ``block_b``.
 * :func:`launch_fwd` / :func:`launch_bwd` - the kernel launches on packed
   operands (:func:`pack_operands`); ``launches`` / ``stash_launches`` /
-  ``bwd_launches`` / ``stash_bwd_launches`` count them.
+  ``stash_light_launches`` / ``bwd_launches`` / ``stash_bwd_launches`` /
+  ``stash_light_bwd_launches`` count them.
 
 The packing of the operands (``wqkv``, the per-domain ``[D, d, h]`` and
 ``[D, h, d]`` MetaNet weights sliced out of the ``[D, P]`` tables, the
 LayerNorm rows) is plain PyTorch outside the autograd function, so autograd
 carries the kernel's gradients back to the layer's parameters and to the
-tables; in the shared Q/K case the two paths are summed there, as the JAX
-package's custom VJP leaves them to JAX (meta_block.py:1381-1384).
+tables.  The 'pos' model gives each layer distinct Q and K tables and a
+``k_meta`` LayerNorm; in the shared case (one table, the ``q_meta``
+LayerNorm for both) the two paths are summed there, as the JAX package's
+custom VJP leaves them to JAX (meta_block.py:1381-1384).
 """
 
 from __future__ import annotations
@@ -52,12 +59,19 @@ KERNEL_MAX_FIELDS = 20
 # K1-bwd runs two blocks of 256 threads per SM (csrc/meta_block_bwd.cu)
 BWD_BLOCKS_PER_SM = 2
 
-BWD_MODES = ("stash", "recompute")
+BWD_MODES = ("stash", "stash_light", "recompute")
+# the residuals of each stash, in the kernels' argument order, and the C
+# entries' stash argument (enum StashMode, csrc/layer_common.cuh)
+STASH_RESIDUALS = {"full": ("qkv", "uq", "uk", "s", "o"),
+                   "light": ("qkv", "uq", "uk", "o")}
+_STASH_MODE = {None: 0, "full": 1, "light": 2}
 
-launches = 0            # K1-fwd
-stash_launches = 0      # K1-stash
-bwd_launches = 0        # K1-bwd
-stash_bwd_launches = 0  # K1-bwd-stash
+launches = 0                  # K1-fwd
+stash_launches = 0            # K1-stash
+stash_light_launches = 0      # K1-stash light
+bwd_launches = 0              # K1-bwd
+stash_bwd_launches = 0        # K1-bwd-stash
+stash_light_bwd_launches = 0  # K1-bwd-stash light
 
 
 def meta_layer_reference(x, layer: MetaTransformerLayer, tables, dom, *,
@@ -67,11 +81,13 @@ def meta_layer_reference(x, layer: MetaTransformerLayer, tables, dom, *,
                          clamp: bool = True):
     """Plain PyTorch version of the kernels.  ``x`` ``[B, F, d]``;
     ``tables`` ``{'Q': [D, P], 'K': [D, P]}`` per-domain flat MetaNet
-    params; ``dom`` ``[B]`` rows of the tables, in ``[0, D)``; ``masks``
-    from :func:`layer_masks`; ``residuals`` receives K1-stash's
-    (``nn.attention.meta_transformer_apply``).  The attention logits are
-    clamped to [-60, 60] as in the kernels; ``clamp=False`` is the JAX
-    package's XLA layer, which does not clamp."""
+    params (one tensor for both, or distinct ones); ``dom`` ``[B]`` rows of
+    the tables, in ``[0, D)``; ``masks`` from :func:`layer_masks`;
+    ``residuals`` receives K1-stash's (``nn.attention.
+    meta_transformer_apply``; K1-stash light's are all of them but
+    ``s``).  The attention logits are clamped to [-60, 60] as in the
+    kernels; ``clamp=False`` is the JAX package's XLA layer, which does not
+    clamp."""
     return attention.meta_transformer_apply(
         layer, x, tables, meta_units, mode=mode, head_num=head_num,
         relu_out=relu_out, domain_ids=dom.long(), dense_select=False,
@@ -90,15 +106,12 @@ def layer_masks(x, *, head_num: int, mode: str, train: bool,
 
 
 def bwd_mode(bwd: str | None = None) -> str:
-    """The backward kernel: ``bwd``, else ``SATRANS_BWD``, else 'stash'
-    (the JAX package's rule, meta_block.py:1421-1424)."""
+    """The backward kernel pair: ``bwd``, else ``SATRANS_BWD``, else
+    'stash' (the JAX package's rule, meta_block.py:1420-1424): 'stash',
+    'stash_light' (the probabilities recomputed from the stashed pre-LN
+    sums) or 'recompute'."""
     if bwd is None:
         bwd = os.environ.get("SATRANS_BWD", "stash")
-    if bwd == "stash_light":
-        raise NotImplementedError(
-            "bwd='stash_light' (the probabilities recomputed from the "
-            "stashed pre-LN sums) is ROADMAP queue 2 item 'K1-scores, "
-            "stash_light and the bf16 stash'")
     if bwd not in BWD_MODES:
         raise ValueError(f"unknown bwd mode {bwd!r}")
     return bwd
@@ -153,43 +166,64 @@ def _check(x, meta_units, head_num: int, tables, train: bool) -> None:
                 "rows are ROADMAP queue 2 item 'K1-bwd for many meta rows'")
 
 
+def _residual_shapes(B: int, F: int, d: int, heads: int, stash: str):
+    """The shapes of a stash's residuals (:data:`STASH_RESIDUALS`)."""
+    shapes = {"qkv": (B, F, 3 * d), "uq": (B, F, d), "uk": (B, F, d),
+              "s": (B, heads, F, F), "o": (B, F, d)}
+    return [shapes[n] for n in STASH_RESIDUALS[stash]]
+
+
+def _residual_ptrs(res, stash):
+    """The C entries' five residual pointers, None where the stash has no
+    such residual (all of them without a stash)."""
+    if stash is None:
+        return [None] * len(STASH_RESIDUALS["full"])
+    ptrs = dict(zip(STASH_RESIDUALS[stash], (r.data_ptr() for r in res)))
+    return [ptrs.get(n) for n in STASH_RESIDUALS["full"]]
+
+
 def launch_fwd(x, dom, wqkv, w1q, w2q, lnq, w1k, w2k, lnk, wout, lno, cfg,
-               drop, stash: bool = False):
-    """K1-fwd: the layer's output for packed operands; with ``stash``,
-    K1-stash: ``(y, qkv, uq, uk, s, o)``.  ``drop`` is
-    ``prng.kernel_args(...)``."""
+               drop, stash: str | None = None):
+    """K1-fwd: the layer's output for packed operands; with
+    ``stash='full'`` K1-stash: ``(y, qkv, uq, uk, s, o)``; with
+    ``stash='light'`` K1-stash light: ``(y, qkv, uq, uk, o)``.  ``drop``
+    is ``prng.kernel_args(...)``."""
     h, heads, apply_q, apply_k, relu_out = cfg
     B, F, d = x.shape
     ops = (x, dom, wqkv, w1q, w2q, lnq, w1k, w2k, lnk, wout, lno)
     check_operands(ops, x.device, ints=(dom,))
     y = torch.empty_like(x)
-    res = ()
-    if stash:
-        res = (x.new_empty(B, F, 3 * d), torch.empty_like(x),
-               torch.empty_like(x), x.new_empty(B, heads, F, F),
-               torch.empty_like(x))
+    res = () if stash is None else tuple(
+        x.new_empty(shape)
+        for shape in _residual_shapes(B, F, d, heads, stash))
     fn = kernel_fn("meta_block_fwd", "satrans_meta_block_fwd",
-                   [ctypes.c_void_p] * 17 + [ctypes.c_int] * 10
+                   [ctypes.c_void_p] * 17 + [ctypes.c_int] * 11
                    + [ctypes.c_uint, ctypes.c_uint, ctypes.c_float]
                    + [ctypes.c_int] * 3 + [ctypes.c_void_p])
-    err = fn(*(t.data_ptr() for t in ops + (y,) + res),
-             *([None] * (5 - len(res))), B, F, d, h, heads, w1q.shape[0],
-             apply_q, apply_k, relu_out, *drop, stream_of(x))
+    err = fn(*(t.data_ptr() for t in ops + (y,)),
+             *_residual_ptrs(res, stash), _STASH_MODE[stash], B, F, d, h,
+             heads, w1q.shape[0], apply_q, apply_k, relu_out, *drop,
+             stream_of(x))
     if err:
         raise RuntimeError(f"meta_block_fwd launch failed: CUDA error {err}")
-    global launches, stash_launches
-    if stash:
+    global launches, stash_launches, stash_light_launches
+    if stash is None:
+        launches += 1
+        return y
+    if stash == "full":
         stash_launches += 1
-        return (y,) + res
-    launches += 1
-    return y
+    else:
+        stash_light_launches += 1
+    return (y,) + res
 
 
 def launch_bwd(g, x, dom, wqkv, w1q, w2q, lnq, w1k, w2k, lnk, wout, lno,
                cfg, drop, res=None):
-    """K1-bwd, or with K1-stash's residuals ``res = (qkv, uq, uk, s, o)``
-    K1-bwd-stash: ``(dx, dwqkv, dw1q, dw2q, dlnq, dw1k, dw2k, dlnk, dwout,
-    dlno)`` for the upstream gradient ``g`` of the layer's output."""
+    """K1-bwd; with K1-stash's residuals ``res = (qkv, uq, uk, s, o)``
+    K1-bwd-stash; with K1-stash light's ``res = (qkv, uq, uk, o)``
+    K1-bwd-stash light: ``(dx, dwqkv, dw1q, dw2q, dlnq, dw1k, dw2k, dlnk,
+    dwout, dlno)`` for the upstream gradient ``g`` of the layer's
+    output."""
     h, heads, apply_q, apply_k, relu_out = cfg
     B, F, d = x.shape
     D = w1q.shape[0]
@@ -197,6 +231,15 @@ def launch_bwd(g, x, dom, wqkv, w1q, w2q, lnq, w1k, w2k, lnk, wout, lno,
     if g.dtype != torch.float32 or g.shape != x.shape:
         raise ValueError(f"gradient of type {g.dtype} and shape "
                          f"{tuple(g.shape)}, want float32 {tuple(x.shape)}")
+    stash = None
+    if res is not None:
+        stash = "full" if len(res) == len(STASH_RESIDUALS["full"]) \
+            else "light"
+        want = _residual_shapes(B, F, d, heads, stash)
+        if [tuple(r.shape) for r in res] != want:
+            raise ValueError(f"residuals of shapes "
+                             f"{[tuple(r.shape) for r in res]}, want {want}")
+        check_operands(res, x.device)
     # every GEMM of the kernel reads its weights row-major [K, N]: the
     # backward's transposed products get transposed copies (a few kB)
     wqkv_t = wqkv.t().contiguous()
@@ -215,27 +258,22 @@ def launch_bwd(g, x, dom, wqkv, w1q, w2q, lnq, w1k, w2k, lnk, wout, lno,
     ops = (x, dom, g, wqkv, wqkv_t, w1q, w2q, w1q_t, w2q_t, lnq, w1k, w2k,
            w1k_t, w2k_t, lnk, wout, wout_t, lno, dx, partial, grads)
     check_operands(ops, x.device, ints=(dom,))
-    if res is not None:
-        shapes = [(B, F, 3 * d), (B, F, d), (B, F, d), (B, heads, F, F),
-                  (B, F, d)]
-        if [tuple(r.shape) for r in res] != shapes:
-            raise ValueError(f"residuals of shapes "
-                             f"{[tuple(r.shape) for r in res]}, want {shapes}")
-        check_operands(res, x.device)
     fn = kernel_fn("meta_block_bwd", "satrans_meta_block_bwd",
-                   [ctypes.c_void_p] * 26 + [ctypes.c_int] * 11
+                   [ctypes.c_void_p] * 26 + [ctypes.c_int] * 12
                    + [ctypes.c_uint, ctypes.c_uint, ctypes.c_float]
                    + [ctypes.c_int] * 3 + [ctypes.c_void_p])
-    res_ptrs = [None] * 5 if res is None else [r.data_ptr() for r in res]
-    err = fn(*(t.data_ptr() for t in ops), *res_ptrs, B, F, d, h, heads, D,
-             apply_q, apply_k, relu_out, blocks, *drop, stream_of(x))
+    err = fn(*(t.data_ptr() for t in ops), *_residual_ptrs(res, stash),
+             _STASH_MODE[stash], B, F, d, h, heads, D, apply_q, apply_k,
+             relu_out, blocks, *drop, stream_of(x))
     if err:
         raise RuntimeError(f"meta_block_bwd launch failed: CUDA error {err}")
-    global bwd_launches, stash_bwd_launches
-    if res is None:
+    global bwd_launches, stash_bwd_launches, stash_light_bwd_launches
+    if stash is None:
         bwd_launches += 1
-    else:
+    elif stash == "full":
         stash_bwd_launches += 1
+    else:
+        stash_light_bwd_launches += 1
     sizes = [3 * d * d, d * d, 2 * d, 2 * d, 2 * d] + [D * d * h] * 4
     (dwqkv, dwout, dlnq, dlnk, dlno, dw1q, dw2q, dw1k,
      dw2k) = torch.split(grads, sizes)
@@ -275,6 +313,24 @@ class _MetaLayerFn(torch.autograd.Function):
             launch_bwd(g, *ctx.saved_tensors, ctx.cfg, ctx.drop), ctx.cfg)
 
 
+def _stash_forward(ctx, stash, args):
+    """The forward of the stash autograd functions: the ``stash`` body on
+    ``args = (*ops, cfg, drop)``, saving its inputs and residuals."""
+    *ops, cfg, drop = args
+    ctx.cfg, ctx.drop = cfg, drop
+    y, *res = launch_fwd(*ops, cfg, drop, stash=stash)
+    ctx.save_for_backward(*ops, *res)
+    return y
+
+
+def _stash_backward(ctx, g):
+    """The backward of the stash autograd functions: the backward body
+    that reads the saved residuals (their count tells the stash)."""
+    saved = ctx.saved_tensors
+    return _input_grads(launch_bwd(g, *saved[:11], ctx.cfg, ctx.drop,
+                                   res=saved[11:]), ctx.cfg)
+
+
 class _StashLayerFn(torch.autograd.Function):
     """The layer with K1-stash as its forward and K1-bwd-stash as its
     backward (the JAX ``_fused_layer`` custom VJP with ``bwd='stash'``):
@@ -282,20 +338,28 @@ class _StashLayerFn(torch.autograd.Function):
     at the AliCCP sota shape (B=8192, F=19, d=32)."""
 
     @staticmethod
-    def forward(ctx, x, dom, wqkv, w1q, w2q, lnq, w1k, w2k, lnk, wout, lno,
-                cfg, drop):
-        ctx.cfg, ctx.drop = cfg, drop
-        y, *res = launch_fwd(x, dom, wqkv, w1q, w2q, lnq, w1k, w2k, lnk,
-                             wout, lno, cfg, drop, stash=True)
-        ctx.save_for_backward(x, dom, wqkv, w1q, w2q, lnq, w1k, w2k, lnk,
-                              wout, lno, *res)
-        return y
+    def forward(ctx, *args):
+        return _stash_forward(ctx, "full", args)
+
+    backward = staticmethod(_stash_backward)
+
+
+class _StashLightLayerFn(torch.autograd.Function):
+    """The layer with K1-stash light as its forward and K1-bwd-stash light
+    as its backward (``bwd='stash_light'``): the residuals but the
+    ``[B, H, F, F]`` probabilities, which the backward recomputes from the
+    pre-LN sums (119.5 MB a layer at the AliCCP sota shape, 94.4 MB at
+    Alimama's F=15, against 166.9 and 123.9 MB)."""
 
     @staticmethod
-    def backward(ctx, g):
-        saved = ctx.saved_tensors
-        return _input_grads(launch_bwd(g, *saved[:11], ctx.cfg, ctx.drop,
-                                       res=saved[11:]), ctx.cfg)
+    def forward(ctx, *args):
+        return _stash_forward(ctx, "light", args)
+
+    backward = staticmethod(_stash_backward)
+
+
+_LAYER_FNS = {"stash": _StashLayerFn, "stash_light": _StashLightLayerFn,
+              "recompute": _MetaLayerFn}
 
 
 def pack_operands(x, layer: MetaTransformerLayer, tables, dom, *,
@@ -310,11 +374,14 @@ def pack_operands(x, layer: MetaTransformerLayer, tables, dom, *,
     w1q, w2q = _meta_operands(tables, "Q", meta_units)
     w1k, w2k = (w1q, w2q) if tables["K"] is tables["Q"] \
         else _meta_operands(tables, "K", meta_units)
-    lnm, lno = _ln(layer.q_meta.ln), _ln(layer.ln)
+    lnq = _ln(layer.q_meta.ln)
+    # the 'pos' layer's own K LayerNorm; else Q's, one tensor for both
+    k_meta = getattr(layer, "k_meta", None)
+    lnk = lnq if k_meta is None else _ln(k_meta.ln)
     cfg = (meta_units[1], head_num, int("Q" in mode), int("K" in mode),
            int(relu_out))
-    return (x, dom, wqkv, w1q, w2q, lnm, w1k, w2k, lnm,
-            layer.wout.contiguous(), lno), cfg
+    return (x, dom, wqkv, w1q, w2q, lnq, w1k, w2k, lnk,
+            layer.wout.contiguous(), _ln(layer.ln)), cfg
 
 
 def fused_meta_layer(x, layer: MetaTransformerLayer, tables, dom, *,
@@ -327,8 +394,8 @@ def fused_meta_layer(x, layer: MetaTransformerLayer, tables, dom, *,
     :func:`meta_layer_reference`.  ``train`` with ``drop_rate > 0``
     applies the dropout of ``seed`` on tiles of ``block_b`` examples (the
     JAX ``fused_meta_layer_vjp``'s arguments).  Differentiable: with a
-    gradient needed on the card, ``bwd`` ('stash' or 'recompute', see
-    :func:`bwd_mode`) picks the kernel pair."""
+    gradient needed on the card, ``bwd`` ('stash', 'stash_light' or
+    'recompute', see :func:`bwd_mode`) picks the kernel pair."""
     bwd = bwd_mode(bwd)
     check_stash_dtype()
     if x.device.type == "cpu":
@@ -347,5 +414,4 @@ def fused_meta_layer(x, layer: MetaTransformerLayer, tables, dom, *,
     drop = prng.kernel_args(train, drop_rate, seed, block_b, x.shape[1])
     if not grad:  # eval, serving: never stash (meta_block.py:1314-1319)
         return launch_fwd(*ops, cfg, drop)
-    fn = _StashLayerFn if bwd == "stash" else _MetaLayerFn
-    return fn.apply(*ops, cfg, drop)
+    return _LAYER_FNS[bwd].apply(*ops, cfg, drop)

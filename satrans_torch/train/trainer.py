@@ -6,7 +6,8 @@ one device) is autograd of the model in train mode, the pad-weighted BCE
 sum (:class:`SingleTask`), the model's full-table embedding L2
 (``model.reg_loss()``) and Adam over every parameter, the bank included.
 On the card each meta-transformer layer runs K1-stash forward and
-K1-bwd-stash backward, or K1-fwd and K1-bwd under
+K1-bwd-stash backward, K1-stash light and K1-bwd-stash light under
+``SATRANS_BWD=stash_light``, or K1-fwd and K1-bwd under
 ``SATRANS_BWD=recompute`` (``ops/meta_block.py``); the gate and bilinear
 variants' layers run K6 (``ops/gate_block.py``).  Each step draws one
 dropout seed per layer as the JAX Trainer does: its key ``PRNGKey(seed +

@@ -48,11 +48,12 @@ def _models(layout):
     return tp.jax_and_port(cols=LAYOUTS[layout], l2_reg_embedding=L2)
 
 
-def _jax_fit(jm, params, x, y, mode):
-    """Three steps of the JAX Trainer in ``mode`` from ``params``; returns
-    (per-step stats, final params, final optimizer state)."""
+def _jax_fit(jm, params, x, y, mode, lr=LR):
+    """One epoch of the JAX Trainer in ``mode`` at learning rate ``lr``
+    from ``params``; returns (per-step stats, final params, final optimizer
+    state)."""
     tr = JaxTrainer(jm, seed=7)
-    tr.compile(learning_rate=LR, bank_update=mode)
+    tr.compile(learning_rate=lr, bank_update=mode)
     tr.params = jax.tree.map(lambda a: jnp.array(np.asarray(a)), params)
     tr.state = {}
     tr._bank_mode = mode

@@ -181,12 +181,15 @@ def test_keep_share_at_the_aliccp_shape():
 
 @pytest.mark.parametrize("case", ["untiled_batch", "stash_light"])
 def test_unported_dropout_cases_raise(case, monkeypatch):
+    """A batch no dropout tile divides; the light stash in bf16 (the light
+    stash itself runs, tests/test_torch_pos.py)."""
     jm, params, tm = tp.jax_and_port(dropout_rate=RATE)
     tr = TorchTrainer(tm, device="cpu").compile()
     x = tp.request(24, seed=5)
     y = np.zeros(24, np.float32)
     if case == "stash_light":
         monkeypatch.setenv("SATRANS_BWD", "stash_light")
+        monkeypatch.setenv("SATRANS_STASH", "bf16")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         tr.fit(x, y, batch_size=12 if case == "untiled_batch" else 16,
                verbose=0)

@@ -1,8 +1,11 @@
 """The port's CUDA kernels against their plain PyTorch versions on the card:
-the layer forward (K1-fwd) and the stash forward (K1-stash, with its
-residuals) against ``meta_layer_reference``, both layer backwards (K1-bwd
-and K1-bwd-stash) against autograd of it, each without and with dropout
-(the same masks on both sides) and with logits past the clamp, the gate
+the layer forward (K1-fwd) and both stash forwards (K1-stash and K1-stash
+light, with their residuals) against ``meta_layer_reference``, the three
+layer backwards (K1-bwd, K1-bwd-stash and K1-bwd-stash light) against
+autograd of it, each without and with dropout (the same masks on both
+sides), with logits past the clamp and, as the 'pos' model has them, with
+distinct Q and K tables and a ``k_meta`` LayerNorm; K1-bwd-stash light
+against K1-bwd-stash on the same residuals; the gate
 and bilinear layer (K6-fwd, K6-bwd) against ``simple_layer_reference``
 and its autograd, and the row kernels of the sparse bank updates (K2
 scatter, K3 equality combine, K4 gather, K5 lazy Adam tail) against
@@ -38,6 +41,18 @@ def card():
     return torch.device("cuda", 0)
 
 
+COUNTS = ("launches", "stash_launches", "stash_light_launches",
+          "bwd_launches", "stash_bwd_launches", "stash_light_bwd_launches")
+# the launches of each backward's pair: (K1-fwd, K1-stash, K1-stash light,
+# K1-bwd, K1-bwd-stash, K1-bwd-stash light)
+PAIR = {"recompute": [1, 0, 0, 1, 0, 0], "stash": [0, 1, 0, 0, 1, 0],
+        "stash_light": [0, 0, 1, 0, 0, 1]}
+
+
+def _counts():
+    return [getattr(meta_block, c) for c in COUNTS]
+
+
 def _layer(card, seed):
     """A layer with its meta LayerNorm moved off its (1, 0) init, and a
     4-row table."""
@@ -49,6 +64,21 @@ def _layer(card, seed):
         layer.q_meta.ln.bias.add_(init.normal(gen, (d,), 0.1))
     return gen, layer, init.normal(gen, (4, metanet.param_size([d, h, d])),
                                    0.1)
+
+
+def _pos_layer(card, seed):
+    """A 'pos' layer (its q_meta and k_meta LayerNorms moved off their
+    init, each its own way) and distinct 4-row Q and K tables."""
+    gen = make_generator(seed, card)
+    d, h = 32, 64
+    layer = attention.MetaTransformerLayer(gen, d, share_kv_metanet=False)
+    with torch.no_grad():
+        for meta in (layer.q_meta, layer.k_meta):
+            meta.ln.scale.add_(init.normal(gen, (d,), 0.1))
+            meta.ln.bias.add_(init.normal(gen, (d,), 0.1))
+    p = metanet.param_size([d, h, d])
+    return gen, layer, {"Q": init.normal(gen, (4, p), 0.1),
+                        "K": init.normal(gen, (4, p), 0.1)}
 
 
 @pytest.mark.cuda
@@ -83,13 +113,15 @@ def test_meta_block_kernel_matches_plain_version(card, mode, relu_out, F,
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("stash", ["full", "light"])
 @pytest.mark.parametrize("rate", [0.0, 0.1])
 @pytest.mark.parametrize("mode,relu_out", MODES)
 def test_stash_kernel_residuals_match_plain_version(card, mode, relu_out,
-                                                    rate):
+                                                    rate, stash):
     """K1-stash's output and each residual (qkv, the pre-LN sums, the
-    probabilities before dropout, the attention output) against the plain
-    version's, at the tolerance of the forward test."""
+    probabilities before dropout, the attention output), or K1-stash
+    light's (all but the probabilities), against the plain version's, at
+    the tolerance of the forward test."""
     gen, layer, table = _layer(card, 2)
     x = init.normal(gen, (33, 19, 32), 1.0)
     dom = torch.randint(0, 4, (33,), generator=gen, device=card)
@@ -98,23 +130,25 @@ def test_stash_kernel_residuals_match_plain_version(card, mode, relu_out,
     drop = dict(train=True, drop_rate=rate, **DROP)
     tables = {"Q": table, "K": table}
     ops, cfg = meta_block.pack_operands(x, layer, tables, dom, **kw)
-    before = meta_block.stash_launches
+    before = _counts()
     with torch.no_grad():
         got = meta_block.launch_fwd(*ops, cfg, prng.kernel_args(
-            True, rate, DROP["seed"], DROP["block_b"], 19), stash=True)
+            True, rate, DROP["seed"], DROP["block_b"], 19), stash=stash)
         res = {}
         y = meta_block.meta_layer_reference(
             x, layer, tables, dom, **kw, residuals=res,
             masks=meta_block.layer_masks(x, head_num=4, mode=mode, **drop))
     torch.cuda.synchronize()
-    assert meta_block.stash_launches == before + 1
-    for name, g, w in zip(("y", "qkv", "uq", "uk", "s", "o"), got,
-                          (y, *(res[k] for k in ("qkv", "uq", "uk", "s",
-                                                 "o")))):
+    pair = PAIR["stash" if stash == "full" else "stash_light"]
+    assert [a - b for a, b in zip(_counts(), before)] == pair[:3] + [0] * 3
+    names = meta_block.STASH_RESIDUALS[stash]
+    assert len(got) == 1 + len(names)
+    for name, g, w in zip(("y", *names), got,
+                          (y, *(res[k] for k in names))):
         torch.testing.assert_close(g, w, rtol=1e-4, atol=1e-4, msg=name)
 
 
-def _kink_free(g, x, layer, table, dom, masks, **kw):
+def _kink_free(g, x, layer, tables, dom, masks, **kw):
     """``g`` with zero rows for the examples whose relu inputs (the
     MetaNet hidden layers, and the output projection under relu_out) lie
     within 1e-6 of 0 in the float64 plain layer: float32 rounding may put
@@ -122,14 +156,14 @@ def _kink_free(g, x, layer, table, dom, masks, **kw):
     and the kernel and the plain version would then differ by the jump."""
     res = {}
     with torch.no_grad():
-        meta_block.meta_layer_reference(x, layer, {"Q": table, "K": table},
-                                        dom, **kw, masks=masks,
-                                        residuals=res)
+        meta_block.meta_layer_reference(x, layer, tables, dom, **kw,
+                                        masks=masks, residuals=res)
         d = x.shape[-1]
-        w1 = metanet.slice_weights(table, kw["meta_units"])[0][dom.long()]
-        pre = [torch.einsum("bfi,bio->bfo", res["qkv"][..., i * d:
-                                                      (i + 1) * d], w1)
-               for i, p in enumerate("QK") if p in kw["mode"]]
+        pre = [torch.einsum(
+            "bfi,bio->bfo", res["qkv"][..., i * d:(i + 1) * d],
+            metanet.slice_weights(tables[p], kw["meta_units"])[0][
+                dom.long()])
+            for i, p in enumerate("QK") if p in kw["mode"]]
         if kw["relu_out"]:
             pre.append(res["o"] @ layer.wout)
         near = torch.zeros(x.shape[0], dtype=torch.bool, device=x.device)
@@ -153,14 +187,15 @@ def _grads(fn, x, layer, table, dom, g, **kw):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("bwd", ["stash", "recompute"])
+@pytest.mark.parametrize("bwd", ["stash", "stash_light", "recompute"])
 @pytest.mark.parametrize("rate", [0.0, 0.1])
 @pytest.mark.parametrize("mode,relu_out", MODES)
 @pytest.mark.parametrize("B,F", [(33, 7), (33, 19), (8192, 19)])
 def test_meta_block_bwd_kernel_matches_plain_backward(card, mode, relu_out,
                                                       B, F, rate, bwd):
-    """K1-bwd-stash (with K1-stash) and K1-bwd (with K1-fwd), through the
-    autograd wrapper, against autograd of the plain layer with the same
+    """K1-bwd-stash (with K1-stash), K1-bwd-stash light (with K1-stash
+    light) and K1-bwd (with K1-fwd), through the autograd wrapper, against
+    autograd of the plain layer with the same
     masks, at a small ragged batch and at the full AliCCP sota shape.  The
     plain layer runs in float64, and examples with a relu input at its
     kink get no upstream gradient (:func:`_kink_free`), so that the
@@ -179,16 +214,14 @@ def test_meta_block_bwd_kernel_matches_plain_backward(card, mode, relu_out,
     masks64 = masks and tuple(None if m is None else m.double()
                               for m in masks)
     layer64 = copy.deepcopy(layer).double()
-    g = _kink_free(g.double(), x.double(), layer64, table.double(), dom,
-                   masks64, **kw)
-    counts = ("launches", "stash_launches", "bwd_launches",
-              "stash_bwd_launches")
-    before = [getattr(meta_block, c) for c in counts]
+    g = _kink_free(g.double(), x.double(), layer64,
+                   {"Q": table.double(), "K": table.double()}, dom, masks64,
+                   **kw)
+    before = _counts()
     got = _grads(meta_block.fused_meta_layer, x, layer, table, dom,
                  g.float(), **kw, **drop, bwd=bwd)
     torch.cuda.synchronize()
-    launched = [getattr(meta_block, c) - b for c, b in zip(counts, before)]
-    assert launched == ([0, 1, 0, 1] if bwd == "stash" else [1, 0, 1, 0])
+    assert [a - b for a, b in zip(_counts(), before)] == PAIR[bwd]
     want = _grads(meta_block.meta_layer_reference, x.double(), layer64,
                   table.double(), dom, g, **kw, masks=masks64)
     assert set(got) == set(want)
@@ -198,7 +231,7 @@ def test_meta_block_bwd_kernel_matches_plain_backward(card, mode, relu_out,
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("bwd", ["stash", "recompute"])
+@pytest.mark.parametrize("bwd", ["stash", "stash_light", "recompute"])
 def test_meta_block_kernels_clamp_logits(card, bwd):
     """With the meta LayerNorm scaled 6 times, a share of the attention
     logits passes 60: both K1 forwards and both backwards against the
@@ -214,8 +247,9 @@ def test_meta_block_kernels_clamp_logits(card, bwd):
     kw = dict(meta_units=[32, 64, 32], head_num=4, mode="QK",
               relu_out=False)
     layer64 = copy.deepcopy(layer).double()
-    g = _kink_free(g.double(), x.double(), layer64, table.double(), dom,
-                   None, **kw)
+    g = _kink_free(g.double(), x.double(), layer64,
+                   {"Q": table.double(), "K": table.double()}, dom, None,
+                   **kw)
     with torch.no_grad():
         y = meta_block.fused_meta_layer(x, layer, {"Q": table, "K": table},
                                         dom, **kw)
@@ -233,6 +267,102 @@ def test_meta_block_kernels_clamp_logits(card, bwd):
     for name, w in want.items():
         err = (got[name].double() - w).abs().max().item()
         assert err <= 1e-4 * w.abs().max().item() + 1e-5, (name, err)
+
+
+def _pos_grads(fn, x, layer, tables, dom, g, **kw):
+    """Gradients of sum(fn(...) * g) by name: x, both tables, the layer's
+    parameters (v_meta, never applied, has none)."""
+    x = x.detach().requires_grad_(True)
+    tables = {k: t.detach().requires_grad_(True) for k, t in tables.items()}
+    params = dict(layer.named_parameters())
+    y = fn(x, layer, tables, dom, **kw)
+    names = ["x", "table.Q", "table.K", *params]
+    got = torch.autograd.grad((y * g).sum(),
+                              [x, tables["Q"], tables["K"], *params.values()],
+                              allow_unused=True)
+    return {n: gr for n, gr in zip(names, got) if gr is not None}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bwd", ["stash", "stash_light", "recompute"])
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+@pytest.mark.parametrize("B", [33, 8190])
+def test_pos_layer_kernels_match_plain_version(card, B, rate, bwd):
+    """The 'pos' layer at Alimama's F = 15: distinct Q and K tables and a
+    k_meta LayerNorm of its own.  K1-fwd without a gradient, then each
+    kernel pair through the autograd wrapper, against the plain layer in
+    float64 with the same masks, at the tolerances above; the dQ and dK
+    tables differ and v_meta gets no gradient."""
+    gen, layer, tables = _pos_layer(card, 6)
+    F = 15
+    x = init.normal(gen, (B, F, 32), 1.0)
+    g = init.normal(gen, (B, F, 32), 1.0)
+    dom = torch.randint(0, 4, (B,), generator=gen, device=card)
+    kw = dict(meta_units=[32, 64, 32], head_num=4, mode="QK",
+              relu_out=False)
+    drop = dict(train=True, drop_rate=rate, **DROP)
+    masks = meta_block.layer_masks(x, head_num=4, mode="QK", **drop)
+    masks64 = masks and tuple(None if m is None else m.double()
+                              for m in masks)
+    layer64 = copy.deepcopy(layer).double()
+    tables64 = {k: t.double() for k, t in tables.items()}
+    g = _kink_free(g.double(), x.double(), layer64, tables64, dom, masks64,
+                   **kw)
+    before = _counts()
+    with torch.no_grad():
+        y = meta_block.fused_meta_layer(x, layer, tables, dom, **kw, **drop)
+        want = meta_block.meta_layer_reference(x.double(), layer64,
+                                               tables64, dom, **kw,
+                                               masks=masks64)
+    torch.testing.assert_close(y.double(), want, rtol=1e-4, atol=1e-4)
+    got = _pos_grads(meta_block.fused_meta_layer, x, layer, tables, dom,
+                     g.float(), **kw, **drop, bwd=bwd)
+    torch.cuda.synchronize()
+    pair = PAIR[bwd]
+    assert [a - b for a, b in zip(_counts(), before)] == [
+        pair[0] + 1] + pair[1:]
+    want = _pos_grads(meta_block.meta_layer_reference, x.double(), layer64,
+                      tables64, dom, g, **kw, masks=masks64)
+    assert set(got) == set(want)
+    assert not any(n.startswith("v_meta") for n in got)
+    for name, w in want.items():
+        err = (got[name].double() - w).abs().max().item()
+        assert err <= 1e-4 * w.abs().max().item() + 1e-5, (name, err)
+    assert not torch.allclose(got["table.Q"], got["table.K"])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+def test_stash_light_backward_equals_stash_backward(card, rate):
+    """K1-bwd-stash light on K1-stash's residuals less the probabilities
+    against K1-bwd-stash on all of them: the light body recomputes the
+    probabilities with the forward's device code, so every gradient is
+    expected bit for bit; each within 1e-6 of its largest entry."""
+    gen, layer, tables = _pos_layer(card, 7)
+    B, F = 8190, 15
+    x = init.normal(gen, (B, F, 32), 1.0)
+    g = init.normal(gen, (B, F, 32), 1.0)
+    dom = torch.randint(0, 4, (B,), generator=gen, device=card)
+    ops, cfg = meta_block.pack_operands(x, layer, tables, dom,
+                                        meta_units=[32, 64, 32], head_num=4)
+    ops = [t.detach() for t in ops]
+    kargs = prng.kernel_args(True, rate, DROP["seed"], DROP["block_b"], F)
+    with torch.no_grad():
+        y, qkv, uq, uk, s, o = meta_block.launch_fwd(*ops, cfg, kargs,
+                                                     stash="full")
+        y_light, *light = meta_block.launch_fwd(*ops, cfg, kargs,
+                                                stash="light")
+        full = meta_block.launch_bwd(g, *ops, cfg, kargs,
+                                     res=(qkv, uq, uk, s, o))
+        part = meta_block.launch_bwd(g, *ops, cfg, kargs,
+                                     res=(qkv, uq, uk, o))
+    torch.cuda.synchronize()
+    assert torch.equal(y, y_light)
+    for a, b in zip((qkv, uq, uk, o), light):
+        assert torch.equal(a, b)
+    for i, (a, b) in enumerate(zip(part, full)):
+        err = (a - b).abs().max().item()
+        assert err <= 1e-6 * b.abs().max().item(), (i, err)
 
 
 # --- K6, the gate and bilinear layer ------------------------------------

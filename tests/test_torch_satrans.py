@@ -100,12 +100,9 @@ def test_synthetic_data_is_the_same():
 
 
 @pytest.mark.parametrize("kw", [
-    dict(use_pos=True), dict(variant="gate", use_pos=True),
-    dict(variant="bilinear", use_pos=True),
     dict(meta_dnn_hidden_units=(16, 16, 8)), dict(compute_dtype="bfloat16"),
     dict(domain_cols=["domain", "f0"], num_domains_list=[3, 3]),
-], ids=["pos", "gate-pos", "bilinear-pos", "3-matrix", "bf16",
-        "multi-column"])
+], ids=["3-matrix", "bf16", "multi-column"])
 def test_unported_variants_raise(kw):
     layout = satrans_torch.FeatureLayout(tp.columns(satrans_torch))
     args = tp.model_kwargs()
@@ -115,7 +112,8 @@ def test_unported_variants_raise(kw):
 
 
 def test_bridge_rejects_unported_params():
-    """'pos' params (separate K/V MetaNets) have no place in the port."""
+    """A 'pos' tree (separate K/V MetaNets, the position tables) has no
+    place in a shared model of the port: the configurations differ."""
     kw = tp.model_kwargs()
     jm = JaxSATrans(
         layout=satrans_tpu.FeatureLayout(tp.columns(satrans_tpu)),

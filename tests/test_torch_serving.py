@@ -40,7 +40,8 @@ def test_port_imports_no_jax():
     code = ("import sys, satrans_torch, satrans_torch.bridge, "
             "satrans_torch.serving, satrans_torch.models, "
             "satrans_torch.ops.meta_block, satrans_torch.ops._build, "
-            "satrans_torch.data.aliccp, satrans_torch.data.synthetic; "
+            "satrans_torch.data.aliccp, satrans_torch.data.alimama, "
+            "satrans_torch.data.synthetic; "
             "bad = [m for m in sys.modules "
             "if m.split('.')[0] in ('jax', 'jaxlib', 'satrans_tpu')]; "
             "assert not bad, bad")

@@ -104,10 +104,11 @@ def port_fit(tm, x, y, mode, *, step_seeds=None, lr=0.01, seed=7,
     return steps
 
 
-def assert_fit_matches(j_steps, j_params, steps, tm):
+def assert_fit_matches(j_steps, j_params, steps, tm, exclude=()):
     """The port's steps and parameters against the JAX Trainer's: the data
-    and reg losses at rtol 1e-5, every parameter at atol 5e-5 / rtol 1e-3
-    (tests/test_torch_train.py's tolerances)."""
+    and reg losses at rtol 1e-5, every parameter but those named in
+    ``exclude`` at atol 5e-5 / rtol 1e-3 (tests/test_torch_train.py's
+    tolerances)."""
     from satrans_torch import bridge
     assert len(j_steps) == len(steps)
     for js, ts in zip(j_steps, steps):
@@ -116,5 +117,7 @@ def assert_fit_matches(j_steps, j_params, steps, tm):
             np.testing.assert_allclose(ts[k], js[k], rtol=1e-5, err_msg=k)
     got = tm.state_dict()
     for name, w in bridge.from_jax_params(j_params, tm).items():
+        if name in exclude:
+            continue
         np.testing.assert_allclose(got[name].numpy(), w.numpy(), atol=5e-5,
                                    rtol=1e-3, err_msg=name)
