@@ -75,7 +75,22 @@ Phases, each of which exits non-zero on failure:
    bwd='stash' and once with bwd='stash_light' (exactly 3 + 3 launches of
    the arm's pair a step and the lazy row kernels', gradients kernel vs
    plain path, a falling loss, v_meta bit-identical, examples/s, staged
-   step, profile), and the two stashes' staged steps in turns.
+   step, profile), and the two stashes' staged steps in turns;
+11. the AliCCP multicol configuration (scenario columns ``301`` and
+   ``122``, the reference's ``--domain_col 301-122``: a composite table
+   of 4 x 14 = 56 rows, so the batch is dispatched into single-domain
+   tiles of 32 and every layer runs K7): (a) K7-fwd, K7-stash (and its
+   residuals), K7-bwd-stash and K7-bwd against the plain tiled layer at
+   the full workload's dispatch (B=8192 in 9984 slots) at dropout 0 and
+   0.1, QK and Query, relu_out off and on, and with distinct Q and K
+   tables, each body timed with its bound; (b) one request of 20,000
+   examples through Predictor (exactly 3 K7-fwd a batch, no K1 or K6);
+   (c) ``lazy`` training at lr 0.005 and dropout 0.1 for 12 steps and a
+   tail under SATRANS_TILED_BWD=stash and recompute (exactly 3 + 3
+   launches of the arm's K7 pair a step and the lazy row kernels', no K1
+   or K6, gradients kernel vs plain path, a falling loss, domain_emb and
+   domain_bank's large part bit-identical, examples/s, staged step,
+   profile), and the two backwards' staged steps in turns.
 
 Phases 2 and 4 also hold K1 where a share of the attention logits passes
 the kernels' clamp at 60 against the clamped plain layer.
@@ -88,6 +103,7 @@ prints no result.
 
 from __future__ import annotations
 
+import functools
 import gc
 import json
 import os
@@ -153,6 +169,18 @@ K1_NAMES = ("meta_block_fwd", "meta_block_fwd_stash", "meta_block_bwd",
 K1_PAIR = {"recompute": (1, 0, 1, 0, 0, 0), "stash": (0, 1, 0, 1, 0, 0),
            "stash_light": (0, 0, 0, 0, 1, 1)}
 NO_K1 = (0,) * len(K1_COUNTS)
+# K7's counters in ops/tiled_meta.py, its names in the JSON line, and each
+# backward's pair a layer in K7_COUNTS order
+K7_COUNTS = ("launches", "stash_launches", "bwd_launches",
+             "stash_bwd_launches")
+K7_NAMES = ("tiled_meta_fwd", "tiled_meta_fwd_stash", "tiled_meta_bwd",
+            "tiled_meta_bwd_stash")
+K7_PAIR = {"recompute": (1, 0, 1, 0), "stash": (0, 1, 0, 1)}
+NO_K7 = (0,) * len(K7_COUNTS)
+# the AliCCP multicol configuration (phase 11): two scenario columns, a
+# composite table of (3 + 1) x (13 + 1) rows, dispatch tiles of 32
+MULTICOL_COLS, MULTICOL_DOMAINS = ["301", "122"], [3, 13]
+MULTICOL_ROWS, MULTICOL_TILE = 56, 32
 # the sparse training arms: (name, bank_update, SATRANS_LAZY_TAIL) and the
 # launches a step of K4 gather, K2 scatter, K3 eqgemm, K5 lazy tail
 SPARSE_ARMS = (("fused", "fused", None, (2, 1, 0, 0)),
@@ -827,9 +855,11 @@ def training_data():
 def zero_counts():
     """Every kernel's launch count to 0."""
     from satrans_torch.ops import eqgemm, gate_block, gather, lazy_tail, \
-        meta_block, scatter
+        meta_block, scatter, tiled_meta
     for name in K1_COUNTS:
         setattr(meta_block, name, 0)
+    for name in K7_COUNTS:
+        setattr(tiled_meta, name, 0)
     for mod in (gather, scatter, eqgemm, lazy_tail):
         mod.launches = 0
     gate_block.launches = gate_block.bwd_launches = 0
@@ -843,6 +873,11 @@ def k6_counts():
 def k1_counts():
     from satrans_torch.ops import meta_block
     return tuple(getattr(meta_block, name) for name in K1_COUNTS)
+
+
+def k7_counts():
+    from satrans_torch.ops import tiled_meta
+    return tuple(getattr(tiled_meta, name) for name in K7_COUNTS)
 
 
 def timed_fit(trainer, x, y, steps=TRAIN_STEPS):
@@ -1492,12 +1527,12 @@ def gate_serving(dev, card, variant):
     return launched[0]
 
 
-# the layer kernels' launch counts: K6-fwd, K6-bwd, then K1's
-LAYER_NAMES = ("gate_block_fwd", "gate_block_bwd") + K1_NAMES
+# the layer kernels' launch counts: K6-fwd, K6-bwd, then K1's and K7's
+LAYER_NAMES = ("gate_block_fwd", "gate_block_bwd") + K1_NAMES + K7_NAMES
 
 
 def layer_counts():
-    return (*k6_counts(), *k1_counts())
+    return (*k6_counts(), *k1_counts(), *k7_counts())
 
 
 def lazy_arm(card, label, model, trainer, x, y, per_step):
@@ -1580,7 +1615,7 @@ def gate_training(dev, card, variant):
     x, y = training_data()
     _, launched, _ = lazy_arm(card, f"{variant} lazy", model, trainer,
                               {k: v[:ARM_ROWS] for k, v in x.items()},
-                              y[:ARM_ROWS], (1, 1) + NO_K1)
+                              y[:ARM_ROWS], (1, 1) + NO_K1 + NO_K7)
     del model, trainer
     gc.collect()
     torch.cuda.empty_cache()
@@ -1902,7 +1937,7 @@ def pos_training(dev, card, bwd):
     x, y = alimama_data(ARM_ROWS, SEED)
     staged, launched, frozen = lazy_arm(
         card, f"alimama pos {bwd} lazy", model, trainer, x, y,
-        (0, 0) + K1_PAIR[bwd])
+        (0, 0) + K1_PAIR[bwd] + NO_K7)
     check("dense" in staged[0] and staged[0]["dense"].shape == (BATCH, 1),
           "the staged batch has no price column")
     v_meta = sorted(n for n, _ in model.named_parameters()
@@ -1934,6 +1969,301 @@ def pos_paths_phase(dev, card):
               f"staged batch {step_ms:.3f} ms/step; the host queues a step "
               f"in {queue_ms:.3f} ms", flush=True)
     os.environ.pop("SATRANS_BWD")
+    del trainer, staged
+    gc.collect()
+    torch.cuda.empty_cache()
+    return paths
+
+
+def multicol_dispatch(dev, gen, B=BATCH):
+    """The AliCCP multicol dispatch of a batch of ``B``: ids of 301 and
+    122 uniform in [1, DATA_MAX] (phase 5's), their composite row, and the
+    plan on tiles of 32 (39 of the 56 rows occupied).  Returns the plan."""
+    from satrans_torch.data import aliccp
+    from satrans_torch.ops import dispatch
+    dom = None
+    for col, n in zip(MULTICOL_COLS, MULTICOL_DOMAINS):
+        ids = torch.randint(1, aliccp.DATA_MAX[col] + 1, (B,),
+                            generator=gen, device=dev)
+        dom = ids if dom is None else dom * (n + 1) + ids
+    return dispatch.plan(dom, MULTICOL_ROWS, MULTICOL_TILE)
+
+
+def tiled_kernel_phase(dev):
+    """Phase 11a: K7-fwd, K7-stash (output and every residual),
+    K7-bwd-stash and K7-bwd against the plain tiled layer at the AliCCP
+    multicol workload's dispatch (B=8192 in 9984 slots of 312 tiles; F=19,
+    56 table rows gathered per tile), in QK and Query with relu_out off
+    and on at dropout 0 and 0.1, and QK with distinct Q and K tables at
+    0.1; the backwards' gradients (x, the layer's parameters, the per-tile
+    table blocks) against autograd of the plain layer with the same masks
+    (examples at a relu kink given no upstream gradient), at the
+    tolerances of phases 2 and 4.  Each body timed with its bound at
+    n_slots rows with per-tile weights.  Returns the JSON fields by
+    kernel name."""
+    from satrans_torch.nn import initializers as init, metanet
+    from satrans_torch.ops import dispatch, meta_block, prng, tiled_meta
+
+    F, d, h, heads = 19, 32, 64, 4
+    gen, layer, _ = test_layer(dev, SEED + 40)
+    _, pos_layer, _ = pos_test_layer(dev, SEED + 41)
+    plan = multicol_dispatch(dev, gen)
+    T = plan.n_slots // MULTICOL_TILE
+    slack = int((plan.src < 0).sum())
+    live = (plan.src >= 0).view(T, MULTICOL_TILE).any(1)
+    print(f"kernel tiled_meta: B={BATCH} dispatched into {plan.n_slots} "
+          f"slots, {T} tiles of {MULTICOL_TILE} ({int(live.sum())} "
+          f"occupied, of {torch.unique(plan.tile_dom[live]).numel()} of "
+          f"the {MULTICOL_ROWS} rows), {slack} slack slots; the backward's {T} tiles over "
+          f"{2 * torch.cuda.get_device_properties(dev).multi_processor_count}"
+          " blocks", flush=True)
+    p = metanet.param_size([d, h, d])
+    tables = {k: init.normal(gen, (MULTICOL_ROWS, p), 0.1) for k in "QK"}
+    tile_dom = plan.tile_dom.long()
+    tiled = {k: t[tile_dom] for k, t in tables.items()}
+    x = dispatch.scatter(init.normal(gen, (BATCH, F, d), 1.0), plan)
+    g_all = dispatch.scatter(init.normal(gen, (BATCH, F, d), 1.0), plan)
+    rows = tiled_meta.tile_rows(plan.n_slots, MULTICOL_TILE, dev)
+    worst = dict.fromkeys(K7_NAMES, 0.0)
+    out = {}
+    cases = [(mode, relu_out, rate, False) for mode in ("QK", "Query")
+             for relu_out in (False, True) for rate in (0.0, DROP_RATE)]
+    cases.append(("QK", False, DROP_RATE, True))
+    for mode, relu_out, rate, pos in cases:
+        lay = pos_layer if pos else layer
+        tabs = tiled if pos else shared(tiled["Q"])
+        kw = dict(meta_units=[d, h, d], head_num=heads, mode=mode,
+                  relu_out=relu_out)
+        drop = dict(train=True, drop_rate=rate, seed=DROP_SEED,
+                    block_b=MULTICOL_TILE)
+        masks = tiled_meta.layer_masks(x, head_num=heads, mode=mode, **drop)
+        weights, cfg = meta_block.pack_weights(lay, tabs, **kw)
+        weights = [t.detach() for t in weights]
+        kargs = prng.kernel_args(True, rate, DROP_SEED, MULTICOL_TILE, F)
+        res = {}
+        with torch.no_grad():
+            y = tiled_meta.fused_tiled_layer(x, lay, tabs, **kw, **drop)
+            st = tiled_meta.launch_fwd(x, *weights, cfg, kargs,
+                                       MULTICOL_TILE, stash=True)
+            ref = tiled_meta.tiled_layer_reference(
+                x, lay, tabs, **kw, block_b=MULTICOL_TILE, masks=masks,
+                residuals=res)
+        torch.cuda.synchronize()
+        errs = {"tiled_meta_fwd": (y - ref).abs().max().item()}
+        want = (ref, *(res[n] for n in tiled_meta.STASH_RESIDUALS))
+        errs["tiled_meta_fwd_stash"] = max(
+            (a - b).abs().max().item() for a, b in zip(st, want))
+        for n, a, b in zip(("y",) + tiled_meta.STASH_RESIDUALS, st, want):
+            check(bool(torch.isfinite(a).all()) and torch.allclose(
+                a, b, **KERNEL_TOL), f"K7-stash's {n} disagrees with the "
+                f"plain version's (mode={mode} relu_out={relu_out} dropout="
+                f"{rate} pos={pos}, tolerance {KERNEL_TOL})")
+        check(bool(torch.isfinite(y).all()) and torch.allclose(
+            y, ref, **KERNEL_TOL), f"K7-fwd disagrees with the plain "
+            f"version (mode={mode} relu_out={relu_out} dropout={rate} "
+            f"pos={pos}, max_abs_err {errs['tiled_meta_fwd']})")
+        g, kinks = kink_free(g_all, x, lay, tabs, rows, masks, **kw)
+        ref_fn = functools.partial(tiled_meta.tiled_layer_reference,
+                                   block_b=MULTICOL_TILE, masks=masks)
+        want_g = layer_grads(lambda x, l, t, _, **k: ref_fn(x, l, t, **k),
+                             x, lay, tabs, rows, g, **kw)
+        grads = {}
+        for bwd, name in (("stash", "tiled_meta_bwd_stash"),
+                          ("recompute", "tiled_meta_bwd")):
+            grads[bwd] = layer_grads(
+                lambda x, l, t, _, **k: tiled_meta.fused_tiled_layer(
+                    x, l, t, **k, **drop, bwd=bwd),
+                x, lay, tabs, rows, g, **kw)
+            torch.cuda.synchronize()
+            e = grad_errors(grads[bwd], want_g)
+            errs[name] = max(e.values())
+        # the two backwards on the same masks, at the same tolerance (a
+        # gradient that is zero in exact arithmetic, k_meta.ln.bias, is
+        # all round-off: the absolute term covers it)
+        gaps = {n: (grads["stash"][n] - grads["recompute"][n]).abs().max()
+                .item() for n in want_g}
+        gap = max(gaps.values())
+        check(all(gaps[n] <= GRAD_RTOL * w.abs().max().item() + GRAD_ATOL
+                  for n, w in want_g.items()),
+              f"K7-bwd-stash and K7-bwd differ on the same masks: {gaps}")
+        for n, e in errs.items():
+            worst[n] = max(worst[n], e)
+        line = (f"kernel tiled_meta mode={mode} relu_out={relu_out} "
+                f"dropout={rate} pos={pos}: " + ", ".join(
+                    f"{n} {e:.3e}" for n, e in errs.items())
+                + f" ({kinks - slack} examples at a kink left out, and the "
+                f"{slack} slack slots, whose gradient is zero); stash vs "
+                f"recompute backward max_abs_diff {gap:.3e}")
+        if mode == "QK" and not relu_out and not pos:
+            # the serving (0) and training (0.1) configurations
+            with torch.no_grad():
+                p_ms = time_ms(lambda: tiled_meta.tiled_layer_reference(
+                    x, lay, tabs, **kw, block_b=MULTICOL_TILE, masks=masks),
+                    iters=10)
+                for stash, name in ((False, "tiled_meta_fwd"),
+                                    (True, "tiled_meta_fwd_stash")):
+                    ms = time_ms(lambda: tiled_meta.launch_fwd(
+                        x, *weights, cfg, kargs, MULTICOL_TILE,
+                        stash=stash), iters=50)
+                    b_ms, b_by = meta_layer_bound_ms(
+                        plan.n_slots, F, d, h, heads, T, 1, 1,
+                        stash="full" if stash else None)
+                    out[(name, rate)] = dict(ms=ms, plain_ms=p_ms,
+                                             bound_ms=b_ms, bound_by=b_by)
+            xr = x.detach().requires_grad_(True)
+            tr = tabs["Q"].detach().requires_grad_(True)
+            inputs = [xr, tr, *lay.parameters()]
+            yr = tiled_meta.tiled_layer_reference(
+                xr, lay, shared(tr), **kw, block_b=MULTICOL_TILE,
+                masks=masks)
+            pb_ms = time_ms(lambda: torch.autograd.grad(
+                yr, inputs, g, retain_graph=True), iters=5)
+            del yr
+            for res_, name in ((st[1:], "tiled_meta_bwd_stash"),
+                               (None, "tiled_meta_bwd")):
+                ms = time_ms(lambda: tiled_meta.launch_bwd(
+                    g, x, *weights, cfg, kargs, MULTICOL_TILE, res=res_),
+                    iters=20)
+                b_ms, b_by = meta_layer_bwd_bound_ms(
+                    plan.n_slots, F, d, h, heads, T, 1, 1,
+                    stash="full" if res_ is not None else None)
+                out[(name, rate)] = dict(ms=ms, plain_ms=pb_ms,
+                                         bound_ms=b_ms, bound_by=b_by)
+            line += "; " + ", ".join(
+                f"{n} kernel_ms={out[(n, rate)]['ms']:.4f} bound_ms="
+                f"{out[(n, rate)]['bound_ms']:.4f}" for n in K7_NAMES) + (
+                f"; plain forward {p_ms:.4f} ms, backward {pb_ms:.4f} ms")
+        print(line, flush=True)
+        del st, grads, want_g
+    fields = {}
+    for name in K7_NAMES:
+        t0, t1 = out[(name, 0.0)], out[(name, DROP_RATE)]
+        main = t0 if name == "tiled_meta_fwd" else t1
+        fields[name] = dict(max_abs_err=worst[name], **main,
+                            n_slots=plan.n_slots, tiles=T)
+        if name == "tiled_meta_fwd":
+            fields[name]["dropout_ms"] = t1["ms"]
+        else:
+            fields[name]["no_dropout_ms"] = t0["ms"]
+    return fields
+
+
+def multicol_model(dev, **kw):
+    """SATrans at the AliCCP sota width with the scenario columns 301 and
+    122 (the reference's ``--domain_col 301-122``; satrans_tpu's bench arm
+    ``multicol``): 19 sparse fields with the real vocab sizes, d = 32, 3
+    layers, 4 heads, QK, MetaNet 32->64->32, a composite table of 56
+    rows."""
+    from satrans_torch.data import aliccp
+    from satrans_torch.features import FeatureLayout
+    from satrans_torch.models import SATrans
+    model = SATrans(FeatureLayout(aliccp.sota_columns(32)), MULTICOL_COLS,
+                    MULTICOL_DOMAINS, domain_att_layer_num=LAYERS,
+                    att_head_num=4, meta_mode="QK",
+                    meta_dnn_hidden_units=(64, 32), seed=SEED, device=dev,
+                    **kw)
+    check(model.tiled and model.meta_rows == MULTICOL_ROWS
+          and model.block_b(BATCH) == MULTICOL_TILE,
+          "the multicol model does not take the tiled layer on tiles of 32")
+    return model
+
+
+def multicol_serving(dev, card):
+    """Phase 11b: one request of 20,000 examples through Predictor with
+    the AliCCP multicol model: exactly 3 K7-fwd launches a batch and no
+    other layer kernel, scores against the plain path.  Returns the K7-fwd
+    launches."""
+    from satrans_torch.data import aliccp
+    from satrans_torch.serving import Predictor
+    model = multicol_model(dev, no_emb_init=True)
+    pred = Predictor(model, batch_size=BATCH, device=dev).warmup()
+    rng = np.random.default_rng(SEED + 50)
+    req = {name: rng.integers(1, aliccp.DATA_MAX[name] + 1, REQUEST_ROWS)
+           for name in aliccp.SPARSE_FEATURES}
+    batches = -(-REQUEST_ROWS // BATCH)
+    torch.cuda.synchronize()
+    zero_counts()
+    t0 = time.perf_counter()
+    scores = pred(req)
+    wall = time.perf_counter() - t0
+    launched = layer_counts()
+    want = (0, 0) + NO_K1 + (LAYERS * batches,) + NO_K7[1:]
+    check(launched == want, f"serving multicol launched {launched} "
+          f"({', '.join(LAYER_NAMES)}), want {want}")
+    check(scores.shape == (REQUEST_ROWS,) and bool(
+        np.all(np.isfinite(scores)) and np.all((scores > 0) & (scores < 1))),
+          "serving multicol: scores not finite in (0, 1)")
+    t0 = time.perf_counter()
+    for _ in range(5):
+        pred(req)
+    wall2 = (time.perf_counter() - t0) / 5
+    device_profile(f"serve multicol: one request of {REQUEST_ROWS} "
+                   "examples", lambda: pred(req), 1e3 * wall2, card)
+    plain_model = multicol_model(dev, no_emb_init=True, use_kernel=False)
+    plain_model.load_state_dict(model.state_dict())
+    want = Predictor(plain_model, batch_size=BATCH, device=dev)(req)
+    diff = float(np.abs(scores - want).max())
+    print(f"serve multicol [{card}]: {REQUEST_ROWS} examples in {batches} "
+          f"batches of {BATCH}: first {wall:.4f}s, then {wall2:.4f}s a "
+          f"request, {REQUEST_ROWS / wall2:.1f} examples/s, "
+          f"{1e3 * wall2 / batches:.3f} ms/batch; launches "
+          f"{launched[-len(K7_COUNTS):]} (K7: {', '.join(K7_COUNTS)}) in the "
+          f"first request; score mean {scores.mean():.4f} std "
+          f"{scores.std():.4f}; max |kernel - plain| = {diff:.3e}",
+          flush=True)
+    check(diff <= SERVING_TOL, f"serving multicol: scores differ from the "
+                               f"plain path by {diff} > {SERVING_TOL}")
+    del model, plain_model, pred
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launched[-len(K7_COUNTS)]
+
+
+def multicol_training(dev, card, bwd):
+    """Phase 11c, one arm: train the AliCCP multicol model in ``lazy`` (lr
+    0.005, dropout 0.1; :func:`lazy_arm`) under ``SATRANS_TILED_BWD=bwd``:
+    exactly 3 + 3 launches a step of the arm's K7 pair and no K1 or K6;
+    domain_emb and domain_bank's large part without a gradient and
+    bit-identical.  Returns (trainer, staged batch, launches by
+    kernel)."""
+    from satrans_torch.train import Trainer
+    os.environ["SATRANS_TILED_BWD"] = bwd
+    model = multicol_model(dev, dropout_rate=DROP_RATE)
+    trainer = Trainer(model, seed=SEED, device=dev)
+    trainer.compile(learning_rate=TRAIN_LR, bank_update="lazy")
+    x, y = training_data()
+    staged, launched, frozen = lazy_arm(
+        card, f"multicol {bwd} lazy", model, trainer,
+        {k: v[:ARM_ROWS] for k, v in x.items()}, y[:ARM_ROWS],
+        (0, 0) + NO_K1 + K7_PAIR[bwd])
+    check({"domain_emb", "domain_bank.bank"} <= set(frozen),
+          f"the parameters without a gradient are {frozen}, want "
+          "domain_emb and domain_bank.bank among them")
+    return trainer, staged, launched
+
+
+def multicol_paths_phase(dev, card):
+    """Phases 11b and 11c: serve the AliCCP multicol model, and train it
+    in ``lazy`` once with each tiled backward; then the two backwards'
+    staged steps in turns on one trainer.  Returns the launches by path
+    and kernel."""
+    paths = {"serve_multicol": {"tiled_meta_fwd": multicol_serving(dev,
+                                                                   card)}}
+    for bwd in ("stash", "recompute"):
+        trainer, staged, paths[f"train_multicol_{bwd}_lazy"] = \
+            multicol_training(dev, card, bwd)
+        if bwd == "stash":
+            del trainer, staged
+            gc.collect()
+            torch.cuda.empty_cache()
+    for bwd in ("stash", "recompute", "recompute", "stash"):
+        os.environ["SATRANS_TILED_BWD"] = bwd
+        step_ms = time_ms(lambda: trainer.train_step(*staged), iters=10)
+        queue_ms = host_ms(lambda: trainer.train_step(*staged))
+        print(f"train multicol in turns, {bwd} [{card}]: train_step on a "
+              f"staged batch {step_ms:.3f} ms/step; the host queues a step "
+              f"in {queue_ms:.3f} ms", flush=True)
+    os.environ.pop("SATRANS_TILED_BWD")
     del trainer, staged
     gc.collect()
     torch.cuda.empty_cache()
@@ -1973,6 +2303,8 @@ def main() -> int:
     gpaths = gate_paths_phase(dev, card)
     kp, gate_err = pos_kernel_phase(dev)
     ppaths = pos_paths_phase(dev, card)
+    kt = tiled_kernel_phase(dev)
+    mpaths = multicol_paths_phase(dev, card)
 
     # launches, each path counted from 0 just before it: serving and the
     # evaluation run K1-fwd only; the dense recompute arm K1-fwd and
@@ -2017,7 +2349,8 @@ def main() -> int:
             ("lazy_adam_rows", "bank_rows.cu", "lazy_tail.py:174")):
         by_path = {arm: n[name] for arm, n in (*sparse.items(),
                                                 *gpaths.items(),
-                                                *ppaths.items())
+                                                *ppaths.items(),
+                                                *mpaths.items())
                    if n.get(name)}
         kernels.append(dict(name=name, route="cuda",
                             source=f"satrans_torch/csrc/{source}",
@@ -2039,6 +2372,20 @@ def main() -> int:
             replaces=f"satrans_tpu/ops/pallas/{replaces}",
             launches=sum(by_path.values()), launches_by_path=by_path,
             library_ms=None, **fields))
+    # K7 runs on the multicol paths of phase 11
+    for name, replaces in zip(K7_NAMES, (
+            "141 (_fwd_kernel; _fwd_call :521, pallas_call :546)",
+            "155 (_fwd_kernel_stash; _fwd_call :521, pallas_call :546)",
+            "178 (_bwd_kernel; _bwd_call :562, pallas_call :634)",
+            "341 (_bwd_kernel_stash; _bwd_call :562, pallas_call :634)")):
+        by_path = {p: n[name] for p, n in mpaths.items() if n.get(name)}
+        source = "meta_block_bwd.cu" if "bwd" in name else \
+            "meta_block_fwd.cu"
+        kernels.append(dict(
+            name=name, route="cuda", source=f"satrans_torch/csrc/{source}",
+            replaces=f"satrans_tpu/ops/pallas/tiled_meta.py:{replaces}",
+            launches=sum(by_path.values()), launches_by_path=by_path,
+            library_ms=None, **kt[name]))
     check(all(k["launches"] > 0 for k in kernels),
           "a kernel was launched on no path")
     print(json.dumps({"kernels": kernels}))

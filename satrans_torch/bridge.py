@@ -8,11 +8,12 @@ with dots (``layers.0.q_meta.ln.scale``); the gate and bilinear layers
 have no ``q_meta`` and an ``only_emb`` model no ``encoder``, in both
 packages, and a 'pos' model has ``layerid_emb``, ``qkvid_emb`` and, in
 its metanet layers, ``k_meta`` and ``v_meta`` (``layers.0.k_meta.ln.
-scale``).  A tree of another configuration than the model's (a 'pos' tree
-into a shared model) raises.  The one change of layout is the
-embedding bank: the JAX package packs ``128 // d`` logical rows into one
-128-lane row; the port keeps the same rows, pad rows included, as logical
-``[R, d]`` rows, so the bank is reshaped.
+scale``), and a model of several scenario columns ``domain_bank``.  A
+tree of another configuration than the model's (a 'pos' tree into a
+shared model) raises.  The one change of layout is the embedding banks
+(``emb.bank``, ``domain_bank.bank``): the JAX package packs ``128 // d``
+logical rows into one 128-lane row; the port keeps the same rows, pad
+rows included, as logical ``[R, d]`` rows, so each bank is reshaped.
 
 The module imports neither JAX nor the JAX package.
 """
@@ -46,7 +47,7 @@ def from_jax_params(params_np: dict, model: torch.nn.Module) -> dict:
                        f"{sorted(set(want) - set(flat))} have no JAX twin")
     out = {}
     for key, arr in flat.items():
-        if key == "emb.bank":
+        if key.rsplit(".", 1)[-1] == "bank":  # emb, domain_bank
             arr = arr.reshape(-1, want[key].shape[1])
         if tuple(arr.shape) != tuple(want[key].shape):
             raise ValueError(f"{key}: JAX shape {arr.shape}, port shape "

@@ -72,6 +72,25 @@
 // the buffers K1-bwd computes into).  The MetaNet hidden layer is recomputed
 // in the backward instead of stored.
 //
+// K7.  The same template with TILED=true is K7-bwd (kNoStash) and
+// K7-bwd-stash (kFullStash), which replace satrans_tpu/ops/pallas/
+// tiled_meta.py's _bwd_kernel (:178, bwd='recompute') and
+// _bwd_kernel_stash (:341, the default bwd='stash'), both launched by
+// _bwd_call (:562) through pl.pallas_call (:634): the backward of the
+// layer on dispatched single-domain tiles of tile_b slots (csrc/
+// meta_block_fwd.cu), whose MetaNet weights are the tile's row of the
+// per-tile [T, d, h] and [T, h, d] blocks.  Each tile's gradient blocks
+// dW1q, dW2q, dW1k, dW2k are its own and are written, not summed with
+// other tiles' (autograd of the gather table[tile_dom] outside the kernel
+// adds them into the table's rows).  So a block owns whole dispatch
+// tiles: block b takes tiles b, b + grid, ..., and for each one zeroes
+// the tile's four blocks in the output, walks the tile's slots in K1's
+// two-example steps adding into them (one owner per element, in slot
+// order), and leaves them there; no per-domain scratch, and no cap on the
+// tile count.  The dense and LayerNorm gradients are K1's per-block sums
+// added by sum_partials, deterministic for a given grid.  With 312 tiles
+// over 2 x 132 blocks the last wave is mostly idle (1.18 waves).
+//
 // The kernel launches on the caller's stream, allocates nothing and does
 // not synchronise; the C entry returns cudaGetLastError().
 
@@ -127,9 +146,11 @@ __host__ __device__ int grad_floats(int D) {  // the block's partial sums
 struct Args {
   const float *x, *g, *wqkv, *wqkvT, *w1q, *w2q, *w1qT, *w2qT, *lnq, *w1k,
       *w2k, *w1kT, *w2kT, *lnk, *wout, *woutT, *lno;
-  const int* dom;
-  float *dx, *partial;
-  int B, F, D, apply_q, apply_k, relu_out;
+  const int* dom;  // K1 only
+  // grads: K7 writes the per-tile blocks there itself
+  float *dx, *partial, *grads;
+  // D: K1's domain rows, K7's tiles T of tile_b slots each
+  int B, F, D, tile_b, apply_q, apply_k, relu_out;
   // the residuals (kFullStash and kLightStash): qkv [B, F, 3d], uq, uk, o
   // [B, F, d], and under kFullStash the probabilities before dropout s
   // [B, H, F, F]
@@ -137,7 +158,7 @@ struct Args {
   Dropout drop;
 };
 
-template <int DM, int HID, int NH, int MODE>
+template <int DM, int HID, int NH, int MODE, bool TILED>
 __global__ void __launch_bounds__(kThreads, 2)
 meta_block_bwd_kernel(const Args a) {
   using S = Strides<DM, HID>;
@@ -154,12 +175,13 @@ meta_block_bwd_kernel(const Args a) {
 
   // Shared: dWqkv [DM][3DM] | dWout [DM][DM] sums, then the tile's
   // working buffers, rows r = slot * F + f.  Global, the block's slice of
-  // the scratch buffer: the per-domain dW1q, dW2q, dW1k, dW2k sums, each
-  // [D][DM*HID], after the dense and LayerNorm sums.
+  // the scratch buffer: the dense and LayerNorm sums, then (K1) the
+  // per-domain dW1q, dW2q, dW1k, dW2k sums, each [D][DM*HID]; K7 adds a
+  // tile's into its rows of the same four blocks of the output.
   float* acc = reinterpret_cast<float*>(smem4);
   float* out = a.partial + static_cast<size_t>(blockIdx.x) *
-                               grad_floats<DM, HID>(D);
-  float* acc_dom = out + S::kDense + kLnRows * DM;
+                               grad_floats<DM, HID>(TILED ? 0 : D);
+  float* acc_dom = (TILED ? a.grads : out) + S::kDense + kLnRows * DM;
   float* sX = acc + S::kDense;
   float* sQKV = sX + R * S::XS;
   float* sN = sQKV + R * S::QS;     // q|k after their LayerNorms
@@ -169,7 +191,8 @@ meta_block_bwd_kernel(const Args a) {
   float* sP = sH + R * S::HS;       // [kTile][NH][F][F]: P, then dS
   float* sD = sP + kTile * NH * F * F;  // dz, then dq|dk|dv
   for (int i = t; i < S::kDense; i += kThreads) acc[i] = 0.f;
-  for (int i = t; i < 4 * D * dsz; i += kThreads) acc_dom[i] = 0.f;
+  if (!TILED)
+    for (int i = t; i < 4 * D * dsz; i += kThreads) acc_dom[i] = 0.f;
 
   float ln_acc[kLnRows][4];
 #pragma unroll
@@ -179,22 +202,38 @@ meta_block_bwd_kernel(const Args a) {
   }
   const int cgd = gt % TD::LPR, rsd = gt / TD::LPR, cold = 4 * cgd;
   const int cgh = gt % TH::LPR, rsh = gt / TH::LPR, colh = 4 * cgh;
-  const int tiles = (a.B + kTile - 1) / kTile;
+  // The work units: K1's grid stride over the batch's tiles of two
+  // examples, one step each; K7's over the dispatch tiles, each walked in
+  // steps of two slots (tile_b is even).
+  const int per_unit = TILED ? a.tile_b / kTile : 1;
+  const int units = TILED ? D : (a.B + kTile - 1) / kTile;
+  const int steps = blockIdx.x < units
+      ? ((units - 1 - blockIdx.x) / gridDim.x + 1) * per_unit : 0;
   const DropSalts salt(a.apply_q, a.apply_k, NH);
   __syncthreads();
 
 #pragma unroll 1
-  for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
+  for (int it = 0; it < steps; ++it) {
+    const int unit = blockIdx.x + (it / per_unit) * gridDim.x;
+    const int tile = unit * per_unit + it % per_unit;
+    if (TILED && it % per_unit == 0) {
+      // a new dispatch tile: its gradient blocks start at zero (the
+      // barrier after F1 orders this before the first sum into them)
+      for (int i = t; i < 4 * dsz; i += kThreads)
+        acc_dom[(i / dsz) * D * dsz + unit * dsz + i % dsz] = 0.f;
+    }
     const int e0 = tile * kTile;
     const int nvalid = min(kTile, a.B - e0);
     const int ex = e0 + slot;
     // live is uniform over the group's four whole warps, so the shuffles
     // inside stay full-warp
     const bool live = slot < nvalid;
-    int doms[kTile];
+    int doms[kTile];  // the weights' rows: K1 the domains, K7 the tile
 #pragma unroll
     for (int e = 0; e < kTile; ++e)
-      doms[e] = e < nvalid ? min(max(a.dom[e0 + e], 0), D - 1) : 0;
+      doms[e] = e >= nvalid ? 0
+                : TILED    ? unit
+                           : min(max(a.dom[e0 + e], 0), D - 1);
     const int dm = doms[slot];
     float* X = sX + slot * F * S::XS;
     float* QKV = sQKV + slot * F * S::QS;
@@ -553,12 +592,12 @@ meta_block_bwd_kernel(const Args a) {
   for (int i = t; i < S::kDense; i += kThreads) out[i] = acc[i];
 }
 
-template <int DM, int HID, int NH, int MODE>
-cudaError_t launch(const Args& a, float* grads, int blocks,
-                   cudaStream_t stream) {
-  auto kernel = meta_block_bwd_kernel<DM, HID, NH, MODE>;
+template <int DM, int HID, int NH, int MODE, bool TILED>
+cudaError_t launch(const Args& a, int blocks, cudaStream_t stream) {
+  auto kernel = meta_block_bwd_kernel<DM, HID, NH, MODE, TILED>;
   const size_t smem = smem_bytes<DM, HID, NH>(a.F);
-  if (smem > kMaxSmem || a.D > kMaxDomains) return cudaErrorInvalidValue;
+  if (smem > kMaxSmem || (!TILED && a.D > kMaxDomains))
+    return cudaErrorInvalidValue;
   static size_t configured = 0;
   if (smem > configured) {
     const cudaError_t err = cudaFuncSetAttribute(
@@ -570,8 +609,10 @@ cudaError_t launch(const Args& a, float* grads, int blocks,
   kernel<<<blocks, kThreads, smem, stream>>>(a);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  const int total = grad_floats<DM, HID>(a.D);
-  sum_partials<<<(total + 255) / 256, 256, 0, stream>>>(a.partial, grads,
+  // K7's per-tile blocks are in place already: only the dense and
+  // LayerNorm sums are added
+  const int total = grad_floats<DM, HID>(TILED ? 0 : a.D);
+  sum_partials<<<(total + 255) / 256, 256, 0, stream>>>(a.partial, a.grads,
                                                         total, blocks);
   return cudaGetLastError();
 }
@@ -615,17 +656,59 @@ extern "C" int satrans_meta_block_bwd(
     return static_cast<int>(cudaErrorInvalidValue);
   const Args a{x,   g,    wqkv, wqkvT, w1q,  w2q,     w1qT, w2qT,
                lnq, w1k,  w2k,  w1kT,  w2kT, lnk,     wout, woutT,
-               lno, dom,  dx,   partial, B,  F,       D,    apply_q,
-               apply_k, relu_out, qkv, uq, uk, s, o,
+               lno, dom,  dx,   partial, grads, B,    F,    D,
+               0,   apply_q, apply_k, relu_out, qkv, uq, uk, s, o,
                Dropout{drop_on, seed, threshold, scale, block_b, fpad,
                        group}};
   const cudaStream_t str = static_cast<cudaStream_t>(stream);
   if (d == 32 && h == 64 && heads == 4)
     return static_cast<int>(
         stash == kFullStash
-            ? launch<32, 64, 4, kFullStash>(a, grads, blocks, str)
+            ? launch<32, 64, 4, kFullStash, false>(a, blocks, str)
         : stash == kLightStash
-            ? launch<32, 64, 4, kLightStash>(a, grads, blocks, str)
-            : launch<32, 64, 4, kNoStash>(a, grads, blocks, str));
+            ? launch<32, 64, 4, kLightStash, false>(a, blocks, str)
+            : launch<32, 64, 4, kNoStash, false>(a, blocks, str));
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// K7-bwd and K7-bwd-stash: the backward of satrans_tiled_meta_fwd on
+// n_slots = T * tile_b dispatched slots (tile_b even), with stash
+// kNoStash (every residual pointer null, recomputing them) or kFullStash
+// (the five residuals of K7-stash); the light stash is refused.  partial
+// holds blocks x satrans_meta_block_bwd_grad_floats(d, h, 0) floats (at
+// most one block a tile is used), grads receives
+// satrans_meta_block_bwd_grad_floats(d, h, T) floats in K1's layout with
+// the T tiles in place of the domains.  Returns a cudaError_t.
+extern "C" int satrans_tiled_meta_bwd(
+    const float* x, const float* g, const float* wqkv, const float* wqkvT,
+    const float* w1q, const float* w2q, const float* w1qT, const float* w2qT,
+    const float* lnq, const float* w1k, const float* w2k, const float* w1kT,
+    const float* w2kT, const float* lnk, const float* wout,
+    const float* woutT, const float* lno, float* dx, float* partial,
+    float* grads, const float* qkv, const float* uq, const float* uk,
+    const float* s, const float* o, int stash, int n_slots, int F, int d,
+    int h, int heads, int T, int tile_b, int apply_q, int apply_k,
+    int relu_out, int blocks, int drop_on, unsigned seed, unsigned threshold,
+    float scale, int block_b, int fpad, int group, void* stream) {
+  if (n_slots < 1 || F < 1 || F > kMaxFields || T < 1 || blocks < 1 ||
+      tile_b < kTile || tile_b % kTile || n_slots != T * tile_b ||
+      stash == kLightStash)
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (drop_on && (block_b < 1 || fpad < F || group < 1))
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (!stash_pointers_ok(stash, qkv, uq, uk, s, o))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const Args a{x,   g,    wqkv, wqkvT, w1q,  w2q,     w1qT, w2qT,
+               lnq, w1k,  w2k,  w1kT,  w2kT, lnk,     wout, woutT,
+               lno, nullptr, dx, partial, grads, n_slots, F, T,
+               tile_b, apply_q, apply_k, relu_out, qkv, uq, uk, s, o,
+               Dropout{drop_on, seed, threshold, scale, block_b, fpad,
+                       group}};
+  const cudaStream_t str = static_cast<cudaStream_t>(stream);
+  if (d == 32 && h == 64 && heads == 4)
+    return static_cast<int>(
+        stash == kFullStash
+            ? launch<32, 64, 4, kFullStash, true>(a, blocks, str)
+            : launch<32, 64, 4, kNoStash, true>(a, blocks, str));
   return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -54,6 +54,20 @@
 // __ldg.  Device memory
 // sees x once and y once, and each residual once.
 //
+// K7.  The same template with TILED=true is K7-fwd (kNoStash) and
+// K7-stash (kFullStash), which replace satrans_tpu/ops/pallas/
+// tiled_meta.py's _fwd_kernel (:141) and _fwd_kernel_stash (:155), both
+// launched by _fwd_call (:521) through pl.pallas_call (:546) on the body
+// _fwd_compute (:92): the layer on a batch that ops/dispatch.py has
+// sorted into single-domain tiles of tile_b slots, each tile with its own
+// MetaNet weights.  The one difference is where an example's weights come
+// from: row dm = slot / tile_b of the per-tile [T, d, h] and [T, h, d]
+// blocks (gathered outside, table[tile_dom]) instead of row dom[e] of the
+// per-domain tables.  A block's 8 slots lie in one tile when tile_b is a
+// multiple of 8 (16 and 32 are the dispatch tiles), so the block reads one
+// tile's weights, through L1.  Every other phase is K1's.  The JAX tiled
+// kernel has no light stash, and the C entry refuses one.
+//
 // The kernel launches on the caller's stream, allocates nothing and does
 // not synchronise; the C entry returns cudaGetLastError().
 
@@ -89,7 +103,7 @@ struct Stash {
   float *qkv, *uq, *uk, *s, *o;
 };
 
-template <int DM, int HID, int NH, int MODE>
+template <int DM, int HID, int NH, int MODE, bool TILED>
 __global__ void __launch_bounds__(kWarps * 32, 2)
 meta_block_fwd_kernel(const float* __restrict__ x, const int* __restrict__ dom,
                       const float* __restrict__ wqkv,
@@ -101,8 +115,9 @@ meta_block_fwd_kernel(const float* __restrict__ x, const int* __restrict__ dom,
                       const float* __restrict__ lnk,
                       const float* __restrict__ wout,
                       const float* __restrict__ lno, float* __restrict__ y,
-                      int B, int F, int D, int apply_q, int apply_k,
-                      int relu_out, const Dropout drop, const Stash st) {
+                      int B, int F, int D, int tile_b, int apply_q,
+                      int apply_k, int relu_out, const Dropout drop,
+                      const Stash st) {
   using S = Smem<DM, HID>;
   using TD = Tile<DM, kGroup>;
   using TH = Tile<HID, kGroup>;
@@ -118,7 +133,8 @@ meta_block_fwd_kernel(const float* __restrict__ x, const int* __restrict__ dom,
   float* sh = sq + F * S::QS;
   const float* xe = x + static_cast<size_t>(e) * F * DM;
   float* ye = y + static_cast<size_t>(e) * F * DM;
-  const int dm = min(max(dom[e], 0), D - 1);
+  // the weights' row: K1 the example's domain, K7 its slot's tile
+  const int dm = TILED ? min(e / tile_b, D - 1) : min(max(dom[e], 0), D - 1);
   const int cgd = lane % TD::LPR, rsd = lane / TD::LPR, cold = 4 * cgd;
   const ExampleDraw ed(drop, e);
   const DropSalts salt(apply_q, apply_k, NH);
@@ -246,16 +262,16 @@ meta_block_fwd_kernel(const float* __restrict__ x, const int* __restrict__ dom,
   }
 }
 
-template <int DM, int HID, int NH, int MODE>
+template <int DM, int HID, int NH, int MODE, bool TILED>
 cudaError_t launch(const float* x, const int* dom, const float* wqkv,
                    const float* w1q, const float* w2q, const float* lnq,
                    const float* w1k, const float* w2k, const float* lnk,
                    const float* wout, const float* lno, float* y, int B,
-                   int F, int D, int apply_q, int apply_k, int relu_out,
-                   const Dropout& drop, const Stash& st,
+                   int F, int D, int tile_b, int apply_q, int apply_k,
+                   int relu_out, const Dropout& drop, const Stash& st,
                    cudaStream_t stream) {
   using S = Smem<DM, HID>;
-  auto kernel = meta_block_fwd_kernel<DM, HID, NH, MODE>;
+  auto kernel = meta_block_fwd_kernel<DM, HID, NH, MODE, TILED>;
   static bool configured = false;
   if (!configured) {
     const int most = kWarps * kMaxFields * S::kRowFloats * sizeof(float);
@@ -269,7 +285,7 @@ cudaError_t launch(const float* x, const int* dom, const float* wqkv,
   const int blocks = (B + kWarps - 1) / kWarps;
   kernel<<<blocks, kWarps * 32, smem, stream>>>(
       x, dom, wqkv, w1q, w2q, lnq, w1k, w2k, lnk, wout, lno, y, B, F, D,
-      apply_q, apply_k, relu_out, drop, st);
+      tile_b, apply_q, apply_k, relu_out, drop, st);
   return cudaGetLastError();
 }
 
@@ -301,13 +317,50 @@ extern "C" int satrans_meta_block_fwd(
   const cudaStream_t str = static_cast<cudaStream_t>(stream);
   if (d == 32 && h == 64 && heads == 4) {
     const auto run = [&](auto mode) {
-      return launch<32, 64, 4, decltype(mode)::value>(
+      return launch<32, 64, 4, decltype(mode)::value, false>(
           x, dom, wqkv, w1q, w2q, lnq, w1k, w2k, lnk, wout, lno, y, B, F, D,
-          apply_q, apply_k, relu_out, drop, st, str);
+          0, apply_q, apply_k, relu_out, drop, st, str);
     };
     return static_cast<int>(stash == kFullStash    ? run(Mode<kFullStash>{})
                             : stash == kLightStash ? run(Mode<kLightStash>{})
                                                    : run(Mode<kNoStash>{}));
+  }
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// K7-fwd and K7-stash: the layer on n_slots = T * tile_b dispatched slots
+// whose tile t reads row t of the per-tile weights w1q, w1k [T, d, h] and
+// w2q, w2k [T, h, d].  stash is kNoStash (every residual pointer null) or
+// kFullStash (all five set, as K1-stash's); the light stash is refused.
+// The other operands and the dropout are K1's, with drop's block_b the
+// dispatch tile.  Returns a cudaError_t.
+extern "C" int satrans_tiled_meta_fwd(
+    const float* x, const float* wqkv, const float* w1q, const float* w2q,
+    const float* lnq, const float* w1k, const float* w2k, const float* lnk,
+    const float* wout, const float* lno, float* y, float* qkv, float* uq,
+    float* uk, float* s, float* o, int stash, int n_slots, int F, int d,
+    int h, int heads, int T, int tile_b, int apply_q, int apply_k,
+    int relu_out, int drop_on, unsigned seed, unsigned threshold,
+    float scale, int block_b, int fpad, int group, void* stream) {
+  if (n_slots < 0 || F < 1 || F > kMaxFields || T < 1 || tile_b < 1 ||
+      n_slots != T * tile_b || stash == kLightStash)
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (drop_on && (block_b < 1 || fpad < F || group < 1))
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (!stash_pointers_ok(stash, qkv, uq, uk, s, o))
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (n_slots == 0) return static_cast<int>(cudaSuccess);
+  const Dropout drop{drop_on, seed, threshold, scale, block_b, fpad, group};
+  const Stash st{qkv, uq, uk, s, o};
+  const cudaStream_t str = static_cast<cudaStream_t>(stream);
+  if (d == 32 && h == 64 && heads == 4) {
+    const auto run = [&](auto mode) {
+      return launch<32, 64, 4, decltype(mode)::value, true>(
+          x, nullptr, wqkv, w1q, w2q, lnq, w1k, w2k, lnk, wout, lno, y,
+          n_slots, F, T, tile_b, apply_q, apply_k, relu_out, drop, st, str);
+    };
+    return static_cast<int>(stash == kFullStash ? run(Mode<kFullStash>{})
+                                                : run(Mode<kNoStash>{}));
   }
   return static_cast<int>(cudaErrorInvalidValue);
 }

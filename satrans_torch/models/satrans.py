@@ -1,5 +1,5 @@
 """SATrans: Scenario-Adaptive Transformer for multi-domain CTR (twin of
-``satrans_tpu/models/satrans.py``, single scenario column).
+``satrans_tpu/models/satrans.py``).
 
 Forward:
 
@@ -24,6 +24,32 @@ Forward:
    ``use_kernel=False`` (the JAX package's XLA path);
 5. flatten, the dense columns, one linear and a sigmoid.
 
+Several scenario columns (the reference's ``--domain_col 301-122``,
+satrans.py:205-207: the encoder input is the mean of the columns'
+embeddings from a second bank, ``domain_bank``) take the composite
+product-domain table: the tables of step 2 come from the encoder over
+all ``R = prod(D_i + 1)`` combinations at once (:meth:`_composite_base`),
+and ``dom`` is the row-major combination index (:meth:`_composite_ids`).
+Then the routing is the JAX package's (satrans.py:358-442):
+
+* metanet with ``R > SATRANS_TILED_MIN_ROWS`` (default 8): the batch is
+  dispatched into single-domain tiles (``ops/dispatch.py``), each layer
+  runs :func:`satrans_torch.ops.tiled_meta.fused_tiled_layer` (K7) on the
+  per-tile tables ``table[plan.tile_dom]``, the head runs on the padded
+  slots and only the predictions return to batch order;
+* metanet with ``R <= 8``: K1 on the composite table;
+* gate and bilinear: K6 on the composite table while ``R`` is within
+  K6's 16 rows; beyond, the constructor raises (ROADMAP queue 2 item
+  'K1-bwd for many meta rows');
+* ``R > SATRANS_COMPOSITE_MAX`` (default 256): the JAX package's
+  per-example parameters on its XLA path; the constructor raises (ROADMAP
+  queue 1 item 'multi-column above SATRANS_COMPOSITE_MAX').
+
+``use_kernel=False`` takes the same routes on the plain layers.  Where no
+dispatch tile ``(SATRANS_BLOCK_B_COMPOSITE, 16)`` divides the batch, the
+JAX package takes its XLA path; so does the port outside dropout
+training: the plain composite layer without the clamp.
+
 In training each layer applies dropout at ``dropout_rate`` with its own
 int32 seed (``forward``'s ``seeds``; by default those the JAX package
 draws from ``PRNGKey(0)``, ``ops/threefry.py``), on tiles of ``block_b``
@@ -34,8 +60,9 @@ paths: the unfused path (``use_kernel=False``) draws the kernels' masks,
 not ``jax.random``'s as the JAX package's XLA path does (a documented
 deviation).
 
-This slice supports one scenario column, the metanet (2-matrix
-MetaNets), gate and bilinear variants, each with or without ``use_pos``,
+This slice supports one or several scenario columns, the metanet
+(2-matrix MetaNets), gate and bilinear variants, each with or without
+``use_pos``,
 ``only_emb`` (not with ``use_pos``), any ``meta_mode`` (a projection is
 transformed iff its letter appears; the bilinear map always applies to
 Q), ``relu_out`` and float32, in inference and in training
@@ -54,7 +81,7 @@ from torch import nn
 from .. import embeddings
 from ..features import FeatureLayout
 from ..nn import attention, core, initializers as init, metanet
-from ..ops import gate_block, meta_block, threefry
+from ..ops import dispatch, gate_block, meta_block, threefry, tiled_meta
 from ..utils import make_generator, resolve_device
 
 _VARIANTS = "ROADMAP queue 1 item 'remaining SATrans variants'"
@@ -80,10 +107,6 @@ class SATrans(nn.Module):
         super().__init__()
         dev = resolve_device(device)
         d = layout.embedding_dim
-        if len(domain_cols) != 1:
-            raise NotImplementedError(
-                "several scenario columns (composite tables, kernel K7) "
-                f"are {_VARIANTS}")
         if only_emb and use_pos:
             raise ValueError("only_emb and use_pos are mutually exclusive "
                              "(onlyemb has no scenario encoder to consume "
@@ -107,7 +130,38 @@ class SATrans(nn.Module):
                              f"att_head_num={att_head_num}")
         self.layout = layout
         self.domain_cols = list(domain_cols)
-        self.num_domains = int(num_domains_list[0])
+        self.num_domains_list = [int(n) for n in num_domains_list]
+        self.num_domains = self.num_domains_list[0]
+        # several scenario columns: the composite product-domain table
+        # (satrans_tpu/models/satrans.py:141-151), read per instance
+        self.product_domains = 1
+        for n in self.num_domains_list:
+            self.product_domains *= n + 1
+        self.composite_max = int(os.environ.get("SATRANS_COMPOSITE_MAX",
+                                                "256"))
+        multi = len(self.domain_cols) > 1
+        self.use_composite = multi and \
+            self.product_domains <= self.composite_max
+        self.meta_rows = self.product_domains if multi \
+            else self.num_domains + 1
+        if multi and not self.use_composite:
+            raise NotImplementedError(
+                f"{self.product_domains} scenario combinations, more than "
+                f"SATRANS_COMPOSITE_MAX={self.composite_max}: the JAX "
+                "package's per-example meta parameters are ROADMAP queue 1 "
+                "item 'multi-column above SATRANS_COMPOSITE_MAX'")
+        if multi and variant != "metanet" and \
+                self.meta_rows > gate_block.BWD_MAX_ROWS:
+            raise NotImplementedError(
+                f"a {variant} layer on a composite table of "
+                f"{self.meta_rows} rows: K6 takes at most "
+                f"{gate_block.BWD_MAX_ROWS}; more meta rows are ROADMAP "
+                "queue 2 item 'K1-bwd for many meta rows'")
+        # metanet composites past this many rows take the tiled layer (K7)
+        self.tiled = multi and variant == "metanet" and self.meta_rows > int(
+            os.environ.get("SATRANS_TILED_MIN_ROWS", "8"))
+        self.composite_block_b = int(os.environ.get(
+            "SATRANS_BLOCK_B_COMPOSITE", "32"))
         self.att_head_num = att_head_num
         self.meta_mode = meta_mode
         self.task = task
@@ -121,7 +175,8 @@ class SATrans(nn.Module):
         # the dropout tile; SATRANS_BLOCK_B overrides, as in the JAX package
         self.fused_block_b = int(os.environ.get("SATRANS_BLOCK_B", "128")) \
             if fused_block_b is None else int(fused_block_b)
-        self.domain_index = layout.sparse_index(self.domain_cols[0])
+        self.domain_index = [layout.sparse_index(c)
+                             for c in self.domain_cols]
         # the table's width (satrans_tpu/models/satrans.py:125-130)
         p = {"gate": d, "bilinear": d * d // att_head_num}.get(
             variant) or metanet.param_size(self.meta_units)
@@ -151,19 +206,32 @@ class SATrans(nn.Module):
                                             variant=variant,
                                             share_kv_metanet=not use_pos)
             for _ in range(domain_att_layer_num))
+        if multi:
+            # the scenario columns' own full bank (reference
+            # satrans.py:186-188); not in reg_loss, and the sparse bank
+            # updates leave it to the dense optimizer
+            self.domain_bank = embeddings.bank_init(gen, layout,
+                                                    init_std=init_std)
         self.head = core.Linear(gen, layout.num_fields * d + layout.dense_dim,
                                 1)
         self.eval()
 
     def meta_tables(self) -> list[dict]:
-        """One ``{'Q', 'K', 'V', 'bilinear'}`` -> ``[D+1, P]`` dict per
-        layer: the encoder over the D+1 distinct scenario ids
-        (``only_emb``: the ReLU'd scenario table), one table for all
-        without ``use_pos`` (satrans.py:212-218); under ``use_pos`` the
-        encoder over ``relu([table | layerid_emb[l] + qkvid_emb[qkv]])``
-        for each layer and each of Q, K, V in one product, the bilinear
-        maps Q's (satrans.py:222-235)."""
-        table = torch.relu(self.domain_emb)
+        """One ``{'Q', 'K', 'V', 'bilinear'}`` -> ``[R, P]`` dict per
+        layer, over the ``R = D+1`` scenario ids, or the composite
+        combinations with several columns (:meth:`_composite_base`)."""
+        if len(self.domain_cols) > 1:
+            return self._tables_from_base(self._composite_base())
+        return self._tables_from_base(torch.relu(self.domain_emb))
+
+    def _tables_from_base(self, table) -> list[dict]:
+        """The tables over an already ReLU'd base table ``[R, d]``
+        (``[R, P]`` under ``only_emb``): the encoder over its rows
+        (``only_emb``: the table itself), one table for all without
+        ``use_pos`` (satrans.py:212-221); under ``use_pos`` the encoder
+        over ``relu([table | layerid_emb[l] + qkvid_emb[qkv]])`` for each
+        layer and each of Q, K, V in one product, the bilinear maps Q's
+        (satrans.py:222-235)."""
         L = len(self.layers)
         if not self.use_pos:
             if not self.only_emb:
@@ -179,10 +247,39 @@ class SATrans(nn.Module):
         return [{"Q": out[i, 0], "K": out[i, 1], "V": out[i, 2],
                  "bilinear": out[i, 0]} for i in range(L)]
 
+    def _composite_base(self) -> torch.Tensor:
+        """The composite base table ``[prod(D_i + 1), d]``: row ``(i_0,
+        ..., i_{S-1})`` (row-major) holds ``relu(mean_s(emb_s[i_s]))``, the
+        per-example encoder input of the reference (satrans.py:205-207)
+        for every combination at once (satrans_tpu satrans.py:237-251)."""
+        dev = self.domain_emb.device
+        tabs = [embeddings.lookup_field(self.domain_bank, self.layout, c,
+                                        torch.arange(n + 1, device=dev))
+                for c, n in zip(self.domain_cols, self.num_domains_list)]
+        acc = tabs[0]
+        for t in tabs[1:]:
+            acc = (acc[:, None, :] + t[None, :, :]).reshape(-1, t.shape[-1])
+        return torch.relu(acc / len(tabs))
+
+    def _composite_ids(self, batch) -> torch.Tensor:
+        """The row-major combination index of :meth:`_composite_base`, each
+        column clipped to its ``[0, D_i]``."""
+        cid = None
+        for i, n in zip(self.domain_index, self.num_domains_list):
+            ids = batch["sparse"][:, i].long().clamp(0, n)
+            cid = ids if cid is None else cid * (n + 1) + ids
+        return cid
+
     def block_b(self, batch_size: int) -> int | None:
-        """The dropout tile for a batch: the first candidate that divides
-        it, or ``None``."""
-        for cand in (self.fused_block_b, 256, 128, 64, 32, 16):
+        """The dropout tile (and K7's dispatch tile) for a batch: the first
+        candidate that divides it, or ``None``.  The candidates are
+        ``(fused_block_b, 256, 128, 64, 32, 16)``, and for a composite
+        table of more than 8 rows ``(SATRANS_BLOCK_B_COMPOSITE, 16)``
+        (satrans.py:327-339)."""
+        cands = (self.fused_block_b, 256, 128, 64, 32, 16)
+        if self.use_composite and self.meta_rows > 8:
+            cands = (self.composite_block_b, 16)
+        for cand in cands:
             if batch_size % cand == 0:
                 return cand
         return None
@@ -195,26 +292,34 @@ class SATrans(nn.Module):
         package's default, :attr:`default_seeds`).  Returns ``[B]``."""
         x = embeddings.embed_fields(self.emb if feed is None else feed,
                                     self.layout, batch)
-        dom = batch["sparse"][:, self.domain_index].long().clamp(
-            0, self.num_domains)
+        if len(self.domain_cols) > 1:
+            dom = self._composite_ids(batch)
+        else:
+            dom = batch["sparse"][:, self.domain_index[0]].long().clamp(
+                0, self.num_domains)
         blk = self.block_b(x.shape[0])
         if self.training and self.dropout_rate > 0.0 and blk is None:
             raise NotImplementedError(
                 f"dropout at batch {x.shape[0]}, which no dropout tile "
-                f"(fused_block_b={self.fused_block_b}, 256, 128, 64, 32, 16) "
-                "divides: the JAX package's XLA fallback there draws "
-                "jax.random masks; ROADMAP queue 2 item 'dropout at a "
-                "batch no tile divides'")
+                f"(fused_block_b={self.fused_block_b}, 256, 128, 64, 32, 16; "
+                f"composites: {self.composite_block_b}, 16) divides: the JAX "
+                "package's XLA fallback there draws jax.random masks; "
+                "ROADMAP queue 2 item 'dropout at a batch no tile divides'")
         if seeds is None:
             seeds = self.default_seeds
+        if self.tiled and blk is not None:
+            return self._tiled_forward(x, dom, blk, batch, seeds)
         simple = self.variant != "metanet"
+        # a tiled model's batch that no dispatch tile divides: the JAX
+        # package's XLA path, the plain composite layer (satrans.py:324-339)
+        plain = not self.use_kernel or self.tiled
         for layer, seed, tables in zip(self.layers, seeds,
                                        self.meta_tables(), strict=True):
             kw = dict(head_num=self.att_head_num, mode=self.meta_mode,
                       relu_out=self.relu_out)
             drop = dict(train=self.training, drop_rate=self.dropout_rate,
                         seed=int(seed), block_b=blk or self.fused_block_b)
-            if simple and self.use_kernel:
+            if simple and not plain:
                 x = gate_block.fused_simple_layer(x, layer, tables, dom,
                                                   **kw, **drop)
             elif simple:
@@ -223,7 +328,7 @@ class SATrans(nn.Module):
                     masks=gate_block.layer_masks(
                         x, head_num=self.att_head_num, **drop),
                     clamp=False)
-            elif self.use_kernel:
+            elif not plain:
                 x = meta_block.fused_meta_layer(
                     x, layer, tables, dom, meta_units=self.meta_units, **kw,
                     **drop)
@@ -238,9 +343,44 @@ class SATrans(nn.Module):
             flat = torch.cat([flat, batch["dense"]], dim=1)
         return core.prediction(self.head(flat), self.task)[:, 0]
 
+    def _tiled_forward(self, x, dom, blk, batch, seeds) -> torch.Tensor:
+        """The composite metanet on dispatched tiles of ``blk`` slots
+        (satrans.py:411-442): K7 (or its plain version under
+        ``use_kernel=False``) per layer on the per-tile tables, the head on
+        the padded slots, the predictions gathered back to batch order."""
+        plan = dispatch.plan(dom, self.meta_rows, blk)
+        x = dispatch.scatter(x, plan)
+        tile_dom = plan.tile_dom.long()
+        for layer, seed, tables in zip(self.layers, seeds,
+                                       self.meta_tables(), strict=True):
+            # the gather outside the layer: autograd adds the per-tile
+            # gradient blocks into the tables' rows
+            tq = tables["Q"][tile_dom]
+            tabs = {"Q": tq, "K": tq if tables["K"] is tables["Q"]
+                    else tables["K"][tile_dom]}
+            kw = dict(meta_units=self.meta_units, head_num=self.att_head_num,
+                      mode=self.meta_mode, relu_out=self.relu_out)
+            drop = dict(train=self.training, drop_rate=self.dropout_rate,
+                        seed=int(seed), block_b=blk)
+            if self.use_kernel:
+                x = tiled_meta.fused_tiled_layer(x, layer, tabs, **kw, **drop)
+            else:
+                x = tiled_meta.tiled_layer_reference(
+                    x, layer, tabs, **kw, block_b=blk, clamp=False,
+                    masks=tiled_meta.layer_masks(
+                        x, head_num=self.att_head_num, mode=self.meta_mode,
+                        **drop))
+        flat = x.reshape(x.shape[0], -1)
+        if self.layout.dense_dim > 0 and "dense" in batch:
+            flat = torch.cat([flat, dispatch.scatter(batch["dense"], plan)],
+                             dim=1)
+        pred = core.prediction(self.head(flat), self.task)[:, 0]
+        return pred[plan.back.long()]
+
     def reg_loss(self, feed=None) -> torch.Tensor:
         """Embedding L2 only (reference satrans.py:120-122 and
         basemodel.py:180; the JAX twin's ``reg_loss``); under a ``feed``
-        without the large bank's term."""
+        without the large bank's term.  ``domain_bank`` is not in it: the
+        reference registers its L2 before creating it."""
         return embeddings.l2_loss(self.emb if feed is None else feed,
                                   self.l2_reg_embedding)

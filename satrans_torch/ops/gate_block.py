@@ -46,8 +46,11 @@ from ._build import (check_operands, kernel_fn, needs_grad, sm_count,
 # fields an example may have
 KERNEL_SHAPES = frozenset({(32, 4)})
 KERNEL_MAX_FIELDS = 20
-# K6-bwd runs two blocks of 256 threads per SM
+# K6-bwd runs two blocks of 256 threads per SM, and keeps every meta
+# row's gradient sums per block: at most this many rows (kMaxDomains in
+# csrc/gate_block_bwd.cu, which the launch reads back)
 BWD_BLOCKS_PER_SM = 2
+BWD_MAX_ROWS = 16
 # the field multiple of the JAX kernel's dropout tile (gate_block.py:382)
 PAD_FIELDS = 8
 

@@ -240,13 +240,8 @@ def launch_bwd(g, x, dom, wqkv, w1q, w2q, lnq, w1k, w2k, lnk, wout, lno,
             raise ValueError(f"residuals of shapes "
                              f"{[tuple(r.shape) for r in res]}, want {want}")
         check_operands(res, x.device)
-    # every GEMM of the kernel reads its weights row-major [K, N]: the
-    # backward's transposed products get transposed copies (a few kB)
-    wqkv_t = wqkv.t().contiguous()
-    wout_t = wout.t().contiguous()
-    w1q_t, w2q_t = (w.transpose(1, 2).contiguous() for w in (w1q, w2q))
-    w1k_t, w2k_t = ((w1q_t, w2q_t) if w1k is w1q and w2k is w2q else
-                    (w.transpose(1, 2).contiguous() for w in (w1k, w2k)))
+    wqkv_t, wout_t, w1q_t, w2q_t, w1k_t, w2k_t = transposed(
+        wqkv, wout, w1q, w2q, w1k, w2k)
     # tiles of two examples
     blocks = min(BWD_BLOCKS_PER_SM * sm_count(x.device), (B + 1) // 2)
     total = kernel_fn("meta_block_bwd", "satrans_meta_block_bwd_grad_floats",
@@ -274,10 +269,29 @@ def launch_bwd(g, x, dom, wqkv, w1q, w2q, lnq, w1k, w2k, lnk, wout, lno,
         stash_bwd_launches += 1
     else:
         stash_light_bwd_launches += 1
+    return (dx, *split_grads(grads, d, h, D))
+
+
+def transposed(wqkv, wout, w1q, w2q, w1k, w2k):
+    """``(wqkv^T, wout^T, w1q^T, w2q^T, w1k^T, w2k^T)``, contiguous, the
+    MetaNet blocks transposed per row: every GEMM of the backward kernels
+    reads its weights row-major [K, N], so their transposed products get
+    transposed copies (a few kB a row)."""
+    w1q_t, w2q_t = (w.transpose(1, 2).contiguous() for w in (w1q, w2q))
+    w1k_t, w2k_t = ((w1q_t, w2q_t) if w1k is w1q and w2k is w2q else
+                    (w.transpose(1, 2).contiguous() for w in (w1k, w2k)))
+    return (wqkv.t().contiguous(), wout.t().contiguous(), w1q_t, w2q_t,
+            w1k_t, w2k_t)
+
+
+def split_grads(grads, d: int, h: int, D: int):
+    """The backward kernels' gradient buffer (``dWqkv | dWout | LN_q, LN_k,
+    LN_o | dW1q | dW2q | dW1k | dW2k``, ``D`` rows of each MetaNet block)
+    as ``(dwqkv, dw1q, dw2q, dlnq, dw1k, dw2k, dlnk, dwout, dlno)``."""
     sizes = [3 * d * d, d * d, 2 * d, 2 * d, 2 * d] + [D * d * h] * 4
     (dwqkv, dwout, dlnq, dlnk, dlno, dw1q, dw2q, dw1k,
      dw2k) = torch.split(grads, sizes)
-    return (dx, dwqkv.view(d, 3 * d), dw1q.view(D, d, h), dw2q.view(D, h, d),
+    return (dwqkv.view(d, 3 * d), dw1q.view(D, d, h), dw2q.view(D, h, d),
             dlnq.view(2, d), dw1k.view(D, d, h), dw2k.view(D, h, d),
             dlnk.view(2, d), dwout.view(d, d), dlno.view(2, d))
 
@@ -362,14 +376,13 @@ _LAYER_FNS = {"stash": _StashLayerFn, "stash_light": _StashLightLayerFn,
               "recompute": _MetaLayerFn}
 
 
-def pack_operands(x, layer: MetaTransformerLayer, tables, dom, *,
-                  meta_units: Sequence[int], head_num: int,
-                  mode: str = "QK", relu_out: bool = False):
-    """The kernels' operands ``(x, dom, wqkv, w1q, w2q, lnq, w1k, w2k, lnk,
-    wout, lno)`` and their ``cfg``, packed with differentiable PyTorch ops
-    from the layer's parameters and the ``[D, P]`` tables."""
-    x = x.contiguous()
-    dom = dom.to(device=x.device, dtype=torch.int32).contiguous()
+def pack_weights(layer: MetaTransformerLayer, tables, *,
+                 meta_units: Sequence[int], head_num: int,
+                 mode: str = "QK", relu_out: bool = False):
+    """The weight operands ``(wqkv, w1q, w2q, lnq, w1k, w2k, lnk, wout,
+    lno)`` and the ``cfg`` of K1 and K7, packed with differentiable
+    PyTorch ops from the layer's parameters and the ``[rows, P]`` tables
+    (K1's domains, K7's tiles)."""
     wqkv = torch.cat([layer.wq, layer.wk, layer.wv], dim=1).contiguous()
     w1q, w2q = _meta_operands(tables, "Q", meta_units)
     w1k, w2k = (w1q, w2q) if tables["K"] is tables["Q"] \
@@ -380,8 +393,21 @@ def pack_operands(x, layer: MetaTransformerLayer, tables, dom, *,
     lnk = lnq if k_meta is None else _ln(k_meta.ln)
     cfg = (meta_units[1], head_num, int("Q" in mode), int("K" in mode),
            int(relu_out))
-    return (x, dom, wqkv, w1q, w2q, lnq, w1k, w2k, lnk,
-            layer.wout.contiguous(), _ln(layer.ln)), cfg
+    return (wqkv, w1q, w2q, lnq, w1k, w2k, lnk, layer.wout.contiguous(),
+            _ln(layer.ln)), cfg
+
+
+def pack_operands(x, layer: MetaTransformerLayer, tables, dom, *,
+                  meta_units: Sequence[int], head_num: int,
+                  mode: str = "QK", relu_out: bool = False):
+    """The kernels' operands ``(x, dom, wqkv, w1q, w2q, lnq, w1k, w2k, lnk,
+    wout, lno)`` and their ``cfg``, packed with differentiable PyTorch ops
+    from the layer's parameters and the ``[D, P]`` tables."""
+    weights, cfg = pack_weights(layer, tables, meta_units=meta_units,
+                                head_num=head_num, mode=mode,
+                                relu_out=relu_out)
+    dom = dom.to(device=x.device, dtype=torch.int32).contiguous()
+    return (x.contiguous(), dom, *weights), cfg
 
 
 def fused_meta_layer(x, layer: MetaTransformerLayer, tables, dom, *,

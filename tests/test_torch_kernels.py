@@ -7,9 +7,12 @@ sides), with logits past the clamp and, as the 'pos' model has them, with
 distinct Q and K tables and a ``k_meta`` LayerNorm; K1-bwd-stash light
 against K1-bwd-stash on the same residuals; the gate
 and bilinear layer (K6-fwd, K6-bwd) against ``simple_layer_reference``
-and its autograd, and the row kernels of the sparse bank updates (K2
-scatter, K3 equality combine, K4 gather, K5 lazy Adam tail) against
-theirs.
+and its autograd; the tiled layer on a slack-heavy dispatch (K7-fwd and
+K7-stash with its residuals, K7-bwd and K7-bwd-stash with the per-tile
+gradient blocks) against ``tiled_layer_reference`` and its autograd, and
+K7-bwd-stash against K7-bwd on the same masks; and the row kernels of
+the sparse bank updates (K2 scatter, K3 equality combine, K4 gather, K5
+lazy Adam tail) against theirs.
 
 Every test here needs an NVIDIA GPU and skips itself elsewhere.  The file
 imports neither JAX nor the JAX package, so it also runs on a machine that
@@ -25,7 +28,8 @@ import pytest
 import torch
 
 from satrans_torch.nn import attention, initializers as init, metanet
-from satrans_torch.ops import gate_block, meta_block, prng
+from satrans_torch.ops import (dispatch, gate_block, meta_block, prng,
+                                tiled_meta)
 from satrans_torch.utils import make_generator
 
 MODES = [("QK", False), ("QK", True), ("Query", False), ("Query", True)]
@@ -449,6 +453,154 @@ def test_gate_block_kernels_match_plain_version(card, variant, mode,
     for name, w in want.items():
         err = (got[name].double() - w).abs().max().item()
         assert err <= 1e-4 * w.abs().max().item() + 1e-5, (name, err)
+
+
+# --- K7, the tiled layer on dispatched single-domain tiles --------------
+
+TILED_COUNTS = ("launches", "stash_launches", "bwd_launches",
+                "stash_bwd_launches")
+# the launches of each backward's pair: (K7-fwd, K7-stash, K7-bwd,
+# K7-bwd-stash)
+TILED_PAIR = {"recompute": [1, 0, 1, 0], "stash": [0, 1, 0, 1]}
+TILE, ROWS, OCCUPIED = 32, 56, 39
+
+
+def _tiled_counts():
+    return [getattr(tiled_meta, c) for c in TILED_COUNTS]
+
+
+def _tiled_case(card, seed, pos, B=512):
+    """A layer (``pos``: with a k_meta LayerNorm and distinct tables),
+    ``[56, P]`` tables and a batch of ``B`` examples in 39 of the 56
+    composite domains (the AliCCP 301 x 122 occupancy), dispatched on
+    tiles of 32: ``B + 56 * 32`` slots, most tiles slack.  Returns (layer,
+    tile tables, x and g on the slots (zero on slack slots), the slots'
+    table rows)."""
+    gen, layer, tables = _pos_layer(card, seed) if pos else _layer(card,
+                                                                   seed)
+    p = metanet.param_size([32, 64, 32])
+    tables = {k: init.normal(gen, (ROWS, p), 0.1)
+              for k in ("QK" if pos else "Q")}
+    used = torch.randperm(ROWS, generator=gen, device=card)[:OCCUPIED]
+    dom = used[torch.randint(0, OCCUPIED, (B,), generator=gen, device=card)]
+    plan = dispatch.plan(dom, ROWS, TILE)
+    tile_dom = plan.tile_dom.long()
+    tabs = {k: t[tile_dom] for k, t in tables.items()}
+    if not pos:
+        tabs["K"] = tabs["Q"]
+    x = dispatch.scatter(init.normal(gen, (B, 19, 32), 1.0), plan)
+    g = dispatch.scatter(init.normal(gen, (B, 19, 32), 1.0), plan)
+    assert (plan.src < 0).sum().item() > B  # slack-heavy
+    return layer, tabs, x, g, tiled_meta.tile_rows(plan.n_slots, TILE, card)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("pos", [False, True])
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+@pytest.mark.parametrize("mode,relu_out", MODES)
+def test_tiled_forward_kernels_match_plain_version(card, mode, relu_out,
+                                                   rate, pos):
+    """K7-fwd (through the wrapper, without a gradient: no stash) and
+    K7-stash's output and each residual against the plain tiled layer,
+    at K1's tolerance."""
+    layer, tabs, x, _, _ = _tiled_case(card, 8, pos)
+    kw = dict(meta_units=[32, 64, 32], head_num=4, mode=mode,
+              relu_out=relu_out)
+    drop = dict(train=True, drop_rate=rate, seed=DROP["seed"],
+                block_b=TILE)
+    before = _tiled_counts()
+    with torch.no_grad():
+        y = tiled_meta.fused_tiled_layer(x, layer, tabs, **kw, **drop)
+        weights, cfg = meta_block.pack_weights(layer, tabs, **kw)
+        got = tiled_meta.launch_fwd(x, *weights, cfg, prng.kernel_args(
+            True, rate, DROP["seed"], TILE, 19), TILE, stash=True)
+        res = {}
+        want = tiled_meta.tiled_layer_reference(
+            x, layer, tabs, **kw, block_b=TILE, residuals=res,
+            masks=tiled_meta.layer_masks(x, head_num=4, mode=mode, **drop))
+    torch.cuda.synchronize()
+    assert [a - b for a, b in zip(_tiled_counts(), before)] == [1, 1, 0, 0]
+    torch.testing.assert_close(y, want, rtol=1e-4, atol=1e-4)
+    assert len(got) == 1 + len(tiled_meta.STASH_RESIDUALS)
+    for name, a in zip(("y",) + tiled_meta.STASH_RESIDUALS, got):
+        torch.testing.assert_close(a, want if name == "y" else res[name],
+                                   rtol=1e-4, atol=1e-4, msg=name)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bwd", ["stash", "recompute"])
+@pytest.mark.parametrize("pos", [False, True])
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+@pytest.mark.parametrize("mode,relu_out", MODES)
+def test_tiled_bwd_kernels_match_plain_backward(card, mode, relu_out, rate,
+                                                pos, bwd):
+    """K7-bwd-stash (with K7-stash) and K7-bwd (with K7-fwd) through the
+    autograd wrapper against autograd of the plain tiled layer in float64
+    with the same masks: dx, the layer's parameters and the per-tile
+    table blocks (each tile's own), at K1's tolerance; examples at a relu
+    kink get no upstream gradient."""
+    layer, tabs, x, g, rows = _tiled_case(card, 9, pos)
+    kw = dict(meta_units=[32, 64, 32], head_num=4, mode=mode,
+              relu_out=relu_out)
+    drop = dict(train=True, drop_rate=rate, seed=DROP["seed"],
+                block_b=TILE)
+    masks = tiled_meta.layer_masks(x, head_num=4, mode=mode, **drop)
+    masks64 = masks and tuple(None if m is None else m.double()
+                              for m in masks)
+    layer64 = copy.deepcopy(layer).double()
+    tabs64 = {k: t.double() for k, t in tabs.items()}
+    g = _kink_free(g.double(), x.double(), layer64, tabs64, rows, masks64,
+                   **kw)
+    names = ("table.Q", "table.K") if pos else ("table",)
+
+    def grads(fn, x, layer, tabs, g, **extra):
+        x = x.detach().requires_grad_(True)
+        leaves = {n: tabs[n[-1] if pos else "Q"].detach().requires_grad_(
+            True) for n in names}
+        t = {k: leaves[f"table.{k}" if pos else "table"] for k in "QK"}
+        params = dict(layer.named_parameters())
+        y = fn(x, layer, t, **kw, **extra)
+        got = torch.autograd.grad((y * g).sum(), [x, *leaves.values(),
+                                                  *params.values()],
+                                  allow_unused=True)
+        return {n: a for n, a in zip(["x", *names, *params], got)
+                if a is not None}
+
+    before = _tiled_counts()
+    got = grads(tiled_meta.fused_tiled_layer, x, layer, tabs, g.float(),
+                **drop, bwd=bwd)
+    torch.cuda.synchronize()
+    assert [a - b for a, b in zip(_tiled_counts(), before)] == \
+        TILED_PAIR[bwd]
+    want = grads(tiled_meta.tiled_layer_reference, x.double(), layer64,
+                 tabs64, g, block_b=TILE, masks=masks64)
+    assert set(got) == set(want)
+    for name, w in want.items():
+        err = (got[name].double() - w).abs().max().item()
+        assert err <= 1e-4 * w.abs().max().item() + 1e-5, (name, err)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+def test_tiled_stash_backward_equals_recompute_backward(card, rate):
+    """K7-bwd-stash on K7-stash's residuals against K7-bwd recomputing
+    them, on the same masks: every gradient within 1e-5 of its largest
+    entry (the two forwards sum the attention output in another order)."""
+    layer, tabs, x, g, _ = _tiled_case(card, 10, True)
+    kw = dict(meta_units=[32, 64, 32], head_num=4)
+    weights, cfg = meta_block.pack_weights(layer, tabs, **kw)
+    weights = [t.detach() for t in weights]
+    kargs = prng.kernel_args(True, rate, DROP["seed"], TILE, 19)
+    with torch.no_grad():
+        _, *res = tiled_meta.launch_fwd(x, *weights, cfg, kargs, TILE,
+                                        stash=True)
+        stash = tiled_meta.launch_bwd(g, x, *weights, cfg, kargs, TILE,
+                                      res=res)
+        again = tiled_meta.launch_bwd(g, x, *weights, cfg, kargs, TILE)
+    torch.cuda.synchronize()
+    for i, (a, b) in enumerate(zip(stash, again)):
+        err = (a - b).abs().max().item()
+        assert err <= 1e-5 * b.abs().max().item(), (i, err)
 
 
 # --- the row kernels of the sparse bank updates (K2, K3, K4, K5) ---------

@@ -40,6 +40,7 @@ def test_port_imports_no_jax():
     code = ("import sys, satrans_torch, satrans_torch.bridge, "
             "satrans_torch.serving, satrans_torch.models, "
             "satrans_torch.ops.meta_block, satrans_torch.ops._build, "
+            "satrans_torch.ops.dispatch, satrans_torch.ops.tiled_meta, "
             "satrans_torch.data.aliccp, satrans_torch.data.alimama, "
             "satrans_torch.data.synthetic; "
             "bad = [m for m in sys.modules "
