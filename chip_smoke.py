@@ -90,7 +90,25 @@ Phases, each of which exits non-zero on failure:
    launches of the arm's K7 pair a step and the lazy row kernels', no K1
    or K6, gradients kernel vs plain path, a falling loss, domain_emb and
    domain_bank's large part bit-identical, examples/s, staged step,
-   profile), and the two backwards' staged steps in turns.
+   profile), and the two backwards' staged steps in turns;
+12. the attention probes and the experiment entry point: (a) K1-scores against
+   the plain layer at the AliCCP sota width (B=8192, F=19; QK, and Query
+   with relu_out; shared and distinct Q and K tables; dropout 0, and 0.1
+   in training with the same seed): the output within the forward
+   tolerance, the probabilities within 1e-6 of the plain layer's clamped
+   ones, every row summing to 1 within 1e-5, and bit-identical to
+   K1-stash's ``s``; timed beside K1-fwd and K1-stash at 8192 and at the
+   probes' 32,768; (b) ``predict_with_attention`` over 3 batches of
+   32,768 on phase 5's model and ids, on K1-scores (exactly 3 launches a
+   batch, no other K1 body) and on the plain layer
+   (SATRANS_PROBE_FUSED=0): examples/s, device busy share, the two
+   routes' means within 1e-5; ``dump_instance_attention`` of 1,000
+   instances on both (the same triples but at the threshold); (c)
+   ``satrans_torch.cli.main.main`` with ``--data_name synthetic
+   --synthetic_rows 200000 --flag showattn_instattn_dump`` at the CLI's
+   defaults into a temporary directory: AUCs, launches, the results row
+   and files; ``serving.load`` of the dumped checkpoint predicting the
+   run's ``_testpred.pkl`` bit for bit; a ``--finetune True`` run.
 
 Phases 2 and 4 also hold K1 where a share of the attention logits passes
 the kernels' clamp at 60 against the clamped plain layer.
@@ -248,7 +266,10 @@ def _weight_floats(d, h, meta_rows):
 
 def _residual_floats(F, d, heads, stash="full"):
     """The residuals of one example: qkv, uq, uk and o, and in the full
-    stash the probabilities s."""
+    stash the probabilities s; K1-scores' ('scores') the probabilities
+    alone."""
+    if stash == "scores":
+        return heads * F * F
     return F * 3 * d + 3 * F * d + (heads * F * F if stash == "full" else 0)
 
 
@@ -257,10 +278,10 @@ def meta_layer_bound_ms(B, F, d, h, heads, meta_rows, apply_q, apply_k,
     """Least time for one layer forward: its float32 FMA work, and its
     bytes (x in, y out, dom and the weights read once; with ``stash``
     'full' or 'light' the residuals of K1-stash or K1-stash light
-    written).  The dropout hash's integer work (about 46 k operations an
-    example, 11 us at B=8192 over the card's 33.5 T int32 operations a
-    second) is under a fifth of the float time and left out.  Returns
-    (ms, bound_by)."""
+    written, with 'scores' K1-scores' probabilities).  The dropout hash's
+    integer work (about 46 k operations an example, 11 us at B=8192 over
+    the card's 33.5 T int32 operations a second) is under a fifth of the
+    float time and left out.  Returns (ms, bound_by)."""
     nbytes = 4 * (2 * B * F * d + B + _weight_floats(d, h, meta_rows))
     if stash:
         nbytes += 4 * B * _residual_floats(F, d, heads, stash)
@@ -727,7 +748,8 @@ def device_ops(prof):
 def device_profile(label, run, ref_ms, card, top=12):
     """Device time by kernel over one ``run()`` (torch.profiler), and the
     device's busy share of its wall time, with the profiler on and against
-    ``ref_ms``, the same work's time without it."""
+    ``ref_ms``, the same work's time without it.  Returns the busy ms, or
+    None where the profiler saw no device time."""
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
@@ -740,7 +762,7 @@ def device_profile(label, run, ref_ms, card, top=12):
     if not ops:
         print(f"profile: {label}: the profiler saw no device time: not "
               "measured")
-        return
+        return None
     busy_ms = sum(ms for _, ms, _ in ops)
     print(f"profile [{card}]: {label}: device busy {busy_ms:.3f} ms; wall "
           f"{wall_ms:.3f} ms with the profiler ({100 * busy_ms / wall_ms:.1f}"
@@ -748,6 +770,7 @@ def device_profile(label, run, ref_ms, card, top=12):
           f"({100 * busy_ms / ref_ms:.1f} % busy)", flush=True)
     for name, ms, n in ops[:top]:
         print(f"profile: {ms:9.3f} ms {n:5d}x  {name[:100]}")
+    return busy_ms
 
 
 def serving_phase(dev, card):
@@ -858,6 +881,7 @@ def zero_counts():
         meta_block, scatter, tiled_meta
     for name in K1_COUNTS:
         setattr(meta_block, name, 0)
+    meta_block.scores_launches = 0
     for name in K7_COUNTS:
         setattr(tiled_meta, name, 0)
     for mod in (gather, scatter, eqgemm, lazy_tail):
@@ -2270,6 +2294,379 @@ def multicol_paths_phase(dev, card):
     return paths
 
 
+# the probes of phase 12: the CLI's test batch (4 x 8192), the batches of
+# predict_with_attention, the instances of dump_instance_attention and its
+# threshold; K1-scores' probabilities against the plain layer's, and the
+# two probe routes' (layer, domain, class) means against each other
+PROBE_BATCH, PROBE_BATCHES, PROBE_INSTANCES = 4 * BATCH, 3, 1000
+INST_THRESHOLD = 0.2
+SCORES_TOL, ROW_SUM_TOL, PROBE_STATS_TOL = 1e-6, 1e-5, 1e-5
+# phase 12c: the CLI at its defaults on synthetic data
+CLI_ROWS = 200_000
+
+
+def scores_kernel_phase(dev):
+    """Phase 12a: K1-scores against the plain layer at the AliCCP sota
+    width (B = 8192, F = 19): QK, and Query with relu_out, shared and
+    distinct Q and K tables, dropout 0 and (in training, the same seed)
+    0.1: the output within KERNEL_TOL, the probabilities within
+    SCORES_TOL of the plain layer's clamped ones, each row summing to 1
+    within ROW_SUM_TOL, and equal bit for bit to K1-stash's ``s`` on the
+    same inputs.  Times K1-scores beside K1-fwd and K1-stash, at B = 8192
+    and at the probes' 32,768.  Returns the JSON fields."""
+    from satrans_torch.nn import initializers as init
+    from satrans_torch.ops import meta_block, prng
+
+    F, d, h, heads, rows = 19, 32, 64, 4, 4
+    units = [d, h, d]
+    worst = {"y": 0.0, "s": 0.0, "row_sum": 0.0}
+    same_y = []
+    out = {}
+    for pos in (False, True):
+        if pos:
+            gen, layer, tables = pos_test_layer(dev, SEED + 12)
+        else:
+            gen, layer, table = test_layer(dev, SEED + 12)
+            tables = shared(table)
+        x = init.normal(gen, (BATCH, F, d), 1.0)
+        dom = torch.randint(0, rows, (BATCH,), generator=gen, device=dev)
+        for mode, relu_out in (("QK", False), ("Query", True)):
+            kw = dict(meta_units=units, head_num=heads, mode=mode,
+                      relu_out=relu_out)
+            for rate in (0.0, DROP_RATE):
+                drop = drop_kw(rate) if rate else dict(
+                    train=False, drop_rate=0.0, seed=0, block_b=DROP_TILE)
+                kargs = prng.kernel_args(drop["train"], rate, DROP_SEED,
+                                         DROP_TILE, F)
+                masks = meta_block.layer_masks(x, head_num=heads, mode=mode,
+                                               **drop)
+                ops, cfg = meta_block.pack_operands(x, layer, tables, dom,
+                                                    **kw)
+                res = {}
+                with torch.no_grad():
+                    y, s = meta_block.fused_meta_layer_with_scores(
+                        x, layer, tables, dom, **kw, **drop)
+                    st = meta_block.launch_fwd(*ops, cfg, kargs,
+                                               stash="full")
+                    y_fwd = meta_block.launch_fwd(*ops, cfg, kargs)
+                    ref = meta_block.meta_layer_reference(
+                        x, layer, tables, dom, **kw, masks=masks,
+                        residuals=res)
+                torch.cuda.synchronize()
+                errs = {"y": (y - ref).abs().max().item(),
+                        "s": (s - res["s"]).abs().max().item(),
+                        "row_sum": (s.sum(-1) - 1).abs().max().item()}
+                for k, v in errs.items():
+                    worst[k] = max(worst[k], v)
+                same_s = torch.equal(s, st[4])
+                same_y.append(torch.equal(y, y_fwd))
+                print(f"kernel meta_block_fwd_scores B={BATCH} pos={pos} "
+                      f"mode={mode} relu_out={relu_out} dropout={rate}: y "
+                      f"max_abs_err={errs['y']:.3e}, s max_abs_err="
+                      f"{errs['s']:.3e}, row sums within "
+                      f"{errs['row_sum']:.3e} of 1; s bit-identical to "
+                      f"K1-stash's: {same_s}; y bit-identical to K1-fwd's: "
+                      f"{same_y[-1]}, to K1-stash's: "
+                      f"{torch.equal(y, st[0])}", flush=True)
+                case = (f"(pos={pos} mode={mode} relu_out={relu_out} "
+                        f"dropout={rate})")
+                check(bool(torch.isfinite(y).all()) and torch.allclose(
+                    y, ref, **KERNEL_TOL), f"K1-scores' output disagrees "
+                    f"with the plain layer {case}: {errs['y']}")
+                check(s.shape == (BATCH, heads, F, F)
+                      and bool(torch.isfinite(s).all())
+                      and errs["s"] <= SCORES_TOL,
+                      f"K1-scores' probabilities disagree with the plain "
+                      f"layer's {case}: {errs['s']} > {SCORES_TOL}")
+                check(errs["row_sum"] <= ROW_SUM_TOL,
+                      f"K1-scores' rows do not sum to 1 {case}: "
+                      f"{errs['row_sum']}")
+                check(same_s, f"K1-scores' s differs from K1-stash's {case}")
+                if not pos and mode == "QK" and rate == 0.0:
+                    a = ("Q" in mode, "K" in mode)
+                    with torch.no_grad():
+                        for B in (BATCH, PROBE_BATCH):
+                            xb = x if B == BATCH else x.repeat(4, 1, 1)
+                            db = dom if B == BATCH else dom.repeat(4)
+                            opsb, _ = meta_block.pack_operands(
+                                xb, layer, tables, db, **kw)
+                            t = {n: time_ms(lambda: meta_block.launch_fwd(
+                                *opsb, cfg, kargs, stash=stash), iters=50)
+                                for n, stash in (("fwd", None),
+                                                 ("scores", "scores"),
+                                                 ("stash", "full"),
+                                                 ("scores_", "scores"),
+                                                 ("fwd_", None))}
+                            p_ms = time_ms(
+                                lambda: meta_block.meta_layer_reference(
+                                    xb, layer, tables, db, **kw,
+                                    residuals={}), iters=5)
+                            b_ms, b_by = meta_layer_bound_ms(
+                                B, F, d, h, heads, rows, *a, stash="scores")
+                            print(f"kernel meta_block_fwd_scores B={B}: "
+                                  f"K1-scores kernel_ms={t['scores']:.4f} "
+                                  f"(again {t['scores_']:.4f}), K1-fwd "
+                                  f"{t['fwd']:.4f} (again {t['fwd_']:.4f}),"
+                                  f" K1-stash {t['stash']:.4f}, plain_ms="
+                                  f"{p_ms:.4f} bound_ms={b_ms:.4f} ({b_by})",
+                                  flush=True)
+                            out[B] = dict(ms=t["scores"], plain_ms=p_ms,
+                                          bound_ms=b_ms, bound_by=b_by,
+                                          fwd_ms=t["fwd"],
+                                          stash_ms=t["stash"])
+    print(f"K1-scores: y bit-identical to K1-fwd's in {sum(same_y)} of "
+          f"{len(same_y)} cases", flush=True)
+    return dict(max_abs_err=max(worst["y"], worst["s"]),
+                scores_max_abs_err=worst["s"], **out[BATCH],
+                probe_batch_ms=out[PROBE_BATCH]["ms"])
+
+
+def scores_count():
+    from satrans_torch.ops import meta_block
+    return meta_block.scores_launches
+
+
+def probe_run(label, card, run, rows):
+    """One probe call after the counts are set to 0, timed with the host
+    clock; then its device busy share over a second call.  Returns (the
+    first call's result, seconds, K1 counts, K1-scores launches)."""
+    torch.cuda.synchronize()
+    zero_counts()
+    t0 = time.perf_counter()
+    result = run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = (k1_counts(), scores_count())
+    print(f"probe [{card}]: {label}: {rows} examples in {wall:.4f}s, "
+          f"{rows / wall:.1f} examples/s; K1 launches {counts[0]}, "
+          f"K1-scores {counts[1]}", flush=True)
+    device_profile(label, run, 1e3 * wall, card)
+    return result, wall, counts[0], counts[1]
+
+
+def _dump_lines(prefix, domains):
+    """{(domain, instance, layer, i, j): printed score} of a dump."""
+    out = {}
+    for dm in domains:
+        with open(f"{prefix}_{dm}.txt") as f:
+            for ln in f:
+                idx, layer, i, j, score = ln.split("\t")
+                out[(dm, idx, layer, i, j)] = float(score)
+    return out
+
+
+def probe_phase(dev, card):
+    """Phase 12b: the probes at the CLI's test batch on phase 5's ids and
+    the AliCCP sota model with phase 3's N(0, 1) embeddings (with the
+    default N(0, 1e-4) ones the layers' inputs sit below the LayerNorms'
+    epsilon and every attention row is within 0.01 of uniform, so no
+    score would reach the dump's threshold): ``predict_with_attention``
+    over 3 batches of 32,768 on K1-scores and under SATRANS_PROBE_FUSED=0
+    (the plain layer), then ``dump_instance_attention`` of 1,000
+    instances on both.  Returns the launches by path."""
+    import tempfile
+
+    from satrans_torch.data import aliccp
+    from satrans_torch.features import FeatureLayout
+    from satrans_torch.models import SATrans
+    from satrans_torch.train import Trainer, attention_probe
+
+    model = SATrans(FeatureLayout(aliccp.sota_columns(32)), ["301"], [3],
+                    domain_att_layer_num=LAYERS, att_head_num=4,
+                    meta_mode="QK", meta_dnn_hidden_units=(64, 32),
+                    no_emb_init=True, seed=SEED, device=dev)
+    trainer = Trainer(model, seed=SEED, device=dev)
+    x, y = training_data()
+    n = PROBE_BATCHES * PROBE_BATCH
+    x = {k: v[:n] for k, v in x.items()}
+    y = y[:n]
+    paths, stats, preds, dumps = {}, {}, {}, {}
+    with tempfile.TemporaryDirectory() as tmp:
+        for route in ("kernel", "plain"):
+            if route == "plain":
+                os.environ["SATRANS_PROBE_FUSED"] = "0"
+            (preds[route], stats[route]), wall, k1, sc = probe_run(
+                f"predict_with_attention, {route}", card,
+                lambda: attention_probe.predict_with_attention(
+                    trainer, x, y, batch_size=PROBE_BATCH), n)
+            want = PROBE_BATCHES * LAYERS if route == "kernel" else 0
+            check(k1 == NO_K1 and sc == want,
+                  f"predict_with_attention on the {route} route launched "
+                  f"{k1} ({', '.join(K1_COUNTS)}) and {sc} K1-scores, want "
+                  f"{want} K1-scores and nothing else")
+            prefix = os.path.join(tmp, route)
+            domains, dwall, k1, sc = probe_run(
+                f"dump_instance_attention of {PROBE_INSTANCES}, {route}",
+                card, lambda: attention_probe.dump_instance_attention(
+                    trainer, x, batch_size=PROBE_BATCH,
+                    threshold=INST_THRESHOLD, out_prefix=prefix,
+                    max_instances=PROBE_INSTANCES), PROBE_INSTANCES)
+            want = LAYERS if route == "kernel" else 0
+            check(k1 == NO_K1 and sc == want,
+                  f"dump_instance_attention on the {route} route launched "
+                  f"{k1} and {sc} K1-scores, want {want} K1-scores only")
+            dumps[route] = _dump_lines(prefix, domains)
+            if route == "kernel":
+                paths = {"probe_showattn": PROBE_BATCHES * LAYERS,
+                         "probe_instattn": LAYERS}
+        os.environ.pop("SATRANS_PROBE_FUSED")
+    check(preds["kernel"].shape == (n,) and bool(np.all(np.isfinite(
+        preds["kernel"]))), "probe predictions not finite")
+    pred_diff = float(np.abs(preds["kernel"] - preds["plain"]).max())
+    stat_diff = max(
+        float(np.abs(a[name] - b[name]).max())
+        for la, lb in zip(stats["kernel"], stats["plain"])
+        for a, b in zip(la, lb) for name in ("pos", "neg", "all"))
+    print(f"probe: the two routes' predictions within {pred_diff:.3e}, "
+          f"their (layer, domain, class) means within {stat_diff:.3e}",
+          flush=True)
+    check(pred_diff <= SERVING_TOL and stat_diff <= PROBE_STATS_TOL,
+          f"the probe routes disagree: predictions {pred_diff}, means "
+          f"{stat_diff} (tolerances {SERVING_TOL}, {PROBE_STATS_TOL})")
+    a, b = dumps["kernel"], dumps["plain"]
+    differ = [k for k in set(a) | set(b) if a.get(k) != b.get(k)]
+    # a triple on one side only must lie at the threshold (its printed
+    # score within 1e-4 + 1e-5 of it); a printed score may differ by one
+    # unit of its last digit
+    bad = [k for k in differ
+           if (k in a and k in b and abs(a[k] - b[k]) > 1.0001e-4)
+           or ((k in a) != (k in b) and abs(a.get(k, b.get(k))
+                                            - INST_THRESHOLD) > 1.1e-4)]
+    print(f"probe: instattn triples kernel {len(a)}, plain {len(b)}; "
+          f"{len(differ)} differ ({len(bad)} away from the threshold and "
+          f"the last printed digit)", flush=True)
+    check(len(a) > 0 and not bad,
+          f"the instattn dumps disagree: {sorted(bad)[:5]}")
+    del model, trainer
+    gc.collect()
+    torch.cuda.empty_cache()
+    return paths
+
+
+def cli_phase(dev, card):
+    """Phase 12c: the CLI on the card at its defaults (d = 32, 3 layers, 4
+    heads, Query, MetaNet 32 -> 64 -> 32, batch 8192, test batch 32,768,
+    lr 0.001, dropout 0.1) on synthetic data, with the probes and the
+    dump; the dumped checkpoint served through ``serving.load`` (its
+    predictions equal the run's ``_testpred.pkl`` bit for bit); then a
+    ``--finetune True`` run from it.  Returns the launches by path and
+    kernel."""
+    import pickle
+    import tempfile
+
+    from satrans_torch import serving
+    from satrans_torch.cli import main as cli
+    from satrans_torch.ops import meta_block
+    from satrans_torch.train import metrics
+
+    paths = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        argv = ["--data_name", "synthetic", "--synthetic_rows",
+                str(CLI_ROWS), "--flag", "showattn_instattn_dump",
+                "--results_dir", os.path.join(tmp, "results"),
+                "--checkpoint_dir", os.path.join(tmp, "checkpoints")]
+        torch.cuda.synchronize()
+        zero_counts()
+        t0 = time.perf_counter()
+        auc = cli.main(argv)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = dict(zip(K1_NAMES, k1_counts()),
+                      meta_block_fwd_scores=scores_count())
+        args = cli.parse_args(argv)
+        (train, test, target, sparse, dense, var, data_max, topk,
+         _) = cli.load_dataset(args, args.flag, "domain")
+        steps = -(-len(train[target]) // BATCH)
+        test_batches = -(-len(test[target]) // PROBE_BATCH)
+        want = dict(zip(K1_NAMES, NO_K1), meta_block_fwd_stash=LAYERS * steps,
+                    meta_block_bwd_stash=LAYERS * steps,
+                    meta_block_fwd_scores=LAYERS * (test_batches + 1))
+        print(f"cli [{card}]: {len(train[target])} training rows in {steps} "
+              f"steps, {len(test[target])} test rows; {wall:.2f}s; test AUC "
+              f"{auc}; launches {counts}", flush=True)
+        check(counts == want, f"the CLI launched {counts}, want {want}")
+        paths["cli"] = counts
+        config = cli.config_str(args, "domain", args.flag)
+        ckpt = os.path.join(args.checkpoint_dir, config)
+        with open(ckpt + "_testpred.pkl", "rb") as f:
+            pred = pickle.load(f)
+        y, dom = test[target], test["domain"]
+        aucs = metrics.per_domain_auc(y, pred, dom)
+        overall = metrics.auc(y, pred)
+        print(f"cli [{card}]: test AUC {overall:.6f}, per domain "
+              + ", ".join(f"{k}: {v:.6f}" for k, v in aucs.items()),
+              flush=True)
+        check(pred.shape == (len(y),) and bool(np.all(np.isfinite(pred)))
+              and bool(np.all((pred > 0) & (pred < 1))),
+              "the CLI's test predictions are not finite in (0, 1)")
+        check(overall > 0.5 and len(aucs) == 3 and round(overall, 4) == auc,
+              f"the CLI's test AUC {overall} (per domain {aucs})")
+        with open(os.path.join(args.results_dir,
+                               "synthetic_results.csv")) as f:
+            row = f.read().splitlines()
+        check(len(row) == 1 and config in row[0]
+              and len(row[0].split(",")) == 6,
+              f"the results CSV holds {row}")
+        stats = np.load(os.path.join(args.results_dir, "attn_stats.npy"),
+                        allow_pickle=True)
+        check(stats.shape == (LAYERS, 3), f"attn_stats of shape "
+                                          f"{stats.shape}")
+        inst = sorted(p for p in os.listdir(args.results_dir)
+                      if p.startswith("inst_attn_"))
+        check(inst == ["inst_attn_1.txt", "inst_attn_2.txt",
+                       "inst_attn_3.txt"], f"instattn files {inst}")
+
+        layout = cli.feature_layout(args, sparse, dense, var, data_max, topk)
+        nums = [max(len(np.unique(train["domain"])), data_max["domain"])]
+        model = cli.build_model(args, layout, ["domain"], nums, args.flag,
+                                device=dev)
+        pred_serv = serving.load(ckpt, model, batch_size=PROBE_BATCH,
+                                 device=dev)
+        test_x = {k: test[k] for k in sparse}
+        zero_counts()
+        served = pred_serv(test_x)
+        counts = dict(zip(K1_NAMES, k1_counts()))
+        diff = float(np.abs(served - pred).max())
+        print(f"cli [{card}]: serving.load of the checkpoint: launches "
+              f"{counts}; max |served - _testpred.pkl| = {diff:.3e}, "
+              f"bit-identical: {np.array_equal(served, pred)}", flush=True)
+        check(counts["meta_block_fwd"] == LAYERS * test_batches
+              and sum(counts.values()) == counts["meta_block_fwd"],
+              f"serving.load's Predictor launched {counts}")
+        check(np.array_equal(served, pred), f"the served predictions differ "
+              f"from the dumped ones by up to {diff}")
+        paths["cli_serving_load"] = counts
+        del model, pred_serv
+
+        t0 = time.perf_counter()
+        auc2 = cli.main(argv + ["--finetune", "True"])
+        wall2 = time.perf_counter() - t0
+        with open(os.path.join(args.results_dir,
+                               "synthetic_results.csv")) as f:
+            rows = f.read().splitlines()
+        print(f"cli [{card}]: --finetune True from the checkpoint: "
+              f"{wall2:.2f}s, test AUC {auc2}", flush=True)
+        check(len(rows) == 2 and np.isfinite(auc2),
+              f"the finetune run wrote {rows}")
+    gc.collect()
+    torch.cuda.empty_cache()
+    return paths
+
+
+def probes_and_cli_phase(dev, card):
+    """Phase 12: K1-scores, the probes and the CLI.  Returns the K1-scores
+    fields, its launches by path, and the other K1 bodies' launches by
+    path and kernel on the CLI's paths."""
+    t0 = time.perf_counter()
+    fields = scores_kernel_phase(dev)
+    scores_paths = probe_phase(dev, card)
+    cli = cli_phase(dev, card)
+    scores_paths["cli"] = cli["cli"]["meta_block_fwd_scores"]
+    k1_paths = {p: {k: n[k] for k in K1_NAMES} for p, n in cli.items()}
+    print(f"phase 12: {time.perf_counter() - t0:.2f}s", flush=True)
+    return fields, scores_paths, k1_paths
+
+
 def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -2305,6 +2702,7 @@ def main() -> int:
     ppaths = pos_paths_phase(dev, card)
     kt = tiled_kernel_phase(dev)
     mpaths = multicol_paths_phase(dev, card)
+    ks, scores_paths, cli_paths = probes_and_cli_phase(dev, card)
 
     # launches, each path counted from 0 just before it: serving and the
     # evaluation run K1-fwd only; the dense recompute arm K1-fwd and
@@ -2315,7 +2713,7 @@ def main() -> int:
                  ("train_stash", trained["stash"]),
                  ("train_recompute", trained["recompute"]),
                  ("evaluate", trained["eval"]))},
-             **sparse, **ppaths}
+             **sparse, **ppaths, **cli_paths}
     kernels = []
     for name, source, replaces, fields in (
             ("meta_block_fwd", "meta_block_fwd.cu", "404", k["fwd"]),
@@ -2340,6 +2738,15 @@ def main() -> int:
             replaces=f"satrans_tpu/ops/pallas/meta_block.py:{replaces}",
             launches=sum(by_path.values()), launches_by_path=by_path,
             library_ms=None, **merged))
+    # K1-scores runs on the probe paths of phase 12 and in the CLI
+    kernels.append(dict(
+        name="meta_block_fwd_scores", route="cuda",
+        source="satrans_torch/csrc/meta_block_fwd.cu",
+        replaces="satrans_tpu/ops/pallas/meta_block.py:502 "
+                 "(fused_meta_layer_with_scores; _fwd_call :1177, "
+                 "pallas_call :1212, _fwd_kernel_stash :420)",
+        launches=sum(scores_paths.values()), launches_by_path=scores_paths,
+        library_ms=None, **ks))
     # the row kernels run on the sparse training paths (phase 7 arms and
     # the phase 9 and 10 lazy arms)
     for name, source, replaces in (

@@ -29,11 +29,18 @@ constexpr float kLogitClamp = 60.f;  // the Pallas kernels' _clip_logits
 // K1's residual stash (meta_block_fwd.cu, meta_block_bwd.cu): none (K1-fwd,
 // K1-bwd), the full stash qkv, uq, uk, s and o (K1-stash, K1-bwd-stash),
 // or the light one without the probabilities s (K1-stash light, K1-bwd-
-// stash light).
-enum StashMode : int { kNoStash = 0, kFullStash = 1, kLightStash = 2 };
+// stash light).  kScores (K1-scores, forward only: the attention probes)
+// writes the probabilities s and none of the other residuals.
+enum StashMode : int {
+  kNoStash = 0,
+  kFullStash = 1,
+  kLightStash = 2,
+  kScores = 3
+};
 
 // Whether the residual pointers fit the stash mode: all null without a
-// stash, all set in the full one, all but s (null) in the light one.
+// stash, all set in the full one, all but s (null) in the light one, s
+// alone under kScores.
 inline bool stash_pointers_ok(int mode, const void* qkv, const void* uq,
                               const void* uk, const void* s, const void* o) {
   const bool rest = qkv && uq && uk && o;
@@ -44,6 +51,8 @@ inline bool stash_pointers_ok(int mode, const void* qkv, const void* uq,
       return rest && s;
     case kLightStash:
       return rest && !s;
+    case kScores:
+      return s && !(qkv || uq || uk || o);
   }
   return false;
 }

@@ -634,7 +634,8 @@ extern "C" int satrans_meta_block_bwd_max_domains() { return kMaxDomains; }
 // stash selects the body (enum StashMode), as the forward's did: K1-bwd
 // with every residual pointer null, recomputing them; K1-bwd-stash
 // reading the residuals qkv, uq, uk, s and o that K1-stash wrote; or
-// K1-bwd-stash light reading those of K1-stash light, s null.  drop_on
+// K1-bwd-stash light reading those of K1-stash light, s null (K1-scores
+// has no backward: kScores is refused).  drop_on
 // selects the dropout, with the operands of struct Dropout
 // (csrc/dropout.cuh), the same as the forward's.
 extern "C" int satrans_meta_block_bwd(
@@ -648,7 +649,8 @@ extern "C" int satrans_meta_block_bwd(
     int d, int h, int heads, int D, int apply_q, int apply_k, int relu_out,
     int blocks, int drop_on, unsigned seed, unsigned threshold, float scale,
     int block_b, int fpad, int group, void* stream) {
-  if (B < 1 || F < 1 || F > kMaxFields || D < 1 || blocks < 1)
+  if (B < 1 || F < 1 || F > kMaxFields || D < 1 || blocks < 1 ||
+      stash == kScores)
     return static_cast<int>(cudaErrorInvalidValue);
   if (drop_on && (block_b < 1 || fpad < F || group < 1))
     return static_cast<int>(cudaErrorInvalidValue);
@@ -692,7 +694,7 @@ extern "C" int satrans_tiled_meta_bwd(
     float scale, int block_b, int fpad, int group, void* stream) {
   if (n_slots < 1 || F < 1 || F > kMaxFields || T < 1 || blocks < 1 ||
       tile_b < kTile || tile_b % kTile || n_slots != T * tile_b ||
-      stash == kLightStash)
+      stash == kLightStash || stash == kScores)
     return static_cast<int>(cudaErrorInvalidValue);
   if (drop_on && (block_b < 1 || fpad < F || group < 1))
     return static_cast<int>(cudaErrorInvalidValue);

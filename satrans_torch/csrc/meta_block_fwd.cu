@@ -7,7 +7,12 @@
 // _fwd_kernel_stash (:420), which also writes the residuals its backward
 // reads, in its full mode (stash_s=True; K1-stash, kFullStash) and its
 // light mode (stash_s=False; K1-stash light, kLightStash, the JAX
-// package's bwd='stash_light').  Per example e with domain row dm =
+// package's bwd='stash_light').  The same body in mode kScores is
+// K1-scores, which replaces fused_meta_layer_with_scores (:502, the
+// showattn / instattn probes: _fused_stash_forward :542 -> _fwd_call ->
+// _fwd_kernel_stash with stash_s=True, whose [H, B/g, g F, g F] packed
+// probabilities are unpacked per example outside the kernel): it writes y
+// and P and no other residual.  Per example e with domain row dm =
 // dom[e] and dropout masks m (all ones without dropout):
 //
 //   q0|k0|v0 = x @ [Wq|Wk|Wv]
@@ -20,8 +25,10 @@
 // per-example layout (not the TPU's [H, B/g, n, n] packing), qkv [B, F, 3d],
 // uq and uk [B, F, d], the probabilities P [B, H, F, F] BEFORE dropout and
 // o [B, F, d]; K1-stash light writes all but P, which its backward
-// recomputes from uq and uk.  The masks come from csrc/dropout.cuh,
-// computed inline per element.
+// recomputes from uq and uk; K1-scores writes P alone, per example and cut
+// to the real F (the JAX function's [B, H, F, F] return), by the same
+// code as K1-stash, so the two P are equal bit for bit.  The masks come
+// from csrc/dropout.cuh, computed inline per element.
 //
 // The logits are clamped to [-60, 60] before the softmax, as the Pallas
 // kernel's _clip_logits does (meta_block.py:61-69), and the softmax then
@@ -43,7 +50,8 @@
 // bound by float32 FMA throughput (no tensor cores in this version), not
 // by device memory.  K1-stash adds 20.4 kB of residual writes an example
 // (the probabilities 5.8 kB of it), which at 3.35 TB/s take about as long
-// as the arithmetic at the float32 peak; K1-stash light 14.6 kB.  The
+// as the arithmetic at the float32 peak; K1-stash light 14.6 kB, K1-scores
+// 5.8 kB.  The
 // design therefore keeps every intermediate of an example on chip, in one
 // warp's slice of shared memory, and feeds the FMA units from registers:
 // one warp owns one example, each small GEMM gives a lane a 4-column x
@@ -98,7 +106,7 @@ struct Smem {
 };
 
 // The residuals, per example (unused under kNoStash; s only under
-// kFullStash).
+// kFullStash and kScores, which writes nothing else).
 struct Stash {
   float *qkv, *uq, *uk, *s, *o;
 };
@@ -122,7 +130,9 @@ meta_block_fwd_kernel(const float* __restrict__ x, const int* __restrict__ dom,
   using TD = Tile<DM, kGroup>;
   using TH = Tile<HID, kGroup>;
   constexpr int DH = DM / NH;
-  constexpr bool STASH = MODE != kNoStash;
+  // the residuals qkv, uq, uk and o; the probabilities s
+  constexpr bool STASH = MODE == kFullStash || MODE == kLightStash;
+  constexpr bool STASH_S = MODE == kFullStash || MODE == kScores;
   static_assert(DM % NH == 0 && DH % 4 == 0, "head width must be 4k");
 
   extern __shared__ float4 smem4[];
@@ -227,12 +237,11 @@ meta_block_fwd_kernel(const float* __restrict__ x, const int* __restrict__ dom,
   }
 
   // 4. Attention (csrc/layer_common.cuh).  The output goes to scratch
-  //    columns [0, DM); both stashes also write it, K1-stash P before
-  //    dropout.
-  attention_fwd<DM, NH, kGroup, STASH, MODE == kFullStash>(
+  //    columns [0, DM); both stashes also write it, K1-stash and K1-scores
+  //    P before dropout.
+  attention_fwd<DM, NH, kGroup, STASH, STASH_S>(
       sq, S::QS, sh, S::HS,
-      MODE == kFullStash ? st.s + static_cast<size_t>(e) * NH * F * F
-                         : nullptr,
+      STASH_S ? st.s + static_cast<size_t>(e) * NH * F * F : nullptr,
       STASH ? st.o + erow * DM : nullptr, F, lane, drop, ed, salt.s);
   __syncwarp();
 
@@ -294,8 +303,9 @@ cudaError_t launch(const float* x, const int* dom, const float* wqkv,
 // Shapes (d, h, heads) instantiated here; ops/meta_block.py keeps the same
 // list in KERNEL_SHAPES.  stash selects the body (enum StashMode): K1-fwd
 // with every residual pointer null, K1-stash writing the five residuals
-// (each float32 as described above), or K1-stash light writing all but s,
-// which must be null.  drop_on selects the dropout, with the operands of
+// (each float32 as described above), K1-stash light writing all but s,
+// which must be null, or K1-scores writing s [B, heads, F, F] alone (the
+// other four null).  drop_on selects the dropout, with the operands of
 // struct Dropout (csrc/dropout.cuh).  Returns a cudaError_t.
 extern "C" int satrans_meta_block_fwd(
     const float* x, const int* dom, const float* wqkv, const float* w1q,
@@ -323,6 +333,7 @@ extern "C" int satrans_meta_block_fwd(
     };
     return static_cast<int>(stash == kFullStash    ? run(Mode<kFullStash>{})
                             : stash == kLightStash ? run(Mode<kLightStash>{})
+                            : stash == kScores     ? run(Mode<kScores>{})
                                                    : run(Mode<kNoStash>{}));
   }
   return static_cast<int>(cudaErrorInvalidValue);
@@ -331,7 +342,8 @@ extern "C" int satrans_meta_block_fwd(
 // K7-fwd and K7-stash: the layer on n_slots = T * tile_b dispatched slots
 // whose tile t reads row t of the per-tile weights w1q, w1k [T, d, h] and
 // w2q, w2k [T, h, d].  stash is kNoStash (every residual pointer null) or
-// kFullStash (all five set, as K1-stash's); the light stash is refused.
+// kFullStash (all five set, as K1-stash's); the light stash and the
+// scores are refused.
 // The other operands and the dropout are K1's, with drop's block_b the
 // dispatch tile.  Returns a cudaError_t.
 extern "C" int satrans_tiled_meta_fwd(
@@ -343,7 +355,7 @@ extern "C" int satrans_tiled_meta_fwd(
     int relu_out, int drop_on, unsigned seed, unsigned threshold,
     float scale, int block_b, int fpad, int group, void* stream) {
   if (n_slots < 0 || F < 1 || F > kMaxFields || T < 1 || tile_b < 1 ||
-      n_slots != T * tile_b || stash == kLightStash)
+      n_slots != T * tile_b || stash == kLightStash || stash == kScores)
     return static_cast<int>(cudaErrorInvalidValue);
   if (drop_on && (block_b < 1 || fpad < F || group < 1))
     return static_cast<int>(cudaErrorInvalidValue);

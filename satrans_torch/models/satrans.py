@@ -50,6 +50,22 @@ dispatch tile ``(SATRANS_BLOCK_B_COMPOSITE, 16)`` divides the batch, the
 JAX package takes its XLA path; so does the port outside dropout
 training: the plain composite layer without the clamp.
 
+``forward(..., return_scores=True)`` also returns each layer's attention
+probabilities ``[B, H, F, F]`` (before dropout), for the showattn and
+instattn probes (``train/attention_probe.py``); it is forward only.  The
+routing is the JAX package's (satrans.py:381-395) but for its default: the
+metanet variant on a table that is not tiled (one column, or a composite
+of 8 rows or fewer) takes K1-scores
+(:func:`satrans_torch.ops.meta_block.fused_meta_layer_with_scores`,
+logits clamped), everything else - gate, bilinear, a tiled composite
+(the JAX package has no score-returning K6 or K7), ``use_kernel=False``,
+and ``SATRANS_PROBE_FUSED=0`` - the plain layer without the clamp on the
+whole batch (the JAX package's XLA route).  The JAX package defaults to
+its XLA route (``SATRANS_PROBE_FUSED`` defaults to ``"0"`` there, a
+choice measured on a TPU); the port's rule is that no card path runs the
+plain version, so on CUDA the metanet probes take K1-scores unless the
+caller sets ``SATRANS_PROBE_FUSED=0`` (a documented deviation).
+
 In training each layer applies dropout at ``dropout_rate`` with its own
 int32 seed (``forward``'s ``seeds``; by default those the JAX package
 draws from ``PRNGKey(0)``, ``ops/threefry.py``), on tiles of ``block_b``
@@ -284,12 +300,14 @@ class SATrans(nn.Module):
                 return cand
         return None
 
-    def forward(self, batch, feed=None, seeds=None) -> torch.Tensor:
+    def forward(self, batch, feed=None, seeds=None,
+                return_scores: bool = False):
         """``batch``: typed tensors on the model's device (``sparse``
         ``[B, S]``, optional ``dense`` and ``varlen``).  With ``feed`` (an
         ``embeddings.BankRowFeed``) the large-bank rows come from it.
         ``seeds``: one int32 dropout seed per layer (``None``: the JAX
-        package's default, :attr:`default_seeds`).  Returns ``[B]``."""
+        package's default, :attr:`default_seeds`).  Returns ``[B]``; with
+        ``return_scores`` ``(pred, [scores [B, H, F, F] per layer])``."""
         x = embeddings.embed_fields(self.emb if feed is None else feed,
                                     self.layout, batch)
         if len(self.domain_cols) > 1:
@@ -307,6 +325,8 @@ class SATrans(nn.Module):
                 "ROADMAP queue 2 item 'dropout at a batch no tile divides'")
         if seeds is None:
             seeds = self.default_seeds
+        if return_scores:
+            return self._scores_forward(x, dom, blk, batch, seeds)
         if self.tiled and blk is not None:
             return self._tiled_forward(x, dom, blk, batch, seeds)
         simple = self.variant != "metanet"
@@ -338,10 +358,49 @@ class SATrans(nn.Module):
                     masks=meta_block.layer_masks(
                         x, head_num=self.att_head_num, mode=self.meta_mode,
                         **drop), clamp=False)
+        return self._head(x, batch)
+
+    def _head(self, x, batch) -> torch.Tensor:
+        """The prediction from the last layer's output ``[B, F, d]``."""
         flat = x.reshape(x.shape[0], -1)
         if self.layout.dense_dim > 0 and "dense" in batch:
             flat = torch.cat([flat, batch["dense"]], dim=1)
         return core.prediction(self.head(flat), self.task)[:, 0]
+
+    def _scores_forward(self, x, dom, blk, batch, seeds):
+        """The probes' forward (satrans.py:381-395, :460-468, :484-519):
+        ``(pred, [scores per layer])``.  K1-scores for the metanet variant
+        on an untiled table unless ``use_kernel=False`` or
+        ``SATRANS_PROBE_FUSED=0``; else the plain layer without the clamp
+        on the whole batch."""
+        fused = (self.use_kernel and self.variant == "metanet"
+                 and not self.tiled
+                 and os.environ.get("SATRANS_PROBE_FUSED", "1") != "0")
+        scores = []
+        for layer, seed, tables in zip(self.layers, seeds,
+                                       self.meta_tables(), strict=True):
+            kw = dict(head_num=self.att_head_num, mode=self.meta_mode,
+                      relu_out=self.relu_out)
+            drop = dict(train=self.training, drop_rate=self.dropout_rate,
+                        seed=int(seed), block_b=blk or self.fused_block_b)
+            if fused:
+                x, s = meta_block.fused_meta_layer_with_scores(
+                    x, layer, tables, dom, meta_units=self.meta_units, **kw,
+                    **drop)
+            else:
+                res = {}
+                masks = (meta_block.layer_masks(x, mode=self.meta_mode,
+                                                head_num=self.att_head_num,
+                                                **drop)
+                         if self.variant == "metanet" else
+                         gate_block.layer_masks(x, head_num=self.att_head_num,
+                                                **drop))
+                x = attention.meta_transformer_apply(
+                    layer, x, tables, self.meta_units, **kw,
+                    domain_ids=dom, masks=masks, residuals=res, clamp=False)
+                s = res["s"]
+            scores.append(s)
+        return self._head(x, batch), scores
 
     def _tiled_forward(self, x, dom, blk, batch, seeds) -> torch.Tensor:
         """The composite metanet on dispatched tiles of ``blk`` slots

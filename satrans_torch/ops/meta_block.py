@@ -4,7 +4,9 @@ backward's residuals; K1-stash light, which writes all of them but the
 attention probabilities) and ``csrc/meta_block_bwd.cu`` (K1-bwd, which
 recomputes the forward; K1-bwd-stash, which reads the residuals;
 K1-bwd-stash light, which reads the light ones and recomputes the
-probabilities), twins of ``satrans_tpu/ops/pallas/meta_block.py``.
+probabilities; K1-scores, which writes the output and the attention
+probabilities alone, for the probes), twins of
+``satrans_tpu/ops/pallas/meta_block.py``.
 
 * :func:`fused_meta_layer` - the wrapper.  On a CUDA tensor it launches
   the kernels or raises: with a gradient needed, ``bwd='stash'`` (the
@@ -15,6 +17,10 @@ probabilities), twins of ``satrans_tpu/ops/pallas/meta_block.py``.
   (K1-fwd forward, K1-bwd backward); without, K1-fwd, which never
   stashes.  On a CPU tensor it runs :func:`meta_layer_reference` with the
   same dropout masks, and autograd differentiates that.
+* :func:`fused_meta_layer_with_scores` - the layer's output and its
+  attention probabilities ``[B, H, F, F]``, forward only (the showattn and
+  instattn probes, ``train/attention_probe.py``): K1-scores on a CUDA
+  tensor, the plain version's clamped probabilities on a CPU tensor.
 * :func:`meta_layer_reference` - the plain PyTorch version on the same
   operands (each example's own MetaNet weights, gathered by domain); its
   autograd backward is the plain version of the three backward kernels,
@@ -25,8 +31,8 @@ probabilities), twins of ``satrans_tpu/ops/pallas/meta_block.py``.
   interpret-mode masks for the layer's ``seed`` and tile ``block_b``.
 * :func:`launch_fwd` / :func:`launch_bwd` - the kernel launches on packed
   operands (:func:`pack_operands`); ``launches`` / ``stash_launches`` /
-  ``stash_light_launches`` / ``bwd_launches`` / ``stash_bwd_launches`` /
-  ``stash_light_bwd_launches`` count them.
+  ``stash_light_launches`` / ``scores_launches`` / ``bwd_launches`` /
+  ``stash_bwd_launches`` / ``stash_light_bwd_launches`` count them.
 
 The packing of the operands (``wqkv``, the per-domain ``[D, d, h]`` and
 ``[D, h, d]`` MetaNet weights sliced out of the ``[D, P]`` tables, the
@@ -60,15 +66,17 @@ KERNEL_MAX_FIELDS = 20
 BWD_BLOCKS_PER_SM = 2
 
 BWD_MODES = ("stash", "stash_light", "recompute")
-# the residuals of each stash, in the kernels' argument order, and the C
-# entries' stash argument (enum StashMode, csrc/layer_common.cuh)
+# the residuals of each stash ('scores': K1-scores' probabilities), in the
+# kernels' argument order, and the C entries' stash argument (enum
+# StashMode, csrc/layer_common.cuh)
 STASH_RESIDUALS = {"full": ("qkv", "uq", "uk", "s", "o"),
-                   "light": ("qkv", "uq", "uk", "o")}
-_STASH_MODE = {None: 0, "full": 1, "light": 2}
+                   "light": ("qkv", "uq", "uk", "o"), "scores": ("s",)}
+_STASH_MODE = {None: 0, "full": 1, "light": 2, "scores": 3}
 
 launches = 0                  # K1-fwd
 stash_launches = 0            # K1-stash
 stash_light_launches = 0      # K1-stash light
+scores_launches = 0           # K1-scores
 bwd_launches = 0              # K1-bwd
 stash_bwd_launches = 0        # K1-bwd-stash
 stash_light_bwd_launches = 0  # K1-bwd-stash light
@@ -186,8 +194,9 @@ def launch_fwd(x, dom, wqkv, w1q, w2q, lnq, w1k, w2k, lnk, wout, lno, cfg,
                drop, stash: str | None = None):
     """K1-fwd: the layer's output for packed operands; with
     ``stash='full'`` K1-stash: ``(y, qkv, uq, uk, s, o)``; with
-    ``stash='light'`` K1-stash light: ``(y, qkv, uq, uk, o)``.  ``drop``
-    is ``prng.kernel_args(...)``."""
+    ``stash='light'`` K1-stash light: ``(y, qkv, uq, uk, o)``; with
+    ``stash='scores'`` K1-scores: ``(y, s)``.  ``drop`` is
+    ``prng.kernel_args(...)``."""
     h, heads, apply_q, apply_k, relu_out = cfg
     B, F, d = x.shape
     ops = (x, dom, wqkv, w1q, w2q, lnq, w1k, w2k, lnk, wout, lno)
@@ -206,14 +215,16 @@ def launch_fwd(x, dom, wqkv, w1q, w2q, lnq, w1k, w2k, lnk, wout, lno, cfg,
              stream_of(x))
     if err:
         raise RuntimeError(f"meta_block_fwd launch failed: CUDA error {err}")
-    global launches, stash_launches, stash_light_launches
+    global launches, stash_launches, stash_light_launches, scores_launches
     if stash is None:
         launches += 1
         return y
     if stash == "full":
         stash_launches += 1
-    else:
+    elif stash == "light":
         stash_light_launches += 1
+    else:
+        scores_launches += 1
     return (y,) + res
 
 
@@ -441,3 +452,40 @@ def fused_meta_layer(x, layer: MetaTransformerLayer, tables, dom, *,
     if not grad:  # eval, serving: never stash (meta_block.py:1314-1319)
         return launch_fwd(*ops, cfg, drop)
     return _LAYER_FNS[bwd].apply(*ops, cfg, drop)
+
+
+def fused_meta_layer_with_scores(x, layer: MetaTransformerLayer, tables, dom,
+                                 *, meta_units: Sequence[int], head_num: int,
+                                 mode: str = "QK", relu_out: bool = False,
+                                 train: bool = False, drop_rate: float = 0.0,
+                                 seed: int = 0, block_b: int = 128):
+    """The layer's output and its attention probabilities: ``(y, scores)``,
+    ``scores`` ``[B, H, F, F]`` float32 before dropout, the logits clamped
+    to [-60, 60] (the JAX ``fused_meta_layer_with_scores``, meta_block.py:
+    502, which returns the stash forward's probabilities per example and
+    cut to the real F).  Operands as :func:`fused_meta_layer`'s.  On a CUDA
+    tensor K1-scores (one launch); on a CPU tensor
+    :func:`meta_layer_reference`'s ``s`` residual.  Forward only, as the
+    JAX function: it raises where autograd would need a gradient through
+    it (call it under ``torch.no_grad()``)."""
+    if needs_grad(x, layer, tables):
+        raise RuntimeError(
+            "fused_meta_layer_with_scores is forward only (the probes' "
+            "path, as the JAX package's): call it under torch.no_grad()")
+    check_stash_dtype()
+    if x.device.type == "cpu":
+        masks = layer_masks(x, head_num=head_num, mode=mode, train=train,
+                            drop_rate=drop_rate, seed=seed, block_b=block_b)
+        res = {}
+        y = meta_layer_reference(x, layer, tables, dom,
+                                 meta_units=meta_units, head_num=head_num,
+                                 mode=mode, relu_out=relu_out, masks=masks,
+                                 residuals=res)
+        return y, res["s"]
+    if x.device.type != "cuda":
+        raise ValueError(f"no meta_block kernel for device {x.device}")
+    _check(x, meta_units, head_num, tables, False)
+    ops, cfg = pack_operands(x, layer, tables, dom, meta_units=meta_units,
+                             head_num=head_num, mode=mode, relu_out=relu_out)
+    drop = prng.kernel_args(train, drop_rate, seed, block_b, x.shape[1])
+    return launch_fwd(*ops, cfg, drop, stash="scores")

@@ -3,7 +3,10 @@
 :class:`Predictor` scores a feature dict with a frozen model: a fixed
 batch size, the tail padded with zero rows, float64 scores out.  Batches
 are staged and run without a synchronisation per batch; the one copy back
-to the host at the end waits for the device.
+to the host at the end waits for the device.  :meth:`Predictor.
+from_trainer` serves a trainer's model; :func:`save` writes a trainer's
+checkpoint (``train/checkpoint.py``) and :func:`load` rebuilds a Predictor
+from one and a model of the same configuration.
 """
 
 from __future__ import annotations
@@ -21,6 +24,12 @@ class Predictor:
         self.model = model.to(self.device).eval()
         self.layout = model.layout
         self.batch_size = int(batch_size)
+
+    @classmethod
+    def from_trainer(cls, trainer, *, batch_size: int = 4096) -> "Predictor":
+        """A Predictor of ``trainer``'s model on its device."""
+        return cls(trainer.model, batch_size=batch_size,
+                   device=trainer.device)
 
     def _stage(self, data: dict, start: int, end: int) -> dict:
         """Pad one batch to ``batch_size`` rows and copy it to the device."""
@@ -65,3 +74,23 @@ class Predictor:
                     for s, e in spans]
             scores = torch.cat(outs).cpu()
         return scores.numpy().astype("float64")
+
+
+def save(path: str, trainer) -> None:
+    """Persist a trainer's parameters and state for serving
+    (``train/checkpoint.save``)."""
+    from .train import checkpoint
+    checkpoint.save(path, trainer)
+
+
+def load(path: str, model: torch.nn.Module, *, batch_size: int = 4096,
+         device="cuda") -> Predictor:
+    """Rebuild a Predictor from a checkpoint and a model of the same
+    configuration: the checkpoint's parameters are loaded into ``model``
+    (its optimizer state, which serving does not need, is not read, so a
+    checkpoint of any bank mode loads)."""
+    from .train import checkpoint
+    dev = resolve_device(device)
+    model = model.to(dev)
+    model.load_state_dict(checkpoint.read(path, dev)["params"])
+    return Predictor(model, batch_size=batch_size, device=dev)

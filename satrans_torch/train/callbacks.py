@@ -1,7 +1,7 @@
 """Keras-style callbacks (twin of ``satrans_tpu/train/callbacks.py``): the
-lifecycle hooks, ``History`` and ``EarlyStopping``.  ``ModelCheckpoint``
-comes with ``train/checkpoint.py`` (ROADMAP queue 1 item
-'train/checkpoint.py')."""
+lifecycle hooks, ``History``, ``EarlyStopping`` and ``TestCrashProbe``
+(the CLI's ``test`` flag).  ``ModelCheckpoint`` is ROADMAP queue 1 item
+'remaining Trainer surface'."""
 
 from __future__ import annotations
 
@@ -73,3 +73,20 @@ class EarlyStopping(Callback):
             self.wait += 1
             if self.wait > self.patience:
                 self.trainer.stop_training = True
+
+
+class TestCrashProbe(Callback):
+    """The reference's ``'test' in flag`` probe: print the loss after a few
+    steps then abort (meta_basemodel.py:321-323) - a quick end-to-end smoke
+    of the step without a full epoch."""
+
+    def __init__(self, after_steps: int = 5):
+        self.after_steps = after_steps
+        self.count = 0
+
+    def on_batch_end(self, step, logs=None):
+        self.count += 1
+        if self.count >= self.after_steps:
+            loss = (logs or {}).get("loss")
+            print(f"\ntest out: {None if loss is None else float(loss)}")
+            raise AssertionError("test probe abort (flag 'test')")

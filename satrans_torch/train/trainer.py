@@ -30,22 +30,29 @@ with zero rows of weight 0: with sum-reduced losses that is the
 reference's smaller tail batch.  Step statistics stay on the device and
 reach the host once per epoch (and at a verbose print).
 
+``fit(checkpoint_path=, checkpoint_every=, resume=)`` saves a checkpoint
+(``train/checkpoint.py``) every ``checkpoint_every`` steps and, with
+``resume``, restores the one at ``checkpoint_path`` first if it exists
+(trainer.py:587-595, :671-674).
+
 What the JAX Trainer also offers raises ``NotImplementedError`` naming its
-ROADMAP item: a mesh, ``lazy_stale``, checkpoints, streaming
-``fit_from_iterator``, ``evaluate_domains`` and optimizers other than
-Adam.  ``scan_steps > 1`` (the JAX package's multi-step XLA program) runs
-the same single steps one after another.
+ROADMAP item: a mesh, ``lazy_stale``, streaming ``fit_from_iterator``,
+``evaluate_domains`` and optimizers other than Adam.  ``scan_steps > 1``
+(the JAX package's multi-step XLA program) runs the same single steps one
+after another.
 """
 
 from __future__ import annotations
 
+import os
 import time
 from typing import Sequence
 
 import numpy as np
 import torch
 
-from . import bank_optimizer, callbacks as cb, losses, metrics as metrics_lib
+from . import bank_optimizer, callbacks as cb, checkpoint as ckpt_lib, \
+    losses, metrics as metrics_lib
 from ..ops import threefry
 from ..utils import resolve_device
 
@@ -219,12 +226,17 @@ class Trainer:
             checkpoint_path: str | None = None,
             checkpoint_every: int | None = None, resume: bool = False):
         """Train; mirrors the reference fit (meta_basemodel.py:200-385).
-        ``x``: {feature name: numpy column}; ``y``: numpy labels."""
-        if checkpoint_path is not None or checkpoint_every or resume:
-            raise NotImplementedError(
-                "checkpoints are ROADMAP queue 1 item 'train/checkpoint.py'")
+        ``x``: {feature name: numpy column}; ``y``: numpy labels.  With
+        ``resume`` and an existing ``checkpoint_path`` the trainer is
+        restored from it first; with ``checkpoint_every`` a checkpoint is
+        written there every that many steps."""
         if self.optimizer is None:
             raise RuntimeError("call compile() before fit()")
+        if resume and checkpoint_path is not None and \
+                os.path.exists(checkpoint_path):
+            ckpt_lib.restore(checkpoint_path, self)
+            if verbose:
+                print(f"resumed from {checkpoint_path}")
         data = self.layout.batch_from_dict(x)
         labels = np.asarray(y, dtype=np.float32).reshape(-1)
         n = len(labels)
@@ -273,6 +285,9 @@ class Trainer:
                           f"reg {float(stats['reg_loss']) / denom:.6f}",
                           end="", flush=True)
                 callback_list.on_batch_end(step, {"loss": stats["loss"]})
+                if checkpoint_path is not None and checkpoint_every and \
+                        step % checkpoint_every == 0:
+                    ckpt_lib.save(checkpoint_path, self)
                 if (validation_data is not None and valid_cnt_per_epoch > 1
                         and step % steps_to_valid < every):
                     r = self.evaluate(*validation_data,

@@ -1,6 +1,8 @@
 """The port's CUDA kernels against their plain PyTorch versions on the card:
 the layer forward (K1-fwd) and both stash forwards (K1-stash and K1-stash
-light, with their residuals) against ``meta_layer_reference``, the three
+light, with their residuals) against ``meta_layer_reference``; K1-scores
+(the probes' forward) against it in float64 and bit for bit against
+K1-stash's probabilities; the three
 layer backwards (K1-bwd, K1-bwd-stash and K1-bwd-stash light) against
 autograd of it, each without and with dropout (the same masks on both
 sides), with logits past the clamp and, as the 'pos' model has them, with
@@ -150,6 +152,75 @@ def test_stash_kernel_residuals_match_plain_version(card, mode, relu_out,
     for name, g, w in zip(("y", *names), got,
                           (y, *(res[k] for k in names))):
         torch.testing.assert_close(g, w, rtol=1e-4, atol=1e-4, msg=name)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B", [8192, 32768])
+@pytest.mark.parametrize("F", [15, 19])
+@pytest.mark.parametrize("pos", [False, True])
+@pytest.mark.parametrize("mode,relu_out", MODES)
+def test_scores_kernel_matches_float64_plain_version(card, mode, relu_out,
+                                                     pos, F, B):
+    """K1-scores at the probes' batches (the CLI's test batch is 32,768)
+    and the AliCCP and Alimama fields, shared or distinct ('pos') Q and K
+    tables: the output within the forward tolerance of the float64 plain
+    layer, the probabilities within 1e-6 of its clamped ones and each row
+    summing to 1 within 1e-5, one K1-scores launch and no other; the
+    probabilities equal K1-stash's ``s`` bit for bit."""
+    if pos:
+        gen, layer, tables = _pos_layer(card, 7)
+    else:
+        gen, layer, table = _layer(card, 8)
+        tables = {"Q": table, "K": table}
+    x = init.normal(gen, (B, F, 32), 1.0)
+    dom = torch.randint(0, 4, (B,), generator=gen, device=card)
+    kw = dict(meta_units=[32, 64, 32], head_num=4, mode=mode,
+              relu_out=relu_out)
+    before = _counts() + [meta_block.scores_launches]
+    with torch.no_grad():
+        y, s = meta_block.fused_meta_layer_with_scores(x, layer, tables, dom,
+                                                       **kw)
+        torch.cuda.synchronize()
+        assert [a - b for a, b in zip(
+            _counts() + [meta_block.scores_launches], before)] == \
+            [0] * 6 + [1]
+        ops, cfg = meta_block.pack_operands(x, layer, tables, dom, **kw)
+        stash = meta_block.launch_fwd(*ops, cfg, prng.kernel_args(
+            False, 0.0, 0, 128, F), stash="full")
+        res = {}
+        want = meta_block.meta_layer_reference(
+            x.double(), copy.deepcopy(layer).double(), {
+                k: t.double() for k, t in tables.items()}, dom, **kw,
+            residuals=res)
+    torch.cuda.synchronize()
+    assert s.shape == (B, 4, F, F) and s.dtype == torch.float32
+    torch.testing.assert_close(y.double(), want, rtol=1e-4, atol=1e-4)
+    err = (s.double() - res["s"]).abs().max().item()
+    assert err <= 1e-6, err
+    torch.testing.assert_close(s.sum(-1), torch.ones_like(s[..., 0]),
+                               rtol=0, atol=1e-5)
+    assert torch.equal(s, stash[4])
+
+
+@pytest.mark.cuda
+def test_scores_kernel_equals_stash_at_dropout(card):
+    """In training at dropout 0.1 with the same seed, K1-scores' ``s`` is
+    K1-stash's ``s`` (the probabilities before the attention dropout, after
+    the MetaNets' dropout) bit for bit."""
+    gen, layer, table = _layer(card, 9)
+    tables = {"Q": table, "K": table}
+    x = init.normal(gen, (8192, 19, 32), 1.0)
+    dom = torch.randint(0, 4, (8192,), generator=gen, device=card)
+    kw = dict(meta_units=[32, 64, 32], head_num=4, mode="QK")
+    drop = dict(train=True, drop_rate=0.1, seed=DROP["seed"], block_b=128)
+    with torch.no_grad():
+        y, s = meta_block.fused_meta_layer_with_scores(x, layer, tables, dom,
+                                                       **kw, **drop)
+        ops, cfg = meta_block.pack_operands(x, layer, tables, dom, **kw)
+        stash = meta_block.launch_fwd(*ops, cfg, prng.kernel_args(
+            True, 0.1, DROP["seed"], 128, 19), stash="full")
+    torch.cuda.synchronize()
+    assert torch.equal(s, stash[4]) and torch.equal(y, stash[0])
 
 
 def _kink_free(g, x, layer, tables, dom, masks, **kw):

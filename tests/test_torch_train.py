@@ -216,8 +216,7 @@ def test_early_stopping_and_history_match_jax_package():
 
 
 @pytest.mark.parametrize("what", ["dropout", "bank_update", "optimizer",
-                                  "mesh", "checkpoint", "iterator",
-                                  "evaluate_domains"])
+                                  "mesh", "iterator", "evaluate_domains"])
 def test_unported_options_raise(what):
     jm, params, tm = _models("QK")
     x, y = _data()
@@ -233,9 +232,6 @@ def test_unported_options_raise(what):
         if what == "dropout":  # at a batch that no dropout tile divides
             tm.dropout_rate = 0.1
             tr.fit(x, y, batch_size=12, verbose=0)
-        if what == "checkpoint":
-            tr.fit(x, y, batch_size=BATCH, verbose=0,
-                   checkpoint_path="ckpt")
         if what == "iterator":
             tr.fit_from_iterator(lambda epoch: [])
         if what == "evaluate_domains":
