@@ -110,6 +110,24 @@ Phases, each of which exits non-zero on failure:
    and files; ``serving.load`` of the dumped checkpoint predicting the
    run's ``_testpred.pkl`` bit for bit; a ``--finetune True`` run.
 
+13. 3-matrix MetaNets (``meta_dnn_hidden_units=(64, 64, 32)``, units
+   [32, 64, 64, 32]: the middle matrix in every K1 and K7 body): (a) every
+   K1 body against the plain layer at B=8192 (dropout 0 and 0.1) and 8190
+   (0), F=19 (QK; Query with relu_out) with one table and F=15 with
+   distinct Q and K tables, the outputs, residuals, probabilities and
+   every gradient (the tables' middle block included), each body timed
+   with its bound; the four K7 bodies at the multicol dispatch (QK at 0
+   and 0.1, Query with relu_out and distinct tables at 0.1); (b) the
+   AliCCP sota model with them: 3 requests of 20,000 (K1-fwd only, against
+   the plain path), ``lazy`` training at 0.1 under bwd='stash' for 12
+   steps and a tail (one step's gradients kernel vs plain path, launches,
+   staged step, profile), staged steps under 'stash_light' and
+   'recompute', one ``predict_with_attention`` batch of 32,768 on
+   K1-scores; (c) the multicol model with them: one request (K7-fwd),
+   ``lazy`` training under SATRANS_TILED_BWD=stash and staged steps under
+   recompute.  The JSON line lists the 3-matrix instances as
+   ``<body>_3mat``, with their launches on phase 13's paths.
+
 Phases 2 and 4 also hold K1 where a share of the attention logits passes
 the kernels' clamp at 60 against the clamped plain layer.
 
@@ -121,10 +139,12 @@ prints no result.
 
 from __future__ import annotations
 
+import copy
 import functools
 import gc
 import json
 import os
+import re
 import subprocess
 import sys
 import time
@@ -187,6 +207,10 @@ K1_NAMES = ("meta_block_fwd", "meta_block_fwd_stash", "meta_block_bwd",
 K1_PAIR = {"recompute": (1, 0, 1, 0, 0, 0), "stash": (0, 1, 0, 1, 0, 0),
            "stash_light": (0, 0, 0, 0, 1, 1)}
 NO_K1 = (0,) * len(K1_COUNTS)
+# each backward mode's K1 backward body
+K1_BWD_NAME = {"stash": "meta_block_bwd_stash",
+               "stash_light": "meta_block_bwd_stash_light",
+               "recompute": "meta_block_bwd"}
 # K7's counters in ops/tiled_meta.py, its names in the JSON line, and each
 # backward's pair a layer in K7_COUNTS order
 K7_COUNTS = ("launches", "stash_launches", "bwd_launches",
@@ -195,6 +219,12 @@ K7_NAMES = ("tiled_meta_fwd", "tiled_meta_fwd_stash", "tiled_meta_bwd",
             "tiled_meta_bwd_stash")
 K7_PAIR = {"recompute": (1, 0, 1, 0), "stash": (0, 1, 0, 1)}
 NO_K7 = (0,) * len(K7_COUNTS)
+# the MetaNet units of the kernel shapes: 2 matrices (every phase but 13)
+# and 3 matrices (phase 13: meta_dnn_hidden_units=(64, 64, 32))
+UNITS2, UNITS3 = (32, 64, 32), (32, 64, 64, 32)
+# the 3-matrix instances' names in the JSON line, by the 2-matrix body's
+K1_NAMES3 = {n: f"{n}_3mat" for n in K1_NAMES + ("meta_block_fwd_scores",)}
+K7_NAMES3 = {n: f"{n}_3mat" for n in K7_NAMES}
 # the AliCCP multicol configuration (phase 11): two scenario columns, a
 # composite table of (3 + 1) x (13 + 1) rows, dispatch tiles of 32
 MULTICOL_COLS, MULTICOL_DOMAINS = ["301", "122"], [3, 13]
@@ -252,16 +282,22 @@ def _bound(flops: float, nbytes: float):
         "operations" if t_ops >= t_bytes else "bytes"
 
 
-def _layer_flops(F, d, h, apply_q, apply_k):
+def _meta_floats(d, h, h2=0):
+    """Floats of one MetaNet: W1 [d, h], the middle [h, h2] of a 3-matrix
+    one (h2 > 0), W2 [h2 or h, d]."""
+    return d * h + h * h2 + (h2 or h) * d
+
+
+def _layer_flops(F, d, h, apply_q, apply_k, h2=0):
     """Float operations of one example's layer forward."""
     return (2 * F * d * 3 * d                       # x @ Wqkv
-            + (apply_q + apply_k) * 2 * F * 2 * d * h  # MetaNets
+            + (apply_q + apply_k) * 2 * F * _meta_floats(d, h, h2)
             + 2 * 2 * F * F * d                     # q k^T and p v
             + 2 * F * d * d)                        # o @ Wout
 
 
-def _weight_floats(d, h, meta_rows):
-    return 4 * d * d + meta_rows * 2 * d * h + 6 * d
+def _weight_floats(d, h, meta_rows, h2=0):
+    return 4 * d * d + meta_rows * _meta_floats(d, h, h2) + 6 * d
 
 
 def _residual_floats(F, d, heads, stash="full"):
@@ -274,39 +310,43 @@ def _residual_floats(F, d, heads, stash="full"):
 
 
 def meta_layer_bound_ms(B, F, d, h, heads, meta_rows, apply_q, apply_k,
-                        stash=None):
+                        stash=None, h2=0):
     """Least time for one layer forward: its float32 FMA work, and its
     bytes (x in, y out, dom and the weights read once; with ``stash``
     'full' or 'light' the residuals of K1-stash or K1-stash light
     written, with 'scores' K1-scores' probabilities).  The dropout hash's
     integer work (about 46 k operations an example, 11 us at B=8192 over
     the card's 33.5 T int32 operations a second) is under a fifth of the
-    float time and left out.  Returns (ms, bound_by)."""
-    nbytes = 4 * (2 * B * F * d + B + _weight_floats(d, h, meta_rows))
+    float time and left out.  ``h2`` is a 3-matrix MetaNet's second hidden
+    width (0: 2 matrices).  Returns (ms, bound_by)."""
+    nbytes = 4 * (2 * B * F * d + B + _weight_floats(d, h, meta_rows, h2))
     if stash:
         nbytes += 4 * B * _residual_floats(F, d, heads, stash)
-    return _bound(B * _layer_flops(F, d, h, apply_q, apply_k), nbytes)
+    return _bound(B * _layer_flops(F, d, h, apply_q, apply_k, h2), nbytes)
 
 
 def meta_layer_bwd_bound_ms(B, F, d, h, heads, meta_rows, apply_q, apply_k,
-                            stash=None):
+                            stash=None, h2=0):
     """Least time for the layer's backward: K1-bwd recomputes the forward
     (its operations); K1-bwd-stash (``stash='full'``) only the MetaNet
-    hidden layers (2Fdh an applied MetaNet) and zlin = o @ Wout (2Fd^2),
-    and reads the residuals; K1-bwd-stash light (``'light'``) also the
-    logits q k^T (2F^2 d), and reads the residuals but s.  Then dWout and
-    do (2 x 2Fd^2), the attention backward (dv, dP, dq, dk: 4 x 2F^2 d),
-    per applied MetaNet dW2, dhid, dW1 and dt0 (4 x 2Fdh), and dWqkv and dx
-    (2 x 6Fd^2).  Bytes are x, g and dom in, dx out, the weights in and
-    their gradients out, and the residuals in."""
+    hidden layers (2Fdh an applied MetaNet, and 2F h h2 more for a 3-matrix
+    one's second) and zlin = o @ Wout (2Fd^2), and reads the residuals;
+    K1-bwd-stash light (``'light'``) also the logits q k^T (2F^2 d), and
+    reads the residuals but s.  Then dWout and do (2 x 2Fd^2), the
+    attention backward (dv, dP, dq, dk: 4 x 2F^2 d), per applied MetaNet
+    dW2, dhid, dW1 and dt0 (4 x 2Fdh; a 3-matrix one also dWm and dh1, 2 x
+    2F h h2), and dWqkv and dx (2 x 6Fd^2).  Bytes are x, g and dom in, dx
+    out, the weights in and their gradients out, and the residuals in."""
     n_meta = apply_q + apply_k
-    again = (n_meta * 2 * F * d * h + 2 * F * d * d if stash
-             else _layer_flops(F, d, h, apply_q, apply_k))
+    hidden = d * h + h * h2  # the forward's products up to the last hidden
+    again = (n_meta * 2 * F * hidden + 2 * F * d * d if stash
+             else _layer_flops(F, d, h, apply_q, apply_k, h2))
     if stash == "light":
         again += 2 * F * F * d
-    backward = (4 * F * d * d + 8 * F * F * d + n_meta * 8 * F * d * h
-                + 12 * F * d * d)
-    nbytes = 4 * (3 * B * F * d + B + 2 * _weight_floats(d, h, meta_rows))
+    backward = (4 * F * d * d + 8 * F * F * d
+                + n_meta * 4 * F * _meta_floats(d, h, h2) + 12 * F * d * d)
+    nbytes = 4 * (3 * B * F * d + B
+                  + 2 * _weight_floats(d, h, meta_rows, h2))
     if stash:
         nbytes += 4 * B * _residual_floats(F, d, heads, stash)
     return _bound(B * (again + backward), nbytes)
@@ -327,9 +367,10 @@ def grad_errors(got: dict, want: dict) -> dict:
     return errs
 
 
-def test_layer(dev, seed):
+def test_layer(dev, seed, units=UNITS2):
     """The layer of phases 2 and 4 (its meta LayerNorm moved off its (1, 0)
-    init), its 4-row table and the generator after them."""
+    init), its 4-row table of MetaNets of ``units`` and the generator after
+    them."""
     from satrans_torch.nn import attention, initializers as init, metanet
     from satrans_torch.utils import make_generator
     gen = make_generator(seed, dev)
@@ -337,7 +378,7 @@ def test_layer(dev, seed):
     with torch.no_grad():
         layer.q_meta.ln.scale.add_(init.normal(gen, (32,), 0.1))
         layer.q_meta.ln.bias.add_(init.normal(gen, (32,), 0.1))
-    table = init.normal(gen, (4, metanet.param_size([32, 64, 32])), 0.1)
+    table = init.normal(gen, (4, metanet.param_size(units)), 0.1)
     return gen, layer, table
 
 
@@ -550,7 +591,7 @@ def kernel_phase(dev):
 
 def kink_free(g, x, layer, tables, dom, masks, **kw):
     """``g`` with zero rows for the examples whose relu inputs (the
-    MetaNet hidden layers, and the output projection under relu_out) lie
+    MetaNets' hidden layers, and the output projection under relu_out) lie
     within 1e-6 of 0: float32 rounding may put such an input on either
     side of the kink, where the gradient jumps, and the kernel and the
     plain version would then differ by the jump.  Returns (g, the count
@@ -562,11 +603,16 @@ def kink_free(g, x, layer, tables, dom, masks, **kw):
         meta_block.meta_layer_reference(x, layer, tables, dom, **kw,
                                         masks=masks, residuals=res)
         d = x.shape[-1]
-        pre = [torch.einsum(
-            "bfi,bio->bfo", res["qkv"][..., i * d:(i + 1) * d],
-            metanet.slice_weights(tables[p], kw["meta_units"])[0][
-                dom.long()])
-            for i, p in enumerate("QK") if p in kw["mode"]]
+        pre = []  # every hidden layer of the applied MetaNets
+        for i, p in enumerate("QK"):
+            if p not in kw["mode"]:
+                continue
+            h = res["qkv"][..., i * d:(i + 1) * d]
+            for w in metanet.slice_weights(tables[p],
+                                           kw["meta_units"])[:-1]:
+                h = torch.einsum("bfi,bio->bfo", h, w[dom.long()])
+                pre.append(h)
+                h = torch.relu(h)
         if kw["relu_out"]:
             pre.append(res["o"] @ layer.wout)
         near = torch.zeros(x.shape[0], dtype=torch.bool, device=x.device)
@@ -683,7 +729,7 @@ def backward_phase(dev):
                         del y
                         ops, cfg = meta_block.pack_operands(
                             x, layer, {"Q": table, "K": table}, dom, **kw)
-                        ops = [t.detach() for t in ops]
+                        ops = [t if t is None else t.detach() for t in ops]
                         kargs = prng.kernel_args(True, rate, DROP_SEED,
                                                  DROP_TILE, F)
                         res = meta_block.launch_fwd(*ops, cfg, kargs,
@@ -846,17 +892,17 @@ def serving_phase(dev, card):
     return launches
 
 
-def training_model(dev, bank_update, variant="metanet"):
-    """The AliCCP sota SATrans of phases 5, 7 and 9 (dropout 0.1, the
-    default N(0, 1e-4) embeddings; the layers of ``variant``) and its
-    compiled Trainer (Adam, lr 0.005)."""
+def training_model(dev, bank_update, variant="metanet", units=UNITS2):
+    """The AliCCP sota SATrans of phases 5, 7, 9 and 13 (dropout 0.1, the
+    default N(0, 1e-4) embeddings; the layers of ``variant``, MetaNets of
+    ``units``) and its compiled Trainer (Adam, lr 0.005)."""
     from satrans_torch.data import aliccp
     from satrans_torch.features import FeatureLayout
     from satrans_torch.models import SATrans
     from satrans_torch.train import Trainer
     model = SATrans(FeatureLayout(aliccp.sota_columns(32)), ["301"], [3],
                     domain_att_layer_num=LAYERS, att_head_num=4,
-                    meta_mode="QK", meta_dnn_hidden_units=(64, 32),
+                    meta_mode="QK", meta_dnn_hidden_units=units[1:],
                     dropout_rate=DROP_RATE, seed=SEED, variant=variant,
                     device=dev)
     trainer = Trainer(model, seed=SEED, device=dev)
@@ -1559,10 +1605,15 @@ def layer_counts():
     return (*k6_counts(), *k1_counts(), *k7_counts())
 
 
-def lazy_arm(card, label, model, trainer, x, y, per_step):
+def lazy_arm(card, label, model, trainer, x, y, per_step, f64=False):
     """Train ``model`` with its ``lazy`` ``trainer`` (dropout 0.1) for one
     epoch of ``x`` (ARM_STEPS steps, the last a tail): one step's gradients
-    kernel vs plain path, exactly ``per_step`` launches a step of each
+    kernel vs plain path (with ``f64`` both against the plain path of a
+    float64 copy of the model, the kernel path's within the tolerance plus
+    the float32 plain path's own distance from it: phase 13's float32 sums
+    over the 3-matrix tables, in the plain path's order, miss float64 by
+    more than the tolerance of the encoder's gradient), exactly
+    ``per_step`` launches a step of each
     layer kernel (in LAYER_NAMES order) and the lazy row kernels', a finite
     falling loss, the parameters that get no gradient bit-identical after
     the epoch, trained examples/s, the staged step, the host queue time and
@@ -1587,12 +1638,37 @@ def lazy_arm(card, label, model, trainer, x, y, per_step):
         check(layer_counts() == want,
               f"one {label} step launched {layer_counts()} "
               f"({', '.join(LAYER_NAMES)}), want {want}")
+    if f64:  # trainer.loss_terms on a float64 copy, the plain path
+        ref = copy.deepcopy(model).double()
+        ref.zero_grad(set_to_none=True)
+        (trainer._strategy.loss(ref(batch), yb.double(), wb.double())
+         + ref.reg_loss()).backward()
+        exact = {n: p.grad for n, p in ref.named_parameters()
+                 if n in grads[True]}
+        del ref
+        errs, plain_errs = {}, {}
+        direct = max((grads[True][n] - grads[False][n]).abs().max().item()
+                     for n in exact)
+        for n, w in exact.items():
+            errs[n] = (grads[True][n].double() - w).abs().max().item()
+            plain_errs[n] = (grads[False][n].double() - w).abs().max().item()
+            check(bool(torch.isfinite(grads[True][n]).all())
+                  and errs[n] <= GRAD_RTOL * w.abs().max().item()
+                  + GRAD_ATOL + plain_errs[n],
+                  f"gradient {n} differs from the float64 plain one by "
+                  f"{errs[n]}, the float32 plain one by {plain_errs[n]} "
+                  f"(largest entry {w.abs().max().item()})")
+    else:
+        errs = grad_errors(grads[True], grads[False])
     model.use_kernel = True
-    errs = grad_errors(grads[True], grads[False])
     worst = max(errs, key=errs.get)
     print(f"train {label} [{card}]: one step's gradients at dropout "
-          f"{DROP_RATE}, kernel path vs plain path: max_abs_err "
-          f"{errs[worst]:.3e} ({worst})", flush=True)
+          f"{DROP_RATE}, kernel path vs plain path"
+          + (f" in float64: max_abs_err {errs[worst]:.3e} ({worst}; the "
+             f"float32 plain path's {plain_errs[worst]:.3e}, its worst "
+             f"{max(plain_errs.values()):.3e}; kernel vs float32 plain "
+             f"{direct:.3e})" if f64 else
+             f": max_abs_err {errs[worst]:.3e} ({worst})"), flush=True)
     frozen = {n: p.detach().clone() for n, p in model.named_parameters()
               if n not in grads[True]}
     del grads
@@ -1659,10 +1735,10 @@ def gate_paths_phase(dev, card):
     return paths
 
 
-def pos_test_layer(dev, seed):
+def pos_test_layer(dev, seed, units=UNITS2):
     """A 'pos' layer (its q_meta and k_meta LayerNorms moved off their
-    (1, 0) init, each its own way), its distinct 4-row Q and K tables, and
-    the generator after them."""
+    (1, 0) init, each its own way), its distinct 4-row Q and K tables of
+    MetaNets of ``units``, and the generator after them."""
     from satrans_torch.nn import attention, initializers as init, metanet
     from satrans_torch.utils import make_generator
     gen = make_generator(seed, dev)
@@ -1671,7 +1747,7 @@ def pos_test_layer(dev, seed):
         for meta in (layer.q_meta, layer.k_meta):
             meta.ln.scale.add_(init.normal(gen, (32,), 0.1))
             meta.ln.bias.add_(init.normal(gen, (32,), 0.1))
-    p = metanet.param_size([32, 64, 32])
+    p = metanet.param_size(units)
     return gen, layer, {k: init.normal(gen, (4, p), 0.1) for k in "QK"}
 
 
@@ -1698,9 +1774,6 @@ def pos_kernel_phase(dev):
               relu_out=False)
     names = dict(zip(("full", "light"), (("qkv", "uq", "uk", "s", "o"),
                                          ("qkv", "uq", "uk", "o"))))
-    bwd_name = dict(zip(meta_block.BWD_MODES, (
-        "meta_block_bwd_stash", "meta_block_bwd_stash_light",
-        "meta_block_bwd")))
     worst = dict.fromkeys(K1_NAMES, 0.0)
     light_gap = 0.0
     out = {}
@@ -1713,7 +1786,7 @@ def pos_kernel_phase(dev):
             masks = meta_block.layer_masks(x, head_num=heads, mode="QK",
                                            **drop)
             ops, cfg = meta_block.pack_operands(x, layer, tables, dom, **kw)
-            ops = [t.detach() for t in ops]
+            ops = [t if t is None else t.detach() for t in ops]
             kargs = prng.kernel_args(True, rate, DROP_SEED, DROP_TILE, F)
             res = {}
             with torch.no_grad():
@@ -1743,7 +1816,7 @@ def pos_kernel_phase(dev):
             g, kinks = kink_free(g_all, x, layer, tables, dom, masks, **kw)
             want = layer_grads(meta_block.meta_layer_reference, x, layer,
                                tables, dom, g, **kw, masks=masks)
-            for bwd, name in bwd_name.items():
+            for bwd, name in K1_BWD_NAME.items():
                 got = layer_grads(meta_block.fused_meta_layer, x, layer,
                                   tables, dom, g, **kw, **drop, bwd=bwd)
                 torch.cuda.synchronize()
@@ -1758,8 +1831,9 @@ def pos_kernel_phase(dev):
             # forward's device code, so bit for bit is expected
             full_res = st["full"][1:]
             light_res = [full_res[i] for i in (0, 1, 2, 4)]
-            gf = meta_block.launch_bwd(g, *ops, cfg, kargs, res=full_res)
-            gl = meta_block.launch_bwd(g, *ops, cfg, kargs, res=light_res)
+            gf, gl = ([t for t in meta_block.launch_bwd(
+                g, *ops, cfg, kargs, res=r) if t is not None]
+                      for r in (full_res, light_res))  # no middle matrix
             torch.cuda.synchronize()
             gaps = [(a - b).abs().max().item() / b.abs().max().item()
                     for a, b in zip(gl, gf)]
@@ -1801,7 +1875,7 @@ def pos_kernel_phase(dev):
                 pb_ms = time_ms(lambda: torch.autograd.grad(
                     yr, inputs, g, retain_graph=True), iters=5)
                 del yr
-                for bwd, name in bwd_name.items():
+                for bwd, name in K1_BWD_NAME.items():
                     r = {"stash": full_res, "stash_light": light_res}.get(bwd)
                     ms = time_ms(lambda: meta_block.launch_bwd(
                         g, *ops, cfg, kargs, res=r), iters=20)
@@ -2013,8 +2087,10 @@ def multicol_dispatch(dev, gen, B=BATCH):
     return dispatch.plan(dom, MULTICOL_ROWS, MULTICOL_TILE)
 
 
-def tiled_kernel_phase(dev):
-    """Phase 11a: K7-fwd, K7-stash (output and every residual),
+def tiled_kernel_phase(dev, units=UNITS2, cases=None):
+    """Phase 11a (13a with 3-matrix ``units``, on the given ``cases`` of
+    (mode, relu_out, rate, pos)): K7-fwd, K7-stash (output and every
+    residual),
     K7-bwd-stash and K7-bwd against the plain tiled layer at the AliCCP
     multicol workload's dispatch (B=8192 in 9984 slots of 312 tiles; F=19,
     56 table rows gathered per tile), in QK and Query with relu_out off
@@ -2029,19 +2105,21 @@ def tiled_kernel_phase(dev):
     from satrans_torch.ops import dispatch, meta_block, prng, tiled_meta
 
     F, d, h, heads = 19, 32, 64, 4
-    gen, layer, _ = test_layer(dev, SEED + 40)
-    _, pos_layer, _ = pos_test_layer(dev, SEED + 41)
+    h2 = units[2] if len(units) == 4 else 0
+    tag = "" if units == UNITS2 else f" {len(units) - 1}-matrix"
+    gen, layer, _ = test_layer(dev, SEED + 40, units)
+    _, pos_layer, _ = pos_test_layer(dev, SEED + 41, units)
     plan = multicol_dispatch(dev, gen)
     T = plan.n_slots // MULTICOL_TILE
     slack = int((plan.src < 0).sum())
     live = (plan.src >= 0).view(T, MULTICOL_TILE).any(1)
-    print(f"kernel tiled_meta: B={BATCH} dispatched into {plan.n_slots} "
+    print(f"kernel tiled_meta{tag}: B={BATCH} dispatched into {plan.n_slots} "
           f"slots, {T} tiles of {MULTICOL_TILE} ({int(live.sum())} "
           f"occupied, of {torch.unique(plan.tile_dom[live]).numel()} of "
           f"the {MULTICOL_ROWS} rows), {slack} slack slots; the backward's {T} tiles over "
           f"{2 * torch.cuda.get_device_properties(dev).multi_processor_count}"
           " blocks", flush=True)
-    p = metanet.param_size([d, h, d])
+    p = metanet.param_size(units)
     tables = {k: init.normal(gen, (MULTICOL_ROWS, p), 0.1) for k in "QK"}
     tile_dom = plan.tile_dom.long()
     tiled = {k: t[tile_dom] for k, t in tables.items()}
@@ -2050,19 +2128,20 @@ def tiled_kernel_phase(dev):
     rows = tiled_meta.tile_rows(plan.n_slots, MULTICOL_TILE, dev)
     worst = dict.fromkeys(K7_NAMES, 0.0)
     out = {}
-    cases = [(mode, relu_out, rate, False) for mode in ("QK", "Query")
-             for relu_out in (False, True) for rate in (0.0, DROP_RATE)]
-    cases.append(("QK", False, DROP_RATE, True))
+    if cases is None:
+        cases = [(mode, relu_out, rate, False) for mode in ("QK", "Query")
+                 for relu_out in (False, True) for rate in (0.0, DROP_RATE)]
+        cases.append(("QK", False, DROP_RATE, True))
     for mode, relu_out, rate, pos in cases:
         lay = pos_layer if pos else layer
         tabs = tiled if pos else shared(tiled["Q"])
-        kw = dict(meta_units=[d, h, d], head_num=heads, mode=mode,
+        kw = dict(meta_units=list(units), head_num=heads, mode=mode,
                   relu_out=relu_out)
         drop = dict(train=True, drop_rate=rate, seed=DROP_SEED,
                     block_b=MULTICOL_TILE)
         masks = tiled_meta.layer_masks(x, head_num=heads, mode=mode, **drop)
         weights, cfg = meta_block.pack_weights(lay, tabs, **kw)
-        weights = [t.detach() for t in weights]
+        weights = [t if t is None else t.detach() for t in weights]
         kargs = prng.kernel_args(True, rate, DROP_SEED, MULTICOL_TILE, F)
         res = {}
         with torch.no_grad():
@@ -2112,7 +2191,7 @@ def tiled_kernel_phase(dev):
               f"K7-bwd-stash and K7-bwd differ on the same masks: {gaps}")
         for n, e in errs.items():
             worst[n] = max(worst[n], e)
-        line = (f"kernel tiled_meta mode={mode} relu_out={relu_out} "
+        line = (f"kernel tiled_meta{tag} mode={mode} relu_out={relu_out} "
                 f"dropout={rate} pos={pos}: " + ", ".join(
                     f"{n} {e:.3e}" for n, e in errs.items())
                 + f" ({kinks - slack} examples at a kink left out, and the "
@@ -2131,7 +2210,7 @@ def tiled_kernel_phase(dev):
                         stash=stash), iters=50)
                     b_ms, b_by = meta_layer_bound_ms(
                         plan.n_slots, F, d, h, heads, T, 1, 1,
-                        stash="full" if stash else None)
+                        stash="full" if stash else None, h2=h2)
                     out[(name, rate)] = dict(ms=ms, plain_ms=p_ms,
                                              bound_ms=b_ms, bound_by=b_by)
             xr = x.detach().requires_grad_(True)
@@ -2150,7 +2229,7 @@ def tiled_kernel_phase(dev):
                     iters=20)
                 b_ms, b_by = meta_layer_bwd_bound_ms(
                     plan.n_slots, F, d, h, heads, T, 1, 1,
-                    stash="full" if res_ is not None else None)
+                    stash="full" if res_ is not None else None, h2=h2)
                 out[(name, rate)] = dict(ms=ms, plain_ms=pb_ms,
                                          bound_ms=b_ms, bound_by=b_by)
             line += "; " + ", ".join(
@@ -2172,19 +2251,19 @@ def tiled_kernel_phase(dev):
     return fields
 
 
-def multicol_model(dev, **kw):
+def multicol_model(dev, units=UNITS2, **kw):
     """SATrans at the AliCCP sota width with the scenario columns 301 and
     122 (the reference's ``--domain_col 301-122``; satrans_tpu's bench arm
     ``multicol``): 19 sparse fields with the real vocab sizes, d = 32, 3
-    layers, 4 heads, QK, MetaNet 32->64->32, a composite table of 56
-    rows."""
+    layers, 4 heads, QK, MetaNets of ``units`` (32->64->32), a composite
+    table of 56 rows."""
     from satrans_torch.data import aliccp
     from satrans_torch.features import FeatureLayout
     from satrans_torch.models import SATrans
     model = SATrans(FeatureLayout(aliccp.sota_columns(32)), MULTICOL_COLS,
                     MULTICOL_DOMAINS, domain_att_layer_num=LAYERS,
                     att_head_num=4, meta_mode="QK",
-                    meta_dnn_hidden_units=(64, 32), seed=SEED, device=dev,
+                    meta_dnn_hidden_units=units[1:], seed=SEED, device=dev,
                     **kw)
     check(model.tiled and model.meta_rows == MULTICOL_ROWS
           and model.block_b(BATCH) == MULTICOL_TILE,
@@ -2192,14 +2271,15 @@ def multicol_model(dev, **kw):
     return model
 
 
-def multicol_serving(dev, card):
-    """Phase 11b: one request of 20,000 examples through Predictor with
-    the AliCCP multicol model: exactly 3 K7-fwd launches a batch and no
-    other layer kernel, scores against the plain path.  Returns the K7-fwd
-    launches."""
+def multicol_serving(dev, card, units=UNITS2):
+    """Phase 11b (13c with 3-matrix ``units``): one request of 20,000
+    examples through Predictor with the AliCCP multicol model: exactly 3
+    K7-fwd launches a batch and no other layer kernel, scores against the
+    plain path.  Returns the K7-fwd launches."""
     from satrans_torch.data import aliccp
     from satrans_torch.serving import Predictor
-    model = multicol_model(dev, no_emb_init=True)
+    tag = "" if units == UNITS2 else f" {len(units) - 1}-matrix"
+    model = multicol_model(dev, units, no_emb_init=True)
     pred = Predictor(model, batch_size=BATCH, device=dev).warmup()
     rng = np.random.default_rng(SEED + 50)
     req = {name: rng.integers(1, aliccp.DATA_MAX[name] + 1, REQUEST_ROWS)
@@ -2221,13 +2301,15 @@ def multicol_serving(dev, card):
     for _ in range(5):
         pred(req)
     wall2 = (time.perf_counter() - t0) / 5
-    device_profile(f"serve multicol: one request of {REQUEST_ROWS} "
+    device_profile(f"serve multicol{tag}: one request of {REQUEST_ROWS} "
                    "examples", lambda: pred(req), 1e3 * wall2, card)
-    plain_model = multicol_model(dev, no_emb_init=True, use_kernel=False)
+    plain_model = multicol_model(dev, units, no_emb_init=True,
+                                 use_kernel=False)
     plain_model.load_state_dict(model.state_dict())
     want = Predictor(plain_model, batch_size=BATCH, device=dev)(req)
     diff = float(np.abs(scores - want).max())
-    print(f"serve multicol [{card}]: {REQUEST_ROWS} examples in {batches} "
+    print(f"serve multicol{tag} [{card}]: {REQUEST_ROWS} examples in "
+          f"{batches} "
           f"batches of {BATCH}: first {wall:.4f}s, then {wall2:.4f}s a "
           f"request, {REQUEST_ROWS / wall2:.1f} examples/s, "
           f"{1e3 * wall2 / batches:.3f} ms/batch; launches "
@@ -2243,23 +2325,25 @@ def multicol_serving(dev, card):
     return launched[-len(K7_COUNTS)]
 
 
-def multicol_training(dev, card, bwd):
-    """Phase 11c, one arm: train the AliCCP multicol model in ``lazy`` (lr
-    0.005, dropout 0.1; :func:`lazy_arm`) under ``SATRANS_TILED_BWD=bwd``:
-    exactly 3 + 3 launches a step of the arm's K7 pair and no K1 or K6;
-    domain_emb and domain_bank's large part without a gradient and
-    bit-identical.  Returns (trainer, staged batch, launches by
-    kernel)."""
+def multicol_training(dev, card, bwd, units=UNITS2):
+    """Phase 11c (13c with 3-matrix ``units``), one arm: train the AliCCP
+    multicol model in ``lazy`` (lr 0.005, dropout 0.1; :func:`lazy_arm`)
+    under ``SATRANS_TILED_BWD=bwd``: exactly 3 + 3 launches a step of the
+    arm's K7 pair and no K1 or K6; domain_emb and domain_bank's large part
+    without a gradient and bit-identical; 3-matrix ``units`` hold the
+    kernel path's gradients against a float64 plain path.  Returns
+    (trainer, staged batch, launches by kernel)."""
     from satrans_torch.train import Trainer
     os.environ["SATRANS_TILED_BWD"] = bwd
-    model = multicol_model(dev, dropout_rate=DROP_RATE)
+    tag = "" if units == UNITS2 else f" {len(units) - 1}-matrix"
+    model = multicol_model(dev, units, dropout_rate=DROP_RATE)
     trainer = Trainer(model, seed=SEED, device=dev)
     trainer.compile(learning_rate=TRAIN_LR, bank_update="lazy")
     x, y = training_data()
     staged, launched, frozen = lazy_arm(
-        card, f"multicol {bwd} lazy", model, trainer,
+        card, f"multicol{tag} {bwd} lazy", model, trainer,
         {k: v[:ARM_ROWS] for k, v in x.items()}, y[:ARM_ROWS],
-        (0, 0) + NO_K1 + K7_PAIR[bwd])
+        (0, 0) + NO_K1 + K7_PAIR[bwd], f64=units != UNITS2)
     check({"domain_emb", "domain_bank.bank"} <= set(frozen),
           f"the parameters without a gradient are {frozen}, want "
           "domain_emb and domain_bank.bank among them")
@@ -2667,6 +2751,291 @@ def probes_and_cli_phase(dev, card):
     return fields, scores_paths, k1_paths
 
 
+def metanet3_layer_phase(dev):
+    """Phase 13a, K1: every K1 body with 3-matrix MetaNets (units [32, 64,
+    64, 32]) against its plain version, at B=8192 (dropout 0 and 0.1) and
+    the ragged 8190 (dropout 0), F=19 with one table in QK and in Query
+    with relu_out, and F=15 with distinct Q and K tables and a k_meta
+    LayerNorm (the pos layer): K1-fwd's output, the residuals of K1-stash
+    and K1-stash light, K1-scores' y and s, and the three backwards'
+    gradients (x, the layer's parameters and the tables, whose middle
+    block must move) against autograd of the plain layer with the same
+    masks (examples at a relu kink given no upstream gradient), at the
+    tolerances of phases 2 and 4.  Each body timed with its bound at
+    F=19, QK, one table.  Returns the JSON fields by 2-matrix body name."""
+    from satrans_torch.nn import initializers as init
+    from satrans_torch.ops import meta_block, prng
+    from satrans_torch.utils import make_generator
+
+    d, h, h2, heads, rows = 32, 64, 64, 4, 4
+    units = list(UNITS3)
+    _, layer, table = test_layer(dev, SEED + 60, UNITS3)
+    _, pos_layer, pos_tables = pos_test_layer(dev, SEED + 61, UNITS3)
+    gen = make_generator(SEED + 62, dev)
+    names = (*K1_NAMES, "meta_block_fwd_scores")
+    worst = dict.fromkeys(names, 0.0)
+    out = {}
+    mid = slice(d * h, d * h + h * h2)  # the tables' middle block
+    cases = []
+    for B in (BATCH, BATCH - 2):
+        for rate in (0.0, DROP_RATE) if B == BATCH else (0.0,):
+            cases += [(B, rate, 19, "QK", False, False),
+                      (B, rate, 19, "Query", True, False),
+                      (B, rate, ALIMAMA_F, "QK", False, True)]
+    for B, rate, F, mode, relu_out, pos in cases:
+        lay = pos_layer if pos else layer
+        tables = pos_tables if pos else shared(table)
+        x = init.normal(gen, (B, F, d), 1.0)
+        g_all = init.normal(gen, (B, F, d), 1.0)
+        dom = torch.randint(0, rows, (B,), generator=gen, device=dev)
+        kw = dict(meta_units=units, head_num=heads, mode=mode,
+                  relu_out=relu_out)
+        drop = drop_kw(rate)
+        masks = meta_block.layer_masks(x, head_num=heads, mode=mode, **drop)
+        ops, cfg = meta_block.pack_operands(x, lay, tables, dom, **kw)
+        ops = [t if t is None else t.detach() for t in ops]
+        kargs = prng.kernel_args(True, rate, DROP_SEED, DROP_TILE, F)
+        res = {}
+        with torch.no_grad():
+            y = meta_block.fused_meta_layer(x, lay, tables, dom, **kw, **drop)
+            st = {s: meta_block.launch_fwd(*ops, cfg, kargs, stash=s)
+                  for s in ("full", "light", "scores")}
+            ref = meta_block.meta_layer_reference(
+                x, lay, tables, dom, **kw, masks=masks, residuals=res)
+        torch.cuda.synchronize()
+        what = (f"B={B} F={F} mode={mode} relu_out={relu_out} pos={pos} "
+                f"dropout={rate}")
+        errs = {"meta_block_fwd": (y - ref).abs().max().item()}
+        check(bool(torch.isfinite(y).all()) and torch.allclose(
+            y, ref, **KERNEL_TOL), f"3-matrix K1-fwd disagrees with the "
+            f"plain layer ({what}, max_abs_err {errs['meta_block_fwd']})")
+        for s, name in (("full", "meta_block_fwd_stash"),
+                        ("light", "meta_block_fwd_stash_light"),
+                        ("scores", "meta_block_fwd_scores")):
+            got = st[s]
+            want = (ref, *(res[n] for n in meta_block.STASH_RESIDUALS[s]))
+            check(len(got) == len(want), f"3-matrix stash {s} returned "
+                  f"{len(got)} tensors, want {len(want)}")
+            errs[name] = max((a - b).abs().max().item()
+                             for a, b in zip(got, want))
+            for n, a, b in zip(("y", *meta_block.STASH_RESIDUALS[s]), got,
+                               want):
+                check(bool(torch.isfinite(a).all()) and torch.allclose(
+                    a, b, **KERNEL_TOL), f"3-matrix {name}'s {n} disagrees "
+                    f"with the plain layer's ({what}, tolerance "
+                    f"{KERNEL_TOL})")
+        g, kinks = kink_free(g_all, x, lay, tables, dom, masks, **kw)
+        want = layer_grads(meta_block.meta_layer_reference, x, lay, tables,
+                           dom, g, **kw, masks=masks)
+        for bwd, name in K1_BWD_NAME.items():
+            got = layer_grads(meta_block.fused_meta_layer, x, lay, tables,
+                              dom, g, **kw, **drop, bwd=bwd)
+            torch.cuda.synchronize()
+            errs[name] = max(grad_errors(got, want).values())
+            check(all(got[n][:, mid].abs().max().item() > 0
+                      for n in got if n.startswith("table")),
+                  f"3-matrix {name}: a table's middle block got no "
+                  f"gradient ({what})")
+        for n, e in errs.items():
+            worst[n] = max(worst[n], e)
+        line = (f"kernel 3-matrix {what}: " + ", ".join(
+            f"{n} {e:.3e}" for n, e in errs.items())
+            + f" ({kinks} examples at a kink left out)")
+        if B == BATCH and F == 19 and mode == "QK":
+            with torch.no_grad():
+                p_ms = time_ms(lambda: meta_block.meta_layer_reference(
+                    x, lay, tables, dom, **kw, masks=masks), iters=10)
+                for s, name in ((None, "meta_block_fwd"),
+                                ("full", "meta_block_fwd_stash"),
+                                ("light", "meta_block_fwd_stash_light"),
+                                ("scores", "meta_block_fwd_scores")):
+                    ms = time_ms(lambda: meta_block.launch_fwd(
+                        *ops, cfg, kargs, stash=s), iters=50)
+                    b_ms, b_by = meta_layer_bound_ms(
+                        B, F, d, h, heads, rows, 1, 1, stash=s, h2=h2)
+                    out[(name, rate)] = dict(ms=ms, plain_ms=p_ms,
+                                             bound_ms=b_ms, bound_by=b_by)
+            xr = x.detach().requires_grad_(True)
+            tr = table.detach().requires_grad_(True)
+            inputs = [xr, tr, *lay.parameters()]
+            yr = meta_block.meta_layer_reference(xr, lay, shared(tr), dom,
+                                                 **kw, masks=masks)
+            pb_ms = time_ms(lambda: torch.autograd.grad(
+                yr, inputs, g, retain_graph=True), iters=5)
+            del yr
+            full_res = st["full"][1:]
+            light_res = [full_res[i] for i in (0, 1, 2, 4)]
+            for bwd, name in K1_BWD_NAME.items():
+                r = {"stash": full_res, "stash_light": light_res}.get(bwd)
+                ms = time_ms(lambda: meta_block.launch_bwd(
+                    g, *ops, cfg, kargs, res=r), iters=20)
+                b_ms, b_by = meta_layer_bwd_bound_ms(
+                    B, F, d, h, heads, rows, 1, 1, h2=h2, stash={
+                        "stash": "full", "stash_light": "light"}.get(bwd))
+                out[(name, rate)] = dict(ms=ms, plain_ms=pb_ms,
+                                         bound_ms=b_ms, bound_by=b_by)
+            line += "; " + ", ".join(
+                f"{n} kernel_ms={out[(n, rate)]['ms']:.4f} bound_ms="
+                f"{out[(n, rate)]['bound_ms']:.4f}" for n in names) + (
+                f"; plain forward {p_ms:.4f} ms, backward {pb_ms:.4f} ms")
+        print(line, flush=True)
+        del st
+    fields = {}
+    for name in names:
+        # the serving and probe bodies at dropout 0, the training ones at
+        # 0.1 (phases 2, 4 and 12)
+        serve = name in ("meta_block_fwd", "meta_block_fwd_scores")
+        main, other = (0.0, DROP_RATE) if serve else (DROP_RATE, 0.0)
+        fields[name] = dict(max_abs_err=worst[name], **out[(name, main)])
+        fields[name]["dropout_ms" if serve else "no_dropout_ms"] = \
+            out[(name, other)]["ms"]
+    return fields
+
+
+def staged_steps(card, label, trainer, staged, per_step, steps=5):
+    """``steps`` train_step calls on a staged batch after the launch counts
+    are set to 0: finite losses and exactly ``per_step`` launches a step of
+    each layer kernel (LAYER_NAMES order).  Returns the launches by
+    kernel."""
+    torch.cuda.synchronize()
+    zero_counts()
+    t0 = time.perf_counter()
+    losses = [trainer.train_step(*staged)["loss"] for _ in range(steps)]
+    torch.cuda.synchronize()
+    ms = 1e3 * (time.perf_counter() - t0) / steps
+    got = layer_counts()
+    want = tuple(LAYERS * steps * c for c in per_step)
+    check(got == want, f"{label}: {steps} staged steps launched {got} "
+                       f"({', '.join(LAYER_NAMES)}), want {want}")
+    check(bool(torch.isfinite(torch.stack(losses)).all()),
+          f"{label}: a staged step's loss is not finite")
+    print(f"train {label} [{card}]: {steps} train_step calls on a staged "
+          f"batch, {ms:.3f} ms/step with the host clock; launches {got}",
+          flush=True)
+    return dict(zip(LAYER_NAMES, got))
+
+
+def metanet3_paths_phase(dev, card):
+    """Phases 13b and 13c: the AliCCP sota model with 3-matrix MetaNets
+    (meta_dnn_hidden_units=(64, 64, 32)): 3 requests of 20,000 through
+    Predictor (K1-fwd only, against the plain path); ``lazy`` training at
+    dropout 0.1 under bwd='stash' for 12 steps and a tail
+    (:func:`lazy_arm`: one step's gradients kernel vs plain path, 3 + 3
+    launches a step, a falling loss, the staged step and its profile),
+    then staged steps under 'stash_light' and 'recompute' (their K1
+    pairs); one ``predict_with_attention`` batch of 32,768 on K1-scores.
+    Then the multicol model with them: one request (K7-fwd), ``lazy``
+    training under SATRANS_TILED_BWD=stash (:func:`lazy_arm`) and staged
+    steps under recompute.  Returns the launches by path and kernel."""
+    from satrans_torch.data import aliccp
+    from satrans_torch.features import FeatureLayout
+    from satrans_torch.models import SATrans
+    from satrans_torch.serving import Predictor
+    from satrans_torch.train import attention_probe
+
+    paths = {}
+    kw = dict(domain_att_layer_num=LAYERS, att_head_num=4, meta_mode="QK",
+              meta_dnn_hidden_units=UNITS3[1:], no_emb_init=True, seed=SEED,
+              device=dev)
+    layout = FeatureLayout(aliccp.sota_columns(32))
+    model = SATrans(layout, ["301"], [3], **kw)
+    check(model.metanet_kernel and model.meta_units == list(UNITS3),
+          "the 3-matrix model does not take the K1 route")
+    pred = Predictor(model, batch_size=BATCH, device=dev).warmup()
+    rng = np.random.default_rng(SEED + 70)
+    reqs = [{name: rng.integers(1, aliccp.DATA_MAX[name] + 1, REQUEST_ROWS)
+             for name in aliccp.SPARSE_FEATURES} for _ in range(REQUESTS)]
+    batches = REQUESTS * -(-REQUEST_ROWS // BATCH)
+    torch.cuda.synchronize()
+    zero_counts()
+    t0 = time.perf_counter()
+    scores = [pred(r) for r in reqs]
+    wall = time.perf_counter() - t0
+    launched = layer_counts()
+    want = (0, 0, LAYERS * batches) + NO_K1[1:] + NO_K7
+    check(launched == want and scores_count() == 0,
+          f"serving 3-matrix launched {launched} ({', '.join(LAYER_NAMES)})"
+          f", want {want}")
+    paths["serve_3mat"] = {"meta_block_fwd": LAYERS * batches}
+    device_profile(f"serve 3-matrix: one request of {REQUEST_ROWS} "
+                   "examples", lambda: pred(reqs[0]),
+                   1e3 * wall / REQUESTS, card)
+    plain_model = SATrans(layout, ["301"], [3], use_kernel=False, **kw)
+    plain_model.load_state_dict(model.state_dict())
+    plain = Predictor(plain_model, batch_size=BATCH, device=dev)
+    diff = max(float(np.abs(a - plain(r)).max())
+               for a, r in zip(scores, reqs))
+    n = REQUESTS * REQUEST_ROWS
+    print(f"serve 3-matrix [{card}]: {n} examples in {batches} batches of "
+          f"{BATCH}: {wall:.4f}s, {n / wall:.1f} examples/s, "
+          f"{1e3 * wall / batches:.3f} ms/batch; score mean "
+          f"{np.mean(scores):.4f} std {np.std(scores):.4f}; max |kernel - "
+          f"plain| = {diff:.3e}", flush=True)
+    check(all(np.all(np.isfinite(a)) and np.all((a > 0) & (a < 1))
+              for a in scores), "serving 3-matrix: scores not finite in "
+                                "(0, 1)")
+    check(diff <= SERVING_TOL, f"serving 3-matrix: scores differ from the "
+                               f"plain path by {diff} > {SERVING_TOL}")
+    del model, plain_model, pred, plain
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    os.environ["SATRANS_BWD"] = "stash"
+    model, trainer = training_model(dev, "lazy", units=UNITS3)
+    x, y = training_data()
+    staged, paths["train_3mat_stash_lazy"], _ = lazy_arm(
+        card, "3-matrix stash lazy", model, trainer,
+        {k: v[:ARM_ROWS] for k, v in x.items()}, y[:ARM_ROWS],
+        (0, 0) + K1_PAIR["stash"] + NO_K7, f64=True)
+    for bwd in ("stash_light", "recompute"):
+        os.environ["SATRANS_BWD"] = bwd
+        paths[f"train_3mat_{bwd}_staged"] = staged_steps(
+            card, f"3-matrix {bwd}", trainer, staged,
+            (0, 0) + K1_PAIR[bwd] + NO_K7)
+    os.environ.pop("SATRANS_BWD")
+    xp = {k: v[:PROBE_BATCH] for k, v in x.items()}
+    (probe_pred, _), _, k1, sc = probe_run(
+        f"3-matrix predict_with_attention, one batch of {PROBE_BATCH}",
+        card, lambda: attention_probe.predict_with_attention(
+            trainer, xp, y[:PROBE_BATCH], batch_size=PROBE_BATCH),
+        PROBE_BATCH)
+    check(k1 == NO_K1 and sc == LAYERS and probe_pred.shape == (
+        PROBE_BATCH,) and bool(np.all(np.isfinite(probe_pred))),
+          f"the 3-matrix probe launched {k1} and {sc} K1-scores (want "
+          f"{LAYERS} K1-scores only), or its predictions are not finite")
+    paths["probe_3mat"] = {"meta_block_fwd_scores": sc}
+    del model, trainer, staged
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    paths["serve_multicol_3mat"] = {"tiled_meta_fwd": multicol_serving(
+        dev, card, UNITS3)}
+    trainer, staged, paths["train_multicol_3mat_stash_lazy"] = \
+        multicol_training(dev, card, "stash", UNITS3)
+    os.environ["SATRANS_TILED_BWD"] = "recompute"
+    paths["train_multicol_3mat_recompute_staged"] = staged_steps(
+        card, "multicol 3-matrix recompute", trainer, staged,
+        (0, 0) + NO_K1 + K7_PAIR["recompute"])
+    os.environ.pop("SATRANS_TILED_BWD")
+    del trainer, staged
+    gc.collect()
+    torch.cuda.empty_cache()
+    return paths
+
+
+def metanet3_phase(dev, card):
+    """Phase 13: 3-matrix MetaNets.  Returns the JSON fields by 2-matrix
+    body name (K1's and K7's) and the launches by path and kernel."""
+    t0 = time.perf_counter()
+    fields = metanet3_layer_phase(dev)
+    fields.update(tiled_kernel_phase(dev, UNITS3, cases=[
+        ("QK", False, 0.0, False), ("QK", False, DROP_RATE, False),
+        ("Query", True, DROP_RATE, False), ("QK", False, DROP_RATE, True)]))
+    paths = metanet3_paths_phase(dev, card)
+    print(f"phase 13: {time.perf_counter() - t0:.2f}s", flush=True)
+    return fields, paths
+
+
 def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -2686,9 +3055,14 @@ def main() -> int:
     print(f"build: {json.dumps(built)} in {time.perf_counter() - t0:.2f}s",
           flush=True)
     for name, log in _build.build_log.items():
+        body = ""
         for ln in log.splitlines():
-            if "registers" in ln or "spill" in ln:
-                print(f"build {name}: {ln.strip()}")
+            if "Function properties for" in ln:
+                # the template arguments of the mangled name: the layer
+                # kernels' (d, h1, h2, heads), mode and TILED
+                body = " ".join(re.findall(r"L[ib](\d+)E", ln.split()[-1]))
+            elif "registers" in ln or "spill" in ln:
+                print(f"build {name} [{body}]: {ln.strip()}")
 
     k = kernel_phase(dev)
     served = serving_phase(dev, card)
@@ -2703,6 +3077,7 @@ def main() -> int:
     kt = tiled_kernel_phase(dev)
     mpaths = multicol_paths_phase(dev, card)
     ks, scores_paths, cli_paths = probes_and_cli_phase(dev, card)
+    k3, paths3 = metanet3_phase(dev, card)
 
     # launches, each path counted from 0 just before it: serving and the
     # evaluation run K1-fwd only; the dense recompute arm K1-fwd and
@@ -2793,6 +3168,20 @@ def main() -> int:
             replaces=f"satrans_tpu/ops/pallas/tiled_meta.py:{replaces}",
             launches=sum(by_path.values()), launches_by_path=by_path,
             library_ms=None, **kt[name]))
+    # the 3-matrix instances of K1 and K7 (phase 13), launched on phase
+    # 13's paths only
+    replaces = {k["name"]: k["replaces"] for k in kernels}
+    for base, name in (*K1_NAMES3.items(), *K7_NAMES3.items()):
+        by_path = {p: n[base] for p, n in paths3.items() if n.get(base)}
+        source = "meta_block_bwd.cu" if "bwd" in base else \
+            "meta_block_fwd.cu"
+        middle = ("; 3-matrix: _tile_meta :55-89" if base in K7_NAMES3 else
+                  "; 3-matrix: _meta_apply :158-195, _meta_bwd :869-899")
+        kernels.append(dict(
+            name=name, route="cuda", source=f"satrans_torch/csrc/{source}",
+            replaces=replaces[base] + middle, meta_units=list(UNITS3),
+            launches=sum(by_path.values()), launches_by_path=by_path,
+            library_ms=None, **k3[base]))
     check(all(k["launches"] > 0 for k in kernels),
           "a kernel was launched on no path")
     print(json.dumps({"kernels": kernels}))

@@ -18,6 +18,7 @@
 #include <cuda_runtime.h>
 
 #include <cmath>
+#include <initializer_list>
 
 #include "dropout.cuh"
 
@@ -25,6 +26,37 @@ namespace {
 
 constexpr int kMaxFields = 20;       // most fields an example may have
 constexpr float kLogitClamp = 60.f;  // the Pallas kernels' _clip_logits
+
+// A shape K1 and K7 are instantiated for: width d, MetaNet hidden widths
+// h1 and h2 (h2 = 0: a 2-matrix MetaNet [d, h1, d]; else 3-matrix [d, h1,
+// h2, d], whose middle matrix maps h1 to h2), heads.  HL is the width the
+// last MetaNet matrix reads, HMAX the widest hidden row.
+template <int DM_, int HID_, int HID2_, int NH_>
+struct Shape {
+  static constexpr int DM = DM_, HID = HID_, HID2 = HID2_, NH = NH_;
+  static constexpr int HL = HID2 ? HID2 : HID;
+  static constexpr int HMAX = HID2 > HID ? HID2 : HID;
+};
+
+// run(Shape<...>{}) for an instantiated (d, h1, h2, heads), else
+// cudaErrorInvalidValue.  ops/meta_block.py keeps the same list in
+// KERNEL_SHAPES.
+template <typename Run>
+cudaError_t with_shape(int d, int h, int h2, int heads, Run run) {
+  if (d == 32 && h == 64 && heads == 4) {
+    if (h2 == 0) return run(Shape<32, 64, 0, 4>{});
+    if (h2 == 64) return run(Shape<32, 64, 64, 4>{});
+  }
+  return cudaErrorInvalidValue;
+}
+
+// The middle matrices' pointers (Q's and K's, and their transposes in the
+// backward) are all set for a 3-matrix MetaNet (h2 > 0), all null else.
+inline bool middle_pointers_ok(int h2, std::initializer_list<const void*> ps) {
+  for (const void* p : ps)
+    if ((p != nullptr) != (h2 > 0)) return false;
+  return true;
+}
 
 // K1's residual stash (meta_block_fwd.cu, meta_block_bwd.cu): none (K1-fwd,
 // K1-bwd), the full stash qkv, uq, uk, s and o (K1-stash, K1-bwd-stash),
@@ -119,6 +151,62 @@ __device__ __forceinline__ void tile_gemm(const float* act, int as,
           acc[i][3] = fmaf(av, wk[u].w, acc[i][3]);
         }
       }
+    }
+  }
+}
+
+// One MetaNet matrix on the F rows of an example over a group of G
+// threads: out[f][n] = r(sum_k a(act[f][k]) w[k][n]), a = relu if RELU_IN
+// and r = relu if RELU_OUT, act and out in shared memory (row strides as
+// and os), w [K][N] in global memory.  before_store() runs between the
+// GEMM, whose sums stay in registers, and the stores, so that out may
+// overwrite act after a barrier there.
+template <int G, int K, int N, bool RELU_IN, bool RELU_OUT, typename Sync>
+__device__ __forceinline__ void metanet_matrix(const float* act, int as,
+                                               const float* __restrict__ w,
+                                               int F, int t, float* out,
+                                               int os, Sync before_store) {
+  using T = Tile<N, G>;
+  float acc[T::RPL][4];
+  tile_gemm<G, K, N, RELU_IN>(act, as, w, N, F, t, acc);
+  before_store();
+  const int col = 4 * (t % T::LPR), rs = t / T::LPR;
+#pragma unroll
+  for (int i = 0; i < T::RPL; ++i) {
+    const int f = rs + T::RS * i;
+    if (f < F) {
+      float v[4];
+#pragma unroll
+      for (int c = 0; c < 4; ++c)
+        v[c] = RELU_OUT ? fmaxf(acc[i][c], 0.f) : acc[i][c];
+      st4(out + f * os + col, v);
+    }
+  }
+}
+
+// The gradient through one MetaNet matrix and the relu before it, over a
+// group of G threads: dh[f][n] = (sum_k g[f][k] wT[k][n]) [h[f][n] > 0],
+// written over h, the relu's input (g row stride gs, h row stride hs,
+// wT [K][N] the matrix transposed).  A thread reads h only where it
+// writes.
+template <int G, int K, int N>
+__device__ __forceinline__ void metanet_matrix_bwd(
+    const float* g, int gs, const float* __restrict__ wT, int F, int t,
+    float* h, int hs) {
+  using T = Tile<N, G>;
+  float acc[T::RPL][4];
+  tile_gemm<G, K, N>(g, gs, wT, N, F, t, acc);
+  const int col = 4 * (t % T::LPR), rs = t / T::LPR;
+#pragma unroll
+  for (int i = 0; i < T::RPL; ++i) {
+    const int f = rs + T::RS * i;
+    if (f < F) {
+      const float4 hv = ld4(h + f * hs + col);
+      const float v[4] = {hv.x > 0.f ? acc[i][0] : 0.f,
+                          hv.y > 0.f ? acc[i][1] : 0.f,
+                          hv.z > 0.f ? acc[i][2] : 0.f,
+                          hv.w > 0.f ? acc[i][3] : 0.f};
+      st4(h + f * hs + col, v);
     }
   }
 }

@@ -72,6 +72,17 @@
 // the buffers K1-bwd computes into).  The MetaNet hidden layer is recomputed
 // in the backward instead of stored.
 //
+// 3-matrix MetaNets.  With units [d, h1, h2, d] (the template's HID2 > 0;
+// the Pallas _meta_bwd at meta_block.py:869-899 and _write_param_grads
+// :667) the MetaNet is relu(relu(t0 W1) Wm) W2, and its backward adds
+// dh2 = (dy W2^T) [h2 > 0], dWm += relu(h1)^T dh2 and dh1 = (dh2 Wm^T)
+// [h1 > 0].  The backward recomputes h2 (2 F h1 h2 FLOP a MetaNet) into a
+// second hidden buffer of its own, 10.3 kB more shared memory at F=19
+// (105.5 kB a block, two blocks an SM still fit), and the per-domain sums
+// gain dWmq and dWmk [D][h1 h2]: 16,384 floats a domain a block for both
+// MetaNets, 277 MB of scratch at D = kMaxDomains over 264 blocks.  As
+// for 2-matrix MetaNets no residual is stashed for the hidden layers.
+//
 // K7.  The same template with TILED=true is K7-bwd (kNoStash) and
 // K7-bwd-stash (kFullStash), which replace satrans_tpu/ops/pallas/
 // tiled_meta.py's _bwd_kernel (:178, bwd='recompute') and
@@ -110,42 +121,49 @@ constexpr int kMaxSmem = 232448;             // bytes a block may use on sm_90
 constexpr int kMaxDomains = 16;              // bounds the scratch buffer
 
 // Row strides (floats) of the shared buffers; +4 shifts rows by 4 banks.
-template <int DM, int HID>
+// The sizes of one domain's MetaNet blocks: W1 [d][h1], the middle Wm
+// [h1][h2] (none for a 2-matrix MetaNet) and W2 [HL][d].
+template <class SH>
 struct Strides {
+  static constexpr int DM = SH::DM;
   static constexpr int XS = DM + 4;       // x
   static constexpr int QS = 3 * DM + 4;   // q0|k0|v0, and dq|dk|dv
   static constexpr int NS = 2 * DM + 4;   // normalised q|k, their xhat
-  static constexpr int HS = HID + 4;      // MetaNet hidden; o and do
+  static constexpr int HS = SH::HID + 4;  // MetaNet hidden h1; o and do
+  static constexpr int H2S = SH::HID2 ? SH::HID2 + 4 : 0;  // hidden h2
   static constexpr int kDense = 4 * DM * DM;     // dWqkv then dWout
-  static constexpr int kDomain = DM * HID;       // one W1 or W2, one domain
+  static constexpr int kW1 = DM * SH::HID;
+  static constexpr int kWm = SH::HID * SH::HID2;
+  static constexpr int kW2 = SH::HL * DM;
+  static constexpr int kMeta = kW1 + kWm + kW2;  // one MetaNet, one domain
 };
 
 __host__ __device__ constexpr int round4(int n) { return (n + 3) & ~3; }
 
 // Floats of one tile's working buffers (also the end-of-kernel scratch).
-template <int DM, int HID, int NH>
+template <class SH>
 __host__ __device__ int work_floats(int F) {
-  using S = Strides<DM, HID>;
+  using S = Strides<SH>;
   const int R = kTile * F;
-  const int n = R * (S::XS + S::QS + 2 * S::NS + S::HS + S::QS) +
-                round4(2 * R) + kTile * NH * F * F;
+  const int n = R * (S::XS + S::QS + 2 * S::NS + S::HS + S::H2S + S::QS) +
+                round4(2 * R) + kTile * SH::NH * F * F;
   return n > kThreads * kLnRows * 4 ? n : kThreads * kLnRows * 4;
 }
 
-template <int DM, int HID, int NH>
+template <class SH>
 __host__ __device__ int smem_bytes(int F) {
-  return sizeof(float) * (Strides<DM, HID>::kDense + work_floats<DM, HID, NH>(F));
+  return sizeof(float) * (Strides<SH>::kDense + work_floats<SH>(F));
 }
 
-template <int DM, int HID>
+template <class SH>
 __host__ __device__ int grad_floats(int D) {  // the block's partial sums
-  return Strides<DM, HID>::kDense + kLnRows * DM +
-         4 * D * Strides<DM, HID>::kDomain;
+  return Strides<SH>::kDense + kLnRows * SH::DM +
+         2 * D * Strides<SH>::kMeta;
 }
 
 struct Args {
-  const float *x, *g, *wqkv, *wqkvT, *w1q, *w2q, *w1qT, *w2qT, *lnq, *w1k,
-      *w2k, *w1kT, *w2kT, *lnk, *wout, *woutT, *lno;
+  const float *x, *g, *wqkv, *wqkvT, *w1q, *wmq, *w2q, *w1qT, *wmqT, *w2qT,
+      *lnq, *w1k, *wmk, *w2k, *w1kT, *wmkT, *w2kT, *lnk, *wout, *woutT, *lno;
   const int* dom;  // K1 only
   // grads: K7 writes the per-tile blocks there itself
   float *dx, *partial, *grads;
@@ -158,12 +176,13 @@ struct Args {
   Dropout drop;
 };
 
-template <int DM, int HID, int NH, int MODE, bool TILED>
+template <class SH, int MODE, bool TILED>
 __global__ void __launch_bounds__(kThreads, 2)
 meta_block_bwd_kernel(const Args a) {
-  using S = Strides<DM, HID>;
+  constexpr int DM = SH::DM, HID = SH::HID, HID2 = SH::HID2, NH = SH::NH;
+  constexpr int HL = SH::HL;
+  using S = Strides<SH>;
   using TD = Tile<DM, kGroup>;
-  using TH = Tile<HID, kGroup>;
   constexpr int DH = DM / NH;
   constexpr bool STASH = MODE != kNoStash;
   static_assert(DM % NH == 0 && DH % 4 == 0, "head width must be 4k");
@@ -171,16 +190,16 @@ meta_block_bwd_kernel(const Args a) {
   extern __shared__ float4 smem4[];
   const int t = threadIdx.x, slot = t / kGroup, gt = t % kGroup;
   const int F = a.F, D = a.D, R = kTile * F;
-  constexpr int dsz = S::kDomain;
 
   // Shared: dWqkv [DM][3DM] | dWout [DM][DM] sums, then the tile's
   // working buffers, rows r = slot * F + f.  Global, the block's slice of
   // the scratch buffer: the dense and LayerNorm sums, then (K1) the
-  // per-domain dW1q, dW2q, dW1k, dW2k sums, each [D][DM*HID]; K7 adds a
-  // tile's into its rows of the same four blocks of the output.
+  // per-domain dW1q [D][kW1], dWmq [D][kWm], dW2q [D][kW2], and the same
+  // three of K (no dWm blocks for a 2-matrix MetaNet); K7 adds a tile's
+  // into its rows of the same blocks of the output.
   float* acc = reinterpret_cast<float*>(smem4);
   float* out = a.partial + static_cast<size_t>(blockIdx.x) *
-                               grad_floats<DM, HID>(TILED ? 0 : D);
+                               grad_floats<SH>(TILED ? 0 : D);
   float* acc_dom = (TILED ? a.grads : out) + S::kDense + kLnRows * DM;
   float* sX = acc + S::kDense;
   float* sQKV = sX + R * S::XS;
@@ -188,11 +207,12 @@ meta_block_bwd_kernel(const Args a) {
   float* sXH = sN + R * S::NS;      // xhat of those LayerNorms
   float* sINV = sXH + R * S::NS;    // their 1/sqrt(var + eps), [R][2]
   float* sH = sINV + round4(2 * R);
-  float* sP = sH + R * S::HS;       // [kTile][NH][F][F]: P, then dS
+  float* sH2 = sH + R * S::HS;      // 3-matrix: the second hidden layer
+  float* sP = sH2 + R * S::H2S;     // [kTile][NH][F][F]: P, then dS
   float* sD = sP + kTile * NH * F * F;  // dz, then dq|dk|dv
   for (int i = t; i < S::kDense; i += kThreads) acc[i] = 0.f;
   if (!TILED)
-    for (int i = t; i < 4 * D * dsz; i += kThreads) acc_dom[i] = 0.f;
+    for (int i = t; i < 2 * D * S::kMeta; i += kThreads) acc_dom[i] = 0.f;
 
   float ln_acc[kLnRows][4];
 #pragma unroll
@@ -201,7 +221,6 @@ meta_block_bwd_kernel(const Args a) {
     for (int c = 0; c < 4; ++c) ln_acc[j][c] = 0.f;
   }
   const int cgd = gt % TD::LPR, rsd = gt / TD::LPR, cold = 4 * cgd;
-  const int cgh = gt % TH::LPR, rsh = gt / TH::LPR, colh = 4 * cgh;
   // The work units: K1's grid stride over the batch's tiles of two
   // examples, one step each; K7's over the dispatch tiles, each walked in
   // steps of two slots (tile_b is even).
@@ -219,8 +238,17 @@ meta_block_bwd_kernel(const Args a) {
     if (TILED && it % per_unit == 0) {
       // a new dispatch tile: its gradient blocks start at zero (the
       // barrier after F1 orders this before the first sum into them)
-      for (int i = t; i < 4 * dsz; i += kThreads)
-        acc_dom[(i / dsz) * D * dsz + unit * dsz + i % dsz] = 0.f;
+      for (int i = t; i < 2 * S::kMeta; i += kThreads) {
+        const int w = i / S::kMeta, r = i % S::kMeta;
+        float* p = acc_dom + static_cast<size_t>(w) * D * S::kMeta;
+        if (r < S::kW1)
+          p[unit * S::kW1 + r] = 0.f;
+        else if (r < S::kW1 + S::kWm)
+          p[D * S::kW1 + unit * S::kWm + r - S::kW1] = 0.f;
+        else
+          p[D * (S::kW1 + S::kWm) + unit * S::kW2 + r - S::kW1 - S::kWm] =
+              0.f;
+      }
     }
     const int e0 = tile * kTile;
     const int nvalid = min(kTile, a.B - e0);
@@ -241,6 +269,7 @@ meta_block_bwd_kernel(const Args a) {
     float* XH = sXH + slot * F * S::NS;
     float* INV = sINV + slot * F * 2;
     float* H = sH + slot * F * S::HS;  // also o, then do (stride HS)
+    float* H2 = sH2 + slot * F * S::H2S;
     float* P = sP + slot * NH * F * F;
     float* Dg = sD + slot * F * S::QS;
     const size_t base = static_cast<size_t>(ex) * F * DM;
@@ -284,8 +313,9 @@ meta_block_bwd_kernel(const Args a) {
 #pragma unroll 1
     for (int w = 0; w < 2; ++w) {
       const float* t0 = QKV + w * DM;
-      const float* w1 = (w ? a.w1k : a.w1q) + static_cast<size_t>(dm) * dsz;
-      const float* w2 = (w ? a.w2k : a.w2q) + static_cast<size_t>(dm) * dsz;
+      const float* w1 = (w ? a.w1k : a.w1q) + static_cast<size_t>(dm) * S::kW1;
+      const float* wm = (w ? a.wmk : a.wmq) + static_cast<size_t>(dm) * S::kWm;
+      const float* w2 = (w ? a.w2k : a.w2q) + static_cast<size_t>(dm) * S::kW2;
       const float* ln = w ? a.lnk : a.lnq;
       if (!(w ? a.apply_k : a.apply_q)) {  // uniform branch
         if (live) {
@@ -298,18 +328,24 @@ meta_block_bwd_kernel(const Args a) {
         continue;
       }
       float o[TD::RPL][4];  // the MetaNet output, masked
-      if (live && !STASH) {
-        float hd[TH::RPL][4];
-        tile_gemm<kGroup, DM, HID>(t0, S::QS, w1, HID, F, gt, hd);
-#pragma unroll
-        for (int i = 0; i < TH::RPL; ++i) {
-          const int f = rsh + TH::RS * i;
-          if (f < F) st4(H + f * S::HS + colh, hd[i]);  // before the relu
+      if (!STASH) {
+        // the hidden layers before their relus: h1 into H and, for a
+        // 3-matrix MetaNet, h2 = relu(h1) @ Wm into H2
+        if (live)
+          metanet_matrix<kGroup, DM, HID, false, false>(t0, S::QS, w1, F, gt,
+                                                        H, S::HS, [] {});
+        __syncthreads();
+        if constexpr (HID2 > 0) {
+          if (live)
+            metanet_matrix<kGroup, HID, HID2, true, false>(
+                H, S::HS, wm, F, gt, H2, S::H2S, [] {});
+          __syncthreads();
         }
       }
-      if (!STASH) __syncthreads();
       if (live && !STASH) {
-        tile_gemm<kGroup, HID, DM, true>(H, S::HS, w2, DM, F, gt, o);
+        tile_gemm<kGroup, HL, DM, true>(HID2 ? H2 : H,
+                                        HID2 ? S::H2S : S::HS, w2, DM, F,
+                                        gt, o);
         if (a.drop.on) {
           const unsigned sl = w ? salt.k : salt.q;
 #pragma unroll
@@ -449,23 +485,35 @@ meta_block_bwd_kernel(const Args a) {
     attention_bwd<DM, NH, kGroup>(live, P, H, S::HS, QKV + 2 * DM, S::QS, Nm,
                                   S::NS, Dg, S::QS, F, gt, a.drop, ed, salt.s);
 
-    // B3. MetaNet backward of Q, then of K (JAX _meta_bwd): the LayerNorm
-    //     backward gives du, kept in the projection's columns of N (free
-    //     since B2), and dy = du m over dq (or dk); the hidden layer
-    //     recomputed into H, dW2[dm] += relu(hid)^T dy, dhid = (dy @ W2^T)
-    //     relu'(hid) in place over H, dW1[dm] += t0^T dhid, dt0 = du +
-    //     dhid @ W1^T over dy.  An unapplied projection keeps its gradient
-    //     as it is.
+    // B3. MetaNet backward of Q, then of K (JAX _meta_bwd, meta_block.py:
+    //     869-899): the LayerNorm backward gives du, kept in the
+    //     projection's columns of N (free since B2), and dy = du m over dq
+    //     (or dk); the hidden layers recomputed, h1 into H and (3-matrix)
+    //     h2 = relu(h1) @ Wm into H2; with hL the layer W2 reads (h1, or
+    //     h2), dW2[dm] += relu(hL)^T dy and dhL = (dy @ W2^T) relu'(hL) in
+    //     place over hL; for a 3-matrix MetaNet then dWm[dm] += relu(h1)^T
+    //     dh2 and dh1 = (dh2 @ Wm^T) relu'(h1) in place over H; then
+    //     dW1[dm] += t0^T dh1 and dt0 = du + dh1 @ W1^T over dy.  An
+    //     unapplied projection keeps its gradient as it is.
 #pragma unroll 1
     for (int w = 0; w < 2; ++w) {
       if (!(w ? a.apply_k : a.apply_q)) continue;  // uniform branch
       float* dt = Dg + w * DM;
       const float* t0 = QKV + w * DM;
-      const float* w1 = (w ? a.w1k : a.w1q) + static_cast<size_t>(dm) * dsz;
-      const float* w1T = (w ? a.w1kT : a.w1qT) + static_cast<size_t>(dm) * dsz;
-      const float* w2T = (w ? a.w2kT : a.w2qT) + static_cast<size_t>(dm) * dsz;
-      float* acc_w1 = acc_dom + 2 * w * D * dsz;
-      float* acc_w2 = acc_w1 + D * dsz;
+      const size_t d1 = static_cast<size_t>(dm) * S::kW1,
+                   dmid = static_cast<size_t>(dm) * S::kWm,
+                   d2 = static_cast<size_t>(dm) * S::kW2;
+      const float* w1 = (w ? a.w1k : a.w1q) + d1;
+      const float* w1T = (w ? a.w1kT : a.w1qT) + d1;
+      const float* wm = (w ? a.wmk : a.wmq) + dmid;
+      const float* wmT = (w ? a.wmkT : a.wmqT) + dmid;
+      const float* w2T = (w ? a.w2kT : a.w2qT) + d2;
+      float* acc_w1 = acc_dom + static_cast<size_t>(w) * D * S::kMeta;
+      float* acc_wm = acc_w1 + D * S::kW1;
+      float* acc_w2 = acc_wm + D * S::kWm;
+      // the rows of the layer W2 reads, hL: h1 (H) or h2 (H2)
+      constexpr int LS = HID2 ? S::H2S : S::HS;
+      float* const sL = HID2 ? sH2 : sH;
       if (live) {
         const float4 sc = ldg4((w ? a.lnk : a.lnq) + cold);
 #pragma unroll
@@ -496,43 +544,44 @@ meta_block_bwd_kernel(const Args a) {
             st4(dt + f * S::QS + cold, d);
           }
         }
-        float o[TH::RPL][4];
-        tile_gemm<kGroup, DM, HID>(t0, S::QS, w1, HID, F, gt, o);
-#pragma unroll
-        for (int i = 0; i < TH::RPL; ++i) {
-          const int f = rsh + TH::RS * i;
-          if (f < F) st4(H + f * S::HS + colh, o[i]);
-        }
+        metanet_matrix<kGroup, DM, HID, false, false>(t0, S::QS, w1, F, gt,
+                                                      H, S::HS, [] {});
       }
       __syncthreads();
+      if constexpr (HID2 > 0) {
+        if (live)
+          metanet_matrix<kGroup, HID, HID2, true, false>(H, S::HS, wm, F, gt,
+                                                         H2, S::H2S, [] {});
+        __syncthreads();
+      }
 #pragma unroll 1
       for (int e = 0; e < nvalid; ++e)
-        wgrad<kThreads, HID, DM, true>(sH + e * F * S::HS, S::HS,
-                             sD + e * F * S::QS + w * DM, S::QS, F,
-                             acc_w2 + doms[e] * dsz, DM, t);
+        wgrad<kThreads, HL, DM, true>(sL + e * F * LS, LS,
+                                      sD + e * F * S::QS + w * DM, S::QS, F,
+                                      acc_w2 + doms[e] * S::kW2, DM, t);
       __syncthreads();
-      if (live) {
-        float o[TH::RPL][4];
-        tile_gemm<kGroup, DM, HID>(dt, S::QS, w2T, HID, F, gt, o);
-#pragma unroll
-        for (int i = 0; i < TH::RPL; ++i) {
-          const int f = rsh + TH::RS * i;
-          if (f < F) {
-            const float4 hv = ld4(H + f * S::HS + colh);
-            const float v[4] = {hv.x > 0.f ? o[i][0] : 0.f,
-                                hv.y > 0.f ? o[i][1] : 0.f,
-                                hv.z > 0.f ? o[i][2] : 0.f,
-                                hv.w > 0.f ? o[i][3] : 0.f};
-            st4(H + f * S::HS + colh, v);
-          }
-        }
+      if (live)
+        metanet_matrix_bwd<kGroup, DM, HL>(dt, S::QS, w2T, F, gt,
+                                           sL + slot * F * LS, LS);
+      __syncthreads();
+      if constexpr (HID2 > 0) {
+#pragma unroll 1
+        for (int e = 0; e < nvalid; ++e)
+          wgrad<kThreads, HID, HID2, true>(sH + e * F * S::HS, S::HS,
+                                           sH2 + e * F * S::H2S, S::H2S, F,
+                                           acc_wm + doms[e] * S::kWm, HID2,
+                                           t);
+        __syncthreads();  // relu(h1) is read before dh1 overwrites it
+        if (live)
+          metanet_matrix_bwd<kGroup, HID2, HID>(H2, S::H2S, wmT, F, gt, H,
+                                                S::HS);
+        __syncthreads();
       }
-      __syncthreads();
 #pragma unroll 1
       for (int e = 0; e < nvalid; ++e)
         wgrad<kThreads, DM, HID>(sQKV + e * F * S::QS + w * DM, S::QS,
                        sH + e * F * S::HS, S::HS, F,
-                       acc_w1 + doms[e] * dsz, HID, t);
+                       acc_w1 + doms[e] * S::kW1, HID, t);
       if (live) {
         float o[TD::RPL][4];
         tile_gemm<kGroup, HID, DM>(H, S::HS, w1T, DM, F, gt, o);
@@ -572,8 +621,9 @@ meta_block_bwd_kernel(const Args a) {
   }
 
   // The block's partial sums, laid out as the final gradient buffer:
-  // dWqkv | dWout | LN_q, LN_k, LN_o (scale row, bias row) | dW1q | dW2q |
-  // dW1k | dW2k, the last four already in place.  The LayerNorm sums of
+  // dWqkv | dWout | LN_q, LN_k, LN_o (scale row, bias row) | dW1q | dWmq |
+  // dW2q | dW1k | dWmk | dW2k (no dWm without a middle matrix), the
+  // MetaNet blocks already in place.  The LayerNorm sums of
   // the threads holding the same columns are added in thread order.
   float* red = sX;  // the working buffers are free now
 #pragma unroll
@@ -592,10 +642,10 @@ meta_block_bwd_kernel(const Args a) {
   for (int i = t; i < S::kDense; i += kThreads) out[i] = acc[i];
 }
 
-template <int DM, int HID, int NH, int MODE, bool TILED>
+template <class SH, int MODE, bool TILED>
 cudaError_t launch(const Args& a, int blocks, cudaStream_t stream) {
-  auto kernel = meta_block_bwd_kernel<DM, HID, NH, MODE, TILED>;
-  const size_t smem = smem_bytes<DM, HID, NH>(a.F);
+  auto kernel = meta_block_bwd_kernel<SH, MODE, TILED>;
+  const size_t smem = smem_bytes<SH>(a.F);
   if (smem > kMaxSmem || (!TILED && a.D > kMaxDomains))
     return cudaErrorInvalidValue;
   static size_t configured = 0;
@@ -611,7 +661,7 @@ cudaError_t launch(const Args& a, int blocks, cudaStream_t stream) {
   if (err != cudaSuccess) return err;
   // K7's per-tile blocks are in place already: only the dense and
   // LayerNorm sums are added
-  const int total = grad_floats<DM, HID>(TILED ? 0 : a.D);
+  const int total = grad_floats<SH>(TILED ? 0 : a.D);
   sum_partials<<<(total + 255) / 256, 256, 0, stream>>>(a.partial, a.grads,
                                                         total, blocks);
   return cudaGetLastError();
@@ -619,14 +669,20 @@ cudaError_t launch(const Args& a, int blocks, cudaStream_t stream) {
 
 }  // namespace
 
-// Shapes (d, h, heads) instantiated here; ops/meta_block.py keeps the same
-// list in KERNEL_SHAPES.  partial holds blocks x satrans_meta_block_bwd_
-// grad_floats(d, h, D) floats (two blocks per SM fill the card); grads
-// receives the summed gradients in the layout written above.  Returns a
-// cudaError_t.
-extern "C" int satrans_meta_block_bwd_grad_floats(int d, int h, int D) {
-  if (d == 32 && h == 64) return grad_floats<32, 64>(D);
-  return -1;
+// Shapes (d, h, h2, heads) instantiated here (with_shape, csrc/
+// layer_common.cuh; h2 = 0 a 2-matrix MetaNet, whose middle pointers must
+// be null).  partial holds blocks x satrans_meta_block_bwd_grad_floats(d,
+// h, h2, heads, D) floats (two blocks per SM fill the card); grads
+// receives the summed gradients in the layout written above.  Returns
+// -1 for a shape not instantiated.
+extern "C" int satrans_meta_block_bwd_grad_floats(int d, int h, int h2,
+                                                  int heads, int D) {
+  int n = -1;
+  with_shape(d, h, h2, heads, [&](auto sh) {
+    n = grad_floats<decltype(sh)>(D);
+    return cudaSuccess;
+  });
+  return n;
 }
 
 extern "C" int satrans_meta_block_bwd_max_domains() { return kMaxDomains; }
@@ -637,80 +693,90 @@ extern "C" int satrans_meta_block_bwd_max_domains() { return kMaxDomains; }
 // K1-bwd-stash light reading those of K1-stash light, s null (K1-scores
 // has no backward: kScores is refused).  drop_on
 // selects the dropout, with the operands of struct Dropout
-// (csrc/dropout.cuh), the same as the forward's.
+// (csrc/dropout.cuh), the same as the forward's.  The MetaNet matrices
+// come with their per-row transposes (W1T [D, h, d], WmT [D, h2, h], W2T
+// [D, d, HL]).  Returns a cudaError_t.
 extern "C" int satrans_meta_block_bwd(
     const float* x, const int* dom, const float* g, const float* wqkv,
-    const float* wqkvT, const float* w1q, const float* w2q,
-    const float* w1qT, const float* w2qT, const float* lnq, const float* w1k,
-    const float* w2k, const float* w1kT, const float* w2kT, const float* lnk,
-    const float* wout, const float* woutT, const float* lno, float* dx,
-    float* partial, float* grads, const float* qkv, const float* uq,
-    const float* uk, const float* s, const float* o, int stash, int B, int F,
-    int d, int h, int heads, int D, int apply_q, int apply_k, int relu_out,
-    int blocks, int drop_on, unsigned seed, unsigned threshold, float scale,
-    int block_b, int fpad, int group, void* stream) {
+    const float* wqkvT, const float* w1q, const float* wmq, const float* w2q,
+    const float* w1qT, const float* wmqT, const float* w2qT,
+    const float* lnq, const float* w1k, const float* wmk, const float* w2k,
+    const float* w1kT, const float* wmkT, const float* w2kT,
+    const float* lnk, const float* wout, const float* woutT,
+    const float* lno, float* dx, float* partial, float* grads,
+    const float* qkv, const float* uq, const float* uk, const float* s,
+    const float* o, int stash, int B, int F, int d, int h, int h2, int heads,
+    int D, int apply_q, int apply_k, int relu_out, int blocks, int drop_on,
+    unsigned seed, unsigned threshold, float scale, int block_b, int fpad,
+    int group, void* stream) {
   if (B < 1 || F < 1 || F > kMaxFields || D < 1 || blocks < 1 ||
       stash == kScores)
     return static_cast<int>(cudaErrorInvalidValue);
   if (drop_on && (block_b < 1 || fpad < F || group < 1))
     return static_cast<int>(cudaErrorInvalidValue);
-  if (!stash_pointers_ok(stash, qkv, uq, uk, s, o))
+  if (!stash_pointers_ok(stash, qkv, uq, uk, s, o) ||
+      !middle_pointers_ok(h2, {wmq, wmqT, wmk, wmkT}))
     return static_cast<int>(cudaErrorInvalidValue);
-  const Args a{x,   g,    wqkv, wqkvT, w1q,  w2q,     w1qT, w2qT,
-               lnq, w1k,  w2k,  w1kT,  w2kT, lnk,     wout, woutT,
-               lno, dom,  dx,   partial, grads, B,    F,    D,
-               0,   apply_q, apply_k, relu_out, qkv, uq, uk, s, o,
+  const Args a{x,     g,    wqkv, wqkvT, w1q,  wmq,  w2q,  w1qT,
+               wmqT,  w2qT, lnq,  w1k,   wmk,  w2k,  w1kT, wmkT,
+               w2kT,  lnk,  wout, woutT, lno,  dom,  dx,   partial,
+               grads, B,    F,    D,     0,    apply_q, apply_k, relu_out,
+               qkv,   uq,   uk,   s,     o,
                Dropout{drop_on, seed, threshold, scale, block_b, fpad,
                        group}};
   const cudaStream_t str = static_cast<cudaStream_t>(stream);
-  if (d == 32 && h == 64 && heads == 4)
-    return static_cast<int>(
-        stash == kFullStash
-            ? launch<32, 64, 4, kFullStash, false>(a, blocks, str)
-        : stash == kLightStash
-            ? launch<32, 64, 4, kLightStash, false>(a, blocks, str)
-            : launch<32, 64, 4, kNoStash, false>(a, blocks, str));
-  return static_cast<int>(cudaErrorInvalidValue);
+  return static_cast<int>(with_shape(d, h, h2, heads, [&](auto sh) {
+    using SH = decltype(sh);
+    return stash == kFullStash
+               ? launch<SH, kFullStash, false>(a, blocks, str)
+           : stash == kLightStash
+               ? launch<SH, kLightStash, false>(a, blocks, str)
+               : launch<SH, kNoStash, false>(a, blocks, str);
+  }));
 }
 
 // K7-bwd and K7-bwd-stash: the backward of satrans_tiled_meta_fwd on
 // n_slots = T * tile_b dispatched slots (tile_b even), with stash
 // kNoStash (every residual pointer null, recomputing them) or kFullStash
 // (the five residuals of K7-stash); the light stash is refused.  partial
-// holds blocks x satrans_meta_block_bwd_grad_floats(d, h, 0) floats (at
-// most one block a tile is used), grads receives
-// satrans_meta_block_bwd_grad_floats(d, h, T) floats in K1's layout with
-// the T tiles in place of the domains.  Returns a cudaError_t.
+// holds blocks x satrans_meta_block_bwd_grad_floats(d, h, h2, heads, 0)
+// floats (at most one block a tile is used), grads receives
+// satrans_meta_block_bwd_grad_floats(d, h, h2, heads, T) floats in K1's
+// layout with the T tiles in place of the domains.  Returns a
+// cudaError_t.
 extern "C" int satrans_tiled_meta_bwd(
     const float* x, const float* g, const float* wqkv, const float* wqkvT,
-    const float* w1q, const float* w2q, const float* w1qT, const float* w2qT,
-    const float* lnq, const float* w1k, const float* w2k, const float* w1kT,
-    const float* w2kT, const float* lnk, const float* wout,
-    const float* woutT, const float* lno, float* dx, float* partial,
-    float* grads, const float* qkv, const float* uq, const float* uk,
-    const float* s, const float* o, int stash, int n_slots, int F, int d,
-    int h, int heads, int T, int tile_b, int apply_q, int apply_k,
-    int relu_out, int blocks, int drop_on, unsigned seed, unsigned threshold,
-    float scale, int block_b, int fpad, int group, void* stream) {
+    const float* w1q, const float* wmq, const float* w2q, const float* w1qT,
+    const float* wmqT, const float* w2qT, const float* lnq,
+    const float* w1k, const float* wmk, const float* w2k, const float* w1kT,
+    const float* wmkT, const float* w2kT, const float* lnk,
+    const float* wout, const float* woutT, const float* lno, float* dx,
+    float* partial, float* grads, const float* qkv, const float* uq,
+    const float* uk, const float* s, const float* o, int stash, int n_slots,
+    int F, int d, int h, int h2, int heads, int T, int tile_b, int apply_q,
+    int apply_k, int relu_out, int blocks, int drop_on, unsigned seed,
+    unsigned threshold, float scale, int block_b, int fpad, int group,
+    void* stream) {
   if (n_slots < 1 || F < 1 || F > kMaxFields || T < 1 || blocks < 1 ||
       tile_b < kTile || tile_b % kTile || n_slots != T * tile_b ||
       stash == kLightStash || stash == kScores)
     return static_cast<int>(cudaErrorInvalidValue);
   if (drop_on && (block_b < 1 || fpad < F || group < 1))
     return static_cast<int>(cudaErrorInvalidValue);
-  if (!stash_pointers_ok(stash, qkv, uq, uk, s, o))
+  if (!stash_pointers_ok(stash, qkv, uq, uk, s, o) ||
+      !middle_pointers_ok(h2, {wmq, wmqT, wmk, wmkT}))
     return static_cast<int>(cudaErrorInvalidValue);
-  const Args a{x,   g,    wqkv, wqkvT, w1q,  w2q,     w1qT, w2qT,
-               lnq, w1k,  w2k,  w1kT,  w2kT, lnk,     wout, woutT,
-               lno, nullptr, dx, partial, grads, n_slots, F, T,
-               tile_b, apply_q, apply_k, relu_out, qkv, uq, uk, s, o,
+  const Args a{x,     g,    wqkv, wqkvT, w1q,  wmq,  w2q,  w1qT,
+               wmqT,  w2qT, lnq,  w1k,   wmk,  w2k,  w1kT, wmkT,
+               w2kT,  lnk,  wout, woutT, lno,  nullptr, dx, partial,
+               grads, n_slots, F, T,     tile_b, apply_q, apply_k,
+               relu_out, qkv, uq, uk,    s,    o,
                Dropout{drop_on, seed, threshold, scale, block_b, fpad,
                        group}};
   const cudaStream_t str = static_cast<cudaStream_t>(stream);
-  if (d == 32 && h == 64 && heads == 4)
-    return static_cast<int>(
-        stash == kFullStash
-            ? launch<32, 64, 4, kFullStash, true>(a, blocks, str)
-            : launch<32, 64, 4, kNoStash, true>(a, blocks, str));
-  return static_cast<int>(cudaErrorInvalidValue);
+  return static_cast<int>(with_shape(d, h, h2, heads, [&](auto sh) {
+    using SH = decltype(sh);
+    return stash == kFullStash ? launch<SH, kFullStash, true>(a, blocks, str)
+                               : launch<SH, kNoStash, true>(a, blocks, str);
+  }));
 }

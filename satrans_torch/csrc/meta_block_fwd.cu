@@ -21,7 +21,15 @@
 //   P = per head softmax(q k^T / sqrt(dh)),  o = (P m_s) v
 //   y = LN_o(relu?(o @ Wout) m_z + x)
 //
-// (an unapplied projection is q = uq = q0).  K1-stash writes, float32 in
+// (an unapplied projection is q = uq = q0).  A 3-matrix MetaNet (units
+// [d, h1, h2, d], the template's HID2 > 0) puts its middle matrix between
+// the two: relu(relu(q0 @ W1q[dm]) @ Wmq[dm]) @ W2q[dm], and likewise for
+// K (the Pallas _meta_apply, meta_block.py:158-195, whose block-diagonal
+// [D h1, D h2] packing of Wm is a TPU layout choice: a warp owns one
+// example and reads its own domain's [h1, h2] block).  The second hidden
+// row is formed in registers and written over the first, so the shared
+// memory, and the two blocks an SM, stay as they are; no stash gains a
+// residual.  K1-stash writes, float32 in
 // per-example layout (not the TPU's [H, B/g, n, n] packing), qkv [B, F, 3d],
 // uq and uk [B, F, d], the probabilities P [B, H, F, F] BEFORE dropout and
 // o [B, F, d]; K1-stash light writes all but P, which its backward
@@ -48,7 +56,9 @@
 // 0.5 MFLOP (QKV 117k, MetaNets 311k, attention 46k, output 39k) against
 // 4.9 kB of activations in and out, about 100 FLOP per byte: K1-fwd is
 // bound by float32 FMA throughput (no tensor cores in this version), not
-// by device memory.  K1-stash adds 20.4 kB of residual writes an example
+// by device memory.  A 3-matrix MetaNet [32, 64, 64, 32] adds 2 F h1 h2 =
+// 156k FLOP a MetaNet, 0.82 MFLOP an example in all.  K1-stash adds 20.4
+// kB of residual writes an example
 // (the probabilities 5.8 kB of it), which at 3.35 TB/s take about as long
 // as the arithmetic at the float32 peak; K1-stash light 14.6 kB, K1-scores
 // 5.8 kB.  The
@@ -94,13 +104,13 @@ using Mode = std::integral_constant<int, M>;  // a StashMode as a type
 constexpr int kGroup = 32;      // threads per example
 
 // Shared memory of one warp: F rows of q|k|v (stride QS), then F rows of
-// scratch (stride HS) that holds x, the MetaNet hidden layer and the
-// attention output in turn.  The +4 pads shift consecutive rows by four
-// banks.
-template <int DM, int HID>
+// scratch (stride HS) that holds x, the MetaNet hidden layers (a 3-matrix
+// MetaNet's second over its first, in place) and the attention output in
+// turn.  The +4 pads shift consecutive rows by four banks.
+template <int DM, int HMAX>
 struct Smem {
   static constexpr int QS = 3 * DM + 4;
-  static constexpr int HS = HID + 4;
+  static constexpr int HS = HMAX + 4;
   static constexpr int XS = DM + 4;
   static constexpr int kRowFloats = QS + HS;
 };
@@ -111,24 +121,27 @@ struct Stash {
   float *qkv, *uq, *uk, *s, *o;
 };
 
-template <int DM, int HID, int NH, int MODE, bool TILED>
+// The MetaNet matrices of Q and K: W1 [rows, d, h1], the middle Wm [rows,
+// h1, h2] (null for a 2-matrix MetaNet) and W2 [rows, HL, d].
+struct MetaW {
+  const float *w1q, *wmq, *w2q, *w1k, *wmk, *w2k;
+};
+
+template <class SH, int MODE, bool TILED>
 __global__ void __launch_bounds__(kWarps * 32, 2)
 meta_block_fwd_kernel(const float* __restrict__ x, const int* __restrict__ dom,
-                      const float* __restrict__ wqkv,
-                      const float* __restrict__ w1q,
-                      const float* __restrict__ w2q,
+                      const float* __restrict__ wqkv, const MetaW mw,
                       const float* __restrict__ lnq,
-                      const float* __restrict__ w1k,
-                      const float* __restrict__ w2k,
                       const float* __restrict__ lnk,
                       const float* __restrict__ wout,
                       const float* __restrict__ lno, float* __restrict__ y,
                       int B, int F, int D, int tile_b, int apply_q,
                       int apply_k, int relu_out, const Dropout drop,
                       const Stash st) {
-  using S = Smem<DM, HID>;
+  constexpr int DM = SH::DM, HID = SH::HID, HID2 = SH::HID2, NH = SH::NH;
+  constexpr int HL = SH::HL;
+  using S = Smem<DM, SH::HMAX>;
   using TD = Tile<DM, kGroup>;
-  using TH = Tile<HID, kGroup>;
   constexpr int DH = DM / NH;
   // the residuals qkv, uq, uk and o; the probabilities s
   constexpr bool STASH = MODE == kFullStash || MODE == kLightStash;
@@ -193,27 +206,26 @@ meta_block_fwd_kernel(const float* __restrict__ x, const int* __restrict__ dom,
       continue;
     }
     const float* w1 =
-        (which ? w1k : w1q) + static_cast<size_t>(dm) * DM * HID;
+        (which ? mw.w1k : mw.w1q) + static_cast<size_t>(dm) * DM * HID;
     const float* w2 =
-        (which ? w2k : w2q) + static_cast<size_t>(dm) * HID * DM;
+        (which ? mw.w2k : mw.w2q) + static_cast<size_t>(dm) * HL * DM;
     float* t0 = sq + which * DM;
-    {
-      float acc[TH::RPL][4];
-      tile_gemm<kGroup, DM, HID>(t0, S::QS, w1, HID, F, lane, acc);
-      const int cgh = lane % TH::LPR, rsh = lane / TH::LPR;
-#pragma unroll
-      for (int i = 0; i < TH::RPL; ++i) {
-        const int f = rsh + TH::RS * i;
-        float v[4];
-#pragma unroll
-        for (int c = 0; c < 4; ++c) v[c] = fmaxf(acc[i][c], 0.f);
-        if (f < F) st4(sh + f * S::HS + 4 * cgh, v);
-      }
-    }
+    // h1 = relu(t0 @ W1), and for a 3-matrix MetaNet h2 = relu(h1 @ Wm)
+    // over it: every lane reads h1 before the barrier, h2 waits in
+    // registers
+    metanet_matrix<kGroup, DM, HID, false, true>(t0, S::QS, w1, F, lane, sh,
+                                                 S::HS, [] {});
     __syncwarp();
+    if constexpr (HID2 > 0) {
+      const float* wm = (which ? mw.wmk : mw.wmq) +
+                        static_cast<size_t>(dm) * HID * HID2;
+      metanet_matrix<kGroup, HID, HID2, false, true>(
+          sh, S::HS, wm, F, lane, sh, S::HS, [] { __syncwarp(); });
+      __syncwarp();
+    }
     {
       float acc[TD::RPL][4];
-      tile_gemm<kGroup, HID, DM>(sh, S::HS, w2, DM, F, lane, acc);
+      tile_gemm<kGroup, HL, DM>(sh, S::HS, w2, DM, F, lane, acc);
 #pragma unroll
       for (int i = 0; i < TD::RPL; ++i) {
         const int f = rsd + TD::RS * i;
@@ -271,16 +283,15 @@ meta_block_fwd_kernel(const float* __restrict__ x, const int* __restrict__ dom,
   }
 }
 
-template <int DM, int HID, int NH, int MODE, bool TILED>
+template <class SH, int MODE, bool TILED>
 cudaError_t launch(const float* x, const int* dom, const float* wqkv,
-                   const float* w1q, const float* w2q, const float* lnq,
-                   const float* w1k, const float* w2k, const float* lnk,
+                   const MetaW& mw, const float* lnq, const float* lnk,
                    const float* wout, const float* lno, float* y, int B,
                    int F, int D, int tile_b, int apply_q, int apply_k,
                    int relu_out, const Dropout& drop, const Stash& st,
                    cudaStream_t stream) {
-  using S = Smem<DM, HID>;
-  auto kernel = meta_block_fwd_kernel<DM, HID, NH, MODE, TILED>;
+  using S = Smem<SH::DM, SH::HMAX>;
+  auto kernel = meta_block_fwd_kernel<SH, MODE, TILED>;
   static bool configured = false;
   if (!configured) {
     const int most = kWarps * kMaxFields * S::kRowFloats * sizeof(float);
@@ -293,15 +304,17 @@ cudaError_t launch(const float* x, const int* dom, const float* wqkv,
       static_cast<size_t>(kWarps) * F * S::kRowFloats * sizeof(float);
   const int blocks = (B + kWarps - 1) / kWarps;
   kernel<<<blocks, kWarps * 32, smem, stream>>>(
-      x, dom, wqkv, w1q, w2q, lnq, w1k, w2k, lnk, wout, lno, y, B, F, D,
-      tile_b, apply_q, apply_k, relu_out, drop, st);
+      x, dom, wqkv, mw, lnq, lnk, wout, lno, y, B, F, D, tile_b, apply_q,
+      apply_k, relu_out, drop, st);
   return cudaGetLastError();
 }
 
 }  // namespace
 
-// Shapes (d, h, heads) instantiated here; ops/meta_block.py keeps the same
-// list in KERNEL_SHAPES.  stash selects the body (enum StashMode): K1-fwd
+// Shapes (d, h, h2, heads) instantiated here (with_shape, csrc/
+// layer_common.cuh; h2 = 0 is a 2-matrix MetaNet, whose middle pointers
+// wmq and wmk are null; else the [D, h, h2] middle matrices).  stash
+// selects the body (enum StashMode): K1-fwd
 // with every residual pointer null, K1-stash writing the five residuals
 // (each float32 as described above), K1-stash light writing all but s,
 // which must be null, or K1-scores writing s [B, heads, F, F] alone (the
@@ -309,70 +322,77 @@ cudaError_t launch(const float* x, const int* dom, const float* wqkv,
 // struct Dropout (csrc/dropout.cuh).  Returns a cudaError_t.
 extern "C" int satrans_meta_block_fwd(
     const float* x, const int* dom, const float* wqkv, const float* w1q,
-    const float* w2q, const float* lnq, const float* w1k, const float* w2k,
-    const float* lnk, const float* wout, const float* lno, float* y,
-    float* qkv, float* uq, float* uk, float* s, float* o, int stash, int B,
-    int F, int d, int h, int heads, int D, int apply_q, int apply_k,
-    int relu_out, int drop_on, unsigned seed, unsigned threshold,
-    float scale, int block_b, int fpad, int group, void* stream) {
+    const float* wmq, const float* w2q, const float* lnq, const float* w1k,
+    const float* wmk, const float* w2k, const float* lnk, const float* wout,
+    const float* lno, float* y, float* qkv, float* uq, float* uk, float* s,
+    float* o, int stash, int B, int F, int d, int h, int h2, int heads,
+    int D, int apply_q, int apply_k, int relu_out, int drop_on,
+    unsigned seed, unsigned threshold, float scale, int block_b, int fpad,
+    int group, void* stream) {
   if (B < 0 || F < 1 || F > kMaxFields || D < 1)
     return static_cast<int>(cudaErrorInvalidValue);
   if (drop_on && (block_b < 1 || fpad < F || group < 1))
     return static_cast<int>(cudaErrorInvalidValue);
-  if (!stash_pointers_ok(stash, qkv, uq, uk, s, o))
+  if (!stash_pointers_ok(stash, qkv, uq, uk, s, o) ||
+      !middle_pointers_ok(h2, {wmq, wmk}))
     return static_cast<int>(cudaErrorInvalidValue);
   if (B == 0) return static_cast<int>(cudaSuccess);
   const Dropout drop{drop_on, seed, threshold, scale, block_b, fpad, group};
   const Stash st{qkv, uq, uk, s, o};
+  const MetaW mw{w1q, wmq, w2q, w1k, wmk, w2k};
   const cudaStream_t str = static_cast<cudaStream_t>(stream);
-  if (d == 32 && h == 64 && heads == 4) {
+  return static_cast<int>(with_shape(d, h, h2, heads, [&](auto sh) {
+    using SH = decltype(sh);
     const auto run = [&](auto mode) {
-      return launch<32, 64, 4, decltype(mode)::value, false>(
-          x, dom, wqkv, w1q, w2q, lnq, w1k, w2k, lnk, wout, lno, y, B, F, D,
-          0, apply_q, apply_k, relu_out, drop, st, str);
+      return launch<SH, decltype(mode)::value, false>(
+          x, dom, wqkv, mw, lnq, lnk, wout, lno, y, B, F, D, 0, apply_q,
+          apply_k, relu_out, drop, st, str);
     };
-    return static_cast<int>(stash == kFullStash    ? run(Mode<kFullStash>{})
-                            : stash == kLightStash ? run(Mode<kLightStash>{})
-                            : stash == kScores     ? run(Mode<kScores>{})
-                                                   : run(Mode<kNoStash>{}));
-  }
-  return static_cast<int>(cudaErrorInvalidValue);
+    return stash == kFullStash    ? run(Mode<kFullStash>{})
+           : stash == kLightStash ? run(Mode<kLightStash>{})
+           : stash == kScores     ? run(Mode<kScores>{})
+                                  : run(Mode<kNoStash>{});
+  }));
 }
 
 // K7-fwd and K7-stash: the layer on n_slots = T * tile_b dispatched slots
-// whose tile t reads row t of the per-tile weights w1q, w1k [T, d, h] and
-// w2q, w2k [T, h, d].  stash is kNoStash (every residual pointer null) or
+// whose tile t reads row t of the per-tile weights w1q, w1k [T, d, h],
+// wmq, wmk [T, h, h2] (null for h2 = 0) and w2q, w2k [T, h2 or h, d].
+// stash is kNoStash (every residual pointer null) or
 // kFullStash (all five set, as K1-stash's); the light stash and the
 // scores are refused.
 // The other operands and the dropout are K1's, with drop's block_b the
 // dispatch tile.  Returns a cudaError_t.
 extern "C" int satrans_tiled_meta_fwd(
-    const float* x, const float* wqkv, const float* w1q, const float* w2q,
-    const float* lnq, const float* w1k, const float* w2k, const float* lnk,
-    const float* wout, const float* lno, float* y, float* qkv, float* uq,
-    float* uk, float* s, float* o, int stash, int n_slots, int F, int d,
-    int h, int heads, int T, int tile_b, int apply_q, int apply_k,
-    int relu_out, int drop_on, unsigned seed, unsigned threshold,
-    float scale, int block_b, int fpad, int group, void* stream) {
+    const float* x, const float* wqkv, const float* w1q, const float* wmq,
+    const float* w2q, const float* lnq, const float* w1k, const float* wmk,
+    const float* w2k, const float* lnk, const float* wout, const float* lno,
+    float* y, float* qkv, float* uq, float* uk, float* s, float* o,
+    int stash, int n_slots, int F, int d, int h, int h2, int heads, int T,
+    int tile_b, int apply_q, int apply_k, int relu_out, int drop_on,
+    unsigned seed, unsigned threshold, float scale, int block_b, int fpad,
+    int group, void* stream) {
   if (n_slots < 0 || F < 1 || F > kMaxFields || T < 1 || tile_b < 1 ||
       n_slots != T * tile_b || stash == kLightStash || stash == kScores)
     return static_cast<int>(cudaErrorInvalidValue);
   if (drop_on && (block_b < 1 || fpad < F || group < 1))
     return static_cast<int>(cudaErrorInvalidValue);
-  if (!stash_pointers_ok(stash, qkv, uq, uk, s, o))
+  if (!stash_pointers_ok(stash, qkv, uq, uk, s, o) ||
+      !middle_pointers_ok(h2, {wmq, wmk}))
     return static_cast<int>(cudaErrorInvalidValue);
   if (n_slots == 0) return static_cast<int>(cudaSuccess);
   const Dropout drop{drop_on, seed, threshold, scale, block_b, fpad, group};
   const Stash st{qkv, uq, uk, s, o};
+  const MetaW mw{w1q, wmq, w2q, w1k, wmk, w2k};
   const cudaStream_t str = static_cast<cudaStream_t>(stream);
-  if (d == 32 && h == 64 && heads == 4) {
+  return static_cast<int>(with_shape(d, h, h2, heads, [&](auto sh) {
+    using SH = decltype(sh);
     const auto run = [&](auto mode) {
-      return launch<32, 64, 4, decltype(mode)::value, true>(
-          x, nullptr, wqkv, w1q, w2q, lnq, w1k, w2k, lnk, wout, lno, y,
-          n_slots, F, T, tile_b, apply_q, apply_k, relu_out, drop, st, str);
+      return launch<SH, decltype(mode)::value, true>(
+          x, nullptr, wqkv, mw, lnq, lnk, wout, lno, y, n_slots, F, T,
+          tile_b, apply_q, apply_k, relu_out, drop, st, str);
     };
-    return static_cast<int>(stash == kFullStash ? run(Mode<kFullStash>{})
-                                                : run(Mode<kNoStash>{}));
-  }
-  return static_cast<int>(cudaErrorInvalidValue);
+    return stash == kFullStash ? run(Mode<kFullStash>{})
+                               : run(Mode<kNoStash>{});
+  }));
 }

@@ -100,8 +100,6 @@ from ..nn import attention, core, initializers as init, metanet
 from ..ops import dispatch, gate_block, meta_block, threefry, tiled_meta
 from ..utils import make_generator, resolve_device
 
-_VARIANTS = "ROADMAP queue 1 item 'remaining SATrans variants'"
-
 
 class SATrans(nn.Module):
     # the only large-bank read is one embed_fields call on self.emb, so the
@@ -138,9 +136,6 @@ class SATrans(nn.Module):
             raise ValueError(
                 f"meta_dnn_hidden_units must end with embedding_dim={d} for "
                 f"the MetaNet residual, got {meta_dnn_hidden_units}")
-        if variant == "metanet" and len(self.meta_units) != 3:
-            raise NotImplementedError(
-                f"3-matrix MetaNets are {_VARIANTS}")
         if d % att_head_num:
             raise ValueError(f"embedding_dim={d} must divide "
                              f"att_head_num={att_head_num}")
@@ -178,6 +173,15 @@ class SATrans(nn.Module):
             os.environ.get("SATRANS_TILED_MIN_ROWS", "8"))
         self.composite_block_b = int(os.environ.get(
             "SATRANS_BLOCK_B_COMPOSITE", "32"))
+        # the JAX package's route (satrans.py:349-376): 2- and 3-matrix
+        # MetaNets take K1 where the meta rows times the widest hidden layer
+        # are at most 4096, K7 on a tiled table; other depths take the
+        # plain layer, as the JAX package takes its XLA layer
+        widest = max(self.meta_units[1:-1] or self.meta_units[1:2])
+        self.metanet_kernel = (
+            variant == "metanet"
+            and len(self.meta_units) in meta_block.KERNEL_DEPTHS
+            and (self.tiled or self.meta_rows * widest <= 4096))
         self.att_head_num = att_head_num
         self.meta_mode = meta_mode
         self.task = task
@@ -327,12 +331,14 @@ class SATrans(nn.Module):
             seeds = self.default_seeds
         if return_scores:
             return self._scores_forward(x, dom, blk, batch, seeds)
-        if self.tiled and blk is not None:
+        if self.tiled and blk is not None and self.metanet_kernel:
             return self._tiled_forward(x, dom, blk, batch, seeds)
         simple = self.variant != "metanet"
-        # a tiled model's batch that no dispatch tile divides: the JAX
-        # package's XLA path, the plain composite layer (satrans.py:324-339)
-        plain = not self.use_kernel or self.tiled
+        # a tiled model's batch that no dispatch tile divides, and a MetaNet
+        # off the kernel route: the JAX package's XLA path, the plain layer
+        # (satrans.py:324-339, :372-376)
+        plain = not self.use_kernel or self.tiled or not (
+            simple or self.metanet_kernel)
         for layer, seed, tables in zip(self.layers, seeds,
                                        self.meta_tables(), strict=True):
             kw = dict(head_num=self.att_head_num, mode=self.meta_mode,
@@ -373,8 +379,7 @@ class SATrans(nn.Module):
         on an untiled table unless ``use_kernel=False`` or
         ``SATRANS_PROBE_FUSED=0``; else the plain layer without the clamp
         on the whole batch."""
-        fused = (self.use_kernel and self.variant == "metanet"
-                 and not self.tiled
+        fused = (self.use_kernel and self.metanet_kernel and not self.tiled
                  and os.environ.get("SATRANS_PROBE_FUSED", "1") != "0")
         scores = []
         for layer, seed, tables in zip(self.layers, seeds,

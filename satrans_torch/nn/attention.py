@@ -113,11 +113,8 @@ def meta_transformer_init(gen: torch.Generator, dim: int,
                           variant: str = "metanet",
                           share_kv_metanet: bool = True,
                           std: float = 0.05) -> MetaTransformerLayer:
-    if variant == "metanet" and len(meta_units) != 3:
-        raise NotImplementedError(
-            f"meta units {list(meta_units)}: only 2-matrix MetaNets are "
-            "ported; 3-matrix MetaNets are ROADMAP queue 1 item "
-            "'remaining SATrans variants'")
+    """A layer; its MetaNets' weights come from the tables, of any depth
+    (``meta_units``), so its parameters do not depend on it."""
     return MetaTransformerLayer(gen, dim, variant=variant,
                                 share_kv_metanet=share_kv_metanet, std=std)
 

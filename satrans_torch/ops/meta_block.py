@@ -34,14 +34,19 @@ probabilities alone, for the probes), twins of
   ``stash_light_launches`` / ``scores_launches`` / ``bwd_launches`` /
   ``stash_bwd_launches`` / ``stash_light_bwd_launches`` count them.
 
-The packing of the operands (``wqkv``, the per-domain ``[D, d, h]`` and
-``[D, h, d]`` MetaNet weights sliced out of the ``[D, P]`` tables, the
-LayerNorm rows) is plain PyTorch outside the autograd function, so autograd
-carries the kernel's gradients back to the layer's parameters and to the
-tables.  The 'pos' model gives each layer distinct Q and K tables and a
-``k_meta`` LayerNorm; in the shared case (one table, the ``q_meta``
-LayerNorm for both) the two paths are summed there, as the JAX package's
-custom VJP leaves them to JAX (meta_block.py:1381-1384).
+The packing of the operands (``wqkv``, the per-domain MetaNet weights
+sliced out of the ``[D, P]`` tables: ``W1 [D, d, h1]``, for a 3-matrix
+MetaNet ``[d, h1, h2, d]`` the middle ``Wm [D, h1, h2]`` (``None`` for a
+2-matrix one), ``W2 [D, h_last, d]``; the LayerNorm rows) is plain
+PyTorch outside the autograd function, so autograd carries the kernel's
+gradients back to the layer's parameters and to the tables, the middle
+matrix's into the tables' ``[h1 * h2]`` block.  MetaNets of other depths
+have no kernel: the model sends them to the plain layer, as the JAX
+package sends them to its XLA layer.  The 'pos' model gives each layer
+distinct Q and K tables and a ``k_meta`` LayerNorm; in the shared case
+(one table, the ``q_meta`` LayerNorm for both) the two paths are summed
+there, as the JAX package's custom VJP leaves them to JAX
+(meta_block.py:1381-1384).
 """
 
 from __future__ import annotations
@@ -58,9 +63,13 @@ from . import prng
 from ._build import (check_operands, kernel_fn, needs_grad, sm_count,
                      stream_of)
 
-# (d, h, heads) instantiated in csrc/meta_block_{fwd,bwd}.cu, and the most
-# fields an example may have
-KERNEL_SHAPES = frozenset({(32, 64, 4)})
+# (d, h1, h2, heads) instantiated in csrc/meta_block_{fwd,bwd}.cu (with_shape,
+# csrc/layer_common.cuh; h2 = 0: a 2-matrix MetaNet [d, h1, d], else
+# [d, h1, h2, d]), and the most fields an example may have
+KERNEL_SHAPES = frozenset({(32, 64, 0, 4), (32, 64, 64, 4)})
+# MetaNets of 2 and 3 matrices have a kernel (satrans_tpu/models/
+# satrans.py:372, len(meta_units) in (3, 4))
+KERNEL_DEPTHS = (3, 4)
 KERNEL_MAX_FIELDS = 20
 # K1-bwd runs two blocks of 256 threads per SM (csrc/meta_block_bwd.cu)
 BWD_BLOCKS_PER_SM = 2
@@ -72,6 +81,9 @@ BWD_MODES = ("stash", "stash_light", "recompute")
 STASH_RESIDUALS = {"full": ("qkv", "uq", "uk", "s", "o"),
                    "light": ("qkv", "uq", "uk", "o"), "scores": ("s",)}
 _STASH_MODE = {None: 0, "full": 1, "light": 2, "scores": 3}
+# the packed operands (x, dom, wqkv, w1q, wmq, w2q, lnq, w1k, wmk, w2k, lnk,
+# wout, lno): pack_operands
+N_OPERANDS = 13
 
 launches = 0                  # K1-fwd
 stash_launches = 0            # K1-stash
@@ -138,9 +150,17 @@ def check_stash_dtype() -> None:
 
 
 def _meta_operands(tables, key: str, meta_units):
-    """``[D, P]`` -> W1 ``[D, d, h]`` and W2 ``[D, h, d]``, contiguous."""
-    w1, w2 = metanet.slice_weights(tables[key], meta_units)
-    return w1.contiguous(), w2.contiguous()
+    """``[D, P]`` -> W1 ``[D, d, h1]``, Wm ``[D, h1, h2]`` (``None`` for a
+    2-matrix MetaNet) and W2 ``[D, h_last, d]``, contiguous."""
+    ws = [w.contiguous()
+          for w in metanet.slice_weights(tables[key], meta_units)]
+    return ws[0], (ws[1] if len(ws) == 3 else None), ws[-1]
+
+
+def hidden_widths(meta_units) -> tuple[int, int]:
+    """``(h1, h2)`` of a kernel MetaNet, ``h2 = 0`` for 2 matrices."""
+    h2 = int(meta_units[2]) if len(meta_units) == 4 else 0
+    return int(meta_units[1]), h2
 
 
 def _ln(ln) -> torch.Tensor:
@@ -150,16 +170,18 @@ def _ln(ln) -> torch.Tensor:
 def _check(x, meta_units, head_num: int, tables, train: bool) -> None:
     """Raise for what the kernels do not take."""
     B, F, d = x.shape
-    if len(meta_units) != 3 or meta_units[0] != d or meta_units[2] != d:
+    if len(meta_units) not in KERNEL_DEPTHS or meta_units[0] != d \
+            or meta_units[-1] != d:
         raise NotImplementedError(
-            f"meta units {list(meta_units)}: the kernel takes 2-matrix "
-            f"MetaNets [d, h, d] with d={d}")
-    h = meta_units[1]
-    if (d, h, head_num) not in KERNEL_SHAPES or F > KERNEL_MAX_FIELDS:
+            f"meta units {list(meta_units)}: the kernel takes 2- and "
+            f"3-matrix MetaNets [d, h1, d] and [d, h1, h2, d] with d={d}; "
+            "other depths take the plain layer")
+    h, h2 = hidden_widths(meta_units)
+    if (d, h, h2, head_num) not in KERNEL_SHAPES or F > KERNEL_MAX_FIELDS:
         raise NotImplementedError(
-            f"meta_block kernel is built for (d, h, heads) in "
+            f"meta_block kernel is built for (d, h1, h2, heads) in "
             f"{sorted(KERNEL_SHAPES)} and F <= {KERNEL_MAX_FIELDS}, got "
-            f"({d}, {h}, {head_num}) and F={F}")
+            f"({d}, {h}, {h2}, {head_num}) and F={F}")
     if x.dtype != torch.float32:
         raise NotImplementedError(f"meta_block kernel takes float32, got "
                                   f"{x.dtype}")
@@ -190,29 +212,40 @@ def _residual_ptrs(res, stash):
     return [ptrs.get(n) for n in STASH_RESIDUALS["full"]]
 
 
-def launch_fwd(x, dom, wqkv, w1q, w2q, lnq, w1k, w2k, lnk, wout, lno, cfg,
-               drop, stash: str | None = None):
-    """K1-fwd: the layer's output for packed operands; with
+def ptrs(ops):
+    """The operands' device pointers, None (a null pointer) for a missing
+    one (a 2-matrix MetaNet's middle matrices)."""
+    return [None if t is None else t.data_ptr() for t in ops]
+
+
+def present(ops):
+    """The operands that are there (see :func:`ptrs`)."""
+    return tuple(t for t in ops if t is not None)
+
+
+def launch_fwd(x, dom, wqkv, w1q, wmq, w2q, lnq, w1k, wmk, w2k, lnk, wout,
+               lno, cfg, drop, stash: str | None = None):
+    """K1-fwd: the layer's output for packed operands (``wmq``/``wmk`` the
+    middle matrices, ``None`` for 2-matrix MetaNets); with
     ``stash='full'`` K1-stash: ``(y, qkv, uq, uk, s, o)``; with
     ``stash='light'`` K1-stash light: ``(y, qkv, uq, uk, o)``; with
     ``stash='scores'`` K1-scores: ``(y, s)``.  ``drop`` is
     ``prng.kernel_args(...)``."""
-    h, heads, apply_q, apply_k, relu_out = cfg
+    h, h2, heads, apply_q, apply_k, relu_out = cfg
     B, F, d = x.shape
-    ops = (x, dom, wqkv, w1q, w2q, lnq, w1k, w2k, lnk, wout, lno)
-    check_operands(ops, x.device, ints=(dom,))
+    ops = (x, dom, wqkv, w1q, wmq, w2q, lnq, w1k, wmk, w2k, lnk, wout, lno)
+    check_operands(present(ops), x.device, ints=(dom,))
     y = torch.empty_like(x)
     res = () if stash is None else tuple(
         x.new_empty(shape)
         for shape in _residual_shapes(B, F, d, heads, stash))
     fn = kernel_fn("meta_block_fwd", "satrans_meta_block_fwd",
-                   [ctypes.c_void_p] * 17 + [ctypes.c_int] * 11
+                   [ctypes.c_void_p] * 19 + [ctypes.c_int] * 12
                    + [ctypes.c_uint, ctypes.c_uint, ctypes.c_float]
                    + [ctypes.c_int] * 3 + [ctypes.c_void_p])
-    err = fn(*(t.data_ptr() for t in ops + (y,)),
-             *_residual_ptrs(res, stash), _STASH_MODE[stash], B, F, d, h,
-             heads, w1q.shape[0], apply_q, apply_k, relu_out, *drop,
-             stream_of(x))
+    err = fn(*ptrs(ops + (y,)), *_residual_ptrs(res, stash),
+             _STASH_MODE[stash], B, F, d, h, h2, heads, w1q.shape[0],
+             apply_q, apply_k, relu_out, *drop, stream_of(x))
     if err:
         raise RuntimeError(f"meta_block_fwd launch failed: CUDA error {err}")
     global launches, stash_launches, stash_light_launches, scores_launches
@@ -228,14 +261,14 @@ def launch_fwd(x, dom, wqkv, w1q, w2q, lnq, w1k, w2k, lnk, wout, lno, cfg,
     return (y,) + res
 
 
-def launch_bwd(g, x, dom, wqkv, w1q, w2q, lnq, w1k, w2k, lnk, wout, lno,
-               cfg, drop, res=None):
+def launch_bwd(g, x, dom, wqkv, w1q, wmq, w2q, lnq, w1k, wmk, w2k, lnk,
+               wout, lno, cfg, drop, res=None):
     """K1-bwd; with K1-stash's residuals ``res = (qkv, uq, uk, s, o)``
     K1-bwd-stash; with K1-stash light's ``res = (qkv, uq, uk, o)``
-    K1-bwd-stash light: ``(dx, dwqkv, dw1q, dw2q, dlnq, dw1k, dw2k, dlnk,
-    dwout, dlno)`` for the upstream gradient ``g`` of the layer's
-    output."""
-    h, heads, apply_q, apply_k, relu_out = cfg
+    K1-bwd-stash light: ``(dx, dwqkv, dw1q, dwmq, dw2q, dlnq, dw1k, dwmk,
+    dw2k, dlnk, dwout, dlno)`` (``dwmq``/``dwmk`` None for 2-matrix
+    MetaNets) for the upstream gradient ``g`` of the layer's output."""
+    h, h2, heads, apply_q, apply_k, relu_out = cfg
     B, F, d = x.shape
     D = w1q.shape[0]
     g = g.contiguous()
@@ -251,26 +284,27 @@ def launch_bwd(g, x, dom, wqkv, w1q, w2q, lnq, w1k, w2k, lnk, wout, lno,
             raise ValueError(f"residuals of shapes "
                              f"{[tuple(r.shape) for r in res]}, want {want}")
         check_operands(res, x.device)
-    wqkv_t, wout_t, w1q_t, w2q_t, w1k_t, w2k_t = transposed(
-        wqkv, wout, w1q, w2q, w1k, w2k)
+    wqkv_t, wout_t, *meta_t = transposed(wqkv, wout, (w1q, wmq, w2q),
+                                         (w1k, wmk, w2k))
     # tiles of two examples
     blocks = min(BWD_BLOCKS_PER_SM * sm_count(x.device), (B + 1) // 2)
-    total = kernel_fn("meta_block_bwd", "satrans_meta_block_bwd_grad_floats",
-                      [ctypes.c_int] * 3)(d, h, D)
+    total = grad_floats(d, h, h2, heads, D)
     dx = torch.empty_like(x)
     partial = torch.empty(blocks * total, dtype=torch.float32,
                           device=x.device)
     grads = torch.empty(total, dtype=torch.float32, device=x.device)
-    ops = (x, dom, g, wqkv, wqkv_t, w1q, w2q, w1q_t, w2q_t, lnq, w1k, w2k,
-           w1k_t, w2k_t, lnk, wout, wout_t, lno, dx, partial, grads)
-    check_operands(ops, x.device, ints=(dom,))
+    (w1q_t, wmq_t, w2q_t), (w1k_t, wmk_t, w2k_t) = meta_t
+    ops = (x, dom, g, wqkv, wqkv_t, w1q, wmq, w2q, w1q_t, wmq_t, w2q_t, lnq,
+           w1k, wmk, w2k, w1k_t, wmk_t, w2k_t, lnk, wout, wout_t, lno, dx,
+           partial, grads)
+    check_operands(present(ops), x.device, ints=(dom,))
     fn = kernel_fn("meta_block_bwd", "satrans_meta_block_bwd",
-                   [ctypes.c_void_p] * 26 + [ctypes.c_int] * 12
+                   [ctypes.c_void_p] * 30 + [ctypes.c_int] * 13
                    + [ctypes.c_uint, ctypes.c_uint, ctypes.c_float]
                    + [ctypes.c_int] * 3 + [ctypes.c_void_p])
-    err = fn(*(t.data_ptr() for t in ops), *_residual_ptrs(res, stash),
-             _STASH_MODE[stash], B, F, d, h, heads, D, apply_q, apply_k,
-             relu_out, blocks, *drop, stream_of(x))
+    err = fn(*ptrs(ops), *_residual_ptrs(res, stash), _STASH_MODE[stash],
+             B, F, d, h, h2, heads, D, apply_q, apply_k, relu_out, blocks,
+             *drop, stream_of(x))
     if err:
         raise RuntimeError(f"meta_block_bwd launch failed: CUDA error {err}")
     global bwd_launches, stash_bwd_launches, stash_light_bwd_launches
@@ -280,42 +314,68 @@ def launch_bwd(g, x, dom, wqkv, w1q, w2q, lnq, w1k, w2k, lnk, wout, lno,
         stash_bwd_launches += 1
     else:
         stash_light_bwd_launches += 1
-    return (dx, *split_grads(grads, d, h, D))
+    return (dx, *split_grads(grads, d, h, h2, D))
 
 
-def transposed(wqkv, wout, w1q, w2q, w1k, w2k):
-    """``(wqkv^T, wout^T, w1q^T, w2q^T, w1k^T, w2k^T)``, contiguous, the
-    MetaNet blocks transposed per row: every GEMM of the backward kernels
-    reads its weights row-major [K, N], so their transposed products get
-    transposed copies (a few kB a row)."""
-    w1q_t, w2q_t = (w.transpose(1, 2).contiguous() for w in (w1q, w2q))
-    w1k_t, w2k_t = ((w1q_t, w2q_t) if w1k is w1q and w2k is w2q else
-                    (w.transpose(1, 2).contiguous() for w in (w1k, w2k)))
-    return (wqkv.t().contiguous(), wout.t().contiguous(), w1q_t, w2q_t,
-            w1k_t, w2k_t)
+def grad_floats(d: int, h: int, h2: int, heads: int, rows: int) -> int:
+    """Floats of the backward kernels' gradient buffer for ``rows`` MetaNet
+    rows (K1's domains, K7's tiles; 0: a block's dense and LayerNorm sums
+    alone)."""
+    return kernel_fn("meta_block_bwd", "satrans_meta_block_bwd_grad_floats",
+                     [ctypes.c_int] * 5)(d, h, h2, heads, rows)
 
 
-def split_grads(grads, d: int, h: int, D: int):
+def transposed(wqkv, wout, meta_q, meta_k):
+    """``(wqkv^T, wout^T, (W1q^T, Wmq^T, W2q^T), (W1k^T, Wmk^T, W2k^T))``,
+    contiguous, the MetaNet matrices (``meta_q``, ``meta_k``: ``(W1, Wm,
+    W2)``, ``Wm`` None for 2 matrices) transposed per row: every GEMM of
+    the backward kernels reads its weights row-major [K, N], so their
+    transposed products get transposed copies (a few kB a row)."""
+    def t(ws):
+        return tuple(None if w is None else w.transpose(1, 2).contiguous()
+                     for w in ws)
+    meta_q_t = t(meta_q)
+    same = all(a is b for a, b in zip(meta_q, meta_k))
+    return (wqkv.t().contiguous(), wout.t().contiguous(), meta_q_t,
+            meta_q_t if same else t(meta_k))
+
+
+def split_grads(grads, d: int, h: int, h2: int, D: int):
     """The backward kernels' gradient buffer (``dWqkv | dWout | LN_q, LN_k,
-    LN_o | dW1q | dW2q | dW1k | dW2k``, ``D`` rows of each MetaNet block)
-    as ``(dwqkv, dw1q, dw2q, dlnq, dw1k, dw2k, dlnk, dwout, dlno)``."""
-    sizes = [3 * d * d, d * d, 2 * d, 2 * d, 2 * d] + [D * d * h] * 4
-    (dwqkv, dwout, dlnq, dlnk, dlno, dw1q, dw2q, dw1k,
-     dw2k) = torch.split(grads, sizes)
-    return (dwqkv.view(d, 3 * d), dw1q.view(D, d, h), dw2q.view(D, h, d),
-            dlnq.view(2, d), dw1k.view(D, d, h), dw2k.view(D, h, d),
-            dlnk.view(2, d), dwout.view(d, d), dlno.view(2, d))
+    LN_o | dW1q | dWmq | dW2q | dW1k | dWmk | dW2k``, ``D`` rows of each
+    MetaNet block, no ``dWm`` blocks for ``h2 = 0``) as ``(dwqkv, dw1q,
+    dwmq, dw2q, dlnq, dw1k, dwmk, dw2k, dlnk, dwout, dlno)``, ``dwmq`` and
+    ``dwmk`` None for ``h2 = 0``."""
+    hl = h2 or h
+    meta = [(d, h), (h, h2), (hl, d)]
+    sizes = [3 * d * d, d * d, 2 * d, 2 * d, 2 * d] + [
+        D * a * b for a, b in meta] * 2
+    parts = torch.split(grads, sizes)
+    dwqkv, dwout, dlnq, dlnk, dlno = parts[:5]
+    q, k = ([None if h2 == 0 and i == 1 else p.view(D, *meta[i])
+             for i, p in enumerate(parts[j:j + 3])] for j in (5, 8))
+    return (dwqkv.view(d, 3 * d), *q, dlnq.view(2, d), *k, dlnk.view(2, d),
+            dwout.view(d, d), dlno.view(2, d))
+
+
+def input_grads(grads, cfg):
+    """The kernels' gradients but dx (:func:`split_grads`) as the autograd
+    functions' input gradients of the weight operands (None for an
+    unapplied projection's MetaNet and LayerNorm)."""
+    _, _, _, apply_q, apply_k, _ = cfg
+    (dwqkv, dw1q, dwmq, dw2q, dlnq, dw1k, dwmk, dw2k, dlnk, dwout,
+     dlno) = grads
+    q = (dw1q, dwmq, dw2q, dlnq) if apply_q else (None,) * 4
+    k = (dw1k, dwmk, dw2k, dlnk) if apply_k else (None,) * 4
+    return (dwqkv, *q, *k, dwout, dlno)
 
 
 def _input_grads(grads, cfg):
     """The kernel's gradients as the autograd functions' input gradients
     (None for dom, for an unapplied projection's operands, cfg and
     drop)."""
-    _, _, apply_q, apply_k, _ = cfg
-    (dx, dwqkv, dw1q, dw2q, dlnq, dw1k, dw2k, dlnk, dwout, dlno) = grads
-    q = (dw1q, dw2q, dlnq) if apply_q else (None, None, None)
-    k = (dw1k, dw2k, dlnk) if apply_k else (None, None, None)
-    return (dx, None, dwqkv, *q, *k, dwout, dlno, None, None)
+    dx, *rest = grads
+    return (dx, None, *input_grads(rest, cfg), None, None)
 
 
 class _MetaLayerFn(torch.autograd.Function):
@@ -324,13 +384,11 @@ class _MetaLayerFn(torch.autograd.Function):
     forward saves only its inputs."""
 
     @staticmethod
-    def forward(ctx, x, dom, wqkv, w1q, w2q, lnq, w1k, w2k, lnk, wout, lno,
-                cfg, drop):
+    def forward(ctx, *args):
+        *ops, cfg, drop = args
         ctx.cfg, ctx.drop = cfg, drop
-        ctx.save_for_backward(x, dom, wqkv, w1q, w2q, lnq, w1k, w2k, lnk,
-                              wout, lno)
-        return launch_fwd(x, dom, wqkv, w1q, w2q, lnq, w1k, w2k, lnk, wout,
-                          lno, cfg, drop)
+        ctx.save_for_backward(*ops)
+        return launch_fwd(*ops, cfg, drop)
 
     @staticmethod
     def backward(ctx, g):
@@ -352,8 +410,9 @@ def _stash_backward(ctx, g):
     """The backward of the stash autograd functions: the backward body
     that reads the saved residuals (their count tells the stash)."""
     saved = ctx.saved_tensors
-    return _input_grads(launch_bwd(g, *saved[:11], ctx.cfg, ctx.drop,
-                                   res=saved[11:]), ctx.cfg)
+    return _input_grads(launch_bwd(g, *saved[:N_OPERANDS], ctx.cfg,
+                                   ctx.drop, res=saved[N_OPERANDS:]),
+                        ctx.cfg)
 
 
 class _StashLayerFn(torch.autograd.Function):
@@ -390,30 +449,31 @@ _LAYER_FNS = {"stash": _StashLayerFn, "stash_light": _StashLightLayerFn,
 def pack_weights(layer: MetaTransformerLayer, tables, *,
                  meta_units: Sequence[int], head_num: int,
                  mode: str = "QK", relu_out: bool = False):
-    """The weight operands ``(wqkv, w1q, w2q, lnq, w1k, w2k, lnk, wout,
-    lno)`` and the ``cfg`` of K1 and K7, packed with differentiable
-    PyTorch ops from the layer's parameters and the ``[rows, P]`` tables
-    (K1's domains, K7's tiles)."""
+    """The weight operands ``(wqkv, w1q, wmq, w2q, lnq, w1k, wmk, w2k, lnk,
+    wout, lno)`` (``wmq``/``wmk`` None for 2-matrix MetaNets) and the
+    ``cfg`` ``(h1, h2, heads, apply_q, apply_k, relu_out)`` of K1 and K7,
+    packed with differentiable PyTorch ops from the layer's parameters and
+    the ``[rows, P]`` tables (K1's domains, K7's tiles)."""
     wqkv = torch.cat([layer.wq, layer.wk, layer.wv], dim=1).contiguous()
-    w1q, w2q = _meta_operands(tables, "Q", meta_units)
-    w1k, w2k = (w1q, w2q) if tables["K"] is tables["Q"] \
+    meta_q = _meta_operands(tables, "Q", meta_units)
+    meta_k = meta_q if tables["K"] is tables["Q"] \
         else _meta_operands(tables, "K", meta_units)
     lnq = _ln(layer.q_meta.ln)
     # the 'pos' layer's own K LayerNorm; else Q's, one tensor for both
     k_meta = getattr(layer, "k_meta", None)
     lnk = lnq if k_meta is None else _ln(k_meta.ln)
-    cfg = (meta_units[1], head_num, int("Q" in mode), int("K" in mode),
-           int(relu_out))
-    return (wqkv, w1q, w2q, lnq, w1k, w2k, lnk, layer.wout.contiguous(),
+    cfg = (*hidden_widths(meta_units), head_num, int("Q" in mode),
+           int("K" in mode), int(relu_out))
+    return (wqkv, *meta_q, lnq, *meta_k, lnk, layer.wout.contiguous(),
             _ln(layer.ln)), cfg
 
 
 def pack_operands(x, layer: MetaTransformerLayer, tables, dom, *,
                   meta_units: Sequence[int], head_num: int,
                   mode: str = "QK", relu_out: bool = False):
-    """The kernels' operands ``(x, dom, wqkv, w1q, w2q, lnq, w1k, w2k, lnk,
-    wout, lno)`` and their ``cfg``, packed with differentiable PyTorch ops
-    from the layer's parameters and the ``[D, P]`` tables."""
+    """The kernels' operands ``(x, dom, wqkv, w1q, wmq, w2q, lnq, w1k, wmk,
+    w2k, lnk, wout, lno)`` and their ``cfg``, packed with differentiable
+    PyTorch ops from the layer's parameters and the ``[D, P]`` tables."""
     weights, cfg = pack_weights(layer, tables, meta_units=meta_units,
                                 head_num=head_num, mode=mode,
                                 relu_out=relu_out)

@@ -50,7 +50,8 @@ from . import meta_block, prng
 from ._build import (check_operands, kernel_fn, needs_grad, sm_count,
                      stream_of)
 
-# (d, h, heads) and the most fields: K1's instantiations (the same sources)
+# (d, h1, h2, heads) and the most fields: K1's instantiations (the same
+# sources)
 KERNEL_SHAPES = meta_block.KERNEL_SHAPES
 # K7-bwd walks a tile in steps of two slots
 TILE_MULTIPLE = 2
@@ -113,30 +114,31 @@ def _check(x, meta_units, head_num: int, tile_tables,
                          "divides the slots")
 
 
-def launch_fwd(x, wqkv, w1q, w2q, lnq, w1k, w2k, lnk, wout, lno, cfg,
-               drop, block_b: int, stash: bool = False):
+def launch_fwd(x, wqkv, w1q, wmq, w2q, lnq, w1k, wmk, w2k, lnk, wout, lno,
+               cfg, drop, block_b: int, stash: bool = False):
     """K7-fwd: the layer's output for packed operands on tiles of
-    ``block_b`` slots (``w1q`` etc. ``[n_tiles, ...]``); with ``stash``
-    K7-stash: ``(y, qkv, uq, uk, s, o)``.  ``drop`` is
-    ``prng.kernel_args(...)`` with the dispatch tile."""
-    h, heads, apply_q, apply_k, relu_out = cfg
+    ``block_b`` slots (``w1q`` etc. ``[n_tiles, ...]``; ``wmq``/``wmk``
+    None for 2-matrix MetaNets); with ``stash`` K7-stash: ``(y, qkv, uq,
+    uk, s, o)``.  ``drop`` is ``prng.kernel_args(...)`` with the dispatch
+    tile."""
+    h, h2, heads, apply_q, apply_k, relu_out = cfg
     n_slots, F, d = x.shape
     T = w1q.shape[0]
     if T * block_b != n_slots:
         raise ValueError(f"{T} tiles of {block_b} slots for {n_slots} slots")
-    ops = (x, wqkv, w1q, w2q, lnq, w1k, w2k, lnk, wout, lno)
-    check_operands(ops, x.device)
+    ops = (x, wqkv, w1q, wmq, w2q, lnq, w1k, wmk, w2k, lnk, wout, lno)
+    check_operands(meta_block.present(ops), x.device)
     y = torch.empty_like(x)
     res = tuple(x.new_empty(shape) for shape in meta_block._residual_shapes(
         n_slots, F, d, heads, "full")) if stash else ()
     fn = kernel_fn("meta_block_fwd", "satrans_tiled_meta_fwd",
-                   [ctypes.c_void_p] * 16 + [ctypes.c_int] * 12
+                   [ctypes.c_void_p] * 18 + [ctypes.c_int] * 13
                    + [ctypes.c_uint, ctypes.c_uint, ctypes.c_float]
                    + [ctypes.c_int] * 3 + [ctypes.c_void_p])
     mode = "full" if stash else None
-    err = fn(*(t.data_ptr() for t in ops + (y,)),
+    err = fn(*meta_block.ptrs(ops + (y,)),
              *meta_block._residual_ptrs(res, mode),
-             meta_block._STASH_MODE[mode], n_slots, F, d, h, heads, T,
+             meta_block._STASH_MODE[mode], n_slots, F, d, h, h2, heads, T,
              block_b, apply_q, apply_k, relu_out, *drop, stream_of(x))
     if err:
         raise RuntimeError(f"tiled_meta_fwd launch failed: CUDA error {err}")
@@ -148,13 +150,14 @@ def launch_fwd(x, wqkv, w1q, w2q, lnq, w1k, w2k, lnk, wout, lno, cfg,
     return (y,) + res
 
 
-def launch_bwd(g, x, wqkv, w1q, w2q, lnq, w1k, w2k, lnk, wout, lno, cfg,
-               drop, block_b: int, res=None):
+def launch_bwd(g, x, wqkv, w1q, wmq, w2q, lnq, w1k, wmk, w2k, lnk, wout,
+               lno, cfg, drop, block_b: int, res=None):
     """K7-bwd; with K7-stash's residuals ``res = (qkv, uq, uk, s, o)``
-    K7-bwd-stash: ``(dx, dwqkv, dw1q, dw2q, dlnq, dw1k, dw2k, dlnk, dwout,
-    dlno)``, the per-tile blocks ``[n_tiles, ...]``, for the upstream
+    K7-bwd-stash: ``(dx, dwqkv, dw1q, dwmq, dw2q, dlnq, dw1k, dwmk, dw2k,
+    dlnk, dwout, dlno)``, the per-tile blocks ``[n_tiles, ...]``
+    (``dwmq``/``dwmk`` None for 2-matrix MetaNets), for the upstream
     gradient ``g`` of the layer's output."""
-    h, heads, apply_q, apply_k, relu_out = cfg
+    h, h2, heads, apply_q, apply_k, relu_out = cfg
     n_slots, F, d = x.shape
     T = w1q.shape[0]
     if T * block_b != n_slots:
@@ -169,28 +172,26 @@ def launch_bwd(g, x, wqkv, w1q, w2q, lnq, w1k, w2k, lnk, wout, lno, cfg,
             raise ValueError(f"residuals of shapes "
                              f"{[tuple(r.shape) for r in res]}, want {want}")
         check_operands(res, x.device)
-    wqkv_t, wout_t, w1q_t, w2q_t, w1k_t, w2k_t = meta_block.transposed(
-        wqkv, wout, w1q, w2q, w1k, w2k)
+    wqkv_t, wout_t, meta_q_t, meta_k_t = meta_block.transposed(
+        wqkv, wout, (w1q, wmq, w2q), (w1k, wmk, w2k))
     # K1-bwd's two blocks per SM, a block on whole tiles
     blocks = min(meta_block.BWD_BLOCKS_PER_SM * sm_count(x.device), T)
-    floats = kernel_fn("meta_block_bwd", "satrans_meta_block_bwd_grad_floats",
-                       [ctypes.c_int] * 3)
     dx = torch.empty_like(x)
-    partial = torch.empty(blocks * floats(d, h, 0), dtype=torch.float32,
-                          device=x.device)
-    grads = torch.empty(floats(d, h, T), dtype=torch.float32,
-                        device=x.device)
-    ops = (x, g, wqkv, wqkv_t, w1q, w2q, w1q_t, w2q_t, lnq, w1k, w2k, w1k_t,
-           w2k_t, lnk, wout, wout_t, lno, dx, partial, grads)
-    check_operands(ops, x.device)
+    partial = torch.empty(
+        blocks * meta_block.grad_floats(d, h, h2, heads, 0),
+        dtype=torch.float32, device=x.device)
+    grads = torch.empty(meta_block.grad_floats(d, h, h2, heads, T),
+                        dtype=torch.float32, device=x.device)
+    ops = (x, g, wqkv, wqkv_t, w1q, wmq, w2q, *meta_q_t, lnq, w1k, wmk, w2k,
+           *meta_k_t, lnk, wout, wout_t, lno, dx, partial, grads)
+    check_operands(meta_block.present(ops), x.device)
     fn = kernel_fn("meta_block_bwd", "satrans_tiled_meta_bwd",
-                   [ctypes.c_void_p] * 25 + [ctypes.c_int] * 13
+                   [ctypes.c_void_p] * 29 + [ctypes.c_int] * 14
                    + [ctypes.c_uint, ctypes.c_uint, ctypes.c_float]
                    + [ctypes.c_int] * 3 + [ctypes.c_void_p])
     mode = None if res is None else "full"
-    err = fn(*(t.data_ptr() for t in ops),
-             *meta_block._residual_ptrs(res, mode),
-             meta_block._STASH_MODE[mode], n_slots, F, d, h, heads,
+    err = fn(*meta_block.ptrs(ops), *meta_block._residual_ptrs(res, mode),
+             meta_block._STASH_MODE[mode], n_slots, F, d, h, h2, heads,
              T, block_b, apply_q, apply_k, relu_out, blocks, *drop,
              stream_of(x))
     if err:
@@ -200,18 +201,15 @@ def launch_bwd(g, x, wqkv, w1q, w2q, lnq, w1k, w2k, lnk, wout, lno, cfg,
         bwd_launches += 1
     else:
         stash_bwd_launches += 1
-    return (dx, *meta_block.split_grads(grads, d, h, T))
+    return (dx, *meta_block.split_grads(grads, d, h, h2, T))
 
 
 def _input_grads(grads, cfg):
     """The kernel's gradients as the autograd functions' input gradients
     (None for an unapplied projection's operands, cfg, drop and
     block_b)."""
-    _, _, apply_q, apply_k, _ = cfg
-    (dx, dwqkv, dw1q, dw2q, dlnq, dw1k, dw2k, dlnk, dwout, dlno) = grads
-    q = (dw1q, dw2q, dlnq) if apply_q else (None, None, None)
-    k = (dw1k, dw2k, dlnk) if apply_k else (None, None, None)
-    return (dx, dwqkv, *q, *k, dwout, dlno, None, None, None)
+    dx, *rest = grads
+    return (dx, *meta_block.input_grads(rest, cfg), None, None, None)
 
 
 class _TiledFn(torch.autograd.Function):
@@ -249,8 +247,9 @@ class _TiledStashFn(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         saved = ctx.saved_tensors
-        return _input_grads(launch_bwd(g, *saved[:10], ctx.cfg, ctx.drop,
-                                       ctx.block_b, res=saved[10:]), ctx.cfg)
+        n = meta_block.N_OPERANDS - 1  # no dom
+        return _input_grads(launch_bwd(g, *saved[:n], ctx.cfg, ctx.drop,
+                                       ctx.block_b, res=saved[n:]), ctx.cfg)
 
 
 _LAYER_FNS = {"stash": _TiledStashFn, "recompute": _TiledFn}

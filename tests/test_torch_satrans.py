@@ -100,10 +100,10 @@ def test_synthetic_data_is_the_same():
 
 
 @pytest.mark.parametrize("kw", [
-    dict(meta_dnn_hidden_units=(16, 16, 8)), dict(compute_dtype="bfloat16"),
+    dict(compute_dtype="bfloat16"),
     # several columns past SATRANS_COMPOSITE_MAX: 4 x 300 combinations
     dict(domain_cols=["domain", "f0"], num_domains_list=[3, 299]),
-], ids=["3-matrix", "bf16", "multi-column"])
+], ids=["bf16", "multi-column"])
 def test_unported_variants_raise(kw):
     layout = satrans_torch.FeatureLayout(tp.columns(satrans_torch))
     args = tp.model_kwargs()
