@@ -128,6 +128,21 @@ Phases, each of which exits non-zero on failure:
    recompute.  The JSON line lists the 3-matrix instances as
    ``<body>_3mat``, with their launches on phase 13's paths.
 
+14. the row-DMA probes (P1, P2: per-row bulk copies of the TMA in
+   ``csrc/row_dma.cu``): ``satrans_torch.bench.scatter_probe`` and
+   ``gather_probe`` at their production shape (arrays of 1,638,400 x 128
+   float32, N = 81,920 ids; P1 sorted unique, P2 with duplicates): every
+   variant (bulk, slots) and rb (64, 128, 256), P2 on one array and on
+   three, against ``index_copy_`` and ``index_select`` exactly, timed
+   beside the plain version, the library call, K2 / K4 and a null body,
+   with the bytes bound; an N that rb does not divide raises;
+15. the port's bench, ``satrans_torch.bench.train_throughput --chunks 1``,
+   in-process: its four arms (AliCCP dense, lazy, lazy with the fused
+   tail; Alimama sota-pos lazy) at batch 8192 on 10 staged batches, each
+   line with a finite loss, examples/s of the staged chunk and of ``fit``
+   above 0, and exactly 3 + 3 K1-stash / K1-bwd-stash launches a step, with
+   K4, K2 and K3 (split tail) or K4, K3 and K5 (fused tail) in ``lazy``.
+
 Phases 2 and 4 also hold K1 where a share of the attention logits passes
 the kernels' clamp at 60 against the clamped plain layer.
 
@@ -773,29 +788,12 @@ def backward_phase(dev):
             for bwd in meta_block.BWD_MODES}
 
 
-def device_ops(prof):
-    """``[(name, device ms, count)]`` of the kernels and copies a
-    torch.profiler run saw on the device, largest first.  Spans of
-    record_function annotations (such as ``Optimizer.step``) also appear
-    on the device's timeline; they enclose kernels already counted and
-    are left out."""
-    from torch.autograd import DeviceType
-    by_name = {}
-    for e in prof.events():
-        if e.device_type != DeviceType.CUDA or getattr(
-                e, "is_user_annotation", False):
-            continue
-        ms, n = by_name.get(e.name, (0.0, 0))
-        by_name[e.name] = (ms + e.self_device_time_total / 1e3, n + 1)
-    return sorted(((k, ms, n) for k, (ms, n) in by_name.items()),
-                  key=lambda t: -t[1])
-
-
 def device_profile(label, run, ref_ms, card, top=12):
     """Device time by kernel over one ``run()`` (torch.profiler), and the
     device's busy share of its wall time, with the profiler on and against
     ``ref_ms``, the same work's time without it.  Returns the busy ms, or
     None where the profiler saw no device time."""
+    from satrans_torch.ops import profiling
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
@@ -804,7 +802,7 @@ def device_profile(label, run, ref_ms, card, top=12):
         run()
         torch.cuda.synchronize()
         wall_ms = 1e3 * (time.perf_counter() - t0)
-    ops = device_ops(prof)
+    ops = profiling.device_ops(prof)
     if not ops:
         print(f"profile: {label}: the profiler saw no device time: not "
               "measured")
@@ -930,7 +928,9 @@ def zero_counts():
     meta_block.scores_launches = 0
     for name in K7_COUNTS:
         setattr(tiled_meta, name, 0)
-    for mod in (gather, scatter, eqgemm, lazy_tail):
+    from satrans_torch.bench import gather_probe, scatter_probe
+    for mod in (gather, scatter, eqgemm, lazy_tail, gather_probe,
+                scatter_probe):
         mod.launches = 0
     gate_block.launches = gate_block.bwd_launches = 0
 
@@ -3036,6 +3036,134 @@ def metanet3_phase(dev, card):
     return fields, paths
 
 
+# P1 and P2 (phase 14): name in the JSON line, probe module, the TPU
+# function they replace
+ROW_DMA = (("row_dma_scatter", "scatter_probe",
+            "satrans_tpu/bench/pallas_scatter_probe.py:118 (pallas_scatter "
+            ":109, _scatter_kernel :42)"),
+           ("row_dma_gather", "gather_probe",
+            "satrans_tpu/bench/pallas_gather_probe.py:96 (pallas_gather "
+            ":87, _gather_kernel :46)"))
+
+
+def row_dma_phase(dev, card):
+    """Phase 14: the row-DMA probes P1 and P2 at their production shape,
+    run as ``python3 -m satrans_torch.bench.scatter_probe`` (and
+    ``gather_probe``) run them, with the launch counts from 0.  Returns the
+    JSON fields and the launches by kernel."""
+    import importlib
+    t0 = time.perf_counter()
+    out, launched = {}, {}
+    for name, module, _ in ROW_DMA:
+        probe = importlib.import_module(f"satrans_torch.bench.{module}")
+        # an N that rb does not divide raises, on the card as on the CPU
+        ids = torch.arange(130, device=dev)
+        bank = torch.zeros(200, 128, device=dev)
+        try:
+            if module == "scatter_probe":
+                probe.row_dma_scatter(bank, ids, bank[:130], rb=128)
+            else:
+                probe.row_dma_gather([bank], ids, rb=128)
+            raised = False
+        except ValueError:
+            raised = True
+        check(raised, f"{name}: N = 130 at rb 128 did not raise")
+        zero_counts()
+        res = probe.main([])
+        launched[name] = probe.launches
+        errs = res["max_abs_err"]
+        arrays = (1, 3) if module == "gather_probe" else (None,)
+        keys = [f"tma_{v}_rb{rb}" + (f"_x{a}" if a else "")
+                for v in probe.VARIANTS for rb in probe.RBS for a in arrays]
+        check(sorted(errs) == sorted(keys)
+              and all(e == 0.0 for e in errs.values()),
+              f"{name}: not every variant and rb equals its plain version: "
+              f"{errs}")
+        ms = res["ms"]
+        if module == "scatter_probe":
+            tma = {k: ms[k] for k in keys}
+            best = min(tma, key=tma.get)
+            fields = dict(ms=tma[best], variant=best, ms_by_variant=tma,
+                          plain_ms=ms["plain"], library_ms=ms["index_copy_"],
+                          k2_ms=ms["k2_scatter_rows_set"],
+                          null_ms=ms["null_body"], bound_ms=res["bound_ms"])
+        else:
+            tma = {k: ms[k] for k in keys}
+            x1 = {k: v for k, v in tma.items() if k.endswith("_x1")}
+            best = min(x1, key=x1.get)
+            best3 = min((k for k in tma if k.endswith("_x3")), key=tma.get)
+            fields = dict(ms=x1[best], variant=best, ms_by_variant=tma,
+                          ms_x3=tma[best3], variant_x3=best3,
+                          plain_ms=ms["plain_x1"],
+                          library_ms=ms["index_select_x1"],
+                          plain_ms_x3=ms["plain_x3"],
+                          library_ms_x3=ms["index_select_x3"],
+                          k4_ms=ms["k4_gather_rows_x1"],
+                          k4_ms_x3=ms["k4_gather_rows_x3"],
+                          null_ms=ms["null_body"],
+                          bound_ms=res["bound_ms"]["x1"],
+                          bound_ms_x3=res["bound_ms"]["x3"])
+        out[name] = dict(fields, max_abs_err=max(errs.values()),
+                         bound_by="bytes", workload=res["workload"])
+        print(f"kernel {name} [{card}]: {res['workload']}: every variant "
+              f"and rb exact; fastest {best} {fields['ms']:.4f} ms, plain "
+              f"{fields['plain_ms']:.4f}, library {fields['library_ms']:.4f},"
+              f" bound {fields['bound_ms']:.4f} ms (bytes); launches "
+              f"{launched[name]}", flush=True)
+        gc.collect()
+        torch.cuda.empty_cache()
+    print(f"phase 14: {time.perf_counter() - t0:.2f}s", flush=True)
+    return out, launched
+
+
+# each bench arm's kernel launches a step (phase 15): the stash pair, and
+# in lazy the split tail's K4, K2, K3 or the fused tail's K4, K3, K5
+BENCH_PER_STEP = {
+    "dense": {},
+    "lazy": dict(zip(ROW_NAMES, LAZY_ROWS_PER_STEP)),
+    "lazy_fusedtail": dict(zip(ROW_NAMES, SPARSE_ARMS[3][3])),
+    "alimama_pos_lazy": dict(zip(ROW_NAMES, LAZY_ROWS_PER_STEP)),
+}
+
+
+def bench_phase(card):
+    """Phase 15: ``python3 -m satrans_torch.bench.train_throughput --chunks
+    1`` in-process, the launch counts from 0.  Returns the launches by
+    kernel."""
+    from satrans_torch.bench import train_throughput
+    t0 = time.perf_counter()
+    os.environ.pop("SATRANS_BWD", None)
+    os.environ.pop("SATRANS_LAZY_TAIL", None)
+    zero_counts()
+    recs = train_throughput.main(["--chunks", "1"])
+    launched = train_throughput.launch_counts()
+    arms, summary = recs[:-1], recs[-1]
+    check([a["arm"] for a in arms] == list(BENCH_PER_STEP),
+          f"bench arms {[a['arm'] for a in arms]}")
+    for a in arms:
+        want = {"meta_block_fwd_stash": LAYERS,
+                "meta_block_bwd_stash": LAYERS,
+                **{k: v for k, v in BENCH_PER_STEP[a["arm"]].items() if v}}
+        check(np.isfinite(a["loss"]) and a["examples_per_s"] > 0
+              and a["fit_examples_per_s"] > 0,
+              f"bench {a['arm']}: loss {a['loss']}, examples/s "
+              f"{a['examples_per_s']}, fit {a['fit_examples_per_s']}")
+        check(a["launches_per_step"] == want,
+              f"bench {a['arm']}: launches a step {a['launches_per_step']}, "
+              f"want {want}")
+        print(f"bench {a['arm']} [{card}]: {a['examples_per_s']:.1f} "
+              f"examples/s, {a['ms_per_step']:.3f} ms/step staged, busy "
+              f"{a['device_busy_ms']} ms a step; fit "
+              f"{a['fit_examples_per_s']:.1f} examples/s; build "
+              f"{a['build_s']:.2f}s", flush=True)
+    check(summary["metric"] == "satrans_train_throughput"
+          and summary["value"] > 0, f"bench summary {summary}")
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"phase 15: {time.perf_counter() - t0:.2f}s", flush=True)
+    return {k: v for k, v in launched.items() if v}
+
+
 def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -3078,6 +3206,8 @@ def main() -> int:
     mpaths = multicol_paths_phase(dev, card)
     ks, scores_paths, cli_paths = probes_and_cli_phase(dev, card)
     k3, paths3 = metanet3_phase(dev, card)
+    kdma, dma_launched = row_dma_phase(dev, card)
+    bench = bench_phase(card)
 
     # launches, each path counted from 0 just before it: serving and the
     # evaluation run K1-fwd only; the dense recompute arm K1-fwd and
@@ -3088,7 +3218,7 @@ def main() -> int:
                  ("train_stash", trained["stash"]),
                  ("train_recompute", trained["recompute"]),
                  ("evaluate", trained["eval"]))},
-             **sparse, **ppaths, **cli_paths}
+             **sparse, **ppaths, **cli_paths, "bench": bench}
     kernels = []
     for name, source, replaces, fields in (
             ("meta_block_fwd", "meta_block_fwd.cu", "404", k["fwd"]),
@@ -3132,7 +3262,8 @@ def main() -> int:
         by_path = {arm: n[name] for arm, n in (*sparse.items(),
                                                 *gpaths.items(),
                                                 *ppaths.items(),
-                                                *mpaths.items())
+                                                *mpaths.items(),
+                                                ("bench", bench))
                    if n.get(name)}
         kernels.append(dict(name=name, route="cuda",
                             source=f"satrans_torch/csrc/{source}",
@@ -3182,6 +3313,12 @@ def main() -> int:
             replaces=replaces[base] + middle, meta_units=list(UNITS3),
             launches=sum(by_path.values()), launches_by_path=by_path,
             library_ms=None, **k3[base]))
+    # P1 and P2 run on the probes' paths (phase 14)
+    for name, module, replaces in ROW_DMA:
+        kernels.append(dict(
+            name=name, route="cuda", source="satrans_torch/csrc/row_dma.cu",
+            replaces=replaces, launches=dma_launched[name],
+            launches_by_path={module: dma_launched[name]}, **kdma[name]))
     check(all(k["launches"] > 0 for k in kernels),
           "a kernel was launched on no path")
     print(json.dumps({"kernels": kernels}))

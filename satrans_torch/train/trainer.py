@@ -37,9 +37,14 @@ reach the host once per epoch (and at a verbose print).
 
 What the JAX Trainer also offers raises ``NotImplementedError`` naming its
 ROADMAP item: a mesh, ``lazy_stale``, streaming ``fit_from_iterator``,
-``evaluate_domains`` and optimizers other than Adam.  ``scan_steps > 1``
-(the JAX package's multi-step XLA program) runs the same single steps one
-after another.
+``evaluate_domains`` and optimizers other than Adam.  ``fit(scan_steps=k)``
+(the JAX package's program of k steps, trainer.py:629-658) runs each run
+of k full batches as k single steps one after another, with the JAX
+package's seeds for such a run: the step key is split once and step ``j``
+takes its layer seeds from ``split(sub, k)[j]``.  The statistics of the
+run are summed and reach the callbacks once, as the JAX package's do.
+``scan_unroll`` (the unroll of the JAX package's ``lax.scan``) is kept and
+changes no result.
 """
 
 from __future__ import annotations
@@ -79,7 +84,7 @@ class SingleTask:
 
 class Trainer:
     def __init__(self, model, *, mesh=None, seed: int = 1024,
-                 device="cuda"):
+                 scan_unroll: int = 1, device="cuda"):
         if mesh is not None:
             raise NotImplementedError(
                 "a mesh is ROADMAP queue 1 item 'parallel/ → "
@@ -88,6 +93,7 @@ class Trainer:
         self.model = model.to(self.device)
         self.layout = model.layout
         self.seed = int(seed)
+        self.scan_unroll = int(scan_unroll)
         self.stop_training = False
         self.history = cb.History()
         self.optimizer = None
@@ -166,13 +172,15 @@ class Trainer:
             return arr
         return np.pad(arr, [(0, target - n)] + [(0, 0)] * (arr.ndim - 1))
 
-    def step_seeds(self) -> list[int]:
-        """The next step's dropout seeds, one per layer: the step key is
-        split, ``step_key, sub = split(step_key)``, and layer ``i`` gets
+    def step_seeds(self, sub=None) -> list[int]:
+        """A step's dropout seeds, one per layer: layer ``i`` gets
         ``randint(fold_in(sub, i))`` in ``[0, 2**31 - 1)``, the JAX
-        Trainer's seeds (trainer.py:616, :655)."""
+        Trainer's seeds.  Without ``sub`` the next single step's: the step
+        key is split, ``step_key, sub = split(step_key)`` (trainer.py:616,
+        :655); ``fit`` passes a run of k steps its own (:638-639)."""
         n = len(getattr(self.model, "layers", ()))
-        self._step_key, sub = threefry.split(self._step_key)
+        if sub is None:
+            self._step_key, sub = threefry.split(self._step_key)
         return threefry.layer_seeds(sub, n)
 
     def loss_terms(self, batch, y, weight, seeds=None):
@@ -185,12 +193,15 @@ class Trainer:
         aux = torch.zeros((), dtype=data_loss.dtype, device=data_loss.device)
         return data_loss + reg + aux, data_loss, reg, aux
 
-    def train_step(self, batch, y, weight) -> dict:
-        """One optimizer step; returns its statistics as device scalars."""
+    def train_step(self, batch, y, weight, seeds=None) -> dict:
+        """One optimizer step with the layers' dropout ``seeds`` (the next
+        of :meth:`step_seeds` if None); returns its statistics as device
+        scalars."""
         self.model.train()
         self.optimizer.zero_grad(set_to_none=True)
         mode = self._bank_mode
-        seeds = self.step_seeds()
+        if seeds is None:
+            seeds = self.step_seeds()
         if mode == "dense":
             total, data_loss, reg, aux = self.loss_terms(batch, y, weight,
                                                          seeds)
@@ -244,7 +255,6 @@ class Trainer:
         if steps_per_epoch is not None:
             steps = min(steps, steps_per_epoch)
         steps_to_valid = steps // max(valid_cnt_per_epoch, 1) + 1
-        every = max(int(scan_steps), 1)  # steps between verbose prints
 
         callback_list = cb.CallbackList((callbacks or []) + [self.history])
         callback_list.set_trainer(self)
@@ -263,22 +273,39 @@ class Trainer:
             perm = rng_np.permutation(n) if shuffle else np.arange(n)
             acc = None
             seen = 0
-            for step in range(1, steps + 1):
-                idx = perm[(step - 1) * batch_size:step * batch_size]
-                bsz = len(idx)
-                batch = self._device_batch(
-                    {k: self._pad(v[idx], batch_size)
-                     for k, v in data.items()})
-                wb = np.zeros(batch_size, np.float32)
-                wb[:bsz] = 1.0
-                yb, wb = self._device_batch(
-                    {"y": self._pad(labels[idx], batch_size),
-                     "w": wb}).values()
-                stats = self.train_step(batch, yb, wb)
-                seen += bsz
+            step = 0
+            while step < steps:
+                # a run of k full batches: one split of the step key, as
+                # the JAX package's program of k steps (trainer.py:629-641)
+                k = min(scan_steps, steps - step)
+                if k > 1 and (step + k) * batch_size <= n:
+                    self._step_key, sub = threefry.split(self._step_key)
+                    subs = threefry.split(sub, k)
+                else:
+                    k, subs = 1, [None]
+                stats = None
+                for j in range(k):
+                    idx = perm[(step + j) * batch_size:
+                               (step + j + 1) * batch_size]
+                    bsz = len(idx)
+                    batch = self._device_batch(
+                        {kk: self._pad(v[idx], batch_size)
+                         for kk, v in data.items()})
+                    wb = np.zeros(batch_size, np.float32)
+                    wb[:bsz] = 1.0
+                    yb, wb = self._device_batch(
+                        {"y": self._pad(labels[idx], batch_size),
+                         "w": wb}).values()
+                    one = self.train_step(
+                        batch, yb, wb, self.step_seeds() if subs[j] is None
+                        else self.step_seeds(subs[j]))
+                    seen += bsz
+                    stats = one if stats is None else {
+                        kk: stats[kk] + v for kk, v in one.items()}
+                step += k
                 acc = stats if acc is None else {
-                    k: acc[k] + v for k, v in stats.items()}
-                if verbose and (step % 50 < every or step >= steps):
+                    kk: acc[kk] + v for kk, v in stats.items()}
+                if verbose and (step % 50 < scan_steps or step >= steps):
                     denom = max(float(stats["count"]), 1.0)
                     print(f"\rstep {step}/{steps} "
                           f"loss {float(stats['loss']) / denom:.6f} "
@@ -286,10 +313,10 @@ class Trainer:
                           end="", flush=True)
                 callback_list.on_batch_end(step, {"loss": stats["loss"]})
                 if checkpoint_path is not None and checkpoint_every and \
-                        step % checkpoint_every == 0:
+                        step % checkpoint_every < scan_steps:
                     ckpt_lib.save(checkpoint_path, self)
                 if (validation_data is not None and valid_cnt_per_epoch > 1
-                        and step % steps_to_valid < every):
+                        and step % steps_to_valid < scan_steps):
                     r = self.evaluate(*validation_data,
                                       batch_size=batch_size * 4)
                     print(f"\nStep {step}/{steps} " + " - ".join(

@@ -15,8 +15,10 @@ gradient blocks) against ``tiled_layer_reference`` and its autograd, and
 K7-bwd-stash against K7-bwd on the same masks; each K1 and K7 case with
 2-matrix MetaNets [32, 64, 32] and with 3-matrix ones [32, 64, 64, 32]
 (the middle matrix in every body, its gradient in the tables' middle
-block); and the row kernels of the sparse bank updates (K2 scatter, K3
-equality combine, K4 gather, K5 lazy Adam tail) against theirs.
+block); the row kernels of the sparse bank updates (K2 scatter, K3
+equality combine, K4 gather, K5 lazy Adam tail) against theirs; and the
+row-DMA probes' bulk-copy kernels (P1 scatter, P2 gather) against
+``index_copy_`` and ``index_select``.
 
 Every test here needs an NVIDIA GPU and skips itself elsewhere.  The file
 imports neither JAX nor the JAX package, so it also runs on a machine that
@@ -827,3 +829,55 @@ def test_lazy_adam_rows_kernel_matches_plain_version(card):
     assert lazy_tail.launches == before + 1
     for a, b in zip(got, want):
         torch.testing.assert_close(a, b, rtol=2.4e-7, atol=1e-12)
+
+
+# --- the row-DMA probes' kernels (P1 scatter, P2 gather) ------------------
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rb", [64, 128, 256])
+@pytest.mark.parametrize("variant", ["bulk", "slots"])
+@pytest.mark.parametrize("w", [128, 36])  # 512-byte and 144-byte rows
+def test_row_dma_scatter_kernel_matches_plain_version(card, w, variant, rb):
+    """Sorted unique ids over a small bank, N a few blocks of rb rows:
+    bit for bit; an N that rb does not divide raises."""
+    from satrans_torch.bench import scatter_probe
+    rows, n = 3000, 3 * rb
+    gen = make_generator(7, card)
+    bank = init.normal(gen, (rows, w), 1.0)
+    ids = torch.sort(torch.randperm(rows, device=card)[:n]).values
+    vals = init.normal(gen, (n, w), 1.0)
+    want = scatter_probe.row_dma_scatter_reference(bank.clone(), ids, vals)
+    before = scatter_probe.launches
+    got = scatter_probe.row_dma_scatter(bank, ids, vals, variant=variant,
+                                        rb=rb)
+    torch.cuda.synchronize()
+    assert got is bank and scatter_probe.launches == before + 1
+    assert torch.equal(got, want)
+    with pytest.raises(ValueError):
+        scatter_probe.row_dma_scatter(bank, ids[:-4], vals[:-4],
+                                      variant=variant, rb=rb)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arrays", [1, 3])
+@pytest.mark.parametrize("rb", [64, 128, 256])
+@pytest.mark.parametrize("variant", ["bulk", "slots"])
+@pytest.mark.parametrize("w", [128, 36])
+def test_row_dma_gather_kernel_matches_plain_version(card, w, variant, rb,
+                                                     arrays):
+    """Ids with duplicates, N a few blocks of rb rows: bit for bit on each
+    array; an N that rb does not divide raises."""
+    from satrans_torch.bench import gather_probe
+    rows, n = 3000, 2 * rb
+    srcs = _bank(card, rows, w, 8)[:arrays]
+    ids = torch.randint(0, rows, (n,), device=card)
+    ids[1::7] = ids[0]
+    before = gather_probe.launches
+    got = gather_probe.row_dma_gather(srcs, ids, variant=variant, rb=rb)
+    torch.cuda.synchronize()
+    assert gather_probe.launches == before + 1 and len(got) == arrays
+    for g, want in zip(got, gather_probe.row_dma_gather_reference(srcs,
+                                                                  ids)):
+        assert torch.equal(g, want)
+    with pytest.raises(ValueError):
+        gather_probe.row_dma_gather(srcs, ids[:-1], variant=variant, rb=rb)

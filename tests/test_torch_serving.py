@@ -44,7 +44,11 @@ def test_port_imports_no_jax():
             "satrans_torch.data.aliccp, satrans_torch.data.alimama, "
             "satrans_torch.data.synthetic, satrans_torch.data.io, "
             "satrans_torch.cli.main, satrans_torch.train.checkpoint, "
-            "satrans_torch.train.attention_probe; "
+            "satrans_torch.train.attention_probe, "
+            "satrans_torch.ops.profiling, "
+            "satrans_torch.bench.train_throughput, "
+            "satrans_torch.bench.scatter_probe, "
+            "satrans_torch.bench.gather_probe; "
             "bad = [m for m in sys.modules "
             "if m.split('.')[0] in ('jax', 'jaxlib', 'satrans_tpu')]; "
             "assert not bad, bad; "

@@ -153,6 +153,75 @@ def test_scan_steps_runs_the_same_single_steps():
                                    atol=5e-5, rtol=1e-3, err_msg=name)
 
 
+def _jax_scan_seeds(seed, steps, k, layers):
+    """The per-layer seeds of each step of the JAX ``fit(scan_steps=k)``
+    over ``steps`` full batches and one tail, along
+    satrans_tpu/train/trainer.py:629-658: each run of k full batches splits
+    the step key once and gives step j ``split(sub, k)[j]``; the rest are
+    single steps."""
+    def layer_seeds(key):
+        return [int(jax.random.randint(jax.random.fold_in(key, i), (), 0,
+                                       2 ** 31 - 1, jnp.int32))
+                for i in range(layers)]
+
+    key, out, step = jax.random.PRNGKey(seed + 1), [], 0
+    while step < steps + 1:
+        run = min(k, steps + 1 - step)
+        key, sub = jax.random.split(key)
+        if run > 1 and step + run <= steps:
+            out += [layer_seeds(s) for s in jax.random.split(sub, run)]
+            step += run
+        else:
+            out.append(layer_seeds(sub))
+            step += 1
+    return out
+
+
+def test_scan_steps_draws_the_jax_trainers_seeds():
+    """``fit(scan_steps=3)`` over 3 full batches and a tail: the first three
+    steps take their seeds from one split of the step key, the tail from
+    the next, as the JAX Trainer's program of 3 steps and its single step
+    do; ``scan_steps=1`` keeps one split a step."""
+    _, _, tm = _models("QK")
+    x, y = _data(3 * BATCH + 8)
+    for scan in (3, 1):
+        tr = TorchTrainer(tm, seed=7, device="cpu")
+        tr.compile(learning_rate=LR)
+        seeds, step = [], tr.train_step
+
+        def record(batch, yb, wb, layer_seeds=None):
+            seeds.append(layer_seeds)
+            return step(batch, yb, wb, layer_seeds)
+
+        tr.train_step = record
+        tr.fit(x, y, batch_size=BATCH, verbose=0, scan_steps=scan)
+        assert seeds == _jax_scan_seeds(7, 3, scan, len(tm.layers)), scan
+    assert _jax_scan_seeds(7, 3, 3, 2) != _jax_scan_seeds(7, 3, 1, 2)
+
+
+def test_scan_steps_at_dropout_matches_jax_trainer():
+    """``fit(scan_steps=3)`` at dropout 0.1 over 3 full batches and a tail
+    against the JAX Trainer on its fused interpret-mode path (one program
+    of 3 steps, then a single step), each side drawing its own seeds: the
+    epoch loss at rtol 1e-5 and every parameter at atol 5e-5 / rtol 1e-3,
+    the tolerances of the tests above."""
+    jm, params, tm = tp.jax_and_port(dropout_rate=0.1)
+    jm = dataclasses.replace(jm, use_fused_kernel=True, fused_interpret=True)
+    x, y = _data(3 * BATCH + 8)
+    jt = JaxTrainer(jm, seed=7)
+    jt.compile(learning_rate=LR, bank_update="dense")
+    jt.params = jax.tree.map(lambda a: jnp.array(np.asarray(a)), params)
+    jt.state = {}
+    jt.opt_state = jt.optimizer.init(jt.params)
+    j_hist = jt.fit(x, y, batch_size=BATCH, verbose=0, scan_steps=3)
+    tt = TorchTrainer(tm, seed=7, device="cpu")
+    tt.compile(learning_rate=LR, bank_update="dense")
+    t_hist = tt.fit(x, y, batch_size=BATCH, verbose=0, scan_steps=3)
+    np.testing.assert_allclose(t_hist.history["loss"],
+                               j_hist.history["loss"], rtol=1e-5)
+    tp.assert_fit_matches([], jax.tree.map(np.asarray, jt.params), [], tm)
+
+
 def test_predict_and_evaluate_match_jax_trainer():
     jm, params, tm = _models("QK")
     x, y = _data(37, seed=9)  # 37 = two batches of 16 and a padded tail
