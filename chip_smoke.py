@@ -5,7 +5,10 @@
 Phases, each of which exits non-zero on failure:
 
 1. build every CUDA kernel from satrans_torch/csrc (one nvcc per source,
-   all at once);
+   all at once, anew); print each tile body of K1's stash kernels
+   (csrc/meta_stash_{fwd,bwd}.cuh) with its registers and spills (ptxas
+   -v), its dynamic shared memory at F = 19 and 15 and the HMMA
+   instructions in its SASS (cuobjdump -sass; none fails the run);
 2. hold each layer forward kernel against its plain PyTorch version on
    the card at the AliCCP sota widths (B=8192 and a ragged 8190, F=19,
    d=32, 4 heads, 4 meta rows, MetaNet 32->64->32), in meta modes QK and
@@ -13,7 +16,8 @@ Phases, each of which exits non-zero on failure:
    residual of K1-stash and of K1-stash light, at dropout 0 and (B=8192)
    at dropout 0.1 with the same masks on both sides; check the keep share
    of every dropout site (0.9 within 0.005) and time the kernels and the
-   plain version with CUDA events;
+   plain version with CUDA events; K1-stash, K1-stash light and K1-scores
+   also on a skewed domain mix (90 / 5 / 5 % over three rows);
 3. serve 3 requests of 20,000 examples through satrans_torch.serving's
    Predictor at batch 8192 with SATrans at the AliCCP sota width (19
    fields with the real vocab sizes, an ~841 MB embedding bank on the
@@ -25,7 +29,8 @@ Phases, each of which exits non-zero on failure:
    the same widths and modes, every gradient, at B=8192 at dropout 0 and
    0.1 and at B=8190 at dropout 0 (the examples with a relu input within
    1e-6 of its kink get no upstream gradient: rounding may flip its
-   side), and time them;
+   side), and time them; each also on the skewed domain mix, where
+   K1-bwd-stash twice on the same inputs gives the same bits;
 5. train the same model with satrans_torch.train's Trainer (Adam, lr
    0.005, dense bank update, dropout 0.1 as bench.py publishes it) for 24
    steps at batch 8192 on bench.py-style synthetic ids and labels (the
@@ -107,8 +112,10 @@ Phases, each of which exits non-zero on failure:
    ``satrans_torch.cli.main.main`` with ``--data_name synthetic
    --synthetic_rows 200000 --flag showattn_instattn_dump`` at the CLI's
    defaults into a temporary directory: AUCs, launches, the results row
-   and files; ``serving.load`` of the dumped checkpoint predicting the
-   run's ``_testpred.pkl`` bit for bit; a ``--finetune True`` run.
+   and files; the dumped checkpoint restored into a Trainer predicting the
+   run's ``_testpred.pkl`` bit for bit on the same path (K1-scores), and
+   ``serving.load`` of it (K1-fwd, another body) within KERNEL_TOL; a
+   ``--finetune True`` run.
 
 13. 3-matrix MetaNets (``meta_dnn_hidden_units=(64, 64, 32)``, units
    [32, 64, 64, 32]: the middle matrix in every K1 and K7 body): (a) every
@@ -176,8 +183,10 @@ KEEP_SHARE_TOL = 0.005
 REQUESTS, REQUEST_ROWS = 3, 20_000
 LAYERS = 3
 # H100 SXM data-sheet peaks at 700 W: float32 outside the tensor cores,
-# and HBM3 bandwidth
+# TF32 on them (a 3xTF32 product of the tile bodies issues three), and
+# HBM3 bandwidth
 PEAK_F32_FLOPS = 67e12
+PEAK_TF32X3_FLOPS = 495e12 / 3
 PEAK_HBM_BYTES = 3.35e12
 KERNEL_TOL = dict(atol=1e-4, rtol=1e-4)
 SERVING_TOL = 1e-5
@@ -257,6 +266,23 @@ ROW_NAMES = ("gather_rows", "scatter_rows_set", "eqgemm_positions",
 LAZY_ROWS_PER_STEP = SPARSE_ARMS[2][3]
 
 
+# the sources of the tile bodies, which the C entries of csrc/
+# meta_block_{fwd,bwd}.cu launch
+TILE_SOURCES = {n: "satrans_torch/csrc/meta_stash_" + (
+    "bwd.cuh" if "bwd" in n else "fwd.cuh") for n in (
+    "meta_block_fwd_stash", "meta_block_fwd_stash_light",
+    "meta_block_fwd_scores", "meta_block_bwd_stash",
+    "meta_block_bwd_stash_light")}
+# the tile bodies of K1's stash kernels (csrc/meta_stash_fwd.cuh,
+# csrc/meta_stash_bwd.cuh) by kernel and mode (enum StashMode), as the JSON
+# line names them
+TILE_BODIES = {("meta_stash_fwd_kernel", 1): "meta_block_fwd_stash",
+               ("meta_stash_fwd_kernel", 2): "meta_block_fwd_stash_light",
+               ("meta_stash_fwd_kernel", 3): "meta_block_fwd_scores",
+               ("meta_stash_bwd_kernel", 1): "meta_block_bwd_stash",
+               ("meta_stash_bwd_kernel", 2): "meta_block_bwd_stash_light"}
+
+
 def check(ok: bool, what: str) -> None:
     if not ok:
         raise RuntimeError(f"chip_smoke: {what}")
@@ -289,10 +315,15 @@ def host_ms(fn, iters: int = 10) -> float:
     return 1e3 * wall / iters
 
 
-def _bound(flops: float, nbytes: float):
-    """(ms, bound_by): the larger of the float32 work over the card's
-    float32 peak and the bytes over the HBM rate."""
-    t_ops, t_bytes = flops / PEAK_F32_FLOPS, nbytes / PEAK_HBM_BYTES
+def _bound(flops: float, nbytes: float, mma_flops: float = 0.0):
+    """(ms, bound_by): the largest of the float32 work on the CUDA cores
+    over the card's float32 peak, the work of products run in 3xTF32 on
+    the tensor cores (``mma_flops`` of ``flops``) over a third of its TF32
+    peak (the two pipes run side by side), and the bytes over the HBM
+    rate."""
+    t_ops = max((flops - mma_flops) / PEAK_F32_FLOPS,
+                mma_flops / PEAK_TF32X3_FLOPS)
+    t_bytes = nbytes / PEAK_HBM_BYTES
     return 1e3 * max(t_ops, t_bytes), \
         "operations" if t_ops >= t_bytes else "bytes"
 
@@ -325,7 +356,7 @@ def _residual_floats(F, d, heads, stash="full"):
 
 
 def meta_layer_bound_ms(B, F, d, h, heads, meta_rows, apply_q, apply_k,
-                        stash=None, h2=0):
+                        stash=None, h2=0, tiled_meta=False):
     """Least time for one layer forward: its float32 FMA work, and its
     bytes (x in, y out, dom and the weights read once; with ``stash``
     'full' or 'light' the residuals of K1-stash or K1-stash light
@@ -333,15 +364,20 @@ def meta_layer_bound_ms(B, F, d, h, heads, meta_rows, apply_q, apply_k,
     integer work (about 46 k operations an example, 11 us at B=8192 over
     the card's 33.5 T int32 operations a second) is under a fifth of the
     float time and left out.  ``h2`` is a 3-matrix MetaNet's second hidden
-    width (0: 2 matrices).  Returns (ms, bound_by)."""
+    width (0: 2 matrices).  K1's stash modes run the tile bodies, whose
+    products (all but q k^T and p v) are 3xTF32 on the tensor cores; K1-fwd
+    and K7 (``tiled_meta``) run every product on the CUDA cores.  Returns
+    (ms, bound_by)."""
     nbytes = 4 * (2 * B * F * d + B + _weight_floats(d, h, meta_rows, h2))
     if stash:
         nbytes += 4 * B * _residual_floats(F, d, heads, stash)
-    return _bound(B * _layer_flops(F, d, h, apply_q, apply_k, h2), nbytes)
+    flops = _layer_flops(F, d, h, apply_q, apply_k, h2)
+    mma = flops - 4 * F * F * d if stash and not tiled_meta else 0
+    return _bound(B * flops, nbytes, B * mma)
 
 
 def meta_layer_bwd_bound_ms(B, F, d, h, heads, meta_rows, apply_q, apply_k,
-                            stash=None, h2=0):
+                            stash=None, h2=0, tiled_meta=False):
     """Least time for the layer's backward: K1-bwd recomputes the forward
     (its operations); K1-bwd-stash (``stash='full'``) only the MetaNet
     hidden layers (2Fdh an applied MetaNet, and 2F h h2 more for a 3-matrix
@@ -351,7 +387,10 @@ def meta_layer_bwd_bound_ms(B, F, d, h, heads, meta_rows, apply_q, apply_k,
     attention backward (dv, dP, dq, dk: 4 x 2F^2 d), per applied MetaNet
     dW2, dhid, dW1 and dt0 (4 x 2Fdh; a 3-matrix one also dWm and dh1, 2 x
     2F h h2), and dWqkv and dx (2 x 6Fd^2).  Bytes are x, g and dom in, dx
-    out, the weights in and their gradients out, and the residuals in."""
+    out, the weights in and their gradients out, and the residuals in.
+    K1-bwd-stash and its light form are tile bodies: every product but the
+    attention's runs in 3xTF32 on the tensor cores; K1-bwd and K7
+    (``tiled_meta``) run every product on the CUDA cores."""
     n_meta = apply_q + apply_k
     hidden = d * h + h * h2  # the forward's products up to the last hidden
     again = (n_meta * 2 * F * hidden + 2 * F * d * d if stash
@@ -364,7 +403,9 @@ def meta_layer_bwd_bound_ms(B, F, d, h, heads, meta_rows, apply_q, apply_k,
                   + 2 * _weight_floats(d, h, meta_rows, h2))
     if stash:
         nbytes += 4 * B * _residual_floats(F, d, heads, stash)
-    return _bound(B * (again + backward), nbytes)
+    attention = 8 * F * F * d + (2 * F * F * d if stash == "light" else 0)
+    mma = again + backward - attention if stash and not tiled_meta else 0
+    return _bound(B * (again + backward), nbytes, B * mma)
 
 
 def grad_errors(got: dict, want: dict) -> dict:
@@ -463,9 +504,129 @@ def clamp_forward_case(dev):
     return err
 
 
+def skewed_dom(gen, B, dev):
+    """Domain rows of a skewed mix: 90 % row 0, 5 % row 1, 5 % row 2, so
+    that the tile bodies' domain segments are long and uneven."""
+    u = torch.rand(B, generator=gen, device=dev)
+    return (u >= 0.9).long() + (u >= 0.95).long()
+
+
+def skewed_forward_case(dev):
+    """K1-stash, K1-stash light and K1-scores against the plain layer on a
+    skewed domain mix (:func:`skewed_dom`; B=8192, QK, dropout 0.1): the
+    output and every residual within KERNEL_TOL, the light ones and K1-
+    scores' s equal to K1-stash's.  Returns the worst error."""
+    from satrans_torch.nn import initializers as init
+    from satrans_torch.ops import meta_block, prng
+    F, d, heads = 19, 32, 4
+    gen, layer, table = test_layer(dev, SEED + 6)
+    tables = shared(table)
+    x = init.normal(gen, (BATCH, F, d), 1.0)
+    dom = skewed_dom(gen, BATCH, dev)
+    kw = dict(meta_units=[d, 64, d], head_num=heads, mode="QK",
+              relu_out=False)
+    drop = drop_kw(DROP_RATE)
+    masks = meta_block.layer_masks(x, head_num=heads, mode="QK", **drop)
+    ops, cfg = meta_block.pack_operands(x, layer, tables, dom, **kw)
+    kargs = prng.kernel_args(True, DROP_RATE, DROP_SEED, DROP_TILE, F)
+    res = {}
+    with torch.no_grad():
+        st = meta_block.launch_fwd(*ops, cfg, kargs, stash="full")
+        lt = meta_block.launch_fwd(*ops, cfg, kargs, stash="light")
+        sc = meta_block.launch_fwd(*ops, cfg, kargs, stash="scores")
+        ref = meta_block.meta_layer_reference(x, layer, tables, dom, **kw,
+                                              masks=masks, residuals=res)
+    torch.cuda.synchronize()
+    names = ("y", "qkv", "uq", "uk", "s", "o")
+    want = (ref, *(res[n] for n in names[1:]))
+    errs = {n: (g - w).abs().max().item() for n, g, w in zip(names, st, want)}
+    shares = torch.bincount(dom, minlength=3).double() / BATCH
+    print(f"kernel meta_block_fwd_stash, skewed domains (shares "
+          f"{[round(v, 4) for v in shares.tolist()]}), B={BATCH} QK "
+          f"dropout={DROP_RATE}: " + " ".join(
+              f"{n} {e:.3e}" for n, e in errs.items()), flush=True)
+    for n, g, w in zip(names, st, want):
+        check(bool(torch.isfinite(g).all()) and torch.allclose(
+            g, w, **KERNEL_TOL), f"K1-stash's {n} disagrees with the plain "
+            f"layer on skewed domains (max_abs_err {errs[n]})")
+    check(all(torch.equal(a, st[i]) for a, i in zip(lt, (0, 1, 2, 3, 5))),
+          "K1-stash light differs from K1-stash on skewed domains")
+    check(torch.equal(sc[0], st[0]) and torch.equal(sc[1], st[4]),
+          "K1-scores differs from K1-stash on skewed domains")
+    return max(errs.values())
+
+
 def drop_kw(rate):
     return dict(train=True, drop_rate=rate, seed=DROP_SEED,
                 block_b=DROP_TILE)
+
+
+def _tile_body(mangled: str):
+    """The JSON name of a tile body's mangled kernel name (``_3mat`` for a
+    3-matrix MetaNet), or None for another kernel."""
+    for (kernel, mode), name in TILE_BODIES.items():
+        if kernel in mangled:
+            d, h, h2, heads, m = map(int, re.findall(r"Li(\d+)E", mangled))
+            if m == mode:
+                return name + ("_3mat" if h2 else "")
+    return None
+
+
+def tile_body_report():
+    """Each tile body's registers and spills (ptxas -v, from the build),
+    its dynamic shared memory at F = 19 and 15, and the HMMA (tensor-core
+    mma) instructions in its SASS (cuobjdump -sass of the built library).
+    Fails if a body has none.  Returns the fields by JSON name."""
+    from pathlib import Path
+    from satrans_torch.ops import _build, meta_block
+    import ctypes
+    report = {}
+    for src in ("meta_block_fwd", "meta_block_bwd"):
+        body = None
+        for ln in _build.log(src).splitlines():
+            if "Compiling entry function" in ln or \
+                    "Function properties for" in ln:
+                body = _tile_body(ln)
+            elif body and (m := re.search(r"Used (\d+) registers", ln)):
+                report.setdefault(body, {})["registers"] = int(m[1])
+            elif body and (m := re.search(
+                    r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                    ln)):
+                report.setdefault(body, {}).update(
+                    spill_store_bytes=int(m[1]), spill_load_bytes=int(m[2]))
+        lib = _build._target(src)[1]
+        sass = subprocess.run(
+            [str(Path(_build._nvcc()).parent / "cuobjdump"), "-sass",
+             str(lib)], capture_output=True, text=True, check=True,
+            timeout=300).stdout
+        for part in sass.split("Function : ")[1:]:
+            body = _tile_body(part.split()[0])
+            if body:
+                report.setdefault(body, {})["sass_hmma"] = sum(
+                    "HMMA" in ln for ln in part.splitlines())
+    fwd_smem = meta_block.kernel_fn(
+        "meta_block_fwd", "satrans_meta_block_fwd_stash_smem",
+        [ctypes.c_int] * 6)
+    bwd_smem = meta_block.kernel_fn(
+        "meta_block_bwd", "satrans_meta_block_bwd_stash_smem",
+        [ctypes.c_int] * 5)
+    for (kernel, mode), name in TILE_BODIES.items():
+        for h2, suffix in ((0, ""), (64, "_3mat")):
+            r = report.setdefault(name + suffix, {})
+            r["smem_bytes"] = {F: (fwd_smem(32, 64, h2, 4, F, mode)
+                                   if "fwd" in kernel else
+                                   bwd_smem(32, 64, h2, 4, F))
+                               for F in (19, 15)}
+            print(f"tile body {name + suffix}: {r.get('registers')} "
+                  f"registers, spill stores {r.get('spill_store_bytes')} B "
+                  f"and loads {r.get('spill_load_bytes')} B, dynamic shared "
+                  f"memory {r['smem_bytes'][19]} B at F=19 and "
+                  f"{r['smem_bytes'][15]} B at F=15, {r.get('sass_hmma')} "
+                  f"HMMA instructions in its SASS", flush=True)
+            check(r.get("sass_hmma", 0) > 0 and "registers" in r,
+                  f"the tile body {name + suffix} has no tensor-core "
+                  f"instruction in its SASS, or no ptxas line: {r}")
+    return report
 
 
 def kernel_phase(dev):
@@ -584,6 +745,9 @@ def kernel_phase(dev):
     clamp_err = clamp_forward_case(dev)
     worst["fwd"] = max(worst["fwd"], clamp_err)
     worst["stash"] = max(worst["stash"], clamp_err)
+    skew_err = skewed_forward_case(dev)
+    worst["stash"] = max(worst["stash"], skew_err)
+    worst["light"] = max(worst["light"], skew_err)
     # the keep share of every site at the AliCCP shape, on the card
     masks = prng.dropout_masks(DROP_SEED, BATCH, F, d, heads, DROP_TILE,
                                DROP_RATE, True, True, dev)
@@ -698,6 +862,48 @@ def clamp_backward_case(dev):
     return out
 
 
+def skewed_backward_case(dev):
+    """The three K1 backwards against autograd of the plain layer on a
+    skewed domain mix (:func:`skewed_dom`; B=8192, QK, dropout 0.1), each
+    gradient within GRAD_RTOL/GRAD_ATOL; K1-bwd-stash twice on the same
+    inputs gives the same bits.  Returns the worst error by backward."""
+    from satrans_torch.nn import initializers as init
+    from satrans_torch.ops import meta_block, prng
+    F, d, heads = 19, 32, 4
+    gen, layer, table = test_layer(dev, SEED + 7)
+    x = init.normal(gen, (BATCH, F, d), 1.0)
+    g = init.normal(gen, (BATCH, F, d), 1.0)
+    dom = skewed_dom(gen, BATCH, dev)
+    kw = dict(meta_units=[d, 64, d], head_num=heads, mode="QK",
+              relu_out=False)
+    drop = drop_kw(DROP_RATE)
+    masks = meta_block.layer_masks(x, head_num=heads, mode="QK", **drop)
+    g, kinks = kink_free(g, x, layer, shared(table), dom, masks, **kw)
+    want = layer_grads(meta_block.meta_layer_reference, x, layer,
+                       shared(table), dom, g, **kw, masks=masks)
+    out = {}
+    for bwd in meta_block.BWD_MODES:
+        got = layer_grads(meta_block.fused_meta_layer, x, layer,
+                          shared(table), dom, g, **kw, **drop, bwd=bwd)
+        torch.cuda.synchronize()
+        errs = grad_errors(got, want)
+        out[bwd] = max(errs.values())
+        print(f"kernel meta_block_bwd ({bwd}), skewed domains, B={BATCH} QK "
+              f"dropout={DROP_RATE}: max_abs_err={out[bwd]:.3e} (worst "
+              f"{max(errs, key=errs.get)}; {kinks} examples at a kink left "
+              f"out)", flush=True)
+    ops, cfg = meta_block.pack_operands(x, layer, shared(table), dom, **kw)
+    ops = [t if t is None else t.detach() for t in ops]
+    kargs = prng.kernel_args(True, DROP_RATE, DROP_SEED, DROP_TILE, F)
+    with torch.no_grad():
+        res = meta_block.launch_fwd(*ops, cfg, kargs, stash="full")[1:]
+        once, again = (meta_block.launch_bwd(g, *ops, cfg, kargs, res=res)
+                       for _ in range(2))
+    check(all(a is b or torch.equal(a, b) for a, b in zip(once, again)),
+          "K1-bwd-stash gives other bits on the same inputs")
+    return out
+
+
 def backward_phase(dev):
     """K1-bwd, K1-bwd-stash and K1-bwd-stash light against autograd of the
     plain layer at full width with the same masks, the examples at a relu
@@ -781,8 +987,9 @@ def backward_phase(dev):
                         print(line, flush=True)
                     if main:
                         del res
-    for bwd, err in clamp_backward_case(dev).items():
-        worst[bwd] = max(worst[bwd], err)
+    for case in (clamp_backward_case, skewed_backward_case):
+        for bwd, err in case(dev).items():
+            worst[bwd] = max(worst[bwd], err)
     return {bwd: dict(max_abs_err=worst[bwd], **out[(bwd, DROP_RATE)],
                       no_dropout_ms=out[(bwd, 0.0)]["ms"])
             for bwd in meta_block.BWD_MODES}
@@ -2210,7 +2417,8 @@ def tiled_kernel_phase(dev, units=UNITS2, cases=None):
                         stash=stash), iters=50)
                     b_ms, b_by = meta_layer_bound_ms(
                         plan.n_slots, F, d, h, heads, T, 1, 1,
-                        stash="full" if stash else None, h2=h2)
+                        stash="full" if stash else None, h2=h2,
+                        tiled_meta=True)
                     out[(name, rate)] = dict(ms=ms, plain_ms=p_ms,
                                              bound_ms=b_ms, bound_by=b_by)
             xr = x.detach().requires_grad_(True)
@@ -2229,7 +2437,8 @@ def tiled_kernel_phase(dev, units=UNITS2, cases=None):
                     iters=20)
                 b_ms, b_by = meta_layer_bwd_bound_ms(
                     plan.n_slots, F, d, h, heads, T, 1, 1,
-                    stash="full" if res_ is not None else None, h2=h2)
+                    stash="full" if res_ is not None else None, h2=h2,
+                    tiled_meta=True)
                 out[(name, rate)] = dict(ms=ms, plain_ms=pb_ms,
                                          bound_ms=b_ms, bound_by=b_by)
             line += "; " + ", ".join(
@@ -2631,10 +2840,12 @@ def cli_phase(dev, card):
     """Phase 12c: the CLI on the card at its defaults (d = 32, 3 layers, 4
     heads, Query, MetaNet 32 -> 64 -> 32, batch 8192, test batch 32,768,
     lr 0.001, dropout 0.1) on synthetic data, with the probes and the
-    dump; the dumped checkpoint served through ``serving.load`` (its
-    predictions equal the run's ``_testpred.pkl`` bit for bit); then a
-    ``--finetune True`` run from it.  Returns the launches by path and
-    kernel."""
+    dump; the dumped checkpoint restored into a Trainer (its predictions
+    on the probes' path equal the run's ``_testpred.pkl`` bit for bit, its
+    Predictor's equal ``serving.load``'s bit for bit, both on K1-fwd, and
+    those lie within SERVING_TOL of ``_testpred.pkl``); then a
+    ``--finetune True`` run from it.  Returns the launches
+    by path and kernel."""
     import pickle
     import tempfile
 
@@ -2711,15 +2922,47 @@ def cli_phase(dev, card):
         served = pred_serv(test_x)
         counts = dict(zip(K1_NAMES, k1_counts()))
         diff = float(np.abs(served - pred).max())
+        # The dump came from the probes' path, K1-scores (the tile body of
+        # csrc/meta_stash_fwd.cuh): the checkpoint restored into a Trainer
+        # of its own model gives it bit for bit on that path, and served
+        # through a Predictor (K1-fwd, as serving.load serves) gives
+        # serving.load's predictions bit for bit.  K1-fwd runs float32 FMAs
+        # where the tile body runs 3xTF32 products, so the served and the
+        # dumped predictions agree within SERVING_TOL, as every served
+        # score in this script does.
+        from satrans_torch.train import Trainer, checkpoint
+        from satrans_torch.train.attention_probe import \
+            predict_with_attention
+        restored = Trainer(cli.build_model(args, layout, ["domain"], nums,
+                                           args.flag, device=dev),
+                           seed=args.seed, device=dev)
+        restored.compile(learning_rate=args.learning_rate,
+                         loss="binary_crossentropy",
+                         metrics=["binary_crossentropy", "auc"],
+                         bank_update=args.bank_update)
+        checkpoint.restore(ckpt, restored)
+        with torch.no_grad():
+            probed, _ = predict_with_attention(restored, test_x, y,
+                                               batch_size=PROBE_BATCH)
+        resaved = serving.Predictor.from_trainer(
+            restored, batch_size=PROBE_BATCH)(test_x)
         print(f"cli [{card}]: serving.load of the checkpoint: launches "
-              f"{counts}; max |served - _testpred.pkl| = {diff:.3e}, "
-              f"bit-identical: {np.array_equal(served, pred)}", flush=True)
+              f"{counts}; bit-identical to the restored Trainer's Predictor: "
+              f"{np.array_equal(served, resaved)}; max |served - "
+              f"_testpred.pkl| = {diff:.3e}; the restored checkpoint on the "
+              f"probes' path bit-identical to _testpred.pkl: "
+              f"{np.array_equal(probed, pred)}", flush=True)
         check(counts["meta_block_fwd"] == LAYERS * test_batches
               and sum(counts.values()) == counts["meta_block_fwd"],
               f"serving.load's Predictor launched {counts}")
-        check(np.array_equal(served, pred), f"the served predictions differ "
-              f"from the dumped ones by up to {diff}")
+        check(np.array_equal(probed, pred), "the restored checkpoint's "
+              "predictions on the probes' path differ from the dumped ones")
+        check(np.array_equal(served, resaved), "serving.load's predictions "
+              "differ from the restored Trainer's Predictor's")
+        check(diff <= SERVING_TOL, f"the served predictions differ from the "
+              f"dumped ones by {diff} > {SERVING_TOL}")
         paths["cli_serving_load"] = counts
+        del restored
         del model, pred_serv
 
         t0 = time.perf_counter()
@@ -3182,9 +3425,9 @@ def main() -> int:
     built = _build.build()
     print(f"build: {json.dumps(built)} in {time.perf_counter() - t0:.2f}s",
           flush=True)
-    for name, log in _build.build_log.items():
+    for name in _build.sources():
         body = ""
-        for ln in log.splitlines():
+        for ln in _build.log(name).splitlines():
             if "Function properties for" in ln:
                 # the template arguments of the mangled name: the layer
                 # kernels' (d, h1, h2, heads), mode and TILED
@@ -3192,6 +3435,7 @@ def main() -> int:
             elif "registers" in ln or "spill" in ln:
                 print(f"build {name} [{body}]: {ln.strip()}")
 
+    tile = tile_body_report()
     k = kernel_phase(dev)
     served = serving_phase(dev, card)
     kb = backward_phase(dev)
@@ -3239,19 +3483,20 @@ def main() -> int:
         merged = {**fields, **kp[name], "max_abs_err": max(
             fields["max_abs_err"], kp[name]["max_abs_err"])}
         kernels.append(dict(
-            name=name, route="cuda", source=f"satrans_torch/csrc/{source}",
+            name=name, route="cuda", source=TILE_SOURCES.get(
+                name, f"satrans_torch/csrc/{source}"),
             replaces=f"satrans_tpu/ops/pallas/meta_block.py:{replaces}",
             launches=sum(by_path.values()), launches_by_path=by_path,
-            library_ms=None, **merged))
+            library_ms=None, **merged, **tile.get(name, {})))
     # K1-scores runs on the probe paths of phase 12 and in the CLI
     kernels.append(dict(
         name="meta_block_fwd_scores", route="cuda",
-        source="satrans_torch/csrc/meta_block_fwd.cu",
+        source=TILE_SOURCES["meta_block_fwd_scores"],
         replaces="satrans_tpu/ops/pallas/meta_block.py:502 "
                  "(fused_meta_layer_with_scores; _fwd_call :1177, "
                  "pallas_call :1212, _fwd_kernel_stash :420)",
         launches=sum(scores_paths.values()), launches_by_path=scores_paths,
-        library_ms=None, **ks))
+        library_ms=None, **ks, **tile["meta_block_fwd_scores"]))
     # the row kernels run on the sparse training paths (phase 7 arms and
     # the phase 9 and 10 lazy arms)
     for name, source, replaces in (
@@ -3309,10 +3554,11 @@ def main() -> int:
         middle = ("; 3-matrix: _tile_meta :55-89" if base in K7_NAMES3 else
                   "; 3-matrix: _meta_apply :158-195, _meta_bwd :869-899")
         kernels.append(dict(
-            name=name, route="cuda", source=f"satrans_torch/csrc/{source}",
+            name=name, route="cuda", source=TILE_SOURCES.get(
+                base, f"satrans_torch/csrc/{source}"),
             replaces=replaces[base] + middle, meta_units=list(UNITS3),
             launches=sum(by_path.values()), launches_by_path=by_path,
-            library_ms=None, **k3[base]))
+            library_ms=None, **k3[base], **tile.get(name, {})))
     # P1 and P2 run on the probes' paths (phase 14)
     for name, module, replaces in ROW_DMA:
         kernels.append(dict(

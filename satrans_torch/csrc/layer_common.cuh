@@ -1,17 +1,19 @@
-// Device code shared by the layer kernels: K1 (meta_block_fwd.cu,
-// meta_block_bwd.cu) and K6 (gate_block_fwd.cu, gate_block_bwd.cu).
+// Device code shared by the layer kernels: K1 and K7 (meta_block_fwd.cu,
+// meta_block_bwd.cu and their tile bodies meta_stash_fwd.cuh,
+// meta_stash_bwd.cuh) and K6 (gate_block_fwd.cu, gate_block_bwd.cu).
 //
-// An example's F rows are worked on by a group of G threads (a warp in
-// the forwards, 128 threads in the backwards).  The small GEMMs give a
-// thread a register tile of 4 adjacent columns x a few rows (Tile), the
-// LayerNorms reduce across a row's N/4 threads with shuffles, the
-// backwards sum parameter gradients with one owner per element (wgrad,
-// then sum_partials over the blocks, in order), and the attention passes
-// give a thread (head, row) pairs.  The attention logits are clamped to
-// [-60, 60] before a max-subtracted softmax, as the Pallas kernels'
-// _clip_logits (satrans_tpu/ops/pallas/meta_block.py:61-69); the
-// backward passes the gradient through the clamp as if it were not there,
-// as the Pallas custom VJPs do.
+// An example's F rows are worked on by a group of G threads (a warp in the
+// forwards, 128 threads in the backwards).  The small GEMMs give a thread a
+// register tile of 4 adjacent columns x a few rows (Tile), the LayerNorms
+// reduce across a row's N/4 threads with shuffles, the backwards sum parameter
+// gradients with one owner per element (wgrad, then sum_partials over the
+// blocks, in order), and the attention passes give a thread (head, row) pairs
+// (the *_pair functions, which the tile bodies call on each example of their
+// tiles).  The attention logits are clamped to [-60, 60] before a
+// max-subtracted softmax, as the Pallas kernels' _clip_logits
+// (satrans_tpu/ops/pallas/meta_block.py:61-69); the backward passes the
+// gradient through the clamp as if it were not there, as the Pallas custom VJPs
+// do.
 
 #pragma once
 
@@ -88,6 +90,18 @@ inline bool stash_pointers_ok(int mode, const void* qkv, const void* uq,
   }
   return false;
 }
+
+// K1's residuals, per example (none under kNoStash; s alone under
+// kScores; all but s under kLightStash).
+struct Stash {
+  float *qkv, *uq, *uk, *s, *o;
+};
+
+// The MetaNet matrices of Q and K: W1 [rows, d, h1], the middle Wm [rows,
+// h1, h2] (null for a 2-matrix MetaNet) and W2 [rows, HL, d].
+struct MetaW {
+  const float *w1q, *wmq, *w2q, *w1k, *wmk, *w2k;
+};
 
 __device__ __forceinline__ float4 ld4(const float* p) {
   return *reinterpret_cast<const float4*>(p);
@@ -414,69 +428,74 @@ __device__ __forceinline__ float head_softmax(const float* q_row,
   return sum;
 }
 
-// The forwards' attention of one example: per (head, query row) pair of
-// thread t (of a group of G), P = softmax(clamp(q k^T / sqrt(dh))) and
-// o = (P m_s) v, accumulated from the unnormalised terms as they are
-// formed and normalised at the end.  q|k|v lie in the rows of qkv (stride
-// qs) at columns 0, DM and 2 DM; o goes to out (stride os).  With STASH_O
-// also to po (stride DM), and with STASH_S P before dropout to ps
-// ([NH][F][F]).
+// One (head hh, query row i) pair of the forwards' attention: P =
+// softmax(clamp(q k^T / sqrt(dh))) and o = (P m_s) v, accumulated from the
+// unnormalised terms as they are formed and normalised at the end.  q|k|v
+// lie in the rows of qkv (stride qs) at columns 0, DM and 2 DM; o goes to
+// out (stride os).  With STASH_O also to po (stride DM), and with STASH_S
+// P before dropout to ps ([NH][F][F]).
+template <int DM, int NH, bool STASH_O, bool STASH_S>
+__device__ __forceinline__ void attention_fwd_pair(
+    const float* qkv, int qs, float* out, int os, float* ps, float* po,
+    int F, int hh, int i, const Dropout& drop, const ExampleDraw& ed,
+    unsigned salt_s) {
+  constexpr int DH = DM / NH;
+  float o[DH];
+#pragma unroll
+  for (int c = 0; c < DH; ++c) o[c] = 0.f;
+  float s[kMaxFields];
+  const float sum = head_softmax<DH>(
+      qkv + i * qs + hh * DH, qkv + DM + hh * DH, qs, F, s,
+      [&](int j, float e) {
+        const float pj = drop.on ? e * ed.attn(drop, salt_s + hh, i, j) : e;
+        axpy_head<DH>(pj, qkv + j * qs + 2 * DM + hh * DH, o);
+      });
+  const float inv = 1.f / sum;
+#pragma unroll
+  for (int c = 0; c < DH; c += 4) {
+    const float v[4] = {o[c] * inv, o[c + 1] * inv, o[c + 2] * inv,
+                        o[c + 3] * inv};
+    st4(out + i * os + hh * DH + c, v);
+    if (STASH_O) st4(po + i * DM + hh * DH + c, v);
+  }
+  if (STASH_S) {
+    float* prow = ps + (hh * F + i) * F;
+#pragma unroll
+    for (int j = 0; j < kMaxFields; ++j)
+      if (j < F) prow[j] = s[j] * inv;
+  }
+}
+
+// The forwards' attention of one example: attention_fwd_pair for the
+// (head, query row) pairs of thread t of a group of G.
 template <int DM, int NH, int G, bool STASH_O, bool STASH_S>
 __device__ __forceinline__ void attention_fwd(
     const float* qkv, int qs, float* out, int os, float* ps, float* po,
     int F, int t, const Dropout& drop, const ExampleDraw& ed,
     unsigned salt_s) {
-  constexpr int DH = DM / NH;
 #pragma unroll 1
-  for (int p = t; p < NH * F; p += G) {
-    const int hh = p / F, i = p % F;
-    float o[DH];
-#pragma unroll
-    for (int c = 0; c < DH; ++c) o[c] = 0.f;
-    float s[kMaxFields];
-    const float sum = head_softmax<DH>(
-        qkv + i * qs + hh * DH, qkv + DM + hh * DH, qs, F, s,
-        [&](int j, float e) {
-          const float pj =
-              drop.on ? e * ed.attn(drop, salt_s + hh, i, j) : e;
-          axpy_head<DH>(pj, qkv + j * qs + 2 * DM + hh * DH, o);
-        });
-    const float inv = 1.f / sum;
-#pragma unroll
-    for (int c = 0; c < DH; c += 4) {
-      const float v[4] = {o[c] * inv, o[c + 1] * inv, o[c + 2] * inv,
-                          o[c + 3] * inv};
-      st4(out + i * os + hh * DH + c, v);
-      if (STASH_O) st4(po + i * DM + hh * DH + c, v);
-    }
-    if (STASH_S) {
-      float* prow = ps + (hh * F + i) * F;
-#pragma unroll
-      for (int j = 0; j < kMaxFields; ++j)
-        if (j < F) prow[j] = s[j] * inv;
-    }
-  }
+  for (int p = t; p < NH * F; p += G)
+    attention_fwd_pair<DM, NH, STASH_O, STASH_S>(
+        qkv, qs, out, os, ps, po, F, p / F, p % F, drop, ed, salt_s);
 }
 
-// The backwards' recomputed probabilities of one example: P (normalised,
-// before dropout) into P ([NH][F][F]), equal to those attention_fwd
-// stashes.  q|k lie in the rows of qk (stride ns) at columns 0 and DM.
-template <int DM, int NH, int G>
-__device__ __forceinline__ void attention_probs(const float* qk, int ns,
-                                                float* P, int F, int t) {
+// The probabilities of one (head hh, query row i) pair, normalised and
+// before dropout, into row i of head hh of P ([NH][F][F]): those
+// attention_fwd_pair stashes, bit for bit.  q|k lie in the rows of qk
+// (stride ns) at columns 0 and DM.
+template <int DM, int NH>
+__device__ __forceinline__ void attention_probs_pair(const float* qk, int ns,
+                                                     float* P, int F, int hh,
+                                                     int i) {
   constexpr int DH = DM / NH;
-#pragma unroll 1
-  for (int p = t; p < NH * F; p += G) {
-    const int hh = p / F, i = p % F;
-    float s[kMaxFields];
-    const float inv =
-        1.f / head_softmax<DH>(qk + i * ns + hh * DH, qk + DM + hh * DH, ns,
-                               F, s, [](int, float) {});
-    float* prow = P + (hh * F + i) * F;
+  float s[kMaxFields];
+  const float inv =
+      1.f / head_softmax<DH>(qk + i * ns + hh * DH, qk + DM + hh * DH, ns, F,
+                             s, [](int, float) {});
+  float* prow = P + (hh * F + i) * F;
 #pragma unroll
-    for (int j = 0; j < kMaxFields; ++j)
-      if (j < F) prow[j] = s[j] * inv;
-  }
+  for (int j = 0; j < kMaxFields; ++j)
+    if (j < F) prow[j] = s[j] * inv;
 }
 
 // The backwards' recomputed attention of one example: P (normalised,
@@ -517,108 +536,137 @@ __device__ __forceinline__ void attention_recompute(
   }
 }
 
-// The backwards' attention backward of one example, in three passes that
-// every thread of the block calls (each ends at a block barrier; the
-// group's threads work where live):
-//   dv_j = sum_i P_ij m_ij do_i, per (head, key row);
-//   dS_ij = P_ij (dP_ij - sum_j P_ij dP_ij) with dP_ij = (do_i . v_j) m_ij,
-//   written over P, and dq_i = scale sum_j dS_ij k_j, per (head, query);
-//   dk_j = scale sum_i dS_ij q_i, per (head, key row).
-// do lies in the rows of dout (stride dos), v in v (stride vs), q|k in qk
-// (stride ns) at columns 0 and DM; dq|dk|dv go to the rows of dqkv
-// (stride ds) at columns 0, DM and 2 DM.
+// The three passes of the attention backward of one example, each for
+// one (head, row) pair; a pass may start only when the one before it has
+// ended for every pair of the example.  do lies in the rows of dout
+// (stride dos), v in v (stride vs), q|k in qk (stride ns) at columns 0 and
+// DM; dq|dk|dv go to the rows of dqkv (stride ds) at columns 0, DM and
+// 2 DM.  P ([NH][F][F]) holds the probabilities before dropout.
+//
+// Pass 1, per (head hh, key row j): dv_j = sum_i P_ij m_ij do_i.
+template <int DM, int NH>
+__device__ __forceinline__ void attention_bwd_dv(
+    const float* P, const float* dout, int dos, float* dqkv, int ds, int F,
+    int hh, int j, const Dropout& drop, const ExampleDraw& ed,
+    unsigned salt_s) {
+  constexpr int DH = DM / NH;
+  float dv[DH];
+#pragma unroll
+  for (int c = 0; c < DH; ++c) dv[c] = 0.f;
+#pragma unroll 4
+  for (int i = 0; i < F; ++i) {
+    float pij = P[(hh * F + i) * F + j];
+    if (drop.on) pij *= ed.attn(drop, salt_s + hh, i, j);
+    axpy_head<DH>(pij, dout + i * dos + hh * DH, dv);
+  }
+#pragma unroll
+  for (int c = 0; c < DH; c += 4) {
+    const float w[4] = {dv[c], dv[c + 1], dv[c + 2], dv[c + 3]};
+    st4(dqkv + j * ds + 2 * DM + hh * DH + c, w);
+  }
+}
+
+// Pass 2, per (head hh, query row i): dS_ij = P_ij (dP_ij - sum_j P_ij
+// dP_ij) with dP_ij = (do_i . v_j) m_ij, written over P, and dq_i = scale
+// sum_j dS_ij k_j.
+template <int DM, int NH>
+__device__ __forceinline__ void attention_bwd_dq(
+    float* P, const float* dout, int dos, const float* v, int vs,
+    const float* qk, int ns, float* dqkv, int ds, int F, int hh, int i,
+    const Dropout& drop, const ExampleDraw& ed, unsigned salt_s) {
+  constexpr int DH = DM / NH;
+  const float scale = 1.f / sqrtf(static_cast<float>(DH));
+  float doi[DH];
+  scaled_head<DH>(dout + i * dos + hh * DH, 1.f, doi);
+  float* prow = P + (hh * F + i) * F;
+  float dp[kMaxFields];
+  float rs = 0.f;
+#pragma unroll
+  for (int j = 0; j < kMaxFields; ++j) {
+    if (j < F) {
+      const float* vj = v + j * vs + hh * DH;
+      float s = 0.f;
+#pragma unroll
+      for (int c = 0; c < DH; c += 4) {
+        const float4 w = ld4(vj + c);
+        s = fmaf(doi[c], w.x, s);
+        s = fmaf(doi[c + 1], w.y, s);
+        s = fmaf(doi[c + 2], w.z, s);
+        s = fmaf(doi[c + 3], w.w, s);
+      }
+      if (drop.on) s *= ed.attn(drop, salt_s + hh, i, j);
+      dp[j] = s;
+      rs = fmaf(prow[j], s, rs);
+    }
+  }
+  float dq[DH];
+#pragma unroll
+  for (int c = 0; c < DH; ++c) dq[c] = 0.f;
+#pragma unroll
+  for (int j = 0; j < kMaxFields; ++j) {
+    if (j < F) {
+      const float dsij = prow[j] * (dp[j] - rs);
+      prow[j] = dsij;
+      axpy_head<DH>(dsij, qk + j * ns + DM + hh * DH, dq);
+    }
+  }
+#pragma unroll
+  for (int c = 0; c < DH; c += 4) {
+    const float w[4] = {dq[c] * scale, dq[c + 1] * scale, dq[c + 2] * scale,
+                        dq[c + 3] * scale};
+    st4(dqkv + i * ds + hh * DH + c, w);
+  }
+}
+
+// Pass 3, per (head hh, key row j): dk_j = scale sum_i dS_ij q_i.
+template <int DM, int NH>
+__device__ __forceinline__ void attention_bwd_dk(const float* P,
+                                                 const float* qk, int ns,
+                                                 float* dqkv, int ds, int F,
+                                                 int hh, int j) {
+  constexpr int DH = DM / NH;
+  const float scale = 1.f / sqrtf(static_cast<float>(DH));
+  float dk[DH];
+#pragma unroll
+  for (int c = 0; c < DH; ++c) dk[c] = 0.f;
+#pragma unroll 4
+  for (int i = 0; i < F; ++i)
+    axpy_head<DH>(P[(hh * F + i) * F + j], qk + i * ns + hh * DH, dk);
+#pragma unroll
+  for (int c = 0; c < DH; c += 4) {
+    const float w[4] = {dk[c] * scale, dk[c + 1] * scale, dk[c + 2] * scale,
+                        dk[c + 3] * scale};
+    st4(dqkv + j * ds + DM + hh * DH + c, w);
+  }
+}
+
+// The backwards' attention backward of one example (the three passes
+// above), for the pairs of thread t of a group of G; every thread of the
+// block calls it (each pass ends at a block barrier; the group's threads
+// work where live).
 template <int DM, int NH, int G>
 __device__ __forceinline__ void attention_bwd(
     bool live, float* P, const float* dout, int dos, const float* v, int vs,
     const float* qk, int ns, float* dqkv, int ds, int F, int t,
     const Dropout& drop, const ExampleDraw& ed, unsigned salt_s) {
-  constexpr int DH = DM / NH;
-  const float scale = 1.f / sqrtf(static_cast<float>(DH));
   if (live) {
 #pragma unroll 1
-    for (int p = t; p < NH * F; p += G) {
-      const int hh = p / F, j = p % F;
-      float dv[DH];
-#pragma unroll
-      for (int c = 0; c < DH; ++c) dv[c] = 0.f;
-#pragma unroll 4
-      for (int i = 0; i < F; ++i) {
-        float pij = P[(hh * F + i) * F + j];
-        if (drop.on) pij *= ed.attn(drop, salt_s + hh, i, j);
-        axpy_head<DH>(pij, dout + i * dos + hh * DH, dv);
-      }
-#pragma unroll
-      for (int c = 0; c < DH; c += 4) {
-        const float w[4] = {dv[c], dv[c + 1], dv[c + 2], dv[c + 3]};
-        st4(dqkv + j * ds + 2 * DM + hh * DH + c, w);
-      }
-    }
+    for (int p = t; p < NH * F; p += G)
+      attention_bwd_dv<DM, NH>(P, dout, dos, dqkv, ds, F, p / F, p % F, drop,
+                               ed, salt_s);
   }
   __syncthreads();
   if (live) {
 #pragma unroll 1
-    for (int p = t; p < NH * F; p += G) {
-      const int hh = p / F, i = p % F;
-      float doi[DH];
-      scaled_head<DH>(dout + i * dos + hh * DH, 1.f, doi);
-      float* prow = P + (hh * F + i) * F;
-      float dp[kMaxFields];
-      float rs = 0.f;
-#pragma unroll
-      for (int j = 0; j < kMaxFields; ++j) {
-        if (j < F) {
-          const float* vj = v + j * vs + hh * DH;
-          float s = 0.f;
-#pragma unroll
-          for (int c = 0; c < DH; c += 4) {
-            const float4 w = ld4(vj + c);
-            s = fmaf(doi[c], w.x, s);
-            s = fmaf(doi[c + 1], w.y, s);
-            s = fmaf(doi[c + 2], w.z, s);
-            s = fmaf(doi[c + 3], w.w, s);
-          }
-          if (drop.on) s *= ed.attn(drop, salt_s + hh, i, j);
-          dp[j] = s;
-          rs = fmaf(prow[j], s, rs);
-        }
-      }
-      float dq[DH];
-#pragma unroll
-      for (int c = 0; c < DH; ++c) dq[c] = 0.f;
-#pragma unroll
-      for (int j = 0; j < kMaxFields; ++j) {
-        if (j < F) {
-          const float dsij = prow[j] * (dp[j] - rs);
-          prow[j] = dsij;
-          axpy_head<DH>(dsij, qk + j * ns + DM + hh * DH, dq);
-        }
-      }
-#pragma unroll
-      for (int c = 0; c < DH; c += 4) {
-        const float w[4] = {dq[c] * scale, dq[c + 1] * scale,
-                            dq[c + 2] * scale, dq[c + 3] * scale};
-        st4(dqkv + i * ds + hh * DH + c, w);
-      }
-    }
+    for (int p = t; p < NH * F; p += G)
+      attention_bwd_dq<DM, NH>(P, dout, dos, v, vs, qk, ns, dqkv, ds, F,
+                               p / F, p % F, drop, ed, salt_s);
   }
   __syncthreads();
   if (live) {
 #pragma unroll 1
-    for (int p = t; p < NH * F; p += G) {
-      const int hh = p / F, j = p % F;
-      float dk[DH];
-#pragma unroll
-      for (int c = 0; c < DH; ++c) dk[c] = 0.f;
-#pragma unroll 4
-      for (int i = 0; i < F; ++i)
-        axpy_head<DH>(P[(hh * F + i) * F + j], qk + i * ns + hh * DH, dk);
-#pragma unroll
-      for (int c = 0; c < DH; c += 4) {
-        const float w[4] = {dk[c] * scale, dk[c + 1] * scale,
-                            dk[c + 2] * scale, dk[c + 3] * scale};
-        st4(dqkv + j * ds + DM + hh * DH + c, w);
-      }
-    }
+    for (int p = t; p < NH * F; p += G)
+      attention_bwd_dk<DM, NH>(P, qk, ns, dqkv, ds, F, p / F, p % F);
   }
   __syncthreads();
 }

@@ -1,20 +1,22 @@
 // Backward of one SATrans meta-transformer layer, training, float32, with
 // the in-kernel dropout.
 //
-// Replaces three TPU kernels of satrans_tpu/ops/pallas/meta_block.py, all
+// Replaces two TPU kernels of satrans_tpu/ops/pallas/meta_block.py, both
 // launched by _bwd_call through pl.pallas_call (with _attn_bwd_heads,
 // _meta_bwd, _layer_norm_bwd and _write_param_grads): _bwd_kernel (:685;
-// K1-bwd, the template's MODE=kNoStash, the JAX package's
+// K1-bwd, the template below with MODE=kNoStash, the JAX package's
 // bwd='recompute'), which recomputes the forward on chip, and
 // _bwd_kernel_stash (:902) in its full mode (stash_s=True; K1-bwd-stash,
 // kFullStash, its default bwd='stash'), which reads the residuals that
-// K1-stash wrote (csrc/meta_block_fwd.cu) and recomputes only the MetaNet
-// hidden layers and zlin = o @ Wout, and in its light mode (stash_s=False;
-// K1-bwd-stash light, kLightStash, bwd='stash_light'), which reads the
-// residuals of K1-stash light and also recomputes the probabilities from
-// the stashed pre-LN sums uq and uk, with the forward's device code
-// (head_softmax, csrc/layer_common.cuh), so that they equal the forward's
-// bit for bit and the rest of the backward is K1-bwd-stash's.  Per example
+// K1-stash wrote and recomputes only the MetaNet hidden layers and zlin =
+// o @ Wout, and in its light mode (stash_s=False; K1-bwd-stash light,
+// kLightStash, bwd='stash_light'), which reads the residuals of K1-stash
+// light and also recomputes the probabilities from the stashed pre-LN sums
+// uq and uk with the forward's device code, so that they equal the
+// forward's bit for bit.  The two stash modes run on the tile body of
+// csrc/meta_stash_bwd.cuh (tiles of several examples sorted by domain,
+// products on the tensor cores, per-domain gradients summed a segment at a
+// time); the C entry below launches it for them.  Per example
 // e with domain row dm = dom[e] and the dropout masks m of
 // csrc/dropout.cuh (all ones without dropout) the forward is
 //
@@ -40,13 +42,8 @@
 // What bounds it.  Per example at the AliCCP sota shapes (F=19, d=32,
 // h=64, 4 heads, both MetaNets on) the recomputed forward is 0.51 MFLOP and
 // the backward another 1.03 MFLOP against 7.3 kB of x, g and dx: K1-bwd is
-// bound by float32 FMA throughput.  K1-bwd-stash reads 20.4 kB of
-// residuals an example in place of 0.35 MFLOP of recompute (the QKV GEMM,
-// the second MetaNet matrices, the attention forward), still bound by its
-// arithmetic.  K1-bwd-stash light reads 14.6 kB and recomputes the
-// logits and the softmax (another 2F^2 d, 23 kFLOP).  The design keeps
-// every intermediate of an example on chip and reads x, g and each
-// residual once and writes dx once.
+// bound by float32 FMA throughput.  The design keeps every intermediate of
+// an example on chip and reads x and g once and writes dx once.
 //
 // Design.  A block of 256 threads works on a tile of two examples at a
 // time, 128 threads (four warps) on each, and walks over the batch's tiles
@@ -68,9 +65,9 @@
 // for a given grid size.  Shared memory holds the dense sums and two
 // examples' intermediates (x, q0|k0|v0, the normalised q|k and their
 // xhat, the MetaNet hidden layer, the probabilities, the gradient rows):
-// 95 kB at F=19, the same for all three bodies (K1-bwd-stash loads into
-// the buffers K1-bwd computes into).  The MetaNet hidden layer is recomputed
-// in the backward instead of stored.
+// 95 kB at F=19 (K7-bwd-stash loads into the buffers K7-bwd computes
+// into).  The MetaNet hidden layer is recomputed in the backward instead
+// of stored.
 //
 // 3-matrix MetaNets.  With units [d, h1, h2, d] (the template's HID2 > 0;
 // the Pallas _meta_bwd at meta_block.py:869-899 and _write_param_grads
@@ -169,9 +166,8 @@ struct Args {
   float *dx, *partial, *grads;
   // D: K1's domain rows, K7's tiles T of tile_b slots each
   int B, F, D, tile_b, apply_q, apply_k, relu_out;
-  // the residuals (kFullStash and kLightStash): qkv [B, F, 3d], uq, uk, o
-  // [B, F, d], and under kFullStash the probabilities before dropout s
-  // [B, H, F, F]
+  // K7-bwd-stash's residuals: qkv [B, F, 3d], uq, uk, o [B, F, d] and the
+  // probabilities before dropout s [B, H, F, F]
   const float *qkv, *uq, *uk, *s, *o;
   Dropout drop;
 };
@@ -186,6 +182,8 @@ meta_block_bwd_kernel(const Args a) {
   constexpr int DH = DM / NH;
   constexpr bool STASH = MODE != kNoStash;
   static_assert(DM % NH == 0 && DH % 4 == 0, "head width must be 4k");
+  static_assert(MODE == kNoStash || (MODE == kFullStash && TILED),
+                "K1's stash bodies are meta_stash_bwd.cuh's");
 
   extern __shared__ float4 smem4[];
   const int t = threadIdx.x, slot = t / kGroup, gt = t % kGroup;
@@ -389,16 +387,10 @@ meta_block_bwd_kernel(const Args a) {
     __syncthreads();  // the copy of an unapplied projection has none
 
     // F4. Attention: P (normalised, before dropout) and o = (P m_s) v
-    //     into H, or their stash; the light stash holds o only, and P is
-    //     recomputed from the normalised q|k of F3.  A thread owns (head,
-    //     query row) pairs.
+    //     into H, or their stash.  A thread owns (head, query row) pairs.
     if (live && STASH) {
-      if (MODE == kFullStash) {
-        const float* se = a.s + static_cast<size_t>(ex) * NH * F * F;
-        for (int i = gt; i < NH * F * F; i += kGroup) P[i] = __ldg(se + i);
-      } else {
-        attention_probs<DM, NH, kGroup>(Nm, S::NS, P, F, gt);
-      }
+      const float* se = a.s + static_cast<size_t>(ex) * NH * F * F;
+      for (int i = gt; i < NH * F * F; i += kGroup) P[i] = __ldg(se + i);
       for (int i = gt; i < F * (DM / 4); i += kGroup) {
         const int f = i / (DM / 4), c = 4 * (i % (DM / 4));
         *reinterpret_cast<float4*>(H + f * S::HS + c) =
@@ -669,6 +661,8 @@ cudaError_t launch(const Args& a, int blocks, cudaStream_t stream) {
 
 }  // namespace
 
+#include "meta_stash_bwd.cuh"
+
 // Shapes (d, h, h2, heads) instantiated here (with_shape, csrc/
 // layer_common.cuh; h2 = 0 a 2-matrix MetaNet, whose middle pointers must
 // be null).  partial holds blocks x satrans_meta_block_bwd_grad_floats(d,
@@ -687,15 +681,38 @@ extern "C" int satrans_meta_block_bwd_grad_floats(int d, int h, int h2,
 
 extern "C" int satrans_meta_block_bwd_max_domains() { return kMaxDomains; }
 
+// The blocks K1-bwd-stash and K1-bwd-stash light use for B examples of F
+// fields on a card of sms SMs (one an SM, at most one a tile): the partial
+// buffer's block count for those modes.
+extern "C" int satrans_meta_block_bwd_stash_blocks(int B, int F, int sms) {
+  return stash_bwd_blocks(B, F, sms);
+}
+
+// The dynamic shared memory (bytes) of the tile body of K1-bwd-stash and
+// K1-bwd-stash light at F fields; -1 for a shape not instantiated.
+extern "C" int satrans_meta_block_bwd_stash_smem(int d, int h, int h2,
+                                                 int heads, int F) {
+  int n = -1;
+  with_shape(d, h, h2, heads, [&](auto sh) {
+    n = BwdTile<decltype(sh)>::bytes(F);
+    return cudaSuccess;
+  });
+  return n;
+}
+
 // stash selects the body (enum StashMode), as the forward's did: K1-bwd
-// with every residual pointer null, recomputing them; K1-bwd-stash
-// reading the residuals qkv, uq, uk, s and o that K1-stash wrote; or
-// K1-bwd-stash light reading those of K1-stash light, s null (K1-scores
-// has no backward: kScores is refused).  drop_on
-// selects the dropout, with the operands of struct Dropout
-// (csrc/dropout.cuh), the same as the forward's.  The MetaNet matrices
-// come with their per-row transposes (W1T [D, h, d], WmT [D, h2, h], W2T
-// [D, d, HL]).  Returns a cudaError_t.
+// (the template) with every residual pointer null, recomputing them;
+// K1-bwd-stash (the tile body of csrc/meta_stash_bwd.cuh) reading the
+// residuals qkv, uq, uk, s and o that K1-stash wrote; or K1-bwd-stash
+// light (the same tile body) reading those of K1-stash light, s null
+// (K1-scores has no backward: kScores is refused).  drop_on selects the
+// dropout, with the operands of struct Dropout (csrc/dropout.cuh), the
+// same as the forward's.  K1-bwd reads the weights' transposes wqkvT,
+// woutT and the MetaNet matrices' per-row W1T [D, h, d], WmT [D, h2, h],
+// W2T [D, d, HL]; the tile body reads the weights transposed in shared
+// memory and ignores them (they may be null).  blocks is the grid: for
+// the tile body satrans_meta_block_bwd_stash_blocks.  Returns a
+// cudaError_t.
 extern "C" int satrans_meta_block_bwd(
     const float* x, const int* dom, const float* g, const float* wqkv,
     const float* wqkvT, const float* w1q, const float* wmq, const float* w2q,
@@ -715,23 +732,31 @@ extern "C" int satrans_meta_block_bwd(
   if (drop_on && (block_b < 1 || fpad < F || group < 1))
     return static_cast<int>(cudaErrorInvalidValue);
   if (!stash_pointers_ok(stash, qkv, uq, uk, s, o) ||
-      !middle_pointers_ok(h2, {wmq, wmqT, wmk, wmkT}))
+      !middle_pointers_ok(h2, {wmq, wmk}) ||
+      (stash == kNoStash && !middle_pointers_ok(h2, {wmqT, wmkT})))
     return static_cast<int>(cudaErrorInvalidValue);
+  const Dropout drop{drop_on, seed, threshold, scale, block_b, fpad, group};
+  const cudaStream_t str = static_cast<cudaStream_t>(stream);
+  if (stash != kNoStash) {
+    const StashBwdArgs t{x,  g,       wqkv,    lnq,      lnk,  wout,
+                         lno, dom,    MetaW{w1q, wmq, w2q, w1k, wmk, w2k},
+                         dx, partial, grads,   qkv,      uq,   uk,
+                         s,  o,       B,       F,        D,    0,
+                         apply_q,     apply_k, relu_out, drop};
+    return static_cast<int>(with_shape(d, h, h2, heads, [&](auto sh) {
+      using SH = decltype(sh);
+      return stash == kFullStash
+                 ? launch_stash_bwd<SH, kFullStash>(t, blocks, str)
+                 : launch_stash_bwd<SH, kLightStash>(t, blocks, str);
+    }));
+  }
   const Args a{x,     g,    wqkv, wqkvT, w1q,  wmq,  w2q,  w1qT,
                wmqT,  w2qT, lnq,  w1k,   wmk,  w2k,  w1kT, wmkT,
                w2kT,  lnk,  wout, woutT, lno,  dom,  dx,   partial,
                grads, B,    F,    D,     0,    apply_q, apply_k, relu_out,
-               qkv,   uq,   uk,   s,     o,
-               Dropout{drop_on, seed, threshold, scale, block_b, fpad,
-                       group}};
-  const cudaStream_t str = static_cast<cudaStream_t>(stream);
+               qkv,   uq,   uk,   s,     o,     drop};
   return static_cast<int>(with_shape(d, h, h2, heads, [&](auto sh) {
-    using SH = decltype(sh);
-    return stash == kFullStash
-               ? launch<SH, kFullStash, false>(a, blocks, str)
-           : stash == kLightStash
-               ? launch<SH, kLightStash, false>(a, blocks, str)
-               : launch<SH, kNoStash, false>(a, blocks, str);
+    return launch<decltype(sh), kNoStash, false>(a, blocks, str);
   }));
 }
 

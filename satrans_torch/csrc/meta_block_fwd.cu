@@ -1,19 +1,21 @@
 // Forward of one SATrans meta-transformer layer, float32, with the
 // in-kernel dropout of training.
 //
-// Replaces three TPU kernels of satrans_tpu/ops/pallas/meta_block.py, all
+// Replaces two TPU kernels of satrans_tpu/ops/pallas/meta_block.py, both
 // launched by _fwd_call through pl.pallas_call on the body _fwd_compute:
-// _fwd_kernel (:404; K1-fwd, the template's MODE=kNoStash) and
+// _fwd_kernel (:404; K1-fwd, the template below with MODE=kNoStash) and
 // _fwd_kernel_stash (:420), which also writes the residuals its backward
-// reads, in its full mode (stash_s=True; K1-stash, kFullStash) and its
-// light mode (stash_s=False; K1-stash light, kLightStash, the JAX
-// package's bwd='stash_light').  The same body in mode kScores is
-// K1-scores, which replaces fused_meta_layer_with_scores (:502, the
+// reads, in its full mode (stash_s=True; K1-stash, kFullStash), its light
+// mode (stash_s=False; K1-stash light, kLightStash, the JAX package's
+// bwd='stash_light') and as fused_meta_layer_with_scores (:502, the
 // showattn / instattn probes: _fused_stash_forward :542 -> _fwd_call ->
 // _fwd_kernel_stash with stash_s=True, whose [H, B/g, g F, g F] packed
-// probabilities are unpacked per example outside the kernel): it writes y
-// and P and no other residual.  Per example e with domain row dm =
-// dom[e] and dropout masks m (all ones without dropout):
+// probabilities are unpacked per example outside the kernel; K1-scores,
+// kScores, which writes y and P and no other residual).  Those three modes
+// run on the tile body of csrc/meta_stash_fwd.cuh (tiles of several
+// examples sorted by domain, products on the tensor cores); the C entry
+// below launches it for them.  Per example e with domain row dm = dom[e]
+// and dropout masks m (all ones without dropout):
 //
 //   q0|k0|v0 = x @ [Wq|Wk|Wv]
 //   uq = (relu(q0 @ W1q[dm]) @ W2q[dm]) m_q + q0,  q = LN_q(uq)  if apply_q
@@ -55,22 +57,18 @@
 // (F=19, d=32, h=64, 4 heads, both MetaNets on) the arithmetic is about
 // 0.5 MFLOP (QKV 117k, MetaNets 311k, attention 46k, output 39k) against
 // 4.9 kB of activations in and out, about 100 FLOP per byte: K1-fwd is
-// bound by float32 FMA throughput (no tensor cores in this version), not
-// by device memory.  A 3-matrix MetaNet [32, 64, 64, 32] adds 2 F h1 h2 =
-// 156k FLOP a MetaNet, 0.82 MFLOP an example in all.  K1-stash adds 20.4
-// kB of residual writes an example
-// (the probabilities 5.8 kB of it), which at 3.35 TB/s take about as long
-// as the arithmetic at the float32 peak; K1-stash light 14.6 kB, K1-scores
-// 5.8 kB.  The
-// design therefore keeps every intermediate of an example on chip, in one
-// warp's slice of shared memory, and feeds the FMA units from registers:
-// one warp owns one example, each small GEMM gives a lane a 4-column x
-// several-row register tile (all rows of one example share one weight
-// matrix, so a weight load feeds every row the lane owns), the LayerNorms
-// reduce across the 8 lanes of a row with shuffles, and the weights (under
-// 150 kB for all four domains) are read through the L1/L2 caches with
-// __ldg.  Device memory
-// sees x once and y once, and each residual once.
+// bound by float32 FMA throughput, not by device memory.  A 3-matrix
+// MetaNet [32, 64, 64, 32] adds 2 F h1 h2 = 156k FLOP a MetaNet, 0.82
+// MFLOP an example in all.  The template's design keeps every intermediate
+// of an example on chip, in one warp's slice of shared memory, and feeds
+// the FMA units from registers: one warp owns one example, each small GEMM
+// gives a lane a 4-column x several-row register tile (all rows of one
+// example share one weight matrix, so a weight load feeds every row the
+// lane owns), the LayerNorms reduce across the 8 lanes of a row with
+// shuffles, and the weights (under 150 kB for all four domains) are read
+// through the L1/L2 caches with __ldg.  Device memory sees x once and y
+// once.  (The stash modes' 20.4 kB of residuals an example, and their tile
+// design, are csrc/meta_stash_fwd.cuh's.)
 //
 // K7.  The same template with TILED=true is K7-fwd (kNoStash) and
 // K7-stash (kFullStash), which replace satrans_tpu/ops/pallas/
@@ -95,6 +93,7 @@
 #include <type_traits>
 
 #include "layer_common.cuh"
+#include "meta_stash_fwd.cuh"
 
 namespace {
 
@@ -115,18 +114,6 @@ struct Smem {
   static constexpr int kRowFloats = QS + HS;
 };
 
-// The residuals, per example (unused under kNoStash; s only under
-// kFullStash and kScores, which writes nothing else).
-struct Stash {
-  float *qkv, *uq, *uk, *s, *o;
-};
-
-// The MetaNet matrices of Q and K: W1 [rows, d, h1], the middle Wm [rows,
-// h1, h2] (null for a 2-matrix MetaNet) and W2 [rows, HL, d].
-struct MetaW {
-  const float *w1q, *wmq, *w2q, *w1k, *wmk, *w2k;
-};
-
 template <class SH, int MODE, bool TILED>
 __global__ void __launch_bounds__(kWarps * 32, 2)
 meta_block_fwd_kernel(const float* __restrict__ x, const int* __restrict__ dom,
@@ -143,9 +130,10 @@ meta_block_fwd_kernel(const float* __restrict__ x, const int* __restrict__ dom,
   using S = Smem<DM, SH::HMAX>;
   using TD = Tile<DM, kGroup>;
   constexpr int DH = DM / NH;
-  // the residuals qkv, uq, uk and o; the probabilities s
-  constexpr bool STASH = MODE == kFullStash || MODE == kLightStash;
-  constexpr bool STASH_S = MODE == kFullStash || MODE == kScores;
+  // K1-fwd and K7-fwd, or K7-stash: the residuals qkv, uq, uk, s and o
+  constexpr bool STASH = MODE == kFullStash;
+  static_assert(MODE == kNoStash || (MODE == kFullStash && TILED),
+                "K1's stash bodies are meta_stash_fwd.cuh's");
   static_assert(DM % NH == 0 && DH % 4 == 0, "head width must be 4k");
 
   extern __shared__ float4 smem4[];
@@ -249,11 +237,10 @@ meta_block_fwd_kernel(const float* __restrict__ x, const int* __restrict__ dom,
   }
 
   // 4. Attention (csrc/layer_common.cuh).  The output goes to scratch
-  //    columns [0, DM); both stashes also write it, K1-stash and K1-scores
-  //    P before dropout.
-  attention_fwd<DM, NH, kGroup, STASH, STASH_S>(
+  //    columns [0, DM); K7-stash also writes it and P before dropout.
+  attention_fwd<DM, NH, kGroup, STASH, STASH>(
       sq, S::QS, sh, S::HS,
-      STASH_S ? st.s + static_cast<size_t>(e) * NH * F * F : nullptr,
+      STASH ? st.s + static_cast<size_t>(e) * NH * F * F : nullptr,
       STASH ? st.o + erow * DM : nullptr, F, lane, drop, ed, salt.s);
   __syncwarp();
 
@@ -314,12 +301,13 @@ cudaError_t launch(const float* x, const int* dom, const float* wqkv,
 // Shapes (d, h, h2, heads) instantiated here (with_shape, csrc/
 // layer_common.cuh; h2 = 0 is a 2-matrix MetaNet, whose middle pointers
 // wmq and wmk are null; else the [D, h, h2] middle matrices).  stash
-// selects the body (enum StashMode): K1-fwd
-// with every residual pointer null, K1-stash writing the five residuals
-// (each float32 as described above), K1-stash light writing all but s,
-// which must be null, or K1-scores writing s [B, heads, F, F] alone (the
-// other four null).  drop_on selects the dropout, with the operands of
-// struct Dropout (csrc/dropout.cuh).  Returns a cudaError_t.
+// selects the body (enum StashMode): K1-fwd (the template) with every
+// residual pointer null; or the tile body of csrc/meta_stash_fwd.cuh as
+// K1-stash writing the five residuals (each float32 as described above),
+// K1-stash light writing all but s, which must be null, or K1-scores
+// writing s [B, heads, F, F] alone (the other four null).  drop_on
+// selects the dropout, with the operands of struct Dropout
+// (csrc/dropout.cuh).  Returns a cudaError_t.
 extern "C" int satrans_meta_block_fwd(
     const float* x, const int* dom, const float* wqkv, const float* w1q,
     const float* wmq, const float* w2q, const float* lnq, const float* w1k,
@@ -343,16 +331,31 @@ extern "C" int satrans_meta_block_fwd(
   const cudaStream_t str = static_cast<cudaStream_t>(stream);
   return static_cast<int>(with_shape(d, h, h2, heads, [&](auto sh) {
     using SH = decltype(sh);
-    const auto run = [&](auto mode) {
-      return launch<SH, decltype(mode)::value, false>(
-          x, dom, wqkv, mw, lnq, lnk, wout, lno, y, B, F, D, 0, apply_q,
-          apply_k, relu_out, drop, st, str);
-    };
-    return stash == kFullStash    ? run(Mode<kFullStash>{})
-           : stash == kLightStash ? run(Mode<kLightStash>{})
-           : stash == kScores     ? run(Mode<kScores>{})
-                                  : run(Mode<kNoStash>{});
+    if (stash == kNoStash)
+      return launch<SH, kNoStash, false>(x, dom, wqkv, mw, lnq, lnk, wout,
+                                         lno, y, B, F, D, 0, apply_q, apply_k,
+                                         relu_out, drop, st, str);
+    const StashFwdArgs a{x,  wqkv, lnq, lnk, wout, lno, dom, mw, y, st, B, F,
+                         D,  0,    apply_q, apply_k, relu_out, drop};
+    return stash == kFullStash
+               ? launch_stash_fwd<SH, kFullStash>(a, str)
+           : stash == kLightStash ? launch_stash_fwd<SH, kLightStash>(a, str)
+                                  : launch_stash_fwd<SH, kScores>(a, str);
   }));
+}
+
+// The dynamic shared memory (bytes) of the tile body of K1-stash (stash
+// kFullStash), K1-stash light or K1-scores at F fields; -1 for a shape not
+// instantiated.
+extern "C" int satrans_meta_block_fwd_stash_smem(int d, int h, int h2,
+                                                 int heads, int F,
+                                                 int stash) {
+  int n = -1;
+  with_shape(d, h, h2, heads, [&](auto sh) {
+    n = FwdTile<decltype(sh)>::bytes(F, stash != kLightStash);
+    return cudaSuccess;
+  });
+  return n;
 }
 
 // K7-fwd and K7-stash: the layer on n_slots = T * tile_b dispatched slots

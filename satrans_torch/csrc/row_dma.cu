@@ -55,6 +55,8 @@
 
 #include <cstdint>
 
+#include "tma.cuh"
+
 namespace {
 
 constexpr int kSlots = 16;
@@ -66,80 +68,6 @@ struct Arrays {
 struct ConstArrays {
   const float* p[kMaxArrays];
 };
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void mbar_init(uint64_t* bar, uint32_t count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(smem_u32(bar)),
-               "r"(count)
-               : "memory");
-}
-
-// make the initialised barriers visible to the async proxy (the TMA)
-__device__ __forceinline__ void fence_barrier_init() {
-  asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
-  asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
-}
-
-__device__ __forceinline__ void fence_proxy_async() {
-  asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
-}
-
-// one arrival that also expects `bytes` of transactions in this phase
-__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(
-                   smem_u32(bar)),
-               "r"(bytes)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
-  uint32_t done = 0;
-  while (!done) {
-    asm volatile(
-        "{\n\t.reg .pred p;\n\t"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n\t"
-        "selp.u32 %0, 1, 0, p;\n\t}"
-        : "=r"(done)
-        : "r"(smem_u32(bar)), "r"(parity)
-        : "memory");
-  }
-}
-
-// device memory -> shared memory, completion to `bar` by bytes
-__device__ __forceinline__ void bulk_load(void* dst, const void* src,
-                                          uint32_t bytes, uint64_t* bar) {
-  asm volatile(
-      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
-      "[%0], [%1], %2, [%3];" ::"r"(smem_u32(dst)),
-      "l"(src), "r"(bytes), "r"(smem_u32(bar))
-      : "memory");
-}
-
-// shared memory -> device memory, into this thread's open bulk group
-__device__ __forceinline__ void bulk_store(void* dst, const void* src,
-                                           uint32_t bytes) {
-  asm volatile(
-      "cp.async.bulk.global.shared::cta.bulk_group [%0], [%1], %2;" ::"l"(dst),
-      "r"(smem_u32(src)), "r"(bytes)
-      : "memory");
-}
-
-__device__ __forceinline__ void bulk_commit() {
-  asm volatile("cp.async.bulk.commit_group;" ::: "memory");
-}
-
-// this thread's bulk groups: all complete (the writes done)
-__device__ __forceinline__ void bulk_wait_all() {
-  asm volatile("cp.async.bulk.wait_group 0;" ::: "memory");
-}
-
-// this thread's bulk groups: all have read their shared memory
-__device__ __forceinline__ void bulk_wait_read() {
-  asm volatile("cp.async.bulk.wait_group.read 0;" ::: "memory");
-}
 
 template <bool SLOTS>
 __global__ void __launch_bounds__(32)

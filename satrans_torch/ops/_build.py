@@ -35,8 +35,6 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 _LIBS: dict[str, ctypes.CDLL] = {}
 _SM_COUNT: dict[int, int] = {}
 _FNS: dict[str, ctypes._CFuncPtr] = {}
-# nvcc's output (including ptxas register and spill counts) per source
-build_log: dict[str, str] = {}
 
 
 def _nvcc() -> str:
@@ -61,31 +59,47 @@ def _target(name: str) -> tuple[Path, Path]:
 
 def build(names: list[str] | None = None) -> dict[str, float]:
     """Compile the named sources (default: all) that are not built yet,
-    all ``nvcc`` processes at once.  Returns seconds per source built."""
+    all ``nvcc`` processes at once, each library's ``nvcc`` output (the
+    ptxas register, spill and shared-memory lines) kept beside it for
+    :func:`log`.  Returns seconds per source built."""
     names = sources() if names is None else names
     BUILD_DIR.mkdir(exist_ok=True)
     jobs = {}
     for name in names:
         src, out = _target(name)
-        if out.exists():
+        if out.exists() and out.with_suffix(".log").exists():
             continue
         tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
         cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(src)]
         jobs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                        stderr=subprocess.STDOUT, text=True),
                       tmp, out, time.perf_counter())
-    seconds, failed = {}, []
+    seconds, logs, failed = {}, {}, []
     for name, (proc, tmp, out, t0) in jobs.items():
-        build_log[name], _ = proc.communicate()
+        logs[name], _ = proc.communicate()
         seconds[name] = time.perf_counter() - t0
         if proc.returncode:
             failed.append(name)
         else:
-            os.replace(tmp, out)  # atomic: concurrent builds agree
+            # atomic, the log first: concurrent builds agree, and a built
+            # library has its log
+            tmp.with_suffix(".log").write_text(logs[name])
+            os.replace(tmp.with_suffix(".log"), out.with_suffix(".log"))
+            os.replace(tmp, out)
     if failed:
         raise RuntimeError("nvcc failed for " + ", ".join(failed) + ":\n"
-                           + "\n".join(build_log[n] for n in failed))
+                           + "\n".join(logs[n] for n in failed))
     return seconds
+
+
+def log(name: str) -> str:
+    """``nvcc``'s output for the library built from ``csrc/<name>.cu``
+    (ptxas register, spill and shared-memory lines), built first if
+    needed."""
+    log_path = _target(name)[1].with_suffix(".log")
+    if not log_path.exists():
+        build([name])
+    return log_path.read_text()
 
 
 def load(name: str) -> ctypes.CDLL:

@@ -1,12 +1,16 @@
 """The fused meta-transformer layer: Python side of the Hopper kernels
-``csrc/meta_block_fwd.cu`` (K1-fwd; K1-stash, which also writes the
-backward's residuals; K1-stash light, which writes all of them but the
-attention probabilities) and ``csrc/meta_block_bwd.cu`` (K1-bwd, which
-recomputes the forward; K1-bwd-stash, which reads the residuals;
-K1-bwd-stash light, which reads the light ones and recomputes the
+``csrc/meta_block_fwd.cu`` (K1-fwd; and through its C entry the tile body
+``csrc/meta_stash_fwd.cuh``: K1-stash, which also writes the backward's
+residuals; K1-stash light, which writes all of them but the attention
 probabilities; K1-scores, which writes the output and the attention
-probabilities alone, for the probes), twins of
-``satrans_tpu/ops/pallas/meta_block.py``.
+probabilities alone, for the probes) and ``csrc/meta_block_bwd.cu``
+(K1-bwd, which recomputes the forward; and the tile body
+``csrc/meta_stash_bwd.cuh``: K1-bwd-stash, which reads the residuals;
+K1-bwd-stash light, which reads the light ones and recomputes the
+probabilities), twins of ``satrans_tpu/ops/pallas/meta_block.py``.  The
+tile bodies sort each block's range of the batch by domain themselves, so
+the wrappers pass the batch in its own order and get every output back in
+it.
 
 * :func:`fused_meta_layer` - the wrapper.  On a CUDA tensor it launches
   the kernels or raises: with a gradient needed, ``bwd='stash'`` (the
@@ -71,7 +75,8 @@ KERNEL_SHAPES = frozenset({(32, 64, 0, 4), (32, 64, 64, 4)})
 # satrans.py:372, len(meta_units) in (3, 4))
 KERNEL_DEPTHS = (3, 4)
 KERNEL_MAX_FIELDS = 20
-# K1-bwd runs two blocks of 256 threads per SM (csrc/meta_block_bwd.cu)
+# K1-bwd runs two blocks of 256 threads per SM (csrc/meta_block_bwd.cu);
+# the stash backwards' tile body asks its C entry for its grid
 BWD_BLOCKS_PER_SM = 2
 
 BWD_MODES = ("stash", "stash_light", "recompute")
@@ -284,10 +289,16 @@ def launch_bwd(g, x, dom, wqkv, w1q, wmq, w2q, lnq, w1k, wmk, w2k, lnk,
             raise ValueError(f"residuals of shapes "
                              f"{[tuple(r.shape) for r in res]}, want {want}")
         check_operands(res, x.device)
-    wqkv_t, wout_t, *meta_t = transposed(wqkv, wout, (w1q, wmq, w2q),
-                                         (w1k, wmk, w2k))
-    # tiles of two examples
-    blocks = min(BWD_BLOCKS_PER_SM * sm_count(x.device), (B + 1) // 2)
+    if stash is None:  # K1-bwd reads the weights transposed, in copies
+        wqkv_t, wout_t, *meta_t = transposed(wqkv, wout, (w1q, wmq, w2q),
+                                             (w1k, wmk, w2k))
+        # tiles of two examples
+        blocks = min(BWD_BLOCKS_PER_SM * sm_count(x.device), (B + 1) // 2)
+    else:  # the tile body reads them transposed in shared memory
+        wqkv_t, wout_t, meta_t = None, None, ((None,) * 3,) * 2
+        blocks = kernel_fn("meta_block_bwd",
+                           "satrans_meta_block_bwd_stash_blocks",
+                           [ctypes.c_int] * 3)(B, F, sm_count(x.device))
     total = grad_floats(d, h, h2, heads, D)
     dx = torch.empty_like(x)
     partial = torch.empty(blocks * total, dtype=torch.float32,

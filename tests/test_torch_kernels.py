@@ -12,7 +12,10 @@ and bilinear layer (K6-fwd, K6-bwd) against ``simple_layer_reference``
 and its autograd; the tiled layer on a slack-heavy dispatch (K7-fwd and
 K7-stash with its residuals, K7-bwd and K7-bwd-stash with the per-tile
 gradient blocks) against ``tiled_layer_reference`` and its autograd, and
-K7-bwd-stash against K7-bwd on the same masks; each K1 and K7 case with
+K7-bwd-stash against K7-bwd on the same masks; the tile bodies of
+K1-stash and K1-bwd-stash on domain mixes (all in one row, one example a
+row, skewed, out-of-range ids) and batches from 1 to 8192, with their
+light twins, K1-scores and a second launch bit for bit; each K1 and K7 case with
 2-matrix MetaNets [32, 64, 32] and with 3-matrix ones [32, 64, 64, 32]
 (the middle matrix in every body, its gradient in the tables' middle
 block); the row kernels of the sparse bank updates (K2 scatter, K3
@@ -485,6 +488,156 @@ def test_stash_light_backward_equals_stash_backward(card, units, rate):
             continue
         err = (a - b).abs().max().item()
         assert err <= 1e-6 * b.abs().max().item(), (i, err)
+
+
+# --- the tile bodies of K1-stash and K1-bwd-stash -------------------------
+
+# domain mixes of a batch: every example's row drawn from 4; all in one
+# row; 16 rows with one example each (B = 16); 90 / 5 / 5 % over rows 0-2;
+# ids from -3 to 7 over 4 rows (the kernels clamp them)
+MIXES = {"random": 4, "one": 4, "each": 16, "skewed": 4, "outside": 4}
+
+
+def _mix(kind, B, gen, card):
+    if kind == "random":
+        return torch.randint(0, 4, (B,), generator=gen, device=card)
+    if kind == "one":
+        return torch.full((B,), 2, dtype=torch.long, device=card)
+    if kind == "each":
+        return torch.randperm(B, generator=gen, device=card)
+    if kind == "skewed":
+        u = torch.rand(B, generator=gen, device=card)
+        return (u >= 0.9).long() + (u >= 0.95).long()
+    return torch.randint(-3, 8, (B,), generator=gen, device=card)
+
+
+def _tile_layer(card, seed, units, distinct, rows):
+    """A layer with its meta LayerNorms moved off their init and ``rows``
+    rows of MetaNets: one table for Q and K, or distinct ones and a k_meta
+    LayerNorm (the 'pos' layer)."""
+    gen = make_generator(seed, card)
+    layer = attention.MetaTransformerLayer(gen, 32,
+                                           share_kv_metanet=not distinct)
+    with torch.no_grad():
+        for meta in (layer.q_meta, layer.k_meta) if distinct else \
+                (layer.q_meta,):
+            meta.ln.scale.add_(init.normal(gen, (32,), 0.1))
+            meta.ln.bias.add_(init.normal(gen, (32,), 0.1))
+    p = metanet.param_size(units)
+    if distinct:
+        return gen, layer, {k: init.normal(gen, (rows, p), 0.1)
+                            for k in "QK"}
+    table = init.normal(gen, (rows, p), 0.1)
+    return gen, layer, {"Q": table, "K": table}
+
+
+def _named_grads(fn, x, layer, tables, dom, g, **kw):
+    """Gradients of sum(fn(...) * g) by name: x, the tables ('table' where
+    Q and K share one, else 'table.Q' and 'table.K') and the layer's
+    parameters."""
+    x = x.detach().requires_grad_(True)
+    if tables["K"] is tables["Q"]:
+        named = {"table": tables["Q"].detach().requires_grad_(True)}
+        tabs = {"Q": named["table"], "K": named["table"]}
+    else:
+        named = {f"table.{k}": tables[k].detach().requires_grad_(True)
+                 for k in "QK"}
+        tabs = {k: named[f"table.{k}"] for k in "QK"}
+    params = dict(layer.named_parameters())
+    y = fn(x, layer, tabs, dom, **kw)
+    got = torch.autograd.grad((y * g).sum(),
+                              [x, *named.values(), *params.values()],
+                              allow_unused=True)
+    return {n: gr for n, gr in zip(["x", *named, *params], got)
+            if gr is not None}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("units", [UNITS2, UNITS3],
+                         ids=["2-matrix", "3-matrix"])
+@pytest.mark.parametrize("F", [19, 15])
+@pytest.mark.parametrize("mode,relu_out,distinct",
+                         [("QK", False, False), ("Query", True, True)])
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+@pytest.mark.parametrize("B,mix", [(1, "random"), (3, "outside"),
+                                   (16, "each"), (5000, "skewed"),
+                                   (8192, "random"), (8192, "one")])
+def test_tile_bodies_match_plain_version(card, units, F, mode, relu_out,
+                                         distinct, rate, B, mix):
+    """The tile bodies (csrc/meta_stash_fwd.cuh, csrc/meta_stash_bwd.cuh)
+    against the float64 plain layer on the domain mixes above: K1-stash's
+    output and residuals within 1e-4 (chip_smoke's KERNEL_TOL), K1-stash
+    light's equal to them and K1-scores' y and s equal to K1-stash's bit for
+    bit; the gradients of K1-bwd-stash and K1-bwd-stash light through the
+    autograd wrapper within 1e-4 of each gradient's largest entry plus 1e-5
+    (GRAD_RTOL, GRAD_ATOL); the light backward within 1e-6 of the full one
+    on the same residuals (STASH_LIGHT_RTOL); a second launch of each body
+    on the same inputs gives the same bits."""
+    gen, layer, tables = _tile_layer(card, 11, units, distinct, MIXES[mix])
+    x = init.normal(gen, (B, F, 32), 1.0)
+    g = init.normal(gen, (B, F, 32), 1.0)
+    dom = _mix(mix, B, gen, card)
+    ref_dom = dom.clamp(0, MIXES[mix] - 1)
+    kw = dict(meta_units=units, head_num=4, mode=mode, relu_out=relu_out)
+    drop = dict(train=True, drop_rate=rate, **DROP)
+    masks = meta_block.layer_masks(x, head_num=4, mode=mode, **drop)
+    masks64 = masks and tuple(None if m is None else m.double()
+                              for m in masks)
+    layer64 = copy.deepcopy(layer).double()
+    tables64 = {k: t.double() for k, t in tables.items()}
+    if not distinct:
+        tables64["K"] = tables64["Q"]
+    res64 = {}
+    with torch.no_grad():
+        want = meta_block.meta_layer_reference(
+            x.double(), layer64, tables64, ref_dom, **kw, masks=masks64,
+            residuals=res64)
+    ops, cfg = meta_block.pack_operands(x, layer, tables, dom, **kw)
+    ops = [t if t is None else t.detach() for t in ops]
+    kargs = prng.kernel_args(True, rate, DROP["seed"], DROP["block_b"], F)
+    with torch.no_grad():
+        full = meta_block.launch_fwd(*ops, cfg, kargs, stash="full")
+        again = meta_block.launch_fwd(*ops, cfg, kargs, stash="full")
+        light = meta_block.launch_fwd(*ops, cfg, kargs, stash="light")
+        scores = meta_block.launch_fwd(*ops, cfg, kargs, stash="scores")
+    torch.cuda.synchronize()
+    names = ("y", "qkv", "uq", "uk", "s", "o")
+    for name, got, a in zip(names, full, again):
+        w = want if name == "y" else res64[name]
+        torch.testing.assert_close(got.double(), w, rtol=1e-4, atol=1e-4,
+                                   msg=name)
+        assert torch.equal(got, a), name
+    for got, i in zip(light, (0, 1, 2, 3, 5)):
+        assert torch.equal(got, full[i]), names[i]
+    assert torch.equal(scores[0], full[0]) and torch.equal(scores[1], full[4])
+
+    g = _kink_free(g.double(), x.double(), layer64, tables64, ref_dom,
+                   masks64, **kw).float()
+    with torch.no_grad():
+        bwd_full = meta_block.launch_bwd(g, *ops, cfg, kargs,
+                                         res=tuple(full[1:]))
+        bwd_again = meta_block.launch_bwd(g, *ops, cfg, kargs,
+                                          res=tuple(full[1:]))
+        bwd_light = meta_block.launch_bwd(
+            g, *ops, cfg, kargs, res=tuple(full[i] for i in (1, 2, 3, 5)))
+    torch.cuda.synchronize()
+    for a, b, c in zip(bwd_full, bwd_again, bwd_light):
+        if a is None:  # no middle matrix
+            continue
+        assert torch.equal(a, b)
+        assert (c - a).abs().max().item() <= 1e-6 * a.abs().max().item()
+    want_g = _named_grads(meta_block.meta_layer_reference, x.double(),
+                          layer64, tables64, ref_dom, g.double(), **kw,
+                          masks=masks64)
+    for bwd in ("stash", "stash_light"):
+        got = _named_grads(meta_block.fused_meta_layer, x, layer, tables,
+                           dom, g, **kw, **drop, bwd=bwd)
+        torch.cuda.synchronize()
+        assert set(got) == set(want_g)
+        for name, w in want_g.items():
+            err = (got[name].double() - w).abs().max().item()
+            assert err <= 1e-4 * w.abs().max().item() + 1e-5, (bwd, name,
+                                                               err)
 
 
 # --- K6, the gate and bilinear layer ------------------------------------
