@@ -5,10 +5,10 @@
 Phases, each of which exits non-zero on failure:
 
 1. build every CUDA kernel from satrans_torch/csrc (one nvcc per source,
-   all at once, anew); print each tile body of K1's stash kernels
-   (csrc/meta_stash_{fwd,bwd}.cuh) with its registers and spills (ptxas
-   -v), its dynamic shared memory at F = 19 and 15 and the HMMA
-   instructions in its SASS (cuobjdump -sass; none fails the run);
+   all at once, anew); print each tile body (K1's stash kernels and K7's
+   backwards, csrc/meta_stash_{fwd,bwd}.cuh) with its registers and
+   spills (ptxas -v), its dynamic shared memory at F = 19 and 15 and the
+   HMMA instructions in its SASS (cuobjdump -sass; none fails the run);
 2. hold each layer forward kernel against its plain PyTorch version on
    the card at the AliCCP sota widths (B=8192 and a ragged 8190, F=19,
    d=32, 4 heads, 4 meta rows, MetaNet 32->64->32), in meta modes QK and
@@ -85,10 +85,14 @@ Phases, each of which exits non-zero on failure:
    ``122``, the reference's ``--domain_col 301-122``: a composite table
    of 4 x 14 = 56 rows, so the batch is dispatched into single-domain
    tiles of 32 and every layer runs K7): (a) K7-fwd, K7-stash (and its
-   residuals), K7-bwd-stash and K7-bwd against the plain tiled layer at
-   the full workload's dispatch (B=8192 in 9984 slots) at dropout 0 and
-   0.1, QK and Query, relu_out off and on, and with distinct Q and K
-   tables, each body timed with its bound; (b) one request of 20,000
+   residuals), K7-bwd-stash and K7-bwd (with the plan's tile_count, as
+   the model calls them: the slack slots skipped) against the plain tiled
+   layer at the full workload's dispatch (B=8192 in 9984 slots) at
+   dropout 0 and 0.1, QK and Query, relu_out off and on, and with
+   distinct Q and K tables, the two backwards against each other within
+   1e-5 of each gradient's largest entry, each body timed with its bound
+   (the backwards also on every slot), the backwards' grid, boundary
+   tiles and skipped slack slots printed; (b) one request of 20,000
    examples through Predictor (exactly 3 K7-fwd a batch, no K1 or K6);
    (c) ``lazy`` training at lr 0.005 and dropout 0.1 for 12 steps and a
    tail under SATRANS_TILED_BWD=stash and recompute (exactly 3 + 3
@@ -205,6 +209,10 @@ ARM_ROWS = (ARM_STEPS - 1) * BATCH + TAIL
 # bench.py arm's learning rate
 ALIMAMA_F = 15
 POS_LR = 0.001
+# K7-bwd-stash against K7-bwd on the same masks, as a share of each
+# gradient's largest entry (the stash holds the forward's residuals, which
+# K7-bwd recomputes in another order)
+STASH_RECOMPUTE_RTOL = 1e-5
 # K1-bwd-stash light against K1-bwd-stash on the same residuals, as a share
 # of each gradient's largest entry (the same probabilities: bit for bit is
 # expected)
@@ -272,15 +280,18 @@ TILE_SOURCES = {n: "satrans_torch/csrc/meta_stash_" + (
     "bwd.cuh" if "bwd" in n else "fwd.cuh") for n in (
     "meta_block_fwd_stash", "meta_block_fwd_stash_light",
     "meta_block_fwd_scores", "meta_block_bwd_stash",
-    "meta_block_bwd_stash_light")}
-# the tile bodies of K1's stash kernels (csrc/meta_stash_fwd.cuh,
-# csrc/meta_stash_bwd.cuh) by kernel and mode (enum StashMode), as the JSON
+    "meta_block_bwd_stash_light", "tiled_meta_bwd", "tiled_meta_bwd_stash")}
+# the tile bodies (csrc/meta_stash_fwd.cuh, csrc/meta_stash_bwd.cuh) by
+# kernel, mode (enum StashMode) and K7 (the backward's TILED), as the JSON
 # line names them
-TILE_BODIES = {("meta_stash_fwd_kernel", 1): "meta_block_fwd_stash",
-               ("meta_stash_fwd_kernel", 2): "meta_block_fwd_stash_light",
-               ("meta_stash_fwd_kernel", 3): "meta_block_fwd_scores",
-               ("meta_stash_bwd_kernel", 1): "meta_block_bwd_stash",
-               ("meta_stash_bwd_kernel", 2): "meta_block_bwd_stash_light"}
+TILE_BODIES = {
+    ("meta_stash_fwd_kernel", 1, False): "meta_block_fwd_stash",
+    ("meta_stash_fwd_kernel", 2, False): "meta_block_fwd_stash_light",
+    ("meta_stash_fwd_kernel", 3, False): "meta_block_fwd_scores",
+    ("meta_stash_bwd_kernel", 1, False): "meta_block_bwd_stash",
+    ("meta_stash_bwd_kernel", 2, False): "meta_block_bwd_stash_light",
+    ("meta_stash_bwd_kernel", 1, True): "tiled_meta_bwd_stash",
+    ("meta_stash_bwd_kernel", 0, True): "tiled_meta_bwd"}
 
 
 def check(ok: bool, what: str) -> None:
@@ -377,7 +388,8 @@ def meta_layer_bound_ms(B, F, d, h, heads, meta_rows, apply_q, apply_k,
 
 
 def meta_layer_bwd_bound_ms(B, F, d, h, heads, meta_rows, apply_q, apply_k,
-                            stash=None, h2=0, tiled_meta=False):
+                            stash=None, h2=0, tiled_meta=False,
+                            occupied=None):
     """Least time for the layer's backward: K1-bwd recomputes the forward
     (its operations); K1-bwd-stash (``stash='full'``) only the MetaNet
     hidden layers (2Fdh an applied MetaNet, and 2F h h2 more for a 3-matrix
@@ -388,9 +400,12 @@ def meta_layer_bwd_bound_ms(B, F, d, h, heads, meta_rows, apply_q, apply_k,
     dW2, dhid, dW1 and dt0 (4 x 2Fdh; a 3-matrix one also dWm and dh1, 2 x
     2F h h2), and dWqkv and dx (2 x 6Fd^2).  Bytes are x, g and dom in, dx
     out, the weights in and their gradients out, and the residuals in.
-    K1-bwd-stash and its light form are tile bodies: every product but the
-    attention's runs in 3xTF32 on the tensor cores; K1-bwd and K7
-    (``tiled_meta``) run every product on the CUDA cores."""
+    The tile bodies (K1-bwd-stash and its light form; both K7 backwards,
+    ``tiled_meta``) run every product but the attention's in 3xTF32 on the
+    tensor cores; K1-bwd runs every product on the CUDA cores.  K7's work
+    is that of the ``occupied`` slots of its ``B`` (the slack slots' dx
+    is written, nothing else of them is needed)."""
+    n = B if occupied is None else occupied
     n_meta = apply_q + apply_k
     hidden = d * h + h * h2  # the forward's products up to the last hidden
     again = (n_meta * 2 * F * hidden + 2 * F * d * d if stash
@@ -399,13 +414,16 @@ def meta_layer_bwd_bound_ms(B, F, d, h, heads, meta_rows, apply_q, apply_k,
         again += 2 * F * F * d
     backward = (4 * F * d * d + 8 * F * F * d
                 + n_meta * 4 * F * _meta_floats(d, h, h2) + 12 * F * d * d)
-    nbytes = 4 * (3 * B * F * d + B
+    nbytes = 4 * (2 * n * F * d + B * F * d + n
                   + 2 * _weight_floats(d, h, meta_rows, h2))
     if stash:
-        nbytes += 4 * B * _residual_floats(F, d, heads, stash)
-    attention = 8 * F * F * d + (2 * F * F * d if stash == "light" else 0)
-    mma = again + backward - attention if stash and not tiled_meta else 0
-    return _bound(B * (again + backward), nbytes, B * mma)
+        nbytes += 4 * n * _residual_floats(F, d, heads, stash)
+    # the attention's products: the backward's, and the logits (and p v)
+    # that the light stash (K7-bwd) recomputes
+    attention = 8 * F * F * d + {"light": 2 * F * F * d, "full": 0,
+                                 None: 4 * F * F * d}[stash]
+    mma = again + backward - attention if stash or tiled_meta else 0
+    return _bound(n * (again + backward), nbytes, n * mma)
 
 
 def grad_errors(got: dict, want: dict) -> dict:
@@ -564,10 +582,11 @@ def drop_kw(rate):
 def _tile_body(mangled: str):
     """The JSON name of a tile body's mangled kernel name (``_3mat`` for a
     3-matrix MetaNet), or None for another kernel."""
-    for (kernel, mode), name in TILE_BODIES.items():
+    for (kernel, mode, tiled), name in TILE_BODIES.items():
         if kernel in mangled:
             d, h, h2, heads, m = map(int, re.findall(r"Li(\d+)E", mangled))
-            if m == mode:
+            flag = re.findall(r"Lb(\d)E", mangled)
+            if m == mode and tiled == (flag == ["1"]):
                 return name + ("_3mat" if h2 else "")
     return None
 
@@ -610,7 +629,7 @@ def tile_body_report():
     bwd_smem = meta_block.kernel_fn(
         "meta_block_bwd", "satrans_meta_block_bwd_stash_smem",
         [ctypes.c_int] * 5)
-    for (kernel, mode), name in TILE_BODIES.items():
+    for (kernel, mode, _), name in TILE_BODIES.items():
         for h2, suffix in ((0, ""), (64, "_3mat")):
             r = report.setdefault(name + suffix, {})
             r["smem_bytes"] = {F: (fwd_smem(32, 64, h2, 4, F, mode)
@@ -2320,12 +2339,14 @@ def tiled_kernel_phase(dev, units=UNITS2, cases=None):
     T = plan.n_slots // MULTICOL_TILE
     slack = int((plan.src < 0).sum())
     live = (plan.src >= 0).view(T, MULTICOL_TILE).any(1)
+    grid = torch.cuda.get_device_properties(dev).multi_processor_count
+    occupied = int(plan.tile_count.sum())
+    check(occupied == BATCH, f"tile_count sums to {occupied}, want {BATCH}")
     print(f"kernel tiled_meta{tag}: B={BATCH} dispatched into {plan.n_slots} "
           f"slots, {T} tiles of {MULTICOL_TILE} ({int(live.sum())} "
           f"occupied, of {torch.unique(plan.tile_dom[live]).numel()} of "
-          f"the {MULTICOL_ROWS} rows), {slack} slack slots; the backward's {T} tiles over "
-          f"{2 * torch.cuda.get_device_properties(dev).multi_processor_count}"
-          " blocks", flush=True)
+          f"the {MULTICOL_ROWS} rows), {slack} slack slots; the backwards' "
+          f"grid {grid} blocks, the {slack} slack slots skipped", flush=True)
     p = metanet.param_size(units)
     tables = {k: init.normal(gen, (MULTICOL_ROWS, p), 0.1) for k in "QK"}
     tile_dom = plan.tile_dom.long()
@@ -2380,21 +2401,24 @@ def tiled_kernel_phase(dev, units=UNITS2, cases=None):
         grads = {}
         for bwd, name in (("stash", "tiled_meta_bwd_stash"),
                           ("recompute", "tiled_meta_bwd")):
+            # the model's path: the plan's tile_count, the slack skipped
             grads[bwd] = layer_grads(
                 lambda x, l, t, _, **k: tiled_meta.fused_tiled_layer(
-                    x, l, t, **k, **drop, bwd=bwd),
+                    x, l, t, **k, **drop, bwd=bwd,
+                    tile_count=plan.tile_count),
                 x, lay, tabs, rows, g, **kw)
             torch.cuda.synchronize()
             e = grad_errors(grads[bwd], want_g)
             errs[name] = max(e.values())
-        # the two backwards on the same masks, at the same tolerance (a
-        # gradient that is zero in exact arithmetic, k_meta.ln.bias, is
-        # all round-off: the absolute term covers it)
+        # the two backwards on the same masks, each gradient within
+        # STASH_RECOMPUTE_RTOL of its largest entry (a gradient that is
+        # zero in exact arithmetic, k_meta.ln.bias, is all round-off: the
+        # absolute term covers it)
         gaps = {n: (grads["stash"][n] - grads["recompute"][n]).abs().max()
                 .item() for n in want_g}
         gap = max(gaps.values())
-        check(all(gaps[n] <= GRAD_RTOL * w.abs().max().item() + GRAD_ATOL
-                  for n, w in want_g.items()),
+        check(all(gaps[n] <= STASH_RECOMPUTE_RTOL * w.abs().max().item()
+                  + GRAD_ATOL for n, w in want_g.items()),
               f"K7-bwd-stash and K7-bwd differ on the same masks: {gaps}")
         for n, e in errs.items():
             worst[n] = max(worst[n], e)
@@ -2433,18 +2457,38 @@ def tiled_kernel_phase(dev, units=UNITS2, cases=None):
             for res_, name in ((st[1:], "tiled_meta_bwd_stash"),
                                (None, "tiled_meta_bwd")):
                 ms = time_ms(lambda: tiled_meta.launch_bwd(
+                    g, x, *weights, cfg, kargs, MULTICOL_TILE, res=res_,
+                    tile_count=plan.tile_count), iters=20)
+                every_ms = time_ms(lambda: tiled_meta.launch_bwd(
                     g, x, *weights, cfg, kargs, MULTICOL_TILE, res=res_),
                     iters=20)
+                # the kernel's own split of this grid: the dispatch tiles
+                # it shares between two blocks
+                _, tails = tiled_meta.launch_bwd(
+                    g, x, *weights, cfg, kargs, MULTICOL_TILE, res=res_,
+                    tile_count=plan.tile_count, tails=True)
+                split = int((tails >= 0).sum())
+                check(tails.numel() == grid, f"{name} ran {tails.numel()} "
+                      f"blocks, want {grid}")
                 b_ms, b_by = meta_layer_bwd_bound_ms(
                     plan.n_slots, F, d, h, heads, T, 1, 1,
                     stash="full" if res_ is not None else None, h2=h2,
-                    tiled_meta=True)
+                    tiled_meta=True, occupied=occupied)
                 out[(name, rate)] = dict(ms=ms, plain_ms=pb_ms,
-                                         bound_ms=b_ms, bound_by=b_by)
+                                         bound_ms=b_ms, bound_by=b_by,
+                                         every_slot_ms=every_ms,
+                                         grid=grid, split_tiles=split)
             line += "; " + ", ".join(
                 f"{n} kernel_ms={out[(n, rate)]['ms']:.4f} bound_ms="
                 f"{out[(n, rate)]['bound_ms']:.4f}" for n in K7_NAMES) + (
-                f"; plain forward {p_ms:.4f} ms, backward {pb_ms:.4f} ms")
+                "; on every slot (no tile_count) " + ", ".join(
+                    f"{n} {out[(n, rate)]['every_slot_ms']:.4f} ms"
+                    for n in K7_NAMES[2:])
+                + "; " + ", ".join(
+                    f"{n} split {out[(n, rate)]['split_tiles']} boundary "
+                    f"tiles between two of its {grid} blocks"
+                    for n in K7_NAMES[2:])
+                + f"; plain forward {p_ms:.4f} ms, backward {pb_ms:.4f} ms")
         print(line, flush=True)
         del st, grads, want_g
     fields = {}
@@ -3537,13 +3581,12 @@ def main() -> int:
             "178 (_bwd_kernel; _bwd_call :562, pallas_call :634)",
             "341 (_bwd_kernel_stash; _bwd_call :562, pallas_call :634)")):
         by_path = {p: n[name] for p, n in mpaths.items() if n.get(name)}
-        source = "meta_block_bwd.cu" if "bwd" in name else \
-            "meta_block_fwd.cu"
         kernels.append(dict(
-            name=name, route="cuda", source=f"satrans_torch/csrc/{source}",
+            name=name, route="cuda", source=TILE_SOURCES.get(
+                name, "satrans_torch/csrc/meta_block_fwd.cu"),
             replaces=f"satrans_tpu/ops/pallas/tiled_meta.py:{replaces}",
             launches=sum(by_path.values()), launches_by_path=by_path,
-            library_ms=None, **kt[name]))
+            library_ms=None, **kt[name], **tile.get(name, {})))
     # the 3-matrix instances of K1 and K7 (phase 13), launched on phase
     # 13's paths only
     replaces = {k["name"]: k["replaces"] for k in kernels}

@@ -1,5 +1,5 @@
 // Device code shared by the layer kernels: K1 and K7 (meta_block_fwd.cu,
-// meta_block_bwd.cu and their tile bodies meta_stash_fwd.cuh,
+// meta_block_bwd.cu and the tile bodies meta_stash_fwd.cuh,
 // meta_stash_bwd.cuh) and K6 (gate_block_fwd.cu, gate_block_bwd.cu).
 //
 // An example's F rows are worked on by a group of G threads (a warp in the
@@ -498,42 +498,52 @@ __device__ __forceinline__ void attention_probs_pair(const float* qk, int ns,
     if (j < F) prow[j] = s[j] * inv;
 }
 
-// The backwards' recomputed attention of one example: P (normalised,
-// before dropout) into P ([NH][F][F]) and o = (P m_s) v into out (stride
-// os).  q|k lie in the rows of qk (stride ns) at columns 0 and DM, v in
-// the rows of v (stride vs).
+// One (head hh, query row i) pair of the backwards' recomputed attention:
+// P (normalised, before dropout) into row i of head hh of P ([NH][F][F])
+// and o = (P m_s) v into row i of out (stride os).  q|k lie in the rows of
+// qk (stride ns) at columns 0 and DM, v in the rows of v (stride vs).
+template <int DM, int NH>
+__device__ __forceinline__ void attention_recompute_pair(
+    const float* qk, int ns, const float* v, int vs, float* P, float* out,
+    int os, int F, int hh, int i, const Dropout& drop, const ExampleDraw& ed,
+    unsigned salt_s) {
+  constexpr int DH = DM / NH;
+  float s[kMaxFields];
+  const float inv =
+      1.f / head_softmax<DH>(qk + i * ns + hh * DH, qk + DM + hh * DH, ns, F,
+                             s, [](int, float) {});
+  float o[DH];
+#pragma unroll
+  for (int c = 0; c < DH; ++c) o[c] = 0.f;
+  float* prow = P + (hh * F + i) * F;
+#pragma unroll
+  for (int j = 0; j < kMaxFields; ++j) {
+    if (j < F) {
+      prow[j] = s[j] * inv;
+      const float pj =
+          drop.on ? prow[j] * ed.attn(drop, salt_s + hh, i, j) : prow[j];
+      axpy_head<DH>(pj, v + j * vs + hh * DH, o);
+    }
+  }
+#pragma unroll
+  for (int c = 0; c < DH; c += 4) {
+    const float w[4] = {o[c], o[c + 1], o[c + 2], o[c + 3]};
+    st4(out + i * os + hh * DH + c, w);
+  }
+}
+
+// The backwards' recomputed attention of one example:
+// attention_recompute_pair for the (head, query row) pairs of thread t of
+// a group of G.
 template <int DM, int NH, int G>
 __device__ __forceinline__ void attention_recompute(
     const float* qk, int ns, const float* v, int vs, float* P, float* out,
     int os, int F, int t, const Dropout& drop, const ExampleDraw& ed,
     unsigned salt_s) {
-  constexpr int DH = DM / NH;
 #pragma unroll 1
-  for (int p = t; p < NH * F; p += G) {
-    const int hh = p / F, i = p % F;
-    float s[kMaxFields];
-    const float inv =
-        1.f / head_softmax<DH>(qk + i * ns + hh * DH, qk + DM + hh * DH, ns,
-                               F, s, [](int, float) {});
-    float o[DH];
-#pragma unroll
-    for (int c = 0; c < DH; ++c) o[c] = 0.f;
-    float* prow = P + (hh * F + i) * F;
-#pragma unroll
-    for (int j = 0; j < kMaxFields; ++j) {
-      if (j < F) {
-        prow[j] = s[j] * inv;
-        const float pj =
-            drop.on ? prow[j] * ed.attn(drop, salt_s + hh, i, j) : prow[j];
-        axpy_head<DH>(pj, v + j * vs + hh * DH, o);
-      }
-    }
-#pragma unroll
-    for (int c = 0; c < DH; c += 4) {
-      const float w[4] = {o[c], o[c + 1], o[c + 2], o[c + 3]};
-      st4(out + i * os + hh * DH + c, w);
-    }
-  }
+  for (int p = t; p < NH * F; p += G)
+    attention_recompute_pair<DM, NH>(qk, ns, v, vs, P, out, os, F, p / F,
+                                     p % F, drop, ed, salt_s);
 }
 
 // The three passes of the attention backward of one example, each for

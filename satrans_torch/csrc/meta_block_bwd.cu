@@ -1,22 +1,24 @@
 // Backward of one SATrans meta-transformer layer, training, float32, with
-// the in-kernel dropout.
+// the in-kernel dropout: K1-bwd (the template below) and the C entries of
+// the tile body csrc/meta_stash_bwd.cuh (K1-bwd-stash, K1-bwd-stash light,
+// and K7-bwd-stash and K7-bwd on dispatched tiles, satrans_tiled_meta_bwd).
 //
 // Replaces two TPU kernels of satrans_tpu/ops/pallas/meta_block.py, both
 // launched by _bwd_call through pl.pallas_call (with _attn_bwd_heads,
 // _meta_bwd, _layer_norm_bwd and _write_param_grads): _bwd_kernel (:685;
-// K1-bwd, the template below with MODE=kNoStash, the JAX package's
-// bwd='recompute'), which recomputes the forward on chip, and
-// _bwd_kernel_stash (:902) in its full mode (stash_s=True; K1-bwd-stash,
-// kFullStash, its default bwd='stash'), which reads the residuals that
-// K1-stash wrote and recomputes only the MetaNet hidden layers and zlin =
-// o @ Wout, and in its light mode (stash_s=False; K1-bwd-stash light,
-// kLightStash, bwd='stash_light'), which reads the residuals of K1-stash
-// light and also recomputes the probabilities from the stashed pre-LN sums
-// uq and uk with the forward's device code, so that they equal the
-// forward's bit for bit.  The two stash modes run on the tile body of
-// csrc/meta_stash_bwd.cuh (tiles of several examples sorted by domain,
-// products on the tensor cores, per-domain gradients summed a segment at a
-// time); the C entry below launches it for them.  Per example
+// K1-bwd, the template below, the JAX package's bwd='recompute'), which
+// recomputes the forward on chip, and _bwd_kernel_stash (:902) in its full
+// mode (stash_s=True; K1-bwd-stash, kFullStash, its default bwd='stash'),
+// which reads the residuals that K1-stash wrote and recomputes only the
+// MetaNet hidden layers and zlin = o @ Wout, and in its light mode
+// (stash_s=False; K1-bwd-stash light, kLightStash, bwd='stash_light'),
+// which reads the residuals of K1-stash light and also recomputes the
+// probabilities from the stashed pre-LN sums uq and uk with the forward's
+// device code, so that they equal the forward's bit for bit.  The two
+// stash modes run on the tile body of csrc/meta_stash_bwd.cuh (tiles of
+// several examples sorted by domain, products on the tensor cores,
+// per-domain gradients summed a segment at a time); the C entry below
+// launches it for them.  Per example
 // e with domain row dm = dom[e] and the dropout masks m of
 // csrc/dropout.cuh (all ones without dropout) the forward is
 //
@@ -65,8 +67,7 @@
 // for a given grid size.  Shared memory holds the dense sums and two
 // examples' intermediates (x, q0|k0|v0, the normalised q|k and their
 // xhat, the MetaNet hidden layer, the probabilities, the gradient rows):
-// 95 kB at F=19 (K7-bwd-stash loads into the buffers K7-bwd computes
-// into).  The MetaNet hidden layer is recomputed in the backward instead
+// 95 kB at F=19.  The MetaNet hidden layer is recomputed in the backward instead
 // of stored.
 //
 // 3-matrix MetaNets.  With units [d, h1, h2, d] (the template's HID2 > 0;
@@ -79,25 +80,6 @@
 // gain dWmq and dWmk [D][h1 h2]: 16,384 floats a domain a block for both
 // MetaNets, 277 MB of scratch at D = kMaxDomains over 264 blocks.  As
 // for 2-matrix MetaNets no residual is stashed for the hidden layers.
-//
-// K7.  The same template with TILED=true is K7-bwd (kNoStash) and
-// K7-bwd-stash (kFullStash), which replace satrans_tpu/ops/pallas/
-// tiled_meta.py's _bwd_kernel (:178, bwd='recompute') and
-// _bwd_kernel_stash (:341, the default bwd='stash'), both launched by
-// _bwd_call (:562) through pl.pallas_call (:634): the backward of the
-// layer on dispatched single-domain tiles of tile_b slots (csrc/
-// meta_block_fwd.cu), whose MetaNet weights are the tile's row of the
-// per-tile [T, d, h] and [T, h, d] blocks.  Each tile's gradient blocks
-// dW1q, dW2q, dW1k, dW2k are its own and are written, not summed with
-// other tiles' (autograd of the gather table[tile_dom] outside the kernel
-// adds them into the table's rows).  So a block owns whole dispatch
-// tiles: block b takes tiles b, b + grid, ..., and for each one zeroes
-// the tile's four blocks in the output, walks the tile's slots in K1's
-// two-example steps adding into them (one owner per element, in slot
-// order), and leaves them there; no per-domain scratch, and no cap on the
-// tile count.  The dense and LayerNorm gradients are K1's per-block sums
-// added by sum_partials, deterministic for a given grid.  With 312 tiles
-// over 2 x 132 blocks the last wave is mostly idle (1.18 waves).
 //
 // The kernel launches on the caller's stream, allocates nothing and does
 // not synchronise; the C entry returns cudaGetLastError().
@@ -161,18 +143,13 @@ __host__ __device__ int grad_floats(int D) {  // the block's partial sums
 struct Args {
   const float *x, *g, *wqkv, *wqkvT, *w1q, *wmq, *w2q, *w1qT, *wmqT, *w2qT,
       *lnq, *w1k, *wmk, *w2k, *w1kT, *wmkT, *w2kT, *lnk, *wout, *woutT, *lno;
-  const int* dom;  // K1 only
-  // grads: K7 writes the per-tile blocks there itself
+  const int* dom;
   float *dx, *partial, *grads;
-  // D: K1's domain rows, K7's tiles T of tile_b slots each
-  int B, F, D, tile_b, apply_q, apply_k, relu_out;
-  // K7-bwd-stash's residuals: qkv [B, F, 3d], uq, uk, o [B, F, d] and the
-  // probabilities before dropout s [B, H, F, F]
-  const float *qkv, *uq, *uk, *s, *o;
+  int B, F, D, apply_q, apply_k, relu_out;
   Dropout drop;
 };
 
-template <class SH, int MODE, bool TILED>
+template <class SH>
 __global__ void __launch_bounds__(kThreads, 2)
 meta_block_bwd_kernel(const Args a) {
   constexpr int DM = SH::DM, HID = SH::HID, HID2 = SH::HID2, NH = SH::NH;
@@ -180,10 +157,7 @@ meta_block_bwd_kernel(const Args a) {
   using S = Strides<SH>;
   using TD = Tile<DM, kGroup>;
   constexpr int DH = DM / NH;
-  constexpr bool STASH = MODE != kNoStash;
   static_assert(DM % NH == 0 && DH % 4 == 0, "head width must be 4k");
-  static_assert(MODE == kNoStash || (MODE == kFullStash && TILED),
-                "K1's stash bodies are meta_stash_bwd.cuh's");
 
   extern __shared__ float4 smem4[];
   const int t = threadIdx.x, slot = t / kGroup, gt = t % kGroup;
@@ -191,14 +165,13 @@ meta_block_bwd_kernel(const Args a) {
 
   // Shared: dWqkv [DM][3DM] | dWout [DM][DM] sums, then the tile's
   // working buffers, rows r = slot * F + f.  Global, the block's slice of
-  // the scratch buffer: the dense and LayerNorm sums, then (K1) the
-  // per-domain dW1q [D][kW1], dWmq [D][kWm], dW2q [D][kW2], and the same
-  // three of K (no dWm blocks for a 2-matrix MetaNet); K7 adds a tile's
-  // into its rows of the same blocks of the output.
+  // the scratch buffer: the dense and LayerNorm sums, then the per-domain
+  // dW1q [D][kW1], dWmq [D][kWm], dW2q [D][kW2], and the same three of K
+  // (no dWm blocks for a 2-matrix MetaNet).
   float* acc = reinterpret_cast<float*>(smem4);
   float* out = a.partial + static_cast<size_t>(blockIdx.x) *
-                               grad_floats<SH>(TILED ? 0 : D);
-  float* acc_dom = (TILED ? a.grads : out) + S::kDense + kLnRows * DM;
+                               grad_floats<SH>(D);
+  float* acc_dom = out + S::kDense + kLnRows * DM;
   float* sX = acc + S::kDense;
   float* sQKV = sX + R * S::XS;
   float* sN = sQKV + R * S::QS;     // q|k after their LayerNorms
@@ -209,8 +182,7 @@ meta_block_bwd_kernel(const Args a) {
   float* sP = sH2 + R * S::H2S;     // [kTile][NH][F][F]: P, then dS
   float* sD = sP + kTile * NH * F * F;  // dz, then dq|dk|dv
   for (int i = t; i < S::kDense; i += kThreads) acc[i] = 0.f;
-  if (!TILED)
-    for (int i = t; i < 2 * D * S::kMeta; i += kThreads) acc_dom[i] = 0.f;
+  for (int i = t; i < 2 * D * S::kMeta; i += kThreads) acc_dom[i] = 0.f;
 
   float ln_acc[kLnRows][4];
 #pragma unroll
@@ -219,47 +191,23 @@ meta_block_bwd_kernel(const Args a) {
     for (int c = 0; c < 4; ++c) ln_acc[j][c] = 0.f;
   }
   const int cgd = gt % TD::LPR, rsd = gt / TD::LPR, cold = 4 * cgd;
-  // The work units: K1's grid stride over the batch's tiles of two
-  // examples, one step each; K7's over the dispatch tiles, each walked in
-  // steps of two slots (tile_b is even).
-  const int per_unit = TILED ? a.tile_b / kTile : 1;
-  const int units = TILED ? D : (a.B + kTile - 1) / kTile;
-  const int steps = blockIdx.x < units
-      ? ((units - 1 - blockIdx.x) / gridDim.x + 1) * per_unit : 0;
+  // a grid stride over the batch's tiles of two examples
+  const int tiles = (a.B + kTile - 1) / kTile;
   const DropSalts salt(a.apply_q, a.apply_k, NH);
   __syncthreads();
 
 #pragma unroll 1
-  for (int it = 0; it < steps; ++it) {
-    const int unit = blockIdx.x + (it / per_unit) * gridDim.x;
-    const int tile = unit * per_unit + it % per_unit;
-    if (TILED && it % per_unit == 0) {
-      // a new dispatch tile: its gradient blocks start at zero (the
-      // barrier after F1 orders this before the first sum into them)
-      for (int i = t; i < 2 * S::kMeta; i += kThreads) {
-        const int w = i / S::kMeta, r = i % S::kMeta;
-        float* p = acc_dom + static_cast<size_t>(w) * D * S::kMeta;
-        if (r < S::kW1)
-          p[unit * S::kW1 + r] = 0.f;
-        else if (r < S::kW1 + S::kWm)
-          p[D * S::kW1 + unit * S::kWm + r - S::kW1] = 0.f;
-        else
-          p[D * (S::kW1 + S::kWm) + unit * S::kW2 + r - S::kW1 - S::kWm] =
-              0.f;
-      }
-    }
+  for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
     const int e0 = tile * kTile;
     const int nvalid = min(kTile, a.B - e0);
     const int ex = e0 + slot;
     // live is uniform over the group's four whole warps, so the shuffles
     // inside stay full-warp
     const bool live = slot < nvalid;
-    int doms[kTile];  // the weights' rows: K1 the domains, K7 the tile
+    int doms[kTile];  // the domain rows of the tile's examples
 #pragma unroll
     for (int e = 0; e < kTile; ++e)
-      doms[e] = e >= nvalid ? 0
-                : TILED    ? unit
-                           : min(max(a.dom[e0 + e], 0), D - 1);
+      doms[e] = e >= nvalid ? 0 : min(max(a.dom[e0 + e], 0), D - 1);
     const int dm = doms[slot];
     float* X = sX + slot * F * S::XS;
     float* QKV = sQKV + slot * F * S::QS;
@@ -283,14 +231,8 @@ meta_block_bwd_kernel(const Args a) {
     }
     __syncthreads();
 
-    // F2. q0 | k0 | v0 = x @ [Wq | Wk | Wv], or their stash
-    if (live && STASH) {
-      for (int i = gt; i < F * (3 * DM / 4); i += kGroup) {
-        const int f = i / (3 * DM / 4), c = 4 * (i % (3 * DM / 4));
-        *reinterpret_cast<float4*>(QKV + f * S::QS + c) =
-            ldg4(a.qkv + 3 * base + f * 3 * DM + c);
-      }
-    } else if (live) {
+    // F2. q0 | k0 | v0 = x @ [Wq | Wk | Wv]
+    if (live) {
 #pragma unroll 1
       for (int part = 0; part < 3; ++part) {
         float o[TD::RPL][4];
@@ -305,9 +247,8 @@ meta_block_bwd_kernel(const Args a) {
     }
     __syncthreads();
 
-    // F3. MetaNets on q0 and k0 with their dropout and LayerNorms (or the
-    //     LayerNorms of the stashed pre-LN sums) -> N, XH, INV; an
-    //     unapplied projection is copied through.
+    // F3. MetaNets on q0 and k0 with their dropout and LayerNorms -> N, XH,
+    //     INV; an unapplied projection is copied through.
 #pragma unroll 1
     for (int w = 0; w < 2; ++w) {
       const float* t0 = QKV + w * DM;
@@ -326,21 +267,19 @@ meta_block_bwd_kernel(const Args a) {
         continue;
       }
       float o[TD::RPL][4];  // the MetaNet output, masked
-      if (!STASH) {
-        // the hidden layers before their relus: h1 into H and, for a
-        // 3-matrix MetaNet, h2 = relu(h1) @ Wm into H2
+      // the hidden layers before their relus: h1 into H and, for a
+      // 3-matrix MetaNet, h2 = relu(h1) @ Wm into H2
+      if (live)
+        metanet_matrix<kGroup, DM, HID, false, false>(t0, S::QS, w1, F, gt,
+                                                      H, S::HS, [] {});
+      __syncthreads();
+      if constexpr (HID2 > 0) {
         if (live)
-          metanet_matrix<kGroup, DM, HID, false, false>(t0, S::QS, w1, F, gt,
-                                                        H, S::HS, [] {});
+          metanet_matrix<kGroup, HID, HID2, true, false>(
+              H, S::HS, wm, F, gt, H2, S::H2S, [] {});
         __syncthreads();
-        if constexpr (HID2 > 0) {
-          if (live)
-            metanet_matrix<kGroup, HID, HID2, true, false>(
-                H, S::HS, wm, F, gt, H2, S::H2S, [] {});
-          __syncthreads();
-        }
       }
-      if (live && !STASH) {
+      if (live) {
         tile_gemm<kGroup, HL, DM, true>(HID2 ? H2 : H,
                                         HID2 ? S::H2S : S::HS, w2, DM, F,
                                         gt, o);
@@ -356,22 +295,14 @@ meta_block_bwd_kernel(const Args a) {
       }
       if (live) {
         const float4 sc = ldg4(ln + cold), bi = ldg4(ln + DM + cold);
-        const float* u = w ? a.uk : a.uq;
 #pragma unroll
         for (int i = 0; i < TD::RPL; ++i) {
           const int f = rsd + TD::RS * i;
           const bool ok = f < F;
-          float v[4] = {0.f, 0.f, 0.f, 0.f};
-          if (STASH) {
-            if (ok) to4(ldg4(u + base + f * DM + cold), v);
-          } else {
-            const float4 r = ok ? ld4(t0 + f * S::QS + cold)
-                                : make_float4(0.f, 0.f, 0.f, 0.f);
-            v[0] = o[i][0] + r.x;
-            v[1] = o[i][1] + r.y;
-            v[2] = o[i][2] + r.z;
-            v[3] = o[i][3] + r.w;
-          }
+          const float4 r = ok ? ld4(t0 + f * S::QS + cold)
+                              : make_float4(0.f, 0.f, 0.f, 0.f);
+          float v[4] = {o[i][0] + r.x, o[i][1] + r.y, o[i][2] + r.z,
+                        o[i][3] + r.w};
           const float inv = ln_xhat<DM>(v);
           if (ok) {
             st4(XH + f * S::NS + w * DM + cold, v);
@@ -387,16 +318,8 @@ meta_block_bwd_kernel(const Args a) {
     __syncthreads();  // the copy of an unapplied projection has none
 
     // F4. Attention: P (normalised, before dropout) and o = (P m_s) v
-    //     into H, or their stash.  A thread owns (head, query row) pairs.
-    if (live && STASH) {
-      const float* se = a.s + static_cast<size_t>(ex) * NH * F * F;
-      for (int i = gt; i < NH * F * F; i += kGroup) P[i] = __ldg(se + i);
-      for (int i = gt; i < F * (DM / 4); i += kGroup) {
-        const int f = i / (DM / 4), c = 4 * (i % (DM / 4));
-        *reinterpret_cast<float4*>(H + f * S::HS + c) =
-            ldg4(a.o + base + f * DM + c);
-      }
-    } else if (live) {
+    //     into H.  A thread owns (head, query row) pairs.
+    if (live) {
       attention_recompute<DM, NH, kGroup>(Nm, S::NS, QKV + 2 * DM, S::QS, P,
                                           H, S::HS, F, gt, a.drop, ed,
                                           salt.s);
@@ -634,12 +557,11 @@ meta_block_bwd_kernel(const Args a) {
   for (int i = t; i < S::kDense; i += kThreads) out[i] = acc[i];
 }
 
-template <class SH, int MODE, bool TILED>
+template <class SH>
 cudaError_t launch(const Args& a, int blocks, cudaStream_t stream) {
-  auto kernel = meta_block_bwd_kernel<SH, MODE, TILED>;
+  auto kernel = meta_block_bwd_kernel<SH>;
   const size_t smem = smem_bytes<SH>(a.F);
-  if (smem > kMaxSmem || (!TILED && a.D > kMaxDomains))
-    return cudaErrorInvalidValue;
+  if (smem > kMaxSmem || a.D > kMaxDomains) return cudaErrorInvalidValue;
   static size_t configured = 0;
   if (smem > configured) {
     const cudaError_t err = cudaFuncSetAttribute(
@@ -651,9 +573,7 @@ cudaError_t launch(const Args& a, int blocks, cudaStream_t stream) {
   kernel<<<blocks, kThreads, smem, stream>>>(a);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  // K7's per-tile blocks are in place already: only the dense and
-  // LayerNorm sums are added
-  const int total = grad_floats<SH>(TILED ? 0 : a.D);
+  const int total = grad_floats<SH>(a.D);
   sum_partials<<<(total + 255) / 256, 256, 0, stream>>>(a.partial, a.grads,
                                                         total, blocks);
   return cudaGetLastError();
@@ -746,62 +666,82 @@ extern "C" int satrans_meta_block_bwd(
     return static_cast<int>(with_shape(d, h, h2, heads, [&](auto sh) {
       using SH = decltype(sh);
       return stash == kFullStash
-                 ? launch_stash_bwd<SH, kFullStash>(t, blocks, str)
-                 : launch_stash_bwd<SH, kLightStash>(t, blocks, str);
+                 ? launch_stash_bwd<SH, kFullStash, false>(t, blocks, str)
+                 : launch_stash_bwd<SH, kLightStash, false>(t, blocks, str);
     }));
   }
   const Args a{x,     g,    wqkv, wqkvT, w1q,  wmq,  w2q,  w1qT,
                wmqT,  w2qT, lnq,  w1k,   wmk,  w2k,  w1kT, wmkT,
                w2kT,  lnk,  wout, woutT, lno,  dom,  dx,   partial,
-               grads, B,    F,    D,     0,    apply_q, apply_k, relu_out,
-               qkv,   uq,   uk,   s,     o,     drop};
+               grads, B,    F,    D,     apply_q, apply_k, relu_out, drop};
   return static_cast<int>(with_shape(d, h, h2, heads, [&](auto sh) {
-    return launch<decltype(sh), kNoStash, false>(a, blocks, str);
+    return launch<decltype(sh)>(a, blocks, str);
   }));
 }
 
-// K7-bwd and K7-bwd-stash: the backward of satrans_tiled_meta_fwd on
-// n_slots = T * tile_b dispatched slots (tile_b even), with stash
-// kNoStash (every residual pointer null, recomputing them) or kFullStash
-// (the five residuals of K7-stash); the light stash is refused.  partial
-// holds blocks x satrans_meta_block_bwd_grad_floats(d, h, h2, heads, 0)
-// floats (at most one block a tile is used), grads receives
-// satrans_meta_block_bwd_grad_floats(d, h, h2, heads, T) floats in K1's
-// layout with the T tiles in place of the domains.  Returns a
-// cudaError_t.
+// The floats of K7's scratch buffer for a grid of blocks; -1 for a shape
+// not instantiated.
+extern "C" int satrans_tiled_meta_bwd_scratch_floats(int d, int h, int h2,
+                                                     int heads, int blocks) {
+  int n = -1;
+  with_shape(d, h, h2, heads, [&](auto sh) {
+    n = static_cast<int>(tiled_bwd_scratch_floats<decltype(sh)>(blocks));
+    return cudaSuccess;
+  });
+  return n;
+}
+
+// K7-bwd and K7-bwd-stash (the tile body of csrc/meta_stash_bwd.cuh with
+// TILED): the backward of satrans_tiled_meta_fwd on n_slots = T * tile_b
+// dispatched slots, with stash kNoStash (every residual pointer null,
+// recomputing them) or kFullStash (the five residuals of K7-stash); the
+// light stash is refused.  count [T] (int32, or null: every slot
+// occupied) gives each tile's occupied slots, the first of the tile; the
+// others must have a zero upstream gradient, get dx = 0 and add nothing.
+// scratch holds satrans_tiled_meta_bwd_scratch_floats(d, h, h2, heads,
+// blocks) floats (blocks the grid: one an SM for the card, fewer split
+// more dispatch tiles between blocks, and blocks without occupied slots
+// write zero sums); grads
+// receives satrans_meta_block_bwd_grad_floats(d, h, h2, heads, T) floats
+// in K1's layout with the T tiles in place of the domains, each tile's
+// blocks its own.  Two launches: the body, then tiled_bwd_finish.
+// Returns a cudaError_t.
 extern "C" int satrans_tiled_meta_bwd(
-    const float* x, const float* g, const float* wqkv, const float* wqkvT,
-    const float* w1q, const float* wmq, const float* w2q, const float* w1qT,
-    const float* wmqT, const float* w2qT, const float* lnq,
-    const float* w1k, const float* wmk, const float* w2k, const float* w1kT,
-    const float* wmkT, const float* w2kT, const float* lnk,
-    const float* wout, const float* woutT, const float* lno, float* dx,
-    float* partial, float* grads, const float* qkv, const float* uq,
-    const float* uk, const float* s, const float* o, int stash, int n_slots,
-    int F, int d, int h, int h2, int heads, int T, int tile_b, int apply_q,
-    int apply_k, int relu_out, int blocks, int drop_on, unsigned seed,
-    unsigned threshold, float scale, int block_b, int fpad, int group,
-    void* stream) {
-  if (n_slots < 1 || F < 1 || F > kMaxFields || T < 1 || blocks < 1 ||
-      tile_b < kTile || tile_b % kTile || n_slots != T * tile_b ||
-      stash == kLightStash || stash == kScores)
+    const float* x, const float* g, const float* wqkv, const float* w1q,
+    const float* wmq, const float* w2q, const float* lnq, const float* w1k,
+    const float* wmk, const float* w2k, const float* lnk, const float* wout,
+    const float* lno, const int* count, float* dx, float* scratch,
+    float* grads, const float* qkv, const float* uq, const float* uk,
+    const float* s, const float* o, int stash, int n_slots, int F, int d,
+    int h, int h2, int heads, int T, int tile_b, int apply_q, int apply_k,
+    int relu_out, int blocks, int drop_on, unsigned seed, unsigned threshold,
+    float scale, int block_b, int fpad, int group, void* stream) {
+  if (n_slots < 1 || F < 1 || F > kMaxFields || T < 1 || tile_b < 1 ||
+      n_slots != T * tile_b || blocks < 1 ||
+      (stash != kNoStash && stash != kFullStash))
     return static_cast<int>(cudaErrorInvalidValue);
   if (drop_on && (block_b < 1 || fpad < F || group < 1))
     return static_cast<int>(cudaErrorInvalidValue);
   if (!stash_pointers_ok(stash, qkv, uq, uk, s, o) ||
-      !middle_pointers_ok(h2, {wmq, wmqT, wmk, wmkT}))
+      !middle_pointers_ok(h2, {wmq, wmk}))
     return static_cast<int>(cudaErrorInvalidValue);
-  const Args a{x,     g,    wqkv, wqkvT, w1q,  wmq,  w2q,  w1qT,
-               wmqT,  w2qT, lnq,  w1k,   wmk,  w2k,  w1kT, wmkT,
-               w2kT,  lnk,  wout, woutT, lno,  nullptr, dx, partial,
-               grads, n_slots, F, T,     tile_b, apply_q, apply_k,
-               relu_out, qkv, uq, uk,    s,    o,
-               Dropout{drop_on, seed, threshold, scale, block_b, fpad,
-                       group}};
+  const Dropout drop{drop_on, seed, threshold, scale, block_b, fpad, group};
   const cudaStream_t str = static_cast<cudaStream_t>(stream);
   return static_cast<int>(with_shape(d, h, h2, heads, [&](auto sh) {
     using SH = decltype(sh);
-    return stash == kFullStash ? launch<SH, kFullStash, true>(a, blocks, str)
-                               : launch<SH, kNoStash, true>(a, blocks, str);
+    const size_t dense = static_cast<size_t>(blocks) * grad_floats<SH>(0);
+    float* bnd = scratch + dense;
+    int* bnd_tile = reinterpret_cast<int*>(
+        bnd + static_cast<size_t>(blocks) * 4 * Strides<SH>::kMeta);
+    const StashBwdArgs t{x,       g,        wqkv,    lnq,   lnk,  wout,
+                         lno,     nullptr,  MetaW{w1q, wmq, w2q, w1k, wmk,
+                                                  w2k},
+                         dx,      scratch,  grads,   qkv,   uq,   uk,
+                         s,       o,        n_slots, F,     T,    0,
+                         apply_q, apply_k,  relu_out, drop, count, tile_b,
+                         bnd,     bnd_tile};
+    return stash == kFullStash
+               ? launch_stash_bwd<SH, kFullStash, true>(t, blocks, str)
+               : launch_stash_bwd<SH, kNoStash, true>(t, blocks, str);
   }));
 }

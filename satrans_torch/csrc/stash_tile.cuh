@@ -1,18 +1,23 @@
-// Device code of the tile bodies of K1's stash kernels (csrc/
+// Device code of the tile bodies: K1's stash kernels (csrc/
 // meta_stash_fwd.cuh: K1-stash, K1-stash light, K1-scores; csrc/
-// meta_stash_bwd.cuh: K1-bwd-stash, K1-bwd-stash light).
+// meta_stash_bwd.cuh: K1-bwd-stash, K1-bwd-stash light) and K7's backwards
+// (csrc/meta_stash_bwd.cuh: K7-bwd-stash, K7-bwd).
 //
 // A block of 4 R threads owns a tile of E = R / F examples at a time (R =
 // kTileRows = 80 rows in the backward: 4 examples at F = 19, 5 at F = 15;
 // R = kWideTileRows = 96 in the forward: 5 and 6), so that every product
 // of the layer has E F >= 64 rows instead of one example's F, and the
 // tile's attention has at most one (head, row) pair a thread.  It walks a
-// contiguous range of the batch, persistently, one block an SM; the range
-// is sorted by domain row in windows of kWindow examples (sort_window), and
-// the tiles are consecutive examples of that order, so that a tile holds
-// one or two domains and each domain's rows are one segment of it.  The
-// sort runs in the kernel: it adds no launch to the host's queue, which
-// sets the pace of a training step.
+// contiguous range of the batch, persistently, one block an SM.  K1 sorts
+// the range by domain row in windows of kWindow examples (sort_window),
+// and the tiles are consecutive examples of that order, so that a tile
+// holds one or two domains and each domain's rows are one segment of it.
+// The sort runs in the kernel: it adds no launch to the host's queue,
+// which sets the pace of a training step.  K7's slots are sorted already
+// (ops/dispatch.py: single-domain dispatch tiles of tile_b slots, each
+// with its own MetaNet block): its range is one of the occupied slots in
+// slot order (occupied_window), and a tile's segments are its runs of one
+// dispatch tile.
 //
 // The products run on the tensor cores as warp-level mma.sync m16n8k8 TF32
 // with the 3xTF32 split: a = a_big + a_small with a_big = tf32(a) and
@@ -356,6 +361,80 @@ __device__ __forceinline__ void sort_window(const int* __restrict__ dom,
   __syncthreads();
 }
 
+// K7's dispatch (ops/dispatch.py): T tiles of tile_b slots, tile t's
+// occupied slots the first count[t] of it (all of them where count is
+// null; the others are slack).  The occupied slots in slot order are the
+// positions that the blocks of a K7 body split between them.
+
+// The occupied slots of dispatch tile t.
+__device__ __forceinline__ int tile_occupied(const int* count, int t,
+                                             int tile_b) {
+  return count ? min(max(__ldg(count + t), 0), tile_b) : tile_b;
+}
+
+// The occupied slots of all T tiles.  scan is a warp count of ints of
+// shared scratch.  Every thread calls it and gets the same value.
+__device__ inline int occupied_total(const int* count, int T, int tile_b,
+                                     int* scan) {
+  if (!count) return T * tile_b;
+  int s = 0;
+  for (int t = threadIdx.x; t < T; t += blockDim.x)
+    s += tile_occupied(count, t, tile_b);
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) s += __shfl_xor_sync(0xffffffffu, s, o);
+  if ((threadIdx.x & 31) == 0) scan[threadIdx.x >> 5] = s;
+  __syncthreads();
+  int total = 0;
+  for (int w = 0; w < static_cast<int>(blockDim.x >> 5); ++w)
+    total += scan[w];
+  __syncthreads();  // scan is free again
+  return total;
+}
+
+// The occupied slots at positions [w0, w0 + n) of the slot order (n >= 1,
+// w0 + n at most occupied_total): order[k] the slot, wdom[k] its dispatch
+// tile.  A block-wide prefix sum of the counts, a tile a thread, up to the
+// window's end.  scan as above.  Every thread calls it; it ends at a
+// barrier.
+__device__ inline void occupied_window(const int* count, int T, int tile_b,
+                                       int w0, int n, int* order, int* wdom,
+                                       int* scan) {
+  if (!count) {
+    for (int k = threadIdx.x; k < n; k += blockDim.x) {
+      order[k] = w0 + k;
+      wdom[k] = (w0 + k) / tile_b;
+    }
+    __syncthreads();
+    return;
+  }
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int warps = blockDim.x >> 5;
+  for (int c0 = 0, base = 0; c0 < T && base < w0 + n; c0 += blockDim.x) {
+    const int t = c0 + threadIdx.x;
+    const int c = t < T ? tile_occupied(count, t, tile_b) : 0;
+    int v = c;  // inclusive prefix sum in the warp
+#pragma unroll
+    for (int o = 1; o < 32; o <<= 1) {
+      const int u = __shfl_up_sync(0xffffffffu, v, o);
+      if (lane >= o) v += u;
+    }
+    if (lane == 31) scan[warp] = v;
+    __syncthreads();
+    int start = base + v - c, all = base;
+    for (int j = 0; j < warps; ++j) {
+      const int sj = scan[j];
+      all += sj;
+      if (j < warp) start += sj;
+    }
+    for (int k = max(start, w0); k < min(start + c, w0 + n); ++k) {
+      order[k - w0] = t * tile_b + k - start;
+      wdom[k - w0] = t;
+    }
+    __syncthreads();  // scan is read, the window written
+    base = all;
+  }
+}
+
 // Asynchronous loads of the tile's rows of a [B, F, W] array into the
 // shared rows dst (stride ds), row s F + f for example ex[s]: 16-byte
 // cp.async copies spread over the block's threads, into each thread's
@@ -388,8 +467,9 @@ __device__ __forceinline__ void store_rows(float* dst, const float* src,
   }
 }
 
-// Runs fn(d, r0, r1) for each domain segment of the tile: the rows [r0,
-// r1) of the consecutive slots whose row wdom[.] is d.
+// Runs fn(d, r0, r1) for each segment of the tile: the rows [r0, r1) of
+// the consecutive slots whose row wdom[.] is d (K1 a domain row, K7 a
+// dispatch tile).
 template <class Fn>
 __device__ __forceinline__ void for_segments(const int* dm, int n, int F,
                                              Fn fn) {

@@ -411,7 +411,9 @@ class SATrans(nn.Module):
         """The composite metanet on dispatched tiles of ``blk`` slots
         (satrans.py:411-442): K7 (or its plain version under
         ``use_kernel=False``) per layer on the per-tile tables, the head on
-        the padded slots, the predictions gathered back to batch order."""
+        the padded slots, the predictions gathered back to batch order.
+        Only the occupied slots' predictions are read, so the slack slots'
+        gradients are zero and K7's backward skips them (``tile_count``)."""
         plan = dispatch.plan(dom, self.meta_rows, blk)
         x = dispatch.scatter(x, plan)
         tile_dom = plan.tile_dom.long()
@@ -427,7 +429,8 @@ class SATrans(nn.Module):
             drop = dict(train=self.training, drop_rate=self.dropout_rate,
                         seed=int(seed), block_b=blk)
             if self.use_kernel:
-                x = tiled_meta.fused_tiled_layer(x, layer, tabs, **kw, **drop)
+                x = tiled_meta.fused_tiled_layer(x, layer, tabs, **kw, **drop,
+                                                 tile_count=plan.tile_count)
             else:
                 x = tiled_meta.tiled_layer_reference(
                     x, layer, tabs, **kw, block_b=blk, clamp=False,

@@ -32,13 +32,17 @@ class DispatchPlan:
     tile_dom: torch.Tensor  # [n_slots // tile] the domain of each tile
     n_slots: int            # B + num_domains * tile
     tile: int
+    # [n_slots // tile] the occupied slots of each tile, which are its first
+    # ones: K7's backward skips the rest (ops/tiled_meta.py)
+    tile_count: torch.Tensor
 
 
 def plan(domain_ids: torch.Tensor, num_domains: int,
          tile: int) -> DispatchPlan:
     """The dispatch of ``domain_ids`` ``[B]`` (``B`` a multiple of
     ``tile``).  Tiles past the last occupied slot are slack and are given
-    the last domain."""
+    the last domain.  A domain's run fills its tiles from their first slot,
+    so each tile's occupied slots (``tile_count``) come first."""
     B = domain_ids.shape[0]
     if B % tile:
         raise ValueError(f"batch {B} must divide tile {tile}")
@@ -65,9 +69,10 @@ def plan(domain_ids: torch.Tensor, num_domains: int,
     slot = torch.arange(0, n_slots, tile, **i64)
     tile_dom = torch.searchsorted(ends, slot, right=True).clamp_(
         max=num_domains - 1)
+    tile_count = (src >= 0).view(-1, tile).sum(1, dtype=torch.int32)
     return DispatchPlan(src=src.to(torch.int32), back=back.to(torch.int32),
                         tile_dom=tile_dom.to(torch.int32), n_slots=n_slots,
-                        tile=tile)
+                        tile=tile, tile_count=tile_count)
 
 
 def scatter(x: torch.Tensor, p: DispatchPlan) -> torch.Tensor:

@@ -1,6 +1,7 @@
 """The meta-transformer layer with per-tile MetaNet weights: Python side
-of K7, the ``TILED`` bodies of the Hopper kernels ``csrc/meta_block_fwd.cu``
-(K7-fwd; K7-stash, which also writes the backward's residuals) and
+of K7, the ``TILED`` template body of ``csrc/meta_block_fwd.cu`` (K7-fwd;
+K7-stash, which also writes the backward's residuals) and the ``TILED``
+tile body of ``csrc/meta_stash_bwd.cuh``, launched by
 ``csrc/meta_block_bwd.cu`` (K7-bwd, which recomputes the forward;
 K7-bwd-stash, which reads the residuals), twins of
 ``satrans_tpu/ops/pallas/tiled_meta.py``.
@@ -11,7 +12,10 @@ the MetaNets of ``tile_tables['Q'][t]`` and ``tile_tables['K'][t]``
 (``[n_tiles, P]``, gathered by the caller as ``table[plan.tile_dom]``
 outside this module, so that autograd of that gather carries the
 per-tile gradient blocks back to the ``[R, P]`` tables, as the JAX
-package's gather outside its custom VJP does).
+package's gather outside its custom VJP does).  Given the plan's
+``tile_count`` (each tile's occupied slots, its first ones), the
+backward kernels skip the slack slots, whose upstream gradient is zero:
+they get ``dx = 0`` and add nothing to any gradient.
 
 * :func:`fused_tiled_layer` - the wrapper.  On a CUDA tensor it launches
   the kernels or raises: with a gradient needed, ``bwd='stash'`` (the
@@ -53,7 +57,8 @@ from ._build import (check_operands, kernel_fn, needs_grad, sm_count,
 # (d, h1, h2, heads) and the most fields: K1's instantiations (the same
 # sources)
 KERNEL_SHAPES = meta_block.KERNEL_SHAPES
-# K7-bwd walks a tile in steps of two slots
+# the dispatch tiles K7 takes: an even number of slots (16 and 32 on the
+# model's path)
 TILE_MULTIPLE = 2
 
 BWD_MODES = ("stash", "recompute")
@@ -151,12 +156,20 @@ def launch_fwd(x, wqkv, w1q, wmq, w2q, lnq, w1k, wmk, w2k, lnk, wout, lno,
 
 
 def launch_bwd(g, x, wqkv, w1q, wmq, w2q, lnq, w1k, wmk, w2k, lnk, wout,
-               lno, cfg, drop, block_b: int, res=None):
+               lno, cfg, drop, block_b: int, res=None, tile_count=None,
+               blocks: int | None = None, tails: bool = False):
     """K7-bwd; with K7-stash's residuals ``res = (qkv, uq, uk, s, o)``
     K7-bwd-stash: ``(dx, dwqkv, dw1q, dwmq, dw2q, dlnq, dw1k, dwmk, dw2k,
     dlnk, dwout, dlno)``, the per-tile blocks ``[n_tiles, ...]``
     (``dwmq``/``dwmk`` None for 2-matrix MetaNets), for the upstream
-    gradient ``g`` of the layer's output."""
+    gradient ``g`` of the layer's output.  ``tile_count`` (int32
+    ``[n_tiles]``, ``DispatchPlan.tile_count``) gives each tile's occupied
+    slots: the rest must have a zero ``g``, and get ``dx = 0``; without it
+    every slot is computed.  ``blocks`` sets the grid (default: one block
+    an SM); the result is deterministic for a grid.  With ``tails`` it
+    returns ``(result, split)``: the kernel's split, int32 ``[blocks]``,
+    the dispatch tile that block ``b`` shares with block ``b + 1`` (-1:
+    none)."""
     h, h2, heads, apply_q, apply_k, relu_out = cfg
     n_slots, F, d = x.shape
     T = w1q.shape[0]
@@ -172,21 +185,26 @@ def launch_bwd(g, x, wqkv, w1q, wmq, w2q, lnq, w1k, wmk, w2k, lnk, wout,
             raise ValueError(f"residuals of shapes "
                              f"{[tuple(r.shape) for r in res]}, want {want}")
         check_operands(res, x.device)
-    wqkv_t, wout_t, meta_q_t, meta_k_t = meta_block.transposed(
-        wqkv, wout, (w1q, wmq, w2q), (w1k, wmk, w2k))
-    # K1-bwd's two blocks per SM, a block on whole tiles
-    blocks = min(meta_block.BWD_BLOCKS_PER_SM * sm_count(x.device), T)
+    if tile_count is not None and tuple(tile_count.shape) != (T,):
+        raise ValueError(f"tile_count of shape {tuple(tile_count.shape)}, "
+                         f"want ({T},)")
+    if blocks is None:
+        blocks = sm_count(x.device)
+    if blocks < 1:
+        raise ValueError(f"a grid of {blocks} blocks")
     dx = torch.empty_like(x)
-    partial = torch.empty(
-        blocks * meta_block.grad_floats(d, h, h2, heads, 0),
-        dtype=torch.float32, device=x.device)
+    scratch = torch.empty(kernel_fn(
+        "meta_block_bwd", "satrans_tiled_meta_bwd_scratch_floats",
+        [ctypes.c_int] * 5)(d, h, h2, heads, blocks), dtype=torch.float32,
+        device=x.device)
     grads = torch.empty(meta_block.grad_floats(d, h, h2, heads, T),
                         dtype=torch.float32, device=x.device)
-    ops = (x, g, wqkv, wqkv_t, w1q, wmq, w2q, *meta_q_t, lnq, w1k, wmk, w2k,
-           *meta_k_t, lnk, wout, wout_t, lno, dx, partial, grads)
-    check_operands(meta_block.present(ops), x.device)
+    ops = (x, g, wqkv, w1q, wmq, w2q, lnq, w1k, wmk, w2k, lnk, wout, lno,
+           tile_count, dx, scratch, grads)
+    check_operands(meta_block.present(ops), x.device,
+                   ints=meta_block.present((tile_count,)))
     fn = kernel_fn("meta_block_bwd", "satrans_tiled_meta_bwd",
-                   [ctypes.c_void_p] * 29 + [ctypes.c_int] * 14
+                   [ctypes.c_void_p] * 22 + [ctypes.c_int] * 14
                    + [ctypes.c_uint, ctypes.c_uint, ctypes.c_float]
                    + [ctypes.c_int] * 3 + [ctypes.c_void_p])
     mode = None if res is None else "full"
@@ -201,15 +219,19 @@ def launch_bwd(g, x, wqkv, w1q, wmq, w2q, lnq, w1k, wmk, w2k, lnk, wout,
         bwd_launches += 1
     else:
         stash_bwd_launches += 1
-    return (dx, *meta_block.split_grads(grads, d, h, h2, T))
+    out = (dx, *meta_block.split_grads(grads, d, h, h2, T))
+    if not tails:
+        return out
+    # the kernel's bnd_tile: the scratch's last word a block
+    return out, scratch[-blocks:].view(torch.int32)
 
 
 def _input_grads(grads, cfg):
     """The kernel's gradients as the autograd functions' input gradients
-    (None for an unapplied projection's operands, cfg, drop and
-    block_b)."""
+    (None for an unapplied projection's operands, cfg, drop, block_b and
+    tile_count)."""
     dx, *rest = grads
-    return (dx, *meta_block.input_grads(rest, cfg), None, None, None)
+    return (dx, *meta_block.input_grads(rest, cfg), None, None, None, None)
 
 
 class _TiledFn(torch.autograd.Function):
@@ -219,15 +241,17 @@ class _TiledFn(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, *args):
-        *ops, cfg, drop, block_b = args
+        *ops, cfg, drop, block_b, tile_count = args
         ctx.cfg, ctx.drop, ctx.block_b = cfg, drop, block_b
+        ctx.tile_count = tile_count
         ctx.save_for_backward(*ops)
         return launch_fwd(*ops, cfg, drop, block_b)
 
     @staticmethod
     def backward(ctx, g):
-        return _input_grads(launch_bwd(g, *ctx.saved_tensors, ctx.cfg,
-                                       ctx.drop, ctx.block_b), ctx.cfg)
+        return _input_grads(launch_bwd(
+            g, *ctx.saved_tensors, ctx.cfg, ctx.drop, ctx.block_b,
+            tile_count=ctx.tile_count), ctx.cfg)
 
 
 class _TiledStashFn(torch.autograd.Function):
@@ -238,8 +262,9 @@ class _TiledStashFn(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, *args):
-        *ops, cfg, drop, block_b = args
+        *ops, cfg, drop, block_b, tile_count = args
         ctx.cfg, ctx.drop, ctx.block_b = cfg, drop, block_b
+        ctx.tile_count = tile_count
         y, *res = launch_fwd(*ops, cfg, drop, block_b, stash=True)
         ctx.save_for_backward(*ops, *res)
         return y
@@ -248,8 +273,9 @@ class _TiledStashFn(torch.autograd.Function):
     def backward(ctx, g):
         saved = ctx.saved_tensors
         n = meta_block.N_OPERANDS - 1  # no dom
-        return _input_grads(launch_bwd(g, *saved[:n], ctx.cfg, ctx.drop,
-                                       ctx.block_b, res=saved[n:]), ctx.cfg)
+        return _input_grads(launch_bwd(
+            g, *saved[:n], ctx.cfg, ctx.drop, ctx.block_b, res=saved[n:],
+            tile_count=ctx.tile_count), ctx.cfg)
 
 
 _LAYER_FNS = {"stash": _TiledStashFn, "recompute": _TiledFn}
@@ -260,13 +286,16 @@ def fused_tiled_layer(x, layer: MetaTransformerLayer, tile_tables, *,
                       mode: str = "QK", relu_out: bool = False,
                       train: bool = False, drop_rate: float = 0.0,
                       seed: int = 0, block_b: int = 32,
-                      bwd: str | None = None):
+                      bwd: str | None = None, tile_count=None):
     """One meta-transformer layer on a dispatched batch ``x`` ``[n_slots,
     F, d]`` of tiles of ``block_b`` slots, each with its row of
     ``tile_tables``; the JAX ``fused_tiled_layer_vjp``'s arguments.
     Differentiable: with a gradient needed on the card, ``bwd`` ('stash'
     or 'recompute', see :func:`bwd_mode`) picks the kernel pair; without,
-    K7-fwd runs and nothing is stashed (tiled_meta.py:658-663)."""
+    K7-fwd runs and nothing is stashed (tiled_meta.py:658-663).
+    ``tile_count`` (the plan's) lets the backward skip the slack slots,
+    whose output the caller never reads (see :func:`launch_bwd`); the CPU
+    path ignores it."""
     bwd = bwd_mode(bwd)
     if x.device.type == "cpu":
         masks = layer_masks(x, head_num=head_num, mode=mode, train=train,
@@ -287,4 +316,4 @@ def fused_tiled_layer(x, layer: MetaTransformerLayer, tile_tables, *,
     ops = (x.contiguous(), *weights)
     if not needs_grad(x, layer, tile_tables):
         return launch_fwd(*ops, cfg, drop, block_b)
-    return _LAYER_FNS[bwd].apply(*ops, cfg, drop, block_b)
+    return _LAYER_FNS[bwd].apply(*ops, cfg, drop, block_b, tile_count)

@@ -12,7 +12,12 @@ and bilinear layer (K6-fwd, K6-bwd) against ``simple_layer_reference``
 and its autograd; the tiled layer on a slack-heavy dispatch (K7-fwd and
 K7-stash with its residuals, K7-bwd and K7-bwd-stash with the per-tile
 gradient blocks) against ``tiled_layer_reference`` and its autograd, and
-K7-bwd-stash against K7-bwd on the same masks; the tile bodies of
+K7-bwd-stash against K7-bwd on the same masks; the K7 backwards' tile
+body with the plan's ``tile_count`` (slack slots skipped) at F = 15, on
+dispatch tiles of 16, with every occupied tile full and with one domain,
+on forced grids of 1, 3 and 7 blocks (dispatch tiles split between
+blocks; a second launch bit for bit), and against every slot computed
+(dx zero on the slack slots); the tile bodies of
 K1-stash and K1-bwd-stash on domain mixes (all in one row, one example a
 row, skewed, out-of-range ids) and batches from 1 to 8192, with their
 light twins, K1-scores and a second launch bit for bit; each K1 and K7 case with
@@ -740,29 +745,40 @@ def _tiled_counts():
     return [getattr(tiled_meta, c) for c in TILED_COUNTS]
 
 
-def _tiled_case(card, seed, pos, B=512, units=UNITS2):
+def _tiled_case(card, seed, pos, B=512, units=UNITS2, F=19, tile=TILE,
+                mix="random"):
     """A layer (``pos``: with a k_meta LayerNorm and distinct tables),
     ``[56, P]`` tables of MetaNets of ``units`` and a batch of ``B``
-    examples in 39 of the 56 composite domains (the AliCCP 301 x 122
-    occupancy), dispatched on tiles of 32: ``B + 56 * 32`` slots, most
-    tiles slack.  Returns (layer, tile tables, x and g on the slots (zero
-    on slack slots), the slots' table rows)."""
+    examples of ``F`` fields dispatched on tiles of ``tile``: with ``mix``
+    'random' in 39 of the 56 composite domains (the AliCCP 301 x 122
+    occupancy; most tiles slack), 'exact' in 16 domains of B / 16 examples
+    (every occupied tile full), 'one' in one domain.  ``B + 56 * tile``
+    slots.  Returns (layer, tile tables, x and g on the slots (zero on
+    slack slots), the slots' table rows, the plan)."""
     gen, layer, tables = _pos_layer(card, seed) if pos else _layer(card,
                                                                    seed)
     p = metanet.param_size(units)
     tables = {k: init.normal(gen, (ROWS, p), 0.1)
               for k in ("QK" if pos else "Q")}
     used = torch.randperm(ROWS, generator=gen, device=card)[:OCCUPIED]
-    dom = used[torch.randint(0, OCCUPIED, (B,), generator=gen, device=card)]
-    plan = dispatch.plan(dom, ROWS, TILE)
+    if mix == "random":
+        dom = used[torch.randint(0, OCCUPIED, (B,), generator=gen,
+                                 device=card)]
+    elif mix == "exact":
+        dom = used[:16].repeat_interleave(B // 16)
+    else:
+        dom = used[:1].expand(B)
+    plan = dispatch.plan(dom, ROWS, tile)
     tile_dom = plan.tile_dom.long()
     tabs = {k: t[tile_dom] for k, t in tables.items()}
     if not pos:
         tabs["K"] = tabs["Q"]
-    x = dispatch.scatter(init.normal(gen, (B, 19, 32), 1.0), plan)
-    g = dispatch.scatter(init.normal(gen, (B, 19, 32), 1.0), plan)
-    assert (plan.src < 0).sum().item() > B  # slack-heavy
-    return layer, tabs, x, g, tiled_meta.tile_rows(plan.n_slots, TILE, card)
+    x = dispatch.scatter(init.normal(gen, (B, F, 32), 1.0), plan)
+    g = dispatch.scatter(init.normal(gen, (B, F, 32), 1.0), plan)
+    if mix == "random" and B == 512:
+        assert (plan.src < 0).sum().item() > B  # slack-heavy
+    return (layer, tabs, x, g, tiled_meta.tile_rows(plan.n_slots, tile, card),
+            plan)
 
 
 @pytest.mark.cuda
@@ -776,7 +792,7 @@ def test_tiled_forward_kernels_match_plain_version(card, units, mode, relu_out,
     """K7-fwd (through the wrapper, without a gradient: no stash) and
     K7-stash's output and each residual against the plain tiled layer,
     at K1's tolerance."""
-    layer, tabs, x, _, _ = _tiled_case(card, 8, pos, units=units)
+    layer, tabs, x, _, _, _ = _tiled_case(card, 8, pos, units=units)
     kw = dict(meta_units=units, head_num=4, mode=mode,
               relu_out=relu_out)
     drop = dict(train=True, drop_rate=rate, seed=DROP["seed"],
@@ -800,27 +816,14 @@ def test_tiled_forward_kernels_match_plain_version(card, units, mode, relu_out,
                                    rtol=1e-4, atol=1e-4, msg=name)
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("units", [UNITS2, UNITS3],
-                         ids=["2-matrix", "3-matrix"])
-@pytest.mark.parametrize("bwd", ["stash", "recompute"])
-@pytest.mark.parametrize("pos", [False, True])
-@pytest.mark.parametrize("rate", [0.0, 0.1])
-@pytest.mark.parametrize("mode,relu_out", MODES)
-def test_tiled_bwd_kernels_match_plain_backward(card, units,
-                                                mode, relu_out, rate,
-                                                pos, bwd):
-    """K7-bwd-stash (with K7-stash) and K7-bwd (with K7-fwd) through the
+def _check_tiled_bwd(layer, tabs, x, g, rows, kw, drop, pos, bwd,
+                     tile_count=None):
+    """K7-bwd-stash (with K7-stash) or K7-bwd (with K7-fwd) through the
     autograd wrapper against autograd of the plain tiled layer in float64
     with the same masks: dx, the layer's parameters and the per-tile
     table blocks (each tile's own), at K1's tolerance; examples at a relu
     kink get no upstream gradient."""
-    layer, tabs, x, g, rows = _tiled_case(card, 9, pos, units=units)
-    kw = dict(meta_units=units, head_num=4, mode=mode,
-              relu_out=relu_out)
-    drop = dict(train=True, drop_rate=rate, seed=DROP["seed"],
-                block_b=TILE)
-    masks = tiled_meta.layer_masks(x, head_num=4, mode=mode, **drop)
+    masks = tiled_meta.layer_masks(x, head_num=4, mode=kw["mode"], **drop)
     masks64 = masks and tuple(None if m is None else m.double()
                               for m in masks)
     layer64 = copy.deepcopy(layer).double()
@@ -844,16 +847,157 @@ def test_tiled_bwd_kernels_match_plain_backward(card, units,
 
     before = _tiled_counts()
     got = grads(tiled_meta.fused_tiled_layer, x, layer, tabs, g.float(),
-                **drop, bwd=bwd)
+                **drop, bwd=bwd, tile_count=tile_count)
     torch.cuda.synchronize()
     assert [a - b for a, b in zip(_tiled_counts(), before)] == \
         TILED_PAIR[bwd]
     want = grads(tiled_meta.tiled_layer_reference, x.double(), layer64,
-                 tabs64, g, block_b=TILE, masks=masks64)
+                 tabs64, g, block_b=drop["block_b"], masks=masks64)
     assert set(got) == set(want)
     for name, w in want.items():
         err = (got[name].double() - w).abs().max().item()
         assert err <= 1e-4 * w.abs().max().item() + 1e-5, (name, err)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("units", [UNITS2, UNITS3],
+                         ids=["2-matrix", "3-matrix"])
+@pytest.mark.parametrize("bwd", ["stash", "recompute"])
+@pytest.mark.parametrize("pos", [False, True])
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+@pytest.mark.parametrize("mode,relu_out", MODES)
+def test_tiled_bwd_kernels_match_plain_backward(card, units,
+                                                mode, relu_out, rate,
+                                                pos, bwd):
+    """K7-bwd-stash (with K7-stash) and K7-bwd (with K7-fwd) with the
+    plan's ``tile_count`` (the model's path: the slack slots skipped)
+    against autograd of the plain tiled layer in float64
+    (:func:`_check_tiled_bwd`)."""
+    layer, tabs, x, g, rows, plan = _tiled_case(card, 9, pos, units=units)
+    kw = dict(meta_units=units, head_num=4, mode=mode,
+              relu_out=relu_out)
+    drop = dict(train=True, drop_rate=rate, seed=DROP["seed"],
+                block_b=TILE)
+    _check_tiled_bwd(layer, tabs, x, g, rows, kw, drop, pos, bwd,
+                     tile_count=plan.tile_count)
+
+
+# the K7 backward cases of the tile body: its tiles of 5 slots straddling
+# dispatch tiles of 32 (F = 15), dispatch tiles of 16, every occupied
+# dispatch tile full, one domain
+TILED_BWD_CASES = {"F15": dict(F=15), "tile16": dict(tile=16),
+                   "exact_fills": dict(mix="exact"),
+                   "one_domain": dict(mix="one")}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("units", [UNITS2, UNITS3],
+                         ids=["2-matrix", "3-matrix"])
+@pytest.mark.parametrize("bwd", ["stash", "recompute"])
+@pytest.mark.parametrize("case", sorted(TILED_BWD_CASES))
+def test_tiled_bwd_kernels_on_dispatch_cases(card, units, bwd, case):
+    """The K7 backwards with the plan's ``tile_count`` (the model's path:
+    the slack slots skipped) on the cases of ``TILED_BWD_CASES``, QK with
+    distinct tables at dropout 0.1, against autograd of the plain tiled
+    layer in float64 (:func:`_check_tiled_bwd`)."""
+    layer, tabs, x, g, rows, plan = _tiled_case(
+        card, 11, True, units=units, **TILED_BWD_CASES[case])
+    kw = dict(meta_units=units, head_num=4, mode="QK", relu_out=False)
+    drop = dict(train=True, drop_rate=0.1, seed=DROP["seed"],
+                block_b=plan.tile)
+    _check_tiled_bwd(layer, tabs, x, g, rows, kw, drop, True, bwd,
+                     tile_count=plan.tile_count)
+
+
+def _tiled_launch_case(card, seed, units, bwd):
+    """A slack-heavy case (:func:`_tiled_case`, distinct tables, dropout
+    0.1) packed for :func:`tiled_meta.launch_bwd`: returns (a function of
+    its keyword arguments that launches the case's backward, the plan,
+    x)."""
+    layer, tabs, x, g, _, plan = _tiled_case(card, seed, True, units=units)
+    weights, cfg = meta_block.pack_weights(layer, tabs, meta_units=units,
+                                           head_num=4)
+    weights = [t if t is None else t.detach() for t in weights]
+    kargs = prng.kernel_args(True, 0.1, DROP["seed"], TILE, 19)
+    res = None
+    if bwd == "stash":
+        with torch.no_grad():
+            _, *res = tiled_meta.launch_fwd(x, *weights, cfg, kargs, TILE,
+                                            stash=True)
+
+    def run(x=x, **extra):
+        with torch.no_grad():
+            return tiled_meta.launch_bwd(g, x, *weights, cfg, kargs, TILE,
+                                         res=res, **extra)
+    return run, plan, x
+
+
+def _close_to(got, want, rtol):
+    """Every gradient of ``got`` within ``rtol`` of the largest entry of
+    its twin in ``want`` (None twins for 2-matrix MetaNets)."""
+    for i, (a, b) in enumerate(zip(got, want)):
+        if b is None:
+            assert a is None
+            continue
+        err = (a - b).abs().max().item()
+        assert err <= rtol * b.abs().max().item(), (i, err)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("units", [UNITS2, UNITS3],
+                         ids=["2-matrix", "3-matrix"])
+@pytest.mark.parametrize("bwd", ["stash", "recompute"])
+@pytest.mark.parametrize("blocks", [1, 3, 7])
+def test_tiled_bwd_forced_grids(card, monkeypatch, units, bwd, blocks):
+    """``launch_bwd`` with the plan's ``tile_count`` on forced grids of 1,
+    3 and 7 blocks.  The kernel's own split: no dispatch tile shared on
+    one block, some on 3 and 7 (added by the boundary pass), each shared
+    once, in slot order, and holding two occupied slots or more.  Every
+    gradient within 1e-4 of its largest entry on the card's grid, K1's
+    tolerance (float32 sums over some 10^4 rows of 3xTF32 products, in
+    another order), and through the autograd wrapper against autograd of
+    the plain tiled layer in float64 (:func:`_check_tiled_bwd`); a second
+    launch on the same grid bit for bit."""
+    run, plan, _ = _tiled_launch_case(card, 12, units, bwd)
+    base = run(tile_count=plan.tile_count)
+    got, tails = run(tile_count=plan.tile_count, blocks=blocks, tails=True)
+    again = run(tile_count=plan.tile_count, blocks=blocks)
+    torch.cuda.synchronize()
+    assert tails.shape == (blocks,)
+    split = tails[tails >= 0].long()
+    assert bool(split.numel()) == (blocks > 1)
+    assert bool((split.diff() > 0).all())
+    assert bool((plan.tile_count[split] > 1).all())
+    _close_to(got, base, 1e-4)
+    for a, b in zip(got, again):
+        assert (a is None and b is None) or torch.equal(a, b)
+    monkeypatch.setattr(tiled_meta, "sm_count", lambda device: blocks)
+    layer, tabs, x, g, rows, _ = _tiled_case(card, 12, True, units=units)
+    kw = dict(meta_units=units, head_num=4, mode="QK", relu_out=False)
+    drop = dict(train=True, drop_rate=0.1, seed=DROP["seed"], block_b=TILE)
+    _check_tiled_bwd(layer, tabs, x, g, rows, kw, drop, True, bwd,
+                     tile_count=plan.tile_count)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("units", [UNITS2, UNITS3],
+                         ids=["2-matrix", "3-matrix"])
+@pytest.mark.parametrize("bwd", ["stash", "recompute"])
+def test_tiled_bwd_tile_count_equals_every_slot(card, units, bwd):
+    """``launch_bwd`` with the plan's ``tile_count`` (the slack slots
+    skipped) against without it (every slot computed), with x nonzero on
+    the slack slots as a later layer's input is (g is zero there): every
+    gradient within 1e-4 of its largest entry (the grids split the slots
+    at other places), dx exactly 0 on the slack slots in both."""
+    run, plan, x = _tiled_launch_case(card, 13, units, bwd)
+    slack = plan.src < 0
+    x = torch.where(slack[:, None, None], torch.randn_like(x), x)
+    every = run(x=x)
+    skipped = run(x=x, tile_count=plan.tile_count)
+    torch.cuda.synchronize()
+    _close_to(skipped, every, 1e-4)
+    for dx in (every[0], skipped[0]):
+        assert torch.equal(dx[slack], torch.zeros_like(dx[slack]))
 
 
 @pytest.mark.cuda
@@ -864,7 +1008,7 @@ def test_tiled_stash_backward_equals_recompute_backward(card, units, rate):
     """K7-bwd-stash on K7-stash's residuals against K7-bwd recomputing
     them, on the same masks: every gradient within 1e-5 of its largest
     entry (the two forwards sum the attention output in another order)."""
-    layer, tabs, x, g, _ = _tiled_case(card, 10, True, units=units)
+    layer, tabs, x, g, _, _ = _tiled_case(card, 10, True, units=units)
     kw = dict(meta_units=units, head_num=4)
     weights, cfg = meta_block.pack_weights(layer, tabs, **kw)
     weights = [t if t is None else t.detach() for t in weights]
@@ -876,12 +1020,7 @@ def test_tiled_stash_backward_equals_recompute_backward(card, units, rate):
                                       res=res)
         again = tiled_meta.launch_bwd(g, x, *weights, cfg, kargs, TILE)
     torch.cuda.synchronize()
-    for i, (a, b) in enumerate(zip(stash, again)):
-        if b is None:  # no middle matrix
-            assert a is None
-            continue
-        err = (a - b).abs().max().item()
-        assert err <= 1e-5 * b.abs().max().item(), (i, err)
+    _close_to(stash, again, 1e-5)
 
 
 # --- the row kernels of the sparse bank updates (K2, K3, K4, K5) ---------

@@ -9,7 +9,9 @@ one of 8 (K1 on the composite table).
 
 * ``ops/dispatch.plan`` / ``scatter`` / ``gather_back`` equal the JAX
   package's (``src``, ``back``, ``tile_dom``, ``n_slots``), with empty
-  domains, runs that fill their tiles exactly, one domain only.
+  domains, runs that fill their tiles exactly, one domain only; the
+  port's own ``tile_count`` is each tile's count of the JAX plan's
+  occupied slots, which come first in the tile.
 * The layer: the CPU ``fused_tiled_layer`` (the plain version of the K7
   bodies) against ``tiled_meta.fused_tiled_layer_vjp(interpret=True)`` on
   4 tiles of 16 slots (F = 5 padded to 8 in the JAX kernel): forward at
@@ -68,12 +70,15 @@ COLS = ["domain", "dom2"]
 
 # ---------------------------------------------------------------- dispatch
 
-@pytest.mark.parametrize("ids,num_domains,tile", [
+DISPATCH_CASES = [
     ("random", 12, 16),
     ([0, 0, 3, 3, 3, 3, 7, 7], 9, 2),        # empty domains, exact fills
     ([5] * 32, 6, 16),                       # one domain only
     ([11] * 16 + [0] * 16, 12, 8),           # the last domain, exact fills
-])
+]
+
+
+@pytest.mark.parametrize("ids,num_domains,tile", DISPATCH_CASES)
 def test_dispatch_plan_equals_jax(ids, num_domains, tile):
     if ids == "random":
         ids = np.random.default_rng(0).integers(0, num_domains, 64)
@@ -92,6 +97,24 @@ def test_dispatch_plan_equals_jax(ids, num_domains, tile):
     np.testing.assert_array_equal(buf.numpy(), np.asarray(
         jdsp.scatter(jnp.asarray(x), want)))
     np.testing.assert_array_equal(tdsp.gather_back(buf, got).numpy(), x)
+
+
+@pytest.mark.parametrize("ids,num_domains,tile", DISPATCH_CASES)
+def test_dispatch_tile_count_is_each_tiles_occupied_prefix(ids, num_domains,
+                                                           tile):
+    """``DispatchPlan.tile_count`` (the port's own; K7's backward skips the
+    rest of each tile) is the per-tile count of ``src >= 0`` of the JAX
+    package's plan, and each tile's occupied slots come first."""
+    if ids == "random":
+        ids = np.random.default_rng(0).integers(0, num_domains, 64)
+    ids = np.asarray(ids, np.int32)
+    want = np.asarray(jdsp.plan(jnp.asarray(ids), num_domains, tile).src)
+    got = tdsp.plan(torch.from_numpy(ids), num_domains, tile).tile_count
+    occupied = (want >= 0).reshape(-1, tile)
+    assert got.dtype == torch.int32
+    np.testing.assert_array_equal(got.numpy(), occupied.sum(1))
+    np.testing.assert_array_equal(
+        occupied, np.arange(tile)[None, :] < got.numpy()[:, None])
 
 
 def test_dispatch_rejects_a_batch_the_tile_does_not_divide():
