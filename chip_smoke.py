@@ -5,8 +5,8 @@
 Phases, each of which exits non-zero on failure:
 
 1. build every CUDA kernel from satrans_torch/csrc (one nvcc per source,
-   all at once, anew); print each tile body (K1's stash kernels and K7's
-   backwards, csrc/meta_stash_{fwd,bwd}.cuh) with its registers and
+   all at once, anew); print each tile body (K1's stash kernels, every K1
+   and K7 backward, csrc/meta_stash_{fwd,bwd}.cuh) with its registers and
    spills (ptxas -v), its dynamic shared memory at F = 19 and 15 and the
    HMMA instructions in its SASS (cuobjdump -sass; none fails the run);
 2. hold each layer forward kernel against its plain PyTorch version on
@@ -29,8 +29,14 @@ Phases, each of which exits non-zero on failure:
    the same widths and modes, every gradient, at B=8192 at dropout 0 and
    0.1 and at B=8190 at dropout 0 (the examples with a relu input within
    1e-6 of its kink get no upstream gradient: rounding may flip its
-   side), and time them; each also on the skewed domain mix, where
-   K1-bwd-stash twice on the same inputs gives the same bits;
+   side), and time them; K1-bwd (the recompute mode of the backward tile
+   body) against K1-bwd-stash on the same masks within 1e-5 of each
+   gradient's largest entry; each also on the skewed domain mix, where
+   K1-bwd-stash twice on the same inputs gives the same bits; and at
+   B=2000 K1-bwd and K1-bwd-stash on the card's grid and on one block
+   (every weight-gradient sum over all 38,000 rows in one block) against
+   the float64 plain layer within 1e-4 of each gradient's largest entry
+   plus 1e-5, beside the float32 plain layer's own error;
 5. train the same model with satrans_torch.train's Trainer (Adam, lr
    0.005, dense bank update, dropout 0.1 as bench.py publishes it) for 24
    steps at batch 8192 on bench.py-style synthetic ids and labels (the
@@ -44,11 +50,15 @@ Phases, each of which exits non-zero on failure:
    PyTorch version at the AliCCP sota shapes (bank, mu and nu of
    1,642,953 x 128 float32, 841 MB each; N = 81,920 ids of a training
    batch's gather plan and a ragged N; the equality combine at ids
-   [10, 8192], also on a padded tail batch): K2 scatter and K4 gather
-   exactly, K3 within 1e-5 of its largest total with byte-identical
-   duplicate positions, K5 within 2 float32 ulp; and time each kernel, its
-   plain version and the one PyTorch call that computes the same function
-   where there is one;
+   [10, 8192], also on a padded tail batch, at B = 8190 and 8191, with a
+   field of one id and one of no duplicate): K2 scatter and K4 gather
+   exactly,
+   K3 within 1e-5 of its largest total with byte-identical duplicate
+   positions and two launches bit for bit, K5 within 2 float32 ulp; and
+   time each kernel, its plain version and the one PyTorch call that
+   computes the same function where there is one; K3's ids' distinct
+   values and longest run a field, and K3 at the batch and the tail with
+   its device time by kernel;
 7. train the phase-5 model (dropout 0.1, bwd='stash') in the sparse bank
    modes fused, fused_eq, lazy and lazy with SATRANS_LAZY_TAIL=fused (24
    steps and a tail each, after fused against dense from one start after
@@ -209,17 +219,14 @@ ARM_ROWS = (ARM_STEPS - 1) * BATCH + TAIL
 # bench.py arm's learning rate
 ALIMAMA_F = 15
 POS_LR = 0.001
-# K7-bwd-stash against K7-bwd on the same masks, as a share of each
-# gradient's largest entry (the stash holds the forward's residuals, which
-# K7-bwd recomputes in another order)
+# K1-bwd-stash against K1-bwd and K7-bwd-stash against K7-bwd on the same
+# masks, as a share of each gradient's largest entry (the stash holds the
+# forward's residuals, which the recompute modes compute in another order)
 STASH_RECOMPUTE_RTOL = 1e-5
 # K1-bwd-stash light against K1-bwd-stash on the same residuals, as a share
 # of each gradient's largest entry (the same probabilities: bit for bit is
 # expected)
 STASH_LIGHT_RTOL = 1e-6
-# one instruction per lane and cycle over the card: half the float32 FLOP
-# rate, which counts a multiply-add as two operations
-PEAK_INSTRUCTIONS = PEAK_F32_FLOPS / 2
 # K5 rounds each operation as PyTorch's kernels do: within 2 float32 ulp;
 # K3 sums in another order than the plain GEMM: 1e-5 of the largest total
 LAZY_TAIL_TOL = dict(rtol=2.4e-7, atol=1e-12)
@@ -280,7 +287,8 @@ TILE_SOURCES = {n: "satrans_torch/csrc/meta_stash_" + (
     "bwd.cuh" if "bwd" in n else "fwd.cuh") for n in (
     "meta_block_fwd_stash", "meta_block_fwd_stash_light",
     "meta_block_fwd_scores", "meta_block_bwd_stash",
-    "meta_block_bwd_stash_light", "tiled_meta_bwd", "tiled_meta_bwd_stash")}
+    "meta_block_bwd", "meta_block_bwd_stash_light", "tiled_meta_bwd",
+    "tiled_meta_bwd_stash")}
 # the tile bodies (csrc/meta_stash_fwd.cuh, csrc/meta_stash_bwd.cuh) by
 # kernel, mode (enum StashMode) and K7 (the backward's TILED), as the JSON
 # line names them
@@ -288,6 +296,7 @@ TILE_BODIES = {
     ("meta_stash_fwd_kernel", 1, False): "meta_block_fwd_stash",
     ("meta_stash_fwd_kernel", 2, False): "meta_block_fwd_stash_light",
     ("meta_stash_fwd_kernel", 3, False): "meta_block_fwd_scores",
+    ("meta_stash_bwd_kernel", 0, False): "meta_block_bwd",
     ("meta_stash_bwd_kernel", 1, False): "meta_block_bwd_stash",
     ("meta_stash_bwd_kernel", 2, False): "meta_block_bwd_stash_light",
     ("meta_stash_bwd_kernel", 1, True): "tiled_meta_bwd_stash",
@@ -388,23 +397,21 @@ def meta_layer_bound_ms(B, F, d, h, heads, meta_rows, apply_q, apply_k,
 
 
 def meta_layer_bwd_bound_ms(B, F, d, h, heads, meta_rows, apply_q, apply_k,
-                            stash=None, h2=0, tiled_meta=False,
-                            occupied=None):
-    """Least time for the layer's backward: K1-bwd recomputes the forward
-    (its operations); K1-bwd-stash (``stash='full'``) only the MetaNet
-    hidden layers (2Fdh an applied MetaNet, and 2F h h2 more for a 3-matrix
-    one's second) and zlin = o @ Wout (2Fd^2), and reads the residuals;
-    K1-bwd-stash light (``'light'``) also the logits q k^T (2F^2 d), and
-    reads the residuals but s.  Then dWout and do (2 x 2Fd^2), the
-    attention backward (dv, dP, dq, dk: 4 x 2F^2 d), per applied MetaNet
-    dW2, dhid, dW1 and dt0 (4 x 2Fdh; a 3-matrix one also dWm and dh1, 2 x
-    2F h h2), and dWqkv and dx (2 x 6Fd^2).  Bytes are x, g and dom in, dx
-    out, the weights in and their gradients out, and the residuals in.
-    The tile bodies (K1-bwd-stash and its light form; both K7 backwards,
-    ``tiled_meta``) run every product but the attention's in 3xTF32 on the
-    tensor cores; K1-bwd runs every product on the CUDA cores.  K7's work
-    is that of the ``occupied`` slots of its ``B`` (the slack slots' dx
-    is written, nothing else of them is needed)."""
+                            stash=None, h2=0, occupied=None):
+    """Least time for the layer's backward: K1-bwd and K7-bwd recompute the
+    forward (its operations); K1-bwd-stash (``stash='full'``) only the
+    MetaNet hidden layers (2Fdh an applied MetaNet, and 2F h h2 more for a
+    3-matrix one's second) and zlin = o @ Wout (2Fd^2), and reads the
+    residuals; K1-bwd-stash light (``'light'``) also the logits q k^T
+    (2F^2 d), and reads the residuals but s.  Then dWout and do (2 x
+    2Fd^2), the attention backward (dv, dP, dq, dk: 4 x 2F^2 d), per
+    applied MetaNet dW2, dhid, dW1 and dt0 (4 x 2Fdh; a 3-matrix one also
+    dWm and dh1, 2 x 2F h h2), and dWqkv and dx (2 x 6Fd^2).  Bytes are x,
+    g and dom in, dx out, the weights in and their gradients out, and the
+    residuals in.  Every backward runs on the tile body, whose products
+    but the attention's are 3xTF32 on the tensor cores.  K7's work is that
+    of the ``occupied`` slots of its ``B`` (the slack slots' dx is
+    written, nothing else of them is needed)."""
     n = B if occupied is None else occupied
     n_meta = apply_q + apply_k
     hidden = d * h + h * h2  # the forward's products up to the last hidden
@@ -419,10 +426,10 @@ def meta_layer_bwd_bound_ms(B, F, d, h, heads, meta_rows, apply_q, apply_k,
     if stash:
         nbytes += 4 * n * _residual_floats(F, d, heads, stash)
     # the attention's products: the backward's, and the logits (and p v)
-    # that the light stash (K7-bwd) recomputes
+    # that the light stash (the recompute modes) recompute
     attention = 8 * F * F * d + {"light": 2 * F * F * d, "full": 0,
                                  None: 4 * F * F * d}[stash]
-    mma = again + backward - attention if stash or tiled_meta else 0
+    mma = again + backward - attention
     return _bound(n * (again + backward), nbytes, n * mma)
 
 
@@ -923,6 +930,68 @@ def skewed_backward_case(dev):
     return out
 
 
+def long_range_backward_case(dev):
+    """The weight-gradient sums of a block over a long range of the batch:
+    K1-bwd and K1-bwd-stash at B=2000 (F=19, QK, dropout 0.1) on the
+    card's grid and on one block (all 38,000 rows in one block's sums),
+    and the plain layer in float32 on the card, each against autograd of
+    the plain layer in float64 with the same masks: every gradient's error
+    over its largest entry.  Each kernel's within GRAD_RTOL of the largest
+    entry plus GRAD_ATOL, as the card test of forced grids."""
+    from satrans_torch.nn import initializers as init
+    from satrans_torch.ops import meta_block
+    F, d, heads, rows, B = 19, 32, 4, 4, 2000
+    gen, layer, table = test_layer(dev, SEED + 8)
+    x = init.normal(gen, (B, F, d), 1.0)
+    g = init.normal(gen, (B, F, d), 1.0)
+    dom = torch.randint(0, rows, (B,), generator=gen, device=dev)
+    kw = dict(meta_units=[d, 64, d], head_num=heads, mode="QK",
+              relu_out=False)
+    drop = drop_kw(DROP_RATE)
+    masks = meta_block.layer_masks(x, head_num=heads, mode="QK", **drop)
+    masks64 = tuple(None if m is None else m.double() for m in masks)
+    layer64, table64 = copy.deepcopy(layer).double(), table.double()
+    g64, kinks = kink_free(g.double(), x.double(), layer64, shared(table64),
+                           dom, masks64, **kw)
+    g = g64.float()
+    want = layer_grads(meta_block.meta_layer_reference, x.double(), layer64,
+                       shared(table64), dom, g64, **kw, masks=masks64)
+
+    def report(label, got):
+        """Prints the errors; returns the gradients past the tolerance."""
+        rel = {n: ((got[n].double() - w).abs().max()
+                   / w.abs().max()).item() for n, w in want.items()}
+        worst = max(rel, key=rel.get)
+        print(f"long range B={B} F={F} QK dropout={DROP_RATE} ({kinks} "
+              f"examples at a kink left out), {label}: error over the "
+              f"largest entry {rel[worst]:.3e} (worst {worst}; wout "
+              f"{rel['wout']:.3e}, wq {rel['wq']:.3e}, table "
+              f"{rel['table']:.3e})", flush=True)
+        return [f"{label}: {n}" for n, w in want.items()
+                if (got[n].double() - w).abs().max().item()
+                > GRAD_RTOL * w.abs().max().item() + GRAD_ATOL]
+
+    report("plain layer in float32",
+           layer_grads(meta_block.meta_layer_reference, x, layer,
+                       shared(table), dom, g, **kw, masks=masks))
+    past = []
+    card_sms = meta_block.sm_count
+    for blocks in (None, 1):
+        for bwd in ("recompute", "stash"):
+            if blocks:
+                meta_block.sm_count = lambda device: blocks
+            try:
+                got = layer_grads(meta_block.fused_meta_layer, x, layer,
+                                  shared(table), dom, g, **kw, **drop,
+                                  bwd=bwd)
+                torch.cuda.synchronize()
+            finally:
+                meta_block.sm_count = card_sms
+            where = "one block" if blocks else "the card's grid"
+            past += report(f"{bwd} on {where}", got)
+    check(not past, f"past the float64 layer's tolerance at B={B}: {past}")
+
+
 def backward_phase(dev):
     """K1-bwd, K1-bwd-stash and K1-bwd-stash light against autograd of the
     plain layer at full width with the same masks, the examples at a relu
@@ -1005,10 +1074,24 @@ def backward_phase(dev):
                                                     bound_by=b_by)
                         print(line, flush=True)
                     if main:
-                        del res
+                        # K1-bwd against K1-bwd-stash on the same masks
+                        rec, stf = (meta_block.launch_bwd(
+                            g, *ops, cfg, kargs, res=r) for r in (None, res))
+                        torch.cuda.synchronize()
+                        gap = max((a - b).abs().max().item()
+                                  / b.abs().max().item()
+                                  for a, b in zip(rec, stf) if b is not None)
+                        print(f"K1-bwd vs K1-bwd-stash dropout={rate}: "
+                              f"{gap:.3e} of a gradient's largest entry",
+                              flush=True)
+                        check(gap <= STASH_RECOMPUTE_RTOL, f"K1-bwd differs "
+                              f"from K1-bwd-stash on the same masks by {gap} "
+                              f"of a gradient's largest entry")
+                        del res, rec, stf
     for case in (clamp_backward_case, skewed_backward_case):
         for bwd, err in case(dev).items():
             worst[bwd] = max(worst[bwd], err)
+    long_range_backward_case(dev)
     return {bwd: dict(max_abs_err=worst[bwd], **out[(bwd, DROP_RATE)],
                       no_dropout_ms=out[(bwd, 0.0)]["ms"])
             for bwd in meta_block.BWD_MODES}
@@ -1490,15 +1573,24 @@ def bank_kernel_phase(dev, card):
     del got, want, g, arrays, bank, mu, nu
     torch.cuda.empty_cache()
 
-    # K3: per-field duplicate sums at ids [10, 8192], W = 128
+    # K3: per-field duplicate sums at ids [10, 8192], W = 128: the batch,
+    # a padded tail, B - 2, an odd B - 1, a field of one id and a field of
+    # no duplicate beside the batch's others
     gq = init.normal(gen, (fields, BATCH, width), 1.0)
+    one = ids.view(BATCH, fields).t().contiguous()
+    one[0] = one[0, 0]
+    one[1] = torch.randperm(BATCH, device=dev) * 7 + 1
     err = 0.0
-    for plan, b in ((ids, BATCH), (tail_ids, BATCH), (ids, BATCH - 2)):
+    for plan, b in ((ids, BATCH), (tail_ids, BATCH), (ids, BATCH - 2),
+                    (ids, BATCH - 1), (one.t().reshape(-1), BATCH)):
         ids_fb = plan.view(BATCH, fields).t()[:, :b].contiguous()
         gb = gq[:, :b].contiguous()
         got = eqgemm.eqgemm_positions(ids_fb, gb)
+        again = eqgemm.eqgemm_positions(ids_fb, gb)
         want = eqgemm.eqgemm_positions_reference(ids_fb, gb)
         torch.cuda.synchronize()
+        check(torch.equal(got, again), f"eqgemm_positions: two launches "
+              f"differ (B={b})")
         e = (got - want).abs().max().item()
         err = max(err, e)
         check(e <= EQGEMM_RTOL * want.abs().max().item(),
@@ -1511,18 +1603,43 @@ def bank_kernel_phase(dev, card):
             check(torch.equal(srow[1:][same], srow[:-1][same]),
                   f"eqgemm_positions: duplicate positions of field {f} "
                   f"differ (B={b})")
-        del got, want
+        del got, again, want
+    # the bound: ids in, g in, s out (the grouping is the kernel's own
+    # work: no compare is counted)
+    b_ms = bytes_bound_ms(8 * n + 2 * 4 * width * n)
+    parts = eqgemm.blocks_a_field(fields, dev)
+    timed = {}
+    for label, plan in (("batch", ids), ("tail", tail_ids)):
+        ids_fb = plan.view(BATCH, fields).t().contiguous()
+        runs = [torch.unique_consecutive(torch.sort(r).values,
+                                         return_counts=True)[1]
+                for r in ids_fb]
+        print(f"eqgemm_positions ids ({label}): distinct / longest run a "
+              f"field: " + ", ".join(f"{c.numel()}/{int(c.max())}"
+                                     for c in runs), flush=True)
+        run = functools.partial(eqgemm.eqgemm_positions, ids_fb, gq)
+        timed[label] = time_ms(run, 50)
+        with torch.profiler.profile(activities=[
+                torch.profiler.ProfilerActivity.CUDA]) as prof:
+            for _ in range(5):
+                run()
+            torch.cuda.synchronize()
+        by_kernel = ", ".join(
+            f"{re.search(r'eqgemm_[a-z]+_kernel(<[^>]*>)?', e.key)[0]} "
+            f"{e.device_time_total / 5e3:.4f}"
+            for e in prof.key_averages()
+            if e.device_time_total > 0 and "eqgemm_" in e.key)
+        print(f"kernel eqgemm_positions [{card}] ({label}, {parts} grouping "
+              f"blocks a field): {timed[label]:.4f} ms, bound {b_ms:.4f} "
+              f"ms; device ms by kernel: {by_kernel}", flush=True)
     ids_fb = ids.view(BATCH, fields).t().contiguous()
-    b_bytes = bytes_bound_ms(8 * n + 2 * 4 * width * n)
-    b_ops = 1e3 * fields * BATCH * BATCH / PEAK_INSTRUCTIONS
-    report("eqgemm_positions", err,
-           time_ms(lambda: eqgemm.eqgemm_positions(ids_fb, gq), 50),
+    report("eqgemm_positions", err, timed["batch"],
            time_ms(lambda: eqgemm.eqgemm_positions_reference(ids_fb, gq), 5),
-           None, max(b_bytes, b_ops),
-           "bytes" if b_bytes >= b_ops else "operations",
-           f"ids [{fields}, {BATCH}] W={width} (also a padded tail and "
-           f"B={BATCH - 2}); bytes {b_bytes:.4f} ms, "
-           f"{fields * BATCH * BATCH:.3e} id compares {b_ops:.4f} ms")
+           None, b_ms, "bytes",
+           f"ids [{fields}, {BATCH}] W={width} (also a padded tail, "
+           f"B={BATCH - 2}, a field of one id, one of no duplicate)")
+    out["eqgemm_positions"].update(tail_ms=timed["tail"],
+                                   grouping_blocks=parts)
     return out
 
 
@@ -2473,7 +2590,7 @@ def tiled_kernel_phase(dev, units=UNITS2, cases=None):
                 b_ms, b_by = meta_layer_bwd_bound_ms(
                     plan.n_slots, F, d, h, heads, T, 1, 1,
                     stash="full" if res_ is not None else None, h2=h2,
-                    tiled_meta=True, occupied=occupied)
+                    occupied=occupied)
                 out[(name, rate)] = dict(ms=ms, plain_ms=pb_ms,
                                          bound_ms=b_ms, bound_by=b_by,
                                          every_slot_ms=every_ms,

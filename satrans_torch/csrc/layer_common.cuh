@@ -198,33 +198,6 @@ __device__ __forceinline__ void metanet_matrix(const float* act, int as,
   }
 }
 
-// The gradient through one MetaNet matrix and the relu before it, over a
-// group of G threads: dh[f][n] = (sum_k g[f][k] wT[k][n]) [h[f][n] > 0],
-// written over h, the relu's input (g row stride gs, h row stride hs,
-// wT [K][N] the matrix transposed).  A thread reads h only where it
-// writes.
-template <int G, int K, int N>
-__device__ __forceinline__ void metanet_matrix_bwd(
-    const float* g, int gs, const float* __restrict__ wT, int F, int t,
-    float* h, int hs) {
-  using T = Tile<N, G>;
-  float acc[T::RPL][4];
-  tile_gemm<G, K, N>(g, gs, wT, N, F, t, acc);
-  const int col = 4 * (t % T::LPR), rs = t / T::LPR;
-#pragma unroll
-  for (int i = 0; i < T::RPL; ++i) {
-    const int f = rs + T::RS * i;
-    if (f < F) {
-      const float4 hv = ld4(h + f * hs + col);
-      const float v[4] = {hv.x > 0.f ? acc[i][0] : 0.f,
-                          hv.y > 0.f ? acc[i][1] : 0.f,
-                          hv.z > 0.f ? acc[i][2] : 0.f,
-                          hv.w > 0.f ? acc[i][3] : 0.f};
-      st4(h + f * hs + col, v);
-    }
-  }
-}
-
 // Sum over the N/4 consecutive lanes that hold one row of N values.
 template <int N>
 __device__ __forceinline__ float row_sum(float s) {

@@ -1,43 +1,51 @@
-// The tile body of the layer backward on Hopper: K1-bwd-stash, K1-bwd-stash
-// light, K7-bwd-stash and K7-bwd (included by csrc/meta_block_bwd.cu after
-// its gradient layout, Strides and grad_floats, whose C entries launch it).
+// The tile body of the layer backward on Hopper, every mode of it: K1-bwd,
+// K1-bwd-stash, K1-bwd-stash light, K7-bwd-stash and K7-bwd (included by
+// csrc/meta_block_bwd.cu after its gradient layout, Strides and
+// grad_floats, whose C entries launch it).
 //
-// Replaces satrans_tpu/ops/pallas/meta_block.py's _bwd_kernel_stash
-// (:902), launched by _bwd_call (:1227) through pl.pallas_call (:1292), in
-// its full mode (stash_s=True; K1-bwd-stash, kFullStash, the JAX package's
-// bwd='stash'), which reads qkv, uq, uk, the probabilities s and o, and its
-// light mode (stash_s=False; K1-bwd-stash light, kLightStash,
-// bwd='stash_light'), which recomputes the probabilities from the stashed
-// pre-LN sums with the forward's device code (attention_probs_pair, csrc/
-// layer_common.cuh), so they equal K1-stash's bit for bit.  With TILED it
-// replaces satrans_tpu/ops/pallas/tiled_meta.py's _bwd_kernel_stash (:341,
-// K7-bwd-stash, kFullStash, the default bwd='stash') and _bwd_kernel (:178,
-// K7-bwd, kNoStash, bwd='recompute'), both launched by _bwd_call (:562)
-// through pl.pallas_call (:634): the backward of the layer on the slots of
+// Replaces satrans_tpu/ops/pallas/meta_block.py's two backward kernels,
+// both launched by _bwd_call (:1227) through pl.pallas_call (:1292):
+// _bwd_kernel (:685; K1-bwd, kNoStash, the JAX package's bwd='recompute'),
+// which reads no residual and recomputes the forward on chip, and
+// _bwd_kernel_stash (:902) in its full mode (stash_s=True; K1-bwd-stash,
+// kFullStash, the default bwd='stash'), which reads qkv, uq, uk, the
+// probabilities s and o, and its light mode (stash_s=False; K1-bwd-stash
+// light, kLightStash, bwd='stash_light'), which recomputes the
+// probabilities from the stashed pre-LN sums with the forward's device
+// code (attention_probs_pair, csrc/layer_common.cuh), so they equal
+// K1-stash's bit for bit.  With TILED it replaces satrans_tpu/ops/pallas/
+// tiled_meta.py's _bwd_kernel_stash (:341, K7-bwd-stash, kFullStash, the
+// default bwd='stash') and _bwd_kernel (:178, K7-bwd, kNoStash,
+// bwd='recompute'), both launched by _bwd_call (:562) through
+// pl.pallas_call (:634): the backward of the layer on the slots of
 // dispatched single-domain tiles (ops/dispatch.py; tile t of tile_b slots
 // takes the MetaNet block of row t of the per-tile [T, d, h] and [T, h, d]
-// weights).  K7-bwd reads no residual: it recomputes qkv, the MetaNets' pre-
-// LN sums uq and uk, the LayerNorms, the probabilities and o on chip, with
-// the products of the forward tile body (block_gemm, 3xTF32) and the
-// backwards' attention pass (attention_recompute_pair).  The function, the
-// dropout's mirror sites and the gradient layout are meta_block_bwd.cu's;
-// K7 writes each dispatch tile's own gradient blocks [T, ...], summed over
-// the tile's slots only (autograd of the gather table[tile_dom] outside the
-// kernel adds them into the table's rows).
+// weights).  The recompute modes (K1-bwd, K7-bwd) read no residual: they
+// compute qkv, the MetaNets' pre-LN sums uq and uk, the LayerNorms, the
+// probabilities and o on chip, with the products of the forward tile body
+// (block_gemm, 3xTF32) and the backwards' attention pass
+// (attention_recompute_pair), into the buffers the stash modes load into.
+// The function, the dropout's mirror sites and the gradient layout are
+// meta_block_bwd.cu's; K7 writes each dispatch tile's own gradient blocks
+// [T, ...], summed over the tile's slots only (autograd of the gather
+// table[tile_dom] outside the kernel adds them into the table's rows).
 //
 // What bounds it.  At the AliCCP sota shape the backward is about 0.9 MFLOP
 // an example (the MetaNets' hidden layers and zlin recomputed, then dWout,
 // do, the attention backward, dW2, dh, dW1 and dt0 of both MetaNets, dWqkv
 // and dx) against 20.4 kB of residuals and 7.3 kB of x, g and dx: 0.1493 ms
-// of float32 FMA work, 68 us of bytes at B = 8192.  The template body
-// these modes first ran on took 1.145 ms: two examples a block iteration
-// with 20 block barriers around them, 40 % of its FMA slots masked (19 rows
-// over 32 row slots), weights re-read from L1/L2 with about one load per
-// FMA, the per-domain gradients read and written in L2 once an example
-// (0.5 GB a launch), and no tensor cores.  K7's backwards first ran on
-// that template too (K7-bwd-stash 2.10 ms at 8192 examples in 9984 slots
-// on the H100), with whole dispatch tiles a block (312 over 264 blocks:
-// 1.18 waves) and the 1,792 slack slots computed.
+// of float32 FMA work, 68 us of bytes at B = 8192 (the recompute modes
+// read no residual and do the forward's 0.5 MFLOP more).  The template
+// body these modes first ran on (deleted) took 1.145 ms (K1-bwd-stash) and
+// 1.336 ms (K1-bwd): two examples a block iteration with 20 block
+// barriers around them, 40 % of its FMA slots masked (19 rows over 32 row
+// slots), weights re-read from L1/L2 with about one load per FMA, the
+// per-domain gradients read and written in L2 once an example (0.5 GB a
+// launch), transposed weight copies made each backward, and no tensor
+// cores.  K7's backwards first ran on that template too (K7-bwd-stash
+// 2.10 ms at 8192 examples in 9984 slots on the H100), with whole
+// dispatch tiles a block (312 over 264 blocks: 1.18 waves) and the 1,792
+// slack slots computed.
 //
 // Design.  As the forward's tile body (csrc/meta_stash_fwd.cuh): a block of
 // 320 threads, one an SM, owns tiles of E = 80 / F examples of the batch
@@ -82,10 +90,13 @@
 // order, beside the dense and LayerNorm sums of sum_partials; it also
 // writes the zeros of the blocks of empty tiles and unapplied MetaNets and
 // of dx on the slack slots.  So the result is deterministic for a grid.
-// K7-bwd fills the buffers that K7-bwd-stash loads by computing them, tile
-// by tile (R1, R2 and R4 below), and then runs the same backward phases:
-// the recompute adds no shared memory (the forward's hidden rows go where
-// the probabilities and the gradient rows go later).
+// The recompute modes (K1-bwd, K7-bwd) fill the buffers that the stash
+// modes load by computing them, tile by tile (R1, R2 and R4 below): x @
+// Wqkv, per segment the MetaNets (each distinct Q and K block staged in
+// turn), the LayerNorms, P and o; then they run the same backward phases.
+// The recompute adds no shared memory (the forward's hidden rows go where
+// the probabilities and the gradient rows go later: h1 in sG, a 3-matrix
+// MetaNet's h2 in the dq|dk|dv buffer sD).
 
 #pragma once
 
@@ -123,7 +134,7 @@ struct BwdTile {
                        NS = 2 * DM + 4, OS = DM + 4, DS = 3 * DM + 4,
                        HS = SH::HMAX + 4;
   static_assert(HS <= US || HID2 == 0, "h2 must fit the uq|uk buffer");
-  static_assert(HS <= DS, "K7-bwd's recomputed h2 must fit the dq|dk|dv "
+  static_assert(HS <= DS, "the recomputed h2 must fit the dq|dk|dv "
                           "buffer");
   static constexpr int kHeader = kTileHeader;  // bytes
   static constexpr int oWqkv = 0, oWout = oWqkv + DM * WQ,
@@ -160,9 +171,8 @@ __global__ void __launch_bounds__(kTT, 1)
   using L = BwdTile<SH>;
   using S = Strides<SH>;
   constexpr bool FULL = MODE == kFullStash;
-  constexpr bool RECOMPUTE = MODE == kNoStash;  // K7-bwd
+  constexpr bool RECOMPUTE = MODE == kNoStash;  // K1-bwd, K7-bwd
   static_assert(DM == 4 * kRowThreads, "epilogues take rows of 32");
-  static_assert(!RECOMPUTE || TILED, "K1-bwd is meta_block_bwd.cu's");
   static_assert(MODE != kLightStash || !TILED, "K7 has no light stash");
 
   extern __shared__ __align__(16) unsigned char smem[];
@@ -254,7 +264,8 @@ __global__ void __launch_bounds__(kTT, 1)
   int flushed[2] = {-1, -1};  // K7: the tile each MetaNet's sums went to
   // the loads of a tile's residuals: group 0 x, 1 o, 2 qkv, uq and uk by
   // cp.async (one group each), and with them the probabilities, one bulk
-  // copy an example by warp 0's lanes on the barrier; K7-bwd loads x alone
+  // copy an example by warp 0's lanes on the barrier; the recompute modes
+  // load x alone
   const auto load = [&](int group, const int* ex, int n) {
     if (group == 0) {
       load_rows<DM>(sX, L::XS, a.x, ex, n, F);
@@ -389,8 +400,8 @@ __global__ void __launch_bounds__(kTT, 1)
 
       // F3. q|k: the LayerNorms of the pre-LN sums (an untransformed
       //     projection copied through) -> sN; the light stash's
-      //     probabilities recomputed from them into sG, K7-bwd's and o
-      //     into sO (R4)
+      //     probabilities recomputed from them into sG, the recompute
+      //     modes' and o into sO (R4)
 #pragma unroll
       for (int rb = 0; rb < kTileRows; rb += kRowsAPass) {
         const int r = rb + tid / kRowThreads;

@@ -212,16 +212,20 @@ struct WTiles {
   }
 
   // acc += sum over rows r in [r0, r1) of A(r, m) G(r, n), r in order of
-  // eight-row steps (the rows outside the range count zero on both sides)
+  // eight-row steps (the rows outside the range count zero on both sides).
+  // The call's products are summed in a fresh accumulator, added to acc
+  // once: the tensor cores' float32 accumulation does not round to
+  // nearest, and one chain over a block's whole range (tens of thousands
+  // of rows) drifts by far more than a float32 sum's rounding.
   template <class AF, class GF>
   __device__ __forceinline__ void add(int r0, int r1, AF a, GF gf) {
     const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
     const int g = lane >> 2, t = lane & 3;
-    float lo[kPerWarp][4];
+    float cur[kPerWarp][4];
 #pragma unroll
     for (int i = 0; i < kPerWarp; ++i) {
 #pragma unroll
-      for (int c = 0; c < 4; ++c) lo[i][c] = 0.f;
+      for (int c = 0; c < 4; ++c) cur[i][c] = 0.f;
     }
 #pragma unroll 2
     for (int k0 = r0 & ~7; k0 < r1; k0 += 8) {
@@ -239,13 +243,13 @@ struct WTiles {
         split_tf32(vb ? a(rb, m0 + g + 8) : 0.f, ab[3], as[3]);
         split_tf32(va ? gf(ra, n0 + g) : 0.f, bb[0], bs[0]);
         split_tf32(vb ? gf(rb, n0 + g) : 0.f, bb[1], bs[1]);
-        mma_3xtf32(acc[i], lo[i], ab, as, bb, bs);
+        mma_3xtf32(cur[i], cur[i], ab, as, bb, bs);
       }
     }
 #pragma unroll
     for (int i = 0; i < kPerWarp; ++i) {
 #pragma unroll
-      for (int c = 0; c < 4; ++c) acc[i][c] += lo[i][c];
+      for (int c = 0; c < 4; ++c) acc[i][c] += cur[i][c];
     }
   }
 

@@ -5,9 +5,13 @@
 :func:`eqgemm_positions` computes ``s[f, i] = sum_j [ids[f, i] ==
 ids[f, j]] g[f, j]``: on a CUDA tensor it launches the kernel (and adds
 one to ``launches``) or raises; on a CPU tensor it runs
-:func:`eqgemm_positions_reference`, the equality GEMM in float32.  Within a
-field the kernel sums each total in ascending ``j`` once and copies it to
-every duplicate position, so duplicates carry byte-identical rows.
+:func:`eqgemm_positions_reference`, the equality GEMM in float32.  The
+kernel groups each field's positions by id once, with no B^2 compares:
+the field's share of the SMs (:func:`blocks_a_field`) each radix-sort
+the ids of one hash bucket in the kernel; then warps over the card sum
+each run of duplicates once in ascending position and store the total to
+every member, so duplicates carry byte-identical rows and a launch is
+deterministic for its grid.
 """
 
 from __future__ import annotations
@@ -16,7 +20,7 @@ import ctypes
 
 import torch
 
-from ._build import kernel_fn, stream_of
+from ._build import kernel_fn, sm_count, stream_of
 
 launches = 0
 
@@ -29,9 +33,16 @@ def eqgemm_positions_reference(ids_fb: torch.Tensor,
     return torch.bmm(eq, g_fb)
 
 
+def blocks_a_field(F: int, device) -> int:
+    """The grouping's blocks a field: the field's share of the SMs, at
+    most ``satrans_eqgemm_max_parts()``."""
+    most = kernel_fn("eqgemm", "satrans_eqgemm_max_parts", [])()
+    return max(1, min(most, sm_count(device) // max(F, 1)))
+
+
 def eqgemm_positions(ids_fb: torch.Tensor, g_fb: torch.Tensor) -> torch.Tensor:
-    """``ids_fb`` int64 ``[F, B]``, ``g_fb`` float32 ``[F, B, W]`` ->
-    ``[F, B, W]``."""
+    """``ids_fb`` int64 ``[F, B]`` (non-negative), ``g_fb`` float32
+    ``[F, B, W]`` -> ``[F, B, W]``."""
     if ids_fb.device.type == "cpu":
         return eqgemm_positions_reference(ids_fb, g_fb)
     if ids_fb.device.type != "cuda":
@@ -46,12 +57,17 @@ def eqgemm_positions(ids_fb: torch.Tensor, g_fb: torch.Tensor) -> torch.Tensor:
     s = torch.empty_like(g_fb)
     if F == 0 or B == 0:
         return s
-    lead = torch.empty(F * B, dtype=torch.int32, device=ids_fb.device)
+    parts = blocks_a_field(F, ids_fb.device)
+    nbytes = kernel_fn("eqgemm", "satrans_eqgemm_scratch_bytes",
+                       [ctypes.c_int] * 4)
+    nbytes.restype = ctypes.c_longlong
+    scratch = torch.empty(nbytes(F, B, W, parts), dtype=torch.uint8,
+                          device=ids_fb.device)
     fn = kernel_fn("eqgemm", "satrans_eqgemm_positions",
-                   [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3
+                   [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4
                    + [ctypes.c_void_p])
     err = fn(ids_fb.data_ptr(), g_fb.data_ptr(), s.data_ptr(),
-             lead.data_ptr(), F, B, W, stream_of(ids_fb))
+             scratch.data_ptr(), F, B, W, parts, stream_of(ids_fb))
     if err:
         raise RuntimeError(f"eqgemm_positions launch failed: CUDA error "
                            f"{err}")

@@ -4,10 +4,11 @@
 residuals; K1-stash light, which writes all of them but the attention
 probabilities; K1-scores, which writes the output and the attention
 probabilities alone, for the probes) and ``csrc/meta_block_bwd.cu``
-(K1-bwd, which recomputes the forward; and the tile body
-``csrc/meta_stash_bwd.cuh``: K1-bwd-stash, which reads the residuals;
-K1-bwd-stash light, which reads the light ones and recomputes the
-probabilities), twins of ``satrans_tpu/ops/pallas/meta_block.py``.  The
+(through its C entry the backward tile body ``csrc/meta_stash_bwd.cuh``
+in all three modes: K1-bwd, which recomputes the forward; K1-bwd-stash,
+which reads the residuals; K1-bwd-stash light, which reads the light
+ones and recomputes the probabilities), twins of
+``satrans_tpu/ops/pallas/meta_block.py``.  The
 tile bodies sort each block's range of the batch by domain themselves, so
 the wrappers pass the batch in its own order and get every output back in
 it.
@@ -75,9 +76,6 @@ KERNEL_SHAPES = frozenset({(32, 64, 0, 4), (32, 64, 64, 4)})
 # satrans.py:372, len(meta_units) in (3, 4))
 KERNEL_DEPTHS = (3, 4)
 KERNEL_MAX_FIELDS = 20
-# K1-bwd runs two blocks of 256 threads per SM (csrc/meta_block_bwd.cu);
-# the stash backwards' tile body asks its C entry for its grid
-BWD_BLOCKS_PER_SM = 2
 
 BWD_MODES = ("stash", "stash_light", "recompute")
 # the residuals of each stash ('scores': K1-scores' probabilities), in the
@@ -272,7 +270,9 @@ def launch_bwd(g, x, dom, wqkv, w1q, wmq, w2q, lnq, w1k, wmk, w2k, lnk,
     K1-bwd-stash; with K1-stash light's ``res = (qkv, uq, uk, o)``
     K1-bwd-stash light: ``(dx, dwqkv, dw1q, dwmq, dw2q, dlnq, dw1k, dwmk,
     dw2k, dlnk, dwout, dlno)`` (``dwmq``/``dwmk`` None for 2-matrix
-    MetaNets) for the upstream gradient ``g`` of the layer's output."""
+    MetaNets) for the upstream gradient ``g`` of the layer's output.  All
+    three run on the backward tile body, one block an SM (at most one a
+    tile), and the result is deterministic for a grid."""
     h, h2, heads, apply_q, apply_k, relu_out = cfg
     B, F, d = x.shape
     D = w1q.shape[0]
@@ -289,28 +289,19 @@ def launch_bwd(g, x, dom, wqkv, w1q, wmq, w2q, lnq, w1k, wmk, w2k, lnk,
             raise ValueError(f"residuals of shapes "
                              f"{[tuple(r.shape) for r in res]}, want {want}")
         check_operands(res, x.device)
-    if stash is None:  # K1-bwd reads the weights transposed, in copies
-        wqkv_t, wout_t, *meta_t = transposed(wqkv, wout, (w1q, wmq, w2q),
-                                             (w1k, wmk, w2k))
-        # tiles of two examples
-        blocks = min(BWD_BLOCKS_PER_SM * sm_count(x.device), (B + 1) // 2)
-    else:  # the tile body reads them transposed in shared memory
-        wqkv_t, wout_t, meta_t = None, None, ((None,) * 3,) * 2
-        blocks = kernel_fn("meta_block_bwd",
-                           "satrans_meta_block_bwd_stash_blocks",
-                           [ctypes.c_int] * 3)(B, F, sm_count(x.device))
+    blocks = kernel_fn("meta_block_bwd",
+                       "satrans_meta_block_bwd_stash_blocks",
+                       [ctypes.c_int] * 3)(B, F, sm_count(x.device))
     total = grad_floats(d, h, h2, heads, D)
     dx = torch.empty_like(x)
     partial = torch.empty(blocks * total, dtype=torch.float32,
                           device=x.device)
     grads = torch.empty(total, dtype=torch.float32, device=x.device)
-    (w1q_t, wmq_t, w2q_t), (w1k_t, wmk_t, w2k_t) = meta_t
-    ops = (x, dom, g, wqkv, wqkv_t, w1q, wmq, w2q, w1q_t, wmq_t, w2q_t, lnq,
-           w1k, wmk, w2k, w1k_t, wmk_t, w2k_t, lnk, wout, wout_t, lno, dx,
-           partial, grads)
+    ops = (x, dom, g, wqkv, w1q, wmq, w2q, lnq, w1k, wmk, w2k, lnk, wout,
+           lno, dx, partial, grads)
     check_operands(present(ops), x.device, ints=(dom,))
     fn = kernel_fn("meta_block_bwd", "satrans_meta_block_bwd",
-                   [ctypes.c_void_p] * 30 + [ctypes.c_int] * 13
+                   [ctypes.c_void_p] * 22 + [ctypes.c_int] * 13
                    + [ctypes.c_uint, ctypes.c_uint, ctypes.c_float]
                    + [ctypes.c_int] * 3 + [ctypes.c_void_p])
     err = fn(*ptrs(ops), *_residual_ptrs(res, stash), _STASH_MODE[stash],
@@ -334,21 +325,6 @@ def grad_floats(d: int, h: int, h2: int, heads: int, rows: int) -> int:
     alone)."""
     return kernel_fn("meta_block_bwd", "satrans_meta_block_bwd_grad_floats",
                      [ctypes.c_int] * 5)(d, h, h2, heads, rows)
-
-
-def transposed(wqkv, wout, meta_q, meta_k):
-    """``(wqkv^T, wout^T, (W1q^T, Wmq^T, W2q^T), (W1k^T, Wmk^T, W2k^T))``,
-    contiguous, the MetaNet matrices (``meta_q``, ``meta_k``: ``(W1, Wm,
-    W2)``, ``Wm`` None for 2 matrices) transposed per row: every GEMM of
-    the backward kernels reads its weights row-major [K, N], so their
-    transposed products get transposed copies (a few kB a row)."""
-    def t(ws):
-        return tuple(None if w is None else w.transpose(1, 2).contiguous()
-                     for w in ws)
-    meta_q_t = t(meta_q)
-    same = all(a is b for a, b in zip(meta_q, meta_k))
-    return (wqkv.t().contiguous(), wout.t().contiguous(), meta_q_t,
-            meta_q_t if same else t(meta_k))
 
 
 def split_grads(grads, d: int, h: int, h2: int, D: int):

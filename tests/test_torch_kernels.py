@@ -20,11 +20,16 @@ blocks; a second launch bit for bit), and against every slot computed
 (dx zero on the slack slots); the tile bodies of
 K1-stash and K1-bwd-stash on domain mixes (all in one row, one example a
 row, skewed, out-of-range ids) and batches from 1 to 8192, with their
-light twins, K1-scores and a second launch bit for bit; each K1 and K7 case with
+light twins, K1-scores, K1-bwd (the recompute mode of the same body) and
+a second launch bit for bit; K1-bwd against K1-bwd-stash on the same
+masks, and on forced grids of 1, 3 and 7 blocks; each K1 and K7 case with
 2-matrix MetaNets [32, 64, 32] and with 3-matrix ones [32, 64, 64, 32]
 (the middle matrix in every body, its gradient in the tables' middle
 block); the row kernels of the sparse bank updates (K2 scatter, K3
-equality combine, K4 gather, K5 lazy Adam tail) against theirs; and the
+equality combine, K4 gather, K5 lazy Adam tail) against theirs, K3 also at
+the bench's shape (a tail's run of zero ids, a field of one id, one
+without duplicates, W = 200) on one grouping block a field and the
+card's share, and past a block's shared memory; and the
 row-DMA probes' bulk-copy kernels (P1 scatter, P2 gather) against
 ``index_copy_`` and ``index_select``.
 
@@ -573,11 +578,12 @@ def test_tile_bodies_match_plain_version(card, units, F, mode, relu_out,
     against the float64 plain layer on the domain mixes above: K1-stash's
     output and residuals within 1e-4 (chip_smoke's KERNEL_TOL), K1-stash
     light's equal to them and K1-scores' y and s equal to K1-stash's bit for
-    bit; the gradients of K1-bwd-stash and K1-bwd-stash light through the
-    autograd wrapper within 1e-4 of each gradient's largest entry plus 1e-5
-    (GRAD_RTOL, GRAD_ATOL); the light backward within 1e-6 of the full one
-    on the same residuals (STASH_LIGHT_RTOL); a second launch of each body
-    on the same inputs gives the same bits."""
+    bit; the gradients of K1-bwd-stash, K1-bwd-stash light and K1-bwd (the
+    recompute mode of the same body) through the autograd wrapper within
+    1e-4 of each gradient's largest entry plus 1e-5 (GRAD_RTOL,
+    GRAD_ATOL); the light backward within 1e-6 of the full one on the same
+    residuals (STASH_LIGHT_RTOL); a second launch of each body on the same
+    inputs gives the same bits."""
     gen, layer, tables = _tile_layer(card, 11, units, distinct, MIXES[mix])
     x = init.normal(gen, (B, F, 32), 1.0)
     g = init.normal(gen, (B, F, 32), 1.0)
@@ -625,16 +631,20 @@ def test_tile_bodies_match_plain_version(card, units, F, mode, relu_out,
                                           res=tuple(full[1:]))
         bwd_light = meta_block.launch_bwd(
             g, *ops, cfg, kargs, res=tuple(full[i] for i in (1, 2, 3, 5)))
+        bwd_rec = meta_block.launch_bwd(g, *ops, cfg, kargs)
+        bwd_rec_again = meta_block.launch_bwd(g, *ops, cfg, kargs)
     torch.cuda.synchronize()
-    for a, b, c in zip(bwd_full, bwd_again, bwd_light):
+    for a, b, c, r, r2 in zip(bwd_full, bwd_again, bwd_light, bwd_rec,
+                              bwd_rec_again):
         if a is None:  # no middle matrix
+            assert r is None
             continue
-        assert torch.equal(a, b)
+        assert torch.equal(a, b) and torch.equal(r, r2)
         assert (c - a).abs().max().item() <= 1e-6 * a.abs().max().item()
     want_g = _named_grads(meta_block.meta_layer_reference, x.double(),
                           layer64, tables64, ref_dom, g.double(), **kw,
                           masks=masks64)
-    for bwd in ("stash", "stash_light"):
+    for bwd in ("stash", "stash_light", "recompute"):
         got = _named_grads(meta_block.fused_meta_layer, x, layer, tables,
                            dom, g, **kw, **drop, bwd=bwd)
         torch.cuda.synchronize()
@@ -1023,6 +1033,85 @@ def test_tiled_stash_backward_equals_recompute_backward(card, units, rate):
     _close_to(stash, again, 1e-5)
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("units", [UNITS2, UNITS3],
+                         ids=["2-matrix", "3-matrix"])
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+@pytest.mark.parametrize("F,distinct", [(19, False), (15, True)],
+                         ids=["F19", "F15-distinct"])
+def test_stash_backward_equals_recompute_backward(card, units, rate, F,
+                                                  distinct):
+    """K1-bwd-stash on K1-stash's residuals against K1-bwd recomputing
+    them on the tile body, on the same masks, at the full batch: every
+    gradient within 1e-5 of its largest entry (the two forwards sum in
+    another order), as K7's twin."""
+    gen, layer, tables = _tile_layer(card, 14, units, distinct, 4)
+    B = 8192
+    x = init.normal(gen, (B, F, 32), 1.0)
+    g = init.normal(gen, (B, F, 32), 1.0)
+    dom = torch.randint(0, 4, (B,), generator=gen, device=card)
+    ops, cfg = meta_block.pack_operands(x, layer, tables, dom,
+                                        meta_units=units, head_num=4)
+    ops = [t if t is None else t.detach() for t in ops]
+    kargs = prng.kernel_args(True, rate, DROP["seed"], DROP["block_b"], F)
+    with torch.no_grad():
+        _, *res = meta_block.launch_fwd(*ops, cfg, kargs, stash="full")
+        stash = meta_block.launch_bwd(g, *ops, cfg, kargs, res=tuple(res))
+        again = meta_block.launch_bwd(g, *ops, cfg, kargs)
+    torch.cuda.synchronize()
+    _close_to(again, stash, 1e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("units", [UNITS2, UNITS3],
+                         ids=["2-matrix", "3-matrix"])
+@pytest.mark.parametrize("blocks", [1, 3, 7])
+def test_recompute_bwd_forced_grids(card, monkeypatch, units, blocks):
+    """K1-bwd on forced grids of 1, 3 and 7 blocks (each block a longer
+    range of the batch, sorted by domain in the kernel): through the
+    autograd wrapper against autograd of the plain layer in float64, each
+    gradient within 1e-4 of its largest entry plus 1e-5 (float32 sums
+    over up to B * F rows in another order); a second launch on the same
+    grid bit for bit.  On one block the weight-gradient sums run over all
+    B * F = 38,000 rows."""
+    gen, layer, tables = _tile_layer(card, 15, units, False, 4)
+    B, F = 2000, 19
+    x = init.normal(gen, (B, F, 32), 1.0)
+    g = init.normal(gen, (B, F, 32), 1.0)
+    dom = torch.randint(0, 4, (B,), generator=gen, device=card)
+    kw = dict(meta_units=units, head_num=4, mode="QK", relu_out=False)
+    drop = dict(train=True, drop_rate=0.1, **DROP)
+    masks = meta_block.layer_masks(x, head_num=4, mode="QK", **drop)
+    masks64 = tuple(None if m is None else m.double() for m in masks)
+    layer64 = copy.deepcopy(layer).double()
+    tables64 = {k: t.double() for k, t in tables.items()}
+    tables64["K"] = tables64["Q"]
+    g = _kink_free(g.double(), x.double(), layer64, tables64, dom, masks64,
+                   **kw).float()
+    ops, cfg = meta_block.pack_operands(x, layer, tables, dom, **kw)
+    ops = [t if t is None else t.detach() for t in ops]
+    kargs = prng.kernel_args(True, 0.1, DROP["seed"], DROP["block_b"], F)
+    monkeypatch.setattr(meta_block, "sm_count", lambda device: blocks)
+    with torch.no_grad():
+        one = meta_block.launch_bwd(g, *ops, cfg, kargs)
+        two = meta_block.launch_bwd(g, *ops, cfg, kargs)
+    torch.cuda.synchronize()
+    for a, b in zip(one, two):
+        assert (a is None and b is None) or torch.equal(a, b)
+    before = meta_block.bwd_launches
+    got = _named_grads(meta_block.fused_meta_layer, x, layer, tables, dom,
+                       g, **kw, **drop, bwd="recompute")
+    torch.cuda.synchronize()
+    assert meta_block.bwd_launches == before + 1
+    want = _named_grads(meta_block.meta_layer_reference, x.double(),
+                        layer64, tables64, dom, g.double(), **kw,
+                        masks=masks64)
+    assert set(got) == set(want)
+    for name, w in want.items():
+        err = (got[name].double() - w).abs().max().item()
+        assert err <= 1e-4 * w.abs().max().item() + 1e-5, (name, err)
+
+
 # --- the row kernels of the sparse bank updates (K2, K3, K4, K5) ---------
 
 def _bank(card, rows, w, seed):
@@ -1070,28 +1159,104 @@ def test_scatter_rows_kernel_matches_plain_version(card, drop_oob, w):
         assert torch.equal(g, wa)
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("W", [128, 200])
-def test_eqgemm_kernel_matches_plain_version(card, W):
-    """Heavy duplicates (a tail batch's zero ids among them): within 1e-5
-    of the largest total, and every group of duplicate positions
-    byte-identical."""
+def _check_eqgemm(ids, g):
+    """K3 against its plain version: within 1e-5 of the largest total,
+    every group of duplicate positions byte-identical, a second launch bit
+    for bit and one launch counted each."""
     from satrans_torch.ops import eqgemm
-    F, B = 3, 300
-    ids = torch.randint(0, 40, (F, B), device=card)
-    ids[:, 200:] = 7
-    g = init.normal(make_generator(4, card), (F, B, W), 1.0)
     before = eqgemm.launches
     got = eqgemm.eqgemm_positions(ids, g)
+    again = eqgemm.eqgemm_positions(ids, g)
     torch.cuda.synchronize()
-    assert eqgemm.launches == before + 1
+    assert eqgemm.launches == before + 2
+    assert torch.equal(got, again)
     want = eqgemm.eqgemm_positions_reference(ids, g)
     assert (got - want).abs().max().item() <= 1e-5 * want.abs().max().item()
-    for f in range(F):
+    for f in range(ids.shape[0]):
         order = torch.argsort(ids[f], stable=True)
         s, i = got[f][order], ids[f][order]
         same = i[1:] == i[:-1]
         assert torch.equal(s[1:][same], s[:-1][same])
+
+
+def _grouping_blocks(monkeypatch, F, parts):
+    """Force K3's grouping onto ``parts`` blocks a field (None: the card's
+    share)."""
+    from satrans_torch.ops import eqgemm
+    if parts is not None:
+        monkeypatch.setattr(eqgemm, "sm_count", lambda device: F * parts)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("W", [128, 200])
+@pytest.mark.parametrize("parts", [1, 3, None])
+def test_eqgemm_kernel_matches_plain_version(card, monkeypatch, W, parts):
+    """Heavy duplicates (a tail batch's zero ids among them) at a small
+    batch, on 1, 3 and the card's share of grouping blocks a field: within
+    1e-5 of the largest total, and every group of duplicate positions
+    byte-identical."""
+    F, B = 3, 300
+    ids = torch.randint(0, 40, (F, B), device=card)
+    ids[:, 200:] = 7
+    g = init.normal(make_generator(4, card), (F, B, W), 1.0)
+    _grouping_blocks(monkeypatch, F, parts)
+    _check_eqgemm(ids, g)
+
+
+def _bench_ids(card, B, seed):
+    """ids [10, B] as a training batch gives them: fields of 21-bit rows,
+    of a few hundred and of a handful of values, a field past 2^40, the
+    padded tail's zero ids from position 5000 of field 0, field 1 one id
+    throughout, field 2 with no duplicate."""
+    gen = make_generator(seed, card)
+    hi = [2 ** 21, 1, 1, 2 ** 21, 7, 300, 2 ** 42, 3, 2 ** 21, 100_000]
+    ids = torch.stack([torch.randint(0, h, (B,), generator=gen, device=card)
+                       for h in hi])
+    ids[0, 5000:] = 0
+    ids[1] = 123_456
+    ids[2] = torch.randperm(B, generator=gen, device=card) * 5 + 11
+    return ids
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("W", [128, 200])
+@pytest.mark.parametrize("parts", [1, None])
+def test_eqgemm_kernel_at_bench_shape(card, monkeypatch, W, parts):
+    """K3 at F = 10, B = 8192 (and B = 8190, past whole chunks of 32):
+    with the tail's run of 3192 zero ids, a field of one run, one with
+    every id distinct, a few long runs; the 16-byte path at W = 128 and the
+    scalar one at W = 200; one grouping block a field (all of a field's
+    ids in one bucket) and the card's share."""
+    ids = _bench_ids(card, 8192, 21)
+    g = init.normal(make_generator(22, card), (10, 8192, W), 1.0)
+    _grouping_blocks(monkeypatch, 10, parts)
+    _check_eqgemm(ids, g)
+    _check_eqgemm(ids[:, :8190].contiguous(), g[:, :8190].contiguous())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("W", [128, 200])
+@pytest.mark.parametrize("B", [301, 8191])
+def test_eqgemm_kernel_at_odd_batches(card, monkeypatch, B, W):
+    """An odd B puts the sort's arrays past an odd count of ids and
+    positions: they start on aligned boundaries all the same, in shared
+    memory, on 1 grouping block a field and on the card's share."""
+    ids = _bench_ids(card, B, 25)
+    g = init.normal(make_generator(26, card), (10, B, W), 1.0)
+    _check_eqgemm(ids, g)
+    _grouping_blocks(monkeypatch, 10, 1)
+    _check_eqgemm(ids, g)
+
+
+@pytest.mark.cuda
+def test_eqgemm_kernel_sorts_past_shared_memory(card):
+    """B = 20,000 and 10,002 (not a multiple of 8) positions do not fit a
+    block's shared memory: the grouping sorts in a global scratch
+    instead, each block's slice on an aligned boundary."""
+    for B, seed in ((20_000, 23), (10_002, 27)):
+        ids = _bench_ids(card, B, seed)[[0, 5, 9]].contiguous()
+        g = init.normal(make_generator(seed + 1, card), (3, B, 8), 1.0)
+        _check_eqgemm(ids, g)
 
 
 @pytest.mark.cuda
