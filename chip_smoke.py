@@ -286,16 +286,16 @@ LAZY_ROWS_PER_STEP = SPARSE_ARMS[2][3]
 TILE_SOURCES = {n: "satrans_torch/csrc/meta_stash_" + (
     "bwd.cuh" if "bwd" in n else "fwd.cuh") for n in (
     "meta_block_fwd_stash", "meta_block_fwd_stash_light",
-    "meta_block_fwd_scores", "meta_block_bwd_stash",
+    "meta_block_fwd_scores", "tiled_meta_fwd_stash", "meta_block_bwd_stash",
     "meta_block_bwd", "meta_block_bwd_stash_light", "tiled_meta_bwd",
     "tiled_meta_bwd_stash")}
 # the tile bodies (csrc/meta_stash_fwd.cuh, csrc/meta_stash_bwd.cuh) by
-# kernel, mode (enum StashMode) and K7 (the backward's TILED), as the JSON
-# line names them
+# kernel, mode (enum StashMode) and K7 (TILED), as the JSON line names them
 TILE_BODIES = {
     ("meta_stash_fwd_kernel", 1, False): "meta_block_fwd_stash",
     ("meta_stash_fwd_kernel", 2, False): "meta_block_fwd_stash_light",
     ("meta_stash_fwd_kernel", 3, False): "meta_block_fwd_scores",
+    ("meta_stash_fwd_kernel", 1, True): "tiled_meta_fwd_stash",
     ("meta_stash_bwd_kernel", 0, False): "meta_block_bwd",
     ("meta_stash_bwd_kernel", 1, False): "meta_block_bwd_stash",
     ("meta_stash_bwd_kernel", 2, False): "meta_block_bwd_stash_light",
@@ -376,7 +376,8 @@ def _residual_floats(F, d, heads, stash="full"):
 
 
 def meta_layer_bound_ms(B, F, d, h, heads, meta_rows, apply_q, apply_k,
-                        stash=None, h2=0, tiled_meta=False):
+                        stash=None, h2=0, occupied=None,
+                        tensor_cores=True):
     """Least time for one layer forward: its float32 FMA work, and its
     bytes (x in, y out, dom and the weights read once; with ``stash``
     'full' or 'light' the residuals of K1-stash or K1-stash light
@@ -384,16 +385,21 @@ def meta_layer_bound_ms(B, F, d, h, heads, meta_rows, apply_q, apply_k,
     integer work (about 46 k operations an example, 11 us at B=8192 over
     the card's 33.5 T int32 operations a second) is under a fifth of the
     float time and left out.  ``h2`` is a 3-matrix MetaNet's second hidden
-    width (0: 2 matrices).  K1's stash modes run the tile bodies, whose
-    products (all but q k^T and p v) are 3xTF32 on the tensor cores; K1-fwd
-    and K7 (``tiled_meta``) run every product on the CUDA cores.  Returns
-    (ms, bound_by)."""
-    nbytes = 4 * (2 * B * F * d + B + _weight_floats(d, h, meta_rows, h2))
+    width (0: 2 matrices).  The stash modes (K1's and K7-stash) run the
+    tile bodies, whose products (all but q k^T and p v) are 3xTF32 on the
+    tensor cores; K1-fwd and K7-fwd, and the count with ``tensor_cores``
+    False, run every product on the CUDA cores.  K7-stash computes the
+    ``occupied`` slots of its ``B`` (x read, the work) and writes y and
+    the residuals of all ``B`` (zeros on the slack slots).  Returns (ms,
+    bound_by)."""
+    n = B if occupied is None else occupied
+    nbytes = 4 * (n * F * d + B * F * d + n
+                  + _weight_floats(d, h, meta_rows, h2))
     if stash:
         nbytes += 4 * B * _residual_floats(F, d, heads, stash)
     flops = _layer_flops(F, d, h, apply_q, apply_k, h2)
-    mma = flops - 4 * F * F * d if stash and not tiled_meta else 0
-    return _bound(B * flops, nbytes, B * mma)
+    mma = flops - 4 * F * F * d if stash and tensor_cores else 0
+    return _bound(n * flops, nbytes, n * mma)
 
 
 def meta_layer_bwd_bound_ms(B, F, d, h, heads, meta_rows, apply_q, apply_k,
@@ -588,7 +594,11 @@ def drop_kw(rate):
 
 def _tile_body(mangled: str):
     """The JSON name of a tile body's mangled kernel name (``_3mat`` for a
-    3-matrix MetaNet), or None for another kernel."""
+    3-matrix MetaNet; K6-bwd's body ``gate_block_bwd``, ``_bilinear`` for
+    the bilinear map), or None for another kernel."""
+    if "gate_stash_bwd_kernel" in mangled:
+        return "gate_block_bwd" + (
+            "_bilinear" if re.findall(r"Lb(\d)E", mangled) == ["1"] else "")
     for (kernel, mode, tiled), name in TILE_BODIES.items():
         if kernel in mangled:
             d, h, h2, heads, m = map(int, re.findall(r"Li(\d+)E", mangled))
@@ -607,7 +617,7 @@ def tile_body_report():
     from satrans_torch.ops import _build, meta_block
     import ctypes
     report = {}
-    for src in ("meta_block_fwd", "meta_block_bwd"):
+    for src in ("meta_block_fwd", "meta_block_bwd", "gate_block_bwd"):
         body = None
         for ln in _build.log(src).splitlines():
             if "Compiling entry function" in ln or \
@@ -636,22 +646,31 @@ def tile_body_report():
     bwd_smem = meta_block.kernel_fn(
         "meta_block_bwd", "satrans_meta_block_bwd_stash_smem",
         [ctypes.c_int] * 5)
-    for (kernel, mode, _), name in TILE_BODIES.items():
-        for h2, suffix in ((0, ""), (64, "_3mat")):
-            r = report.setdefault(name + suffix, {})
-            r["smem_bytes"] = {F: (fwd_smem(32, 64, h2, 4, F, mode)
+    gate_smem = meta_block.kernel_fn(
+        "gate_block_bwd", "satrans_gate_block_bwd_smem", [ctypes.c_int] * 5)
+    bodies = [(name + suffix, {F: (fwd_smem(32, 64, h2, 4, F, mode)
                                    if "fwd" in kernel else
                                    bwd_smem(32, 64, h2, 4, F))
-                               for F in (19, 15)}
-            print(f"tile body {name + suffix}: {r.get('registers')} "
-                  f"registers, spill stores {r.get('spill_store_bytes')} B "
-                  f"and loads {r.get('spill_load_bytes')} B, dynamic shared "
-                  f"memory {r['smem_bytes'][19]} B at F=19 and "
-                  f"{r['smem_bytes'][15]} B at F=15, {r.get('sass_hmma')} "
-                  f"HMMA instructions in its SASS", flush=True)
-            check(r.get("sass_hmma", 0) > 0 and "registers" in r,
-                  f"the tile body {name + suffix} has no tensor-core "
-                  f"instruction in its SASS, or no ptxas line: {r}")
+                               for F in (19, 15)})
+              for (kernel, mode, _), name in TILE_BODIES.items()
+              for h2, suffix in ((0, ""), (64, "_3mat"))]
+    # K6-bwd's body with the 4-row tables of the gate phase
+    bodies += [(name, {F: gate_smem(32, 4, 4, bilinear, F)
+                       for F in (19, 15)})
+               for bilinear, name in ((0, "gate_block_bwd"),
+                                      (1, "gate_block_bwd_bilinear"))]
+    for name, smem in bodies:
+        r = report.setdefault(name, {})
+        r["smem_bytes"] = smem
+        print(f"tile body {name}: {r.get('registers')} registers, spill "
+              f"stores {r.get('spill_store_bytes')} B and loads "
+              f"{r.get('spill_load_bytes')} B, dynamic shared memory "
+              f"{smem[19]} B at F=19 and {smem[15]} B at F=15, "
+              f"{r.get('sass_hmma')} HMMA instructions in its SASS",
+              flush=True)
+        check(r.get("sass_hmma", 0) > 0 and "registers" in r,
+              f"the tile body {name} has no tensor-core instruction in its "
+              f"SASS, or no ptxas line: {r}")
     return report
 
 
@@ -1720,16 +1739,20 @@ def sparse_training_phase(dev, card):
 
 
 def gate_layer_bound_ms(B, F, d, heads, meta_rows, variant, apply_q,
-                        apply_k, bwd=False):
-    """Least time for K6-fwd, or with ``bwd`` K6-bwd: the float32 work
-    over the card's float32 peak against the bytes over the HBM rate.
-    The forward is x @ Wqkv (2F d 3d), the transform (the gate F d a
-    projection, the bilinear map 2F d dh), q k^T and p v (2 x 2F^2 d) and
-    o @ Wout (2F d^2); the backward recomputes it and adds dWout and do
-    (2 x 2F d^2), the attention backward (4 x 2F^2 d), the transform's
-    (the gate 3F d a projection, the bilinear map 2 x 2F d dh) and dWqkv
-    and dx (2 x 6F d^2).  Bytes are x (and g) and dom in, y (dx) out, the
-    weights and tables in (and their gradients out)."""
+                        apply_k, bwd=False, tensor_cores=True):
+    """Least time for K6-fwd, or with ``bwd`` K6-bwd: the work over the
+    card's peak for its kind against the bytes over the HBM rate.  The
+    forward is x @ Wqkv (2F d 3d), the transform (the gate F d a
+    projection, the bilinear map 2F d dh), q k^T and p v (2 x 2F^2 d), o @
+    Wout (2F d^2) and LN_o (8F d); the backward recomputes it and adds
+    dWout and do (2 x 2F d^2), the attention backward (4 x 2F^2 d), the
+    transform's (the gate 3F d a projection, the bilinear map 2 x 2F d dh),
+    LN_o's (10F d) and dWqkv and dx (2 x 6F d^2).  K6-bwd runs on a tile
+    body whose products (x Wqkv, o Wout, dWout, do, dWqkv, dx) are 3xTF32 on
+    the tensor cores, the rest float32 on the CUDA cores (``tensor_cores``
+    False: every operation on the CUDA cores, K6-fwd's case).  Bytes are x
+    (and g) and dom in, y (dx) out, the weights and tables in (and their
+    gradients out)."""
     dh = d // heads
     width = d if variant == "gate" else d * dh
     if variant == "gate":
@@ -1737,12 +1760,16 @@ def gate_layer_bound_ms(B, F, d, heads, meta_rows, variant, apply_q,
         fwd_t, bwd_t = n * F * d, n * 3 * F * d
     else:
         fwd_t, bwd_t = 2 * F * d * dh, 4 * F * d * dh
-    fwd = 6 * F * d * d + fwd_t + 4 * F * F * d + 2 * F * d * d
+    fwd_mma = 6 * F * d * d + 2 * F * d * d
+    fwd = fwd_mma + fwd_t + 4 * F * F * d + 8 * F * d
     weights = 4 * d * d + 2 * d + 2 * meta_rows * width
     if not bwd:
         return _bound(B * fwd, 4 * (2 * B * F * d + B + weights))
-    back = 4 * F * d * d + 8 * F * F * d + bwd_t + 12 * F * d * d
-    return _bound(B * (fwd + back), 4 * (3 * B * F * d + B + 2 * weights))
+    back_mma = 4 * F * d * d + 12 * F * d * d
+    back = back_mma + 8 * F * F * d + bwd_t + 10 * F * d
+    mma = fwd_mma + back_mma if tensor_cores else 0
+    return _bound(B * (fwd + back), 4 * (3 * B * F * d + B + 2 * weights),
+                  B * mma)
 
 
 def gate_test_layer(dev, seed, variant):
@@ -1865,17 +1892,21 @@ def gate_kernel_phase(dev):
                                                  variant, *a)
                         bb = gate_layer_bound_ms(B, F, d, heads, rows,
                                                  variant, *a, bwd=True)
+                        cc = gate_layer_bound_ms(B, F, d, heads, rows,
+                                                 variant, *a, bwd=True,
+                                                 tensor_cores=False)
                         line += (f"; K6-fwd kernel_ms={f_ms:.4f} plain_ms="
                                  f"{pf_ms:.4f} bound_ms={fb[0]:.4f} ({fb[1]})"
                                  f"; K6-bwd kernel_ms={b_ms:.4f} plain_ms="
                                  f"{pb_ms:.4f} bound_ms={bb[0]:.4f} "
-                                 f"({bb[1]})")
+                                 f"({bb[1]}; every operation on the CUDA "
+                                 f"cores {cc[0]:.4f})")
                         out[(variant, "fwd", rate)] = dict(
                             ms=f_ms, plain_ms=pf_ms, bound_ms=fb[0],
                             bound_by=fb[1])
                         out[(variant, "bwd", rate)] = dict(
                             ms=b_ms, plain_ms=pb_ms, bound_ms=bb[0],
-                            bound_by=bb[1])
+                            bound_by=bb[1], cuda_core_bound_ms=cc[0])
                     print(line, flush=True)
     # the JSON holds gate QK (serving at 0, training at 0.1), with the
     # other rate's and bilinear's kernel times beside it
@@ -1885,7 +1916,9 @@ def gate_kernel_phase(dev):
                  bilinear_ms=out[("bilinear", "fwd", 0.0)]["ms"]),
         bwd=dict(max_abs_err=worst["bwd"], **out[("gate", "bwd", DROP_RATE)],
                  no_dropout_ms=out[("gate", "bwd", 0.0)]["ms"],
-                 bilinear_ms=out[("bilinear", "bwd", DROP_RATE)]["ms"]))
+                 bilinear_ms=out[("bilinear", "bwd", DROP_RATE)]["ms"],
+                 bilinear_bound_ms=out[("bilinear", "bwd", DROP_RATE)][
+                     "bound_ms"]))
 
 
 def gate_serving(dev, card, variant):
@@ -2493,19 +2526,33 @@ def tiled_kernel_phase(dev, units=UNITS2, cases=None):
             y = tiled_meta.fused_tiled_layer(x, lay, tabs, **kw, **drop)
             st = tiled_meta.launch_fwd(x, *weights, cfg, kargs,
                                        MULTICOL_TILE, stash=True)
+            # the model's path: the occupied slots alone, zeros elsewhere
+            sk = tiled_meta.launch_fwd(x, *weights, cfg, kargs,
+                                       MULTICOL_TILE, stash=True,
+                                       tile_count=plan.tile_count)
             ref = tiled_meta.tiled_layer_reference(
                 x, lay, tabs, **kw, block_b=MULTICOL_TILE, masks=masks,
                 residuals=res)
         torch.cuda.synchronize()
         errs = {"tiled_meta_fwd": (y - ref).abs().max().item()}
         want = (ref, *(res[n] for n in tiled_meta.STASH_RESIDUALS))
+        occ = plan.src >= 0
         errs["tiled_meta_fwd_stash"] = max(
-            (a - b).abs().max().item() for a, b in zip(st, want))
-        for n, a, b in zip(("y",) + tiled_meta.STASH_RESIDUALS, st, want):
+            max((a - b).abs().max().item(), (c[occ] - b[occ]).abs().max()
+                .item()) for a, c, b in zip(st, sk, want))
+        skip_gap = max((a[occ] - c[occ]).abs().max().item()
+                       for a, c in zip(st, sk))
+        for n, a, c, b in zip(("y",) + tiled_meta.STASH_RESIDUALS, st, sk,
+                              want):
             check(bool(torch.isfinite(a).all()) and torch.allclose(
-                a, b, **KERNEL_TOL), f"K7-stash's {n} disagrees with the "
-                f"plain version's (mode={mode} relu_out={relu_out} dropout="
-                f"{rate} pos={pos}, tolerance {KERNEL_TOL})")
+                a, b, **KERNEL_TOL) and torch.allclose(
+                c[occ], b[occ], **KERNEL_TOL), f"K7-stash's {n} disagrees "
+                f"with the plain version's (mode={mode} relu_out="
+                f"{relu_out} dropout={rate} pos={pos}, tolerance "
+                f"{KERNEL_TOL}; every slot and the occupied slots alone)")
+            check(not bool(c[~occ].any()), f"K7-stash with tile_count "
+                  f"left a nonzero {n} on a slack slot")
+        del sk
         check(bool(torch.isfinite(y).all()) and torch.allclose(
             y, ref, **KERNEL_TOL), f"K7-fwd disagrees with the plain "
             f"version (mode={mode} relu_out={relu_out} dropout={rate} "
@@ -2544,7 +2591,9 @@ def tiled_kernel_phase(dev, units=UNITS2, cases=None):
                     f"{n} {e:.3e}" for n, e in errs.items())
                 + f" ({kinks - slack} examples at a kink left out, and the "
                 f"{slack} slack slots, whose gradient is zero); stash vs "
-                f"recompute backward max_abs_diff {gap:.3e}")
+                f"recompute backward max_abs_diff {gap:.3e}; K7-stash on "
+                f"the occupied slots vs every slot max_abs_diff "
+                f"{skip_gap:.3e}, its slack slots zero")
         if mode == "QK" and not relu_out and not pos:
             # the serving (0) and training (0.1) configurations
             with torch.no_grad():
@@ -2553,15 +2602,27 @@ def tiled_kernel_phase(dev, units=UNITS2, cases=None):
                     iters=10)
                 for stash, name in ((False, "tiled_meta_fwd"),
                                     (True, "tiled_meta_fwd_stash")):
+                    # K7-stash on the model's path (tile_count) and on
+                    # every slot
                     ms = time_ms(lambda: tiled_meta.launch_fwd(
                         x, *weights, cfg, kargs, MULTICOL_TILE,
-                        stash=stash), iters=50)
+                        stash=stash, tile_count=plan.tile_count), iters=50)
                     b_ms, b_by = meta_layer_bound_ms(
                         plan.n_slots, F, d, h, heads, T, 1, 1,
                         stash="full" if stash else None, h2=h2,
-                        tiled_meta=True)
+                        occupied=occupied if stash else None)
                     out[(name, rate)] = dict(ms=ms, plain_ms=p_ms,
                                              bound_ms=b_ms, bound_by=b_by)
+                    if stash:
+                        out[(name, rate)].update(
+                            every_slot_ms=time_ms(
+                                lambda: tiled_meta.launch_fwd(
+                                    x, *weights, cfg, kargs, MULTICOL_TILE,
+                                    stash=True), iters=50),
+                            cuda_core_bound_ms=meta_layer_bound_ms(
+                                plan.n_slots, F, d, h, heads, T, 1, 1,
+                                stash="full", h2=h2,
+                                tensor_cores=False)[0])
             xr = x.detach().requires_grad_(True)
             tr = tabs["Q"].detach().requires_grad_(True)
             inputs = [xr, tr, *lay.parameters()]
@@ -2600,7 +2661,10 @@ def tiled_kernel_phase(dev, units=UNITS2, cases=None):
                 f"{out[(n, rate)]['bound_ms']:.4f}" for n in K7_NAMES) + (
                 "; on every slot (no tile_count) " + ", ".join(
                     f"{n} {out[(n, rate)]['every_slot_ms']:.4f} ms"
-                    for n in K7_NAMES[2:])
+                    for n in K7_NAMES[1:])
+                + "; K7-stash's bound with every slot's products on the "
+                "CUDA cores " + format(out[("tiled_meta_fwd_stash", rate)][
+                    "cuda_core_bound_ms"], ".4f") + " ms"
                 + "; " + ", ".join(
                     f"{n} split {out[(n, rate)]['split_tiles']} boundary "
                     f"tiles between two of its {grid} blocks"
@@ -3685,12 +3749,15 @@ def main() -> int:
              kg["bwd"])), gate_err):
         fields = dict(fields, max_abs_err=max(fields["max_abs_err"], err))
         by_path = {p: n[name] for p, n in gpaths.items() if n.get(name)}
+        body = dict(tile.get(name, {}))
+        if name in tile:
+            body["bilinear_body"] = tile[name + "_bilinear"]
         kernels.append(dict(
             name=name, route="cuda",
             source=f"satrans_torch/csrc/{name}.cu",
             replaces=f"satrans_tpu/ops/pallas/{replaces}",
             launches=sum(by_path.values()), launches_by_path=by_path,
-            library_ms=None, **fields))
+            library_ms=None, **fields, **body))
     # K7 runs on the multicol paths of phase 11
     for name, replaces in zip(K7_NAMES, (
             "141 (_fwd_kernel; _fwd_call :521, pallas_call :546)",

@@ -69,11 +69,17 @@ struct ExampleDraw {
     return drop_bits(idx, seed_mix, salt) >= d.threshold ? d.scale : 0.f;
   }
 
+  // Whether probability (i, j) of the head with draw salt is kept.
+  __device__ __forceinline__ bool attn_kept(const Dropout& d, unsigned salt,
+                                            int i, int j) const {
+    const unsigned idx = (arow0 + i) * n + acol0 + j;
+    return drop_bits(idx, seed_mix, salt) >= d.threshold;
+  }
+
   // Multiplier of probability (i, j) of the head with draw salt.
   __device__ __forceinline__ float attn(const Dropout& d, unsigned salt,
                                         int i, int j) const {
-    const unsigned idx = (arow0 + i) * n + acol0 + j;
-    return drop_bits(idx, seed_mix, salt) >= d.threshold ? d.scale : 0.f;
+    return attn_kept(d, salt, i, j) ? d.scale : 0.f;
   }
 };
 

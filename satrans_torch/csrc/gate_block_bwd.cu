@@ -2,7 +2,7 @@
 // float32, with the in-kernel dropout (K6-bwd).
 //
 // Replaces the TPU kernel _sbwd_kernel of
-// satrans_tpu/ops/pallas/gate_block.py (:131, with _transform_bwd :82),
+// satrans_tpu/ops/pallas/gate_block.py (:131, with _transform_bwd :79),
 // launched by _sbwd_call (:303) through pl.pallas_call (:318).  It
 // recomputes the forward of csrc/gate_block_fwd.cu on chip (the Pallas
 // variant has no stash):
@@ -24,71 +24,78 @@
 // table gradient is zero.  The logit clamp passes the gradient as if it
 // were not there, as the Pallas custom VJP's does.  The masks are
 // regenerated in the forward's draw order (csrc/dropout.cuh, salts
-// 0..H-1 for the heads and H for the output): dv takes P m, dS takes
+// 0..H-1 for the heads and H for the output, keyed on each example's own
+// index in the batch, never its sorted place): dv takes P m, dS takes
 // dP m, and dz = du m_z relu'.
 //
-// What bounds it.  Per example at the AliCCP sota shapes (F=19, d=32,
+// What bounds it.  Per example at the AliCCP sota shapes (F = 19, d = 32,
 // 4 heads) the recomputed forward is about 0.2 MFLOP and the backward
 // about 0.45 MFLOP (dWout and do 78k, the attention backward 92k, dWqkv
-// and dx 233k, the transform 1-20k) against 7.3 kB of x, g and dx: it is
-// bound by float32 FMA throughput.
+// and dx 233k, the transform 1-20k) against 7.3 kB of x, g and dx.  Its
+// products (all but the attention's and the transform's) are 3xTF32 on
+// the tensor cores; the attention is float32 on the CUDA cores.  The
+// two-example body this kernel first ran on (deleted) took 0.60 ms at B =
+// 8192 on the H100: 256 threads a block on tiles of two examples with a
+// block barrier after every phase, every product on the CUDA cores with 19
+// rows over 32 row slots, the weights read through L1 by every example,
+// transposed weight copies made each backward, the per-domain table sums
+// read and written in L2 once an example, and the bilinear map re-read
+// for every row.
 //
-// Design: K1-bwd's (csrc/meta_block_bwd.cu), with its device code
-// (csrc/layer_common.cuh).  A block of 256 threads works on a tile of two
-// examples, 128 threads on each, and walks over the batch's tiles with a
-// grid stride; two blocks per SM.  The per-example
-// phases give a thread a register tile of 4 columns x a few rows and meet
-// at block barriers.  Each block sums the parameter gradients of the
-// examples it visits in sums of its own, each element owned by one
-// thread, so the order of the sums is fixed and no atomics are needed:
-// dWqkv and dWout in shared memory, LN_o's in registers, the per-domain
-// table gradients in the block's slice of a scratch buffer in global
-// memory (L2).  A second small kernel adds the slices in block order, so
-// the result is deterministic for a given grid.  Shared memory holds the
-// dense sums and two examples' x, q0|k0|v0, the transformed q|k, the
-// attention output, the probabilities and the gradient rows: 81 kB at
-// F=19.
+// Design: the tile body of the layer backward (csrc/meta_stash_bwd.cuh),
+// on its primitives (csrc/stash_tile.cuh) and per-pair attention passes
+// (csrc/layer_common.cuh), with the gate or bilinear transform where that
+// body has its MetaNets and their LayerNorms.  A block of 384 threads,
+// one an SM, walks a contiguous range of the batch in tiles of E = 96 / F
+// examples (the forward tile body's 12 warps: its buffers, without the
+// MetaNets', leave room for them), sorted by domain row in windows of 256
+// (sort_window), so that each domain's rows are one segment of a tile.  Every product runs on the
+// tensor cores in 3xTF32 (block_gemm) with Wqkv and Wout in shared memory
+// in float32, staged once a block and read transposed where the backward
+// needs W^T: no transposed copies.  dWqkv and dWout are sums over rows in
+// 16 x 8 tiles each warp owns in registers (WTiles, each tile's products
+// summed in a fresh accumulator).  The tables of every domain (at most
+// kMaxDomains rows, 2 x 4 kB for the gate, 16 kB for the bilinear maps)
+// are staged in shared memory once a block, so the transform reads each
+// row's own domain there.  The table gradients are summed over a
+// segment's rows by one thread an element, in registers, and added into
+// the block's slice of the scratch buffer once a segment; the LayerNorm
+// sums are per-thread column sums; sum_partials adds the slices in block
+// order, so the result is deterministic for a grid.  The transform and its
+// backward (a few k operations an example) stay float32 on the CUDA cores,
+// as in K6-fwd.  The attention dropout's keep bits are drawn once a tile,
+// a word a (head, row), and the three passes that apply them read the
+// bits (drawing them in each pass cost 0.11 ms of 0.51 at B = 8192,
+// dropout 0.1 on the H100).
+// x comes in by 16-byte cp.async copies, the next tile's as soon as this
+// tile's dWqkv has read it; dx goes out from the product's registers in
+// the batch's order.  Shared memory at F = 19 with 4 table rows: 199 kB
+// (gate), 202 kB (bilinear); 215 kB with 16 bilinear rows.
 //
-// The kernel launches on the caller's stream, allocates nothing and does
-// not synchronise; the C entry returns cudaGetLastError().
+// The kernels launch on the caller's stream, allocate nothing and do not
+// synchronise; the C entry returns cudaGetLastError().
 
 #include <cuda_runtime.h>
 
 #include <cmath>
+#include <type_traits>
 
-#include "layer_common.cuh"
+#include "stash_tile.cuh"
 
 namespace {
 
-constexpr int kThreads = 256;             // two blocks per SM
-constexpr int kTile = 2;                  // examples per block iteration
-constexpr int kGroup = kThreads / kTile;  // threads per example
-constexpr int kLnRows = 2;                // LN_o's (scale, bias)
-constexpr int kMaxSmem = 232448;          // bytes a block may use on sm_90
-constexpr int kMaxDomains = 16;           // bounds the scratch buffer
-
-// Row strides (floats) of the shared buffers; +4 shifts rows by 4 banks.
-template <int DM>
-struct Strides {
-  static constexpr int XS = DM + 4;      // x; o, then do
-  static constexpr int QS = 3 * DM + 4;  // q0|k0|v0, and dz, then dq|dk|dv
-  static constexpr int NS = 2 * DM + 4;  // the transformed q|k
-  static constexpr int kDense = 4 * DM * DM;  // dWqkv then dWout
-};
-
-// Floats of one tile's working buffers (also the end-of-kernel scratch).
-template <int DM, int NH>
-__host__ __device__ int work_floats(int F) {
-  using S = Strides<DM>;
-  const int R = kTile * F;
-  const int n = R * (2 * S::XS + 2 * S::QS + S::NS) + kTile * NH * F * F;
-  return n > kThreads * kLnRows * 4 ? n : kThreads * kLnRows * 4;
-}
-
-template <int DM, int NH>
-__host__ __device__ int smem_bytes(int F) {
-  return sizeof(float) * (Strides<DM>::kDense + work_floats<DM, NH>(F));
-}
+// the body's tile: E = kRows / F examples, a thread a (head, row) pair of
+// its attention, 8 threads a row in the epilogues.  96 rows on 12 warps
+// (the forward tile body's) ran faster than 80 rows on 10 on the H100:
+// the attention passes run a thread a pair, and 12 warps hide more of
+// their latency.
+constexpr int kRows = kWideTileRows;
+constexpr int kThreads = 4 * kRows;
+constexpr int kPass = kThreads / kRowThreads;  // rows an epilogue pass
+static_assert(kRows % kPass == 0, "whole passes");
+constexpr int kLnRows = 2;         // LN_o's (scale, bias)
+constexpr int kMaxSmem = 232448;   // bytes a block may use on sm_90
+constexpr int kMaxDomains = 16;    // the staged tables' rows
 
 // A table row's width: the gate's d, or the bilinear maps' H * dh * dh.
 template <int DM, int NH, bool BILINEAR>
@@ -96,363 +103,431 @@ __host__ __device__ constexpr int table_width() {
   return BILINEAR ? DM * (DM / NH) : DM;
 }
 
+// The gradient buffer (and each block's slice of the scratch): dWqkv |
+// dWout | LN_o (scale row, bias row) | dTQ [D][T] | dTK [D][T].
 template <int DM, int NH, bool BILINEAR>
-__host__ __device__ int grad_floats(int D) {  // the block's partial sums
-  return Strides<DM>::kDense + kLnRows * DM +
+__host__ __device__ int grad_floats(int D) {
+  return 4 * DM * DM + kLnRows * DM +
          2 * D * table_width<DM, NH, BILINEAR>();
 }
 
-struct Args {
-  const float *x, *g, *wqkv, *wqkvT, *tq, *tk, *wout, *woutT, *lno;
+struct GateBwdArgs {
+  const float *x, *g, *wqkv, *tq, *tk, *wout, *lno;
   const int* dom;
   float *dx, *partial;
-  int B, F, D, apply_q, apply_k, relu_out;
+  int B, F, D, chunk, apply_q, apply_k, relu_out;
   Dropout drop;
 };
 
+// Shared layout of the body, in floats after the header (kTileHeader): row
+// strides (+4 shifts an A operand's rows by four banks, +8 a B operand's
+// by eight) and region offsets; the tables last, sized by D.
 template <int DM, int NH, bool BILINEAR>
-__global__ void __launch_bounds__(kThreads, 2)
-gate_block_bwd_kernel(const Args a) {
-  using S = Strides<DM>;
-  using TD = Tile<DM, kGroup>;
-  constexpr int DH = DM / NH;
-  constexpr int T = table_width<DM, NH, BILINEAR>();
+struct GateTile {
+  static constexpr int T = table_width<DM, NH, BILINEAR>();
+  static constexpr int kTables = BILINEAR ? 1 : 2;  // TQ (and TK)
+  static constexpr int WQ = 3 * DM + 8, WO = DM + 8;
+  static constexpr int XS = DM + 4, QS = 3 * DM + 4, NS = 2 * DM + 4,
+                       OS = DM + 4, DS = 3 * DM + 4;
+  static constexpr int oWqkv = 0, oWout = oWqkv + DM * WQ,
+                       oX = oWout + DM * WO, oQKV = oX + kRows * XS,
+                       oN = oQKV + kRows * QS, oO = oN + kRows * NS,
+                       oD = oO + kRows * OS, oDU = oD + kRows * DS,
+                       oG = oDU + kRows * XS;
+  // the probabilities of the tile's examples
+  static __host__ __device__ int g_floats(int F) {
+    return (tile_examples(F, kRows) * NH * F * F + 3) & ~3;
+  }
+  // then the attention dropout's keep bits (a word a head and row), then
+  // the tables
+  static __host__ __device__ int oBits(int F) { return oG + g_floats(F); }
+  static __host__ __device__ int oTab(int F) {
+    return oBits(F) + kRows * NH;
+  }
+  static __host__ __device__ int bytes(int F, int D) {
+    return kTileHeader + 4 * (oTab(F) + kTables * D * T);
+  }
+};
+
+template <int DM, int NH, bool BILINEAR>
+__global__ void __launch_bounds__(kThreads, 1)
+    gate_stash_bwd_kernel(const GateBwdArgs a) {
+  using L = GateTile<DM, NH, BILINEAR>;
+  constexpr int DH = DM / NH, T = L::T;
+  static_assert(DM == 4 * kRowThreads, "epilogues take rows of 32");
   static_assert(DM % NH == 0 && DH % 4 == 0, "head width must be 4k");
 
-  extern __shared__ float4 smem4[];
-  const int t = threadIdx.x, slot = t / kGroup, gt = t % kGroup;
-  const int F = a.F, D = a.D, R = kTile * F;
+  extern __shared__ __align__(16) unsigned char smem[];
+  const TileHeader hd(smem);
+  int *const order = hd.order, *const wdom = hd.wdom, *const key = hd.key;
+  const int tid = threadIdx.x;
+  const int F = a.F, E = tile_examples(F, kRows), D = a.D;
+  float* f0 = reinterpret_cast<float*>(smem + kTileHeader);
+  float* sWqkv = f0 + L::oWqkv;
+  float* sWout = f0 + L::oWout;
+  float* sX = f0 + L::oX;
+  float* sQKV = f0 + L::oQKV;  // q0|k0|v0
+  float* sN = f0 + L::oN;      // q|k after their transforms
+  float* sO = f0 + L::oO;      // o, then do
+  float* sD = f0 + L::oD;      // dz (cols 0..DM), zlin (2DM..); dq|dk|dv
+  float* sDU = f0 + L::oDU;    // the outer LayerNorm's du
+  float* sG = f0 + L::oG;      // P, then dS
+  // the keep bits of the attention dropout, [E][NH][F] words
+  unsigned* sBits = reinterpret_cast<unsigned*>(f0 + L::oBits(F));
+  float* sTab = f0 + L::oTab(F);  // TQ [D][T], then TK [D][T]
+  // the transforms draw no dropout: the heads' salts 0..H-1, the output's H
+  const DropSalts salt(0, 0, NH);
+  // which of q and k are transformed (the bilinear map: q alone)
+  const bool on[2] = {BILINEAR || a.apply_q != 0,
+                      !BILINEAR && a.apply_k != 0};
 
-  // Shared: dWqkv [DM][3DM] | dWout [DM][DM] sums, then the tile's
-  // working buffers, rows r = slot * F + f.  Global, the block's slice of
-  // the scratch buffer: the per-domain dTQ and dTK sums, each [D][T],
-  // after the dense and LayerNorm sums.
-  float* acc = reinterpret_cast<float*>(smem4);
+  // the block's slice: dense | LN_o | dTQ | dTK
   float* out = a.partial + static_cast<size_t>(blockIdx.x) *
                                grad_floats<DM, NH, BILINEAR>(D);
-  float* acc_dom = out + S::kDense + kLnRows * DM;
-  float* sX = acc + S::kDense;
-  float* sQKV = sX + R * S::XS;
-  float* sN = sQKV + R * S::QS;  // q|k after their transforms
-  float* sH = sN + R * S::NS;    // o, then do
-  float* sP = sH + R * S::XS;    // [kTile][NH][F][F]: P, then dS
-  float* sD = sP + kTile * NH * F * F;  // dz, then dq|dk|dv, then dq0|dk0
-  for (int i = t; i < S::kDense; i += kThreads) acc[i] = 0.f;
-  for (int i = t; i < 2 * D * T; i += kThreads) acc_dom[i] = 0.f;
+  float* tab_out = out + 4 * DM * DM + kLnRows * DM;
 
+  stage_matrix<DM, 3 * DM>(sWqkv, L::WQ, a.wqkv);
+  stage_matrix<DM, DM>(sWout, L::WO, a.wout);
+#pragma unroll
+  for (int w = 0; w < L::kTables; ++w)
+    if (on[w]) {
+      const float* tab = w ? a.tk : a.tq;
+      for (int i = tid; i < D * T / 4; i += kThreads)
+        cp_async16(sTab + w * D * T + 4 * i, tab + 4 * i);
+    }
+  for (int i = tid; i < 2 * D * T; i += kThreads) tab_out[i] = 0.f;
+  cp_async_wait_all();
+  __syncthreads();
+
+  const int lo = blockIdx.x * a.chunk, hi = min(a.B, lo + a.chunk);
+  WTiles<DM, 3 * DM, kThreads / 32> dwqkv;
+  WTiles<DM, DM, kThreads / 32> dwout;
+  dwqkv.zero();
+  dwout.zero();
   float ln_acc[kLnRows][4];
 #pragma unroll
   for (int j = 0; j < kLnRows; ++j) {
 #pragma unroll
-    for (int c = 0; c < 4; ++c) ln_acc[j][c] = 0.f;
+    for (int k = 0; k < 4; ++k) ln_acc[j][k] = 0.f;
   }
-  const int cgd = gt % TD::LPR, rsd = gt / TD::LPR, cold = 4 * cgd;
-  const int tiles = (a.B + kTile - 1) / kTile;
-  const DropSalts salt(0, 0, NH);
-  __syncthreads();
+  const auto load_x = [&](const int* ex, int n) {
+    load_rows<DM>(sX, L::XS, a.x, ex, n, F);
+    cp_async_commit();
+  };
+  // the row epilogues: 8 threads a row of 32, rows rb + tid / 8
+  const int c = 4 * (tid % kRowThreads);
 
 #pragma unroll 1
-  for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
-    const int e0 = tile * kTile;
-    const int nvalid = min(kTile, a.B - e0);
-    const int ex = e0 + slot;
-    // live is uniform over the group's four whole warps, so the shuffles
-    // inside stay full-warp
-    const bool live = slot < nvalid;
-    int doms[kTile];
-#pragma unroll
-    for (int e = 0; e < kTile; ++e)
-      doms[e] = e < nvalid ? min(max(a.dom[e0 + e], 0), D - 1) : 0;
-    const int dm = doms[slot];
-    float* X = sX + slot * F * S::XS;
-    float* QKV = sQKV + slot * F * S::QS;
-    float* Nm = sN + slot * F * S::NS;
-    float* H = sH + slot * F * S::XS;
-    float* P = sP + slot * NH * F * F;
-    float* Dg = sD + slot * F * S::QS;
-    const size_t base = static_cast<size_t>(ex) * F * DM;
-    const ExampleDraw ed(a.drop, ex);
-
-    // F1. x -> shared
-    if (live) {
-      for (int i = gt; i < F * (DM / 4); i += kGroup) {
-        const int f = i / (DM / 4), c = 4 * (i % (DM / 4));
-        *reinterpret_cast<float4*>(X + f * S::XS + c) =
-            ldg4(a.x + base + f * DM + c);
-      }
-    }
-    __syncthreads();
-
-    // F2. q0 | k0 | v0 = x @ [Wq | Wk | Wv]
-    if (live) {
+  for (int w0 = lo; w0 < hi; w0 += kWindow) {
+    const int nw = min(kWindow, hi - w0);
+    sort_window(a.dom, w0, nw, D, order, wdom, key);
+    const int ntiles = (nw + E - 1) / E;
+    load_x(order, min(E, nw));
 #pragma unroll 1
-      for (int part = 0; part < 3; ++part) {
-        float o[TD::RPL][4];
-        tile_gemm<kGroup, DM, DM>(X, S::XS, a.wqkv + part * DM, 3 * DM, F,
-                                  gt, o);
-#pragma unroll
-        for (int i = 0; i < TD::RPL; ++i) {
-          const int f = rsd + TD::RS * i;
-          if (f < F) st4(QKV + f * S::QS + part * DM + cold, o[i]);
-        }
-      }
-    }
-    __syncthreads();
+    for (int ti = 0; ti < ntiles; ++ti) {
+      const int* ex = order + ti * E;
+      const int* dm = wdom + ti * E;
+      const int n = min(E, nw - ti * E), R = n * F, mt = (R + 15) / 16;
+      cp_async_wait<0>();
+      tile_draws(hd.draws, a.drop, ex, n);
+      __syncthreads();
 
-    // F3. The transforms: q|k -> N (an unapplied projection copied).
-    if (live) {
-#pragma unroll 1
-      for (int w = 0; w < 2; ++w) {
-        const bool on = BILINEAR ? w == 0 : (w ? a.apply_k : a.apply_q);
-        const float* tab =
-            (w ? a.tk : a.tq) + static_cast<size_t>(dm) * T;
-        float4 gm = make_float4(1.f, 1.f, 1.f, 1.f);  // exact when off
-        if (on && !BILINEAR) {
-          gm = ldg4(tab + cold);
-          gm = make_float4(2.f * gm.x, 2.f * gm.y, 2.f * gm.z, 2.f * gm.w);
-        }
-        const int hh = cold / DH, c0 = cold % DH;
+      // 1. q0|k0|v0 = x @ [Wq|Wk|Wv] -> sQKV
+      block_gemm<DM, 3 * DM, 2>(
+          0, mt, [&](int m, int k) { return sX[m * L::XS + k]; },
+          [&](int k, int cc) { return sWqkv[k * L::WQ + cc]; },
+          [&](int r, int cc, float v0, float v1) {
+            *reinterpret_cast<float2*>(sQKV + r * L::QS + cc) =
+                make_float2(v0, v1);
+          });
+      __syncthreads();
+
+      // 2. The transforms, each row with its own domain's table row: q|k
+      //    -> sN (an unapplied projection copied through); beside them the
+      //    attention dropout's keep bits, a thread a (head, row), drawn
+      //    once for the three passes that apply them
 #pragma unroll
-        for (int i = 0; i < TD::RPL; ++i) {
-          const int f = rsd + TD::RS * i;
-          if (f >= F) continue;
+      for (int rb = 0; rb < kRows; rb += kPass) {
+        const int r = rb + tid / kRowThreads;
+        if (r >= R) continue;
+        const int d = dm[r / F];
+#pragma unroll
+        for (int w = 0; w < 2; ++w) {
+          const float* t0 = sQKV + r * L::QS + w * DM;
           float v[4];
-          if (BILINEAR && on) {
+          if (!on[w]) {
+            to4(ld4(t0 + c), v);
+          } else if (BILINEAR) {
+            // q[h dh + c0 + j] = sum_k q0[h dh + k] TQ[d][h][k][c0 + j]
+            const int hh = c / DH, c0 = c % DH;
+            const float* m = sTab + d * T + hh * DH * DH + c0;
             v[0] = v[1] = v[2] = v[3] = 0.f;
 #pragma unroll
             for (int k = 0; k < DH; ++k) {
-              const float4 m = ldg4(tab + hh * DH * DH + k * DH + c0);
-              const float q = QKV[f * S::QS + hh * DH + k];
-              v[0] = fmaf(q, m.x, v[0]);
-              v[1] = fmaf(q, m.y, v[1]);
-              v[2] = fmaf(q, m.z, v[2]);
-              v[3] = fmaf(q, m.w, v[3]);
+              const float q = t0[hh * DH + k];
+              const float4 mk = ld4(m + k * DH);
+              v[0] = fmaf(q, mk.x, v[0]);
+              v[1] = fmaf(q, mk.y, v[1]);
+              v[2] = fmaf(q, mk.z, v[2]);
+              v[3] = fmaf(q, mk.w, v[3]);
             }
           } else {
-            const float4 r = ld4(QKV + f * S::QS + w * DM + cold);
-            v[0] = r.x * gm.x;
-            v[1] = r.y * gm.y;
-            v[2] = r.z * gm.z;
-            v[3] = r.w * gm.w;
+            const float4 t = ld4(t0 + c);
+            const float4 gm = ld4(sTab + (w * D + d) * T + c);
+            v[0] = t.x * (2.f * gm.x);
+            v[1] = t.y * (2.f * gm.y);
+            v[2] = t.z * (2.f * gm.z);
+            v[3] = t.w * (2.f * gm.w);
           }
-          st4(Nm + f * S::NS + w * DM + cold, v);
+          st4(sN + r * L::NS + w * DM + c, v);
         }
       }
-    }
-    __syncthreads();
+      if (a.drop.on)
+        for_pairs<NH>(n, F, [&](int s, int hh, int i) {
+          sBits[(s * NH + hh) * F + i] =
+              attn_keep_row(a.drop, hd.draws[s], salt.s + hh, i, F);
+        });
+      __syncthreads();
+      // the multipliers of example s's head hh
+      const auto keep = [&](int s, int hh) {
+        return AttnBits{sBits + (s * NH + hh) * F, a.drop};
+      };
 
-    // F4. Attention (csrc/layer_common.cuh): P (normalised, before
-    //     dropout) and o = (P m_s) v into H.
-    if (live)
-      attention_recompute<DM, NH, kGroup>(Nm, S::NS, QKV + 2 * DM, S::QS, P,
-                                          H, S::XS, F, gt, a.drop, ed,
-                                          salt.s);
-    __syncthreads();
+      // 3. P (before dropout) into sG and o = (P m_s) v into sO, a thread a
+      //    (head, row) pair
+      for_pairs<NH>(n, F, [&](int s, int hh, int i) {
+        attention_recompute_pair<DM, NH>(
+            sN + s * F * L::NS, L::NS, sQKV + s * F * L::QS + 2 * DM, L::QS,
+            sG + s * NH * F * F, sO + s * F * L::OS, L::OS, F, hh, i,
+            keep(s, hh));
+      });
+      __syncthreads();
 
-    // F5. Output: zlin = o @ Wout, u = relu?(zlin) m_z + x, y = LN_o(u);
-    //     with g the outer LayerNorm's backward: du (kept in registers, the
-    //     residual's share of dx) and dz = du m_z relu'(zlin) into Dg.
-    float du[TD::RPL][4];
+      // 4. zlin = o @ Wout (into dv's columns of sD, free until B2), u =
+      //    relu?(zlin) m_z + x, y = LN_o(u); with g the outer LayerNorm's
+      //    backward: du into sDU (the residual's share of dx) and dz =
+      //    du m_z relu'(zlin) into sD's first DM columns
+      block_gemm<DM, DM, 2>(
+          0, mt, [&](int m, int k) { return sO[m * L::OS + k]; },
+          [&](int k, int cc) { return sWout[k * L::WO + cc]; },
+          [&](int r, int cc, float v0, float v1) {
+            *reinterpret_cast<float2*>(sD + r * L::DS + 2 * DM + cc) =
+                make_float2(v0, v1);
+          });
+      __syncthreads();
+      {
+        const float4 so = ldg4(a.lno + c);
 #pragma unroll
-    for (int i = 0; i < TD::RPL; ++i) {
+        for (int rb = 0; rb < kRows; rb += kPass) {
+          const int r = rb + tid / kRowThreads;
+          const bool ok = r < R;
+          const int s = r / F, f = r - s * F;
+          float z[4] = {0.f, 0.f, 0.f, 0.f}, v[4] = {0.f, 0.f, 0.f, 0.f};
+          float mz[4] = {1.f, 1.f, 1.f, 1.f}, gv[4] = {0.f, 0.f, 0.f, 0.f};
+          if (ok) {
+            float xr[4];
+            to4(ld4(sD + r * L::DS + 2 * DM + c), z);
+            to4(ld4(sX + r * L::XS + c), xr);
+            if (a.drop.on) {
+              const ExampleDraw& ed = hd.draws[s];
 #pragma unroll
-      for (int c = 0; c < 4; ++c) du[i][c] = 0.f;
-    }
-    if (live) {
-      float z[TD::RPL][4];
-      tile_gemm<kGroup, DM, DM>(H, S::XS, a.wout, DM, F, gt, z);
-      const float4 so = ldg4(a.lno + cold);
+              for (int j = 0; j < 4; ++j)
+                mz[j] = ed.rows<DM>(a.drop, salt.z, f, c + j);
+            }
 #pragma unroll
-      for (int i = 0; i < TD::RPL; ++i) {
-        const int f = rsd + TD::RS * i;
-        const bool ok = f < F;
-        const float4 xr = ok ? ld4(X + f * S::XS + cold)
-                             : make_float4(0.f, 0.f, 0.f, 0.f);
-        float mz[4] = {1.f, 1.f, 1.f, 1.f};
-        if (a.drop.on) {
+            for (int j = 0; j < 4; ++j)
+              v[j] = (a.relu_out ? fmaxf(z[j], 0.f) : z[j]) * mz[j] + xr[j];
+            to4(ldg4(a.g + (static_cast<size_t>(ex[s]) * F + f) * DM + c),
+                gv);
+          }
+          const float inv = ln_xhat<DM>(v);
+          if (ok) {
 #pragma unroll
-          for (int c = 0; c < 4; ++c)
-            mz[c] = ed.rows<DM>(a.drop, salt.z, f, cold + c);
-        }
-        float v[4];
+            for (int j = 0; j < 4; ++j) {
+              ln_acc[0][j] = fmaf(gv[j], v[j], ln_acc[0][j]);
+              ln_acc[1][j] += gv[j];
+            }
+          }
+          float du[4];
+          ln_bwd<DM>(gv, v, inv, so, du);
+          if (ok) {
+            st4(sDU + r * L::XS + c, du);
+            float dz[4];
 #pragma unroll
-        for (int c = 0; c < 4; ++c)
-          v[c] = (a.relu_out ? fmaxf(z[i][c], 0.f) : z[i][c]) * mz[c];
-        v[0] += xr.x;
-        v[1] += xr.y;
-        v[2] += xr.z;
-        v[3] += xr.w;
-        const float inv = ln_xhat<DM>(v);
-        float gv[4] = {0.f, 0.f, 0.f, 0.f};
-        if (ok) to4(ldg4(a.g + base + f * DM + cold), gv);
-#pragma unroll
-        for (int c = 0; c < 4; ++c) {
-          ln_acc[0][c] = fmaf(gv[c], v[c], ln_acc[0][c]);
-          ln_acc[1][c] += gv[c];
-        }
-        ln_bwd<DM>(gv, v, inv, so, du[i]);
-        if (ok) {
-          float dz[4];
-#pragma unroll
-          for (int c = 0; c < 4; ++c)
-            dz[c] = (a.relu_out && !(z[i][c] > 0.f)) ? 0.f
-                                                      : du[i][c] * mz[c];
-          st4(Dg + f * S::QS + cold, dz);
-        }
-      }
-    }
-    __syncthreads();
-
-    // B1. dWout += o^T dz over the tile's rows, then do = dz @ Wout^T over o.
-    wgrad<kThreads, DM, DM>(sH, S::XS, sD, S::QS, nvalid * F,
-                            acc + 3 * DM * DM, DM, t);
-    __syncthreads();
-    if (live) {
-      float o[TD::RPL][4];
-      tile_gemm<kGroup, DM, DM>(Dg, S::QS, a.woutT, DM, F, gt, o);
-#pragma unroll
-      for (int i = 0; i < TD::RPL; ++i) {
-        const int f = rsd + TD::RS * i;
-        if (f < F) st4(H + f * S::XS + cold, o[i]);
-      }
-    }
-    __syncthreads();
-
-    // B2. Attention backward (csrc/layer_common.cuh): dv, then dS over P
-    //     and dq, then dk, into Dg.
-    attention_bwd<DM, NH, kGroup>(live, P, H, S::XS, QKV + 2 * DM, S::QS, Nm,
-                                  S::NS, Dg, S::QS, F, gt, a.drop, ed, salt.s);
-
-    // B3. The transforms' backward (JAX _transform_bwd), Q then K.  The
-    //     table sums first, each element by one thread over the tile's
-    //     examples in order, from t0 = q0 (or k0) and dt = dq (or dk):
-    //     gate dT[dm][c] += sum_f dt[f][c] t0[f][c] 2; bilinear
-    //     dT[dm][h][k][c] += sum_f t0[f][h dh + k] dt[f][h dh + c].  Then
-    //     dt0 over dt: gate dt TQ[dm] 2; bilinear dt_h @ TQ[dm, h]^T, in
-    //     registers first (a row's head spans two threads).
-#pragma unroll 1
-    for (int w = 0; w < 2; ++w) {
-      if (!(BILINEAR ? w == 0 : (w ? a.apply_k : a.apply_q))) continue;
-      float* accw = acc_dom + w * D * T;
-      for (int el = t; el < T; el += kThreads) {
-        const int col = BILINEAR ? (el / (DH * DH)) * DH + el % DH : el;
-        const int row = BILINEAR ? (el / (DH * DH)) * DH + (el / DH) % DH
-                                 : el;
-#pragma unroll 1
-        for (int e = 0; e < nvalid; ++e) {
-          const float* t0 = sQKV + e * F * S::QS + w * DM;
-          const float* dt = sD + e * F * S::QS + w * DM;
-          float s = 0.f;
-          for (int f = 0; f < F; ++f)
-            s = fmaf(t0[f * S::QS + row], dt[f * S::QS + col], s);
-          accw[doms[e] * T + el] += BILINEAR ? s : 2.f * s;
+            for (int j = 0; j < 4; ++j)
+              dz[j] = (a.relu_out && !(z[j] > 0.f)) ? 0.f : du[j] * mz[j];
+            st4(sD + r * L::DS + c, dz);
+          }
         }
       }
       __syncthreads();
-      float v[TD::RPL][4];
-      const float* tab = (w ? a.tk : a.tq) + static_cast<size_t>(dm) * T;
-      float* dt = Dg + w * DM;
-      if (live) {
-        const int hh = cold / DH, c0 = cold % DH;
-        const float4 gm = BILINEAR ? make_float4(0.f, 0.f, 0.f, 0.f)
-                                   : ldg4(tab + cold);
+
+      // 5. dWout += o^T dz, then do = dz @ Wout^T over o
+      dwout.add(
+          0, R, [&](int r, int m) { return sO[r * L::OS + m]; },
+          [&](int r, int cc) { return sD[r * L::DS + cc]; });
+      __syncthreads();
+      block_gemm<DM, DM, 2>(
+          0, mt, [&](int m, int k) { return sD[m * L::DS + k]; },
+          [&](int k, int cc) { return sWout[cc * L::WO + k]; },
+          [&](int r, int cc, float v0, float v1) {
+            *reinterpret_cast<float2*>(sO + r * L::OS + cc) =
+                make_float2(v0, v1);
+          });
+      __syncthreads();
+
+      // 6. Attention backward, a thread a (head, row) pair in each pass:
+      //    dv, then dS over P and dq, then dk, into sD
+      for_pairs<NH>(n, F, [&](int s, int hh, int j) {
+        attention_bwd_dv<DM, NH>(sG + s * NH * F * F, sO + s * F * L::OS,
+                                 L::OS, sD + s * F * L::DS, L::DS, F, hh, j,
+                                 keep(s, hh));
+      });
+      __syncthreads();
+      for_pairs<NH>(n, F, [&](int s, int hh, int i) {
+        attention_bwd_dq<DM, NH>(
+            sG + s * NH * F * F, sO + s * F * L::OS, L::OS,
+            sQKV + s * F * L::QS + 2 * DM, L::QS, sN + s * F * L::NS, L::NS,
+            sD + s * F * L::DS, L::DS, F, hh, i, keep(s, hh));
+      });
+      __syncthreads();
+      for_pairs<NH>(n, F, [&](int s, int hh, int j) {
+        attention_bwd_dk<DM, NH>(sG + s * NH * F * F, sN + s * F * L::NS,
+                                 L::NS, sD + s * F * L::DS, L::DS, F, hh, j);
+      });
+      __syncthreads();
+
+      // 7. The transforms' backward (JAX _transform_bwd), from t0 = q0
+      //    (k0) in sQKV and dt = dq (dk) in sD.  The table sums, per
+      //    segment, one thread an element over the segment's rows in
+      //    order, added into the block's slice once a segment: gate
+      //    dT[d][c] += 2 sum_r t0[r][c] dt[r][c]; bilinear dT[d][h][k][c]
+      //    += sum_r t0[r][h dh + k] dt[r][h dh + c].  Beside them dt0 in
+      //    registers: gate dt TQ[d] 2, bilinear dt_h @ TQ[d, h]^T; written
+      //    over dt after a barrier.
+      constexpr int kElems = BILINEAR ? T : 2 * DM;  // a thread each
+      for_segments(dm, n, F, [&](int d, int r0, int r1) {
+        if (tid >= kElems) return;
+        const int w = BILINEAR ? 0 : tid / DM;
+        if (!on[w]) return;
+        const int col = BILINEAR ? (tid / (DH * DH)) * DH + tid % DH
+                                 : tid % DM;
+        const int row = BILINEAR ? (tid / (DH * DH)) * DH + (tid / DH) % DH
+                                 : col;
+        float s = 0.f;
+#pragma unroll 4
+        for (int r = r0; r < r1; ++r)
+          s = fmaf(sQKV[r * L::QS + w * DM + row],
+                   sD[r * L::DS + w * DM + col], s);
+        tab_out[(w * D + d) * T + (BILINEAR ? tid : col)] +=
+            BILINEAR ? s : 2.f * s;
+      });
+      float dt0[kRows / kPass][2][4];
 #pragma unroll
-        for (int i = 0; i < TD::RPL; ++i) {
-          const int f = rsd + TD::RS * i;
-          if (f >= F) continue;
+      for (int p = 0; p < kRows / kPass; ++p) {
+        const int r = p * kPass + tid / kRowThreads;
+        if (r >= R) continue;
+        const int d = dm[r / F];
+#pragma unroll
+        for (int w = 0; w < 2; ++w) {
+          if (!on[w]) continue;
+          const float* dt = sD + r * L::DS + w * DM;
           if (BILINEAR) {
-            // dt0[f][h dh + c0 + c] = sum_l dt[f][h dh + l] TQ[dm][h][c0+c][l]
+            // dt0[h dh + c0 + j] = sum_l dt[h dh + l] TQ[d][h][c0 + j][l]
+            const int hh = c / DH, c0 = c % DH;
 #pragma unroll
-            for (int c = 0; c < 4; ++c) {
-              const float* m = tab + hh * DH * DH + (c0 + c) * DH;
+            for (int j = 0; j < 4; ++j) {
+              const float* m = sTab + d * T + hh * DH * DH + (c0 + j) * DH;
               float s = 0.f;
 #pragma unroll
               for (int l = 0; l < DH; l += 4) {
-                const float4 mv = ldg4(m + l);
-                const float4 dv = ld4(dt + f * S::QS + hh * DH + l);
+                const float4 mv = ld4(m + l), dv = ld4(dt + hh * DH + l);
                 s = fmaf(dv.x, mv.x, s);
                 s = fmaf(dv.y, mv.y, s);
                 s = fmaf(dv.z, mv.z, s);
                 s = fmaf(dv.w, mv.w, s);
               }
-              v[i][c] = s;
+              dt0[p][w][j] = s;
             }
           } else {
-            const float4 r = ld4(dt + f * S::QS + cold);
-            v[i][0] = r.x * gm.x * 2.f;
-            v[i][1] = r.y * gm.y * 2.f;
-            v[i][2] = r.z * gm.z * 2.f;
-            v[i][3] = r.w * gm.w * 2.f;
+            const float4 t = ld4(dt + c);
+            const float4 gm = ld4(sTab + (w * D + d) * T + c);
+            dt0[p][w][0] = t.x * gm.x * 2.f;
+            dt0[p][w][1] = t.y * gm.y * 2.f;
+            dt0[p][w][2] = t.z * gm.z * 2.f;
+            dt0[p][w][3] = t.w * gm.w * 2.f;
           }
         }
       }
       __syncthreads();
-      if (live) {
 #pragma unroll
-        for (int i = 0; i < TD::RPL; ++i) {
-          const int f = rsd + TD::RS * i;
-          if (f < F) st4(dt + f * S::QS + cold, v[i]);
-        }
+      for (int p = 0; p < kRows / kPass; ++p) {
+        const int r = p * kPass + tid / kRowThreads;
+        if (r >= R) continue;
+#pragma unroll
+        for (int w = 0; w < 2; ++w)
+          if (on[w]) st4(sD + r * L::DS + w * DM + c, dt0[p][w]);
       }
       __syncthreads();
-    }
 
-    // B4. dWqkv += x^T [dq0|dk0|dv]; dx = du + [dq0|dk0|dv] @ Wqkv^T.
-#pragma unroll 1
-    for (int part = 0; part < 3; ++part)
-      wgrad<kThreads, DM, DM>(sX, S::XS, sD + part * DM, S::QS, nvalid * F,
-                    acc + part * DM, 3 * DM, t);
-    if (live) {
-      float o[TD::RPL][4];
-      tile_gemm<kGroup, 3 * DM, DM>(Dg, S::QS, a.wqkvT, DM, F, gt, o);
-#pragma unroll
-      for (int i = 0; i < TD::RPL; ++i) {
-        const int f = rsd + TD::RS * i;
-        if (f < F) {
-          const float v[4] = {o[i][0] + du[i][0], o[i][1] + du[i][1],
-                              o[i][2] + du[i][2], o[i][3] + du[i][3]};
-          st4(a.dx + base + f * DM + cold, v);
-        }
-      }
+      // 8. dWqkv += x^T [dq0|dk0|dv]; dx = du + [dq0|dk0|dv] @ Wqkv^T
+      dwqkv.add(
+          0, R, [&](int r, int m) { return sX[r * L::XS + m]; },
+          [&](int r, int cc) { return sD[r * L::DS + cc]; });
+      block_gemm<3 * DM, DM, 2>(
+          0, mt, [&](int m, int k) { return sD[m * L::DS + k]; },
+          [&](int k, int cc) { return sWqkv[cc * L::WQ + k]; },
+          [&](int r, int cc, float v0, float v1) {
+            if (r < R) {
+              const int s = r / F;
+              const float2 u =
+                  *reinterpret_cast<const float2*>(sDU + r * L::XS + cc);
+              *reinterpret_cast<float2*>(
+                  a.dx + (static_cast<size_t>(ex[s]) * F + r - s * F) * DM +
+                  cc) = make_float2(v0 + u.x, v1 + u.y);
+            }
+          });
+      __syncthreads();
+      if (ti + 1 < ntiles) load_x(ex + E, min(E, nw - (ti + 1) * E));
     }
-    __syncthreads();
   }
 
-  // The block's partial sums, laid out as the final gradient buffer:
-  // dWqkv | dWout | LN_o (scale row, bias row) | dTQ | dTK, the last two
-  // already in place.  The LayerNorm sums of the threads holding the same
-  // columns are added in thread order.
-  float* red = sX;  // the working buffers are free now
+  // The block's dense and LayerNorm sums into its slice (the table sums
+  // are in place): the LayerNorm sums of the threads holding the same
+  // columns added in thread order.
+  dwqkv.store(out);
+  dwout.store(out + 3 * DM * DM);
+  float* red = sQKV;  // the tile buffers are free now
+  __syncthreads();
 #pragma unroll
   for (int j = 0; j < kLnRows; ++j) {
 #pragma unroll
-    for (int c = 0; c < 4; ++c) red[(t * kLnRows + j) * 4 + c] = ln_acc[j][c];
+    for (int k = 0; k < 4; ++k) red[(tid * kLnRows + j) * 4 + k] = ln_acc[j][k];
   }
   __syncthreads();
-  for (int o = t; o < kLnRows * DM; o += kThreads) {
-    const int j = o / DM, col = o % DM, cg = col / 4, c = col % 4;
+  for (int o = tid; o < kLnRows * DM; o += kThreads) {
+    const int j = o / DM, col = o % DM, cg = col / 4, k = col % 4;
     float s = 0.f;
-    for (int m = cg; m < kThreads; m += TD::LPR)
-      s += red[(m * kLnRows + j) * 4 + c];
-    out[S::kDense + o] = s;
+    for (int m = cg; m < kThreads; m += kRowThreads)
+      s += red[(m * kLnRows + j) * 4 + k];
+    out[4 * DM * DM + o] = s;
   }
-  for (int i = t; i < S::kDense; i += kThreads) out[i] = acc[i];
 }
 
 template <int DM, int NH, bool BILINEAR>
-cudaError_t launch(const Args& a, float* grads, int blocks,
+cudaError_t launch(GateBwdArgs a, float* grads, int blocks,
                    cudaStream_t stream) {
-  auto kernel = gate_block_bwd_kernel<DM, NH, BILINEAR>;
-  const size_t smem = smem_bytes<DM, NH>(a.F);
+  auto kernel = gate_stash_bwd_kernel<DM, NH, BILINEAR>;
+  const int smem = GateTile<DM, NH, BILINEAR>::bytes(a.F, a.D);
   if (smem > kMaxSmem || a.D > kMaxDomains) return cudaErrorInvalidValue;
-  static size_t configured = 0;
+  static int configured = 0;
   if (smem > configured) {
     const cudaError_t err = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(smem));
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (err != cudaSuccess) return err;
     configured = smem;
   }
+  a.chunk = block_chunk(a.B, a.F, blocks, kRows);
   kernel<<<blocks, kThreads, smem, stream>>>(a);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
@@ -462,45 +537,75 @@ cudaError_t launch(const Args& a, float* grads, int blocks,
   return cudaGetLastError();
 }
 
+// run(integral constants DM, NH, BILINEAR) for an instantiated shape, else
+// cudaErrorInvalidValue.
+template <class Run>
+cudaError_t with_gate_shape(int d, int heads, int bilinear, Run run) {
+  if (d == 32 && heads == 4)
+    return bilinear ? run(std::integral_constant<bool, true>{})
+                    : run(std::integral_constant<bool, false>{});
+  return cudaErrorInvalidValue;
+}
+
 }  // namespace
 
 // Shapes (d, heads) instantiated here; ops/gate_block.py keeps the same
 // list in KERNEL_SHAPES.  partial holds blocks x satrans_gate_block_bwd_
-// grad_floats(d, heads, D, bilinear) floats (two blocks per SM fill the
-// card); grads receives the summed gradients in the layout written above.
-// Returns a cudaError_t.
+// grad_floats(d, heads, D, bilinear) floats; grads receives the summed
+// gradients in the layout written above.  -1 for a shape not instantiated.
 extern "C" int satrans_gate_block_bwd_grad_floats(int d, int heads, int D,
                                                   int bilinear) {
-  if (d == 32 && heads == 4)
-    return bilinear ? grad_floats<32, 4, true>(D)
-                    : grad_floats<32, 4, false>(D);
-  return -1;
+  int n = -1;
+  with_gate_shape(d, heads, bilinear, [&](auto bl) {
+    n = grad_floats<32, 4, decltype(bl)::value>(D);
+    return cudaSuccess;
+  });
+  return n;
 }
 
 extern "C" int satrans_gate_block_bwd_max_domains() { return kMaxDomains; }
 
-// The same operands as satrans_gate_block_fwd, with g, the transposed
-// weights wqkvT [3d, d] and woutT, dx and the scratch buffers.
+// The grid for B examples of F fields on a card of sms SMs: one block an
+// SM, at most one a tile.
+extern "C" int satrans_gate_block_bwd_blocks(int B, int F, int sms) {
+  return stash_bwd_blocks(B, F, sms, kRows);
+}
+
+// The body's dynamic shared memory (bytes) at F fields and D table rows;
+// -1 for a shape not instantiated.
+extern "C" int satrans_gate_block_bwd_smem(int d, int heads, int D,
+                                           int bilinear, int F) {
+  int n = -1;
+  with_gate_shape(d, heads, bilinear, [&](auto bl) {
+    n = GateTile<32, 4, decltype(bl)::value>::bytes(F, D);
+    return cudaSuccess;
+  });
+  return n;
+}
+
+// The same operands as satrans_gate_block_fwd, with g, dx and the scratch
+// buffers; blocks is the grid (satrans_gate_block_bwd_blocks for the card;
+// fewer give each block a longer range), and the result is deterministic
+// for a grid.  Returns a cudaError_t.
 extern "C" int satrans_gate_block_bwd(
     const float* x, const int* dom, const float* g, const float* wqkv,
-    const float* wqkvT, const float* tq, const float* tk, const float* wout,
-    const float* woutT, const float* lno, float* dx, float* partial,
-    float* grads, int B, int F, int d, int heads, int D, int bilinear,
-    int apply_q, int apply_k, int relu_out, int blocks, int drop_on,
-    unsigned seed, unsigned threshold, float scale, int block_b, int fpad,
-    int group, void* stream) {
+    const float* tq, const float* tk, const float* wout, const float* lno,
+    float* dx, float* partial, float* grads, int B, int F, int d, int heads,
+    int D, int bilinear, int apply_q, int apply_k, int relu_out, int blocks,
+    int drop_on, unsigned seed, unsigned threshold, float scale, int block_b,
+    int fpad, int group, void* stream) {
   if (B < 1 || F < 1 || F > kMaxFields || D < 1 || blocks < 1)
     return static_cast<int>(cudaErrorInvalidValue);
   if (drop_on && (block_b < 1 || fpad < F || group < 1))
     return static_cast<int>(cudaErrorInvalidValue);
-  const Args a{x,       g,  wqkv,    wqkvT,   tq,      tk,
-               wout,    woutT, lno,  dom,     dx,      partial,
-               B,       F,  D,       apply_q, apply_k, relu_out,
-               Dropout{drop_on, seed, threshold, scale, block_b, fpad, group}};
+  const GateBwdArgs a{x,       g,       wqkv,     tq,      tk,
+                      wout,    lno,     dom,      dx,      partial,
+                      B,       F,       D,        0,       apply_q,
+                      apply_k, relu_out,
+                      Dropout{drop_on, seed, threshold, scale, block_b, fpad,
+                              group}};
   const cudaStream_t str = static_cast<cudaStream_t>(stream);
-  if (d == 32 && heads == 4)
-    return static_cast<int>(bilinear
-                                ? launch<32, 4, true>(a, grads, blocks, str)
-                                : launch<32, 4, false>(a, grads, blocks, str));
-  return static_cast<int>(cudaErrorInvalidValue);
+  return static_cast<int>(with_gate_shape(d, heads, bilinear, [&](auto bl) {
+    return launch<32, 4, decltype(bl)::value>(a, grads, blocks, str);
+  }));
 }

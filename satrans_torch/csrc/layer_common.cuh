@@ -2,14 +2,14 @@
 // meta_block_bwd.cu and the tile bodies meta_stash_fwd.cuh,
 // meta_stash_bwd.cuh) and K6 (gate_block_fwd.cu, gate_block_bwd.cu).
 //
-// An example's F rows are worked on by a group of G threads (a warp in the
-// forwards, 128 threads in the backwards).  The small GEMMs give a thread a
-// register tile of 4 adjacent columns x a few rows (Tile), the LayerNorms
-// reduce across a row's N/4 threads with shuffles, the backwards sum parameter
-// gradients with one owner per element (wgrad, then sum_partials over the
-// blocks, in order), and the attention passes give a thread (head, row) pairs
-// (the *_pair functions, which the tile bodies call on each example of their
-// tiles).  The attention logits are clamped to [-60, 60] before a
+// In the template forwards (K1-fwd, K7-fwd, K6-fwd) an example's F rows
+// are worked on by a warp: the small GEMMs give a thread a register tile of
+// 4 adjacent columns x a few rows (Tile).  The LayerNorms reduce across a
+// row's N/4 threads with shuffles, the backwards' blocks sum parameter
+// gradients with one owner per element and sum_partials adds the blocks'
+// sums in order, and the attention passes give a thread (head, row) pairs
+// (the *_pair functions, which the tile bodies call on each example of
+// their tiles).  The attention logits are clamped to [-60, 60] before a
 // max-subtracted softmax, as the Pallas kernels' _clip_logits
 // (satrans_tpu/ops/pallas/meta_block.py:61-69); the backward passes the
 // gradient through the clamp as if it were not there, as the Pallas custom VJPs
@@ -265,48 +265,6 @@ __device__ __forceinline__ void ln_bwd(const float (&dy)[4],
   for (int c = 0; c < 4; ++c) du[c] = (gg[c] - m - xh[c] * mx) * inv;
 }
 
-// Parameter-gradient accumulation over a block of THREADS threads:
-// acc[k][n] += sum_{r < R} a(A[r][k]) * G[r][n] (acc in shared or global
-// memory, row stride accs) for the thread's own elements: columns
-// 4 (t % (N/4)) .. +3 of rows t / (N/4) + KS j.  Each element has one
-// owner, so the sums need no atomics and run in a fixed order.
-template <int THREADS, int M, int N, bool RELU = false>
-__device__ __forceinline__ void wgrad(const float* A, int as, const float* G,
-                                      int gs, int R, float* acc, int accs,
-                                      int t) {
-  constexpr int CG = N / 4, KS = THREADS / CG, KPT = M / KS;
-  static_assert(THREADS % CG == 0 && M % KS == 0, "unsupported shape");
-  const int n = 4 * (t % CG), k0 = t / CG;
-  float s[KPT][4];
-#pragma unroll
-  for (int j = 0; j < KPT; ++j) {
-#pragma unroll
-    for (int c = 0; c < 4; ++c) s[j][c] = 0.f;
-  }
-#pragma unroll 2
-  for (int r = 0; r < R; ++r) {
-    const float4 gv = ld4(G + r * gs + n);
-#pragma unroll
-    for (int j = 0; j < KPT; ++j) {
-      float a = A[r * as + k0 + KS * j];
-      if (RELU) a = fmaxf(a, 0.f);
-      s[j][0] = fmaf(a, gv.x, s[j][0]);
-      s[j][1] = fmaf(a, gv.y, s[j][1]);
-      s[j][2] = fmaf(a, gv.z, s[j][2]);
-      s[j][3] = fmaf(a, gv.w, s[j][3]);
-    }
-  }
-#pragma unroll
-  for (int j = 0; j < KPT; ++j) {
-    float* p = acc + (k0 + KS * j) * accs + n;
-    float v[4];
-    to4(ld4(p), v);
-#pragma unroll
-    for (int c = 0; c < 4; ++c) v[c] += s[j][c];
-    st4(p, v);
-  }
-}
-
 // out[i] = sum over blocks b, in order, of partial[b][i].
 __global__ void sum_partials(const float* __restrict__ partial,
                              float* __restrict__ out, int total, int blocks) {
@@ -471,15 +429,53 @@ __device__ __forceinline__ void attention_probs_pair(const float* qk, int ns,
     if (j < F) prow[j] = s[j] * inv;
 }
 
+// The attention dropout's multipliers m of one head's probabilities, for
+// the backwards' passes: m.on() whether the dropout is on, m(i, j) the
+// multiplier of probability (i, j).  AttnHash draws it from the hash
+// (csrc/dropout.cuh) at each use; AttnBits reads it from bits drawn once a
+// tile (attn_keep_row), bit j of word i of the head's rows: the same
+// multipliers.
+struct AttnHash {
+  const Dropout& drop;
+  const ExampleDraw& ed;
+  unsigned salt;  // the head's draw
+  __device__ bool on() const { return drop.on; }
+  __device__ float operator()(int i, int j) const {
+    return ed.attn(drop, salt, i, j);
+  }
+};
+
+struct AttnBits {
+  const unsigned* rows;  // the head's F words
+  const Dropout& drop;
+  __device__ bool on() const { return drop.on; }
+  __device__ float operator()(int i, int j) const {
+    return rows[i] >> j & 1u ? drop.scale : 0.f;
+  }
+};
+
+// The keep bits of row i of a head's attention draw (salt): bit j set
+// where probability (i, j) is kept.
+__device__ __forceinline__ unsigned attn_keep_row(const Dropout& drop,
+                                                  const ExampleDraw& ed,
+                                                  unsigned salt, int i,
+                                                  int F) {
+  unsigned bits = 0;
+#pragma unroll
+  for (int j = 0; j < kMaxFields; ++j)
+    if (j < F && ed.attn_kept(drop, salt, i, j)) bits |= 1u << j;
+  return bits;
+}
+
 // One (head hh, query row i) pair of the backwards' recomputed attention:
 // P (normalised, before dropout) into row i of head hh of P ([NH][F][F])
 // and o = (P m_s) v into row i of out (stride os).  q|k lie in the rows of
-// qk (stride ns) at columns 0 and DM, v in the rows of v (stride vs).
-template <int DM, int NH>
+// qk (stride ns) at columns 0 and DM, v in the rows of v (stride vs); m
+// the head's multipliers (AttnHash, AttnBits).
+template <int DM, int NH, class Keep>
 __device__ __forceinline__ void attention_recompute_pair(
     const float* qk, int ns, const float* v, int vs, float* P, float* out,
-    int os, int F, int hh, int i, const Dropout& drop, const ExampleDraw& ed,
-    unsigned salt_s) {
+    int os, int F, int hh, int i, const Keep& m) {
   constexpr int DH = DM / NH;
   float s[kMaxFields];
   const float inv =
@@ -493,8 +489,7 @@ __device__ __forceinline__ void attention_recompute_pair(
   for (int j = 0; j < kMaxFields; ++j) {
     if (j < F) {
       prow[j] = s[j] * inv;
-      const float pj =
-          drop.on ? prow[j] * ed.attn(drop, salt_s + hh, i, j) : prow[j];
+      const float pj = m.on() ? prow[j] * m(i, j) : prow[j];
       axpy_head<DH>(pj, v + j * vs + hh * DH, o);
     }
   }
@@ -505,33 +500,19 @@ __device__ __forceinline__ void attention_recompute_pair(
   }
 }
 
-// The backwards' recomputed attention of one example:
-// attention_recompute_pair for the (head, query row) pairs of thread t of
-// a group of G.
-template <int DM, int NH, int G>
-__device__ __forceinline__ void attention_recompute(
-    const float* qk, int ns, const float* v, int vs, float* P, float* out,
-    int os, int F, int t, const Dropout& drop, const ExampleDraw& ed,
-    unsigned salt_s) {
-#pragma unroll 1
-  for (int p = t; p < NH * F; p += G)
-    attention_recompute_pair<DM, NH>(qk, ns, v, vs, P, out, os, F, p / F,
-                                     p % F, drop, ed, salt_s);
-}
-
 // The three passes of the attention backward of one example, each for
 // one (head, row) pair; a pass may start only when the one before it has
 // ended for every pair of the example.  do lies in the rows of dout
 // (stride dos), v in v (stride vs), q|k in qk (stride ns) at columns 0 and
 // DM; dq|dk|dv go to the rows of dqkv (stride ds) at columns 0, DM and
-// 2 DM.  P ([NH][F][F]) holds the probabilities before dropout.
+// 2 DM.  P ([NH][F][F]) holds the probabilities before dropout, m the
+// head's dropout multipliers (AttnHash, AttnBits).
 //
 // Pass 1, per (head hh, key row j): dv_j = sum_i P_ij m_ij do_i.
-template <int DM, int NH>
+template <int DM, int NH, class Keep>
 __device__ __forceinline__ void attention_bwd_dv(
     const float* P, const float* dout, int dos, float* dqkv, int ds, int F,
-    int hh, int j, const Dropout& drop, const ExampleDraw& ed,
-    unsigned salt_s) {
+    int hh, int j, const Keep& m) {
   constexpr int DH = DM / NH;
   float dv[DH];
 #pragma unroll
@@ -539,7 +520,7 @@ __device__ __forceinline__ void attention_bwd_dv(
 #pragma unroll 4
   for (int i = 0; i < F; ++i) {
     float pij = P[(hh * F + i) * F + j];
-    if (drop.on) pij *= ed.attn(drop, salt_s + hh, i, j);
+    if (m.on()) pij *= m(i, j);
     axpy_head<DH>(pij, dout + i * dos + hh * DH, dv);
   }
 #pragma unroll
@@ -552,11 +533,11 @@ __device__ __forceinline__ void attention_bwd_dv(
 // Pass 2, per (head hh, query row i): dS_ij = P_ij (dP_ij - sum_j P_ij
 // dP_ij) with dP_ij = (do_i . v_j) m_ij, written over P, and dq_i = scale
 // sum_j dS_ij k_j.
-template <int DM, int NH>
+template <int DM, int NH, class Keep>
 __device__ __forceinline__ void attention_bwd_dq(
     float* P, const float* dout, int dos, const float* v, int vs,
     const float* qk, int ns, float* dqkv, int ds, int F, int hh, int i,
-    const Dropout& drop, const ExampleDraw& ed, unsigned salt_s) {
+    const Keep& m) {
   constexpr int DH = DM / NH;
   const float scale = 1.f / sqrtf(static_cast<float>(DH));
   float doi[DH];
@@ -577,7 +558,7 @@ __device__ __forceinline__ void attention_bwd_dq(
         s = fmaf(doi[c + 2], w.z, s);
         s = fmaf(doi[c + 3], w.w, s);
       }
-      if (drop.on) s *= ed.attn(drop, salt_s + hh, i, j);
+      if (m.on()) s *= m(i, j);
       dp[j] = s;
       rs = fmaf(prow[j], s, rs);
     }
@@ -621,37 +602,6 @@ __device__ __forceinline__ void attention_bwd_dk(const float* P,
                         dk[c + 3] * scale};
     st4(dqkv + j * ds + DM + hh * DH + c, w);
   }
-}
-
-// The backwards' attention backward of one example (the three passes
-// above), for the pairs of thread t of a group of G; every thread of the
-// block calls it (each pass ends at a block barrier; the group's threads
-// work where live).
-template <int DM, int NH, int G>
-__device__ __forceinline__ void attention_bwd(
-    bool live, float* P, const float* dout, int dos, const float* v, int vs,
-    const float* qk, int ns, float* dqkv, int ds, int F, int t,
-    const Dropout& drop, const ExampleDraw& ed, unsigned salt_s) {
-  if (live) {
-#pragma unroll 1
-    for (int p = t; p < NH * F; p += G)
-      attention_bwd_dv<DM, NH>(P, dout, dos, dqkv, ds, F, p / F, p % F, drop,
-                               ed, salt_s);
-  }
-  __syncthreads();
-  if (live) {
-#pragma unroll 1
-    for (int p = t; p < NH * F; p += G)
-      attention_bwd_dq<DM, NH>(P, dout, dos, v, vs, qk, ns, dqkv, ds, F,
-                               p / F, p % F, drop, ed, salt_s);
-  }
-  __syncthreads();
-  if (live) {
-#pragma unroll 1
-    for (int p = t; p < NH * F; p += G)
-      attention_bwd_dk<DM, NH>(P, qk, ns, dqkv, ds, F, p / F, p % F);
-  }
-  __syncthreads();
 }
 
 }  // namespace

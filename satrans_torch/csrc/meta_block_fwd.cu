@@ -3,7 +3,7 @@
 //
 // Replaces two TPU kernels of satrans_tpu/ops/pallas/meta_block.py, both
 // launched by _fwd_call through pl.pallas_call on the body _fwd_compute:
-// _fwd_kernel (:404; K1-fwd, the template below with MODE=kNoStash) and
+// _fwd_kernel (:404; K1-fwd, the template below, kNoStash) and
 // _fwd_kernel_stash (:420), which also writes the residuals its backward
 // reads, in its full mode (stash_s=True; K1-stash, kFullStash), its light
 // mode (stash_s=False; K1-stash light, kLightStash, the JAX package's
@@ -70,18 +70,19 @@
 // once.  (The stash modes' 20.4 kB of residuals an example, and their tile
 // design, are csrc/meta_stash_fwd.cuh's.)
 //
-// K7.  The same template with TILED=true is K7-fwd (kNoStash) and
-// K7-stash (kFullStash), which replace satrans_tpu/ops/pallas/
-// tiled_meta.py's _fwd_kernel (:141) and _fwd_kernel_stash (:155), both
-// launched by _fwd_call (:521) through pl.pallas_call (:546) on the body
-// _fwd_compute (:92): the layer on a batch that ops/dispatch.py has
-// sorted into single-domain tiles of tile_b slots, each tile with its own
-// MetaNet weights.  The one difference is where an example's weights come
-// from: row dm = slot / tile_b of the per-tile [T, d, h] and [T, h, d]
-// blocks (gathered outside, table[tile_dom]) instead of row dom[e] of the
+// K7.  The same template with TILED=true is K7-fwd, which replaces
+// satrans_tpu/ops/pallas/tiled_meta.py's _fwd_kernel (:141), launched by
+// _fwd_call (:521) through pl.pallas_call (:546) on the body _fwd_compute
+// (:92): the layer on a batch that ops/dispatch.py has sorted into
+// single-domain tiles of tile_b slots, each tile with its own MetaNet
+// weights.  The one difference is where an example's weights come from:
+// row dm = slot / tile_b of the per-tile [T, d, h] and [T, h, d] blocks
+// (gathered outside, table[tile_dom]) instead of row dom[e] of the
 // per-domain tables.  A block's 8 slots lie in one tile when tile_b is a
 // multiple of 8 (16 and 32 are the dispatch tiles), so the block reads one
-// tile's weights, through L1.  Every other phase is K1's.  The JAX tiled
+// tile's weights, through L1.  Every other phase is K1's.  K7-stash
+// (_fwd_kernel_stash, :155) runs on the forward tile body with TILED
+// (csrc/meta_stash_fwd.cuh), launched by the same C entry; the JAX tiled
 // kernel has no light stash, and the C entry refuses one.
 //
 // The kernel launches on the caller's stream, allocates nothing and does
@@ -90,7 +91,6 @@
 #include <cuda_runtime.h>
 
 #include <cmath>
-#include <type_traits>
 
 #include "layer_common.cuh"
 #include "meta_stash_fwd.cuh"
@@ -98,8 +98,6 @@
 namespace {
 
 constexpr int kWarps = 8;       // examples per block, one warp each
-template <int M>
-using Mode = std::integral_constant<int, M>;  // a StashMode as a type
 constexpr int kGroup = 32;      // threads per example
 
 // Shared memory of one warp: F rows of q|k|v (stride QS), then F rows of
@@ -114,7 +112,7 @@ struct Smem {
   static constexpr int kRowFloats = QS + HS;
 };
 
-template <class SH, int MODE, bool TILED>
+template <class SH, bool TILED>
 __global__ void __launch_bounds__(kWarps * 32, 2)
 meta_block_fwd_kernel(const float* __restrict__ x, const int* __restrict__ dom,
                       const float* __restrict__ wqkv, const MetaW mw,
@@ -123,17 +121,12 @@ meta_block_fwd_kernel(const float* __restrict__ x, const int* __restrict__ dom,
                       const float* __restrict__ wout,
                       const float* __restrict__ lno, float* __restrict__ y,
                       int B, int F, int D, int tile_b, int apply_q,
-                      int apply_k, int relu_out, const Dropout drop,
-                      const Stash st) {
+                      int apply_k, int relu_out, const Dropout drop) {
   constexpr int DM = SH::DM, HID = SH::HID, HID2 = SH::HID2, NH = SH::NH;
   constexpr int HL = SH::HL;
   using S = Smem<DM, SH::HMAX>;
   using TD = Tile<DM, kGroup>;
   constexpr int DH = DM / NH;
-  // K1-fwd and K7-fwd, or K7-stash: the residuals qkv, uq, uk, s and o
-  constexpr bool STASH = MODE == kFullStash;
-  static_assert(MODE == kNoStash || (MODE == kFullStash && TILED),
-                "K1's stash bodies are meta_stash_fwd.cuh's");
   static_assert(DM % NH == 0 && DH % 4 == 0, "head width must be 4k");
 
   extern __shared__ float4 smem4[];
@@ -149,7 +142,6 @@ meta_block_fwd_kernel(const float* __restrict__ x, const int* __restrict__ dom,
   const int cgd = lane % TD::LPR, rsd = lane / TD::LPR, cold = 4 * cgd;
   const ExampleDraw ed(drop, e);
   const DropSalts salt(apply_q, apply_k, NH);
-  const size_t erow = static_cast<size_t>(e) * F;  // the example's first row
 
   // 1. x -> scratch
   for (int t = lane; t < F * (DM / 4); t += 32) {
@@ -167,32 +159,17 @@ meta_block_fwd_kernel(const float* __restrict__ x, const int* __restrict__ dom,
 #pragma unroll
     for (int i = 0; i < TD::RPL; ++i) {
       const int f = rsd + TD::RS * i;
-      if (f < F) {
-        st4(sq + f * S::QS + part * DM + cold, acc[i]);
-        if (STASH)
-          st4(st.qkv + (erow + f) * 3 * DM + part * DM + cold, acc[i]);
-      }
+      if (f < F) st4(sq + f * S::QS + part * DM + cold, acc[i]);
     }
   }
   __syncwarp();
 
   // 3. MetaNet of the example's domain on q0, then on k0, each followed by
   //    the dropout, the residual and its LayerNorm, written over q0 / k0
-  //    in place.  K1-stash keeps the pre-LN sum (q0 itself where the
-  //    projection is not transformed).
+  //    in place (an untransformed projection stays q0 / k0).
 #pragma unroll 1
   for (int which = 0; which < 2; ++which) {
-    float* ures = which ? st.uk : st.uq;
-    if (!(which == 0 ? apply_q : apply_k)) {  // uniform branch
-      if (STASH) {
-        for (int t = lane; t < F * (DM / 4); t += 32) {
-          const int f = t / (DM / 4), c = 4 * (t % (DM / 4));
-          *reinterpret_cast<float4*>(ures + (erow + f) * DM + c) =
-              ld4(sq + f * S::QS + which * DM + c);
-        }
-      }
-      continue;
-    }
+    if (!(which == 0 ? apply_q : apply_k)) continue;  // uniform branch
     const float* w1 =
         (which ? mw.w1k : mw.w1q) + static_cast<size_t>(dm) * DM * HID;
     const float* w2 =
@@ -228,7 +205,6 @@ meta_block_fwd_kernel(const float* __restrict__ x, const int* __restrict__ dom,
         }
         float v[4] = {acc[i][0] + r.x, acc[i][1] + r.y, acc[i][2] + r.z,
                       acc[i][3] + r.w};
-        if (STASH && ok) st4(ures + (erow + f) * DM + cold, v);
         row_layer_norm<DM>(v, which ? lnk : lnq, cold);
         if (ok) st4(t0 + f * S::QS + cold, v);
       }
@@ -237,11 +213,10 @@ meta_block_fwd_kernel(const float* __restrict__ x, const int* __restrict__ dom,
   }
 
   // 4. Attention (csrc/layer_common.cuh).  The output goes to scratch
-  //    columns [0, DM); K7-stash also writes it and P before dropout.
-  attention_fwd<DM, NH, kGroup, STASH, STASH>(
-      sq, S::QS, sh, S::HS,
-      STASH ? st.s + static_cast<size_t>(e) * NH * F * F : nullptr,
-      STASH ? st.o + erow * DM : nullptr, F, lane, drop, ed, salt.s);
+  //    columns [0, DM).
+  attention_fwd<DM, NH, kGroup, false, false>(sq, S::QS, sh, S::HS, nullptr,
+                                              nullptr, F, lane, drop, ed,
+                                              salt.s);
   __syncwarp();
 
   // 5. y = LN_o(relu?(o @ Wout) m_z + x)
@@ -270,15 +245,14 @@ meta_block_fwd_kernel(const float* __restrict__ x, const int* __restrict__ dom,
   }
 }
 
-template <class SH, int MODE, bool TILED>
+template <class SH, bool TILED>
 cudaError_t launch(const float* x, const int* dom, const float* wqkv,
                    const MetaW& mw, const float* lnq, const float* lnk,
                    const float* wout, const float* lno, float* y, int B,
                    int F, int D, int tile_b, int apply_q, int apply_k,
-                   int relu_out, const Dropout& drop, const Stash& st,
-                   cudaStream_t stream) {
+                   int relu_out, const Dropout& drop, cudaStream_t stream) {
   using S = Smem<SH::DM, SH::HMAX>;
-  auto kernel = meta_block_fwd_kernel<SH, MODE, TILED>;
+  auto kernel = meta_block_fwd_kernel<SH, TILED>;
   static bool configured = false;
   if (!configured) {
     const int most = kWarps * kMaxFields * S::kRowFloats * sizeof(float);
@@ -292,7 +266,7 @@ cudaError_t launch(const float* x, const int* dom, const float* wqkv,
   const int blocks = (B + kWarps - 1) / kWarps;
   kernel<<<blocks, kWarps * 32, smem, stream>>>(
       x, dom, wqkv, mw, lnq, lnk, wout, lno, y, B, F, D, tile_b, apply_q,
-      apply_k, relu_out, drop, st);
+      apply_k, relu_out, drop);
   return cudaGetLastError();
 }
 
@@ -332,9 +306,8 @@ extern "C" int satrans_meta_block_fwd(
   return static_cast<int>(with_shape(d, h, h2, heads, [&](auto sh) {
     using SH = decltype(sh);
     if (stash == kNoStash)
-      return launch<SH, kNoStash, false>(x, dom, wqkv, mw, lnq, lnk, wout,
-                                         lno, y, B, F, D, 0, apply_q, apply_k,
-                                         relu_out, drop, st, str);
+      return launch<SH, false>(x, dom, wqkv, mw, lnq, lnk, wout, lno, y, B, F,
+                               D, 0, apply_q, apply_k, relu_out, drop, str);
     const StashFwdArgs a{x,  wqkv, lnq, lnk, wout, lno, dom, mw, y, st, B, F,
                          D,  0,    apply_q, apply_k, relu_out, drop};
     return stash == kFullStash
@@ -361,22 +334,29 @@ extern "C" int satrans_meta_block_fwd_stash_smem(int d, int h, int h2,
 // K7-fwd and K7-stash: the layer on n_slots = T * tile_b dispatched slots
 // whose tile t reads row t of the per-tile weights w1q, w1k [T, d, h],
 // wmq, wmk [T, h, h2] (null for h2 = 0) and w2q, w2k [T, h2 or h, d].
-// stash is kNoStash (every residual pointer null) or
-// kFullStash (all five set, as K1-stash's); the light stash and the
-// scores are refused.
-// The other operands and the dropout are K1's, with drop's block_b the
-// dispatch tile.  Returns a cudaError_t.
+// stash is kNoStash (K7-fwd, the template, every slot; every residual
+// pointer null) or kFullStash (K7-stash, the forward tile body with TILED;
+// all five set, as K1-stash's); the light stash and the scores are
+// refused.  count [T] (int32, or null: every slot occupied) gives each
+// tile's occupied slots, the first of the tile: K7-stash computes those
+// alone and writes zeros for y and the residuals of the others (K7-fwd
+// ignores it); blocks bounds K7-stash's grid (the SM count for the card;
+// fewer give each block a longer range).  The other operands and the
+// dropout are K1's, with drop's block_b the dispatch tile.  Returns a
+// cudaError_t.
 extern "C" int satrans_tiled_meta_fwd(
     const float* x, const float* wqkv, const float* w1q, const float* wmq,
     const float* w2q, const float* lnq, const float* w1k, const float* wmk,
     const float* w2k, const float* lnk, const float* wout, const float* lno,
-    float* y, float* qkv, float* uq, float* uk, float* s, float* o,
-    int stash, int n_slots, int F, int d, int h, int h2, int heads, int T,
-    int tile_b, int apply_q, int apply_k, int relu_out, int drop_on,
-    unsigned seed, unsigned threshold, float scale, int block_b, int fpad,
-    int group, void* stream) {
+    const int* count, float* y, float* qkv, float* uq, float* uk, float* s,
+    float* o, int stash, int n_slots, int F, int d, int h, int h2, int heads,
+    int T,
+    int tile_b, int apply_q, int apply_k, int relu_out, int blocks,
+    int drop_on, unsigned seed, unsigned threshold, float scale, int block_b,
+    int fpad, int group, void* stream) {
   if (n_slots < 0 || F < 1 || F > kMaxFields || T < 1 || tile_b < 1 ||
-      n_slots != T * tile_b || stash == kLightStash || stash == kScores)
+      n_slots != T * tile_b || blocks < 1 || stash == kLightStash ||
+      stash == kScores)
     return static_cast<int>(cudaErrorInvalidValue);
   if (drop_on && (block_b < 1 || fpad < F || group < 1))
     return static_cast<int>(cudaErrorInvalidValue);
@@ -390,12 +370,14 @@ extern "C" int satrans_tiled_meta_fwd(
   const cudaStream_t str = static_cast<cudaStream_t>(stream);
   return static_cast<int>(with_shape(d, h, h2, heads, [&](auto sh) {
     using SH = decltype(sh);
-    const auto run = [&](auto mode) {
-      return launch<SH, decltype(mode)::value, true>(
-          x, nullptr, wqkv, mw, lnq, lnk, wout, lno, y, n_slots, F, T,
-          tile_b, apply_q, apply_k, relu_out, drop, st, str);
-    };
-    return stash == kFullStash ? run(Mode<kFullStash>{})
-                               : run(Mode<kNoStash>{});
+    if (stash == kNoStash)
+      return launch<SH, true>(x, nullptr, wqkv, mw, lnq, lnk, wout, lno, y,
+                              n_slots, F, T, tile_b, apply_q, apply_k,
+                              relu_out, drop, str);
+    const StashFwdArgs a{x,       wqkv,    lnq,      lnk,  wout, lno,
+                         nullptr, mw,      y,        st,   n_slots, F,
+                         T,       0,       apply_q,  apply_k, relu_out,
+                         drop,    0,       count,    tile_b};
+    return launch_stash_fwd<SH, kFullStash, true>(a, str, blocks);
   }));
 }

@@ -435,7 +435,7 @@ __global__ void __launch_bounds__(kTT, 1)
           attention_recompute_pair<DM, NH>(
               sN + s * F * L::NS, L::NS, sQKV + s * F * L::QS + 2 * DM,
               L::QS, sG + s * NH * F * F, sO + s * F * L::OS, L::OS, F, hh,
-              i, a.drop, hd.draws[s], salt.s);
+              i, AttnHash{a.drop, hd.draws[s], salt.s + hh});
         });
         __syncthreads();
       }
@@ -516,18 +516,17 @@ __global__ void __launch_bounds__(kTT, 1)
       // B2. Attention backward, a thread a (head, row) pair in each pass:
       //     dv, then dS over P and dq, then dk, into sD
       for_pairs<NH>(n, F, [&](int s, int hh, int j) {
-        const ExampleDraw& ed = hd.draws[s];
         attention_bwd_dv<DM, NH>(sG + s * NH * F * F, sO + s * F * L::OS,
                                  L::OS, sD + s * F * L::DS, L::DS, F, hh, j,
-                                 a.drop, ed, salt.s);
+                                 AttnHash{a.drop, hd.draws[s], salt.s + hh});
       });
       __syncthreads();
       for_pairs<NH>(n, F, [&](int s, int hh, int i) {
-        const ExampleDraw& ed = hd.draws[s];
         attention_bwd_dq<DM, NH>(
             sG + s * NH * F * F, sO + s * F * L::OS, L::OS,
             sQKV + s * F * L::QS + 2 * DM, L::QS, sN + s * F * L::NS, L::NS,
-            sD + s * F * L::DS, L::DS, F, hh, i, a.drop, ed, salt.s);
+            sD + s * F * L::DS, L::DS, F, hh, i,
+            AttnHash{a.drop, hd.draws[s], salt.s + hh});
       });
       __syncthreads();
       for_pairs<NH>(n, F, [&](int s, int hh, int j) {
@@ -815,13 +814,6 @@ __global__ void tiled_bwd_finish(const StashBwdArgs a, int blocks,
     for (int i = threadIdx.x; i < S::kMeta; i += blockDim.x)
       *at(w, t, i) = tl[w * S::kMeta + i] + hd[w * S::kMeta + i];
   }
-}
-
-// The number of blocks the tile body uses for B examples of F fields on
-// sms SMs: one an SM, or one a tile when there are fewer tiles.
-inline int stash_bwd_blocks(int B, int F, int sms) {
-  const int E = tile_examples(F), tiles = (B + E - 1) / E;
-  return tiles < sms ? tiles : sms;
 }
 
 // K7's scratch floats for a grid of blocks: the blocks' dense and

@@ -1,6 +1,7 @@
-// K1-stash, K1-stash light and K1-scores on Hopper: the tile body of the
-// layer forward that writes the backward's residuals (included by
-// csrc/meta_block_fwd.cu, whose C entry launches it for those modes).
+// K1-stash, K1-stash light, K1-scores and (TILED) K7-stash on Hopper: the
+// tile body of the layer forward that writes the backward's residuals
+// (included by csrc/meta_block_fwd.cu, whose C entries launch it for
+// those modes).
 //
 // Replaces satrans_tpu/ops/pallas/meta_block.py's _fwd_kernel_stash
 // (:420), launched by _fwd_call (:1177) through pl.pallas_call (:1212) on
@@ -53,6 +54,25 @@
 // F]), back in the batch's order.  Shared memory at F = 19: 211 KiB (K1-stash,
 // K1-scores), 182 KiB (K1-stash light; 220 KiB with the second MetaNet
 // region); 215 and 212 KiB with a 3-matrix MetaNet.
+//
+// K7-stash (TILED).  With TILED it replaces satrans_tpu/ops/pallas/
+// tiled_meta.py's _fwd_kernel_stash (:155), launched by _fwd_call (:521)
+// through pl.pallas_call (:546) on the body _fwd_compute (:92): the layer
+// and its full stash on the slots of dispatched single-domain tiles
+// (ops/dispatch.py; tile t of tile_b slots takes the MetaNet block of row t
+// of the per-tile [T, d, h], [T, h, h2] and [T, HL, d] weights), the masks
+// keyed on each slot's index with the dispatch tile as the dropout's tile.
+// The slots come sorted: a segment is a run of one dispatch tile (slot /
+// tile_b), nothing is sorted, and a segment's MetaNet block is staged once
+// a segment as K1's domain block is.  The blocks walk contiguous ranges of
+// whole body tiles of the occupied slots (the first count[t] of tile t,
+// occupied_window in csrc/stash_tile.cuh; every slot when count is null),
+// and write y and the residuals in slot order; y and every residual of
+// the slack slots are written as zeros (the head reads every slot, and its
+// weight gradient multiplies each slot's zero upstream gradient by them).
+// The template body this mode first ran on (csrc/meta_block_fwd.cu: a warp
+// an example, no tensor cores, every slot computed) took 0.43 ms at the
+// AliCCP multicol shape on the H100.
 
 #pragma once
 
@@ -62,13 +82,17 @@ namespace {
 
 struct StashFwdArgs {
   const float *x, *wqkv, *lnq, *lnk, *wout, *lno;
-  const int* dom;
+  const int* dom;  // K1's domain rows
   MetaW mw;
   float* y;
   Stash st;
+  // K1: B examples, D domain rows.  K7: B slots, D dispatch tiles.
   int B, F, D, chunk, apply_q, apply_k, relu_out;
   Dropout drop;
   int two;  // distinct Q and K tables, each MetaNet's block in a region
+  // K7: tile_b slots a tile, count[t] of tile t occupied (null: all)
+  const int* count;
+  int tile_b;
 };
 
 // Shared layout of the forward tile body, in floats after the header
@@ -119,7 +143,7 @@ struct FwdTile {
   }
 };
 
-template <class SH, int MODE>
+template <class SH, int MODE, bool TILED>
 __global__ void __launch_bounds__(FwdTile<SH>::TT, 1)
     meta_stash_fwd_kernel(const StashFwdArgs a) {
   constexpr int DM = SH::DM, HID = SH::HID, HID2 = SH::HID2, NH = SH::NH;
@@ -129,6 +153,7 @@ __global__ void __launch_bounds__(FwdTile<SH>::TT, 1)
   constexpr bool STASH = MODE != kScores;
   constexpr bool STASH_S = MODE != kLightStash;
   static_assert(DM == 4 * kRowThreads, "epilogues take rows of 32");
+  static_assert(MODE == kFullStash || !TILED, "K7 has the full stash alone");
 
   extern __shared__ __align__(16) unsigned char smem[];
   const TileHeader hd(smem);
@@ -199,11 +224,26 @@ __global__ void __launch_bounds__(FwdTile<SH>::TT, 1)
   int staged[2] = {-1, -1};
   const int mo2 = a.two ? L::oMeta2(F, STASH_S) - L::oW1 : 0;
   int buf = 0;
-  const int lo = blockIdx.x * a.chunk, hi = min(a.B, lo + a.chunk);
+  // The block's range of positions: K1's examples of the batch; K7's
+  // occupied slots in slot order, whole tiles of E
+  int lo, hi;
+  if constexpr (TILED) {
+    const int total = occupied_total(a.count, a.D, a.tile_b, key);
+    const int grid = static_cast<int>(gridDim.x);
+    const int chunk = ((total + E - 1) / E + grid - 1) / grid * E;
+    lo = min(total, static_cast<int>(blockIdx.x) * chunk);
+    hi = min(total, lo + chunk);
+  } else {
+    lo = blockIdx.x * a.chunk;
+    hi = min(a.B, lo + a.chunk);
+  }
 #pragma unroll 1
   for (int w0 = lo; w0 < hi; w0 += kWindow) {
     const int nw = min(kWindow, hi - w0);
-    sort_window(a.dom, w0, nw, a.D, order, wdom, key);
+    if constexpr (TILED)
+      occupied_window(a.count, a.D, a.tile_b, w0, nw, order, wdom, key);
+    else
+      sort_window(a.dom, w0, nw, a.D, order, wdom, key);
     const int ntiles = (nw + E - 1) / E;
     load_x(order, min(E, nw), buf);
 #pragma unroll 1
@@ -400,16 +440,41 @@ __global__ void __launch_bounds__(FwdTile<SH>::TT, 1)
       }
     }
   }
+  // K7: y and every residual of the slack slots (the last tile_b - count[t]
+  // of tile t) are zeros, finite for the head that reads every slot; the
+  // blocks take the dispatch tiles in turn
+  if constexpr (TILED) {
+    if (a.count) {
+      const auto zero = [&](float* p, size_t n) {  // n a multiple of 4
+        for (size_t i = tid; i < n / 4; i += L::TT)
+          reinterpret_cast<float4*>(p)[i] = make_float4(0.f, 0.f, 0.f, 0.f);
+      };
+      for (int t = blockIdx.x; t < a.D; t += gridDim.x) {
+        const int cnt = tile_occupied(a.count, t, a.tile_b);
+        const size_t s0 = static_cast<size_t>(t) * a.tile_b + cnt,
+                     ns = a.tile_b - cnt, row = static_cast<size_t>(F) * DM;
+        zero(a.y + s0 * row, ns * row);
+        zero(a.st.qkv + 3 * s0 * row, 3 * ns * row);
+        zero(a.st.uq + s0 * row, ns * row);
+        zero(a.st.uk + s0 * row, ns * row);
+        zero(a.st.o + s0 * row, ns * row);
+        zero(a.st.s + s0 * NH * F * F, ns * NH * F * F);
+      }
+    }
+  }
 }
 
 // Launches the body of mode MODE on a grid of one block an SM (or one a
-// tile, when there are fewer tiles).
-template <class SH, int MODE>
-cudaError_t launch_stash_fwd(StashFwdArgs a, cudaStream_t stream) {
-  auto kernel = meta_stash_fwd_kernel<SH, MODE>;
-  int dev = 0, sms = 0, most = 0;
+// tile, when there are fewer tiles; K7: of its slots, occupied or not);
+// blocks > 0 sets the grid's upper bound in place of the SM count.
+template <class SH, int MODE, bool TILED = false>
+cudaError_t launch_stash_fwd(StashFwdArgs a, cudaStream_t stream,
+                             int blocks = 0) {
+  auto kernel = meta_stash_fwd_kernel<SH, MODE, TILED>;
+  int dev = 0, sms = blocks, most = 0;
   cudaGetDevice(&dev);
-  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (blocks < 1)
+    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   cudaDeviceGetAttribute(&most, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
   const bool with_p = MODE != kLightStash;
   a.two = (a.mw.w1q != a.mw.w1k || a.mw.w2q != a.mw.w2k ||

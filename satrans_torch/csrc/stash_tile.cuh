@@ -1,15 +1,17 @@
-// Device code of the tile bodies: K1's stash kernels (csrc/
-// meta_stash_fwd.cuh: K1-stash, K1-stash light, K1-scores; csrc/
-// meta_stash_bwd.cuh: K1-bwd-stash, K1-bwd-stash light) and K7's backwards
-// (csrc/meta_stash_bwd.cuh: K7-bwd-stash, K7-bwd).
+// Device code of the tile bodies: K1's and K7's stash kernels (csrc/
+// meta_stash_fwd.cuh: K1-stash, K1-stash light, K1-scores, K7-stash;
+// csrc/meta_stash_bwd.cuh: K1-bwd-stash, K1-bwd-stash light, K7-bwd-stash),
+// their recompute backwards (K1-bwd, K7-bwd) and K6-bwd (csrc/
+// gate_block_bwd.cu).
 //
 // A block of 4 R threads owns a tile of E = R / F examples at a time (R =
-// kTileRows = 80 rows in the backward: 4 examples at F = 19, 5 at F = 15;
-// R = kWideTileRows = 96 in the forward: 5 and 6), so that every product
-// of the layer has E F >= 64 rows instead of one example's F, and the
-// tile's attention has at most one (head, row) pair a thread.  It walks a
-// contiguous range of the batch, persistently, one block an SM.  K1 sorts
-// the range by domain row in windows of kWindow examples (sort_window),
+// kTileRows = 80 rows in the MetaNet backward: 4 examples at F = 19, 5 at
+// F = 15; R = kWideTileRows = 96 in the forward and K6-bwd: 5 and 6), so
+// that every product of the layer has E F >= 64 rows instead of one
+// example's F, and the tile's attention has at most one (head, row) pair
+// a thread.  It walks a
+// contiguous range of the batch, persistently, one block an SM.  K1 and K6
+// sort the range by domain row in windows of kWindow examples (sort_window),
 // and the tiles are consecutive examples of that order, so that a tile
 // holds one or two domains and each domain's rows are one segment of it.
 // The sort runs in the kernel: it adds no launch to the host's queue,
@@ -30,8 +32,8 @@
 // tiles that each warp owns, in registers, so that the sums need no
 // atomics and run in a fixed order.  The operands are read from shared
 // memory through accessors (a row buffer, a transposed weight, a relu, a
-// weight split ahead of time), so one routine serves every product of both
-// bodies.
+// weight split ahead of time), so one routine serves every product of
+// every body.
 
 #pragma once
 
@@ -54,7 +56,8 @@ constexpr int kRowsAPass = kTT / kRowThreads;  // two passes cover a tile
 static_assert(kTileRows % kRowsAPass == 0, "whole passes");
 // the forward's tile (4 kWideTileRows threads): its 6 m-tiles give a
 // product's 12 output strips to 12 warps, three on each of the SM's four
-// sub-partitions (the backward's buffers leave room for kTileRows only)
+// sub-partitions (the MetaNet backward's buffers leave room for kTileRows
+// only)
 constexpr int kWideTileRows = 96;
 constexpr int kWindow = 256;      // examples sorted by domain together
 
@@ -97,6 +100,13 @@ __host__ __device__ inline int block_chunk(int B, int F, int grid,
                                            int rows = kTileRows) {
   const int E = tile_examples(F, rows), tiles = (B + E - 1) / E;
   return (tiles + grid - 1) / grid * E;
+}
+
+// The number of blocks a backward tile body uses for B examples of F
+// fields on sms SMs: one an SM, or one a tile when there are fewer tiles.
+inline int stash_bwd_blocks(int B, int F, int sms, int rows = kTileRows) {
+  const int E = tile_examples(F, rows), tiles = (B + E - 1) / E;
+  return tiles < sms ? tiles : sms;
 }
 
 // x rounded to TF32 (10 mantissa bits), half-ups of the dropped 13 bits
@@ -193,14 +203,14 @@ __device__ __forceinline__ void block_gemm(int mt0, int mt1, AF a, BF b,
   }
 }
 
-// The 16 x 8 tiles of an [M x N] weight gradient that each warp owns: tile
-// warp + kTW i < kTiles, i < WTiles<M, N>::kPerWarp, in row-major tile
-// order.
-template <int M, int N>
+// The 16 x 8 tiles of an [M x N] weight gradient that each of a block's W
+// warps owns: tile warp + W i < kTiles, i < WTiles<M, N, W>::kPerWarp, in
+// row-major tile order.
+template <int M, int N, int W = kTW>
 struct WTiles {
   static_assert(M % 16 == 0 && N % 8 == 0, "unsupported weight shape");
   static constexpr int kTiles = (M / 16) * (N / 8);
-  static constexpr int kPerWarp = (kTiles + kTW - 1) / kTW;
+  static constexpr int kPerWarp = (kTiles + W - 1) / W;
   float acc[kPerWarp][4];
 
   __device__ __forceinline__ void zero() {
@@ -233,8 +243,8 @@ struct WTiles {
       const bool va = ra >= r0 && ra < r1, vb = rb >= r0 && rb < r1;
 #pragma unroll
       for (int i = 0; i < kPerWarp; ++i) {
-        const int u = warp + kTW * i;
-        if (kTiles % kTW && u >= kTiles) break;  // uniform in the warp
+        const int u = warp + W * i;
+        if (kTiles % W && u >= kTiles) break;  // uniform in the warp
         const int m0 = (u / (N / 8)) * 16, n0 = (u % (N / 8)) * 8;
         uint32_t ab[4], as[4], bb[2], bs[2];
         split_tf32(va ? a(ra, m0 + g) : 0.f, ab[0], as[0]);
@@ -260,8 +270,8 @@ struct WTiles {
     const int g = lane >> 2, t = lane & 3;
 #pragma unroll
     for (int i = 0; i < kPerWarp; ++i) {
-      const int u = warp + kTW * i;
-      if (kTiles % kTW && u >= kTiles) break;
+      const int u = warp + W * i;
+      if (kTiles % W && u >= kTiles) break;
       const int m = (u / (N / 8)) * 16 + g, n = (u % (N / 8)) * 8 + 2 * t;
       f(m, n, acc[i][0], acc[i][1]);
       f(m + 8, n, acc[i][2], acc[i][3]);

@@ -46,10 +46,8 @@ from ._build import (check_operands, kernel_fn, needs_grad, sm_count,
 # fields an example may have
 KERNEL_SHAPES = frozenset({(32, 4)})
 KERNEL_MAX_FIELDS = 20
-# K6-bwd runs two blocks of 256 threads per SM, and keeps every meta
-# row's gradient sums per block: at most this many rows (kMaxDomains in
-# csrc/gate_block_bwd.cu, which the launch reads back)
-BWD_BLOCKS_PER_SM = 2
+# K6-bwd stages every meta row's table in shared memory: at most this many
+# rows (kMaxDomains in csrc/gate_block_bwd.cu, which the launch reads back)
 BWD_MAX_ROWS = 16
 # the field multiple of the JAX kernel's dropout tile (gate_block.py:382)
 PAD_FIELDS = 8
@@ -109,8 +107,8 @@ def _check(x, head_num: int, D: int, train: bool) -> None:
                          "satrans_gate_block_bwd_max_domains", [])()
         if D > most:
             raise NotImplementedError(
-                f"gate_block_bwd keeps every meta row's gradient sums per "
-                f"block and takes at most {most} rows, got {D}: more meta "
+                f"gate_block_bwd stages every meta row's table in shared "
+                f"memory and takes at most {most} rows, got {D}: more meta "
                 "rows are ROADMAP queue 2 item 'K1-bwd for many meta rows'")
 
 
@@ -163,7 +161,8 @@ def launch_fwd(x, dom, wqkv, tq, tk, wout, lno, cfg, drop):
 def launch_bwd(g, x, dom, wqkv, tq, tk, wout, lno, cfg, drop):
     """K6-bwd: ``(dx, dwqkv, dtq, dtk, dwout, dlno)`` for the upstream
     gradient ``g`` of the layer's output (``dtq``/``dtk`` zero for an
-    unapplied projection)."""
+    unapplied projection).  One block an SM (at most one a tile of the
+    body); the result is deterministic for a grid."""
     bilinear, heads, apply_q, apply_k, relu_out = cfg
     B, F, d = x.shape
     D, width = tq.shape
@@ -171,23 +170,18 @@ def launch_bwd(g, x, dom, wqkv, tq, tk, wout, lno, cfg, drop):
     if g.dtype != torch.float32 or g.shape != x.shape:
         raise ValueError(f"gradient of type {g.dtype} and shape "
                          f"{tuple(g.shape)}, want float32 {tuple(x.shape)}")
-    # every GEMM of the kernel reads its weights row-major [K, N]: the
-    # backward's transposed products get transposed copies (a few kB)
-    wqkv_t = wqkv.t().contiguous()
-    wout_t = wout.t().contiguous()
-    # tiles of two examples
-    blocks = min(BWD_BLOCKS_PER_SM * sm_count(x.device), (B + 1) // 2)
+    blocks = kernel_fn("gate_block_bwd", "satrans_gate_block_bwd_blocks",
+                       [ctypes.c_int] * 3)(B, F, sm_count(x.device))
     total = kernel_fn("gate_block_bwd", "satrans_gate_block_bwd_grad_floats",
                       [ctypes.c_int] * 4)(d, heads, D, bilinear)
     dx = torch.empty_like(x)
     partial = torch.empty(blocks * total, dtype=torch.float32,
                           device=x.device)
     grads = torch.empty(total, dtype=torch.float32, device=x.device)
-    ops = (x, dom, g, wqkv, wqkv_t, tq, tk, wout, wout_t, lno, dx, partial,
-           grads)
+    ops = (x, dom, g, wqkv, tq, tk, wout, lno, dx, partial, grads)
     check_operands(ops, x.device, ints=(dom,))
     fn = kernel_fn("gate_block_bwd", "satrans_gate_block_bwd",
-                   [ctypes.c_void_p] * 13 + [ctypes.c_int] * 11
+                   [ctypes.c_void_p] * 11 + [ctypes.c_int] * 11
                    + [ctypes.c_uint, ctypes.c_uint, ctypes.c_float]
                    + [ctypes.c_int] * 3 + [ctypes.c_void_p])
     err = fn(*(t.data_ptr() for t in ops), B, F, d, heads, D, bilinear,

@@ -1,10 +1,11 @@
 """The meta-transformer layer with per-tile MetaNet weights: Python side
-of K7, the ``TILED`` template body of ``csrc/meta_block_fwd.cu`` (K7-fwd;
-K7-stash, which also writes the backward's residuals) and the ``TILED``
-tile body of ``csrc/meta_stash_bwd.cuh``, launched by
-``csrc/meta_block_bwd.cu`` (K7-bwd, which recomputes the forward;
-K7-bwd-stash, which reads the residuals), twins of
-``satrans_tpu/ops/pallas/tiled_meta.py``.
+of K7, the ``TILED`` template body of ``csrc/meta_block_fwd.cu`` (K7-fwd),
+the ``TILED`` forward tile body of ``csrc/meta_stash_fwd.cuh`` (K7-stash,
+which also writes the backward's residuals; both launched by
+``csrc/meta_block_fwd.cu``) and the ``TILED`` backward tile body of
+``csrc/meta_stash_bwd.cuh``, launched by ``csrc/meta_block_bwd.cu``
+(K7-bwd, which recomputes the forward; K7-bwd-stash, which reads the
+residuals), twins of ``satrans_tpu/ops/pallas/tiled_meta.py``.
 
 The layer runs on a batch that :mod:`satrans_torch.ops.dispatch` has
 sorted into single-domain tiles of ``block_b`` slots: tile ``t`` applies
@@ -13,9 +14,10 @@ the MetaNets of ``tile_tables['Q'][t]`` and ``tile_tables['K'][t]``
 outside this module, so that autograd of that gather carries the
 per-tile gradient blocks back to the ``[R, P]`` tables, as the JAX
 package's gather outside its custom VJP does).  Given the plan's
-``tile_count`` (each tile's occupied slots, its first ones), the
-backward kernels skip the slack slots, whose upstream gradient is zero:
-they get ``dx = 0`` and add nothing to any gradient.
+``tile_count`` (each tile's occupied slots, its first ones), K7-stash
+and the backward kernels skip the slack slots, whose upstream gradient is
+zero: K7-stash writes zeros for their output and residuals, the
+backwards give them ``dx = 0`` and add nothing to any gradient.
 
 * :func:`fused_tiled_layer` - the wrapper.  On a CUDA tensor it launches
   the kernels or raises: with a gradient needed, ``bwd='stash'`` (the
@@ -119,32 +121,51 @@ def _check(x, meta_units, head_num: int, tile_tables,
                          "divides the slots")
 
 
+def _check_tile_count(tile_count, T: int) -> None:
+    if tile_count is not None and tuple(tile_count.shape) != (T,):
+        raise ValueError(f"tile_count of shape {tuple(tile_count.shape)}, "
+                         f"want ({T},)")
+
+
 def launch_fwd(x, wqkv, w1q, wmq, w2q, lnq, w1k, wmk, w2k, lnk, wout, lno,
-               cfg, drop, block_b: int, stash: bool = False):
+               cfg, drop, block_b: int, stash: bool = False,
+               tile_count=None, blocks: int | None = None):
     """K7-fwd: the layer's output for packed operands on tiles of
     ``block_b`` slots (``w1q`` etc. ``[n_tiles, ...]``; ``wmq``/``wmk``
     None for 2-matrix MetaNets); with ``stash`` K7-stash: ``(y, qkv, uq,
     uk, s, o)``.  ``drop`` is ``prng.kernel_args(...)`` with the dispatch
-    tile."""
+    tile.  K7-stash with ``tile_count`` (int32 ``[n_tiles]``,
+    ``DispatchPlan.tile_count``) computes the occupied slots alone and
+    writes zeros for ``y`` and every residual of the slack slots; without
+    it, and K7-fwd always, every slot is computed.  ``blocks`` bounds
+    K7-stash's grid (default: one block an SM)."""
     h, h2, heads, apply_q, apply_k, relu_out = cfg
     n_slots, F, d = x.shape
     T = w1q.shape[0]
     if T * block_b != n_slots:
         raise ValueError(f"{T} tiles of {block_b} slots for {n_slots} slots")
+    _check_tile_count(tile_count, T)
+    count = tile_count if stash else None
     ops = (x, wqkv, w1q, wmq, w2q, lnq, w1k, wmk, w2k, lnk, wout, lno)
-    check_operands(meta_block.present(ops), x.device)
+    check_operands(meta_block.present(ops + (count,)), x.device,
+                   ints=meta_block.present((count,)))
     y = torch.empty_like(x)
     res = tuple(x.new_empty(shape) for shape in meta_block._residual_shapes(
         n_slots, F, d, heads, "full")) if stash else ()
+    if blocks is None:
+        blocks = sm_count(x.device)
+    if blocks < 1:
+        raise ValueError(f"a grid of {blocks} blocks")
     fn = kernel_fn("meta_block_fwd", "satrans_tiled_meta_fwd",
-                   [ctypes.c_void_p] * 18 + [ctypes.c_int] * 13
+                   [ctypes.c_void_p] * 19 + [ctypes.c_int] * 14
                    + [ctypes.c_uint, ctypes.c_uint, ctypes.c_float]
                    + [ctypes.c_int] * 3 + [ctypes.c_void_p])
     mode = "full" if stash else None
-    err = fn(*meta_block.ptrs(ops + (y,)),
+    err = fn(*meta_block.ptrs(ops + (count, y)),
              *meta_block._residual_ptrs(res, mode),
              meta_block._STASH_MODE[mode], n_slots, F, d, h, h2, heads, T,
-             block_b, apply_q, apply_k, relu_out, *drop, stream_of(x))
+             block_b, apply_q, apply_k, relu_out, blocks, *drop,
+             stream_of(x))
     if err:
         raise RuntimeError(f"tiled_meta_fwd launch failed: CUDA error {err}")
     global launches, stash_launches
@@ -185,9 +206,7 @@ def launch_bwd(g, x, wqkv, w1q, wmq, w2q, lnq, w1k, wmk, w2k, lnk, wout,
             raise ValueError(f"residuals of shapes "
                              f"{[tuple(r.shape) for r in res]}, want {want}")
         check_operands(res, x.device)
-    if tile_count is not None and tuple(tile_count.shape) != (T,):
-        raise ValueError(f"tile_count of shape {tuple(tile_count.shape)}, "
-                         f"want ({T},)")
+    _check_tile_count(tile_count, T)
     if blocks is None:
         blocks = sm_count(x.device)
     if blocks < 1:
@@ -258,14 +277,17 @@ class _TiledStashFn(torch.autograd.Function):
     """The layer with K7-stash as its forward and K7-bwd-stash as its
     backward (``bwd='stash'``): the forward saves its inputs and the five
     residuals, 203.4 MB a layer at the AliCCP multicol shape (9984 slots,
-    F=19, d=32)."""
+    F=19, d=32).  With ``tile_count`` both skip the slack slots: the
+    forward writes zeros there, which the head reads, and the backward
+    gives them ``dx = 0``."""
 
     @staticmethod
     def forward(ctx, *args):
         *ops, cfg, drop, block_b, tile_count = args
         ctx.cfg, ctx.drop, ctx.block_b = cfg, drop, block_b
         ctx.tile_count = tile_count
-        y, *res = launch_fwd(*ops, cfg, drop, block_b, stash=True)
+        y, *res = launch_fwd(*ops, cfg, drop, block_b, stash=True,
+                             tile_count=tile_count)
         ctx.save_for_backward(*ops, *res)
         return y
 
@@ -293,8 +315,9 @@ def fused_tiled_layer(x, layer: MetaTransformerLayer, tile_tables, *,
     Differentiable: with a gradient needed on the card, ``bwd`` ('stash'
     or 'recompute', see :func:`bwd_mode`) picks the kernel pair; without,
     K7-fwd runs and nothing is stashed (tiled_meta.py:658-663).
-    ``tile_count`` (the plan's) lets the backward skip the slack slots,
-    whose output the caller never reads (see :func:`launch_bwd`); the CPU
+    ``tile_count`` (the plan's) lets K7-stash and the backward skip the
+    slack slots, whose output the caller reads only through a zero
+    gradient (see :func:`launch_fwd` and :func:`launch_bwd`); the CPU
     path ignores it."""
     bwd = bwd_mode(bwd)
     if x.device.type == "cpu":

@@ -9,10 +9,15 @@ sides), with logits past the clamp and, as the 'pos' model has them, with
 distinct Q and K tables and a ``k_meta`` LayerNorm; K1-bwd-stash light
 against K1-bwd-stash on the same residuals; the gate
 and bilinear layer (K6-fwd, K6-bwd) against ``simple_layer_reference``
-and its autograd; the tiled layer on a slack-heavy dispatch (K7-fwd and
+and its autograd, K6-bwd's tile body also on domain mixes (one row, rows
+alternating example by example, 16 rows) and forced grids of 1, 3 and 7
+blocks; the tiled layer on a slack-heavy dispatch (K7-fwd and
 K7-stash with its residuals, K7-bwd and K7-bwd-stash with the per-tile
 gradient blocks) against ``tiled_layer_reference`` and its autograd, and
-K7-bwd-stash against K7-bwd on the same masks; the K7 backwards' tile
+K7-bwd-stash against K7-bwd on the same masks; K7-stash's tile body with
+the plan's ``tile_count`` against every slot (bit for bit on the occupied
+slots, zeros on the slack ones), on forced grids, and its residuals fed
+to K7-bwd-stash against K7-bwd; the K7 backwards' tile
 body with the plan's ``tile_count`` (slack slots skipped) at F = 15, on
 dispatch tiles of 16, with every occupied tile full and with one domain,
 on forced grids of 1, 3 and 7 blocks (dispatch tiles split between
@@ -689,14 +694,14 @@ def _gate_grads(fn, x, layer, tables, dom, g, **kw):
 @pytest.mark.cuda
 @pytest.mark.parametrize("rate", [0.0, 0.1])
 @pytest.mark.parametrize("variant,mode,relu_out", GATE_CASES)
-@pytest.mark.parametrize("B,F", [(33, 7), (8190, 19)])
+@pytest.mark.parametrize("B,F", [(33, 7), (301, 19), (8190, 19)])
 def test_gate_block_kernels_match_plain_version(card, variant, mode,
                                                 relu_out, B, F, rate):
     """K6-fwd (without a gradient) and K6-fwd + K6-bwd (through the
     autograd wrapper) against the plain layer in float64 with the same
-    masks, at a small and a ragged full-width batch: the output within
-    1e-4, each gradient within 1e-4 of its largest entry plus 1e-5 (sums
-    over up to B * F rows in another order).  Examples whose output
+    masks, at a small, an odd and a ragged full-width batch: the output
+    within 1e-4, each gradient within 1e-4 of its largest entry plus 1e-5
+    (sums over up to B * F rows in another order).  Examples whose output
     projection lies within 1e-6 of the relu kink get no upstream
     gradient."""
     gen, layer, tables = _gate_layer(card, variant, 5)
@@ -739,6 +744,119 @@ def test_gate_block_kernels_match_plain_version(card, variant, mode,
     for name, w in want.items():
         err = (got[name].double() - w).abs().max().item()
         assert err <= 1e-4 * w.abs().max().item() + 1e-5, (name, err)
+
+
+def _gate_case(card, variant, mode, relu_out, rate, B, rows=4, mix=None,
+               seed=6):
+    """A gate or bilinear layer, ``rows``-row tables and a batch of ``B``
+    examples (F = 19) whose domain rows are uniform, or with ``mix`` 'one'
+    all row 2, 'alternate' rows 0 and 1 example by example; the upstream
+    gradient kink-free (see :func:`_gate_reference`).  Returns (layer,
+    tables, x, g, dom, the keyword and dropout arguments)."""
+    gen = make_generator(seed, card)
+    layer = attention.MetaTransformerLayer(gen, 32, variant=variant)
+    names = ("Q", "K") if variant == "gate" else ("bilinear",)
+    width = 32 if variant == "gate" else 32 * 8
+    tables = {n: init.normal(gen, (rows, width), 0.5) for n in names}
+    x = init.normal(gen, (B, 19, 32), 1.0)
+    g = init.normal(gen, (B, 19, 32), 1.0)
+    if mix == "one":
+        dom = torch.full((B,), 2, device=card)
+    elif mix == "alternate":
+        dom = torch.arange(B, device=card) % 2
+    else:
+        dom = torch.randint(0, rows, (B,), generator=gen, device=card)
+    kw = dict(head_num=4, mode=mode, relu_out=relu_out)
+    drop = dict(train=True, drop_rate=rate, **DROP)
+    return layer, tables, x, g, dom, kw, drop
+
+
+def _gate_reference(layer, tables, x, g, dom, kw, drop):
+    """The float64 plain layer's gradients (:func:`_gate_grads`) with the
+    same masks, and the upstream gradient with the examples whose output
+    projection lies within 1e-6 of the relu kink given none."""
+    masks = gate_block.layer_masks(x, head_num=4, **drop)
+    masks64 = masks and tuple(None if m is None else m.double()
+                              for m in masks)
+    layer64 = copy.deepcopy(layer).double()
+    tables64 = {k: t.double() for k, t in tables.items()}
+    if kw["relu_out"]:
+        res = {}
+        with torch.no_grad():
+            attention.meta_transformer_apply(
+                layer64, x.double(), tables64, (), **kw, domain_ids=dom,
+                masks=masks64, clamp=True, residuals=res)
+            near = ((res["o"] @ layer64.wout).abs() < 1e-6).flatten(1).any(1)
+        g = g.masked_fill(near[:, None, None], 0.0)
+    want = _gate_grads(gate_block.simple_layer_reference, x.double(),
+                       layer64, tables64, dom, g.double(), **kw,
+                       masks=masks64)
+    return want, g
+
+
+def _check_gate_grads(got, want):
+    """Each gradient within 1e-4 of its largest entry plus 1e-5 (float32
+    sums over up to B * F rows of 3xTF32 products, in another order)."""
+    assert set(got) == set(want)
+    for name, w in want.items():
+        err = (got[name].double() - w).abs().max().item()
+        assert err <= 1e-4 * w.abs().max().item() + 1e-5, (name, err)
+
+
+# K6-bwd's tile body on domain mixes: one row, rows alternating example by
+# example (a segment an example), and 16 rows
+GATE_MIXES = {"one": dict(mix="one"), "alternate": dict(mix="alternate"),
+              "rows16": dict(rows=16)}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+@pytest.mark.parametrize("variant,mode,relu_out", GATE_CASES[:3])
+@pytest.mark.parametrize("case", sorted(GATE_MIXES))
+def test_gate_bwd_on_domain_mixes(card, case, variant, mode, relu_out,
+                                  rate):
+    """K6-bwd (through the autograd wrapper, after K6-fwd) at B = 2000 on
+    the mixes of ``GATE_MIXES``, gate QK and Query and bilinear, against
+    the float64 plain layer's gradients (:func:`_check_gate_grads`)."""
+    layer, tables, x, g, dom, kw, drop = _gate_case(
+        card, variant, mode, relu_out, rate, 2000, **GATE_MIXES[case])
+    want, g = _gate_reference(layer, tables, x, g, dom, kw, drop)
+    before = gate_block.bwd_launches
+    got = _gate_grads(gate_block.fused_simple_layer, x, layer, tables, dom,
+                      g, **kw, **drop)
+    torch.cuda.synchronize()
+    assert gate_block.bwd_launches == before + 1
+    _check_gate_grads(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("variant,mode", [("gate", "QK"), ("gate", "Query"),
+                                          ("bilinear", "QK")])
+@pytest.mark.parametrize("blocks", [1, 3, 7])
+def test_gate_bwd_forced_grids(card, monkeypatch, blocks, variant, mode):
+    """K6-bwd on forced grids of 1, 3 and 7 blocks at B = 2000, dropout
+    0.1 (each block a longer range of the batch, sorted by domain in the
+    kernel; on one block every sum runs over all 38,000 rows): through
+    the autograd wrapper against the float64 plain layer's gradients
+    (:func:`_check_gate_grads`), and a second launch on the same grid bit
+    for bit."""
+    layer, tables, x, g, dom, kw, drop = _gate_case(
+        card, variant, mode, False, 0.1, 2000, seed=7)
+    want, g = _gate_reference(layer, tables, x, g, dom, kw, drop)
+    monkeypatch.setattr(gate_block, "sm_count", lambda device: blocks)
+    got = _gate_grads(gate_block.fused_simple_layer, x, layer, tables, dom,
+                      g, **kw, **drop)
+    _check_gate_grads(got, want)
+    ops, cfg = gate_block.pack_operands(x, layer, tables, dom, **kw)
+    ops = [t.detach() for t in ops]
+    kargs = prng.kernel_args(True, 0.1, DROP["seed"], DROP["block_b"], 19,
+                             pad_mult=gate_block.PAD_FIELDS)
+    with torch.no_grad():
+        one = gate_block.launch_bwd(g, *ops, cfg, kargs)
+        two = gate_block.launch_bwd(g, *ops, cfg, kargs)
+    torch.cuda.synchronize()
+    for a, b in zip(one, two):
+        assert torch.equal(a, b)
 
 
 # --- K7, the tiled layer on dispatched single-domain tiles --------------
@@ -1029,6 +1147,104 @@ def test_tiled_stash_backward_equals_recompute_backward(card, units, rate):
         stash = tiled_meta.launch_bwd(g, x, *weights, cfg, kargs, TILE,
                                       res=res)
         again = tiled_meta.launch_bwd(g, x, *weights, cfg, kargs, TILE)
+    torch.cuda.synchronize()
+    _close_to(stash, again, 1e-5)
+
+
+# the dispatches of the K7-stash tests: the slack-heavy one and the
+# backward cases
+TILED_STASH_CASES = {"random": {}, **TILED_BWD_CASES}
+
+
+def _tiled_stash_case(card, seed, units, case):
+    """A case of ``TILED_STASH_CASES`` (distinct tables) packed for
+    :func:`tiled_meta.launch_fwd` at dropout 0.1: returns (a function of
+    its keyword arguments that launches K7-stash, the case as
+    :func:`_tiled_case` returns it, the packed weights, cfg and dropout
+    arguments)."""
+    case = _tiled_case(card, seed, True, units=units,
+                       **TILED_STASH_CASES[case])
+    layer, tabs, x, _, _, plan = case
+    weights, cfg = meta_block.pack_weights(layer, tabs, meta_units=units,
+                                           head_num=4)
+    weights = [t if t is None else t.detach() for t in weights]
+    kargs = prng.kernel_args(True, 0.1, DROP["seed"], plan.tile, x.shape[1])
+
+    def run(**extra):
+        with torch.no_grad():
+            return tiled_meta.launch_fwd(x, *weights, cfg, kargs, plan.tile,
+                                         stash=True, **extra)
+    return run, case, weights, cfg, kargs
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("units", [UNITS2, UNITS3],
+                         ids=["2-matrix", "3-matrix"])
+@pytest.mark.parametrize("case", sorted(TILED_STASH_CASES))
+def test_tiled_stash_tile_count_equals_every_slot(card, units, case):
+    """K7-stash with the plan's ``tile_count`` (the occupied slots alone,
+    the model's path) against every slot computed, QK with distinct tables
+    at dropout 0.1: y and every residual bit for bit on the occupied slots
+    (each slot's rows are computed alone), zeros on the slack slots; the
+    every-slot result against the plain tiled layer at K1's tolerance."""
+    run, (layer, tabs, x, _, _, plan), _, _, _ = _tiled_stash_case(
+        card, 16, units, case)
+    every = run()
+    skipped = run(tile_count=plan.tile_count)
+    res = {}
+    with torch.no_grad():
+        want = tiled_meta.tiled_layer_reference(
+            x, layer, tabs, meta_units=units, head_num=4,
+            block_b=plan.tile, residuals=res,
+            masks=tiled_meta.layer_masks(
+                x, head_num=4, mode="QK", train=True, drop_rate=0.1,
+                seed=DROP["seed"], block_b=plan.tile))
+    torch.cuda.synchronize()
+    occ = plan.src >= 0
+    for name, a, b in zip(("y",) + tiled_meta.STASH_RESIDUALS, every,
+                          skipped):
+        assert torch.equal(a[occ], b[occ]), name
+        assert not bool(b[~occ].any()), name
+        torch.testing.assert_close(a, want if name == "y" else res[name],
+                                   rtol=1e-4, atol=1e-4, msg=name)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("units", [UNITS2, UNITS3],
+                         ids=["2-matrix", "3-matrix"])
+@pytest.mark.parametrize("blocks", [1, 3, 7])
+def test_tiled_stash_forced_grids(card, units, blocks):
+    """K7-stash with the plan's ``tile_count`` on forced grids of 1, 3 and
+    7 blocks (each block a longer range of the occupied slots, and the
+    slack's zeros split otherwise): y and every residual bit for bit
+    against the card's grid."""
+    run, (_, _, _, _, _, plan), _, _, _ = _tiled_stash_case(
+        card, 17, units, "random")
+    base = run(tile_count=plan.tile_count)
+    got = run(tile_count=plan.tile_count, blocks=blocks)
+    torch.cuda.synchronize()
+    for name, a, b in zip(("y",) + tiled_meta.STASH_RESIDUALS, base, got):
+        assert torch.equal(a, b), name
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("units", [UNITS2, UNITS3],
+                         ids=["2-matrix", "3-matrix"])
+@pytest.mark.parametrize("case", sorted(TILED_STASH_CASES))
+def test_tiled_stash_skip_feeds_backward(card, units, case):
+    """K7-bwd-stash on the residuals of K7-stash with the plan's
+    ``tile_count`` against K7-bwd recomputing them, both with it (the
+    model's path), on the same masks at dropout 0.1: every gradient within
+    1e-5 of its largest entry, as
+    :func:`test_tiled_stash_backward_equals_recompute_backward`."""
+    run, (_, _, x, g, _, plan), weights, cfg, kargs = _tiled_stash_case(
+        card, 18, units, case)
+    _, *res = run(tile_count=plan.tile_count)
+    with torch.no_grad():
+        stash = tiled_meta.launch_bwd(g, x, *weights, cfg, kargs, plan.tile,
+                                      res=res, tile_count=plan.tile_count)
+        again = tiled_meta.launch_bwd(g, x, *weights, cfg, kargs, plan.tile,
+                                      tile_count=plan.tile_count)
     torch.cuda.synchronize()
     _close_to(stash, again, 1e-5)
 
