@@ -5,19 +5,23 @@
 Phases, each of which exits non-zero on failure:
 
 1. build every CUDA kernel from satrans_torch/csrc (one nvcc per source,
-   all at once, anew); print each tile body (K1's stash kernels, every K1
-   and K7 backward, csrc/meta_stash_{fwd,bwd}.cuh) with its registers and
-   spills (ptxas -v), its dynamic shared memory at F = 19 and 15 and the
-   HMMA instructions in its SASS (cuobjdump -sass; none fails the run);
+   all at once, anew); print each tile body (every K1 and K7 forward and
+   backward, csrc/meta_stash_{fwd,bwd}.cuh, and K6-bwd's) with its
+   registers and spills (ptxas -v), its dynamic shared memory at F = 19
+   and 15 and the HMMA instructions in its SASS (cuobjdump -sass; none
+   fails the run);
 2. hold each layer forward kernel against its plain PyTorch version on
    the card at the AliCCP sota widths (B=8192 and a ragged 8190, F=19,
    d=32, 4 heads, 4 meta rows, MetaNet 32->64->32), in meta modes QK and
    Query with relu_out off and on: K1-fwd, and the output and every
    residual of K1-stash and of K1-stash light, at dropout 0 and (B=8192)
-   at dropout 0.1 with the same masks on both sides; check the keep share
-   of every dropout site (0.9 within 0.005) and time the kernels and the
-   plain version with CUDA events; K1-stash, K1-stash light and K1-scores
-   also on a skewed domain mix (90 / 5 / 5 % over three rows);
+   at dropout 0.1 with the same masks on both sides, and K1-fwd's output
+   against K1-stash's (the no-stash mode of the same tile body: bit for
+   bit expected, a difference reported and held to the tolerance); check
+   the keep share of every dropout site (0.9 within 0.005) and time the
+   kernels and the plain version with CUDA events, K1-fwd also at a
+   request of 512; K1-fwd, K1-stash, K1-stash light and K1-scores also on
+   a skewed domain mix (90 / 5 / 5 % over three rows);
 3. serve 3 requests of 20,000 examples through satrans_torch.serving's
    Predictor at batch 8192 with SATrans at the AliCCP sota width (19
    fields with the real vocab sizes, an ~841 MB embedding bank on the
@@ -96,7 +100,9 @@ Phases, each of which exits non-zero on failure:
    of 4 x 14 = 56 rows, so the batch is dispatched into single-domain
    tiles of 32 and every layer runs K7): (a) K7-fwd, K7-stash (and its
    residuals), K7-bwd-stash and K7-bwd (with the plan's tile_count, as
-   the model calls them: the slack slots skipped) against the plain tiled
+   the model calls them: the slack slots skipped; the forwards also on
+   every slot, K7-fwd's output against K7-stash's, K7-fwd timed at a
+   request of 512 too) against the plain tiled
    layer at the full workload's dispatch (B=8192 in 9984 slots) at
    dropout 0 and 0.1, QK and Query, relu_out off and on, and with
    distinct Q and K tables, the two backwards against each other within
@@ -128,8 +134,8 @@ Phases, each of which exits non-zero on failure:
    defaults into a temporary directory: AUCs, launches, the results row
    and files; the dumped checkpoint restored into a Trainer predicting the
    run's ``_testpred.pkl`` bit for bit on the same path (K1-scores), and
-   ``serving.load`` of it (K1-fwd, another body) within KERNEL_TOL; a
-   ``--finetune True`` run.
+   ``serving.load`` of it (K1-fwd, another mode of the same tile body) bit
+   for bit too; a ``--finetune True`` run.
 
 13. 3-matrix MetaNets (``meta_dnn_hidden_units=(64, 64, 32)``, units
    [32, 64, 64, 32]: the middle matrix in every K1 and K7 body): (a) every
@@ -285,16 +291,19 @@ LAZY_ROWS_PER_STEP = SPARSE_ARMS[2][3]
 # meta_block_{fwd,bwd}.cu launch
 TILE_SOURCES = {n: "satrans_torch/csrc/meta_stash_" + (
     "bwd.cuh" if "bwd" in n else "fwd.cuh") for n in (
-    "meta_block_fwd_stash", "meta_block_fwd_stash_light",
-    "meta_block_fwd_scores", "tiled_meta_fwd_stash", "meta_block_bwd_stash",
+    "meta_block_fwd", "meta_block_fwd_stash", "meta_block_fwd_stash_light",
+    "meta_block_fwd_scores", "tiled_meta_fwd", "tiled_meta_fwd_stash",
+    "meta_block_bwd_stash",
     "meta_block_bwd", "meta_block_bwd_stash_light", "tiled_meta_bwd",
     "tiled_meta_bwd_stash")}
 # the tile bodies (csrc/meta_stash_fwd.cuh, csrc/meta_stash_bwd.cuh) by
 # kernel, mode (enum StashMode) and K7 (TILED), as the JSON line names them
 TILE_BODIES = {
+    ("meta_stash_fwd_kernel", 0, False): "meta_block_fwd",
     ("meta_stash_fwd_kernel", 1, False): "meta_block_fwd_stash",
     ("meta_stash_fwd_kernel", 2, False): "meta_block_fwd_stash_light",
     ("meta_stash_fwd_kernel", 3, False): "meta_block_fwd_scores",
+    ("meta_stash_fwd_kernel", 0, True): "tiled_meta_fwd",
     ("meta_stash_fwd_kernel", 1, True): "tiled_meta_fwd_stash",
     ("meta_stash_bwd_kernel", 0, False): "meta_block_bwd",
     ("meta_stash_bwd_kernel", 1, False): "meta_block_bwd_stash",
@@ -309,10 +318,34 @@ def check(ok: bool, what: str) -> None:
 
 
 def time_ms(fn, iters: int, warmup: int = 3) -> float:
+    """CUDA-event ms per call of ``fn``, the calls queued back to back by
+    the host: a call shorter than the host's time to queue it
+    (:func:`host_ms`) shows the host's pace, which a step's time should
+    (the B = 512 kernel times use :func:`queued_ms`)."""
     for _ in range(warmup):
         fn()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def queued_ms(fn, iters: int = 50) -> float:
+    """CUDA-event ms per call of ``fn`` with the calls queued ahead of the
+    card: the stream sleeps while the host queues them, so that the events
+    time the kernels back to back, not the host's pace (which a kernel
+    shorter than the host's time to queue it would show)."""
+    for _ in range(3):
+        fn()
+    per = host_ms(fn)
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    # twice the host's time for the calls, at 2 GHz or less
+    torch.cuda._sleep(int(2e6 * (2 * per * iters + 1)))
     start.record()
     for _ in range(iters):
         fn()
@@ -378,27 +411,27 @@ def _residual_floats(F, d, heads, stash="full"):
 def meta_layer_bound_ms(B, F, d, h, heads, meta_rows, apply_q, apply_k,
                         stash=None, h2=0, occupied=None,
                         tensor_cores=True):
-    """Least time for one layer forward: its float32 FMA work, and its
-    bytes (x in, y out, dom and the weights read once; with ``stash``
-    'full' or 'light' the residuals of K1-stash or K1-stash light
-    written, with 'scores' K1-scores' probabilities).  The dropout hash's
-    integer work (about 46 k operations an example, 11 us at B=8192 over
-    the card's 33.5 T int32 operations a second) is under a fifth of the
-    float time and left out.  ``h2`` is a 3-matrix MetaNet's second hidden
-    width (0: 2 matrices).  The stash modes (K1's and K7-stash) run the
-    tile bodies, whose products (all but q k^T and p v) are 3xTF32 on the
-    tensor cores; K1-fwd and K7-fwd, and the count with ``tensor_cores``
-    False, run every product on the CUDA cores.  K7-stash computes the
-    ``occupied`` slots of its ``B`` (x read, the work) and writes y and
-    the residuals of all ``B`` (zeros on the slack slots).  Returns (ms,
-    bound_by)."""
+    """Least time for one layer forward: its float work, and its bytes (x
+    in, y out, dom and the weights read once; with ``stash`` 'full' or
+    'light' the residuals of K1-stash or K1-stash light written, with
+    'scores' K1-scores' probabilities).  The dropout hash's integer work
+    (about 46 k operations an example, 11 us at B=8192 over the card's
+    33.5 T int32 operations a second) is under a fifth of the float time
+    and left out.  ``h2`` is a 3-matrix MetaNet's second hidden width (0: 2
+    matrices).  Every mode (K1-fwd and K7-fwd included, since they run on
+    the forward tile body) computes its products (all but q k^T and p v)
+    in 3xTF32 on the tensor cores; the count with ``tensor_cores`` False
+    runs every product on the CUDA cores, as the template body that K1-fwd
+    and K7-fwd first ran on did.  K7 computes the ``occupied`` slots of its
+    ``B`` (x read, the work) and writes y (and the residuals) of all ``B``
+    (zeros on the slack slots).  Returns (ms, bound_by)."""
     n = B if occupied is None else occupied
     nbytes = 4 * (n * F * d + B * F * d + n
                   + _weight_floats(d, h, meta_rows, h2))
     if stash:
         nbytes += 4 * B * _residual_floats(F, d, heads, stash)
     flops = _layer_flops(F, d, h, apply_q, apply_k, h2)
-    mma = flops - 4 * F * F * d if stash and tensor_cores else 0
+    mma = flops - 4 * F * F * d if tensor_cores else 0
     return _bound(n * flops, nbytes, n * mma)
 
 
@@ -522,10 +555,12 @@ def clamp_forward_case(dev):
     share = logit_share_past_clamp(x, layer, table, dom, **kw)
     err = max((y - ref).abs().max().item(), (st - ref).abs().max().item())
     gap = (ref - free).abs().max().item()
+    same, _ = fwd_stash_gap(y, st, "K1-fwd past the clamp")
     print(f"kernel meta_block_fwd, logits past the clamp (share "
           f"{share:.4f}), B={BATCH} QK dropout={DROP_RATE}: K1-fwd and "
           f"K1-stash max_abs_err={err:.3e} against the clamped plain "
-          f"layer; clamped - unclamped plain {gap:.3e}", flush=True)
+          f"layer, K1-fwd's y bit-identical to K1-stash's: {same}; "
+          f"clamped - unclamped plain {gap:.3e}", flush=True)
     check(share > 0.01 and gap > 1e-2, f"the clamp case does not pass 60 "
           f"(share {share}, clamped - unclamped {gap})")
     check(bool(torch.isfinite(y).all()) and torch.allclose(
@@ -546,7 +581,8 @@ def skewed_forward_case(dev):
     """K1-stash, K1-stash light and K1-scores against the plain layer on a
     skewed domain mix (:func:`skewed_dom`; B=8192, QK, dropout 0.1): the
     output and every residual within KERNEL_TOL, the light ones and K1-
-    scores' s equal to K1-stash's.  Returns the worst error."""
+    scores' s equal to K1-stash's, K1-fwd's y to K1-stash's
+    (:func:`fwd_stash_gap`).  Returns the worst error."""
     from satrans_torch.nn import initializers as init
     from satrans_torch.ops import meta_block, prng
     F, d, heads = 19, 32, 4
@@ -565,6 +601,7 @@ def skewed_forward_case(dev):
         st = meta_block.launch_fwd(*ops, cfg, kargs, stash="full")
         lt = meta_block.launch_fwd(*ops, cfg, kargs, stash="light")
         sc = meta_block.launch_fwd(*ops, cfg, kargs, stash="scores")
+        fw = meta_block.launch_fwd(*ops, cfg, kargs)
         ref = meta_block.meta_layer_reference(x, layer, tables, dom, **kw,
                                               masks=masks, residuals=res)
     torch.cuda.synchronize()
@@ -584,12 +621,74 @@ def skewed_forward_case(dev):
           "K1-stash light differs from K1-stash on skewed domains")
     check(torch.equal(sc[0], st[0]) and torch.equal(sc[1], st[4]),
           "K1-scores differs from K1-stash on skewed domains")
+    fwd_stash_gap(fw, st[0], "K1-fwd on skewed domains")
     return max(errs.values())
 
 
 def drop_kw(rate):
     return dict(train=True, drop_rate=rate, seed=DROP_SEED,
                 block_b=DROP_TILE)
+
+
+# the small request of the forwards' timing, beside the full batch
+SMALL_BATCH = 512
+
+
+def k1_fwd_ms(dev, B, units=UNITS2):
+    """K1-fwd at batch ``B`` at the AliCCP sota widths (F=19, d=32, 4
+    heads, QK, 4 meta rows, MetaNets of ``units``; no dropout, as in
+    serving): (its CUDA-event ms with the calls queued ahead,
+    :func:`queued_ms`; the host's ms to queue a call)."""
+    from satrans_torch.nn import initializers as init
+    from satrans_torch.ops import meta_block, prng
+    F = 19
+    gen, layer, table = test_layer(dev, SEED + 70, units)
+    x = init.normal(gen, (B, F, 32), 1.0)
+    dom = torch.randint(0, 4, (B,), generator=gen, device=dev)
+    ops, cfg = meta_block.pack_operands(x, layer, shared(table), dom,
+                                        meta_units=list(units), head_num=4)
+    ops = [t if t is None else t.detach() for t in ops]
+    kargs = prng.kernel_args(False, 0.0, 0, DROP_TILE, F)
+    with torch.no_grad():
+        run = functools.partial(meta_block.launch_fwd, *ops, cfg, kargs)
+        return queued_ms(run), host_ms(run)
+
+
+def k7_fwd_ms(dev, B, units=UNITS2):
+    """K7-fwd on the AliCCP multicol dispatch of a batch of ``B``
+    (:func:`multicol_dispatch`; F=19, QK, no dropout) with the plan's
+    tile_count, as the model calls it: (its CUDA-event ms with the calls
+    queued ahead, the host's ms to queue a call, the slots)."""
+    from satrans_torch.nn import initializers as init, metanet
+    from satrans_torch.ops import dispatch, meta_block, prng, tiled_meta
+    F = 19
+    gen, layer, _ = test_layer(dev, SEED + 71, units)
+    plan = multicol_dispatch(dev, gen, B)
+    table = init.normal(gen, (MULTICOL_ROWS, metanet.param_size(units)),
+                        0.1)[plan.tile_dom.long()]
+    x = dispatch.scatter(init.normal(gen, (B, F, 32), 1.0), plan)
+    weights, cfg = meta_block.pack_weights(layer, shared(table),
+                                           meta_units=list(units),
+                                           head_num=4)
+    weights = [t if t is None else t.detach() for t in weights]
+    kargs = prng.kernel_args(False, 0.0, 0, MULTICOL_TILE, F)
+    with torch.no_grad():
+        run = functools.partial(tiled_meta.launch_fwd, x, *weights, cfg,
+                                kargs, MULTICOL_TILE,
+                                tile_count=plan.tile_count)
+        return queued_ms(run), host_ms(run), plan.n_slots
+
+
+def fwd_stash_gap(y, y_stash, what):
+    """K1-fwd's (K7-fwd's) y against K1-stash's (K7-stash's) on the same
+    inputs and masks: the same instructions compute both, so bit for bit
+    is expected; a difference is reported and held to KERNEL_TOL.  Returns
+    (bit-identical, max_abs_diff)."""
+    same = torch.equal(y, y_stash)
+    gap = (y - y_stash).abs().max().item()
+    check(same or torch.allclose(y, y_stash, **KERNEL_TOL),
+          f"{what}: the no-stash y differs from the stash's by {gap}")
+    return same, gap
 
 
 def _tile_body(mangled: str):
@@ -676,8 +775,10 @@ def tile_body_report():
 
 def kernel_phase(dev):
     """K1-fwd, K1-stash and K1-stash light against the plain version at
-    full width, and the keep share of every dropout site.  Returns the
-    JSON fields measured, by kernel."""
+    full width, K1-fwd's y against K1-stash's (:func:`fwd_stash_gap`),
+    K1-fwd timed at SMALL_BATCH beside the full batch, and the keep share
+    of every dropout site.  Returns the JSON fields measured, by
+    kernel."""
     from satrans_torch.nn import initializers as init
     from satrans_torch.ops import meta_block, prng
 
@@ -689,6 +790,7 @@ def kernel_phase(dev):
     out = {}
     names = ("y", "qkv", "uq", "uk", "s", "o")
     light_names = ("y", "qkv", "uq", "uk", "o")
+    fwd_gaps = []  # K1-fwd's y against K1-stash's: (bit-identical, diff)
     for B in (BATCH, BATCH - 2):
         x = init.normal(gen, (B, F, d), 1.0)
         dom = torch.randint(0, rows, (B,), generator=gen, device=dev)
@@ -727,9 +829,14 @@ def kernel_phase(dev):
                     worst["stash"] = max(worst["stash"], *errs.values())
                     worst["light"] = max(worst["light"],
                                          *light_errs.values())
+                    fwd_gaps.append(fwd_stash_gap(
+                        y, st[0], f"K1-fwd (B={B} mode={mode} relu_out="
+                        f"{relu_out} dropout={rate})"))
                     line = (f"kernel meta_block_fwd B={B} mode={mode} "
                             f"relu_out={relu_out} dropout={rate}: "
-                            f"max_abs_err={err:.3e}; stash max_abs_err "
+                            f"max_abs_err={err:.3e}, y bit-identical to "
+                            f"K1-stash's: {fwd_gaps[-1][0]} (max_abs_diff "
+                            f"{fwd_gaps[-1][1]:.3e}); stash max_abs_err "
                             + " ".join(f"{n} {e:.3e}"
                                        for n, e in errs.items())
                             + "; light stash "
@@ -751,15 +858,19 @@ def kernel_phase(dev):
                         a = ("Q" in mode, "K" in mode)
                         b_ms, b_by = meta_layer_bound_ms(B, F, d, h, heads,
                                                          rows, *a)
+                        cc_ms = meta_layer_bound_ms(B, F, d, h, heads, rows,
+                                                    *a, tensor_cores=False)[0]
                         sb_ms, sb_by = meta_layer_bound_ms(
                             B, F, d, h, heads, rows, *a, stash="full")
                         line += (f"; K1-fwd kernel_ms={k_ms:.4f} K1-stash "
                                  f"kernel_ms={s_ms:.4f} K1-stash light "
                                  f"kernel_ms={l_ms:.4f} plain_ms={p_ms:.4f} "
-                                 f"bound_ms={b_ms:.4f} ({b_by}), stash "
-                                 f"{sb_ms:.4f} ({sb_by})")
+                                 f"bound_ms={b_ms:.4f} ({b_by}; every "
+                                 f"product on the CUDA cores {cc_ms:.4f}), "
+                                 f"stash {sb_ms:.4f} ({sb_by})")
                         out[("fwd", rate)] = dict(ms=k_ms, plain_ms=p_ms,
-                                                  bound_ms=b_ms, bound_by=b_by)
+                                                  bound_ms=b_ms, bound_by=b_by,
+                                                  cuda_core_bound_ms=cc_ms)
                         out[("stash", rate)] = dict(ms=s_ms, plain_ms=p_ms,
                                                     bound_ms=sb_ms,
                                                     bound_by=sb_by)
@@ -787,6 +898,13 @@ def kernel_phase(dev):
                               f"relu_out={relu_out} dropout={rate}, "
                               f"max_abs_err {light_errs[n]}, tolerance "
                               f"{tol})")
+    small_ms, small_host = k1_fwd_ms(dev, SMALL_BATCH)
+    same = sum(g[0] for g in fwd_gaps)
+    print(f"kernel meta_block_fwd: y bit-identical to K1-stash's in {same} "
+          f"of {len(fwd_gaps)} cases (largest difference "
+          f"{max(g[1] for g in fwd_gaps):.3e}); B={SMALL_BATCH} kernel_ms="
+          f"{small_ms:.4f} (the host queues a call in {small_host:.4f} ms)",
+          flush=True)
     clamp_err = clamp_forward_case(dev)
     worst["fwd"] = max(worst["fwd"], clamp_err)
     worst["stash"] = max(worst["stash"], clamp_err)
@@ -805,7 +923,10 @@ def kernel_phase(dev):
           f"a dropout site's keep share is off 0.9 by more than "
           f"{KEEP_SHARE_TOL}: {shares}")
     return dict(fwd=dict(max_abs_err=worst["fwd"], **out[("fwd", 0.0)],
-                         dropout_ms=out[("fwd", DROP_RATE)]["ms"]),
+                         dropout_ms=out[("fwd", DROP_RATE)]["ms"],
+                         small_batch_ms=small_ms,
+                         bit_identical_to_stash=f"{same} of {len(fwd_gaps)}",
+                         max_abs_diff_vs_stash=max(g[1] for g in fwd_gaps)),
                 stash=dict(max_abs_err=worst["stash"],
                            **out[("stash", DROP_RATE)],
                            no_dropout_ms=out[("stash", 0.0)]["ms"]),
@@ -2174,6 +2295,9 @@ def pos_kernel_phase(dev):
                     x, layer, tables, dom, **kw, masks=masks, residuals=res)
             torch.cuda.synchronize()
             errs = {"meta_block_fwd": (y - ref).abs().max().item()}
+            fwd_same, fwd_gap = fwd_stash_gap(
+                y, st["full"][0], f"K1-fwd at the Alimama widths (B={B} "
+                f"dropout={rate})")
             for s, name in (("full", "meta_block_fwd_stash"),
                             ("light", "meta_block_fwd_stash_light")):
                 got, want = st[s], (ref, *(res[n] for n in names[s]))
@@ -2223,7 +2347,9 @@ def pos_kernel_phase(dev):
                 worst[n] = max(worst[n], e)
             line = (f"kernel pos B={B} F={F} dropout={rate}: " + ", ".join(
                 f"{n} {e:.3e}" for n, e in errs.items())
-                + f" ({kinks} examples at a kink left out); light vs full "
+                + f" ({kinks} examples at a kink left out); K1-fwd's y "
+                f"bit-identical to K1-stash's: {fwd_same} (max_abs_diff "
+                f"{fwd_gap:.3e}); light vs full "
                 f"backward {max(gaps):.3e} of the largest entry, {same} of "
                 f"{len(gf)} gradients bit-identical")
             if B == BATCH:  # the serving (0) and training (0.1) widths
@@ -2465,8 +2591,10 @@ def multicol_dispatch(dev, gen, B=BATCH):
 
 def tiled_kernel_phase(dev, units=UNITS2, cases=None):
     """Phase 11a (13a with 3-matrix ``units``, on the given ``cases`` of
-    (mode, relu_out, rate, pos)): K7-fwd, K7-stash (output and every
-    residual),
+    (mode, relu_out, rate, pos)): K7-fwd (on every slot, and with the
+    plan's tile_count on the occupied slots, zeros on the slack ones; its
+    y against K7-stash's, :func:`fwd_stash_gap`; timed at SMALL_BATCH
+    too), K7-stash (output and every residual),
     K7-bwd-stash and K7-bwd against the plain tiled layer at the AliCCP
     multicol workload's dispatch (B=8192 in 9984 slots of 312 tiles; F=19,
     56 table rows gathered per tile), in QK and Query with relu_out off
@@ -2504,8 +2632,10 @@ def tiled_kernel_phase(dev, units=UNITS2, cases=None):
     x = dispatch.scatter(init.normal(gen, (BATCH, F, d), 1.0), plan)
     g_all = dispatch.scatter(init.normal(gen, (BATCH, F, d), 1.0), plan)
     rows = tiled_meta.tile_rows(plan.n_slots, MULTICOL_TILE, dev)
+    occ = plan.src >= 0
     worst = dict.fromkeys(K7_NAMES, 0.0)
     out = {}
+    fwd_gaps = []  # K7-fwd's y against K7-stash's: (bit-identical, diff)
     if cases is None:
         cases = [(mode, relu_out, rate, False) for mode in ("QK", "Query")
                  for relu_out in (False, True) for rate in (0.0, DROP_RATE)]
@@ -2524,6 +2654,9 @@ def tiled_kernel_phase(dev, units=UNITS2, cases=None):
         res = {}
         with torch.no_grad():
             y = tiled_meta.fused_tiled_layer(x, lay, tabs, **kw, **drop)
+            # K7-fwd on the model's path: the occupied slots alone
+            fs = tiled_meta.fused_tiled_layer(x, lay, tabs, **kw, **drop,
+                                              tile_count=plan.tile_count)
             st = tiled_meta.launch_fwd(x, *weights, cfg, kargs,
                                        MULTICOL_TILE, stash=True)
             # the model's path: the occupied slots alone, zeros elsewhere
@@ -2534,9 +2667,18 @@ def tiled_kernel_phase(dev, units=UNITS2, cases=None):
                 x, lay, tabs, **kw, block_b=MULTICOL_TILE, masks=masks,
                 residuals=res)
         torch.cuda.synchronize()
-        errs = {"tiled_meta_fwd": (y - ref).abs().max().item()}
+        errs = {"tiled_meta_fwd": max(
+            (y - ref).abs().max().item(),
+            (fs[occ] - ref[occ]).abs().max().item())}
+        what = (f"mode={mode} relu_out={relu_out} dropout={rate} "
+                f"pos={pos}{tag}")
+        fwd_gaps.append(fwd_stash_gap(y, st[0], f"K7-fwd ({what})"))
+        fwd_skip_same = torch.equal(fs[occ], y[occ])
+        check(fwd_skip_same or torch.allclose(fs[occ], y[occ], **KERNEL_TOL),
+              f"K7-fwd with tile_count differs from every slot ({what})")
+        check(not bool(fs[~occ].any()), f"K7-fwd with tile_count left a "
+              f"nonzero y on a slack slot ({what})")
         want = (ref, *(res[n] for n in tiled_meta.STASH_RESIDUALS))
-        occ = plan.src >= 0
         errs["tiled_meta_fwd_stash"] = max(
             max((a - b).abs().max().item(), (c[occ] - b[occ]).abs().max()
                 .item()) for a, c, b in zip(st, sk, want))
@@ -2593,7 +2735,11 @@ def tiled_kernel_phase(dev, units=UNITS2, cases=None):
                 f"{slack} slack slots, whose gradient is zero); stash vs "
                 f"recompute backward max_abs_diff {gap:.3e}; K7-stash on "
                 f"the occupied slots vs every slot max_abs_diff "
-                f"{skip_gap:.3e}, its slack slots zero")
+                f"{skip_gap:.3e}, its slack slots zero; K7-fwd's y "
+                f"bit-identical to K7-stash's: {fwd_gaps[-1][0]} "
+                f"(max_abs_diff {fwd_gaps[-1][1]:.3e}), on the occupied "
+                f"slots to every slot: "
+                f"{fwd_skip_same}, its slack slots zero")
         if mode == "QK" and not relu_out and not pos:
             # the serving (0) and training (0.1) configurations
             with torch.no_grad():
@@ -2602,27 +2748,25 @@ def tiled_kernel_phase(dev, units=UNITS2, cases=None):
                     iters=10)
                 for stash, name in ((False, "tiled_meta_fwd"),
                                     (True, "tiled_meta_fwd_stash")):
-                    # K7-stash on the model's path (tile_count) and on
-                    # every slot
+                    # K7-fwd and K7-stash on the model's path (tile_count)
+                    # and on every slot
                     ms = time_ms(lambda: tiled_meta.launch_fwd(
                         x, *weights, cfg, kargs, MULTICOL_TILE,
                         stash=stash, tile_count=plan.tile_count), iters=50)
+                    mode_ = "full" if stash else None
                     b_ms, b_by = meta_layer_bound_ms(
                         plan.n_slots, F, d, h, heads, T, 1, 1,
-                        stash="full" if stash else None, h2=h2,
-                        occupied=occupied if stash else None)
+                        stash=mode_, h2=h2, occupied=occupied)
                     out[(name, rate)] = dict(ms=ms, plain_ms=p_ms,
                                              bound_ms=b_ms, bound_by=b_by)
-                    if stash:
-                        out[(name, rate)].update(
-                            every_slot_ms=time_ms(
-                                lambda: tiled_meta.launch_fwd(
-                                    x, *weights, cfg, kargs, MULTICOL_TILE,
-                                    stash=True), iters=50),
-                            cuda_core_bound_ms=meta_layer_bound_ms(
-                                plan.n_slots, F, d, h, heads, T, 1, 1,
-                                stash="full", h2=h2,
-                                tensor_cores=False)[0])
+                    out[(name, rate)].update(
+                        every_slot_ms=time_ms(
+                            lambda: tiled_meta.launch_fwd(
+                                x, *weights, cfg, kargs, MULTICOL_TILE,
+                                stash=stash), iters=50),
+                        cuda_core_bound_ms=meta_layer_bound_ms(
+                            plan.n_slots, F, d, h, heads, T, 1, 1,
+                            stash=mode_, h2=h2, tensor_cores=False)[0])
             xr = x.detach().requires_grad_(True)
             tr = tabs["Q"].detach().requires_grad_(True)
             inputs = [xr, tr, *lay.parameters()]
@@ -2661,10 +2805,11 @@ def tiled_kernel_phase(dev, units=UNITS2, cases=None):
                 f"{out[(n, rate)]['bound_ms']:.4f}" for n in K7_NAMES) + (
                 "; on every slot (no tile_count) " + ", ".join(
                     f"{n} {out[(n, rate)]['every_slot_ms']:.4f} ms"
-                    for n in K7_NAMES[1:])
-                + "; K7-stash's bound with every slot's products on the "
-                "CUDA cores " + format(out[("tiled_meta_fwd_stash", rate)][
-                    "cuda_core_bound_ms"], ".4f") + " ms"
+                    for n in K7_NAMES)
+                + "; the forwards' bounds with every slot's products on "
+                "the CUDA cores " + ", ".join(
+                    f"{n} {out[(n, rate)]['cuda_core_bound_ms']:.4f} ms"
+                    for n in K7_NAMES[:2])
                 + "; " + ", ".join(
                     f"{n} split {out[(n, rate)]['split_tiles']} boundary "
                     f"tiles between two of its {grid} blocks"
@@ -2672,6 +2817,13 @@ def tiled_kernel_phase(dev, units=UNITS2, cases=None):
                 + f"; plain forward {p_ms:.4f} ms, backward {pb_ms:.4f} ms")
         print(line, flush=True)
         del st, grads, want_g
+    small_ms, small_host, small_slots = k7_fwd_ms(dev, SMALL_BATCH, units)
+    same = sum(g[0] for g in fwd_gaps)
+    print(f"kernel tiled_meta_fwd{tag}: y bit-identical to K7-stash's in "
+          f"{same} of {len(fwd_gaps)} cases (largest difference "
+          f"{max(g[1] for g in fwd_gaps):.3e}); B={SMALL_BATCH} "
+          f"({small_slots} slots) kernel_ms={small_ms:.4f} (the host "
+          f"queues a call in {small_host:.4f} ms)", flush=True)
     fields = {}
     for name in K7_NAMES:
         t0, t1 = out[(name, 0.0)], out[(name, DROP_RATE)]
@@ -2679,7 +2831,10 @@ def tiled_kernel_phase(dev, units=UNITS2, cases=None):
         fields[name] = dict(max_abs_err=worst[name], **main,
                             n_slots=plan.n_slots, tiles=T)
         if name == "tiled_meta_fwd":
-            fields[name]["dropout_ms"] = t1["ms"]
+            fields[name].update(
+                dropout_ms=t1["ms"], small_batch_ms=small_ms,
+                bit_identical_to_stash=f"{same} of {len(fwd_gaps)}",
+                max_abs_diff_vs_stash=max(g[1] for g in fwd_gaps))
         else:
             fields[name]["no_dropout_ms"] = t0["ms"]
     return fields
@@ -2830,7 +2985,8 @@ def scores_kernel_phase(dev):
     0.1: the output within KERNEL_TOL, the probabilities within
     SCORES_TOL of the plain layer's clamped ones, each row summing to 1
     within ROW_SUM_TOL, and equal bit for bit to K1-stash's ``s`` on the
-    same inputs.  Times K1-scores beside K1-fwd and K1-stash, at B = 8192
+    same inputs, the output to K1-fwd's.  Times K1-scores beside K1-fwd
+    and K1-stash, at B = 8192
     and at the probes' 32,768.  Returns the JSON fields."""
     from satrans_torch.nn import initializers as init
     from satrans_torch.ops import meta_block, prng
@@ -2934,6 +3090,8 @@ def scores_kernel_phase(dev):
                                           stash_ms=t["stash"])
     print(f"K1-scores: y bit-identical to K1-fwd's in {sum(same_y)} of "
           f"{len(same_y)} cases", flush=True)
+    check(all(same_y), "K1-scores' y differs from K1-fwd's, another mode of "
+          "the same tile body")
     return dict(max_abs_err=max(worst["y"], worst["s"]),
                 scores_max_abs_err=worst["s"], **out[BATCH],
                 probe_batch_ms=out[PROBE_BATCH]["ms"])
@@ -3068,7 +3226,7 @@ def cli_phase(dev, card):
     dump; the dumped checkpoint restored into a Trainer (its predictions
     on the probes' path equal the run's ``_testpred.pkl`` bit for bit, its
     Predictor's equal ``serving.load``'s bit for bit, both on K1-fwd, and
-    those lie within SERVING_TOL of ``_testpred.pkl``); then a
+    those equal ``_testpred.pkl`` bit for bit); then a
     ``--finetune True`` run from it.  Returns the launches
     by path and kernel."""
     import pickle
@@ -3151,10 +3309,10 @@ def cli_phase(dev, card):
         # csrc/meta_stash_fwd.cuh): the checkpoint restored into a Trainer
         # of its own model gives it bit for bit on that path, and served
         # through a Predictor (K1-fwd, as serving.load serves) gives
-        # serving.load's predictions bit for bit.  K1-fwd runs float32 FMAs
-        # where the tile body runs 3xTF32 products, so the served and the
-        # dumped predictions agree within SERVING_TOL, as every served
-        # score in this script does.
+        # serving.load's predictions bit for bit.  K1-fwd is the no-stash
+        # mode of the same tile body, whose y equals K1-scores' bit for
+        # bit, so the served predictions equal the dumped ones bit for bit
+        # too.
         from satrans_torch.train import Trainer, checkpoint
         from satrans_torch.train.attention_probe import \
             predict_with_attention
@@ -3184,8 +3342,8 @@ def cli_phase(dev, card):
               "predictions on the probes' path differ from the dumped ones")
         check(np.array_equal(served, resaved), "serving.load's predictions "
               "differ from the restored Trainer's Predictor's")
-        check(diff <= SERVING_TOL, f"the served predictions differ from the "
-              f"dumped ones by {diff} > {SERVING_TOL}")
+        check(np.array_equal(served, pred), f"the served predictions "
+              f"differ from the dumped ones by {diff}")
         paths["cli_serving_load"] = counts
         del restored
         del model, pred_serv
@@ -3277,6 +3435,8 @@ def metanet3_layer_phase(dev):
         check(bool(torch.isfinite(y).all()) and torch.allclose(
             y, ref, **KERNEL_TOL), f"3-matrix K1-fwd disagrees with the "
             f"plain layer ({what}, max_abs_err {errs['meta_block_fwd']})")
+        fwd_same, fwd_gap = fwd_stash_gap(y, st["full"][0],
+                                          f"3-matrix K1-fwd ({what})")
         for s, name in (("full", "meta_block_fwd_stash"),
                         ("light", "meta_block_fwd_stash_light"),
                         ("scores", "meta_block_fwd_scores")):
@@ -3308,7 +3468,9 @@ def metanet3_layer_phase(dev):
             worst[n] = max(worst[n], e)
         line = (f"kernel 3-matrix {what}: " + ", ".join(
             f"{n} {e:.3e}" for n, e in errs.items())
-            + f" ({kinks} examples at a kink left out)")
+            + f" ({kinks} examples at a kink left out); K1-fwd's y "
+            f"bit-identical to K1-stash's: {fwd_same} (max_abs_diff "
+            f"{fwd_gap:.3e})")
         if B == BATCH and F == 19 and mode == "QK":
             with torch.no_grad():
                 p_ms = time_ms(lambda: meta_block.meta_layer_reference(

@@ -231,7 +231,7 @@ def build_model(args, layout, domain_col_list, num_domains_list, flag, *,
     if args.model_name != "SATrans":
         raise NotImplementedError(
             f"model {args.model_name!r}: the port's CLI builds SATrans only; "
-            "the other models are ROADMAP queue 1 item 9 'Other models'")
+            "the other models are ROADMAP queue 1 item 'Other models'")
     return SATrans(layout, domain_col_list, num_domains_list,
                    domain_att_layer_num=args.domain_att_layer_num,
                    att_head_num=args.att_head_num, meta_mode=args.meta_mode,
@@ -247,19 +247,19 @@ def build_model(args, layout, domain_col_list, num_domains_list, flag, *,
 
 def _unported(args) -> None:
     """Raise for the JAX CLI's options the port does not have yet."""
-    item11 = "ROADMAP queue 1 item 11 'parallel/ -> torch.distributed'"
+    parallel = "ROADMAP queue 1 item 'parallel/ → torch.distributed'"
     if args.mesh != "none":
-        raise NotImplementedError(f"--mesh {args.mesh}: {item11}")
+        raise NotImplementedError(f"--mesh {args.mesh}: {parallel}")
     if args.coordinator_address is not None:
-        raise NotImplementedError(f"--coordinator_address: {item11}")
+        raise NotImplementedError(f"--coordinator_address: {parallel}")
     if args.shard_embeddings:
-        raise NotImplementedError(f"--shard_embeddings True: {item11}")
+        raise NotImplementedError(f"--shard_embeddings True: {parallel}")
     if args.embedding_exchange != "xla":
         raise NotImplementedError(
-            f"--embedding_exchange {args.embedding_exchange}: {item11}")
+            f"--embedding_exchange {args.embedding_exchange}: {parallel}")
     if args.bank_update == "lazy_stale":
         raise NotImplementedError(
-            "--bank_update lazy_stale: ROADMAP queue 1 item 12 'lazy_stale'")
+            "--bank_update lazy_stale: ROADMAP queue 1 item 'lazy_stale'")
 
 
 def main(argv=None, *, device="cuda"):

@@ -2,9 +2,9 @@
 // meta_block_bwd.cu and the tile bodies meta_stash_fwd.cuh,
 // meta_stash_bwd.cuh) and K6 (gate_block_fwd.cu, gate_block_bwd.cu).
 //
-// In the template forwards (K1-fwd, K7-fwd, K6-fwd) an example's F rows
-// are worked on by a warp: the small GEMMs give a thread a register tile of
-// 4 adjacent columns x a few rows (Tile).  The LayerNorms reduce across a
+// In the template forward (K6-fwd) an example's F rows are worked on by a
+// warp: the small GEMMs give a thread a register tile of 4 adjacent
+// columns x a few rows (Tile).  The LayerNorms reduce across a
 // row's N/4 threads with shuffles, the backwards' blocks sum parameter
 // gradients with one owner per element and sum_partials adds the blocks'
 // sums in order, and the attention passes give a thread (head, row) pairs
@@ -165,35 +165,6 @@ __device__ __forceinline__ void tile_gemm(const float* act, int as,
           acc[i][3] = fmaf(av, wk[u].w, acc[i][3]);
         }
       }
-    }
-  }
-}
-
-// One MetaNet matrix on the F rows of an example over a group of G
-// threads: out[f][n] = r(sum_k a(act[f][k]) w[k][n]), a = relu if RELU_IN
-// and r = relu if RELU_OUT, act and out in shared memory (row strides as
-// and os), w [K][N] in global memory.  before_store() runs between the
-// GEMM, whose sums stay in registers, and the stores, so that out may
-// overwrite act after a barrier there.
-template <int G, int K, int N, bool RELU_IN, bool RELU_OUT, typename Sync>
-__device__ __forceinline__ void metanet_matrix(const float* act, int as,
-                                               const float* __restrict__ w,
-                                               int F, int t, float* out,
-                                               int os, Sync before_store) {
-  using T = Tile<N, G>;
-  float acc[T::RPL][4];
-  tile_gemm<G, K, N, RELU_IN>(act, as, w, N, F, t, acc);
-  before_store();
-  const int col = 4 * (t % T::LPR), rs = t / T::LPR;
-#pragma unroll
-  for (int i = 0; i < T::RPL; ++i) {
-    const int f = rs + T::RS * i;
-    if (f < F) {
-      float v[4];
-#pragma unroll
-      for (int c = 0; c < 4; ++c)
-        v[c] = RELU_OUT ? fmaxf(acc[i][c], 0.f) : acc[i][c];
-      st4(out + f * os + col, v);
     }
   }
 }

@@ -1,29 +1,33 @@
-// K1-stash, K1-stash light, K1-scores and (TILED) K7-stash on Hopper: the
-// tile body of the layer forward that writes the backward's residuals
-// (included by csrc/meta_block_fwd.cu, whose C entries launch it for
-// those modes).
+// The layer forward on Hopper, every mode of it: K1-fwd, K1-stash,
+// K1-stash light, K1-scores and (TILED) K7-fwd and K7-stash, the tile
+// body that csrc/meta_block_fwd.cu's C entries launch.
 //
-// Replaces satrans_tpu/ops/pallas/meta_block.py's _fwd_kernel_stash
-// (:420), launched by _fwd_call (:1177) through pl.pallas_call (:1212) on
-// the body _fwd_compute, in its three uses: the full stash (stash_s=True;
-// K1-stash, mode kFullStash, the JAX package's bwd='stash'), the light one
-// (stash_s=False; K1-stash light, kLightStash, bwd='stash_light') and
-// fused_meta_layer_with_scores (:502 -> _fused_stash_forward :542; K1-
+// Replaces satrans_tpu/ops/pallas/meta_block.py's _fwd_kernel (:404;
+// K1-fwd, mode kNoStash, the forward of serving, evaluation and the JAX
+// package's bwd='recompute') and _fwd_kernel_stash (:420), both launched by
+// _fwd_call (:1177) through pl.pallas_call (:1212) on the body
+// _fwd_compute, the latter in its three uses: the full stash
+// (stash_s=True; K1-stash, kFullStash, the JAX package's bwd='stash'), the
+// light one (stash_s=False; K1-stash light, kLightStash, bwd='stash_light')
+// and fused_meta_layer_with_scores (:502 -> _fused_stash_forward :542; K1-
 // scores, kScores, the attention probes), which keeps y and the
 // probabilities alone.  The function per example is meta_block_fwd.cu's;
 // the residuals are qkv [B, F, 3d], uq and uk [B, F, d], the probabilities
 // P [B, H, F, F] before dropout and o [B, F, d], in the batch's order.
+// kNoStash writes y alone, by the same instructions as the stash modes, so
+// its y equals theirs bit for bit.
 //
 // What bounds it.  At the AliCCP sota shape (B = 8192, F = 19, d = 32,
-// h = 64, 4 heads, QK) the layer is 0.5 MFLOP an example and K1-stash
-// writes 20.4 kB of residuals an example besides x in and y out: 207 MB a
-// launch, 62 us at 3.35 TB/s, against 23 us of its products in 3xTF32 at the
-// tensor cores' TF32 peak and 6 us of attention at the float32 one.  The
-// template body these modes first ran on (one warp an example, a 4-column
-// x few-row register tile a lane, the weights read through L1 by every
-// example) took 0.32 ms: its products masked 40 % of their FMA slots (19
-// rows over 32 row slots), issued about one load per FMA, and every
-// example re-read its domain's MetaNet matrices.
+// h = 64, 4 heads, QK) the layer is 0.5 MFLOP an example: 23 us of its
+// products in 3xTF32 at the tensor cores' TF32 peak and 6 us of attention
+// at the float32 one.  K1-fwd moves x in and y out (10 MB, 3 us at 3.35
+// TB/s); K1-stash writes 20.4 kB of residuals an example besides: 207 MB a
+// launch, 62 us.  The template body these modes first ran on (one warp an
+// example, a 4-column x few-row register tile a lane, the weights read
+// through L1 by every example) took 0.32 ms for K1-stash and 0.22 for
+// K1-fwd: its products masked 40 % of their FMA slots (19 rows over 32 row
+// slots), issued about one load per FMA, and every example re-read its
+// domain's MetaNet matrices.
 //
 // Design.  A block of 384 threads owns a tile of E = 96 / F examples (5 at F =
 // 19: 95 rows) of the batch sorted by domain (csrc/stash_tile.cuh), one block
@@ -39,26 +43,29 @@
 // activations; a 3-matrix MetaNet has room for its MetaNet's halves only, and
 // Wqkv and Wout stay float32.  Distinct Q and K tables (the pos tables) keep
 // each MetaNet's block in a region of its own where the shared memory holds
-// two (2-matrix: K1-stash light at every F), so that a tile in the last one's
-// domain stages nothing; else the MetaNet staged last goes first.  x comes in
-// by 16-byte cp.async copies into two buffers, so that the next tile's x loads
-// while this tile computes (one buffer with a 3-matrix MetaNet, whose h2 lies
-// over the probabilities' buffer).  An item's LayerNorm epilogue runs beside
-// the next item's first product.  The LayerNorms (8 threads a row, shuffles),
-// the dropout masks (csrc/dropout.cuh, keyed on each example's own index in
-// the batch, never its sorted place; each slot's draw computed once a tile)
-// and the attention (attention_fwd_pair, a thread a (head, row) pair, all
-// pairs in one round) stay on the CUDA cores in float32 with the first body's
-// device code, so K1-scores' P equals K1-stash's bit for bit.  The residuals
-// and y go out as whole rows of float4s (P as each example's contiguous [H, F,
-// F]), back in the batch's order.  Shared memory at F = 19: 211 KiB (K1-stash,
-// K1-scores), 182 KiB (K1-stash light; 220 KiB with the second MetaNet
-// region); 215 and 212 KiB with a 3-matrix MetaNet.
+// two (2-matrix: K1-fwd and K1-stash light at every F), so that a tile in the
+// last one's domain stages nothing; else the MetaNet staged last goes first.
+// x comes in by 16-byte cp.async copies into two buffers, so that the next
+// tile's x loads while this tile computes (one buffer with a 3-matrix
+// MetaNet, whose h2 lies over the probabilities' buffer, sized for h2 alone
+// where no mode keeps P).  An item's LayerNorm epilogue runs beside the next
+// item's first product.  The LayerNorms (8 threads a row, shuffles), the
+// dropout masks (csrc/dropout.cuh, keyed on each example's own index in the
+// batch, never its sorted place, so that K1-bwd's recomputed forward draws
+// the same; each slot's draw computed once a tile) and the attention
+// (attention_fwd_pair, a thread a (head, row) pair, all pairs in one round)
+// stay on the CUDA cores in float32 with the first body's device code, so
+// K1-scores' P equals K1-stash's bit for bit.  The residuals and y go out as
+// whole rows of float4s (P as each example's contiguous [H, F, F]), back in
+// the batch's order.  Shared memory at F = 19: 211 KiB (K1-stash,
+// K1-scores), 182 KiB (K1-fwd, K1-stash light; 220 KiB with the second
+// MetaNet region); 215 and 212 KiB with a 3-matrix MetaNet.
 //
-// K7-stash (TILED).  With TILED it replaces satrans_tpu/ops/pallas/
-// tiled_meta.py's _fwd_kernel_stash (:155), launched by _fwd_call (:521)
-// through pl.pallas_call (:546) on the body _fwd_compute (:92): the layer
-// and its full stash on the slots of dispatched single-domain tiles
+// K7 (TILED).  With TILED it replaces satrans_tpu/ops/pallas/tiled_meta.py's
+// _fwd_kernel (:141; K7-fwd, kNoStash) and _fwd_kernel_stash (:155;
+// K7-stash, kFullStash), launched by _fwd_call (:521) through
+// pl.pallas_call (:546) on the body _fwd_compute (:92): the layer (and its
+// full stash) on the slots of dispatched single-domain tiles
 // (ops/dispatch.py; tile t of tile_b slots takes the MetaNet block of row t
 // of the per-tile [T, d, h], [T, h, h2] and [T, HL, d] weights), the masks
 // keyed on each slot's index with the dispatch tile as the dropout's tile.
@@ -67,12 +74,12 @@
 // a segment as K1's domain block is.  The blocks walk contiguous ranges of
 // whole body tiles of the occupied slots (the first count[t] of tile t,
 // occupied_window in csrc/stash_tile.cuh; every slot when count is null),
-// and write y and the residuals in slot order; y and every residual of
+// and write y (and the residuals) in slot order; y and every residual of
 // the slack slots are written as zeros (the head reads every slot, and its
 // weight gradient multiplies each slot's zero upstream gradient by them).
-// The template body this mode first ran on (csrc/meta_block_fwd.cu: a warp
-// an example, no tensor cores, every slot computed) took 0.43 ms at the
-// AliCCP multicol shape on the H100.
+// The template body both modes first ran on (a warp an example, no tensor
+// cores, every slot computed) took 0.29 ms (K7-fwd) and 0.43 ms (K7-stash)
+// at the AliCCP multicol shape on the H100.
 
 #pragma once
 
@@ -150,10 +157,11 @@ __global__ void __launch_bounds__(FwdTile<SH>::TT, 1)
   constexpr int HL = SH::HL;
   using L = FwdTile<SH>;
   // the residuals qkv, uq, uk and o; the probabilities
-  constexpr bool STASH = MODE != kScores;
-  constexpr bool STASH_S = MODE != kLightStash;
+  constexpr bool STASH = MODE == kFullStash || MODE == kLightStash;
+  constexpr bool STASH_S = MODE == kFullStash || MODE == kScores;
   static_assert(DM == 4 * kRowThreads, "epilogues take rows of 32");
-  static_assert(MODE == kFullStash || !TILED, "K7 has the full stash alone");
+  static_assert(MODE == kFullStash || MODE == kNoStash || !TILED,
+                "K7 has no light stash and no scores");
 
   extern __shared__ __align__(16) unsigned char smem[];
   const TileHeader hd(smem);
@@ -441,8 +449,9 @@ __global__ void __launch_bounds__(FwdTile<SH>::TT, 1)
     }
   }
   // K7: y and every residual of the slack slots (the last tile_b - count[t]
-  // of tile t) are zeros, finite for the head that reads every slot; the
-  // blocks take the dispatch tiles in turn
+  // of tile t) are zeros, finite for the head that reads every slot (and
+  // for the next layer, which reads them as its x); the blocks take the
+  // dispatch tiles in turn
   if constexpr (TILED) {
     if (a.count) {
       const auto zero = [&](float* p, size_t n) {  // n a multiple of 4
@@ -454,11 +463,13 @@ __global__ void __launch_bounds__(FwdTile<SH>::TT, 1)
         const size_t s0 = static_cast<size_t>(t) * a.tile_b + cnt,
                      ns = a.tile_b - cnt, row = static_cast<size_t>(F) * DM;
         zero(a.y + s0 * row, ns * row);
-        zero(a.st.qkv + 3 * s0 * row, 3 * ns * row);
-        zero(a.st.uq + s0 * row, ns * row);
-        zero(a.st.uk + s0 * row, ns * row);
-        zero(a.st.o + s0 * row, ns * row);
-        zero(a.st.s + s0 * NH * F * F, ns * NH * F * F);
+        if (STASH) {
+          zero(a.st.qkv + 3 * s0 * row, 3 * ns * row);
+          zero(a.st.uq + s0 * row, ns * row);
+          zero(a.st.uk + s0 * row, ns * row);
+          zero(a.st.o + s0 * row, ns * row);
+          zero(a.st.s + s0 * NH * F * F, ns * NH * F * F);
+        }
       }
     }
   }
@@ -476,7 +487,7 @@ cudaError_t launch_stash_fwd(StashFwdArgs a, cudaStream_t stream,
   if (blocks < 1)
     cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   cudaDeviceGetAttribute(&most, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
-  const bool with_p = MODE != kLightStash;
+  const bool with_p = MODE == kFullStash || MODE == kScores;
   a.two = (a.mw.w1q != a.mw.w1k || a.mw.w2q != a.mw.w2k ||
            a.mw.wmq != a.mw.wmk) &&
           FwdTile<SH>::bytes(a.F, with_p, true) <= most;

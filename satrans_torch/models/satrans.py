@@ -326,7 +326,8 @@ class SATrans(nn.Module):
                 f"(fused_block_b={self.fused_block_b}, 256, 128, 64, 32, 16; "
                 f"composites: {self.composite_block_b}, 16) divides: the JAX "
                 "package's XLA fallback there draws jax.random masks; "
-                "ROADMAP queue 2 item 'dropout at a batch no tile divides'")
+                "ROADMAP queue 1 item 'bernoulli' ('dropout at a batch no "
+                "tile divides')")
         if seeds is None:
             seeds = self.default_seeds
         if return_scores:

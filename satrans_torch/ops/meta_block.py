@@ -1,9 +1,10 @@
 """The fused meta-transformer layer: Python side of the Hopper kernels
-``csrc/meta_block_fwd.cu`` (K1-fwd; and through its C entry the tile body
-``csrc/meta_stash_fwd.cuh``: K1-stash, which also writes the backward's
-residuals; K1-stash light, which writes all of them but the attention
-probabilities; K1-scores, which writes the output and the attention
-probabilities alone, for the probes) and ``csrc/meta_block_bwd.cu``
+``csrc/meta_block_fwd.cu`` (through its C entry the forward tile body
+``csrc/meta_stash_fwd.cuh`` in all four modes: K1-fwd, which writes the
+output alone; K1-stash, which also writes the backward's residuals;
+K1-stash light, which writes all of them but the attention probabilities;
+K1-scores, which writes the output and the attention probabilities alone,
+for the probes) and ``csrc/meta_block_bwd.cu``
 (through its C entry the backward tile body ``csrc/meta_stash_bwd.cuh``
 in all three modes: K1-bwd, which recomputes the forward; K1-bwd-stash,
 which reads the residuals; K1-bwd-stash light, which reads the light
@@ -233,7 +234,8 @@ def launch_fwd(x, dom, wqkv, w1q, wmq, w2q, lnq, w1k, wmk, w2k, lnk, wout,
     ``stash='full'`` K1-stash: ``(y, qkv, uq, uk, s, o)``; with
     ``stash='light'`` K1-stash light: ``(y, qkv, uq, uk, o)``; with
     ``stash='scores'`` K1-scores: ``(y, s)``.  ``drop`` is
-    ``prng.kernel_args(...)``."""
+    ``prng.kernel_args(...)``.  All four modes run on the forward tile
+    body, one block an SM, whose y is the same in each."""
     h, h2, heads, apply_q, apply_k, relu_out = cfg
     B, F, d = x.shape
     ops = (x, dom, wqkv, w1q, wmq, w2q, lnq, w1k, wmk, w2k, lnk, wout, lno)
@@ -243,12 +245,13 @@ def launch_fwd(x, dom, wqkv, w1q, wmq, w2q, lnq, w1k, wmk, w2k, lnk, wout,
         x.new_empty(shape)
         for shape in _residual_shapes(B, F, d, heads, stash))
     fn = kernel_fn("meta_block_fwd", "satrans_meta_block_fwd",
-                   [ctypes.c_void_p] * 19 + [ctypes.c_int] * 12
+                   [ctypes.c_void_p] * 19 + [ctypes.c_int] * 13
                    + [ctypes.c_uint, ctypes.c_uint, ctypes.c_float]
                    + [ctypes.c_int] * 3 + [ctypes.c_void_p])
     err = fn(*ptrs(ops + (y,)), *_residual_ptrs(res, stash),
              _STASH_MODE[stash], B, F, d, h, h2, heads, w1q.shape[0],
-             apply_q, apply_k, relu_out, *drop, stream_of(x))
+             apply_q, apply_k, relu_out, sm_count(x.device), *drop,
+             stream_of(x))
     if err:
         raise RuntimeError(f"meta_block_fwd launch failed: CUDA error {err}")
     global launches, stash_launches, stash_light_launches, scores_launches

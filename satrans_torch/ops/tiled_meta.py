@@ -1,11 +1,11 @@
 """The meta-transformer layer with per-tile MetaNet weights: Python side
-of K7, the ``TILED`` template body of ``csrc/meta_block_fwd.cu`` (K7-fwd),
-the ``TILED`` forward tile body of ``csrc/meta_stash_fwd.cuh`` (K7-stash,
-which also writes the backward's residuals; both launched by
-``csrc/meta_block_fwd.cu``) and the ``TILED`` backward tile body of
-``csrc/meta_stash_bwd.cuh``, launched by ``csrc/meta_block_bwd.cu``
-(K7-bwd, which recomputes the forward; K7-bwd-stash, which reads the
-residuals), twins of ``satrans_tpu/ops/pallas/tiled_meta.py``.
+of K7, the ``TILED`` forward tile body of ``csrc/meta_stash_fwd.cuh``
+(K7-fwd, which writes the output alone; K7-stash, which also writes the
+backward's residuals; both launched by ``csrc/meta_block_fwd.cu``) and
+the ``TILED`` backward tile body of ``csrc/meta_stash_bwd.cuh``, launched
+by ``csrc/meta_block_bwd.cu`` (K7-bwd, which recomputes the forward;
+K7-bwd-stash, which reads the residuals), twins of
+``satrans_tpu/ops/pallas/tiled_meta.py``.
 
 The layer runs on a batch that :mod:`satrans_torch.ops.dispatch` has
 sorted into single-domain tiles of ``block_b`` slots: tile ``t`` applies
@@ -14,10 +14,11 @@ the MetaNets of ``tile_tables['Q'][t]`` and ``tile_tables['K'][t]``
 outside this module, so that autograd of that gather carries the
 per-tile gradient blocks back to the ``[R, P]`` tables, as the JAX
 package's gather outside its custom VJP does).  Given the plan's
-``tile_count`` (each tile's occupied slots, its first ones), K7-stash
-and the backward kernels skip the slack slots, whose upstream gradient is
-zero: K7-stash writes zeros for their output and residuals, the
-backwards give them ``dx = 0`` and add nothing to any gradient.
+``tile_count`` (each tile's occupied slots, its first ones), every K7
+kernel skips the slack slots, whose output the caller reads only
+through a zero gradient: K7-fwd and K7-stash write zeros for their output
+(and residuals), the backwards give them ``dx = 0`` and add nothing to
+any gradient.
 
 * :func:`fused_tiled_layer` - the wrapper.  On a CUDA tensor it launches
   the kernels or raises: with a gradient needed, ``bwd='stash'`` (the
@@ -134,21 +135,20 @@ def launch_fwd(x, wqkv, w1q, wmq, w2q, lnq, w1k, wmk, w2k, lnk, wout, lno,
     ``block_b`` slots (``w1q`` etc. ``[n_tiles, ...]``; ``wmq``/``wmk``
     None for 2-matrix MetaNets); with ``stash`` K7-stash: ``(y, qkv, uq,
     uk, s, o)``.  ``drop`` is ``prng.kernel_args(...)`` with the dispatch
-    tile.  K7-stash with ``tile_count`` (int32 ``[n_tiles]``,
-    ``DispatchPlan.tile_count``) computes the occupied slots alone and
-    writes zeros for ``y`` and every residual of the slack slots; without
-    it, and K7-fwd always, every slot is computed.  ``blocks`` bounds
-    K7-stash's grid (default: one block an SM)."""
+    tile.  With ``tile_count`` (int32 ``[n_tiles]``,
+    ``DispatchPlan.tile_count``) both compute the occupied slots alone
+    and write zeros for ``y`` (and every residual) of the slack slots;
+    without it every slot is computed.  ``blocks`` bounds the grid
+    (default: one block an SM)."""
     h, h2, heads, apply_q, apply_k, relu_out = cfg
     n_slots, F, d = x.shape
     T = w1q.shape[0]
     if T * block_b != n_slots:
         raise ValueError(f"{T} tiles of {block_b} slots for {n_slots} slots")
     _check_tile_count(tile_count, T)
-    count = tile_count if stash else None
     ops = (x, wqkv, w1q, wmq, w2q, lnq, w1k, wmk, w2k, lnk, wout, lno)
-    check_operands(meta_block.present(ops + (count,)), x.device,
-                   ints=meta_block.present((count,)))
+    check_operands(meta_block.present(ops + (tile_count,)), x.device,
+                   ints=meta_block.present((tile_count,)))
     y = torch.empty_like(x)
     res = tuple(x.new_empty(shape) for shape in meta_block._residual_shapes(
         n_slots, F, d, heads, "full")) if stash else ()
@@ -161,7 +161,7 @@ def launch_fwd(x, wqkv, w1q, wmq, w2q, lnq, w1k, wmk, w2k, lnk, wout, lno,
                    + [ctypes.c_uint, ctypes.c_uint, ctypes.c_float]
                    + [ctypes.c_int] * 3 + [ctypes.c_void_p])
     mode = "full" if stash else None
-    err = fn(*meta_block.ptrs(ops + (count, y)),
+    err = fn(*meta_block.ptrs(ops + (tile_count, y)),
              *meta_block._residual_ptrs(res, mode),
              meta_block._STASH_MODE[mode], n_slots, F, d, h, h2, heads, T,
              block_b, apply_q, apply_k, relu_out, blocks, *drop,
@@ -256,7 +256,9 @@ def _input_grads(grads, cfg):
 class _TiledFn(torch.autograd.Function):
     """The layer with K7-fwd as its forward and K7-bwd as its backward
     (the JAX ``_tiled_layer`` custom VJP with ``bwd='recompute'``): the
-    forward saves only its inputs."""
+    forward saves only its inputs.  With ``tile_count`` both skip the
+    slack slots: the forward writes zeros there, which the head reads,
+    and the backward gives them ``dx = 0``."""
 
     @staticmethod
     def forward(ctx, *args):
@@ -264,7 +266,7 @@ class _TiledFn(torch.autograd.Function):
         ctx.cfg, ctx.drop, ctx.block_b = cfg, drop, block_b
         ctx.tile_count = tile_count
         ctx.save_for_backward(*ops)
-        return launch_fwd(*ops, cfg, drop, block_b)
+        return launch_fwd(*ops, cfg, drop, block_b, tile_count=tile_count)
 
     @staticmethod
     def backward(ctx, g):
@@ -315,10 +317,10 @@ def fused_tiled_layer(x, layer: MetaTransformerLayer, tile_tables, *,
     Differentiable: with a gradient needed on the card, ``bwd`` ('stash'
     or 'recompute', see :func:`bwd_mode`) picks the kernel pair; without,
     K7-fwd runs and nothing is stashed (tiled_meta.py:658-663).
-    ``tile_count`` (the plan's) lets K7-stash and the backward skip the
-    slack slots, whose output the caller reads only through a zero
-    gradient (see :func:`launch_fwd` and :func:`launch_bwd`); the CPU
-    path ignores it."""
+    ``tile_count`` (the plan's) lets every K7 kernel skip the slack
+    slots, whose output the caller reads only through a zero gradient
+    (see :func:`launch_fwd` and :func:`launch_bwd`); the CPU path ignores
+    it."""
     bwd = bwd_mode(bwd)
     if x.device.type == "cpu":
         masks = layer_masks(x, head_num=head_num, mode=mode, train=train,
@@ -338,5 +340,5 @@ def fused_tiled_layer(x, layer: MetaTransformerLayer, tile_tables, *,
     drop = prng.kernel_args(train, drop_rate, seed, block_b, x.shape[1])
     ops = (x.contiguous(), *weights)
     if not needs_grad(x, layer, tile_tables):
-        return launch_fwd(*ops, cfg, drop, block_b)
+        return launch_fwd(*ops, cfg, drop, block_b, tile_count=tile_count)
     return _LAYER_FNS[bwd].apply(*ops, cfg, drop, block_b, tile_count)

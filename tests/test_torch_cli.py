@@ -27,7 +27,9 @@ JAX package.
 """
 
 import dataclasses
+import pathlib
 import pickle
+import re
 import time
 
 import numpy as np
@@ -315,9 +317,9 @@ def test_cli_run_matches_jax(tmp_path, monkeypatch, capsys):
 
 
 @pytest.mark.parametrize("extra,match", [
-    (["--model_name", "MMOE"], "item 9"),
-    (["--mesh", "2"], "item 11"),
-    (["--bank_update", "lazy_stale"], "item 12")])
+    (["--model_name", "MMOE"], "item 'Other models'"),
+    (["--mesh", "2"], "item 'parallel/ → torch.distributed'"),
+    (["--bank_update", "lazy_stale"], "item 'lazy_stale'")])
 def test_cli_unported_options_raise(extra, match, tmp_path):
     argv = CLI_ARGV + ["--synthetic_rows", "64", "--results_dir",
                        str(tmp_path)] + extra
@@ -334,3 +336,16 @@ def test_cli_test_flag_aborts_after_five_steps(tmp_path, capsys):
     with pytest.raises(AssertionError, match="test probe abort"):
         tcli.main(argv, device="cpu")
     assert "test out: " in capsys.readouterr().out
+
+
+def test_no_message_names_a_roadmap_item_by_number():
+    """The ROADMAP's queues are renumbered as their items land, so the
+    port's messages and docstrings quote an item's title, never its
+    number (the Python sources and the CUDA ones)."""
+    package = pathlib.Path(tcli.__file__).resolve().parents[1]
+    named = [f"{p.relative_to(package)}:{i}"
+             for pattern in ("*.py", "csrc/*.cu", "csrc/*.cuh")
+             for p in sorted(package.rglob(pattern))
+             for i, line in enumerate(p.read_text().splitlines(), 1)
+             if re.search(r"item \d+", line)]
+    assert not named, named

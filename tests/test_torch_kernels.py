@@ -1,6 +1,8 @@
 """The port's CUDA kernels against their plain PyTorch versions on the card:
 the layer forward (K1-fwd) and both stash forwards (K1-stash and K1-stash
-light, with their residuals) against ``meta_layer_reference``; K1-scores
+light, with their residuals) against ``meta_layer_reference``, all four
+forward modes of the tile body on forced grids of 1, 3 and 7 blocks;
+K1-scores
 (the probes' forward) against it in float64 and bit for bit against
 K1-stash's probabilities; the three
 layer backwards (K1-bwd, K1-bwd-stash and K1-bwd-stash light) against
@@ -14,9 +16,10 @@ alternating example by example, 16 rows) and forced grids of 1, 3 and 7
 blocks; the tiled layer on a slack-heavy dispatch (K7-fwd and
 K7-stash with its residuals, K7-bwd and K7-bwd-stash with the per-tile
 gradient blocks) against ``tiled_layer_reference`` and its autograd, and
-K7-bwd-stash against K7-bwd on the same masks; K7-stash's tile body with
-the plan's ``tile_count`` against every slot (bit for bit on the occupied
-slots, zeros on the slack ones), on forced grids, and its residuals fed
+K7-bwd-stash against K7-bwd on the same masks; K7-fwd's and K7-stash's
+tile body with the plan's ``tile_count`` against every slot (bit for bit
+on the occupied slots, zeros on the slack ones), K7-fwd's y against
+K7-stash's bit for bit, both on forced grids, and K7-stash's residuals fed
 to K7-bwd-stash against K7-bwd; the K7 backwards' tile
 body with the plan's ``tile_count`` (slack slots skipped) at F = 15, on
 dispatch tiles of 16, with every occupied tile full and with one domain,
@@ -25,9 +28,10 @@ blocks; a second launch bit for bit), and against every slot computed
 (dx zero on the slack slots); the tile bodies of
 K1-stash and K1-bwd-stash on domain mixes (all in one row, one example a
 row, skewed, out-of-range ids) and batches from 1 to 8192, with their
-light twins, K1-scores, K1-bwd (the recompute mode of the same body) and
-a second launch bit for bit; K1-bwd against K1-bwd-stash on the same
-masks, and on forced grids of 1, 3 and 7 blocks; each K1 and K7 case with
+light twins, K1-scores and K1-fwd (each y bit for bit K1-stash's), K1-bwd
+(the recompute mode of the same body) and a second launch bit for bit;
+K1-bwd against K1-bwd-stash on the same masks, and on forced grids of 1, 3
+and 7 blocks; each K1 and K7 case with
 2-matrix MetaNets [32, 64, 32] and with 3-matrix ones [32, 64, 64, 32]
 (the middle matrix in every body, its gradient in the tables' middle
 block); the row kernels of the sparse bank updates (K2 scatter, K3
@@ -123,11 +127,11 @@ def _pos_layer(card, seed, units=UNITS2):
 def test_meta_block_kernel_matches_plain_version(card, units,
                                                  mode, relu_out, F,
                                                  rate):
-    """A ragged batch (33 is not a multiple of the kernel's 8-example
-    tile); at rate 0.1 in training without a gradient, K1-fwd with its
-    dropout.  atol 1e-4 / rtol 1e-4: float32 with other summation orders,
-    and expf/rsqrtf against torch's exp/rsqrt, on LayerNormed outputs of
-    order 1."""
+    """A ragged batch (33 examples end in a part of a tile of the forward
+    tile body at either F); at rate 0.1 in training without a gradient,
+    K1-fwd with its dropout.  atol 1e-4 / rtol 1e-4: float32 with other
+    summation orders, and expf/rsqrtf against torch's exp/rsqrt, on
+    LayerNormed outputs of order 1."""
     gen, layer, table = _layer(card, 0, units)
     x = init.normal(gen, (33, F, 32), 1.0)
     dom = torch.randint(0, 4, (33,), generator=gen, device=card)
@@ -582,13 +586,13 @@ def test_tile_bodies_match_plain_version(card, units, F, mode, relu_out,
     """The tile bodies (csrc/meta_stash_fwd.cuh, csrc/meta_stash_bwd.cuh)
     against the float64 plain layer on the domain mixes above: K1-stash's
     output and residuals within 1e-4 (chip_smoke's KERNEL_TOL), K1-stash
-    light's equal to them and K1-scores' y and s equal to K1-stash's bit for
-    bit; the gradients of K1-bwd-stash, K1-bwd-stash light and K1-bwd (the
-    recompute mode of the same body) through the autograd wrapper within
-    1e-4 of each gradient's largest entry plus 1e-5 (GRAD_RTOL,
-    GRAD_ATOL); the light backward within 1e-6 of the full one on the same
-    residuals (STASH_LIGHT_RTOL); a second launch of each body on the same
-    inputs gives the same bits."""
+    light's equal to them, K1-scores' y and s and K1-fwd's y equal to
+    K1-stash's bit for bit; the gradients of K1-bwd-stash, K1-bwd-stash
+    light and K1-bwd (the recompute mode of the same body) through the
+    autograd wrapper within 1e-4 of each gradient's largest entry plus
+    1e-5 (GRAD_RTOL, GRAD_ATOL); the light backward within 1e-6 of the
+    full one on the same residuals (STASH_LIGHT_RTOL); a second launch of
+    each body on the same inputs gives the same bits."""
     gen, layer, tables = _tile_layer(card, 11, units, distinct, MIXES[mix])
     x = init.normal(gen, (B, F, 32), 1.0)
     g = init.normal(gen, (B, F, 32), 1.0)
@@ -616,6 +620,8 @@ def test_tile_bodies_match_plain_version(card, units, F, mode, relu_out,
         again = meta_block.launch_fwd(*ops, cfg, kargs, stash="full")
         light = meta_block.launch_fwd(*ops, cfg, kargs, stash="light")
         scores = meta_block.launch_fwd(*ops, cfg, kargs, stash="scores")
+        fwd = meta_block.launch_fwd(*ops, cfg, kargs)
+        fwd_again = meta_block.launch_fwd(*ops, cfg, kargs)
     torch.cuda.synchronize()
     names = ("y", "qkv", "uq", "uk", "s", "o")
     for name, got, a in zip(names, full, again):
@@ -626,6 +632,8 @@ def test_tile_bodies_match_plain_version(card, units, F, mode, relu_out,
     for got, i in zip(light, (0, 1, 2, 3, 5)):
         assert torch.equal(got, full[i]), names[i]
     assert torch.equal(scores[0], full[0]) and torch.equal(scores[1], full[4])
+    # K1-fwd, the no-stash mode of the same body: K1-stash's y bit for bit
+    assert torch.equal(fwd, full[0]) and torch.equal(fwd, fwd_again)
 
     g = _kink_free(g.double(), x.double(), layer64, tables64, ref_dom,
                    masks64, **kw).float()
@@ -918,30 +926,42 @@ def _tiled_case(card, seed, pos, B=512, units=UNITS2, F=19, tile=TILE,
 def test_tiled_forward_kernels_match_plain_version(card, units, mode, relu_out,
                                                    rate, pos):
     """K7-fwd (through the wrapper, without a gradient: no stash) and
-    K7-stash's output and each residual against the plain tiled layer,
-    at K1's tolerance."""
-    layer, tabs, x, _, _, _ = _tiled_case(card, 8, pos, units=units)
+    K7-stash's output and each residual on every slot against the plain
+    tiled layer, at K1's tolerance; K7-fwd's y equal to K7-stash's bit for
+    bit, and with the plan's ``tile_count`` (the model's path) equal to it
+    on the occupied slots and zero on the slack ones."""
+    layer, tabs, x, _, _, plan = _tiled_case(card, 8, pos, units=units)
     kw = dict(meta_units=units, head_num=4, mode=mode,
               relu_out=relu_out)
     drop = dict(train=True, drop_rate=rate, seed=DROP["seed"],
                 block_b=TILE)
+    kargs = prng.kernel_args(True, rate, DROP["seed"], TILE, 19)
     before = _tiled_counts()
     with torch.no_grad():
         y = tiled_meta.fused_tiled_layer(x, layer, tabs, **kw, **drop)
+        skipped = tiled_meta.fused_tiled_layer(x, layer, tabs, **kw, **drop,
+                                               tile_count=plan.tile_count)
         weights, cfg = meta_block.pack_weights(layer, tabs, **kw)
-        got = tiled_meta.launch_fwd(x, *weights, cfg, prng.kernel_args(
-            True, rate, DROP["seed"], TILE, 19), TILE, stash=True)
+        got = tiled_meta.launch_fwd(x, *weights, cfg, kargs, TILE,
+                                    stash=True)
         res = {}
         want = tiled_meta.tiled_layer_reference(
             x, layer, tabs, **kw, block_b=TILE, residuals=res,
             masks=tiled_meta.layer_masks(x, head_num=4, mode=mode, **drop))
     torch.cuda.synchronize()
-    assert [a - b for a, b in zip(_tiled_counts(), before)] == [1, 1, 0, 0]
+    assert [a - b for a, b in zip(_tiled_counts(), before)] == [2, 1, 0, 0]
     torch.testing.assert_close(y, want, rtol=1e-4, atol=1e-4)
     assert len(got) == 1 + len(tiled_meta.STASH_RESIDUALS)
     for name, a in zip(("y",) + tiled_meta.STASH_RESIDUALS, got):
         torch.testing.assert_close(a, want if name == "y" else res[name],
                                    rtol=1e-4, atol=1e-4, msg=name)
+    # K7-fwd, the no-stash mode of K7-stash's body: its y bit for bit; with
+    # the plan's tile_count the occupied slots as on every slot, zeros on
+    # the slack ones
+    occ = plan.src >= 0
+    assert torch.equal(y, got[0])
+    assert torch.equal(skipped[occ], y[occ])
+    assert not bool(skipped[~occ].any())
 
 
 def _check_tiled_bwd(layer, tabs, x, g, rows, kw, drop, pos, bwd,
@@ -1096,7 +1116,7 @@ def test_tiled_bwd_forced_grids(card, monkeypatch, units, bwd, blocks):
     assert bool(split.numel()) == (blocks > 1)
     assert bool((split.diff() > 0).all())
     assert bool((plan.tile_count[split] > 1).all())
-    _close_to(got, base, 1e-4)
+    _close_to(got, base, 1e-5)
     for a, b in zip(got, again):
         assert (a is None and b is None) or torch.equal(a, b)
     monkeypatch.setattr(tiled_meta, "sm_count", lambda device: blocks)
@@ -1186,11 +1206,15 @@ def test_tiled_stash_tile_count_equals_every_slot(card, units, case):
     the model's path) against every slot computed, QK with distinct tables
     at dropout 0.1: y and every residual bit for bit on the occupied slots
     (each slot's rows are computed alone), zeros on the slack slots; the
-    every-slot result against the plain tiled layer at K1's tolerance."""
-    run, (layer, tabs, x, _, _, plan), _, _, _ = _tiled_stash_case(
-        card, 16, units, case)
+    every-slot result against the plain tiled layer at K1's tolerance;
+    K7-fwd with ``tile_count`` equal to K7-stash's y bit for bit."""
+    run, (layer, tabs, x, _, _, plan), weights, cfg, kargs = \
+        _tiled_stash_case(card, 16, units, case)
     every = run()
     skipped = run(tile_count=plan.tile_count)
+    with torch.no_grad():
+        fwd = tiled_meta.launch_fwd(x, *weights, cfg, kargs, plan.tile,
+                                    tile_count=plan.tile_count)
     res = {}
     with torch.no_grad():
         want = tiled_meta.tiled_layer_reference(
@@ -1207,6 +1231,7 @@ def test_tiled_stash_tile_count_equals_every_slot(card, units, case):
         assert not bool(b[~occ].any()), name
         torch.testing.assert_close(a, want if name == "y" else res[name],
                                    rtol=1e-4, atol=1e-4, msg=name)
+    assert torch.equal(fwd, skipped[0])
 
 
 @pytest.mark.cuda
@@ -1214,17 +1239,23 @@ def test_tiled_stash_tile_count_equals_every_slot(card, units, case):
                          ids=["2-matrix", "3-matrix"])
 @pytest.mark.parametrize("blocks", [1, 3, 7])
 def test_tiled_stash_forced_grids(card, units, blocks):
-    """K7-stash with the plan's ``tile_count`` on forced grids of 1, 3 and
-    7 blocks (each block a longer range of the occupied slots, and the
-    slack's zeros split otherwise): y and every residual bit for bit
-    against the card's grid."""
-    run, (_, _, _, _, _, plan), _, _, _ = _tiled_stash_case(
+    """K7-stash and K7-fwd with the plan's ``tile_count`` on forced grids
+    of 1, 3 and 7 blocks (each block a longer range of the occupied slots,
+    and the slack's zeros split otherwise): y and every residual bit for
+    bit against the card's grid, K7-fwd's y equal to K7-stash's on the
+    card's grid and on the forced one, twice."""
+    run, (_, _, x, _, _, plan), weights, cfg, kargs = _tiled_stash_case(
         card, 17, units, "random")
     base = run(tile_count=plan.tile_count)
     got = run(tile_count=plan.tile_count, blocks=blocks)
+    with torch.no_grad():
+        fwd = [tiled_meta.launch_fwd(x, *weights, cfg, kargs, plan.tile,
+                                     tile_count=plan.tile_count, blocks=k)
+               for k in (None, blocks, blocks)]
     torch.cuda.synchronize()
     for name, a, b in zip(("y",) + tiled_meta.STASH_RESIDUALS, base, got):
         assert torch.equal(a, b), name
+    assert all(torch.equal(y, base[0]) for y in fwd)
 
 
 @pytest.mark.cuda
@@ -1326,6 +1357,41 @@ def test_recompute_bwd_forced_grids(card, monkeypatch, units, blocks):
     for name, w in want.items():
         err = (got[name].double() - w).abs().max().item()
         assert err <= 1e-4 * w.abs().max().item() + 1e-5, (name, err)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("units", [UNITS2, UNITS3],
+                         ids=["2-matrix", "3-matrix"])
+@pytest.mark.parametrize("F,distinct", [(19, False), (15, True)],
+                         ids=["F19", "F15-distinct"])
+@pytest.mark.parametrize("blocks", [1, 3, 7])
+def test_fwd_forced_grids(card, monkeypatch, units, F, distinct, blocks):
+    """K1-fwd and K1-stash on forced grids of 1, 3 and 7 blocks (each block
+    a longer range of the batch, sorted by domain in the kernel) at dropout
+    0.1: y and every residual bit for bit against the card's grid (each
+    row is computed alone, its masks keyed on its example), K1-fwd's y
+    equal to K1-stash's, a second launch on the same grid bit for bit."""
+    gen, layer, tables = _tile_layer(card, 19, units, distinct, 4)
+    B = 2000
+    x = init.normal(gen, (B, F, 32), 1.0)
+    dom = torch.randint(0, 4, (B,), generator=gen, device=card)
+    ops, cfg = meta_block.pack_operands(x, layer, tables, dom,
+                                        meta_units=units, head_num=4)
+    ops = [t if t is None else t.detach() for t in ops]
+    kargs = prng.kernel_args(True, 0.1, DROP["seed"], DROP["block_b"], F)
+    with torch.no_grad():
+        base = meta_block.launch_fwd(*ops, cfg, kargs)
+        base_st = meta_block.launch_fwd(*ops, cfg, kargs, stash="full")
+        monkeypatch.setattr(meta_block, "sm_count", lambda device: blocks)
+        got = meta_block.launch_fwd(*ops, cfg, kargs)
+        again = meta_block.launch_fwd(*ops, cfg, kargs)
+        got_st = meta_block.launch_fwd(*ops, cfg, kargs, stash="full")
+    torch.cuda.synchronize()
+    assert torch.equal(got, base) and torch.equal(got, again)
+    assert torch.equal(base, base_st[0])
+    for name, a, b in zip(("y", "qkv", "uq", "uk", "s", "o"), got_st,
+                          base_st):
+        assert torch.equal(a, b), name
 
 
 # --- the row kernels of the sparse bank updates (K2, K3, K4, K5) ---------
