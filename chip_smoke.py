@@ -6,10 +6,10 @@ Phases, each of which exits non-zero on failure:
 
 1. build every CUDA kernel from satrans_torch/csrc (one nvcc per source,
    all at once, anew); print each tile body (every K1 and K7 forward and
-   backward, csrc/meta_stash_{fwd,bwd}.cuh, and K6-bwd's) with its
-   registers and spills (ptxas -v), its dynamic shared memory at F = 19
-   and 15 and the HMMA instructions in its SASS (cuobjdump -sass; none
-   fails the run);
+   backward, csrc/meta_stash_{fwd,bwd}.cuh, K6-bwd's and K6-fwd's) with
+   its registers and spills (ptxas -v), its dynamic shared memory at F =
+   19 and 15 (K6-fwd's also its blocks an SM) and the HMMA instructions
+   in its SASS (cuobjdump -sass; none fails the run);
 2. hold each layer forward kernel against its plain PyTorch version on
    the card at the AliCCP sota widths (B=8192 and a ragged 8190, F=19,
    d=32, 4 heads, 4 meta rows, MetaNet 32->64->32), in meta modes QK and
@@ -73,7 +73,9 @@ Phases, each of which exits non-zero on failure:
    autograd of the plain layer, every gradient) against their plain
    version at the same widths (B=8192 at dropout 0 and 0.1, the ragged
    8190 at 0; gate in QK and Query modes and bilinear, relu_out off and
-   on) and time them;
+   on) and time them; K6-fwd also at the odd B=8191, at F=20 and with a
+   bilinear table of 64 rows (past the staged tables' budget), and timed,
+   queued behind a sleep of the stream, at B=512;
 9. serve one request of 20,000 examples through Predictor with the
    AliCCP sota model of the gate and of the bilinear variant (exactly 3
    K6-fwd launches a batch, no K1), and train each in ``lazy`` at
@@ -694,10 +696,13 @@ def fwd_stash_gap(y, y_stash, what):
 def _tile_body(mangled: str):
     """The JSON name of a tile body's mangled kernel name (``_3mat`` for a
     3-matrix MetaNet; K6-bwd's body ``gate_block_bwd``, ``_bilinear`` for
-    the bilinear map), or None for another kernel."""
-    if "gate_stash_bwd_kernel" in mangled:
-        return "gate_block_bwd" + (
-            "_bilinear" if re.findall(r"Lb(\d)E", mangled) == ["1"] else "")
+    the bilinear map; K6-fwd's ``gate_block_fwd`` likewise), or None for
+    another kernel."""
+    for kernel, name in (("gate_stash_bwd_kernel", "gate_block_bwd"),
+                         ("gate_block_fwd_kernel", "gate_block_fwd")):
+        if kernel in mangled:
+            return name + ("_bilinear" if re.findall(r"Lb(\d)E", mangled)
+                           == ["1"] else "")
     for (kernel, mode, tiled), name in TILE_BODIES.items():
         if kernel in mangled:
             d, h, h2, heads, m = map(int, re.findall(r"Li(\d+)E", mangled))
@@ -713,10 +718,11 @@ def tile_body_report():
     mma) instructions in its SASS (cuobjdump -sass of the built library).
     Fails if a body has none.  Returns the fields by JSON name."""
     from pathlib import Path
-    from satrans_torch.ops import _build, meta_block
+    from satrans_torch.ops import _build, gate_block, meta_block
     import ctypes
     report = {}
-    for src in ("meta_block_fwd", "meta_block_bwd", "gate_block_bwd"):
+    for src in ("meta_block_fwd", "meta_block_bwd", "gate_block_bwd",
+                "gate_block_fwd"):
         body = None
         for ln in _build.log(src).splitlines():
             if "Compiling entry function" in ln or \
@@ -737,8 +743,12 @@ def tile_body_report():
         for part in sass.split("Function : ")[1:]:
             body = _tile_body(part.split()[0])
             if body:
-                report.setdefault(body, {})["sass_hmma"] = sum(
-                    "HMMA" in ln for ln in part.splitlines())
+                lines = part.splitlines()
+                report.setdefault(body, {}).update(
+                    sass_hmma=sum("HMMA" in ln for ln in lines),
+                    sass_instructions=sum(
+                        bool(re.match(r"\s*/\*[0-9a-f]{4,}\*/", ln))
+                        for ln in lines))
     fwd_smem = meta_block.kernel_fn(
         "meta_block_fwd", "satrans_meta_block_fwd_stash_smem",
         [ctypes.c_int] * 6)
@@ -758,6 +768,19 @@ def tile_body_report():
                        for F in (19, 15)})
                for bilinear, name in ((0, "gate_block_bwd"),
                                       (1, "gate_block_bwd_bilinear"))]
+    # K6-fwd's body with those tables (its layout does not depend on F)
+    # and the blocks an SM the card runs it at
+    fwd_gate = [ctypes.c_int] * 4
+    gate_fwd_smem = gate_block.kernel_fn(
+        "gate_block_fwd", "satrans_gate_block_fwd_smem", fwd_gate)
+    gate_fwd_occ = gate_block.kernel_fn(
+        "gate_block_fwd", "satrans_gate_block_fwd_blocks_per_sm", fwd_gate)
+    for bilinear, name in ((0, "gate_block_fwd"),
+                           (1, "gate_block_fwd_bilinear")):
+        bodies.append((name, {F: gate_fwd_smem(32, 4, 4, bilinear)
+                              for F in (19, 15)}))
+        report.setdefault(name, {})["blocks_per_sm"] = gate_fwd_occ(
+            32, 4, 4, bilinear)
     for name, smem in bodies:
         r = report.setdefault(name, {})
         r["smem_bytes"] = smem
@@ -765,8 +788,10 @@ def tile_body_report():
               f"stores {r.get('spill_store_bytes')} B and loads "
               f"{r.get('spill_load_bytes')} B, dynamic shared memory "
               f"{smem[19]} B at F=19 and {smem[15]} B at F=15, "
-              f"{r.get('sass_hmma')} HMMA instructions in its SASS",
-              flush=True)
+              f"{r.get('sass_hmma')} HMMA instructions in its SASS of "
+              f"{r.get('sass_instructions')}"
+              + (f", {r['blocks_per_sm']} blocks an SM"
+                 if "blocks_per_sm" in r else ""), flush=True)
         check(r.get("sass_hmma", 0) > 0 and "registers" in r,
               f"the tile body {name} has no tensor-core instruction in its "
               f"SASS, or no ptxas line: {r}")
@@ -1868,12 +1893,13 @@ def gate_layer_bound_ms(B, F, d, heads, meta_rows, variant, apply_q,
     Wout (2F d^2) and LN_o (8F d); the backward recomputes it and adds
     dWout and do (2 x 2F d^2), the attention backward (4 x 2F^2 d), the
     transform's (the gate 3F d a projection, the bilinear map 2 x 2F d dh),
-    LN_o's (10F d) and dWqkv and dx (2 x 6F d^2).  K6-bwd runs on a tile
-    body whose products (x Wqkv, o Wout, dWout, do, dWqkv, dx) are 3xTF32 on
-    the tensor cores, the rest float32 on the CUDA cores (``tensor_cores``
-    False: every operation on the CUDA cores, K6-fwd's case).  Bytes are x
-    (and g) and dom in, y (dx) out, the weights and tables in (and their
-    gradients out)."""
+    LN_o's (10F d) and dWqkv and dx (2 x 6F d^2).  K6-fwd and K6-bwd run
+    on tile bodies whose products (x Wqkv, o Wout, and the backward's
+    dWout, do, dWqkv, dx) are 3xTF32 on the tensor cores, the rest float32
+    on the CUDA cores (``tensor_cores`` False: every operation on the CUDA
+    cores, as the template body K6-fwd first ran on).  Bytes are x (and g)
+    and dom in, y (dx) out, the weights and tables in (and their gradients
+    out)."""
     dh = d // heads
     width = d if variant == "gate" else d * dh
     if variant == "gate":
@@ -1885,7 +1911,8 @@ def gate_layer_bound_ms(B, F, d, heads, meta_rows, variant, apply_q,
     fwd = fwd_mma + fwd_t + 4 * F * F * d + 8 * F * d
     weights = 4 * d * d + 2 * d + 2 * meta_rows * width
     if not bwd:
-        return _bound(B * fwd, 4 * (2 * B * F * d + B + weights))
+        return _bound(B * fwd, 4 * (2 * B * F * d + B + weights),
+                      B * fwd_mma if tensor_cores else 0)
     back_mma = 4 * F * d * d + 12 * F * d * d
     back = back_mma + 8 * F * F * d + bwd_t + 10 * F * d
     mma = fwd_mma + back_mma if tensor_cores else 0
@@ -1904,6 +1931,75 @@ def gate_test_layer(dev, seed, variant):
     width = 32 if variant == "gate" else 32 * 8
     return gen, layer, {n: init.normal(gen, (4, width), 0.5)
                         for n in names}
+
+
+def k6_fwd_ms(dev, B, variant="gate"):
+    """K6-fwd at batch ``B`` at the AliCCP sota widths (F=19, d=32, 4
+    heads, QK, 4 table rows; no dropout, as in serving): (its CUDA-event
+    ms with the calls queued ahead, :func:`queued_ms`; the host's ms to
+    queue a call)."""
+    from satrans_torch.nn import initializers as init
+    from satrans_torch.ops import gate_block, prng
+    F = 19
+    gen, layer, tables = gate_test_layer(dev, SEED + 72, variant)
+    x = init.normal(gen, (B, F, 32), 1.0)
+    dom = torch.randint(0, 4, (B,), generator=gen, device=dev)
+    ops, cfg = gate_block.pack_operands(x, layer, tables, dom, head_num=4)
+    ops = [t.detach() for t in ops]
+    kargs = prng.kernel_args(False, 0.0, 0, DROP_TILE, F,
+                             pad_mult=gate_block.PAD_FIELDS)
+    with torch.no_grad():
+        run = functools.partial(gate_block.launch_fwd, *ops, cfg, kargs)
+        return queued_ms(run), host_ms(run)
+
+
+def gate_fwd_cases(dev):
+    """K6-fwd against the plain version (KERNEL_TOL), and timed, past the
+    gate phase's shapes: the odd B = 8191, F = 20 (the most fields), and
+    bilinear maps of 64 table rows (past the staged tables' budget: each
+    row's map read from device memory), at dropout 0 and 0.1.  Returns
+    the worst error."""
+    from satrans_torch.nn import attention, initializers as init
+    from satrans_torch.ops import gate_block, prng
+    from satrans_torch.utils import make_generator
+    worst = 0.0
+    for n, (variant, B, F, rows) in enumerate((
+            ("gate", BATCH - 1, 19, 4), ("gate", BATCH, 20, 4),
+            ("bilinear", BATCH, 20, 4), ("bilinear", BATCH, 19, 64))):
+        gen = make_generator(SEED + 80 + n, dev)
+        layer = attention.MetaTransformerLayer(gen, 32, variant=variant)
+        names = ("Q", "K") if variant == "gate" else ("bilinear",)
+        width = 32 if variant == "gate" else 32 * 8
+        tables = {k: init.normal(gen, (rows, width), 0.5) for k in names}
+        x = init.normal(gen, (B, F, 32), 1.0)
+        dom = torch.randint(0, rows, (B,), generator=gen, device=dev)
+        kw = dict(head_num=4, mode="QK", relu_out=False)
+        for rate in (0.0, DROP_RATE):
+            drop = drop_kw(rate)
+            masks = gate_block.layer_masks(x, head_num=4, **drop)
+            with torch.no_grad():
+                y = gate_block.fused_simple_layer(x, layer, tables, dom,
+                                                  **kw, **drop)
+                ref = gate_block.simple_layer_reference(
+                    x, layer, tables, dom, **kw, masks=masks)
+            torch.cuda.synchronize()
+            err = (y - ref).abs().max().item()
+            worst = max(worst, err)
+            what = (f"{variant} B={B} F={F} {rows} table rows dropout="
+                    f"{rate}")
+            check(bool(torch.isfinite(y).all()) and torch.allclose(
+                y, ref, **KERNEL_TOL), f"K6-fwd disagrees with its plain "
+                f"version ({what}, max_abs_err={err})")
+            ops, cfg = gate_block.pack_operands(x, layer, tables, dom, **kw)
+            kargs = prng.kernel_args(True, rate, DROP_SEED, DROP_TILE, F,
+                                     pad_mult=gate_block.PAD_FIELDS)
+            ops = [t.detach() for t in ops]
+            with torch.no_grad():
+                ms = time_ms(lambda: gate_block.launch_fwd(*ops, cfg, kargs),
+                             iters=10)
+            print(f"kernel gate_block_fwd {what}: max_abs_err={err:.3e}; "
+                  f"kernel_ms={ms:.4f}", flush=True)
+    return worst
 
 
 def gate_grads(fn, x, layer, tables, dom, g, **kw):
@@ -1925,8 +2021,9 @@ def gate_kernel_phase(dev):
     AliCCP sota widths (B=8192 at dropout 0 and 0.1, the ragged 8190 at
     0): gate in QK and Query modes and bilinear, relu_out off and on,
     every gradient (the examples whose output projection lies within 1e-6
-    of the relu kink get no upstream gradient), and timed.  Returns the
-    JSON fields measured, by kernel."""
+    of the relu kink get no upstream gradient), and timed, K6-fwd also at
+    SMALL_BATCH; then :func:`gate_fwd_cases`.  Returns the JSON fields
+    measured, by kernel."""
     from satrans_torch.nn import attention, initializers as init
     from satrans_torch.ops import gate_block, prng
 
@@ -2011,30 +2108,40 @@ def gate_kernel_phase(dev):
                         a = gate_block.applied(variant, mode)
                         fb = gate_layer_bound_ms(B, F, d, heads, rows,
                                                  variant, *a)
+                        fc = gate_layer_bound_ms(B, F, d, heads, rows,
+                                                 variant, *a,
+                                                 tensor_cores=False)
                         bb = gate_layer_bound_ms(B, F, d, heads, rows,
                                                  variant, *a, bwd=True)
                         cc = gate_layer_bound_ms(B, F, d, heads, rows,
                                                  variant, *a, bwd=True,
                                                  tensor_cores=False)
                         line += (f"; K6-fwd kernel_ms={f_ms:.4f} plain_ms="
-                                 f"{pf_ms:.4f} bound_ms={fb[0]:.4f} ({fb[1]})"
-                                 f"; K6-bwd kernel_ms={b_ms:.4f} plain_ms="
+                                 f"{pf_ms:.4f} bound_ms={fb[0]:.4f} ({fb[1]};"
+                                 f" every operation on the CUDA cores "
+                                 f"{fc[0]:.4f}); K6-bwd kernel_ms="
+                                 f"{b_ms:.4f} plain_ms="
                                  f"{pb_ms:.4f} bound_ms={bb[0]:.4f} "
                                  f"({bb[1]}; every operation on the CUDA "
                                  f"cores {cc[0]:.4f})")
                         out[(variant, "fwd", rate)] = dict(
                             ms=f_ms, plain_ms=pf_ms, bound_ms=fb[0],
-                            bound_by=fb[1])
+                            bound_by=fb[1], cuda_core_bound_ms=fc[0])
                         out[(variant, "bwd", rate)] = dict(
                             ms=b_ms, plain_ms=pb_ms, bound_ms=bb[0],
                             bound_by=bb[1], cuda_core_bound_ms=cc[0])
                     print(line, flush=True)
-    # the JSON holds gate QK (serving at 0, training at 0.1), with the
-    # other rate's and bilinear's kernel times beside it
+    worst["fwd"] = max(worst["fwd"], gate_fwd_cases(dev))
+    # K6-fwd at SMALL_BATCH, its calls queued ahead
+    small_ms, small_host = k6_fwd_ms(dev, SMALL_BATCH)
+    print(f"kernel gate_block_fwd gate QK B={SMALL_BATCH}: kernel_ms="
+          f"{small_ms:.4f} (the host queues a call in {small_host:.4f} ms)",
+          flush=True)
     return dict(
         fwd=dict(max_abs_err=worst["fwd"], **out[("gate", "fwd", 0.0)],
                  dropout_ms=out[("gate", "fwd", DROP_RATE)]["ms"],
-                 bilinear_ms=out[("bilinear", "fwd", 0.0)]["ms"]),
+                 bilinear_ms=out[("bilinear", "fwd", 0.0)]["ms"],
+                 small_batch_ms=small_ms),
         bwd=dict(max_abs_err=worst["bwd"], **out[("gate", "bwd", DROP_RATE)],
                  no_dropout_ms=out[("gate", "bwd", 0.0)]["ms"],
                  bilinear_ms=out[("bilinear", "bwd", DROP_RATE)]["ms"],

@@ -255,30 +255,11 @@ __global__ void __launch_bounds__(kThreads, 1)
         for (int w = 0; w < 2; ++w) {
           const float* t0 = sQKV + r * L::QS + w * DM;
           float v[4];
-          if (!on[w]) {
+          if (on[w])
+            transform_cols<DM, NH, BILINEAR>(
+                t0, sTab + (BILINEAR ? d : w * D + d) * T, c, v);
+          else
             to4(ld4(t0 + c), v);
-          } else if (BILINEAR) {
-            // q[h dh + c0 + j] = sum_k q0[h dh + k] TQ[d][h][k][c0 + j]
-            const int hh = c / DH, c0 = c % DH;
-            const float* m = sTab + d * T + hh * DH * DH + c0;
-            v[0] = v[1] = v[2] = v[3] = 0.f;
-#pragma unroll
-            for (int k = 0; k < DH; ++k) {
-              const float q = t0[hh * DH + k];
-              const float4 mk = ld4(m + k * DH);
-              v[0] = fmaf(q, mk.x, v[0]);
-              v[1] = fmaf(q, mk.y, v[1]);
-              v[2] = fmaf(q, mk.z, v[2]);
-              v[3] = fmaf(q, mk.w, v[3]);
-            }
-          } else {
-            const float4 t = ld4(t0 + c);
-            const float4 gm = ld4(sTab + (w * D + d) * T + c);
-            v[0] = t.x * (2.f * gm.x);
-            v[1] = t.y * (2.f * gm.y);
-            v[2] = t.z * (2.f * gm.z);
-            v[3] = t.w * (2.f * gm.w);
-          }
           st4(sN + r * L::NS + w * DM + c, v);
         }
       }

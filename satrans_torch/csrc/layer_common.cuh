@@ -2,14 +2,13 @@
 // meta_block_bwd.cu and the tile bodies meta_stash_fwd.cuh,
 // meta_stash_bwd.cuh) and K6 (gate_block_fwd.cu, gate_block_bwd.cu).
 //
-// In the template forward (K6-fwd) an example's F rows are worked on by a
-// warp: the small GEMMs give a thread a register tile of 4 adjacent
-// columns x a few rows (Tile).  The LayerNorms reduce across a
-// row's N/4 threads with shuffles, the backwards' blocks sum parameter
-// gradients with one owner per element and sum_partials adds the blocks'
-// sums in order, and the attention passes give a thread (head, row) pairs
-// (the *_pair functions, which the tile bodies call on each example of
-// their tiles).  The attention logits are clamped to [-60, 60] before a
+// The LayerNorms reduce across a row's N/4 threads with shuffles, the
+// backwards' blocks sum parameter gradients with one owner per element and
+// sum_partials adds the blocks' sums in order, the gate and bilinear
+// transform of K6 takes a row's 4 columns a thread (transform_cols), and
+// the attention passes give a thread a (head, row) pair (the *_pair
+// functions, which the tile bodies call on each example of their tiles).
+// The attention logits are clamped to [-60, 60] before a
 // max-subtracted softmax, as the Pallas kernels' _clip_logits
 // (satrans_tpu/ops/pallas/meta_block.py:61-69); the backward passes the
 // gradient through the clamp as if it were not there, as the Pallas custom VJPs
@@ -119,56 +118,6 @@ __device__ __forceinline__ void to4(float4 a, float (&v)[4]) {
   v[3] = a.w;
 }
 
-// Register tile of a GEMM with N output columns over a group of G threads:
-// thread t owns 4 adjacent columns of rows rs, rs + RS, rs + 2 RS, ...
-template <int N, int G>
-struct Tile {
-  static_assert(N % 4 == 0 && G % (N / 4) == 0, "unsupported width");
-  static constexpr int LPR = N / 4;                       // threads per row
-  static constexpr int RS = G / LPR;                      // row sets
-  static constexpr int RPL = (kMaxFields + RS - 1) / RS;  // rows per thread
-};
-
-// acc[i][c] = sum_k a(act[f][k]) * w[k][4 cg + c] for f = rs + RS i < F,
-// a = relu if RELU else identity.  act lies in shared memory (row stride
-// as), w in global memory (row stride ws).  The sum runs over k in order.
-template <int G, int K, int N, bool RELU = false>
-__device__ __forceinline__ void tile_gemm(const float* act, int as,
-                                          const float* __restrict__ w,
-                                          int ws, int F, int t,
-                                          float (&acc)[Tile<N, G>::RPL][4]) {
-  using T = Tile<N, G>;
-  const int cg = t % T::LPR, rs = t / T::LPR;
-#pragma unroll
-  for (int i = 0; i < T::RPL; ++i) {
-#pragma unroll
-    for (int c = 0; c < 4; ++c) acc[i][c] = 0.f;
-  }
-  const float* wc = w + 4 * cg;
-#pragma unroll 2
-  for (int k = 0; k < K; k += 4) {
-    float4 wk[4];
-#pragma unroll
-    for (int u = 0; u < 4; ++u) wk[u] = ldg4(wc + (k + u) * ws);
-#pragma unroll
-    for (int i = 0; i < T::RPL; ++i) {
-      const int f = rs + T::RS * i;
-      if (f < F) {
-        float a[4];
-        to4(ld4(act + f * as + k), a);
-#pragma unroll
-        for (int u = 0; u < 4; ++u) {
-          const float av = RELU ? fmaxf(a[u], 0.f) : a[u];
-          acc[i][0] = fmaf(av, wk[u].x, acc[i][0]);
-          acc[i][1] = fmaf(av, wk[u].y, acc[i][1]);
-          acc[i][2] = fmaf(av, wk[u].z, acc[i][2]);
-          acc[i][3] = fmaf(av, wk[u].w, acc[i][3]);
-        }
-      }
-    }
-  }
-}
-
 // Sum over the N/4 consecutive lanes that hold one row of N values.
 template <int N>
 __device__ __forceinline__ float row_sum(float s) {
@@ -236,6 +185,40 @@ __device__ __forceinline__ void ln_bwd(const float (&dy)[4],
   for (int c = 0; c < 4; ++c) du[c] = (gg[c] - m - xh[c] * mx) * inv;
 }
 
+// K6's transform of the 4 columns c..c+3 of one row of q0 (or k0) at t0,
+// with the row's own domain's table row trow (in shared or device
+// memory): the gate's t0 * trow * 2, or the bilinear map of the head that
+// holds column c, q_h = q0_h @ trow[h] (trow the head's [dh, dh] maps in
+// turn, row-major).  Into v.
+template <int DM, int NH, bool BILINEAR>
+__device__ __forceinline__ void transform_cols(const float* t0,
+                                               const float* trow, int c,
+                                               float (&v)[4]) {
+  constexpr int DH = DM / NH;
+  if constexpr (BILINEAR) {
+    // q[h dh + c0 + j] = sum_k q0[h dh + k] T[h][k][c0 + j]
+    const int hh = c / DH, c0 = c % DH;
+    const float* m = trow + hh * DH * DH + c0;
+    v[0] = v[1] = v[2] = v[3] = 0.f;
+#pragma unroll
+    for (int k = 0; k < DH; ++k) {
+      const float q = t0[hh * DH + k];
+      const float4 mk = ld4(m + k * DH);
+      v[0] = fmaf(q, mk.x, v[0]);
+      v[1] = fmaf(q, mk.y, v[1]);
+      v[2] = fmaf(q, mk.z, v[2]);
+      v[3] = fmaf(q, mk.w, v[3]);
+    }
+  } else {
+    const float4 t = ld4(t0 + c);
+    const float4 gm = ld4(trow + c);
+    v[0] = t.x * (2.f * gm.x);
+    v[1] = t.y * (2.f * gm.y);
+    v[2] = t.z * (2.f * gm.z);
+    v[3] = t.w * (2.f * gm.w);
+  }
+}
+
 // out[i] = sum over blocks b, in order, of partial[b][i].
 __global__ void sum_partials(const float* __restrict__ partial,
                              float* __restrict__ out, int total, int blocks) {
@@ -246,34 +229,6 @@ __global__ void sum_partials(const float* __restrict__ partial,
       s += partial[static_cast<size_t>(b) * total + i];
     out[i] = s;
   }
-}
-
-// The clamped logits of query row q (scaled) against the F key rows at
-// k (row stride ks) into s; returns their maximum.
-template <int DH>
-__device__ __forceinline__ float head_logits(const float (&q)[DH],
-                                             const float* k, int ks, int F,
-                                             float (&s)[kMaxFields]) {
-  float m = -INFINITY;
-#pragma unroll
-  for (int j = 0; j < kMaxFields; ++j) {
-    if (j < F) {
-      const float* kj = k + j * ks;
-      float a = 0.f;
-#pragma unroll
-      for (int c = 0; c < DH; c += 4) {
-        const float4 v = ld4(kj + c);
-        a = fmaf(q[c], v.x, a);
-        a = fmaf(q[c + 1], v.y, a);
-        a = fmaf(q[c + 2], v.z, a);
-        a = fmaf(q[c + 3], v.w, a);
-      }
-      a = fminf(fmaxf(a, -kLogitClamp), kLogitClamp);
-      s[j] = a;
-      m = fmaxf(m, a);
-    }
-  }
-  return m;
 }
 
 // q[c] = scale * row[c] for the DH values of a head.
@@ -304,12 +259,65 @@ __device__ __forceinline__ void axpy_head(float p, const float* v,
   }
 }
 
-// The softmax of one (head, query row) pair: the logits of the head's q
-// row (at q, scaled by 1/sqrt(dh)) against the F key rows at k (row
-// stride ks), clamped, exponentiated after the row maximum is subtracted,
-// into s, each passed on to visit(j, s[j]) as it is formed; returns their
-// sum.  Every pass that forms probabilities goes through it, so the
+// The softmax of one (head, query row) pair from the head's query q (in
+// registers, scaled by 1/sqrt(dh)) against the F key rows at k (row
+// stride ks): the logits clamped, exponentiated after the row maximum is
+// subtracted, into s, each passed on to visit(j, s[j]) as it is formed;
+// returns their sum.  The keys go in groups of four without a branch
+// inside a group, so that the loads, and a visit's dropout hashes, of one
+// key overlap another's arithmetic: a key j past F in the last group reads
+// row F - 1, counts as a -inf logit (s[j] = 0) and is visited as (F - 1,
+// 0), which adds nothing, so the result is the per-key loop's bit for bit.
+// Every pass that forms probabilities goes through it, so the
 // probabilities a backward recomputes equal the forward's bit for bit.
+template <int DH, typename Visit>
+__device__ __forceinline__ float head_softmax_q(const float (&q)[DH],
+                                                const float* k, int ks,
+                                                int F,
+                                                float (&s)[kMaxFields],
+                                                Visit visit) {
+  constexpr int G = 4;
+  static_assert(kMaxFields % G == 0, "whole groups");
+  float m = -INFINITY;
+#pragma unroll
+  for (int g = 0; g < kMaxFields; g += G) {
+    if (g < F) {
+#pragma unroll
+      for (int u = 0; u < G; ++u) {
+        const int j = g + u;
+        const float* kj = k + min(j, F - 1) * ks;
+        float a = 0.f;
+#pragma unroll
+        for (int c = 0; c < DH; c += 4) {
+          const float4 v = ld4(kj + c);
+          a = fmaf(q[c], v.x, a);
+          a = fmaf(q[c + 1], v.y, a);
+          a = fmaf(q[c + 2], v.z, a);
+          a = fmaf(q[c + 3], v.w, a);
+        }
+        a = fminf(fmaxf(a, -kLogitClamp), kLogitClamp);
+        s[j] = j < F ? a : -INFINITY;
+        m = fmaxf(m, s[j]);
+      }
+    }
+  }
+  float sum = 0.f;
+#pragma unroll
+  for (int g = 0; g < kMaxFields; g += G) {
+    if (g < F) {
+#pragma unroll
+      for (int u = 0; u < G; ++u) {
+        const int j = g + u;
+        s[j] = expf(s[j] - m);
+        sum += s[j];
+        visit(min(j, F - 1), s[j]);
+      }
+    }
+  }
+  return sum;
+}
+
+// head_softmax_q of the head's q row at q_row, scaled here.
 template <int DH, typename Visit>
 __device__ __forceinline__ float head_softmax(const float* q_row,
                                               const float* k, int ks, int F,
@@ -317,68 +325,7 @@ __device__ __forceinline__ float head_softmax(const float* q_row,
                                               Visit visit) {
   float q[DH];
   scaled_head<DH>(q_row, 1.f / sqrtf(static_cast<float>(DH)), q);
-  const float m = head_logits<DH>(q, k, ks, F, s);
-  float sum = 0.f;
-#pragma unroll
-  for (int j = 0; j < kMaxFields; ++j) {
-    if (j < F) {
-      s[j] = expf(s[j] - m);
-      sum += s[j];
-      visit(j, s[j]);
-    }
-  }
-  return sum;
-}
-
-// One (head hh, query row i) pair of the forwards' attention: P =
-// softmax(clamp(q k^T / sqrt(dh))) and o = (P m_s) v, accumulated from the
-// unnormalised terms as they are formed and normalised at the end.  q|k|v
-// lie in the rows of qkv (stride qs) at columns 0, DM and 2 DM; o goes to
-// out (stride os).  With STASH_O also to po (stride DM), and with STASH_S
-// P before dropout to ps ([NH][F][F]).
-template <int DM, int NH, bool STASH_O, bool STASH_S>
-__device__ __forceinline__ void attention_fwd_pair(
-    const float* qkv, int qs, float* out, int os, float* ps, float* po,
-    int F, int hh, int i, const Dropout& drop, const ExampleDraw& ed,
-    unsigned salt_s) {
-  constexpr int DH = DM / NH;
-  float o[DH];
-#pragma unroll
-  for (int c = 0; c < DH; ++c) o[c] = 0.f;
-  float s[kMaxFields];
-  const float sum = head_softmax<DH>(
-      qkv + i * qs + hh * DH, qkv + DM + hh * DH, qs, F, s,
-      [&](int j, float e) {
-        const float pj = drop.on ? e * ed.attn(drop, salt_s + hh, i, j) : e;
-        axpy_head<DH>(pj, qkv + j * qs + 2 * DM + hh * DH, o);
-      });
-  const float inv = 1.f / sum;
-#pragma unroll
-  for (int c = 0; c < DH; c += 4) {
-    const float v[4] = {o[c] * inv, o[c + 1] * inv, o[c + 2] * inv,
-                        o[c + 3] * inv};
-    st4(out + i * os + hh * DH + c, v);
-    if (STASH_O) st4(po + i * DM + hh * DH + c, v);
-  }
-  if (STASH_S) {
-    float* prow = ps + (hh * F + i) * F;
-#pragma unroll
-    for (int j = 0; j < kMaxFields; ++j)
-      if (j < F) prow[j] = s[j] * inv;
-  }
-}
-
-// The forwards' attention of one example: attention_fwd_pair for the
-// (head, query row) pairs of thread t of a group of G.
-template <int DM, int NH, int G, bool STASH_O, bool STASH_S>
-__device__ __forceinline__ void attention_fwd(
-    const float* qkv, int qs, float* out, int os, float* ps, float* po,
-    int F, int t, const Dropout& drop, const ExampleDraw& ed,
-    unsigned salt_s) {
-#pragma unroll 1
-  for (int p = t; p < NH * F; p += G)
-    attention_fwd_pair<DM, NH, STASH_O, STASH_S>(
-        qkv, qs, out, os, ps, po, F, p / F, p % F, drop, ed, salt_s);
+  return head_softmax_q<DH>(q, k, ks, F, s, visit);
 }
 
 // The probabilities of one (head hh, query row i) pair, normalised and
@@ -436,6 +383,56 @@ __device__ __forceinline__ unsigned attn_keep_row(const Dropout& drop,
   for (int j = 0; j < kMaxFields; ++j)
     if (j < F && ed.attn_kept(drop, salt, i, j)) bits |= 1u << j;
   return bits;
+}
+
+// One (head hh, query row i) pair of the forwards' attention from the
+// head's query q (in registers, scaled by 1/sqrt(dh)): P =
+// softmax(clamp(q k^T)) and o = (P m_s) v, accumulated from the
+// unnormalised terms as they are formed and normalised at the end.  k|v
+// lie in the rows of qkv (stride qs) at columns DM and 2 DM; o goes to row
+// i of out (stride os), which may be q's own row of qkv.  m the head's
+// dropout multipliers (AttnHash, AttnBits).  With STASH_S P before
+// dropout goes to ps ([NH][F][F]).
+template <int DM, int NH, bool STASH_S, class Keep>
+__device__ __forceinline__ void attention_fwd_pair(
+    const float (&q)[DM / NH], const float* qkv, int qs, float* out, int os,
+    float* ps, int F, int hh, int i, const Keep& m) {
+  constexpr int DH = DM / NH;
+  float o[DH];
+#pragma unroll
+  for (int c = 0; c < DH; ++c) o[c] = 0.f;
+  float s[kMaxFields];
+  const float sum = head_softmax_q<DH>(
+      q, qkv + DM + hh * DH, qs, F, s, [&](int j, float e) {
+        const float pj = m.on() ? e * m(i, j) : e;
+        axpy_head<DH>(pj, qkv + j * qs + 2 * DM + hh * DH, o);
+      });
+  const float inv = 1.f / sum;
+#pragma unroll
+  for (int c = 0; c < DH; c += 4) {
+    const float v[4] = {o[c] * inv, o[c + 1] * inv, o[c + 2] * inv,
+                        o[c + 3] * inv};
+    st4(out + i * os + hh * DH + c, v);
+  }
+  if (STASH_S) {
+    float* prow = ps + (hh * F + i) * F;
+#pragma unroll
+    for (int j = 0; j < kMaxFields; ++j)
+      if (j < F) prow[j] = s[j] * inv;
+  }
+}
+
+// The same with the query read from q's row i of qkv (column 0).
+template <int DM, int NH, bool STASH_S, class Keep>
+__device__ __forceinline__ void attention_fwd_pair(const float* qkv, int qs,
+                                                   float* out, int os,
+                                                   float* ps, int F, int hh,
+                                                   int i, const Keep& m) {
+  constexpr int DH = DM / NH;
+  float q[DH];
+  scaled_head<DH>(qkv + i * qs + hh * DH,
+                  1.f / sqrtf(static_cast<float>(DH)), q);
+  attention_fwd_pair<DM, NH, STASH_S>(q, qkv, qs, out, os, ps, F, hh, i, m);
 }
 
 // One (head hh, query row i) pair of the backwards' recomputed attention:

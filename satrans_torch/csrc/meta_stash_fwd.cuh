@@ -392,10 +392,10 @@ __global__ void __launch_bounds__(FwdTile<SH>::TT, 1)
       // 3. Attention, a thread a (head, row) pair: o into sH's first DM
       //    columns, P (before dropout) into sP
       for_pairs<NH>(n, F, [&](int s, int hh, int i) {
-        const ExampleDraw& ed = hd.draws[s];
-        attention_fwd_pair<DM, NH, false, STASH_S>(
+        attention_fwd_pair<DM, NH, STASH_S>(
             sQKV + s * F * L::QS, L::QS, sH + s * F * L::HS, L::HS,
-            sP + s * NH * F * F, nullptr, F, hh, i, a.drop, ed, salt.s);
+            sP + s * NH * F * F, F, hh, i,
+            AttnHash{a.drop, hd.draws[s], salt.s + hh});
       });
       __syncthreads();
       if (STASH_S) {

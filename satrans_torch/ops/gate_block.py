@@ -19,8 +19,8 @@ of ``satrans_tpu/ops/pallas/gate_block.py``.
   to 8 (``gate_block.py:382``'s fixed ``pad_mult``; ``SATRANS_PAD_F`` does
   not reach this kernel, ``SATRANS_ATTN_CAP`` does).
 * :func:`launch_fwd` / :func:`launch_bwd` - the kernel launches on packed
-  operands (:func:`pack_operands`); ``launches`` / ``bwd_launches`` count
-  them.
+  operands (:func:`pack_operands`), on a grid of the card's SMs
+  (``sm_count``); ``launches`` / ``bwd_launches`` count them.
 
 The tables are the model's ``[D, P]`` scenario tables: the gate rows
 ``[D, d]`` ('Q', 'K') or the flat per-(domain, head) bilinear maps
@@ -138,19 +138,21 @@ def pack_operands(x, layer: MetaTransformerLayer, tables, dom, *,
 
 def launch_fwd(x, dom, wqkv, tq, tk, wout, lno, cfg, drop):
     """K6-fwd: the layer's output for packed operands.  ``drop`` is
-    ``prng.kernel_args(...)`` with ``pad_mult=PAD_FIELDS``."""
+    ``prng.kernel_args(...)`` with ``pad_mult=PAD_FIELDS``.  At most two
+    blocks an SM, whole tiles of the batch each; the output does not
+    depend on the grid."""
     bilinear, heads, apply_q, apply_k, relu_out = cfg
     B, F, d = x.shape
     ops = (x, dom, wqkv, tq, tk, wout, lno)
     check_operands(ops, x.device, ints=(dom,))
     y = torch.empty_like(x)
     fn = kernel_fn("gate_block_fwd", "satrans_gate_block_fwd",
-                   [ctypes.c_void_p] * 8 + [ctypes.c_int] * 10
+                   [ctypes.c_void_p] * 8 + [ctypes.c_int] * 11
                    + [ctypes.c_uint, ctypes.c_uint, ctypes.c_float]
                    + [ctypes.c_int] * 3 + [ctypes.c_void_p])
     err = fn(*(t.data_ptr() for t in ops + (y,)), B, F, d, heads,
-             tq.shape[0], bilinear, apply_q, apply_k, relu_out, *drop,
-             stream_of(x))
+             tq.shape[0], bilinear, apply_q, apply_k, relu_out,
+             sm_count(x.device), *drop, stream_of(x))
     if err:
         raise RuntimeError(f"gate_block_fwd launch failed: CUDA error {err}")
     global launches

@@ -13,15 +13,17 @@ against K1-bwd-stash on the same residuals; the gate
 and bilinear layer (K6-fwd, K6-bwd) against ``simple_layer_reference``
 and its autograd, K6-bwd's tile body also on domain mixes (one row, rows
 alternating example by example, 16 rows) and forced grids of 1, 3 and 7
-blocks; the tiled layer on a slack-heavy dispatch (K7-fwd and
-K7-stash with its residuals, K7-bwd and K7-bwd-stash with the per-tile
-gradient blocks) against ``tiled_layer_reference`` and its autograd, and
-K7-bwd-stash against K7-bwd on the same masks; K7-fwd's and K7-stash's
-tile body with the plan's ``tile_count`` against every slot (bit for bit
-on the occupied slots, zeros on the slack ones), K7-fwd's y against
-K7-stash's bit for bit, both on forced grids, and K7-stash's residuals fed
-to K7-bwd-stash against K7-bwd; the K7 backwards' tile
-body with the plan's ``tile_count`` (slack slots skipped) at F = 15, on
+blocks, K6-fwd's tile body on forced grids (bit for bit the card's
+grid's y) and at the edges of its tiles (B from 0 to 512, F = 1, 15 and
+20, 1, 4 and 64 table rows); the tiled layer on a slack-heavy dispatch
+(K7-fwd and K7-stash with its residuals, K7-bwd and K7-bwd-stash with
+the per-tile gradient blocks) against ``tiled_layer_reference`` and its
+autograd, and K7-bwd-stash against K7-bwd on the same masks; K7-fwd's
+and K7-stash's tile body with the plan's ``tile_count`` against every
+slot (bit for bit on the occupied slots, zeros on the slack ones),
+K7-fwd's y against K7-stash's bit for bit, both on forced grids, and
+K7-stash's residuals fed to K7-bwd-stash against K7-bwd; the K7
+backwards' tile body with the plan's ``tile_count`` (slack slots skipped) at F = 15, on
 dispatch tiles of 16, with every occupied tile full and with one domain,
 on forced grids of 1, 3 and 7 blocks (dispatch tiles split between
 blocks; a second launch bit for bit), and against every slot computed
@@ -865,6 +867,86 @@ def test_gate_bwd_forced_grids(card, monkeypatch, blocks, variant, mode):
     torch.cuda.synchronize()
     for a, b in zip(one, two):
         assert torch.equal(a, b)
+
+
+# --- K6-fwd's tile body: grids and edges --------------------------------
+
+
+def _gate_fwd_case(card, variant, B, F, rows, seed):
+    """A gate or bilinear layer, ``rows``-row tables and a batch of ``B``
+    examples of ``F`` fields with uniform domain rows."""
+    gen = make_generator(seed, card)
+    layer = attention.MetaTransformerLayer(gen, 32, variant=variant)
+    names = ("Q", "K") if variant == "gate" else ("bilinear",)
+    width = 32 if variant == "gate" else 32 * 8
+    tables = {n: init.normal(gen, (rows, width), 0.5) for n in names}
+    x = init.normal(gen, (B, F, 32), 1.0)
+    dom = torch.randint(0, rows, (B,), generator=gen, device=card)
+    return layer, tables, x, dom
+
+
+def _gate_fwd_reference(layer, tables, x, dom, kw, drop):
+    """The float64 plain layer's output with the kernels' masks."""
+    masks = gate_block.layer_masks(x, head_num=4, **drop)
+    masks64 = masks and tuple(None if m is None else m.double()
+                              for m in masks)
+    with torch.no_grad():
+        return gate_block.simple_layer_reference(
+            x.double(), copy.deepcopy(layer).double(),
+            {k: t.double() for k, t in tables.items()}, dom, **kw,
+            masks=masks64)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+@pytest.mark.parametrize("variant,mode", [("gate", "QK"), ("gate", "Query"),
+                                          ("bilinear", "QK")])
+@pytest.mark.parametrize("blocks", [1, 3, 7])
+def test_gate_fwd_forced_grids(card, monkeypatch, blocks, variant, mode,
+                               rate):
+    """K6-fwd at B = 2000 on forced grids (``gate_block.sm_count`` patched
+    to 1, 3 and 7: a block walks up to all 2000 examples): y within 1e-4
+    of the float64 plain layer, and bit for bit the wrapper's y on the
+    card's grid."""
+    layer, tables, x, dom = _gate_fwd_case(card, variant, 2000, 19, 4, 8)
+    kw = dict(head_num=4, mode=mode, relu_out=False)
+    drop = dict(train=True, drop_rate=rate, **DROP)
+    want = _gate_fwd_reference(layer, tables, x, dom, kw, drop)
+    with torch.no_grad():
+        base = gate_block.fused_simple_layer(x, layer, tables, dom, **kw,
+                                             **drop)
+        monkeypatch.setattr(gate_block, "sm_count", lambda device: blocks)
+        y = gate_block.fused_simple_layer(x, layer, tables, dom, **kw,
+                                          **drop)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(y.double(), want, rtol=1e-4, atol=1e-4)
+    assert torch.equal(y, base)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("D", [1, 4, 64])
+@pytest.mark.parametrize("F", [1, 15, 20])
+@pytest.mark.parametrize("B", [0, 1, 5, 63, 64, 65, 95, 96, 97, 512])
+@pytest.mark.parametrize("variant", ["gate", "bilinear"])
+def test_gate_fwd_edges(card, variant, B, F, D):
+    """K6-fwd at dropout 0.1 against the float64 plain layer (within 1e-4)
+    at the edges of its tiles: batches of none, one, a few and about one
+    and one and a half tiles of examples (64 rows at F = 1) and a small
+    request, one field
+    and the most, and tables of one row, four, and 64 (the bilinear maps
+    past the staged budget, read from device memory)."""
+    layer, tables, x, dom = _gate_fwd_case(card, variant, B, F, D, 9)
+    kw = dict(head_num=4, mode="QK", relu_out=False)
+    drop = dict(train=True, drop_rate=0.1, **DROP)
+    before = gate_block.launches
+    with torch.no_grad():
+        y = gate_block.fused_simple_layer(x, layer, tables, dom, **kw,
+                                          **drop)
+    torch.cuda.synchronize()
+    assert gate_block.launches == before + 1 and y.shape == x.shape
+    if B:
+        want = _gate_fwd_reference(layer, tables, x, dom, kw, drop)
+        torch.testing.assert_close(y.double(), want, rtol=1e-4, atol=1e-4)
 
 
 # --- K7, the tiled layer on dispatched single-domain tiles --------------
