@@ -170,7 +170,19 @@ Phases, each of which exits non-zero on failure:
    tail; Alimama sota-pos lazy) at batch 8192 on 10 staged batches, each
    line with a finite loss, examples/s of the staged chunk and of ``fit``
    above 0, and exactly 3 + 3 K1-stash / K1-bwd-stash launches a step, with
-   K4, K2 and K3 (split tail) or K4, K3 and K5 (fused tail) in ``lazy``.
+   K4, K2 and K3 (split tail) or K4, K3 and K5 (fused tail) in ``lazy``;
+16. the baseline zoo (WDL, DeepFM, DCN, xDeepFM, NFM, AFM, PNN, AutoInt,
+   FiBiNET, AdaSparse), each built as ``satrans_torch.cli.main`` builds
+   it, at the AliCCP sota width (batch 8192, xDeepFM 4096): the forward on
+   the card against the same weights on the CPU, 3 ``fit`` steps in
+   ``lazy`` with the split tail and 3 with ``SATRANS_LAZY_TAIL=fused``
+   (finite losses, exactly 2 K4, 1 K2 and 1 K3 a step, or 1 K4, 1 K3 and 1
+   K5; no layer kernel), examples/s, the staged step and its device-busy
+   share; AdaSparse trains ``dense`` with no kernel and refuses ``lazy``;
+   DeepFM ``fused`` equal to ``dense`` bit for bit after 3 steps; WDL at
+   ``dnn_dropout`` 0.1 with its masks' keep share (0.9 within 0.005);
+   and SATrans trained in ``lazy`` at dropout 0.1 at batch 8190, which no
+   dropout tile divides: the JAX package's XLA route, no layer kernel.
 
 Phases 2 and 4 also hold K1 where a share of the attention logits passes
 the kernels' clamp at 60 against the clamped plain layer.
@@ -1349,7 +1361,7 @@ def serving_phase(dev, card):
     device_profile(f"one request of {REQUEST_ROWS} examples",
                    lambda: pred(reqs[0]), 1e3 * wall2 / REQUESTS, card)
 
-    plain_model = SATrans(layout, ["301"], [3], use_kernel=False, **kw)
+    plain_model = SATrans(layout, ["301"], [3], route="plain", **kw)
     plain_model.load_state_dict(model.state_dict())
     plain = Predictor(plain_model, batch_size=BATCH, device=dev).warmup()
     t0 = time.perf_counter()
@@ -1487,12 +1499,13 @@ def training_phase(dev, card):
     return launched
 
 
-def staged_batch(trainer, x, y):
-    """The first training batch on the card: (batch, labels, weights)."""
+def staged_batch(trainer, x, y, bsz=BATCH):
+    """The first training batch of ``bsz`` on the card: (batch, labels,
+    weights)."""
     data = trainer.layout.batch_from_dict(x)
-    batch = trainer._device_batch({k: v[:BATCH] for k, v in data.items()})
-    yb, wb = trainer._device_batch({"y": y[:BATCH],
-                                    "w": np.ones(BATCH, np.float32)}).values()
+    batch = trainer._device_batch({k: v[:bsz] for k, v in data.items()})
+    yb, wb = trainer._device_batch({"y": y[:bsz],
+                                    "w": np.ones(bsz, np.float32)}).values()
     return batch, yb, wb
 
 
@@ -1510,7 +1523,7 @@ def training_arm(dev, card, bwd):
     model.train()
     grads = {}
     for use_kernel in (True, False):
-        model.use_kernel = use_kernel
+        model.route = "kernel" if use_kernel else "plain"
         zero_counts()
         model.zero_grad(set_to_none=True)
         total = trainer.loss_terms(batch, yb, wb)[0]
@@ -1524,7 +1537,7 @@ def training_arm(dev, card, bwd):
         check(k1_counts() == want,
               f"one step ({bwd}) launched {k1_counts()} "
               f"({', '.join(K1_COUNTS)}), want {want}")
-    model.use_kernel = True
+    model.route = "kernel"
     errs = grad_errors(grads[True], grads[False])
     worst = max(errs, key=errs.get)
     print(f"train {bwd} [{card}]: one step's gradients at dropout "
@@ -2186,7 +2199,7 @@ def gate_serving(dev, card, variant):
     wall2 = (time.perf_counter() - t0) / 5
     device_profile(f"serve {variant}: one request of {REQUEST_ROWS} "
                    "examples", lambda: pred(req), 1e3 * wall2, card)
-    plain_model = SATrans(layout, ["301"], [3], use_kernel=False, **kw)
+    plain_model = SATrans(layout, ["301"], [3], route="plain", **kw)
     plain_model.load_state_dict(model.state_dict())
     want = Predictor(plain_model, batch_size=BATCH, device=dev)(req)
     diff = float(np.abs(scores - want).max())
@@ -2228,7 +2241,7 @@ def lazy_arm(card, label, model, trainer, x, y, per_step, f64=False):
     model.train()
     grads = {}
     for use_kernel in (True, False):
-        model.use_kernel = use_kernel
+        model.route = "kernel" if use_kernel else "plain"
         zero_counts()
         model.zero_grad(set_to_none=True)
         total = trainer.loss_terms(batch, yb, wb)[0]
@@ -2264,7 +2277,7 @@ def lazy_arm(card, label, model, trainer, x, y, per_step, f64=False):
                   f"(largest entry {w.abs().max().item()})")
     else:
         errs = grad_errors(grads[True], grads[False])
-    model.use_kernel = True
+    model.route = "kernel"
     worst = max(errs, key=errs.get)
     print(f"train {label} [{card}]: one step's gradients at dropout "
           f"{DROP_RATE}, kernel path vs plain path"
@@ -2611,7 +2624,7 @@ def pos_serving(dev, card):
     wall2 = (time.perf_counter() - t0) / 5
     device_profile(f"serve alimama pos: one request of {REQUEST_ROWS} "
                    "examples", lambda: pred(req), 1e3 * wall2, card)
-    plain_model = alimama_model(dev, no_emb_init=True, use_kernel=False)
+    plain_model = alimama_model(dev, no_emb_init=True, route="plain")
     plain_model.load_state_dict(model.state_dict())
     want = Predictor(plain_model, batch_size=BATCH, device=dev)(req)
     diff = float(np.abs(scores - want).max())
@@ -3000,7 +3013,7 @@ def multicol_serving(dev, card, units=UNITS2):
     device_profile(f"serve multicol{tag}: one request of {REQUEST_ROWS} "
                    "examples", lambda: pred(req), 1e3 * wall2, card)
     plain_model = multicol_model(dev, units, no_emb_init=True,
-                                 use_kernel=False)
+                                 route="plain")
     plain_model.load_state_dict(model.state_dict())
     want = Predictor(plain_model, batch_size=BATCH, device=dev)(req)
     diff = float(np.abs(scores - want).max())
@@ -3697,7 +3710,7 @@ def metanet3_paths_phase(dev, card):
     device_profile(f"serve 3-matrix: one request of {REQUEST_ROWS} "
                    "examples", lambda: pred(reqs[0]),
                    1e3 * wall / REQUESTS, card)
-    plain_model = SATrans(layout, ["301"], [3], use_kernel=False, **kw)
+    plain_model = SATrans(layout, ["301"], [3], route="plain", **kw)
     plain_model.load_state_dict(model.state_dict())
     plain = Predictor(plain_model, batch_size=BATCH, device=dev)
     diff = max(float(np.abs(a - plain(r)).max())
@@ -3901,6 +3914,293 @@ def bench_phase(card):
     return {k: v for k, v in launched.items() if v}
 
 
+# the baseline zoo of phase 16, as the CLI names the models
+ZOO_MODELS = ("WDL", "DeepFM", "DCN", "xDeepFM", "NFM", "AFM", "PNN",
+              "AutoInt", "FiBiNET", "AdaSparse")
+ZOO_STEPS, ZOO_LR = 3, 0.001
+# the card-vs-CPU forward: its rows, and every parameter redrawn N(0,
+# 0.1) first, so that each layer moves the predictions (the default init
+# draws the embeddings and the DNN at N(0, 1e-4)); float32 sums in
+# another order on the two devices
+ZOO_FWD_ROWS, ZOO_FWD_STD, ZOO_FWD_TOL = 2048, 0.1, 1e-5
+# the repaired route: SATrans at dropout 0.1 at a batch no dropout tile
+# (128, 256, ..., 16) divides
+UNTILED_BATCH = 8190
+
+
+def zoo_model(dev, name, flag="None", **over):
+    """``name`` as ``satrans_torch.cli.main.build_model`` builds it for
+    ``--model_name name`` at the AliCCP sota layout (scenario column
+    ``301``, 3 domains), its attributes then set from ``over``."""
+    from satrans_torch.cli import main as cli
+    from satrans_torch.data import aliccp
+    from satrans_torch.features import FeatureLayout
+    args = cli.parse_args(["--model_name", name, "--flag", flag])
+    model = cli.build_model(args, FeatureLayout(aliccp.sota_columns(32)),
+                            ["301"], [3], flag, device=dev)
+    for k, v in over.items():
+        setattr(model, k, v)
+    return model
+
+
+def zoo_batch(name):
+    """The CLI's batch size for ``name``."""
+    return 4096 if name == "xDeepFM" else BATCH
+
+
+def zoo_fit(trainer, x, y, bsz, steps=ZOO_STEPS):
+    """``steps`` full steps of ``fit`` after the counts are set to 0:
+    (seconds, per-step data losses, the row kernels' launches (K4, K2,
+    K3, K5), the layer kernels')."""
+    from satrans_torch.ops import eqgemm, gather, lazy_tail, scatter
+    from satrans_torch.train import callbacks
+    losses = []
+
+    class Record(callbacks.Callback):
+        def on_batch_end(self, step, logs=None):
+            losses.append(logs["loss"])
+
+    torch.cuda.synchronize()
+    zero_counts()
+    t0 = time.perf_counter()
+    trainer.fit({k: v[:steps * bsz] for k, v in x.items()},
+                y[:steps * bsz], batch_size=bsz, epochs=1, verbose=0,
+                callbacks=[Record()])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    rows = tuple(m.launches for m in (gather, scatter, eqgemm, lazy_tail))
+    layers = layer_counts()
+    step_loss = torch.stack(losses).cpu().numpy()
+    check(len(step_loss) == steps and bool(np.isfinite(step_loss).all()),
+          f"zoo: the loss is not finite at every step: {step_loss}")
+    return wall, step_loss, rows, layers
+
+
+def zoo_forward_check(dev, card, name, x):
+    """``name``'s eval forward on the card, every parameter redrawn
+    N(0, ZOO_FWD_STD) from a seeded generator, against a CPU copy of it on
+    the first ZOO_FWD_ROWS rows.  Returns the largest difference."""
+    model = zoo_model(dev, name).eval()
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED)
+    data = model.layout.batch_from_dict(
+        {k: v[:ZOO_FWD_ROWS] for k, v in x.items()})
+    with torch.no_grad():
+        for p in model.parameters():
+            p.normal_(0.0, ZOO_FWD_STD, generator=gen)
+        got = model({k: torch.from_numpy(v).to(dev)
+                     for k, v in data.items()}).cpu()
+        host = copy.deepcopy(model).cpu()
+        want = host({k: torch.from_numpy(v) for k, v in data.items()})
+    del model, host
+    err = (got - want).abs().max().item()
+    std = got.std().item()
+    print(f"zoo {name} [{card}]: forward of {ZOO_FWD_ROWS} on the card vs "
+          f"the CPU, parameters N(0, {ZOO_FWD_STD}): max_abs_err "
+          f"{err:.3e}; predictions mean {got.mean().item():.4f} std "
+          f"{std:.4f}", flush=True)
+    check(bool(torch.isfinite(got).all()) and err <= ZOO_FWD_TOL
+          and std > 1e-3, f"zoo {name}: the card's forward differs from "
+                          f"the CPU's by {err} > {ZOO_FWD_TOL}, or its "
+                          f"predictions' std is {std}")
+    return err
+
+
+def zoo_model_run(dev, card, name, x, y):
+    """Phase 16 for one model: the forward check, then training (``lazy``
+    with the split tail and with the fused one; AdaSparse ``dense``, and
+    its ``lazy`` refused), timed and profiled.  Returns the launches by
+    kernel and the forward's error."""
+    from satrans_torch.train import Trainer, bank_optimizer
+    bsz = zoo_batch(name)
+    err = zoo_forward_check(dev, card, name, x)
+    model = zoo_model(dev, name)
+    sparse = bank_optimizer.eligible(model)
+    check(sparse == (name != "AdaSparse"),
+          f"zoo {name}: standard_bank_access is {sparse}")
+    if not sparse:
+        try:
+            Trainer(model, device=dev).compile(bank_update="lazy")
+            refused = False
+        except ValueError:
+            refused = True
+        check(refused, f"zoo {name}: bank_update='lazy' was not refused")
+    trainer = Trainer(model, seed=SEED, device=dev)
+    launched = {}
+    arms = (("lazy", None), ("lazy", "fused")) if sparse else \
+        (("dense", None),)
+    for mode, tail in arms:
+        if tail:
+            os.environ["SATRANS_LAZY_TAIL"] = tail
+        if not launched:
+            trainer.compile(learning_rate=ZOO_LR, bank_update=mode)
+            zoo_fit(trainer, x, y, bsz, 1)  # warmup: one step
+        wall, step_loss, rows, layers = zoo_fit(trainer, x, y, bsz)
+        per_step = {"lazy": dict(zip(ROW_NAMES, LAZY_ROWS_PER_STEP)),
+                    "fused": dict(zip(ROW_NAMES, SPARSE_ARMS[3][3]))}.get(
+            tail or mode, {})
+        want = tuple(ZOO_STEPS * per_step.get(n, 0) for n in ROW_NAMES)
+        check(rows == want and not any(layers),
+              f"zoo {name} {mode} {tail or 'split'}: {ZOO_STEPS} steps "
+              f"launched {rows} ({', '.join(ROW_NAMES)}) and {layers} "
+              f"layer kernels, want {want} and none")
+        for k, n in zip(ROW_NAMES, rows):
+            launched[k] = launched.get(k, 0) + n
+        arm = f"{mode}" + (f" tail {tail}" if tail else "")
+        batch, yb, wb = staged_batch(trainer, x, y, bsz)
+        step_ms = time_ms(lambda: trainer.train_step(batch, yb, wb), iters=5)
+        print(f"zoo {name} {arm} [{card}]: {ZOO_STEPS} steps of {bsz}: "
+              f"{wall:.4f}s, {ZOO_STEPS * bsz / wall:.1f} trained "
+              f"examples/s; losses per example "
+              f"{(step_loss / bsz).round(6).tolist()}; launches {rows}; "
+              f"train_step on a staged batch {step_ms:.3f} ms, "
+              f"{1e3 * bsz / step_ms:.1f} examples/s", flush=True)
+        if tail is None:
+            device_profile(f"zoo {name} {arm}: one training step of {bsz}",
+                           lambda: trainer.train_step(batch, yb, wb),
+                           step_ms, card, top=6)
+        os.environ.pop("SATRANS_LAZY_TAIL", None)
+        del batch
+    del model, trainer
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launched, err
+
+
+def zoo_fused_vs_dense(dev, card, x, y):
+    """DeepFM after 3 steps in ``fused`` and in ``dense`` from one start:
+    every parameter bit for bit."""
+    from satrans_torch.train import Trainer
+    params = {}
+    for mode in ("dense", "fused"):
+        model = zoo_model(dev, "DeepFM")
+        trainer = Trainer(model, seed=SEED, device=dev)
+        trainer.compile(learning_rate=ZOO_LR, bank_update=mode)
+        trainer.fit({k: v[:ZOO_STEPS * BATCH] for k, v in x.items()},
+                    y[:ZOO_STEPS * BATCH], batch_size=BATCH, verbose=0)
+        params[mode] = {k: v.detach().clone()
+                        for k, v in model.state_dict().items()}
+        del model, trainer
+    differ = [k for k, v in params["dense"].items()
+              if not torch.equal(params["fused"][k], v)]
+    worst = max((params["fused"][k] - params["dense"][k]).abs().max().item()
+                for k in params["dense"])
+    print(f"zoo DeepFM fused vs dense [{card}]: after {ZOO_STEPS} steps "
+          f"{len(params['dense']) - len(differ)} of {len(params['dense'])} "
+          f"parameters bit-identical; max_abs_err {worst:.3e}", flush=True)
+    check(not differ, f"zoo DeepFM: fused differs from dense in {differ}")
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def zoo_dropout_case(dev, card, x, y):
+    """WDL at ``dnn_dropout`` 0.1 in ``lazy``: the masks its DNN's
+    ``core.dropout`` draws inside ``fit`` (the JAX package's
+    ``jax.random.bernoulli`` masks, ``ops/threefry.py``), recorded as they
+    are drawn in a first run of ZOO_STEPS steps: one a DNN layer a step,
+    layer ``i`` of step 1 from ``fold_in(sub, i)`` of the Trainer's first
+    step key ``sub``, a new key every step, each keeping 0.9 of its
+    elements within KEEP_SHARE_TOL; the first equals the CPU's mask of
+    its key.  Then a timed run.  Returns the launches by kernel."""
+    from satrans_torch.ops import threefry
+    from satrans_torch.train import Trainer
+    model = zoo_model(dev, "WDL", dnn_dropout=DROP_RATE)
+    trainer = Trainer(model, seed=SEED, device=dev)
+    trainer.compile(learning_rate=ZOO_LR, bank_update="lazy")
+    drawn, draw = [], threefry.bernoulli
+
+    def record(key, p, shape, device="cpu"):
+        mask = draw(key, p, shape, device)
+        drawn.append((tuple(int(w) for w in key), tuple(shape), p,
+                      mask.double().mean().item()))
+        return mask
+
+    threefry.bernoulli = record
+    try:
+        zoo_fit(trainer, x, y, BATCH)  # the recorded run, and the warmup
+    finally:
+        threefry.bernoulli = draw
+    layers = len(model.dnn.layers)
+    sub = threefry.split(threefry.PRNGKey(SEED + 1))[1]  # step 1's key
+    want_keys = [tuple(threefry.fold_in(sub, i)) for i in range(layers)]
+    shares = [share for *_, share in drawn]
+    step_keys = [drawn[s * layers][0] for s in range(ZOO_STEPS)]
+    check(len(drawn) == ZOO_STEPS * layers
+          and [k for k, *_ in drawn[:layers]] == want_keys
+          and len(set(step_keys)) == ZOO_STEPS
+          and all(sh[0] == BATCH and p == 1 - DROP_RATE
+                  for _, sh, p, _ in drawn)
+          and all(abs(s - (1 - DROP_RATE)) <= KEEP_SHARE_TOL for s in shares),
+          f"zoo WDL dropout: fit drew {len(drawn)} masks, want "
+          f"{ZOO_STEPS * layers}: keys, shapes, p and keep shares "
+          f"{drawn}; step 1's keys want {want_keys}")
+    key, shape, _, _ = drawn[0]
+    check(torch.equal(threefry.bernoulli(key, 1 - DROP_RATE, shape,
+                                         dev).cpu(),
+                      threefry.bernoulli(key, 1 - DROP_RATE, shape)),
+          "zoo WDL dropout: the card's mask is not the CPU's")
+    wall, step_loss, rows, layer_launches = zoo_fit(trainer, x, y, BATCH)
+    check(rows == tuple(ZOO_STEPS * c for c in LAZY_ROWS_PER_STEP)
+          and not any(layer_launches), f"zoo WDL dropout: launches {rows}, "
+                                       f"{layer_launches}")
+    print(f"zoo WDL dnn_dropout {DROP_RATE} lazy [{card}]: keep share of "
+          f"the {len(drawn)} masks fit drew in {ZOO_STEPS} steps "
+          f"({layers} DNN layers, a new key a step) {shares}; "
+          f"{ZOO_STEPS * BATCH / wall:.1f} trained examples/s; losses per "
+          f"example {(step_loss / BATCH).round(6).tolist()}", flush=True)
+    del model, trainer
+    gc.collect()
+    torch.cuda.empty_cache()
+    return dict(zip(ROW_NAMES, rows))
+
+
+def untiled_dropout_case(dev, card, x, y):
+    """SATrans (phase 5's model, dropout 0.1) in ``lazy`` at batch 8190:
+    the JAX package's XLA route, its masks drawn with the step key; no
+    layer kernel, the lazy row kernels a step, finite losses.  Returns
+    the launches by kernel."""
+    model, trainer = training_model(dev, "lazy")
+    check(model.block_b(UNTILED_BATCH) is None,
+          f"a dropout tile divides {UNTILED_BATCH}")
+    zoo_fit(trainer, x, y, UNTILED_BATCH, 1)  # warmup: one step
+    wall, step_loss, rows, layers = zoo_fit(trainer, x, y, UNTILED_BATCH)
+    check(rows == tuple(ZOO_STEPS * c for c in LAZY_ROWS_PER_STEP)
+          and not any(layers), f"SATrans at batch {UNTILED_BATCH}: "
+                               f"launches {rows}, {layers}")
+    print(f"train SATrans lazy at batch {UNTILED_BATCH}, dropout "
+          f"{DROP_RATE} [{card}]: the XLA route, no layer kernel; "
+          f"{ZOO_STEPS * UNTILED_BATCH / wall:.1f} trained examples/s; "
+          f"losses per example "
+          f"{(step_loss / UNTILED_BATCH).round(6).tolist()}", flush=True)
+    batch, yb, wb = staged_batch(trainer, x, y, UNTILED_BATCH)
+    step_ms = time_ms(lambda: trainer.train_step(batch, yb, wb), iters=3)
+    device_profile(f"SATrans lazy at batch {UNTILED_BATCH}, the XLA route: "
+                   "one training step", lambda: trainer.train_step(
+                       batch, yb, wb), step_ms, card, top=8)
+    del model, trainer, batch
+    gc.collect()
+    torch.cuda.empty_cache()
+    return dict(zip(ROW_NAMES, rows))
+
+
+def zoo_phase(dev, card):
+    """Phase 16: the baseline zoo and the repaired XLA route.  Returns
+    the launches by path and kernel."""
+    t0 = time.perf_counter()
+    x, y = training_data()
+    paths, errs = {}, {}
+    for name in ZOO_MODELS:
+        paths[f"zoo_{name}"], errs[name] = zoo_model_run(dev, card, name,
+                                                         x, y)
+    zoo_fused_vs_dense(dev, card, x, y)
+    paths["zoo_WDL_dropout"] = zoo_dropout_case(dev, card, x, y)
+    paths["satrans_untiled_dropout"] = untiled_dropout_case(dev, card, x, y)
+    print(f"phase 16: {time.perf_counter() - t0:.2f}s; the forwards' worst "
+          f"error {max(errs.values()):.3e}", flush=True)
+    return paths
+
+
 def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -3946,6 +4246,7 @@ def main() -> int:
     k3, paths3 = metanet3_phase(dev, card)
     kdma, dma_launched = row_dma_phase(dev, card)
     bench = bench_phase(card)
+    zoo = zoo_phase(dev, card)
 
     # launches, each path counted from 0 just before it: serving and the
     # evaluation run K1-fwd only; the dense recompute arm K1-fwd and
@@ -3991,8 +4292,8 @@ def main() -> int:
                  "pallas_call :1212, _fwd_kernel_stash :420)",
         launches=sum(scores_paths.values()), launches_by_path=scores_paths,
         library_ms=None, **ks, **tile["meta_block_fwd_scores"]))
-    # the row kernels run on the sparse training paths (phase 7 arms and
-    # the phase 9 and 10 lazy arms)
+    # the row kernels run on the sparse training paths (phase 7 arms, the
+    # phase 9 and 10 lazy arms, the bench and the zoo of phase 16)
     for name, source, replaces in (
             ("gather_rows", "bank_rows.cu", "gather.py:86"),
             ("scatter_rows_set", "bank_rows.cu", "scatter.py:139"),
@@ -4002,7 +4303,8 @@ def main() -> int:
                                                 *gpaths.items(),
                                                 *ppaths.items(),
                                                 *mpaths.items(),
-                                                ("bench", bench))
+                                                ("bench", bench),
+                                                *zoo.items())
                    if n.get(name)}
         kernels.append(dict(name=name, route="cuda",
                             source=f"satrans_torch/csrc/{source}",

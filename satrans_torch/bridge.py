@@ -1,8 +1,9 @@
 """Move parameters of the JAX package into the port.
 
-:func:`from_jax_params` takes the parameter pytree that
-``satrans_tpu.models.SATrans.init`` returns, with its leaves converted to
-numpy arrays, and gives a ``state_dict`` for the port's model.  The port's
+:func:`from_jax_params` takes the parameter pytree that a model's
+``init`` returns in the JAX package (``SATrans`` or one of the zoo's),
+with its leaves converted to numpy arrays, and gives a ``state_dict`` for
+the port's model.  The port's
 modules carry the pytree's own names, so a key is the pytree path joined
 with dots (``layers.0.q_meta.ln.scale``); the gate and bilinear layers
 have no ``q_meta`` and an ``only_emb`` model no ``encoder``, in both
@@ -10,8 +11,12 @@ packages, and a 'pos' model has ``layerid_emb``, ``qkvid_emb`` and, in
 its metanet layers, ``k_meta`` and ``v_meta`` (``layers.0.k_meta.ln.
 scale``), and a model of several scenario columns ``domain_bank``.  A
 tree of another configuration than the model's (a 'pos' tree into a
-shared model) raises.  The one change of layout is the embedding banks
-(``emb.bank``, ``domain_bank.bank``): the JAX package packs ``128 // d``
+shared model) raises.  A zoo model's keys are its pytree's too: ``linear.emb.bank``
+and ``linear.dense_w`` of the linear model, ``domain_map.layers.0.w`` of
+the meta module, and lists of layers (``cin.convs``, ``int_layers``,
+``dnn_layers``, ``pruners``) by index.  The one change of layout is the
+embedding banks (``emb.bank``, ``domain_bank.bank``, the linear model's
+dimension-1 ``linear.emb.bank``): the JAX package packs ``128 // d``
 logical rows into one 128-lane row; the port keeps the same rows, pad
 rows included, as logical ``[R, d]`` rows, so each bank is reshaped.
 
@@ -47,7 +52,7 @@ def from_jax_params(params_np: dict, model: torch.nn.Module) -> dict:
                        f"{sorted(set(want) - set(flat))} have no JAX twin")
     out = {}
     for key, arr in flat.items():
-        if key.rsplit(".", 1)[-1] == "bank":  # emb, domain_bank
+        if key.rsplit(".", 1)[-1] == "bank":  # emb, domain_bank, linear.emb
             arr = arr.reshape(-1, want[key].shape[1])
         if tuple(arr.shape) != tuple(want[key].shape):
             raise ValueError(f"{key}: JAX shape {arr.shape}, port shape "

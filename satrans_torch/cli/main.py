@@ -1,5 +1,7 @@
 """Experiment entry point with the reference CLI surface (twin of
-``satrans_tpu/cli/main.py`` for ``--model_name SATrans``).
+``satrans_tpu/cli/main.py`` for ``--model_name`` SATrans and the ten
+baselines of the zoo: WDL, DeepFM, DCN, xDeepFM, NFM, AFM, PNN, AutoInt,
+FiBiNET, AdaSparse).
 
 Mirrors reference main.py: the same argparse flags (main.py:39-61), the
 fit/predict protocol (main.py:338-353), the overall and per-domain AUC
@@ -19,7 +21,8 @@ h5 files from ``--data_path`` and need ``h5py``; ``synthetic`` needs no
 file and no package beyond numpy.
 
 Not ported, each raising ``NotImplementedError`` that names its ROADMAP
-item: the models other than SATrans, ``--mesh`` other than ``none``,
+item: STAR, the multi-task and the legacy Star-Trans models, ``--mesh``
+other than ``none``,
 ``--coordinator_address``, ``--shard_embeddings True``,
 ``--embedding_exchange alltoall`` and ``--bank_update lazy_stale``.  The
 JAX package's compilation cache has no counterpart.
@@ -224,25 +227,46 @@ def feature_layout(args, sparse, dense, var_features, data_max, topk):
 
 def build_model(args, layout, domain_col_list, num_domains_list, flag, *,
                 device="cuda"):
-    """SATrans as the reference CLI configures it (MetaNet d -> 2d -> d,
-    the flag's variant and switches); the other models raise."""
-    from ..models import SATrans
+    """The model ``--model_name`` names, configured as the reference CLI
+    configures it (satrans_tpu/cli/main.py:239-247): SATrans with MetaNet
+    d -> 2d -> d and the flag's variant and switches; AutoInt with
+    ``--att_layer_num`` (3 if 0) and ``--att_head_num``; the other zoo
+    baselines with the first scenario column and its domain count.  STAR,
+    the multi-task and the legacy Star-Trans models raise."""
+    from ..models import MODEL_REGISTRY, SATrans
 
-    if args.model_name != "SATrans":
+    name = args.model_name
+    if name in UNPORTED_MODELS:
         raise NotImplementedError(
-            f"model {args.model_name!r}: the port's CLI builds SATrans only; "
-            "the other models are ROADMAP queue 1 item 'Other models'")
-    return SATrans(layout, domain_col_list, num_domains_list,
-                   domain_att_layer_num=args.domain_att_layer_num,
-                   att_head_num=args.att_head_num, meta_mode=args.meta_mode,
-                   meta_dnn_hidden_units=(2 * args.embedding_dim,
-                                          args.embedding_dim),
-                   use_pos="pos" in flag,
-                   variant=("gate" if "gate" in flag else
-                            "bilinear" if "bilinear" in flag else "metanet"),
-                   only_emb="onlyemb" in flag, relu_out="relu" in flag,
-                   no_emb_init="noembinit" in flag, seed=args.seed,
-                   device=device)
+            f"model {name!r}: STAR, the multi-task models and the legacy "
+            "Star-Trans models are ROADMAP queue 1 item 'Other models'")
+    if name not in MODEL_REGISTRY:
+        raise ValueError("no such model")
+    if name == "SATrans":
+        return SATrans(layout, domain_col_list, num_domains_list,
+                       domain_att_layer_num=args.domain_att_layer_num,
+                       att_head_num=args.att_head_num,
+                       meta_mode=args.meta_mode,
+                       meta_dnn_hidden_units=(2 * args.embedding_dim,
+                                              args.embedding_dim),
+                       use_pos="pos" in flag,
+                       variant=("gate" if "gate" in flag else
+                                "bilinear" if "bilinear" in flag
+                                else "metanet"),
+                       only_emb="onlyemb" in flag, relu_out="relu" in flag,
+                       no_emb_init="noembinit" in flag, seed=args.seed,
+                       device=device)
+    kw = dict(flag=flag, domain_col=domain_col_list[0],
+              num_domains=num_domains_list[0], seed=args.seed, device=device)
+    if name == "AutoInt":
+        kw.update(att_layer_num=args.att_layer_num or 3,
+                  att_head_num=args.att_head_num)
+    return MODEL_REGISTRY[name](layout, **kw)
+
+
+# the JAX package's models that the port does not have yet
+UNPORTED_MODELS = ("Star_Net", "Star_Trans", "Starv2_Trans", "Starv3_Trans",
+                   "Starv4_Trans", "SharedBottom", "MMOE", "PLE", "ESMM")
 
 
 def _unported(args) -> None:

@@ -16,6 +16,12 @@ rows, as the JAX package's do.
 
 Side-bank ids outside the side bank read zeros, as the JAX package's
 one-hot read does.
+
+A bank's width is its own: :func:`embed_fields` and :func:`lookup_field`
+read at the dimension of the bank they are given (the JAX package's
+``dim`` argument), so the first-order :class:`LinearModel` is a bank of
+dimension 1 (``rp = 128`` logical rows a physical row) and its dense
+weights (embeddings.py:481-504).
 """
 
 from __future__ import annotations
@@ -205,7 +211,9 @@ def lookup_sparse(emb, layout: FeatureLayout,
 
 def lookup_field(emb, layout: FeatureLayout, name: str,
                  ids: torch.Tensor) -> torch.Tensor:
-    """One sparse field's embeddings for arbitrary ``ids``."""
+    """One sparse field's embeddings for arbitrary ``ids``, from the bank
+    that holds the field (AdaSparse's scenario embedding, the composite
+    tables' columns)."""
     split = layout.small_split(SMALL_TABLE_THRESHOLD)
     i = layout.sparse_index(name)
     ids = ids.long()
@@ -331,3 +339,32 @@ def l2_loss(emb, l2: float):
         like = emb.rows if isinstance(emb, BankRowFeed) else emb.bank
         return torch.zeros((), dtype=like.dtype, device=like.device)
     return l2 * sum(torch.sum(torch.square(t)) for t in tables)
+
+
+class LinearModel(nn.Module):
+    """The first-order linear model (reference basemodel.py:34-92): a bank
+    of dimension 1 over the layout's fields and, with dense columns, a
+    weight ``dense_w`` ``[dense_dim, 1]``, both N(0, init_std)."""
+
+    def __init__(self, gen: torch.Generator, layout: FeatureLayout, *,
+                 init_std: float = 1e-4):
+        super().__init__()
+        self.emb = bank_init(gen, layout, dim=1, init_std=init_std)
+        self.dense_w = nn.Parameter(init.normal(
+            gen, (layout.dense_dim, 1), init_std)) \
+            if layout.dense_dim > 0 else None
+
+    def forward(self, layout: FeatureLayout, batch) -> torch.Tensor:
+        """The first-order logit ``[B, 1]``: the sum of the fields'
+        1-dim embeddings, plus the dense columns' dot with ``dense_w``."""
+        logit = embed_fields(self.emb, layout, batch).sum(dim=(1, 2))[:, None]
+        if self.dense_w is not None and "dense" in batch:
+            logit = logit + batch["dense"] @ self.dense_w
+        return logit
+
+    def l2(self, l2: float) -> torch.Tensor:
+        """The bank's full-table L2 and the dense weights'."""
+        loss = l2_loss(self.emb, l2)
+        if self.dense_w is not None and l2 > 0.0:
+            loss = loss + l2 * torch.sum(torch.square(self.dense_w))
+        return loss

@@ -112,6 +112,12 @@ class FeatureLayout:
     def sparse_index(self, name: str) -> int:
         return self._sparse_index[name]
 
+    @property
+    def input_dim(self) -> int:
+        """Flattened DNN input width: every field's embedding and the dense
+        columns (reference basemodel.py:489-507)."""
+        return self.num_fields * self.embedding_dim + self.dense_dim
+
     def small_split(self, threshold: int = 256):
         """Partition tables by vocab: tables with vocab <= threshold (and no
         varlen user) live in the compact side bank.

@@ -19,9 +19,9 @@ Forward:
    variant: :func:`satrans_torch.ops.meta_block.fused_meta_layer` (K1) for
    the metanet variant, :func:`satrans_torch.ops.gate_block.
    fused_simple_layer` (K6) for gate and bilinear (the CUDA kernels on the
-   card, forward and, in training, backward; the plain version on the
-   CPU), or through the plain version without the logit clamp when
-   ``use_kernel=False`` (the JAX package's XLA path);
+   card, forward and, in training, backward; their plain versions on the
+   CPU), or on the JAX package's XLA route (below) the plain layer
+   without the logit clamp;
 5. flatten, the dense columns, one linear and a sigmoid.
 
 Several scenario columns (the reference's ``--domain_col 301-122``,
@@ -45,10 +45,21 @@ Then the routing is the JAX package's (satrans.py:358-442):
   per-example parameters on its XLA path; the constructor raises (ROADMAP
   queue 1 item 'multi-column above SATRANS_COMPOSITE_MAX').
 
-``use_kernel=False`` takes the same routes on the plain layers.  Where no
-dispatch tile ``(SATRANS_BLOCK_B_COMPOSITE, 16)`` divides the batch, the
-JAX package takes its XLA path; so does the port outside dropout
-training: the plain composite layer without the clamp.
+``route`` picks one of three routes (:data:`ROUTES`), the JAX package's
+``use_fused_kernel`` / ``fused_interpret`` pair: ``'kernel'`` (True /
+False) the layer kernels above; ``'plain'`` (True / True, the
+interpret-mode kernels) the same routing on the kernels' plain versions,
+their masks and logit clamp, on any device: what the card's kernels are
+held against; ``'xla'`` (False) the JAX package's XLA route
+(satrans.py:488-519): the plain layer
+(``nn.attention.meta_transformer_apply``) on the whole batch, without
+the clamp and without a dispatch, its dropout the XLA layer's
+``jax.random.bernoulli`` masks: layer ``i`` splits ``fold_in(key, i)``
+four ways (attention.py:182-184).  The other two routes take the XLA
+route too for MetaNets of a depth no kernel takes, for a composite table
+that no dispatch tile ``(SATRANS_BLOCK_B_COMPOSITE, 16)`` divides the
+batch of, and in dropout training at a batch that no dropout tile
+divides (satrans.py:324-339, :372-376).
 
 ``forward(..., return_scores=True)`` also returns each layer's attention
 probabilities ``[B, H, F, F]`` (before dropout), for the showattn and
@@ -58,23 +69,24 @@ metanet variant on a table that is not tiled (one column, or a composite
 of 8 rows or fewer) takes K1-scores
 (:func:`satrans_torch.ops.meta_block.fused_meta_layer_with_scores`,
 logits clamped), everything else - gate, bilinear, a tiled composite
-(the JAX package has no score-returning K6 or K7), ``use_kernel=False``,
-and ``SATRANS_PROBE_FUSED=0`` - the plain layer without the clamp on the
-whole batch (the JAX package's XLA route).  The JAX package defaults to
+(the JAX package has no score-returning K6 or K7), a route other than
+``'kernel'``, and ``SATRANS_PROBE_FUSED=0`` - the plain layer without the clamp on the
+whole batch (the JAX package's XLA route, its masks).  The JAX package
+defaults to
 its XLA route (``SATRANS_PROBE_FUSED`` defaults to ``"0"`` there, a
 choice measured on a TPU); the port's rule is that no card path runs the
 plain version, so on CUDA the metanet probes take K1-scores unless the
 caller sets ``SATRANS_PROBE_FUSED=0`` (a documented deviation).
 
-In training each layer applies dropout at ``dropout_rate`` with its own
-int32 seed (``forward``'s ``seeds``; by default those the JAX package
-draws from ``PRNGKey(0)``, ``ops/threefry.py``), on tiles of ``block_b``
-examples: the first of ``(fused_block_b, 256, 128, 64, 32, 16)`` that
-divides the batch (satrans_tpu/models/satrans.py:327-339).  The masks are
-the JAX package's interpret-mode kernel masks (``ops/prng.py``), on both
-paths: the unfused path (``use_kernel=False``) draws the kernels' masks,
-not ``jax.random``'s as the JAX package's XLA path does (a documented
-deviation).
+``forward``'s ``key`` (by default ``PRNGKey(0)``, the JAX package's
+``apply(rng=None)``; in training the Trainer's step key) is the dropout's
+threefry key (``ops/threefry.py``).  In training each layer of the
+kernel route applies dropout at ``dropout_rate`` with its own int32 seed,
+``randint(fold_in(key, i))`` (satrans.py:448-450), on tiles of ``block_b`` examples: the first of
+``(fused_block_b, 256, 128, 64, 32, 16)`` that divides the batch
+(satrans_tpu/models/satrans.py:327-339).  The masks are the JAX
+package's interpret-mode kernel masks (``ops/prng.py``), on the kernels
+and on their plain versions.
 
 This slice supports one or several scenario columns, the metanet
 (2-matrix MetaNets), gate and bilinear variants, each with or without
@@ -101,6 +113,10 @@ from ..ops import dispatch, gate_block, meta_block, threefry, tiled_meta
 from ..utils import make_generator, resolve_device
 
 
+# the three routes of the layers (see the module's docstring)
+ROUTES = ("kernel", "plain", "xla")
+
+
 class SATrans(nn.Module):
     # the only large-bank read is one embed_fields call on self.emb, so the
     # sparse bank updates (train/bank_optimizer.py) apply
@@ -116,7 +132,7 @@ class SATrans(nn.Module):
                  seed: int = 1024, use_pos: bool = False,
                  variant: str = "metanet", only_emb: bool = False,
                  relu_out: bool = False, no_emb_init: bool = False,
-                 compute_dtype: str = "float32", use_kernel: bool = True,
+                 compute_dtype: str = "float32", route: str = "kernel",
                  fused_block_b: int | None = None, device="cuda"):
         super().__init__()
         dev = resolve_device(device)
@@ -191,7 +207,9 @@ class SATrans(nn.Module):
         self.variant = variant
         self.only_emb = only_emb
         self.use_pos = use_pos
-        self.use_kernel = use_kernel
+        if route not in ROUTES:
+            raise ValueError(f"route {route!r} is not one of {ROUTES}")
+        self.route = route
         # the dropout tile; SATRANS_BLOCK_B overrides, as in the JAX package
         self.fused_block_b = int(os.environ.get("SATRANS_BLOCK_B", "128")) \
             if fused_block_b is None else int(fused_block_b)
@@ -304,14 +322,15 @@ class SATrans(nn.Module):
                 return cand
         return None
 
-    def forward(self, batch, feed=None, seeds=None,
+    def forward(self, batch, feed=None, key=None,
                 return_scores: bool = False):
         """``batch``: typed tensors on the model's device (``sparse``
         ``[B, S]``, optional ``dense`` and ``varlen``).  With ``feed`` (an
         ``embeddings.BankRowFeed``) the large-bank rows come from it.
-        ``seeds``: one int32 dropout seed per layer (``None``: the JAX
-        package's default, :attr:`default_seeds`).  Returns ``[B]``; with
-        ``return_scores`` ``(pred, [scores [B, H, F, F] per layer])``."""
+        ``key``: the dropout's threefry key (``None``: ``PRNGKey(0)``,
+        whose layer seeds are :attr:`default_seeds`).  Returns ``[B]``;
+        with ``return_scores`` ``(pred, [scores [B, H, F, F] per
+        layer])``."""
         x = embeddings.embed_fields(self.emb if feed is None else feed,
                                     self.layout, batch)
         if len(self.domain_cols) > 1:
@@ -320,42 +339,41 @@ class SATrans(nn.Module):
             dom = batch["sparse"][:, self.domain_index[0]].long().clamp(
                 0, self.num_domains)
         blk = self.block_b(x.shape[0])
-        if self.training and self.dropout_rate > 0.0 and blk is None:
-            raise NotImplementedError(
-                f"dropout at batch {x.shape[0]}, which no dropout tile "
-                f"(fused_block_b={self.fused_block_b}, 256, 128, 64, 32, 16; "
-                f"composites: {self.composite_block_b}, 16) divides: the JAX "
-                "package's XLA fallback there draws jax.random masks; "
-                "ROADMAP queue 1 item 'bernoulli' ('dropout at a batch no "
-                "tile divides')")
-        if seeds is None:
-            seeds = self.default_seeds
+        if key is None:
+            key, seeds = threefry.PRNGKey(0), self.default_seeds
+        else:
+            seeds = threefry.layer_seeds(key, len(self.layers))
         if return_scores:
-            return self._scores_forward(x, dom, blk, batch, seeds)
-        if self.tiled and blk is not None and self.metanet_kernel:
+            return self._scores_forward(x, dom, blk, batch, seeds, key)
+        dropping = self.training and self.dropout_rate > 0.0
+        # the JAX package's XLA route (satrans.py:324-339, :372-376)
+        if self.route == "xla" or (self.variant == "metanet"
+                                   and not self.metanet_kernel) or (
+                blk is None and (self.tiled or dropping)):
+            for i, (layer, tables) in enumerate(zip(self.layers,
+                                                    self.meta_tables())):
+                x = self._xla_layer(layer, x, tables, dom,
+                                    threefry.fold_in(key, i))
+            return self._head(x, batch)
+        if self.tiled:
             return self._tiled_forward(x, dom, blk, batch, seeds)
         simple = self.variant != "metanet"
-        # a tiled model's batch that no dispatch tile divides, and a MetaNet
-        # off the kernel route: the JAX package's XLA path, the plain layer
-        # (satrans.py:324-339, :372-376)
-        plain = not self.use_kernel or self.tiled or not (
-            simple or self.metanet_kernel)
+        twins = self.route == "plain"
         for layer, seed, tables in zip(self.layers, seeds,
                                        self.meta_tables(), strict=True):
             kw = dict(head_num=self.att_head_num, mode=self.meta_mode,
                       relu_out=self.relu_out)
             drop = dict(train=self.training, drop_rate=self.dropout_rate,
                         seed=int(seed), block_b=blk or self.fused_block_b)
-            if simple and not plain:
+            if simple and not twins:
                 x = gate_block.fused_simple_layer(x, layer, tables, dom,
                                                   **kw, **drop)
             elif simple:
                 x = gate_block.simple_layer_reference(
                     x, layer, tables, dom, **kw,
                     masks=gate_block.layer_masks(
-                        x, head_num=self.att_head_num, **drop),
-                    clamp=False)
-            elif not plain:
+                        x, head_num=self.att_head_num, **drop))
+            elif not twins:
                 x = meta_block.fused_meta_layer(
                     x, layer, tables, dom, meta_units=self.meta_units, **kw,
                     **drop)
@@ -364,8 +382,20 @@ class SATrans(nn.Module):
                     x, layer, tables, dom, meta_units=self.meta_units, **kw,
                     masks=meta_block.layer_masks(
                         x, head_num=self.att_head_num, mode=self.meta_mode,
-                        **drop), clamp=False)
+                        **drop))
         return self._head(x, batch)
+
+    def _xla_layer(self, layer, x, tables, dom, key, residuals=None):
+        """One layer on the JAX package's XLA route: the plain layer on
+        the whole batch without the clamp, its dropout the XLA layer's
+        masks of ``key`` (satrans.py:495-505: one GEMM a table row and a
+        one-hot select for 8 rows or fewer, a gather beyond)."""
+        return attention.meta_transformer_apply(
+            layer, x, tables, self.meta_units, mode=self.meta_mode,
+            head_num=self.att_head_num, relu_out=self.relu_out,
+            domain_ids=dom, dense_select=self.meta_rows <= 8,
+            drop_rate=self.dropout_rate if self.training else 0.0,
+            drop_key=key, residuals=residuals, clamp=False)
 
     def _head(self, x, batch) -> torch.Tensor:
         """The prediction from the last layer's output ``[B, F, d]``."""
@@ -374,44 +404,36 @@ class SATrans(nn.Module):
             flat = torch.cat([flat, batch["dense"]], dim=1)
         return core.prediction(self.head(flat), self.task)[:, 0]
 
-    def _scores_forward(self, x, dom, blk, batch, seeds):
+    def _scores_forward(self, x, dom, blk, batch, seeds, key):
         """The probes' forward (satrans.py:381-395, :460-468, :484-519):
         ``(pred, [scores per layer])``.  K1-scores for the metanet variant
-        on an untiled table unless ``use_kernel=False`` or
-        ``SATRANS_PROBE_FUSED=0``; else the plain layer without the clamp
-        on the whole batch."""
-        fused = (self.use_kernel and self.metanet_kernel and not self.tiled
+        on an untiled table on the kernel route unless
+        ``SATRANS_PROBE_FUSED=0``; else the XLA route on the whole
+        batch."""
+        fused = (self.route == "kernel" and self.metanet_kernel and not self.tiled
                  and os.environ.get("SATRANS_PROBE_FUSED", "1") != "0")
         scores = []
-        for layer, seed, tables in zip(self.layers, seeds,
-                                       self.meta_tables(), strict=True):
-            kw = dict(head_num=self.att_head_num, mode=self.meta_mode,
-                      relu_out=self.relu_out)
-            drop = dict(train=self.training, drop_rate=self.dropout_rate,
-                        seed=int(seed), block_b=blk or self.fused_block_b)
+        for i, (layer, seed, tables) in enumerate(zip(
+                self.layers, seeds, self.meta_tables(), strict=True)):
             if fused:
                 x, s = meta_block.fused_meta_layer_with_scores(
-                    x, layer, tables, dom, meta_units=self.meta_units, **kw,
-                    **drop)
+                    x, layer, tables, dom, meta_units=self.meta_units,
+                    head_num=self.att_head_num, mode=self.meta_mode,
+                    relu_out=self.relu_out, train=self.training,
+                    drop_rate=self.dropout_rate, seed=int(seed),
+                    block_b=blk or self.fused_block_b)
             else:
                 res = {}
-                masks = (meta_block.layer_masks(x, mode=self.meta_mode,
-                                                head_num=self.att_head_num,
-                                                **drop)
-                         if self.variant == "metanet" else
-                         gate_block.layer_masks(x, head_num=self.att_head_num,
-                                                **drop))
-                x = attention.meta_transformer_apply(
-                    layer, x, tables, self.meta_units, **kw,
-                    domain_ids=dom, masks=masks, residuals=res, clamp=False)
+                x = self._xla_layer(layer, x, tables, dom,
+                                    threefry.fold_in(key, i), residuals=res)
                 s = res["s"]
             scores.append(s)
         return self._head(x, batch), scores
 
     def _tiled_forward(self, x, dom, blk, batch, seeds) -> torch.Tensor:
         """The composite metanet on dispatched tiles of ``blk`` slots
-        (satrans.py:411-442): K7 (or its plain version under
-        ``use_kernel=False``) per layer on the per-tile tables, the head on
+        (satrans.py:411-442): K7 (or its plain version on the ``'plain'``
+        route) per layer on the per-tile tables, the head on
         the padded slots, the predictions gathered back to batch order.
         Only the occupied slots' predictions are read, so the slack slots'
         gradients are zero and K7's backward skips them (``tile_count``)."""
@@ -429,12 +451,12 @@ class SATrans(nn.Module):
                       mode=self.meta_mode, relu_out=self.relu_out)
             drop = dict(train=self.training, drop_rate=self.dropout_rate,
                         seed=int(seed), block_b=blk)
-            if self.use_kernel:
+            if self.route == "kernel":
                 x = tiled_meta.fused_tiled_layer(x, layer, tabs, **kw, **drop,
                                                  tile_count=plan.tile_count)
             else:
                 x = tiled_meta.tiled_layer_reference(
-                    x, layer, tabs, **kw, block_b=blk, clamp=False,
+                    x, layer, tabs, **kw, block_b=blk,
                     masks=tiled_meta.layer_masks(
                         x, head_num=self.att_head_num, mode=self.meta_mode,
                         **drop))

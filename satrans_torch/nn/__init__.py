@@ -1,3 +1,3 @@
 """NN modules of the port (twin of ``satrans_tpu/nn``)."""
 
-from . import attention, core, initializers, metanet  # noqa: F401
+from . import attention, core, initializers, interactions, metanet  # noqa: F401

@@ -5,9 +5,12 @@ Given field embeddings ``x: [B, F, d]`` and flat parameters with
 ``P = sum(units[i] * units[i+1])``, slice the flat vector into weight
 matrices ``W_i: [units[i], units[i+1]]`` and apply a bias-free MLP (ReLU
 between layers, not after the last), then the residual add and the
-LayerNorm.  Dropout is a ``mask`` (0 or the keep scale, one value per
-output element) multiplied into the MLP's output before the residual, as
-the fused kernels do; ``ops/prng.py`` draws it.
+LayerNorm.  Dropout is ``drop``, a function applied to the MLP's output
+before the residual: the fused kernels' mask (``ops/prng.py``) multiplied
+in, or the JAX package's XLA dropout (``core.dropout``).
+:func:`apply_domainwise` is the whole MetaNet with the XLA dropout, the
+baseline zoo's ``metatrans`` hook (``satrans_tpu/nn/metanet.py:71-76``,
+``:91-112``).
 """
 
 from __future__ import annotations
@@ -39,11 +42,13 @@ def slice_weights(flat: torch.Tensor, units: Sequence[int]):
 
 class MetaNet(nn.Module):
     """Only the LayerNorm is a trained parameter (torch defaults: ones and
-    zeros); the weights are generated by the scenario encoder."""
+    zeros); the weights are generated by the scenario encoder.  Without
+    ``use_norm`` there is no LayerNorm and no parameter."""
 
-    def __init__(self, gen: torch.Generator, hidden_dim: int):
+    def __init__(self, gen: torch.Generator, hidden_dim: int, *,
+                 use_norm: bool = True):
         super().__init__()
-        self.ln = core.LayerNorm(gen, hidden_dim)
+        self.ln = core.LayerNorm(gen, hidden_dim) if use_norm else None
 
 
 def _mlp_chain(x, weights):
@@ -55,23 +60,23 @@ def _mlp_chain(x, weights):
     return x
 
 
-def _residual(y, x, mask):
-    """The pre-LayerNorm sum ``y * mask + x``."""
-    return (y if mask is None else y * mask) + x
+def _residual(y, x, drop):
+    """The pre-LayerNorm sum ``drop(y) + x``."""
+    return (y if drop is None else drop(y)) + x
 
 
-def flat_sum(x, mlp_params, units: Sequence[int], *, mask=None):
+def flat_sum(x, mlp_params, units: Sequence[int], *, drop=None):
     """Per-example flat params ``[B, P]`` (only the first
-    ``param_size(units)`` entries are read): the MLP on ``x``, masked,
+    ``param_size(units)`` entries are read): the MLP on ``x``, dropped,
     plus ``x``; the MetaNet's LayerNorm of it is the output."""
     weights = slice_weights(mlp_params[:, :param_size(units)], units)
-    return _residual(_mlp_chain(x, weights), x, mask)
+    return _residual(_mlp_chain(x, weights), x, drop)
 
 
 def domainwise_sum(x, domain_ids, domain_params, units: Sequence[int], *,
-                   dense_select: bool = False, mask=None):
+                   dense_select: bool = False, drop=None):
     """``domain_params [D, P]`` indexed by ``domain_ids [B]``: the MLP of
-    each example's domain on ``x``, masked, plus ``x``.
+    each example's domain on ``x``, dropped, plus ``x``.
 
     ``dense_select=False`` gathers each example's own weights (the
     kernel's arithmetic); ``True`` runs every domain's MLP on every row and
@@ -92,5 +97,22 @@ def domainwise_sum(x, domain_ids, domain_params, units: Sequence[int], *,
         y = torch.einsum("dbfo,bd->bfo", torch.stack(ys), onehot)
     else:
         y = _mlp_chain(x, [w[domain_ids] for w in weights])
-    return _residual(y, x, mask)
+    return _residual(y, x, drop)
+
+
+def apply_domainwise(net: MetaNet, x, domain_ids, domain_params,
+                     units: Sequence[int], *, dropout_rate: float = 0.1,
+                     train: bool = False, key=None):
+    """The MetaNet of each example's domain on ``x`` (the gather path),
+    the JAX package's dropout of ``key`` on its output, the residual and
+    the LayerNorm if ``net`` has one.  ``domain_ids`` index the rows of
+    ``domain_params`` as a JAX gather does: a negative id counts from the
+    end, and every id is clamped into the table."""
+    rows = domain_params.shape[0]
+    ids = domain_ids.long()
+    ids = torch.where(ids < 0, ids + rows, ids).clamp(0, rows - 1)
+    y = domainwise_sum(x, ids, domain_params, units,
+                       drop=lambda t: core.dropout(t, dropout_rate, train,
+                                                   key))
+    return y if net.ln is None else net.ln(y)
 

@@ -1,10 +1,13 @@
-"""The part of ``jax.random`` that picks the layers' dropout seeds.
+"""The part of ``jax.random`` that the JAX package's dropout draws from.
 
 A twin of JAX's default PRNG (threefry2x32 with
 ``jax_threefry_partitionable=True``, the default of JAX 0.9): the JAX
 package's model and Trainer turn their keys into one int32 seed per layer
 (``satrans_tpu/models/satrans.py:448-450``, ``train/trainer.py:616``,
-``:655``), and the port draws the same seeds from the same keys.
+``:655``), and the port draws the same seeds from the same keys.  Its
+XLA layers and the baseline zoo draw their dropout masks with
+``jax.random.bernoulli`` (``satrans_tpu/nn/core.py:59-64``);
+:func:`bernoulli` draws the same masks bit for bit.
 
 A key is a pair of uint32 words ``(k1, k2)``.  Each word is a Python int
 or an int64 tensor holding uint32 values (many keys at once); every
@@ -13,12 +16,18 @@ code runs on torch tensors and on Python ints.  The model and the Trainer
 draw their few seeds a step with ints: one hash costs a few microseconds
 there against about a millisecond as a chain of scalar torch ops.
 
-Only what the seeds need is here: :func:`PRNGKey`, :func:`split`,
-:func:`fold_in` and :func:`randint` with ``shape=()`` and int32 bounds.
-The module imports neither JAX nor the JAX package.
+Here are :func:`PRNGKey`, :func:`split`, :func:`fold_in`, :func:`randint`
+with ``shape=()`` and int32 bounds, and :func:`random_bits`,
+:func:`uniform` and :func:`bernoulli` in float32 at any shape, on tensors
+of the caller's device.  The module imports neither JAX nor the JAX
+package.
 """
 
 from __future__ import annotations
+
+import math
+
+import torch
 
 _M32 = 0xFFFFFFFF
 _ROTATIONS = ((13, 15, 26, 6), (17, 29, 16, 24))
@@ -86,3 +95,31 @@ def layer_seeds(key, layers: int) -> list[int]:
     ``randint(fold_in(key, i))`` for each layer ``i``, as the JAX SATrans
     draws them (models/satrans.py:448-450)."""
     return [int(randint(fold_in(key, i))) for i in range(layers)]
+
+
+def random_bits(key, shape, device="cpu") -> torch.Tensor:
+    """``jax.random.bits(key, shape, uint32)`` (``prng.py:
+    _threefry_random_bits_partitionable``) as an int64 tensor of uint32
+    values on ``device``: element ``i`` (row-major) is the xor of the two
+    words of the hash of the 64-bit counter ``i``, split into its high and
+    low 32 bits (``iota_2x32_shape``)."""
+    n = math.prod(shape)
+    idx = torch.arange(n, dtype=torch.int64, device=device)
+    b1, b2 = threefry2x32(*(int(k) for k in key), idx >> 32, idx & _M32)
+    return (b1 ^ b2).reshape(tuple(shape))
+
+
+def uniform(key, shape, device="cpu") -> torch.Tensor:
+    """``jax.random.uniform(key, shape, float32)`` in ``[0, 1)``
+    (``random.py:_uniform``): the top 23 bits of :func:`random_bits` as
+    the mantissa of a float in ``[1, 2)``, minus 1."""
+    bits = (random_bits(key, shape, device) >> 9) | 0x3F800000
+    return bits.to(torch.int32).view(torch.float32) - 1.0
+
+
+def bernoulli(key, p: float, shape, device="cpu") -> torch.Tensor:
+    """``jax.random.bernoulli(key, p, shape)`` for a float32 ``p``
+    (``random.py:_bernoulli``, mode 'low'): a bool tensor, ``uniform <
+    float32(p)``."""
+    return uniform(key, shape, device) < torch.tensor(
+        p, dtype=torch.float32, device=device)

@@ -9,11 +9,13 @@ On the card each meta-transformer layer runs K1-stash forward and
 K1-bwd-stash backward, K1-stash light and K1-bwd-stash light under
 ``SATRANS_BWD=stash_light``, or K1-fwd and K1-bwd under
 ``SATRANS_BWD=recompute`` (``ops/meta_block.py``); the gate and bilinear
-variants' layers run K6 (``ops/gate_block.py``).  Each step draws one
-dropout seed per layer as the JAX Trainer does: its key ``PRNGKey(seed +
-1)``, set at every ``fit``, is split each step and layer ``i`` gets
-``randint(fold_in(sub, i))`` (``ops/threefry.py``, the JAX package's
-numbers; :meth:`Trainer.step_seeds`).
+variants' layers run K6 (``ops/gate_block.py``).  Each step draws its
+dropout key as the JAX Trainer does: its key ``PRNGKey(seed + 1)``, set
+at every ``fit``, is split each step and the model gets ``sub``
+(:meth:`Trainer.step_key`, ``ops/threefry.py``), as the JAX model's
+``apply`` gets its ``rng``; SATrans turns it into one seed a layer,
+``randint(fold_in(sub, i))``.  AdaSparse, whose bank is read twice, takes
+only ``dense``, as in the JAX package.
 Adam is ``torch.optim.Adam`` with ``eps`` outside the square root, the
 same update as ``optax.adam``, in its fused form: one pass over each
 parameter, its gradient and its moments (the 841 MB AliCCP bank makes
@@ -40,8 +42,8 @@ ROADMAP item: a mesh, ``lazy_stale``, streaming ``fit_from_iterator``,
 ``evaluate_domains`` and optimizers other than Adam.  ``fit(scan_steps=k)``
 (the JAX package's program of k steps, trainer.py:629-658) runs each run
 of k full batches as k single steps one after another, with the JAX
-package's seeds for such a run: the step key is split once and step ``j``
-takes its layer seeds from ``split(sub, k)[j]``.  The statistics of the
+package's keys for such a run: the step key is split once and step ``j``
+takes the key ``split(sub, k)[j]``.  The statistics of the
 run are summed and reach the callbacks once, as the JAX package's do.
 ``scan_unroll`` (the unroll of the JAX package's ``lax.scan``) is kept and
 changes no result.
@@ -172,45 +174,42 @@ class Trainer:
             return arr
         return np.pad(arr, [(0, target - n)] + [(0, 0)] * (arr.ndim - 1))
 
-    def step_seeds(self, sub=None) -> list[int]:
-        """A step's dropout seeds, one per layer: layer ``i`` gets
-        ``randint(fold_in(sub, i))`` in ``[0, 2**31 - 1)``, the JAX
-        Trainer's seeds.  Without ``sub`` the next single step's: the step
-        key is split, ``step_key, sub = split(step_key)`` (trainer.py:616,
-        :655); ``fit`` passes a run of k steps its own (:638-639)."""
-        n = len(getattr(self.model, "layers", ()))
-        if sub is None:
-            self._step_key, sub = threefry.split(self._step_key)
-        return threefry.layer_seeds(sub, n)
+    def step_key(self):
+        """The next single step's dropout key: the step key is split,
+        ``step_key, sub = split(step_key)`` (trainer.py:616, :655), and
+        ``sub`` is returned; ``fit`` passes a run of k steps its own
+        (:638-639)."""
+        self._step_key, sub = threefry.split(self._step_key)
+        return sub
 
-    def loss_terms(self, batch, y, weight, seeds=None):
+    def loss_terms(self, batch, y, weight, key=None):
         """``(total, data loss, reg loss, aux loss)`` of one batch in train
-        mode with the layers' dropout ``seeds``: the function one step
+        mode with the dropout ``key``: the function one step
         differentiates."""
-        pred = self.model(batch, seeds=seeds)
+        pred = self.model(batch, key=key)
         data_loss = self._strategy.loss(pred, y, weight)
         reg = self.model.reg_loss()
         aux = torch.zeros((), dtype=data_loss.dtype, device=data_loss.device)
         return data_loss + reg + aux, data_loss, reg, aux
 
-    def train_step(self, batch, y, weight, seeds=None) -> dict:
-        """One optimizer step with the layers' dropout ``seeds`` (the next
-        of :meth:`step_seeds` if None); returns its statistics as device
+    def train_step(self, batch, y, weight, key=None) -> dict:
+        """One optimizer step with the dropout ``key`` (the next
+        :meth:`step_key` if None); returns its statistics as device
         scalars."""
         self.model.train()
         self.optimizer.zero_grad(set_to_none=True)
         mode = self._bank_mode
-        if seeds is None:
-            seeds = self.step_seeds()
+        if key is None:
+            key = self.step_key()
         if mode == "dense":
             total, data_loss, reg, aux = self.loss_terms(batch, y, weight,
-                                                         seeds)
+                                                         key)
             total.backward()
             self.optimizer.step()
         else:
             flat_ids, g_rows, data_loss, reg, aux = \
                 bank_optimizer.sparse_bank_grads(self.model, self._strategy,
-                                                 batch, y, weight, seeds)
+                                                 batch, y, weight, key)
             emb = self.model.emb
             l2 = float(self.model.l2_reg_embedding)
             if mode in ("fused", "fused_eq"):
@@ -297,8 +296,8 @@ class Trainer:
                         {"y": self._pad(labels[idx], batch_size),
                          "w": wb}).values()
                     one = self.train_step(
-                        batch, yb, wb, self.step_seeds() if subs[j] is None
-                        else self.step_seeds(subs[j]))
+                        batch, yb, wb,
+                        self.step_key() if subs[j] is None else subs[j])
                     seen += bsz
                     stats = one if stats is None else {
                         kk: stats[kk] + v for kk, v in one.items()}

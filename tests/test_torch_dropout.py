@@ -20,7 +20,14 @@ against it:
   parameter at atol 5e-5 / rtol 1e-3 (tests/test_torch_train.py's
   tolerances);
 * the keep share of each site within 0.005 of 0.9 at the AliCCP shape;
-* the unported cases raise.
+* the JAX package's XLA route, where the port draws the XLA layer's
+  ``jax.random.bernoulli`` masks (``ops/threefry.py``): two ``fit`` steps
+  at a batch of 12, which no dropout tile divides, in ``dense`` and
+  ``lazy``; ``SATrans(route="xla")`` in train mode with one key on
+  both sides (and its masks not the kernels'); one ``fit`` step of a
+  model with 1-matrix MetaNets (no kernel takes them): losses at rtol
+  1e-5, predictions and parameters at the tolerances above;
+* the unported case raises.
 """
 
 import dataclasses
@@ -37,7 +44,7 @@ import jax.numpy as jnp
 import torch_parity as tp
 from satrans_torch import bridge
 from satrans_torch.ops import meta_block as tmb
-from satrans_torch.ops import prng
+from satrans_torch.ops import prng, threefry
 from satrans_torch.train import Trainer as TorchTrainer
 from satrans_tpu.ops.pallas import meta_block as jmb
 from test_torch_bank_train import _jax_fit
@@ -140,16 +147,14 @@ def test_layer_matches_jax_stash_kernels_at_dropout(mode, relu_out):
                              port), want)
 
 
-def _jax_step_seeds(seed, steps, layers):
-    """The per-layer seeds the JAX Trainer's steps draw (trainer.py:616,
-    :655; models/satrans.py:448-450)."""
+def _jax_step_keys(seed, steps):
+    """The step keys the JAX Trainer's steps draw (trainer.py:616, :655),
+    as threefry key words."""
     key = jax.random.PRNGKey(seed + 1)
     out = []
     for _ in range(steps):
         key, sub = jax.random.split(key)
-        out.append([int(jax.random.randint(jax.random.fold_in(sub, i), (),
-                                           0, 2 ** 31 - 1, dtype=jnp.int32))
-                    for i in range(layers)])
+        out.append(tuple(int(w) for w in jax.random.key_data(sub)))
     return out
 
 
@@ -163,8 +168,8 @@ def test_fit_at_dropout_matches_jax_trainer(mode):
     y = np.random.default_rng(5).integers(0, 2, 24).astype(np.float32)
     j_steps, j_params, _ = _jax_fit(jm, params, x, y, mode)
 
-    seeds = iter(_jax_step_seeds(7, 2, len(tm.layers)))  # _jax_fit's seed
-    steps = tp.port_fit(tm, x, y, mode, step_seeds=lambda: next(seeds))
+    keys = iter(_jax_step_keys(7, 2))  # _jax_fit's seed
+    steps = tp.port_fit(tm, x, y, mode, step_key=lambda: next(keys))
     assert len(steps) == 2
     tp.assert_fit_matches(j_steps, j_params, steps, tm)
 
@@ -179,17 +184,75 @@ def test_keep_share_at_the_aliccp_shape():
         assert set(torch.unique(m).tolist()) == {0.0, prng.keep_scale(RATE)}
 
 
-@pytest.mark.parametrize("case", ["untiled_batch", "stash_light"])
+def _xla_fit(jm, params, tm, mode, rows, batch, monkeypatch):
+    """``rows`` examples at ``batch`` through the JAX Trainer in ``mode``
+    (on its XLA route: no Pallas kernel on the CPU unless asked) and
+    through the port's, each side drawing its own step keys; checks the
+    steps' losses and every parameter."""
+    import test_torch_bank_train
+    x = tp.request(rows, seed=5)
+    y = np.random.default_rng(5).integers(0, 2, rows).astype(np.float32)
+    monkeypatch.setattr(test_torch_bank_train, "BATCH", batch)
+    j_steps, j_params, _ = _jax_fit(jm, params, x, y, mode)
+    steps = tp.port_fit(tm, x, y, mode, batch_size=batch)
+    assert len(steps) == -(-rows // batch)
+    tp.assert_fit_matches(j_steps, j_params, steps, tm)
+
+
+@pytest.mark.parametrize("mode", ["dense", "lazy"])
+def test_fit_at_an_untiled_batch_matches_jax_xla_trainer(mode, monkeypatch):
+    """Batch 12: no dropout tile (128, 256, ..., 16) divides it, so both
+    packages take the XLA route with the step key's masks."""
+    jm, params, tm = tp.jax_and_port(dropout_rate=RATE)
+    assert tm.block_b(12) is None
+    _xla_fit(jm, params, tm, mode, 24, 12, monkeypatch)
+
+
+def test_plain_route_draws_jax_xla_masks():
+    """``SATrans(route="xla")`` in train mode at dropout 0.1 against
+    the JAX XLA model (``use_fused_kernel=False``) with one key; the
+    kernel route's masks give another output."""
+    jm, params, tm = tp.jax_and_port(dropout_rate=RATE)
+    jm = dataclasses.replace(jm, use_fused_kernel=False)
+    tm.route = "xla"
+    x = tp.request(32, seed=6)
+    jb = {k: jnp.asarray(v) for k, v in jm.layout.batch_from_dict(x).items()}
+    tb = {k: torch.from_numpy(v) for k, v in
+          tm.layout.batch_from_dict(x).items()}
+    want = jax.jit(lambda p, b: jm.apply(p, {}, b, train=True,
+                                         rng=jax.random.PRNGKey(8))[0])(
+        jax.tree.map(jnp.asarray, params), jb)
+    tm.train()
+    with torch.no_grad():
+        pred = tm(tb, key=threefry.PRNGKey(8))
+        tm.route = "kernel"
+        kernel_masks = tm(tb, key=threefry.PRNGKey(8))
+    np.testing.assert_allclose(pred.numpy(), np.asarray(want), **TOL)
+    assert (kernel_masks - pred).abs().max() > 1e-3
+
+
+def test_one_matrix_metanet_fit_step_matches_jax_xla_trainer(monkeypatch):
+    """MetaNets of one matrix (units [8, 8]): no kernel takes them, so
+    the JAX package runs its XLA layer (even with the fused kernel asked
+    for) and the port the plain layer with the XLA masks."""
+    jm, params, tm = tp.jax_and_port(dropout_rate=RATE,
+                                     meta_dnn_hidden_units=(8,))
+    jm = dataclasses.replace(jm, use_fused_kernel=True,
+                             fused_interpret=True)
+    assert not tm.metanet_kernel
+    _xla_fit(jm, params, tm, "dense", 16, 16, monkeypatch)
+
+
+@pytest.mark.parametrize("case", ["stash_light"])
 def test_unported_dropout_cases_raise(case, monkeypatch):
-    """A batch no dropout tile divides; the light stash in bf16 (the light
-    stash itself runs, tests/test_torch_pos.py)."""
+    """The light stash in bf16 (the light stash itself runs,
+    tests/test_torch_pos.py; a batch no dropout tile divides takes the XLA
+    route, above)."""
     jm, params, tm = tp.jax_and_port(dropout_rate=RATE)
     tr = TorchTrainer(tm, device="cpu").compile()
     x = tp.request(24, seed=5)
     y = np.zeros(24, np.float32)
-    if case == "stash_light":
-        monkeypatch.setenv("SATRANS_BWD", "stash_light")
-        monkeypatch.setenv("SATRANS_STASH", "bf16")
+    monkeypatch.setenv("SATRANS_BWD", "stash_light")
+    monkeypatch.setenv("SATRANS_STASH", "bf16")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tr.fit(x, y, batch_size=12 if case == "untiled_batch" else 16,
-               verbose=0)
+        tr.fit(x, y, batch_size=16, verbose=0)

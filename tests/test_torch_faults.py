@@ -136,7 +136,8 @@ def test_default_seeds_are_jax_seeds():
     _, _, tm = tp.jax_and_port(domain_att_layer_num=3)
     assert tm.default_seeds == [447923887, 390137614, 1055218036]
     tr = TorchTrainer(tm, seed=1024, device="cpu")
-    assert tr.step_seeds() == [1221738042, 1791484013, 1856913579]
+    assert threefry.layer_seeds(tr.step_key(), 3) == [1221738042,
+                                                      1791484013, 1856913579]
     key, seeds = jax.random.PRNGKey(1025), []
     for _ in range(3):
         key, sub = jax.random.split(key)
@@ -144,7 +145,8 @@ def test_default_seeds_are_jax_seeds():
                                              0, 2 ** 31 - 1, jnp.int32))
                       for i in range(3)])
     tr = TorchTrainer(tm, seed=1024, device="cpu")
-    assert [tr.step_seeds() for _ in range(3)] == seeds
+    assert [threefry.layer_seeds(tr.step_key(), 3)
+            for _ in range(3)] == seeds
 
 
 def test_fit_at_dropout_matches_jax_trainer_unaided():

@@ -311,7 +311,7 @@ def test_other_depths_take_the_plain_layer_as_jax_takes_xla(hidden,
     Predictions, and train-mode gradients at dropout 0 (the XLA layer
     draws ``jax.random`` masks, which the port does not)."""
     jm, params, tm = _models(hidden, rate=0.0)
-    assert tm.use_kernel and not tm.metanet_kernel
+    assert tm.route == "kernel" and not tm.metanet_kernel
     x = _request(MODEL_B, seed=3)
     y = np.random.default_rng(3).integers(0, 2, MODEL_B).astype(np.float32)
     calls = _spy(monkeypatch)

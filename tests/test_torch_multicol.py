@@ -26,7 +26,8 @@ one of 8 (K1 on the composite table).
   each side's default seeds, on the K7 route (the dispatch tile 32), on
   K1 (8 rows) and with the gate variant on K6 (12 rows); the entry points
   of each side are counted.  A batch that no dispatch tile divides takes
-  the plain composite layer, as the JAX package takes its XLA path.
+  the plain composite layer, as the JAX package takes its XLA path, in
+  training too, with the XLA layer's masks.
 * Two ``lazy`` ``fit`` steps at dropout 0.1 against the JAX ``Trainer``
   (``torch_parity``'s tolerances); ``domain_emb`` and the large part of
   ``domain_bank`` stay bit-identical on both sides.
@@ -49,6 +50,7 @@ from satrans_torch import bridge
 from satrans_torch.models import SATrans as TorchSATrans
 from satrans_torch.nn import attention as tattn
 from satrans_torch.ops import dispatch as tdsp
+from satrans_torch.ops import threefry
 from satrans_torch.ops import tiled_meta as ttm
 from satrans_torch.serving import Predictor
 from satrans_torch.utils import make_generator
@@ -332,19 +334,26 @@ def test_multicol_model_matches_jax_fused_interpret_path(
 
 
 def test_batch_no_dispatch_tile_divides_takes_the_plain_layer():
-    """B = 24: neither 32 nor 16 divides it; in inference the JAX package
-    runs its XLA path and the port the plain composite layer."""
+    """B = 24: neither 32 nor 16 divides it; the JAX package runs its XLA
+    path and so does the port (the plain composite layer on the whole
+    batch), in inference and in training at dropout 0.1 with one key on
+    both sides (the XLA layer's ``jax.random.bernoulli`` masks)."""
     jm, params, tm = _models()
     batch = jm.layout.batch_from_dict(_request(24, seed=2))
-    want = np.asarray(jax.jit(lambda p, b: jm.apply(p, {}, b)[0])(
+    fn = jax.jit(lambda p, b, k: (jm.apply(p, {}, b)[0], jm.apply(
+        p, {}, b, train=True, rng=k)[0]))
+    want, want_train = (np.asarray(a) for a in fn(
         jax.tree.map(jnp.asarray, params),
-        {k: jnp.asarray(v) for k, v in batch.items()}))
+        {k: jnp.asarray(v) for k, v in batch.items()},
+        jax.random.PRNGKey(6)))
+    tb = {k: torch.from_numpy(v) for k, v in batch.items()}
     with torch.no_grad():
-        got = tm({k: torch.from_numpy(v) for k, v in batch.items()})
+        got = tm(tb)
+        tm.train()
+        got_train = tm(tb, key=threefry.PRNGKey(6))
     np.testing.assert_allclose(got.numpy(), want, atol=1e-5)
-    tm.train()
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tm({k: torch.from_numpy(v) for k, v in batch.items()})
+    np.testing.assert_allclose(got_train.numpy(), want_train, atol=1e-5)
+    assert np.abs(want_train - want).max() > 1e-3
 
 
 def test_multicol_lazy_fit_at_dropout_matches_jax_trainer():

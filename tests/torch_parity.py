@@ -80,17 +80,17 @@ def jax_and_port(mode="QK", relu_out=False, combiner="max", seed=0,
     return jm, params, tm
 
 
-def port_fit(tm, x, y, mode, *, step_seeds=None, lr=0.01, seed=7,
+def port_fit(tm, x, y, mode, *, step_key=None, lr=0.01, seed=7,
              batch_size=16):
     """One epoch of the port's ``Trainer.fit`` on the CPU (``seed`` is the
     one ``test_torch_bank_train._jax_fit`` gives the JAX Trainer); returns
-    each step's statistics as floats.  ``step_seeds`` replaces the
-    Trainer's per-step dropout seeds."""
+    each step's statistics as floats.  ``step_key`` replaces the
+    Trainer's per-step dropout keys."""
     from satrans_torch.train import Trainer
     tr = Trainer(tm, seed=seed, device="cpu")
     tr.compile(learning_rate=lr, bank_update=mode)
-    if step_seeds is not None:
-        tr.step_seeds = step_seeds
+    if step_key is not None:
+        tr.step_key = step_key
     steps = []
     step = tr.train_step
 
