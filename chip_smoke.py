@@ -182,7 +182,20 @@ Phases, each of which exits non-zero on failure:
    DeepFM ``fused`` equal to ``dense`` bit for bit after 3 steps; WDL at
    ``dnn_dropout`` 0.1 with its masks' keep share (0.9 within 0.005);
    and SATrans trained in ``lazy`` at dropout 0.1 at batch 8190, which no
-   dropout tile divides: the JAX package's XLA route, no layer kernel.
+   dropout tile divides: the JAX package's XLA route, no layer kernel;
+17. STAR and the multi-task models (Star_Net, SharedBottom, MMOE, PLE as
+   the CLI builds them, ESMM with 2 tasks on 301 ids from {1, 2}) at the
+   same width and batch: STAR ``fused`` equal to ``dense`` after 3 steps,
+   every parameter and BatchNorm buffer bit for bit, each domain's count
+   3, then a batch without domain 3 keeping its mean and var; 3 ``dense``
+   steps (no kernel) and 3 + 3 ``lazy`` steps (exact K2-K5 launches a
+   step), the staged step and a profile; STAR's counts equal to its
+   steps; MMOE's routed ``predict`` of 20,000 equal to its ``Predictor``
+   and to ``serving.load``'s bit for bit, each score its domain's head;
+   each forward on the card against a CPU copy (parameters N(0, 0.1),
+   STAR's trained statistics kept); then ``cli.main --model_name
+   Star_Net`` and ``MMOE`` on 40,960 synthetic rows in ``lazy`` (fit,
+   predict, report), each with its steps' K2-K5 launches.
 
 Phases 2 and 4 also hold K1 where a share of the attention logits passes
 the kernels' clamp at 60 against the clamped plain layer.
@@ -2258,7 +2271,8 @@ def lazy_arm(card, label, model, trainer, x, y, per_step, f64=False):
     if f64:  # trainer.loss_terms on a float64 copy, the plain path
         ref = copy.deepcopy(model).double()
         ref.zero_grad(set_to_none=True)
-        (trainer._strategy.loss(ref(batch), yb.double(), wb.double())
+        (trainer.strategy.loss(ref(batch), yb.double(), batch,
+                               wb.double())
          + ref.reg_loss()).backward()
         exact = {n: p.grad for n, p in ref.named_parameters()
                  if n in grads[True]}
@@ -3976,11 +3990,12 @@ def zoo_fit(trainer, x, y, bsz, steps=ZOO_STEPS):
     return wall, step_loss, rows, layers
 
 
-def zoo_forward_check(dev, card, name, x):
-    """``name``'s eval forward on the card, every parameter redrawn
-    N(0, ZOO_FWD_STD) from a seeded generator, against a CPU copy of it on
-    the first ZOO_FWD_ROWS rows.  Returns the largest difference."""
-    model = zoo_model(dev, name).eval()
+def zoo_forward_check(dev, card, name, x, model=None):
+    """``name``'s eval forward on the card (``model``, else a new one),
+    every parameter redrawn N(0, ZOO_FWD_STD) from a seeded generator and
+    every buffer kept, against a CPU copy of it on the first ZOO_FWD_ROWS
+    rows.  Returns the largest difference."""
+    model = (zoo_model(dev, name) if model is None else model).eval()
     gen = torch.Generator(device=dev)
     gen.manual_seed(SEED)
     data = model.layout.batch_from_dict(
@@ -4201,6 +4216,291 @@ def zoo_phase(dev, card):
     return paths
 
 
+# phase 17: STAR and the multi-task models, as the CLI names them; ESMM
+# (two tasks) through the Python API on ids of 301 drawn from {1, 2}
+STAR_MTL_MODELS = ("Star_Net", "SharedBottom", "MMOE", "PLE", "ESMM")
+# MMOE's serving check: a request the batch does not divide
+STAR_MTL_REQUEST = 20_000
+# the CLI runs' synthetic rows: 4 training steps of the batch, 8,192 tests
+STAR_MTL_CLI_ROWS = 40_960
+
+
+def star_mtl_model(dev, name):
+    """``name`` as the CLI builds it at the AliCCP sota layout (3
+    domains); ESMM with ``num_tasks=2`` on the scenario column 301."""
+    if name != "ESMM":
+        return zoo_model(dev, name)
+    from satrans_torch.data import aliccp
+    from satrans_torch.features import FeatureLayout
+    from satrans_torch.models import ESMM
+    return ESMM(FeatureLayout(aliccp.sota_columns(32)), num_tasks=2,
+                domain_col="301", device=dev)
+
+
+def star_mtl_data(name, x):
+    """Phase 16's ids; for ESMM the 301 column redrawn from {1, 2}."""
+    if name != "ESMM":
+        return x
+    rng = np.random.default_rng(SEED + 17)
+    return dict(x, **{"301": rng.integers(1, 3, len(x["301"]))})
+
+
+def bn_counts(model):
+    return [int(bn.count) for bn in model.bn]
+
+
+def count_steps(trainer) -> list:
+    """Wrap ``trainer.train_step`` (which ``fit`` calls) to count its
+    calls in the returned one-element list."""
+    calls, step = [0], trainer.train_step
+
+    def counted(*args, **kw):
+        calls[0] += 1
+        return step(*args, **kw)
+
+    trainer.train_step = counted
+    return calls
+
+
+def star_mtl_arm(card, name, trainer, x, y, mode, tail=None, timed=True,
+                 profile=False):
+    """ZOO_STEPS ``fit`` steps of one arm with the K2-K5 launches a step
+    held (none in ``dense``) and no layer kernel; with ``timed`` the
+    staged step timed and, with ``profile``, its device-busy time.
+    Returns the row kernels' launches."""
+    if tail:
+        os.environ["SATRANS_LAZY_TAIL"] = tail
+    try:
+        wall, step_loss, rows, layers = zoo_fit(trainer, x, y, BATCH)
+        per_step = {"lazy": dict(zip(ROW_NAMES, LAZY_ROWS_PER_STEP)),
+                    "fused_tail": dict(zip(ROW_NAMES, SPARSE_ARMS[3][3])),
+                    "fused": dict(zip(ROW_NAMES, SPARSE_ARMS[0][3]))}.get(
+            "fused_tail" if tail else mode, {})
+        want = tuple(ZOO_STEPS * per_step.get(n, 0) for n in ROW_NAMES)
+        arm = mode + (f" tail {tail}" if tail else "")
+        check(rows == want and not any(layers),
+              f"{name} {arm}: {ZOO_STEPS} steps launched {rows} "
+              f"({', '.join(ROW_NAMES)}) and {layers} layer kernels, want "
+              f"{want} and none")
+        print(f"{name} {arm} [{card}]: {ZOO_STEPS} steps of {BATCH}: "
+              f"{wall:.4f}s, {ZOO_STEPS * BATCH / wall:.1f} trained "
+              f"examples/s; losses per example "
+              f"{(step_loss / BATCH).round(6).tolist()}; launches {rows}",
+              flush=True)
+        if timed:
+            batch, yb, wb = staged_batch(trainer, x, y)
+            step_ms = time_ms(lambda: trainer.train_step(batch, yb, wb),
+                              iters=5)
+            print(f"{name} {arm} [{card}]: train_step on a staged batch "
+                  f"{step_ms:.3f} ms, {1e3 * BATCH / step_ms:.1f} "
+                  "examples/s", flush=True)
+            if profile:
+                device_profile(f"{name} {arm}: one training step of "
+                               f"{BATCH}", lambda: trainer.train_step(
+                                   batch, yb, wb), step_ms, card, top=6)
+            del batch
+    finally:
+        os.environ.pop("SATRANS_LAZY_TAIL", None)
+    return dict(zip(ROW_NAMES, rows))
+
+
+def star_fused_vs_dense(dev, card, x, y):
+    """STAR ZOO_STEPS steps in ``dense`` and in ``fused`` from one start:
+    every parameter and BatchNorm buffer bit for bit, each domain's count
+    ZOO_STEPS; then one ``dense`` step on a batch with no domain-3
+    example: domain 3's mean and var unchanged, its count up by one.
+    Returns the launches by arm."""
+    from satrans_torch.train import Trainer
+    states, launched = {}, {}
+    for mode in ("fused", "dense"):  # the dense model is kept
+        model = star_mtl_model(dev, "Star_Net")
+        trainer = Trainer(model, seed=SEED, device=dev)
+        trainer.compile(learning_rate=ZOO_LR, bank_update=mode)
+        launched[f"Star_Net_{mode}"] = star_mtl_arm(
+            card, "Star_Net", trainer, x, y, mode, timed=False)
+        states[mode] = {k: v.detach().clone()
+                        for k, v in model.state_dict().items()}
+        counts = bn_counts(model)
+        check(counts == [ZOO_STEPS] * 3, f"Star_Net {mode}: BatchNorm "
+                                         f"counts {counts} after "
+                                         f"{ZOO_STEPS} steps")
+        if mode == "fused":
+            del model, trainer
+            gc.collect()
+            torch.cuda.empty_cache()
+    want = states["dense"]
+    differ = [k for k, v in want.items()
+              if not torch.equal(states["fused"][k], v)]
+    print(f"Star_Net fused vs dense [{card}]: {len(want) - len(differ)} of "
+          f"{len(want)} parameters and buffers bit-identical", flush=True)
+    check(not differ, f"Star_Net: fused differs from dense in {differ}")
+    # a batch with no domain-3 example
+    data = model.layout.batch_from_dict(
+        {**{k: v[:BATCH] for k, v in x.items()},
+         "301": np.where(x["301"][:BATCH] == 3, 1, x["301"][:BATCH])})
+    batch = trainer._device_batch(data)
+    yb, wb = trainer._device_batch({"y": y[:BATCH],
+                                    "w": np.ones(BATCH, np.float32)}).values()
+    before = {k: v.clone() for k, v in model.named_buffers()}
+    trainer.train_step(batch, yb, wb)
+    torch.cuda.synchronize()
+    same = {(d, k): torch.equal(getattr(model.bn[d], k),
+                                before[f"bn.{d}.{k}"])
+            for d in range(3) for k in ("mean", "var")}
+    check(all(same[(2, k)] for k in ("mean", "var"))
+          and not any(same[(d, k)] for d in (0, 1) for k in ("mean", "var"))
+          and bn_counts(model) == [counts[0] + 1] * 3,
+          f"Star_Net: a batch with no domain 3: unchanged {same}, counts "
+          f"{bn_counts(model)} after {counts}")
+    print(f"Star_Net [{card}]: BatchNorm counts {counts} after "
+          f"{ZOO_STEPS} fit steps; a batch without domain 3 keeps its mean "
+          f"and var bit for bit, counts {bn_counts(model)}", flush=True)
+    del model, trainer, states, batch
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launched
+
+
+def mmoe_serving_check(dev, card, trainer, x):
+    """MMOE's routed ``predict`` on STAR_MTL_REQUEST examples against its
+    ``Predictor`` and the ``Predictor`` that ``serving.load`` builds from
+    its checkpoint, bit for bit; each example's score is its domain's
+    head."""
+    import tempfile
+
+    from satrans_torch import serving
+    req = {k: v[:STAR_MTL_REQUEST] for k, v in x.items()}
+    pred = trainer.predict(req, batch_size=BATCH)
+    direct = serving.Predictor.from_trainer(trainer, batch_size=BATCH)(req)
+    model = trainer.model.eval()
+    offset = model.domain_id_offset
+    data = model.layout.batch_from_dict(req)
+    with torch.no_grad():  # the heads on predict's padded batches
+        heads = torch.cat([model(trainer._device_batch(
+            {k: trainer._pad(v[s:s + BATCH], BATCH)
+             for k, v in data.items()}))
+            for s in range(0, STAR_MTL_REQUEST, BATCH)]).cpu().numpy()
+    routed = heads[np.arange(STAR_MTL_REQUEST), req["301"] - offset]
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "mmoe")
+        serving.save(path, trainer)
+        fresh = star_mtl_model(dev, "MMOE")
+        fresh.set_domain_offset(offset + 5)
+        loaded = serving.load(path, fresh, batch_size=BATCH, device=dev)
+        got = loaded(req)
+    check(fresh.domain_id_offset == offset, "MMOE: serving.load did not "
+                                            "restore the offset")
+    check(np.array_equal(pred, direct) and np.array_equal(pred, got),
+          f"MMOE: predict, Predictor and the loaded Predictor differ: max "
+          f"{np.abs(pred - direct).max()}, {np.abs(pred - got).max()}")
+    check(np.array_equal(pred, routed.astype("float64")),
+          "MMOE: a score is not its domain's head")
+    print(f"MMOE serving [{card}]: predict of {STAR_MTL_REQUEST} = "
+          f"Predictor = serving.load's Predictor bit for bit, each score "
+          f"its domain's head (offset {offset}); scores mean "
+          f"{pred.mean():.6f}", flush=True)
+    del fresh, loaded
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def star_mtl_run(dev, card, name, x, y):
+    """Phase 17 for one model: 3 ``fit`` steps in ``dense`` (not STAR,
+    whose dense arm is ``star_fused_vs_dense``'s) and in ``lazy`` with
+    the split tail and the fused one, the split arm profiled; MMOE's
+    serving; then the forward on the card against the CPU on the lazy
+    model (STAR's BatchNorm statistics moved by its steps).  Returns the
+    launches by arm and the forward's error."""
+    from satrans_torch.train import Trainer
+    x = star_mtl_data(name, x)
+    launched = {}
+    for mode in (("lazy",) if name == "Star_Net" else ("dense", "lazy")):
+        model = star_mtl_model(dev, name)
+        trainer = Trainer(model, seed=SEED, device=dev)
+        trainer.compile(learning_rate=ZOO_LR, bank_update=mode)
+        steps = count_steps(trainer)
+        zoo_fit(trainer, x, y, BATCH, 1)  # warmup: one step
+        tails = (None, "fused") if mode == "lazy" else (None,)
+        for tail in tails:
+            launched[f"{name}_{mode}" + (f"_{tail}" if tail else "")] = \
+                star_mtl_arm(card, name, trainer, x, y, mode, tail,
+                             profile=mode == "lazy" and tail is None)
+        if mode == "dense":
+            del model, trainer
+            gc.collect()
+            torch.cuda.empty_cache()
+    if name == "MMOE":
+        mmoe_serving_check(dev, card, trainer, x)
+    if name == "Star_Net":
+        counts = bn_counts(model)
+        check(counts == [steps[0]] * 3, f"Star_Net lazy: BatchNorm counts "
+                                        f"{counts} after {steps[0]} steps")
+    err = zoo_forward_check(dev, card, name, x, model)
+    del model, trainer
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launched, err
+
+
+def star_mtl_cli(dev, card):
+    """``cli.main --model_name Star_Net`` and ``MMOE`` end to end on the
+    card: STAR_MTL_CLI_ROWS synthetic rows, ``--bank_update lazy``, fit,
+    predict and the report.  Each run's K2-K5 launches are counted from 0
+    and must be its steps' (the split tail's), with no layer kernel; the
+    test AUC must lie in [0, 1] and the report hold one row.  Returns the
+    launches by run."""
+    import tempfile
+
+    from satrans_torch.cli import main as cli
+    from satrans_torch.ops import eqgemm, gather, lazy_tail, scatter
+    steps = -(-int(0.8 * STAR_MTL_CLI_ROWS) // BATCH)
+    want = tuple(steps * n for n in LAZY_ROWS_PER_STEP)
+    launched = {}
+    for name in ("Star_Net", "MMOE"):
+        with tempfile.TemporaryDirectory() as tmp:
+            torch.cuda.synchronize()
+            zero_counts()
+            t0 = time.perf_counter()
+            auc = cli.main(["--data_name", "synthetic", "--synthetic_rows",
+                            str(STAR_MTL_CLI_ROWS), "--model_name", name,
+                            "--bank_update", "lazy", "--results_dir", tmp],
+                           device=dev)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            rows = tuple(m.launches
+                         for m in (gather, scatter, eqgemm, lazy_tail))
+            layers = layer_counts()
+            with open(os.path.join(tmp, "synthetic_results.csv")) as f:
+                report = f.readlines()
+        check(0.0 <= auc <= 1.0 and len(report) == 1,
+              f"cli {name}: test AUC {auc}, {len(report)} report rows")
+        check(rows == want and not any(layers),
+              f"cli {name}: {steps} lazy steps launched {rows} "
+              f"({', '.join(ROW_NAMES)}) and {layers} layer kernels, want "
+              f"{want} and none")
+        launched[f"{name}_cli"] = dict(zip(ROW_NAMES, rows))
+        print(f"cli --model_name {name} --bank_update lazy [{card}]: "
+              f"{STAR_MTL_CLI_ROWS} synthetic rows, {steps} steps of {BATCH}, "
+              f"data, fit, predict and report in {wall:.4f}s; test AUC "
+              f"{auc}; launches {rows}", flush=True)
+    return launched
+
+
+def star_mtl_phase(dev, card):
+    """Phase 17: STAR and the multi-task models.  Returns the launches by
+    path and kernel."""
+    t0 = time.perf_counter()
+    x, y = training_data()
+    paths, errs = star_fused_vs_dense(dev, card, x, y), {}
+    for name in STAR_MTL_MODELS:
+        launched, errs[name] = star_mtl_run(dev, card, name, x, y)
+        paths.update(launched)
+    paths.update(star_mtl_cli(dev, card))
+    print(f"phase 17: {time.perf_counter() - t0:.2f}s; the forwards' worst "
+          f"error {max(errs.values()):.3e}", flush=True)
+    return paths
+
+
 def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -4247,6 +4547,7 @@ def main() -> int:
     kdma, dma_launched = row_dma_phase(dev, card)
     bench = bench_phase(card)
     zoo = zoo_phase(dev, card)
+    star_mtl = star_mtl_phase(dev, card)
 
     # launches, each path counted from 0 just before it: serving and the
     # evaluation run K1-fwd only; the dense recompute arm K1-fwd and
@@ -4293,7 +4594,8 @@ def main() -> int:
         launches=sum(scores_paths.values()), launches_by_path=scores_paths,
         library_ms=None, **ks, **tile["meta_block_fwd_scores"]))
     # the row kernels run on the sparse training paths (phase 7 arms, the
-    # phase 9 and 10 lazy arms, the bench and the zoo of phase 16)
+    # phase 9 and 10 lazy arms, the bench, the zoo of phase 16 and STAR
+    # and the multi-task models of phase 17)
     for name, source, replaces in (
             ("gather_rows", "bank_rows.cu", "gather.py:86"),
             ("scatter_rows_set", "bank_rows.cu", "scatter.py:139"),
@@ -4304,7 +4606,8 @@ def main() -> int:
                                                 *ppaths.items(),
                                                 *mpaths.items(),
                                                 ("bench", bench),
-                                                *zoo.items())
+                                                *zoo.items(),
+                                                *star_mtl.items())
                    if n.get(name)}
         kernels.append(dict(name=name, route="cuda",
                             source=f"satrans_torch/csrc/{source}",

@@ -19,6 +19,13 @@ embedding banks (``emb.bank``, ``domain_bank.bank``, the linear model's
 dimension-1 ``linear.emb.bank``): the JAX package packs ``128 // d``
 logical rows into one 128-lane row; the port keeps the same rows, pad
 rows included, as logical ``[R, d]`` rows, so each bank is reshaped.
+STAR's stacked per-domain layers are lists too (``domain_w.0``), and the
+multi-task models' nested lists of MLPs take one index a level
+(``specific_experts.1.0.0.layers.0.w``).
+
+The JAX model state (``init``'s second value) becomes the port's buffers
+under the same rule: STAR's ``state["bn"][d]`` is ``bn.<d>.mean``,
+``var`` and ``count``.
 
 The module imports neither JAX nor the JAX package.
 """
@@ -40,12 +47,15 @@ def _flatten(tree, prefix: str = ""):
         yield prefix[:-1], np.asarray(tree)
 
 
-def from_jax_params(params_np: dict, model: torch.nn.Module) -> dict:
+def from_jax_params(params_np: dict, model: torch.nn.Module,
+                    state_np: dict | None = None) -> dict:
     """State dict for ``model`` (a whole model or one of its modules) from
-    the JAX pytree ``params_np``; raises when a name or shape does not
-    match (an unported variant)."""
+    the JAX pytree ``params_np`` and, with ``state_np``, the JAX model
+    state; raises when a name or shape does not match (an unported
+    variant)."""
     want = model.state_dict()
     flat = dict(_flatten(params_np))
+    flat.update(_flatten(state_np or {}))
     if set(flat) != set(want):
         raise KeyError(f"JAX parameters {sorted(set(flat) - set(want))} have "
                        f"no place in {type(model).__name__}, and "

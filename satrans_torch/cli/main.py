@@ -1,7 +1,8 @@
 """Experiment entry point with the reference CLI surface (twin of
-``satrans_tpu/cli/main.py`` for ``--model_name`` SATrans and the ten
+``satrans_tpu/cli/main.py`` for ``--model_name`` SATrans, the ten
 baselines of the zoo: WDL, DeepFM, DCN, xDeepFM, NFM, AFM, PNN, AutoInt,
-FiBiNET, AdaSparse).
+FiBiNET, AdaSparse, and the multi-domain baselines Star_Net,
+SharedBottom, MMOE, PLE and ESMM).
 
 Mirrors reference main.py: the same argparse flags (main.py:39-61), the
 fit/predict protocol (main.py:338-353), the overall and per-domain AUC
@@ -21,8 +22,7 @@ h5 files from ``--data_path`` and need ``h5py``; ``synthetic`` needs no
 file and no package beyond numpy.
 
 Not ported, each raising ``NotImplementedError`` that names its ROADMAP
-item: STAR, the multi-task and the legacy Star-Trans models, ``--mesh``
-other than ``none``,
+item: the legacy Star-Trans models, ``--mesh`` other than ``none``,
 ``--coordinator_address``, ``--shard_embeddings True``,
 ``--embedding_exchange alltoall`` and ``--bank_update lazy_stale``.  The
 JAX package's compilation cache has no counterpart.
@@ -228,18 +228,21 @@ def feature_layout(args, sparse, dense, var_features, data_max, topk):
 def build_model(args, layout, domain_col_list, num_domains_list, flag, *,
                 device="cuda"):
     """The model ``--model_name`` names, configured as the reference CLI
-    configures it (satrans_tpu/cli/main.py:239-247): SATrans with MetaNet
-    d -> 2d -> d and the flag's variant and switches; AutoInt with
+    configures it (satrans_tpu/cli/main.py:231-247): SATrans with MetaNet
+    d -> 2d -> d and the flag's variant and switches; Star_Net with the
+    DNN (256, 128) and the domain DNN and BatchNorm; SharedBottom, MMOE,
+    PLE and ESMM with one task a domain of the first scenario column
+    (ESMM, which takes two, raises unless there are two); AutoInt with
     ``--att_layer_num`` (3 if 0) and ``--att_head_num``; the other zoo
-    baselines with the first scenario column and its domain count.  STAR,
-    the multi-task and the legacy Star-Trans models raise."""
+    baselines with the first scenario column and its domain count.  The
+    legacy Star-Trans models raise."""
     from ..models import MODEL_REGISTRY, SATrans
 
     name = args.model_name
     if name in UNPORTED_MODELS:
         raise NotImplementedError(
-            f"model {name!r}: STAR, the multi-task models and the legacy "
-            "Star-Trans models are ROADMAP queue 1 item 'Other models'")
+            f"model {name!r}: the legacy Star-Trans models are ROADMAP "
+            "queue 1 item 'Other models'")
     if name not in MODEL_REGISTRY:
         raise ValueError("no such model")
     if name == "SATrans":
@@ -256,6 +259,17 @@ def build_model(args, layout, domain_col_list, num_domains_list, flag, *,
                        only_emb="onlyemb" in flag, relu_out="relu" in flag,
                        no_emb_init="noembinit" in flag, seed=args.seed,
                        device=device)
+    if name == "Star_Net":
+        return MODEL_REGISTRY[name](
+            layout, domain_col=domain_col_list[0],
+            num_domains=num_domains_list[0], dnn_hidden_units=(256, 128),
+            use_domain_dnn=True, use_domain_bn=True, flag=flag,
+            seed=args.seed, device=device)
+    if name in ("SharedBottom", "MMOE", "PLE", "ESMM"):
+        return MODEL_REGISTRY[name](
+            layout, num_tasks=num_domains_list[0],
+            domain_col=domain_col_list[0], flag=flag, seed=args.seed,
+            device=device)
     kw = dict(flag=flag, domain_col=domain_col_list[0],
               num_domains=num_domains_list[0], seed=args.seed, device=device)
     if name == "AutoInt":
@@ -265,8 +279,8 @@ def build_model(args, layout, domain_col_list, num_domains_list, flag, *,
 
 
 # the JAX package's models that the port does not have yet
-UNPORTED_MODELS = ("Star_Net", "Star_Trans", "Starv2_Trans", "Starv3_Trans",
-                   "Starv4_Trans", "SharedBottom", "MMOE", "PLE", "ESMM")
+UNPORTED_MODELS = ("Star_Trans", "Starv2_Trans", "Starv3_Trans",
+                   "Starv4_Trans")
 
 
 def _unported(args) -> None:

@@ -10,6 +10,8 @@ input transformation that several baselines expose (deepfm.py:91-93,
 autoint.py:84-87, ...).  The ``flag`` string switches ``metatrans`` /
 ``usemetatrans`` (the hook; each model says which), ``metanorm`` (the
 MetaNet's LayerNorm) and ``noembinit`` (N(0, 1) embeddings).
+:class:`DomainBase` is what STAR and the multi-task models share;
+:class:`BankModel`, the bank and its helpers, is the base of both.
 """
 
 from __future__ import annotations
@@ -21,7 +23,7 @@ from torch import nn
 
 from .. import embeddings
 from ..features import FeatureLayout
-from ..nn import core, initializers as init, metanet
+from ..nn import attention, core, initializers as init, metanet
 from ..ops import threefry
 from ..utils import make_generator, resolve_device
 
@@ -36,16 +38,61 @@ def combined_dnn_input(sparse_emb: torch.Tensor, dense, dense_dim: int
     return flat
 
 
-class ZooBase(nn.Module):
+class BankModel(nn.Module):
+    """What every baseline built on the bank shares: the fused embedding
+    bank drawn first from the seeded generator, which
+    :meth:`_take_generator` then hands to the subclass's layers, the
+    step's key, MLPs at ``init_std`` and the bank's L2.  ``task``,
+    ``init_std`` and ``l2_reg_embedding`` are the JAX package's defaults;
+    :class:`ZooBase` takes them as arguments."""
+
+    # the model reads the large bank through exactly one
+    # embed_fields(self.emb) call a forward, so the sparse bank updates
+    # apply (train/bank_optimizer.py); AdaSparse opts out
+    standard_bank_access = True
+    task = "binary"
+    init_std = 1e-4
+    l2_reg_embedding = 1e-5
+
+    def __init__(self, layout: FeatureLayout, *, domain_col: str | None,
+                 flag: str, seed: int, emb_init_std: float | None, device):
+        super().__init__()
+        self.layout = layout
+        self.domain_col = domain_col
+        self.flag = flag
+        self.embedding_dim = layout.embedding_dim
+        self._gen = make_generator(seed, resolve_device(device))
+        self.emb = embeddings.bank_init(self._gen, layout,
+                                        init_std=emb_init_std)
+
+    def _take_generator(self) -> torch.Generator:
+        """The generator the base parameters were drawn from, for the
+        subclass's layers (the module keeps no reference to it)."""
+        gen = self._gen
+        del self._gen
+        return gen
+
+    def _mlp(self, gen: torch.Generator, in_dim: int,
+             units: Sequence[int]) -> core.MLP:
+        return core.MLP(gen, in_dim, list(units), init_std=self.init_std)
+
+    def _train_key(self, key):
+        """``(train, key)``: the module's mode, and the step's key or the
+        JAX package's default ``PRNGKey(0)``."""
+        return self.training, threefry.PRNGKey(0) if key is None else key
+
+    def reg_loss(self, feed=None) -> torch.Tensor:
+        """The bank's L2 (without the large bank's under a ``feed``)."""
+        return embeddings.l2_loss(self.emb if feed is None else feed,
+                                  self.l2_reg_embedding)
+
+
+class ZooBase(BankModel):
     """The single-task baselines' common parameters and hooks.  A
     subclass draws its own layers from the generator that
     :meth:`_take_generator` hands over after ``super().__init__``, and
     names the flags that switch its hook in ``meta_flags``."""
 
-    # every zoo model reads the large bank through exactly one
-    # embed_fields(self.emb) call (_embed), so the sparse bank updates
-    # apply (train/bank_optimizer.py); AdaSparse opts out
-    standard_bank_access = True
     # the substrings of ``flag`` that switch the metatrans hook on
     meta_flags: tuple = ("metatrans", "usemetatrans")
 
@@ -56,25 +103,21 @@ class ZooBase(nn.Module):
                  l2_reg_linear: float = 1e-5,
                  meta_dnn_hidden_units: Sequence[int] | None = None,
                  use_linear: bool = True, device="cuda"):
-        super().__init__()
-        dev = resolve_device(device)
-        self.layout = layout
-        self.domain_col = domain_col
+        super().__init__(layout, domain_col=domain_col, flag=flag, seed=seed,
+                         emb_init_std=None if "noembinit" in flag
+                         else init_std, device=device)
         self.num_domains = num_domains
-        self.flag = flag
         self.task = task
         self.init_std = init_std
         self.l2_reg_embedding = float(l2_reg_embedding)
         self.l2_reg_linear = float(l2_reg_linear)
-        self.embedding_dim = d = layout.embedding_dim
+        d = self.embedding_dim
         self.use_meta = bool(domain_col) and any(f in flag
                                                  for f in self.meta_flags)
         # None: [d, 2d, d], the reference's (32, 64, 32) at d = 32
         self.meta_units = [d, 2 * d, d] if meta_dnn_hidden_units is None \
             else [int(u) for u in meta_dnn_hidden_units]
-        self._gen = gen = make_generator(seed, dev)
-        self.emb = embeddings.bank_init(
-            gen, layout, init_std=None if "noembinit" in flag else init_std)
+        gen = self._gen
         self.linear = embeddings.LinearModel(gen, layout, init_std=init_std) \
             if use_linear else None
         if domain_col and num_domains:
@@ -88,25 +131,9 @@ class ZooBase(nn.Module):
             self.meta_net = metanet.MetaNet(gen, d,
                                             use_norm="metanorm" in flag)
 
-    def _take_generator(self) -> torch.Generator:
-        """The generator the base parameters were drawn from, for the
-        subclass's layers (the module keeps no reference to it)."""
-        gen = self._gen
-        del self._gen
-        return gen
-
     def _head(self, gen: torch.Generator, in_dim: int) -> core.Linear:
         """A bias-free linear layer to one logit."""
         return core.Linear(gen, in_dim, 1, use_bias=False)
-
-    def _dnn(self, gen: torch.Generator, in_dim: int,
-             units: Sequence[int]) -> core.MLP:
-        return core.MLP(gen, in_dim, list(units), init_std=self.init_std)
-
-    def _train_key(self, key):
-        """``(train, key)``: the module's mode, and the step's key or the
-        JAX package's default ``PRNGKey(0)``."""
-        return self.training, threefry.PRNGKey(0) if key is None else key
 
     def _embed(self, batch, feed=None, *, train=False, key=None):
         """Field embeddings ``[B, F, d]`` with the metatrans hook applied:
@@ -133,11 +160,51 @@ class ZooBase(nn.Module):
     def _base_reg(self, feed=None) -> torch.Tensor:
         """The bank's L2 (without the large bank's under a ``feed``) and
         the linear model's."""
-        loss = embeddings.l2_loss(self.emb if feed is None else feed,
-                                  self.l2_reg_embedding)
+        loss = super().reg_loss(feed)
         if self.linear is not None:
             loss = loss + self.linear.l2(self.l2_reg_linear)
         return loss
 
     def reg_loss(self, feed=None) -> torch.Tensor:
         return self._base_reg(feed)
+
+
+class DomainBase(BankModel):
+    """What STAR and the multi-task models share (the JAX package's
+    ``StarNet`` and ``_MTLBase``): the bank and no linear model, the
+    ``usetrans`` stack of ``att_layer_num`` self-attention layers at 4
+    heads, layer ``i``'s dropout from ``fold_in(key, 50 + i)``, the L2 of
+    the embeddings only, and the ``domain_id_offset`` (raw scenario id of
+    branch 0, 1 until set) that the Trainer learns from the data."""
+
+    num_tasks = 1
+
+    def __init__(self, layout: FeatureLayout, *,
+                 domain_col: str | None = None, flag: str = "",
+                 seed: int = 1024, dnn_dropout: float = 0.0,
+                 att_layer_num: int = 3, device="cuda"):
+        super().__init__(layout, domain_col=domain_col, flag=flag, seed=seed,
+                         emb_init_std=self.init_std, device=device)
+        self.dnn_dropout = dnn_dropout
+        self.domain_id_offset = 1
+        self.input_dim = layout.input_dim
+        self.use_trans = "usetrans" in flag
+        self.int_layers = nn.ModuleList(
+            attention.SelfAttentionLayer(self._gen, self.embedding_dim)
+            for _ in range(att_layer_num)) if self.use_trans else None
+
+    def set_domain_offset(self, offset: int) -> None:
+        self.domain_id_offset = int(offset)
+
+    def _dnn_input(self, batch, feed=None, *, train=False, key=None,
+                   trans: bool = True) -> torch.Tensor:
+        """The field embeddings, through the ``usetrans`` stack when the
+        model has it (and ``trans``), flattened with the dense values."""
+        x = embeddings.embed_fields(self.emb if feed is None else feed,
+                                    self.layout, batch)
+        if self.use_trans and trans:
+            for i, layer in enumerate(self.int_layers):
+                x = layer(x, 4, train=train,
+                          key=threefry.fold_in(key, 50 + i))
+        return combined_dnn_input(x, batch.get("dense"),
+                                  self.layout.dense_dim)

@@ -69,7 +69,7 @@ class WDL(_DNNModel):
         super().__init__(layout, **kw)
         gen = self._take_generator()
         self.dnn_dropout, self.l2_reg_dnn = dnn_dropout, l2_reg_dnn
-        self.dnn = self._dnn(gen, layout.input_dim, dnn_hidden_units)
+        self.dnn = self._mlp(gen, layout.input_dim, dnn_hidden_units)
         self.dnn_out = self._head(gen, dnn_hidden_units[-1])
 
     def forward(self, batch, feed=None, key=None):
@@ -98,7 +98,7 @@ class DeepFM(_DNNModel):
         self.dnn_dropout, self.l2_reg_dnn = dnn_dropout, l2_reg_dnn
         self.use_fm = use_fm and "nofm" not in self.flag
         self.use_dnn = "nodnn" not in self.flag
-        self.dnn = self._dnn(gen, layout.input_dim, dnn_hidden_units)
+        self.dnn = self._mlp(gen, layout.input_dim, dnn_hidden_units)
         self.dnn_out = self._head(gen, dnn_hidden_units[-1])
 
     def forward(self, batch, feed=None, key=None):
@@ -134,7 +134,7 @@ class DCN(ZooBase):
         self.dnn_dropout, self.l2_reg_dnn = dnn_dropout, l2_reg_dnn
         self.l2_reg_cross = l2_reg_cross
         in_dim = layout.input_dim
-        self.dnn = self._dnn(gen, in_dim, dnn_hidden_units)
+        self.dnn = self._mlp(gen, in_dim, dnn_hidden_units)
         self.cross = interactions.CrossNet(gen, in_dim, cross_num,
                                            cross_parameterization)
         last = dnn_hidden_units[-1] if dnn_hidden_units else in_dim
@@ -184,7 +184,7 @@ class XDeepFM(ZooBase):
         self.l2_reg_cin = l2_reg_cin
         self.dnn = self.dnn_out = self.cin = self.cin_out = None
         if dnn_hidden_units:
-            self.dnn = self._dnn(gen, layout.input_dim, dnn_hidden_units)
+            self.dnn = self._mlp(gen, layout.input_dim, dnn_hidden_units)
             self.dnn_out = self._head(gen, dnn_hidden_units[-1])
         if cin_layer_size:
             self.cin = interactions.CIN(gen, layout.num_fields,
@@ -230,7 +230,7 @@ class NFM(_DNNModel):
         super().__init__(layout, **kw)
         gen = self._take_generator()
         self.dnn_dropout, self.bi_dropout = dnn_dropout, bi_dropout
-        self.dnn = self._dnn(gen, layout.dense_dim + layout.embedding_dim,
+        self.dnn = self._mlp(gen, layout.dense_dim + layout.embedding_dim,
                              dnn_hidden_units)
         self.dnn_out = self._head(gen, dnn_hidden_units[-1])
 
@@ -300,7 +300,7 @@ class PNN(_DNNModel):
         product_dim = pairs * (int(use_inner) + int(use_outter))
         self.outer = interactions.OuterProduct(
             gen, f, layout.embedding_dim, kernel_type) if use_outter else None
-        self.dnn = self._dnn(gen, product_dim + layout.input_dim,
+        self.dnn = self._mlp(gen, product_dim + layout.input_dim,
                              dnn_hidden_units)
         self.dnn_out = self._head(gen, dnn_hidden_units[-1])
 
@@ -341,7 +341,7 @@ class AutoInt(ZooBase):
         self.int_layers = nn.ModuleList(
             attention.InteractingLayer(gen, d, use_res=att_res)
             for _ in range(att_layer_num))
-        self.dnn = self._dnn(gen, layout.input_dim, dnn_hidden_units) \
+        self.dnn = self._mlp(gen, layout.input_dim, dnn_hidden_units) \
             if dnn_hidden_units else None
         if dnn_hidden_units and att_layer_num > 0:
             head_in = dnn_hidden_units[-1] + f * d
@@ -394,7 +394,7 @@ class FiBiNET(_DNNModel):
         self.bilinear = interactions.Bilinear(gen, f, d, bilinear_type)
         # two bilinear outputs of F * (F - 1) / 2 rows, then the dense
         # columns (reference fibinet.py:58-76)
-        self.dnn = self._dnn(gen, f * (f - 1) * d + layout.dense_dim,
+        self.dnn = self._mlp(gen, f * (f - 1) * d + layout.dense_dim,
                              dnn_hidden_units)
         self.dnn_out = self._head(gen, dnn_hidden_units[-1])
 

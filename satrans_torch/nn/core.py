@@ -11,8 +11,11 @@
                        package's ``mlp_apply``
 * :class:`LayerNorm` - ``nn.LayerNorm(eps=1e-6)`` with ``scale``/``bias``
 * :func:`prediction` - deepctr ``PredictionLayer``
-
-BatchNorm is not ported: no model of the port enables it.
+* :func:`one_hot`    - ``jax.nn.one_hot``: a zero row for an id outside
+                       ``[0, n)``
+* :func:`batch_norm_apply` / :class:`BatchNorm` - BatchNorm1d on explicit
+                       running statistics with the masked moments of the
+                       JAX package (STAR's domain BatchNorm)
 """
 
 from __future__ import annotations
@@ -128,3 +131,89 @@ def prediction(logit: torch.Tensor, task: str = "binary") -> torch.Tensor:
     if task == "regression":
         return logit
     raise ValueError(f"task must be binary or regression, got {task!r}")
+
+
+def one_hot(ids: torch.Tensor, n: int, dtype=torch.float32) -> torch.Tensor:
+    """``jax.nn.one_hot(ids, n)``: ``[..., n]``, with a zero row where an
+    id lies outside ``[0, n)`` (``torch.nn.functional.one_hot`` raises
+    there).  The zero row keeps a pad row, whose domain id is 0 (-1 after
+    the offset), out of every domain."""
+    return (ids[..., None] == torch.arange(n, device=ids.device)).to(dtype)
+
+
+def batch_norm_state(dim: int, device="cpu") -> dict:
+    """Running statistics of :func:`batch_norm_apply`: ``mean`` 0, ``var``
+    1 and the int32 ``count`` of train-mode calls."""
+    return {"mean": torch.zeros(dim, device=device),
+            "var": torch.ones(dim, device=device),
+            "count": torch.zeros((), dtype=torch.int32, device=device)}
+
+
+def batch_norm_apply(x: torch.Tensor, state: dict, *, train: bool,
+                     scale: torch.Tensor, bias: torch.Tensor,
+                     momentum: float = 0.1, eps: float = 1e-5,
+                     batch_weight: torch.Tensor | None = None):
+    """BatchNorm1d with torch semantics on explicit ``state`` (twin of
+    ``batch_norm_apply``, satrans_tpu/nn/core.py:187-235); returns ``(y,
+    new_state)``, the new state detached.
+
+    In training ``x`` is normalized with the biased variance of the batch,
+    or with ``batch_weight`` (a ``[B]`` 0/1 mask) of its weighted subset
+    over ``n = max(sum w, 1)`` rows; the running variance moves toward
+    the unbiased ``var * n / max(n - 1, 1)``.  A subset with no row keeps
+    its ``mean`` and ``var``; ``count`` rises by one all the same.  In
+    eval mode the running statistics normalize and the state is
+    returned as it is."""
+    if train:
+        if batch_weight is None:
+            n = float(x.shape[0])
+            mean = torch.mean(x, dim=0)
+            var = torch.mean(torch.square(x - mean), dim=0)
+        else:
+            w = batch_weight.to(x.dtype)[:, None]
+            n = torch.clamp(torch.sum(w), min=1.0)
+            mean = torch.sum(x * w, dim=0) / n
+            var = torch.sum(torch.square(x - mean) * w, dim=0) / n
+        with torch.no_grad():
+            # torch tracks the unbiased variance in its running statistics
+            if batch_weight is None:
+                unbiased = var * (n / max(n - 1.0, 1.0))
+            else:
+                unbiased = var * (n / torch.clamp(n - 1.0, min=1.0))
+            new_mean = (1 - momentum) * state["mean"] + momentum * mean
+            new_var = (1 - momentum) * state["var"] + momentum * unbiased
+            if batch_weight is not None:
+                has = torch.sum(batch_weight.to(x.dtype)) > 0
+                new_mean = torch.where(has, new_mean, state["mean"])
+                new_var = torch.where(has, new_var, state["var"])
+            new_state = {"mean": new_mean.detach(), "var": new_var.detach(),
+                         "count": state["count"] + 1}
+    else:
+        mean, var = state["mean"], state["var"]
+        new_state = state
+    y = (x - mean) * torch.rsqrt(var + eps) * scale + bias
+    return y, new_state
+
+
+class BatchNorm(nn.Module):
+    """The running statistics of one BatchNorm as buffers (``mean``,
+    ``var``, ``count``; the affine comes from the caller).  A train-mode
+    call updates them in place, once, without gradient; an eval-mode call
+    reads them and leaves them as they are."""
+
+    def __init__(self, dim: int, device="cpu"):
+        super().__init__()
+        for k, v in batch_norm_state(dim, device).items():
+            self.register_buffer(k, v)
+
+    def forward(self, x: torch.Tensor, scale: torch.Tensor,
+                bias: torch.Tensor, *, train: bool,
+                batch_weight: torch.Tensor | None = None) -> torch.Tensor:
+        state = {"mean": self.mean, "var": self.var, "count": self.count}
+        y, new = batch_norm_apply(x, state, train=train, scale=scale,
+                                  bias=bias, batch_weight=batch_weight)
+        if train:
+            with torch.no_grad():
+                for k, v in new.items():
+                    getattr(self, k).copy_(v)
+        return y

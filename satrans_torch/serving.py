@@ -3,10 +3,13 @@
 :class:`Predictor` scores a feature dict with a frozen model: a fixed
 batch size, the tail padded with zero rows, float64 scores out.  Batches
 are staged and run without a synchronisation per batch; the one copy back
-to the host at the end waits for the device.  :meth:`Predictor.
-from_trainer` serves a trainer's model; :func:`save` writes a trainer's
-checkpoint (``train/checkpoint.py``) and :func:`load` rebuilds a Predictor
-from one and a model of the same configuration.
+to the host at the end waits for the device.  A multi-task model's
+``[B, num_tasks]`` output is routed as the Trainer routes it, each
+example scored by its domain's head under the model's
+``domain_id_offset`` (serving.py:47-54).  :meth:`Predictor.from_trainer`
+serves a trainer's model; :func:`save` writes a trainer's checkpoint
+(``train/checkpoint.py``) and :func:`load` rebuilds a Predictor from one
+and a model of the same configuration.
 """
 
 from __future__ import annotations
@@ -30,6 +33,15 @@ class Predictor:
         """A Predictor of ``trainer``'s model on its device."""
         return cls(trainer.model, batch_size=batch_size,
                    device=trainer.device)
+
+    def _score(self, batch: dict) -> torch.Tensor:
+        pred = self.model(batch)
+        if pred.ndim > 1:  # the heads of a multi-task model
+            from .train.losses import route_by_domain
+            col = self.layout.sparse_index(self.model.domain_col)
+            pred = route_by_domain(pred, batch["sparse"][:, col],
+                                   self.model.domain_id_offset)
+        return pred
 
     def _stage(self, data: dict, start: int, end: int) -> dict:
         """Pad one batch to ``batch_size`` rows and copy it to the device."""
@@ -60,8 +72,8 @@ class Predictor:
     def warmup(self) -> "Predictor":
         """Run one dummy batch (the kernels build and load here)."""
         with torch.inference_mode():
-            self.model(self._stage(self._example_batch(), 0,
-                                   self.batch_size)).cpu()
+            self._score(self._stage(self._example_batch(), 0,
+                                    self.batch_size)).cpu()
         return self
 
     def __call__(self, x: dict) -> np.ndarray:
@@ -70,7 +82,7 @@ class Predictor:
         bs = self.batch_size
         spans = [(s, min(s + bs, n)) for s in range(0, n, bs)]
         with torch.inference_mode():
-            outs = [self.model(self._stage(data, s, e))[:e - s]
+            outs = [self._score(self._stage(data, s, e))[:e - s]
                     for s, e in spans]
             scores = torch.cat(outs).cpu()
         return scores.numpy().astype("float64")
@@ -86,11 +98,12 @@ def save(path: str, trainer) -> None:
 def load(path: str, model: torch.nn.Module, *, batch_size: int = 4096,
          device="cuda") -> Predictor:
     """Rebuild a Predictor from a checkpoint and a model of the same
-    configuration: the checkpoint's parameters are loaded into ``model``
-    (its optimizer state, which serving does not need, is not read, so a
-    checkpoint of any bank mode loads)."""
+    configuration: the checkpoint's parameters and buffers are loaded into
+    ``model`` and its fit-learned ``domain_id_offset`` set (its optimizer
+    state, which serving does not need, is not read, so a checkpoint of
+    any bank mode loads)."""
     from .train import checkpoint
     dev = resolve_device(device)
     model = model.to(dev)
-    model.load_state_dict(checkpoint.read(path, dev)["params"])
+    checkpoint.load_model(checkpoint.read(path, dev), model)
     return Predictor(model, batch_size=batch_size, device=dev)

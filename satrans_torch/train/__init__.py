@@ -4,6 +4,7 @@ metrics, callbacks, checkpoints (``checkpoint``) and the attention probes
 (``attention_probe``)."""
 
 from . import callbacks, losses, metrics
-from .trainer import SingleTask, Trainer
+from .trainer import DomainRouted, SingleTask, Trainer
 
-__all__ = ["SingleTask", "Trainer", "callbacks", "losses", "metrics"]
+__all__ = ["DomainRouted", "SingleTask", "Trainer", "callbacks", "losses",
+           "metrics"]

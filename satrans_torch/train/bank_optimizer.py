@@ -180,7 +180,8 @@ def adam_rows(w, m, v, g, steps, lr, b1=ADAM_B1, b2=ADAM_B2,
 def sparse_bank_grads(model, strategy, batch, y, weight, key=None):
     """Forward and backward of one step with the bank's gradient kept
     sparse, the model's dropout drawn from ``key``.  Every parameter but
-    the bank gets its ``.grad``.  Returns
+    the bank gets its ``.grad``; the one train-mode forward is the step's
+    only update of the model's state (its buffers).  Returns
     ``(flat_ids, g_rows, data_loss, reg, aux)``: the raw gather plan
     ``[N]``, the gradient of its physical rows ``[N, rp * d]``, and the
     step's losses, where ``reg`` leaves out the bank's L2."""
@@ -192,7 +193,7 @@ def sparse_bank_grads(model, strategy, batch, y, weight, key=None):
     feed = embeddings.BankRowFeed(rows, emb)
     pred = model(batch, feed=feed, key=key)
     feed.assert_consumed()
-    data_loss = strategy.loss(pred, y, weight)
+    data_loss = strategy.loss(pred, y, batch, weight)
     reg = model.reg_loss(feed=feed)
     aux = torch.zeros((), dtype=data_loss.dtype, device=data_loss.device)
     (data_loss + reg + aux).backward()

@@ -4,7 +4,8 @@ A checkpoint is one file written with ``torch.save``, of plain tensors and
 ints only, so that ``torch.load(weights_only=True)`` reads it.  It carries
 what the JAX package's checkpoint carries:
 
-* ``params``: the model's ``state_dict()``;
+* ``params``: the model's ``state_dict()``, its buffers (the model
+  state: STAR's BatchNorm statistics) included;
 * ``opt_state``: Adam's moments and step of every parameter it has updated
   (``torch.optim.Adam``'s state, keyed by parameter name), and under
   ``bank_update='lazy'`` the lazy bank's ``mu``, ``nu``, ``last`` and
@@ -71,10 +72,20 @@ def read(path: str, device) -> dict:
                       weights_only=True)
 
 
+def load_model(payload: dict, model) -> None:
+    """Load a read checkpoint's parameters and buffers into ``model`` and
+    set its fit-learned ``domain_id_offset`` (checkpoint.py:69-71)."""
+    model.load_state_dict(payload["params"])
+    offset = int(payload["meta"]["domain_id_offset"])
+    if offset != _NO_OFFSET and hasattr(model, "set_domain_offset"):
+        model.set_domain_offset(offset)
+
+
 def restore(path: str, trainer) -> None:
     """Restore in place into a compiled trainer (shapes must match): the
-    parameters, Adam's state, the lazy bank's state and the fit-learned
-    ``domain_id_offset``.  A checkpoint of another bank mode raises."""
+    parameters and buffers, Adam's state, the lazy bank's state and the
+    fit-learned ``domain_id_offset``.  A checkpoint of another bank mode
+    raises."""
     if trainer.optimizer is None:
         raise RuntimeError("call compile() before restoring a checkpoint")
     payload = read(path, trainer.device)
@@ -85,7 +96,7 @@ def restore(path: str, trainer) -> None:
             f"checkpoint {path} was written under bank_update="
             f"{saved_mode!r}, the trainer is compiled under "
             f"{trainer._bank_mode!r}")
-    trainer.model.load_state_dict(payload["params"])
+    load_model(payload, trainer.model)
     params = dict(trainer.model.named_parameters())
     trainer.optimizer.state.clear()
     for name, st in opt["adam"].items():
@@ -95,6 +106,3 @@ def restore(path: str, trainer) -> None:
         for k in _LAZY_KEYS:
             trainer._lazy[k].copy_(lazy[k])
         trainer._lazy["count"] = int(lazy["count"])
-    offset = int(payload["meta"]["domain_id_offset"])
-    if offset != _NO_OFFSET and hasattr(trainer.model, "set_domain_offset"):
-        trainer.model.set_domain_offset(offset)

@@ -1,5 +1,5 @@
 """The training engine (twin of ``satrans_tpu/train/trainer.py``): the
-single-task ``Trainer`` with the dense and the sparse bank updates.
+``Trainer`` with the dense and the sparse bank updates.
 
 One dense step (``bank_update='dense'``, what ``'auto'`` resolves to on
 one device) is autograd of the model in train mode, the pad-weighted BCE
@@ -26,6 +26,16 @@ the step's rows (``train/bank_optimizer.py``, with the row kernels K2-K5
 on the card): ``fused`` and ``fused_eq`` give the dense step's results,
 ``lazy`` moves only the touched rows (a documented deviation, PARITY.md).
 ``fused`` reports the bank's L2 in ``reg_loss``, ``lazy`` does not.
+
+The loss and the routing of the scores are a strategy, resolved at
+``fit`` and at ``predict`` (trainer.py:252-261): :class:`SingleTask`, or
+for a multi-task model with a scenario column :class:`DomainRouted`
+(head ``i`` for domain ``i + offset``).  ``fit`` first sets the model's
+``domain_id_offset`` to the least id of the training data's scenario
+column; ``predict`` re-learns it from its own data for a routed model.
+A model's state (STAR's BatchNorm statistics, its buffers) moves once a
+step, in the step's one train-mode forward; ``predict``, ``evaluate`` and
+validation run in eval mode and leave it as it is.
 
 As in the JAX package, the last partial batch is padded to the batch size
 with zero rows of weight 0: with sum-reduced losses that is the
@@ -79,9 +89,38 @@ class SingleTask:
         name = loss[0] if isinstance(loss, (list, tuple)) else loss
         self.elem = _ELEMENTWISE[name] if isinstance(name, str) else name
 
-    def loss(self, pred, y, weight):
+    def loss(self, pred, y, batch, weight):
         # weight is the 0/1 pad mask: a sum over the real samples only
         return torch.sum(weight * self.elem(pred, y))
+
+    def route(self, pred, batch):
+        return pred
+
+
+class DomainRouted:
+    """One head a scenario (the reference's MTL engine, main.py:262-265;
+    twin of trainer.py:92-128): head ``i`` is trained on the examples of
+    domain ``i + offset`` only, and each example is scored by its
+    domain's head (0 where its id matches no head).  ``domain_index`` is
+    the scenario column's place in the sparse batch; ``offset`` is
+    learned from the data (mtl_basemodel.py:160)."""
+
+    def __init__(self, domain_index: int, num_tasks: int, offset: int = 0):
+        self.domain_index = domain_index
+        self.num_tasks = num_tasks
+        self.offset = offset
+
+    def _domain_ids(self, batch):
+        return batch["sparse"][:, self.domain_index]
+
+    def loss(self, pred, y, batch, weight):
+        return losses.masked_multitask_bce_sum(
+            pred, y, self._domain_ids(batch), self.offset, self.num_tasks,
+            weight)
+
+    def route(self, pred, batch):
+        return losses.route_by_domain(pred, self._domain_ids(batch),
+                                      self.offset)
 
 
 class Trainer:
@@ -137,8 +176,32 @@ class Trainer:
         self._lazy = (bank_optimizer.lazy_init(self.model.emb)
                       if self._bank_mode == "lazy" else None)
         self.metric_fns = {m: metrics_lib.get_metric(m) for m in metrics}
-        self._strategy = SingleTask(loss)
+        self.loss_spec = loss
+        # resolved at fit or predict, once the domain offset is known
+        self._strategy = None
         return self
+
+    def _routed(self) -> bool:
+        """A multi-task model with a scenario column: one head a domain."""
+        return getattr(self.model, "num_tasks", 1) > 1 and \
+            bool(getattr(self.model, "domain_col", None))
+
+    def _resolve_strategy(self):
+        """:class:`DomainRouted` at the model's ``domain_id_offset`` for a
+        routed model, else :class:`SingleTask` (trainer.py:252-261)."""
+        if self._routed():
+            return DomainRouted(
+                self.layout.sparse_index(self.model.domain_col),
+                self.model.num_tasks, self.model.domain_id_offset)
+        return SingleTask(self.loss_spec)
+
+    @property
+    def strategy(self):
+        """The loss and routing strategy, resolved at the model's current
+        offset where no ``fit`` or ``predict`` has resolved it yet."""
+        if self._strategy is None:
+            self._strategy = self._resolve_strategy()
+        return self._strategy
 
     def _resolve_bank_mode(self, mode: str) -> None:
         """Twin of trainer.py:460-503 on one device: ``auto`` resolves to
@@ -187,7 +250,7 @@ class Trainer:
         mode with the dropout ``key``: the function one step
         differentiates."""
         pred = self.model(batch, key=key)
-        data_loss = self._strategy.loss(pred, y, weight)
+        data_loss = self.strategy.loss(pred, y, batch, weight)
         reg = self.model.reg_loss()
         aux = torch.zeros((), dtype=data_loss.dtype, device=data_loss.device)
         return data_loss + reg + aux, data_loss, reg, aux
@@ -208,7 +271,7 @@ class Trainer:
             self.optimizer.step()
         else:
             flat_ids, g_rows, data_loss, reg, aux = \
-                bank_optimizer.sparse_bank_grads(self.model, self._strategy,
+                bank_optimizer.sparse_bank_grads(self.model, self.strategy,
                                                  batch, y, weight, key)
             emb = self.model.emb
             l2 = float(self.model.l2_reg_embedding)
@@ -242,6 +305,12 @@ class Trainer:
         written there every that many steps."""
         if self.optimizer is None:
             raise RuntimeError("call compile() before fit()")
+        # the domain offset learned from the training data
+        # (meta_basemodel.py:218, trainer.py:575-581)
+        col = getattr(self.model, "domain_col", None)
+        if col and hasattr(self.model, "set_domain_offset"):
+            self.model.set_domain_offset(int(np.min(x[col])))
+        self._strategy = self._resolve_strategy()
         if resume and checkpoint_path is not None and \
                 os.path.exists(checkpoint_path):
             ckpt_lib.restore(checkpoint_path, self)
@@ -352,7 +421,14 @@ class Trainer:
     def predict(self, x: dict, batch_size: int = 256) -> np.ndarray:
         """Inference over a feature dict -> float64 scores ``[N]``; each
         batch is padded to ``batch_size`` (reference predict,
-        meta_basemodel.py:401-517)."""
+        meta_basemodel.py:401-517).  A multi-task model's heads are
+        routed, each example scored by its domain's; the offset is
+        re-learned from ``x`` and set on the model, as the reference does
+        (mtl_basemodel.py:352; trainer.py:751-761)."""
+        if self._routed():
+            col = self.model.domain_col
+            self.model.set_domain_offset(int(np.min(x[col])))
+        strategy = self._strategy = self._resolve_strategy()
         data = self.layout.batch_from_dict(x)
         n = len(next(iter(data.values())))
         self.model.eval()
@@ -363,7 +439,8 @@ class Trainer:
                 batch = self._device_batch(
                     {k: self._pad(v[start:stop], batch_size)
                      for k, v in data.items()})
-                outs.append(self.model(batch)[:stop - start])
+                outs.append(strategy.route(self.model(batch),
+                                           batch)[:stop - start])
             scores = torch.cat(outs).cpu() if outs else torch.zeros(0)
         return scores.numpy().astype("float64")
 

@@ -72,7 +72,8 @@ FULL_ARGV = [
 def test_parse_args_and_config_str_equal_jax(argv):
     got, want = tcli.parse_args(argv), jcli.parse_args(argv)
     assert vars(got) == vars(want)
-    for name in ("SATrans", "Star_Trans", "AutoInt", "MMOE"):
+    for name in ("SATrans", "Star_Trans", "AutoInt", "MMOE", "Star_Net",
+                 "PLE"):
         got.model_name = want.model_name = name
         assert tcli.config_str(got, "301", "x") == \
             jcli.config_str(want, "301", "x")
@@ -317,7 +318,7 @@ def test_cli_run_matches_jax(tmp_path, monkeypatch, capsys):
 
 
 @pytest.mark.parametrize("extra,match", [
-    (["--model_name", "MMOE"], "item 'Other models'"),
+    (["--model_name", "Star_Trans"], "item 'Other models'"),
     (["--mesh", "2"], "item 'parallel/ → torch.distributed'"),
     (["--bank_update", "lazy_stale"], "item 'lazy_stale'")])
 def test_cli_unported_options_raise(extra, match, tmp_path):
