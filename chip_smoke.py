@@ -4,8 +4,11 @@
 
 Phases, each of which exits non-zero on failure:
 
-1. build every CUDA kernel from satrans_torch/csrc (one nvcc per source,
-   all at once, anew); print each tile body (every K1 and K7 forward and
+1. build every CUDA kernel from satrans_torch/csrc, anew: each source
+   without a shape once, the layer bodies' at the AliCCP sota shapes
+   (d = 32, 4 heads; 2- and 3-matrix MetaNets) and at phase 18's, one
+   library a shape, one nvcc a core (each library's nvcc seconds
+   printed); print each tile body (every K1 and K7 forward and
    backward, csrc/meta_stash_{fwd,bwd}.cuh, K6-bwd's and K6-fwd's) with
    its registers and spills (ptxas -v), its dynamic shared memory at F =
    19 and 15 (K6-fwd's also its blocks an SM) and the HMMA instructions
@@ -196,6 +199,29 @@ Phases, each of which exits non-zero on failure:
    STAR's trained statistics kept); then ``cli.main --model_name
    Star_Net`` and ``MMOE`` on 40,960 synthetic rows in ``lazy`` (fit,
    predict, report), each with its steps' K2-K5 launches.
+18. the reference CLI's other widths and head counts (MetaNet (2d, d),
+   each shape's kernels built at the start with the others): (a) at
+   (d, heads) (8, 2), (8, 8), (16, 2), (32, 1), (32, 8), (64, 1) and
+   (64, 8), B = 512 at dropout 0 and 0.1 (QK, 4 table rows): K1-fwd,
+   K1-stash, K1-stash light and K1-scores (output and residuals), K1-bwd,
+   K1-bwd-stash and K1-bwd-stash light (every gradient), K7's four bodies
+   on the multicol dispatch, K6-fwd and K6-bwd (gate and bilinear)
+   against their plain versions at the d = 32 phases' tolerances; each
+   body timed at 8192 and at 512 at dropout 0.1, with its bound and the
+   plain version's time; each shape's shared memory, layouts and build
+   seconds; (b) at d = 64 with 8 heads (AliCCP sota fields, a bank of
+   1.68 GB): a request of 20,000 through Predictor (K1-fwd, scores
+   against the plain path), 3 staged ``lazy`` stash steps and 3 ``dense``
+   recompute steps, one showattn probe batch (K1-scores); (c) the gate
+   and bilinear models (K6) and the multicol model (K7, stash then
+   recompute) at (64, 8) and (16, 2), 3 ``lazy`` steps and one request
+   each; (d) Alimama sota-pos at (16, 2), 3 ``lazy`` stash_light steps;
+   (e) ``cli.main --embedding_dim 8 --att_head_num 2`` and 16 / 2 with
+   ``--bank_update lazy`` on 40,960 synthetic rows.  Every path's
+   launches by kernel are counted from 0 and the plain layer's calls
+   with them (none), each step's device busy time printed.  The JSON
+   line gives each layer kernel's fields by shape (``widths``) and its
+   launches on these paths.
 
 Phases 2 and 4 also hold K1 where a share of the attention logits passes
 the kernels' clamp at 60 against the clamped plain layer.
@@ -746,10 +772,14 @@ def tile_body_report():
     from satrans_torch.ops import _build, gate_block, meta_block
     import ctypes
     report = {}
-    for src in ("meta_block_fwd", "meta_block_bwd", "gate_block_bwd",
-                "gate_block_fwd"):
+    for src, shape in (("meta_block_fwd", (32, 64, 0, 4)),
+                       ("meta_block_fwd", (32, 64, 64, 4)),
+                       ("meta_block_bwd", (32, 64, 0, 4)),
+                       ("meta_block_bwd", (32, 64, 64, 4)),
+                       ("gate_block_bwd", (32, 4)),
+                       ("gate_block_fwd", (32, 4))):
         body = None
-        for ln in _build.log(src).splitlines():
+        for ln in _build.log(src, shape).splitlines():
             if "Compiling entry function" in ln or \
                     "Function properties for" in ln:
                 body = _tile_body(ln)
@@ -760,7 +790,7 @@ def tile_body_report():
                     ln)):
                 report.setdefault(body, {}).update(
                     spill_store_bytes=int(m[1]), spill_load_bytes=int(m[2]))
-        lib = _build._target(src)[1]
+        lib = _build._target(src, shape)[1]
         sass = subprocess.run(
             [str(Path(_build._nvcc()).parent / "cuobjdump"), "-sass",
              str(lib)], capture_output=True, text=True, check=True,
@@ -774,17 +804,20 @@ def tile_body_report():
                     sass_instructions=sum(
                         bool(re.match(r"\s*/\*[0-9a-f]{4,}\*/", ln))
                         for ln in lines))
-    fwd_smem = meta_block.kernel_fn(
-        "meta_block_fwd", "satrans_meta_block_fwd_stash_smem",
-        [ctypes.c_int] * 6)
-    bwd_smem = meta_block.kernel_fn(
-        "meta_block_bwd", "satrans_meta_block_bwd_stash_smem",
-        [ctypes.c_int] * 5)
+    def fwd_smem(h2, F, mode):
+        return meta_block.kernel_fn(
+            "meta_block_fwd", "satrans_meta_block_fwd_stash_smem",
+            [ctypes.c_int] * 6, shape=(32, 64, h2, 4))(32, 64, h2, 4, F, mode)
+
+    def bwd_smem(h2, F):
+        return meta_block.kernel_fn(
+            "meta_block_bwd", "satrans_meta_block_bwd_stash_smem",
+            [ctypes.c_int] * 5, shape=(32, 64, h2, 4))(32, 64, h2, 4, F)
+
     gate_smem = meta_block.kernel_fn(
         "gate_block_bwd", "satrans_gate_block_bwd_smem", [ctypes.c_int] * 5)
-    bodies = [(name + suffix, {F: (fwd_smem(32, 64, h2, 4, F, mode)
-                                   if "fwd" in kernel else
-                                   bwd_smem(32, 64, h2, 4, F))
+    bodies = [(name + suffix, {F: (fwd_smem(h2, F, mode)
+                                   if "fwd" in kernel else bwd_smem(h2, F))
                                for F in (19, 15)})
               for (kernel, mode, _), name in TILE_BODIES.items()
               for h2, suffix in ((0, ""), (64, "_3mat"))]
@@ -4501,6 +4534,707 @@ def star_mtl_phase(dev, card):
     return paths
 
 
+# phase 18: the reference CLI's other widths and head counts (MetaNet (2d,
+# d) at each): every layer kernel against its plain version at these
+# (d, heads); the main path at the widest; the gate and bilinear variants
+# and the multicol model at the widest and a narrow one; Alimama sota-pos
+# at the narrow one; the CLI at the JAX package's CLI-test widths
+WIDTH_SHAPES = ((8, 2), (8, 8), (16, 2), (32, 1), (32, 8), (64, 1), (64, 8))
+WIDE, NARROW = (64, 8), (16, 2)
+WIDTH_CLI = ((8, 2), (16, 2))
+WIDTH_STEPS = 3
+# the CLI runs' synthetic rows: 4 training steps of the batch
+WIDTH_CLI_ROWS = 40_960
+# the kernels' names by phase 18's kernel case keys
+WIDTH_KERNELS = K1_NAMES + ("meta_block_fwd_scores",) + K7_NAMES + (
+    "gate_block_fwd", "gate_block_bwd")
+
+
+def width_targets():
+    """The libraries phase 18 launches: K1 and K7 with MetaNet (2d, d), and
+    K6, at each of its shapes."""
+    return ([(n, (d, 2 * d, 0, h)) for d, h in WIDTH_SHAPES
+             for n in ("meta_block_fwd", "meta_block_bwd")]
+            + [(n, (d, h)) for d, h in WIDTH_SHAPES
+               for n in ("gate_block_fwd", "gate_block_bwd")])
+
+
+def close_err(got, want, what):
+    """max |got - want|; raises past KERNEL_TOL or where got is not
+    finite."""
+    err = (got - want).abs().max().item()
+    check(bool(torch.isfinite(got).all())
+          and torch.allclose(got, want, **KERNEL_TOL),
+          f"{what}: max |kernel - plain| = {err}")
+    return err
+
+
+def width_layers(dev, d, heads, seed):
+    """A metanet layer (its meta LayerNorm moved off its init) and its
+    4-row table of MetaNets (2d, d); the gate and bilinear layers and
+    their 4-row tables; and the generator after them."""
+    from satrans_torch.nn import attention, initializers as init, metanet
+    from satrans_torch.utils import make_generator
+    gen = make_generator(seed, dev)
+    layer = attention.MetaTransformerLayer(gen, d)
+    with torch.no_grad():
+        layer.q_meta.ln.scale.add_(init.normal(gen, (d,), 0.1))
+        layer.q_meta.ln.bias.add_(init.normal(gen, (d,), 0.1))
+    table = init.normal(gen, (4, metanet.param_size((d, 2 * d, d))), 0.1)
+    simple = {}
+    for variant in ("gate", "bilinear"):
+        lay = attention.MetaTransformerLayer(gen, d, variant=variant)
+        names = ("Q", "K") if variant == "gate" else ("bilinear",)
+        width = d if variant == "gate" else d * (d // heads)
+        simple[variant] = (lay, {n: init.normal(gen, (4, width), 0.5)
+                                 for n in names})
+    return gen, layer, table, simple
+
+
+def width_check_case(dev, d, heads):
+    """Phase 18a at one shape: at B = SMALL_BATCH, dropout 0 and 0.1 (QK),
+    K1-fwd, K1-stash, K1-stash light and K1-scores (the output and every
+    residual) against the plain layer; K1-bwd, K1-bwd-stash and
+    K1-bwd-stash light (each through the autograd wrapper) against its
+    autograd, every gradient; K7-fwd and K7-stash (with the plan's
+    tile_count, on the occupied slots) and K7-bwd and K7-bwd-stash on the
+    multicol dispatch of the batch; K6-fwd and K6-bwd, gate and bilinear.
+    KERNEL_TOL for outputs, GRAD_RTOL / GRAD_ATOL for gradients (the d =
+    32 phases').  Returns the worst error by kernel."""
+    from satrans_torch.nn import initializers as init, metanet
+    from satrans_torch.ops import (dispatch, gate_block, meta_block, prng,
+                                   tiled_meta)
+    F, units = 19, (d, 2 * d, d)
+    gen, layer, table, simple = width_layers(dev, d, heads,
+                                             SEED + 180 + d + heads)
+    tables = shared(table)
+    table7 = init.normal(gen, (MULTICOL_ROWS, metanet.param_size(units)),
+                         0.1)
+    kw = dict(meta_units=units, head_num=heads, mode="QK", relu_out=False)
+    errs = {n: 0.0 for n in WIDTH_KERNELS}
+
+    def worst(name, err):
+        errs[name] = max(errs[name], err)
+
+    for rate in (0.0, DROP_RATE):
+        B = SMALL_BATCH
+        x = init.normal(gen, (B, F, d), 1.0)
+        g = init.normal(gen, (B, F, d), 1.0)
+        dom = torch.randint(0, 4, (B,), generator=gen, device=dev)
+        drop = dict(train=True, drop_rate=rate, seed=DROP_SEED,
+                    block_b=DROP_TILE)
+        masks = meta_block.layer_masks(x, head_num=heads, mode="QK", **drop)
+        kargs = prng.kernel_args(True, rate, DROP_SEED, DROP_TILE, F)
+        ops, cfg = meta_block.pack_operands(x, layer, tables, dom, **kw)
+        ops = [t if t is None else t.detach() for t in ops]
+        res = {}
+        with torch.no_grad():
+            want = meta_block.meta_layer_reference(
+                x, layer, tables, dom, **kw, masks=masks, residuals=res)
+            worst("meta_block_fwd", close_err(meta_block.launch_fwd(
+                *ops, cfg, kargs), want, f"K1-fwd {d}/{heads} {rate}"))
+            for stash, name in (("full", "meta_block_fwd_stash"),
+                                ("light", "meta_block_fwd_stash_light"),
+                                ("scores", "meta_block_fwd_scores")):
+                got = meta_block.launch_fwd(*ops, cfg, kargs, stash=stash)
+                worst(name, close_err(got[0], want, f"{name} y"))
+                for rn, a in zip(meta_block.STASH_RESIDUALS[stash], got[1:]):
+                    worst(name, close_err(a, res[rn], f"{name} {rn}"))
+        gk, _ = kink_free(g, x, layer, tables, dom, masks, **kw)
+        want_g = layer_grads(meta_block.meta_layer_reference, x, layer,
+                             tables, dom, gk, **kw, masks=masks)
+        for bwd in ("stash", "stash_light", "recompute"):
+            got_g = layer_grads(meta_block.fused_meta_layer, x, layer,
+                                tables, dom, gk, **kw, **drop, bwd=bwd)
+            worst(K1_BWD_NAME[bwd], max(grad_errors(got_g,
+                                                    want_g).values()))
+        # K7 on the multicol dispatch of the batch (56 rows, tiles of 32)
+        plan = multicol_dispatch(dev, gen, B)
+        occ = plan.src >= 0
+        tq = table7[plan.tile_dom.long()]
+        t7 = shared(tq)
+        xs, gs = dispatch.scatter(x, plan), dispatch.scatter(g, plan)
+        rows = tiled_meta.tile_rows(plan.n_slots, MULTICOL_TILE, dev)
+        drop7 = dict(drop, block_b=MULTICOL_TILE)
+        masks7 = tiled_meta.layer_masks(xs, head_num=heads, mode="QK",
+                                        **drop7)
+        res7 = {}
+        with torch.no_grad():
+            want7 = tiled_meta.tiled_layer_reference(
+                xs, layer, t7, **kw, block_b=MULTICOL_TILE, masks=masks7,
+                residuals=res7)
+            y7 = tiled_meta.fused_tiled_layer(xs, layer, t7, **kw, **drop7,
+                                              tile_count=plan.tile_count)
+            worst("tiled_meta_fwd", close_err(y7[occ], want7[occ],
+                                              "K7-fwd"))
+            weights, cfg7 = meta_block.pack_weights(layer, t7, **kw)
+            st = tiled_meta.launch_fwd(
+                xs, *weights, cfg7, prng.kernel_args(
+                    True, rate, DROP_SEED, MULTICOL_TILE, F), MULTICOL_TILE,
+                stash=True, tile_count=plan.tile_count)
+            for rn, a in zip(("y",) + tiled_meta.STASH_RESIDUALS, st):
+                w = want7 if rn == "y" else res7[rn]
+                worst("tiled_meta_fwd_stash", close_err(
+                    a[occ], w[occ], f"K7-stash {rn}"))
+        gs, _ = kink_free(gs, xs, layer, t7, rows, masks7, **kw)
+
+        def tiled_fn(x, lay, tabs, dom, **k):
+            return tiled_meta.fused_tiled_layer(x, lay, tabs, **k,
+                                                tile_count=plan.tile_count)
+
+        def tiled_ref(x, lay, tabs, dom, **k):
+            return tiled_meta.tiled_layer_reference(
+                x, lay, tabs, block_b=MULTICOL_TILE, **k)
+
+        want_g7 = layer_grads(tiled_ref, xs, layer, t7, None, gs, **kw,
+                              masks=masks7)
+        for bwd, name in (("stash", "tiled_meta_bwd_stash"),
+                          ("recompute", "tiled_meta_bwd")):
+            got_g = layer_grads(tiled_fn, xs, layer, t7, None, gs, **kw,
+                                **drop7, bwd=bwd)
+            worst(name, max(grad_errors(got_g, want_g7).values()))
+        # K6, gate (QK) and bilinear
+        for variant, (lay, tabs) in simple.items():
+            masks6 = gate_block.layer_masks(x, head_num=heads, **drop)
+            kw6 = dict(head_num=heads, mode="QK", relu_out=False)
+            with torch.no_grad():
+                worst("gate_block_fwd", close_err(
+                    gate_block.fused_simple_layer(x, lay, tabs, dom, **kw6,
+                                                  **drop),
+                    gate_block.simple_layer_reference(
+                        x, lay, tabs, dom, **kw6, masks=masks6),
+                    f"K6-fwd {variant}"))
+            got_g = gate_grads(gate_block.fused_simple_layer, x, lay, tabs,
+                               dom, g, **kw6, **drop)
+            want_g6 = gate_grads(gate_block.simple_layer_reference, x, lay,
+                                 tabs, dom, g, **kw6, masks=masks6)
+            worst("gate_block_bwd", max(grad_errors(got_g,
+                                                    want_g6).values()))
+    return errs
+
+
+def width_time_case(dev, d, heads):
+    """Phase 18a's times at one shape, dropout 0.1 in training (QK, 4 table
+    rows; K7 on the multicol dispatch): each kernel at B = 8192 (CUDA
+    events, the calls back to back) and at SMALL_BATCH (queued ahead of the
+    card, :func:`queued_ms`), its bound at 8192, and the plain version's
+    time at 8192 (the forward; for a backward, autograd's backward over a
+    kept graph).  Returns the fields by kernel."""
+    from satrans_torch.nn import initializers as init, metanet
+    from satrans_torch.ops import (dispatch, gate_block, meta_block, prng,
+                                   tiled_meta)
+    F, h, units = 19, 2 * d, (d, 2 * d, d)
+    gen, layer, table, simple = width_layers(dev, d, heads,
+                                             SEED + 190 + d + heads)
+    tables = shared(table)
+    table7 = init.normal(gen, (MULTICOL_ROWS, metanet.param_size(units)),
+                         0.1)
+    kw = dict(meta_units=units, head_num=heads, mode="QK", relu_out=False)
+    out = {n: {} for n in WIDTH_KERNELS}
+    for B in (BATCH, SMALL_BATCH):
+        big = B == BATCH
+        timer = (lambda fn: time_ms(fn, iters=20)) if big else queued_ms
+        x = init.normal(gen, (B, F, d), 1.0)
+        g = init.normal(gen, (B, F, d), 1.0)
+        dom = torch.randint(0, 4, (B,), generator=gen, device=dev)
+        kargs = prng.kernel_args(True, DROP_RATE, DROP_SEED, DROP_TILE, F)
+        ops, cfg = meta_block.pack_operands(x, layer, tables, dom, **kw)
+        ops = [t if t is None else t.detach() for t in ops]
+        key = "ms" if big else "ms_512"
+        with torch.no_grad():
+            res = {s: meta_block.launch_fwd(*ops, cfg, kargs, stash=s)[1:]
+                   for s in ("full", "light")}
+            for stash, name in ((None, "meta_block_fwd"),
+                                ("full", "meta_block_fwd_stash"),
+                                ("light", "meta_block_fwd_stash_light"),
+                                ("scores", "meta_block_fwd_scores")):
+                out[name][key] = timer(lambda: meta_block.launch_fwd(
+                    *ops, cfg, kargs, stash=stash))
+                if big:
+                    out[name]["bound_ms"], out[name]["bound_by"] = \
+                        meta_layer_bound_ms(B, F, d, h, heads, 4, 1, 1,
+                                            stash=stash)
+            for r, name in ((res["full"], "meta_block_bwd_stash"),
+                            (res["light"], "meta_block_bwd_stash_light"),
+                            (None, "meta_block_bwd")):
+                out[name][key] = timer(lambda: meta_block.launch_bwd(
+                    g, *ops, cfg, kargs, res=r))
+                if big:
+                    out[name]["bound_ms"], out[name]["bound_by"] = \
+                        meta_layer_bwd_bound_ms(
+                            B, F, d, h, heads, 4, 1, 1,
+                            stash=None if r is None else
+                            ("full" if len(r) == 5 else "light"))
+            del res
+        if big:  # the plain layer at 8192: forward, then backward
+            masks = meta_block.layer_masks(x, head_num=heads, mode="QK",
+                                           train=True, drop_rate=DROP_RATE,
+                                           seed=DROP_SEED, block_b=DROP_TILE)
+            with torch.no_grad():
+                p_ms = time_ms(lambda: meta_block.meta_layer_reference(
+                    x, layer, tables, dom, **kw, masks=masks), iters=5)
+            xr = x.detach().requires_grad_(True)
+            tr = table.detach().requires_grad_(True)
+            yr = meta_block.meta_layer_reference(xr, layer, shared(tr), dom,
+                                                 **kw, masks=masks)
+            pb_ms = time_ms(lambda: torch.autograd.grad(
+                yr, [xr, tr, *layer.parameters()], g, retain_graph=True),
+                iters=3)
+            del yr
+            for name in K1_NAMES + ("meta_block_fwd_scores",):
+                out[name]["plain_ms"] = pb_ms if "bwd" in name else p_ms
+        # K7 on the multicol dispatch of the batch
+        plan = multicol_dispatch(dev, gen, B)
+        tq = table7[plan.tile_dom.long()].detach()
+        xs, gs = dispatch.scatter(x, plan), dispatch.scatter(g, plan)
+        weights, cfg7 = meta_block.pack_weights(layer, shared(tq), **kw)
+        weights = [t if t is None else t.detach() for t in weights]
+        k7 = prng.kernel_args(True, DROP_RATE, DROP_SEED, MULTICOL_TILE, F)
+        T, occupied = plan.tile_dom.numel(), int((plan.src >= 0).sum())
+        with torch.no_grad():
+            st = tiled_meta.launch_fwd(xs, *weights, cfg7, k7, MULTICOL_TILE,
+                                       stash=True,
+                                       tile_count=plan.tile_count)
+            for stash, name in ((False, "tiled_meta_fwd"),
+                                (True, "tiled_meta_fwd_stash")):
+                out[name][key] = timer(lambda: tiled_meta.launch_fwd(
+                    xs, *weights, cfg7, k7, MULTICOL_TILE, stash=stash,
+                    tile_count=plan.tile_count))
+                if big:
+                    out[name]["bound_ms"], out[name]["bound_by"] = \
+                        meta_layer_bound_ms(plan.n_slots, F, d, h, heads, T,
+                                            1, 1, stash="full" if stash
+                                            else None, occupied=occupied)
+            for r, name in ((st[1:], "tiled_meta_bwd_stash"),
+                            (None, "tiled_meta_bwd")):
+                out[name][key] = timer(lambda: tiled_meta.launch_bwd(
+                    gs, xs, *weights, cfg7, k7, MULTICOL_TILE, res=r,
+                    tile_count=plan.tile_count))
+                if big:
+                    out[name]["bound_ms"], out[name]["bound_by"] = \
+                        meta_layer_bwd_bound_ms(
+                            plan.n_slots, F, d, h, heads, T, 1, 1,
+                            stash=None if r is None else "full",
+                            occupied=occupied)
+            del st
+        if big:
+            masks7 = tiled_meta.layer_masks(
+                xs, head_num=heads, mode="QK", train=True,
+                drop_rate=DROP_RATE, seed=DROP_SEED, block_b=MULTICOL_TILE)
+            with torch.no_grad():
+                p_ms = time_ms(lambda: tiled_meta.tiled_layer_reference(
+                    xs, layer, shared(tq), **kw, block_b=MULTICOL_TILE,
+                    masks=masks7), iters=5)
+            xr = xs.detach().requires_grad_(True)
+            tr = tq.detach().requires_grad_(True)
+            yr = tiled_meta.tiled_layer_reference(
+                xr, layer, shared(tr), **kw, block_b=MULTICOL_TILE,
+                masks=masks7)
+            pb_ms = time_ms(lambda: torch.autograd.grad(
+                yr, [xr, tr, *layer.parameters()], gs, retain_graph=True),
+                iters=3)
+            del yr
+            for name in K7_NAMES:
+                out[name]["plain_ms"] = pb_ms if "bwd" in name else p_ms
+        # K6, gate (QK) and bilinear: each body's times by variant
+        kg = prng.kernel_args(True, DROP_RATE, DROP_SEED, DROP_TILE, F,
+                              pad_mult=gate_block.PAD_FIELDS)
+        for variant, (lay, tabs) in simple.items():
+            ops6, cfg6 = gate_block.pack_operands(x, lay, tabs, dom,
+                                                  head_num=heads)
+            ops6 = [t.detach() for t in ops6]
+            tag = "" if variant == "gate" else "_bilinear"
+            with torch.no_grad():
+                for name, run in (
+                        ("gate_block_fwd", lambda: gate_block.launch_fwd(
+                            *ops6, cfg6, kg)),
+                        ("gate_block_bwd", lambda: gate_block.launch_bwd(
+                            g, *ops6, cfg6, kg))):
+                    out[name][key + tag] = timer(run)
+                    if big:
+                        b_ms, b_by = gate_layer_bound_ms(
+                            B, F, d, heads, 4, variant, 1, 1,
+                            bwd="bwd" in name)
+                        out[name]["bound_ms" + tag] = b_ms
+                        out[name]["bound_by" + tag] = b_by
+            if big:
+                masks6 = gate_block.layer_masks(
+                    x, head_num=heads, train=True, drop_rate=DROP_RATE,
+                    seed=DROP_SEED, block_b=DROP_TILE)
+                kw6 = dict(head_num=heads, mode="QK", relu_out=False)
+                with torch.no_grad():
+                    p_ms = time_ms(lambda: gate_block.simple_layer_reference(
+                        x, lay, tabs, dom, **kw6, masks=masks6), iters=5)
+                xr = x.detach().requires_grad_(True)
+                trs = {k: t.detach().requires_grad_(True)
+                       for k, t in tabs.items()}
+                yr = gate_block.simple_layer_reference(xr, lay, trs, dom,
+                                                       **kw6, masks=masks6)
+                pb_ms = time_ms(lambda: torch.autograd.grad(
+                    yr, [xr, *trs.values(), *lay.parameters()], g,
+                    retain_graph=True), iters=3)
+                del yr
+                out["gate_block_fwd"]["plain_ms" + tag] = p_ms
+                out["gate_block_bwd"]["plain_ms" + tag] = pb_ms
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out
+
+
+def width_smem(d, heads):
+    """The dynamic shared memory (bytes) at F = 19 of each body at the
+    shape (K6 with 4 table rows), and the forward and backward tile
+    bodies' layouts."""
+    import ctypes
+    from satrans_torch.ops import _build
+    shape, h = (d, 2 * d, 0, heads), 2 * d
+
+    def fn(src, name, n, shp=shape):
+        return _build.kernel_fn(src, name, [ctypes.c_int] * n, shape=shp)
+
+    fwd = fn("meta_block_fwd", "satrans_meta_block_fwd_stash_smem", 6)
+    return {"fwd": fwd(d, h, 0, heads, 19, 0),
+            "stash": fwd(d, h, 0, heads, 19, 1),
+            "bwd": fn("meta_block_bwd", "satrans_meta_block_bwd_stash_smem",
+                      5)(d, h, 0, heads, 19),
+            "fwd_plan": fn("meta_block_fwd", "satrans_meta_block_fwd_plan",
+                           0)(),
+            "bwd_plan": fn("meta_block_bwd", "satrans_meta_block_bwd_plan",
+                           0)(),
+            "k1_bwd_max_rows": fn("meta_block_bwd",
+                                  "satrans_meta_block_bwd_max_domains", 0)(),
+            "gate_fwd": fn("gate_block_fwd", "satrans_gate_block_fwd_smem",
+                           4, (d, heads))(d, heads, 4, 0),
+            "bilinear_fwd": fn("gate_block_fwd",
+                               "satrans_gate_block_fwd_smem", 4,
+                               (d, heads))(d, heads, 4, 1),
+            "gate_bwd": fn("gate_block_bwd", "satrans_gate_block_bwd_smem",
+                           5, (d, heads))(d, heads, 4, 0, 19),
+            "bilinear_bwd": fn("gate_block_bwd",
+                               "satrans_gate_block_bwd_smem", 5,
+                               (d, heads))(d, heads, 4, 1, 19)}
+
+
+def plain_layer_calls():
+    """Count the plain layer's calls (``attention.meta_transformer_apply``,
+    which every plain route runs and no kernel route does) in the returned
+    one-element list, until :func:`plain_layer_restore`."""
+    from satrans_torch.nn import attention
+    calls, plain = [0], attention.meta_transformer_apply
+
+    def counted(*args, **kw):
+        calls[0] += 1
+        return plain(*args, **kw)
+
+    counted.plain = plain
+    attention.meta_transformer_apply = counted
+    return calls
+
+
+def plain_layer_restore():
+    from satrans_torch.nn import attention
+    attention.meta_transformer_apply = attention.meta_transformer_apply.plain
+
+
+def width_model(dev, d, heads, variant="metanet", cols=("301",),
+                domains=(3,), pos=False, **kw):
+    """SATrans at the AliCCP sota fields (or with ``pos`` the Alimama
+    sota-pos ones) at width ``d``, ``heads`` heads, 3 layers, QK, MetaNet
+    (2d, d), dropout 0.1, the layers of ``variant``."""
+    from satrans_torch.data import aliccp, alimama
+    from satrans_torch.features import FeatureLayout
+    from satrans_torch.models import SATrans
+    if pos:
+        layout = FeatureLayout(alimama.sota_columns(d))
+        cols, domains = [alimama.DOMAIN_COL], [alimama.NUM_DOMAINS]
+    else:
+        layout = FeatureLayout(aliccp.sota_columns(d))
+    return SATrans(layout, list(cols), list(domains),
+                   domain_att_layer_num=LAYERS, att_head_num=heads,
+                   meta_mode="QK", meta_dnn_hidden_units=(2 * d, d),
+                   dropout_rate=DROP_RATE, use_pos=pos, seed=SEED,
+                   variant=variant, device=dev, **kw)
+
+
+def width_run(card, label, run, per_call):
+    """``run()`` once after the launch counts are set to 0 and with the
+    plain layer counted: exactly ``per_call`` launches of each layer
+    kernel (in LAYER_NAMES order), and the plain layer never.  Returns
+    (the result, the launches by kernel)."""
+    torch.cuda.synchronize()
+    zero_counts()
+    calls = plain_layer_calls()
+    try:
+        result = run()
+        torch.cuda.synchronize()
+    finally:
+        plain_layer_restore()
+    got = layer_counts()
+    check(got == tuple(per_call) and calls[0] == 0,
+          f"{label}: launched {got} ({', '.join(LAYER_NAMES)}), want "
+          f"{tuple(per_call)}, and ran the plain layer {calls[0]} times")
+    launched = {n: c for n, c in zip(LAYER_NAMES, got) if c}
+    if scores_count():
+        launched["meta_block_fwd_scores"] = scores_count()
+    print(f"widths {label} [{card}]: launches {launched}, the plain layer "
+          "never", flush=True)
+    return result, launched
+
+
+def width_steps(card, label, trainer, batch, per_step):
+    """WIDTH_STEPS staged training steps (:func:`width_run`, ``per_step``
+    launches a layer a step), finite losses; then the staged step's time
+    and its device-busy time (a profile).  Returns the launches by
+    kernel."""
+    from satrans_torch.ops import eqgemm, gather, lazy_tail, scatter
+    losses, launched = width_run(
+        card, label, lambda: [trainer.train_step(*batch)["loss"]
+                              for _ in range(WIDTH_STEPS)],
+        [WIDTH_STEPS * LAYERS * c for c in per_step])
+    check(all(bool(torch.isfinite(v)) for v in losses),
+          f"{label}: a loss is not finite")
+    launched.update({n: m.launches for n, m in zip(
+        ROW_NAMES, (gather, scatter, eqgemm, lazy_tail)) if m.launches})
+    step_ms = time_ms(lambda: trainer.train_step(*batch), iters=3)
+    busy = device_profile(f"widths {label}: one training step of {BATCH}",
+                          lambda: trainer.train_step(*batch), step_ms, card,
+                          top=6)
+    print(f"widths {label} [{card}]: losses "
+          f"{[round(float(v) / BATCH, 6) for v in losses]}; staged step "
+          f"{step_ms:.3f} ms, device busy {busy} ms a step", flush=True)
+    return launched
+
+
+def width_wide_path(dev, card):
+    """Phase 18b: the main path at the widest shape (d = 64, 8 heads;
+    AliCCP sota fields and vocab sizes, a bank of 1.68 GB): one request of
+    REQUEST_ROWS through Predictor (K1-fwd only; the scores against the
+    plain path), WIDTH_STEPS staged ``lazy`` steps under bwd='stash'
+    (K1-stash and K1-bwd-stash), WIDTH_STEPS ``dense`` steps under
+    'recompute' (K1-fwd and K1-bwd) and one showattn probe batch of
+    PROBE_BATCH (K1-scores).  Returns the launches by path."""
+    from satrans_torch.data import aliccp
+    from satrans_torch.serving import Predictor
+    from satrans_torch.train import Trainer, attention_probe
+    d, heads = WIDE
+    tag = f"d{d}h{heads}"
+    paths = {}
+    model = width_model(dev, d, heads, no_emb_init=True)
+    print(f"widths {tag}: bank {model.emb.bank.shape[0]} x "
+          f"{model.emb.bank.shape[1]} = {model.emb.bank.numel() * 4 / 1e9:.3f}"
+          " GB", flush=True)
+    rng = np.random.default_rng(SEED + 18)
+    req = {n: rng.integers(1, aliccp.DATA_MAX[n] + 1, REQUEST_ROWS)
+           for n in aliccp.SPARSE_FEATURES}
+    pred = Predictor(model, batch_size=BATCH, device=dev).warmup()
+    batches = -(-REQUEST_ROWS // BATCH)
+    t0 = time.perf_counter()
+    scores, paths[f"widths_serve_{tag}"] = width_run(
+        card, f"{tag} serve", lambda: pred(req),
+        (0, 0, LAYERS * batches) + (0,) * 9)
+    wall = time.perf_counter() - t0
+    device_profile(f"widths {tag}: one request of {REQUEST_ROWS}",
+                   lambda: pred(req), 1e3 * wall, card, top=6)
+    model.route = "plain"
+    want = Predictor(model, batch_size=BATCH, device=dev)(req)
+    model.route = "kernel"
+    diff = float(np.abs(scores - want).max())
+    check(bool(np.all(np.isfinite(scores))) and diff <= SERVING_TOL,
+          f"widths {tag} serve: scores differ from the plain path by {diff}")
+    print(f"widths {tag} serve [{card}]: {REQUEST_ROWS} examples in "
+          f"{wall:.4f}s; max |kernel - plain| = {diff:.3e}", flush=True)
+    x, y = training_data()
+    for bank, bwd in (("lazy", "stash"), ("dense", "recompute")):
+        os.environ["SATRANS_BWD"] = bwd
+        trainer = Trainer(model, seed=SEED, device=dev)
+        trainer.compile(learning_rate=TRAIN_LR, bank_update=bank)
+        model.train()
+        paths[f"widths_train_{tag}_{bank}_{bwd}"] = width_steps(
+            card, f"{tag} {bank} {bwd}", trainer,
+            staged_batch(trainer, x, y), (0, 0) + K1_PAIR[bwd] + NO_K7)
+        del trainer
+        gc.collect()
+        torch.cuda.empty_cache()
+    os.environ.pop("SATRANS_BWD")
+    trainer = Trainer(model, seed=SEED, device=dev)
+    n = PROBE_BATCH
+    (_, stats), _ = width_run(
+        card, f"{tag} showattn probe", lambda: attention_probe.
+        predict_with_attention(trainer, {k: v[:n] for k, v in x.items()},
+                               y[:n], batch_size=n), (0,) * 12)
+    check(scores_count() == LAYERS, f"the probe launched {scores_count()} "
+                                    f"K1-scores, want {LAYERS}")
+    paths[f"widths_probe_{tag}"] = {"meta_block_fwd_scores": LAYERS}
+    del model, trainer, pred
+    gc.collect()
+    torch.cuda.empty_cache()
+    return paths
+
+
+def width_variant_paths(dev, card):
+    """Phase 18c-e: the gate and bilinear models (K6) and the multicol model
+    (scenario columns 301 and 122, 56 composite rows: K7) at the widest and
+    the narrow shape, each WIDTH_STEPS staged ``lazy`` steps (K7 under
+    SATRANS_TILED_BWD=stash, then WIDTH_STEPS more under recompute) and one
+    request of REQUEST_ROWS (finite, against the plain path); the Alimama
+    sota-pos model at the narrow shape, WIDTH_STEPS ``lazy`` steps under
+    bwd='stash_light'.  Returns the launches by path."""
+    from satrans_torch.data import aliccp
+    from satrans_torch.serving import Predictor
+    from satrans_torch.train import Trainer
+    x, y = training_data()
+    rng = np.random.default_rng(SEED + 19)
+    req = {n: rng.integers(1, aliccp.DATA_MAX[n] + 1, REQUEST_ROWS)
+           for n in aliccp.SPARSE_FEATURES}
+    batches = -(-REQUEST_ROWS // BATCH)
+    paths = {}
+    for d, heads in (WIDE, NARROW):
+        tag = f"d{d}h{heads}"
+        for variant in ("gate", "bilinear", "multicol"):
+            multi = variant == "multicol"
+            model = width_model(
+                dev, d, heads, "metanet" if multi else variant,
+                cols=MULTICOL_COLS if multi else ("301",),
+                domains=MULTICOL_DOMAINS if multi else (3,))
+            trainer = Trainer(model, seed=SEED, device=dev)
+            trainer.compile(learning_rate=TRAIN_LR, bank_update="lazy")
+            batch = staged_batch(trainer, x, y)
+            arms = ((("stash", K7_PAIR["stash"]),
+                     ("recompute", K7_PAIR["recompute"])) if multi
+                    else ((None, None),))
+            for bwd, pair in arms:
+                if bwd:
+                    os.environ["SATRANS_TILED_BWD"] = bwd
+                per_step = ((0, 0) + NO_K1 + pair if multi
+                            else (1, 1) + NO_K1 + NO_K7)
+                label = f"{tag} {variant} lazy" + (f" {bwd}" if bwd else "")
+                paths[f"widths_train_{tag}_{variant}" + (
+                    f"_{bwd}" if bwd else "")] = width_steps(
+                    card, label, trainer, batch, per_step)
+            os.environ.pop("SATRANS_TILED_BWD", None)
+            model.eval()
+            pred = Predictor(model, batch_size=BATCH, device=dev)
+            fwd = ((0, 0) + NO_K1 + (batches * LAYERS, 0, 0, 0) if multi
+                   else (batches * LAYERS, 0) + NO_K1 + NO_K7)
+            scores, paths[f"widths_serve_{tag}_{variant}"] = width_run(
+                card, f"{tag} {variant} serve", lambda: pred(req), fwd)
+            model.route = "plain"
+            want = Predictor(model, batch_size=BATCH, device=dev)(req)
+            model.route = "kernel"
+            diff = float(np.abs(scores - want).max())
+            check(bool(np.all(np.isfinite(scores))) and diff <= SERVING_TOL,
+                  f"widths {tag} {variant} serve: scores differ from the "
+                  f"plain path by {diff}")
+            print(f"widths {tag} {variant} serve [{card}]: max |kernel - "
+                  f"plain| = {diff:.3e}", flush=True)
+            del model, trainer, batch, pred
+            gc.collect()
+            torch.cuda.empty_cache()
+    d, heads = NARROW
+    tag = f"d{d}h{heads}"
+    os.environ["SATRANS_BWD"] = "stash_light"
+    model = width_model(dev, d, heads, pos=True)
+    trainer = Trainer(model, seed=SEED, device=dev)
+    trainer.compile(learning_rate=POS_LR, bank_update="lazy")
+    xa, ya = alimama_data(BATCH, SEED)
+    paths[f"widths_train_{tag}_alimama_pos_stash_light"] = width_steps(
+        card, f"{tag} alimama pos lazy stash_light", trainer,
+        staged_batch(trainer, xa, ya),
+        (0, 0) + K1_PAIR["stash_light"] + NO_K7)
+    os.environ.pop("SATRANS_BWD")
+    del model, trainer
+    gc.collect()
+    torch.cuda.empty_cache()
+    return paths
+
+
+def width_cli(dev, card):
+    """Phase 18f: ``cli.main --model_name SATrans --embedding_dim d
+    --att_head_num heads`` at the JAX package's CLI-test widths, on
+    WIDTH_CLI_ROWS synthetic AliCCP rows with ``--bank_update lazy``: fit,
+    predict and the per-domain AUCs in the report, each run's layer
+    launches counted from 0 (K1-stash and K1-bwd-stash a layer a step,
+    K1-fwd on the evaluation), the plain layer never.  Returns the
+    launches by run."""
+    import tempfile
+
+    from satrans_torch.cli import main as cli
+    steps = -(-int(0.8 * WIDTH_CLI_ROWS) // BATCH)
+    paths = {}
+    for d, heads in WIDTH_CLI:
+        tag = f"d{d}h{heads}"
+        with tempfile.TemporaryDirectory() as tmp:
+            torch.cuda.synchronize()
+            zero_counts()
+            calls = plain_layer_calls()
+            t0 = time.perf_counter()
+            try:
+                auc = cli.main(["--data_name", "synthetic",
+                                "--synthetic_rows", str(WIDTH_CLI_ROWS),
+                                "--embedding_dim", str(d), "--att_head_num",
+                                str(heads), "--bank_update", "lazy",
+                                "--results_dir", tmp], device=dev)
+                torch.cuda.synchronize()
+            finally:
+                plain_layer_restore()
+            wall = time.perf_counter() - t0
+            got = dict(zip(LAYER_NAMES, layer_counts()))
+            with open(os.path.join(tmp, "synthetic_results.csv")) as f:
+                report = f.read().splitlines()
+        fields = report[0].split(",")[1:] if report else []
+        check(0.0 <= auc <= 1.0 and len(report) == 1 and len(fields) == 5,
+              f"cli {tag}: test AUC {auc}, report {report}")
+        check(calls[0] == 0 and got["meta_block_fwd_stash"] == steps * LAYERS
+              and got["meta_block_bwd_stash"] == steps * LAYERS
+              and got["meta_block_fwd"] > 0
+              and sum(got.values()) == 2 * steps * LAYERS
+              + got["meta_block_fwd"],
+              f"cli {tag}: launched {got}, the plain layer {calls[0]} times")
+        paths[f"widths_cli_{tag}"] = {n: c for n, c in got.items() if c}
+        print(f"widths cli --embedding_dim {d} --att_head_num {heads} "
+              f"--bank_update lazy [{card}]: {WIDTH_CLI_ROWS} rows, {steps} "
+              f"steps; fit, predict and report in {wall:.4f}s; test AUC "
+              f"{auc}; AUC, per-domain AUCs, loss {fields}; launches "
+              f"{paths[f'widths_cli_{tag}']}, the plain layer never",
+              flush=True)
+    return paths
+
+
+def widths_phase(dev, card, built):
+    """Phase 18: the other widths and head counts.  Each shape's shared
+    memory, layouts and build seconds (``built``, by library); the kernel
+    cases (:func:`width_check_case`, :func:`width_time_case`); the paths.
+    Returns (the kernels' fields by shape, the launches by path)."""
+    t0 = time.perf_counter()
+    fields = {}
+    for d, heads in WIDTH_SHAPES:
+        tag = f"d{d}h{heads}"
+        smem = width_smem(d, heads)
+        secs = {k: round(v, 2) for k, v in built.items()
+                if f"[{d}, {2 * d}, 0, {heads}]" in k
+                or k.endswith(f"[{d}, {heads}]")}
+        print(f"widths {tag}: dynamic shared memory at F=19 {smem}; build "
+              f"seconds {secs}", flush=True)
+        errs = width_check_case(dev, d, heads)
+        times = width_time_case(dev, d, heads)
+        for name in WIDTH_KERNELS:
+            fields.setdefault(name, {})[tag] = dict(
+                max_abs_err=errs[name], **times[name])
+        print(f"widths {tag} [{card}]: " + "; ".join(
+            f"{n} err {errs[n]:.3e} " + " ".join(
+                f"{k} {v:.4f}" if isinstance(v, float) else f"{k} {v}"
+                for k, v in times[n].items())
+            for n in WIDTH_KERNELS), flush=True)
+        gc.collect()
+        torch.cuda.empty_cache()
+    print(f"phase 18a: {time.perf_counter() - t0:.2f}s", flush=True)
+    paths = width_wide_path(dev, card)
+    paths.update(width_variant_paths(dev, card))
+    paths.update(width_cli(dev, card))
+    print(f"phase 18: {time.perf_counter() - t0:.2f}s", flush=True)
+    return fields, paths
+
+
 def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -4516,18 +5250,21 @@ def main() -> int:
 
     from satrans_torch.ops import _build
     t0 = time.perf_counter()
-    built = _build.build()
-    print(f"build: {json.dumps(built)} in {time.perf_counter() - t0:.2f}s",
-          flush=True)
-    for name in _build.sources():
+    targets = _build.default_targets() + width_targets()
+    built = _build.build(targets)
+    print(f"build: {len(built)} libraries, one nvcc a core, "
+          f"{json.dumps({k: round(v, 2) for k, v in built.items()})} in "
+          f"{time.perf_counter() - t0:.2f}s", flush=True)
+    for name, shape in targets:
         body = ""
-        for ln in _build.log(name).splitlines():
+        for ln in _build.log(name, shape).splitlines():
             if "Function properties for" in ln:
                 # the template arguments of the mangled name: the layer
                 # kernels' (d, h1, h2, heads), mode and TILED
                 body = " ".join(re.findall(r"L[ib](\d+)E", ln.split()[-1]))
             elif "registers" in ln or "spill" in ln:
-                print(f"build {name} [{body}]: {ln.strip()}")
+                print(f"build {_build.label(name, shape)} [{body}]: "
+                      f"{ln.strip()}")
 
     tile = tile_body_report()
     k = kernel_phase(dev)
@@ -4548,6 +5285,7 @@ def main() -> int:
     bench = bench_phase(card)
     zoo = zoo_phase(dev, card)
     star_mtl = star_mtl_phase(dev, card)
+    widths, wpaths = widths_phase(dev, card, built)
 
     # launches, each path counted from 0 just before it: serving and the
     # evaluation run K1-fwd only; the dense recompute arm K1-fwd and
@@ -4666,6 +5404,15 @@ def main() -> int:
             name=name, route="cuda", source="satrans_torch/csrc/row_dma.cu",
             replaces=replaces, launches=dma_launched[name],
             launches_by_path={module: dma_launched[name]}, **kdma[name]))
+    # phase 18: each kernel's launches on the paths at the other widths and
+    # head counts, and each layer kernel's fields by shape
+    for k in kernels:
+        by_path = {p: n[k["name"]] for p, n in wpaths.items()
+                   if n.get(k["name"])}
+        k["launches_by_path"].update(by_path)
+        k["launches"] += sum(by_path.values())
+        if k["name"] in widths:
+            k["widths"] = widths[k["name"]]
     check(all(k["launches"] > 0 for k in kernels),
           "a kernel was launched on no path")
     print(json.dumps({"kernels": kernels}))

@@ -72,6 +72,13 @@
 // the batch's order.  Shared memory at F = 19 with 4 table rows: 199 kB
 // (gate), 202 kB (bilinear); 215 kB with 16 bilinear rows.
 //
+// Other shapes (a library a (d, heads)): GateTile's rows are the most,
+// from 96 down, whose buffers fit at every F (96 up to d = 32; 48 at d =
+// 64, 32 with 8 heads); the tables are staged where they fit beside them,
+// else each row's table row is read from device memory (a 64 x 64
+// bilinear map a row at d = 64 with one head: 16 kB); the table sums loop
+// over a segment's elements, one thread an element at a time.
+//
 // The kernels launch on the caller's stream, allocate nothing and do not
 // synchronise; the C entry returns cudaGetLastError().
 
@@ -84,18 +91,14 @@
 
 namespace {
 
-// the body's tile: E = kRows / F examples, a thread a (head, row) pair of
-// its attention, 8 threads a row in the epilogues.  96 rows on 12 warps
-// (the forward tile body's) ran faster than 80 rows on 10 on the H100:
-// the attention passes run a thread a pair, and 12 warps hide more of
-// their latency.
-constexpr int kRows = kWideTileRows;
-constexpr int kThreads = 4 * kRows;
-constexpr int kPass = kThreads / kRowThreads;  // rows an epilogue pass
-static_assert(kRows % kPass == 0, "whole passes");
+// the body's threads: a thread a (head, row) pair of its attention, RT
+// threads a row in the epilogues.  96 rows on 12 warps (the forward tile
+// body's) ran faster than 80 rows on 10 on the H100: the attention passes
+// run a thread a pair, and 12 warps hide more of their latency.  The tile
+// rows are a function of the shape (GateTile).
+constexpr int kThreads = kWideTT;
 constexpr int kLnRows = 2;         // LN_o's (scale, bias)
-constexpr int kMaxSmem = 232448;   // bytes a block may use on sm_90
-constexpr int kMaxDomains = 16;    // the staged tables' rows
+constexpr int kMaxDomains = 16;    // bounds a block's slice
 
 // A table row's width: the gate's d, or the bilinear maps' H * dh * dh.
 template <int DM, int NH, bool BILINEAR>
@@ -121,7 +124,10 @@ struct GateBwdArgs {
 
 // Shared layout of the body, in floats after the header (kTileHeader): row
 // strides (+4 shifts an A operand's rows by four banks, +8 a B operand's
-// by eight) and region offsets; the tables last, sized by D.
+// by eight) and region offsets; the tables last, sized by D, where they
+// fit (else the transforms read them from device memory through L1).
+// The tile rows: the most, from 96 down, whose buffers fit a block at
+// every F (96 at d <= 32, 48 at d = 64 with 1, 2 or 4 heads, 32 with 8).
 template <int DM, int NH, bool BILINEAR>
 struct GateTile {
   static constexpr int T = table_width<DM, NH, BILINEAR>();
@@ -129,23 +135,47 @@ struct GateTile {
   static constexpr int WQ = 3 * DM + 8, WO = DM + 8;
   static constexpr int XS = DM + 4, QS = 3 * DM + 4, NS = 2 * DM + 4,
                        OS = DM + 4, DS = 3 * DM + 4;
+  // the bytes of n tile rows at F fields (0: the most at any F) with D
+  // table rows staged
+  static __host__ __device__ constexpr int layout_bytes(int n, int F,
+                                                        int D) {
+    const int p = F ? tile_examples(F, n) * NH * F * F : most_probs(n, NH);
+    return kTileHeader +
+           4 * (DM * (WQ + WO) + n * (XS + QS + NS + OS + DS + XS) +
+                ((p + 3) & ~3) + n * NH + kTables * D * T);
+  }
+  static __host__ __device__ constexpr int plan() {
+    for (int n = kWideTileRows; n > 32; n -= 16)
+      if (layout_bytes(n, 0, 0) <= kMaxSmem) return n;
+    return 32;
+  }
+  static constexpr int ROWS = plan();
+  static constexpr int RT = row_threads(DM);  // threads on a row
+  static constexpr int kPass = kThreads / RT;  // rows an epilogue pass
+  static constexpr int kPasses = (ROWS + kPass - 1) / kPass;
+  static_assert(layout_bytes(ROWS, 0, 0) <= kMaxSmem,
+                "no layout of K6-bwd's body fits this shape");
   static constexpr int oWqkv = 0, oWout = oWqkv + DM * WQ,
-                       oX = oWout + DM * WO, oQKV = oX + kRows * XS,
-                       oN = oQKV + kRows * QS, oO = oN + kRows * NS,
-                       oD = oO + kRows * OS, oDU = oD + kRows * DS,
-                       oG = oDU + kRows * XS;
+                       oX = oWout + DM * WO, oQKV = oX + ROWS * XS,
+                       oN = oQKV + ROWS * QS, oO = oN + ROWS * NS,
+                       oD = oO + ROWS * OS, oDU = oD + ROWS * DS,
+                       oG = oDU + ROWS * XS;
   // the probabilities of the tile's examples
   static __host__ __device__ int g_floats(int F) {
-    return (tile_examples(F, kRows) * NH * F * F + 3) & ~3;
+    return (tile_examples(F, ROWS) * NH * F * F + 3) & ~3;
   }
   // then the attention dropout's keep bits (a word a head and row), then
   // the tables
   static __host__ __device__ int oBits(int F) { return oG + g_floats(F); }
   static __host__ __device__ int oTab(int F) {
-    return oBits(F) + kRows * NH;
+    return oBits(F) + ROWS * NH;
+  }
+  // whether D table rows are staged at F fields
+  static __host__ __device__ bool staged(int F, int D) {
+    return layout_bytes(ROWS, F, D) <= kMaxSmem;
   }
   static __host__ __device__ int bytes(int F, int D) {
-    return kTileHeader + 4 * (oTab(F) + kTables * D * T);
+    return layout_bytes(ROWS, F, staged(F, D) ? D : 0);
   }
 };
 
@@ -153,15 +183,15 @@ template <int DM, int NH, bool BILINEAR>
 __global__ void __launch_bounds__(kThreads, 1)
     gate_stash_bwd_kernel(const GateBwdArgs a) {
   using L = GateTile<DM, NH, BILINEAR>;
-  constexpr int DH = DM / NH, T = L::T;
-  static_assert(DM == 4 * kRowThreads, "epilogues take rows of 32");
-  static_assert(DM % NH == 0 && DH % 4 == 0, "head width must be 4k");
+  constexpr int DH = DM / NH, T = L::T, ROWS = L::ROWS, RT = L::RT;
+  constexpr int kPass = L::kPass, V = head_vec<DH>();
+  static_assert(DM % NH == 0, "heads must divide d");
 
   extern __shared__ __align__(16) unsigned char smem[];
   const TileHeader hd(smem);
   int *const order = hd.order, *const wdom = hd.wdom, *const key = hd.key;
   const int tid = threadIdx.x;
-  const int F = a.F, E = tile_examples(F, kRows), D = a.D;
+  const int F = a.F, E = tile_examples(F, ROWS), D = a.D;
   float* f0 = reinterpret_cast<float*>(smem + kTileHeader);
   float* sWqkv = f0 + L::oWqkv;
   float* sWout = f0 + L::oWout;
@@ -175,6 +205,11 @@ __global__ void __launch_bounds__(kThreads, 1)
   // the keep bits of the attention dropout, [E][NH][F] words
   unsigned* sBits = reinterpret_cast<unsigned*>(f0 + L::oBits(F));
   float* sTab = f0 + L::oTab(F);  // TQ [D][T], then TK [D][T]
+  const bool staged = L::staged(F, D);
+  // table w's row d: staged, or in device memory
+  const auto trow = [&](int w, int d) -> const float* {
+    return staged ? sTab + (w * D + d) * T : (w ? a.tk : a.tq) + d * T;
+  };
   // the transforms draw no dropout: the heads' salts 0..H-1, the output's H
   const DropSalts salt(0, 0, NH);
   // which of q and k are transformed (the bilinear map: q alone)
@@ -190,7 +225,7 @@ __global__ void __launch_bounds__(kThreads, 1)
   stage_matrix<DM, DM>(sWout, L::WO, a.wout);
 #pragma unroll
   for (int w = 0; w < L::kTables; ++w)
-    if (on[w]) {
+    if (staged && on[w]) {
       const float* tab = w ? a.tk : a.tq;
       for (int i = tid; i < D * T / 4; i += kThreads)
         cp_async16(sTab + w * D * T + 4 * i, tab + 4 * i);
@@ -214,8 +249,8 @@ __global__ void __launch_bounds__(kThreads, 1)
     load_rows<DM>(sX, L::XS, a.x, ex, n, F);
     cp_async_commit();
   };
-  // the row epilogues: 8 threads a row of 32, rows rb + tid / 8
-  const int c = 4 * (tid % kRowThreads);
+  // the row epilogues: RT threads a row, rows rb + tid / RT
+  const int c = 4 * (tid % RT);
 
 #pragma unroll 1
   for (int w0 = lo; w0 < hi; w0 += kWindow) {
@@ -233,7 +268,7 @@ __global__ void __launch_bounds__(kThreads, 1)
       __syncthreads();
 
       // 1. q0|k0|v0 = x @ [Wq|Wk|Wv] -> sQKV
-      block_gemm<DM, 3 * DM, 2>(
+      block_gemm<DM, 3 * DM, fit_nt(3 * DM, 2)>(
           0, mt, [&](int m, int k) { return sX[m * L::XS + k]; },
           [&](int k, int cc) { return sWqkv[k * L::WQ + cc]; },
           [&](int r, int cc, float v0, float v1) {
@@ -247,8 +282,8 @@ __global__ void __launch_bounds__(kThreads, 1)
       //    attention dropout's keep bits, a thread a (head, row), drawn
       //    once for the three passes that apply them
 #pragma unroll
-      for (int rb = 0; rb < kRows; rb += kPass) {
-        const int r = rb + tid / kRowThreads;
+      for (int rb = 0; rb < ROWS; rb += kPass) {
+        const int r = rb + tid / RT;
         if (r >= R) continue;
         const int d = dm[r / F];
 #pragma unroll
@@ -256,8 +291,7 @@ __global__ void __launch_bounds__(kThreads, 1)
           const float* t0 = sQKV + r * L::QS + w * DM;
           float v[4];
           if (on[w])
-            transform_cols<DM, NH, BILINEAR>(
-                t0, sTab + (BILINEAR ? d : w * D + d) * T, c, v);
+            transform_cols<DM, NH, BILINEAR>(t0, trow(w, d), c, v);
           else
             to4(ld4(t0 + c), v);
           st4(sN + r * L::NS + w * DM + c, v);
@@ -288,7 +322,7 @@ __global__ void __launch_bounds__(kThreads, 1)
       //    relu?(zlin) m_z + x, y = LN_o(u); with g the outer LayerNorm's
       //    backward: du into sDU (the residual's share of dx) and dz =
       //    du m_z relu'(zlin) into sD's first DM columns
-      block_gemm<DM, DM, 2>(
+      block_gemm<DM, DM, fit_nt(DM, 2)>(
           0, mt, [&](int m, int k) { return sO[m * L::OS + k]; },
           [&](int k, int cc) { return sWout[k * L::WO + cc]; },
           [&](int r, int cc, float v0, float v1) {
@@ -299,8 +333,8 @@ __global__ void __launch_bounds__(kThreads, 1)
       {
         const float4 so = ldg4(a.lno + c);
 #pragma unroll
-        for (int rb = 0; rb < kRows; rb += kPass) {
-          const int r = rb + tid / kRowThreads;
+        for (int rb = 0; rb < ROWS; rb += kPass) {
+          const int r = rb + tid / RT;
           const bool ok = r < R;
           const int s = r / F, f = r - s * F;
           float z[4] = {0.f, 0.f, 0.f, 0.f}, v[4] = {0.f, 0.f, 0.f, 0.f};
@@ -348,7 +382,7 @@ __global__ void __launch_bounds__(kThreads, 1)
           0, R, [&](int r, int m) { return sO[r * L::OS + m]; },
           [&](int r, int cc) { return sD[r * L::DS + cc]; });
       __syncthreads();
-      block_gemm<DM, DM, 2>(
+      block_gemm<DM, DM, fit_nt(DM, 2)>(
           0, mt, [&](int m, int k) { return sD[m * L::DS + k]; },
           [&](int k, int cc) { return sWout[cc * L::WO + k]; },
           [&](int r, int cc, float v0, float v1) {
@@ -386,27 +420,27 @@ __global__ void __launch_bounds__(kThreads, 1)
       //    += sum_r t0[r][h dh + k] dt[r][h dh + c].  Beside them dt0 in
       //    registers: gate dt TQ[d] 2, bilinear dt_h @ TQ[d, h]^T; written
       //    over dt after a barrier.
-      constexpr int kElems = BILINEAR ? T : 2 * DM;  // a thread each
+      constexpr int kElems = BILINEAR ? T : 2 * DM;
       for_segments(dm, n, F, [&](int d, int r0, int r1) {
-        if (tid >= kElems) return;
-        const int w = BILINEAR ? 0 : tid / DM;
-        if (!on[w]) return;
-        const int col = BILINEAR ? (tid / (DH * DH)) * DH + tid % DH
-                                 : tid % DM;
-        const int row = BILINEAR ? (tid / (DH * DH)) * DH + (tid / DH) % DH
-                                 : col;
-        float s = 0.f;
+        for (int e = tid; e < kElems; e += kThreads) {
+          const int w = BILINEAR ? 0 : e / DM;
+          if (!on[w]) continue;
+          const int col = BILINEAR ? (e / (DH * DH)) * DH + e % DH : e % DM;
+          const int row = BILINEAR ? (e / (DH * DH)) * DH + (e / DH) % DH
+                                   : col;
+          float s = 0.f;
 #pragma unroll 4
-        for (int r = r0; r < r1; ++r)
-          s = fmaf(sQKV[r * L::QS + w * DM + row],
-                   sD[r * L::DS + w * DM + col], s);
-        tab_out[(w * D + d) * T + (BILINEAR ? tid : col)] +=
-            BILINEAR ? s : 2.f * s;
+          for (int r = r0; r < r1; ++r)
+            s = fmaf(sQKV[r * L::QS + w * DM + row],
+                     sD[r * L::DS + w * DM + col], s);
+          tab_out[(w * D + d) * T + (BILINEAR ? e : col)] +=
+              BILINEAR ? s : 2.f * s;
+        }
       });
-      float dt0[kRows / kPass][2][4];
+      float dt0[L::kPasses][2][4];
 #pragma unroll
-      for (int p = 0; p < kRows / kPass; ++p) {
-        const int r = p * kPass + tid / kRowThreads;
+      for (int p = 0; p < L::kPasses; ++p) {
+        const int r = p * kPass + tid / RT;
         if (r >= R) continue;
         const int d = dm[r / F];
 #pragma unroll
@@ -414,25 +448,26 @@ __global__ void __launch_bounds__(kThreads, 1)
           if (!on[w]) continue;
           const float* dt = sD + r * L::DS + w * DM;
           if (BILINEAR) {
-            // dt0[h dh + c0 + j] = sum_l dt[h dh + l] TQ[d][h][c0 + j][l]
-            const int hh = c / DH, c0 = c % DH;
+            // dt0[h dh + c0] = sum_l dt[h dh + l] TQ[d][h][c0][l], each of
+            // the thread's 4 columns in its own head
 #pragma unroll
             for (int j = 0; j < 4; ++j) {
-              const float* m = sTab + d * T + hh * DH * DH + (c0 + j) * DH;
+              const int hh = (c + j) / DH, c0 = (c + j) % DH;
+              const float* m = trow(0, d) + hh * DH * DH + c0 * DH;
               float s = 0.f;
 #pragma unroll
-              for (int l = 0; l < DH; l += 4) {
-                const float4 mv = ld4(m + l), dv = ld4(dt + hh * DH + l);
-                s = fmaf(dv.x, mv.x, s);
-                s = fmaf(dv.y, mv.y, s);
-                s = fmaf(dv.z, mv.z, s);
-                s = fmaf(dv.w, mv.w, s);
+              for (int l = 0; l < DH; l += V) {
+                float mv[V], dv[V];
+                ldv<V>(m + l, mv);
+                ldv<V>(dt + hh * DH + l, dv);
+#pragma unroll
+                for (int k = 0; k < V; ++k) s = fmaf(dv[k], mv[k], s);
               }
               dt0[p][w][j] = s;
             }
           } else {
             const float4 t = ld4(dt + c);
-            const float4 gm = ld4(sTab + (w * D + d) * T + c);
+            const float4 gm = ld4(trow(w, d) + c);
             dt0[p][w][0] = t.x * gm.x * 2.f;
             dt0[p][w][1] = t.y * gm.y * 2.f;
             dt0[p][w][2] = t.z * gm.z * 2.f;
@@ -442,8 +477,8 @@ __global__ void __launch_bounds__(kThreads, 1)
       }
       __syncthreads();
 #pragma unroll
-      for (int p = 0; p < kRows / kPass; ++p) {
-        const int r = p * kPass + tid / kRowThreads;
+      for (int p = 0; p < L::kPasses; ++p) {
+        const int r = p * kPass + tid / RT;
         if (r >= R) continue;
 #pragma unroll
         for (int w = 0; w < 2; ++w)
@@ -455,7 +490,7 @@ __global__ void __launch_bounds__(kThreads, 1)
       dwqkv.add(
           0, R, [&](int r, int m) { return sX[r * L::XS + m]; },
           [&](int r, int cc) { return sD[r * L::DS + cc]; });
-      block_gemm<3 * DM, DM, 2>(
+      block_gemm<3 * DM, DM, fit_nt(DM, 2)>(
           0, mt, [&](int m, int k) { return sD[m * L::DS + k]; },
           [&](int k, int cc) { return sWqkv[cc * L::WQ + k]; },
           [&](int r, int cc, float v0, float v1) {
@@ -489,7 +524,7 @@ __global__ void __launch_bounds__(kThreads, 1)
   for (int o = tid; o < kLnRows * DM; o += kThreads) {
     const int j = o / DM, col = o % DM, cg = col / 4, k = col % 4;
     float s = 0.f;
-    for (int m = cg; m < kThreads; m += kRowThreads)
+    for (int m = cg; m < kThreads; m += RT)
       s += red[(m * kLnRows + j) * 4 + k];
     out[4 * DM * DM + o] = s;
   }
@@ -498,8 +533,9 @@ __global__ void __launch_bounds__(kThreads, 1)
 template <int DM, int NH, bool BILINEAR>
 cudaError_t launch(GateBwdArgs a, float* grads, int blocks,
                    cudaStream_t stream) {
+  using L = GateTile<DM, NH, BILINEAR>;
   auto kernel = gate_stash_bwd_kernel<DM, NH, BILINEAR>;
-  const int smem = GateTile<DM, NH, BILINEAR>::bytes(a.F, a.D);
+  const int smem = L::bytes(a.F, a.D);
   if (smem > kMaxSmem || a.D > kMaxDomains) return cudaErrorInvalidValue;
   static int configured = 0;
   if (smem > configured) {
@@ -508,7 +544,7 @@ cudaError_t launch(GateBwdArgs a, float* grads, int blocks,
     if (err != cudaSuccess) return err;
     configured = smem;
   }
-  a.chunk = block_chunk(a.B, a.F, blocks, kRows);
+  a.chunk = block_chunk(a.B, a.F, blocks, L::ROWS);
   kernel<<<blocks, kThreads, smem, stream>>>(a);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
@@ -518,11 +554,12 @@ cudaError_t launch(GateBwdArgs a, float* grads, int blocks,
   return cudaGetLastError();
 }
 
-// run(integral constants DM, NH, BILINEAR) for an instantiated shape, else
+// run(integral constant BILINEAR) for the shape (d, heads) this library
+// is built for (the defines SATRANS_D and SATRANS_NH, ops/_build.py), else
 // cudaErrorInvalidValue.
 template <class Run>
 cudaError_t with_gate_shape(int d, int heads, int bilinear, Run run) {
-  if (d == 32 && heads == 4)
+  if (d == SATRANS_D && heads == SATRANS_NH)
     return bilinear ? run(std::integral_constant<bool, true>{})
                     : run(std::integral_constant<bool, false>{});
   return cudaErrorInvalidValue;
@@ -530,15 +567,16 @@ cudaError_t with_gate_shape(int d, int heads, int bilinear, Run run) {
 
 }  // namespace
 
-// Shapes (d, heads) instantiated here; ops/gate_block.py keeps the same
-// list in KERNEL_SHAPES.  partial holds blocks x satrans_gate_block_bwd_
-// grad_floats(d, heads, D, bilinear) floats; grads receives the summed
-// gradients in the layout written above.  -1 for a shape not instantiated.
+// The shape (d, heads) this library is built for; ops/gate_block.py keeps
+// the shapes it builds in KERNEL_SHAPES.  partial holds blocks x
+// satrans_gate_block_bwd_grad_floats(d, heads, D, bilinear) floats; grads
+// receives the summed gradients in the layout written above.  -1 for a
+// shape the library is not built for.
 extern "C" int satrans_gate_block_bwd_grad_floats(int d, int heads, int D,
                                                   int bilinear) {
   int n = -1;
   with_gate_shape(d, heads, bilinear, [&](auto bl) {
-    n = grad_floats<32, 4, decltype(bl)::value>(D);
+    n = grad_floats<SATRANS_D, SATRANS_NH, decltype(bl)::value>(D);
     return cudaSuccess;
   });
   return n;
@@ -547,18 +585,20 @@ extern "C" int satrans_gate_block_bwd_grad_floats(int d, int heads, int D,
 extern "C" int satrans_gate_block_bwd_max_domains() { return kMaxDomains; }
 
 // The grid for B examples of F fields on a card of sms SMs: one block an
-// SM, at most one a tile.
+// SM, at most one a tile of the library's shape.
 extern "C" int satrans_gate_block_bwd_blocks(int B, int F, int sms) {
-  return stash_bwd_blocks(B, F, sms, kRows);
+  return stash_bwd_blocks(B, F, sms,
+                          GateTile<SATRANS_D, SATRANS_NH, false>::ROWS);
 }
 
-// The body's dynamic shared memory (bytes) at F fields and D table rows;
-// -1 for a shape not instantiated.
+// The body's dynamic shared memory (bytes) at F fields and D table rows
+// (their tables staged where they fit); -1 for a shape the library is not
+// built for.
 extern "C" int satrans_gate_block_bwd_smem(int d, int heads, int D,
                                            int bilinear, int F) {
   int n = -1;
   with_gate_shape(d, heads, bilinear, [&](auto bl) {
-    n = GateTile<32, 4, decltype(bl)::value>::bytes(F, D);
+    n = GateTile<SATRANS_D, SATRANS_NH, decltype(bl)::value>::bytes(F, D);
     return cudaSuccess;
   });
   return n;
@@ -587,6 +627,7 @@ extern "C" int satrans_gate_block_bwd(
                               group}};
   const cudaStream_t str = static_cast<cudaStream_t>(stream);
   return static_cast<int>(with_gate_shape(d, heads, bilinear, [&](auto bl) {
-    return launch<32, 4, decltype(bl)::value>(a, grads, blocks, str);
+    return launch<SATRANS_D, SATRANS_NH, decltype(bl)::value>(a, grads,
+                                                              blocks, str);
   }));
 }

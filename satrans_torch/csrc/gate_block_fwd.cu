@@ -75,6 +75,12 @@
 // forward's logits round as q0 (2 TQ) (2 TK) . k0 against K6-bwd's
 // (q0 2 TQ) . (k0 2 TK): the same function, within float32 rounding.
 //
+// Other shapes (a library a (d, heads)): two blocks an SM where the body
+// fits half an SM's shared memory (d <= 32), else one with the tables'
+// budget cut to what is left (d = 64); heads narrower than 4 floats move
+// in vectors of their width, the bilinear map's head picked out of its 4
+// columns.
+//
 // The kernel launches on the caller's stream, allocates nothing and does
 // not synchronise; the C entry returns cudaGetLastError().
 
@@ -86,20 +92,13 @@
 
 namespace {
 
-// A 4-byte cp.async copy (through L1; the 16-byte copies bypass it).
-__device__ __forceinline__ void cp_async4(void* dst, const void* src) {
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;" ::"r"(
-                   smem_u32(dst)),
-               "l"(src)
-               : "memory");
-}
-
 // the staged tables' most floats (16 KiB): 64 gate rows of TQ and TK, 16
-// rows of bilinear maps
+// rows of bilinear maps at d = 32 with 4 heads
 constexpr int kTableFloats = 4096;
 
-// the tile's rows, and the blocks an SM the body is sized for
-constexpr int kGateFwdRows = 64, kBlocksPerSM = 2;
+// the tile's rows, and the most shared memory each of two blocks on an SM
+// may have (the SM's 228 KiB, less a KiB each block reserves, halved)
+constexpr int kGateFwdRows = 64, kHalfSmem = 115712;
 
 struct GateFwdArgs {
   const float *x, *wqkv, *tq, *tk, *wout, *lno;
@@ -113,15 +112,19 @@ struct GateFwdArgs {
 // domain row and the domain ids of x's two buffers, then in floats the
 // weights' 3xTF32 planes, two x buffers, q|k|v and the staged tables.
 // Row strides: +4 shifts an A operand's rows by four banks, +8 a B
-// operand's by eight.
+// operand's by eight.  Two blocks an SM where the body with its tables'
+// budget fits half an SM's shared memory (d <= 32); else one, the tables
+// given what the block has left (d = 64: 1,536 floats).
 template <int DM, int NH, bool BILINEAR>
 struct GateFwdTile {
   static constexpr int ROWS = kGateFwdRows;
   static constexpr int T = BILINEAR ? DM * (DM / NH) : DM;  // a table row
   static constexpr int kTables = BILINEAR ? 1 : 2;          // TQ (and TK)
   static constexpr int TT = 4 * ROWS;  // threads: one a (head, row) pair
-  static constexpr int kPass = TT / kRowThreads;  // rows an epilogue pass
-  static_assert(ROWS % 16 == 0 && ROWS % kPass == 0, "whole m-tiles");
+  static constexpr int RT = row_threads(DM);  // threads on a row
+  static constexpr int kPass = TT / RT;  // rows an epilogue pass
+  static constexpr int kPasses = (ROWS + kPass - 1) / kPass;
+  static_assert(ROWS % 16 == 0, "whole m-tiles");
   // the draws, the domain rows, the ids as read
   static constexpr int kHeader =
       (ROWS * static_cast<int>(sizeof(ExampleDraw) + 3 * sizeof(int)) +
@@ -131,13 +134,22 @@ struct GateFwdTile {
   static constexpr int oWqkv = 0, oWqkvS = DM * WQ, oWout = 2 * DM * WQ,
                        oWoutS = oWout + DM * WO, oX = oWout + 2 * DM * WO,
                        oQKV = oX + 2 * ROWS * XS, oTab = oQKV + ROWS * QS;
+  static constexpr int kFixed = kHeader + 4 * oTab;  // bytes but tables
+  static constexpr int kBlocks =
+      kFixed + 4 * kTableFloats <= kHalfSmem ? 2 : 1;
+  static constexpr int kBudget =  // the staged tables' most floats
+      kBlocks == 2 ? kTableFloats
+      : (kMaxSmem - kFixed) / 16 * 4 < kTableFloats
+          ? (kMaxSmem - kFixed) / 16 * 4
+          : kTableFloats;
+  static_assert(kFixed <= kMaxSmem, "the body does not fit a block");
   static __host__ __device__ bool staged(int D) {
-    return kTables * D * T <= kTableFloats;
+    return kTables * D * T <= kBudget;
   }
   static __host__ __device__ int bytes(int D) {
     return kHeader + 4 * (oTab + (staged(D) ? kTables * D * T : 0));
   }
-  static constexpr int kMostBytes = kHeader + 4 * (oTab + kTableFloats);
+  static constexpr int kMostBytes = kHeader + 4 * (oTab + kBudget);
 };
 
 // The query of head hh of row i (q0 at q0row) with its transforms folded
@@ -150,9 +162,16 @@ __device__ __forceinline__ void gate_query(const float* q0row,
                                            const float* tq, const float* tk,
                                            bool on_q, bool on_k, int hh,
                                            float (&q)[DM / NH]) {
-  constexpr int DH = DM / NH;
+  constexpr int DH = DM / NH, V = head_vec<DH>();
   const float scale = 1.f / sqrtf(static_cast<float>(DH));
-  if constexpr (BILINEAR) {
+  if constexpr (BILINEAR && DH < 4) {
+    // the 4 columns around the head's, its own picked out
+    const int c0 = hh * DH, base = c0 & ~3;
+    float v[4];
+    transform_cols<DM, NH, true>(q0row, tq, base, v);
+#pragma unroll
+    for (int j = 0; j < DH; ++j) q[j] = v[c0 - base + j] * scale;
+  } else if constexpr (BILINEAR) {
 #pragma unroll
     for (int c = 0; c < DH; c += 4) {
       float v[4];
@@ -162,38 +181,34 @@ __device__ __forceinline__ void gate_query(const float* q0row,
     }
   } else {
 #pragma unroll
-    for (int c = 0; c < DH; c += 4) {
-      float v[4];
-      to4(ld4(q0row + hh * DH + c), v);
+    for (int c = 0; c < DH; c += V) {
+      float v[V], g[V];
+      ldv<V>(q0row + hh * DH + c, v);
       if (on_q) {
-        const float4 g = ld4(tq + hh * DH + c);
-        v[0] *= 2.f * g.x;
-        v[1] *= 2.f * g.y;
-        v[2] *= 2.f * g.z;
-        v[3] *= 2.f * g.w;
+        ldv<V>(tq + hh * DH + c, g);
+#pragma unroll
+        for (int j = 0; j < V; ++j) v[j] *= 2.f * g[j];
       }
 #pragma unroll
-      for (int j = 0; j < 4; ++j) v[j] *= scale;
+      for (int j = 0; j < V; ++j) v[j] *= scale;
       if (on_k) {
-        const float4 g = ld4(tk + hh * DH + c);
-        v[0] *= 2.f * g.x;
-        v[1] *= 2.f * g.y;
-        v[2] *= 2.f * g.z;
-        v[3] *= 2.f * g.w;
+        ldv<V>(tk + hh * DH + c, g);
+#pragma unroll
+        for (int j = 0; j < V; ++j) v[j] *= 2.f * g[j];
       }
 #pragma unroll
-      for (int j = 0; j < 4; ++j) q[c + j] = v[j];
+      for (int j = 0; j < V; ++j) q[c + j] = v[j];
     }
   }
 }
 
 template <int DM, int NH, bool BILINEAR>
-__global__ void __launch_bounds__(4 * kGateFwdRows, kBlocksPerSM)
+__global__ void __launch_bounds__(4 * kGateFwdRows,
+                                  (GateFwdTile<DM, NH, BILINEAR>::kBlocks))
     gate_block_fwd_kernel(const GateFwdArgs a) {
   using L = GateFwdTile<DM, NH, BILINEAR>;
-  constexpr int T = L::T, DH = DM / NH, ROWS = L::ROWS;
-  static_assert(DM == 4 * kRowThreads, "epilogues take rows of 32");
-  static_assert(DM % NH == 0 && DH % 4 == 0, "head width must be 4k");
+  constexpr int T = L::T, DH = DM / NH, ROWS = L::ROWS, RT = L::RT;
+  static_assert(DM % NH == 0, "heads must divide d");
 
   extern __shared__ __align__(16) unsigned char smem[];
   ExampleDraw* draws = reinterpret_cast<ExampleDraw*>(smem);
@@ -243,14 +258,14 @@ __global__ void __launch_bounds__(4 * kGateFwdRows, kBlocksPerSM)
   load_x(lo, min(E, hi - lo), 0);
   stage_split<DM, 3 * DM>(u0 + L::oWqkv, u0 + L::oWqkvS, L::WQ, a.wqkv);
   stage_split<DM, DM>(u0 + L::oWout, u0 + L::oWoutS, L::WO, a.wout);
-  // y = LN_o(u) of the n examples from e0, u in x's buffer b: 8 threads a
-  // row of 32, whole rows in batch order
+  // y = LN_o(u) of the n examples from e0, u in x's buffer b: RT threads
+  // a row, whole rows in batch order
   const auto layer_norm = [&](int e0, int n, int b) {
     const float* sU = f0 + L::oX + b * ROWS * L::XS;
-    const int c = 4 * (tid % kRowThreads);
+    const int c = 4 * (tid % RT);
 #pragma unroll
-    for (int p = 0; p < ROWS / L::kPass; ++p) {
-      const int r = p * L::kPass + tid / kRowThreads;
+    for (int p = 0; p < L::kPasses; ++p) {
+      const int r = p * L::kPass + tid / RT;
       const bool ok = r < n * F;
       float v[4] = {0.f, 0.f, 0.f, 0.f};
       if (ok) to4(ld4(sU + r * L::XS + c), v);
@@ -273,7 +288,7 @@ __global__ void __launch_bounds__(4 * kGateFwdRows, kBlocksPerSM)
 
     // 1. q0 | k0 | v0 = x @ [Wq | Wk | Wv]; then the slots' draws and
     //    domain rows
-    block_gemm<DM, 3 * DM, 6, DM / 8>(
+    block_gemm<DM, 3 * DM, fit_nt(3 * DM, 6), DM / 8>(
         0, mt, [&](int m, int k) { return sX[m * L::XS + k]; }, wqkv,
         [&](int r, int cc, float v0, float v1) {
           *reinterpret_cast<float2*>(sQKV + r * L::QS + cc) =
@@ -308,7 +323,7 @@ __global__ void __launch_bounds__(4 * kGateFwdRows, kBlocksPerSM)
 
     // 3. u = relu?(o @ Wout) m_z + x over x, for the LayerNorm beside the
     //    next tile's x Wqkv
-    block_gemm<DM, DM, 2, DM / 8>(
+    block_gemm<DM, DM, fit_nt(DM, 2), DM / 8>(
         0, mt, [&](int m, int k) { return sQKV[m * L::QS + k]; }, wout,
         [&](int r, int cc, float v0, float v1) {
           if (r >= R) return;
@@ -349,7 +364,7 @@ cudaError_t configure() {
   return err;
 }
 
-// Launches the body on at most kBlocksPerSM blocks an SM of sms, whole
+// Launches the body on at most L::kBlocks blocks an SM of sms, whole
 // tiles a block, as evenly as the grid allows.
 template <int DM, int NH, bool BILINEAR>
 cudaError_t launch(GateFwdArgs a, int sms, cudaStream_t stream) {
@@ -357,7 +372,7 @@ cudaError_t launch(GateFwdArgs a, int sms, cudaStream_t stream) {
   const cudaError_t err = configure<DM, NH, BILINEAR>();
   if (err != cudaSuccess) return err;
   const int E = tile_examples(a.F, L::ROWS), tiles = (a.B + E - 1) / E;
-  const int most = max(1, sms) * kBlocksPerSM;
+  const int most = max(1, sms) * L::kBlocks;
   const int per = (tiles + most - 1) / most;  // tiles a block
   a.chunk = per * E;
   gate_block_fwd_kernel<DM, NH, BILINEAR>
@@ -365,19 +380,20 @@ cudaError_t launch(GateFwdArgs a, int sms, cudaStream_t stream) {
   return cudaGetLastError();
 }
 
-// run(integral constant BILINEAR) for an instantiated shape, else
+// run(integral constant BILINEAR) for the shape (d, heads) this library
+// is built for (the defines SATRANS_D and SATRANS_NH, ops/_build.py), else
 // cudaErrorInvalidValue.
 template <class Run>
 cudaError_t with_gate_fwd(int d, int heads, int bilinear, Run run) {
-  if (d != 32 || heads != 4) return cudaErrorInvalidValue;
+  if (d != SATRANS_D || heads != SATRANS_NH) return cudaErrorInvalidValue;
   return bilinear ? run(std::integral_constant<bool, true>{})
                   : run(std::integral_constant<bool, false>{});
 }
 
 }  // namespace
 
-// Shapes (d, heads) instantiated here; ops/gate_block.py keeps the same
-// list in KERNEL_SHAPES.  bilinear selects the variant (0: gate), with the
+// The shape (d, heads) this library is built for; ops/gate_block.py keeps
+// the shapes it builds in KERNEL_SHAPES.  bilinear selects the variant (0: gate), with the
 // tables described above; sms is the card's SM count (fewer give each
 // block a longer range); drop_on selects the dropout, with the operands of
 // struct Dropout (csrc/dropout.cuh).  Returns a cudaError_t.
@@ -399,17 +415,18 @@ extern "C" int satrans_gate_block_fwd(
   const cudaStream_t str = static_cast<cudaStream_t>(stream);
   return static_cast<int>(with_gate_fwd(d, heads, bilinear, [&](auto bl) {
     if (B == 0) return cudaSuccess;
-    return launch<32, 4, decltype(bl)::value>(a, sms, str);
+    return launch<SATRANS_D, SATRANS_NH, decltype(bl)::value>(a, sms, str);
   }));
 }
 
 // The body's dynamic shared memory (bytes) at D table rows, and the
-// blocks an SM the card runs it at; -1 for a shape not instantiated.
+// blocks an SM the card runs it at; -1 for a shape the library is not
+// built for.
 extern "C" int satrans_gate_block_fwd_smem(int d, int heads, int D,
                                            int bilinear) {
   int n = -1;
   with_gate_fwd(d, heads, bilinear, [&](auto bl) {
-    n = GateFwdTile<32, 4, decltype(bl)::value>::bytes(D);
+    n = GateFwdTile<SATRANS_D, SATRANS_NH, decltype(bl)::value>::bytes(D);
     return cudaSuccess;
   });
   return n;
@@ -420,11 +437,12 @@ extern "C" int satrans_gate_block_fwd_blocks_per_sm(int d, int heads, int D,
   int n = -1;
   with_gate_fwd(d, heads, bilinear, [&](auto bl) {
     constexpr bool BL = decltype(bl)::value;
-    using L = GateFwdTile<32, 4, BL>;
-    const cudaError_t err = configure<32, 4, BL>();
+    using L = GateFwdTile<SATRANS_D, SATRANS_NH, BL>;
+    const cudaError_t err = configure<SATRANS_D, SATRANS_NH, BL>();
     if (err != cudaSuccess) return err;
     return cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        &n, gate_block_fwd_kernel<32, 4, BL>, L::TT, L::bytes(D));
+        &n, gate_block_fwd_kernel<SATRANS_D, SATRANS_NH, BL>, L::TT,
+        L::bytes(D));
   });
   return n;
 }

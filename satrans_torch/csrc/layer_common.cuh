@@ -39,17 +39,23 @@ struct Shape {
   static constexpr int HMAX = HID2 > HID ? HID2 : HID;
 };
 
-// run(Shape<...>{}) for an instantiated (d, h1, h2, heads), else
-// cudaErrorInvalidValue.  ops/meta_block.py keeps the same list in
-// KERNEL_SHAPES.
+// run(Shape<...>{}) for the shape this library is built for, else
+// cudaErrorInvalidValue.  A library of the layer bodies holds one shape:
+// ops/_build.py compiles each shape that is launched, at its first launch,
+// with the shape as the defines SATRANS_D, SATRANS_H, SATRANS_H2 and
+// SATRANS_NH (K6's sources take SATRANS_D and SATRANS_NH alone); ops/
+// meta_block.py keeps the shapes it builds in KERNEL_SHAPES.
+#ifdef SATRANS_H
+using BuiltShape = Shape<SATRANS_D, SATRANS_H, SATRANS_H2, SATRANS_NH>;
+
 template <typename Run>
 cudaError_t with_shape(int d, int h, int h2, int heads, Run run) {
-  if (d == 32 && h == 64 && heads == 4) {
-    if (h2 == 0) return run(Shape<32, 64, 0, 4>{});
-    if (h2 == 64) return run(Shape<32, 64, 64, 4>{});
-  }
+  if (d == SATRANS_D && h == SATRANS_H && h2 == SATRANS_H2 &&
+      heads == SATRANS_NH)
+    return run(BuiltShape{});
   return cudaErrorInvalidValue;
 }
+#endif
 
 // The middle matrices' pointers (Q's and K's, and their transposes in the
 // backward) are all set for a 3-matrix MetaNet (h2 > 0), all null else.
@@ -195,7 +201,18 @@ __device__ __forceinline__ void transform_cols(const float* t0,
                                                const float* trow, int c,
                                                float (&v)[4]) {
   constexpr int DH = DM / NH;
-  if constexpr (BILINEAR) {
+  if constexpr (BILINEAR && DH < 4) {
+    // heads narrower than the 4 columns: each column its own head's map
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int hh = (c + j) / DH, cj = (c + j) % DH;
+      const float* m = trow + hh * DH * DH + cj;
+      float s = 0.f;
+#pragma unroll
+      for (int k = 0; k < DH; ++k) s = fmaf(t0[hh * DH + k], m[k * DH], s);
+      v[j] = s;
+    }
+  } else if constexpr (BILINEAR) {
     // q[h dh + c0 + j] = sum_k q0[h dh + k] T[h][k][c0 + j]
     const int hh = c / DH, c0 = c % DH;
     const float* m = trow + hh * DH * DH + c0;
@@ -231,17 +248,52 @@ __global__ void sum_partials(const float* __restrict__ partial,
   }
 }
 
+// The floats a head's values move in at a time: 4, or the head's width
+// where it is 1 or 2 (d = 8 with 8 or 4 heads, d = 16 with 8).  A head's
+// values start at a multiple of its width, so the vectors are aligned.
+template <int DH>
+__host__ __device__ constexpr int head_vec() {
+  return DH % 4 == 0 ? 4 : DH;
+}
+
+// v[0..V) = p[0..V) and back, V = 1, 2 or 4.
+template <int V>
+__device__ __forceinline__ void ldv(const float* p, float* v) {
+  if constexpr (V == 4) {
+    const float4 t = ld4(p);
+    v[0] = t.x;
+    v[1] = t.y;
+    v[2] = t.z;
+    v[3] = t.w;
+  } else if constexpr (V == 2) {
+    const float2 t = *reinterpret_cast<const float2*>(p);
+    v[0] = t.x;
+    v[1] = t.y;
+  } else {
+    v[0] = *p;
+  }
+}
+template <int V>
+__device__ __forceinline__ void stv(float* p, const float* v) {
+  if constexpr (V == 4)
+    *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);
+  else if constexpr (V == 2)
+    *reinterpret_cast<float2*>(p) = make_float2(v[0], v[1]);
+  else
+    *p = v[0];
+}
+
 // q[c] = scale * row[c] for the DH values of a head.
 template <int DH>
 __device__ __forceinline__ void scaled_head(const float* row, float scale,
                                             float (&q)[DH]) {
+  constexpr int V = head_vec<DH>();
 #pragma unroll
-  for (int c = 0; c < DH; c += 4) {
-    const float4 v = ld4(row + c);
-    q[c] = v.x * scale;
-    q[c + 1] = v.y * scale;
-    q[c + 2] = v.z * scale;
-    q[c + 3] = v.w * scale;
+  for (int c = 0; c < DH; c += V) {
+    float v[V];
+    ldv<V>(row + c, v);
+#pragma unroll
+    for (int j = 0; j < V; ++j) q[c + j] = v[j] * scale;
   }
 }
 
@@ -249,13 +301,43 @@ __device__ __forceinline__ void scaled_head(const float* row, float scale,
 template <int DH>
 __device__ __forceinline__ void axpy_head(float p, const float* v,
                                           float (&acc)[DH]) {
+  constexpr int V = head_vec<DH>();
 #pragma unroll
-  for (int c = 0; c < DH; c += 4) {
-    const float4 t = ld4(v + c);
-    acc[c] = fmaf(p, t.x, acc[c]);
-    acc[c + 1] = fmaf(p, t.y, acc[c + 1]);
-    acc[c + 2] = fmaf(p, t.z, acc[c + 2]);
-    acc[c + 3] = fmaf(p, t.w, acc[c + 3]);
+  for (int c = 0; c < DH; c += V) {
+    float t[V];
+    ldv<V>(v + c, t);
+#pragma unroll
+    for (int j = 0; j < V; ++j) acc[c + j] = fmaf(p, t[j], acc[c + j]);
+  }
+}
+
+// sum over c of a[c] b[c], in order, for the DH values of a head (b in
+// memory)
+template <int DH>
+__device__ __forceinline__ float dot_head(const float (&a)[DH],
+                                          const float* b, float s = 0.f) {
+  constexpr int V = head_vec<DH>();
+#pragma unroll
+  for (int c = 0; c < DH; c += V) {
+    float t[V];
+    ldv<V>(b + c, t);
+#pragma unroll
+    for (int j = 0; j < V; ++j) s = fmaf(a[c + j], t[j], s);
+  }
+  return s;
+}
+
+// The DH values v[c] * scale of a head to memory.
+template <int DH>
+__device__ __forceinline__ void store_head(float* p, const float (&v)[DH],
+                                           float scale) {
+  constexpr int V = head_vec<DH>();
+#pragma unroll
+  for (int c = 0; c < DH; c += V) {
+    float w[V];
+#pragma unroll
+    for (int j = 0; j < V; ++j) w[j] = v[c + j] * scale;
+    stv<V>(p + c, w);
   }
 }
 
@@ -285,16 +367,7 @@ __device__ __forceinline__ float head_softmax_q(const float (&q)[DH],
 #pragma unroll
       for (int u = 0; u < G; ++u) {
         const int j = g + u;
-        const float* kj = k + min(j, F - 1) * ks;
-        float a = 0.f;
-#pragma unroll
-        for (int c = 0; c < DH; c += 4) {
-          const float4 v = ld4(kj + c);
-          a = fmaf(q[c], v.x, a);
-          a = fmaf(q[c + 1], v.y, a);
-          a = fmaf(q[c + 2], v.z, a);
-          a = fmaf(q[c + 3], v.w, a);
-        }
+        float a = dot_head<DH>(q, k + min(j, F - 1) * ks);
         a = fminf(fmaxf(a, -kLogitClamp), kLogitClamp);
         s[j] = j < F ? a : -INFINITY;
         m = fmaxf(m, s[j]);
@@ -408,12 +481,7 @@ __device__ __forceinline__ void attention_fwd_pair(
         axpy_head<DH>(pj, qkv + j * qs + 2 * DM + hh * DH, o);
       });
   const float inv = 1.f / sum;
-#pragma unroll
-  for (int c = 0; c < DH; c += 4) {
-    const float v[4] = {o[c] * inv, o[c + 1] * inv, o[c + 2] * inv,
-                        o[c + 3] * inv};
-    st4(out + i * os + hh * DH + c, v);
-  }
+  store_head<DH>(out + i * os + hh * DH, o, inv);
   if (STASH_S) {
     float* prow = ps + (hh * F + i) * F;
 #pragma unroll
@@ -461,11 +529,7 @@ __device__ __forceinline__ void attention_recompute_pair(
       axpy_head<DH>(pj, v + j * vs + hh * DH, o);
     }
   }
-#pragma unroll
-  for (int c = 0; c < DH; c += 4) {
-    const float w[4] = {o[c], o[c + 1], o[c + 2], o[c + 3]};
-    st4(out + i * os + hh * DH + c, w);
-  }
+  store_head<DH>(out + i * os + hh * DH, o, 1.f);
 }
 
 // The three passes of the attention backward of one example, each for
@@ -491,11 +555,7 @@ __device__ __forceinline__ void attention_bwd_dv(
     if (m.on()) pij *= m(i, j);
     axpy_head<DH>(pij, dout + i * dos + hh * DH, dv);
   }
-#pragma unroll
-  for (int c = 0; c < DH; c += 4) {
-    const float w[4] = {dv[c], dv[c + 1], dv[c + 2], dv[c + 3]};
-    st4(dqkv + j * ds + 2 * DM + hh * DH + c, w);
-  }
+  store_head<DH>(dqkv + j * ds + 2 * DM + hh * DH, dv, 1.f);
 }
 
 // Pass 2, per (head hh, query row i): dS_ij = P_ij (dP_ij - sum_j P_ij
@@ -516,16 +576,7 @@ __device__ __forceinline__ void attention_bwd_dq(
 #pragma unroll
   for (int j = 0; j < kMaxFields; ++j) {
     if (j < F) {
-      const float* vj = v + j * vs + hh * DH;
-      float s = 0.f;
-#pragma unroll
-      for (int c = 0; c < DH; c += 4) {
-        const float4 w = ld4(vj + c);
-        s = fmaf(doi[c], w.x, s);
-        s = fmaf(doi[c + 1], w.y, s);
-        s = fmaf(doi[c + 2], w.z, s);
-        s = fmaf(doi[c + 3], w.w, s);
-      }
+      float s = dot_head<DH>(doi, v + j * vs + hh * DH);
       if (m.on()) s *= m(i, j);
       dp[j] = s;
       rs = fmaf(prow[j], s, rs);
@@ -542,12 +593,7 @@ __device__ __forceinline__ void attention_bwd_dq(
       axpy_head<DH>(dsij, qk + j * ns + DM + hh * DH, dq);
     }
   }
-#pragma unroll
-  for (int c = 0; c < DH; c += 4) {
-    const float w[4] = {dq[c] * scale, dq[c + 1] * scale, dq[c + 2] * scale,
-                        dq[c + 3] * scale};
-    st4(dqkv + i * ds + hh * DH + c, w);
-  }
+  store_head<DH>(dqkv + i * ds + hh * DH, dq, scale);
 }
 
 // Pass 3, per (head hh, key row j): dk_j = scale sum_i dS_ij q_i.
@@ -564,12 +610,7 @@ __device__ __forceinline__ void attention_bwd_dk(const float* P,
 #pragma unroll 4
   for (int i = 0; i < F; ++i)
     axpy_head<DH>(P[(hh * F + i) * F + j], qk + i * ns + hh * DH, dk);
-#pragma unroll
-  for (int c = 0; c < DH; c += 4) {
-    const float w[4] = {dk[c] * scale, dk[c + 1] * scale, dk[c + 2] * scale,
-                        dk[c + 3] * scale};
-    st4(dqkv + j * ds + DM + hh * DH + c, w);
-  }
+  store_head<DH>(dqkv + j * ds + DM + hh * DH, dk, scale);
 }
 
 }  // namespace

@@ -45,7 +45,9 @@
 // slice of its own of the partial buffer, laid out as the final gradient
 // buffer below, and sum_partials (csrc/layer_common.cuh) adds the slices
 // in block order: deterministic for a grid, no atomics.  The tile body
-// keeps a block's per-domain sums for at most kMaxDomains rows.
+// keeps a block's per-domain sums for at most max_domains rows: 16, or
+// fewer where the rows' MetaNet blocks would pass 2^18 floats (1 MiB) a
+// block (8 at d = 64 with a 2-matrix MetaNet, 4 with a 3-matrix one).
 //
 // The kernels launch on the caller's stream, allocate nothing and do not
 // synchronise; the C entries return cudaGetLastError().
@@ -58,9 +60,9 @@
 
 namespace {
 
-constexpr int kLnRows = 6;                   // LN_q, LN_k, LN_o x (scale, bias)
-constexpr int kMaxSmem = 232448;             // bytes a block may use on sm_90
-constexpr int kMaxDomains = 16;              // bounds a block's slice
+constexpr int kLnRows = 6;      // LN_q, LN_k, LN_o x (scale, bias)
+constexpr int kMaxDomains = 16;  // bounds a block's slice
+constexpr int kSliceMeta = 1 << 18;  // and its MetaNet blocks' floats
 
 // The sizes of one domain's MetaNet blocks: W1 [d][h1], the middle Wm
 // [h1][h2] (none for a 2-matrix MetaNet) and W2 [HL][d].
@@ -74,6 +76,13 @@ struct Strides {
   static constexpr int kMeta = kW1 + kWm + kW2;  // one MetaNet, one domain
 };
 
+// The most meta rows K1's backward takes at shape SH.
+template <class SH>
+constexpr int max_domains() {
+  const int fit = kSliceMeta / (2 * Strides<SH>::kMeta);
+  return fit < kMaxDomains ? fit : kMaxDomains;
+}
+
 template <class SH>
 __host__ __device__ int grad_floats(int D) {  // a block's partial sums
   return Strides<SH>::kDense + kLnRows * SH::DM +
@@ -84,7 +93,7 @@ __host__ __device__ int grad_floats(int D) {  // a block's partial sums
 
 #include "meta_stash_bwd.cuh"
 
-// Shapes (d, h, h2, heads) instantiated here (with_shape, csrc/
+// The shape (d, h, h2, heads) this library is built for (with_shape, csrc/
 // layer_common.cuh; h2 = 0 a 2-matrix MetaNet, whose middle pointers must
 // be null).  partial holds blocks x satrans_meta_block_bwd_grad_floats(d,
 // h, h2, heads, D) floats; grads receives the summed gradients in the
@@ -99,13 +108,23 @@ extern "C" int satrans_meta_block_bwd_grad_floats(int d, int h, int h2,
   return n;
 }
 
-extern "C" int satrans_meta_block_bwd_max_domains() { return kMaxDomains; }
+// The most meta rows K1's backwards take at the library's shape.
+extern "C" int satrans_meta_block_bwd_max_domains() {
+  return max_domains<BuiltShape>();
+}
 
 // The blocks K1's backwards use for B examples of F fields on a card of
-// sms SMs (one an SM, at most one a tile): the grid of
-// satrans_meta_block_bwd and the partial buffer's block count.
+// sms SMs (one an SM, at most one a tile of the library's shape): the grid
+// of satrans_meta_block_bwd and the partial buffer's block count.
 extern "C" int satrans_meta_block_bwd_stash_blocks(int B, int F, int sms) {
-  return stash_bwd_blocks(B, F, sms);
+  return stash_bwd_blocks(B, F, sms, BwdTile<BuiltShape>::ROWS);
+}
+
+// The backward tile body's rows and whether it stages the MetaNet block
+// in shared memory (1) or reads it from device memory (0), at the
+// library's shape: rows * 2 + staged.
+extern "C" int satrans_meta_block_bwd_plan() {
+  return 2 * BwdTile<BuiltShape>::ROWS + BwdTile<BuiltShape>::kStageMeta;
 }
 
 // The dynamic shared memory (bytes) of the backward tile body at F fields,

@@ -81,7 +81,7 @@
 
 #include "meta_stash_fwd.cuh"
 
-// Shapes (d, h, h2, heads) instantiated here (with_shape, csrc/
+// The shape (d, h, h2, heads) this library is built for (with_shape, csrc/
 // layer_common.cuh; h2 = 0 is a 2-matrix MetaNet, whose middle pointers
 // wmq and wmk are null; else the [D, h, h2] middle matrices).  stash
 // selects the mode of the tile body (enum StashMode): K1-fwd with every
@@ -133,7 +133,7 @@ extern "C" int satrans_meta_block_fwd(
 // The dynamic shared memory (bytes) of the forward tile body in mode stash
 // (K1-fwd, K1-stash, K1-stash light or K1-scores; with TILED K7-fwd and
 // K7-stash take K1-fwd's and K1-stash's) at F fields, with one MetaNet
-// region; -1 for a shape not instantiated.
+// region; -1 for a shape the library is not built for.
 extern "C" int satrans_meta_block_fwd_stash_smem(int d, int h, int h2,
                                                  int heads, int F,
                                                  int stash) {
@@ -192,4 +192,14 @@ extern "C" int satrans_tiled_meta_fwd(
                ? launch_stash_fwd<SH, kNoStash, true>(a, str, blocks)
                : launch_stash_fwd<SH, kFullStash, true>(a, str, blocks);
   }));
+}
+
+// The forward tile body's layout at the library's shape: its tile rows,
+// then whether Wqkv and Wout are staged split (1) or float32 (0), whether
+// the MetaNet block is staged (1) or read from device memory (0), and x's
+// buffers, as rows * 1000 + split * 100 + staged * 10 + buffers.
+extern "C" int satrans_meta_block_fwd_plan() {
+  using L = FwdTile<BuiltShape>;
+  return L::ROWS * 1000 + L::kSplitDense * 100 + L::kStageMeta * 10 +
+         L::kXBufs;
 }

@@ -75,6 +75,14 @@
 // whose second hidden layer reuses the uq|uk buffer once the LayerNorm
 // backward has read it.
 //
+// Other shapes.  BwdTile picks the rows (80 down to 32) and whether the
+// MetaNet block is staged, the first that fits at every F <= 20 (80 rows
+// staged up to d = 32 with 4 heads, 64 at d = 32 with 8; at d = 64 32 rows
+// with the MetaNet read from device memory); WTiles pads a weight of 8
+// rows (d = 8) to its 16-row tile.  The probabilities come in by a bulk
+// copy an example where an example's NH F^2 floats keep its copies
+// 16-byte aligned, else by 4-byte cp.async copies of all threads.
+//
 // K7 (TILED).  The slots come sorted: the segments of a tile are its runs
 // of one dispatch tile (slot / tile_b), and nothing is sorted.  The blocks
 // split the occupied slots (the first count[t] of tile t, occupied_window
@@ -122,10 +130,15 @@ struct StashBwdArgs {
   int* bnd_tile;
 };
 
-// Shared layout of the backward tile body, in floats after the header
-// (kTileHeader), as FwdTile's.
+// The shared layout of the backward tile body, in floats after the header
+// (kTileHeader), as FwdTile's: its tile rows and whether a domain's MetaNet
+// block is staged in shared memory once a segment (else each product reads
+// it through L1 from device memory): the first, from 80 rows down and
+// staged first, whose buffers fit a block at every F (80 rows staged at
+// the AliCCP sota shape; 32 rows reading the MetaNet from device memory
+// at d = 64, whose float32 MetaNet block alone takes 71.7 kB).
 template <class SH>
-struct BwdTile {
+struct BwdParts {
   static constexpr int DM = SH::DM, HID = SH::HID, HID2 = SH::HID2,
                        HL = SH::HL, NH = SH::NH;
   static constexpr int WQ = 3 * DM + 8, WO = DM + 8, W1S = HID + 8,
@@ -133,25 +146,62 @@ struct BwdTile {
   static constexpr int XS = DM + 4, QS = 3 * DM + 4, US = 2 * DM + 4,
                        NS = 2 * DM + 4, OS = DM + 4, DS = 3 * DM + 4,
                        HS = SH::HMAX + 4;
+  static __host__ __device__ constexpr int meta(bool staged) {
+    return staged ? DM * W1S + (HID2 ? HID * WMS : 0) + HL * W2S : 0;
+  }
+  // x, qkv, uq|uk, q|k, o, dq|dk|dv and du of the tile's rows
+  static __host__ __device__ constexpr int rows(int n) {
+    return n * (XS + QS + US + NS + OS + DS + XS);
+  }
+  // the probabilities (and in the MetaNet phases the hidden layer h1); at
+  // F = 0 the most at any F
+  static __host__ __device__ constexpr int g_floats(int n, int F) {
+    const int p = F ? tile_examples(F, n) * NH * F * F : most_probs(n, NH);
+    const int h = n * HS;
+    return ((p > h ? p : h) + 3) & ~3;
+  }
+  static __host__ __device__ constexpr int bytes(int n, bool staged, int F) {
+    return kTileHeader +
+           4 * (DM * (WQ + WO) + meta(staged) + rows(n) + g_floats(n, F));
+  }
+  // the rows and the staging of the first layout that fits (rows * 2 +
+  // staged, so that one int carries both)
+  static __host__ __device__ constexpr int plan() {
+    for (int staged = 1; staged >= 0; --staged)
+      for (int n = 80; n >= 32; n -= 16)
+        if (bytes(n, staged, 0) <= kMaxSmem) return 2 * n + staged;
+    return 2 * 32;
+  }
+};
+
+template <class SH>
+struct BwdTile : BwdParts<SH> {
+  using P = BwdParts<SH>;
+  using P::DM, P::HID, P::HID2, P::HL, P::NH, P::WQ, P::WO, P::W1S, P::WMS,
+      P::W2S, P::XS, P::QS, P::US, P::NS, P::OS, P::DS, P::HS;
   static_assert(HS <= US || HID2 == 0, "h2 must fit the uq|uk buffer");
   static_assert(HS <= DS, "the recomputed h2 must fit the dq|dk|dv "
                           "buffer");
+  static constexpr int ROWS = P::plan() / 2;
+  static constexpr bool kStageMeta = P::plan() % 2;
+  static constexpr int kRowsAPass = rows_a_pass(kTT, DM);  // of epilogues
+  static_assert(ROWS % 16 == 0 && ROWS >= kMaxFields, "whole m-tiles");
+  static_assert(P::bytes(ROWS, kStageMeta, 0) <= kMaxSmem,
+                "no layout of the backward tile body fits this shape");
   static constexpr int kHeader = kTileHeader;  // bytes
   static constexpr int oWqkv = 0, oWout = oWqkv + DM * WQ,
                        oW1 = oWout + DM * WO, oWm = oW1 + DM * W1S,
                        oW2 = oWm + HID * (HID2 ? WMS : 0),
-                       oX = oW2 + HL * W2S, oQKV = oX + kTileRows * XS,
-                       oU = oQKV + kTileRows * QS, oN = oU + kTileRows * US,
-                       oO = oN + kTileRows * NS, oD = oO + kTileRows * OS,
-                       oDU = oD + kTileRows * DS,
-                       oG = oDU + kTileRows * XS;
-  // the probabilities (and in the MetaNet phases the hidden layer h1)
-  static __host__ __device__ int g_floats(int F) {
-    const int p = tile_examples(F) * NH * F * F, h = kTileRows * HS;
-    return ((p > h ? p : h) + 3) & ~3;
-  }
+                       oX = oW1 + P::meta(kStageMeta),
+                       oQKV = oX + ROWS * XS, oU = oQKV + ROWS * QS,
+                       oN = oU + ROWS * US, oO = oN + ROWS * NS,
+                       oD = oO + ROWS * OS, oDU = oD + ROWS * DS,
+                       oG = oDU + ROWS * XS;
+  // the LayerNorm sums' reduction at the end reuses the tile's buffers
+  static_assert(P::rows(ROWS) - ROWS * XS + ROWS * HS >=
+                    kTT * kLnRows * 4, "room for the LayerNorm sums");
   static __host__ __device__ int bytes(int F) {
-    return kHeader + 4 * (oG + g_floats(F));
+    return P::bytes(ROWS, kStageMeta, F);
   }
 };
 
@@ -172,7 +222,7 @@ __global__ void __launch_bounds__(kTT, 1)
   using S = Strides<SH>;
   constexpr bool FULL = MODE == kFullStash;
   constexpr bool RECOMPUTE = MODE == kNoStash;  // K1-bwd, K7-bwd
-  static_assert(DM == 4 * kRowThreads, "epilogues take rows of 32");
+  constexpr int RT = row_threads(DM);  // threads on a row in epilogues
   static_assert(MODE != kLightStash || !TILED, "K7 has no light stash");
 
   extern __shared__ __align__(16) unsigned char smem[];
@@ -185,6 +235,28 @@ __global__ void __launch_bounds__(kTT, 1)
   float* sW1 = f0 + L::oW1;
   float* sWm = f0 + L::oWm;
   float* sW2 = f0 + L::oW2;
+  // the MetaNet block in use, element (k, c) of W1, Wm and W2: staged in
+  // shared memory, or where the plan stages none, in device memory (gw1,
+  // gwm, gw2)
+  const float *gw1 = nullptr, *gwm = nullptr, *gw2 = nullptr;
+  const auto W1 = [&](int k, int cc) {
+    if constexpr (L::kStageMeta)
+      return sW1[k * L::W1S + cc];
+    else
+      return __ldg(gw1 + k * HID + cc);
+  };
+  const auto Wm = [&](int k, int cc) {
+    if constexpr (L::kStageMeta)
+      return sWm[k * L::WMS + cc];
+    else
+      return __ldg(gwm + k * HID2 + cc);
+  };
+  const auto W2 = [&](int k, int cc) {
+    if constexpr (L::kStageMeta)
+      return sW2[k * L::W2S + cc];
+    else
+      return __ldg(gw2 + k * DM + cc);
+  };
   float* sX = f0 + L::oX;
   float* sQKV = f0 + L::oQKV;
   float* sU = f0 + L::oU;    // uq|uk; 3-matrix: h2, then dh2
@@ -195,7 +267,7 @@ __global__ void __launch_bounds__(kTT, 1)
   float* sG = f0 + L::oG;    // P, then dS; h1, then dh1
 
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int F = a.F, E = tile_examples(F), D = a.D;
+  const int F = a.F, E = tile_examples(F, L::ROWS), D = a.D;
   const DropSalts salt(a.apply_q, a.apply_k, NH);
   const bool one_table = a.mw.w1q == a.mw.w1k && a.mw.w2q == a.mw.w2k &&
                          a.mw.wmq == a.mw.wmk;
@@ -264,8 +336,12 @@ __global__ void __launch_bounds__(kTT, 1)
   int flushed[2] = {-1, -1};  // K7: the tile each MetaNet's sums went to
   // the loads of a tile's residuals: group 0 x, 1 o, 2 qkv, uq and uk by
   // cp.async (one group each), and with them the probabilities, one bulk
-  // copy an example by warp 0's lanes on the barrier; the recompute modes
-  // load x alone
+  // copy an example by warp 0's lanes on the barrier where an example's
+  // NH F^2 floats keep the copies 16-byte aligned (4 heads, or F even),
+  // else with the rest of group 2, a float a copy; the recompute modes load
+  // x alone
+  const int pf = NH * F * F;
+  const bool bulk = FULL && pf % 4 == 0;
   const auto load = [&](int group, const int* ex, int n) {
     if (group == 0) {
       load_rows<DM>(sX, L::XS, a.x, ex, n, F);
@@ -276,13 +352,18 @@ __global__ void __launch_bounds__(kTT, 1)
       load_rows<3 * DM>(sQKV, L::QS, a.qkv, ex, n, F);
       load_rows<DM>(sU, L::US, a.uq, ex, n, F);
       load_rows<DM>(sU + DM, L::US, a.uk, ex, n, F);
-      if (FULL && warp == 0) {
-        if (lane == 0) mbar_expect_tx(bar, n * NH * F * F * 4u);
+      if (bulk && warp == 0) {
+        if (lane == 0) mbar_expect_tx(bar, n * pf * 4u);
         __syncwarp();
         for (int s = lane; s < n; s += 32)
-          bulk_load(sG + s * NH * F * F,
-                    a.s + static_cast<size_t>(ex[s]) * NH * F * F,
-                    NH * F * F * 4u, bar);
+          bulk_load(sG + s * pf, a.s + static_cast<size_t>(ex[s]) * pf,
+                    pf * 4u, bar);
+      } else if (FULL) {
+        for (int i = tid; i < n * pf; i += kTT) {
+          const int s = i / pf;
+          cp_async4(sG + i, a.s + static_cast<size_t>(ex[s]) * pf + i -
+                                s * pf);
+        }
       }
     }
     cp_async_commit();
@@ -291,9 +372,17 @@ __global__ void __launch_bounds__(kTT, 1)
   // into shared memory, unless it is there
   const auto stage_meta = [&](int w, int d) {
     const int blk = 2 * d + (one_table ? 0 : w);
+    const size_t dd = static_cast<size_t>(d);
+    if constexpr (!L::kStageMeta) {
+      gw1 = (w ? a.mw.w1k : a.mw.w1q) + dd * DM * HID;
+      if constexpr (HID2 > 0)
+        gwm = (w ? a.mw.wmk : a.mw.wmq) + dd * HID * HID2;
+      gw2 = (w ? a.mw.w2k : a.mw.w2q) + dd * HL * DM;
+      staged = blk;
+      return;
+    }
     if (blk == staged) return;
     __syncthreads();  // every warp is done with the last block
-    const size_t dd = static_cast<size_t>(d);
     stage_matrix<DM, HID>(sW1, L::W1S,
                           (w ? a.mw.w1k : a.mw.w1q) + dd * DM * HID);
     if constexpr (HID2 > 0)
@@ -305,8 +394,8 @@ __global__ void __launch_bounds__(kTT, 1)
     __syncthreads();
     staged = blk;
   };
-  // the row epilogues: 8 threads a row of 32, rows r0 + tid / 8 + 32 k
-  const int c = 4 * (tid % kRowThreads);
+  // the row epilogues: RT threads a row, rows rb + tid / RT
+  const int c = 4 * (tid % RT);
 
 #pragma unroll 1
   for (int w0 = lo; w0 < hi; w0 += kWindow) {
@@ -326,7 +415,7 @@ __global__ void __launch_bounds__(kTT, 1)
       const int* ex1 = ex + E;
       const int n1 = next ? min(E, nw - (ti + 1) * E) : 0;
       cp_async_wait<0>();
-      if (FULL) {
+      if (bulk) {
         mbar_wait(bar, parity);
         parity ^= 1u;
       }
@@ -335,7 +424,7 @@ __global__ void __launch_bounds__(kTT, 1)
 
       if constexpr (RECOMPUTE) {
         // R1. q0|k0|v0 = x @ [Wq|Wk|Wv] -> sQKV
-        block_gemm<DM, 3 * DM, 2>(
+        block_gemm<DM, 3 * DM, fit_nt(3 * DM, 2)>(
             0, mt, [&](int m, int k) { return sX[m * L::XS + k]; },
             [&](int k, int cc) { return sWqkv[k * L::WQ + cc]; },
             [&](int r, int cc, float v0, float v1) {
@@ -360,24 +449,22 @@ __global__ void __launch_bounds__(kTT, 1)
                       make_float2(fmaxf(v0, 0.f), fmaxf(v1, 0.f));
               };
             };
-            block_gemm<DM, HID, 2>(
+            block_gemm<DM, HID, fit_nt(HID, 2)>(
                 m0, m1,
                 [&](int m, int k) { return sQKV[m * L::QS + w * DM + k]; },
-                [&](int k, int cc) { return sW1[k * L::W1S + cc]; },
-                seg_relu(sG));
+                W1, seg_relu(sG));
             __syncthreads();
             if constexpr (HID2 > 0) {
-              block_gemm<HID, HID2, 2>(
+              block_gemm<HID, HID2, fit_nt(HID2, 2)>(
                   m0, m1, [&](int m, int k) { return sG[m * L::HS + k]; },
-                  [&](int k, int cc) { return sWm[k * L::WMS + cc]; },
-                  seg_relu(sD));
+                  Wm, seg_relu(sD));
               __syncthreads();
             }
             const float* sL = HID2 ? sD : sG;
             const unsigned sl = w ? salt.k : salt.q;
-            block_gemm<HL, DM, 2>(
+            block_gemm<HL, DM, fit_nt(DM, 2)>(
                 m0, m1, [&](int m, int k) { return sL[m * L::HS + k]; },
-                [&](int k, int cc) { return sW2[k * L::W2S + cc]; },
+                W2,
                 [&](int r, int cc, float v0, float v1) {
                   if (r >= r0 && r < r1) {
                     if (a.drop.on) {
@@ -403,8 +490,8 @@ __global__ void __launch_bounds__(kTT, 1)
       //     probabilities recomputed from them into sG, the recompute
       //     modes' and o into sO (R4)
 #pragma unroll
-      for (int rb = 0; rb < kTileRows; rb += kRowsAPass) {
-        const int r = rb + tid / kRowThreads;
+      for (int rb = 0; rb < L::ROWS; rb += L::kRowsAPass) {
+        const int r = rb + tid / RT;
         const bool ok = r < R;
 #pragma unroll
         for (int w = 0; w < 2; ++w) {
@@ -444,7 +531,7 @@ __global__ void __launch_bounds__(kTT, 1)
       //     relu?(zlin) m_z + x, y = LN_o(u); with g the outer LayerNorm's
       //     backward: du into sDU (the residual's share of dx) and dz =
       //     du m_z relu'(zlin) into sD's first DM columns
-      block_gemm<DM, DM, 2>(
+      block_gemm<DM, DM, fit_nt(DM, 2)>(
           0, mt, [&](int m, int k) { return sO[m * L::OS + k]; },
           [&](int k, int cc) { return sWout[k * L::WO + cc]; },
           [&](int r, int cc, float v0, float v1) {
@@ -455,8 +542,8 @@ __global__ void __launch_bounds__(kTT, 1)
       {
         const float4 so = ldg4(a.lno + c);
 #pragma unroll
-        for (int rb = 0; rb < kTileRows; rb += kRowsAPass) {
-          const int r = rb + tid / kRowThreads;
+        for (int rb = 0; rb < L::ROWS; rb += L::kRowsAPass) {
+          const int r = rb + tid / RT;
           const bool ok = r < R;
           const int s = r / F, f = r - s * F;
           float z[4] = {0.f, 0.f, 0.f, 0.f}, v[4] = {0.f, 0.f, 0.f, 0.f};
@@ -504,7 +591,7 @@ __global__ void __launch_bounds__(kTT, 1)
           0, R, [&](int r, int m) { return sO[r * L::OS + m]; },
           [&](int r, int cc) { return sD[r * L::DS + cc]; });
       __syncthreads();
-      block_gemm<DM, DM, 2>(
+      block_gemm<DM, DM, fit_nt(DM, 2)>(
           0, mt, [&](int m, int k) { return sD[m * L::DS + k]; },
           [&](int k, int cc) { return sWout[cc * L::WO + k]; },
           [&](int r, int cc, float v0, float v1) {
@@ -539,8 +626,8 @@ __global__ void __launch_bounds__(kTT, 1)
       // B3a. The LayerNorm backwards of q and k: du over dq (dk) in sD, the
       //      residual's share of dt0, and dy = du m into sN (free since B2)
 #pragma unroll
-      for (int rb = 0; rb < kTileRows; rb += kRowsAPass) {
-        const int r = rb + tid / kRowThreads;
+      for (int rb = 0; rb < L::ROWS; rb += L::kRowsAPass) {
+        const int r = rb + tid / RT;
         const bool ok = r < R;
         const int s = r / F, f = r - s * F;
 #pragma unroll
@@ -611,9 +698,9 @@ __global__ void __launch_bounds__(kTT, 1)
         };
         stage_meta(w, d);
         const auto in_seg = [=](int r) { return r >= r0 && r < r1; };
-        block_gemm<DM, HID, 2>(
+        block_gemm<DM, HID, fit_nt(HID, 2)>(
             m0, m1, [&](int m, int k) { return sQKV[m * L::QS + w * DM + k]; },
-            [&](int k, int cc) { return sW1[k * L::W1S + cc]; },
+            W1,
             [&](int r, int cc, float v0, float v1) {
               if (in_seg(r))
                 *reinterpret_cast<float2*>(sG + r * L::HS + cc) =
@@ -621,10 +708,10 @@ __global__ void __launch_bounds__(kTT, 1)
             });
         __syncthreads();
         if constexpr (HID2 > 0) {
-          block_gemm<HID, HID2, 2>(
+          block_gemm<HID, HID2, fit_nt(HID2, 2)>(
               m0, m1,
               [&](int m, int k) { return fmaxf(sG[m * L::HS + k], 0.f); },
-              [&](int k, int cc) { return sWm[k * L::WMS + cc]; },
+              Wm,
               [&](int r, int cc, float v0, float v1) {
                 if (in_seg(r))
                   *reinterpret_cast<float2*>(sU + r * L::HS + cc) =
@@ -644,9 +731,9 @@ __global__ void __launch_bounds__(kTT, 1)
           put(dw2, out_w2);
         }
         __syncthreads();
-        block_gemm<DM, HL, 2>(
+        block_gemm<DM, HL, fit_nt(HL, 2)>(
             m0, m1, [&](int m, int k) { return dy[m * L::NS + k]; },
-            [&](int k, int cc) { return sW2[cc * L::W2S + k]; },
+            [&](int k, int cc) { return W2(cc, k); },
             [&](int r, int cc, float v0, float v1) {
               if (in_seg(r)) {
                 float2* p = reinterpret_cast<float2*>(sL + r * L::HS + cc);
@@ -664,9 +751,9 @@ __global__ void __launch_bounds__(kTT, 1)
               [&](int r, int cc) { return sU[r * L::HS + cc]; });
           put(dwm, out_wm);
           __syncthreads();
-          block_gemm<HID2, HID, 2>(
+          block_gemm<HID2, HID, fit_nt(HID, 2)>(
               m0, m1, [&](int m, int k) { return sU[m * L::HS + k]; },
-              [&](int k, int cc) { return sWm[cc * L::WMS + k]; },
+              [&](int k, int cc) { return Wm(cc, k); },
               [&](int r, int cc, float v0, float v1) {
                 if (in_seg(r)) {
                   float2* p = reinterpret_cast<float2*>(sG + r * L::HS + cc);
@@ -686,9 +773,9 @@ __global__ void __launch_bounds__(kTT, 1)
               [&](int r, int cc) { return sG[r * L::HS + cc]; });
           put(dw1, out_w1);
         }
-        block_gemm<HID, DM, 2>(
+        block_gemm<HID, DM, fit_nt(DM, 2)>(
             m0, m1, [&](int m, int k) { return sG[m * L::HS + k]; },
-            [&](int k, int cc) { return sW1[cc * L::W1S + k]; },
+            [&](int k, int cc) { return W1(cc, k); },
             [&](int r, int cc, float v0, float v1) {
               if (in_seg(r)) {
                 float2* p =
@@ -715,7 +802,7 @@ __global__ void __launch_bounds__(kTT, 1)
       dwqkv.add(
           0, R, [&](int r, int m) { return sX[r * L::XS + m]; },
           [&](int r, int cc) { return sD[r * L::DS + cc]; });
-      block_gemm<3 * DM, DM, 2>(
+      block_gemm<3 * DM, DM, fit_nt(DM, 2)>(
           0, mt, [&](int m, int k) { return sD[m * L::DS + k]; },
           [&](int k, int cc) { return sWqkv[cc * L::WQ + k]; },
           [&](int r, int cc, float v0, float v1) {
@@ -749,7 +836,7 @@ __global__ void __launch_bounds__(kTT, 1)
   for (int o = tid; o < kLnRows * DM; o += kTT) {
     const int j = o / DM, col = o % DM, cg = col / 4, k = col % 4;
     float s = 0.f;
-    for (int m = cg; m < kTT; m += kRowThreads)
+    for (int m = cg; m < kTT; m += RT)
       s += red[(m * kLnRows + j) * 4 + k];
     out[S::kDense + o] = s;
   }
@@ -829,7 +916,7 @@ cudaError_t launch_stash_bwd(StashBwdArgs a, int blocks,
                              cudaStream_t stream) {
   auto kernel = meta_stash_bwd_kernel<SH, MODE, TILED>;
   const int smem = BwdTile<SH>::bytes(a.F);
-  if (smem > kMaxSmem || (!TILED && a.D > kMaxDomains))
+  if (smem > kMaxSmem || (!TILED && a.D > max_domains<SH>()))
     return cudaErrorInvalidValue;
   static int configured = 0;
   if (smem > configured) {
@@ -838,7 +925,7 @@ cudaError_t launch_stash_bwd(StashBwdArgs a, int blocks,
     if (err != cudaSuccess) return err;
     configured = smem;
   }
-  if (!TILED) a.chunk = block_chunk(a.B, a.F, blocks);
+  if (!TILED) a.chunk = block_chunk(a.B, a.F, blocks, BwdTile<SH>::ROWS);
   kernel<<<blocks, kTT, smem, stream>>>(a);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;

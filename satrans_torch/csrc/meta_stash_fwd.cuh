@@ -61,6 +61,17 @@
 // K1-scores), 182 KiB (K1-fwd, K1-stash light; 220 KiB with the second
 // MetaNet region); 215 and 212 KiB with a 3-matrix MetaNet.
 //
+// Other shapes.  A library holds one shape (d, h1, h2, heads); FwdTile
+// picks its layout: the first of FwdParts::plan's that fits a block at
+// every F <= 20 (the layout above at 96 rows; then fewer rows; then Wqkv
+// and Wout float32; then the MetaNet read from device memory through L1
+// in its products, at d = 64, whose split weights alone would take 282.6
+// kB).  Every other step is the shape's: d / 4 threads a row in the
+// epilogues, the products' strips cut to the widths (fit_nt), a head's
+// values in vectors of its width (1 or 2 floats at d = 8 or 16 with 8
+// heads).  P goes out a float a thread where an example's NH F^2 floats
+// would misalign float4s (1 or 2 heads at odd F).
+//
 // K7 (TILED).  With TILED it replaces satrans_tpu/ops/pallas/tiled_meta.py's
 // _fwd_kernel (:141; K7-fwd, kNoStash) and _fwd_kernel_stash (:155;
 // K7-stash, kFullStash), launched by _fwd_call (:521) through
@@ -102,28 +113,93 @@ struct StashFwdArgs {
   int tile_b;
 };
 
-// Shared layout of the forward tile body, in floats after the header
-// (kTileHeader): row strides (+4 shifts an A operand's rows by four banks,
-// +8 a B operand's by eight) and region offsets.
+// A layout of the forward tile body (FwdTile): its tile rows, whether Wqkv
+// and Wout are staged split into their 3xTF32 halves (else float32, split
+// in the products), whether a domain's MetaNet block is staged split in
+// shared memory once a segment (else each product reads it through L1 from
+// device memory), and x's buffers (two: the next tile's x loads while this
+// one computes).
+struct FwdPlan {
+  int rows;
+  bool split_dense, stage_meta;
+  int xbufs;
+};
+
+// The parts of the forward tile body's shared layout, in floats after the
+// header (kTileHeader): row strides (+4 shifts an A operand's rows by four
+// banks, +8 a B operand's by eight) and the floats of each region under a
+// plan.
 template <class SH>
-struct FwdTile {
+struct FwdParts {
   static constexpr int DM = SH::DM, HID = SH::HID, HID2 = SH::HID2,
-                       HL = SH::HL;
+                       HL = SH::HL, NH = SH::NH;
   static constexpr int WQ = 3 * DM + 8, WO = DM + 8, W1S = HID + 8,
                        WMS = HID2 + 8, W2S = DM + 8;
   static constexpr int XS = DM + 4, QS = 3 * DM + 4, HS = SH::HMAX + 4,
                        TS = DM + 4;
+  static __host__ __device__ constexpr int dense(bool split) {
+    return (split ? 2 : 1) * DM * (WQ + WO);
+  }
+  // one MetaNet block, staged split
+  static __host__ __device__ constexpr int meta(bool staged) {
+    return staged ? 2 * (DM * W1S + (HID2 ? HID * WMS : 0) + HL * W2S) : 0;
+  }
+  // x, q0|k0|v0, the hidden rows and t of the tile's rows
+  static __host__ __device__ constexpr int rows(int n, int xbufs) {
+    return n * (xbufs * XS + QS + HS + TS);
+  }
+  // the probabilities of E examples (E NH F^2 <= NH rows F floats; at F =
+  // 0 the most at any F), which a 3-matrix MetaNet's h2 shares: h2 lives
+  // in the MetaNet phase, P in the attention
+  static __host__ __device__ constexpr int probs(int n, int F, bool with_p) {
+    const int p = !with_p ? 0
+                  : F   ? tile_examples(F, n) * NH * F * F
+                        : most_probs(n, NH);
+    const int h2 = HID2 ? n * HS : 0;
+    return ((p > h2 ? p : h2) + 3) & ~3;
+  }
+  // bytes under plan c at F fields (0: the most at any F), with the
+  // probabilities and a second MetaNet region for distinct Q and K tables
+  static __host__ __device__ constexpr int bytes(FwdPlan c, int F,
+                                                 bool with_p, bool two) {
+    return kTileHeader +
+           4 * (dense(c.split_dense) + meta(c.stage_meta) * (two ? 2 : 1) +
+                rows(c.rows, c.xbufs) + probs(c.rows, F, with_p));
+  }
+  // The first layout whose every mode fits a block at every F: the AliCCP
+  // sota one (96 rows; a 2-matrix MetaNet with every weight split and two
+  // x buffers, a 3-matrix one with the MetaNet's halves alone and one),
+  // then fewer rows; then Wqkv and Wout float32; then the MetaNet read
+  // from device memory (d = 64, whose split weights alone take 282.6 kB).
+  static __host__ __device__ constexpr FwdPlan plan() {
+    const bool two_mat = HID2 == 0;
+    for (int k = 0; k < 3; ++k)
+      for (int n = kWideTileRows; n >= 32; n -= 16) {
+        const FwdPlan c{n, k == 0 && two_mat, k < 2,
+                        k == 0 && two_mat ? 2 : 1};
+        if (bytes(c, 0, true, false) <= kMaxSmem) return c;
+      }
+    return FwdPlan{32, false, false, 1};
+  }
+};
+
+// The shared layout of the forward tile body of shape SH: its plan
+// (FwdParts::plan) and region offsets.
+template <class SH>
+struct FwdTile : FwdParts<SH> {
+  using P = FwdParts<SH>;
+  using P::DM, P::HID, P::HID2, P::HL, P::WQ, P::WO, P::W1S, P::WMS, P::W2S,
+      P::XS, P::QS, P::HS, P::TS;
   static constexpr int kHeader = kTileHeader;  // bytes
   // the tile's rows and the block's threads (one a pair of the attention)
-  static constexpr int ROWS = kWideTileRows, TT = 4 * ROWS;
-  static constexpr int kRowsAPass = TT / kRowThreads;  // of the epilogues
-  static_assert(ROWS % kRowsAPass == 0, "whole passes");
-  // The weights are staged split into their 3xTF32 halves (a big and a
-  // small plane each), all of them for a 2-matrix MetaNet; a 3-matrix one
-  // has room for the MetaNet's planes alone (Wqkv and Wout stay float32,
-  // split in the products) and one x buffer.
-  static constexpr bool kSplitDense = HID2 == 0;
-  static constexpr int kXBufs = HID2 ? 1 : 2;
+  static constexpr int ROWS = P::plan().rows, TT = kWideTT;
+  static constexpr int kRowsAPass = rows_a_pass(TT, DM);  // of the epilogues
+  static constexpr bool kSplitDense = P::plan().split_dense;
+  static constexpr bool kStageMeta = P::plan().stage_meta;
+  static constexpr int kXBufs = P::plan().xbufs;
+  static_assert(ROWS % 16 == 0 && ROWS >= kMaxFields, "whole m-tiles");
+  static_assert(P::bytes(P::plan(), 0, true, false) <= kMaxSmem,
+                "no layout of the forward tile body fits this shape");
   static constexpr int kDenseCopies = kSplitDense ? 2 : 1;
   static constexpr int oWqkv = 0, oWqkvS = oWqkv + DM * WQ,
                        oWout = oWqkv + kDenseCopies * DM * WQ,
@@ -132,21 +208,18 @@ struct FwdTile {
                        oW1S = oW1 + DM * W1S, oWm = oW1S + DM * W1S,
                        oWmS = oWm + HID * (HID2 ? WMS : 0),
                        oW2 = oWmS + HID * (HID2 ? WMS : 0),
-                       oW2S = oW2 + HL * W2S, oX = oW2S + HL * W2S,
+                       oW2S = oW2 + HL * W2S,
+                       oX = oW1 + P::meta(kStageMeta),
                        oQKV = oX + kXBufs * ROWS * XS,
                        oH = oQKV + ROWS * QS, oT = oH + ROWS * HS,
                        oP = oT + ROWS * TS;
-  // the probabilities of E examples (E NH F^2 <= NH ROWS F floats), which
-  // a 3-matrix MetaNet's h2 shares: h2 lives in the MetaNet phase, P in
-  // the attention; after them, where the shared memory holds it, a second
+  // after the probabilities, where the shared memory holds it, a second
   // MetaNet block (the region [oW1, oX)) for distinct Q and K tables
   static __host__ __device__ int oMeta2(int F, bool with_p) {
-    const int p = with_p ? tile_examples(F, ROWS) * SH::NH * F * F : 0;
-    const int h2 = HID2 ? ROWS * HS : 0;
-    return oP + (((p > h2 ? p : h2) + 3) & ~3);
+    return oP + P::probs(ROWS, F, with_p);
   }
   static __host__ __device__ int bytes(int F, bool with_p, bool two = false) {
-    return kHeader + 4 * (oMeta2(F, with_p) + (two ? oX - oW1 : 0));
+    return P::bytes(P::plan(), F, with_p, two && kStageMeta);
   }
 };
 
@@ -159,7 +232,7 @@ __global__ void __launch_bounds__(FwdTile<SH>::TT, 1)
   // the residuals qkv, uq, uk and o; the probabilities
   constexpr bool STASH = MODE == kFullStash || MODE == kLightStash;
   constexpr bool STASH_S = MODE == kFullStash || MODE == kScores;
-  static_assert(DM == 4 * kRowThreads, "epilogues take rows of 32");
+  constexpr int RT = row_threads(DM);  // threads on a row in epilogues
   static_assert(MODE == kFullStash || MODE == kNoStash || !TILED,
                 "K7 has no light stash and no scores");
 
@@ -185,20 +258,31 @@ __global__ void __launch_bounds__(FwdTile<SH>::TT, 1)
     else
       return sWout[k * L::WO + c];
   };
-  // the MetaNet block in use: the first region, or (mo = its distance)
-  // the second
+  // the MetaNet block in use: staged in the first region, or (mo = its
+  // distance) the second; or where the plan stages none, its matrices in
+  // device memory (gw1, gwm, gw2)
   int mo = 0;
+  const float *gw1 = nullptr, *gwm = nullptr, *gw2 = nullptr;
   const auto w1 = [&](int k, int c) {
-    return Split2{u0[mo + L::oW1 + k * L::W1S + c],
-                  u0[mo + L::oW1S + k * L::W1S + c]};
+    if constexpr (L::kStageMeta)
+      return Split2{u0[mo + L::oW1 + k * L::W1S + c],
+                    u0[mo + L::oW1S + k * L::W1S + c]};
+    else
+      return __ldg(gw1 + k * HID + c);
   };
   const auto wm = [&](int k, int c) {
-    return Split2{u0[mo + L::oWm + k * L::WMS + c],
-                  u0[mo + L::oWmS + k * L::WMS + c]};
+    if constexpr (L::kStageMeta)
+      return Split2{u0[mo + L::oWm + k * L::WMS + c],
+                    u0[mo + L::oWmS + k * L::WMS + c]};
+    else
+      return __ldg(gwm + k * HID2 + c);
   };
   const auto w2 = [&](int k, int c) {
-    return Split2{u0[mo + L::oW2 + k * L::W2S + c],
-                  u0[mo + L::oW2S + k * L::W2S + c]};
+    if constexpr (L::kStageMeta)
+      return Split2{u0[mo + L::oW2 + k * L::W2S + c],
+                    u0[mo + L::oW2S + k * L::W2S + c]};
+    else
+      return __ldg(gw2 + k * DM + c);
   };
   float* sQKV = f0 + L::oQKV;
   float* sH = f0 + L::oH;    // hidden h1, then the attention output o
@@ -272,7 +356,7 @@ __global__ void __launch_bounds__(FwdTile<SH>::TT, 1)
       const float* sX = f0 + L::oX + buf * L::ROWS * L::XS;
 
       // 1. q0 | k0 | v0 = x @ [Wq | Wk | Wv]
-      block_gemm<DM, 3 * DM, 6, DM / 8>(
+      block_gemm<DM, 3 * DM, fit_nt(3 * DM, 6), DM / 8>(
           0, mt, [&](int m, int k) { return sX[m * L::XS + k]; },
           wqkv,
           [&](int r, int c, float v0, float v1) {
@@ -300,7 +384,7 @@ __global__ void __launch_bounds__(FwdTile<SH>::TT, 1)
         const unsigned sl = w ? salt.k : salt.q;
 #pragma unroll
         for (int rb = r0; rb < r0 + L::ROWS; rb += L::kRowsAPass) {
-          const int r = rb + tid / kRowThreads, c = 4 * (tid % kRowThreads);
+          const int r = rb + tid / RT, c = 4 * (tid % RT);
           const bool ok = r < r1;
           const int s = r / F, f = r - s * F;
           float v[4] = {0.f, 0.f, 0.f, 0.f};
@@ -338,9 +422,14 @@ __global__ void __launch_bounds__(FwdTile<SH>::TT, 1)
           const int blk = 2 * d + (one_table ? 0 : w);
           const int slot = a.two ? w : 0;
           mo = slot ? mo2 : 0;
-          if (blk != staged[slot]) {
+          const size_t dd = static_cast<size_t>(d);
+          if constexpr (!L::kStageMeta) {
+            gw1 = (w ? a.mw.w1k : a.mw.w1q) + dd * DM * HID;
+            if constexpr (HID2 > 0)
+              gwm = (w ? a.mw.wmk : a.mw.wmq) + dd * HID * HID2;
+            gw2 = (w ? a.mw.w2k : a.mw.w2q) + dd * HL * DM;
+          } else if (blk != staged[slot]) {
             __syncthreads();  // every warp is done with the last block
-            const size_t dd = static_cast<size_t>(d);
             stage_split<DM, HID>(u0 + mo + L::oW1, u0 + mo + L::oW1S, L::W1S,
                                  (w ? a.mw.w1k : a.mw.w1q) + dd * DM * HID);
             if constexpr (HID2 > 0)
@@ -361,7 +450,7 @@ __global__ void __launch_bounds__(FwdTile<SH>::TT, 1)
             };
           };
           // h1 = relu(t0 @ W1), and for a 3-matrix MetaNet h2 = relu(h1 @ Wm)
-          block_gemm<DM, HID, 4, DM / 8>(
+          block_gemm<DM, HID, fit_nt(HID, 4), DM / 8>(
               m0, m1,
               [&](int m, int k) { return sQKV[m * L::QS + w * DM + k]; },
               w1,
@@ -369,14 +458,14 @@ __global__ void __launch_bounds__(FwdTile<SH>::TT, 1)
           if (pw >= 0) epilogue(pw, pr0, pr1);
           __syncthreads();
           if constexpr (HID2 > 0) {
-            block_gemm<HID, HID2, 4, HID / 8>(
+            block_gemm<HID, HID2, fit_nt(HID2, 4), HID / 8>(
                 m0, m1, [&](int m, int k) { return sH[m * L::HS + k]; },
                 wm,
                 seg_store(sH2, L::HS, true));
             __syncthreads();
           }
           const float* sL = HID2 ? sH2 : sH;
-          block_gemm<HL, DM, 2, HL / 8>(
+          block_gemm<HL, DM, fit_nt(DM, 2), HL / 8>(
               m0, m1, [&](int m, int k) { return sL[m * L::HS + k]; },
               w2,
               seg_store(sT, L::TS, false));
@@ -399,18 +488,22 @@ __global__ void __launch_bounds__(FwdTile<SH>::TT, 1)
       });
       __syncthreads();
       if (STASH_S) {
-        const int per = NH * F * F / 4;  // float4s of an example's P
+        // an example's P in float4s where its NH F^2 floats keep them
+        // aligned (4 heads, or F even), else one float a thread
+        const int pf = NH * F * F, v = pf % 4 ? 1 : 4, per = pf / v;
         for (int i = tid; i < n * per; i += L::TT) {
-          const int s = i / per, o = 4 * (i - s * per);
-          *reinterpret_cast<float4*>(
-              a.st.s + static_cast<size_t>(ex[s]) * NH * F * F + o) =
-              ld4(sP + s * NH * F * F + o);
+          const int s = i / per, o = v * (i - s * per);
+          float* dst = a.st.s + static_cast<size_t>(ex[s]) * pf + o;
+          if (v == 4)
+            *reinterpret_cast<float4*>(dst) = ld4(sP + s * pf + o);
+          else
+            *dst = sP[s * pf + o];
         }
       }
       if (STASH) store_rows<DM>(a.st.o, sH, L::HS, ex, n, F);
 
       // 4. y = LN_o(relu?(o @ Wout) m_z + x)
-      block_gemm<DM, DM, 2, DM / 8>(
+      block_gemm<DM, DM, fit_nt(DM, 2), DM / 8>(
           0, mt, [&](int m, int k) { return sH[m * L::HS + k]; },
           wout,
           [&](int r, int c, float v0, float v1) {
@@ -420,7 +513,7 @@ __global__ void __launch_bounds__(FwdTile<SH>::TT, 1)
       __syncthreads();
 #pragma unroll
       for (int rb = 0; rb < L::ROWS; rb += L::kRowsAPass) {
-        const int r = rb + tid / kRowThreads, c = 4 * (tid % kRowThreads);
+        const int r = rb + tid / RT, c = 4 * (tid % RT);
         const bool ok = r < R;
         const int s = r / F, f = r - s * F;
         float v[4] = {0.f, 0.f, 0.f, 0.f};
@@ -454,9 +547,14 @@ __global__ void __launch_bounds__(FwdTile<SH>::TT, 1)
   // dispatch tiles in turn
   if constexpr (TILED) {
     if (a.count) {
-      const auto zero = [&](float* p, size_t n) {  // n a multiple of 4
-        for (size_t i = tid; i < n / 4; i += L::TT)
-          reinterpret_cast<float4*>(p)[i] = make_float4(0.f, 0.f, 0.f, 0.f);
+      const auto zero = [&](float* p, size_t n) {
+        if (n % 4 || reinterpret_cast<uintptr_t>(p) % 16) {
+          for (size_t i = tid; i < n; i += L::TT) p[i] = 0.f;
+        } else {
+          for (size_t i = tid; i < n / 4; i += L::TT)
+            reinterpret_cast<float4*>(p)[i] =
+                make_float4(0.f, 0.f, 0.f, 0.f);
+        }
       };
       for (int t = blockIdx.x; t < a.D; t += gridDim.x) {
         const int cnt = tile_occupied(a.count, t, a.tile_b);
@@ -490,8 +588,10 @@ cudaError_t launch_stash_fwd(StashFwdArgs a, cudaStream_t stream,
   const bool with_p = MODE == kFullStash || MODE == kScores;
   a.two = (a.mw.w1q != a.mw.w1k || a.mw.w2q != a.mw.w2k ||
            a.mw.wmq != a.mw.wmk) &&
+          FwdTile<SH>::kStageMeta &&
           FwdTile<SH>::bytes(a.F, with_p, true) <= most;
   const int smem = FwdTile<SH>::bytes(a.F, with_p, a.two);
+  if (smem > most) return cudaErrorInvalidValue;
   static int configured = 0;
   if (smem > configured) {
     const cudaError_t err = cudaFuncSetAttribute(

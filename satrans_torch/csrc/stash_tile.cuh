@@ -4,12 +4,18 @@
 // their recompute backwards (K1-bwd, K7-bwd) and K6-bwd (csrc/
 // gate_block_bwd.cu).
 //
-// A block of 4 R threads owns a tile of E = R / F examples at a time (R =
-// kTileRows = 80 rows in the MetaNet backward: 4 examples at F = 19, 5 at
-// F = 15; R = kWideTileRows = 96 in the forward and K6-bwd: 5 and 6), so
-// that every product of the layer has E F >= 64 rows instead of one
-// example's F, and the tile's attention has at most one (head, row) pair
-// a thread.  It walks a
+// A block owns a tile of E = R / F examples at a time (at the AliCCP sota
+// shape, d = 32 with 4 heads: R = 80 rows in the MetaNet backward, 4
+// examples at F = 19, 5 at F = 15, on 320 threads; R = 96 in the forward
+// and K6-bwd, 5 and 6, on 384), so that every product of the layer has E F
+// >= 64 rows instead of one example's F, and the tile's attention has at
+// most one (head, row) pair a thread.  Each body's R is a function of the
+// shape (d, h1, h2, heads), which a library is built for (ops/_build.py):
+// the most rows whose buffers fit a block's shared memory at every F (32
+// to 96; at d = 64 the MetaNet blocks are read from device memory rather
+// than staged).  The epilogues give a row of d values d / 4 threads
+// (row_threads), and heads narrower than 4 floats (d = 8 or 16 with 8
+// heads, d = 8 with 4) move in vectors of their width.  It walks a
 // contiguous range of the batch, persistently, one block an SM.  K1 and K6
 // sort the range by domain row in windows of kWindow examples (sort_window),
 // and the tiles are consecutive examples of that order, so that a tile
@@ -46,23 +52,49 @@
 
 namespace {
 
-constexpr int kTileRows = 80;     // the backward's tile: E = kTileRows / F
-// threads of a tile block: one a (head, row) pair of the attention, whose
-// tile has at most 4 heads x kTileRows pairs
-constexpr int kTT = 4 * kTileRows;
-constexpr int kTW = kTT / 32;     // its warps
-constexpr int kRowThreads = 8;    // threads on one row of d = 32 in epilogues
-constexpr int kRowsAPass = kTT / kRowThreads;  // two passes cover a tile
-static_assert(kTileRows % kRowsAPass == 0, "whole passes");
-// the forward's tile (4 kWideTileRows threads): its 6 m-tiles give a
-// product's 12 output strips to 12 warps, three on each of the SM's four
-// sub-partitions (the MetaNet backward's buffers leave room for kTileRows
-// only)
-constexpr int kWideTileRows = 96;
+// The tile bodies' blocks: the backward's 320 threads (10 warps) and the
+// forward's and K6-bwd's 384 (12 warps).  A body's tile rows are a
+// function of its shape (the forward's FwdTile, the backward's BwdTile,
+// K6-bwd's GateTile): the most, from kWideTileRows (96) down, whose
+// shared memory fits a block at every F up to kMaxFields.  At the AliCCP
+// sota shape (d = 32, 4 heads) they are the backward's 80 rows (4
+// examples at F = 19, 5 at F = 15) and the forward's 96 (5 and 6).  The
+// attention gives a thread a (head, row) pair, one round of the block's
+// threads at 4 heads.
+constexpr int kTT = 320;         // the backward's threads
+constexpr int kTW = kTT / 32;    // its warps
+constexpr int kWideTT = 384;     // the forward's and K6-bwd's threads
+constexpr int kWideTileRows = 96;  // the most rows a tile has
 constexpr int kWindow = 256;      // examples sorted by domain together
+constexpr int kMaxSmem = 232448;  // bytes a block may use on sm_90
 
-__host__ __device__ constexpr int tile_examples(int F,
-                                                int rows = kTileRows) {
+// The threads on a row of d values in the epilogues (4 columns each:
+// 8 at d = 32, 2 at d = 8, 16 at d = 64), and the rows a pass of a
+// block's threads covers.
+__host__ __device__ constexpr int row_threads(int d) { return d / 4; }
+__host__ __device__ constexpr int rows_a_pass(int threads, int d) {
+  return threads / row_threads(d);
+}
+
+// The output strips of a product [. x N]: want 8-column blocks a strip,
+// or fewer where they do not divide N / 8 (block_gemm).
+__host__ __device__ constexpr int fit_nt(int n, int want) {
+  while ((n / 8) % want) --want;
+  return want;
+}
+
+// The most of a tile's (head, row) probabilities at any F: E NH F^2 for
+// E = rows / F examples.
+__host__ __device__ constexpr int most_probs(int rows, int heads) {
+  int most = 0;
+  for (int F = 1; F <= kMaxFields; ++F) {
+    const int p = rows / F * heads * F * F;
+    most = p > most ? p : most;
+  }
+  return most;
+}
+
+__host__ __device__ constexpr int tile_examples(int F, int rows) {
   return rows / F;
 }
 
@@ -97,14 +129,14 @@ __device__ __forceinline__ void tile_draws(ExampleDraw* draws,
 
 // The examples each block walks: whole tiles, as evenly as the grid allows.
 __host__ __device__ inline int block_chunk(int B, int F, int grid,
-                                           int rows = kTileRows) {
+                                           int rows) {
   const int E = tile_examples(F, rows), tiles = (B + E - 1) / E;
   return (tiles + grid - 1) / grid * E;
 }
 
 // The number of blocks a backward tile body uses for B examples of F
 // fields on sms SMs: one an SM, or one a tile when there are fewer tiles.
-inline int stash_bwd_blocks(int B, int F, int sms, int rows = kTileRows) {
+inline int stash_bwd_blocks(int B, int F, int sms, int rows) {
   const int E = tile_examples(F, rows), tiles = (B + E - 1) / E;
   return tiles < sms ? tiles : sms;
 }
@@ -205,12 +237,15 @@ __device__ __forceinline__ void block_gemm(int mt0, int mt1, AF a, BF b,
 
 // The 16 x 8 tiles of an [M x N] weight gradient that each of a block's W
 // warps owns: tile warp + W i < kTiles, i < WTiles<M, N, W>::kPerWarp, in
-// row-major tile order.
+// row-major tile order.  M = 8 (a weight of d = 8 rows) takes one tile
+// row, its lower half zero and never written.
 template <int M, int N, int W = kTW>
 struct WTiles {
-  static_assert(M % 16 == 0 && N % 8 == 0, "unsupported weight shape");
-  static constexpr int kTiles = (M / 16) * (N / 8);
+  static_assert((M % 16 == 0 || M == 8) && N % 8 == 0,
+                "unsupported weight shape");
+  static constexpr int kTiles = ((M + 15) / 16) * (N / 8);
   static constexpr int kPerWarp = (kTiles + W - 1) / W;
+  static constexpr bool kHalf = M % 16 != 0;  // rows 8..15 are padding
   float acc[kPerWarp][4];
 
   __device__ __forceinline__ void zero() {
@@ -248,9 +283,9 @@ struct WTiles {
         const int m0 = (u / (N / 8)) * 16, n0 = (u % (N / 8)) * 8;
         uint32_t ab[4], as[4], bb[2], bs[2];
         split_tf32(va ? a(ra, m0 + g) : 0.f, ab[0], as[0]);
-        split_tf32(va ? a(ra, m0 + g + 8) : 0.f, ab[1], as[1]);
+        split_tf32(va && !kHalf ? a(ra, m0 + g + 8) : 0.f, ab[1], as[1]);
         split_tf32(vb ? a(rb, m0 + g) : 0.f, ab[2], as[2]);
-        split_tf32(vb ? a(rb, m0 + g + 8) : 0.f, ab[3], as[3]);
+        split_tf32(vb && !kHalf ? a(rb, m0 + g + 8) : 0.f, ab[3], as[3]);
         split_tf32(va ? gf(ra, n0 + g) : 0.f, bb[0], bs[0]);
         split_tf32(vb ? gf(rb, n0 + g) : 0.f, bb[1], bs[1]);
         mma_3xtf32(cur[i], cur[i], ab, as, bb, bs);
@@ -274,7 +309,7 @@ struct WTiles {
       if (kTiles % W && u >= kTiles) break;
       const int m = (u / (N / 8)) * 16 + g, n = (u % (N / 8)) * 8 + 2 * t;
       f(m, n, acc[i][0], acc[i][1]);
-      f(m + 8, n, acc[i][2], acc[i][3]);
+      if (!kHalf) f(m + 8, n, acc[i][2], acc[i][3]);
     }
   }
 
@@ -299,6 +334,14 @@ struct WTiles {
 
 __device__ __forceinline__ void cp_async16(void* dst, const void* src) {
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16;" ::"r"(
+                   smem_u32(dst)),
+               "l"(src)
+               : "memory");
+}
+
+// A 4-byte cp.async copy (through L1; the 16-byte copies bypass it).
+__device__ __forceinline__ void cp_async4(void* dst, const void* src) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;" ::"r"(
                    smem_u32(dst)),
                "l"(src)
                : "memory");

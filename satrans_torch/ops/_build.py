@@ -2,9 +2,14 @@
 
 Each ``csrc/<name>.cu`` is compiled by ``nvcc`` for ``sm_90a`` into its own
 shared library with a plain C interface and loaded with ``ctypes`` (no
-PyTorch headers, so a build takes seconds).  Libraries go to ``_build/``
-beside the package sources, named by a hash of the sources and the flags:
-a changed source is rebuilt at its first use.  Several sources build in
+PyTorch headers, so a build takes seconds).  The layer bodies' sources
+(:data:`SHAPED`: K1 and K7 in ``meta_block_{fwd,bwd}``, K6 in
+``gate_block_{fwd,bwd}``) are built once a shape, the shape passed as
+``-D`` defines, each shape's library at the first launch of that shape:
+one library with every shape's instances would take minutes to build.
+Libraries go to ``_build/`` beside the package sources, named by the
+source, the shape and a hash of the sources and the flags: a changed
+source is rebuilt at its first use.  Several libraries build in
 parallel, one ``nvcc`` each.
 
 Nothing here runs at import time; this machine needs ``nvcc`` only when a
@@ -32,9 +37,21 @@ BUILD_DIR = PACKAGE / "_build"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
-_LIBS: dict[str, ctypes.CDLL] = {}
+# the sources built once a shape: the defines (SATRANS_<name>) of the shape
+# tuples their wrappers pass, (d, h1, h2, heads) for K1 and K7 and (d,
+# heads) for K6
+SHAPED = {"meta_block_fwd": ("D", "H", "H2", "NH"),
+          "meta_block_bwd": ("D", "H", "H2", "NH"),
+          "gate_block_fwd": ("D", "NH"), "gate_block_bwd": ("D", "NH")}
+# the shape of a call that names none: the AliCCP sota width (d = 32,
+# MetaNet [32, 64, 32], 4 heads)
+DEFAULT_SHAPES = {"meta_block_fwd": (32, 64, 0, 4),
+                  "meta_block_bwd": (32, 64, 0, 4),
+                  "gate_block_fwd": (32, 4), "gate_block_bwd": (32, 4)}
+
+_LIBS: dict[tuple, ctypes.CDLL] = {}
 _SM_COUNT: dict[int, int] = {}
-_FNS: dict[str, ctypes._CFuncPtr] = {}
+_FNS: dict[tuple, ctypes._CFuncPtr] = {}
 
 
 def _nvcc() -> str:
@@ -49,79 +66,136 @@ def sources() -> list[str]:
     return sorted(p.stem for p in CSRC.glob("*.cu"))
 
 
-def _target(name: str) -> tuple[Path, Path]:
+def _shape(name: str, shape) -> tuple | None:
+    """The shape of a library of ``name``: None for a source built once,
+    else ``shape`` (default :data:`DEFAULT_SHAPES`) as a tuple of ints."""
+    if name not in SHAPED:
+        if shape is not None:
+            raise ValueError(f"csrc/{name}.cu is not built once a shape")
+        return None
+    shape = tuple(int(v) for v in (shape or DEFAULT_SHAPES[name]))
+    if len(shape) != len(SHAPED[name]):
+        raise ValueError(f"csrc/{name}.cu takes a shape of "
+                         f"{SHAPED[name]}, got {shape}")
+    return shape
+
+
+def _target(name: str, shape=None) -> tuple[Path, Path, list[str]]:
+    """The source, the library and the ``nvcc`` flags of ``name`` at
+    ``shape``."""
     src = CSRC / f"{name}.cu"
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    shape = _shape(name, shape)
+    flags = list(NVCC_FLAGS)
+    stem = name
+    if shape is not None:
+        flags += [f"-DSATRANS_{k}={v}" for k, v in zip(SHAPED[name], shape)]
+        stem += "_" + "_".join(map(str, shape))
+    h = hashlib.sha256(" ".join(flags).encode())
     for dep in [src] + sorted(CSRC.glob("*.cuh")):
         h.update(dep.read_bytes())
-    return src, BUILD_DIR / f"lib{name}_{h.hexdigest()[:16]}.so"
+    return src, BUILD_DIR / f"lib{stem}_{h.hexdigest()[:16]}.so", flags
 
 
-def build(names: list[str] | None = None) -> dict[str, float]:
-    """Compile the named sources (default: all) that are not built yet,
-    all ``nvcc`` processes at once, each library's ``nvcc`` output (the
+def default_targets() -> list[tuple[str, tuple | None]]:
+    """Every source at its default shape, and the 3-matrix MetaNet shape
+    [32, 64, 64, 32] of K1 and K7: the libraries the AliCCP sota
+    configurations use."""
+    out = [(n, _shape(n, None)) for n in sources()]
+    return out + [(n, (32, 64, 64, 4)) for n in ("meta_block_fwd",
+                                                 "meta_block_bwd")]
+
+
+def label(name: str, shape=None) -> str:
+    """A library's name: its source, and its shape where it has one."""
+    shape = _shape(name, shape)
+    return name if shape is None else f"{name}{list(shape)}"
+
+
+def build(targets=None) -> dict[str, float]:
+    """Compile the targets (source names, or ``(name, shape)`` pairs;
+    default :func:`default_targets`) that are not built yet, one ``nvcc``
+    process a CPU core at a time, each library's ``nvcc`` output (the
     ptxas register, spill and shared-memory lines) kept beside it for
-    :func:`log`.  Returns seconds per source built."""
-    names = sources() if names is None else names
+    :func:`log`.  Returns each library's ``nvcc`` seconds, by
+    :func:`label`."""
+    targets = default_targets() if targets is None else targets
     BUILD_DIR.mkdir(exist_ok=True)
-    jobs = {}
-    for name in names:
-        src, out = _target(name)
-        if out.exists() and out.with_suffix(".log").exists():
+    todo = {}
+    for t in targets:
+        name, shape = (t, None) if isinstance(t, str) else t
+        src, out, flags = _target(name, shape)
+        key = label(name, shape)
+        if key in todo or (out.exists() and out.with_suffix(".log").exists()):
             continue
         tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(src)]
-        jobs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
-                                       stderr=subprocess.STDOUT, text=True),
-                      tmp, out, time.perf_counter())
-    seconds, logs, failed = {}, {}, []
-    for name, (proc, tmp, out, t0) in jobs.items():
-        logs[name], _ = proc.communicate()
-        seconds[name] = time.perf_counter() - t0
-        if proc.returncode:
-            failed.append(name)
-        else:
-            # atomic, the log first: concurrent builds agree, and a built
-            # library has its log
-            tmp.with_suffix(".log").write_text(logs[name])
-            os.replace(tmp.with_suffix(".log"), out.with_suffix(".log"))
-            os.replace(tmp, out)
+        todo[key] = ([_nvcc(), *flags, "-o", str(tmp), str(src)], tmp, out)
+    queue, running = list(todo), {}
+    seconds, failed = {}, []
+    while queue or running:
+        while queue and len(running) < (os.cpu_count() or 1):
+            key = queue.pop(0)
+            cmd, tmp, _ = todo[key]
+            with open(tmp.with_suffix(".log"), "w") as out_log:
+                running[key] = (subprocess.Popen(
+                    cmd, stdout=out_log, stderr=subprocess.STDOUT),
+                    time.perf_counter())
+        done = [k for k, (proc, _) in running.items()
+                if proc.poll() is not None]
+        if not done:
+            time.sleep(0.05)
+        for key in done:
+            proc, t0 = running.pop(key)
+            seconds[key] = time.perf_counter() - t0
+            _, tmp, out = todo[key]
+            if proc.returncode:
+                failed.append(key)
+            else:
+                # atomic, the log first: concurrent builds agree, and a
+                # built library has its log
+                os.replace(tmp.with_suffix(".log"), out.with_suffix(".log"))
+                os.replace(tmp, out)
     if failed:
         raise RuntimeError("nvcc failed for " + ", ".join(failed) + ":\n"
-                           + "\n".join(logs[n] for n in failed))
+                           + "\n".join(todo[k][1].with_suffix(".log")
+                                        .read_text() for k in failed))
     return seconds
 
 
-def log(name: str) -> str:
-    """``nvcc``'s output for the library built from ``csrc/<name>.cu``
-    (ptxas register, spill and shared-memory lines), built first if
-    needed."""
-    log_path = _target(name)[1].with_suffix(".log")
+def log(name: str, shape=None) -> str:
+    """``nvcc``'s output for the library built from ``csrc/<name>.cu`` at
+    ``shape`` (ptxas register, spill and shared-memory lines), built first
+    if needed."""
+    log_path = _target(name, shape)[1].with_suffix(".log")
     if not log_path.exists():
-        build([name])
+        build([(name, shape)])
     return log_path.read_text()
 
 
-def load(name: str) -> ctypes.CDLL:
-    """The library built from ``csrc/<name>.cu``, built first if needed."""
-    lib = _LIBS.get(name)
+def load(name: str, shape=None) -> ctypes.CDLL:
+    """The library built from ``csrc/<name>.cu`` at ``shape``, built first
+    if needed."""
+    key = (name, _shape(name, shape))
+    lib = _LIBS.get(key)
     if lib is None:
-        _, out = _target(name)
+        _, out, _ = _target(*key)
         if not out.exists():
-            build([name])
-        lib = _LIBS[name] = ctypes.CDLL(str(out))
+            build([key])
+        lib = _LIBS[key] = ctypes.CDLL(str(out))
     return lib
 
 
-def kernel_fn(source: str, name: str, argtypes) -> ctypes._CFuncPtr:
-    """The C entry ``name`` of ``csrc/<source>.cu`` (returning an int),
-    built at first use."""
-    fn = _FNS.get(name)
+def kernel_fn(source: str, name: str, argtypes,
+              shape=None) -> ctypes._CFuncPtr:
+    """The C entry ``name`` of ``csrc/<source>.cu`` (returning an int), at
+    ``shape`` for a source of :data:`SHAPED` (default its
+    :data:`DEFAULT_SHAPES`), built at first use."""
+    key = (source, _shape(source, shape), name)
+    fn = _FNS.get(key)
     if fn is None:
-        fn = getattr(load(source), name)
+        fn = getattr(load(source, key[1]), name)
         fn.argtypes = argtypes
         fn.restype = ctypes.c_int
-        _FNS[name] = fn
+        _FNS[key] = fn
     return fn
 
 

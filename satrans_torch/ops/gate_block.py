@@ -38,16 +38,21 @@ import torch
 
 from ..nn import attention
 from ..nn.attention import MetaTransformerLayer
-from . import prng
+from . import meta_block, prng
 from ._build import (check_operands, kernel_fn, needs_grad, sm_count,
                      stream_of)
 
-# (d, heads) instantiated in csrc/gate_block_{fwd,bwd}.cu, and the most
-# fields an example may have
-KERNEL_SHAPES = frozenset({(32, 4)})
+# the shapes (d, heads) csrc/gate_block_{fwd,bwd}.cu are built for, each
+# its own library at its first launch (ops/_build.py): K1's widths and head
+# counts; and the most fields an example may have
+KERNEL_SHAPES = frozenset((d, heads) for d in meta_block.KERNEL_WIDTHS
+                          for heads in meta_block.KERNEL_HEADS)
+KERNEL_SET = "d in (8, 16, 32, 64), heads in (1, 2, 4, 8)"
 KERNEL_MAX_FIELDS = 20
-# K6-bwd stages every meta row's table in shared memory: at most this many
-# rows (kMaxDomains in csrc/gate_block_bwd.cu, which the launch reads back)
+# K6-bwd sums every meta row's table gradient in each block's slice: at
+# most this many rows at every shape (kMaxDomains in csrc/gate_block_bwd.cu,
+# which the launch reads back; the tables are staged in shared memory
+# where they fit, else read from device memory)
 BWD_MAX_ROWS = 16
 # the field multiple of the JAX kernel's dropout tile (gate_block.py:382)
 PAD_FIELDS = 8
@@ -96,19 +101,20 @@ def _check(x, head_num: int, D: int, train: bool) -> None:
     B, F, d = x.shape
     if (d, head_num) not in KERNEL_SHAPES or F > KERNEL_MAX_FIELDS:
         raise NotImplementedError(
-            f"gate_block kernel is built for (d, heads) in "
-            f"{sorted(KERNEL_SHAPES)} and F <= {KERNEL_MAX_FIELDS}, got "
+            f"gate_block kernel is built for (d, heads) with {KERNEL_SET}: "
+            f"{sorted(KERNEL_SHAPES)}, and F <= {KERNEL_MAX_FIELDS}; got "
             f"({d}, {head_num}) and F={F}")
     if x.dtype != torch.float32:
         raise NotImplementedError(f"gate_block kernel takes float32, got "
                                   f"{x.dtype}")
     if train:
         most = kernel_fn("gate_block_bwd",
-                         "satrans_gate_block_bwd_max_domains", [])()
+                         "satrans_gate_block_bwd_max_domains", [],
+                         shape=(d, head_num))()
         if D > most:
             raise NotImplementedError(
-                f"gate_block_bwd stages every meta row's table in shared "
-                f"memory and takes at most {most} rows, got {D}: more meta "
+                f"gate_block_bwd sums every meta row's table gradient per "
+                f"block and takes at most {most} rows, got {D}: more meta "
                 "rows are ROADMAP queue 2 item 'K1-bwd for many meta rows'")
 
 
@@ -149,7 +155,8 @@ def launch_fwd(x, dom, wqkv, tq, tk, wout, lno, cfg, drop):
     fn = kernel_fn("gate_block_fwd", "satrans_gate_block_fwd",
                    [ctypes.c_void_p] * 8 + [ctypes.c_int] * 11
                    + [ctypes.c_uint, ctypes.c_uint, ctypes.c_float]
-                   + [ctypes.c_int] * 3 + [ctypes.c_void_p])
+                   + [ctypes.c_int] * 3 + [ctypes.c_void_p],
+                   shape=(d, heads))
     err = fn(*(t.data_ptr() for t in ops + (y,)), B, F, d, heads,
              tq.shape[0], bilinear, apply_q, apply_k, relu_out,
              sm_count(x.device), *drop, stream_of(x))
@@ -172,10 +179,12 @@ def launch_bwd(g, x, dom, wqkv, tq, tk, wout, lno, cfg, drop):
     if g.dtype != torch.float32 or g.shape != x.shape:
         raise ValueError(f"gradient of type {g.dtype} and shape "
                          f"{tuple(g.shape)}, want float32 {tuple(x.shape)}")
+    shape = (d, heads)
     blocks = kernel_fn("gate_block_bwd", "satrans_gate_block_bwd_blocks",
-                       [ctypes.c_int] * 3)(B, F, sm_count(x.device))
+                       [ctypes.c_int] * 3, shape=shape)(
+        B, F, sm_count(x.device))
     total = kernel_fn("gate_block_bwd", "satrans_gate_block_bwd_grad_floats",
-                      [ctypes.c_int] * 4)(d, heads, D, bilinear)
+                      [ctypes.c_int] * 4, shape=shape)(d, heads, D, bilinear)
     dx = torch.empty_like(x)
     partial = torch.empty(blocks * total, dtype=torch.float32,
                           device=x.device)
@@ -185,7 +194,7 @@ def launch_bwd(g, x, dom, wqkv, tq, tk, wout, lno, cfg, drop):
     fn = kernel_fn("gate_block_bwd", "satrans_gate_block_bwd",
                    [ctypes.c_void_p] * 11 + [ctypes.c_int] * 11
                    + [ctypes.c_uint, ctypes.c_uint, ctypes.c_float]
-                   + [ctypes.c_int] * 3 + [ctypes.c_void_p])
+                   + [ctypes.c_int] * 3 + [ctypes.c_void_p], shape=shape)
     err = fn(*(t.data_ptr() for t in ops), B, F, d, heads, D, bilinear,
              apply_q, apply_k, relu_out, blocks, *drop, stream_of(x))
     if err:

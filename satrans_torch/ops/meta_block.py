@@ -69,10 +69,16 @@ from . import prng
 from ._build import (check_operands, kernel_fn, needs_grad, sm_count,
                      stream_of)
 
-# (d, h1, h2, heads) instantiated in csrc/meta_block_{fwd,bwd}.cu (with_shape,
-# csrc/layer_common.cuh; h2 = 0: a 2-matrix MetaNet [d, h1, d], else
-# [d, h1, h2, d]), and the most fields an example may have
-KERNEL_SHAPES = frozenset({(32, 64, 0, 4), (32, 64, 64, 4)})
+# the shapes (d, h1, h2, heads) csrc/meta_block_{fwd,bwd}.cu are built for,
+# each its own library at its first launch (ops/_build.py; h2 = 0: a
+# 2-matrix MetaNet [d, h1, d], else [d, h1, h2, d]): every width and head
+# count the reference CLI takes, with its MetaNet (2d, d) and the 3-matrix
+# (2d, 2d, d); and the most fields an example may have
+KERNEL_WIDTHS, KERNEL_HEADS = (8, 16, 32, 64), (1, 2, 4, 8)
+KERNEL_SHAPES = frozenset((d, 2 * d, h2, heads) for d in KERNEL_WIDTHS
+                          for heads in KERNEL_HEADS for h2 in (0, 2 * d))
+KERNEL_SET = ("d in (8, 16, 32, 64), h1 = 2d, h2 in (0, 2d) (a 2- or "
+              "3-matrix MetaNet), heads in (1, 2, 4, 8)")
 # MetaNets of 2 and 3 matrices have a kernel (satrans_tpu/models/
 # satrans.py:372, len(meta_units) in (3, 4))
 KERNEL_DEPTHS = (3, 4)
@@ -180,24 +186,33 @@ def _check(x, meta_units, head_num: int, tables, train: bool) -> None:
             f"meta units {list(meta_units)}: the kernel takes 2- and "
             f"3-matrix MetaNets [d, h1, d] and [d, h1, h2, d] with d={d}; "
             "other depths take the plain layer")
-    h, h2 = hidden_widths(meta_units)
-    if (d, h, h2, head_num) not in KERNEL_SHAPES or F > KERNEL_MAX_FIELDS:
+    shape = (d, *hidden_widths(meta_units), head_num)
+    if shape not in KERNEL_SHAPES or F > KERNEL_MAX_FIELDS:
         raise NotImplementedError(
-            f"meta_block kernel is built for (d, h1, h2, heads) in "
-            f"{sorted(KERNEL_SHAPES)} and F <= {KERNEL_MAX_FIELDS}, got "
-            f"({d}, {h}, {h2}, {head_num}) and F={F}")
+            f"meta_block kernel is built for (d, h1, h2, heads) with "
+            f"{KERNEL_SET}: {sorted(KERNEL_SHAPES)}, and F <= "
+            f"{KERNEL_MAX_FIELDS}; got {shape} and F={F}")
     if x.dtype != torch.float32:
         raise NotImplementedError(f"meta_block kernel takes float32, got "
                                   f"{x.dtype}")
     if train:
         D = tables["Q"].shape[0]
         most = kernel_fn("meta_block_bwd",
-                         "satrans_meta_block_bwd_max_domains", [])()
+                         "satrans_meta_block_bwd_max_domains", [],
+                         shape=shape)()
         if D > most:
+            row = 2 * 4 * sum(a * b for a, b in _meta_blocks(*shape[:3]))
             raise NotImplementedError(
                 f"meta_block_bwd keeps every meta row's gradient sums per "
-                f"block and takes at most {most} rows, got {D}: more meta "
-                "rows are ROADMAP queue 2 item 'K1-bwd for many meta rows'")
+                f"block, {row} bytes a row at {shape}, and takes at most "
+                f"{most} rows there, got {D}: more meta rows are ROADMAP "
+                "queue 2 item 'K1-bwd for many meta rows'")
+
+
+def _meta_blocks(d: int, h: int, h2: int):
+    """The ``(rows, cols)`` of a MetaNet's matrices, W1, Wm (none for
+    ``h2 = 0``) and W2."""
+    return [(d, h)] + ([(h, h2)] if h2 else []) + [(h2 or h, d)]
 
 
 def _residual_shapes(B: int, F: int, d: int, heads: int, stash: str):
@@ -247,7 +262,8 @@ def launch_fwd(x, dom, wqkv, w1q, wmq, w2q, lnq, w1k, wmk, w2k, lnk, wout,
     fn = kernel_fn("meta_block_fwd", "satrans_meta_block_fwd",
                    [ctypes.c_void_p] * 19 + [ctypes.c_int] * 13
                    + [ctypes.c_uint, ctypes.c_uint, ctypes.c_float]
-                   + [ctypes.c_int] * 3 + [ctypes.c_void_p])
+                   + [ctypes.c_int] * 3 + [ctypes.c_void_p],
+                   shape=(d, h, h2, heads))
     err = fn(*ptrs(ops + (y,)), *_residual_ptrs(res, stash),
              _STASH_MODE[stash], B, F, d, h, h2, heads, w1q.shape[0],
              apply_q, apply_k, relu_out, sm_count(x.device), *drop,
@@ -292,9 +308,11 @@ def launch_bwd(g, x, dom, wqkv, w1q, wmq, w2q, lnq, w1k, wmk, w2k, lnk,
             raise ValueError(f"residuals of shapes "
                              f"{[tuple(r.shape) for r in res]}, want {want}")
         check_operands(res, x.device)
+    shape = (d, h, h2, heads)
     blocks = kernel_fn("meta_block_bwd",
                        "satrans_meta_block_bwd_stash_blocks",
-                       [ctypes.c_int] * 3)(B, F, sm_count(x.device))
+                       [ctypes.c_int] * 3, shape=shape)(
+        B, F, sm_count(x.device))
     total = grad_floats(d, h, h2, heads, D)
     dx = torch.empty_like(x)
     partial = torch.empty(blocks * total, dtype=torch.float32,
@@ -306,7 +324,7 @@ def launch_bwd(g, x, dom, wqkv, w1q, wmq, w2q, lnq, w1k, wmk, w2k, lnk,
     fn = kernel_fn("meta_block_bwd", "satrans_meta_block_bwd",
                    [ctypes.c_void_p] * 22 + [ctypes.c_int] * 13
                    + [ctypes.c_uint, ctypes.c_uint, ctypes.c_float]
-                   + [ctypes.c_int] * 3 + [ctypes.c_void_p])
+                   + [ctypes.c_int] * 3 + [ctypes.c_void_p], shape=shape)
     err = fn(*ptrs(ops), *_residual_ptrs(res, stash), _STASH_MODE[stash],
              B, F, d, h, h2, heads, D, apply_q, apply_k, relu_out, blocks,
              *drop, stream_of(x))
@@ -327,7 +345,8 @@ def grad_floats(d: int, h: int, h2: int, heads: int, rows: int) -> int:
     rows (K1's domains, K7's tiles; 0: a block's dense and LayerNorm sums
     alone)."""
     return kernel_fn("meta_block_bwd", "satrans_meta_block_bwd_grad_floats",
-                     [ctypes.c_int] * 5)(d, h, h2, heads, rows)
+                     [ctypes.c_int] * 5, shape=(d, h, h2, heads))(
+        d, h, h2, heads, rows)
 
 
 def split_grads(grads, d: int, h: int, h2: int, D: int):

@@ -57,8 +57,7 @@ from . import meta_block, prng
 from ._build import (check_operands, kernel_fn, needs_grad, sm_count,
                      stream_of)
 
-# (d, h1, h2, heads) and the most fields: K1's instantiations (the same
-# sources)
+# (d, h1, h2, heads) and the most fields: K1's shapes (the same sources)
 KERNEL_SHAPES = meta_block.KERNEL_SHAPES
 # the dispatch tiles K7 takes: an even number of slots (16 and 32 on the
 # model's path)
@@ -159,7 +158,8 @@ def launch_fwd(x, wqkv, w1q, wmq, w2q, lnq, w1k, wmk, w2k, lnk, wout, lno,
     fn = kernel_fn("meta_block_fwd", "satrans_tiled_meta_fwd",
                    [ctypes.c_void_p] * 19 + [ctypes.c_int] * 14
                    + [ctypes.c_uint, ctypes.c_uint, ctypes.c_float]
-                   + [ctypes.c_int] * 3 + [ctypes.c_void_p])
+                   + [ctypes.c_int] * 3 + [ctypes.c_void_p],
+                   shape=(d, h, h2, heads))
     mode = "full" if stash else None
     err = fn(*meta_block.ptrs(ops + (tile_count, y)),
              *meta_block._residual_ptrs(res, mode),
@@ -212,10 +212,11 @@ def launch_bwd(g, x, wqkv, w1q, wmq, w2q, lnq, w1k, wmk, w2k, lnk, wout,
     if blocks < 1:
         raise ValueError(f"a grid of {blocks} blocks")
     dx = torch.empty_like(x)
+    shape = (d, h, h2, heads)
     scratch = torch.empty(kernel_fn(
         "meta_block_bwd", "satrans_tiled_meta_bwd_scratch_floats",
-        [ctypes.c_int] * 5)(d, h, h2, heads, blocks), dtype=torch.float32,
-        device=x.device)
+        [ctypes.c_int] * 5, shape=shape)(d, h, h2, heads, blocks),
+        dtype=torch.float32, device=x.device)
     grads = torch.empty(meta_block.grad_floats(d, h, h2, heads, T),
                         dtype=torch.float32, device=x.device)
     ops = (x, g, wqkv, w1q, wmq, w2q, lnq, w1k, wmk, w2k, lnk, wout, lno,
@@ -225,7 +226,7 @@ def launch_bwd(g, x, wqkv, w1q, wmq, w2q, lnq, w1k, wmk, w2k, lnk, wout,
     fn = kernel_fn("meta_block_bwd", "satrans_tiled_meta_bwd",
                    [ctypes.c_void_p] * 22 + [ctypes.c_int] * 14
                    + [ctypes.c_uint, ctypes.c_uint, ctypes.c_float]
-                   + [ctypes.c_int] * 3 + [ctypes.c_void_p])
+                   + [ctypes.c_int] * 3 + [ctypes.c_void_p], shape=shape)
     mode = None if res is None else "full"
     err = fn(*meta_block.ptrs(ops), *meta_block._residual_ptrs(res, mode),
              meta_block._STASH_MODE[mode], n_slots, F, d, h, h2, heads,

@@ -248,6 +248,23 @@ def _port_layout_to_jax(layout):
 
 
 def test_cli_run_matches_jax(tmp_path, monkeypatch, capsys):
+    _cli_run_matches_jax(tmp_path, monkeypatch, capsys, [], 32, 4)
+
+
+def test_cli_run_matches_jax_at_width_8(tmp_path, monkeypatch, capsys):
+    """The JAX package's own CLI test's width and heads (its
+    tests/test_cli_aliccp.py runs SATrans at ``--embedding_dim 8
+    --att_head_num 2``), which the port's kernels take on the card."""
+    _cli_run_matches_jax(tmp_path, monkeypatch, capsys,
+                         ["--embedding_dim", "8", "--att_head_num", "2"], 8,
+                         2)
+
+
+def _cli_run_matches_jax(tmp_path, monkeypatch, capsys, extra, d, heads):
+    """One whole CLI run per side with ``CLI_ARGV + extra`` (width ``d``,
+    ``heads`` heads): the test predictions, the report's AUCs and loss,
+    the attention statistics and the instance dumps; then the port's
+    checkpoint restored for finetuning."""
     jbuild, tbuild = jcli.build_model, tcli.build_model
 
     def jax_build(*a, **k):
@@ -269,12 +286,13 @@ def test_cli_run_matches_jax(tmp_path, monkeypatch, capsys):
     runs = {}
     for side, cli in (("jax", jcli), ("port", tcli)):
         res, ck = tmp_path / f"{side}_res", tmp_path / f"{side}_ck"
-        argv = CLI_ARGV + ["--results_dir", str(res), "--checkpoint_dir",
-                           str(ck)]
+        argv = CLI_ARGV + extra + ["--results_dir", str(res),
+                                   "--checkpoint_dir", str(ck)]
         kw = {"device": "cpu"} if side == "port" else {}
         runs[side] = (cli.main(argv, **kw), res, ck)
 
-    config = "SATrans_32_0.001_1_4_Query_1024_domain_showattn_instattn_dump"
+    config = (f"SATrans_{d}_0.001_1_{heads}_Query_1024_domain_"
+              "showattn_instattn_dump")
     (_, jres, jck), (_, tres, tck) = runs["jax"], runs["port"]
     pred_j = pickle.load(open(jck / f"{config}_testpred.pkl", "rb"))
     pred = pickle.load(open(tck / f"{config}_testpred.pkl", "rb"))
@@ -282,7 +300,8 @@ def test_cli_run_matches_jax(tmp_path, monkeypatch, capsys):
     np.testing.assert_allclose(pred, pred_j, atol=1e-4)
 
     # the CSV rows: the config equal, the AUCs unrounded within 1e-4
-    test = tcli.load_dataset(tcli.parse_args(CLI_ARGV), "", "domain")[1]
+    test = tcli.load_dataset(tcli.parse_args(CLI_ARGV + extra), "",
+                             "domain")[1]
     y, dom = test["click"], test["domain"]
     rows = {}
     for side, res in (("jax", jres), ("port", tres)):
@@ -309,8 +328,9 @@ def test_cli_run_matches_jax(tmp_path, monkeypatch, capsys):
     assert len(differ) <= 2, differ
 
     # the port's checkpoint restores for finetuning
-    argv = CLI_ARGV + ["--results_dir", str(tres), "--checkpoint_dir",
-                       str(tck), "--finetune", "True"]
+    argv = CLI_ARGV + extra + ["--results_dir", str(tres),
+                               "--checkpoint_dir", str(tck), "--finetune",
+                               "True"]
     capsys.readouterr()
     tcli.main(argv, device="cpu")
     assert "restored checkpoint for finetuning" in capsys.readouterr().out
