@@ -223,6 +223,24 @@ Phases, each of which exits non-zero on failure:
    line gives each layer kernel's fields by shape (``widths``) and its
    launches on these paths.
 
+19. many meta rows (K1's backwards past the rows their blocks' slices
+   hold walk the batch sorted by domain row; K6-bwd keeps every row in its
+   slices): (a) at d = 32, 4 heads, B = 8192, dropout 0.1, K1's four
+   forwards (output and residuals) and three backwards (every gradient)
+   at 56 and 64 rows, K6-fwd and K6-bwd (gate at 56, 64, 98 and 128 rows,
+   bilinear at 56, 64 and 128) against their plain versions; (b) K1's
+   backwards timed at 4, 56 and 64 rows (d = 32 / 4 heads) and 4, 14 and
+   32 (d = 64 / 8 heads), K6-bwd at 4 to 256 rows, each with its scratch
+   bytes, bound and plain time, and the sorted walk's scratch at every
+   shape of the set at the JAX cap; (c) at the AliCCP sota width: the gate
+   and the bilinear map on scenario columns 301 and 122 (56 rows), 3
+   ``lazy`` steps and a request of 20,000 each; the gate on 121 (98
+   rows), 3 ``lazy`` steps; d = 64, 8 heads, metanet on 122 (14 rows), 3
+   ``lazy`` stash and 3 ``dense`` recompute steps; a metanet on one column
+   of 63 values (64 rows), 3 ``lazy`` stash steps.  Every path's launches
+   counted from 0 with the plain layer's calls (none) and each step's
+   device busy time.
+
 Phases 2 and 4 also hold K1 where a share of the attention logits passes
 the kernels' clamp at 60 against the clamped plain layer.
 
@@ -350,19 +368,25 @@ TILE_SOURCES = {n: "satrans_torch/csrc/meta_stash_" + (
     "meta_block_bwd", "meta_block_bwd_stash_light", "tiled_meta_bwd",
     "tiled_meta_bwd_stash")}
 # the tile bodies (csrc/meta_stash_fwd.cuh, csrc/meta_stash_bwd.cuh) by
-# kernel, mode (enum StashMode) and K7 (TILED), as the JSON line names them
+# kernel, mode (enum StashMode) and walk (the forward's TILED; the
+# backward's enum BwdWalk: 0 K1 on its blocks' slices, 1 K7, 2 K1 past its
+# slice rows on the batch sorted by domain row), as the JSON line names
+# them (the sorted walk's bodies under "_sorted")
 TILE_BODIES = {
-    ("meta_stash_fwd_kernel", 0, False): "meta_block_fwd",
-    ("meta_stash_fwd_kernel", 1, False): "meta_block_fwd_stash",
-    ("meta_stash_fwd_kernel", 2, False): "meta_block_fwd_stash_light",
-    ("meta_stash_fwd_kernel", 3, False): "meta_block_fwd_scores",
-    ("meta_stash_fwd_kernel", 0, True): "tiled_meta_fwd",
-    ("meta_stash_fwd_kernel", 1, True): "tiled_meta_fwd_stash",
-    ("meta_stash_bwd_kernel", 0, False): "meta_block_bwd",
-    ("meta_stash_bwd_kernel", 1, False): "meta_block_bwd_stash",
-    ("meta_stash_bwd_kernel", 2, False): "meta_block_bwd_stash_light",
-    ("meta_stash_bwd_kernel", 1, True): "tiled_meta_bwd_stash",
-    ("meta_stash_bwd_kernel", 0, True): "tiled_meta_bwd"}
+    ("meta_stash_fwd_kernel", 0, 0): "meta_block_fwd",
+    ("meta_stash_fwd_kernel", 1, 0): "meta_block_fwd_stash",
+    ("meta_stash_fwd_kernel", 2, 0): "meta_block_fwd_stash_light",
+    ("meta_stash_fwd_kernel", 3, 0): "meta_block_fwd_scores",
+    ("meta_stash_fwd_kernel", 0, 1): "tiled_meta_fwd",
+    ("meta_stash_fwd_kernel", 1, 1): "tiled_meta_fwd_stash",
+    ("meta_stash_bwd_kernel", 0, 0): "meta_block_bwd",
+    ("meta_stash_bwd_kernel", 1, 0): "meta_block_bwd_stash",
+    ("meta_stash_bwd_kernel", 2, 0): "meta_block_bwd_stash_light",
+    ("meta_stash_bwd_kernel", 1, 1): "tiled_meta_bwd_stash",
+    ("meta_stash_bwd_kernel", 0, 1): "tiled_meta_bwd",
+    ("meta_stash_bwd_kernel", 0, 2): "meta_block_bwd_sorted",
+    ("meta_stash_bwd_kernel", 1, 2): "meta_block_bwd_stash_sorted",
+    ("meta_stash_bwd_kernel", 2, 2): "meta_block_bwd_stash_light_sorted"}
 
 
 def check(ok: bool, what: str) -> None:
@@ -754,11 +778,13 @@ def _tile_body(mangled: str):
         if kernel in mangled:
             return name + ("_bilinear" if re.findall(r"Lb(\d)E", mangled)
                            == ["1"] else "")
-    for (kernel, mode, tiled), name in TILE_BODIES.items():
+    for (kernel, mode, walk), name in TILE_BODIES.items():
         if kernel in mangled:
-            d, h, h2, heads, m = map(int, re.findall(r"Li(\d+)E", mangled))
-            flag = re.findall(r"Lb(\d)E", mangled)
-            if m == mode and tiled == (flag == ["1"]):
+            ints = list(map(int, re.findall(r"Li(\d+)E", mangled)))
+            d, h, h2, heads, m = ints[:5]
+            w = ints[5] if len(ints) > 5 else int(
+                re.findall(r"Lb(\d)E", mangled) == ["1"])
+            if m == mode and w == walk:
                 return name + ("_3mat" if h2 else "")
     return None
 
@@ -5235,6 +5261,435 @@ def widths_phase(dev, card, built):
     return fields, paths
 
 
+# Phase 19: many meta rows.  K1's backwards past their slice rows walk the
+# batch sorted by domain row (kSorted), K6-bwd keeps every row in its
+# blocks' slices: both checked at the composite's 56 rows and the JAX cap
+# at d = 32 (64), K6 also at 98 and 128 rows (the gate's tables staged in
+# shared memory up to 133, the bilinear maps' up to 33); each timed at B =
+# 8192 beside its 4-row time in the same call, with its scratch bytes
+MANY_ROWS_CHECK = {"metanet": (56, 64), "gate": (56, 64, 98, 128),
+                   "bilinear": (56, 64, 128)}
+MANY_ROWS_K1_TIMES = ((32, 4, (4, 56, 64)), (64, 8, (4, 14, 32)))
+# the gate also on 1372 rows: ``--domain_col 121-122`` (98 x 14), the
+# composite of AliCCP's two scenario columns of most values
+MANY_ROWS_K6_TIMES = {"gate": (4, 56, 98, 256, 1372),
+                      "bilinear": (4, 56, 128)}
+# the JAX kernel route's bound on meta rows x the widest hidden layer
+ROUTE_WIDTH = 4096
+# path 4: a single scenario column of 63 values (64 rows, the JAX cap at d
+# = 32): AliCCP's 121 (97 values) drawn over 1..63
+CAP_COL, CAP_DOMAINS = "121", 63
+# path 2: AliCCP's 121 as it is, 98 rows
+COL121_DOMAINS = 97
+
+
+def many_rows_tables(gen, rows):
+    """The metanet layer of :func:`test_layer` with a ``rows``-row table,
+    and the gate and bilinear layers (d = 32, 4 heads) with ``rows``-row
+    tables."""
+    from satrans_torch.nn import attention, initializers as init, metanet
+    layer = attention.MetaTransformerLayer(gen, 32)
+    with torch.no_grad():
+        layer.q_meta.ln.scale.add_(init.normal(gen, (32,), 0.1))
+        layer.q_meta.ln.bias.add_(init.normal(gen, (32,), 0.1))
+    table = init.normal(gen, (rows, metanet.param_size(UNITS2)), 0.1)
+    simple = {}
+    for variant in ("gate", "bilinear"):
+        lay = attention.MetaTransformerLayer(gen, 32, variant=variant)
+        names = ("Q", "K") if variant == "gate" else ("bilinear",)
+        width = 32 if variant == "gate" else 32 * 8
+        simple[variant] = (lay, {n: init.normal(gen, (rows, width), 0.5)
+                                 for n in names})
+    return layer, table, simple
+
+
+def many_rows_check(dev):
+    """Phase 19a: at d = 32, 4 heads, B = 8192, F = 19, QK, dropout 0.1 and
+    rows uniform over the table: K1-fwd, K1-stash, K1-stash light and
+    K1-scores (the output and every residual) and K1-bwd, K1-bwd-stash and
+    K1-bwd-stash light (every gradient, on the sorted walk) at 56 and 64
+    rows; K6-fwd and K6-bwd, gate at 56, 64, 98 and 128 rows and bilinear
+    at 56, 64 and 128, against their plain versions (KERNEL_TOL, GRAD_RTOL
+    / GRAD_ATOL).  Returns the worst error by kernel."""
+    from satrans_torch.nn import initializers as init
+    from satrans_torch.ops import gate_block, meta_block, prng
+    from satrans_torch.utils import make_generator
+    F, B = 19, BATCH
+    kw = dict(meta_units=UNITS2, head_num=4, mode="QK", relu_out=False)
+    drop = dict(train=True, drop_rate=DROP_RATE, seed=DROP_SEED,
+                block_b=DROP_TILE)
+    kargs = prng.kernel_args(True, DROP_RATE, DROP_SEED, DROP_TILE, F)
+    errs = {}
+
+    def worst(name, err):
+        errs[name] = max(errs.get(name, 0.0), err)
+
+    rows_all = sorted(set(sum(MANY_ROWS_CHECK.values(), ())))
+    for rows in rows_all:
+        gen = make_generator(SEED + 190 + rows, dev)
+        layer, table, simple = many_rows_tables(gen, rows)
+        tables = shared(table)
+        x = init.normal(gen, (B, F, 32), 1.0)
+        g = init.normal(gen, (B, F, 32), 1.0)
+        dom = torch.randint(0, rows, (B,), generator=gen, device=dev)
+        if rows in MANY_ROWS_CHECK["metanet"]:
+            check(meta_block.slice_rows((32, 64, 0, 4)) < rows,
+                  f"{rows} rows are within K1's slices")
+            masks = meta_block.layer_masks(x, head_num=4, mode="QK", **drop)
+            ops, cfg = meta_block.pack_operands(x, layer, tables, dom, **kw)
+            ops = [t if t is None else t.detach() for t in ops]
+            res = {}
+            with torch.no_grad():
+                want = meta_block.meta_layer_reference(
+                    x, layer, tables, dom, **kw, masks=masks, residuals=res)
+                worst("meta_block_fwd", close_err(meta_block.launch_fwd(
+                    *ops, cfg, kargs), want, f"K1-fwd {rows} rows"))
+                for stash, name in (("full", "meta_block_fwd_stash"),
+                                    ("light", "meta_block_fwd_stash_light"),
+                                    ("scores", "meta_block_fwd_scores")):
+                    got = meta_block.launch_fwd(*ops, cfg, kargs,
+                                                stash=stash)
+                    worst(name, close_err(got[0], want,
+                                          f"{name} y, {rows} rows"))
+                    for rn, a in zip(meta_block.STASH_RESIDUALS[stash],
+                                     got[1:]):
+                        worst(name, close_err(a, res[rn],
+                                              f"{name} {rn}, {rows} rows"))
+            del res, ops
+            gk, _ = kink_free(g, x, layer, tables, dom, masks, **kw)
+            want_g = layer_grads(meta_block.meta_layer_reference, x, layer,
+                                 tables, dom, gk, **kw, masks=masks)
+            for bwd in ("stash", "stash_light", "recompute"):
+                got_g = layer_grads(meta_block.fused_meta_layer, x, layer,
+                                    tables, dom, gk, **kw, **drop, bwd=bwd)
+                worst(K1_BWD_NAME[bwd],
+                      max(grad_errors(got_g, want_g).values()))
+        kw6 = dict(head_num=4, mode="QK", relu_out=False)
+        masks6 = gate_block.layer_masks(x, head_num=4, **drop)
+        for variant, (lay, tabs) in simple.items():
+            if rows not in MANY_ROWS_CHECK[variant]:
+                continue
+            with torch.no_grad():
+                worst("gate_block_fwd", close_err(
+                    gate_block.fused_simple_layer(x, lay, tabs, dom, **kw6,
+                                                  **drop),
+                    gate_block.simple_layer_reference(
+                        x, lay, tabs, dom, **kw6, masks=masks6),
+                    f"K6-fwd {variant} {rows} rows"))
+            got_g = gate_grads(gate_block.fused_simple_layer, x, lay, tabs,
+                               dom, g, **kw6, **drop)
+            want_g6 = gate_grads(gate_block.simple_layer_reference, x, lay,
+                                 tabs, dom, g, **kw6, masks=masks6)
+            worst("gate_block_bwd", max(grad_errors(got_g,
+                                                    want_g6).values()))
+        gc.collect()
+        torch.cuda.empty_cache()
+    return errs
+
+
+def sorted_scratch_bytes(d, h, h2, rows, B=BATCH):
+    """K1's backward scratch on the sorted walk, in bytes: a block's dense
+    and LayerNorm sums (dWqkv, dWout: 4 d^2; the LayerNorms' 6 rows) and its
+    two boundary slots of both MetaNets' blocks (4 x the MetaNet's
+    floats); and the sort's ints on ``rows`` rows (rank, perm and the
+    sorted rows of the B examples, a count a row a chunk of 256 and the
+    rows' starts).  Returns (bytes a block, bytes of the sort)."""
+    per_block = 4 * d * d + 6 * d + 4 * _meta_floats(d, h, h2)
+    chunks = -(-B // 256)
+    return 4 * per_block, 4 * (3 * B + chunks * rows + rows + 1)
+
+
+def many_rows_scratch(sms):
+    """The sorted walk's scratch at every shape of the kernels' set at the
+    JAX cap (4096 / the widest hidden layer rows), B = 8192 on ``sms``
+    blocks, held against the C entry's count where the shape's library is
+    built.  Returns the bytes by shape."""
+    import ctypes
+    from satrans_torch.ops import _build, meta_block
+    table = {}
+    for shape in sorted(meta_block.KERNEL_SHAPES):
+        d, h, h2, heads = shape
+        cap = ROUTE_WIDTH // max(h, h2)
+        per_block, sort = sorted_scratch_bytes(d, h, h2, cap)
+        total = sms * per_block + sort
+        if _build._target("meta_block_bwd", shape)[1].exists():
+            blocks = meta_block.kernel_fn(
+                "meta_block_bwd", "satrans_meta_block_bwd_stash_blocks",
+                [ctypes.c_int] * 3, shape=shape)(BATCH, 19, sms)
+            got = 4 * meta_block.scratch_floats(shape, BATCH, cap, blocks)
+            check(blocks == sms and got == total,
+                  f"scratch at {shape}: the C entry counts {got} bytes on "
+                  f"{blocks} blocks, the formula {total}")
+        table[str(list(shape))] = dict(rows=cap, block_bytes=per_block,
+                                       sort_bytes=sort, total_bytes=total)
+    most = max(v["block_bytes"] for v in table.values())
+    print(f"many rows: the sorted walk's scratch at the JAX cap, B = "
+          f"{BATCH} on {sms} blocks, by (d, h1, h2, heads): "
+          + "; ".join(f"{k} {v['rows']} rows {v['block_bytes']} B a block "
+                      f"+ {v['sort_bytes']} B sort = {v['total_bytes']} B"
+                      for k, v in table.items())
+          + f"; at most {most} B a block", flush=True)
+    check(most <= 1 << 20, f"the sorted walk's scratch, {most} B a block, "
+                           "passes 1 MiB")
+    return table
+
+
+def many_rows_time(dev, card):
+    """Phase 19b: B = 8192, F = 19, QK, dropout 0.1, CUDA events, the calls
+    back to back: K1-bwd-stash, K1-bwd-stash light and K1-bwd at d = 32 / 4
+    heads on 4, 56 and 64 rows and at d = 64 / 8 heads on 4, 14 and 32
+    rows (4 rows on the blocks' slices, the rest on the sorted walk), and
+    the unchanged K1-fwd and K1-stash beside them with their bounds;
+    K6-bwd, gate on 4, 56, 98, 256 and 1372 rows and bilinear on 4, 56
+    and 128; each with its walk or staging, scratch bytes, bound and the
+    plain layer's autograd backward.  Returns the fields by kernel and case."""
+    import ctypes
+    from satrans_torch.nn import attention, initializers as init, metanet
+    from satrans_torch.ops import gate_block, meta_block, prng
+    from satrans_torch.utils import make_generator
+    F, B = 19, BATCH
+    out = {n: {} for n in ("meta_block_bwd", "meta_block_bwd_stash",
+                           "meta_block_bwd_stash_light", "meta_block_fwd",
+                           "meta_block_fwd_stash", "gate_block_bwd")}
+    kargs = prng.kernel_args(True, DROP_RATE, DROP_SEED, DROP_TILE, F)
+    masks_kw = dict(train=True, drop_rate=DROP_RATE, seed=DROP_SEED,
+                    block_b=DROP_TILE)
+    sms = meta_block.sm_count(dev)
+    for d, heads, rows_list in MANY_ROWS_K1_TIMES:
+        units, h = (d, 2 * d, d), 2 * d
+        shape = (d, h, 0, heads)
+        kw = dict(meta_units=units, head_num=heads, mode="QK",
+                  relu_out=False)
+        blocks = meta_block.kernel_fn(
+            "meta_block_bwd", "satrans_meta_block_bwd_stash_blocks",
+            [ctypes.c_int] * 3, shape=shape)(B, F, sms)
+        gen = make_generator(SEED + 200 + d, dev)
+        layer = attention.MetaTransformerLayer(gen, d)
+        x = init.normal(gen, (B, F, d), 1.0)
+        g = init.normal(gen, (B, F, d), 1.0)
+        masks = meta_block.layer_masks(x, head_num=heads, mode="QK",
+                                       **masks_kw)
+        for rows in rows_list:
+            table = init.normal(gen, (rows, metanet.param_size(units)), 0.1)
+            dom = torch.randint(0, rows, (B,), generator=gen, device=dev)
+            ops, cfg = meta_block.pack_operands(x, layer, shared(table), dom,
+                                                **kw)
+            ops = [t if t is None else t.detach() for t in ops]
+            walk = "slices" if rows <= meta_block.slice_rows(shape) \
+                else "sorted"
+            scratch = 4 * meta_block.scratch_floats(shape, B, rows, blocks)
+            with torch.no_grad():
+                # the forwards (unchanged) beside them
+                for stash, name in ((None, "meta_block_fwd"),
+                                    ("full", "meta_block_fwd_stash")):
+                    ms = time_ms(lambda: meta_block.launch_fwd(
+                        *ops, cfg, kargs, stash=stash), iters=20)
+                    b_ms, b_by = meta_layer_bound_ms(B, F, d, h, heads,
+                                                     rows, 1, 1, stash=stash)
+                    out[name][f"d{d}h{heads}_{rows}rows"] = dict(
+                        ms=ms, bound_ms=b_ms, bound_by=b_by)
+                res = {s: meta_block.launch_fwd(*ops, cfg, kargs,
+                                                stash=s)[1:]
+                       for s in ("full", "light")}
+                for r, name, stash in (
+                        (res["full"], "meta_block_bwd_stash", "full"),
+                        (res["light"], "meta_block_bwd_stash_light",
+                         "light"), (None, "meta_block_bwd", None)):
+                    ms = time_ms(lambda: meta_block.launch_bwd(
+                        g, *ops, cfg, kargs, res=r), iters=20)
+                    b_ms, b_by = meta_layer_bwd_bound_ms(
+                        B, F, d, h, heads, rows, 1, 1, stash=stash)
+                    out[name][f"d{d}h{heads}_{rows}rows"] = dict(
+                        ms=ms, bound_ms=b_ms, bound_by=b_by, walk=walk,
+                        scratch_bytes=scratch, blocks=blocks)
+            del res
+            xr = x.detach().requires_grad_(True)
+            tr = table.detach().requires_grad_(True)
+            yr = meta_block.meta_layer_reference(xr, layer, shared(tr), dom,
+                                                 **kw, masks=masks)
+            pb_ms = time_ms(lambda: torch.autograd.grad(
+                yr, [xr, tr, *layer.parameters()], g, retain_graph=True),
+                iters=3)
+            del yr
+            for name in K1_BWD_NAME.values():
+                out[name][f"d{d}h{heads}_{rows}rows"]["plain_ms"] = pb_ms
+            gc.collect()
+            torch.cuda.empty_cache()
+    gen = make_generator(SEED + 210, dev)
+    x = init.normal(gen, (B, F, 32), 1.0)
+    g = init.normal(gen, (B, F, 32), 1.0)
+    masks6 = gate_block.layer_masks(x, head_num=4, **masks_kw)
+    kg = prng.kernel_args(True, DROP_RATE, DROP_SEED, DROP_TILE, F,
+                          pad_mult=gate_block.PAD_FIELDS)
+    kw6 = dict(head_num=4, mode="QK", relu_out=False)
+    blocks = gate_block.kernel_fn(
+        "gate_block_bwd", "satrans_gate_block_bwd_blocks",
+        [ctypes.c_int] * 3)(B, F, sms)
+    floats = gate_block.kernel_fn(
+        "gate_block_bwd", "satrans_gate_block_bwd_grad_floats",
+        [ctypes.c_int] * 4)
+    smem = gate_block.kernel_fn(
+        "gate_block_bwd", "satrans_gate_block_bwd_smem", [ctypes.c_int] * 5)
+    for variant, rows_list in MANY_ROWS_K6_TIMES.items():
+        bil = int(variant == "bilinear")
+        for rows in rows_list:
+            lay = attention.MetaTransformerLayer(gen, 32, variant=variant)
+            names = ("Q", "K") if variant == "gate" else ("bilinear",)
+            width = 32 if variant == "gate" else 32 * 8
+            tabs = {n: init.normal(gen, (rows, width), 0.5) for n in names}
+            dom = torch.randint(0, rows, (B,), generator=gen, device=dev)
+            ops6, cfg6 = gate_block.pack_operands(x, lay, tabs, dom, **kw6)
+            ops6 = [t.detach() for t in ops6]
+            ms = time_ms(lambda: gate_block.launch_bwd(g, *ops6, cfg6, kg),
+                         iters=20)
+            b_ms, b_by = gate_layer_bound_ms(B, F, 32, 4, rows, variant, 1,
+                                             1, bwd=True)
+            # the tables are staged where the body's layout with them fits
+            staged = smem(32, 4, rows, bil, F) > smem(32, 4, 0, bil, F)
+            trs = {k: t.detach().requires_grad_(True)
+                   for k, t in tabs.items()}
+            xr = x.detach().requires_grad_(True)
+            yr = gate_block.simple_layer_reference(xr, lay, trs, dom, **kw6,
+                                                   masks=masks6)
+            pb_ms = time_ms(lambda: torch.autograd.grad(
+                yr, [xr, *trs.values(), *lay.parameters()], g,
+                retain_graph=True), iters=3)
+            del yr
+            out["gate_block_bwd"][f"{variant}_{rows}rows"] = dict(
+                ms=ms, bound_ms=b_ms, bound_by=b_by, plain_ms=pb_ms,
+                scratch_bytes=4 * blocks * floats(32, 4, rows, bil),
+                blocks=blocks, tables_staged=staged)
+    for name, cases in out.items():
+        print(f"many rows {name} [{card}]: " + "; ".join(
+            f"{c} " + " ".join(f"{k} {v:.4f}" if isinstance(v, float)
+                               else f"{k} {v}" for k, v in f.items())
+            for c, f in cases.items()), flush=True)
+    base = out["meta_block_bwd_stash"]["d32h4_4rows"]["ms"]
+    print(f"many rows: K1-bwd-stash at the AliCCP sota shape (4 rows) "
+          f"{base:.4f} ms, {100 * (base / 0.7636 - 1):+.1f} % against "
+          f"PERF.md's 0.7636 ms [{card}]", flush=True)
+    return out
+
+
+def many_rows_paths(dev, card):
+    """Phase 19c: the reference CLI's many-row configurations at the AliCCP
+    sota width (19 fields with the real vocab sizes, 3 layers, batch 8192,
+    dropout 0.1), each path counted from 0 with the plain layer's calls
+    (none) and each step's device busy time (:func:`width_steps`): (1) the
+    gate and the bilinear map on scenario columns 301 and 122 (56
+    composite rows, K6), 3 ``lazy`` steps and a request of REQUEST_ROWS
+    each (against the plain path); (2) the gate on 121 (98 rows), 3
+    ``lazy`` steps; (3) d = 64, 8 heads, metanet on 122 (14 rows, K1 past
+    its slice rows there), 3 ``lazy`` stash steps and 3 ``dense``
+    recompute steps; (4) d = 32, metanet on one column of 63 values (64
+    rows, the JAX cap), 3 ``lazy`` stash steps.  Returns the launches by
+    path."""
+    from satrans_torch.data import aliccp
+    from satrans_torch.serving import Predictor
+    from satrans_torch.train import Trainer
+    x, y = training_data()
+    rng = np.random.default_rng(SEED + 21)
+    req = {n: rng.integers(1, aliccp.DATA_MAX[n] + 1, REQUEST_ROWS)
+           for n in aliccp.SPARSE_FEATURES}
+    batches = -(-REQUEST_ROWS // BATCH)
+    paths = {}
+    gate_step = (1, 1) + NO_K1 + NO_K7
+
+    def trained(model, bank="lazy"):
+        trainer = Trainer(model, seed=SEED, device=dev)
+        trainer.compile(learning_rate=TRAIN_LR, bank_update=bank)
+        model.train()
+        return trainer
+
+    def freed():
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    for variant in ("gate", "bilinear"):
+        tag = f"301_122_{variant}"
+        model = width_model(dev, 32, 4, variant, cols=MULTICOL_COLS,
+                            domains=MULTICOL_DOMAINS)
+        check(model.meta_rows == MULTICOL_ROWS and model.simple_kernel
+              and not model.tiled, f"{tag}: not K6 on {model.meta_rows} "
+                                   "rows")
+        trainer = trained(model)
+        paths[f"many_train_{tag}"] = width_steps(
+            card, f"many rows {tag} lazy", trainer,
+            staged_batch(trainer, x, y), gate_step)
+        model.eval()
+        pred = Predictor(model, batch_size=BATCH, device=dev)
+        t0 = time.perf_counter()
+        scores, paths[f"many_serve_{tag}"] = width_run(
+            card, f"many rows {tag} serve", lambda: pred(req),
+            (batches * LAYERS, 0) + NO_K1 + NO_K7)
+        wall = time.perf_counter() - t0
+        device_profile(f"many rows {tag}: one request of {REQUEST_ROWS}",
+                       lambda: pred(req), 1e3 * wall, card, top=6)
+        model.route = "plain"
+        want = Predictor(model, batch_size=BATCH, device=dev)(req)
+        model.route = "kernel"
+        diff = float(np.abs(scores - want).max())
+        check(bool(np.all(np.isfinite(scores))) and diff <= SERVING_TOL,
+              f"many rows {tag} serve: scores differ from the plain path "
+              f"by {diff}")
+        print(f"many rows {tag} serve [{card}]: {REQUEST_ROWS} examples in "
+              f"{wall:.4f}s; max |kernel - plain| = {diff:.3e}", flush=True)
+        del model, trainer, pred
+        freed()
+    model = width_model(dev, 32, 4, "gate", cols=("121",),
+                        domains=(COL121_DOMAINS,))
+    check(model.meta_rows == 98 and model.simple_kernel, "121 gate route")
+    trainer = trained(model)
+    paths["many_train_121_gate"] = width_steps(
+        card, "many rows 121 gate lazy", trainer,
+        staged_batch(trainer, x, y), gate_step)
+    del model, trainer
+    freed()
+    model = width_model(dev, 64, 8, cols=("122",), domains=(13,),
+                        no_emb_init=True)
+    check(model.meta_rows == 14 and model.metanet_kernel,
+          "d64 122 metanet route")
+    for bank, bwd in (("lazy", "stash"), ("dense", "recompute")):
+        os.environ["SATRANS_BWD"] = bwd
+        trainer = trained(model, bank)
+        paths[f"many_train_d64h8_122_{bank}_{bwd}"] = width_steps(
+            card, f"many rows d64h8 122 {bank} {bwd}", trainer,
+            staged_batch(trainer, x, y), (0, 0) + K1_PAIR[bwd] + NO_K7)
+        del trainer
+        freed()
+    os.environ.pop("SATRANS_BWD")
+    del model
+    freed()
+    model = width_model(dev, 32, 4, cols=(CAP_COL,), domains=(CAP_DOMAINS,))
+    check(model.meta_rows * 64 == ROUTE_WIDTH and model.metanet_kernel,
+          "the 64-row metanet route")
+    trainer = trained(model)
+    x4 = dict(x, **{CAP_COL: rng.integers(1, CAP_DOMAINS + 1, TRAIN_ROWS)})
+    paths["many_train_64rows_lazy_stash"] = width_steps(
+        card, "many rows 64-row metanet lazy stash", trainer,
+        staged_batch(trainer, x4, y), (0, 0) + K1_PAIR["stash"] + NO_K7)
+    del model, trainer
+    freed()
+    return paths
+
+
+def many_rows_phase(dev, card):
+    """Phase 19: many meta rows.  Returns (the changed kernels' errors,
+    times and the sorted walk's scratch table, the launches by path)."""
+    from satrans_torch.ops import meta_block
+    t0 = time.perf_counter()
+    errs = many_rows_check(dev)
+    print(f"many rows [{card}]: worst |kernel - plain| at "
+          f"{MANY_ROWS_CHECK}: " + "; ".join(
+              f"{n} {e:.3e}" for n, e in errs.items()), flush=True)
+    times = many_rows_time(dev, card)
+    scratch = many_rows_scratch(meta_block.sm_count(dev))
+    print(f"phase 19a-b: {time.perf_counter() - t0:.2f}s", flush=True)
+    paths = many_rows_paths(dev, card)
+    print(f"phase 19: {time.perf_counter() - t0:.2f}s", flush=True)
+    return dict(errors=errs, times=times, scratch=scratch), paths
+
+
 def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -5286,6 +5741,7 @@ def main() -> int:
     zoo = zoo_phase(dev, card)
     star_mtl = star_mtl_phase(dev, card)
     widths, wpaths = widths_phase(dev, card, built)
+    many, many_paths = many_rows_phase(dev, card)
 
     # launches, each path counted from 0 just before it: serving and the
     # evaluation run K1-fwd only; the dense recompute arm K1-fwd and
@@ -5413,6 +5869,22 @@ def main() -> int:
         k["launches"] += sum(by_path.values())
         if k["name"] in widths:
             k["widths"] = widths[k["name"]]
+    # phase 19: each kernel's launches on the many-row paths; the changed
+    # kernels' errors and times at many rows (K1's backwards also their
+    # sorted walk's body and its scratch at the JAX cap), and the unchanged
+    # forwards' errors there
+    for k in kernels:
+        name = k["name"]
+        by_path = {p: n[name] for p, n in many_paths.items() if n.get(name)}
+        k["launches_by_path"].update(by_path)
+        k["launches"] += sum(by_path.values())
+        if name in many["errors"]:
+            k["many_rows"] = dict(max_abs_err=many["errors"][name],
+                                  cases=many["times"].get(name, {}))
+            k["max_abs_err"] = max(k["max_abs_err"], many["errors"][name])
+        if name + "_sorted" in tile:
+            k["sorted_body"] = tile[name + "_sorted"]
+            k["many_rows"]["sorted_scratch_at_cap"] = many["scratch"]
     check(all(k["launches"] > 0 for k in kernels),
           "a kernel was launched on no path")
     print(json.dumps({"kernels": kernels}))

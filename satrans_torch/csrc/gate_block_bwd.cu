@@ -15,8 +15,9 @@
 //
 // and, given g = dL/dy, writes dx and the gradients of every operand:
 // dWqkv [d, 3d], dWout [d, d], LN_o's (scale, bias) rows, and the tables'
-// dTQ and dTK [D, T] (T = d for the gate rows, H * dh * dh for the flat
-// bilinear maps), each example adding only into its own domain's row.
+// dTQ [D, T] and (the gate) dTK [D, T] (T = d for the gate rows, H * dh *
+// dh for the flat bilinear maps), each example adding only into its own
+// domain's row, at any D.
 // The gate's table gradient is dt * t0 * 2 summed over the example's
 // rows and its input gradient dt * TQ[dm] * 2; the bilinear map's is
 // t0_h^T dt_h per head and its input gradient dt_h @ TQ[dm, h]^T.  An
@@ -54,12 +55,16 @@
 // in float32, staged once a block and read transposed where the backward
 // needs W^T: no transposed copies.  dWqkv and dWout are sums over rows in
 // 16 x 8 tiles each warp owns in registers (WTiles, each tile's products
-// summed in a fresh accumulator).  The tables of every domain (at most
-// kMaxDomains rows, 2 x 4 kB for the gate, 16 kB for the bilinear maps)
-// are staged in shared memory once a block, so the transform reads each
-// row's own domain there.  The table gradients are summed over a
+// summed in a fresh accumulator).  The tables of every domain (2 x 128 B
+// a row for the gate, 1 kB for the bilinear maps, at d = 32 with 4 heads)
+// are staged in shared memory once a block where they fit beside the tile
+// buffers (at d = 32, 4 heads and F = 19 up to 133 gate rows or 33
+// bilinear ones), so the transform reads each row's own domain there;
+// else from device memory.  The table gradients are summed over a
 // segment's rows by one thread an element, in registers, and added into
-// the block's slice of the scratch buffer once a segment; the LayerNorm
+// the block's slice of the scratch buffer once a segment (the slice holds
+// dTQ and dTK of every row for the gate, dTQ alone for the bilinear map,
+// which transforms Q only: 2 D d floats, or D d^2 / H); the LayerNorm
 // sums are per-thread column sums; sum_partials adds the slices in block
 // order, so the result is deterministic for a grid.  The transform and its
 // backward (a few k operations an example) stay float32 on the CUDA cores,
@@ -98,7 +103,6 @@ namespace {
 // rows are a function of the shape (GateTile).
 constexpr int kThreads = kWideTT;
 constexpr int kLnRows = 2;         // LN_o's (scale, bias)
-constexpr int kMaxDomains = 16;    // bounds a block's slice
 
 // A table row's width: the gate's d, or the bilinear maps' H * dh * dh.
 template <int DM, int NH, bool BILINEAR>
@@ -106,12 +110,20 @@ __host__ __device__ constexpr int table_width() {
   return BILINEAR ? DM * (DM / NH) : DM;
 }
 
+// The tables a variant transforms with: TQ and TK (the gate), TQ alone
+// (the bilinear maps).
+template <bool BILINEAR>
+__host__ __device__ constexpr int table_count() {
+  return BILINEAR ? 1 : 2;
+}
+
 // The gradient buffer (and each block's slice of the scratch): dWqkv |
-// dWout | LN_o (scale row, bias row) | dTQ [D][T] | dTK [D][T].
+// dWout | LN_o (scale row, bias row) | dTQ [D][T] | (the gate) dTK [D][T].
 template <int DM, int NH, bool BILINEAR>
-__host__ __device__ int grad_floats(int D) {
+__host__ __device__ size_t grad_floats(int D) {
   return 4 * DM * DM + kLnRows * DM +
-         2 * D * table_width<DM, NH, BILINEAR>();
+         static_cast<size_t>(table_count<BILINEAR>()) * D *
+             table_width<DM, NH, BILINEAR>();
 }
 
 struct GateBwdArgs {
@@ -131,7 +143,7 @@ struct GateBwdArgs {
 template <int DM, int NH, bool BILINEAR>
 struct GateTile {
   static constexpr int T = table_width<DM, NH, BILINEAR>();
-  static constexpr int kTables = BILINEAR ? 1 : 2;  // TQ (and TK)
+  static constexpr int kTables = table_count<BILINEAR>();
   static constexpr int WQ = 3 * DM + 8, WO = DM + 8;
   static constexpr int XS = DM + 4, QS = 3 * DM + 4, NS = 2 * DM + 4,
                        OS = DM + 4, DS = 3 * DM + 4;
@@ -217,8 +229,7 @@ __global__ void __launch_bounds__(kThreads, 1)
                       !BILINEAR && a.apply_k != 0};
 
   // the block's slice: dense | LN_o | dTQ | dTK
-  float* out = a.partial + static_cast<size_t>(blockIdx.x) *
-                               grad_floats<DM, NH, BILINEAR>(D);
+  float* out = a.partial + blockIdx.x * grad_floats<DM, NH, BILINEAR>(D);
   float* tab_out = out + 4 * DM * DM + kLnRows * DM;
 
   stage_matrix<DM, 3 * DM>(sWqkv, L::WQ, a.wqkv);
@@ -230,7 +241,7 @@ __global__ void __launch_bounds__(kThreads, 1)
       for (int i = tid; i < D * T / 4; i += kThreads)
         cp_async16(sTab + w * D * T + 4 * i, tab + 4 * i);
     }
-  for (int i = tid; i < 2 * D * T; i += kThreads) tab_out[i] = 0.f;
+  for (int i = tid; i < L::kTables * D * T; i += kThreads) tab_out[i] = 0.f;
   cp_async_wait_all();
   __syncthreads();
 
@@ -536,7 +547,7 @@ cudaError_t launch(GateBwdArgs a, float* grads, int blocks,
   using L = GateTile<DM, NH, BILINEAR>;
   auto kernel = gate_stash_bwd_kernel<DM, NH, BILINEAR>;
   const int smem = L::bytes(a.F, a.D);
-  if (smem > kMaxSmem || a.D > kMaxDomains) return cudaErrorInvalidValue;
+  if (smem > kMaxSmem) return cudaErrorInvalidValue;
   static int configured = 0;
   if (smem > configured) {
     const cudaError_t err = cudaFuncSetAttribute(
@@ -548,7 +559,7 @@ cudaError_t launch(GateBwdArgs a, float* grads, int blocks,
   kernel<<<blocks, kThreads, smem, stream>>>(a);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  const int total = grad_floats<DM, NH, BILINEAR>(a.D);
+  const int total = static_cast<int>(grad_floats<DM, NH, BILINEAR>(a.D));
   sum_partials<<<(total + 255) / 256, 256, 0, stream>>>(a.partial, grads,
                                                         total, blocks);
   return cudaGetLastError();
@@ -576,13 +587,12 @@ extern "C" int satrans_gate_block_bwd_grad_floats(int d, int heads, int D,
                                                   int bilinear) {
   int n = -1;
   with_gate_shape(d, heads, bilinear, [&](auto bl) {
-    n = grad_floats<SATRANS_D, SATRANS_NH, decltype(bl)::value>(D);
+    n = static_cast<int>(
+        grad_floats<SATRANS_D, SATRANS_NH, decltype(bl)::value>(D));
     return cudaSuccess;
   });
   return n;
 }
-
-extern "C" int satrans_gate_block_bwd_max_domains() { return kMaxDomains; }
 
 // The grid for B examples of F fields on a card of sms SMs: one block an
 // SM, at most one a tile of the library's shape.

@@ -2,7 +2,7 @@
 // the in-kernel dropout: the gradient layout and the C entries of the tile
 // body csrc/meta_stash_bwd.cuh, which runs every mode of the layer
 // backward: K1-bwd (kNoStash), K1-bwd-stash (kFullStash), K1-bwd-stash
-// light (kLightStash), and with TILED K7-bwd and K7-bwd-stash on
+// light (kLightStash), and with the kTiles walk K7-bwd and K7-bwd-stash on
 // dispatched tiles (satrans_tiled_meta_bwd).
 //
 // Replaces two TPU kernels of satrans_tpu/ops/pallas/meta_block.py, both
@@ -42,12 +42,19 @@
 // does.
 //
 // Each block sums the parameter gradients of the examples it visits in a
-// slice of its own of the partial buffer, laid out as the final gradient
-// buffer below, and sum_partials (csrc/layer_common.cuh) adds the slices
-// in block order: deterministic for a grid, no atomics.  The tile body
-// keeps a block's per-domain sums for at most max_domains rows: 16, or
-// fewer where the rows' MetaNet blocks would pass 2^18 floats (1 MiB) a
-// block (8 at d = 64 with a 2-matrix MetaNet, 4 with a 3-matrix one).
+// slice of its own of the partial buffer, and the slices are added in
+// block order: deterministic for a grid, no atomics.  Up to slice_domains
+// rows (16, or fewer where the rows' MetaNet blocks would pass 2^18 floats,
+// 1 MiB, a block: 8 at d = 64 with a 2-matrix MetaNet, 4 with a 3-matrix
+// one) the slice holds every row's MetaNet sums too, laid out as the final
+// gradient buffer below, and sum_partials (csrc/layer_common.cuh) adds the
+// slices (the kSlices walk of the tile body).  Past it, up to max_domains
+// rows (the JAX package's kernel route: meta rows times the widest hidden
+// layer at most 4096, satrans_tpu/models/satrans.py:375-377), the batch is
+// sorted by domain row first and each run's sums go straight to the output
+// or, where a run is split between blocks, to two boundary slots a block
+// (the kSorted walk): the scratch stays 4 MetaNet blocks a block, whatever
+// the rows.
 //
 // The kernels launch on the caller's stream, allocate nothing and do not
 // synchronise; the C entries return cudaGetLastError().
@@ -61,8 +68,10 @@
 namespace {
 
 constexpr int kLnRows = 6;      // LN_q, LN_k, LN_o x (scale, bias)
-constexpr int kMaxDomains = 16;  // bounds a block's slice
+constexpr int kSliceDomains = 16;  // bounds a block's slice in kSlices
 constexpr int kSliceMeta = 1 << 18;  // and its MetaNet blocks' floats
+// the JAX kernel route's bound on meta rows x the widest hidden layer
+constexpr int kRouteWidth = 4096;
 
 // The sizes of one domain's MetaNet blocks: W1 [d][h1], the middle Wm
 // [h1][h2] (none for a 2-matrix MetaNet) and W2 [HL][d].
@@ -76,11 +85,19 @@ struct Strides {
   static constexpr int kMeta = kW1 + kWm + kW2;  // one MetaNet, one domain
 };
 
-// The most meta rows K1's backward takes at shape SH.
+// The most meta rows K1's backward keeps in each block's slice (kSlices)
+// at shape SH; more take the kSorted walk.
+template <class SH>
+constexpr int slice_domains() {
+  const int fit = kSliceMeta / (2 * Strides<SH>::kMeta);
+  return fit < kSliceDomains ? fit : kSliceDomains;
+}
+
+// The most meta rows K1's backward takes at shape SH: the JAX package's
+// kernel route's, past which its model takes the XLA layer.
 template <class SH>
 constexpr int max_domains() {
-  const int fit = kSliceMeta / (2 * Strides<SH>::kMeta);
-  return fit < kMaxDomains ? fit : kMaxDomains;
+  return kRouteWidth / SH::HMAX;
 }
 
 template <class SH>
@@ -95,9 +112,10 @@ __host__ __device__ int grad_floats(int D) {  // a block's partial sums
 
 // The shape (d, h, h2, heads) this library is built for (with_shape, csrc/
 // layer_common.cuh; h2 = 0 a 2-matrix MetaNet, whose middle pointers must
-// be null).  partial holds blocks x satrans_meta_block_bwd_grad_floats(d,
-// h, h2, heads, D) floats; grads receives the summed gradients in the
-// layout written above.  Returns -1 for a shape not instantiated.
+// be null).  grads holds satrans_meta_block_bwd_grad_floats(d, h, h2,
+// heads, D) floats, the summed gradients in the layout written above (a
+// kSlices block's slice is that layout too).  Returns -1 for a shape not
+// instantiated.
 extern "C" int satrans_meta_block_bwd_grad_floats(int d, int h, int h2,
                                                   int heads, int D) {
   int n = -1;
@@ -108,9 +126,32 @@ extern "C" int satrans_meta_block_bwd_grad_floats(int d, int h, int h2,
   return n;
 }
 
-// The most meta rows K1's backwards take at the library's shape.
+// The most meta rows K1's backwards take at the library's shape, and the
+// most they keep in each block's slice (more: the kSorted walk).
 extern "C" int satrans_meta_block_bwd_max_domains() {
   return max_domains<BuiltShape>();
+}
+
+extern "C" int satrans_meta_block_bwd_slice_domains() {
+  return slice_domains<BuiltShape>();
+}
+
+// The floats of K1's scratch buffer (satrans_meta_block_bwd's partial) for
+// B examples on D rows and a grid of blocks: the blocks' slices with every
+// row's MetaNet sums up to slice_domains rows, else the kSorted walk's
+// slices, boundary slots and sort.  -1 for a shape not instantiated.
+extern "C" int satrans_meta_block_bwd_scratch_floats(int d, int h, int h2,
+                                                     int heads, int B, int D,
+                                                     int blocks) {
+  int n = -1;
+  with_shape(d, h, h2, heads, [&](auto sh) {
+    using SH = decltype(sh);
+    n = static_cast<int>(D <= slice_domains<SH>()
+                             ? static_cast<size_t>(blocks) * grad_floats<SH>(D)
+                             : sorted_bwd_scratch_floats<SH>(blocks, B, D));
+    return cudaSuccess;
+  });
+  return n;
 }
 
 // The blocks K1's backwards use for B examples of F fields on a card of
@@ -150,7 +191,9 @@ extern "C" int satrans_meta_block_bwd_stash_smem(int d, int h, int h2,
 // the weights transposed in shared memory where a product needs W^T.
 // blocks is the grid (satrans_meta_block_bwd_stash_blocks for the card;
 // fewer give each block a longer range); the result is deterministic for
-// a grid.  Returns a cudaError_t.
+// a grid.  partial holds satrans_meta_block_bwd_scratch_floats floats;
+// past slice_domains rows the call also sorts the batch by domain row
+// (three small launches before the body).  Returns a cudaError_t.
 extern "C" int satrans_meta_block_bwd(
     const float* x, const int* dom, const float* g, const float* wqkv,
     const float* w1q, const float* wmq, const float* w2q, const float* lnq,
@@ -171,20 +214,43 @@ extern "C" int satrans_meta_block_bwd(
     return static_cast<int>(cudaErrorInvalidValue);
   const Dropout drop{drop_on, seed, threshold, scale, block_b, fpad, group};
   const cudaStream_t str = static_cast<cudaStream_t>(stream);
-  const StashBwdArgs t{x,  g,       wqkv,    lnq,      lnk,  wout,
-                       lno, dom,    MetaW{w1q, wmq, w2q, w1k, wmk, w2k},
-                       dx, partial, grads,   qkv,      uq,   uk,
-                       s,  o,       B,       F,        D,    0,
-                       apply_q,     apply_k, relu_out, drop};
+  StashBwdArgs t{x,  g,       wqkv,    lnq,      lnk,  wout,
+                 lno, dom,    MetaW{w1q, wmq, w2q, w1k, wmk, w2k},
+                 dx, partial, grads,   qkv,      uq,   uk,
+                 s,  o,       B,       F,        D,    0,
+                 apply_q,     apply_k, relu_out, drop};
   return static_cast<int>(with_shape(d, h, h2, heads, [&](auto sh) {
     using SH = decltype(sh);
+    if (D <= slice_domains<SH>()) {
+      switch (stash) {
+        case kFullStash:
+          return launch_stash_bwd<SH, kFullStash, kSlices>(t, blocks, str);
+        case kLightStash:
+          return launch_stash_bwd<SH, kLightStash, kSlices>(t, blocks, str);
+        default:
+          return launch_stash_bwd<SH, kNoStash, kSlices>(t, blocks, str);
+      }
+    }
+    if (D > max_domains<SH>()) return cudaErrorInvalidValue;
+    // kSorted: the scratch holds the blocks' slices, their boundary slots
+    // and the sort
+    t.bnd = partial + static_cast<size_t>(blocks) * grad_floats<SH>(0);
+    const RowSort rs = row_sort_scratch(
+        reinterpret_cast<int*>(t.bnd + static_cast<size_t>(blocks) * 4 *
+                                           Strides<SH>::kMeta),
+        B, D);
+    t.perm = rs.perm;
+    t.skey = rs.skey;
+    t.start = rs.start;
+    const cudaError_t err = sort_rows(dom, B, D, rs, str);
+    if (err != cudaSuccess) return err;
     switch (stash) {
       case kFullStash:
-        return launch_stash_bwd<SH, kFullStash, false>(t, blocks, str);
+        return launch_stash_bwd<SH, kFullStash, kSorted>(t, blocks, str);
       case kLightStash:
-        return launch_stash_bwd<SH, kLightStash, false>(t, blocks, str);
+        return launch_stash_bwd<SH, kLightStash, kSorted>(t, blocks, str);
       default:
-        return launch_stash_bwd<SH, kNoStash, false>(t, blocks, str);
+        return launch_stash_bwd<SH, kNoStash, kSorted>(t, blocks, str);
     }
   }));
 }
@@ -201,11 +267,11 @@ extern "C" int satrans_tiled_meta_bwd_scratch_floats(int d, int h, int h2,
   return n;
 }
 
-// K7-bwd and K7-bwd-stash (the tile body of csrc/meta_stash_bwd.cuh with
-// TILED): the backward of satrans_tiled_meta_fwd on n_slots = T * tile_b
-// dispatched slots, with stash kNoStash (every residual pointer null,
-// recomputing them) or kFullStash (the five residuals of K7-stash); the
-// light stash is refused.  count [T] (int32, or null: every slot
+// K7-bwd and K7-bwd-stash (the tile body of csrc/meta_stash_bwd.cuh on
+// the kTiles walk): the backward of satrans_tiled_meta_fwd on n_slots = T
+// * tile_b dispatched slots, with stash kNoStash (every residual pointer
+// null, recomputing them) or kFullStash (the five residuals of K7-stash);
+// the light stash is refused.  count [T] (int32, or null: every slot
 // occupied) gives each tile's occupied slots, the first of the tile; the
 // others must have a zero upstream gradient, get dx = 0 and add nothing.
 // scratch holds satrans_tiled_meta_bwd_scratch_floats(d, h, h2, heads,
@@ -251,7 +317,7 @@ extern "C" int satrans_tiled_meta_bwd(
                          apply_q, apply_k,  relu_out, drop, count, tile_b,
                          bnd,     bnd_tile};
     return stash == kFullStash
-               ? launch_stash_bwd<SH, kFullStash, true>(t, blocks, str)
-               : launch_stash_bwd<SH, kNoStash, true>(t, blocks, str);
+               ? launch_stash_bwd<SH, kFullStash, kTiles>(t, blocks, str)
+               : launch_stash_bwd<SH, kNoStash, kTiles>(t, blocks, str);
   }));
 }

@@ -13,10 +13,10 @@
 // light, kLightStash, bwd='stash_light'), which recomputes the
 // probabilities from the stashed pre-LN sums with the forward's device
 // code (attention_probs_pair, csrc/layer_common.cuh), so they equal
-// K1-stash's bit for bit.  With TILED it replaces satrans_tpu/ops/pallas/
-// tiled_meta.py's _bwd_kernel_stash (:341, K7-bwd-stash, kFullStash, the
-// default bwd='stash') and _bwd_kernel (:178, K7-bwd, kNoStash,
-// bwd='recompute'), both launched by _bwd_call (:562) through
+// K1-stash's bit for bit.  On the kTiles walk it replaces satrans_tpu/ops/
+// pallas/tiled_meta.py's _bwd_kernel_stash (:341, K7-bwd-stash,
+// kFullStash, the default bwd='stash') and _bwd_kernel (:178, K7-bwd,
+// kNoStash, bwd='recompute'), both launched by _bwd_call (:562) through
 // pl.pallas_call (:634): the backward of the layer on the slots of
 // dispatched single-domain tiles (ops/dispatch.py; tile t of tile_b slots
 // takes the MetaNet block of row t of the per-tile [T, d, h] and [T, h, d]
@@ -83,7 +83,24 @@
 // copy an example where an example's NH F^2 floats keep its copies
 // 16-byte aligned, else by 4-byte cp.async copies of all threads.
 //
-// K7 (TILED).  The slots come sorted: the segments of a tile are its runs
+// The walks (BwdWalk).  K1 at up to slice_domains rows (kSlices): each
+// block sorts its range of the batch in windows (sort_window) and keeps
+// every meta row's MetaNet sums in its slice of the scratch buffer, which
+// sum_partials adds in block order.  The slice grows with the rows, so K1
+// past slice_domains (kSorted) walks the batch sorted by domain row as a
+// whole (sort_rows below: a stable counting sort of the port's own, three
+// small launches) and splits the sorted positions between the blocks
+// as kTiles splits K7's slots: the owner of a whole run of one row stores
+// the run's sums straight into the output, a run shared with the block
+// before goes to the head slot and one shared with the block after to the
+// tail slot (a run through the whole range: the head slot), and
+// sorted_bwd_finish adds a shared run's slots in block order.  The
+// scratch is the blocks' dense and LayerNorm slices and two slots of both
+// MetaNets' blocks a block, whatever the rows.  Each position is still an
+// example of the batch: its rows, its dx and its dropout masks are those
+// of its batch index, as in kSlices (K7's masks are keyed by slot).
+//
+// K7 (kTiles).  The slots come sorted: the segments of a tile are its runs
 // of one dispatch tile (slot / tile_b), and nothing is sorted.  The blocks
 // split the occupied slots (the first count[t] of tile t, occupied_window
 // in csrc/stash_tile.cuh; every slot when count is null) into contiguous
@@ -122,13 +139,22 @@ struct StashBwdArgs {
   int B, F, D, chunk, apply_q, apply_k, relu_out;
   Dropout drop;
   // K7: tile_b slots a tile, count[t] of tile t occupied (null: all); bnd
-  // two slots (head, tail) of both MetaNets' blocks a grid block, and
-  // bnd_tile[b] the tile in block b's tail slot (-1: none)
+  // (K7, K1 kSorted) two slots (head, tail) of both MetaNets' blocks a
+  // grid block, and (K7) bnd_tile[b] the tile in block b's tail slot (-1:
+  // none)
   const int* count;
   int tile_b;
   float* bnd;
   int* bnd_tile;
+  // K1 kSorted: the batch's examples stably sorted by clamped domain row
+  // (perm) and their rows (skey), and row d's sorted positions [start[d],
+  // start[d + 1])
+  const int *perm, *skey, *start;
 };
+
+// How the blocks split the positions and where their MetaNet sums go (see
+// "The walks" above): K1 up to slice_domains rows, K7, K1 past it.
+enum BwdWalk : int { kSlices = 0, kTiles = 1, kSorted = 2 };
 
 // The shared layout of the backward tile body, in floats after the header
 // (kTileHeader), as FwdTile's: its tile rows and whether a domain's MetaNet
@@ -213,7 +239,7 @@ __device__ __forceinline__ float* boundary_slot(float* bnd, int b,
   return bnd + (static_cast<size_t>(b) * 2 + tail) * 2 * Strides<SH>::kMeta;
 }
 
-template <class SH, int MODE, bool TILED>
+template <class SH, int MODE, int WALK>
 __global__ void __launch_bounds__(kTT, 1)
     meta_stash_bwd_kernel(const StashBwdArgs a) {
   constexpr int DM = SH::DM, HID = SH::HID, HID2 = SH::HID2, NH = SH::NH;
@@ -222,6 +248,8 @@ __global__ void __launch_bounds__(kTT, 1)
   using S = Strides<SH>;
   constexpr bool FULL = MODE == kFullStash;
   constexpr bool RECOMPUTE = MODE == kNoStash;  // K1-bwd, K7-bwd
+  constexpr bool TILED = WALK == kTiles, SORTED = WALK == kSorted;
+  constexpr bool SPLIT = TILED || SORTED;  // runs split between blocks
   constexpr int RT = row_threads(DM);  // threads on a row in epilogues
   static_assert(MODE != kLightStash || !TILED, "K7 has no light stash");
 
@@ -271,17 +299,18 @@ __global__ void __launch_bounds__(kTT, 1)
   const DropSalts salt(a.apply_q, a.apply_k, NH);
   const bool one_table = a.mw.w1q == a.mw.w1k && a.mw.w2q == a.mw.w2k &&
                          a.mw.wmq == a.mw.wmk;
-  // the block's slice: dense | LayerNorms | (K1) per-domain blocks of Q,
-  // of K.  K7's per-tile blocks lie in the gradient buffer, in the same
-  // layout with the D tiles in place of the domains.
+  // the block's slice: dense | LayerNorms | (kSlices) per-domain blocks
+  // of Q, of K.  K7's per-tile blocks and K1 kSorted's per-domain ones lie
+  // in the gradient buffer, in the same layout (K7's D tiles in place of
+  // the domains).
   float* out = a.partial + static_cast<size_t>(blockIdx.x) *
-                               grad_floats<SH>(TILED ? 0 : D);
-  float* dom_out = TILED ? a.grads + S::kDense + kLnRows * DM
+                               grad_floats<SH>(SPLIT ? 0 : D);
+  float* dom_out = SPLIT ? a.grads + S::kDense + kLnRows * DM
                          : out + S::kDense + kLnRows * DM;
 
   stage_matrix<DM, 3 * DM>(sWqkv, L::WQ, a.wqkv);
   stage_matrix<DM, DM>(sWout, L::WO, a.wout);
-  if (!TILED)
+  if (!SPLIT)
     for (int i = tid; i < 2 * D * S::kMeta; i += kTT) dom_out[i] = 0.f;
   if (tid == 0) {
     mbar_init(bar, 1);
@@ -290,10 +319,10 @@ __global__ void __launch_bounds__(kTT, 1)
   cp_async_wait_all();
   __syncthreads();
 
-  // The block's range of positions: K1's examples of the batch; K7's
-  // occupied slots in slot order, whole tiles of E and at least tile_b of
-  // them a block, and the dispatch tiles split with the block before
-  // (head) and after (tail).
+  // The block's range of positions: K1's examples of the batch (kSorted:
+  // of the batch sorted by domain row); K7's occupied slots in slot order,
+  // whole tiles of E and at least tile_b of them a block; and (K7,
+  // kSorted) the rows split with the block before (head) and after (tail).
   int lo, hi, head = -1, tail = -1;
   if constexpr (TILED) {
     const int total = occupied_total(a.count, D, a.tile_b, key);
@@ -319,6 +348,12 @@ __global__ void __launch_bounds__(kTT, 1)
   } else {
     lo = blockIdx.x * a.chunk;
     hi = min(a.B, lo + a.chunk);
+    if (SORTED && lo < hi) {
+      const int first = __ldg(a.skey + lo), last = __ldg(a.skey + hi - 1);
+      if (lo > 0 && __ldg(a.skey + lo - 1) == first) head = first;
+      if (hi < a.B && __ldg(a.skey + hi) == last && last != head)
+        tail = last;
+    }
   }
 
   WTiles<DM, 3 * DM> dwqkv;
@@ -333,7 +368,8 @@ __global__ void __launch_bounds__(kTT, 1)
   }
   int staged = -1;  // the MetaNet block in shared memory: 2 row + table
   unsigned parity = 0;  // the phase of the s loads' barrier
-  int flushed[2] = {-1, -1};  // K7: the tile each MetaNet's sums went to
+  int flushed[2] = {-1, -1};  // K7, kSorted: the row each MetaNet's sums
+                              // went to
   // the loads of a tile's residuals: group 0 x, 1 o, 2 qkv, uq and uk by
   // cp.async (one group each), and with them the probabilities, one bulk
   // copy an example by warp 0's lanes on the barrier where an example's
@@ -400,10 +436,17 @@ __global__ void __launch_bounds__(kTT, 1)
 #pragma unroll 1
   for (int w0 = lo; w0 < hi; w0 += kWindow) {
     const int nw = min(kWindow, hi - w0);
-    if constexpr (TILED)
+    if constexpr (TILED) {
       occupied_window(a.count, D, a.tile_b, w0, nw, order, wdom, key);
-    else
+    } else if constexpr (SORTED) {
+      for (int k = tid; k < nw; k += kTT) {
+        order[k] = __ldg(a.perm + w0 + k);
+        wdom[k] = __ldg(a.skey + w0 + k);
+      }
+      __syncthreads();
+    } else {
       sort_window(a.dom, w0, nw, D, order, wdom, key);
+    }
     const int ntiles = (nw + E - 1) / E;
     for (int grp = 0; grp < 3; ++grp) load(grp, order, min(E, nw));
 #pragma unroll 1
@@ -671,11 +714,11 @@ __global__ void __launch_bounds__(kTT, 1)
       //     dW1 += t0^T dh1 and dt0 = du + dh1 W1^T over du.
       const auto meta_bwd = [&](int w, int d, int r0, int r1) {
         const int m0 = r0 / 16, m1 = (r1 + 15) / 16;
-        // the row's gradient blocks of this MetaNet: K1's in the block's
-        // slice, K7's in the output or, for a tile split with a
-        // neighbour, in the block's boundary slot
+        // the row's gradient blocks of this MetaNet: kSlices' in the
+        // block's slice, K7's and kSorted's in the output or, for a row
+        // split with a neighbour, in the block's boundary slot
         float *out_w1, *out_wm, *out_w2;
-        if (TILED && (d == head || d == tail)) {
+        if (SPLIT && (d == head || d == tail)) {
           out_w1 = boundary_slot<SH>(a.bnd, blockIdx.x, d == tail) +
                    w * S::kMeta;
           out_wm = out_w1 + S::kW1;
@@ -687,8 +730,9 @@ __global__ void __launch_bounds__(kTT, 1)
           out_w2 = base + D * (S::kW1 + S::kWm) +
                    static_cast<size_t>(d) * S::kW2;
         }
-        // K7: the tile's first segment stores its sums, the next ones add
-        const bool store = TILED && flushed[w] != d;
+        // K7, kSorted: the row's first segment stores its sums, the next
+        // ones add
+        const bool store = SPLIT && flushed[w] != d;
         flushed[w] = d;
         const auto put = [&](auto& sums, float* dst) {
           if (store)
@@ -842,11 +886,40 @@ __global__ void __launch_bounds__(kTT, 1)
   }
 }
 
+// Element i of MetaNet w's blocks (W1 | Wm | W2) of row t in the gradient
+// buffer's per-row part meta (K1's domains, K7's tiles; T rows).
+template <class SH>
+__device__ __forceinline__ float* meta_grad_at(float* meta, int T, int w,
+                                               int t, int i) {
+  using S = Strides<SH>;
+  float* base = meta + static_cast<size_t>(w) * T * S::kMeta;
+  const size_t tt = static_cast<size_t>(t);
+  if (i < S::kW1) return base + tt * S::kW1 + i;
+  i -= S::kW1;
+  if (i < S::kWm) return base + T * S::kW1 + tt * S::kWm + i;
+  return base + T * (S::kW1 + S::kWm) + tt * S::kW2 + (i - S::kWm);
+}
+
+// CUDA blocks [0, nsum) of the finishing passes: the grid blocks' dense and
+// LayerNorm slices added in block order (sum_partials' loop).
+template <class SH>
+__device__ __forceinline__ void sum_dense(const StashBwdArgs& a, int blocks,
+                                          int b) {
+  const int total = grad_floats<SH>(0);
+  const int i = b * blockDim.x + threadIdx.x;
+  if (i < total) {
+    float s = 0.f;
+    for (int k = 0; k < blocks; ++k)
+      s += a.partial[static_cast<size_t>(k) * total + i];
+    a.grads[i] = s;
+  }
+}
+
 // K7's last pass, one launch after the body: CUDA blocks [0, nsum) add the
-// grid blocks' dense and LayerNorm slices in block order (sum_partials'
-// loop); then one for each dispatch tile t writes the zeros of the blocks
-// of a MetaNet that is not applied or of a tile with no occupied slot, and
-// of dx on the tile's slack slots; then one for each boundary between grid
+// grid blocks' dense and LayerNorm slices in block order (sum_dense);
+// then one for each dispatch tile t writes the zeros of the blocks of a
+// MetaNet that is not applied or of a tile with no occupied slot, and of
+// dx on the tile's slack slots; then one for each boundary between grid
 // blocks b and b + 1 that splits a tile writes that tile's blocks: b's tail
 // slot plus b + 1's head slot.
 template <class SH>
@@ -854,26 +927,11 @@ __global__ void tiled_bwd_finish(const StashBwdArgs a, int blocks,
                                  int nsum) {
   using S = Strides<SH>;
   constexpr int DM = SH::DM;
-  const int total = grad_floats<SH>(0), T = a.D;
-  float* tile_out = a.grads + total;
-  // element i of MetaNet w's blocks of tile t (W1 | Wm | W2)
-  const auto at = [&](int w, int t, int i) {
-    float* base = tile_out + static_cast<size_t>(w) * T * S::kMeta;
-    const size_t tt = static_cast<size_t>(t);
-    if (i < S::kW1) return base + tt * S::kW1 + i;
-    i -= S::kW1;
-    if (i < S::kWm) return base + T * S::kW1 + tt * S::kWm + i;
-    return base + T * (S::kW1 + S::kWm) + tt * S::kW2 + (i - S::kWm);
-  };
+  const int T = a.D;
+  float* tile_out = a.grads + grad_floats<SH>(0);
   int b = blockIdx.x;
   if (b < nsum) {
-    const int i = b * blockDim.x + threadIdx.x;
-    if (i < total) {
-      float s = 0.f;
-      for (int k = 0; k < blocks; ++k)
-        s += a.partial[static_cast<size_t>(k) * total + i];
-      a.grads[i] = s;
-    }
+    sum_dense<SH>(a, blocks, b);
     return;
   }
   b -= nsum;
@@ -882,7 +940,7 @@ __global__ void tiled_bwd_finish(const StashBwdArgs a, int blocks,
     for (int w = 0; w < 2; ++w) {
       if ((w ? a.apply_k : a.apply_q) && cnt > 0) continue;
       for (int i = threadIdx.x; i < S::kMeta; i += blockDim.x)
-        *at(w, b, i) = 0.f;
+        *meta_grad_at<SH>(tile_out, T, w, b, i) = 0.f;
     }
     const int rows = a.F * DM / 4;  // float4s a slot
     float4* p = reinterpret_cast<float4*>(
@@ -899,7 +957,52 @@ __global__ void tiled_bwd_finish(const StashBwdArgs a, int blocks,
   for (int w = 0; w < 2; ++w) {
     if (!(w ? a.apply_k : a.apply_q)) continue;
     for (int i = threadIdx.x; i < S::kMeta; i += blockDim.x)
-      *at(w, t, i) = tl[w * S::kMeta + i] + hd[w * S::kMeta + i];
+      *meta_grad_at<SH>(tile_out, T, w, t, i) =
+          tl[w * S::kMeta + i] + hd[w * S::kMeta + i];
+  }
+}
+
+// K1 kSorted's last pass, one launch after the body: CUDA blocks [0, nsum)
+// add the grid blocks' dense and LayerNorm slices in block order; then
+// finish_parts for each domain row d, each a span of kFinishSpan of the
+// row's elements of both MetaNets' blocks, write zeros where a MetaNet is
+// not applied or no example has row d, and where the grid split the row's
+// run [start[d], start[d + 1]) between blocks b0 < b1, b0's tail slot
+// plus the head slots of b0 + 1 .. b1 in block order (the owner of a
+// whole run stored its sums in the body).  Spans, not a CUDA block a row:
+// at d = 64 a row's blocks are 32k floats from about ten slots each.
+constexpr int kFinishSpan = 1024;
+
+template <class SH>
+__host__ __device__ constexpr int finish_parts() {
+  return (2 * Strides<SH>::kMeta + kFinishSpan - 1) / kFinishSpan;
+}
+
+template <class SH>
+__global__ void sorted_bwd_finish(const StashBwdArgs a, int blocks,
+                                  int nsum) {
+  using S = Strides<SH>;
+  if (static_cast<int>(blockIdx.x) < nsum) {
+    sum_dense<SH>(a, blocks, blockIdx.x);
+    return;
+  }
+  const int b = blockIdx.x - nsum, d = b / finish_parts<SH>();
+  const int i0 = b % finish_parts<SH>() * kFinishSpan;
+  const int i1 = min(i0 + kFinishSpan, 2 * S::kMeta);
+  const int s0 = a.start[d], s1 = a.start[d + 1];
+  const int b0 = s0 / a.chunk, b1 = (s1 - 1) / a.chunk;
+  float* dom_out = a.grads + grad_floats<SH>(0);
+  for (int i = i0 + threadIdx.x; i < i1; i += blockDim.x) {
+    const int w = i / S::kMeta;  // the slots hold Q's blocks, then K's
+    const bool on = (w ? a.apply_k : a.apply_q) && s1 > s0;
+    if (on && b0 == b1) continue;
+    float v = 0.f;
+    if (on) {
+      v = boundary_slot<SH>(a.bnd, b0, 1)[i];
+      for (int k = b0 + 1; k <= b1; ++k)
+        v += boundary_slot<SH>(a.bnd, k, 0)[i];
+    }
+    *meta_grad_at<SH>(dom_out, a.D, w, d, i - w * S::kMeta) = v;
   }
 }
 
@@ -911,12 +1014,145 @@ __host__ __device__ size_t tiled_bwd_scratch_floats(int blocks) {
          (grad_floats<SH>(0) + 4 * Strides<SH>::kMeta + 1);
 }
 
-template <class SH, int MODE, bool TILED>
+// K1 kSorted's sort of the batch by domain row: a stable counting sort in
+// three launches of the port's own, on B ints.  Chunks of kSortChunk
+// examples: each example's place among its row's examples in its chunk
+// (rank), each chunk's count of each row (hist [C][D]), turned
+// into the chunk's first sorted position of the row; then each example
+// goes to hist[c][row] + rank.  Out-of-range ids are clamped to [0, D) as
+// everywhere in K1.
+constexpr int kSortChunk = 256;
+
+struct RowSort {
+  int *rank, *hist, *start, *perm, *skey;
+};
+
+// The sort's scratch ints: rank [B], hist [C][D], start [D + 1], perm [B]
+// and skey [B].
+__host__ __device__ inline size_t row_sort_ints(int B, int D) {
+  const size_t C = (B + kSortChunk - 1) / kSortChunk;
+  return 3 * static_cast<size_t>(B) + C * D + D + 1;
+}
+
+__host__ __device__ inline RowSort row_sort_scratch(int* p, int B, int D) {
+  const size_t C = (B + kSortChunk - 1) / kSortChunk;
+  RowSort s;
+  s.rank = p;
+  s.hist = s.rank + B;
+  s.start = s.hist + C * D;
+  s.perm = s.start + D + 1;
+  s.skey = s.perm + B;
+  return s;
+}
+
+__device__ __forceinline__ int clamped_row(const int* dom, int i, int D) {
+  return min(max(__ldg(dom + i), 0), D - 1);
+}
+
+// Pass 1: a block a chunk, a thread an example.
+__global__ void __launch_bounds__(kSortChunk)
+    sort_rows_count(const int* dom, int B, int D, RowSort s) {
+  __shared__ int key[kSortChunk];
+  const int t = threadIdx.x, i = blockIdx.x * kSortChunk + t;
+  const int k = i < B ? clamped_row(dom, i, D) : -1;
+  key[t] = k;
+  int* hist = s.hist + static_cast<size_t>(blockIdx.x) * D;
+  for (int d = t; d < D; d += kSortChunk) hist[d] = 0;
+  __syncthreads();
+  if (k < 0) return;
+  int before = 0;
+  bool last = true;
+  for (int j = 0; j < kSortChunk; ++j) {
+    before += key[j] == k && j < t;
+    last = last && !(key[j] == k && j > t);
+  }
+  s.rank[i] = before;
+  if (last) hist[k] = before + 1;  // the chunk's count of row k
+}
+
+// Pass 2, one block: each row's count over the chunks (each thread a few
+// consecutive rows), their exclusive prefix sum over the rows (start), and
+// hist[c][d] turned into start[d] plus the count of row d in chunks before
+// c.
+constexpr int kSortScan = 1024;
+
+__global__ void __launch_bounds__(kSortScan)
+    sort_rows_offsets(int B, int D, int C, RowSort s) {
+  __shared__ int part[kSortScan];
+  const int t = threadIdx.x, per = (D + kSortScan - 1) / kSortScan;
+  const int d0 = min(D, t * per), d1 = min(D, d0 + per);
+  int sum = 0;
+  for (int d = d0; d < d1; ++d) {
+    int run = 0;
+    for (int c = 0; c < C; ++c) {
+      int* h = s.hist + static_cast<size_t>(c) * D + d;
+      const int v = *h;
+      *h = run;
+      run += v;
+    }
+    s.start[d] = run;  // the row's count, for now
+    sum += run;
+  }
+  part[t] = sum;
+  __syncthreads();
+  for (int o = 1; o < kSortScan; o <<= 1) {  // inclusive scan of part
+    const int v = t >= o ? part[t - o] : 0;
+    __syncthreads();
+    part[t] += v;
+    __syncthreads();
+  }
+  int base = part[t] - sum;
+  for (int d = d0; d < d1; ++d) {
+    const int n = s.start[d];
+    s.start[d] = base;
+    for (int c = 0; c < C; ++c) s.hist[static_cast<size_t>(c) * D + d] += base;
+    base += n;
+  }
+  if (t == 0) s.start[D] = B;
+}
+
+// Pass 3: a thread an example, to its sorted position.
+__global__ void __launch_bounds__(kSortChunk)
+    sort_rows_place(const int* dom, int B, int D, RowSort s) {
+  const int i = blockIdx.x * kSortChunk + threadIdx.x;
+  if (i >= B) return;
+  const int k = clamped_row(dom, i, D);
+  const int p = s.hist[static_cast<size_t>(blockIdx.x) * D + k] + s.rank[i];
+  s.perm[p] = i;
+  s.skey[p] = k;
+}
+
+// The three passes on the caller's stream.
+inline cudaError_t sort_rows(const int* dom, int B, int D, RowSort s,
+                             cudaStream_t stream) {
+  const int C = (B + kSortChunk - 1) / kSortChunk;
+  sort_rows_count<<<C, kSortChunk, 0, stream>>>(dom, B, D, s);
+  sort_rows_offsets<<<1, kSortScan, 0, stream>>>(B, D, C, s);
+  sort_rows_place<<<C, kSortChunk, 0, stream>>>(dom, B, D, s);
+  return cudaGetLastError();
+}
+
+// K1 kSorted's scratch floats for a grid of blocks and B examples on D
+// rows: the blocks' dense and LayerNorm slices, their two boundary slots,
+// then the sort's ints.
+template <class SH>
+__host__ __device__ size_t sorted_bwd_scratch_floats(int blocks, int B,
+                                                     int D) {
+  return static_cast<size_t>(blocks) *
+             (grad_floats<SH>(0) + 4 * Strides<SH>::kMeta) +
+         row_sort_ints(B, D);
+}
+
+// The body and its last pass on the caller's stream (K1 kSorted: after
+// sort_rows).  K1 takes at most slice_domains rows in kSlices and
+// max_domains in kSorted.
+template <class SH, int MODE, int WALK>
 cudaError_t launch_stash_bwd(StashBwdArgs a, int blocks,
                              cudaStream_t stream) {
-  auto kernel = meta_stash_bwd_kernel<SH, MODE, TILED>;
+  auto kernel = meta_stash_bwd_kernel<SH, MODE, WALK>;
   const int smem = BwdTile<SH>::bytes(a.F);
-  if (smem > kMaxSmem || (!TILED && a.D > max_domains<SH>()))
+  if (smem > kMaxSmem || (WALK == kSlices && a.D > slice_domains<SH>()) ||
+      (WALK == kSorted && a.D > max_domains<SH>()))
     return cudaErrorInvalidValue;
   static int configured = 0;
   if (smem > configured) {
@@ -925,14 +1161,18 @@ cudaError_t launch_stash_bwd(StashBwdArgs a, int blocks,
     if (err != cudaSuccess) return err;
     configured = smem;
   }
-  if (!TILED) a.chunk = block_chunk(a.B, a.F, blocks, BwdTile<SH>::ROWS);
+  if (WALK != kTiles)
+    a.chunk = block_chunk(a.B, a.F, blocks, BwdTile<SH>::ROWS);
   kernel<<<blocks, kTT, smem, stream>>>(a);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  if constexpr (TILED) {
-    const int nsum = (grad_floats<SH>(0) + 255) / 256;
+  const int nsum = (grad_floats<SH>(0) + 255) / 256;
+  if constexpr (WALK == kTiles) {
     tiled_bwd_finish<SH><<<nsum + a.D + blocks - 1, 256, 0, stream>>>(
         a, blocks, nsum);
+  } else if constexpr (WALK == kSorted) {
+    sorted_bwd_finish<SH><<<nsum + a.D * finish_parts<SH>(), 256, 0,
+                            stream>>>(a, blocks, nsum);
   } else {
     const int total = grad_floats<SH>(a.D);
     sum_partials<<<(total + 255) / 256, 256, 0, stream>>>(a.partial, a.grads,

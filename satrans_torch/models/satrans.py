@@ -38,12 +38,18 @@ Then the routing is the JAX package's (satrans.py:358-442):
   per-tile tables ``table[plan.tile_dom]``, the head runs on the padded
   slots and only the predictions return to batch order;
 * metanet with ``R <= 8``: K1 on the composite table;
-* gate and bilinear: K6 on the composite table while ``R`` is within
-  K6's 16 rows; beyond, the constructor raises (ROADMAP queue 2 item
-  'K1-bwd for many meta rows');
+* gate and bilinear: K6 on the composite table, by the rule below;
 * ``R > SATRANS_COMPOSITE_MAX`` (default 256): the JAX package's
   per-example parameters on its XLA path; the constructor raises (ROADMAP
   queue 1 item 'multi-column above SATRANS_COMPOSITE_MAX').
+
+On one column or a composite table alike, the layer kernels take the
+rows the JAX package's kernel route takes (satrans.py:363-380): K1 (and
+its backward) while ``R`` times the MetaNet's widest hidden layer is at
+most 4096 (a tiled composite at any ``R``), K6 for the gate at any ``R``
+and for the bilinear map while ``R * d <= 4096``; past that the layer
+takes the XLA route below, in serving and in training, as the JAX
+package's does.
 
 ``route`` picks one of three routes (:data:`ROUTES`), the JAX package's
 ``use_fused_kernel`` / ``fused_interpret`` pair: ``'kernel'`` (True /
@@ -177,27 +183,26 @@ class SATrans(nn.Module):
                 f"SATRANS_COMPOSITE_MAX={self.composite_max}: the JAX "
                 "package's per-example meta parameters are ROADMAP queue 1 "
                 "item 'multi-column above SATRANS_COMPOSITE_MAX'")
-        if multi and variant != "metanet" and \
-                self.meta_rows > gate_block.BWD_MAX_ROWS:
-            raise NotImplementedError(
-                f"a {variant} layer on a composite table of "
-                f"{self.meta_rows} rows: K6 takes at most "
-                f"{gate_block.BWD_MAX_ROWS}; more meta rows are ROADMAP "
-                "queue 2 item 'K1-bwd for many meta rows'")
         # metanet composites past this many rows take the tiled layer (K7)
         self.tiled = multi and variant == "metanet" and self.meta_rows > int(
             os.environ.get("SATRANS_TILED_MIN_ROWS", "8"))
         self.composite_block_b = int(os.environ.get(
             "SATRANS_BLOCK_B_COMPOSITE", "32"))
-        # the JAX package's route (satrans.py:349-376): 2- and 3-matrix
+        # the JAX package's route (satrans.py:349-380): 2- and 3-matrix
         # MetaNets take K1 where the meta rows times the widest hidden layer
         # are at most 4096, K7 on a tiled table; other depths take the
-        # plain layer, as the JAX package takes its XLA layer
+        # plain layer, as the JAX package takes its XLA layer.  The gate
+        # takes K6 at any row count, the bilinear map while the rows times
+        # d are at most 4096 (its simple_ok).
         widest = max(self.meta_units[1:-1] or self.meta_units[1:2])
         self.metanet_kernel = (
             variant == "metanet"
             and len(self.meta_units) in meta_block.KERNEL_DEPTHS
-            and (self.tiled or self.meta_rows * widest <= 4096))
+            and (self.tiled
+                 or self.meta_rows * widest <= meta_block.ROUTE_WIDTH))
+        self.simple_kernel = variant == "gate" or (
+            variant == "bilinear"
+            and self.meta_rows * d <= meta_block.ROUTE_WIDTH)
         self.att_head_num = att_head_num
         self.meta_mode = meta_mode
         self.task = task
@@ -346,9 +351,9 @@ class SATrans(nn.Module):
         if return_scores:
             return self._scores_forward(x, dom, blk, batch, seeds, key)
         dropping = self.training and self.dropout_rate > 0.0
-        # the JAX package's XLA route (satrans.py:324-339, :372-376)
-        if self.route == "xla" or (self.variant == "metanet"
-                                   and not self.metanet_kernel) or (
+        # the JAX package's XLA route (satrans.py:324-339, :372-380)
+        if self.route == "xla" or not (self.metanet_kernel
+                                       or self.simple_kernel) or (
                 blk is None and (self.tiled or dropping)):
             for i, (layer, tables) in enumerate(zip(self.layers,
                                                     self.meta_tables())):

@@ -49,11 +49,6 @@ KERNEL_SHAPES = frozenset((d, heads) for d in meta_block.KERNEL_WIDTHS
                           for heads in meta_block.KERNEL_HEADS)
 KERNEL_SET = "d in (8, 16, 32, 64), heads in (1, 2, 4, 8)"
 KERNEL_MAX_FIELDS = 20
-# K6-bwd sums every meta row's table gradient in each block's slice: at
-# most this many rows at every shape (kMaxDomains in csrc/gate_block_bwd.cu,
-# which the launch reads back; the tables are staged in shared memory
-# where they fit, else read from device memory)
-BWD_MAX_ROWS = 16
 # the field multiple of the JAX kernel's dropout tile (gate_block.py:382)
 PAD_FIELDS = 8
 
@@ -96,7 +91,7 @@ def layer_masks(x, *, head_num: int, train: bool, drop_rate: float,
                               False, False, x.device, pad_mult=PAD_FIELDS)
 
 
-def _check(x, head_num: int, D: int, train: bool) -> None:
+def _check(x, head_num: int) -> None:
     """Raise for what the kernels do not take."""
     B, F, d = x.shape
     if (d, head_num) not in KERNEL_SHAPES or F > KERNEL_MAX_FIELDS:
@@ -107,15 +102,6 @@ def _check(x, head_num: int, D: int, train: bool) -> None:
     if x.dtype != torch.float32:
         raise NotImplementedError(f"gate_block kernel takes float32, got "
                                   f"{x.dtype}")
-    if train:
-        most = kernel_fn("gate_block_bwd",
-                         "satrans_gate_block_bwd_max_domains", [],
-                         shape=(d, head_num))()
-        if D > most:
-            raise NotImplementedError(
-                f"gate_block_bwd sums every meta row's table gradient per "
-                f"block and takes at most {most} rows, got {D}: more meta "
-                "rows are ROADMAP queue 2 item 'K1-bwd for many meta rows'")
 
 
 def pack_operands(x, layer: MetaTransformerLayer, tables, dom, *,
@@ -169,9 +155,11 @@ def launch_fwd(x, dom, wqkv, tq, tk, wout, lno, cfg, drop):
 
 def launch_bwd(g, x, dom, wqkv, tq, tk, wout, lno, cfg, drop):
     """K6-bwd: ``(dx, dwqkv, dtq, dtk, dwout, dlno)`` for the upstream
-    gradient ``g`` of the layer's output (``dtq``/``dtk`` zero for an
-    unapplied projection).  One block an SM (at most one a tile of the
-    body); the result is deterministic for a grid."""
+    gradient ``g`` of the layer's output at any number of table rows
+    (``dtq``/``dtk`` zero for an unapplied gate; ``dtk`` None for the
+    bilinear map, which transforms Q alone).  One block an SM (at most one
+    a tile of the body), each with its slice of every row's table sums;
+    the result is deterministic for a grid."""
     bilinear, heads, apply_q, apply_k, relu_out = cfg
     B, F, d = x.shape
     D, width = tq.shape
@@ -201,10 +189,11 @@ def launch_bwd(g, x, dom, wqkv, tq, tk, wout, lno, cfg, drop):
         raise RuntimeError(f"gate_block_bwd launch failed: CUDA error {err}")
     global bwd_launches
     bwd_launches += 1
-    dwqkv, dwout, dlno, dtq, dtk = torch.split(
-        grads, [3 * d * d, d * d, 2 * d, D * width, D * width])
+    dwqkv, dwout, dlno, dtq, *dtk = torch.split(
+        grads, [3 * d * d, d * d, 2 * d] + [D * width] * (2 - bilinear))
     return (dx, dwqkv.view(d, 3 * d), dtq.view(D, width),
-            dtk.view(D, width), dwout.view(d, d), dlno.view(2, d))
+            dtk[0].view(D, width) if dtk else None, dwout.view(d, d),
+            dlno.view(2, d))
 
 
 class _SimpleLayerFn(torch.autograd.Function):
@@ -248,7 +237,7 @@ def fused_simple_layer(x, layer: MetaTransformerLayer, tables, dom, *,
     grad = needs_grad(x, layer, tables)
     ops, cfg = pack_operands(x, layer, tables, dom, head_num=head_num,
                              mode=mode, relu_out=relu_out)
-    _check(x, head_num, ops[3].shape[0], grad)
+    _check(x, head_num)
     drop = prng.kernel_args(train, drop_rate, seed, block_b, x.shape[1],
                             pad_mult=PAD_FIELDS)
     if not grad:

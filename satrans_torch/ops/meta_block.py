@@ -10,9 +10,10 @@ in all three modes: K1-bwd, which recomputes the forward; K1-bwd-stash,
 which reads the residuals; K1-bwd-stash light, which reads the light
 ones and recomputes the probabilities), twins of
 ``satrans_tpu/ops/pallas/meta_block.py``.  The
-tile bodies sort each block's range of the batch by domain themselves, so
-the wrappers pass the batch in its own order and get every output back in
-it.
+tile bodies sort each block's range of the batch by domain themselves (the
+backward past :func:`slice_rows` meta rows the whole batch, in its C
+call), so the wrappers pass the batch in its own order and get every
+output back in it.
 
 * :func:`fused_meta_layer` - the wrapper.  On a CUDA tensor it launches
   the kernels or raises: with a gradient needed, ``bwd='stash'`` (the
@@ -83,6 +84,10 @@ KERNEL_SET = ("d in (8, 16, 32, 64), h1 = 2d, h2 in (0, 2d) (a 2- or "
 # satrans.py:372, len(meta_units) in (3, 4))
 KERNEL_DEPTHS = (3, 4)
 KERNEL_MAX_FIELDS = 20
+# the JAX package's kernel route takes a table of meta rows x the widest
+# MetaNet hidden layer <= this (satrans_tpu/models/satrans.py:375-377),
+# and so does K1's backward (csrc/meta_block_bwd.cu, max_domains)
+ROUTE_WIDTH = 4096
 
 BWD_MODES = ("stash", "stash_light", "recompute")
 # the residuals of each stash ('scores': K1-scores' probabilities), in the
@@ -201,18 +206,11 @@ def _check(x, meta_units, head_num: int, tables, train: bool) -> None:
                          "satrans_meta_block_bwd_max_domains", [],
                          shape=shape)()
         if D > most:
-            row = 2 * 4 * sum(a * b for a, b in _meta_blocks(*shape[:3]))
             raise NotImplementedError(
-                f"meta_block_bwd keeps every meta row's gradient sums per "
-                f"block, {row} bytes a row at {shape}, and takes at most "
-                f"{most} rows there, got {D}: more meta rows are ROADMAP "
-                "queue 2 item 'K1-bwd for many meta rows'")
-
-
-def _meta_blocks(d: int, h: int, h2: int):
-    """The ``(rows, cols)`` of a MetaNet's matrices, W1, Wm (none for
-    ``h2 = 0``) and W2."""
-    return [(d, h)] + ([(h, h2)] if h2 else []) + [(h2 or h, d)]
+                f"meta_block_bwd takes at most {most} meta rows at {shape}, "
+                f"got {D}: the JAX package's kernel route takes meta rows x "
+                f"the widest hidden layer <= {ROUTE_WIDTH}, and its model "
+                "(and the port's) takes the plain layer past it")
 
 
 def _residual_shapes(B: int, F: int, d: int, heads: int, stash: str):
@@ -291,7 +289,10 @@ def launch_bwd(g, x, dom, wqkv, w1q, wmq, w2q, lnq, w1k, wmk, w2k, lnk,
     dw2k, dlnk, dwout, dlno)`` (``dwmq``/``dwmk`` None for 2-matrix
     MetaNets) for the upstream gradient ``g`` of the layer's output.  All
     three run on the backward tile body, one block an SM (at most one a
-    tile), and the result is deterministic for a grid."""
+    tile), and the result is deterministic for a grid.  Past
+    :func:`slice_rows` meta rows the C call first sorts the batch by domain
+    row (three small launches) and the body walks it in that order, up to
+    the JAX package's cap (:data:`ROUTE_WIDTH`)."""
     h, h2, heads, apply_q, apply_k, relu_out = cfg
     B, F, d = x.shape
     D = w1q.shape[0]
@@ -313,11 +314,11 @@ def launch_bwd(g, x, dom, wqkv, w1q, wmq, w2q, lnq, w1k, wmk, w2k, lnk,
                        "satrans_meta_block_bwd_stash_blocks",
                        [ctypes.c_int] * 3, shape=shape)(
         B, F, sm_count(x.device))
-    total = grad_floats(d, h, h2, heads, D)
     dx = torch.empty_like(x)
-    partial = torch.empty(blocks * total, dtype=torch.float32,
-                          device=x.device)
-    grads = torch.empty(total, dtype=torch.float32, device=x.device)
+    partial = torch.empty(scratch_floats(shape, B, D, blocks),
+                          dtype=torch.float32, device=x.device)
+    grads = torch.empty(grad_floats(d, h, h2, heads, D), dtype=torch.float32,
+                        device=x.device)
     ops = (x, dom, g, wqkv, w1q, wmq, w2q, lnq, w1k, wmk, w2k, lnk, wout,
            lno, dx, partial, grads)
     check_operands(present(ops), x.device, ints=(dom,))
@@ -347,6 +348,25 @@ def grad_floats(d: int, h: int, h2: int, heads: int, rows: int) -> int:
     return kernel_fn("meta_block_bwd", "satrans_meta_block_bwd_grad_floats",
                      [ctypes.c_int] * 5, shape=(d, h, h2, heads))(
         d, h, h2, heads, rows)
+
+
+def scratch_floats(shape, B: int, D: int, blocks: int) -> int:
+    """Floats of K1's backward scratch for ``B`` examples on ``D`` meta
+    rows and a grid of ``blocks`` at ``shape`` ``(d, h1, h2, heads)``:
+    each block's slice with every row's MetaNet sums up to
+    :func:`slice_rows` rows, else the sorted walk's slices, two boundary
+    slots of MetaNet blocks a block and the sort, whatever ``D``."""
+    return kernel_fn("meta_block_bwd",
+                     "satrans_meta_block_bwd_scratch_floats",
+                     [ctypes.c_int] * 7, shape=shape)(*shape, B, D, blocks)
+
+
+def slice_rows(shape) -> int:
+    """The most meta rows K1's backward keeps in each block's slice at
+    ``shape``; more take the sorted walk (csrc/meta_stash_bwd.cuh)."""
+    return kernel_fn("meta_block_bwd",
+                     "satrans_meta_block_bwd_slice_domains", [],
+                     shape=shape)()
 
 
 def split_grads(grads, d: int, h: int, h2: int, D: int):

@@ -416,10 +416,7 @@ def test_bridge_moves_a_multicol_tree():
 @pytest.mark.parametrize("num_domains,variant,env", [
     ((3, 299), "metanet", None),     # 4 x 300 > SATRANS_COMPOSITE_MAX
     ((3, 2), "metanet", "8"),        # 12 > SATRANS_COMPOSITE_MAX=8
-    ((3, 4), "gate", None),          # 20 rows, K6 takes 16
-    ((3, 4), "bilinear", None),
-], ids=["above-composite-max", "composite-max-env", "gate-20-rows",
-        "bilinear-20-rows"])
+], ids=["above-composite-max", "composite-max-env"])
 def test_unported_multicol_cases_raise(num_domains, variant, env,
                                        monkeypatch):
     if env is not None:

@@ -214,7 +214,7 @@ def test_kernel_shape_rule():
                     tmb.KERNEL_SHAPES
                 tmb._check(x, units, heads, tables, train=False)
                 ttm._check(torch.zeros(32, 19, d), units, heads, tables, 16)
-            tgb._check(x, heads, 4, train=False)
+            tgb._check(x, heads)
     assert len(tmb.KERNEL_SHAPES) == 32 and len(tgb.KERNEL_SHAPES) == 16
     for d, units, heads in ((24, [24, 48, 24], 4), (32, [32, 32, 32], 4),
                             (32, [32, 64, 32], 16), (128, [128, 256, 128], 4)):
@@ -224,7 +224,7 @@ def test_kernel_shape_rule():
         assert str(sorted(tmb.KERNEL_SHAPES)) in str(e.value)
     for d, heads in ((24, 4), (32, 16), (128, 8)):
         with pytest.raises(NotImplementedError, match="heads in") as e:
-            tgb._check(torch.zeros(2, 19, d), heads, 4, train=False)
+            tgb._check(torch.zeros(2, 19, d), heads)
         assert str(sorted(tgb.KERNEL_SHAPES)) in str(e.value)
     with pytest.raises(NotImplementedError, match="F <= 20"):
         tmb._check(torch.zeros(2, 21, 16), [16, 32, 16], 2, tables,

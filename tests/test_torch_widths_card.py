@@ -25,6 +25,7 @@ elsewhere; the file imports neither JAX nor the JAX package:
 """
 
 import copy
+import functools
 import tempfile
 
 import pytest
@@ -402,10 +403,12 @@ def test_cli_runs_on_the_kernels(card, monkeypatch, d, heads, bank):
 @pytest.mark.cuda
 def test_outside_the_set_and_past_the_row_cap_raise(card, monkeypatch):
     """On the card a shape outside the kernels' set raises
-    NotImplementedError naming the set, and a meta-row count past a
-    shape's cap raises in training with the bytes a row takes there (d =
-    64: 8 rows of a 2-matrix MetaNet, 4 of a 3-matrix one); the plain
-    layer never runs in their place."""
+    NotImplementedError naming the set; the plain layer never runs in its
+    place.  K1 takes the meta rows the JAX package's kernel route takes
+    (rows x the widest hidden layer <= 4096: 32 at d = 64 with MetaNet
+    (128, 64) and (128, 128, 64)): at the cap its backward runs, one row
+    past it the wrapper raises in training, and the model there takes the
+    plain layer, as the JAX package takes its XLA layer."""
     calls = _plain_calls(monkeypatch)
     gen = make_generator(5, card)
     for d, heads, units in ((24, 4, [24, 48, 24]), (32, 16, [32, 64, 32]),
@@ -419,16 +422,27 @@ def test_outside_the_set_and_past_the_row_cap_raise(card, monkeypatch):
                 meta_block.fused_meta_layer(x, layer, {"Q": t, "K": t}, dom,
                                             meta_units=units, head_num=heads)
         assert str(sorted(meta_block.KERNEL_SHAPES)) in str(e.value)
-    for units, most in (([64, 128, 64], 8), ([64, 128, 128, 64], 4)):
-        _, layer, tables = _layer(card, 64, 6, units, rows=most + 1)
-        x = init.normal(gen, (16, F, 64), 1.0).requires_grad_(True)
-        dom = torch.zeros(16, dtype=torch.int64, device=card)
-        with pytest.raises(NotImplementedError, match=f"at most {most} rows"
-                           ) as e:
-            meta_block.fused_meta_layer(x, layer, tables, dom,
-                                        meta_units=units, head_num=8,
-                                        train=True)
-        assert "bytes a row" in str(e.value)
+    for units in ([64, 128, 64], [64, 128, 128, 64]):
+        shape = (64, *meta_block.hidden_widths(units), 8)
+        assert meta_block.slice_rows(shape) < 32
+        for rows in (32, 33):
+            _, layer, tables = _layer(card, 64, 6, units, rows=rows)
+            x = init.normal(gen, (16, F, 64), 1.0).requires_grad_(True)
+            dom = torch.arange(16, device=card) * (rows - 1) // 15
+            run = functools.partial(
+                meta_block.fused_meta_layer, x, layer, tables, dom,
+                meta_units=units, head_num=8, train=True)
+            if rows == 33:
+                with pytest.raises(NotImplementedError,
+                                   match="at most 32 meta rows"):
+                    run()
+                continue
+            before = _counts()
+            run().sum().backward()
+            torch.cuda.synchronize()
+            assert [a - b for a, b in zip(_counts(), before)] == \
+                PAIR["stash"]
+            assert bool(torch.isfinite(x.grad).all())
     layer = attention.MetaTransformerLayer(gen, 16, variant="gate")
     tabs = {k: init.normal(gen, (4, 16), 0.5) for k in "QK"}
     with pytest.raises(NotImplementedError, match="heads in"):
@@ -438,3 +452,21 @@ def test_outside_the_set_and_past_the_row_cap_raise(card, monkeypatch):
                 torch.zeros(16, dtype=torch.int64, device=card),
                 head_num=16)
     assert calls[0] == 0
+    from satrans_torch.features import FeatureLayout, SparseFeature
+    from satrans_torch.models import SATrans
+    layout = FeatureLayout([SparseFeature("f0", 100, 64),
+                            SparseFeature("domain", 40, 64)])
+    ids = torch.arange(32, device=card)
+    batch = {"sparse": torch.stack([ids + 1, ids], 1).int()}
+    for domains, layers in ((31, 0), (32, 3)):
+        model = SATrans(layout, ["domain"], [domains], att_head_num=8,
+                        meta_dnn_hidden_units=(128, 64), device=card)
+        assert model.metanet_kernel == (layers == 0)
+        model.train()
+        calls[0] = 0
+        before = _counts()
+        model(batch).sum().backward()
+        torch.cuda.synchronize()
+        assert calls[0] == layers
+        assert [a - b for a, b in zip(_counts(), before)] == (
+            [3 * c for c in PAIR["stash"]] if layers == 0 else [0] * 6)
