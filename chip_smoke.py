@@ -241,6 +241,26 @@ Phases, each of which exits non-zero on failure:
    counted from 0 with the plain layer's calls (none) and each step's
    device busy time.
 
+20. the legacy Star-Trans models and SATrans past SATRANS_COMPOSITE_MAX,
+   at the AliCCP sota layout (19 fields, d = 32, the real vocabularies,
+   batch 8192; their layers, the JAX package's XLA computations, are plain
+   PyTorch with the XLA route's dropout masks at 0.1): (a) Star_Trans,
+   also with ``--att_layer_num 2 --att_layer_type trans --merge sum``,
+   Starv2_Trans (3 query bases, ``attn_batch_reg`` 0.1), Starv3_Trans
+   (``--meta_mode Query``), Starv4_Trans with and without ``aggmap``,
+   each built as the JAX CLI builds it (scenario 301, 3 domain layers, 4
+   heads): 3 ``fit`` steps in ``dense`` and 3 + 3 in ``lazy`` (split
+   tail, fused tail) with K2-K5's launches a step held and no layer
+   kernel, every loss finite and Starv2's aux loss above 0, each staged
+   step's device busy time and top kernels, the forward on the card
+   against a CPU copy; (b) SATrans on ``--domain_col 301-122-125`` (448
+   combinations: per-example meta parameters), metanet and gate: 3
+   ``lazy`` steps, a Predictor answering 3 requests of 8192 (no kernel
+   at all), the forward against the CPU; (c) ``cli.main --model_name
+   Starv2_Trans`` and ``--model_name SATrans --domain_col domain-f0``
+   (4 x 1,000 combinations) with ``--bank_update lazy`` on 40,960
+   synthetic rows, each with its steps' K2-K5 launches.
+
 Phases 2 and 4 also hold K1 where a share of the attention logits passes
 the kernels' clamp at 60 against the clamped plain layer.
 
@@ -4503,11 +4523,18 @@ def star_mtl_run(dev, card, name, x, y):
 
 def star_mtl_cli(dev, card):
     """``cli.main --model_name Star_Net`` and ``MMOE`` end to end on the
-    card: STAR_MTL_CLI_ROWS synthetic rows, ``--bank_update lazy``, fit,
-    predict and the report.  Each run's K2-K5 launches are counted from 0
-    and must be its steps' (the split tail's), with no layer kernel; the
-    test AUC must lie in [0, 1] and the report hold one row.  Returns the
-    launches by run."""
+    card (:func:`cli_lazy_runs`).  Returns the launches by run."""
+    return cli_lazy_runs(dev, card, [(f"{name}_cli", ["--model_name", name])
+                                     for name in ("Star_Net", "MMOE")])
+
+
+def cli_lazy_runs(dev, card, runs):
+    """``cli.main`` end to end on the card for each ``(label, argv)`` of
+    ``runs``: STAR_MTL_CLI_ROWS synthetic rows, ``--bank_update lazy``,
+    fit, predict and the report.  Each run's K2-K5 launches are counted
+    from 0 and must be its steps' (the split tail's), with no layer
+    kernel; the test AUC must lie in [0, 1] and the report hold one row.
+    Returns the launches by run."""
     import tempfile
 
     from satrans_torch.cli import main as cli
@@ -4515,13 +4542,14 @@ def star_mtl_cli(dev, card):
     steps = -(-int(0.8 * STAR_MTL_CLI_ROWS) // BATCH)
     want = tuple(steps * n for n in LAZY_ROWS_PER_STEP)
     launched = {}
-    for name in ("Star_Net", "MMOE"):
+    for label, argv in runs:
+        name = " ".join(argv)
         with tempfile.TemporaryDirectory() as tmp:
             torch.cuda.synchronize()
             zero_counts()
             t0 = time.perf_counter()
             auc = cli.main(["--data_name", "synthetic", "--synthetic_rows",
-                            str(STAR_MTL_CLI_ROWS), "--model_name", name,
+                            str(STAR_MTL_CLI_ROWS), *argv,
                             "--bank_update", "lazy", "--results_dir", tmp],
                            device=dev)
             torch.cuda.synchronize()
@@ -4537,8 +4565,8 @@ def star_mtl_cli(dev, card):
               f"cli {name}: {steps} lazy steps launched {rows} "
               f"({', '.join(ROW_NAMES)}) and {layers} layer kernels, want "
               f"{want} and none")
-        launched[f"{name}_cli"] = dict(zip(ROW_NAMES, rows))
-        print(f"cli --model_name {name} --bank_update lazy [{card}]: "
+        launched[label] = dict(zip(ROW_NAMES, rows))
+        print(f"cli {name} --bank_update lazy [{card}]: "
               f"{STAR_MTL_CLI_ROWS} synthetic rows, {steps} steps of {BATCH}, "
               f"data, fit, predict and report in {wall:.4f}s; test AUC "
               f"{auc}; launches {rows}", flush=True)
@@ -5690,6 +5718,190 @@ def many_rows_phase(dev, card):
     return dict(errors=errs, times=times, scratch=scratch), paths
 
 
+# phase 20: the legacy Star-Trans models as the JAX CLI builds them
+# (satrans_tpu/cli/main.py:213-230; scenario 301, --domain_att_layer_num
+# 3, --att_head_num 4, --att_layer_num 0 unless given), SATrans past
+# SATRANS_COMPOSITE_MAX, and the CLI with both
+LEGACY_RUNS = (
+    ("Star_Trans", ["--model_name", "Star_Trans"]),
+    ("Star_Trans_trans2_sum", ["--model_name", "Star_Trans",
+                               "--att_layer_num", "2", "--att_layer_type",
+                               "trans", "--merge", "sum"]),
+    ("Starv2_Trans", ["--model_name", "Starv2_Trans", "--num_query_bases",
+                      "3", "--attn_batch_reg", "0.1"]),
+    ("Starv3_Trans", ["--model_name", "Starv3_Trans", "--meta_mode",
+                      "Query"]),
+    ("Starv4_Trans", ["--model_name", "Starv4_Trans"]),
+    ("Starv4_Trans_aggmap", ["--model_name", "Starv4_Trans", "--flag",
+                             "aggmap"]),
+)
+# 4 x 14 x 8 = 448 combinations, past SATRANS_COMPOSITE_MAX (256)
+PER_EXAMPLE_COLS = ("301", "122", "125")
+PER_EXAMPLE_REQUESTS = 3
+LEGACY_CLI_RUNS = (
+    ("cli_Starv2_Trans", ["--model_name", "Starv2_Trans"]),
+    ("cli_SATrans_domain_f0", ["--model_name", "SATrans", "--domain_col",
+                               "domain-f0"]),
+)
+
+
+def cli_model(dev, argv, cols=("301",)):
+    """The model ``cli.build_model`` builds for ``argv`` at the AliCCP sota
+    layout on the scenario columns ``cols``, each with the CLI's domain
+    count (its DATA_MAX)."""
+    from satrans_torch.cli import main as cli
+    from satrans_torch.data import aliccp
+    from satrans_torch.features import FeatureLayout
+    args = cli.parse_args(argv)
+    return cli.build_model(args, FeatureLayout(aliccp.sota_columns(32)),
+                           list(cols), [aliccp.DATA_MAX[c] for c in cols],
+                           args.flag, device=dev)
+
+
+def legacy_arm(card, label, trainer, x, y, mode, tail=None, aux=False):
+    """ZOO_STEPS ``fit`` steps of one arm (:func:`star_mtl_arm`: K2-K5's
+    launches a step held, no layer kernel), every step's loss and aux loss
+    finite, the aux loss above 0 with ``aux`` (0 without); then the staged
+    step's time and device profile.  Returns (the launches by kernel, the
+    device busy ms a step)."""
+    stats, step = [], trainer.train_step
+
+    def recorded(*args, **kw):
+        stats.append(step(*args, **kw))
+        return stats[-1]
+
+    trainer.train_step = recorded
+    try:
+        launched = star_mtl_arm(card, label, trainer, x, y, mode, tail,
+                                timed=False)
+    finally:
+        trainer.train_step = step
+    arm = mode + (f" tail {tail}" if tail else "")
+    got = np.array([[float(s[k]) for k in ("loss", "aux_loss")]
+                    for s in stats])
+    check(len(got) == ZOO_STEPS and bool(np.isfinite(got).all())
+          and (bool((got[:, 1] > 0).all()) if aux
+               else not got[:, 1].any()),
+          f"{label} {arm}: per-step loss and aux loss {got.tolist()}")
+    if tail:
+        os.environ["SATRANS_LAZY_TAIL"] = tail
+    try:
+        batch, yb, wb = staged_batch(trainer, x, y, BATCH)
+        step_ms = time_ms(lambda: trainer.train_step(batch, yb, wb), iters=3)
+        busy = device_profile(f"{label} {arm}: one training step of {BATCH}",
+                              lambda: trainer.train_step(batch, yb, wb),
+                              step_ms, card, top=6)
+    finally:
+        os.environ.pop("SATRANS_LAZY_TAIL", None)
+    print(f"{label} {arm} [{card}]: aux loss per step "
+          f"{got[:, 1].round(6).tolist()}; staged step {step_ms:.3f} ms, "
+          f"device busy {busy} ms a step", flush=True)
+    return launched, busy
+
+
+def legacy_run(dev, card, label, argv, x, y):
+    """Phase 20a for one configuration: 3 ``dense`` steps, then 3 + 3
+    ``lazy`` steps (split tail, fused tail) on one trainer, each arm timed
+    and profiled; then the forward on the card against a CPU copy (on the
+    lazy model).  Returns (the launches by path, busy ms a step by path,
+    the forward's error)."""
+    from satrans_torch.train import Trainer
+    paths, busy = {}, {}
+    for mode in ("dense", "lazy"):
+        model = cli_model(dev, argv)
+        trainer = Trainer(model, seed=SEED, device=dev)
+        trainer.compile(learning_rate=ZOO_LR, bank_update=mode)
+        zoo_fit(trainer, x, y, BATCH, 1)  # warmup: one step
+        for tail in ((None, "fused") if mode == "lazy" else (None,)):
+            arm = f"{label}_{mode}" + (f"_{tail}" if tail else "")
+            paths[arm], busy[arm] = legacy_arm(
+                card, label, trainer, x, y, mode, tail,
+                aux=label.startswith("Starv2"))
+        if mode == "dense":
+            del model, trainer
+            gc.collect()
+            torch.cuda.empty_cache()
+    err = zoo_forward_check(dev, card, label, x, model)
+    del model, trainer
+    gc.collect()
+    torch.cuda.empty_cache()
+    return paths, busy, err
+
+
+def per_example_run(dev, card, variant, x, y):
+    """Phase 20b for one variant: SATrans as the CLI builds it on
+    ``--domain_col 301-122-125`` (448 combinations, past
+    SATRANS_COMPOSITE_MAX: per-example meta parameters on the XLA route):
+    3 ``lazy`` steps (:func:`legacy_arm`), a Predictor answering
+    PER_EXAMPLE_REQUESTS requests of BATCH with no kernel launched, timed
+    and profiled, then the forward against a CPU copy.  Returns (the
+    launches by path, busy ms a step by path, the forward's error)."""
+    from satrans_torch.ops import eqgemm, gather, lazy_tail, scatter
+    from satrans_torch.serving import Predictor
+    from satrans_torch.train import Trainer
+    label = f"SATrans_301_122_125_{variant}"
+    model = cli_model(dev, ["--flag", "gate" if variant == "gate"
+                            else "None"], cols=PER_EXAMPLE_COLS)
+    check(model.per_example and model.product_domains == 448
+          and model.variant == variant
+          and not (model.metanet_kernel or model.simple_kernel
+                   or model.tiled), f"{label}: not the per-example route")
+    trainer = Trainer(model, seed=SEED, device=dev)
+    trainer.compile(learning_rate=ZOO_LR, bank_update="lazy")
+    zoo_fit(trainer, x, y, BATCH, 1)  # warmup: one step
+    launched, busy = legacy_arm(card, label, trainer, x, y, "lazy")
+    paths, busy = {f"{label}_lazy": launched}, {f"{label}_lazy": busy}
+    model.eval()
+    pred = Predictor(model, batch_size=BATCH, device=dev)
+    reqs = [{k: v[i * BATCH:(i + 1) * BATCH] for k, v in x.items()}
+            for i in range(PER_EXAMPLE_REQUESTS)]
+    pred(reqs[0])  # warmup
+    torch.cuda.synchronize()
+    zero_counts()
+    t0 = time.perf_counter()
+    scores = [pred(r) for r in reqs]
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    rows = tuple(m.launches for m in (gather, scatter, eqgemm, lazy_tail))
+    check(not any(layer_counts()) and not any(rows)
+          and all(bool(np.isfinite(s).all()) and s.shape == (BATCH,)
+                  for s in scores),
+          f"{label} serving: launches {layer_counts()}, {rows}")
+    busy[f"{label}_serve"] = device_profile(
+        f"{label}: one request of {BATCH}", lambda: pred(reqs[0]),
+        1e3 * wall / PER_EXAMPLE_REQUESTS, card, top=6)
+    print(f"{label} serve [{card}]: {PER_EXAMPLE_REQUESTS} requests of "
+          f"{BATCH} in {wall:.4f}s, no kernel; scores mean "
+          f"{float(np.mean(scores)):.6f}", flush=True)
+    err = zoo_forward_check(dev, card, label, x, model)
+    del model, trainer, pred
+    gc.collect()
+    torch.cuda.empty_cache()
+    return paths, busy, err
+
+
+def legacy_phase(dev, card):
+    """Phase 20: the legacy Star-Trans models, SATrans past
+    SATRANS_COMPOSITE_MAX and the CLI with both.  Returns the launches by
+    path and kernel."""
+    t0 = time.perf_counter()
+    x, y = training_data()
+    paths, busy, errs = {}, {}, {}
+    for label, argv in LEGACY_RUNS:
+        p, b, errs[label] = legacy_run(dev, card, label, argv, x, y)
+        paths.update(p)
+        busy.update(b)
+    for variant in ("metanet", "gate"):
+        p, b, errs[variant] = per_example_run(dev, card, variant, x, y)
+        paths.update(p)
+        busy.update(b)
+    paths.update(cli_lazy_runs(dev, card, LEGACY_CLI_RUNS))
+    print(f"phase 20 [{card}]: {time.perf_counter() - t0:.2f}s; device "
+          f"busy ms a step by path {json.dumps(busy)}; the forwards' worst "
+          f"error {max(errs.values()):.3e}", flush=True)
+    return paths
+
+
 def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -5742,6 +5954,7 @@ def main() -> int:
     star_mtl = star_mtl_phase(dev, card)
     widths, wpaths = widths_phase(dev, card, built)
     many, many_paths = many_rows_phase(dev, card)
+    legacy = legacy_phase(dev, card)
 
     # launches, each path counted from 0 just before it: serving and the
     # evaluation run K1-fwd only; the dense recompute arm K1-fwd and
@@ -5885,6 +6098,12 @@ def main() -> int:
         if name + "_sorted" in tile:
             k["sorted_body"] = tile[name + "_sorted"]
             k["many_rows"]["sorted_scratch_at_cap"] = many["scratch"]
+    # phase 20: K2-K5's launches on the legacy and per-example paths
+    for k in kernels:
+        by_path = {p: n[k["name"]] for p, n in legacy.items()
+                   if n.get(k["name"])}
+        k["launches_by_path"].update(by_path)
+        k["launches"] += sum(by_path.values())
     check(all(k["launches"] > 0 for k in kernels),
           "a kernel was launched on no path")
     print(json.dumps({"kernels": kernels}))

@@ -1,7 +1,7 @@
 """Move parameters of the JAX package into the port.
 
 :func:`from_jax_params` takes the parameter pytree that a model's
-``init`` returns in the JAX package (``SATrans`` or one of the zoo's),
+``init`` returns in the JAX package (any model of its registry),
 with its leaves converted to numpy arrays, and gives a ``state_dict`` for
 the port's model.  The port's
 modules carry the pytree's own names, so a key is the pytree path joined
@@ -21,7 +21,12 @@ logical rows into one 128-lane row; the port keeps the same rows, pad
 rows included, as logical ``[R, d]`` rows, so each bank is reshaped.
 STAR's stacked per-domain layers are lists too (``domain_w.0``), and the
 multi-task models' nested lists of MLPs take one index a level
-(``specific_experts.1.0.0.layers.0.w``).
+(``specific_experts.1.0.0.layers.0.w``).  The legacy Star-Trans trees
+hold the lists ``int_layers``, ``domain_int_layers``, ``weight_dnns``,
+``encoders`` and ``layers`` (``domain_int_layers.0.wq_domain``,
+``weight_dnns.1.layers.0.w``, ``encoders.1.layers.0.b``) and the tables
+``head_w`` / ``head_b``, ``domain_emb``, ``layerid_emb`` and
+``qkvid_emb``, under the same rule.
 
 The JAX model state (``init``'s second value) becomes the port's buffers
 under the same rule: STAR's ``state["bn"][d]`` is ``bn.<d>.mean``,

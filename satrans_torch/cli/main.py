@@ -1,8 +1,11 @@
 """Experiment entry point with the reference CLI surface (twin of
-``satrans_tpu/cli/main.py`` for ``--model_name`` SATrans, the ten
-baselines of the zoo: WDL, DeepFM, DCN, xDeepFM, NFM, AFM, PNN, AutoInt,
-FiBiNET, AdaSparse, and the multi-domain baselines Star_Net,
-SharedBottom, MMOE, PLE and ESMM).
+``satrans_tpu/cli/main.py`` for every ``--model_name`` of it: SATrans,
+the ten baselines of the zoo: WDL, DeepFM, DCN, xDeepFM, NFM, AFM, PNN,
+AutoInt, FiBiNET, AdaSparse, the multi-domain baselines Star_Net,
+SharedBottom, MMOE, PLE and ESMM, and the legacy Star_Trans,
+Starv2_Trans, Starv3_Trans and Starv4_Trans; and every ``--domain_col``,
+several scenario columns past ``SATRANS_COMPOSITE_MAX`` combinations
+included).
 
 Mirrors reference main.py: the same argparse flags (main.py:39-61), the
 fit/predict protocol (main.py:338-353), the overall and per-domain AUC
@@ -22,10 +25,10 @@ h5 files from ``--data_path`` and need ``h5py``; ``synthetic`` needs no
 file and no package beyond numpy.
 
 Not ported, each raising ``NotImplementedError`` that names its ROADMAP
-item: the legacy Star-Trans models, ``--mesh`` other than ``none``,
-``--coordinator_address``, ``--shard_embeddings True``,
-``--embedding_exchange alltoall`` and ``--bank_update lazy_stale``.  The
-JAX package's compilation cache has no counterpart.
+item: ``--mesh`` other than ``none``, ``--coordinator_address``,
+``--shard_embeddings True``, ``--embedding_exchange alltoall`` and
+``--bank_update lazy_stale``.  The JAX package's compilation cache has no
+counterpart.
 """
 
 from __future__ import annotations
@@ -225,24 +228,30 @@ def feature_layout(args, sparse, dense, var_features, data_max, topk):
            for f in var_features])
 
 
+# the legacy Star-Trans models (satrans_tpu/cli/main.py:213-230)
+LEGACY_MODELS = ("Star_Trans", "Starv2_Trans", "Starv3_Trans",
+                 "Starv4_Trans")
+
+
 def build_model(args, layout, domain_col_list, num_domains_list, flag, *,
                 device="cuda"):
     """The model ``--model_name`` names, configured as the reference CLI
-    configures it (satrans_tpu/cli/main.py:231-247): SATrans with MetaNet
-    d -> 2d -> d and the flag's variant and switches; Star_Net with the
-    DNN (256, 128) and the domain DNN and BatchNorm; SharedBottom, MMOE,
-    PLE and ESMM with one task a domain of the first scenario column
-    (ESMM, which takes two, raises unless there are two); AutoInt with
-    ``--att_layer_num`` (3 if 0) and ``--att_head_num``; the other zoo
-    baselines with the first scenario column and its domain count.  The
-    legacy Star-Trans models raise."""
+    configures it (satrans_tpu/cli/main.py:199-247): SATrans with MetaNet
+    d -> 2d -> d and the flag's variant and switches; the legacy
+    Star-Trans models with the first scenario column, ``--att_layer_num``,
+    ``--domain_att_layer_num``, ``--att_head_num``, ``--att_layer_type``
+    and the flag, Star_Trans with ``--merge``, Starv2_Trans with
+    ``--num_query_bases``, ``--share_domain_dnn_across_layers`` and
+    ``--attn_batch_reg``, Starv3_Trans and Starv4_Trans with
+    ``--meta_mode``; Star_Net with the DNN (256, 128) and the domain DNN
+    and BatchNorm; SharedBottom, MMOE, PLE and ESMM with one task a domain
+    of the first scenario column (ESMM, which takes two, raises unless
+    there are two); AutoInt with ``--att_layer_num`` (3 if 0) and
+    ``--att_head_num``; the other zoo baselines with the first scenario
+    column and its domain count."""
     from ..models import MODEL_REGISTRY, SATrans
 
     name = args.model_name
-    if name in UNPORTED_MODELS:
-        raise NotImplementedError(
-            f"model {name!r}: the legacy Star-Trans models are ROADMAP "
-            "queue 1 item 'Other models'")
     if name not in MODEL_REGISTRY:
         raise ValueError("no such model")
     if name == "SATrans":
@@ -259,6 +268,24 @@ def build_model(args, layout, domain_col_list, num_domains_list, flag, *,
                        only_emb="onlyemb" in flag, relu_out="relu" in flag,
                        no_emb_init="noembinit" in flag, seed=args.seed,
                        device=device)
+    if name in LEGACY_MODELS:
+        kw = dict(domain_col=domain_col_list[0],
+                  num_domains=num_domains_list[0],
+                  att_layer_num=args.att_layer_num,
+                  domain_att_layer_num=args.domain_att_layer_num,
+                  att_head_num=args.att_head_num,
+                  att_layer_type=args.att_layer_type, flag=flag,
+                  seed=args.seed, device=device)
+        if name == "Star_Trans":
+            kw["merge"] = args.merge
+        if name == "Starv2_Trans":
+            kw.update(num_query_bases=args.num_query_bases,
+                      share_domain_dnn_across_layers=(
+                          args.share_domain_dnn_across_layers),
+                      attn_batch_reg=args.attn_batch_reg)
+        if name in ("Starv3_Trans", "Starv4_Trans"):
+            kw["meta_mode"] = args.meta_mode
+        return MODEL_REGISTRY[name](layout, **kw)
     if name == "Star_Net":
         return MODEL_REGISTRY[name](
             layout, domain_col=domain_col_list[0],
@@ -276,11 +303,6 @@ def build_model(args, layout, domain_col_list, num_domains_list, flag, *,
         kw.update(att_layer_num=args.att_layer_num or 3,
                   att_head_num=args.att_head_num)
     return MODEL_REGISTRY[name](layout, **kw)
-
-
-# the JAX package's models that the port does not have yet
-UNPORTED_MODELS = ("Star_Trans", "Starv2_Trans", "Starv3_Trans",
-                   "Starv4_Trans")
 
 
 def _unported(args) -> None:

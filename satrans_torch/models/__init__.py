@@ -1,6 +1,6 @@
 """Models of the port (twin of ``satrans_tpu/models``): SATrans, the
-single-task baseline zoo, STAR and the multi-task models.  The legacy
-Star-Trans models are not ported yet.
+single-task baseline zoo, STAR, the multi-task models and the legacy
+Star-Trans models (Star_Trans, Starv2/v3/v4_Trans).
 
 Every model is an ``nn.Module`` on an explicit device with
 
@@ -23,11 +23,15 @@ Model state - the JAX package's ``state`` pytree, STAR's domain
 BatchNorm running statistics - is the module's buffers (in its
 ``state_dict``, so checkpoints carry it).  A train-mode forward updates
 them in place, without gradient, exactly once; an eval-mode forward only
-reads them.  The JAX package's ``aux_loss`` has no counterpart yet: no
-ported model has one.
+reads them.  The JAX package's ``aux_loss`` (the third value of its
+``apply``) is a model's with ``has_aux = True``, the legacy Star-Trans
+models: ``forward(..., return_aux=True)`` returns ``(pred, aux)``, and
+the Trainer adds ``aux`` to the total it differentiates
+(``train.losses.forward_with_aux``); Starv2's scales by the real
+examples of the batch, the Trainer's 0/1 pad mask ``batch["_weight"]``.
 
-A model that routes by a scenario column (STAR and the multi-task
-models) also has
+A model that routes by a scenario column (STAR, the multi-task models
+and the legacy Star-Trans models) also has
 
 * ``domain_col`` - the column, and ``domain_id_offset``, the raw id of
   branch 0, with ``set_domain_offset(offset)``: ``Trainer.fit`` learns it
@@ -42,11 +46,12 @@ models) also has
 from .mtl import ESMM, MMOE, PLE, SharedBottom
 from .satrans import SATrans
 from .star import StarNet
+from .star_trans_legacy import (StarTrans, Starv2Trans, Starv3Trans,
+                                Starv4Trans)
 from .zoo import (AFM, DCN, NFM, PNN, AdaSparse, AutoInt, DeepFM, FiBiNET,
                   WDL, XDeepFM)
 
-# the JAX package's names (satrans_tpu/models/__init__.py:8-29) of the
-# ported models
+# the JAX package's names (satrans_tpu/models/__init__.py:8-29)
 MODEL_REGISTRY = {
     "SATrans": SATrans,
     "Star_Net": StarNet,
@@ -64,8 +69,13 @@ MODEL_REGISTRY = {
     "MMOE": MMOE,
     "PLE": PLE,
     "ESMM": ESMM,
+    "Star_Trans": StarTrans,
+    "Starv2_Trans": Starv2Trans,
+    "Starv3_Trans": Starv3Trans,
+    "Starv4_Trans": Starv4Trans,
 }
 
 __all__ = ["AFM", "AdaSparse", "AutoInt", "DCN", "DeepFM", "ESMM", "FiBiNET",
            "MMOE", "MODEL_REGISTRY", "NFM", "PLE", "PNN", "SATrans",
-           "SharedBottom", "StarNet", "WDL", "XDeepFM"]
+           "SharedBottom", "StarNet", "StarTrans", "Starv2Trans", "Starv3Trans",
+           "Starv4Trans", "WDL", "XDeepFM"]

@@ -40,8 +40,12 @@ Then the routing is the JAX package's (satrans.py:358-442):
 * metanet with ``R <= 8``: K1 on the composite table;
 * gate and bilinear: K6 on the composite table, by the rule below;
 * ``R > SATRANS_COMPOSITE_MAX`` (default 256): the JAX package's
-  per-example parameters on its XLA path; the constructor raises (ROADMAP
-  queue 1 item 'multi-column above SATRANS_COMPOSITE_MAX').
+  per-example parameters (satrans.py:266-293, :321-323): each example's
+  tables ``[B, P]`` from the encoder over ``relu`` of the mean of its
+  scenario columns' rows of ``domain_bank`` (read as the JAX lookup reads
+  them, the ids not clipped), and every layer on the XLA route below
+  with per-example parameters: no layer kernel and no dispatch, in
+  serving, in training and in the probes (:meth:`_per_example_base`).
 
 On one column or a composite table alike, the layer kernels take the
 rows the JAX package's kernel route takes (satrans.py:363-380): K1 (and
@@ -94,7 +98,7 @@ kernel route applies dropout at ``dropout_rate`` with its own int32 seed,
 package's interpret-mode kernel masks (``ops/prng.py``), on the kernels
 and on their plain versions.
 
-This slice supports one or several scenario columns, the metanet
+The port supports one or several scenario columns, the metanet
 (2-matrix MetaNets), gate and bilinear variants, each with or without
 ``use_pos``,
 ``only_emb`` (not with ``use_pos``), any ``meta_mode`` (a projection is
@@ -175,17 +179,14 @@ class SATrans(nn.Module):
         multi = len(self.domain_cols) > 1
         self.use_composite = multi and \
             self.product_domains <= self.composite_max
+        # past the cap: per-example tables on the XLA route
+        self.per_example = multi and not self.use_composite
         self.meta_rows = self.product_domains if multi \
             else self.num_domains + 1
-        if multi and not self.use_composite:
-            raise NotImplementedError(
-                f"{self.product_domains} scenario combinations, more than "
-                f"SATRANS_COMPOSITE_MAX={self.composite_max}: the JAX "
-                "package's per-example meta parameters are ROADMAP queue 1 "
-                "item 'multi-column above SATRANS_COMPOSITE_MAX'")
         # metanet composites past this many rows take the tiled layer (K7)
-        self.tiled = multi and variant == "metanet" and self.meta_rows > int(
-            os.environ.get("SATRANS_TILED_MIN_ROWS", "8"))
+        self.tiled = self.use_composite and variant == "metanet" and \
+            self.meta_rows > int(os.environ.get("SATRANS_TILED_MIN_ROWS",
+                                                "8"))
         self.composite_block_b = int(os.environ.get(
             "SATRANS_BLOCK_B_COMPOSITE", "32"))
         # the JAX package's route (satrans.py:349-380): 2- and 3-matrix
@@ -196,13 +197,13 @@ class SATrans(nn.Module):
         # d are at most 4096 (its simple_ok).
         widest = max(self.meta_units[1:-1] or self.meta_units[1:2])
         self.metanet_kernel = (
-            variant == "metanet"
+            variant == "metanet" and not self.per_example
             and len(self.meta_units) in meta_block.KERNEL_DEPTHS
             and (self.tiled
                  or self.meta_rows * widest <= meta_block.ROUTE_WIDTH))
-        self.simple_kernel = variant == "gate" or (
+        self.simple_kernel = not self.per_example and (variant == "gate" or (
             variant == "bilinear"
-            and self.meta_rows * d <= meta_block.ROUTE_WIDTH)
+            and self.meta_rows * d <= meta_block.ROUTE_WIDTH))
         self.att_head_num = att_head_num
         self.meta_mode = meta_mode
         self.task = task
@@ -259,10 +260,14 @@ class SATrans(nn.Module):
                                 1)
         self.eval()
 
-    def meta_tables(self) -> list[dict]:
+    def meta_tables(self, batch=None) -> list[dict]:
         """One ``{'Q', 'K', 'V', 'bilinear'}`` -> ``[R, P]`` dict per
         layer, over the ``R = D+1`` scenario ids, or the composite
-        combinations with several columns (:meth:`_composite_base`)."""
+        combinations with several columns (:meth:`_composite_base`); past
+        ``SATRANS_COMPOSITE_MAX`` ``[B, P]``, each example's of ``batch``
+        (:meth:`_per_example_base`)."""
+        if self.per_example:
+            return self._tables_from_base(self._per_example_base(batch))
         if len(self.domain_cols) > 1:
             return self._tables_from_base(self._composite_base())
         return self._tables_from_base(torch.relu(self.domain_emb))
@@ -304,6 +309,16 @@ class SATrans(nn.Module):
             acc = (acc[:, None, :] + t[None, :, :]).reshape(-1, t.shape[-1])
         return torch.relu(acc / len(tabs))
 
+    def _per_example_base(self, batch) -> torch.Tensor:
+        """Each example's encoder input ``[B, d]``: ``relu`` of the mean of
+        its scenario columns' rows of ``domain_bank`` (satrans_tpu
+        satrans.py:266-280, reference satrans.py:205-207), each column's
+        ids read as the JAX lookup reads them, not clipped."""
+        cols = [embeddings.lookup_field(self.domain_bank, self.layout, c,
+                                        batch["sparse"][:, i])
+                for c, i in zip(self.domain_cols, self.domain_index)]
+        return torch.relu(torch.stack(cols, dim=1).mean(dim=1))
+
     def _composite_ids(self, batch) -> torch.Tensor:
         """The row-major combination index of :meth:`_composite_base`, each
         column clipped to its ``[0, D_i]``."""
@@ -338,7 +353,9 @@ class SATrans(nn.Module):
         layer])``."""
         x = embeddings.embed_fields(self.emb if feed is None else feed,
                                     self.layout, batch)
-        if len(self.domain_cols) > 1:
+        if self.per_example:
+            dom = None
+        elif len(self.domain_cols) > 1:
             dom = self._composite_ids(batch)
         else:
             dom = batch["sparse"][:, self.domain_index[0]].long().clamp(
@@ -356,7 +373,7 @@ class SATrans(nn.Module):
                                        or self.simple_kernel) or (
                 blk is None and (self.tiled or dropping)):
             for i, (layer, tables) in enumerate(zip(self.layers,
-                                                    self.meta_tables())):
+                                                    self.meta_tables(batch))):
                 x = self._xla_layer(layer, x, tables, dom,
                                     threefry.fold_in(key, i))
             return self._head(x, batch)
@@ -365,7 +382,7 @@ class SATrans(nn.Module):
         simple = self.variant != "metanet"
         twins = self.route == "plain"
         for layer, seed, tables in zip(self.layers, seeds,
-                                       self.meta_tables(), strict=True):
+                                       self.meta_tables(batch), strict=True):
             kw = dict(head_num=self.att_head_num, mode=self.meta_mode,
                       relu_out=self.relu_out)
             drop = dict(train=self.training, drop_rate=self.dropout_rate,
@@ -419,7 +436,7 @@ class SATrans(nn.Module):
                  and os.environ.get("SATRANS_PROBE_FUSED", "1") != "0")
         scores = []
         for i, (layer, seed, tables) in enumerate(zip(
-                self.layers, seeds, self.meta_tables(), strict=True)):
+                self.layers, seeds, self.meta_tables(batch), strict=True)):
             if fused:
                 x, s = meta_block.fused_meta_layer_with_scores(
                     x, layer, tables, dom, meta_units=self.meta_units,
@@ -446,7 +463,7 @@ class SATrans(nn.Module):
         x = dispatch.scatter(x, plan)
         tile_dom = plan.tile_dom.long()
         for layer, seed, tables in zip(self.layers, seeds,
-                                       self.meta_tables(), strict=True):
+                                       self.meta_tables(batch), strict=True):
             # the gather outside the layer: autograd adds the per-tile
             # gradient blocks into the tables' rows
             tq = tables["Q"][tile_dom]

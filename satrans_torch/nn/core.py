@@ -13,6 +13,7 @@
 * :func:`prediction` - deepctr ``PredictionLayer``
 * :func:`one_hot`    - ``jax.nn.one_hot``: a zero row for an id outside
                        ``[0, n)``
+* :func:`jax_rows`   - the rows a JAX gather reads at given ids
 * :func:`batch_norm_apply` / :class:`BatchNorm` - BatchNorm1d on explicit
                        running statistics with the masked moments of the
                        JAX package (STAR's domain BatchNorm)
@@ -139,6 +140,14 @@ def one_hot(ids: torch.Tensor, n: int, dtype=torch.float32) -> torch.Tensor:
     there).  The zero row keeps a pad row, whose domain id is 0 (-1 after
     the offset), out of every domain."""
     return (ids[..., None] == torch.arange(n, device=ids.device)).to(dtype)
+
+
+def jax_rows(ids: torch.Tensor, rows: int) -> torch.Tensor:
+    """The rows a JAX gather ``table[ids]`` reads from a table of ``rows``
+    rows: a negative id counts from the end, then every id is clamped
+    into the table."""
+    ids = ids.long()
+    return torch.where(ids < 0, ids + rows, ids).clamp(0, rows - 1)
 
 
 def batch_norm_state(dim: int, device="cpu") -> dict:

@@ -108,9 +108,7 @@ def apply_domainwise(net: MetaNet, x, domain_ids, domain_params,
     the LayerNorm if ``net`` has one.  ``domain_ids`` index the rows of
     ``domain_params`` as a JAX gather does: a negative id counts from the
     end, and every id is clamped into the table."""
-    rows = domain_params.shape[0]
-    ids = domain_ids.long()
-    ids = torch.where(ids < 0, ids + rows, ids).clamp(0, rows - 1)
+    ids = core.jax_rows(domain_ids, domain_params.shape[0])
     y = domainwise_sum(x, ids, domain_params, units,
                        drop=lambda t: core.dropout(t, dropout_rate, train,
                                                    key))

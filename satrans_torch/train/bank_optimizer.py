@@ -48,6 +48,7 @@ from typing import NamedTuple
 import torch
 from torch.optim import adam as torch_adam
 
+from . import losses
 from .. import embeddings
 from ..ops import gather, lazy_tail, scatter
 
@@ -191,14 +192,14 @@ def sparse_bank_grads(model, strategy, batch, y, weight, key=None):
     rows = gather.gather_rows((emb.physical(),), flat_ids)[0]
     rows.requires_grad_(True)
     feed = embeddings.BankRowFeed(rows, emb)
-    pred = model(batch, feed=feed, key=key)
+    pred, aux = losses.forward_with_aux(model, batch, feed=feed, key=key)
     feed.assert_consumed()
     data_loss = strategy.loss(pred, y, batch, weight)
     reg = model.reg_loss(feed=feed)
-    aux = torch.zeros((), dtype=data_loss.dtype, device=data_loss.device)
+    # the aux loss in the differentiated total (bank_optimizer.py:362-372)
     (data_loss + reg + aux).backward()
     g_rows = rows.grad if rows.grad is not None else torch.zeros_like(rows)
-    return flat_ids, g_rows, data_loss.detach(), reg.detach(), aux
+    return flat_ids, g_rows, data_loss.detach(), reg.detach(), aux.detach()
 
 
 def _physical(t: torch.Tensor, width: int) -> torch.Tensor:

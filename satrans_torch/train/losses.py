@@ -61,6 +61,16 @@ def route_by_domain(pred, domain_ids, offset: int):
     return out
 
 
+def forward_with_aux(model, batch, feed=None, key=None):
+    """The train-mode forward of one step: ``(pred, aux)``, ``aux`` the
+    model's aux loss (``has_aux`` models, the JAX ``apply``'s third
+    value) or a zero scalar."""
+    if getattr(model, "has_aux", False):
+        return model(batch, feed=feed, key=key, return_aux=True)
+    pred = model(batch, feed=feed, key=key)
+    return pred, torch.zeros((), dtype=pred.dtype, device=pred.device)
+
+
 _SINGLE = {"binary_crossentropy": bce_sum, "mse": mse_sum, "mae": mae_sum}
 
 

@@ -4,7 +4,10 @@
 One dense step (``bank_update='dense'``, what ``'auto'`` resolves to on
 one device) is autograd of the model in train mode, the pad-weighted BCE
 sum (:class:`SingleTask`), the model's full-table embedding L2
-(``model.reg_loss()``) and Adam over every parameter, the bank included.
+(``model.reg_loss()``), the model's aux loss (Starv2's, reported as
+``aux_loss``; every bank mode differentiates it) and Adam over every
+parameter, the bank included.  The step's batch carries the 0/1 pad
+mask as ``_weight``, as the JAX Trainer's does.
 On the card each meta-transformer layer runs K1-stash forward and
 K1-bwd-stash backward, K1-stash light and K1-bwd-stash light under
 ``SATRANS_BWD=stash_light``, or K1-fwd and K1-bwd under
@@ -248,11 +251,11 @@ class Trainer:
     def loss_terms(self, batch, y, weight, key=None):
         """``(total, data loss, reg loss, aux loss)`` of one batch in train
         mode with the dropout ``key``: the function one step
-        differentiates."""
-        pred = self.model(batch, key=key)
+        differentiates, the model's aux loss in it (trainer.py:358-364).
+        ``batch`` carries the pad mask as ``_weight``."""
+        pred, aux = losses.forward_with_aux(self.model, batch, key=key)
         data_loss = self.strategy.loss(pred, y, batch, weight)
         reg = self.model.reg_loss()
-        aux = torch.zeros((), dtype=data_loss.dtype, device=data_loss.device)
         return data_loss + reg + aux, data_loss, reg, aux
 
     def train_step(self, batch, y, weight, key=None) -> dict:
@@ -264,6 +267,9 @@ class Trainer:
         mode = self._bank_mode
         if key is None:
             key = self.step_key()
+        # the pad mask, for a model that reads the real example count
+        # (Starv2's aux loss; trainer.py:318-320, :356)
+        batch = dict(batch, _weight=weight)
         if mode == "dense":
             total, data_loss, reg, aux = self.loss_terms(batch, y, weight,
                                                          key)
@@ -289,7 +295,7 @@ class Trainer:
                                            lr=self._lr, l2=l2,
                                            eq_plan=self._eq_plan)
         return {"loss": data_loss.detach(), "reg_loss": reg.detach(),
-                "aux_loss": aux, "count": torch.sum(weight)}
+                "aux_loss": aux.detach(), "count": torch.sum(weight)}
 
     # ------------------------------------------------------------------
     def fit(self, x: dict, y, *, batch_size: int = 256, epochs: int = 1,

@@ -22,8 +22,9 @@ JAX package.
   within 1e-4, the CSV rows equal but for the date (the AUCs compared
   unrounded within 1e-4, the loss within 1e-4), ``attn_stats.npy`` within
   1e-5, the ``inst_attn_*.txt`` files as in ``tests/test_torch_probe.py``;
-  then a ``--finetune True`` run restores the port's checkpoint.  Other
-  model names and a mesh raise; the ``test`` flag aborts after 5 steps.
+  then a ``--finetune True`` run restores the port's checkpoint.
+  ``--shard_embeddings True``, a mesh and ``--bank_update lazy_stale``
+  raise; the ``test`` flag aborts after 5 steps.
 """
 
 import dataclasses
@@ -338,7 +339,8 @@ def _cli_run_matches_jax(tmp_path, monkeypatch, capsys, extra, d, heads):
 
 
 @pytest.mark.parametrize("extra,match", [
-    (["--model_name", "Star_Trans"], "item 'Other models'"),
+    (["--shard_embeddings", "True"],
+     "item 'parallel/ → torch.distributed'"),
     (["--mesh", "2"], "item 'parallel/ → torch.distributed'"),
     (["--bank_update", "lazy_stale"], "item 'lazy_stale'")])
 def test_cli_unported_options_raise(extra, match, tmp_path):

@@ -32,7 +32,16 @@ one of 8 (K1 on the composite table).
   (``torch_parity``'s tolerances); ``domain_emb`` and the large part of
   ``domain_bank`` stay bit-identical on both sides.
 * ``predict``, ``evaluate`` and the ``Predictor``; ``bridge`` with
-  ``domain_bank``; the new raises.
+  ``domain_bank``.
+* Past ``SATRANS_COMPOSITE_MAX`` (``domain`` x ``f0``: 4 x 300
+  combinations; and 12 under ``SATRANS_COMPOSITE_MAX=8``) the JAX
+  package's per-example meta parameters on its XLA route, no layer
+  kernel on either side: the metanet, gate, bilinear and pos models'
+  eval and train predictions (dropout 0.1, one key) and every gradient
+  (within 1e-4 of its largest entry plus 1e-5) in one jitted JAX call,
+  the probes' attention probabilities, two ``lazy`` ``fit`` steps
+  against the JAX ``Trainer`` with ``predict``, the ``Predictor`` and
+  ``serving.load``, and ``cli.main --domain_col domain-f0``.
 """
 
 import dataclasses
@@ -413,19 +422,184 @@ def test_bridge_moves_a_multicol_tree():
                                   params["domain_emb"])
 
 
+# ------------------------------------------------ past the composite cap
+
+PE_COLS = ["domain", "f0"]   # 4 x 300 combinations: per-example tables
+
+
+def _pe_request(n, seed):
+    """``torch_parity.request`` rows with ids the per-example lookup
+    reads as the JAX lookup does: a pad 0 and one past ``f0``'s vocab,
+    and a scenario id past the 3 domains."""
+    x = tp.request(n, seed=seed)
+    x["f0"][:2] = [0, 310]
+    x["domain"][2] = 4
+    return x
+
+
+def _pe_models(variant="metanet", use_pos=False, cols=tp.columns,
+               domain_cols=PE_COLS, num_domains=(3, 299)):
+    """(jax model on its XLA route, numpy params drawn from its
+    ``eval_shape`` shapes, port model)."""
+    import satrans_tpu
+    from satrans_tpu.models import SATrans as JaxSATrans
+    kw = tp.model_kwargs(domain_cols=list(domain_cols),
+                         num_domains_list=list(num_domains),
+                         dropout_rate=RATE, variant=variant, use_pos=use_pos)
+    jm = JaxSATrans(layout=satrans_tpu.FeatureLayout(cols(satrans_tpu)), **kw)
+    p_shape, _ = jax.eval_shape(jm.init, jax.random.PRNGKey(3))
+    params = tp.random_params(p_shape, seed=8)
+    tm = TorchSATrans(satrans_torch.FeatureLayout(cols(satrans_torch)), **kw,
+                      device="cpu")
+    tm.load_state_dict(bridge.from_jax_params(params, tm))
+    assert tm.per_example and not jm.use_composite
+    assert not (tm.metanet_kernel or tm.simple_kernel or tm.tiled)
+    return jm, params, tm
+
+
+@pytest.mark.parametrize("variant,use_pos", [
+    ("metanet", False), ("gate", False), ("bilinear", False),
+    ("metanet", True)], ids=["metanet", "gate", "bilinear", "pos"])
+def test_per_example_model_matches_jax(variant, use_pos, monkeypatch):
+    """Past ``SATRANS_COMPOSITE_MAX`` (``domain`` x ``f0``, 1,200
+    combinations): eval predictions, and at dropout 0.1 with one key the
+    train predictions and the gradient of ``sum(c * pred)`` of every
+    parameter (within 1e-4 of its largest entry plus 1e-5), against the
+    JAX package's per-example path in one jitted call; neither side
+    enters a layer kernel."""
+    jm, params, tm = _pe_models(variant, use_pos)
+    x = _pe_request(B, seed=4)
+    batch = jm.layout.batch_from_dict(x)
+    c = np.random.default_rng(4).uniform(0.5, 1.5, B).astype(np.float32)
+    calls = _spy(monkeypatch)
+
+    def run(p, b, key):
+        def loss(p):
+            pred = jm.apply(p, {}, b, train=True, rng=key)[0]
+            return jnp.sum(pred * c), pred
+        (_, pred), grads = jax.value_and_grad(loss, has_aux=True)(p)
+        return jm.apply(p, {}, b)[0], pred, grads
+
+    args = (jax.tree.map(jnp.asarray, params),
+            {k: jnp.asarray(v) for k, v in batch.items()},
+            jax.random.PRNGKey(11))
+    want_eval, want, jgrads = jax.tree.map(np.asarray, jax.jit(run).lower(
+        *args).compile(compiler_options=tp.FAST)(*args))
+    tb = {k: torch.from_numpy(v) for k, v in batch.items()}
+    with torch.no_grad():
+        np.testing.assert_allclose(tm(tb).numpy(), want_eval, atol=1e-5)
+    assert want_eval.std() > 1e-2
+    tm.train()
+    pred = tm(tb, key=threefry.PRNGKey(11))
+    np.testing.assert_allclose(pred.detach().numpy(), want, atol=1e-5)
+    assert np.abs(want - want_eval).max() > 1e-3  # the dropout moved it
+    torch.sum(pred * torch.from_numpy(c)).backward()
+    for name, w in bridge.from_jax_params(jgrads, tm).items():
+        p = dict(tm.named_parameters())[name]
+        g = torch.zeros_like(p) if p.grad is None else p.grad
+        bound = 1e-4 * float(w.abs().max()) + 1e-5
+        assert float((g - w).abs().max()) <= bound, name
+    assert sum(calls.values()) == 0
+    # each example reads its columns' rows of domain_bank: f0's lie in
+    # its large part, domain's in its side bank; domain_emb is not read
+    assert tm.domain_bank.bank.grad.abs().max() > 0
+    assert tm.domain_bank.small.grad.abs().max() > 0
+    assert tm.domain_emb.grad is None
+
+
 @pytest.mark.parametrize("num_domains,variant,env", [
     ((3, 299), "metanet", None),     # 4 x 300 > SATRANS_COMPOSITE_MAX
     ((3, 2), "metanet", "8"),        # 12 > SATRANS_COMPOSITE_MAX=8
 ], ids=["above-composite-max", "composite-max-env"])
 def test_unported_multicol_cases_raise(num_domains, variant, env,
                                        monkeypatch):
+    """The two cases past the composite cap that the port refused until
+    it had the per-example path: now each builds the per-example model,
+    and its eval predictions with each layer's attention probabilities
+    (the probes' ``return_scores``, on the plain layer) and its train
+    predictions at dropout 0.1 with one key match the JAX package's (the
+    cap read from ``SATRANS_COMPOSITE_MAX`` by both)."""
     if env is not None:
         monkeypatch.setenv("SATRANS_COMPOSITE_MAX", env)
-    cols = _cols(satrans_torch)
-    if num_domains[1] > 5:  # a scenario column with that many ids
-        cols = tp.columns(satrans_torch)
-    kw = tp.model_kwargs(domain_cols=["domain", "f0" if num_domains[1] > 5
-                                      else "dom2"],
-                         num_domains_list=list(num_domains), variant=variant)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        TorchSATrans(satrans_torch.FeatureLayout(cols), **kw, device="cpu")
+    wide = num_domains[1] > 5  # a scenario column with that many ids
+    jm, params, tm = _pe_models(
+        variant, cols=tp.columns if wide else _cols,
+        domain_cols=["domain", "f0" if wide else "dom2"],
+        num_domains=num_domains)
+    x = _pe_request(B, seed=6) if wide else _request(B, seed=6)
+    batch = jm.layout.batch_from_dict(x)
+    fn = tp.compile_fast(jax.jit(lambda p, b, k: (
+        jm.apply(p, {}, b, return_scores=True),
+        jm.apply(p, {}, b, train=True, rng=k)[0])))
+    (want, _, _, want_scores), want_train = jax.tree.map(np.asarray, fn(
+        jax.tree.map(jnp.asarray, params),
+        {k: jnp.asarray(v) for k, v in batch.items()},
+        jax.random.PRNGKey(6)))
+    tb = {k: torch.from_numpy(v) for k, v in batch.items()}
+    with torch.no_grad():
+        got, scores = tm(tb, return_scores=True)
+        tm.train()
+        got_train = tm(tb, key=threefry.PRNGKey(6))
+    np.testing.assert_allclose(got.numpy(), want, atol=1e-5)
+    assert len(scores) == len(want_scores) == tp.LAYERS
+    for s, w in zip(scores, want_scores):
+        np.testing.assert_allclose(s.numpy(), w, atol=1e-5)
+    np.testing.assert_allclose(got_train.numpy(), want_train, atol=1e-5)
+
+
+def test_per_example_lazy_fit_matches_jax_trainer(tmp_path, monkeypatch):
+    """Two ``lazy`` ``fit`` steps at dropout 0.1 past the cap (24
+    examples at batch 16: a padded tail) against the JAX ``Trainer``
+    (``torch_parity``'s tolerances); ``domain_emb`` unread and unchanged
+    on both sides; then ``predict`` against the JAX model's on the
+    trained parameters, and the ``Predictor`` and the ``Predictor`` of
+    ``serving.load`` on the port's checkpoint equal to ``predict``."""
+    from satrans_torch import serving
+    from satrans_torch.train import Trainer
+    jm, params, tm = _pe_models()
+    x = _pe_request(24, seed=5)
+    y = np.random.default_rng(5).integers(0, 2, 24).astype(np.float32)
+    tp.fast_trainer_steps(monkeypatch)
+    j_steps, j_params, _ = _jax_fit(jm, params, x, y, "lazy")
+    steps = tp.port_fit(tm, x, y, "lazy")
+    assert len(steps) == 2
+    tp.assert_fit_matches(j_steps, j_params, steps, tm)
+    start = bridge.from_jax_params(params, tm)["domain_emb"]
+    assert torch.equal(tm.domain_emb.detach(), start)
+    tr = Trainer(tm, device="cpu").compile(bank_update="lazy")
+    pred = tr.predict(x, batch_size=16)
+    want = np.asarray(tp.compile_fast(jax.jit(
+        lambda p, b: jm.apply(p, {}, b)[0]))(
+        jax.tree.map(jnp.asarray, j_params),
+        {k: jnp.asarray(v) for k, v in jm.layout.batch_from_dict(x).items()}))
+    np.testing.assert_allclose(pred, want, atol=1e-5)
+    np.testing.assert_array_equal(
+        Predictor(tm, batch_size=16, device="cpu")(x), pred)
+    path = str(tmp_path / "per_example")
+    serving.save(path, tr)
+    fresh = _pe_models()[2]
+    np.testing.assert_array_equal(
+        serving.load(path, fresh, batch_size=16, device="cpu")(x), pred)
+
+
+def test_cli_domain_col_past_the_cap_trains(tmp_path, monkeypatch):
+    """``cli.main --domain_col domain-f0`` (4 x 1,000 combinations) on
+    640 synthetic rows: the per-example SATrans trains, predicts and
+    writes its one report row."""
+    from satrans_torch.cli import main as tcli
+    build, built = tcli.build_model, []
+
+    def record(*args, **kw):
+        built.append(build(*args, **kw))
+        return built[-1]
+
+    monkeypatch.setattr(tcli, "build_model", record)
+    auc = tcli.main(["--data_name", "synthetic", "--synthetic_rows", "640",
+                     "--batch_size", "128", "--embedding_dim", "8",
+                     "--att_head_num", "2", "--domain_att_layer_num", "1",
+                     "--domain_col", "domain-f0", "--results_dir",
+                     str(tmp_path)], device="cpu")
+    (model,) = built
+    assert model.per_example and model.product_domains > 256
+    assert 0.0 <= auc <= 1.0
+    assert len(open(tmp_path / "synthetic_results.csv").readlines()) == 1

@@ -105,11 +105,31 @@ def test_synthetic_data_is_the_same():
     dict(domain_cols=["domain", "f0"], num_domains_list=[3, 299]),
 ], ids=["bf16", "multi-column"])
 def test_unported_variants_raise(kw):
+    """bf16 raises naming its ROADMAP item.  Several scenario columns past
+    ``SATRANS_COMPOSITE_MAX``, refused until the port had the JAX
+    package's per-example meta parameters, now build that model: its
+    predictions match the JAX package's."""
     layout = satrans_torch.FeatureLayout(tp.columns(satrans_torch))
     args = tp.model_kwargs()
     args.update(kw)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        TorchSATrans(layout, **args, device="cpu")
+    if "domain_cols" not in kw:
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            TorchSATrans(layout, **args, device="cpu")
+        return
+    jm = JaxSATrans(layout=satrans_tpu.FeatureLayout(
+        tp.columns(satrans_tpu)), **args)
+    p_shape, _ = jax.eval_shape(jm.init, jax.random.PRNGKey(0))
+    params = tp.random_params(p_shape, seed=2)
+    tm = TorchSATrans(layout, **args, device="cpu")
+    tm.load_state_dict(bridge.from_jax_params(params, tm))
+    assert tm.per_example and not jm.use_composite
+    x = tp.request(32, seed=3)
+    batch = {k: jnp.asarray(v)
+             for k, v in jm.layout.batch_from_dict(x).items()}
+    want = np.asarray(jax.jit(lambda p, b: jm.apply(p, {}, b)[0])(
+        jax.tree.map(jnp.asarray, params), batch))
+    assert want.std() > 1e-2
+    np.testing.assert_allclose(_port_pred(tm, x), want, atol=1e-5)
 
 
 def test_bridge_rejects_unported_params():

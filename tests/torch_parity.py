@@ -121,3 +121,42 @@ def assert_fit_matches(j_steps, j_params, steps, tm, exclude=()):
             continue
         np.testing.assert_allclose(got[name].numpy(), w.numpy(), atol=5e-5,
                                    rtol=1e-3, err_msg=name)
+
+
+# compiled without XLA's backend optimizations: the dropout's threefry
+# rounds compile a third as long, the same program
+FAST = {"xla_backend_optimization_level": 0}
+
+
+def compile_fast(jitted):
+    """``jitted`` (a ``jax.jit`` function), compiled with FAST at its first
+    call; every call takes the first one's shapes."""
+    compiled = []
+
+    def call(*args):
+        if not compiled:
+            compiled.append(jitted.lower(*args).compile(
+                compiler_options=FAST))
+        return compiled[0](*args)
+
+    return call
+
+
+def fast_steps(trainer):
+    """The JAX ``trainer``'s train and eval steps built by
+    ``_build_steps``, each compiled with FAST."""
+    trainer._train_step = compile_fast(trainer._train_step)
+    trainer._eval_step = compile_fast(trainer._eval_step)
+
+
+def fast_trainer_steps(monkeypatch):
+    """Every JAX ``Trainer`` built from now on in the test compiles its
+    steps with FAST."""
+    from satrans_tpu.train import Trainer
+    build = Trainer._build_steps
+
+    def build_fast(trainer):
+        build(trainer)
+        fast_steps(trainer)
+
+    monkeypatch.setattr(Trainer, "_build_steps", build_fast)
