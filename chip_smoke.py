@@ -261,6 +261,34 @@ Phases, each of which exits non-zero on failure:
    (4 x 1,000 combinations) with ``--bank_update lazy`` on 40,960
    synthetic rows, each with its steps' K2-K5 launches.
 
+21. the data pipeline and the rest of the single-card Trainer, at the
+   AliCCP sota configuration (19 fields, the 6,571,812 x 32 bank, 3
+   layers, 4 heads, dropout 0.1, batch 8192): (a) the native batcher
+   (``satrans_torch/native``, built here with g++): ``gather_rows`` and
+   ``gather_columns`` equal numpy on a batch of 8192, each timed on the
+   host beside numpy; (b) ``fit_from_iterator`` through
+   ``Prefetcher(ShardedBatchIterator(...).epoch(e))`` against two runs of
+   ``fit`` on the same rows in ``lazy`` (5 steps and a tail): the
+   parameters and the lazy state within twice ``fit``'s own run-to-run
+   spread (bit for bit where ``fit`` is), K1-stash, K1-bwd-stash, K4, K2
+   and K3 launched exactly as phase 7's steps, examples/s of both; (c)
+   ``sgd``, ``adagrad``, ``rmsprop`` and a custom ``torch.optim.SGD`` in
+   ``dense``, 3 steps (sgd: 1 checked, its diverging second and third
+   reported): each step's gradients on the kernel and the plain path at
+   the same parameters within phase 5's tolerance, the parameters the
+   optimizer makes of each from the same state within OPT_PARAM_TOL
+   (rmsprop: but for at most RMSPROP_FLIP_SHARE of a tensor, within its
+   step bound), 3 + 3 K1-stash / K1-bwd-stash launches a step; (d)
+   ``callbacks.ModelCheckpoint`` under ``rmsprop`` restored into a new
+   trainer bit for bit; (e) ``evaluate_domains`` on 4 x 8192 examples on
+   K1-fwd alone against ``metrics.auc`` / ``per_domain_auc`` (1e-5) and
+   ``log_loss`` (1e-6) on ``predict()``'s scores; (f)
+   ``satrans_torch.bench.raw_e2e.run``: 80,000 + 20,000 generated raw
+   rows through ``data.aliccp.preprocess_raw`` (the port's HDF5 writer
+   where ``h5py`` is not installed) and ``cli.main`` at d = 8, 2 heads,
+   1 layer: the four AUCs within 0.015 of RAWE2E_r05.json, K1's launches
+   exactly the run's steps and predict batches.
+
 Phases 2 and 4 also hold K1 where a share of the attention logits passes
 the kernels' clamp at 60 against the clamped plain layer.
 
@@ -1468,10 +1496,12 @@ def serving_phase(dev, card):
     return launches
 
 
-def training_model(dev, bank_update, variant="metanet", units=UNITS2):
-    """The AliCCP sota SATrans of phases 5, 7, 9 and 13 (dropout 0.1, the
-    default N(0, 1e-4) embeddings; the layers of ``variant``, MetaNets of
-    ``units``) and its compiled Trainer (Adam, lr 0.005)."""
+def training_model(dev, bank_update, variant="metanet", units=UNITS2,
+                   seed=SEED):
+    """The AliCCP sota SATrans of phases 5, 7, 9, 13 and 21 (dropout 0.1,
+    the default N(0, 1e-4) embeddings drawn from ``seed``; the layers of
+    ``variant``, MetaNets of ``units``) and its compiled Trainer (Adam, lr
+    0.005)."""
     from satrans_torch.data import aliccp
     from satrans_torch.features import FeatureLayout
     from satrans_torch.models import SATrans
@@ -1479,7 +1509,7 @@ def training_model(dev, bank_update, variant="metanet", units=UNITS2):
     model = SATrans(FeatureLayout(aliccp.sota_columns(32)), ["301"], [3],
                     domain_att_layer_num=LAYERS, att_head_num=4,
                     meta_mode="QK", meta_dnn_hidden_units=units[1:],
-                    dropout_rate=DROP_RATE, seed=SEED, variant=variant,
+                    dropout_rate=DROP_RATE, seed=seed, variant=variant,
                     device=dev)
     trainer = Trainer(model, seed=SEED, device=dev)
     trainer.compile(learning_rate=TRAIN_LR, bank_update=bank_update)
@@ -5902,6 +5932,436 @@ def legacy_phase(dev, card):
     return paths
 
 
+# phase 21: the data pipeline and the rest of the single-card Trainer
+PIPE_STEPS = 6  # fit against fit_from_iterator: 5 full steps and a tail
+PIPE_ROWS = (PIPE_STEPS - 1) * BATCH + TAIL
+OPT_STEPS = 3
+# the optimizers of phase 21: (name, compile's optimizer, checked steps).
+# optax.sgd(0.01), which the JAX Trainer takes whatever the learning rate,
+# diverges on the sum-reduced loss of a batch of 8192 (its second step
+# doubles the loss, its third step's gradients are not finite): its first
+# step is checked and the next two reported; the custom optimizer is
+# torch's own SGD at 1e-4
+OPT_ARMS = (("sgd", "sgd", 1), ("adagrad", "adagrad", OPT_STEPS),
+            ("rmsprop", "rmsprop", OPT_STEPS),
+            ("custom_sgd", lambda ps: torch.optim.SGD(ps, lr=1e-4),
+             OPT_STEPS))
+# each step's parameters from the kernel path's gradients against those
+# from the plain path's, from the same parameters and optimizer state: an
+# update moves a parameter by lr times a smooth function of its gradient
+# (sgd: lr g; adagrad: lr g / sqrt(0.1 + sum g^2), at most lr / sqrt(0.1)
+# = 0.032 per unit of g), and one step's gradients differ by at most
+# about 1e-4 of their largest entry (phase 5): 1e-4 of each parameter
+# plus 1e-4 holds them.  rmsprop's first update, lr g / sqrt(0.1 g^2 +
+# 1e-8), is +-lr sqrt(10) once |g| >> 3e-4 whatever g's size, so an entry
+# whose gradient lies within the gradient tolerance of 0 may step either
+# way on the two paths: at most RMSPROP_FLIP_SHARE of a tensor's entries
+# may leave the tolerance, none by more than 2 lr sqrt(10)
+OPT_PARAM_TOL = dict(atol=1e-4, rtol=1e-4)
+RMSPROP_FLIP_SHARE = 1e-3
+RMSPROP_STEP_BOUND = 2 * TRAIN_LR * 10 ** 0.5
+EVAL_ROWS = 4 * BATCH
+EVAL_AUC_TOL, EVAL_LOSS_TOL = 1e-5, 1e-6
+
+
+def row_counts():
+    from satrans_torch.ops import eqgemm, gather, lazy_tail, scatter
+    return tuple(m.launches for m in (gather, scatter, eqgemm, lazy_tail))
+
+
+def path_counts():
+    """The launches of K1's bodies and of the row kernels, by name."""
+    return dict(zip(K1_NAMES + ROW_NAMES, (*k1_counts(), *row_counts())))
+
+
+def native_check(card, x):
+    """The native batcher, built on this host: ``gather_rows`` and
+    ``gather_columns`` equal numpy on a batch of the AliCCP columns, and
+    each is timed against numpy on the host."""
+    from satrans_torch import native
+    from satrans_torch.data import aliccp
+    t0 = time.perf_counter()
+    check(native.available(), "the native batcher did not build")
+    build_s = time.perf_counter() - t0
+    cols = [np.ascontiguousarray(x[c], dtype=np.int32)
+            for c in aliccp.SPARSE_FEATURES]
+    table = np.stack(cols, axis=1)
+    idx = np.random.default_rng(SEED).permutation(len(cols[0]))[:BATCH]
+    check(np.array_equal(native.gather_rows(table, idx), table[idx])
+          and np.array_equal(native.gather_columns(cols, idx),
+                             np.stack([c[idx] for c in cols], axis=1)),
+          "the native gathers differ from numpy")
+
+    def host(fn, iters=50):
+        fn()
+        t = time.perf_counter()
+        for _ in range(iters):
+            fn()
+        return 1e3 * (time.perf_counter() - t) / iters
+
+    ms = {"gather_rows": host(lambda: native.gather_rows(table, idx)),
+          "numpy_rows": host(lambda: table[idx]),
+          "gather_columns": host(lambda: native.gather_columns(cols, idx)),
+          "numpy_columns": host(lambda: np.stack([c[idx] for c in cols],
+                                                 axis=1))}
+    print(f"native batcher [{card}]: built and loaded in {build_s:.2f}s, "
+          f"{native.thread_count()} OpenMP threads; gather_rows and "
+          f"gather_columns equal numpy on {BATCH} of {len(cols[0])} "
+          f"rows x {len(cols)} int32 columns; host ms a batch: "
+          + ", ".join(f"{k} {v:.4f}" for k, v in ms.items()), flush=True)
+    return ms
+
+
+def iterator_check(dev, card, x, y):
+    """``fit_from_iterator`` through ``Prefetcher(ShardedBatchIterator(
+    ...).epoch(e))`` against ``fit`` on the same rows, ``lazy``: the
+    parameters and the lazy state after PIPE_STEPS steps equal ``fit``'s
+    within ``fit``'s own run-to-run spread (two runs of ``fit``; a
+    parameter bit-identical between them must be bit-identical here too),
+    every kernel's launches exactly phase 7's a step.  Returns the
+    launches by path."""
+    from satrans_torch.data.loader import Prefetcher, ShardedBatchIterator
+    xs = {k: v[:PIPE_ROWS] for k, v in x.items()}
+    ys = y[:PIPE_ROWS]
+    want = dict(zip(K1_NAMES + ROW_NAMES, (
+        *(LAYERS * PIPE_STEPS * c for c in K1_PAIR["stash"]),
+        *(PIPE_STEPS * c for c in LAZY_ROWS_PER_STEP))))
+    runs, paths, rates = [], {}, {}
+    for label in ("fit", "fit_from_iterator", "fit_again"):
+        model, trainer = training_model(dev, "lazy")
+        it = ShardedBatchIterator(trainer.layout.batch_from_dict(xs), ys,
+                                  BATCH, seed=trainer.seed)
+        torch.cuda.synchronize()
+        zero_counts()
+        t0 = time.perf_counter()
+        if label == "fit_from_iterator":
+            trainer.fit_from_iterator(lambda e: Prefetcher(it.epoch(e)),
+                                      epochs=1, verbose=0)
+        else:
+            trainer.fit(xs, ys, batch_size=BATCH, epochs=1, verbose=0)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        got = path_counts()
+        check(got == want, f"{label}: launches {got}, want {want}")
+        paths[f"pipeline_{label}"] = got
+        rates[label] = PIPE_ROWS / wall
+        state = {k: v.detach().clone() for k, v in model.state_dict().items()}
+        state.update({f"lazy.{k}": trainer._lazy[k].clone()
+                      for k in ("mu", "nu", "last")})
+        check(trainer._lazy["count"] == PIPE_STEPS, "lazy count")
+        runs.append(state)
+        del model, trainer
+        gc.collect()
+        torch.cuda.empty_cache()
+    ref, it_run, again = runs
+    spread = {k: (again[k] - v).abs().max().item() for k, v in ref.items()}
+    gap = {k: (it_run[k] - v).abs().max().item() for k, v in ref.items()}
+    bad = [k for k in ref if gap[k] > 2 * spread[k]]
+    check(not bad, f"fit_from_iterator differs from fit past twice fit's "
+                   f"run-to-run spread in {bad}: "
+                   + ", ".join(f"{k} {gap[k]:.3e} vs {spread[k]:.3e}"
+                               for k in bad))
+    exact = sum(torch.equal(it_run[k], v) for k, v in ref.items())
+    worst = max(gap, key=gap.get)
+    print(f"fit_from_iterator vs fit [{card}]: lazy, {PIPE_STEPS} steps of "
+          f"{BATCH} (the last a tail of {TAIL}): {exact} of {len(ref)} "
+          f"tensors bit-identical, the largest gap {gap[worst]:.3e} "
+          f"({worst}) against fit's run-to-run spread {spread[worst]:.3e} "
+          f"(the largest spread {max(spread.values()):.3e}); launches "
+          f"{want} each; trained examples/s: fit {rates['fit']:.1f} / "
+          f"{rates['fit_again']:.1f}, fit_from_iterator "
+          f"{rates['fit_from_iterator']:.1f}", flush=True)
+    return paths, rates
+
+
+def optimizer_check(dev, card, x, y):
+    """The optimizers of OPT_ARMS in ``dense``, each step on the same batch
+    and dropout key: the kernel path's gradients against the plain
+    path's at the same parameters (:func:`step_grad_errors`), and the
+    parameters the optimizer makes of each from the same parameters and
+    state (OPT_PARAM_TOL; rmsprop's flips as stated there); exactly 3 + 3
+    K1-stash / K1-bwd-stash launches a step on the kernel path and none on
+    the plain one; sgd's diverging steps reported.  Returns the launches
+    by path."""
+    from satrans_torch.train import Trainer
+    model, adam = training_model(dev, "dense")
+    batches = [staged_batch(adam, {k: v[i * BATCH:] for k, v in x.items()},
+                            y[i * BATCH:], BATCH) for i in range(OPT_STEPS)]
+    start = {k: v.detach().clone() for k, v in model.state_dict().items()}
+    params = dict(model.named_parameters())
+    per_step = tuple(LAYERS * c for c in K1_PAIR["stash"])
+    paths = {}
+    for name, opt, steps in OPT_ARMS:
+        model.load_state_dict(start)
+        trainer = Trainer(model, seed=SEED, device=dev).compile(
+            optimizer=opt, learning_rate=TRAIN_LR)
+        worst_grad, worst_param, losses = 0.0, (0.0, ""), []
+        held_f64, flipped = set(), 0
+        for step, (batch, yb, wb) in enumerate(batches):
+            key = (0, step)
+            if step >= steps:  # sgd's diverging steps, reported
+                zero_counts()
+                stats = trainer.train_step(batch, yb, wb, key=key)
+                check(k1_counts() == per_step, f"{name}: step {step} "
+                                               f"launched {k1_counts()}")
+                finite = all(bool(torch.isfinite(p.grad).all())
+                             for p in model.parameters())
+                losses.append(f"{float(stats['loss']) / BATCH:.4f} (not "
+                              f"checked; gradients finite: {finite})")
+                continue
+            grads = []
+            for route in ("kernel", "plain"):
+                model.train()
+                model.route = route
+                model.zero_grad(set_to_none=True)
+                zero_counts()
+                trainer.loss_terms(dict(batch, _weight=wb), yb, wb,
+                                   key)[0].backward()
+                want = per_step if route == "kernel" else NO_K1
+                check(k1_counts() == want, f"{name} step {step} {route}: "
+                      f"launches {k1_counts()}, want {want}")
+                grads.append({n: p.grad.clone() for n, p in params.items()})
+            model.route = "kernel"
+            errs, f64 = step_grad_errors(trainer, *grads, batch, yb, wb, key)
+            worst_grad = max(worst_grad, max(errs.values()))
+            held_f64 |= f64
+            # the plain path's step from this state, then the kernel
+            # path's (the train step, its launches counted)
+            before = {n: p.detach().clone() for n, p in params.items()}
+            state = copy.deepcopy(trainer.optimizer.state_dict())
+            for n, p in params.items():
+                p.grad = grads[1][n]
+            trainer.optimizer.step()
+            plain = {n: p.detach().clone() for n, p in params.items()}
+            with torch.no_grad():
+                for n, p in params.items():
+                    p.copy_(before[n])
+            trainer.optimizer.load_state_dict(state)
+            del grads, before, state
+            zero_counts()
+            stats = trainer.train_step(batch, yb, wb, key=key)
+            torch.cuda.synchronize()
+            check(bool(torch.isfinite(stats["loss"])) and k1_counts()
+                  == per_step, f"{name} step {step}: loss "
+                  f"{float(stats['loss'])}, launches {k1_counts()}")
+            losses.append(f"{float(stats['loss']) / BATCH:.6f}")
+            for n, p in params.items():
+                err = (p.detach() - plain[n]).abs().max().item()
+                out = int((~torch.isclose(p.detach(), plain[n],
+                                          **OPT_PARAM_TOL)).sum())
+                flipped += out
+                rms = name == "rmsprop"
+                check(bool(torch.isfinite(p).all()) and (
+                    not out or (rms and out <= RMSPROP_FLIP_SHARE * p.numel()
+                                and err <= RMSPROP_STEP_BOUND)),
+                      f"{name} step {step}: parameter {n} from the kernel "
+                      f"path's gradients differs from the plain path's by "
+                      f"{err:.3e}, {out} of {p.numel()} entries outside "
+                      f"{OPT_PARAM_TOL}")
+                worst_param = max(worst_param, (err, n))
+            del plain
+        moved = max((v - start[k]).abs().max().item()
+                    for k, v in model.state_dict().items())
+        check(moved > 0, f"{name}: no parameter moved")
+        # a checked step launches its gradients' pass and the train step
+        paths[f"pipeline_{name}"] = dict(zip(K1_NAMES, tuple(
+            (steps + OPT_STEPS) * c for c in per_step)))
+        print(f"optimizer {name} [{card}]: dense, {steps} checked steps of "
+              f"{OPT_STEPS}: gradients kernel vs plain path max_abs_err "
+              f"{worst_grad:.3e} ({sorted(held_f64) or 'none'} held to the "
+              f"float64 criterion); parameters from the two paths' "
+              f"gradients {worst_param[0]:.3e} ({worst_param[1]}; "
+              f"{flipped} entries outside {OPT_PARAM_TOL}); the largest "
+              f"move {moved:.3e}; loss a example {losses}; {LAYERS} + "
+              f"{LAYERS} K1-stash / K1-bwd-stash a step", flush=True)
+        del trainer
+    del model, adam, start, params, batches
+    gc.collect()
+    torch.cuda.empty_cache()
+    return paths
+
+
+def step_grad_errors(trainer, got, plain, batch, yb, wb, key):
+    """One step's kernel-path gradients ``got`` against the plain path's
+    ``plain`` at the same parameters (``trainer.model``'s) and key: each
+    within phase 5's
+    tolerance, or, where one misses it (after a large step a relu input
+    or an attention logit sits near its kink and rounding flips its
+    side), within that tolerance of the float64 plain path's gradient plus
+    the float32 plain path's own distance from it (phase 13's criterion).
+    Returns (max |got - plain| by name, the names held to float64)."""
+    errs, missed = {}, []
+    for name, w in plain.items():
+        g = got[name]
+        check(bool(torch.isfinite(g).all()), f"gradient {name} not finite")
+        errs[name] = (g - w).abs().max().item()
+        if errs[name] > GRAD_RTOL * w.abs().max().item() + GRAD_ATOL:
+            missed.append(name)
+    if missed:
+        from satrans_torch.train import losses
+        ref = copy.deepcopy(trainer.model).double()
+        ref.route = "plain"
+        ref.zero_grad(set_to_none=True)
+        pred, aux = losses.forward_with_aux(ref, dict(batch, _weight=wb),
+                                            key=key)
+        (trainer.strategy.loss(pred, yb.double(), batch, wb.double())
+         + ref.reg_loss() + aux).backward()
+        exact = dict(ref.named_parameters())
+        for name in missed:
+            w = exact[name].grad
+            err = (got[name].double() - w).abs().max().item()
+            plain_err = (plain[name].double() - w).abs().max().item()
+            check(err <= GRAD_RTOL * w.abs().max().item() + GRAD_ATOL
+                  + plain_err,
+                  f"gradient {name} differs from the float64 plain one by "
+                  f"{err}, the float32 plain one by {plain_err} (largest "
+                  f"entry {w.abs().max().item()})")
+        del ref, exact
+    return errs, set(missed)
+
+
+def checkpoint_check(dev, card, x, y):
+    """``callbacks.ModelCheckpoint`` under ``rmsprop``: the checkpoint
+    written at the end of an epoch of 2 steps restores into a new trainer
+    (another seed's model) with its parameters, its optimizer state and
+    its offset equal bit for bit."""
+    import tempfile
+
+    from satrans_torch.train import Trainer, callbacks, checkpoint
+    model, _ = training_model(dev, "dense")
+    trainer = Trainer(model, seed=SEED, device=dev).compile(
+        optimizer="rmsprop", learning_rate=TRAIN_LR)
+    with tempfile.TemporaryDirectory() as td:
+        path = os.path.join(td, "ckpt")
+        t0 = time.perf_counter()
+        trainer.fit({k: v[:2 * BATCH] for k, v in x.items()}, y[:2 * BATCH],
+                    batch_size=BATCH, verbose=0,
+                    callbacks=[callbacks.ModelCheckpoint(path)])
+        torch.cuda.synchronize()
+        fit_s = time.perf_counter() - t0
+        size = os.path.getsize(path)
+        other, _ = training_model(dev, "dense", seed=SEED + 1)
+        fresh = Trainer(other, seed=SEED, device=dev).compile(
+            optimizer="rmsprop", learning_rate=TRAIN_LR)
+        t0 = time.perf_counter()
+        checkpoint.restore(path, fresh)
+        torch.cuda.synchronize()
+        restore_s = time.perf_counter() - t0
+    names = dict(model.named_parameters())
+    names2 = dict(other.named_parameters())
+    check(all(torch.equal(v, other.state_dict()[k])
+              for k, v in model.state_dict().items()),
+          "the restored parameters differ")
+    check(len(trainer.optimizer.state) == len(names) and all(
+        torch.equal(trainer.optimizer.state[p]["nu"],
+                    fresh.optimizer.state[names2[n]]["nu"])
+        for n, p in names.items()), "the restored rmsprop state differs")
+    check(getattr(model, "domain_id_offset", None)
+          == getattr(other, "domain_id_offset", None), "the offset differs")
+    print(f"ModelCheckpoint [{card}]: rmsprop, 2 steps of {BATCH} in "
+          f"{fit_s:.2f}s with a checkpoint of {size / 2 ** 20:.1f} MiB at "
+          f"the epoch's end; restored into a new trainer in "
+          f"{restore_s:.2f}s: {len(names)} parameters and their nu bit for "
+          f"bit, the offset equal", flush=True)
+    return trainer
+
+
+def evaluate_domains_check(card, trainer):
+    """``evaluate_domains`` on EVAL_ROWS examples on K1-fwd alone, against
+    ``metrics.auc``, ``per_domain_auc`` and ``log_loss`` on ``predict()``'s
+    scores.  Returns the launches of the evaluation."""
+    from satrans_torch.data import aliccp
+    from satrans_torch.train import metrics
+    rng = np.random.default_rng(SEED + 3)
+    ev = {name: rng.integers(1, aliccp.DATA_MAX[name] + 1, EVAL_ROWS)
+          for name in aliccp.SPARSE_FEATURES}
+    # labels that follow the scenario, so the AUCs are not all near 0.5
+    ev_y = (rng.random(EVAL_ROWS) < 0.2 * ev["301"]).astype(np.float32)
+    torch.cuda.synchronize()
+    zero_counts()
+    t0 = time.perf_counter()
+    res, dom = trainer.evaluate_domains(ev, ev_y, "301", batch_size=BATCH)
+    wall = time.perf_counter() - t0
+    launched = path_counts()
+    want = dict(zip(K1_NAMES + ROW_NAMES, (LAYERS * EVAL_ROWS // BATCH,)
+                    + (0,) * (len(K1_NAMES) + len(ROW_NAMES) - 1)))
+    check(launched == want, f"evaluate_domains launched {launched}, "
+                            f"want {want}")
+    pred = trainer.predict(ev, batch_size=BATCH)
+    want_auc = metrics.auc(ev_y, pred)
+    want_dom = metrics.per_domain_auc(ev_y, pred, ev["301"])
+    want_loss = metrics.log_loss(ev_y, pred)
+    errs = [abs(res["auc"] - want_auc)] + [abs(dom[v] - a)
+                                            for v, a in want_dom.items()]
+    check(sorted(dom) == sorted(want_dom) and max(errs) <= EVAL_AUC_TOL,
+          f"evaluate_domains' AUCs {res['auc']}, {dom} against "
+          f"{want_auc}, {want_dom}")
+    loss_err = abs(res["binary_crossentropy"] - want_loss)
+    check(loss_err <= EVAL_LOSS_TOL, f"evaluate_domains' loss "
+          f"{res['binary_crossentropy']} against {want_loss}")
+    print(f"evaluate_domains [{card}]: {EVAL_ROWS} examples in "
+          f"{1e3 * wall:.2f} ms: AUC {res['auc']:.6f}, by domain "
+          + ", ".join(f"{v} {a:.6f}" for v, a in dom.items())
+          + f"; against the host metrics on predict()'s scores: AUCs within "
+          f"{max(errs):.2e}, loss within {loss_err:.2e}; launches "
+          f"{launched['meta_block_fwd']} K1-fwd, nothing else", flush=True)
+    return launched
+
+
+def raw_workflow_check(card):
+    """``bench.raw_e2e.run`` on the card: the raw CSVs (80,000 + 20,000
+    rows) through the port's preprocessing and CLI; the overall and three
+    per-domain AUCs within the golden's tolerance of RAWE2E_r05.json, and
+    the CLI's K1 launches exactly its steps' and its predict batches'."""
+    import tempfile
+
+    from satrans_torch.bench import raw_e2e
+    from satrans_torch.data import io
+    with tempfile.TemporaryDirectory() as td:
+        zero_counts()
+        res = raw_e2e.run(td, device="cuda")
+    res.update(raw_e2e.against_golden(res))
+    steps = -(-raw_e2e.N_TRAIN // 1024)
+    want = dict(zip(K1_NAMES + ROW_NAMES, (
+        -(-raw_e2e.N_TEST // 4096), steps, 0, steps)
+        + (0,) * (len(K1_NAMES) + len(ROW_NAMES) - 4)))
+    launched = path_counts()
+    check(launched == want, f"raw workflow launched {launched}, want "
+                            f"{want}")
+    check(res["within"], f"raw workflow AUCs off the golden: {res}")
+    print(f"raw workflow [{card}]: h5 through "
+          f"{'h5py' if io._h5py() else 'the port HDF5 writer (no h5py)'}; "
+          f"AUC {res['overall_auc']}, by domain {res['per_domain_auc']} "
+          f"against {res['golden_auc']} (the largest gap "
+          f"{res['max_auc_gap']:.4f}, tolerance {res['tolerance']}); test "
+          f"loss {res['test_loss']}; preprocessing {res['preprocess_s']:.2f}"
+          f"s, the CLI (load, {steps} steps, predict, report) "
+          f"{res['cli_s']:.2f}s; launches {launched}", flush=True)
+    return launched, res
+
+
+def pipeline_phase(dev, card):
+    """Phase 21: the native batcher, ``fit_from_iterator``, the other
+    optimizers, ``ModelCheckpoint``, ``evaluate_domains`` and the raw
+    workflow.  Returns the launches by path and kernel."""
+    t0 = time.perf_counter()
+    x, y = training_data()
+    native_ms = native_check(card, x)
+    paths, rates = iterator_check(dev, card, x, y)
+    paths.update(optimizer_check(dev, card, x, y))
+    trainer = checkpoint_check(dev, card, x, y)
+    paths["pipeline_evaluate_domains"] = evaluate_domains_check(card, trainer)
+    del trainer
+    gc.collect()
+    torch.cuda.empty_cache()
+    paths["raw_e2e"], raw = raw_workflow_check(card)
+    print(f"phase 21 [{card}]: {time.perf_counter() - t0:.2f}s; "
+          + json.dumps({"native_host_ms": native_ms,
+                        "examples_per_s": rates,
+                        "raw_e2e_s": [raw["preprocess_s"], raw["cli_s"]]}),
+          flush=True)
+    return paths
+
 def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -5955,6 +6415,7 @@ def main() -> int:
     widths, wpaths = widths_phase(dev, card, built)
     many, many_paths = many_rows_phase(dev, card)
     legacy = legacy_phase(dev, card)
+    pipeline = pipeline_phase(dev, card)
 
     # launches, each path counted from 0 just before it: serving and the
     # evaluation run K1-fwd only; the dense recompute arm K1-fwd and
@@ -6098,9 +6559,11 @@ def main() -> int:
         if name + "_sorted" in tile:
             k["sorted_body"] = tile[name + "_sorted"]
             k["many_rows"]["sorted_scratch_at_cap"] = many["scratch"]
-    # phase 20: K2-K5's launches on the legacy and per-example paths
+    # phase 20: K2-K5's launches on the legacy and per-example paths;
+    # phase 21: K1's and K2-K4's on the pipeline's paths
     for k in kernels:
-        by_path = {p: n[k["name"]] for p, n in legacy.items()
+        by_path = {p: n[k["name"]] for p, n in (*legacy.items(),
+                                                *pipeline.items())
                    if n.get(k["name"])}
         k["launches_by_path"].update(by_path)
         k["launches"] += sum(by_path.values())

@@ -21,8 +21,10 @@ checkpoint before ``fit``, and ``test`` aborts after 5 steps.
 
 runs on the card; ``main(argv, device="cpu")`` runs the plain PyTorch path
 on the CPU.  ``--data_name alicpp`` and ``alimama`` read the reference's
-h5 files from ``--data_path`` and need ``h5py``; ``synthetic`` needs no
-file and no package beyond numpy.
+h5 files from ``--data_path`` (``data/io.py``: through ``h5py``, or where
+it is not installed the port's HDF5 reader, for files the port's
+preprocessing wrote); ``synthetic`` needs no file and no package beyond
+numpy.
 
 Not ported, each raising ``NotImplementedError`` that names its ROADMAP
 item: ``--mesh`` other than ``none``, ``--coordinator_address``,

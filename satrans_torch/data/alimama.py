@@ -1,8 +1,13 @@
-"""Alimama (Taobao display ads) fields, loader and temporal split (twin of
-the constants, ``load`` and ``split_by_time`` of
-``satrans_tpu/data/alimama.py``; the pandas preprocessing of the raw CSVs
-is not ported yet, ROADMAP queue 1 item 'data/ and native/').  ``load``
-needs ``h5py`` (imported when it is called).
+"""Alimama (Taobao display ads) dataset: preprocessing, loader and temporal
+split (twin of ``satrans_tpu/data/alimama.py``).
+
+:func:`preprocess` reimplements reference alimama_preprocessing.py: join
+raw_sample + user_profile + ad_feature, +1-shift selected columns, map
+pid -> {430548_1007: 0, 430539_1007: 1}, fill NA with 0, write
+``alimama.h5`` (price kept float, everything else int).  It needs
+``pandas``, imported where it is called; the h5 file goes through
+``data/io.py``.  The train/test split is temporal at 2017-05-12 00:00:00
+(reference main.py:162-165).
 
 ``DATA_MAX`` holds the public dataset's vocab sizes that the JAX package's
 ``bench.py`` pins for its Alimama sota-pos arm (26 M impressions, 1.14 M
@@ -25,6 +30,10 @@ SPARSE_FEATURES = ["user_id", "adgroup_id", "pid", "cms_segid",
                    "customer", "brand"]
 
 DENSE_FEATURES = ["price"]
+LABEL = "clk"
+
+PID_MAP = {"430548_1007": 0, "430539_1007": 1}
+SHIFT_COLS = ["cms_segid", "cms_group_id", "age_level", "occupation"]
 SPLIT_TIMESTAMP = "2017-05-12 00:00:00"
 
 DATA_MAX = {
@@ -37,6 +46,39 @@ DATA_MAX = {
 
 # the sota-pos configuration's scenario column and its domains
 DOMAIN_COL, NUM_DOMAINS = "shopping_level", 3
+
+
+def preprocess(raw_sample_csv: str, user_profile_csv: str,
+               ad_feature_csv: str, h5_path: str):
+    """Join the three raw CSVs into the flat ``alimama.h5`` schema and
+    return the joined DataFrame (alimama_preprocessing.py:1-52)."""
+    import pandas as pd
+    logs = pd.read_csv(raw_sample_csv)
+    logs.columns = ["user_id", "time_stamp", "adgroup_id", "pid", "nonclk",
+                    "clk"]
+    user_df = pd.read_csv(user_profile_csv)
+    user_df.columns = ["userid", "cms_segid", "cms_group_id",
+                       "final_gender_code", "age_level", "pvalue_level",
+                       "shopping_level", "occupation", "new_user_class_level"]
+    item_df = pd.read_csv(ad_feature_csv)
+
+    data = logs.merge(user_df, left_on="user_id", right_on="userid",
+                      how="left")
+    data = data.merge(item_df, on="adgroup_id", how="left")
+    data[SHIFT_COLS] = data[SHIFT_COLS] + 1
+    data = data.fillna(value=0)
+    data["pid"] = data["pid"].map(PID_MAP)
+
+    cols = {}
+    for col in data.columns:
+        if col == "userid":
+            continue
+        if col == "price":
+            cols[col] = data[col].values.astype("float")
+        else:
+            cols[col] = data[col].values.astype("int")
+    io.save_dict_h5(h5_path, cols)
+    return data
 
 
 def load(h5_path: str) -> dict[str, np.ndarray]:

@@ -1,6 +1,7 @@
 """Training (twin of ``satrans_tpu/train``): the single-step ``Trainer``
-with the dense and sparse bank updates (``bank_optimizer``), losses,
-metrics, callbacks, checkpoints (``checkpoint``) and the attention probes
+with the dense and sparse bank updates (``bank_optimizer``), the
+optimizers other than Adam (``optimizers``), losses, metrics, callbacks,
+checkpoints (``checkpoint``) and the attention probes
 (``attention_probe``)."""
 
 from . import callbacks, losses, metrics

@@ -1,7 +1,6 @@
 """Keras-style callbacks (twin of ``satrans_tpu/train/callbacks.py``): the
-lifecycle hooks, ``History``, ``EarlyStopping`` and ``TestCrashProbe``
-(the CLI's ``test`` flag).  ``ModelCheckpoint`` is ROADMAP queue 1 item
-'remaining Trainer surface'."""
+lifecycle hooks, ``History``, ``ModelCheckpoint``, ``EarlyStopping`` and
+``TestCrashProbe`` (the CLI's ``test`` flag)."""
 
 from __future__ import annotations
 
@@ -50,6 +49,29 @@ class History(Callback):
         self.epoch.append(epoch)
         for k, v in (logs or {}).items():
             self.history.setdefault(k, []).append(v)
+
+
+class ModelCheckpoint(Callback):
+    """Save the trainer (``train/checkpoint.py``: parameters, optimizer
+    state, model state, offset) at each epoch's end, or only when
+    ``monitor`` improves in the direction of ``mode`` - the reference's
+    ModelCheckpoint."""
+
+    def __init__(self, path: str, monitor: str | None = None,
+                 mode: str = "max"):
+        self.path = path
+        self.monitor = monitor
+        self.sign = 1.0 if mode == "max" else -1.0
+        self.best = -np.inf
+
+    def on_epoch_end(self, epoch, logs=None):
+        from . import checkpoint
+        if self.monitor is not None:
+            value = (logs or {}).get(self.monitor)
+            if value is None or self.sign * value <= self.best:
+                return
+            self.best = self.sign * value
+        checkpoint.save(self.path, self.trainer)
 
 
 class EarlyStopping(Callback):

@@ -6,11 +6,14 @@ what the JAX package's checkpoint carries:
 
 * ``params``: the model's ``state_dict()``, its buffers (the model
   state: STAR's BatchNorm statistics) included;
-* ``opt_state``: Adam's moments and step of every parameter it has updated
-  (``torch.optim.Adam``'s state, keyed by parameter name), and under
-  ``bank_update='lazy'`` the lazy bank's ``mu``, ``nu``, ``last`` and
-  ``count`` (``Trainer._lazy``, which the port keeps outside torch's
-  optimizer), and the bank mode the trainer was compiled under;
+* ``opt_state``: the optimizer's kind (``'adam'``, ``'sgd'``,
+  ``'adagrad'``, ``'rmsprop'`` or ``'custom:<class>'``) and its state of
+  every parameter it has updated (the ``torch.optim.Optimizer`` state:
+  Adam's moments and step, Adagrad's ``sum``, RMSprop's ``nu``), keyed by
+  parameter name; under ``bank_update='lazy'`` the lazy bank's ``mu``,
+  ``nu``, ``last`` and ``count`` (``Trainer._lazy``, which the port keeps
+  outside torch's optimizer); and the bank mode the trainer was compiled
+  under;
 * ``meta``: the fit-learned ``domain_id_offset``, or the no-offset
   sentinel ``-2**31`` for a model without one (SATrans has none).
 
@@ -36,9 +39,9 @@ _MODES = ("dense", "fused", "fused_eq", "lazy")
 _LAZY_KEYS = ("mu", "nu", "last")
 
 
-def _adam_state(trainer) -> dict:
-    """``{parameter name: {'exp_avg', 'exp_avg_sq', 'step'}}`` of the
-    parameters Adam has state for."""
+def _optimizer_state(trainer) -> dict:
+    """``{parameter name: state dict}`` of the parameters the optimizer
+    has state for."""
     names = {id(p): n for n, p in trainer.model.named_parameters()}
     return {names[id(p)]: dict(st)
             for p, st in trainer.optimizer.state.items()}
@@ -53,7 +56,8 @@ def save(path: str, trainer) -> None:
     path = os.path.abspath(path)
     os.makedirs(os.path.dirname(path), exist_ok=True)
     offset = getattr(trainer.model, "domain_id_offset", None)
-    opt = {"adam": _adam_state(trainer),
+    opt = {"optimizer": trainer.optimizer_kind,
+           "state": _optimizer_state(trainer),
            "bank_mode": _MODES.index(trainer._bank_mode)}
     if trainer._lazy is not None:
         opt["lazy"] = {**{k: trainer._lazy[k] for k in _LAZY_KEYS},
@@ -83,9 +87,9 @@ def load_model(payload: dict, model) -> None:
 
 def restore(path: str, trainer) -> None:
     """Restore in place into a compiled trainer (shapes must match): the
-    parameters and buffers, Adam's state, the lazy bank's state and the
-    fit-learned ``domain_id_offset``.  A checkpoint of another bank mode
-    raises."""
+    parameters and buffers, the optimizer's state, the lazy bank's state
+    and the fit-learned ``domain_id_offset``.  A checkpoint of another
+    optimizer or bank mode raises."""
     if trainer.optimizer is None:
         raise RuntimeError("call compile() before restoring a checkpoint")
     payload = read(path, trainer.device)
@@ -96,10 +100,15 @@ def restore(path: str, trainer) -> None:
             f"checkpoint {path} was written under bank_update="
             f"{saved_mode!r}, the trainer is compiled under "
             f"{trainer._bank_mode!r}")
+    if opt["optimizer"] != trainer.optimizer_kind:
+        raise ValueError(
+            f"checkpoint {path} was written with optimizer "
+            f"{opt['optimizer']!r}, the trainer is compiled with "
+            f"{trainer.optimizer_kind!r}")
     load_model(payload, trainer.model)
     params = dict(trainer.model.named_parameters())
     trainer.optimizer.state.clear()
-    for name, st in opt["adam"].items():
+    for name, st in opt["state"].items():
         trainer.optimizer.state[params[name]] = dict(st)
     if trainer._lazy is not None:
         lazy = opt["lazy"]

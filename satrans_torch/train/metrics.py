@@ -1,19 +1,20 @@
-"""Evaluation metrics (twin of the numpy part of
-``satrans_tpu/train/metrics.py``).
+"""Evaluation metrics (twin of ``satrans_tpu/train/metrics.py``).
 
 * :func:`auc` - exact ROC-AUC from tie-averaged ranks (equals
   ``sklearn.metrics.roc_auc_score``) in O(n log n).
+* :func:`auc_torch` - the same rank-sum AUC on the tensors' device (the
+  twin of ``auc_jax``), over a 0/1-weighted subset, so that
+  ``Trainer.evaluate_domains`` keeps its scores on the card.
 * :func:`log_loss` - sklearn-compatible mean BCE with its eps clip (the
   reference's train metric 'binary_crossentropy', basemodel.py:601-605).
 * :func:`per_domain_auc` - AUC per scenario value min..max of the split
   (reference main.py:368-374).
-
-The on-device rank AUC (``auc_jax``) comes with the distributed paths.
 """
 
 from __future__ import annotations
 
 import numpy as np
+import torch
 
 
 def _tie_average_ranks(scores: np.ndarray) -> np.ndarray:
@@ -44,6 +45,43 @@ def auc(y_true, y_score) -> float:
     ranks = _tie_average_ranks(s)
     return float((ranks[y == 1].sum() - n_pos * (n_pos + 1) / 2.0)
                  / (n_pos * n_neg))
+
+
+def auc_torch(y_true: torch.Tensor, y_score: torch.Tensor,
+              weight: torch.Tensor | None = None) -> torch.Tensor:
+    """On-device rank AUC with tie-averaged weighted ranks (twin of
+    ``auc_jax``, metrics.py:53-85), as a float64 scalar tensor.
+
+    ``weight`` (0/1) restricts it to a subset with static shapes; a
+    subset of one class gives NaN.  The ranks come from a stable argsort
+    (``jnp.argsort`` is stable) and segment sums over the tie groups; the
+    sums are float64, ``auc_jax``'s precision under ``jax_enable_x64``.
+    """
+    y = y_true.reshape(-1).to(torch.float64)
+    s = y_score.reshape(-1)
+    w = torch.ones_like(y) if weight is None else \
+        weight.reshape(-1).to(torch.float64)
+    n = s.shape[0]
+    order = torch.argsort(s, stable=True)
+    s_sorted, w_sorted = s[order], w[order]
+    cw = torch.cumsum(w_sorted, 0)
+    same_as_prev = torch.cat([torch.zeros(1, dtype=torch.bool,
+                                          device=s.device),
+                              s_sorted[1:] == s_sorted[:-1]])
+    group = torch.cumsum((~same_as_prev).to(torch.int64), 0) - 1
+    grp_w = torch.zeros(n, dtype=torch.float64, device=s.device) \
+        .index_add_(0, group, w_sorted)
+    grp_cw_end = torch.zeros(n, dtype=torch.float64, device=s.device) \
+        .scatter_reduce_(0, group, cw, "amax", include_self=False)
+    # weighted count strictly below, plus the tie group's average
+    rank_sorted = grp_cw_end[group] - grp_w[group] \
+        + (grp_w[group] + 1.0) / 2.0
+    ranks = torch.empty_like(rank_sorted)
+    ranks[order] = rank_sorted
+    n_pos = torch.sum(w * y)
+    n_neg = torch.sum(w) - n_pos
+    return (torch.sum(w * y * ranks) - n_pos * (n_pos + 1.0) / 2.0) \
+        / (n_pos * n_neg)
 
 
 def log_loss(y_true, y_pred, eps: float = 1e-15) -> float:

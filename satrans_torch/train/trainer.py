@@ -7,7 +7,10 @@ sum (:class:`SingleTask`), the model's full-table embedding L2
 (``model.reg_loss()``), the model's aux loss (Starv2's, reported as
 ``aux_loss``; every bank mode differentiates it) and Adam over every
 parameter, the bank included.  The step's batch carries the 0/1 pad
-mask as ``_weight``, as the JAX Trainer's does.
+mask as ``_weight``, as the JAX Trainer's does.  ``compile`` also takes
+``'sgd'``, ``'adagrad'`` and ``'rmsprop'`` with optax's update rules
+(``train/optimizers.py``), or a callable ``params -> torch.optim.Optimizer``;
+those run ``dense`` only, as in the JAX package.
 On the card each meta-transformer layer runs K1-stash forward and
 K1-bwd-stash backward, K1-stash light and K1-bwd-stash light under
 ``SATRANS_BWD=stash_light``, or K1-fwd and K1-bwd under
@@ -50,9 +53,14 @@ reach the host once per epoch (and at a verbose print).
 ``resume``, restores the one at ``checkpoint_path`` first if it exists
 (trainer.py:587-595, :671-674).
 
-What the JAX Trainer also offers raises ``NotImplementedError`` naming its
-ROADMAP item: a mesh, ``lazy_stale``, streaming ``fit_from_iterator``,
-``evaluate_domains`` and optimizers other than Adam.  ``fit(scan_steps=k)``
+``fit`` assembles each batch's 2-D arrays with the native batcher
+(``native.gather_rows``), as the JAX ``fit`` does.  ``fit_from_iterator``
+trains on the batches of an iterator (``data/loader.py``), with ``fit``'s
+step keys.  ``evaluate_domains`` keeps scores, labels, weights and domain
+ids on the device until the AUCs (``metrics.auc_torch``) and the loss are
+scalars.  What the JAX Trainer also offers raises
+``NotImplementedError`` naming its ROADMAP item: a mesh and
+``lazy_stale``.  ``fit(scan_steps=k)``
 (the JAX package's program of k steps, trainer.py:629-658) runs each run
 of k full batches as k single steps one after another, with the JAX
 package's keys for such a run: the step key is split once and step ``j``
@@ -72,7 +80,8 @@ import numpy as np
 import torch
 
 from . import bank_optimizer, callbacks as cb, checkpoint as ckpt_lib, \
-    losses, metrics as metrics_lib
+    losses, metrics as metrics_lib, optimizers
+from .. import native
 from ..ops import threefry
 from ..utils import resolve_device
 
@@ -151,28 +160,43 @@ class Trainer:
     def compile(self, optimizer="adam", loss="binary_crossentropy",
                 metrics: Sequence[str] = ("binary_crossentropy", "auc"),
                 learning_rate: float = 0.001, bank_update: str = "auto"):
-        """Keras-style compile (reference basemodel.py:540-552).  Only
-        Adam is ported; ``bank_update`` is ``auto`` (``dense`` on one
-        device), ``dense``, ``fused``, ``fused_eq`` or ``lazy``."""
+        """Keras-style compile (reference basemodel.py:540-552).
+        ``optimizer``: ``'adam'``, ``'sgd'``, ``'adagrad'``, ``'rmsprop'``
+        (optax's rules, trainer.py:233-247) or a callable ``params ->
+        torch.optim.Optimizer``; ``bank_update``: ``auto`` (``dense`` on
+        one device), ``dense``, or with Adam ``fused``, ``fused_eq`` or
+        ``lazy``."""
         if bank_update not in _MODES:
             raise ValueError(f"unknown bank_update {bank_update!r}")
         if bank_update == "lazy_stale":
             raise NotImplementedError(
                 "bank_update='lazy_stale' is ROADMAP queue 1 item "
                 "'lazy_stale' (the software-pipelined lazy commit)")
-        if optimizer != "adam":
-            raise NotImplementedError(
-                f"optimizer {optimizer!r}: only 'adam' is ported; the "
-                "others are ROADMAP queue 1 item 'remaining Trainer "
-                "surface'")
+        if isinstance(optimizer, str) and optimizer != "adam" and \
+                optimizer not in optimizers.NAMED:
+            raise ValueError(f"unknown optimizer {optimizer!r}")
+        self._opt_is_adam = optimizer == "adam"
         self._resolve_bank_mode(bank_update)
         bank = self.model.emb.bank if self._bank_mode == "lazy" else None
-        self.optimizer = torch.optim.Adam(
-            [p for p in self.model.parameters() if p is not bank],
-            lr=float(learning_rate), betas=(bank_optimizer.ADAM_B1,
-                                            bank_optimizer.ADAM_B2),
-            eps=bank_optimizer.ADAM_EPS, fused=True)
-        self._lr = float(learning_rate)
+        params = [p for p in self.model.parameters() if p is not bank]
+        lr = float(learning_rate)
+        if self._opt_is_adam:
+            self.optimizer = torch.optim.Adam(
+                params, lr=lr, betas=(bank_optimizer.ADAM_B1,
+                                      bank_optimizer.ADAM_B2),
+                eps=bank_optimizer.ADAM_EPS, fused=True)
+        elif isinstance(optimizer, str):
+            self.optimizer = optimizers.NAMED[optimizer](params, lr)
+        else:
+            self.optimizer = optimizer(params)
+            if not isinstance(self.optimizer, torch.optim.Optimizer):
+                raise TypeError("a custom optimizer is a callable params -> "
+                                f"torch.optim.Optimizer, got "
+                                f"{type(self.optimizer).__name__}")
+        # the optimizer a checkpoint was written with
+        self.optimizer_kind = optimizer if isinstance(optimizer, str) else \
+            f"custom:{type(self.optimizer).__name__}"
+        self._lr = lr
         self._eq_plan = (bank_optimizer.make_eq_plan(self.model)
                          if self._bank_mode in ("fused_eq", "lazy")
                          else None)
@@ -208,11 +232,13 @@ class Trainer:
 
     def _resolve_bank_mode(self, mode: str) -> None:
         """Twin of trainer.py:460-503 on one device: ``auto`` resolves to
-        ``dense`` (the exact reference path, for every model); a sparse
-        mode needs a ``standard_bank_access`` model."""
+        ``dense`` (the exact reference path, for every model and
+        optimizer); a sparse mode needs Adam and a
+        ``standard_bank_access`` model."""
         if mode == "auto":
             mode = "dense"
-        elif mode != "dense" and not bank_optimizer.eligible(self.model):
+        elif mode != "dense" and not (self._opt_is_adam and
+                                      bank_optimizer.eligible(self.model)):
             raise ValueError(
                 f"bank_update={mode!r} needs the stock 'adam' optimizer and "
                 "a standard_bank_access model "
@@ -239,6 +265,14 @@ class Trainer:
         if n == target:
             return arr
         return np.pad(arr, [(0, target - n)] + [(0, 0)] * (arr.ndim - 1))
+
+    @staticmethod
+    def _take(arr, idx):
+        """Row gather for batch assembly: the native batcher for a 2-D
+        array (trainer.py:555-562), numpy indexing otherwise."""
+        if arr.ndim == 2:
+            return native.gather_rows(arr, idx)
+        return arr[idx]
 
     def step_key(self):
         """The next single step's dropout key: the step key is split,
@@ -363,7 +397,7 @@ class Trainer:
                                (step + j + 1) * batch_size]
                     bsz = len(idx)
                     batch = self._device_batch(
-                        {kk: self._pad(v[idx], batch_size)
+                        {kk: self._pad(self._take(v, idx), batch_size)
                          for kk, v in data.items()})
                     wb = np.zeros(batch_size, np.float32)
                     wb[:bsz] = 1.0
@@ -418,10 +452,40 @@ class Trainer:
         callback_list.on_train_end()
         return self.history
 
-    def fit_from_iterator(self, *args, **kwargs):
-        raise NotImplementedError(
-            "fit_from_iterator is ROADMAP queue 1 item 'data/ and native/' "
-            "(the sharded iterators)")
+    def fit_from_iterator(self, iterator_factory, *, epochs: int = 1,
+                          domain_offset: int | None = None,
+                          verbose: int = 1):
+        """Streaming training (trainer.py:709-743): ``iterator_factory(
+        epoch)`` yields ``(batch, y, weight)`` numpy triples, the batch a
+        ``layout.batch_from_dict`` dict; e.g. ``lambda e: Prefetcher(
+        ShardedBatchIterator(...).epoch(e))`` (``data/loader.py``).  The
+        step keys are ``fit``'s: ``PRNGKey(seed + 1)`` split once a step.
+        ``domain_offset`` sets the model's, where it has one."""
+        if self.optimizer is None:
+            raise RuntimeError("call compile() before fit_from_iterator()")
+        if domain_offset is not None and hasattr(self.model,
+                                                 "set_domain_offset"):
+            self.model.set_domain_offset(int(domain_offset))
+        self._strategy = self._resolve_strategy()
+        self._step_key = threefry.PRNGKey(self.seed + 1)
+        for epoch in range(epochs):
+            t0 = time.time()
+            acc = None
+            seen = 0
+            for batch_np, yb, wb in iterator_factory(epoch):
+                seen += int(np.sum(wb > 0))  # on the host, before the copy
+                batch = self._device_batch(batch_np)
+                yb, wb = self._device_batch(
+                    {"y": np.asarray(yb, np.float32),
+                     "w": np.asarray(wb, np.float32)}).values()
+                stats = self.train_step(batch, yb, wb)
+                acc = stats if acc is None else {
+                    k: acc[k] + v for k, v in stats.items()}
+            if verbose and acc is not None:
+                print(f"Epoch {epoch + 1}/{epochs} - "
+                      f"{int(time.time() - t0)}s - loss: "
+                      f"{float(acc['loss']) / max(seen, 1):.4f}")
+        return self.history
 
     # ------------------------------------------------------------------
     def predict(self, x: dict, batch_size: int = 256) -> np.ndarray:
@@ -434,29 +498,91 @@ class Trainer:
         if self._routed():
             col = self.model.domain_col
             self.model.set_domain_offset(int(np.min(x[col])))
-        strategy = self._strategy = self._resolve_strategy()
+        self._strategy = self._resolve_strategy()
         data = self.layout.batch_from_dict(x)
-        n = len(next(iter(data.values())))
-        self.model.eval()
-        outs = []
         with torch.no_grad():
-            for start in range(0, n, batch_size):
-                stop = min(start + batch_size, n)
-                batch = self._device_batch(
-                    {k: self._pad(v[start:stop], batch_size)
-                     for k, v in data.items()})
-                outs.append(strategy.route(self.model(batch),
-                                           batch)[:stop - start])
+            outs = [scores[:rows] for _, scores, rows in
+                    self._eval_batches(data, batch_size)]
             scores = torch.cat(outs).cpu() if outs else torch.zeros(0)
         return scores.numpy().astype("float64")
+
+    def _eval_batches(self, data: dict, batch_size: int):
+        """Yield ``(batch, scores, real rows)`` for each batch of
+        ``batch_size`` rows of the typed ``data`` (the last padded): the
+        batch on the device and its routed eval-mode scores.  The caller
+        holds ``torch.no_grad()``."""
+        strategy = self.strategy
+        n = len(next(iter(data.values())))
+        self.model.eval()
+        for start in range(0, n, batch_size):
+            stop = min(start + batch_size, n)
+            batch = self._device_batch(
+                {k: self._pad(v[start:stop], batch_size)
+                 for k, v in data.items()})
+            yield batch, strategy.route(self.model(batch), batch), \
+                stop - start
 
     def evaluate(self, x: dict, y, batch_size: int = 256) -> dict:
         pred = self.predict(x, batch_size)
         yy = np.asarray(y).reshape(-1)
         return {name: fn(yy, pred) for name, fn in self.metric_fns.items()}
 
-    def evaluate_domains(self, *args, **kwargs):
-        raise NotImplementedError(
-            "evaluate_domains (on-device per-domain AUC) is ROADMAP queue 1 "
-            "item 'parallel/ → torch.distributed' (distributed rank AUC); "
-            "use metrics.per_domain_auc on predict()'s scores")
+    def _eval_collect(self, x: dict, y, batch_size: int, domain_col=None):
+        """Eval-mode scores, labels, pad weights and (with ``domain_col``)
+        domain ids of ``x`` in batches of ``batch_size``, each stacked
+        ``[steps, B]`` on the device (trainer.py:764-822 on one
+        process)."""
+        labels = np.asarray(y, dtype=np.float32).reshape(-1)
+        didx = (self.layout.sparse_index(domain_col)
+                if domain_col is not None else None)
+        preds, ys, ws, doms = [], [], [], []
+        with torch.no_grad():
+            for i, (batch, scores, rows) in enumerate(self._eval_batches(
+                    self.layout.batch_from_dict(x), batch_size)):
+                wb = np.zeros(batch_size, np.float32)
+                wb[:rows] = 1.0
+                yb, wb = self._device_batch(
+                    {"y": self._pad(labels[i * batch_size:
+                                           i * batch_size + rows],
+                                    batch_size), "w": wb}).values()
+                preds.append(scores)
+                ys.append(yb)
+                ws.append(wb)
+                if didx is not None:
+                    doms.append(batch["sparse"][:, didx])
+        return (torch.stack(preds), torch.stack(ys), torch.stack(ws),
+                torch.stack(doms) if doms else None)
+
+    def evaluate_domains(self, x: dict, y, domain_col: str | None = None,
+                         batch_size: int = 256):
+        """Overall metrics and the AUC of each domain value, the reference
+        protocol (main.py:356-374: overall AUC, then the AUC of each value
+        min..max of the split), on one device (trainer.py:824-905 without
+        a mesh): scores, labels, weights and domain ids stay on the device
+        until each AUC (:func:`metrics.auc_torch`) and the weighted BCE
+        are scalars.  A domain value without both classes is left out.
+        Returns ``(metrics, {domain value: auc})``, the second empty when
+        ``domain_col`` is None."""
+        scores, ys, ws, doms = self._eval_collect(x, y, batch_size,
+                                                  domain_col)
+        s, yy, w = scores.reshape(-1), ys.reshape(-1), ws.reshape(-1)
+        out: dict[str, float] = {}
+        for name, fn in self.metric_fns.items():
+            if name == "auc":
+                out[name] = float(metrics_lib.auc_torch(yy, s, w))
+            elif name == "binary_crossentropy":
+                out[name] = float(torch.sum(w * losses.bce_elementwise(s, yy))
+                                  / torch.clamp(torch.sum(w), min=1.0))
+            else:  # the uncommon metrics on the host
+                keep = (w > 0).cpu().numpy()
+                out[name] = fn(yy.cpu().numpy()[keep],
+                               s.cpu().numpy().astype("float64")[keep])
+        domain_aucs: dict[int, float] = {}
+        if doms is not None and len(np.asarray(x[domain_col])):
+            d = doms.reshape(-1)
+            for v in range(int(np.min(x[domain_col])),
+                           int(np.max(x[domain_col])) + 1):
+                a = float(metrics_lib.auc_torch(yy, s, w * (d == v)))
+                if np.isfinite(a):  # an absent domain value: 0/0
+                    domain_aucs[v] = a
+        return out, domain_aucs

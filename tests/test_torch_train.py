@@ -285,21 +285,12 @@ def test_early_stopping_and_history_match_jax_package():
     assert stops[0] == stops[1] and stops[0][0] == 3
 
 
-@pytest.mark.parametrize("what", ["bank_update", "optimizer", "mesh",
-                                  "iterator", "evaluate_domains"])
+@pytest.mark.parametrize("what", ["bank_update", "mesh"])
 def test_unported_options_raise(what):
     jm, params, tm = _models("QK")
-    x, y = _data()
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         if what == "mesh":
             TorchTrainer(tm, mesh=object(), device="cpu")
         tr = TorchTrainer(tm, device="cpu")
         if what == "bank_update":
             tr.compile(bank_update="lazy_stale")
-        if what == "optimizer":
-            tr.compile(optimizer="sgd")
-        tr.compile()
-        if what == "iterator":
-            tr.fit_from_iterator(lambda epoch: [])
-        if what == "evaluate_domains":
-            tr.evaluate_domains(x, y, "domain")
