@@ -6362,6 +6362,507 @@ def pipeline_phase(dev, card):
           flush=True)
     return paths
 
+# phase 22: the mesh (parallel/, a rank a process).  The arms: (name,
+# bank_update, shard_embeddings, embedding_exchange, and the launches a
+# step of K4 gather, K2 scatter, K3 eqgemm on each rank: the sharded banks
+# read by the exchange, whose owners answer with K4, and the routed commit
+# or the owners' update with K4 and K2; the replicated dense bank's rows
+# read with K4)
+PAR_ARMS = {"lazy_alltoall": ("lazy", True, "alltoall", (2, 1, 0)),
+            "fused_eq_xla": ("fused_eq", True, "xla", (2, 1, 0)),
+            "dense_replicated": ("dense", False, "xla", (1, 0, 0))}
+PAR_STEPS = 3
+# the exchanges' capacity factor (the JAX package's default).  A rank's
+# rows for one owner may reach ``capacity_factor * ceil(N / n)``; past it
+# a row is read as zeros and its update dropped (counted).  The bank's
+# owners hold contiguous quarters of its rows, and at 4 ranks the last
+# quarter holds 6 of AliCCP's 10 large fields: on uniform ids a rank
+# sends it 2.52 times its share, so factor 2 drops rows there.  Each
+# group checks the overflow at PAR_CAPACITY against the ownership rule's
+# count on the host, and trains its arms at the group's factor, where
+# nothing is dropped
+PAR_CAPACITY = 2.0
+PAR_EVAL_ROWS = 4 * BATCH
+PAR_AUC_TOL = 1e-9
+# a rank's state against the one-card run after PAR_STEPS steps: the ranks
+# sum their gradients in another order, and where an entry's gradient is
+# near 0 Adam's normalised step turns that round-off into a step of the
+# other sign.  So an entry may leave PARAM_TOL, but at most PAR_FLIP_SHARE
+# of a tensor's entries, and none by more than two runs' largest Adam
+# moves (lr (1 - b1) / sqrt(1 - b2) = sqrt(10) lr a step, the bound of the
+# rmsprop arm of phase 21)
+PAR_FLIP_SHARE = 1e-2
+PAR_STEP_BOUND = 2 * PAR_STEPS * TRAIN_LR * 10 ** 0.5
+# (backend, ranks, arms, extras): ranks of one card over gloo, asked for
+# explicitly; one rank over NCCL
+PAR_GROUPS = (("nccl", 1, ("lazy_alltoall",), (), PAR_CAPACITY),
+              ("gloo", 2, tuple(PAR_ARMS), ("masks",), PAR_CAPACITY),
+              ("gloo", 4, tuple(PAR_ARMS), ("eval",), 3.0))
+PAR_CLI_ARGV = ["--data_name", "synthetic", "--synthetic_rows", "40960",
+                "--embedding_dim", "8", "--att_head_num", "2", "--mesh",
+                "all", "--shard_embeddings", "True", "--bank_update", "lazy",
+                "--embedding_exchange", "alltoall"]
+
+
+def _free_port() -> int:
+    import socket
+    s = socket.socket()
+    s.bind(("127.0.0.1", 0))
+    port = s.getsockname()[1]
+    s.close()
+    return port
+
+
+def parallel_trainer(dev, arm, mesh=None, capacity=PAR_CAPACITY):
+    """The AliCCP sota model of ``training_model`` and its Trainer in the
+    arm's mode, on ``mesh`` (None: one card), its exchanges at the
+    capacity factor ``capacity``."""
+    from satrans_torch.data import aliccp
+    from satrans_torch.features import FeatureLayout
+    from satrans_torch.models import SATrans
+    from satrans_torch.train import Trainer
+    mode, shard, exchange, _ = PAR_ARMS[arm]
+    model = SATrans(FeatureLayout(aliccp.sota_columns(32)), ["301"], [3],
+                    domain_att_layer_num=LAYERS, att_head_num=4,
+                    meta_mode="QK", meta_dnn_hidden_units=UNITS2[1:],
+                    dropout_rate=DROP_RATE, seed=SEED, device=dev)
+    trainer = Trainer(model, mesh=mesh, shard_embeddings=shard and bool(mesh),
+                      embedding_exchange=exchange if mesh else "xla",
+                      exchange_capacity_factor=capacity
+                      if exchange == "alltoall" else None,
+                      seed=SEED, device=dev)
+    trainer.compile(learning_rate=TRAIN_LR, bank_update=mode,
+                    lazy_capacity_factor=capacity)
+    return trainer
+
+
+def parallel_data(rows):
+    from satrans_torch.data import aliccp
+    rng = np.random.default_rng(SEED + 22)
+    x = {name: rng.integers(1, aliccp.DATA_MAX[name] + 1, rows)
+         for name in aliccp.SPARSE_FEATURES}
+    # labels that follow the scenario, so the AUCs are not all near 0.5
+    y = (rng.random(rows) < 0.2 * x["301"]).astype(np.float32)
+    return x, y
+
+
+def rank_state_errors(trainer, ref) -> dict:
+    """This rank's parameters, buffers and bank state against the one-card
+    trainer ``ref``'s (its rows of the bank and the bank's state): the
+    largest difference of each group, checked against PARAM_TOL."""
+    from satrans_torch.parallel.sharding import shard_of
+    emb = trainer.model.emb
+    shard = getattr(emb, "shard", None)
+
+    def mine(want, rp):
+        return shard_of(want, shard, rp) if shard is not None else want
+
+    pairs = [(k, v, mine(ref.model.state_dict()[k], emb.rp)
+              if k == "emb.bank" else ref.model.state_dict()[k])
+             for k, v in trainer.model.state_dict().items()]
+    names = {id(p): n for n, p in trainer.model.named_parameters()}
+    rnames = dict(ref.model.named_parameters())
+    for p, st in trainer.optimizer.state.items():
+        for k, v in st.items():
+            if v.dim():
+                want = ref.optimizer.state[rnames[names[id(p)]]][k]
+                pairs.append((f"adam.{names[id(p)]}.{k}", v, mine(want, emb.rp)
+                              if names[id(p)] == "emb.bank" else want))
+    if trainer._lazy is not None:
+        for k in ("mu", "nu", "last"):
+            pairs.append((f"lazy.{k}", trainer._lazy[k],
+                          mine(ref._lazy[k], 1)))
+    worst, share = {}, 0.0
+    for k, got, want in pairs:
+        group = k.split(".")[0]
+        if not got.numel():
+            continue
+        if got.dtype.is_floating_point:
+            bad = int((~torch.isclose(got, want, **PARAM_TOL)).sum())
+            err = (got - want).abs().max().item()
+            check(bad <= PAR_FLIP_SHARE * got.numel() and
+                  err <= PAR_STEP_BOUND, f"rank state {k}: {bad} of "
+                  f"{got.numel()} entries outside {PARAM_TOL} of the one-card"
+                  f" run (at most {PAR_FLIP_SHARE} of them), max_abs_err "
+                  f"{err:.3e} (at most {PAR_STEP_BOUND:.3e})")
+            share = max(share, bad / got.numel())
+        else:
+            err = float((got != want).sum().item())
+            check(err == 0, f"rank state {k}: {err:.0f} entries differ")
+        worst[group] = max(worst.get(group, 0.0), err)
+    worst["share_outside_tol"] = share
+    return worst
+
+
+def _timed_collectives(mesh):
+    """Wrap ``mesh``'s collectives with host timers (the stream drained
+    before and after each): returns the list the milliseconds go to."""
+    spent = []
+    for name in ("all_reduce", "all_gather", "all_to_all", "broadcast"):
+        real = getattr(mesh, name)
+
+        def timed(*a, real=real, **kw):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = real(*a, **kw)
+            torch.cuda.synchronize()
+            spent.append(1e3 * (time.perf_counter() - t0))
+            return out
+
+        setattr(mesh, name, timed)
+    return spent
+
+
+def parallel_overflow(dev, mesh, trainer, x, y) -> dict:
+    """The two exchanges (the lookup's and the routed commit's) of this
+    rank's rows of the first batch at PAR_CAPACITY: each one's overflow
+    against the ownership rule's count on the host (the distinct rows an
+    owner gets from this rank past ``capacity_factor * ceil(N / n)``)."""
+    from satrans_torch import embeddings
+    from satrans_torch.parallel import bank_sharded, embedding_sharded
+    emb = trainer.model.emb
+    shard = emb.shard
+    lo, hi = trainer._rank_rows(BATCH)
+    batch, _, _ = staged_batch(trainer, {k: v[lo:hi] for k, v in x.items()},
+                               y[lo:hi], hi - lo)
+    flat = embeddings.bank_gather_plan(trainer.layout, batch,
+                                       emb.rp).to(dev).contiguous()
+    _, ov = embedding_sharded.alltoall_lookup(emb.physical(), flat, mesh,
+                                              PAR_CAPACITY)
+    _, _, routed = bank_sharded.route_to_owners(
+        flat, torch.zeros(flat.shape[0], emb.physical().shape[1],
+                          device=dev), mesh, shard.rows_per, PAR_CAPACITY)
+    ids = np.unique(np.clip(flat.cpu().numpy(), 0, shard.total - 1))
+    per_owner = np.bincount(ids // shard.rows_per, minlength=mesh.world)
+    cap = min(len(flat), int(PAR_CAPACITY * -(-len(flat) // mesh.world)))
+    want = int(np.maximum(per_owner - cap, 0).sum())
+    got = ov.cpu().tolist()
+    check(got[mesh.rank] == int(routed) == want,
+          f"rank {mesh.rank}: overflow at factor {PAR_CAPACITY}: lookup "
+          f"{got}, routed commit {int(routed)}, the rule's count {want}")
+    return {"overflow": got, "per_owner": per_owner.tolist(),
+            "capacity": cap}
+
+
+def parallel_arm(dev, mesh, arm, x, y, capacity) -> dict:
+    """One arm on this rank: PAR_STEPS steps of ``fit`` over the global
+    batches (this rank's rows) at the exchanges' factor ``capacity``, its
+    launches, its overflows, its state against the one-card run of the
+    same mode, seed and rows, then a staged step's time, device busy time
+    and time in the collectives."""
+    from satrans_torch.ops import profiling
+    per_step = PAR_ARMS[arm][3]
+    trainer = parallel_trainer(dev, arm, mesh, capacity)
+    torch.cuda.synchronize()
+    zero_counts()
+    t0 = time.perf_counter()
+    hist = trainer.fit(x, y, batch_size=BATCH, epochs=1, verbose=0)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launched = path_counts()
+    want = dict(zip(K1_NAMES + ROW_NAMES, (
+        *(LAYERS * PAR_STEPS * c for c in K1_PAIR["stash"]),
+        *(c * PAR_STEPS for c in per_step), 0)))
+    check(launched == want, f"{arm}, rank {mesh.rank} of {mesh.world}: "
+          f"{PAR_STEPS} steps launched {launched}, want {want}")
+    overflow = {k: hist.history[k][0] for k in ("bank_overflow",
+                                                "exchange_overflow")
+                if k in hist.history}
+    check(all(v == 0 for v in overflow.values()),
+          f"{arm}: rows past capacity {capacity}: {overflow}")
+    out = {"launches": launched, "overflow": overflow, "fit_s": wall,
+           "loss": hist.history["loss"][0]}
+    if PAR_ARMS[arm][2] == "alltoall":
+        out["at_default_factor"] = parallel_overflow(dev, mesh, trainer, x, y)
+    ref = parallel_trainer(dev, arm)
+    ref.fit(x, y, batch_size=BATCH, epochs=1, verbose=0)
+    out["max_abs_err"] = rank_state_errors(trainer, ref)
+    del ref
+    gc.collect()
+    torch.cuda.empty_cache()
+    lo, hi = trainer._rank_rows(BATCH)
+    batch, yb, wb = staged_batch(trainer, {k: v[lo:hi] for k, v in
+                                           x.items()}, y[lo:hi], hi - lo)
+    out["step_ms"] = time_ms(lambda: trainer.train_step(batch, yb, wb),
+                             iters=3, warmup=1)
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        trainer.train_step(batch, yb, wb)
+        torch.cuda.synchronize()
+    ops = profiling.device_ops(prof)
+    out["busy_ms"] = sum(ms for _, ms, _ in ops) if ops else None
+    out["top"] = [(name[:48], round(ms, 3), n) for name, ms, n in ops[:6]]
+    spent = _timed_collectives(mesh)
+    trainer.train_step(batch, yb, wb)
+    torch.cuda.synchronize()
+    out["exchange_ms"] = sum(spent)
+    out["collectives"] = len(spent)
+    for name in ("all_reduce", "all_gather", "all_to_all", "broadcast"):
+        delattr(mesh, name)  # the class's own methods again
+    return out, trainer
+
+
+def parallel_eval(dev, mesh, trainer, tmp) -> dict:
+    """``evaluate_domains`` of PAR_EVAL_ROWS on the ranks (each its
+    ``[r::n]`` shard) and ``predict``, then a checkpoint written under the
+    mesh and restored on one card (rank 0): its state bit for bit, its
+    ``evaluate_domains`` within PAR_AUC_TOL and its scores."""
+    from satrans_torch.parallel.sharding import gather_bank
+    from satrans_torch.train import checkpoint
+    ev, ev_y = parallel_data(PAR_EVAL_ROWS)
+    r, n = mesh.rank, mesh.world
+    torch.cuda.synchronize()
+    zero_counts()
+    t0 = time.perf_counter()
+    res, dom = trainer.evaluate_domains(
+        {k: v[r::n] for k, v in ev.items()}, ev_y[r::n], "301",
+        batch_size=PAR_EVAL_ROWS)
+    wall = time.perf_counter() - t0
+    launched = path_counts()
+    pred = trainer.predict(ev, batch_size=PAR_EVAL_ROWS)
+    path = os.path.join(tmp, "mesh.ckpt")
+    checkpoint.save(path, trainer)
+    emb = trainer.model.emb
+    whole = {k: v.detach().clone() for k, v in
+             trainer.model.state_dict().items()}
+    whole["emb.bank"] = gather_bank(whole["emb.bank"], emb.shard, emb.rp)
+    lazy = {k: gather_bank(trainer._lazy[k], emb.shard, emb.rp)
+            for k in ("mu", "nu", "last")}
+    out = {"eval_ms": 1e3 * wall, "auc": res["auc"], "domains": dom,
+           "launches": launched}
+    if r == 0:
+        one = parallel_trainer(dev, "lazy_alltoall")
+        checkpoint.restore(path, one)
+        same = all(torch.equal(v, one.model.state_dict()[k])
+                   for k, v in whole.items()) and all(
+            torch.equal(v, one._lazy[k]) for k, v in lazy.items()) and \
+            one._lazy["count"] == trainer._lazy["count"]
+        check(same, "the checkpoint written under the mesh restores on one "
+                    "card with another state")
+        res1, dom1 = one.evaluate_domains(ev, ev_y, "301", batch_size=BATCH)
+        errs = [abs(res["auc"] - res1["auc"])] + [
+            abs(dom[v] - a) for v, a in dom1.items()]
+        check(sorted(dom) == sorted(dom1) and max(errs) <= PAR_AUC_TOL,
+              f"evaluate_domains on {n} ranks: {res['auc']}, {dom}; on one "
+              f"card {res1['auc']}, {dom1}")
+        pred1 = one.predict(ev, batch_size=BATCH)
+        out.update(auc_err=max(errs), score_err=float(
+            np.abs(pred - pred1).max()), checkpoint_bits_equal=same,
+            checkpoint_mib=os.path.getsize(path) / 2 ** 20)
+        del one
+    mesh.barrier()
+    return out
+
+
+def parallel_masks(dev, mesh) -> dict:
+    """The seeds and tiles of the K1 launches of one training step on this
+    rank's rows, all-gathered; rank 0 also takes one step of the one-card
+    run with the same key and compares the masks of both launches' seeds
+    and tiles (``ops/prng.dropout_masks``, the kernels' rule) bit for
+    bit."""
+    from satrans_torch.ops import meta_block, prng, threefry
+    x, y = parallel_data(BATCH)
+    calls = []
+    real = meta_block.fused_meta_layer
+
+    def record(xx, *a, **kw):
+        calls.append((int(kw["seed"]), int(kw["block_b"]), xx.shape[0]))
+        return real(xx, *a, **kw)
+
+    meta_block.fused_meta_layer = record
+    key = threefry.PRNGKey(SEED + 5)
+    trainer = parallel_trainer(dev, "dense_replicated", mesh)
+    lo, hi = trainer._rank_rows(BATCH)
+    batch, yb, wb = staged_batch(trainer, {k: v[lo:hi] for k, v in
+                                           x.items()}, y[lo:hi], hi - lo)
+    trainer.train_step(batch, yb, wb, key)
+    mine = torch.tensor(calls, dtype=torch.int64, device=dev)
+    every = mesh.all_gather(mine.view(1, *mine.shape)).cpu().tolist()
+    del trainer
+    out = {"launch_seeds": every}
+    if mesh.rank == 0:
+        calls.clear()
+        one = parallel_trainer(dev, "dense_replicated")
+        batch, yb, wb = staged_batch(one, x, y, BATCH)
+        one.train_step(batch, yb, wb, key)
+        compared = 0
+        F = len(one.layout.sparse)
+        for li, (seed, blk, rows) in enumerate(calls):
+            want = prng.dropout_masks(seed, rows, F, 32, 4, blk, DROP_RATE,
+                                      True, True, dev)
+            parts = [prng.dropout_masks(rank[li][0], rank[li][2], F, 32, 4,
+                                        rank[li][1], DROP_RATE, True, True,
+                                        dev) for rank in every]
+            for j, w in enumerate(want):
+                if w is None:
+                    continue
+                got = torch.cat([p[j] for p in parts])
+                check(torch.equal(got, w), f"layer {li}: the {mesh.world} "
+                      f"ranks' K1 masks differ from one card's (mask {j})")
+                compared += w.numel()
+        out.update(compared=compared, one_card=calls[:])
+        del one
+    meta_block.fused_meta_layer = real
+    mesh.barrier()
+    return out
+
+
+def parallel_rank(rank, world, port, backend, arms, extras, capacity,
+                  out_dir):
+    """One rank of a phase-22 group (``torch.multiprocessing`` spawn):
+    each arm of ``arms``, then the extras; the results as JSON."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    from satrans_torch.parallel import distributed, make_mesh
+    distributed.initialize(f"127.0.0.1:{port}", world, rank, backend=backend,
+                           timeout_s=300)
+    mesh = make_mesh("cuda")
+    dev = mesh.device
+    x, y = parallel_data(PAR_STEPS * BATCH)
+    res = {"rank": rank, "device": str(dev), "arms": {}}
+    for arm in arms:
+        res["arms"][arm], trainer = parallel_arm(dev, mesh, arm, x, y,
+                                                 capacity)
+        if arm == "lazy_alltoall" and "eval" in extras:
+            res["eval"] = parallel_eval(dev, mesh, trainer, out_dir)
+        del trainer
+        gc.collect()
+        torch.cuda.empty_cache()
+    if "masks" in extras:
+        res["masks"] = parallel_masks(dev, mesh)
+    with open(os.path.join(out_dir, f"{backend}{world}_r{rank}.json"),
+              "w") as f:
+        json.dump(res, f)
+    distributed.shutdown()
+
+
+def parallel_cli(card) -> dict:
+    """``cli.main`` on two ranks sharing the card over gloo
+    (``SATRANS_DIST_BACKEND=gloo``), each a process: both print the same
+    AUC lines.  Returns the launches of rank 0's run."""
+    import tempfile
+    port = _free_port()
+    env = dict(os.environ, SATRANS_DIST_BACKEND="gloo",
+               PYTHONPATH=os.path.dirname(os.path.abspath(__file__)))
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        procs = [subprocess.Popen(
+            [sys.executable, "-m", "satrans_torch.cli.main", *PAR_CLI_ARGV,
+             "--coordinator_address", f"127.0.0.1:{port}",
+             "--num_processes", "2", "--process_id", str(r),
+             "--results_dir", os.path.join(tmp, f"cli{r}"),
+             "--checkpoint_dir", os.path.join(tmp, f"cli{r}", "ck")],
+            env=env, text=True, stdout=subprocess.PIPE,
+            stderr=subprocess.STDOUT) for r in range(2)]
+        outs = []
+        for p in procs:
+            try:
+                outs.append(p.communicate(timeout=300)[0])
+            except subprocess.TimeoutExpired:
+                for q in procs:
+                    q.kill()
+                raise
+    wall = time.perf_counter() - t0
+    for r, (p, out) in enumerate(zip(procs, outs)):
+        check(p.returncode == 0, f"the CLI's rank {r} failed:\n{out[-4000:]}")
+    lines = [[ln for ln in out.splitlines() if "AUC" in ln] for out in outs]
+    check(bool(lines[0]) and lines[0] == lines[1],
+          f"the CLI's ranks print other AUC lines: {lines}")
+    print(f"phase 22 CLI [{card}]: 2 ranks over gloo on one card, "
+          f"{' '.join(PAR_CLI_ARGV)}: {wall:.2f}s, both ranks print "
+          f"{lines[0]}", flush=True)
+    return {"lines": lines[0], "s": wall}
+
+
+def parallel_phase(dev, card):
+    """Phase 22: the port on the mesh, a rank a process.  One rank over
+    NCCL, and 2 and 4 ranks sharing the card over gloo (asked for), each
+    arm PAR_STEPS steps of the AliCCP sota model at a global batch of
+    BATCH against the one-card run; ``evaluate_domains`` on 4 ranks, a
+    checkpoint from 4 ranks onto one card, the 2 ranks' dropout masks, the
+    CLI on 2 ranks, and NCCL across cards where there are two.  Returns
+    the launches by path (each arm's, summed over its ranks)."""
+    import tempfile
+    import torch.multiprocessing as mp
+    t0 = time.perf_counter()
+    groups = list(PAR_GROUPS)
+    cards = torch.cuda.device_count()
+    if cards >= 2:
+        groups.append(("nccl", 2, ("lazy_alltoall",), (), PAR_CAPACITY))
+    else:
+        print(f"phase 22 [{card}]: {cards} card: NCCL across cards not run",
+              flush=True)
+    paths = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        for backend, world, arms, extras, capacity in groups:
+            g0 = time.perf_counter()
+            mp.spawn(parallel_rank, args=(world, _free_port(), backend, arms,
+                                          extras, capacity, tmp),
+                     nprocs=world)
+            ranks = []
+            for r in range(world):
+                with open(os.path.join(tmp, f"{backend}{world}_r{r}.json")) \
+                        as f:
+                    ranks.append(json.load(f))
+            for arm in arms:
+                per = [rk["arms"][arm] for rk in ranks]
+                paths[f"parallel_{backend}{world}_{arm}"] = {
+                    k: sum(p["launches"][k] for p in per)
+                    for k in per[0]["launches"]}
+                worst = {}
+                for p in per:
+                    for k, v in p["max_abs_err"].items():
+                        worst[k] = max(worst.get(k, 0.0), v)
+                if "at_default_factor" in per[0]:
+                    print(f"phase 22 {backend} x{world} {arm} [{card}]: "
+                          f"at factor {PAR_CAPACITY} (capacity "
+                          f"{per[0]['at_default_factor']['capacity']} rows "
+                          f"an owner) the ranks' distinct rows by owner "
+                          f"{[p['at_default_factor']['per_owner'] for p in per]}"
+                          f", overflow by rank "
+                          f"{per[0]['at_default_factor']['overflow']}, each "
+                          f"the ownership rule's count in both exchanges",
+                          flush=True)
+                print(f"phase 22 {backend} x{world} {arm} [{card}]: "
+                      f"{PAR_STEPS} steps of {BATCH} ({BATCH // world} a "
+                      f"rank) at factor {capacity}; launches a step a rank "
+                      f"{ {k: v // PAR_STEPS for k, v in per[0]['launches'].items() if v} }; "
+                      f"overflow {per[0]['overflow']}; state against one "
+                      f"card within {PARAM_TOL}, max_abs_err {worst}; "
+                      f"loss {per[0]['loss']:.6f}; a rank's staged step "
+                      f"(ranks sharing the card: not a scaling number) "
+                      f"{[round(p['step_ms'], 3) for p in per]} ms, device "
+                      f"busy {[p['busy_ms'] for p in per]} ms, in the "
+                      f"collectives {[round(p['exchange_ms'], 3) for p in per]}"
+                      f" ms ({per[0]['collectives']} calls, drained); rank "
+                      f"0's top device ops {per[0]['top']}", flush=True)
+            if "eval" in extras:
+                ev = ranks[0]["eval"]
+                paths[f"parallel_{backend}{world}_evaluate"] = {
+                    k: sum(rk["eval"]["launches"][k] for rk in ranks)
+                    for k in ev["launches"]}
+                print(f"phase 22 evaluate_domains x{world} [{card}]: "
+                      f"{PAR_EVAL_ROWS} examples, {ev['eval_ms']:.2f} ms, "
+                      f"AUC {ev['auc']:.6f}, by domain {ev['domains']}; one "
+                      f"card's within {ev['auc_err']:.3e}, scores within "
+                      f"{ev['score_err']:.3e}; checkpoint of "
+                      f"{ev['checkpoint_mib']:.1f} MiB from {world} ranks "
+                      f"restored on one card bit for bit", flush=True)
+            if "masks" in extras:
+                m = ranks[0]["masks"]
+                print(f"phase 22 masks x{world} [{card}]: K1 launches' "
+                      f"(seed, block_b, rows) by rank {m['launch_seeds']}, "
+                      f"one card {m['one_card']}; {m['compared']} mask "
+                      "entries bit for bit", flush=True)
+            print(f"phase 22 group {backend} x{world}: "
+                  f"{time.perf_counter() - g0:.2f}s", flush=True)
+    parallel_cli(card)
+    print(f"phase 22 [{card}]: {time.perf_counter() - t0:.2f}s", flush=True)
+    return paths
+
+
 def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -6416,6 +6917,7 @@ def main() -> int:
     many, many_paths = many_rows_phase(dev, card)
     legacy = legacy_phase(dev, card)
     pipeline = pipeline_phase(dev, card)
+    parallel = parallel_phase(dev, card)
 
     # launches, each path counted from 0 just before it: serving and the
     # evaluation run K1-fwd only; the dense recompute arm K1-fwd and
@@ -6560,10 +7062,12 @@ def main() -> int:
             k["sorted_body"] = tile[name + "_sorted"]
             k["many_rows"]["sorted_scratch_at_cap"] = many["scratch"]
     # phase 20: K2-K5's launches on the legacy and per-example paths;
-    # phase 21: K1's and K2-K4's on the pipeline's paths
+    # phase 21: K1's and K2-K4's on the pipeline's paths; phase 22: K1's
+    # and K2-K4's on the mesh's paths, summed over each arm's ranks
     for k in kernels:
         by_path = {p: n[k["name"]] for p, n in (*legacy.items(),
-                                                *pipeline.items())
+                                                *pipeline.items(),
+                                                *parallel.items())
                    if n.get(k["name"])}
         k["launches_by_path"].update(by_path)
         k["launches"] += sum(by_path.values())

@@ -26,9 +26,20 @@ it is not installed the port's HDF5 reader, for files the port's
 preprocessing wrote); ``synthetic`` needs no file and no package beyond
 numpy.
 
-Not ported, each raising ``NotImplementedError`` that names its ROADMAP
-item: ``--mesh`` other than ``none``, ``--coordinator_address``,
-``--shard_embeddings True``, ``--embedding_exchange alltoall`` and
+Distributed runs (JAX cli/main.py:62-90, :256-273, :341-398): one
+process a rank, each running this CLI with ``--coordinator_address
+host:port --num_processes n --process_id r`` and ``--mesh all`` (or
+``--mesh n``, the world size); ``--shard_embeddings True`` splits the
+bank's rows among the ranks, ``--embedding_exchange alltoall`` reads them
+by the two-round exchange.  The backend is ``nccl`` (one card a rank) or,
+with ``SATRANS_DIST_BACKEND=gloo``, ``gloo`` (ranks that share a card).
+With more than one process training goes through the host-sharded
+iterator and ``fit_from_iterator``, and the report through
+``evaluate_domains`` on each rank's ``[r::n]`` shard of the test set; the
+probes are skipped under ``--mesh``, and so is the ``dump`` of the test
+predictions with more than one process.
+
+Not ported, raising ``NotImplementedError`` that names its ROADMAP item:
 ``--bank_update lazy_stale``.  The JAX package's compilation cache has no
 counterpart.
 """
@@ -78,10 +89,10 @@ def parse_args(argv=None):
     parser.add_argument("--synthetic_rows", type=int, default=100_000)
     parser.add_argument("--results_dir", type=str, default=".")
     parser.add_argument("--checkpoint_dir", type=str, default="./checkpoints")
-    # distributed surface of the JAX package (not ported: see _unported)
+    # the distributed surface (one process a rank; the JAX package's flags)
     parser.add_argument("--mesh", type=str, default="none",
-                        help="'none' (single device), 'all' (every visible "
-                             "device), or an integer device count")
+                        help="'none' (one device), 'all' (every rank of "
+                             "the process group), or the world size")
     parser.add_argument("--shard_embeddings", type=boolean_string,
                         default=False,
                         help="row-shard the fused embedding banks over the "
@@ -309,19 +320,32 @@ def build_model(args, layout, domain_col_list, num_domains_list, flag, *,
 
 def _unported(args) -> None:
     """Raise for the JAX CLI's options the port does not have yet."""
-    parallel = "ROADMAP queue 1 item 'parallel/ → torch.distributed'"
-    if args.mesh != "none":
-        raise NotImplementedError(f"--mesh {args.mesh}: {parallel}")
-    if args.coordinator_address is not None:
-        raise NotImplementedError(f"--coordinator_address: {parallel}")
-    if args.shard_embeddings:
-        raise NotImplementedError(f"--shard_embeddings True: {parallel}")
-    if args.embedding_exchange != "xla":
-        raise NotImplementedError(
-            f"--embedding_exchange {args.embedding_exchange}: {parallel}")
     if args.bank_update == "lazy_stale":
         raise NotImplementedError(
             "--bank_update lazy_stale: ROADMAP queue 1 item 'lazy_stale'")
+
+
+def _mesh(args, device):
+    """Join the process group the coordinator flags name (the backend
+    from ``SATRANS_DIST_BACKEND``, else ``nccl`` on the card and ``gloo``
+    on the CPU) and return the mesh ``--mesh`` asks for, or None."""
+    from ..parallel import distributed, make_mesh
+    if args.coordinator_address is not None:
+        distributed.initialize(
+            args.coordinator_address, args.num_processes, args.process_id,
+            backend=os.environ.get("SATRANS_DIST_BACKEND") or None,
+            device=device)
+    if args.mesh == "none":
+        return None
+    mesh = make_mesh(device)
+    if args.mesh != "all" and int(args.mesh) != mesh.world:
+        raise ValueError(
+            f"--mesh {args.mesh} with {mesh.world} process(es): a rank is a "
+            "process, so --mesh is 'all' or the world size (start one "
+            "process a rank with --coordinator_address, --num_processes "
+            "and --process_id)")
+    print(f"mesh: {mesh.world} ranks, rank {mesh.rank} on {mesh.device}")
+    return mesh
 
 
 def main(argv=None, *, device="cuda"):
@@ -333,6 +357,9 @@ def main(argv=None, *, device="cuda"):
     args = parse_args(argv)
     _unported(args)
     device = resolve_device(device)
+    mesh = _mesh(args, device)
+    if mesh is not None:
+        device = mesh.device
     model_name = args.model_name
     flag = args.flag
     batch_size = args.batch_size or (4096 if model_name == "xDeepFM"
@@ -366,11 +393,16 @@ def main(argv=None, *, device="cuda"):
     train_x = {n: train[n] for n in feature_names}
     test_x = {n: test[n] for n in feature_names}
 
-    trainer = Trainer(model, seed=args.seed, device=device)
+    trainer = Trainer(model, mesh=mesh,
+                      shard_embeddings=args.shard_embeddings,
+                      embedding_exchange=args.embedding_exchange,
+                      exchange_capacity_factor=args.exchange_capacity_factor,
+                      seed=args.seed, device=device)
     trainer.compile(learning_rate=args.learning_rate,
                     loss="binary_crossentropy",
                     metrics=["binary_crossentropy", "auc"],
-                    bank_update=args.bank_update)
+                    bank_update=args.bank_update,
+                    lazy_capacity_factor=args.lazy_capacity_factor)
 
     fit_callbacks = []
     if "test" in flag:
@@ -385,12 +417,55 @@ def main(argv=None, *, device="cuda"):
                            trainer)
         print("restored checkpoint for finetuning")
 
-    trainer.fit(train_x, train[target], batch_size=batch_size,
-                epochs=args.epochs, verbose=1, scan_steps=args.scan_steps,
-                callbacks=fit_callbacks)
+    nprocs = mesh.world if mesh is not None else 1
+    pid = mesh.rank if mesh is not None else 0
+    if nprocs > 1:
+        # every rank feeds its shard of the global batch
+        from ..data.loader import Prefetcher, ShardedBatchIterator
+        it = ShardedBatchIterator(
+            trainer.layout.batch_from_dict(train_x),
+            np.asarray(train[target], np.float32), batch_size,
+            seed=args.seed, host_id=pid, num_hosts=nprocs)
+        trainer.fit_from_iterator(
+            lambda e: Prefetcher(it.epoch(e)), epochs=args.epochs,
+            domain_offset=int(np.min(train_x[domain_col_list[0]])),
+            verbose=1 if pid == 0 else 0)
+    else:
+        trainer.fit(train_x, train[target], batch_size=batch_size,
+                    epochs=args.epochs, verbose=1,
+                    scan_steps=args.scan_steps, callbacks=fit_callbacks)
 
     os.makedirs(args.results_dir, exist_ok=True)
     domain_col_show = domain_col_list[0]
+
+    if mesh is not None:
+        # the report from the distributed evaluation: the scores stay on
+        # each rank, the AUCs from the distributed rank AUC
+        if "showattn" in flag or "instattn" in flag:
+            print("attention probes need a single device - skipped "
+                  "under --mesh")
+        tx = ({k: v[pid::nprocs] for k, v in test_x.items()}
+              if nprocs > 1 else test_x)
+        ty = (np.asarray(test[target])[pid::nprocs]
+              if nprocs > 1 else test[target])
+        m, dom_aucs = trainer.evaluate_domains(
+            tx, ty, domain_col=domain_col_show, batch_size=test_batch_size)
+        test_auc = round(m["auc"], 4)
+        test_loss = m["binary_crossentropy"]
+        test_auc_list = [str(test_auc)]
+        print("test AUC", test_auc)
+        for i, domain_auc in dom_aucs.items():
+            print(f"Domain {i} test AUC", round(domain_auc, 4))
+            test_auc_list.append(str(round(domain_auc, 4)))
+        pred = None
+        if "dump" in flag:
+            if nprocs > 1:
+                print("dump: skipping testpred.pkl (each process holds "
+                      "only its shard of the test set)")
+            else:
+                pred = trainer.predict(test_x, test_batch_size)
+        return _write_results(args, domain_col, flag, test_auc,
+                              test_auc_list, test_loss, trainer, pred)
 
     if "showattn" in flag and hasattr(model, "domain_cols"):
         from ..train.attention_probe import predict_with_attention
@@ -434,23 +509,27 @@ def main(argv=None, *, device="cuda"):
 
 def _write_results(args, domain_col, flag, test_auc, test_auc_list,
                    test_loss, trainer, pred):
-    """Results-CSV row + optional dump (reference main.py:381-401)."""
+    """Results-CSV row + optional dump (reference main.py:381-401).  Under
+    a mesh the first rank alone writes the row and the predictions."""
     dt = datetime.now().strftime("%m-%d-%H-%M")
     print(dt)
     config = config_str(args, domain_col, flag)
-    os.makedirs(args.results_dir, exist_ok=True)
-    file_name = os.path.join(args.results_dir,
-                             f"{args.data_name}_results.csv")
-    with open(file_name, "a") as f:
-        f.write(f"{dt}-{config}," + ",".join(test_auc_list)
-                + f",{test_loss:.6f}\n")
+    first = trainer.mesh is None or trainer.mesh.rank == 0
+    if first:
+        os.makedirs(args.results_dir, exist_ok=True)
+        file_name = os.path.join(args.results_dir,
+                                 f"{args.data_name}_results.csv")
+        with open(file_name, "a") as f:
+            f.write(f"{dt}-{config}," + ",".join(test_auc_list)
+                    + f",{test_loss:.6f}\n")
 
     if "dump" in flag:
         from ..data import io as data_io
         from ..train import checkpoint
         path = os.path.join(args.checkpoint_dir, config)
         checkpoint.save(path, trainer)
-        data_io.dump_pkl(pred, path + "_testpred.pkl")  # main.py:401
+        if pred is not None and first:
+            data_io.dump_pkl(pred, path + "_testpred.pkl")  # main.py:401
         print(f"checkpoint saved to {path}")
 
     return test_auc

@@ -154,10 +154,37 @@ def lookup_rows(emb, ids: torch.Tensor) -> torch.Tensor:
         phys = emb.take(n).reshape(n, rp, emb.d)
         rows = phys[torch.arange(n, device=ids.device), lane.reshape(n)]
         return rows.reshape(*ids.shape, emb.d)
+    shard = getattr(emb, "shard", None)
+    if shard is not None:
+        return _sharded_lookup_rows(emb, shard, ids, lane)
     n_phys = emb.bank.shape[0] // rp
     p = physical_ids(ids, rp)
     p = torch.where(p < 0, p + n_phys, p)
     rows = emb.bank[p.clamp(0, n_phys - 1) * rp + lane]
+    if torch.is_grad_enabled() and emb.bank.requires_grad:
+        inside = ((p >= 0) & (p < n_phys)).unsqueeze(-1)
+        rows = torch.where(inside, rows, rows.detach())
+    return rows
+
+
+def _sharded_lookup_rows(emb, shard, ids, lane) -> torch.Tensor:
+    """:func:`lookup_rows` of a row-sharded bank (``parallel/sharding.py``):
+    the physical rows come through the exact exchange
+    (``parallel/embedding_sharded.alltoall_lookup`` at
+    ``capacity_factor=None``), which is differentiable in this rank's
+    rows."""
+    from .parallel.embedding_sharded import alltoall_lookup
+    rp, d = emb.rp, emb.bank.shape[1]
+    n_phys = shard.rows // rp
+    p = physical_ids(ids, rp)
+    p = torch.where(p < 0, p + n_phys, p)
+    phys = emb.bank.view(-1, rp * d)
+    rows, _ = alltoall_lookup(phys, p.clamp(0, n_phys - 1), shard.mesh,
+                              capacity_factor=None)
+    n = ids.numel()
+    rows = rows.reshape(n, rp, d)[torch.arange(n, device=ids.device),
+                                  lane.reshape(n)]
+    rows = rows.reshape(*ids.shape, d)
     if torch.is_grad_enabled() and emb.bank.requires_grad:
         inside = ((p >= 0) & (p < n_phys)).unsqueeze(-1)
         rows = torch.where(inside, rows, rows.detach())

@@ -120,6 +120,7 @@ from .. import embeddings
 from ..features import FeatureLayout
 from ..nn import attention, core, initializers as init, metanet
 from ..ops import dispatch, gate_block, meta_block, threefry, tiled_meta
+from ..parallel import rows
 from ..utils import make_generator, resolve_device
 
 
@@ -368,6 +369,8 @@ class SATrans(nn.Module):
         if return_scores:
             return self._scores_forward(x, dom, blk, batch, seeds, key)
         dropping = self.training and self.dropout_rate > 0.0
+        if dropping and rows.current() is not None:
+            blk, seeds = self._mesh_tiles(rows.current(), seeds)
         # the JAX package's XLA route (satrans.py:324-339, :372-380)
         if self.route == "xla" or not (self.metanet_kernel
                                        or self.simple_kernel) or (
@@ -406,6 +409,23 @@ class SATrans(nn.Module):
                         x, head_num=self.att_head_num, mode=self.meta_mode,
                         **drop))
         return self._head(x, batch)
+
+    def _mesh_tiles(self, cur, seeds):
+        """The dropout tile and layer seeds of this rank's rows of the
+        global batch: the global batch's tile, and each seed advanced by
+        the rank's first tile, since the kernels' mask of example ``b`` is
+        a function of ``seed + b // block_b``.  Where the rank's rows are
+        not whole tiles of the global batch, ``None``: the plain layer,
+        whose masks are this rank's rows of the global draw."""
+        blk = self.block_b(cur.total)
+        if blk is None or cur.local % blk or cur.start % blk:
+            return None, seeds
+        if self.tiled:
+            raise NotImplementedError(
+                "dropout on the tiled composite layer under a mesh is "
+                "ROADMAP queue 1 item 'The dispatch of the global batch "
+                "under a mesh'")
+        return blk, [int(s) + cur.start // blk for s in seeds]
 
     def _xla_layer(self, layer, x, tables, dom, key, residuals=None):
         """One layer on the JAX package's XLA route: the plain layer on

@@ -347,6 +347,10 @@ class StarTrans(_LegacyBase):
 
 
 class Starv2Trans(_LegacyBase):
+    # its aux loss reads per-domain means over the batch (the Trainer
+    # refuses it under a mesh of more than one rank)
+    batch_wide_aux = True
+
     def __init__(self, layout: FeatureLayout, *, num_query_bases: int = 3,
                  share_domain_dnn_across_layers: bool = False,
                  attn_batch_reg: float = 0.1, **kw):

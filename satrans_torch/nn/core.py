@@ -28,6 +28,7 @@ from torch import nn
 
 from . import initializers as init
 from ..ops import threefry
+from ..parallel import rows
 
 _ACTIVATIONS = {
     "relu": torch.relu,
@@ -173,7 +174,20 @@ def batch_norm_apply(x: torch.Tensor, state: dict, *, train: bool,
     its ``mean`` and ``var``; ``count`` rises by one all the same.  In
     eval mode the running statistics normalize and the state is
     returned as it is."""
-    if train:
+    if train and rows.current() is not None:
+        # under a mesh: the moments of the global batch, summed over the
+        # ranks (their gradients too), as the JAX mesh's are
+        w = (torch.ones(x.shape[0], dtype=x.dtype, device=x.device)
+             if batch_weight is None else batch_weight.to(x.dtype))[:, None]
+        tot = rows.all_reduce_sum(torch.cat(
+            [torch.sum(x * w, dim=0), torch.sum(w, dim=0)]))
+        n_w = tot[-1]
+        n = torch.clamp(n_w, min=1.0) if batch_weight is not None else \
+            float(rows.current().total)
+        mean = tot[:-1] / n
+        var = rows.all_reduce_sum(
+            torch.sum(torch.square(x - mean) * w, dim=0)) / n
+    elif train:
         if batch_weight is None:
             n = float(x.shape[0])
             mean = torch.mean(x, dim=0)
@@ -183,6 +197,7 @@ def batch_norm_apply(x: torch.Tensor, state: dict, *, train: bool,
             n = torch.clamp(torch.sum(w), min=1.0)
             mean = torch.sum(x * w, dim=0) / n
             var = torch.sum(torch.square(x - mean) * w, dim=0) / n
+    if train:
         with torch.no_grad():
             # torch tracks the unbiased variance in its running statistics
             if batch_weight is None:
@@ -192,7 +207,8 @@ def batch_norm_apply(x: torch.Tensor, state: dict, *, train: bool,
             new_mean = (1 - momentum) * state["mean"] + momentum * mean
             new_var = (1 - momentum) * state["var"] + momentum * unbiased
             if batch_weight is not None:
-                has = torch.sum(batch_weight.to(x.dtype)) > 0
+                has = (n_w if rows.current() is not None else
+                       torch.sum(batch_weight.to(x.dtype))) > 0
                 new_mean = torch.where(has, new_mean, state["mean"])
                 new_var = torch.where(has, new_var, state["var"])
             new_state = {"mean": new_mean.detach(), "var": new_var.detach(),

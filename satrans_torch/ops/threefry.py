@@ -102,9 +102,14 @@ def random_bits(key, shape, device="cpu") -> torch.Tensor:
     _threefry_random_bits_partitionable``) as an int64 tensor of uint32
     values on ``device``: element ``i`` (row-major) is the xor of the two
     words of the hash of the 64-bit counter ``i``, split into its high and
-    low 32 bits (``iota_2x32_shape``)."""
+    low 32 bits (``iota_2x32_shape``).  Inside a sharded train-mode
+    forward (``parallel/rows.py``) the counters are those of this rank's
+    rows of the global batch's shape."""
     n = math.prod(shape)
-    idx = torch.arange(n, dtype=torch.int64, device=device)
+    # under a mesh, this rank's rows of the global batch's draw
+    from ..parallel.rows import global_offset
+    idx = torch.arange(n, dtype=torch.int64, device=device) + \
+        global_offset(shape)
     b1, b2 = threefry2x32(*(int(k) for k in key), idx >> 32, idx & _M32)
     return (b1 ^ b2).reshape(tuple(shape))
 

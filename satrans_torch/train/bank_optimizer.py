@@ -178,18 +178,25 @@ def adam_rows(w, m, v, g, steps, lr, b1=ADAM_B1, b2=ADAM_B2,
     return w, m, v
 
 
-def sparse_bank_grads(model, strategy, batch, y, weight, key=None):
+def sparse_bank_grads(model, strategy, batch, y, weight, key=None, *,
+                      gather_fn=None, with_reg: bool = True):
     """Forward and backward of one step with the bank's gradient kept
     sparse, the model's dropout drawn from ``key``.  Every parameter but
     the bank gets its ``.grad``; the one train-mode forward is the step's
     only update of the model's state (its buffers).  Returns
     ``(flat_ids, g_rows, data_loss, reg, aux)``: the raw gather plan
     ``[N]``, the gradient of its physical rows ``[N, rp * d]``, and the
-    step's losses, where ``reg`` leaves out the bank's L2."""
+    step's losses, where ``reg`` leaves out the bank's L2.
+    ``gather_fn(flat_ids) -> rows`` replaces the row read (K4 from the
+    local bank): under a mesh, the exchange of a row-sharded bank.
+    ``with_reg=False`` leaves ``reg`` out of the differentiated total
+    (under a mesh every rank but the first, so that the ranks' summed
+    gradients hold it once)."""
     emb = model.emb
     flat_ids = embeddings.bank_gather_plan(model.layout, batch, emb.rp)
     flat_ids = flat_ids.to(emb.bank.device)
-    rows = gather.gather_rows((emb.physical(),), flat_ids)[0]
+    rows = (gather.gather_rows((emb.physical(),), flat_ids)[0]
+            if gather_fn is None else gather_fn(flat_ids))
     rows.requires_grad_(True)
     feed = embeddings.BankRowFeed(rows, emb)
     pred, aux = losses.forward_with_aux(model, batch, feed=feed, key=key)
@@ -197,7 +204,7 @@ def sparse_bank_grads(model, strategy, batch, y, weight, key=None):
     data_loss = strategy.loss(pred, y, batch, weight)
     reg = model.reg_loss(feed=feed)
     # the aux loss in the differentiated total (bank_optimizer.py:362-372)
-    (data_loss + reg + aux).backward()
+    (data_loss + aux + (reg if with_reg else 0.0)).backward()
     g_rows = rows.grad if rows.grad is not None else torch.zeros_like(rows)
     return flat_ids, g_rows, data_loss.detach(), reg.detach(), aux.detach()
 
@@ -305,3 +312,80 @@ def lazy_update(emb, state: dict, flat_ids, g_rows, *, lr: float, l2: float,
     state["_last_slots"].index_put_(
         (tgt,), torch.full_like(tgt, count_inc))
     state["count"] = count_inc
+
+
+def lazy_update_sharded(emb, state: dict, flat_ids, g_rows, *, lr: float,
+                        l2: float, mesh, capacity_factor=2.0):
+    """:func:`lazy_update` on a row-sharded bank (twin of
+    bank_optimizer.py:646-669): the rows go to their owners and are
+    committed there (``parallel/bank_sharded.lazy_routed_update``, K4 and
+    K2 on the shard).  Returns the rows dropped past capacity over all
+    ranks (a device scalar)."""
+    from ..parallel import bank_sharded
+    overflow = bank_sharded.lazy_routed_update(
+        emb.physical(), state["mu"], state["nu"], state["_last_slots"],
+        state["count"], flat_ids, g_rows, lr=lr, l2=l2, mesh=mesh,
+        capacity_factor=capacity_factor)
+    state["count"] += 1
+    return overflow
+
+
+def mesh_update(mode: str, optimizer, emb, lazy_state, flat_ids, g_rows, *,
+                lr: float, l2: float, mesh, eq_plan=None,
+                lazy_capacity_factor=2.0):
+    """The bank update of one step under a mesh, after the replicated
+    parameters' gradients are summed over the ranks.  ``flat_ids`` and
+    ``g_rows`` are this rank's.
+
+    On a row-sharded bank (``emb.shard``) the rows go to their owners:
+    ``lazy`` by :func:`lazy_update_sharded`; ``fused``, ``fused_eq`` and
+    ``dense`` by the exact exchange (``capacity_factor=None``), after which
+    each owner runs the single-card update on its shard with owner-local
+    ids (the sort combine: the equality combine needs the batch's
+    ``[B, F]`` plan).  On a replicated bank every rank gathers every
+    rank's rows in rank order and runs the single-card update with the
+    same kernels on the same inputs, so the replicas stay bit-identical.
+    ``dense`` keeps the bank's gradient to the exchanged rows and adds the
+    L2's ``2 l2 W`` on the rank's own rows: the dense Adam of the global
+    step, without an all-reduce of the whole bank's gradient.
+
+    Returns ``(bank_l2, overflow, fingerprint)``: the bank's L2 of this
+    rank to add to the reported reg loss (``fused``, ``fused_eq``,
+    ``dense``; None for ``lazy``), the lazy overflow (sharded ``lazy``,
+    else None) and, on a replicated bank, a float64 checksum of the rows
+    the step wrote, for the Trainer's check that the replicas agree."""
+    from ..parallel import bank_sharded
+    shard = getattr(emb, "shard", None)
+    if shard is not None and mode == "lazy":
+        return None, lazy_update_sharded(
+            emb, lazy_state, flat_ids, g_rows, lr=lr, l2=l2, mesh=mesh,
+            capacity_factor=lazy_capacity_factor), None
+    bank_l2 = None
+    if mode != "lazy":
+        flat = emb.bank.detach().view(-1)
+        bank_l2 = l2 * torch.dot(flat, flat)
+    if shard is not None:
+        ids, g, _ = bank_sharded.route_to_owners(
+            flat_ids, g_rows, mesh, shard.rows_per, None)
+        eq_plan = None
+    else:
+        ids, g = mesh.all_gather(flat_ids), mesh.all_gather(g_rows)
+    if mode in ("fused", "fused_eq"):
+        fused_update(optimizer, emb, ids, g, lr=lr, l2=l2,
+                     eq_plan=eq_plan if mode == "fused_eq" else None)
+    elif mode == "lazy":
+        lazy_update(emb, lazy_state, ids, g, lr=lr, l2=l2, eq_plan=eq_plan)
+    else:  # dense: the data gradient on the exchanged rows, the L2 on all
+        phys = emb.physical()
+        keep = (ids >= 0) & (ids < phys.shape[0])
+        grad = (2.0 * l2) * emb.bank.detach()
+        grad.view_as(phys).index_put_((ids[keep],), g[keep],
+                                      accumulate=True)
+        emb.bank.grad = grad
+        optimizer.step()
+    fingerprint = None
+    if shard is None:
+        phys = emb.physical()
+        fingerprint = phys.index_select(
+            0, ids.clamp(0, phys.shape[0] - 1)).sum(dtype=torch.float64)
+    return bank_l2, None, fingerprint

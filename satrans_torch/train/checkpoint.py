@@ -17,6 +17,12 @@ what the JAX package's checkpoint carries:
 * ``meta``: the fit-learned ``domain_id_offset``, or the no-offset
   sentinel ``-2**31`` for a model without one (SATrans has none).
 
+Under a mesh the first rank writes the file a single card writes: a
+row-sharded bank and its state are gathered from every rank first, and
+every rank waits at a barrier until the file is whole.  A restore under
+a mesh takes this rank's rows, so a checkpoint moves between a mesh and
+one card either way.
+
 The Trainer's step key for the dropout seeds is not saved: the JAX
 package's ``fit`` draws its step key anew at every call and its checkpoint
 holds none, and so does the port's.
@@ -37,6 +43,7 @@ import torch
 _NO_OFFSET = -(2 ** 31)  # sentinel: model has no fit-learned domain offset
 _MODES = ("dense", "fused", "fused_eq", "lazy")
 _LAZY_KEYS = ("mu", "nu", "last")
+_BANK = "emb.bank"
 
 
 def _optimizer_state(trainer) -> dict:
@@ -45,6 +52,52 @@ def _optimizer_state(trainer) -> dict:
     names = {id(p): n for n, p in trainer.model.named_parameters()}
     return {names[id(p)]: dict(st)
             for p, st in trainer.optimizer.state.items()}
+
+
+def _shard(trainer):
+    """The row-sharded bank's ``BankShard``, or None."""
+    return getattr(getattr(trainer.model, "emb", None), "shard", None)
+
+
+def _whole(trainer, payload: dict) -> dict:
+    """``payload`` with the row-sharded bank, its Adam moments and the
+    lazy ``mu``, ``nu`` and ``last`` gathered from every rank and cut to
+    the unpadded bank: the file a single card writes."""
+    from ..parallel.sharding import gather_bank
+    shard = _shard(trainer)
+    rp = trainer.model.emb.rp
+    params = dict(payload["params"])
+    params[_BANK] = gather_bank(params[_BANK], shard, rp)
+    state = payload["opt_state"]["state"]
+    if _BANK in state:
+        state[_BANK] = {k: gather_bank(v, shard, rp) if v.dim() else v
+                        for k, v in state[_BANK].items()}
+    lazy = payload["opt_state"].get("lazy")
+    if lazy is not None:
+        for k in _LAZY_KEYS:
+            lazy[k] = gather_bank(lazy[k], shard, rp)
+    payload["params"] = params
+    return payload
+
+
+def _place(trainer, payload: dict) -> dict:
+    """``payload`` (a single card's file) with this rank's rows of the
+    bank, of its Adam moments and of the lazy state."""
+    from ..parallel.sharding import shard_of
+    shard = _shard(trainer)
+    rp = trainer.model.emb.rp
+    params = dict(payload["params"])
+    params[_BANK] = shard_of(params[_BANK], shard, rp)
+    state = payload["opt_state"]["state"]
+    if _BANK in state:
+        state[_BANK] = {k: shard_of(v, shard, rp) if v.dim() else v
+                        for k, v in state[_BANK].items()}
+    lazy = payload["opt_state"].get("lazy")
+    if lazy is not None:
+        for k in _LAZY_KEYS:
+            lazy[k] = shard_of(lazy[k], shard, 1)
+    payload["params"] = params
+    return payload
 
 
 def save(path: str, trainer) -> None:
@@ -65,9 +118,15 @@ def save(path: str, trainer) -> None:
     payload = {"params": trainer.model.state_dict(), "opt_state": opt,
                "meta": {"domain_id_offset": _NO_OFFSET if offset is None
                         else int(offset)}}
-    tmp = f"{path}.{os.getpid()}.tmp"
-    torch.save(payload, tmp)
-    os.replace(tmp, path)
+    mesh = getattr(trainer, "mesh", None)
+    if _shard(trainer) is not None:
+        payload = _whole(trainer, payload)
+    if mesh is None or mesh.rank == 0:
+        tmp = f"{path}.{os.getpid()}.tmp"
+        torch.save(payload, tmp)
+        os.replace(tmp, path)
+    if mesh is not None:
+        mesh.barrier()  # the file is whole before any rank reads it
 
 
 def read(path: str, device) -> dict:
@@ -93,6 +152,8 @@ def restore(path: str, trainer) -> None:
     if trainer.optimizer is None:
         raise RuntimeError("call compile() before restoring a checkpoint")
     payload = read(path, trainer.device)
+    if _shard(trainer) is not None:
+        payload = _place(trainer, payload)
     opt = payload["opt_state"]
     saved_mode = _MODES[opt["bank_mode"]]
     if saved_mode != trainer._bank_mode:

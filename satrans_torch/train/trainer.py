@@ -58,10 +58,19 @@ reach the host once per epoch (and at a verbose print).
 trains on the batches of an iterator (``data/loader.py``), with ``fit``'s
 step keys.  ``evaluate_domains`` keeps scores, labels, weights and domain
 ids on the device until the AUCs (``metrics.auc_torch``) and the loss are
-scalars.  What the JAX Trainer also offers raises
-``NotImplementedError`` naming its ROADMAP item: a mesh and
-``lazy_stale``.  ``fit(scan_steps=k)``
-(the JAX package's program of k steps, trainer.py:629-658) runs each run
+scalars.  ``lazy_stale`` raises ``NotImplementedError`` naming its
+ROADMAP item.
+
+Under a mesh (``mesh=parallel.make_mesh()``, trainer.py:131-166,
+:263-360, :466-539, :745-905) this process is one rank: each step runs
+this rank's rows of the global batch, sums the replicated parameters'
+gradients and the statistics over the ranks (``_mesh_step``) and updates
+the bank with ``bank_optimizer.mesh_update`` (a row-sharded bank's rows
+on their owners); ``fit`` takes the same arrays on every rank,
+``fit_from_iterator`` and ``evaluate_domains`` this rank's shard, and
+``predict`` gives the whole vector on every rank.
+
+``fit(scan_steps=k)`` (the JAX package's program of k steps, trainer.py:629-658) runs each run
 of k full batches as k single steps one after another, with the JAX
 package's keys for such a run: the step key is split once and step ``j``
 takes the key ``split(sub, k)[j]``.  The statistics of the
@@ -72,6 +81,7 @@ changes no result.
 
 from __future__ import annotations
 
+import contextlib
 import os
 import time
 from typing import Sequence
@@ -83,6 +93,8 @@ from . import bank_optimizer, callbacks as cb, checkpoint as ckpt_lib, \
     losses, metrics as metrics_lib, optimizers
 from .. import native
 from ..ops import threefry
+from ..parallel import distributed as parallel_dist, rows as parallel_rows, \
+    sharding as parallel_sharding
 from ..utils import resolve_device
 
 _MODES = ("auto", "dense", "fused", "fused_eq", "lazy", "lazy_stale")
@@ -136,14 +148,43 @@ class DomainRouted:
 
 
 class Trainer:
-    def __init__(self, model, *, mesh=None, seed: int = 1024,
-                 scan_unroll: int = 1, device="cuda"):
-        if mesh is not None:
+    def __init__(self, model, *, mesh=None, shard_embeddings: bool = False,
+                 embedding_exchange: str = "xla",
+                 exchange_capacity_factor: float | None = None,
+                 seed: int = 1024, scan_unroll: int = 1, device="cuda"):
+        """``mesh`` (``parallel.make_mesh()``): train data-parallel, this
+        process one rank.  ``shard_embeddings``: split the bank's rows
+        among the ranks.  ``embedding_exchange``: how a row-sharded bank is
+        read in the sparse modes, ``'alltoall'`` (the two-round exchange at
+        ``exchange_capacity_factor``) or ``'xla'`` (the same exchange at
+        ``capacity_factor=None``, which never drops a row)."""
+        if embedding_exchange not in ("xla", "alltoall"):
+            raise ValueError(f"unknown embedding_exchange "
+                             f"{embedding_exchange!r}")
+        if embedding_exchange == "alltoall" and (mesh is None
+                                                 or not shard_embeddings):
+            raise ValueError("embedding_exchange='alltoall' needs a mesh "
+                             "and shard_embeddings=True")
+        if shard_embeddings and mesh is None:
+            raise ValueError("shard_embeddings=True needs a mesh")
+        if mesh is not None and mesh.world > 1 and \
+                getattr(model, "batch_wide_aux", False):
             raise NotImplementedError(
-                "a mesh is ROADMAP queue 1 item 'parallel/ → "
-                "torch.distributed'")
-        self.device = resolve_device(device)
+                f"{type(model).__name__} under a mesh of more than one rank "
+                "is ROADMAP queue 1 item 'The legacy Star-Trans models "
+                "under a mesh'")
+        self.mesh = mesh
+        self.shard_embeddings = bool(shard_embeddings)
+        self.embedding_exchange = embedding_exchange
+        self.exchange_capacity_factor = exchange_capacity_factor
+        self.lazy_capacity_factor = 2.0
+        self.device = mesh.device if mesh is not None else \
+            resolve_device(device)
         self.model = model.to(self.device)
+        if mesh is not None:
+            parallel_sharding.place(self.model, mesh,
+                                    shard_embeddings=shard_embeddings)
+        self._replica_drift = None
         self.layout = model.layout
         self.seed = int(seed)
         self.scan_unroll = int(scan_unroll)
@@ -159,15 +200,23 @@ class Trainer:
     # ------------------------------------------------------------------
     def compile(self, optimizer="adam", loss="binary_crossentropy",
                 metrics: Sequence[str] = ("binary_crossentropy", "auc"),
-                learning_rate: float = 0.001, bank_update: str = "auto"):
+                learning_rate: float = 0.001, bank_update: str = "auto",
+                lazy_capacity_factor: float | None = 2.0):
         """Keras-style compile (reference basemodel.py:540-552).
         ``optimizer``: ``'adam'``, ``'sgd'``, ``'adagrad'``, ``'rmsprop'``
         (optax's rules, trainer.py:233-247) or a callable ``params ->
-        torch.optim.Optimizer``; ``bank_update``: ``auto`` (``dense`` on
-        one device), ``dense``, or with Adam ``fused``, ``fused_eq`` or
-        ``lazy``."""
+        torch.optim.Optimizer``; ``bank_update``: ``auto`` (``dense``, or
+        ``fused_eq`` under ``embedding_exchange='alltoall'``), ``dense``,
+        or with Adam ``fused``, ``fused_eq`` or ``lazy``.
+        ``lazy_capacity_factor`` bounds the routed lazy commit's exchange
+        on a row-sharded bank (None: never drops)."""
         if bank_update not in _MODES:
             raise ValueError(f"unknown bank_update {bank_update!r}")
+        self.lazy_capacity_factor = lazy_capacity_factor
+        if bank_update == "lazy_stale" and self.mesh is not None:
+            raise ValueError("bank_update='lazy_stale' is single-device "
+                             "only (the sharded commit is already "
+                             "owner-routed off the critical path)")
         if bank_update == "lazy_stale":
             raise NotImplementedError(
                 "bank_update='lazy_stale' is ROADMAP queue 1 item "
@@ -199,7 +248,7 @@ class Trainer:
         self._lr = lr
         self._eq_plan = (bank_optimizer.make_eq_plan(self.model)
                          if self._bank_mode in ("fused_eq", "lazy")
-                         else None)
+                         and not self.shard_embeddings else None)
         self._lazy = (bank_optimizer.lazy_init(self.model.emb)
                       if self._bank_mode == "lazy" else None)
         self.metric_fns = {m: metrics_lib.get_metric(m) for m in metrics}
@@ -231,19 +280,43 @@ class Trainer:
         return self._strategy
 
     def _resolve_bank_mode(self, mode: str) -> None:
-        """Twin of trainer.py:460-503 on one device: ``auto`` resolves to
-        ``dense`` (the exact reference path, for every model and
-        optimizer); a sparse mode needs Adam and a
-        ``standard_bank_access`` model."""
+        """Twin of trainer.py:460-503: ``auto`` resolves to ``dense`` (the
+        exact reference path, for every model and optimizer), or under
+        ``embedding_exchange='alltoall'`` to ``fused_eq``; a sparse mode
+        needs Adam and a ``standard_bank_access`` model; ``alltoall``
+        needs ``fused``, ``fused_eq`` or ``lazy``."""
+        elig = self._opt_is_adam and bank_optimizer.eligible(self.model)
         if mode == "auto":
-            mode = "dense"
-        elif mode != "dense" and not (self._opt_is_adam and
-                                      bank_optimizer.eligible(self.model)):
+            if self.embedding_exchange == "alltoall":
+                if not elig:
+                    raise ValueError(
+                        "embedding_exchange='alltoall' needs a sparse "
+                        "bank-update mode, which requires the stock 'adam' "
+                        "optimizer and a standard_bank_access model "
+                        f"({type(self.model).__name__} is not) - use a "
+                        "replicated/rowshard exchange instead")
+                mode = "fused_eq"
+            else:
+                mode = "dense"
+        elif mode != "dense" and not elig:
             raise ValueError(
                 f"bank_update={mode!r} needs the stock 'adam' optimizer and "
                 "a standard_bank_access model "
                 f"({type(self.model).__name__} is not)")
+        if self.embedding_exchange == "alltoall" and mode not in (
+                "fused", "fused_eq", "lazy"):
+            raise ValueError("embedding_exchange='alltoall' routes the bank "
+                             "read through the sparse gather plan - compile "
+                             "with bank_update='fused', 'fused_eq' or 'lazy'")
+        if self.shard_embeddings and not elig:
+            raise NotImplementedError(
+                "a row-sharded bank for a model or optimizer outside the "
+                f"sparse bank modes ({type(self.model).__name__}) is ROADMAP "
+                "queue 1 item 'The row-sharded bank for every model'")
         self._bank_mode = mode
+        # under a mesh the dense mode of a sparse-eligible model keeps the
+        # bank's gradient to the step's rows (bank_optimizer.mesh_update)
+        self._mesh_sparse = self.mesh is not None and elig
 
     # ------------------------------------------------------------------
     def _device_batch(self, batch_np: dict) -> dict:
@@ -304,6 +377,8 @@ class Trainer:
         # the pad mask, for a model that reads the real example count
         # (Starv2's aux loss; trainer.py:318-320, :356)
         batch = dict(batch, _weight=weight)
+        if self.mesh is not None:
+            return self._mesh_step(batch, y, weight, key)
         if mode == "dense":
             total, data_loss, reg, aux = self.loss_terms(batch, y, weight,
                                                          key)
@@ -330,6 +405,160 @@ class Trainer:
                                            eq_plan=self._eq_plan)
         return {"loss": data_loss.detach(), "reg_loss": reg.detach(),
                 "aux_loss": aux.detach(), "count": torch.sum(weight)}
+
+    # ------------------------------------------------------------------
+    def _sharded_rows(self, local: int):
+        """The context of a train-mode forward of this rank's ``local``
+        rows of the global batch (``parallel/rows.py``)."""
+        mesh = self.mesh
+        return parallel_rows.batch_rows(mesh.rank * local, local,
+                                        local * mesh.world, mesh)
+
+    def _exchange_gather(self, flat_ids, stats: dict):
+        """The step's physical rows of a row-sharded bank, read by the
+        exchange; under ``alltoall`` its overflow goes to ``stats``."""
+        from ..parallel import embedding_sharded
+        emb = self.model.emb
+        alltoall = self.embedding_exchange == "alltoall"
+        rows, overflow = embedding_sharded.alltoall_lookup(
+            emb.physical(), flat_ids, self.mesh,
+            capacity_factor=self.exchange_capacity_factor if alltoall
+            else None)
+        if alltoall:
+            stats["exchange_overflow"] = overflow.sum().to(torch.float32)
+        return rows
+
+    def _dense_ids(self, flat_ids):
+        """The dense mode's reads of raw physical ids, as
+        ``embeddings.lookup_rows`` reads them: a negative id wrapped once,
+        then clamped; ``inside`` marks the positions whose gradient
+        counts."""
+        emb = self.model.emb
+        shard = getattr(emb, "shard", None)
+        n_phys = shard.rows // emb.rp if shard is not None else \
+            emb.physical().shape[0]
+        p = torch.where(flat_ids < 0, flat_ids + n_phys, flat_ids)
+        inside = (p >= 0) & (p < n_phys)
+        return p.clamp(0, n_phys - 1), inside
+
+    def _all_reduce_grads(self, params) -> None:
+        """Sum ``params``' gradients over the ranks with one all-reduce of
+        a flat bucket; a parameter that no rank gave a gradient keeps
+        none (Adam then skips it, as on one card)."""
+        if not params:
+            return
+        # each gradient followed by a 1 (0 where the rank has none)
+        bucket = self.mesh.all_reduce(torch.cat([
+            torch.zeros(p.numel() + 1, device=p.device, dtype=p.dtype)
+            if p.grad is None else
+            torch.cat([p.grad.reshape(-1), p.grad.new_ones(1)])
+            for p in params]))
+        at = 0
+        for p in params:
+            n = p.numel()
+            # a host read only where this rank had no gradient
+            if p.grad is not None or bucket[at + n] > 0:
+                p.grad = bucket[at:at + n].view_as(p).clone()
+            at += n + 1
+
+    def _mesh_step(self, batch, y, weight, key) -> dict:
+        """One step of the global program on this rank's rows: the
+        forward and backward on them, the replicated parameters' summed
+        gradients, the bank update (``bank_optimizer.mesh_update``) and
+        the statistics summed over the ranks.  The first rank alone holds
+        the L2 of the replicated parameters in its loss, so that the sum
+        holds it once."""
+        mesh, mode, model = self.mesh, self._bank_mode, self.model
+        lead = mesh.rank == 0
+        stats: dict = {}
+        bank_l2 = overflow = fingerprint = None
+        sharded = mesh.world > 1 or mesh.group is not None
+        ctx = self._sharded_rows(weight.shape[0]) if sharded else \
+            contextlib.nullcontext()
+        if self._mesh_sparse:
+            emb = model.emb
+            l2 = float(model.l2_reg_embedding)
+            inside = None
+            if mode == "dense":
+                def gather_fn(flat_ids):
+                    nonlocal inside
+                    ids, inside = self._dense_ids(flat_ids)
+                    if self.shard_embeddings:
+                        return self._exchange_gather(ids, stats)
+                    return bank_optimizer.gather.gather_rows(
+                        (emb.physical(),), ids.contiguous())[0]
+            elif self.shard_embeddings:
+                def gather_fn(flat_ids):
+                    return self._exchange_gather(flat_ids, stats)
+            else:
+                gather_fn = None
+            with ctx:
+                flat_ids, g_rows, data_loss, reg, aux = \
+                    bank_optimizer.sparse_bank_grads(
+                        model, self.strategy, batch, y, weight, key,
+                        gather_fn=gather_fn, with_reg=lead)
+            if inside is not None:
+                flat_ids, _ = self._dense_ids(flat_ids)
+                g_rows = g_rows * inside[:, None].to(g_rows.dtype)
+            elif mode in ("fused", "fused_eq") and self.shard_embeddings:
+                # the exact modes drop an out-of-range id's gradient
+                ok = (flat_ids >= 0) & (flat_ids < emb.shard.total)
+                g_rows = g_rows * ok[:, None].to(g_rows.dtype)
+            bank = emb.bank
+            self._all_reduce_grads([p for p in model.parameters()
+                                    if p is not bank and p.requires_grad])
+            if mode == "lazy":
+                self.optimizer.step()
+            bank_l2, overflow, fingerprint = bank_optimizer.mesh_update(
+                mode, self.optimizer, emb, self._lazy, flat_ids, g_rows,
+                lr=self._lr, l2=l2, mesh=mesh, eq_plan=self._eq_plan,
+                lazy_capacity_factor=self.lazy_capacity_factor)
+        else:
+            with ctx:
+                _, data_loss, reg, aux = self.loss_terms(batch, y, weight,
+                                                         key)
+                (data_loss + aux + (reg if lead else 0.0)).backward()
+            self._all_reduce_grads([p for p in model.parameters()
+                                    if p.requires_grad])
+            self.optimizer.step()
+        if not lead:
+            reg = torch.zeros_like(reg)
+        if bank_l2 is not None and (self.shard_embeddings or lead):
+            reg = reg + bank_l2
+        summed = mesh.all_reduce(torch.stack(
+            [data_loss.detach(), reg.detach(), aux.detach(),
+             torch.sum(weight)]).to(torch.float32))
+        stats.update(loss=summed[0], reg_loss=summed[1], aux_loss=summed[2],
+                     count=summed[3])
+        if overflow is not None:
+            stats["bank_overflow"] = overflow.to(torch.float32)
+        if fingerprint is not None:
+            fps = mesh.all_gather(fingerprint.view(1))
+            drift = (fps != fps[0]).any().to(torch.int64)
+            self._replica_drift = drift if self._replica_drift is None \
+                else self._replica_drift + drift
+        return stats
+
+    def _check_replicas(self) -> None:
+        """Raise if the replicated bank's rows differed between the ranks
+        after any step since the last check."""
+        if self._replica_drift is not None:
+            drift, self._replica_drift = int(self._replica_drift), None
+            if drift:
+                raise RuntimeError(
+                    f"the replicated bank's rows differ between the ranks "
+                    f"after {drift} step(s)")
+
+    def _rank_rows(self, batch_size: int) -> tuple[int, int]:
+        """This rank's rows ``[lo, hi)`` of a global batch."""
+        if self.mesh is None:
+            return 0, batch_size
+        world = self.mesh.world
+        if batch_size % world:
+            raise ValueError(f"batch_size {batch_size} does not split into "
+                             f"{world} ranks")
+        per = batch_size // world
+        return self.mesh.rank * per, (self.mesh.rank + 1) * per
 
     # ------------------------------------------------------------------
     def fit(self, x: dict, y, *, batch_size: int = 256, epochs: int = 1,
@@ -373,6 +602,7 @@ class Trainer:
             print(f"Train on {n} samples, validate on {n_val} samples, "
                   f"{steps} steps per epoch")
 
+        lo, hi = self._rank_rows(batch_size)
         rng_np = np.random.default_rng(self.seed)
         self._step_key = threefry.PRNGKey(self.seed + 1)
         for epoch in range(epochs):
@@ -396,13 +626,15 @@ class Trainer:
                     idx = perm[(step + j) * batch_size:
                                (step + j + 1) * batch_size]
                     bsz = len(idx)
+                    # this rank's rows of the padded global batch
+                    idx = idx[lo:hi]
                     batch = self._device_batch(
-                        {kk: self._pad(self._take(v, idx), batch_size)
+                        {kk: self._pad(self._take(v, idx), hi - lo)
                          for kk, v in data.items()})
-                    wb = np.zeros(batch_size, np.float32)
-                    wb[:bsz] = 1.0
+                    wb = np.zeros(hi - lo, np.float32)
+                    wb[:len(idx)] = 1.0
                     yb, wb = self._device_batch(
-                        {"y": self._pad(labels[idx], batch_size),
+                        {"y": self._pad(labels[idx], hi - lo),
                          "w": wb}).values()
                     one = self.train_step(
                         batch, yb, wb,
@@ -434,8 +666,14 @@ class Trainer:
 
             a = {k: float(v) for k, v in acc.items()} if acc is not None \
                 else {"loss": 0.0, "reg_loss": 0.0, "aux_loss": 0.0}
+            self._check_replicas()
             total = a["loss"] + a["reg_loss"] + a["aux_loss"]
             epoch_logs = {"loss": total / max(seen, 1)}
+            # the routed commit's and the exchange's overflow: a dropped
+            # row or a zero read shows in History (trainer.py:689-695)
+            for key in ("bank_overflow", "exchange_overflow"):
+                if key in a:
+                    epoch_logs[key] = a[key]
             if validation_data is not None:
                 val = self.evaluate(*validation_data,
                                     batch_size=batch_size * 4)
@@ -481,6 +719,7 @@ class Trainer:
                 stats = self.train_step(batch, yb, wb)
                 acc = stats if acc is None else {
                     k: acc[k] + v for k, v in stats.items()}
+            self._check_replicas()
             if verbose and acc is not None:
                 print(f"Epoch {epoch + 1}/{epochs} - "
                       f"{int(time.time() - t0)}s - loss: "
@@ -501,21 +740,38 @@ class Trainer:
         self._strategy = self._resolve_strategy()
         data = self.layout.batch_from_dict(x)
         with torch.no_grad():
-            outs = [scores[:rows] for _, scores, rows in
-                    self._eval_batches(data, batch_size)]
+            if self.mesh is not None:
+                # the same x on every rank: each scores its rows of each
+                # batch, and every rank gets the whole vector
+                lo, hi = self._rank_rows(batch_size)
+                n = len(next(iter(data.values())))
+                outs = []
+                for start in range(0, n, batch_size):
+                    part = {k: v[start:start + batch_size][lo:hi]
+                            for k, v in data.items()}
+                    _, scores, _ = next(self._eval_batches(part, hi - lo, 1))
+                    outs.append(self.mesh.all_gather(scores)[
+                        :min(batch_size, n - start)])
+            else:
+                outs = [scores[:rows] for _, scores, rows in
+                        self._eval_batches(data, batch_size)]
             scores = torch.cat(outs).cpu() if outs else torch.zeros(0)
         return scores.numpy().astype("float64")
 
-    def _eval_batches(self, data: dict, batch_size: int):
+    def _eval_batches(self, data: dict, batch_size: int, steps=None):
         """Yield ``(batch, scores, real rows)`` for each batch of
-        ``batch_size`` rows of the typed ``data`` (the last padded): the
-        batch on the device and its routed eval-mode scores.  The caller
-        holds ``torch.no_grad()``."""
+        ``batch_size`` rows of the typed ``data`` (the last padded; with
+        ``steps``, that many batches, empty ones padded whole): the batch
+        on the device and its routed eval-mode scores.  The caller holds
+        ``torch.no_grad()``."""
         strategy = self.strategy
         n = len(next(iter(data.values())))
         self.model.eval()
-        for start in range(0, n, batch_size):
-            stop = min(start + batch_size, n)
+        if steps is None:
+            steps = -(-n // batch_size)
+        for i in range(steps):
+            start = i * batch_size
+            stop = max(min(start + batch_size, n), start)
             batch = self._device_batch(
                 {k: self._pad(v[start:stop], batch_size)
                  for k, v in data.items()})
@@ -523,6 +779,19 @@ class Trainer:
                 stop - start
 
     def evaluate(self, x: dict, y, batch_size: int = 256) -> dict:
+        """The compiled metrics of ``predict(x)``.  Under a mesh of more
+        than one rank (the same ``x`` on every rank) each rank takes its
+        block of the rows and the metrics come from
+        :meth:`evaluate_domains`, the scores never gathered
+        (trainer.py:778-790)."""
+        if self.mesh is not None and self.mesh.world > 1:
+            n = len(np.asarray(y).reshape(-1))
+            part = np.array_split(np.arange(n), self.mesh.world)[
+                self.mesh.rank]
+            xs = {k: np.asarray(v)[part] for k, v in x.items()}
+            return self.evaluate_domains(
+                xs, np.asarray(y).reshape(-1)[part],
+                batch_size=batch_size)[0]
         pred = self.predict(x, batch_size)
         yy = np.asarray(y).reshape(-1)
         return {name: fn(yy, pred) for name, fn in self.metric_fns.items()}
@@ -530,15 +799,23 @@ class Trainer:
     def _eval_collect(self, x: dict, y, batch_size: int, domain_col=None):
         """Eval-mode scores, labels, pad weights and (with ``domain_col``)
         domain ids of ``x`` in batches of ``batch_size``, each stacked
-        ``[steps, B]`` on the device (trainer.py:764-822 on one
-        process)."""
+        ``[steps, B]`` on the device (trainer.py:764-822).  Under a mesh
+        ``x`` is this rank's shard, the batches are ``batch_size / n``
+        rows and the step count is the ranks' largest, so that every rank
+        runs the same exchanges."""
         labels = np.asarray(y, dtype=np.float32).reshape(-1)
         didx = (self.layout.sparse_index(domain_col)
                 if domain_col is not None else None)
+        steps = None
+        if self.mesh is not None:
+            batch_size = max(batch_size // self.mesh.world, 1)
+            n_max = self.mesh.all_reduce(torch.tensor(
+                [len(labels)], device=self.device), "max")
+            steps = -(-int(n_max[0]) // batch_size)
         preds, ys, ws, doms = [], [], [], []
         with torch.no_grad():
             for i, (batch, scores, rows) in enumerate(self._eval_batches(
-                    self.layout.batch_from_dict(x), batch_size)):
+                    self.layout.batch_from_dict(x), batch_size, steps)):
                 wb = np.zeros(batch_size, np.float32)
                 wb[:rows] = 1.0
                 yb, wb = self._device_batch(
@@ -550,39 +827,64 @@ class Trainer:
                 ws.append(wb)
                 if didx is not None:
                     doms.append(batch["sparse"][:, didx])
+        if not preds:
+            return (None,) * 4
         return (torch.stack(preds), torch.stack(ys), torch.stack(ws),
                 torch.stack(doms) if doms else None)
+
+    def _auc(self, y, s, w) -> float:
+        """The exact AUC of the scores of every rank under a mesh of more
+        than one rank (``parallel/distributed.auc_sharded_exact``), else
+        ``metrics.auc_torch``."""
+        return float(parallel_dist.distributed_auc(
+            y, s, w, mesh=self.mesh if self.mesh is not None and
+            self.mesh.world > 1 else None))
 
     def evaluate_domains(self, x: dict, y, domain_col: str | None = None,
                          batch_size: int = 256):
         """Overall metrics and the AUC of each domain value, the reference
         protocol (main.py:356-374: overall AUC, then the AUC of each value
-        min..max of the split), on one device (trainer.py:824-905 without
-        a mesh): scores, labels, weights and domain ids stay on the device
-        until each AUC (:func:`metrics.auc_torch`) and the weighted BCE
-        are scalars.  A domain value without both classes is left out.
-        Returns ``(metrics, {domain value: auc})``, the second empty when
-        ``domain_col`` is None."""
+        min..max of the split; trainer.py:824-905): scores, labels,
+        weights and domain ids stay on the device until each AUC and the
+        weighted BCE are scalars.  A domain value without both classes is
+        left out.  Under a mesh ``x`` and ``y`` are this rank's shard, the
+        AUCs come from the distributed AUC and the loss is summed over the
+        ranks; every rank returns the same values.  Returns ``(metrics,
+        {domain value: auc})``, the second empty when ``domain_col`` is
+        None."""
         scores, ys, ws, doms = self._eval_collect(x, y, batch_size,
                                                   domain_col)
+        if scores is None:
+            return {}, {}
         s, yy, w = scores.reshape(-1), ys.reshape(-1), ws.reshape(-1)
+        mesh = self.mesh
         out: dict[str, float] = {}
         for name, fn in self.metric_fns.items():
             if name == "auc":
-                out[name] = float(metrics_lib.auc_torch(yy, s, w))
+                out[name] = self._auc(yy, s, w)
             elif name == "binary_crossentropy":
-                out[name] = float(torch.sum(w * losses.bce_elementwise(s, yy))
-                                  / torch.clamp(torch.sum(w), min=1.0))
-            else:  # the uncommon metrics on the host
+                sums = torch.stack([
+                    torch.sum(w * losses.bce_elementwise(s, yy)),
+                    torch.sum(w)])
+                if mesh is not None:
+                    sums = mesh.all_reduce(sums)
+                out[name] = float(sums[0] / torch.clamp(sums[1], min=1.0))
+            else:  # the uncommon metrics on the host, on this rank's rows
                 keep = (w > 0).cpu().numpy()
                 out[name] = fn(yy.cpu().numpy()[keep],
                                s.cpu().numpy().astype("float64")[keep])
         domain_aucs: dict[int, float] = {}
-        if doms is not None and len(np.asarray(x[domain_col])):
+        if doms is not None:
+            col = np.asarray(x[domain_col])
+            lo, hi = (int(np.min(col)), int(np.max(col))) if len(col) \
+                else (2 ** 62, -2 ** 62)
+            if mesh is not None:
+                b = mesh.all_reduce(torch.tensor(
+                    [-lo, hi], dtype=torch.int64, device=self.device), "max")
+                lo, hi = -int(b[0]), int(b[1])
             d = doms.reshape(-1)
-            for v in range(int(np.min(x[domain_col])),
-                           int(np.max(x[domain_col])) + 1):
-                a = float(metrics_lib.auc_torch(yy, s, w * (d == v)))
+            for v in range(lo, hi + 1):
+                a = self._auc(yy, s, w * (d == v))
                 if np.isfinite(a):  # an absent domain value: 0/0
                     domain_aucs[v] = a
         return out, domain_aucs

@@ -23,8 +23,8 @@ JAX package.
   unrounded within 1e-4, the loss within 1e-4), ``attn_stats.npy`` within
   1e-5, the ``inst_attn_*.txt`` files as in ``tests/test_torch_probe.py``;
   then a ``--finetune True`` run restores the port's checkpoint.
-  ``--shard_embeddings True``, a mesh and ``--bank_update lazy_stale``
-  raise; the ``test`` flag aborts after 5 steps.
+  ``--bank_update lazy_stale`` raises; the ``test`` flag aborts after 5
+  steps.
 """
 
 import dataclasses
@@ -339,9 +339,6 @@ def _cli_run_matches_jax(tmp_path, monkeypatch, capsys, extra, d, heads):
 
 
 @pytest.mark.parametrize("extra,match", [
-    (["--shard_embeddings", "True"],
-     "item 'parallel/ → torch.distributed'"),
-    (["--mesh", "2"], "item 'parallel/ → torch.distributed'"),
     (["--bank_update", "lazy_stale"], "item 'lazy_stale'")])
 def test_cli_unported_options_raise(extra, match, tmp_path):
     argv = CLI_ARGV + ["--synthetic_rows", "64", "--results_dir",

@@ -51,7 +51,10 @@ def test_port_imports_no_jax():
             "satrans_torch.bench.gather_probe, "
             "satrans_torch.bench.raw_e2e, satrans_torch.native, "
             "satrans_torch.data.loader, satrans_torch.data.h5lite, "
-            "satrans_torch.train.optimizers, satrans_torch.utils; "
+            "satrans_torch.train.optimizers, satrans_torch.utils, "
+            "satrans_torch.parallel.distributed, "
+            "satrans_torch.parallel.embedding_sharded, "
+            "satrans_torch.parallel.bank_sharded; "
             "bad = [m for m in sys.modules "
             "if m.split('.')[0] in ('jax', 'jaxlib', 'satrans_tpu')]; "
             "assert not bad, bad; "

@@ -285,12 +285,10 @@ def test_early_stopping_and_history_match_jax_package():
     assert stops[0] == stops[1] and stops[0][0] == 3
 
 
-@pytest.mark.parametrize("what", ["bank_update", "mesh"])
+@pytest.mark.parametrize("what", ["bank_update"])
 def test_unported_options_raise(what):
     jm, params, tm = _models("QK")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        if what == "mesh":
-            TorchTrainer(tm, mesh=object(), device="cpu")
         tr = TorchTrainer(tm, device="cpu")
         if what == "bank_update":
             tr.compile(bank_update="lazy_stale")
