@@ -289,6 +289,29 @@ Phases, each of which exits non-zero on failure:
    1 layer: the four AUCs within 0.015 of RAWE2E_r05.json, K1's launches
    exactly the run's steps and predict batches.
 
+22. the mesh (``satrans_torch/parallel``, a rank a process; see
+   ``parallel_phase``).
+
+23. the serving path as CUDA graphs (``serving_graph_phase``): for each
+   family the Predictor serves (the AliCCP sota metanet at 32,768 and
+   8192; gate; bilinear; Alimama sota-pos; multicol 301-122 on K7; the
+   3-matrix MetaNet; DeepFM; MMOE; Star_Trans; SATrans per-example on
+   301-122-125; one each, at 8192 but the first), ``Predictor.aot_compile``
+   captures one CUDA graph of a batch's score (its captured launches: 3
+   K1-fwd, K6-fwd or K7-fwd a batch, or none), and a request of three
+   batches and a half is served at pipeline depths 1, 2 and 4 through
+   the graph and through the eager Predictor: every score equal bit for
+   bit, no counter moving under replay (launches are replays times the
+   captured ones), the scores against the plain route within 1e-5 (or,
+   with no layer kernel, a CPU copy on 2048 rows); the replay's ms, each
+   arm's examples/s a depth, the card's busy share of a request and the
+   capture's seconds; then ``satrans_torch.bench.serving_throughput``
+   (the graph's scores equal to the eager Predictor's),
+   ``probe_throughput`` (K1-scores captured: its predictions and means
+   against the plain layer's within 1e-5) and ``kernels`` (K1-fwd
+   captured: its output against the plain layer's within 1e-4) once
+   each.
+
 Phases 2 and 4 also hold K1 where a share of the attention logits passes
 the kernels' clamp at 60 against the clamped plain layer.
 
@@ -6863,6 +6886,250 @@ def parallel_phase(dev, card):
     return paths
 
 
+# phase 23: the serving path as CUDA graphs.  A request of GRAPH_REQUEST
+# batches and a half (a padded tail); the pipeline depths each arm serves
+# it at
+GRAPH_REQUEST = 3.5
+GRAPH_DEPTHS = (1, 2, 4)
+EVAL_BATCH = 32768  # the reference's eval batch (main.py:353)
+
+
+def graph_families():
+    """Phase 23's families: (label, build(dev) -> (model, the same model on
+    the plain route or None), the batch sizes, the data's maker, the
+    launches of one captured batch).  The SATrans families draw their
+    embeddings N(0, 1) (no_emb_init), the others' parameters are redrawn
+    N(0, ZOO_FWD_STD) before the capture (:func:`graph_case`)."""
+    def satrans(**kw):
+        def build(dev):
+            from satrans_torch.data import aliccp
+            from satrans_torch.features import FeatureLayout
+            from satrans_torch.models import SATrans
+            args = dict(domain_att_layer_num=LAYERS, att_head_num=4,
+                        meta_mode="QK", no_emb_init=True, seed=SEED,
+                        device=dev, **kw)
+            layout = FeatureLayout(aliccp.sota_columns(32))
+            model = SATrans(layout, ["301"], [3], **args)
+            plain = SATrans(layout, ["301"], [3], route="plain", **args)
+            plain.load_state_dict(model.state_dict())
+            return model, plain
+        return build
+
+    def twin(fn):
+        def build(dev):
+            model = fn(dev, no_emb_init=True)
+            plain = fn(dev, no_emb_init=True, route="plain")
+            plain.load_state_dict(model.state_dict())
+            return model, plain
+        return build
+
+    def alone(fn):
+        return lambda dev: (fn(dev), None)
+
+    aliccp_ids = lambda rows: training_data_rows(rows)          # noqa: E731
+    alimama_ids = lambda rows: alimama_data(rows, SEED + 23)[0]  # noqa: E731
+    k1, k6, k7 = ({"meta_block_fwd": LAYERS}, {"gate_block_fwd": LAYERS},
+                  {"tiled_meta_fwd": LAYERS})
+    return (
+        ("aliccp_metanet", satrans(meta_dnn_hidden_units=(64, 32)),
+         (EVAL_BATCH, BATCH), aliccp_ids, k1),
+        ("aliccp_gate", satrans(variant="gate"), (BATCH,), aliccp_ids, k6),
+        ("aliccp_bilinear", satrans(variant="bilinear"), (BATCH,),
+         aliccp_ids, k6),
+        ("alimama_pos", twin(alimama_model), (BATCH,), alimama_ids, k1),
+        ("multicol_301_122", twin(multicol_model), (BATCH,), aliccp_ids,
+         k7),
+        ("aliccp_metanet_3mat", satrans(meta_dnn_hidden_units=UNITS3[1:]),
+         (BATCH,), aliccp_ids, k1),
+        ("DeepFM", alone(lambda dev: zoo_model(dev, "DeepFM")), (BATCH,),
+         aliccp_ids, {}),
+        ("MMOE", alone(lambda dev: zoo_model(dev, "MMOE")), (BATCH,),
+         aliccp_ids, {}),
+        ("Star_Trans", alone(lambda dev: cli_model(
+            dev, ["--model_name", "Star_Trans"])), (BATCH,), aliccp_ids, {}),
+        ("per_example_301_122_125", alone(lambda dev: cli_model(
+            dev, ["--flag", "None"], cols=PER_EXAMPLE_COLS)), (BATCH,),
+         aliccp_ids, {}),
+    )
+
+
+def training_data_rows(rows):
+    """AliCCP ids uniform in [1, DATA_MAX] for ``rows`` examples."""
+    from satrans_torch.data import aliccp
+    rng = np.random.default_rng(SEED + 23)
+    return {name: rng.integers(1, aliccp.DATA_MAX[name] + 1, rows)
+            for name in aliccp.SPARSE_FEATURES}
+
+
+def graph_case(dev, card, label, model, plain, batch, x, want):
+    """One family at one batch size: ``Predictor.aot_compile`` (the
+    captured launches of a batch must be ``want``), the request at every
+    depth through the graph and through the eager Predictor (every score
+    equal bit for bit), the scores against the plain route's (SERVING_TOL)
+    or, for a model without a layer kernel, against a CPU copy on its
+    first ZOO_FWD_ROWS rows (ZOO_FWD_TOL); the replay's CUDA-event ms, each
+    arm's examples/s a depth, the card's busy share of a request, the
+    capture's seconds.  Returns the graph's launches on the path (replays
+    times the captured launches) and the numbers."""
+    from satrans_torch.ops import launch_counts
+    from satrans_torch.serving import Predictor
+    rows = len(next(iter(x.values())))
+    batches = -(-rows // batch)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    pred = Predictor(model, batch_size=batch, device=dev).aot_compile()
+    torch.cuda.synchronize()
+    capture_s = time.perf_counter() - t0
+    check(pred.captured_launches == want,
+          f"{label} b{batch}: the capture launched {pred.captured_launches}"
+          f", want {want}")
+    replay_ms = time_ms(pred.graph.replay, iters=20)
+    eager = Predictor(model, batch_size=batch, device=dev).warmup()
+
+    scores, rate = {}, {}
+    for arm, p in (("graph", pred), ("eager", eager)):
+        zero_counts()
+        if arm == "graph":
+            pred.graph.replays = 0
+        calls = 0
+        for depth in GRAPH_DEPTHS:
+            p(x, pipeline_depth=depth)  # the ring's first use
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            scores[arm, depth] = p(x, pipeline_depth=depth)
+            rate[arm, depth] = rows / (time.perf_counter() - t0)
+            calls += 2
+        counted = {k: n for k, n in launch_counts().items() if n}
+        if arm == "graph":
+            launched = pred.launches()
+            check(pred.graph.replays == calls * batches and not counted,
+                  f"{label} b{batch}: {pred.graph.replays} replays, want "
+                  f"{calls * batches}; counters moved under replay: "
+                  f"{counted}")
+        else:
+            check(counted == {k: n * calls * batches
+                              for k, n in want.items()},
+                  f"{label} b{batch}: the eager Predictor launched "
+                  f"{counted}")
+    ref = scores["graph", 1]
+    check(ref.shape == (rows,) and bool(np.isfinite(ref).all()),
+          f"{label} b{batch}: scores of shape {ref.shape}, not finite")
+    for (arm, depth), s in scores.items():
+        check(np.array_equal(s, ref), f"{label} b{batch}: the {arm} "
+              f"Predictor at depth {depth} differs from the graph at depth "
+              f"1 by {float(np.abs(s - ref).max())}")
+    if plain is not None:
+        want_s = Predictor(plain, batch_size=batch, device=dev)(x)
+        err, tol = float(np.abs(ref - want_s).max()), SERVING_TOL
+    else:
+        head = {k: v[:ZOO_FWD_ROWS] for k, v in x.items()}
+        host = copy.deepcopy(model).cpu()
+        want_s = Predictor(host, batch_size=ZOO_FWD_ROWS, device="cpu")(head)
+        err, tol = float(np.abs(ref[:ZOO_FWD_ROWS] - want_s).max()), \
+            ZOO_FWD_TOL
+        del host
+    check(err <= tol, f"{label} b{batch}: the graph's scores differ from "
+                      f"the plain version's by {err} > {tol}")
+    wall_ms = 1e3 * rows / rate["graph", 1]
+    busy = device_profile(f"phase 23 {label} b{batch}: a request of {rows} "
+                          "through the graph", lambda: pred(x), wall_ms,
+                          card, top=4)
+    out = dict(replay_ms=replay_ms, capture_s=capture_s, max_abs_err=err,
+               busy_share=None if busy is None else busy / wall_ms,
+               examples_per_s={f"{arm}_depth{d}": r
+                               for (arm, d), r in rate.items()},
+               captured=pred.captured_launches)
+    print(f"phase 23 {label} b{batch} [{card}]: {rows} rows, {batches} "
+          f"batches; " + json.dumps(out) + f"; launches {launched}",
+          flush=True)
+    del pred, eager
+    return launched, out
+
+
+def graph_instruments(dev, card):
+    """Phase 23's three instruments, each run once in-process (one JSON
+    line each).  Returns their launches by path: the AOT Predictor's graph
+    (serving_throughput; its scores equal to the eager Predictor's bit
+    for bit), the probe's fused graph (probe_throughput; each arm's graph
+    equal to its eager forward bit for bit, the fused predictions and
+    (layer, head) means against the plain layer's within SERVING_TOL and
+    PROBE_STATS_TOL) and K1-fwd's graph (bench_kernels; its output against
+    the plain layer's within KERNEL_TOL)."""
+    from satrans_torch.bench import kernels, probe_throughput, \
+        serving_throughput
+    serve = serving_throughput.main([])
+    check(serve["launches"] == {"meta_block_fwd": serve["launches"].get(
+        "meta_block_fwd", 0)} and serve["launches"]["meta_block_fwd"] > 0,
+          f"serving_throughput launched {serve['launches']}")
+    probe = probe_throughput.main([])
+    arms = probe["results"]
+    fused = arms["fused_scores"]["launches"]
+    check(set(fused) == {"meta_block_fwd_scores"}
+          and not arms["xla_scores"]["launches"],
+          f"probe_throughput launched {fused} (fused) and "
+          f"{arms['xla_scores']['launches']} (plain)")
+    check(all(a["graph_equals_eager"] for a in arms.values()),
+          "probe_throughput: a graph's output differs from its eager "
+          "forward's")
+    pred_diff = arms["fused_scores"]["pred_max_abs_diff"]
+    stat_diff = arms["fused_scores"]["stats_max_abs_diff"]
+    check(pred_diff <= SERVING_TOL and stat_diff <= PROBE_STATS_TOL,
+          f"probe_throughput: the fused graph's predictions differ from the "
+          f"plain layer's by {pred_diff}, its means by {stat_diff} "
+          f"(tolerances {SERVING_TOL}, {PROBE_STATS_TOL})")
+    check(kernels.FUSED_TOL == KERNEL_TOL, "bench/kernels.py's FUSED_TOL "
+          "is not KERNEL_TOL")
+    bench = kernels.main([])
+    attn = bench["interaction_attention_fused"]
+    check(attn["launches"] > 0, "bench/kernels.py launched no K1-fwd")
+    check(attn["within_tol"], f"bench/kernels.py: K1-fwd's graph differs "
+          f"from the plain layer by {attn['max_abs_err']} (KERNEL_TOL)")
+    print(f"phase 23 instruments [{card}]: the probe's fused graph within "
+          f"{pred_diff:.3e} (predictions) and {stat_diff:.3e} (means) of "
+          f"the plain layer; bench/kernels.py's K1-fwd graph within "
+          f"{attn['max_abs_err']:.3e} of it", flush=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"serving_throughput": serve["launches"],
+            "probe_throughput": fused, "bench_kernels": {
+                "meta_block_fwd": attn["launches"]}}
+
+
+def serving_graph_phase(dev, card):
+    """Phase 23: every family the Predictor serves, captured by
+    ``aot_compile`` and checked (:func:`graph_case`), then the three
+    instruments.  Returns the launches by path and kernel."""
+    t0 = time.perf_counter()
+    paths, numbers = {}, {}
+    for label, build, batches, data, want in graph_families():
+        model, plain = build(dev)
+        if plain is None:  # no layer kernel: parameters that move the
+            gen = torch.Generator(device=dev)  # scores
+            gen.manual_seed(SEED)
+            with torch.no_grad():
+                for p in model.parameters():
+                    p.normal_(0.0, ZOO_FWD_STD, generator=gen)
+        for batch in batches:
+            x = data(int(GRAPH_REQUEST * batch))
+            key = f"graph_{label}_b{batch}"
+            launched, numbers[key] = graph_case(dev, card, label, model,
+                                                plain, batch, x, want)
+            # the 3-matrix instances under their own names (phase 13's)
+            paths[key] = {K1_NAMES3[k] if label.endswith("_3mat") else k: n
+                          for k, n in launched.items()}
+        del model, plain
+        gc.collect()
+        torch.cuda.empty_cache()
+    paths.update(graph_instruments(dev, card))
+    for name in ("meta_block_fwd", "meta_block_fwd_scores",
+                 "gate_block_fwd", "tiled_meta_fwd"):
+        check(sum(n.get(name, 0) for n in paths.values()) > 0,
+              f"phase 23: {name} was launched on no path")
+    print(f"phase 23 [{card}]: {time.perf_counter() - t0:.2f}s; "
+          + json.dumps(numbers), flush=True)
+    return paths
+
+
 def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -6918,6 +7185,7 @@ def main() -> int:
     legacy = legacy_phase(dev, card)
     pipeline = pipeline_phase(dev, card)
     parallel = parallel_phase(dev, card)
+    graphs = serving_graph_phase(dev, card)
 
     # launches, each path counted from 0 just before it: serving and the
     # evaluation run K1-fwd only; the dense recompute arm K1-fwd and
@@ -7063,11 +7331,14 @@ def main() -> int:
             k["many_rows"]["sorted_scratch_at_cap"] = many["scratch"]
     # phase 20: K2-K5's launches on the legacy and per-example paths;
     # phase 21: K1's and K2-K4's on the pipeline's paths; phase 22: K1's
-    # and K2-K4's on the mesh's paths, summed over each arm's ranks
+    # and K2-K4's on the mesh's paths, summed over each arm's ranks; phase
+    # 23: K1-fwd's, K1-scores', K6-fwd's and K7-fwd's on the graphs' paths
+    # (replays times the captured launches)
     for k in kernels:
         by_path = {p: n[k["name"]] for p, n in (*legacy.items(),
                                                 *pipeline.items(),
-                                                *parallel.items())
+                                                *parallel.items(),
+                                                *graphs.items())
                    if n.get(k["name"])}
         k["launches_by_path"].update(by_path)
         k["launches"] += sum(by_path.values())

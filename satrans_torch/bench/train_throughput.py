@@ -54,8 +54,7 @@ import numpy as np
 import torch
 
 from ..data import aliccp, alimama
-from ..ops import (_build, eqgemm, gather, lazy_tail, meta_block, profiling,
-                   scatter)
+from ..ops import _build, launch_counts, profiling
 from ..utils import resolve_device
 
 # an estimate of the reference PyTorch code on its published GTX 1080 Ti
@@ -70,16 +69,6 @@ ALICCP_DATA_MAX = {k: aliccp.DATA_MAX[k] for k in aliccp.SPARSE_FEATURES}
 ALIMAMA_DATA_MAX = {k: alimama.DATA_MAX[k]
                     for k in alimama.SPARSE_FEATURES}
 
-# the kernels a training step can launch: the K1 bodies by counter and the
-# row kernels of the sparse updates, by their names in chip_smoke.py
-K1_COUNTERS = {"meta_block_fwd": "launches",
-               "meta_block_fwd_stash": "stash_launches",
-               "meta_block_fwd_stash_light": "stash_light_launches",
-               "meta_block_bwd": "bwd_launches",
-               "meta_block_bwd_stash": "stash_bwd_launches",
-               "meta_block_bwd_stash_light": "stash_light_bwd_launches"}
-ROW_MODULES = {"gather_rows": gather, "scatter_rows_set": scatter,
-               "eqgemm_positions": eqgemm, "lazy_adam_rows": lazy_tail}
 # the kernels' sources, built in parallel before an arm's first chunk
 SOURCES = ["meta_block_fwd", "meta_block_bwd", "bank_rows", "eqgemm"]
 
@@ -150,13 +139,6 @@ def build(cfg: Config, bank_update: str, device):
     trainer = Trainer(model, seed=1021, scan_unroll=1, device=device)
     trainer.compile(learning_rate=cfg.lr, bank_update=bank_update)
     return model, trainer
-
-
-def launch_counts() -> dict:
-    """Every training kernel's launch count so far, by name."""
-    out = {n: getattr(meta_block, c) for n, c in K1_COUNTERS.items()}
-    out.update({n: m.launches for n, m in ROW_MODULES.items()})
-    return out
 
 
 def run_arm(arm: str, cfg: Config, bank_update: str, *, tail=None,

@@ -118,15 +118,33 @@ _CONSTANTS: dict = {}
 
 def device_constant(values, device, dtype=torch.long) -> torch.Tensor:
     """A tensor of the static ``values`` (numbers, or nested tuples of
-    them) on ``device``, copied there once: a copy from the host each step
-    would make the host wait for the device's queue to drain."""
+    them, or a host array) on ``device``, copied there once: a copy from
+    the host each step would make the host wait for the device's queue to
+    drain, and a CUDA graph cannot capture it.  A constant first asked for
+    while a CUDA graph is being captured raises: the warmup before the
+    capture must fill it.  It is made outside inference mode, so that a
+    constant first made while serving can be saved for a later backward."""
     key = (values if isinstance(values, tuple) else
            tuple(v.item() for v in values), torch.device(device), dtype)
     t = _CONSTANTS.get(key)
     if t is None:
-        t = _CONSTANTS[key] = torch.as_tensor(key[0], dtype=dtype,
-                                              device=device)
+        if key[1].type == "cuda" and \
+                torch.cuda.is_current_stream_capturing():
+            raise RuntimeError(
+                f"device constant {key[0]} first used inside a CUDA graph "
+                "capture: warm up at the captured shapes first")
+        with torch.inference_mode(False):
+            t = _CONSTANTS[key] = torch.as_tensor(key[0], dtype=dtype,
+                                                  device=device)
     return t
+
+
+def select_columns(x: torch.Tensor, idx) -> torch.Tensor:
+    """``x[:, idx]`` for a static sequence of column indices, the indices
+    a device constant (a Python list as an index is copied from the host
+    at every call)."""
+    return x.index_select(1, device_constant(tuple(int(i) for i in idx),
+                                             x.device))
 
 
 def _offsets(values, like: torch.Tensor) -> torch.Tensor:
@@ -205,7 +223,8 @@ def _large_sparse_ids(layout: FeatureLayout, sparse_ids: torch.Tensor):
     if not split["large_idx"]:
         return None
     ids = sparse_ids.long()
-    return ids[:, split["large_idx"]] + _offsets(split["large_offsets"], ids)
+    return select_columns(ids, split["large_idx"]) + _offsets(
+        split["large_offsets"], ids)
 
 
 def _varlen_ids(layout: FeatureLayout, varlen_ids: torch.Tensor):
@@ -226,14 +245,15 @@ def lookup_sparse(emb, layout: FeatureLayout,
     if large_idx:
         parts.append(lookup_rows(emb, _large_sparse_ids(layout, ids)))
     if small_idx:
-        cols = ids[:, small_idx] + _offsets(split["small_offsets"], ids)
+        cols = select_columns(ids, small_idx) + _offsets(
+            split["small_offsets"], ids)
         parts.append(_small_lookup(emb.small, cols))
     out = parts[0] if len(parts) == 1 else torch.cat(parts, dim=1)
     order = list(large_idx) + list(small_idx)
     if order == sorted(order):
         return out
     inv = sorted(range(len(order)), key=order.__getitem__)
-    return out[:, inv]
+    return select_columns(out, inv)
 
 
 def lookup_field(emb, layout: FeatureLayout, name: str,

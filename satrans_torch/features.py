@@ -20,6 +20,8 @@ from typing import Sequence
 
 import numpy as np
 
+BATCH_DTYPES = {"sparse": np.int32, "dense": np.float32, "varlen": np.int32}
+
 
 @dataclasses.dataclass(frozen=True)
 class SparseFeature:
@@ -174,24 +176,34 @@ class FeatureLayout:
                     f"feature {c.name!r}: ids in [{lo}, {hi}] exceed vocab "
                     f"{c.vocab}")
 
-    def batch_from_dict(self, data: dict[str, np.ndarray]
-                        ) -> dict[str, np.ndarray]:
-        """Assemble a typed batch from a {name: column array} dict.  Set
+    def columns(self, data: dict[str, np.ndarray]
+                ) -> tuple[int, dict[str, list[np.ndarray]]]:
+        """The rows of a {name: column array} dict and its columns by part
+        of a batch, in the layout's order but not assembled: 'sparse'
+        ``[n]``, 'dense' ``[n, k]`` float32, 'varlen' ``[n, L]``; a batch
+        holds each part as ``BATCH_DTYPES`` says.  Set
         ``SATRANS_VALIDATE=1`` to id-range-check every column first."""
         if os.environ.get("SATRANS_VALIDATE", "0") == "1":
             self.validate_ids(data)
         n = len(next(iter(data.values())))
-        out: dict[str, np.ndarray] = {}
+        cols: dict[str, list[np.ndarray]] = {}
         if self.sparse:
-            out["sparse"] = np.stack(
-                [np.asarray(data[name]).reshape(n)
-                 for name in self.sparse_names], axis=1).astype(np.int32)
+            cols["sparse"] = [np.asarray(data[name]).reshape(n)
+                              for name in self.sparse_names]
         if self.dense:
-            out["dense"] = np.concatenate(
-                [np.asarray(data[name], dtype=np.float32).reshape(n, -1)
-                 for name in self.dense_names], axis=1)
+            cols["dense"] = [np.asarray(data[name], dtype=np.float32
+                                        ).reshape(n, -1)
+                             for name in self.dense_names]
         if self.varlen:
-            out["varlen"] = np.stack(
-                [np.asarray(data[name]).reshape(n, -1)
-                 for name in self.varlen_names], axis=1).astype(np.int32)
-        return out
+            cols["varlen"] = [np.asarray(data[name]).reshape(n, -1)
+                              for name in self.varlen_names]
+        return n, cols
+
+    def batch_from_dict(self, data: dict[str, np.ndarray]
+                        ) -> dict[str, np.ndarray]:
+        """Assemble a typed batch from a {name: column array} dict
+        (:meth:`columns`): the ids ``[n, S]``, the dense values ``[n, D]``,
+        the varlen ids ``[n, V, L]``."""
+        return {k: (np.concatenate if k == "dense" else np.stack)(
+                    parts, axis=1).astype(BATCH_DTYPES[k], copy=False)
+                for k, parts in self.columns(data)[1].items()}

@@ -42,11 +42,14 @@ def _xavier_uniform(gen: torch.Generator, shape) -> torch.Tensor:
     return init.uniform(gen, shape, math.sqrt(6.0 / (shape[0] + shape[-1])))
 
 
-def _pairs(f: int):
-    """The field pairs ``i < j`` in ``itertools.combinations`` order, as
-    two index lists."""
-    pi, pj = zip(*itertools.combinations(range(f), 2))
-    return list(pi), list(pj)
+def _pairs(x: torch.Tensor):
+    """The field pairs ``i < j`` of ``x`` ``[B, F, ...]`` in
+    ``itertools.combinations`` order, as two index vectors on ``x``'s
+    device (device constants: a Python list as an index is copied from the
+    host at every call)."""
+    from ..embeddings import device_constant
+    pi, pj = zip(*itertools.combinations(range(x.shape[1]), 2))
+    return device_constant(pi, x.device), device_constant(pj, x.device)
 
 
 # ---------------------------------------------------------------------------
@@ -206,7 +209,7 @@ class Bilinear(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         """``[B, F, d]`` -> ``[B, F * (F - 1) / 2, d]``, the pairwise
         bilinear interactions."""
-        pi, pj = _pairs(x.shape[1])
+        pi, pj = _pairs(x)
         if self.bilinear_type == "all":
             proj = (x @ self.w[0])[:, pi]
         elif self.bilinear_type == "each":
@@ -239,7 +242,7 @@ class AFMLayer(nn.Module):
                 train: bool = False, key=None) -> torch.Tensor:
         """``[B, F, d]`` -> ``[B, 1]``, the attentional FM logit; the
         pooled vector's dropout drawn from ``key``."""
-        pi, pj = _pairs(x.shape[1])
+        pi, pj = _pairs(x)
         prod = x[:, pi] * x[:, pj]                          # [B, pairs, d]
         att = torch.relu(prod @ self.att_w + self.att_b)
         scores = torch.softmax(att @ self.proj_h, dim=1)    # [B, pairs, 1]
@@ -255,7 +258,7 @@ class AFMLayer(nn.Module):
 
 def inner_product(x: torch.Tensor) -> torch.Tensor:
     """``[B, F, d]`` -> ``[B, F * (F - 1) / 2]``, the pairwise dots."""
-    pi, pj = _pairs(x.shape[1])
+    pi, pj = _pairs(x)
     return (x[:, pi] * x[:, pj]).sum(dim=-1)
 
 
@@ -275,7 +278,7 @@ class OuterProduct(nn.Module):
         self.kernel = nn.Parameter(_xavier_uniform(gen, shape))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        pi, pj = _pairs(x.shape[1])
+        pi, pj = _pairs(x)
         p, q = x[:, pi], x[:, pj]                           # [B, pairs, d]
         if self.kernel_type == "mat":
             # torch: sum(p.unsqueeze(1) * kernel, -1).permute(0, 2, 1) * q

@@ -173,10 +173,16 @@ def log(name: str, shape=None) -> str:
 
 def load(name: str, shape=None) -> ctypes.CDLL:
     """The library built from ``csrc/<name>.cu`` at ``shape``, built first
-    if needed."""
+    if needed.  A library first needed while a CUDA graph is being
+    captured raises: the warmup before the capture must load it."""
     key = (name, _shape(name, shape))
     lib = _LIBS.get(key)
     if lib is None:
+        if torch.cuda.is_available() and \
+                torch.cuda.is_current_stream_capturing():
+            raise RuntimeError(
+                f"{label(*key)} first loaded inside a CUDA graph capture: "
+                "warm up at the captured shapes first")
         _, out, _ = _target(*key)
         if not out.exists():
             build([key])

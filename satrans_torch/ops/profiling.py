@@ -27,6 +27,8 @@ from ..utils import resolve_device
 
 # H100 SXM data-sheet peaks at 700 W
 H100_PEAK_F32_FLOPS = 67e12
+# a product in 3xTF32 on the tensor cores issues three TF32 ones
+H100_PEAK_TF32X3_FLOPS = 495e12 / 3
 H100_HBM_BYTES_PER_S = 3.35e12
 
 

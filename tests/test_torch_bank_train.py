@@ -64,6 +64,7 @@ def _jax_fit(jm, params, x, y, mode, lr=LR):
 
     def build_and_record():
         build()
+        tp.fast_steps(tr)  # compiled without XLA's backend optimizations
         step = tr._train_step
 
         def record(*args):

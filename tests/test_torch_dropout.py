@@ -131,11 +131,10 @@ def test_layer_matches_jax_stash_kernels_at_dropout(mode, relu_out):
     args = (torch.from_numpy(x), layer, {"Q": torch.from_numpy(table),
                                          "K": torch.from_numpy(table)},
             torch.from_numpy(dom))
-    # the JAX output and its pullback of g in one trace
-    y_jax, pullback = jax.vjp(fn, jnp.asarray(x),
-                              jax.tree.map(jnp.asarray, lp),
-                              jnp.asarray(table))
-    gx, glp, gt = pullback(jnp.asarray(g))
+    # the JAX output and its pullback of g in one compiled call
+    y_jax, (gx, glp, gt) = tp.fast_vjp(
+        fn, (jnp.asarray(x), jax.tree.map(jnp.asarray, lp),
+             jnp.asarray(table)), jnp.asarray(g))
     want = dict(bridge._flatten(jax.tree.map(np.asarray, glp)))
     want.update(x=np.asarray(gx), table=np.asarray(gt))
     with torch.no_grad():
@@ -219,8 +218,8 @@ def test_plain_route_draws_jax_xla_masks():
     jb = {k: jnp.asarray(v) for k, v in jm.layout.batch_from_dict(x).items()}
     tb = {k: torch.from_numpy(v) for k, v in
           tm.layout.batch_from_dict(x).items()}
-    want = jax.jit(lambda p, b: jm.apply(p, {}, b, train=True,
-                                         rng=jax.random.PRNGKey(8))[0])(
+    want = tp.compile_fast(jax.jit(lambda p, b: jm.apply(
+        p, {}, b, train=True, rng=jax.random.PRNGKey(8))[0]))(
         jax.tree.map(jnp.asarray, params), jb)
     tm.train()
     with torch.no_grad():

@@ -132,10 +132,9 @@ def test_layer_matches_jax_interpret_kernel(case):
             interpret=True, bwd=bwd, stash_dtype="f32", mode=mode,
             relu_out=relu_out, **drop)
 
-    y_jax, pullback = jax.vjp(fn, jnp.asarray(x),
-                              jax.tree.map(jnp.asarray, lp),
-                              jax.tree.map(jnp.asarray, tables))
-    gx, glp, gt = pullback(jnp.asarray(g))
+    y_jax, (gx, glp, gt) = tp.fast_vjp(
+        fn, (jnp.asarray(x), jax.tree.map(jnp.asarray, lp),
+             jax.tree.map(jnp.asarray, tables)), jnp.asarray(g))
 
     xt = torch.from_numpy(x).requires_grad_(True)
     tt = {k: torch.from_numpy(v).requires_grad_(True)
@@ -156,11 +155,13 @@ def test_scores_layer_matches_jax_interpret_kernel():
     (distinct tables, dropout 0.1 in training)."""
     x, _, lp, tables, dom, layer = _layer_setup(True, seed=1)
     drop = dict(train=True, drop_rate=RATE, seed=SEED, block_b=BLOCK)
-    y_j, s_j = jmb.fused_meta_layer_with_scores(
+    y_j, s_j = tp.compile_fast(jax.jit(
+        lambda x, lp, tables, onehot: jmb.fused_meta_layer_with_scores(
+            x, lp, tables, onehot, meta_units=UNITS, head_num=HEADS,
+            interpret=True, **drop)))(
         jnp.asarray(x), jax.tree.map(jnp.asarray, lp),
         {k: jnp.asarray(v) for k, v in tables.items()},
-        jax.nn.one_hot(jnp.asarray(dom), ROWS), meta_units=UNITS,
-        head_num=HEADS, interpret=True, **drop)
+        jax.nn.one_hot(jnp.asarray(dom), ROWS))
     with torch.no_grad():
         y, s = tmb.fused_meta_layer_with_scores(
             torch.from_numpy(x), layer,
@@ -189,10 +190,9 @@ def test_tiled_layer_matches_jax_interpret_kernel(pos, bwd):
             x, lp, _both(tables), meta_units=UNITS, head_num=HEADS,
             interpret=True, bwd=bwd, **drop)
 
-    y_jax, pullback = jax.vjp(fn, jnp.asarray(x),
-                              jax.tree.map(jnp.asarray, lp),
-                              jax.tree.map(jnp.asarray, tables))
-    gx, glp, gt = pullback(jnp.asarray(g))
+    y_jax, (gx, glp, gt) = tp.fast_vjp(
+        fn, (jnp.asarray(x), jax.tree.map(jnp.asarray, lp),
+             jax.tree.map(jnp.asarray, tables)), jnp.asarray(g))
     xt = torch.from_numpy(x).requires_grad_(True)
     tt = {k: torch.from_numpy(v).requires_grad_(True)
           for k, v in tables.items()}
@@ -260,8 +260,8 @@ def _assert_train_step_matches(jm, params, tm, x, y):
         pred = jm.apply(p, {}, jbatch, train=True)[0]
         return jlosses.bce_sum(pred, jnp.asarray(y)), pred
 
-    (_, want), jgrads = jax.jit(jax.value_and_grad(loss, has_aux=True))(
-        jax.tree.map(jnp.asarray, params))
+    (_, want), jgrads = tp.compile_fast(jax.jit(jax.value_and_grad(
+        loss, has_aux=True)))(jax.tree.map(jnp.asarray, params))
     assert np.asarray(want).std() > 1e-2  # the parameters move it
     jgrads = bridge.from_jax_params(jax.tree.map(np.asarray, jgrads), tm)
     tm.train()
@@ -327,7 +327,8 @@ def test_bridge_moves_a_3matrix_tree_into_serving(case):
     jm, params, tm = _models(rate=0.0, **MODEL_CASES[case])
     x = _request(40, seed=4)
     jbatch, _ = _batches(jm, x)
-    want = np.asarray(jax.jit(lambda p: jm.apply(p, {}, jbatch)[0])(
+    want = np.asarray(tp.compile_fast(jax.jit(
+        lambda p: jm.apply(p, {}, jbatch)[0]))(
         jax.tree.map(jnp.asarray, params)))
     got = Predictor(tm, batch_size=16, device="cpu")(x)
     np.testing.assert_allclose(got, want, atol=1e-5)

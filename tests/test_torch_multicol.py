@@ -185,10 +185,9 @@ def test_tiled_layer_matches_jax_interpret_kernel(mode, relu_out, pos, bwd,
             x, lp, tabs, meta_units=UNITS, head_num=HEADS, interpret=True,
             bwd=bwd, relu_out=relu_out, mode=mode, **drop)
 
-    y_jax, pullback = jax.vjp(fn, jnp.asarray(x),
-                              jax.tree.map(jnp.asarray, lp),
-                              jax.tree.map(jnp.asarray, tables))
-    gx, glp, gt = pullback(jnp.asarray(g))
+    y_jax, (gx, glp, gt) = tp.fast_vjp(
+        fn, (jnp.asarray(x), jax.tree.map(jnp.asarray, lp),
+             jax.tree.map(jnp.asarray, tables)), jnp.asarray(g))
     want = dict(bridge._flatten(jax.tree.map(np.asarray, glp)))
     want.update(x=np.asarray(gx))
     want.update({f"table.{k}": np.asarray(v) for k, v in gt.items()})
@@ -313,9 +312,10 @@ def test_multicol_model_matches_jax_fused_interpret_path(
     jparams = jax.tree.map(jnp.asarray, params)
     calls = _spy(monkeypatch)
 
-    # jitted: one compile of the interpret-mode kernels, not op by op
-    want = np.asarray(jax.jit(lambda p: jm.apply(p, {}, jbatch)[0])(
-        jparams))
+    # jitted without XLA's backend optimizations: one compile of the
+    # interpret-mode kernels, not op by op
+    want = np.asarray(tp.compile_fast(jax.jit(
+        lambda p: jm.apply(p, {}, jbatch)[0]))(jparams))
     assert want.std() > 1e-2  # the parameters move the prediction
     with torch.no_grad():
         np.testing.assert_allclose(tm(tbatch).numpy(), want, atol=1e-5)
@@ -327,7 +327,8 @@ def test_multicol_model_matches_jax_fused_interpret_path(
         return jlosses.bce_sum(pred, jnp.asarray(y))
 
     jgrads = bridge.from_jax_params(
-        jax.tree.map(np.asarray, jax.jit(jax.grad(loss))(jparams)), tm)
+        jax.tree.map(np.asarray, tp.compile_fast(jax.jit(jax.grad(loss)))(
+            jparams)), tm)
     tm.train()
     pred = tm(tbatch)
     torch.nn.functional.binary_cross_entropy(
@@ -349,8 +350,8 @@ def test_batch_no_dispatch_tile_divides_takes_the_plain_layer():
     both sides (the XLA layer's ``jax.random.bernoulli`` masks)."""
     jm, params, tm = _models()
     batch = jm.layout.batch_from_dict(_request(24, seed=2))
-    fn = jax.jit(lambda p, b, k: (jm.apply(p, {}, b)[0], jm.apply(
-        p, {}, b, train=True, rng=k)[0]))
+    fn = tp.compile_fast(jax.jit(lambda p, b, k: (
+        jm.apply(p, {}, b)[0], jm.apply(p, {}, b, train=True, rng=k)[0])))
     want, want_train = (np.asarray(a) for a in fn(
         jax.tree.map(jnp.asarray, params),
         {k: jnp.asarray(v) for k, v in batch.items()},

@@ -50,6 +50,9 @@ def test_port_imports_no_jax():
             "satrans_torch.bench.scatter_probe, "
             "satrans_torch.bench.gather_probe, "
             "satrans_torch.bench.raw_e2e, satrans_torch.native, "
+            "satrans_torch.bench.serving_throughput, "
+            "satrans_torch.bench.probe_throughput, "
+            "satrans_torch.bench.kernels, "
             "satrans_torch.data.loader, satrans_torch.data.h5lite, "
             "satrans_torch.train.optimizers, satrans_torch.utils, "
             "satrans_torch.parallel.distributed, "

@@ -238,8 +238,8 @@ def _jax_predictions(case):
     jm, params, _ = _models(case, dropout=RATE)
     jb = {k: jnp.asarray(v) for k, v in
           jm.layout.batch_from_dict(_request(64, seed=4)).items()}
-    fn = jax.jit(lambda p, b, k: (
-        jm.apply(p, {}, b)[0], jm.apply(p, {}, b, train=True, rng=k)[0]))
+    fn = tp.compile_fast(jax.jit(lambda p, b, k: (
+        jm.apply(p, {}, b)[0], jm.apply(p, {}, b, train=True, rng=k)[0])))
     return tuple(np.asarray(a) for a in fn(params, jb,
                                            jax.random.PRNGKey(11)))
 
@@ -290,6 +290,7 @@ def _jax_fit(jm, params, x, y, mode):
 
     def build_and_record():
         build()
+        tp.fast_steps(tr)  # compiled without XLA's backend optimizations
         step = tr._train_step
 
         def record(*args):
@@ -374,12 +375,14 @@ def test_cli_deepfm_matches_jax(tmp_path, monkeypatch):
         jm = jbuild(args, satrans_tpu.FeatureLayout(
             [satrans_tpu.features.SparseFeature(c.name, c.vocab, c.dim)
              for c in layout.sparse]), cols, nums, flag)
-        params, _ = jm.init(jax.random.PRNGKey(args.seed))
+        # one compiled init, not its small ops one by one
+        params, _ = jax.jit(jm.init)(jax.random.PRNGKey(args.seed))
         tm.load_state_dict(bridge.from_jax_params(
             jax.tree.map(np.asarray, params), tm))
         return tm
 
     monkeypatch.setattr(tcli, "build_model", port_build)
+    tp.fast_trainer_steps(monkeypatch)
     preds = {}
     for side, cli in (("jax", jcli), ("port", tcli)):
         write = cli._write_results

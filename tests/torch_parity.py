@@ -72,7 +72,9 @@ def jax_and_port(mode="QK", relu_out=False, combiner="max", seed=0,
     kw = model_kwargs(mode, relu_out, **extra)
     jm = SATrans(layout=satrans_tpu.FeatureLayout(
         cols(satrans_tpu, combiner)), **kw)
-    params, _ = jm.init(jax.random.PRNGKey(3))
+    # every leaf is redrawn: the init's shapes alone (eager JAX init
+    # compiles each of its small ops)
+    params, _ = jax.eval_shape(jm.init, jax.random.PRNGKey(3))
     params = random_params(params, seed)
     tm = TorchSATrans(satrans_torch.FeatureLayout(
         cols(satrans_torch, combiner)), **kw, device="cpu")
@@ -142,11 +144,23 @@ def compile_fast(jitted):
     return call
 
 
+def fast_vjp(fn, args, g):
+    """``(fn(*args), the pullback of g)`` from one call compiled with FAST:
+    the interpret-mode kernels compiled once, not run op by op."""
+    def fwd_bwd(*a):
+        y, pullback = jax.vjp(fn, *a[:-1])
+        return y, pullback(a[-1])
+
+    return compile_fast(jax.jit(fwd_bwd))(*args, g)
+
+
 def fast_steps(trainer):
     """The JAX ``trainer``'s train and eval steps built by
     ``_build_steps``, each compiled with FAST."""
-    trainer._train_step = compile_fast(trainer._train_step)
-    trainer._eval_step = compile_fast(trainer._eval_step)
+    for name in ("_train_step", "_eval_step"):
+        step = getattr(trainer, name)
+        if hasattr(step, "lower"):  # not compiled with FAST yet
+            setattr(trainer, name, compile_fast(step))
 
 
 def fast_trainer_steps(monkeypatch):
